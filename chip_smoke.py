@@ -8,14 +8,26 @@
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes of the flagship configuration (bench.py:593-615: N=100k nodes,
    E=2M edges, D=128, fanouts (15, 10), batch 512, GraphSAGE hidden 256,
-   out 128, bf16), and times both (device time from CUDA-graph replay,
-   plus the wrapper's eager time; warm L2);
+   out 128, bf16; R=512 random negatives), and times both (device time from
+   CUDA-graph replay, plus the wrapper's eager time; warm L2). The training
+   kernels are checked on a real first training step: K1b on its random
+   negatives, K5 on its [512, 1024] bf16 score matrix, K4b on layer 2's
+   [512, 15, 256] bf16 block;
 4. runs the port's sampled-inference path — NALPTrainer(cached_hop,
    fused_cache) -> run_inference over all nodes — with every kernel's launch
    count reset just before and read just after, checks the export, and
    recomputes batch 0 through the plain versions, and times one batch's
    device work alone (CUDA-graph replay) beside the host-clocked ms/batch;
-5. prints one JSON line with every kernel's numbers, then the card line,
+5. recomputes one training step (loss and every gradient) through the
+   plain versions only and holds the kernel path to it;
+6. runs the port's training path — NALPTrainer(..., optimizer_args={
+   "learning_rate": "1e-3"}) -> init_state -> 5 warm-up steps ->
+   train_steps over 200 steps (anchors arange(B*K) % N, bench.py:617) —
+   with the launch counts reset just before and read just after; prints
+   ms/step, edges/s (counted as bench.py:631-638 counts them) and, from
+   torch.profiler over 20 more steps, the device ms/step, the device-busy
+   share and the five device ops that took longest;
+7. prints one JSON line with every kernel's numbers, then the card line,
    then {"ok": true, ...} as the last line.
 
 Any failed check raises; nothing is printed as a result without a card.
@@ -30,11 +42,17 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = Path(__file__).resolve().parent
 N, E, D = 100_000, 2_000_000, 128
 HID, OUT, BATCH = 256, 128, 512
+R = 512                     # random negatives per step
 FANOUTS = (15, 10)
+STEPS, WARMUP, PROFILED = 200, 5, 20
+# The kernels the inference path runs; training runs every kernel.
+INFERENCE_KERNELS = ("sample_uniform", "build_neighbor_cache", "gather_rows",
+                     "masked_reduce")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 
@@ -48,7 +66,11 @@ def cuda_ms(fn, reps=20):
     """Device time of one ``fn`` call: ``reps`` calls captured in one CUDA
     graph, replayed and timed with CUDA events, so the host's launch cost
     is left out (``eager_ms`` measures it in)."""
-    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -92,6 +114,45 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+def profile_summary(prof, steps, window_us, host_ms_per_step):
+    """Device time per step, busy share and the top device ops from a
+    torch.profiler run over ``steps`` training steps."""
+    from torch.autograd import DeviceType
+
+    # Device activity: kernels, copies and sets; user annotations (such as
+    # Optimizer.step) also appear on the device timeline but span others.
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    if not events:
+        return {"device_events": 0, "device_ms_per_step": None,
+                "note": "the profiler recorded no device activity"}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s_, e_ in spans[1:]:
+        if s_ > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    busy += cur_e - cur_s
+    by_name = {}
+    for e in events:
+        tot, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
+    device_ms = sum(t for t, _ in by_name.values()) / steps / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return {
+        "device_events": len(events),
+        "device_ms_per_step": device_ms,
+        "device_busy_ms_per_step": busy / steps / 1e3,
+        "busy_share_of_profiled_window": busy / window_us,
+        "busy_share_of_unprofiled_step": busy / steps / 1e3
+        / host_ms_per_step,
+        "profiled_window_ms_per_step": window_us / steps / 1e3,
+        "top5": [{"name": n[:100], "ms_per_step": t / steps / 1e3,
+                  "calls_per_step": c / steps} for n, (t, c) in top]}
+
+
 def main():
     if not (REPO / "gigl_tpu_torch" / "csrc").is_dir():
         sys.exit("chip_smoke: run from a checkout of the repository "
@@ -105,14 +166,21 @@ def main():
     from gigl_tpu_torch.models.encoders import GNNEncoder
     from gigl_tpu_torch.models.link_prediction import (
         LinkPredictionDecoder, LinkPredictionGNN)
+    from gigl_tpu_torch.losses.losses import retrieval_masks
     from gigl_tpu_torch.ops import _build
-    from gigl_tpu_torch.ops.fanout import _masked_reduce_plain, masked_reduce
+    from gigl_tpu_torch.ops.fanout import (
+        MaskedReduce, _masked_reduce_bwd_plain, _masked_reduce_plain,
+        masked_reduce, masked_reduce_bwd)
     from gigl_tpu_torch.ops.gather import (
         _expand_table_plain, _gather_rows_plain, expand_table, gather_rows)
     from gigl_tpu_torch.ops.hopcache import (
         _neighbor_cache_plain, build_neighbor_cache)
+    from gigl_tpu_torch.ops.retrieval import (
+        RetrievalLoss, _masked_logits_plain, _retrieval_bwd_plain,
+        _retrieval_fwd_plain, retrieval_bwd, retrieval_fwd)
     from gigl_tpu_torch.sampling.neighbor_sampler import (
-        _sample_uniform_plain, sample_uniform)
+        _sample_uniform_plain, _uniform_ids_plain, sample_uniform,
+        uniform_ids)
     from gigl_tpu_torch.training.dataset import DeviceGraph
     from gigl_tpu_torch.training.trainer import NALPTrainer, NALPTrainerConfig
 
@@ -285,7 +353,7 @@ def main():
     model = LinkPredictionGNN(
         GNNEncoder(D, HID, OUT, num_layers=2, conv="graphsage",
                    dtype=torch.bfloat16), LinkPredictionDecoder())
-    cfg = NALPTrainerConfig(fanouts=FANOUTS, num_random_negs=512,
+    cfg = NALPTrainerConfig(fanouts=FANOUTS, num_random_negs=R,
                             loss_type="retrieval", num_positives=1,
                             cached_hop=True, fused_cache=True)
     _build.reset_launches()
@@ -300,18 +368,13 @@ def main():
     total = run_inference(trainer, N, sink, InferenceConfig(batch_size=BATCH))
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
-    launches = dict(_build.launches)
+    launches_inf = dict(_build.launches)
     n_batches = -(-N // BATCH)
-    # K1/K2 run once per table refresh, K3/K4 once per batch.
-    per_pass = {"sample_uniform": 1, "build_neighbor_cache": 1,
-                "gather_rows": n_batches, "masked_reduce": n_batches}
-    for row in results:
-        row["launches"] = launches[row["name"]]
-        row["launches_per_pass"] = launches[row["name"]] / per_pass[row["name"]]
-    emit({"phase": "main_path", "launches": launches,
+    emit({"phase": "main_path", "path": "inference", "launches": launches_inf,
           "refresh_s": refresh_s, "inference_s": cold_s})
-    for kname in _build.KERNEL_NAMES:
-        check(launches[kname] > 0, f"{kname} was not launched on the main path")
+    for kname in INFERENCE_KERNELS:
+        check(launches_inf[kname] > 0,
+              f"{kname} was not launched on the inference path")
 
     ids = np.concatenate(sink.ids)
     embs = np.concatenate(sink.embs)
@@ -362,6 +425,249 @@ def main():
     emit({"phase": "batch0_vs_plain", "max_abs_err": err0, "scale": scale0})
     check(err0 <= 3e-2 * scale0,
           f"batch 0 differs from the plain recomputation: {err0} vs {scale0}")
+
+    # -- training: the new kernels on a real first step ------------------------
+    # A separate trainer with the same seeds as the main path's: launches
+    # made here to compare kernels with their plain versions are not counted.
+    def make_model():
+        return LinkPredictionGNN(
+            GNNEncoder(D, HID, OUT, num_layers=2, conv="graphsage",
+                       dtype=torch.bfloat16), LinkPredictionDecoder())
+
+    opt_args = {"learning_rate": "1e-3"}
+    anchors = (np.arange(BATCH * STEPS) % N).astype(np.int32).reshape(
+        STEPS, BATCH)
+    chk = NALPTrainer(make_model(), dg, cfg, optimizer_args=opt_args)
+    chk.init_state(0, batch_size=BATCH)
+    a0 = torch.as_tensor(anchors[0], device=dev)
+    batch0 = chk.sample_batch(a0, 0)
+    sup = dg.supervision_csr
+    pos_p, pmask_p, _ = _sample_uniform_plain(sup.indptr, sup.indices, a0, 1,
+                                              cfg.seed, 1_000_003)
+    rand_p = _uniform_ids_plain(R, cfg.seed, 3_000_017, N, dev)
+    check(torch.equal(batch0.pos, pos_p)
+          and torch.equal(batch0.pos_mask, pmask_p),
+          "K1 positives of step 0 are not bit-equal")
+    check(torch.equal(batch0.random_neg, rand_p),
+          "K1b random negatives of step 0 are not bit-equal")
+
+    def k1b_kernel():
+        return uniform_ids(R, cfg.seed, 3_000_017, N, dev)
+
+    # bytes: R int32 ids written; ops: ~24 integer ops per id.
+    record("uniform_ids", "gigl_tpu_torch/csrc/sample_uniform.cu",
+           "gigl_tpu/training/dataset.py:291", 0.0, cuda_ms(k1b_kernel),
+           cuda_ms(lambda: _uniform_ids_plain(R, cfg.seed, 3_000_017, N,
+                                              dev)),
+           nbytes=R * 4, nops=R * 24, eager_ms=eager_ms(k1b_kernel))
+
+    # K5 on the step's real [512, 1024] bf16 score matrix
+    with torch.no_grad():
+        q0, pos0, _, rand0 = chk._scores(chk.graph, batch0, train=True)
+        scores = chk.model.decode_all_pairs(
+            q0, torch.cat([pos0.reshape(BATCH, OUT), rand0]))
+    cids = torch.cat([batch0.pos.reshape(-1), batch0.random_neg])
+    masks = retrieval_masks(
+        temperature=cfg.temperature, query_ids=batch0.anchors,
+        candidate_ids=cids, remove_accidental_hits=True,
+        query_mask=batch0.pos_mask.reshape(-1),
+        candidate_mask=torch.cat([batch0.pos_mask.reshape(-1),
+                                  torch.ones(R, dtype=torch.bool,
+                                             device=dev)]))
+    check(scores.shape == (BATCH, BATCH + R)
+          and scores.dtype == torch.bfloat16, "step-0 scores are not "
+          "[512, 1024] bf16")
+    hit_cells = int((cids[:BATCH, None] == cids[None, :]).sum()) - BATCH
+    loss_k, cnt_k, lse_k, _ = retrieval_fwd(scores, masks)
+    loss_p, cnt_p, lse_p, _ = _retrieval_fwd_plain(scores, masks)
+    g5 = 1.0 / torch.clamp(cnt_k.float(), min=1.0)   # d mean / d loss_sum
+    ds_k = retrieval_bwd(scores, masks, lse_k, g5)
+    ds_p = _retrieval_bwd_plain(scores, masks, lse_p, g5)
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    check(int(cnt_k) == int(cnt_p), "K5 count differs from its plain version")
+    check(loss_rel <= 1e-5, f"K5 loss_sum relative error {loss_rel} > 1e-5")
+    check(torch.equal(retrieval_fwd(scores, masks)[0], loss_k),
+          "K5 forward is not bit-equal on a repeat run")
+    ds_scale = float(ds_p.float().abs().max())
+    ds_ulp = 2.0 ** (np.floor(np.log2(ds_scale)) - 7)
+    err5 = float((ds_k.float() - ds_p.float()).abs().max())
+    check(err5 <= ds_ulp, f"K5 dS error {err5} > one bf16 ulp {ds_ulp}")
+    v_lib = _masked_logits_plain(scores, masks).to(torch.bfloat16)
+    v_lib.requires_grad_()
+    target = torch.where(masks.query_mask,
+                         torch.arange(BATCH, device=dev), -100)
+
+    def k5_library():
+        return torch.autograd.grad(
+            F.cross_entropy(v_lib, target, ignore_index=-100,
+                            reduction="sum"), v_lib)
+
+    fwd_ms = cuda_ms(lambda: retrieval_fwd(scores, masks))
+    bwd_ms = cuda_ms(lambda: retrieval_bwd(scores, masks, lse_k, g5))
+    plain_fwd_ms = cuda_ms(lambda: _retrieval_fwd_plain(scores, masks))
+    plain_bwd_ms = cuda_ms(
+        lambda: _retrieval_bwd_plain(scores, masks, lse_p, g5))
+    qc = BATCH * (BATCH + R)
+    ids_bytes = BATCH * 4 + (BATCH + R) * 4 + BATCH + (BATCH + R)
+    # bytes: forward reads S, ids and masks once and writes lse, ce and
+    # the two scalars; backward reads S, ids, masks, lse and g once and
+    # writes dS. ops: ~6 fp32 ops per cell forward, ~7 backward.
+    record("retrieval_loss", "gigl_tpu_torch/csrc/retrieval_loss.cu",
+           "gigl_tpu/losses/losses.py:95", err5, fwd_ms + bwd_ms,
+           plain_fwd_ms + plain_bwd_ms,
+           nbytes=(qc * 2 + ids_bytes + BATCH * 8 + 8)
+           + (qc * 4 + ids_bytes + BATCH * 4 + 4),
+           nops=qc * 13, library_ms=cuda_ms(k5_library),
+           fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_fwd_ms=plain_fwd_ms,
+           plain_bwd_ms=plain_bwd_ms, loss_rel_err=loss_rel,
+           ds_scale=ds_scale, accidental_hit_cells=hit_cells,
+           eager_ms=eager_ms(lambda: retrieval_bwd(
+               scores, masks, *retrieval_fwd(scores, masks)[2:3], g5)))
+
+    # K4b on layer 2's [512, 15, 256] bf16 block: mean, and max with ties
+    g4 = torch.randn((BATCH, HID), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev).to(torch.bfloat16)
+
+    def k4b_kernel():
+        return masked_reduce_bwd(g4, m1, "mean")
+
+    def within_ulp(got, want, what):
+        scale = float(want.float().abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
+        check(err <= ulp, f"{what} error {err} > one bf16 ulp {ulp}")
+        return err
+
+    err4b = within_ulp(k4b_kernel(), _masked_reduce_bwd_plain(g4, m1, "mean"),
+                       "K4b mean")
+    x_ties = (h1.float() * 2).round().to(torch.bfloat16)
+    out_ties = masked_reduce(x_ties, m1, "max")
+    n_ties = int(((x_ties == out_ties[:, None, :]) & m1[..., None]).sum(1)
+                 .max())
+    check(n_ties > 1, "the K4b max input has no ties")
+    err4b = max(err4b, within_ulp(
+        masked_reduce_bwd(g4, m1, "max", x_ties, out_ties),
+        _masked_reduce_bwd_plain(g4, m1, "max", x_ties, out_ties),
+        "K4b max (ties)"))
+    # bytes: grad_out and the mask read once, [M, K, D] written; ops: one
+    # divide per output value (mean).
+    record("masked_reduce_bwd", "gigl_tpu_torch/csrc/masked_reduce.cu",
+           "gigl_tpu/ops/fanout.py:34", err4b, cuda_ms(k4b_kernel),
+           cuda_ms(lambda: _masked_reduce_bwd_plain(g4, m1, "mean")),
+           nbytes=BATCH * HID * 2 + BATCH * k1 + BATCH * k1 * HID * 2,
+           nops=BATCH * HID, max_ties=n_ties, eager_ms=eager_ms(k4b_kernel))
+
+    # -- one training step again, through the plain versions only ------------
+    chk.model.zero_grad(set_to_none=True)
+    loss_kp = chk.loss(batch0)
+    loss_kp.backward()
+    grads_k = {n: p.grad.detach().clone()
+               for n, p in chk.model.named_parameters()}
+    chk.model.zero_grad(set_to_none=True)
+    enc_t, fused_t = chk.model.encoder, chk.graph.fused_table
+    table_t = chk.graph.sample_tables[k1]
+
+    def encode_plain(ids):
+        roots_ = ids.reshape(-1).to(torch.int32)
+        nbr_, m_ = _expand_table_plain(table_t, roots_,
+                                       torch.ones_like(roots_, dtype=torch.bool))
+        h_ = []
+        for lvl in (roots_, nbr_.reshape(-1)):
+            rows_, _ = _gather_rows_plain(fused_t, lvl)
+            h_.append(torch.relu(enc_t.convs[0].block_cached(
+                rows_[:, :D].to(torch.bfloat16), rows_[:, D:])))
+        agg_ = MaskedReduce.apply(h_[1].reshape(-1, k1, HID), m_, "mean",
+                                  _masked_reduce_plain,
+                                  _masked_reduce_bwd_plain)
+        return enc_t.convs[1]._combine(h_[0], agg_)
+
+    scores_p = chk.model.decode_all_pairs(
+        encode_plain(a0), torch.cat([encode_plain(pos_p),
+                                     encode_plain(rand_p)]))
+    lsum_p, lcnt_p = RetrievalLoss.apply(scores_p, masks,
+                                         _retrieval_fwd_plain,
+                                         _retrieval_bwd_plain)
+    loss_pp = lsum_p / torch.clamp(lcnt_p.float(), min=1.0)
+    loss_pp.backward()
+    step_rel = abs(float(loss_kp) - float(loss_pp)) / abs(float(loss_pp))
+    grad_errs = {}
+    for n, p in chk.model.named_parameters():
+        scale = float(p.grad.abs().max())
+        check(scale > 0, f"plain step: no gradient for {n}")
+        grad_errs[n] = float((grads_k[n] - p.grad).abs().max()) / scale
+    emit({"phase": "train_step_vs_plain", "loss": float(loss_kp),
+          "loss_plain": float(loss_pp), "loss_rel_err": step_rel,
+          "grad_err_rel_to_scale": grad_errs})
+    # bf16 compute: the two paths round K4's and K5's fp32 sums in another
+    # order, so values may differ by a bf16 ulp (2**-7 relative) here and
+    # there; the loss within 1e-2 relative, every gradient within 5e-2 of
+    # its largest entry.
+    check(step_rel <= 1e-2, f"plain step loss differs by {step_rel}")
+    for n, e in grad_errs.items():
+        check(e <= 5e-2, f"plain step gradient of {n} differs by {e}")
+    del chk, scores, scores_p, v_lib
+
+    # -- the training main path --------------------------------------------------
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer_t = NALPTrainer(make_model(), dg, cfg, optimizer_args=opt_args)
+    state = trainer_t.init_state(0, batch_size=BATCH)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    after_init = dict(_build.launches)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    state, warm_losses = trainer_t.train_steps(state, anchors[:WARMUP], gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, losses = trainer_t.train_steps(state, anchors, gen)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    emit({"phase": "main_path", "path": "training", "launches": launches,
+          "launches_at_init": after_init, "init_s": init_s,
+          "steps": WARMUP + STEPS})
+    for kname in _build.KERNEL_NAMES:
+        check(launches[kname] > 0,
+              f"{kname} was not launched on the training path")
+    losses = losses.float().cpu().numpy()
+    check(np.isfinite(losses).all() and np.isfinite(
+        warm_losses.float().cpu().numpy()).all(), "training loss not finite")
+    first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+    check(last < first, f"training loss did not decrease: {first} -> {last}")
+    ms_step = train_s / STEPS * 1e3
+    edges_per_step = (2 * k1 + k1 * k2) * (BATCH + BATCH + R)
+    emit({"phase": "train_throughput", "steps": STEPS, "ms_per_step": ms_step,
+          "edges_per_step": edges_per_step,
+          "edges_per_s": edges_per_step / (ms_step / 1e3),
+          "loss_first20": first, "loss_last20": last,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+          "card": card})
+
+    # -- where the step's device time goes (torch.profiler) -------------------
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = trainer_t.train_steps(state, anchors[:PROFILED], gen)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    emit({"phase": "train_profile", "steps": PROFILED,
+          **profile_summary(prof, PROFILED, window_us, ms_step)})
+
+    # training-path launches on every kernel row (the inference path's too)
+    per_pass = {"sample_uniform": 1, "build_neighbor_cache": 1,
+                "gather_rows": n_batches, "masked_reduce": n_batches}
+    for row in results:
+        k = row["name"]
+        row["launches"] = launches[k]
+        row["launches_per_step"] = (launches[k] - after_init[k]) / (
+            WARMUP + STEPS)
+        row["launches_inference"] = launches_inf[k]
+        row["launches_per_inference_pass"] = launches_inf[k] / per_pass.get(
+            k, 1)
+    results.sort(key=lambda r: _build.KERNEL_NAMES.index(r["name"]))
 
     emit({"kernels": results})
     print(card, flush=True)

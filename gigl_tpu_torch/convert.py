@@ -5,13 +5,17 @@ numpy arrays — ``params/encoder/conv_{i}/lin_self/{kernel,bias}`` and
 ``.../lin_nbr/kernel`` for a ``LinkPredictionGNN``, or ``conv_{i}/...`` for
 a bare ``GNNEncoder`` — and returns the state dict of the matching port
 module. A flax ``Dense`` kernel is ``[in, out]``; an ``nn.Linear.weight``
-is ``[out, in]``.
+is ``[out, in]``. ``adam_state_from_optax`` maps an optax Adam state
+(``ScaleByAdamState(count, mu, nu)``, whose moments are trees of the
+params' structure) to the per-parameter state of a ``torch.optim.Adam``
+over ``model.parameters()``, so both packages can start from one mid-run
+state.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -52,3 +56,37 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             raise ValueError(f"unsupported model parameters {sorted(extra)}")
         return _convs(tree["encoder"], "encoder.")
     return _convs(tree, "")
+
+
+def _find_adam_state(state: Any) -> Optional[Any]:
+    """The first node of an optax state tree with ``count``, ``mu`` and
+    ``nu`` (a ``ScaleByAdamState``), found without importing optax."""
+    if all(hasattr(state, a) for a in ("count", "mu", "nu")):
+        return state
+    if isinstance(state, (tuple, list)):
+        for sub in state:
+            found = _find_adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_optax(opt_state: Any, model: torch.nn.Module
+                          ) -> Dict[int, Dict[str, torch.Tensor]]:
+    """The ``"state"`` entry of a ``torch.optim.Adam`` state dict whose
+    parameters are ``list(model.parameters())``, from an optax Adam state:
+    ``step`` = count, ``exp_avg`` = mu, ``exp_avg_sq`` = nu. Load it with
+    ``opt.load_state_dict({"state": ..., "param_groups":
+    opt.state_dict()["param_groups"]})``."""
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in opt_state")
+    mu, nu = params_from_flax(adam.mu), params_from_flax(adam.nu)
+    names = [name for name, _ in model.named_parameters()]
+    if set(mu) != set(names):
+        raise ValueError(f"optax moments {sorted(mu)} do not match the "
+                         f"model's parameters {sorted(names)}")
+    step = float(np.asarray(adam.count))
+    return {i: {"step": torch.tensor(step, dtype=torch.float32),
+                "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+            for i, name in enumerate(names)}

@@ -105,6 +105,106 @@ __global__ void masked_reduce_kernel(const uint4* __restrict__ x,
   out[i] = Vec<T>::store(acc);
 }
 
+// K4b masked_reduce_bwd — the backward of K4 (JAX differentiates
+// masked_mean / masked_sum / masked_max by autodiff):
+//   grad_x[r, j] = mask[r, j] * g[r] / max(cnt_r, 1)   (mean)
+//   grad_x[r, j] = mask[r, j] * g[r]                   (sum)
+//   grad_x[r, j, e] = g[r, e] / ties[r, e] where x[r, j, e] == out[r, e]
+//                     among valid slots, else 0         (max)
+// — the max rule of jax.vjp(jnp.max): the cotangent is shared equally among
+// the valid slots equal to the max; a row with no valid slot gets 0.
+// Bound: bytes — [M, K, D] written once (plus x read once for max). Same
+// layout as the forward: one thread per 16-byte piece of a row, looping over
+// the K slots, so every slot row is written (and read) coalesced.
+template <typename T, int OP>
+__global__ void masked_reduce_bwd_kernel(const uint4* __restrict__ grad_out,
+                                         const uint8_t* __restrict__ mask,
+                                         const uint4* __restrict__ x,
+                                         const uint4* __restrict__ out,
+                                         uint4* __restrict__ grad_x, int64_t m,
+                                         int k, int dv) {
+  constexpr int N = Vec<T>::N;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= m * dv) return;
+  const int64_t r = i / dv;
+  const int c = static_cast<int>(i - r * dv);
+  const uint8_t* mrow = mask + r * k;
+  float g[N];
+  Vec<T>::load(__ldg(grad_out + i), g);
+  float zero[N];
+#pragma unroll
+  for (int e = 0; e < N; ++e) zero[e] = 0.f;
+  const uint4 zero_v = Vec<T>::store(zero);
+  if (OP == kMax) {
+    float o[N];
+    Vec<T>::load(__ldg(out + i), o);
+    float ties[N];
+#pragma unroll
+    for (int e = 0; e < N; ++e) ties[e] = 0.f;
+    for (int j = 0; j < k; ++j) {
+      if (!__ldg(mrow + j)) continue;
+      float v[N];
+      Vec<T>::load(__ldg(x + (r * k + j) * dv + c), v);
+#pragma unroll
+      for (int e = 0; e < N; ++e) ties[e] += v[e] == o[e] ? 1.f : 0.f;
+    }
+    for (int j = 0; j < k; ++j) {
+      const int64_t at = (r * k + j) * dv + c;
+      if (!__ldg(mrow + j)) {
+        grad_x[at] = zero_v;
+        continue;
+      }
+      float v[N];
+      Vec<T>::load(__ldg(x + at), v);
+#pragma unroll
+      for (int e = 0; e < N; ++e) v[e] = v[e] == o[e] ? g[e] / ties[e] : 0.f;
+      grad_x[at] = Vec<T>::store(v);
+    }
+    return;
+  }
+  if (OP == kMean) {
+    int cnt = 0;
+    for (int j = 0; j < k; ++j) cnt += __ldg(mrow + j) ? 1 : 0;
+    const float n = static_cast<float>(cnt > 1 ? cnt : 1);
+#pragma unroll
+    for (int e = 0; e < N; ++e) g[e] /= n;
+  }
+  const uint4 g_v = Vec<T>::store(g);
+  for (int j = 0; j < k; ++j)
+    grad_x[(r * k + j) * dv + c] = __ldg(mrow + j) ? g_v : zero_v;
+}
+
+template <typename T>
+int launch_bwd(const void* grad_out, const void* mask, const void* x,
+               const void* out, void* grad_x, long long m, int k, int d, int op,
+               cudaStream_t stream) {
+  const int dv = d / Vec<T>::N;
+  const long long total = m * dv;
+  if (total == 0) return 0;
+  const int threads = 256;
+  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
+  const uint4* gv = static_cast<const uint4*>(grad_out);
+  const uint8_t* mv = static_cast<const uint8_t*>(mask);
+  const uint4* xv = static_cast<const uint4*>(x);
+  const uint4* ov = static_cast<const uint4*>(out);
+  uint4* gx = static_cast<uint4*>(grad_x);
+  if (op == kMean) {
+    masked_reduce_bwd_kernel<T, kMean><<<blocks, threads, 0, stream>>>(
+        gv, mv, xv, ov, gx, m, k, dv);
+  } else if (op == kSum) {
+    masked_reduce_bwd_kernel<T, kSum><<<blocks, threads, 0, stream>>>(
+        gv, mv, xv, ov, gx, m, k, dv);
+  } else if (op == kMax) {
+    if (x == nullptr || out == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    masked_reduce_bwd_kernel<T, kMax><<<blocks, threads, 0, stream>>>(
+        gv, mv, xv, ov, gx, m, k, dv);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
+}
+
 template <typename T>
 int launch(const void* x, const void* mask, void* out, long long m, int k,
            int d, int op, cudaStream_t stream) {
@@ -140,6 +240,26 @@ extern "C" int gigl_masked_reduce(const void* x, const void* mask, void* out,
     rc = launch<float>(x, mask, out, m, k, d, op, s);
   } else if (dtype == 1) {
     rc = launch<__nv_bfloat16>(x, mask, out, m, k, d, op, s);
+  } else {
+    rc = static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// grad_out [M, D] and grad_x [M, K, D] in x's type; x and out (the forward's
+// input and result) are read only for op 2 (max) and may be NULL otherwise.
+extern "C" int gigl_masked_reduce_bwd(const void* grad_out, const void* mask,
+                                      const void* x, const void* out,
+                                      void* grad_x, long long m, int k, int d,
+                                      int dtype, int op, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc;
+  if (dtype == 0) {
+    rc = launch_bwd<float>(grad_out, mask, x, out, grad_x, m, k, d, op, s);
+  } else if (dtype == 1) {
+    rc = launch_bwd<__nv_bfloat16>(grad_out, mask, x, out, grad_x, m, k, d,
+                                   op, s);
   } else {
     rc = static_cast<int>(cudaErrorInvalidValue);
   }

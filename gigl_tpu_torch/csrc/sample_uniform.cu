@@ -8,9 +8,24 @@
 // (node, slot), consecutive threads on consecutive output slots so the
 // three outputs are written coalesced; the hash runs in native uint32 and
 // the random index read is the only scattered access.
+//
+// K1b uniform_ids — replaces the batch-shared random-negative draw of
+// gigl_tpu/training/dataset.py sample_nalp_batch (:291-298):
+// out[i] = counter_rng_uniform(i, seed, hop, slot 0) % n, i in [0, count).
+// Bound: bytes (4 written per id, ~20 integer ops each); at 512 ids it is
+// launch-bound. One thread per id, the same hash as K1.
 #include "gigl_common.cuh"
 
 namespace {
+
+__global__ void uniform_ids_kernel(int64_t count, uint32_t seed, uint32_t hop,
+                                   uint32_t n, int32_t* __restrict__ out) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  const uint32_t bits =
+      gigl::counter_bits(static_cast<uint32_t>(i), seed, hop, 0u);
+  out[i] = static_cast<int32_t>(bits % n);
+}
 
 __global__ void sample_uniform_kernel(
     const int32_t* __restrict__ indptr, const int32_t* __restrict__ indices,
@@ -49,6 +64,19 @@ extern "C" int gigl_sample_uniform(const void* indptr, const void* indices,
         static_cast<const int32_t*>(frontier), m, fanout, seed, hop,
         static_cast<int32_t*>(ids), static_cast<uint8_t*>(mask),
         static_cast<int32_t*>(slots));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gigl_uniform_ids(long long count, uint32_t seed, uint32_t hop,
+                                uint32_t n, void* out, void* stream) {
+  if (n == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (count > 0) {
+    const int threads = 256;
+    const long long blocks = (count + threads - 1) / threads;
+    uniform_ids_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        count, seed, hop, n, static_cast<int32_t*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,9 +10,11 @@ The per-layer epilogue keeps the reference ordering: no activation after
 the last conv (unless asked), activation otherwise.
 
 Ported so far: GraphSAGE convs, activation placement, output L2
-normalization, and eval mode. Other convs, batch norm, jumping knowledge,
-the final linear layer, edge features, feature embeddings / DCN and
-training-mode dropout raise ``NotImplementedError``.
+normalization, and eval and train modes. Train-mode dropout draws its keep
+mask from an explicit ``torch.Generator`` (its bits differ from flax's);
+rate 0 is the identity, as in flax. Other convs, batch norm, jumping
+knowledge, the final linear layer, edge features and feature embeddings /
+DCN raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -105,12 +107,23 @@ class GNNEncoder(nn.Module):
             SAGEConv(dims[i], dims[i + 1], dtype=dtype, **(conv_kwargs or {}))
             for i in range(num_layers))
 
-    def _epilogue(self, x, is_last):
+    def _epilogue(self, x, is_last, train, generator):
         if is_last and not self.activation_after_last_conv:
             return x
         # No batch norm is ported, so activation placement relative to it
-        # does not matter; dropout is the identity in eval mode.
-        return self.activation(x)
+        # does not matter.
+        return self._dropout(self.activation(x), train, generator)
+
+    def _dropout(self, x, train, generator):
+        """flax ``nn.Dropout``: keep with probability 1 - rate and scale by
+        1 / (1 - rate); the identity in eval mode or at rate 0."""
+        if not train or self.dropout == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("train-mode dropout needs a torch.Generator")
+        u = torch.rand(x.shape, generator=generator, device=generator.device)
+        keep = (u >= self.dropout).to(x.device)
+        return torch.where(keep, x / (1.0 - self.dropout), 0.0).to(x.dtype)
 
     def _post(self, x):
         if self.l2_normalize_output:
@@ -125,12 +138,12 @@ class GNNEncoder(nn.Module):
         train: bool = False,
         hop_degrees: Optional[Sequence[torch.Tensor]] = None,
         cached_agg: Optional[Sequence[torch.Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """hop_feats[d]: [B, K1..Kd, Din]; masks[d]: [B, K1..Kd] bool.
         With cached_agg (cached_agg[d] [B, K1..Kd, Din]) the tree has
-        num_layers levels, otherwise num_layers + 1. Returns [B, out_dim]."""
-        if train:
-            raise _not_ported("training mode")
+        num_layers levels, otherwise num_layers + 1. Returns [B, out_dim].
+        ``train`` turns dropout on, drawn from ``generator``."""
         if edge_feats is not None and any(e is not None for e in edge_feats):
             raise _not_ported("edge features")
         L = self.num_layers
@@ -154,7 +167,7 @@ class GNNEncoder(nn.Module):
                     lead, dim = dst.shape[:-1], dst.shape[-1]
                     out = conv.block_cached(dst.reshape(-1, dim),
                                             cached_agg[d].reshape(-1, dim))
-                    out = self._epilogue(out, is_last)
+                    out = self._epilogue(out, is_last, train, generator)
                     new_h.append(out.reshape(lead + (out.shape[-1],)))
                 h = new_h
                 continue
@@ -165,7 +178,7 @@ class GNNEncoder(nn.Module):
                 out = conv.block(dst.reshape(-1, dst.shape[-1]),
                                  nbr.reshape(-1, k, nbr.shape[-1]),
                                  masks[d + 1].reshape(-1, k))
-                out = self._epilogue(out, is_last)
+                out = self._epilogue(out, is_last, train, generator)
                 new_h.append(out.reshape(lead + (out.shape[-1],)))
             h = new_h
         return self._post(h[0])

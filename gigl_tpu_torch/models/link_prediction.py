@@ -58,9 +58,10 @@ class LinkPredictionGNN(nn.Module):
         self.decoder = decoder
 
     def forward(self, hop_feats, masks, edge_feats=None, train: bool = False,
-                hop_degrees=None, cached_agg=None):
+                hop_degrees=None, cached_agg=None, generator=None):
         return self.encoder(hop_feats, masks, edge_feats, train=train,
-                            hop_degrees=hop_degrees, cached_agg=cached_agg)
+                            hop_degrees=hop_degrees, cached_agg=cached_agg,
+                            generator=generator)
 
     def decode(self, q, c):
         return self.decoder(q, c)

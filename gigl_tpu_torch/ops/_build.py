@@ -36,23 +36,33 @@ COMPILE_FLAGS = ARCH_FLAGS + [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c"]
 
 # Kernel name -> number of launches since the last reset_launches().
-KERNEL_NAMES = ("sample_uniform", "build_neighbor_cache", "gather_rows",
-                "masked_reduce")
+# retrieval_loss counts its forward and its backward entry point.
+KERNEL_NAMES = ("sample_uniform", "uniform_ids", "build_neighbor_cache",
+                "gather_rows", "masked_reduce", "masked_reduce_bwd",
+                "retrieval_loss")
 launches: Dict[str, int] = dict.fromkeys(KERNEL_NAMES, 0)
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 _U32 = ctypes.c_uint32
+_F32 = ctypes.c_float
 # C entry point -> argument types (the trailing pointer is the stream).
 _SIGNATURES = {
     "gigl_sample_uniform": [_P, _P, _I64, _P, _I64, _I32, _U32, _U32,
                             _P, _P, _P, _P],
+    "gigl_uniform_ids": [_I64, _U32, _U32, _U32, _P, _P],
     "gigl_build_neighbor_cache": [_P, _P, _I64, _I64, _P, _I32, _P, _I32,
                                   _U32, _U32, _I32, _P, _I64, _P],
     "gigl_gather_rows": [_P, _I64, _I64, _I32, _P, _I64, _P, _P, _P, _P,
                          _P, _P],
     "gigl_masked_reduce": [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P],
+    "gigl_masked_reduce_bwd": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
+                               _I32, _P],
+    "gigl_retrieval_loss_fwd": [_P, _I64, _I64, _I32, _P, _P, _P, _P, _F32,
+                                _F32, _I32, _I32, _P, _P, _P, _P, _P],
+    "gigl_retrieval_loss_bwd": [_P, _I64, _I64, _I32, _P, _P, _P, _P, _F32,
+                                _F32, _I32, _I32, _P, _P, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -9,6 +9,15 @@ Kernel K4 ``masked_reduce`` (``csrc/masked_reduce.cu``) replaces
 (fp32 or bf16) and a mask ``[M, K]`` -> ``[M, D]``, accumulated in fp32 and
 rounded once to the input type. :func:`_masked_reduce_plain` is its plain
 twin, used for CPU tensors only. A row with no valid slot reduces to 0.
+
+Kernel K4b ``masked_reduce_bwd`` (same source) is its backward, which the
+reference gets from autodiff: ``grad_out [M, D]`` -> ``grad_x [M, K, D]``
+(mean: ``mask * g / max(cnt, 1)``; sum: ``mask * g``; max: ``g`` shared
+equally among the valid slots equal to the output, as ``jax.vjp`` of
+``jnp.max`` shares it; all-masked rows get 0), with
+:func:`_masked_reduce_bwd_plain` as its twin. :func:`masked_reduce` is a
+``torch.autograd.Function`` whose forward is K4 and whose backward is K4b
+(the plain twins for CPU tensors).
 """
 
 from __future__ import annotations
@@ -42,10 +51,9 @@ def _masked_reduce_plain(x: torch.Tensor, mask: torch.Tensor, op: str):
     return out.to(x.dtype)
 
 
-def masked_reduce(x: torch.Tensor, mask: torch.Tensor, op: str) -> torch.Tensor:
-    """K4: x [M, K, D], mask [M, K] bool -> [M, D] mean/sum/max over valid K."""
-    if op not in _OPS:
-        raise ValueError(f"Unknown reduce {op!r}")
+def _masked_reduce_fwd(x: torch.Tensor, mask: torch.Tensor,
+                       op: str) -> torch.Tensor:
+    """K4 launch (plain twin for CPU tensors)."""
     if x.device.type == "cpu":
         return _masked_reduce_plain(x, mask, op)
     device = _build.require_cuda("masked_reduce", x, mask)
@@ -62,6 +70,91 @@ def masked_reduce(x: torch.Tensor, mask: torch.Tensor, op: str) -> torch.Tensor:
                   x.data_ptr(), mask.data_ptr(), out.data_ptr(), m, k, d,
                   _DTYPES[x.dtype], _OPS[op])
     return out
+
+
+def _masked_reduce_bwd_plain(grad_out, mask, op, x=None, out=None):
+    """Plain twin of K4b: fp32 arithmetic, one rounding to x's type."""
+    g = grad_out.float()[:, None, :]
+    m = mask[..., None]
+    if op == "max":
+        ties = m & (x.float() == out.float()[:, None, :])
+        share = g / ties.sum(dim=1, keepdim=True).clamp(min=1).float()
+        grad = torch.where(ties, share, 0.0)
+    else:
+        if op == "mean":
+            g = g / mask.sum(dim=1).clamp(min=1).float()[:, None, None]
+        grad = torch.where(m, g, 0.0)
+    return grad.to(grad_out.dtype)
+
+
+def masked_reduce_bwd(grad_out: torch.Tensor, mask: torch.Tensor, op: str,
+                      x: Optional[torch.Tensor] = None,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K4b: grad_out [M, D], mask [M, K] -> grad_x [M, K, D] in
+    grad_out's type. ``x`` and ``out`` (the forward's input and result)
+    are needed for max only."""
+    if op not in _OPS:
+        raise ValueError(f"Unknown reduce {op!r}")
+    if op == "max" and (x is None or out is None):
+        raise ValueError("masked_reduce_bwd: max needs the forward's x, out")
+    if grad_out.device.type == "cpu":
+        return _masked_reduce_bwd_plain(grad_out, mask, op, x, out)
+    saved = (x, out) if op == "max" else ()
+    device = _build.require_cuda("masked_reduce_bwd", grad_out, mask, *saved)
+    if grad_out.dim() != 2 or mask.dim() != 2 or mask.dtype != torch.bool:
+        raise ValueError("masked_reduce_bwd: expected grad_out [M, D] and "
+                         "bool mask [M, K]")
+    (m, k), d = mask.shape, grad_out.shape[1]
+    if grad_out.shape[0] != m or any(
+            t.dtype != grad_out.dtype for t in saved) or (saved and (
+                x.shape != (m, k, d) or out.shape != (m, d))):
+        raise ValueError("masked_reduce_bwd: expected grad_out [M, D], mask "
+                         "[M, K] and, for max, x [M, K, D] and out [M, D] "
+                         "of grad_out's type")
+    if grad_out.dtype not in _DTYPES:
+        raise ValueError(f"masked_reduce_bwd: dtype {grad_out.dtype} not "
+                         "supported")
+    if (d * grad_out.element_size()) % 16:
+        raise ValueError("masked_reduce_bwd: rows must be a multiple of 16 "
+                         "bytes")
+    grad_x = torch.empty((m, k, d), dtype=grad_out.dtype, device=device)
+    _build.launch("masked_reduce_bwd", "gigl_masked_reduce_bwd", device,
+                  grad_out.data_ptr(), mask.data_ptr(), _build.ptr(x),
+                  _build.ptr(out), grad_x.data_ptr(), m, k, d,
+                  _DTYPES[grad_out.dtype], _OPS[op])
+    return grad_x
+
+
+class MaskedReduce(torch.autograd.Function):
+    """``fwd(x, mask, op)`` with ``bwd(grad_out, mask, op, x, out)`` as
+    its gradient. :func:`masked_reduce` passes the K4 / K4b wrappers; a
+    caller can pass the plain twins to run both directions plainly on any
+    device."""
+
+    @staticmethod
+    def forward(ctx, x, mask, op, fwd, bwd):
+        out = fwd(x, mask, op)
+        ctx.op, ctx.bwd = op, bwd
+        if op == "max":
+            ctx.save_for_backward(mask, x, out)
+        else:
+            ctx.save_for_backward(mask)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        mask, *saved = ctx.saved_tensors
+        grad_x = ctx.bwd(grad_out.contiguous(), mask, ctx.op, *saved)
+        return grad_x, None, None, None, None
+
+
+def masked_reduce(x: torch.Tensor, mask: torch.Tensor, op: str) -> torch.Tensor:
+    """K4: x [M, K, D], mask [M, K] bool -> [M, D] mean/sum/max over valid
+    K; differentiable in x through K4b."""
+    if op not in _OPS:
+        raise ValueError(f"Unknown reduce {op!r}")
+    return MaskedReduce.apply(x, mask, op, _masked_reduce_fwd,
+                              masked_reduce_bwd)
 
 
 def masked_mean(nbr_feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

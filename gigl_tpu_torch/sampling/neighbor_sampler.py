@@ -9,7 +9,10 @@ degrees sample with replacement. The draw is bit-equal to the reference.
 Kernel K1 ``sample_uniform`` (``csrc/sample_uniform.cu``) replaces
 ``counter_rng_uniform`` + ``uniform_offsets`` + ``sample_neighbors``: one
 CUDA thread per (node, slot). :func:`_sample_uniform_plain` is its plain
-PyTorch twin, used for CPU tensors only. The hash runs there in int64
+PyTorch twin, used for CPU tensors only. Kernel K1b ``uniform_ids`` (the
+same source) is the batch-shared random-negative draw of
+``sample_nalp_batch``, with :func:`_uniform_ids_plain` as its twin. The
+hash runs in the twins in int64
 masked to 32 bits (PyTorch's CPU ``uint32`` lacks ``>>`` and ``%``), with
 each multiply split into 16-bit halves so nothing relies on signed
 overflow.
@@ -137,6 +140,36 @@ def sample_uniform(
         ids.data_ptr(), mask.data_ptr(), slots.data_ptr())
     shape = tuple(frontier.shape) + (fanout,)
     return ids.reshape(shape), mask.reshape(shape), slots.reshape(shape)
+
+
+def _uniform_ids_plain(count: int, seed: int, hop: int, num_nodes: int,
+                       device: torch.device) -> torch.Tensor:
+    """Plain PyTorch twin of K1b: the batch-shared random-negative draw of
+    ``sample_nalp_batch`` (counter_rng_uniform of ids 0..count-1, slot 0,
+    mod num_nodes)."""
+    ids = torch.arange(count, dtype=torch.int64, device=device)
+    bits = counter_rng_uniform(ids, seed, hop, 1)[:, 0]
+    return (bits % int(num_nodes)).to(torch.int32)
+
+
+def uniform_ids(count: int, seed: int, hop: int, num_nodes: int,
+                device: torch.device) -> torch.Tensor:
+    """K1b: ``count`` uniform node ids in [0, num_nodes), int32, one per
+    counter i = 0..count-1 (hash(i, seed, hop, slot 0) % num_nodes). On
+    the CPU the plain version runs; on a CUDA device the kernel launches
+    (or raises)."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return _uniform_ids_plain(count, seed, hop, num_nodes, device)
+    if device.type != "cuda":
+        raise ValueError(f"uniform_ids: unsupported device {device}")
+    if not 0 < int(num_nodes) <= _M32:
+        raise ValueError(f"uniform_ids: num_nodes {num_nodes} out of range")
+    out = torch.empty((int(count),), dtype=torch.int32, device=device)
+    _build.launch("uniform_ids", "gigl_uniform_ids", out.device, int(count),
+                  int(seed) & _M32, int(hop) & _M32, int(num_nodes),
+                  out.data_ptr())
+    return out
 
 
 def sample_neighbors(

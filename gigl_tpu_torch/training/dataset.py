@@ -1,5 +1,6 @@
-"""Device-resident graph bundle for sampled inference (port of
-``gigl_tpu/training/dataset.py`` ``DeviceGraph``).
+"""Device-resident graph bundle and NALP batches (port of
+``gigl_tpu/training/dataset.py``: ``DeviceGraph``, ``NALPBatch``,
+``sample_nalp_batch``, ``AnchorBatchIterator``).
 
 The preprocessed graph lives on the device as CSR + feature tables; per
 batch, neighbor sampling and feature hydration are device work. With
@@ -9,13 +10,17 @@ in-tree fanout with -1 marking invalid slots (K1), and optionally the fused
 ``[N, D + D]`` table of features and aggregates. Each batch then expands the
 tree by table-row gathers and hydrates both layer-1 inputs with one row
 gather per level (K3).
+
+``sample_nalp_batch`` draws per-anchor positives (and hard negatives) from
+the supervision (hard-negative) CSR through K1 and the batch-shared random
+negatives through K1b, bit-equal to the reference for every step.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -28,6 +33,8 @@ from gigl_tpu_torch.sampling.neighbor_sampler import (
     DeviceCSR,
     SampledBlocks,
     sample_blocks,
+    sample_neighbors,
+    uniform_ids,
 )
 from gigl_tpu_torch.types.graph import EdgeType
 
@@ -36,13 +43,27 @@ def _not_ported(what: str, ref: str):
     return NotImplementedError(f"{what} is not ported yet ({ref})")
 
 
+class NALPBatch(NamedTuple):
+    """Node-anchor link prediction batch (device tensors): anchors with
+    per-anchor positives and hard negatives plus batch-shared random
+    negatives. Label edge features are not ported."""
+
+    anchors: torch.Tensor        # [B] int32
+    pos: torch.Tensor            # [B, P] int32
+    pos_mask: torch.Tensor       # [B, P] bool
+    hard_neg: torch.Tensor       # [B, H] int32 (H may be 0)
+    hard_neg_mask: torch.Tensor  # [B, H] bool
+    random_neg: torch.Tensor     # [R] int32
+
+
 @dataclass
 class DeviceGraph:
-    """Homogeneous device-side graph bundle for inference.
+    """Homogeneous device-side graph bundle for training and inference.
 
     message_csr: adjacency for message passing (sampling direction "in":
     anchored on dst). supervision_csr / hard_neg_csr: label edges anchored
-    on the anchor side (used by training, which is not ported yet).
+    on the anchor side, from which NALP batches draw positives and hard
+    negatives.
     """
 
     message_csr: DeviceCSR
@@ -117,6 +138,42 @@ class DeviceGraph:
             degrees=torch.as_tensor(
                 np.diff(csr.indptr).astype(np.float32)).to(device),
         )
+
+    # -- NALP batches -----------------------------------------------------------
+    def sample_nalp_batch(
+        self,
+        anchors: torch.Tensor,
+        *,
+        num_positives: int,
+        num_hard_negs: int = 0,
+        num_random_negs: int = 512,
+        seed: int = 0,
+        step: int = 0,
+    ) -> NALPBatch:
+        """Positives (hop 1_000_003 + step) and hard negatives (hop
+        2_000_003 + step) from the label CSRs through K1; ``num_random_negs``
+        batch-shared uniform negatives (hop 3_000_017 + step) through K1b.
+        Hops wrap mod 2**32."""
+        if self.supervision_csr is None:
+            raise ValueError("No supervision CSR registered for NALP sampling")
+        anchors = anchors.to(device=self.device, dtype=torch.int32)
+        pos, pos_mask, _ = sample_neighbors(
+            self.supervision_csr, anchors, num_positives, seed=seed,
+            hop=1_000_003 + step)
+        if num_hard_negs > 0 and self.hard_neg_csr is not None:
+            hard, hard_mask, _ = sample_neighbors(
+                self.hard_neg_csr, anchors, num_hard_negs, seed=seed,
+                hop=2_000_003 + step)
+        else:
+            hard = torch.zeros(anchors.shape + (num_hard_negs,),
+                               dtype=torch.int32, device=self.device)
+            hard_mask = torch.zeros(anchors.shape + (num_hard_negs,),
+                                    dtype=torch.bool, device=self.device)
+        rand = uniform_ids(num_random_negs, seed, 3_000_017 + step,
+                           self.num_nodes, self.device)
+        return NALPBatch(anchors=anchors, pos=pos, pos_mask=pos_mask,
+                         hard_neg=hard, hard_neg_mask=hard_mask,
+                         random_neg=rand)
 
     # -- live sampling ----------------------------------------------------------
     def sample_hop_blocks(
@@ -229,3 +286,34 @@ class DeviceGraph:
         if self.nbr_cache is None:
             raise ValueError("no neighbor cache; call with_neighbor_cache()")
         return [gather_rows(self.nbr_cache, ids)[0] for ids in blocks.node_ids]
+
+
+@dataclass
+class AnchorBatchIterator:
+    """Host-side iterator over shuffled anchor-node batches (drops the
+    remainder to keep shapes static; epochs reshuffle deterministically by
+    epoch)."""
+
+    anchor_ids: np.ndarray
+    batch_size: int
+    seed: int = 0
+    drop_remainder: bool = True
+
+    def num_batches(self) -> int:
+        n = len(self.anchor_ids) // self.batch_size
+        if not self.drop_remainder and len(self.anchor_ids) % self.batch_size:
+            n += 1
+        return n
+
+    def epoch(self, epoch_idx: int) -> Iterator[np.ndarray]:
+        rng = np.random.default_rng(self.seed * 1_000_003 + epoch_idx)
+        perm = rng.permutation(self.anchor_ids)
+        n_full = len(perm) // self.batch_size
+        for i in range(n_full):
+            yield perm[i * self.batch_size: (i + 1) * self.batch_size]
+        rem = len(perm) % self.batch_size
+        if rem and not self.drop_remainder:
+            # Pad the tail batch by wrapping (callers mask by position).
+            tail = perm[-rem:]
+            pad = perm[: self.batch_size - rem]
+            yield np.concatenate([tail, pad])

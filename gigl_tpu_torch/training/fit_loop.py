@@ -1,0 +1,104 @@
+"""The NALP fit loop: validation cadence and early stopping (port of
+``gigl_tpu/training/fit_loop.py`` ``nalp_fit_loop``, replicated only).
+
+Steps run in chunks of ``val_every_n_batches`` through
+``trainer.train_steps``; a full chunk ends with an evaluation of
+``num_val_batches`` val batches, and early stopping on val MRR keeps a
+clone of the best weights, loaded back into the model at the end. With
+``cached_hop`` the tabularized tables are resampled each epoch after the
+first. Checkpointing and sharded (partitioned-trainer) runs are not
+ported.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from gigl_tpu_torch.training.dataset import AnchorBatchIterator
+from gigl_tpu_torch.training.early_stop import EarlyStopper
+
+logger = logging.getLogger(__name__)
+
+
+def _take(gen, n):
+    for i, x in enumerate(gen):
+        if i >= n:
+            return
+        yield x
+
+
+def nalp_fit_loop(
+    trainer,
+    state,
+    train_anchors: np.ndarray,
+    val_anchors: np.ndarray,
+    *,
+    batch_size: int,
+    num_epochs: int = 1,
+    val_every_n_batches: int = 100,
+    num_val_batches: int = 8,
+    early_stop_patience: int = 5,
+    log_every: int = 50,
+    scalar_logger=None,
+    checkpoint_dir: Optional[str] = None,
+) -> Tuple[object, Dict[str, float]]:
+    """Train ``trainer`` from ``state``; returns (state, final val
+    metrics) with the best weights (by val MRR) in the model."""
+    if checkpoint_dir is not None:
+        raise NotImplementedError(
+            "checkpoint_dir: training/checkpoint.py is not ported yet "
+            "(ROADMAP A11)")
+    cfg = trainer.cfg
+    it = AnchorBatchIterator(train_anchors, batch_size, seed=cfg.seed)
+    val_bs = max(1, min(batch_size, len(val_anchors)))
+    val_it = AnchorBatchIterator(np.asarray(val_anchors), val_bs,
+                                 seed=cfg.seed + 1)
+    stopper = EarlyStopper(patience=early_stop_patience)
+    generator = torch.Generator(device=trainer.device).manual_seed(cfg.seed)
+    global_step = 0
+    t0 = time.time()
+    stop = False
+    for epoch in range(num_epochs):
+        if epoch > 0 and cfg.cached_hop:
+            # Resample the frozen tabularized tables — the analog of
+            # re-running the reference's Subgraph Sampler.
+            trainer.refresh_cache(epoch)
+        batches = np.stack(list(it.epoch(epoch)))
+        for start in range(0, len(batches), val_every_n_batches):
+            chunk = batches[start: start + val_every_n_batches]
+            state, losses = trainer.train_steps(state, chunk, generator)
+            global_step += len(chunk)
+            if log_every:
+                logger.info(
+                    "epoch %d step %d loss %.4f (%.1f steps/s)",
+                    epoch, global_step, float(losses[-1]),
+                    len(chunk) / max(time.time() - t0, 1e-9))
+                t0 = time.time()
+            if scalar_logger is not None:
+                scalar_logger.log(global_step, loss=float(losses[-1]))
+            if len(chunk) == val_every_n_batches:
+                metrics = trainer.evaluate(
+                    list(_take(val_it.epoch(global_step), num_val_batches)),
+                    step=global_step)
+                logger.info("eval @%d: %s", global_step, metrics)
+                if scalar_logger is not None:
+                    scalar_logger.log(global_step, **metrics)
+                snap = {k: v.detach().clone()
+                        for k, v in trainer.model.state_dict().items()}
+                if stopper.update(metrics["mrr"], snap):
+                    logger.info("early stop at step %d (best mrr %.4f)",
+                                global_step, stopper.best_value)
+                    stop = True
+                    break
+        if stop:
+            break
+    if stopper.best_state is not None:
+        trainer.model.load_state_dict(stopper.best_state)
+    final = trainer.evaluate(
+        list(_take(val_it.epoch(10 ** 6), num_val_batches)))
+    return state, final

@@ -1,27 +1,87 @@
-"""Node-anchor link prediction trainer — the inference subset (port of
-``gigl_tpu/training/trainer.py`` ``NALPTrainerConfig`` and ``NALPTrainer``:
-``__init__``, ``refresh_cache``, ``_encode_impl``, ``encode_batch``).
+"""Node-anchor link prediction trainer (port of
+``gigl_tpu/training/trainer.py``: ``TrainState``, ``make_optimizer``,
+``NALPTrainerConfig``, ``nalp_loss_from_embeddings`` and ``NALPTrainer``).
 
-Training, evaluation and ``fit`` are not ported yet. The model's weights
-live in the model (``nn.Module``); ``init_params(seed)`` initializes them
-from a ``torch.Generator``, and ``gigl_tpu_torch.convert.params_from_flax``
-turns a reference param tree into a state dict.
+One training step is: ``sample_nalp_batch`` (K1 positives, K1b random
+negatives), three encode chains (anchors, positives, random negatives; K3
+gathers and K4 reduces forward, K4b backward), ``decode_all_pairs`` (a
+plain matmul), the loss (K5 for the retrieval loss), backward and the
+optimizer update. The model's weights live in the model (``nn.Module``);
+``TrainState`` holds the step and the ``torch.optim`` optimizer over them.
+Steps run eagerly on the current stream; ``train_steps`` keeps the losses
+on the device, so a chunk of steps does no host synchronisation.
+
+Not ported: the count-min-sketch logQ correction (``use_cms_correction``,
+ROADMAP B5b), label-edge-feature scorers, and checkpointing in ``fit``.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Any, Dict, Iterable, Mapping, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from gigl_tpu_torch.device import DeviceLike, resolve_device
+from gigl_tpu_torch.losses.losses import margin_loss, retrieval_loss, softmax_loss
+from gigl_tpu_torch.losses.metrics import hits_at_k, mean_reciprocal_rank
 from gigl_tpu_torch.models.encoders import cached_agg_kind
 from gigl_tpu_torch.models.link_prediction import LinkPredictionGNN
 from gigl_tpu_torch.training.base import BaseInferencer
-from gigl_tpu_torch.training.dataset import DeviceGraph
+from gigl_tpu_torch.training.dataset import DeviceGraph, NALPBatch
+
+# flax's lecun_normal: a normal truncated to [-2, 2] whose std is
+# sqrt(1 / fan_in) after truncation (0.8796... is the std of the truncated
+# unit normal).
+_TRUNC_STD = 0.87962566103423978
+
+
+class TrainState(NamedTuple):
+    step: int                          # host int; keys the per-step draws
+    optimizer: torch.optim.Optimizer   # over the model's parameters
+    cms: None = None                   # count-min sketch: not ported (B5b)
+
+
+def make_optimizer(args: Mapping[str, Any], params: Iterable[nn.Parameter]
+                   ) -> Tuple[torch.optim.Optimizer, float]:
+    """Optimizer from a flat string map (``learning_rate`` / ``optim_lr``,
+    ``optimizer`` adam | adamw | sgd, ``weight_decay``, ``momentum``,
+    ``grad_clip_norm``) with optax's defaults: Adam b1 0.9, b2 0.999,
+    eps 1e-8 outside the square root; AdamW weight decay 0.0 unless given;
+    SGD momentum 0.9. Returns (optimizer, clip norm; 0 = no clipping)."""
+    lr = float(args.get("learning_rate", args.get("optim_lr", 1e-3)))
+    wd = float(args.get("weight_decay", 0.0))
+    name = str(args.get("optimizer", "adam")).lower()
+    clip = float(args.get("grad_clip_norm", 0.0))
+    params = list(params)
+    if name == "adam":
+        opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    elif name == "adamw":
+        opt = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=wd)
+    elif name == "sgd":
+        opt = torch.optim.SGD(params, lr=lr,
+                              momentum=float(args.get("momentum", 0.9)))
+    else:
+        raise ValueError(f"Unknown optimizer {name!r}")
+    return opt, clip
+
+
+def clip_by_global_norm_(params: Iterable[nn.Parameter],
+                         max_norm: float) -> None:
+    """optax ``clip_by_global_norm``: when the global L2 norm of the
+    gradients reaches ``max_norm``, scale them by ``max_norm / norm`` (no
+    epsilon; computed on the device, no host sync)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
+    for g in grads:
+        g.mul_(scale.to(g.dtype))
 
 
 @dataclass
@@ -51,14 +111,75 @@ class NALPTrainerConfig:
     global_candidate_pool: bool = False
 
 
+def nalp_loss_from_embeddings(model, cfg: NALPTrainerConfig,
+                              batch: NALPBatch, q, pos, hard, rand
+                              ) -> torch.Tensor:
+    """Mean NALP loss from the encoded groups (q [B, D], pos [B, P, D],
+    hard [B, H, D] or None, rand [R, D]).
+
+    Retrieval: queries repeated once per positive; candidates = positives
+    ++ hard negatives ++ random negatives, padded positive / hard slots
+    masked as candidate columns; diagonal labels, duplicate-query and
+    accidental-hit masks (K5). Margin / softmax: each positive against the
+    hard and random negatives."""
+    if getattr(model, "edge_scorer", None) is not None:
+        raise NotImplementedError(
+            "edge-scorer loss terms are not ported yet "
+            "(gigl_tpu.training.trainer.nalp_loss_from_embeddings)")
+    B, P, D = pos.shape
+    if cfg.loss_type == "retrieval":
+        parts = [pos.reshape(B * P, D)]
+        id_parts = [batch.pos.reshape(-1)]
+        cmask_parts = [batch.pos_mask.reshape(-1)]
+        if hard is not None and hard.shape[1] > 0:
+            parts.append(hard.reshape(-1, D))
+            id_parts.append(batch.hard_neg.reshape(-1))
+            cmask_parts.append(batch.hard_neg_mask.reshape(-1))
+        parts.append(rand)
+        id_parts.append(batch.random_neg)
+        cmask_parts.append(torch.ones(rand.shape[0], dtype=torch.bool,
+                                      device=rand.device))
+        scores = model.decode_all_pairs(q.repeat_interleave(P, dim=0),
+                                        torch.cat(parts))      # [B*P, C]
+        loss_sum, count = retrieval_loss(
+            scores,
+            temperature=cfg.temperature,
+            query_ids=batch.anchors.repeat_interleave(P),
+            candidate_ids=torch.cat(id_parts),
+            remove_accidental_hits=cfg.remove_accidental_hits,
+            query_mask=batch.pos_mask.reshape(-1),
+            candidate_mask=torch.cat(cmask_parts))
+    else:
+        pos_scores = model.decode(q[:, None, :], pos)          # [B, P]
+        neg_scores = model.decode_all_pairs(q, rand)           # [B, R]
+        neg_mask = torch.ones(neg_scores.shape, dtype=torch.bool,
+                              device=neg_scores.device)
+        if hard is not None:
+            neg_scores = torch.cat(
+                [model.decode(q[:, None, :], hard), neg_scores], -1)
+            neg_mask = torch.cat([batch.hard_neg_mask, neg_mask], -1)
+        if cfg.loss_type == "margin":
+            loss_sum, count = margin_loss(
+                pos_scores, neg_scores, margin=cfg.margin,
+                pos_mask=batch.pos_mask, neg_mask=neg_mask)
+        elif cfg.loss_type == "softmax":
+            loss_sum, count = softmax_loss(
+                pos_scores, neg_scores, temperature=cfg.temperature,
+                pos_mask=batch.pos_mask, neg_mask=neg_mask)
+        else:
+            raise ValueError(f"Unknown loss {cfg.loss_type!r}")
+    return loss_sum / torch.clamp(count.to(torch.float32), min=1.0)
+
+
 class NALPTrainer(BaseInferencer):
-    """Node-anchor link prediction model over a DeviceGraph (inference)."""
+    """Node-anchor link prediction trainer over a DeviceGraph."""
 
     def __init__(
         self,
         model: LinkPredictionGNN,
         graph: DeviceGraph,
         config: NALPTrainerConfig,
+        optimizer_args: Optional[Dict[str, Any]] = None,
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
@@ -68,26 +189,58 @@ class NALPTrainer(BaseInferencer):
         self.model = model.to(self.device).eval()
         self.graph = graph
         self.cfg = config
+        self.optimizer_args = dict(optimizer_args or {})
+        self.grad_clip_norm = 0.0
+        # Graph for evaluate() when the val/test supervision edges differ
+        # from the train graph's.
+        self.eval_graph: Optional[DeviceGraph] = None
         if config.quantize_cache:
             raise NotImplementedError(
                 "quantize_cache is not ported yet "
                 "(gigl_tpu.ops.quantized.QuantizedTable)")
+        if config.use_cms_correction:
+            raise NotImplementedError(
+                "use_cms_correction (count-min-sketch logQ correction) is "
+                "not ported yet (ROADMAP B5b)")
         if self.cfg.cached_hop:
             # Validates the conv is cacheable up front and builds the tables.
             self.refresh_cache(0)
 
+    # -- state -----------------------------------------------------------------
     def init_params(self, seed: int = 0) -> None:
-        """Initialize every Linear from a seeded ``torch.Generator`` on the
-        CPU (so the same seed gives the same weights on every device):
-        kernels ~ N(0, 1/fan_in) (flax's lecun-normal scale), biases 0."""
+        """Initialize every Linear as flax's default ``Dense`` does, from a
+        seeded ``torch.Generator`` on the CPU (the same seed gives the same
+        weights on every device): kernels lecun-normal (a normal truncated
+        to [-2, 2] times sqrt(1/fan_in) / 0.8796), biases 0."""
         gen = torch.Generator().manual_seed(int(seed))
+        lo, hi = (0.5 * (1.0 + math.erf(b / math.sqrt(2.0))) for b in (-2, 2))
         with torch.no_grad():
             for mod in self.model.modules():
                 if isinstance(mod, nn.Linear):
-                    w = torch.randn(mod.weight.shape, generator=gen)
-                    mod.weight.copy_(w / math.sqrt(mod.in_features))
+                    u = torch.rand(mod.weight.shape, generator=gen,
+                                   dtype=torch.float64) * (hi - lo) + lo
+                    z = (math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)).clamp(
+                        -2.0, 2.0)
+                    std = math.sqrt(1.0 / mod.in_features) / _TRUNC_STD
+                    mod.weight.copy_(z * std)
                     if mod.bias is not None:
                         mod.bias.zero_()
+
+    def init_state(self, seed: int = 0, batch_size: Optional[int] = None,
+                   params: Optional[Mapping[str, torch.Tensor]] = None
+                   ) -> TrainState:
+        """Load ``params`` (a state dict, e.g. from ``params_from_flax``)
+        or initialize the weights from ``seed``, then build the optimizer.
+        ``batch_size`` is the reference's tracing shape; the port's weights
+        do not depend on it."""
+        del batch_size
+        if params is None:
+            self.init_params(seed)
+        else:
+            self.model.load_state_dict(params)
+        opt, self.grad_clip_norm = make_optimizer(self.optimizer_args,
+                                                  self.model.parameters())
+        return TrainState(step=0, optimizer=opt)
 
     # -- hop cache -------------------------------------------------------------
     def refresh_cache(self, epoch: int = 0) -> None:
@@ -106,7 +259,9 @@ class NALPTrainer(BaseInferencer):
 
     # -- encoding --------------------------------------------------------------
     def _encode_impl(self, graph: DeviceGraph, node_ids: torch.Tensor,
-                     seed_offset: int, train: bool) -> torch.Tensor:
+                     seed_offset: int, train: bool,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
         """Encode an arbitrary-shaped node id tensor -> embeddings of the
         same leading shape + [D]."""
         shape = tuple(node_ids.shape)
@@ -126,21 +281,154 @@ class NALPTrainer(BaseInferencer):
                 feats, masks, degs = graph.hydrate(blocks)
                 cached = graph.hydrate_cached(blocks)
             emb = self.model(feats, masks, None, train=train,
-                             hop_degrees=degs, cached_agg=cached)
+                             hop_degrees=degs, cached_agg=cached,
+                             generator=generator)
             return emb.reshape(shape + (emb.shape[-1],))
         blocks = graph.sample_hop_blocks(
             node_ids, self.cfg.fanouts, seed=self.cfg.seed + seed_offset,
             method=self.cfg.sampling_method)
         feats, masks, degs = graph.hydrate(blocks)
-        emb = self.model(feats, masks, None, train=train, hop_degrees=degs)
+        emb = self.model(feats, masks, None, train=train, hop_degrees=degs,
+                         generator=generator)
         return emb.reshape(shape + (emb.shape[-1],))
+
+    def _ids(self, node_ids) -> torch.Tensor:
+        return torch.as_tensor(node_ids, dtype=torch.int32,
+                               device=self.device)
 
     def encode_batch(self, node_ids) -> torch.Tensor:
         """Inference encode of a batch of node ids (array or tensor)."""
-        ids = torch.as_tensor(node_ids, dtype=torch.int32, device=self.device)
         with torch.inference_mode():
-            return self._encode_impl(self.graph, ids, 0, False)
+            return self._encode_impl(self.graph, self._ids(node_ids), 0,
+                                     False)
 
     def infer_batch(self, batch) -> torch.Tensor:
         """batch: node ids -> embeddings [B, D]."""
         return self.encode_batch(batch)
+
+    def _scores(self, graph: DeviceGraph, batch: NALPBatch, train: bool,
+                generator: Optional[torch.Generator] = None):
+        """Per-group encoder passes: anchors, positives, random negatives,
+        hard negatives (None when there are none)."""
+        q = self._encode_impl(graph, batch.anchors, 0, train, generator)
+        pos = self._encode_impl(graph, batch.pos, 1, train, generator)
+        rand = self._encode_impl(graph, batch.random_neg, 2, train, generator)
+        hard = None
+        if batch.hard_neg.shape[-1] > 0:
+            hard = self._encode_impl(graph, batch.hard_neg, 3, train,
+                                     generator)
+        return q, pos, hard, rand
+
+    # -- training --------------------------------------------------------------
+    def sample_batch(self, anchors, step: int) -> NALPBatch:
+        """The training batch of ``step`` for ``anchors``."""
+        return self.graph.sample_nalp_batch(
+            self._ids(anchors),
+            num_positives=self.cfg.num_positives,
+            num_hard_negs=self.cfg.num_hard_negs,
+            num_random_negs=self.cfg.num_random_negs,
+            seed=self.cfg.seed,
+            step=step)
+
+    def loss(self, batch: NALPBatch,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Train-mode mean loss of ``batch`` (differentiable in the
+        model's weights)."""
+        q, pos, hard, rand = self._scores(self.graph, batch, True, generator)
+        return nalp_loss_from_embeddings(self.model, self.cfg, batch, q, pos,
+                                         hard, rand)
+
+    def train_step(self, state: TrainState, anchors,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Tuple[TrainState, torch.Tensor]:
+        """One step: sample, forward, backward, update. Returns the new
+        state and the loss as a 0-d device tensor (no host sync)."""
+        batch = self.sample_batch(anchors, state.step)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss = self.loss(batch, generator)
+        loss.backward()
+        if self.grad_clip_norm > 0:
+            clip_by_global_norm_(self.model.parameters(), self.grad_clip_norm)
+        state.optimizer.step()
+        return state._replace(step=state.step + 1), loss.detach()
+
+    def train_steps(self, state: TrainState, anchors_kb,
+                    generator: Optional[torch.Generator] = None
+                    ) -> Tuple[TrainState, torch.Tensor]:
+        """``anchors_kb.shape[0]`` consecutive steps; returns the state and
+        the per-step losses as a device tensor [K], with no host sync."""
+        anchors_kb = self._ids(anchors_kb)
+        losses = torch.empty((anchors_kb.shape[0],), dtype=torch.float32,
+                             device=self.device)
+        for k in range(anchors_kb.shape[0]):
+            state, loss = self.train_step(state, anchors_kb[k], generator)
+            losses[k] = loss
+        return state, losses
+
+    # -- evaluation ------------------------------------------------------------
+    def _eval_step(self, graph: DeviceGraph, anchors: torch.Tensor,
+                   step: int):
+        """Rank each positive against the random negatives only (negatives
+        equal to the row's positive are masked): (rr sum, hits sums [len
+        eval_ks], count)."""
+        batch = graph.sample_nalp_batch(
+            anchors,
+            num_positives=self.cfg.num_positives,
+            num_hard_negs=0,
+            num_random_negs=self.cfg.num_random_negs,
+            seed=self.cfg.seed + 7_777_777,
+            step=step)
+        q, pos, _, rand = self._scores(graph, batch, train=False)
+        P = pos.shape[1]
+        pos_flat = self.model.decode(q[:, None, :], pos).reshape(-1)
+        neg_rep = self.model.decode_all_pairs(q, rand).repeat_interleave(
+            P, dim=0)                                              # [B*P, R]
+        mask_flat = batch.pos_mask.reshape(-1)
+        neg_mask = batch.pos.reshape(-1)[:, None] != batch.random_neg[None, :]
+        rr, cnt = mean_reciprocal_rank(pos_flat, neg_rep, pos_mask=mask_flat,
+                                       neg_mask=neg_mask)
+        hits, _ = hits_at_k(pos_flat, neg_rep, self.cfg.eval_ks,
+                            pos_mask=mask_flat, neg_mask=neg_mask)
+        return rr, torch.stack([hits[int(k)] for k in self.cfg.eval_ks]), cnt
+
+    def evaluate(self, anchor_batches, step: int = 0) -> Dict[str, float]:
+        """MRR and hits@k over ``anchor_batches`` (batch i keyed by step +
+        i); one host sync at the end."""
+        g = self.eval_graph if self.eval_graph is not None else self.graph
+        with torch.inference_mode():
+            parts = [self._eval_step(g, self._ids(anchors), step + i)
+                     for i, anchors in enumerate(anchor_batches)]
+            rr, hits, cnt = (torch.stack(p).sum(0).cpu() for p in zip(*parts))
+        cnt_total = max(float(cnt), 1.0)
+        out = {"mrr": float(rr) / cnt_total}
+        for i, k in enumerate(self.cfg.eval_ks):
+            out[f"hits@{k}"] = float(hits[i]) / cnt_total
+        return out
+
+    def fit(
+        self,
+        state: TrainState,
+        train_anchors: np.ndarray,
+        val_anchors: np.ndarray,
+        *,
+        batch_size: int,
+        num_epochs: int = 1,
+        val_every_n_batches: int = 100,
+        num_val_batches: int = 8,
+        early_stop_patience: int = 5,
+        log_every: int = 50,
+        scalar_logger=None,
+        checkpoint_dir: Optional[str] = None,
+    ) -> Tuple[TrainState, Dict[str, float]]:
+        """The NALP train loop: batches with periodic validation and early
+        stopping on val MRR; the best weights are loaded back at the end.
+        ``scalar_logger``: any object with ``.log(step, **scalars)``."""
+        from gigl_tpu_torch.training.fit_loop import nalp_fit_loop
+
+        return nalp_fit_loop(
+            self, state, train_anchors, val_anchors,
+            batch_size=batch_size, num_epochs=num_epochs,
+            val_every_n_batches=val_every_n_batches,
+            num_val_batches=num_val_batches,
+            early_stop_patience=early_stop_patience, log_every=log_every,
+            scalar_logger=scalar_logger, checkpoint_dir=checkpoint_dir)

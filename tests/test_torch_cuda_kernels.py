@@ -8,9 +8,15 @@ without one. Run them on a machine with a card (no JAX needed there):
 
 Edge shapes beyond the flagship ones that chip_smoke.py checks: isolated
 nodes, fanouts above a warp (40), rows narrower and wider than a warp's
-16-byte pieces, 4-byte-only rows, strided tables, all-masked rows. Integer
-and copied outputs must be bit-equal; fp32 sums rtol 1e-5 (order differs);
-bf16 reductions within 2e-2 of the row scale (one rounding vs another).
+16-byte pieces, 4-byte-only rows, strided tables, all-masked rows, a single
+query, score rows that are not a multiple of 32 wide. Integer and copied
+outputs must be bit-equal; fp32 sums rtol 1e-5 (order differs); bf16
+reductions within 2e-2 of the row scale (one rounding vs another). The
+masked-reduce backward does the twin's arithmetic (one fp32 division, one
+rounding): fp32 rtol 1e-6, bf16 within one ulp of the gradient's scale.
+The retrieval loss: loss_sum within 1e-5 relative (fp32 sums in another
+order), dS within 1e-5 of its scale in fp32 and one bf16 ulp of its scale
+in bf16 (each element rounded once from nearly equal fp32 values).
 """
 
 import numpy as np
@@ -25,7 +31,12 @@ from gigl_tpu_torch.models.link_prediction import (
     LinkPredictionGNN,
 )
 from gigl_tpu_torch.ops import _build
-from gigl_tpu_torch.ops.fanout import _masked_reduce_plain, masked_reduce
+from gigl_tpu_torch.ops.fanout import (
+    _masked_reduce_bwd_plain,
+    _masked_reduce_plain,
+    masked_reduce,
+    masked_reduce_bwd,
+)
 from gigl_tpu_torch.ops.gather import (
     _expand_table_plain,
     _gather_rows_plain,
@@ -36,10 +47,19 @@ from gigl_tpu_torch.ops.hopcache import (
     _neighbor_cache_plain,
     build_neighbor_cache,
 )
+from gigl_tpu_torch.ops.retrieval import (
+    RetrievalMasks,
+    _retrieval_bwd_plain,
+    _retrieval_fwd_plain,
+    retrieval_bwd,
+    retrieval_fwd,
+)
 from gigl_tpu_torch.sampling.neighbor_sampler import (
     DeviceCSR,
     _sample_uniform_plain,
+    _uniform_ids_plain,
     sample_uniform,
+    uniform_ids,
 )
 from gigl_tpu_torch.training.dataset import DeviceGraph
 from gigl_tpu_torch.training.trainer import NALPTrainer, NALPTrainerConfig
@@ -147,6 +167,106 @@ def test_masked_reduce_matches_plain(dev, dtype, op, shape):
         assert float((got.float() - want.float()).abs().max()) <= 2e-2 * scale
 
 
+@pytest.mark.parametrize("count,n,step", [
+    (1, 7, 0), (512, 100_000, 3_000_017), (513, 1, 5),
+    (4096, 2**31 + 11, 2**32 - 1)])
+def test_uniform_ids_bit_equal(dev, count, n, step):
+    before = _build.launches["uniform_ids"]
+    got = uniform_ids(count, 3, step, n, dev)
+    torch.cuda.synchronize()
+    assert _build.launches["uniform_ids"] == before + 1
+    want = _uniform_ids_plain(count, 3, step, n, dev)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["mean", "sum", "max"])
+@pytest.mark.parametrize("shape", [(40, 15, 256), (9, 3, 8), (64, 40, 32)])
+def test_masked_reduce_bwd_matches_plain(dev, dtype, op, shape):
+    m, k, d = shape
+    g = torch.Generator(device=dev).manual_seed(3)
+    # A coarse grid, so the max has ties to share its gradient among.
+    x = (torch.randn(shape, generator=g, device=dev) * 2).round().to(dtype)
+    mask = torch.rand((m, k), generator=g, device=dev) < 0.6
+    mask[:2] = False
+    out = masked_reduce(x, mask, op)
+    grad_out = torch.randn((m, d), generator=g, device=dev).to(dtype)
+    before = _build.launches["masked_reduce_bwd"]
+    got = masked_reduce_bwd(grad_out, mask, op, x, out)
+    torch.cuda.synchronize()
+    assert _build.launches["masked_reduce_bwd"] == before + 1
+    want = _masked_reduce_bwd_plain(grad_out, mask, op, x, out)
+    assert got.dtype == dtype and got.shape == (m, k, d)
+    assert torch.equal(got[~mask], torch.zeros_like(got[~mask]))
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    else:
+        ulp = 2.0 ** (np.floor(np.log2(float(want.float().abs().max()))) - 7)
+        assert float((got.float() - want.float()).abs().max()) <= ulp
+    # Through autograd: masked_reduce's backward is K4b.
+    xg = x.clone().requires_grad_()
+    (auto,) = torch.autograd.grad(masked_reduce(xg, mask, op), xg, grad_out)
+    assert torch.equal(auto, got)
+
+
+def _retrieval_inputs(dev, q, c, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    scores = (torch.randn((q, c), generator=g, device=dev) * 0.5).to(dtype)
+    qids = torch.randint(0, max(q // 2, 1), (q,), generator=g, device=dev,
+                         dtype=torch.int32)
+    cids = torch.randint(0, max(c // 3, 1), (c,), generator=g, device=dev,
+                         dtype=torch.int32)
+    cmask = torch.rand(c, generator=g, device=dev) < 0.8
+    qmask = torch.rand(q, generator=g, device=dev) < 0.8
+    qmask[:c] &= cmask[:q]   # a query whose positive column is masked is too
+    return scores, RetrievalMasks(
+        temperature=0.07, query_ids=qids, candidate_ids=cids,
+        remove_accidental_hits=True, query_mask=qmask, candidate_mask=cmask)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q,c,case", [
+    (1, 1, "ids"), (1, 40, "ids"), (64, 64, "ids"), (50, 77, "ids"),
+    (512, 1024, "ids"), (33, 70, "none"), (40, 20, "none"),
+    (16, 48, "all_masked_row")])
+def test_retrieval_loss_matches_plain(dev, dtype, q, c, case):
+    scores, masks = _retrieval_inputs(dev, q, c, dtype)
+    if case == "none":
+        masks = RetrievalMasks(temperature=0.5)
+    elif case == "all_masked_row":
+        # Row 0's candidates are all duplicates or masked; the row is a
+        # padded query, as the trainer makes it.
+        cmask = masks.candidate_mask.clone()
+        cmask[0] = False
+        qmask = masks.query_mask.clone()
+        qmask[0] = False
+        cids = masks.candidate_ids.clone()
+        cids[:] = torch.where(cmask, cids[0], cids)
+        masks = RetrievalMasks(
+            temperature=0.07, query_ids=masks.query_ids, candidate_ids=cids,
+            remove_accidental_hits=True, query_mask=qmask,
+            candidate_mask=cmask)
+    before = _build.launches["retrieval_loss"]
+    loss, count, lse, ce = retrieval_fwd(scores, masks)
+    gscale = torch.tensor(0.37, device=dev)
+    ds = retrieval_bwd(scores, masks, lse, gscale)
+    torch.cuda.synchronize()
+    assert _build.launches["retrieval_loss"] == before + 2
+    wloss, wcount, wlse, wce = _retrieval_fwd_plain(scores, masks)
+    wds = _retrieval_bwd_plain(scores, masks, wlse, gscale)
+    assert int(count) == int(wcount)
+    assert abs(float(loss) - float(wloss)) <= 1e-5 * max(abs(float(wloss)),
+                                                        1e-30)
+    torch.testing.assert_close(ce, wce, rtol=1e-5, atol=1e-5)
+    assert ds.dtype == dtype and ds.shape == (q, c)
+    scale = float(wds.float().abs().max())
+    tol = (1e-5 * scale if dtype == torch.float32 or scale == 0
+           else 2.0 ** (np.floor(np.log2(scale)) - 7))
+    assert float((ds.float() - wds.float()).abs().max()) <= tol
+    again = retrieval_fwd(scores, masks)
+    assert torch.equal(again[0], loss)   # fixed-order sum: bit-equal
+
+
 def test_wrappers_raise_on_what_kernels_do_not_take(dev):
     x = torch.randn((4, 3, 8), device=dev)
     mask = torch.ones((4, 3), dtype=torch.bool, device=dev)
@@ -159,6 +279,17 @@ def test_wrappers_raise_on_what_kernels_do_not_take(dev):
     csr = _csr(dev)
     with pytest.raises(ValueError, match="multiples of 4"):
         build_neighbor_cache(csr, torch.randn((N, 6), device=dev), fanout=3)
+    with pytest.raises(ValueError, match="forward's x"):
+        masked_reduce_bwd(x[:, 0], mask, "max")
+    scores, masks = _retrieval_inputs(dev, 8, 16, torch.float32)
+    with pytest.raises(ValueError, match="query_ids"):
+        retrieval_fwd(scores, RetrievalMasks(
+            query_ids=masks.query_ids.long()))
+    with pytest.raises(ValueError, match="C >= Q"):
+        retrieval_fwd(scores.T.contiguous(), RetrievalMasks(
+            query_ids=torch.zeros(16, dtype=torch.int32, device=dev)))
+    with pytest.raises(ValueError, match="out of range"):
+        uniform_ids(4, 0, 0, 0, dev)
 
 
 def test_inference_on_card_matches_cpu(dev):
@@ -188,3 +319,38 @@ def test_inference_on_card_matches_cpu(dev):
         embs[device.type] = np.concatenate(out)
     np.testing.assert_allclose(embs["cuda"], embs["cpu"], rtol=1e-4,
                                atol=1e-4)
+
+
+def test_two_train_steps_on_card_match_cpu(dev):
+    """fp32 (full-precision matmuls): the same two steps from the same
+    weights on the card and on the CPU, every kernel launched on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(4)
+    src, dst = rng.integers(0, N, E), rng.integers(0, N, E)
+    x = rng.normal(size=(N, 16)).astype(np.float32)
+    anchors = rng.integers(0, N, (2, 64))
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        _build.reset_launches()
+        g = DeviceGraph.from_hetero(
+            HeteroGraph.homogeneous(src=src, dst=dst, num_nodes=N,
+                                    node_features=x),
+            supervision_edges=np.stack([src, dst]), device=device)
+        t = NALPTrainer(LinkPredictionGNN(GNNEncoder(16, 32, 16),
+                                          LinkPredictionDecoder()),
+                        g, NALPTrainerConfig(fanouts=(4, 3), cached_hop=True,
+                                             fused_cache=True,
+                                             num_random_negs=64),
+                        optimizer_args={"learning_rate": "0.01"},
+                        device=device)
+        state = t.init_state(0)
+        state, losses = t.train_steps(state, anchors)
+        out[device.type] = (losses.cpu(), {k: v.cpu() for k, v in
+                                           t.model.state_dict().items()})
+        if device.type == "cuda":
+            assert all(_build.launches[k] > 0 for k in _build.KERNEL_NAMES), \
+                _build.launches
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=0)
+    for k, v in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][k], v, rtol=1e-4, atol=1e-5)

@@ -7,12 +7,20 @@ fp32: both sides sum <= K fp32 values in different orders — rtol/atol
 fp32 and rounds once, so they differ by up to a couple of bf16 ulps of the
 row's values: atol 2e-2 relative to the largest |value| (bf16 keeps 8
 significant bits, an ulp is 2**-7 of the value).
+
+The backward (K4b's plain twin through the autograd.Function) is held
+against jax.vjp of the reference, on an input with ties for max: the
+cotangent is shared equally among the valid slots equal to the maximum.
+fp32: rtol/atol 1e-6; bf16: the reference divides in bf16, the port in
+fp32 with one rounding, so within one bf16 ulp (2**-7 relative, 1e-2 of
+the gradient's scale allowed).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from gigl_tpu.ops import fanout as ref
@@ -70,6 +78,34 @@ def test_fanout_aggregate_matches(reduce):
     np.testing.assert_array_equal(
         port.gather_neighbors(torch.from_numpy(x), torch.from_numpy(idx)),
         np.asarray(ref.gather_neighbors(jnp.asarray(x), jnp.asarray(idx))))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op", ["mean", "sum", "max"])
+def test_masked_reduce_backward_matches_vjp(op, dtype):
+    x, mask = _inputs(seed=4)
+    x = np.round(x * 2) / 2   # a coarse grid: ties of the max are common
+    g = np.random.default_rng(5).normal(size=(64, 16)).astype(np.float32)
+    jx = jnp.asarray(x).astype(JAX_DTYPES[dtype])
+    _, vjp = jax.vjp(lambda a: getattr(ref, f"masked_{op}")(
+        a, jnp.asarray(mask)), jx)
+    (want,) = vjp(jnp.asarray(g).astype(JAX_DTYPES[dtype]))
+    want = np.asarray(want.astype(jnp.float32))
+    tx = torch.from_numpy(x).to(TORCH_DTYPES[dtype]).requires_grad_()
+    out = getattr(port, f"masked_{op}")(tx, torch.from_numpy(mask))
+    (got,) = torch.autograd.grad(out, tx,
+                                 torch.from_numpy(g).to(TORCH_DTYPES[dtype]))
+    assert got.dtype == tx.dtype and got.shape == (64, 5, 16)
+    got = got.float().numpy()
+    np.testing.assert_array_equal(got[~mask], 0.0)
+    if op == "max":   # the input does have ties for the rule to split
+        m = np.where(mask[..., None], x, -np.inf).max(1, keepdims=True)
+        assert ((x == m) & mask[..., None]).sum(1).max() > 1
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-2 * np.abs(want).max())
 
 
 def test_unknown_reduce_rejected():
