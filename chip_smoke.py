@@ -27,7 +27,19 @@
    ms/step, edges/s (counted as bench.py:631-638 counts them) and, from
    torch.profiler over 20 more steps, the device ms/step, the device-busy
    share and the five device ops that took longest;
-7. prints one JSON line with every kernel's numbers, then the card line,
+7. exact full-graph inference: times EllGraph.from_csr of the
+   flagship graph on the host; holds K6 ell_aggregate (mean, sum, max,
+   GCN-weighted) and K7 fanout_attention (GAT v1, GATv2, Transformer, H=4)
+   against their plain versions at the flagship's largest ELL bucket
+   ([77,433, 32]) in bf16 and times them beside their bounds and library
+   yardsticks; then runs run_full_graph_inference at full width for the
+   flagship GraphSAGE and for GAT v1 with 4 heads (hidden 256, out 128,
+   bf16, seeded init_params), each with the launch counts reset just before
+   and read just after, checks the export and recomputes the whole pass
+   through the plain versions; prints the host-clocked encode time, the
+   profiler's device time per pass, nodes/s, edges aggregated per pass
+   and the peak memory;
+8. prints one JSON line with every kernel's numbers, then the card line,
    then {"ok": true, ...} as the last line.
 
 Any failed check raises; nothing is printed as a result without a card.
@@ -50,9 +62,16 @@ HID, OUT, BATCH = 256, 128, 512
 R = 512                     # random negatives per step
 FANOUTS = (15, 10)
 STEPS, WARMUP, PROFILED = 200, 5, 20
-# The kernels the inference path runs; training runs every kernel.
+# The kernels each main path runs.
 INFERENCE_KERNELS = ("sample_uniform", "build_neighbor_cache", "gather_rows",
                      "masked_reduce")
+TRAINING_KERNELS = ("sample_uniform", "uniform_ids", "build_neighbor_cache",
+                    "gather_rows", "masked_reduce", "masked_reduce_bwd",
+                    "retrieval_loss")
+FULL_GRAPH_KERNELS = {"graphsage": ("gather_rows", "ell_aggregate"),
+                      "gat": ("gather_rows", "fanout_attention")}
+GAT_HEADS = 4               # examples/baseline_milestones.py:91
+FULL_GRAPH_PROFILED = 3     # passes under torch.profiler
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 
@@ -162,12 +181,19 @@ def main():
     sys.path.insert(0, str(REPO))
     from gigl_tpu_torch.graph.csr import HeteroGraph
     from gigl_tpu_torch.inference.inferencer import (
-        InferenceConfig, run_inference)
+        InferenceConfig, run_full_graph_inference, run_inference)
+    from gigl_tpu_torch.models.convs import GATConv, SAGEConv, linear
     from gigl_tpu_torch.models.encoders import GNNEncoder
+    from gigl_tpu_torch.models.init import init_params
     from gigl_tpu_torch.models.link_prediction import (
         LinkPredictionDecoder, LinkPredictionGNN)
     from gigl_tpu_torch.losses.losses import retrieval_masks
     from gigl_tpu_torch.ops import _build
+    from gigl_tpu_torch.ops.attention import (
+        _fanout_attention_plain, fanout_attention)
+    from gigl_tpu_torch.ops.ell import EllGraph
+    from gigl_tpu_torch.ops.ell_aggregate import (
+        _ell_aggregate_plain, ell_aggregate)
     from gigl_tpu_torch.ops.fanout import (
         MaskedReduce, _masked_reduce_bwd_plain, _masked_reduce_plain,
         masked_reduce, masked_reduce_bwd)
@@ -627,7 +653,7 @@ def main():
     emit({"phase": "main_path", "path": "training", "launches": launches,
           "launches_at_init": after_init, "init_s": init_s,
           "steps": WARMUP + STEPS})
-    for kname in _build.KERNEL_NAMES:
+    for kname in TRAINING_KERNELS:
         check(launches[kname] > 0,
               f"{kname} was not launched on the training path")
     losses = losses.float().cpu().numpy()
@@ -656,17 +682,247 @@ def main():
     emit({"phase": "train_profile", "steps": PROFILED,
           **profile_summary(prof, PROFILED, window_us, ms_step)})
 
-    # training-path launches on every kernel row (the inference path's too)
+    # -- exact full-graph inference through the ELL buckets ---------------------
+    et = graph.metadata.edge_types[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ell = EllGraph.from_csr(graph.csr(et, anchor="dst"), device=dev)
+    torch.cuda.synchronize()
+    ell_build_s = time.perf_counter() - t0
+    sizes = [hi - lo for lo, hi in zip(ell.boundaries, ell.boundaries[1:])]
+    emit({"phase": "ell_graph", "build_s": ell_build_s,
+          "widths": list(ell.widths), "rows_per_bucket": sizes,
+          "padded_entries": sum(n_ * w_ for n_, w_ in zip(sizes, ell.widths)),
+          "edges": int(sum(int(m_.sum()) for m_ in ell.mask))})
+    big = int(np.argmax(sizes))
+    lo_b, hi_b = ell.boundaries[big], ell.boundaries[big + 1]
+    nbr_b, mask_b = ell.nbr[big], ell.mask[big]
+    n_b, w_b = nbr_b.shape
+    valid_b = int(mask_b.sum())
+    uniq_b = unique(nbr_b[mask_b])
+    deg_dst_b = ell.deg_p[lo_b:hi_b].contiguous()
+    gen6 = torch.Generator(device=dev).manual_seed(6)
+    x6 = torch.randn((N, HID), generator=gen6, device=dev).to(torch.bfloat16)
+
+    def rel_err(got, want, what, tol=2e-2):
+        scale = float(want.float().abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        check(err <= tol * scale, f"{what} error {err} > {tol}*{scale}")
+        return err
+
+    # K6 in every mode. bytes: each distinct valid neighbor row read once,
+    # nbr and mask read once, [n_b, D] written (GCN: the degrees of those
+    # rows too); ops: one multiply-add per valid slot and value.
+    k6 = {}
+    for op in ("mean", "sum", "max", "gcn"):
+        degs = (deg_dst_b, ell.deg_p) if op == "gcn" else (None, None)
+
+        def k6_kernel(op=op, degs=degs):
+            return ell_aggregate(x6, nbr_b, mask_b, op, *degs)
+
+        def k6_plain(op=op, degs=degs):
+            return _ell_aggregate_plain(x6, nbr_b, mask_b, op, *degs)
+
+        err = rel_err(k6_kernel(), k6_plain(), f"K6 {op}")
+        k6[op] = {"err": err, "ms": cuda_ms(k6_kernel),
+                  "plain_ms": cuda_ms(k6_plain, reps=3),
+                  "eager_ms": eager_ms(k6_kernel)}
+    crow = torch.zeros(n_b + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(mask_b.sum(1), 0)
+    adj = torch.sparse_csr_tensor(
+        crow, nbr_b[mask_b].long(),
+        torch.ones(valid_b, dtype=torch.bfloat16, device=dev), (n_b, N))
+    k6_bytes = uniq_b * HID * 2 + n_b * w_b * 5 + n_b * HID * 2
+    record("ell_aggregate", "gigl_tpu_torch/csrc/ell_aggregate.cu",
+           "gigl_tpu/ops/ell.py:237", max(v["err"] for v in k6.values()),
+           k6["mean"]["ms"], k6["mean"]["plain_ms"],
+           nbytes=k6_bytes, nops=valid_b * HID,
+           library_ms=cuda_ms(lambda: torch.sparse.mm(adj, x6)),
+           library_call="torch.sparse.mm (CSR bucket adjacency, bf16) = sum",
+           bucket=[n_b, w_b], valid_slots=valid_b, distinct_rows=uniq_b,
+           eager_ms=k6["mean"]["eager_ms"],
+           modes={op: {**v, "bound_ms": bound_ms(
+               k6_bytes + (uniq_b * 4 + n_b * 4 if op == "gcn" else 0),
+               valid_b * HID * (2 if op == "gcn" else 1))[0]}
+               for op, v in k6.items()})
+
+    # K7 in every mode at GAT layer 1's widths (H=4, Dh=64). bytes: xd, each
+    # distinct valid source row of ks (and of vs when it is another table)
+    # read once, nbr and mask, [n_b, H*Dh] written; ops per valid slot and
+    # value: logits 2 (GATv2 4) and the weighted sum 2.
+    hd7, dh7 = HID, HID // GAT_HEADS
+    xd7, ks7, vs7 = (torch.randn(s_, generator=gen6, device=dev).to(
+        torch.bfloat16) for s_ in ((n_b, hd7), (N, hd7), (N, hd7)))
+    att7, att7b = (torch.randn((GAT_HEADS, dh7), generator=gen6, device=dev)
+                   * 0.2 for _ in range(2))
+    k7 = {}
+    for mode, vs_, atts in (("gat", ks7, (att7, att7b)),
+                            ("gatv2", ks7, (att7, None)),
+                            ("transformer", vs7, (None, None))):
+        flat = [None if a is None else a.reshape(-1) for a in atts]
+
+        def k7_kernel(mode=mode, vs_=vs_, atts=atts):
+            return fanout_attention(xd7, ks7, vs_, nbr_b, mask_b, mode,
+                                    GAT_HEADS, *atts)
+
+        def k7_plain(mode=mode, vs_=vs_, flat=flat):
+            return _fanout_attention_plain(xd7, ks7, vs_, nbr_b, mask_b,
+                                           mode, GAT_HEADS, *flat)
+
+        err = rel_err(k7_kernel(), k7_plain(), f"K7 {mode}")
+        tables = 2 if mode == "transformer" else 1
+        nbytes = (n_b * hd7 * 2 + uniq_b * hd7 * 2 * tables + n_b * w_b * 5
+                  + n_b * hd7 * 2)
+        nops = valid_b * hd7 * (6 if mode == "gatv2" else 4)
+        k7[mode] = {"err": err, "ms": cuda_ms(k7_kernel),
+                    "plain_ms": cuda_ms(k7_plain, reps=3),
+                    "eager_ms": eager_ms(k7_kernel),
+                    "bound_ms": bound_ms(nbytes, nops)[0],
+                    "nbytes": nbytes, "nops": nops}
+    q_s = xd7.reshape(n_b, GAT_HEADS, 1, dh7)
+    k_s, v_s = (t_[nbr_b.long()].reshape(n_b, w_b, GAT_HEADS, dh7)
+                .transpose(1, 2).contiguous() for t_ in (ks7, vs7))
+    sdpa_mask = mask_b[:, None, None, :]
+
+    def sdpa():
+        # cuDNN's SDPA refuses this boolean mask on the card; the
+        # memory-efficient backend takes it.
+        with torch.nn.attention.sdpa_kernel(
+                [torch.nn.attention.SDPBackend.EFFICIENT_ATTENTION]):
+            return F.scaled_dot_product_attention(q_s, k_s, v_s,
+                                                  attn_mask=sdpa_mask)
+
+    record("fanout_attention", "gigl_tpu_torch/csrc/fanout_attention.cu",
+           "gigl_tpu/models/convs.py:292", max(v["err"] for v in k7.values()),
+           k7["gat"]["ms"], k7["gat"]["plain_ms"],
+           nbytes=k7["gat"]["nbytes"], nops=k7["gat"]["nops"],
+           library_ms=cuda_ms(sdpa),
+           library_call="F.scaled_dot_product_attention, memory-efficient "
+                        "backend (Transformer mode; K/V gathered "
+                        "beforehand, gather not timed); the GAT modes have "
+                        "no single-call counterpart",
+           bucket=[n_b, w_b], heads=GAT_HEADS, head_dim=dh7,
+           eager_ms=k7["gat"]["eager_ms"],
+           modes={m_: {k_: v_ for k_, v_ in v.items()
+                       if k_ not in ("nbytes", "nops")}
+                  for m_, v in k7.items()})
+    del x6, adj, xd7, ks7, vs7, k_s, v_s
+
+    # the two full-width passes, each through the user's entry point
+    def encode_plain(enc, x_, ell_):
+        """The pass again through the plain versions only."""
+        h_ = x_.to(torch.bfloat16)[ell_.perm.long()]
+        for li, conv in enumerate(enc.convs):
+            src_ = conv.source_table(h_)
+            outs = []
+            for b_ in range(len(ell_.widths)):
+                lo_, hi_ = ell_.boundaries[b_], ell_.boundaries[b_ + 1]
+                if hi_ == lo_:
+                    continue
+                dst_, nb_, mk_ = h_[lo_:hi_], ell_.nbr[b_], ell_.mask[b_]
+                if isinstance(conv, SAGEConv):
+                    outs.append(conv._combine(dst_, _ell_aggregate_plain(
+                        src_, nb_, mk_, conv.aggr)))
+                else:
+                    check(isinstance(conv, GATConv) and not conv.v2,
+                          "encode_plain covers SAGE and GAT v1")
+                    hd_ = linear(conv.lin_dst, dst_, conv.dtype)
+                    outs.append(conv._finish(_fanout_attention_plain(
+                        hd_, src_, src_, nb_, mk_, "gat", conv.heads,
+                        conv.att_src.reshape(-1), conv.att_dst.reshape(-1),
+                        conv.negative_slope)))
+            h_ = torch.cat(outs)
+            if li < len(enc.convs) - 1:
+                h_ = torch.relu(h_)
+        return h_[ell_.rank.long()]
+
+    x_full = x
+    launches_fg, fg_rows = {}, {}
+    for model_name, kw in (("graphsage", None), ("gat", {"heads": GAT_HEADS})):
+        enc = GNNEncoder(D, HID, OUT, num_layers=2, conv=model_name,
+                         conv_kwargs=kw, dtype=torch.bfloat16)
+        init_params(enc, 0)
+        sink = Sink()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        total = run_full_graph_inference(enc, None, graph, sink, device=dev)
+        torch.cuda.synchronize()
+        pass_s = time.perf_counter() - t0
+        launches_fg[model_name] = dict(_build.launches)
+        peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+        emit({"phase": "main_path", "path": f"full_graph_{model_name}",
+              "launches": launches_fg[model_name], "seconds": pass_s})
+        for kname in FULL_GRAPH_KERNELS[model_name]:
+            check(launches_fg[model_name][kname] > 0,
+                  f"{kname} was not launched on the {model_name} "
+                  "full-graph path")
+        ids = np.concatenate(sink.ids)
+        embs = np.concatenate(sink.embs)
+        check(total == N and ids.shape == (N,)
+              and np.array_equal(np.sort(ids), np.arange(N)),
+              f"{model_name}: exported ids are not every node exactly once")
+        check(embs.shape == (N, OUT) and np.isfinite(embs).all(),
+              f"{model_name}: embeddings are not finite [N, {OUT}]")
+        order = np.argsort(ids)
+        with torch.inference_mode():
+            ref_fg = encode_plain(enc, x_full, ell).float().cpu().numpy()
+            scale_fg = float(np.abs(ref_fg).max())
+            err_fg = float(np.abs(embs[order] - ref_fg).max())
+            check(err_fg <= 2e-2 * scale_fg,
+                  f"{model_name} full-graph pass differs from the plain "
+                  f"recomputation: {err_fg} vs {scale_fg}")
+            del ref_fg
+            enc.encode_ell(x_full, ell)          # warm
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                enc.encode_ell(x_full, ell)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            encode_ms = float(np.median(times)) * 1e3
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(FULL_GRAPH_PROFILED):
+                    enc.encode_ell(x_full, ell)
+                torch.cuda.synchronize()
+                window_us = (time.perf_counter() - t0) * 1e6
+        edges_pass = 2 * E          # each of the 2 layers aggregates every edge
+        fg_rows[model_name] = {
+            "max_abs_err": err_fg, "scale": scale_fg,
+            "entry_point_s": pass_s, "encode_ms": encode_ms,
+            "encode_ms_runs": [t_ * 1e3 for t_ in times],
+            "nodes_per_s": N / (encode_ms / 1e3),
+            "edges_per_pass": edges_pass,
+            "edges_per_s": edges_pass / (encode_ms / 1e3),
+            "peak_mem_gb": peak_gb,
+            "profile": profile_summary(prof, FULL_GRAPH_PROFILED, window_us,
+                                       encode_ms)}
+        emit({"phase": "full_graph_throughput", "model": model_name,
+              "ell_build_s": ell_build_s, **fg_rows[model_name],
+              "card": card})
+        del enc, sink, embs
+
+    # launches on every kernel row: the training path's (K6 / K7: the
+    # full-graph passes'), and per pass of each other path
     per_pass = {"sample_uniform": 1, "build_neighbor_cache": 1,
                 "gather_rows": n_batches, "masked_reduce": n_batches}
     for row in results:
         k = row["name"]
-        row["launches"] = launches[k]
+        fg = {m_: launches_fg[m_][k] for m_ in launches_fg}
+        row["launches"] = (launches[k] if k in TRAINING_KERNELS
+                           else sum(fg.values()))
         row["launches_per_step"] = (launches[k] - after_init[k]) / (
             WARMUP + STEPS)
         row["launches_inference"] = launches_inf[k]
         row["launches_per_inference_pass"] = launches_inf[k] / per_pass.get(
             k, 1)
+        row["launches_per_full_graph_pass"] = fg
     results.sort(key=lambda r: _build.KERNEL_NAMES.index(r["name"]))
 
     emit({"kernels": results})

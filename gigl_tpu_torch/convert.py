@@ -1,11 +1,15 @@
 """Reference (flax) parameters -> the port's PyTorch state dict.
 
 ``params_from_flax`` takes the reference's parameter tree as nested dicts of
-numpy arrays — ``params/encoder/conv_{i}/lin_self/{kernel,bias}`` and
-``.../lin_nbr/kernel`` for a ``LinkPredictionGNN``, or ``conv_{i}/...`` for
-a bare ``GNNEncoder`` — and returns the state dict of the matching port
-module. A flax ``Dense`` kernel is ``[in, out]``; an ``nn.Linear.weight``
-is ``[out, in]``. ``adam_state_from_optax`` maps an optax Adam state
+numpy arrays — ``params/encoder/conv_{i}/...`` for a ``LinkPredictionGNN``,
+or ``conv_{i}/...`` for a bare ``GNNEncoder`` — and returns the state dict
+of the matching port module. Per conv: ``Dense`` subtrees ``lin_self``,
+``lin_nbr`` (SAGE), ``lin`` (GCN), ``lin_src``, ``lin_dst`` (GAT),
+``lin_q``, ``lin_k``, ``lin_v``, ``lin_skip`` (Transformer) and GIN's
+``mlp/layers_0``, ``mlp/layers_2`` (-> ``mlp.0``, ``mlp.2``); array leaves
+``att``, ``att_src``, ``att_dst`` ``[H, Dh]``, ``bias`` and GIN's scalar
+``eps``, copied as they are. A flax ``Dense`` kernel is ``[in, out]``; an
+``nn.Linear.weight`` is ``[out, in]``. ``adam_state_from_optax`` maps an optax Adam state
 (``ScaleByAdamState(count, mu, nu)``, whose moments are trees of the
 params' structure) to the per-parameter state of a ``torch.optim.Adam``
 over ``model.parameters()``, so both packages can start from one mid-run
@@ -21,7 +25,22 @@ import numpy as np
 import torch
 
 _CONV = re.compile(r"conv_(\d+)$")
-_LINEARS = ("lin_self", "lin_nbr")
+_LINEARS = ("lin_self", "lin_nbr", "lin", "lin_src", "lin_dst", "lin_q",
+            "lin_k", "lin_v", "lin_skip")
+_ARRAYS = ("att", "att_src", "att_dst", "bias", "eps")
+_MLP = re.compile(r"layers_(\d+)$")
+
+
+def _dense(leaves: Mapping[str, Any], key: str, where: str,
+           out: Dict[str, torch.Tensor]) -> None:
+    for leaf, value in leaves.items():
+        a = torch.tensor(np.asarray(value, np.float32))
+        if leaf == "kernel":
+            out[f"{key}.weight"] = a.T.contiguous()
+        elif leaf == "bias":
+            out[f"{key}.bias"] = a
+        else:
+            raise ValueError(f"unsupported leaf {where}/{leaf}")
 
 
 def _convs(tree: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
@@ -30,18 +49,23 @@ def _convs(tree: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
         m = _CONV.match(name)
         if m is None:
             raise ValueError(f"unsupported encoder parameter {name!r}")
-        for lin, leaves in sub.items():
-            if lin not in _LINEARS:
-                raise ValueError(f"unsupported conv parameter {name}/{lin}")
-            key = f"{prefix}convs.{m.group(1)}.{lin}"
-            for leaf, value in leaves.items():
-                a = torch.tensor(np.asarray(value, np.float32))
-                if leaf == "kernel":
-                    out[f"{key}.weight"] = a.T.contiguous()
-                elif leaf == "bias":
-                    out[f"{key}.bias"] = a
-                else:
-                    raise ValueError(f"unsupported leaf {name}/{lin}/{leaf}")
+        conv = f"{prefix}convs.{m.group(1)}"
+        for part, leaves in sub.items():
+            if part in _LINEARS:
+                _dense(leaves, f"{conv}.{part}", f"{name}/{part}", out)
+            elif part in _ARRAYS:
+                out[f"{conv}.{part}"] = torch.tensor(
+                    np.asarray(leaves, np.float32))
+            elif part == "mlp":
+                for layer, lv in leaves.items():
+                    lm = _MLP.match(layer)
+                    if lm is None:
+                        raise ValueError(
+                            f"unsupported conv parameter {name}/mlp/{layer}")
+                    _dense(lv, f"{conv}.mlp.{lm.group(1)}",
+                           f"{name}/mlp/{layer}", out)
+            else:
+                raise ValueError(f"unsupported conv parameter {name}/{part}")
     return out
 
 

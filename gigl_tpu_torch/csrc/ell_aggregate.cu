@@ -1,0 +1,219 @@
+// K6 ell_aggregate — replaces gigl_tpu/ops/ell.py ell_gather (:237-247)
+// together with the masked reduce that each conv's block applies to its
+// result in ell_layer (:319-346): masked_mean / masked_sum / masked_max of
+// gigl_tpu/ops/fanout.py (:34-53) for SAGE and GIN, and GCNConv.block's
+// degree-weighted sum (gigl_tpu/models/convs.py:107-112).
+//
+// x [M, D] (fp32 or bf16), nbr [n, W] int32 rows of x, mask [n, W] ->
+// out [n, D] in x's type:
+//   out[i] = reduce_{j < W, mask[i, j]} w_ij * x[nbr[i, j]]
+// with reduce = mean, sum or max (w = 1), or sum with the GCN weight
+// w_ij = 1/sqrt(deg_dst[i] + 1) * 1/sqrt(deg_tab[nbr[i, j]] + 1) computed
+// here from the degree tables (no [n, W] weight tensor). Sums accumulate in
+// fp32 in slot order and round once; a row with no valid slot gives 0, and
+// the mean divides by max(count, 1). Masked slots point at row 0 of x; the
+// mask decides, never the index. W is not bounded (hub buckets reach 8192
+// and more): every thread loops over all W slots of its row.
+//
+// Bound: bytes — each distinct neighbor row of x is needed once and [n, D]
+// is written once; the [n, W, D] block the reference materialises is never
+// written. Design: one thread per 16-byte piece of an output row (8 bf16
+// or 4 fp32 values), consecutive threads across D, so every gathered row is
+// read as coalesced 16-byte loads; the mask byte and the index of a slot
+// are the same address for all threads of a row (one broadcast load).
+// Rows that are not 16-byte multiples (or unaligned tables) take the same
+// loop one element per thread.
+#include <cuda_bf16.h>
+
+#include <cstdint>
+#include <cstring>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMean = 0;
+constexpr int kSum = 1;
+constexpr int kMax = 2;
+constexpr int kGcn = 3;
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t w) {
+  __nv_bfloat162 h;
+  memcpy(&h, &w, sizeof(h));
+  return __bfloat1622float2(h);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  uint32_t w;
+  memcpy(&w, &h, sizeof(w));
+  return w;
+}
+
+// P values of type T starting at p: P == 1 (any alignment) or one 16-byte
+// piece (P = 16 / sizeof(T), p 16-byte aligned).
+template <typename T, int P>
+__device__ __forceinline__ void load_piece(const T* __restrict__ p, float* v) {
+  if constexpr (P == 1) {
+    v[0] = to_float(*p);
+  } else {
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+    if constexpr (sizeof(T) == 4) {
+      v[0] = __uint_as_float(raw.x);
+      v[1] = __uint_as_float(raw.y);
+      v[2] = __uint_as_float(raw.z);
+      v[3] = __uint_as_float(raw.w);
+    } else {
+      float2 f;
+      f = unpack_bf16(raw.x); v[0] = f.x; v[1] = f.y;
+      f = unpack_bf16(raw.y); v[2] = f.x; v[3] = f.y;
+      f = unpack_bf16(raw.z); v[4] = f.x; v[5] = f.y;
+      f = unpack_bf16(raw.w); v[6] = f.x; v[7] = f.y;
+    }
+  }
+}
+
+template <typename T, int P>
+__device__ __forceinline__ void store_piece(T* __restrict__ p, const float* v) {
+  if constexpr (P == 1) {
+    *p = from_float<T>(v[0]);
+  } else if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                   __float_as_uint(v[2]), __float_as_uint(v[3]));
+  } else {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                   pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+  }
+}
+
+template <typename T, int P, int OP>
+__global__ void ell_aggregate_kernel(const T* __restrict__ x,
+                                     const int32_t* __restrict__ nbr,
+                                     const uint8_t* __restrict__ mask,
+                                     const float* __restrict__ deg_dst,
+                                     const float* __restrict__ deg_tab,
+                                     T* __restrict__ out, int64_t n, int w,
+                                     int d) {
+  const int pieces = d / P;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n * pieces) return;
+  const int64_t r = i / pieces;
+  const int c = static_cast<int>(i - r * pieces) * P;
+  float acc[P];
+#pragma unroll
+  for (int e = 0; e < P; ++e)
+    acc[e] = OP == kMax ? -__int_as_float(0x7f800000) : 0.f;  // -inf or 0
+  float w_dst = 0.f;
+  if (OP == kGcn) w_dst = 1.f / sqrtf(__ldg(deg_dst + r) + 1.f);
+  const int32_t* nrow = nbr + r * w;
+  const uint8_t* mrow = mask + r * w;
+  int cnt = 0;
+  for (int j = 0; j < w; ++j) {
+    if (!__ldg(mrow + j)) continue;
+    const int64_t s = __ldg(nrow + j);
+    ++cnt;
+    float v[P];
+    load_piece<T, P>(x + s * d + c, v);
+    if (OP == kGcn) {
+      const float wt = w_dst * (1.f / sqrtf(__ldg(deg_tab + s) + 1.f));
+#pragma unroll
+      for (int e = 0; e < P; ++e) acc[e] += v[e] * wt;
+    } else {
+#pragma unroll
+      for (int e = 0; e < P; ++e)
+        acc[e] = OP == kMax ? fmaxf(acc[e], v[e]) : acc[e] + v[e];
+    }
+  }
+  if (OP == kMax && cnt == 0) {
+#pragma unroll
+    for (int e = 0; e < P; ++e) acc[e] = 0.f;
+  }
+  if (OP == kMean) {
+    const float cn = static_cast<float>(cnt > 1 ? cnt : 1);
+#pragma unroll
+    for (int e = 0; e < P; ++e) acc[e] /= cn;
+  }
+  store_piece<T, P>(out + r * d + c, acc);
+}
+
+template <typename T, int P>
+int launch(const void* x, const void* nbr, const void* mask,
+           const void* deg_dst, const void* deg_tab, void* out, long long n,
+           int w, int d, int op, cudaStream_t stream) {
+  const long long total = n * (d / P);
+  if (total == 0) return 0;
+  const int threads = 256;
+  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
+  const T* xv = static_cast<const T*>(x);
+  const int32_t* nv = static_cast<const int32_t*>(nbr);
+  const uint8_t* mv = static_cast<const uint8_t*>(mask);
+  const float* dd = static_cast<const float*>(deg_dst);
+  const float* dt = static_cast<const float*>(deg_tab);
+  T* ov = static_cast<T*>(out);
+  switch (op) {
+    case kMean:
+      ell_aggregate_kernel<T, P, kMean><<<blocks, threads, 0, stream>>>(
+          xv, nv, mv, dd, dt, ov, n, w, d);
+      break;
+    case kSum:
+      ell_aggregate_kernel<T, P, kSum><<<blocks, threads, 0, stream>>>(
+          xv, nv, mv, dd, dt, ov, n, w, d);
+      break;
+    case kMax:
+      ell_aggregate_kernel<T, P, kMax><<<blocks, threads, 0, stream>>>(
+          xv, nv, mv, dd, dt, ov, n, w, d);
+      break;
+    case kGcn:
+      if (deg_dst == nullptr || deg_tab == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+      ell_aggregate_kernel<T, P, kGcn><<<blocks, threads, 0, stream>>>(
+          xv, nv, mv, dd, dt, ov, n, w, d);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
+}
+
+}  // namespace
+
+// dtype: 0 = fp32, 1 = bf16; op: 0 = mean, 1 = sum, 2 = max, 3 = GCN
+// weighted sum (deg_dst [n] and deg_tab [M] fp32, NULL otherwise); vec: 1
+// when D * sizeof(T) is a multiple of 16 and x and out are 16-byte aligned.
+extern "C" int gigl_ell_aggregate(const void* x, const void* nbr,
+                                  const void* mask, const void* deg_dst,
+                                  const void* deg_tab, void* out, long long n,
+                                  int w, int d, int dtype, int op, int vec,
+                                  void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc;
+  if (dtype == 0) {
+    rc = vec ? launch<float, 4>(x, nbr, mask, deg_dst, deg_tab, out, n, w, d,
+                                op, s)
+             : launch<float, 1>(x, nbr, mask, deg_dst, deg_tab, out, n, w, d,
+                                op, s);
+  } else if (dtype == 1) {
+    rc = vec ? launch<__nv_bfloat16, 8>(x, nbr, mask, deg_dst, deg_tab, out,
+                                        n, w, d, op, s)
+             : launch<__nv_bfloat16, 1>(x, nbr, mask, deg_dst, deg_tab, out,
+                                        n, w, d, op, s);
+  } else {
+    rc = static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,18 +1,36 @@
 """Message-passing convolution layers (port of ``gigl_tpu/models/convs.py``).
 
-Only ``SAGEConv`` is ported so far, with its dense fanout-block path
-(``block``) and its cached-hop path (``block_cached``). Parameters are fp32;
-the layer computes in ``dtype`` the way flax's ``Dense(dtype=bf16,
-param_dtype=fp32)`` does: input, weight and bias are cast to the compute
-type at the call (no autocast).
+Ported: ``SAGEConv``, ``GCNConv``, ``GINConv``, ``GATConv`` (v1 and
+``v2=True``) and ``TransformerConv``, without edge features. Each has
+
+- ``block(x_dst, nbr, mask, edge_attr=None, degrees=None)``: the dense
+  fanout-block path (``nbr [N, K, Din]``) of sampled encoding;
+- ``source_table(x)`` and ``indexed(x_dst, src, nbr_idx, mask,
+  degrees=None)``: the ELL path (``ops/ell.py`` ``ell_layer``), where the
+  neighbor rows are read through ``nbr_idx [n, W]`` inside kernel K6
+  (SAGE, GCN, GIN) or K7 (GAT, GATv2, Transformer) instead of being
+  gathered into an ``[n, W, D]`` block first.
+
+SAGE, GCN and GIN keep the reference's dense block (K4, trainable through
+K4b); the attention convs' dense block is their indexed form over
+``nbr_idx = arange``, so it is forward-only like K7. ``block_cached``
+(SAGE, GCN, GIN) serves the cached-hop path. Parameters are fp32; the layer
+computes in ``dtype`` the way flax's ``Dense(dtype=bf16, param_dtype=fp32)``
+does: input, weight and bias are cast to the compute type at the call (no
+autocast).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gigl_tpu_torch.ops.attention import fanout_attention
+from gigl_tpu_torch.ops.ell import EDGE_FEATURES_NOT_PORTED
+from gigl_tpu_torch.ops.ell_aggregate import ell_aggregate
 from gigl_tpu_torch.ops.fanout import masked_max, masked_mean, masked_sum
 
 
@@ -59,6 +77,246 @@ class SAGEConv(nn.Module):
         else:
             agg = masked_sum(nbr, mask)
         return self._combine(x_dst, agg)
+
+    def source_table(self, x):
+        return x
+
+    def indexed(self, x_dst, src, nbr_idx, mask, degrees=None):
+        """ELL form: neighbor rows of ``src`` through ``nbr_idx`` (K6)."""
+        return self._combine(x_dst, ell_aggregate(src, nbr_idx, mask,
+                                                  self.aggr))
+
+    def forward(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
+        return self.block(x_dst, nbr, mask, edge_attr, degrees)
+
+
+def _no_edge_attr(edge_attr):
+    if edge_attr is not None:
+        raise NotImplementedError(EDGE_FEATURES_NOT_PORTED)
+
+
+def _dense_as_indexed(conv, x_dst, nbr, mask, degrees=None):
+    """A dense block [N, K, Din] through the conv's indexed form: the block
+    flattened to a [N*K, Din] table, read through nbr_idx = arange."""
+    n, k = nbr.shape[:2]
+    idx = torch.arange(n * k, dtype=torch.int32,
+                       device=nbr.device).reshape(n, k)
+    src = conv.source_table(nbr.reshape(n * k, nbr.shape[-1]))
+    return conv.indexed(x_dst, src, idx, mask, degrees)
+
+
+class GCNConv(nn.Module):
+    """GCN conv, D^-1/2 (A+I) D^-1/2 X W: with ``degrees`` the exact
+    symmetric normalization 1/sqrt((deg_dst+1)(deg_src+1)), otherwise the
+    local valid-slot count (the sampled-GCN approximation)."""
+
+    def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.lin = nn.Linear(in_dim, out_dim, bias=use_bias)
+
+    @property
+    def cached_agg_kind(self) -> str:
+        return "gcn"
+
+    def block_cached(self, x_dst, agg, degrees_dst=None):
+        """``agg`` = sum_j x_j * rsqrt(deg_j + 1) (hopcache agg="gcn");
+        needs the true dst degrees."""
+        if degrees_dst is None:
+            raise ValueError("GCN cached path requires dst degrees")
+        d = degrees_dst.to(x_dst.dtype) + 1.0
+        agg = agg.to(x_dst.dtype) * torch.rsqrt(d)[:, None]
+        return linear(self.lin, agg + x_dst / d[:, None], self.dtype)
+
+    def block(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
+        """``degrees``: optional (dst_deg [N], nbr_deg [N, K])."""
+        _no_edge_attr(edge_attr)
+        if degrees is not None:
+            dst_deg, nbr_deg = degrees
+            dst_deg = dst_deg.to(x_dst.dtype) + 1.0
+            nbr_deg = nbr_deg.to(x_dst.dtype) + 1.0
+            w = torch.rsqrt(dst_deg)[:, None] * torch.rsqrt(nbr_deg)
+            agg = masked_sum(nbr * w[..., None], mask)
+            return linear(self.lin, agg + x_dst / dst_deg[:, None],
+                          self.dtype)
+        deg = mask.sum(dim=1, keepdim=True).to(x_dst.dtype)
+        norm = 1.0 / (deg + 1.0)
+        agg = masked_sum(nbr, mask) * norm
+        return linear(self.lin, agg + x_dst * norm, self.dtype)
+
+    def source_table(self, x):
+        return x
+
+    def indexed(self, x_dst, src, nbr_idx, mask, degrees=None):
+        """ELL form. ``degrees`` = (deg_dst [n], deg_tab [M]): in-degrees
+        of the dst rows and of every row of ``src`` — the in-degree for
+        both ends, as ``encode_ell`` uses it (``gigl_tpu/ops/ell.py:218,
+        342-344``); K6 computes the weights from them."""
+        if degrees is None:
+            raise ValueError("GCN's indexed form needs the degree tables")
+        deg_dst, deg_tab = degrees
+        agg = ell_aggregate(src, nbr_idx, mask, "gcn", deg_dst, deg_tab)
+        d = deg_dst.to(x_dst.dtype) + 1.0
+        return linear(self.lin, agg + x_dst / d[:, None], self.dtype)
+
+    def forward(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
+        return self.block(x_dst, nbr, mask, edge_attr, degrees)
+
+
+class GINConv(nn.Module):
+    """GIN conv: MLP((1 + eps) x + sum(neighbors)), learnable eps."""
+
+    def __init__(self, in_dim: int, out_dim: int,
+                 hidden_dim: Optional[int] = None, train_eps: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        h = hidden_dim or out_dim
+        # Indices 0 and 2 match flax's nn.Sequential names layers_0/_2.
+        self.mlp = nn.Sequential(nn.Linear(in_dim, h), nn.ReLU(),
+                                 nn.Linear(h, out_dim))
+        if train_eps:
+            self.eps = nn.Parameter(torch.zeros(()))
+        else:
+            self.eps = 0.0
+
+    def _mlp(self, x):
+        h = F.relu(linear(self.mlp[0], x, self.dtype))
+        return linear(self.mlp[2], h, self.dtype)
+
+    @property
+    def cached_agg_kind(self) -> str:
+        return "sum"
+
+    def block_cached(self, x_dst, agg, degrees_dst=None):
+        return self._mlp((1.0 + self.eps) * x_dst + agg.to(x_dst.dtype))
+
+    def block(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
+        _no_edge_attr(edge_attr)
+        return self._mlp((1.0 + self.eps) * x_dst + masked_sum(nbr, mask))
+
+    def source_table(self, x):
+        return x
+
+    def indexed(self, x_dst, src, nbr_idx, mask, degrees=None):
+        agg = ell_aggregate(src, nbr_idx, mask, "sum")
+        return self._mlp((1.0 + self.eps) * x_dst + agg)
+
+    def forward(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
+        return self.block(x_dst, nbr, mask, edge_attr, degrees)
+
+
+def _glorot_param(heads, head_dim):
+    # glorot-uniform, flax's initializer for att*: limit sqrt(6 / (H + Dh)).
+    return nn.Parameter(nn.init.xavier_uniform_(torch.empty(heads, head_dim)))
+
+
+class GATConv(nn.Module):
+    """Multi-head graph attention. v1: score = LeakyReLU(a_src·W_src x_j +
+    a_dst·W_dst x_i); ``v2=True``: a·LeakyReLU(W_src x_j + W_dst x_i).
+    Heads are concatenated (head-major) or, with ``concat_heads=False``,
+    averaged; the bias is added after."""
+
+    def __init__(self, in_dim: int, out_dim: int, heads: int = 1,
+                 concat_heads: bool = True, negative_slope: float = 0.2,
+                 v2: bool = False, use_edge_attr: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if use_edge_attr:
+            raise NotImplementedError(EDGE_FEATURES_NOT_PORTED)
+        if concat_heads and out_dim % heads:
+            raise ValueError(
+                f"out_dim {out_dim} not divisible by heads {heads}")
+        self.heads = heads
+        self.concat_heads = concat_heads
+        self.negative_slope = negative_slope
+        self.v2 = v2
+        self.dtype = dtype
+        self.head_dim = out_dim // heads if concat_heads else out_dim
+        d = heads * self.head_dim
+        self.lin_src = nn.Linear(in_dim, d, bias=False)
+        self.lin_dst = nn.Linear(in_dim, d, bias=False)
+        if v2:
+            self.att = _glorot_param(heads, self.head_dim)
+        else:
+            self.att_src = _glorot_param(heads, self.head_dim)
+            self.att_dst = _glorot_param(heads, self.head_dim)
+        self.bias = nn.Parameter(torch.zeros(
+            out_dim if concat_heads else self.head_dim))
+
+    def _finish(self, out):
+        # out: [n, H*Dh], head-major
+        if not self.concat_heads:
+            out = out.reshape(-1, self.heads, self.head_dim).mean(1)
+        return out + self.bias.to(out.dtype)
+
+    def source_table(self, x):
+        # The reference projects the gathered [N, K, Din] block
+        # (convs.py:295); projecting the [N, Din] table once and reading
+        # its rows changes the order of operations, not the function (a
+        # row gather commutes with a linear layer).
+        return linear(self.lin_src, x, self.dtype)
+
+    def indexed(self, x_dst, src, nbr_idx, mask, degrees=None):
+        """ELL form: ``src`` is ``source_table(x)``; logits, masked
+        softmax and the weighted sum run in K7."""
+        hd = linear(self.lin_dst, x_dst, self.dtype)
+        if self.v2:
+            out = fanout_attention(hd, src, src, nbr_idx, mask, "gatv2",
+                                   self.heads, self.att,
+                                   negative_slope=self.negative_slope)
+        else:
+            out = fanout_attention(hd, src, src, nbr_idx, mask, "gat",
+                                   self.heads, self.att_src, self.att_dst,
+                                   negative_slope=self.negative_slope)
+        return self._finish(out)
+
+    def block(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
+        _no_edge_attr(edge_attr)
+        return _dense_as_indexed(self, x_dst, nbr, mask)
+
+    def forward(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
+        return self.block(x_dst, nbr, mask, edge_attr, degrees)
+
+
+class TransformerConv(nn.Module):
+    """Graph transformer conv: scaled dot-product attention of Q (dst)
+    over K/V (neighbors) per head, plus a root skip ``lin_skip(x_dst)``."""
+
+    def __init__(self, in_dim: int, out_dim: int, heads: int = 1,
+                 use_edge_attr: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if use_edge_attr:
+            raise NotImplementedError(EDGE_FEATURES_NOT_PORTED)
+        if out_dim % heads:
+            raise ValueError("out_dim must divide heads")
+        self.heads = heads
+        self.head_dim = out_dim // heads
+        self.dtype = dtype
+        self.lin_q = nn.Linear(in_dim, out_dim)
+        self.lin_k = nn.Linear(in_dim, out_dim)
+        self.lin_v = nn.Linear(in_dim, out_dim)
+        self.lin_skip = nn.Linear(in_dim, out_dim)
+
+    def source_table(self, x):
+        # K and V of every row once (the reference projects the gathered
+        # block, convs.py:365-366): the order of operations changes, not
+        # the function.
+        return (linear(self.lin_k, x, self.dtype),
+                linear(self.lin_v, x, self.dtype))
+
+    def indexed(self, x_dst, src, nbr_idx, mask, degrees=None):
+        k, v = src
+        q = linear(self.lin_q, x_dst, self.dtype)
+        out = fanout_attention(q, k, v, nbr_idx, mask, "transformer",
+                               self.heads)
+        return out + linear(self.lin_skip, x_dst, self.dtype)
+
+    def block(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
+        _no_edge_attr(edge_attr)
+        return _dense_as_indexed(self, x_dst, nbr, mask)
 
     def forward(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
         return self.block(x_dst, nbr, mask, edge_attr, degrees)

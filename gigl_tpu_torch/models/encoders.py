@@ -9,12 +9,17 @@ shallower and layer 1 consumes the cache through ``conv.block_cached``.
 The per-layer epilogue keeps the reference ordering: no activation after
 the last conv (unless asked), activation otherwise.
 
-Ported so far: GraphSAGE convs, activation placement, output L2
-normalization, and eval and train modes. Train-mode dropout draws its keep
-mask from an explicit ``torch.Generator`` (its bits differ from flax's);
-rate 0 is the identity, as in flax. Other convs, batch norm, jumping
-knowledge, the final linear layer, edge features and feature embeddings /
-DCN raise ``NotImplementedError``.
+``encode_ell(x, ell)`` is the exact full-graph path: a permute-gather in
+(K3), one ``ell_layer`` per conv over the degree buckets (K6 or K7), and
+the inverse gather out (K3). It is forward-only.
+
+Ported so far: the GraphSAGE, GCN, GIN, GAT, GATv2 and Transformer convs
+(no edge features), activation placement, output L2 normalization, and
+eval and train modes. Train-mode dropout draws its keep mask from an
+explicit ``torch.Generator`` (its bits differ from flax's); rate 0 is the
+identity, as in flax. GINE, EdgeAttrGAT, batch norm, jumping knowledge,
+the final linear layer, edge features and feature embeddings / DCN raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,8 +30,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gigl_tpu_torch.models.convs import SAGEConv
+from gigl_tpu_torch.models.convs import (
+    GATConv,
+    GCNConv,
+    GINConv,
+    SAGEConv,
+    TransformerConv,
+)
 from gigl_tpu_torch.models.layers import l2_normalize
+from gigl_tpu_torch.ops.ell import (
+    EDGE_FEATURES_NOT_PORTED,
+    EllGraph,
+    ell_layer,
+)
+from gigl_tpu_torch.ops.gather import gather_rows
 
 CONV_TYPES = (
     "graphsage", "gcn", "gin", "gine", "gat", "gatv2", "edge_attr_gat",
@@ -52,6 +69,27 @@ def cached_agg_kind(conv: str, conv_kwargs=None) -> str:
     raise ValueError(
         f"conv {conv!r} is not hop-cacheable (weight-dependent aggregation); "
         f"cacheable: {sorted(CACHEABLE_CONVS)}")
+
+
+def _make_conv(conv: str, in_dim: int, out_dim: int, dtype,
+               kwargs: Dict[str, Any]) -> nn.Module:
+    kw = dict(kwargs)
+    if conv == "graphsage":
+        return SAGEConv(in_dim, out_dim, dtype=dtype, **kw)
+    if conv == "gcn":
+        return GCNConv(in_dim, out_dim, dtype=dtype, **kw)
+    if conv == "gin":
+        return GINConv(in_dim, out_dim, dtype=dtype, **kw)
+    if conv == "gat":
+        return GATConv(in_dim, out_dim, dtype=dtype, **kw)
+    if conv == "gatv2":
+        return GATConv(in_dim, out_dim, v2=True, dtype=dtype, **kw)
+    if conv == "transformer":
+        return TransformerConv(in_dim, out_dim, dtype=dtype, **kw)
+    if conv in ("gine", "edge_attr_gat"):
+        raise NotImplementedError(
+            f"conv {conv!r}: {EDGE_FEATURES_NOT_PORTED}")
+    raise ValueError(f"Unknown conv type {conv!r}; known: {CONV_TYPES}")
 
 
 def _not_ported(what: str):
@@ -85,8 +123,6 @@ class GNNEncoder(nn.Module):
         super().__init__()
         if conv not in CONV_TYPES:
             raise ValueError(f"Unknown conv type {conv!r}; known: {CONV_TYPES}")
-        if conv != "graphsage":
-            raise _not_ported(f"conv {conv!r}")
         for flag, what in ((batchnorm, "batchnorm"),
                            (linear_layer, "linear_layer"),
                            (jk_mode, "jk_mode"), (edge_dim, "edge_dim"),
@@ -104,7 +140,7 @@ class GNNEncoder(nn.Module):
         self.dtype = dtype
         dims = [in_dim] + [hid_dim] * (num_layers - 1) + [out_dim]
         self.convs = nn.ModuleList(
-            SAGEConv(dims[i], dims[i + 1], dtype=dtype, **(conv_kwargs or {}))
+            _make_conv(conv, dims[i], dims[i + 1], dtype, conv_kwargs or {})
             for i in range(num_layers))
 
     def _epilogue(self, x, is_last, train, generator):
@@ -165,8 +201,11 @@ class GNNEncoder(nn.Module):
                 for d in range(L):
                     dst = h[d]
                     lead, dim = dst.shape[:-1], dst.shape[-1]
+                    deg = (None if hop_degrees is None
+                           else hop_degrees[d].reshape(-1))
                     out = conv.block_cached(dst.reshape(-1, dim),
-                                            cached_agg[d].reshape(-1, dim))
+                                            cached_agg[d].reshape(-1, dim),
+                                            deg)
                     out = self._epilogue(out, is_last, train, generator)
                     new_h.append(out.reshape(lead + (out.shape[-1],)))
                 h = new_h
@@ -175,10 +214,36 @@ class GNNEncoder(nn.Module):
                 dst, nbr = h[d], h[d + 1]
                 lead = dst.shape[:-1]
                 k = nbr.shape[len(lead)]
+                degs = None
+                if hop_degrees is not None:
+                    degs = (hop_degrees[d].reshape(-1),
+                            hop_degrees[d + 1].reshape(-1, k))
                 out = conv.block(dst.reshape(-1, dst.shape[-1]),
                                  nbr.reshape(-1, k, nbr.shape[-1]),
-                                 masks[d + 1].reshape(-1, k))
+                                 masks[d + 1].reshape(-1, k), None, degs)
                 out = self._epilogue(out, is_last, train, generator)
                 new_h.append(out.reshape(lead + (out.shape[-1],)))
             h = new_h
         return self._post(h[0])
+
+    def encode_ell(
+        self,
+        x: torch.Tensor,
+        ell: EllGraph,
+        edge_attr: Optional[torch.Tensor] = None,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """Exact full-graph encode through degree-bucketed blocks
+        (ops/ell.py): x [N, Din] in original node order, on ``ell``'s
+        device -> [N, out_dim] in original node order. The permute-gathers
+        in and out run through K3; each layer's aggregation through K6 or
+        K7. Forward-only."""
+        if edge_attr is not None:
+            raise NotImplementedError(EDGE_FEATURES_NOT_PORTED)
+        x_p = gather_rows(x.to(self.dtype).contiguous(), ell.perm)[0]
+        for i, conv in enumerate(self.convs):
+            is_last = i == self.num_layers - 1
+            x_p = ell_layer(conv, x_p, ell, with_degrees=(self.conv == "gcn"))
+            x_p = self._epilogue(x_p, is_last, train, generator)
+        return gather_rows(self._post(x_p).contiguous(), ell.rank)[0]

@@ -39,7 +39,7 @@ COMPILE_FLAGS = ARCH_FLAGS + [
 # retrieval_loss counts its forward and its backward entry point.
 KERNEL_NAMES = ("sample_uniform", "uniform_ids", "build_neighbor_cache",
                 "gather_rows", "masked_reduce", "masked_reduce_bwd",
-                "retrieval_loss")
+                "retrieval_loss", "ell_aggregate", "fanout_attention")
 launches: Dict[str, int] = dict.fromkeys(KERNEL_NAMES, 0)
 
 _P = ctypes.c_void_p
@@ -63,6 +63,10 @@ _SIGNATURES = {
                                 _F32, _I32, _I32, _P, _P, _P, _P, _P],
     "gigl_retrieval_loss_bwd": [_P, _I64, _I64, _I32, _P, _P, _P, _P, _F32,
                                 _F32, _I32, _I32, _P, _P, _P, _P],
+    "gigl_ell_aggregate": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
+                           _I32, _I32, _P],
+    "gigl_fanout_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32,
+                              _I32, _I32, _I32, _I32, _F32, _F32, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -18,6 +18,9 @@ equally among the valid slots equal to the output, as ``jax.vjp`` of
 :func:`_masked_reduce_bwd_plain` as its twin. :func:`masked_reduce` is a
 ``torch.autograd.Function`` whose forward is K4 and whose backward is K4b
 (the plain twins for CPU tensors).
+
+:func:`masked_softmax` (``:83-95``) is plain PyTorch; the attention convs
+reach it through kernel K7 (``ops/attention.py``), whose plain twin uses it.
 """
 
 from __future__ import annotations
@@ -185,3 +188,18 @@ def fanout_aggregate(
     if edge_weight is not None:
         feats = feats * edge_weight[..., None]
     return masked_reduce(feats, mask, reduce)
+
+
+def masked_softmax(logits: torch.Tensor, mask: torch.Tensor,
+                   axis: int = -1) -> torch.Tensor:
+    """Softmax over ``axis`` with invalid slots at zero weight (plain
+    PyTorch, as ``gigl_tpu/ops/fanout.py:83-95``): masked logits are filled
+    with ``finfo(dtype).min`` (not -inf), the max carries no gradient, the
+    denominator is clamped at 1e-16, and rows with no valid slot get 0.
+    logits, mask: [..., K]."""
+    neg = torch.finfo(logits.dtype).min
+    masked = torch.where(mask, logits, neg)
+    m = masked.amax(dim=axis, keepdim=True).detach()
+    e = torch.exp(masked - m) * mask.to(logits.dtype)
+    denom = e.sum(dim=axis, keepdim=True)
+    return e / torch.clamp(denom, min=1e-16)

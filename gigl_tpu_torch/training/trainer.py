@@ -17,7 +17,6 @@ ROADMAP B5b), label-edge-feature scorers, and checkpointing in ``fit``.
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import Any, Dict, Iterable, Mapping, NamedTuple, Optional, Tuple
 
@@ -29,14 +28,10 @@ from gigl_tpu_torch.device import DeviceLike, resolve_device
 from gigl_tpu_torch.losses.losses import margin_loss, retrieval_loss, softmax_loss
 from gigl_tpu_torch.losses.metrics import hits_at_k, mean_reciprocal_rank
 from gigl_tpu_torch.models.encoders import cached_agg_kind
+from gigl_tpu_torch.models.init import init_params
 from gigl_tpu_torch.models.link_prediction import LinkPredictionGNN
 from gigl_tpu_torch.training.base import BaseInferencer
 from gigl_tpu_torch.training.dataset import DeviceGraph, NALPBatch
-
-# flax's lecun_normal: a normal truncated to [-2, 2] whose std is
-# sqrt(1 / fan_in) after truncation (0.8796... is the std of the truncated
-# unit normal).
-_TRUNC_STD = 0.87962566103423978
 
 
 class TrainState(NamedTuple):
@@ -208,23 +203,9 @@ class NALPTrainer(BaseInferencer):
 
     # -- state -----------------------------------------------------------------
     def init_params(self, seed: int = 0) -> None:
-        """Initialize every Linear as flax's default ``Dense`` does, from a
-        seeded ``torch.Generator`` on the CPU (the same seed gives the same
-        weights on every device): kernels lecun-normal (a normal truncated
-        to [-2, 2] times sqrt(1/fan_in) / 0.8796), biases 0."""
-        gen = torch.Generator().manual_seed(int(seed))
-        lo, hi = (0.5 * (1.0 + math.erf(b / math.sqrt(2.0))) for b in (-2, 2))
-        with torch.no_grad():
-            for mod in self.model.modules():
-                if isinstance(mod, nn.Linear):
-                    u = torch.rand(mod.weight.shape, generator=gen,
-                                   dtype=torch.float64) * (hi - lo) + lo
-                    z = (math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)).clamp(
-                        -2.0, 2.0)
-                    std = math.sqrt(1.0 / mod.in_features) / _TRUNC_STD
-                    mod.weight.copy_(z * std)
-                    if mod.bias is not None:
-                        mod.bias.zero_()
+        """Initialize the model as flax's defaults do, from ``seed``
+        (``gigl_tpu_torch.models.init.init_params``)."""
+        init_params(self.model, seed)
 
     def init_state(self, seed: int = 0, batch_size: Optional[int] = None,
                    params: Optional[Mapping[str, torch.Tensor]] = None

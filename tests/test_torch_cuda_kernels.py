@@ -16,7 +16,11 @@ masked-reduce backward does the twin's arithmetic (one fp32 division, one
 rounding): fp32 rtol 1e-6, bf16 within one ulp of the gradient's scale.
 The retrieval loss: loss_sum within 1e-5 relative (fp32 sums in another
 order), dS within 1e-5 of its scale in fp32 and one bf16 ulp of its scale
-in bf16 (each element rounded once from nearly equal fp32 values).
+in bf16 (each element rounded once from nearly equal fp32 values). K6
+ell_aggregate and K7 fanout_attention (one row of width 4, all-masked rows,
+a hub row of degree 5,000 in a width-8192 bucket, rows that are not 16-byte
+multiples): fp32 rtol/atol 1e-5 of the output scale (sums and exps in
+another order), bf16 within 2e-2 of the output scale.
 """
 
 import numpy as np
@@ -26,11 +30,21 @@ import torch
 from gigl_tpu_torch.graph.csr import HeteroGraph, build_csr
 from gigl_tpu_torch.inference.inferencer import InferenceConfig, run_inference
 from gigl_tpu_torch.models.encoders import GNNEncoder
+from gigl_tpu_torch.models.init import init_params
 from gigl_tpu_torch.models.link_prediction import (
     LinkPredictionDecoder,
     LinkPredictionGNN,
 )
 from gigl_tpu_torch.ops import _build
+from gigl_tpu_torch.ops.attention import (
+    _fanout_attention_plain,
+    fanout_attention,
+)
+from gigl_tpu_torch.ops.ell import EllGraph
+from gigl_tpu_torch.ops.ell_aggregate import (
+    _ell_aggregate_plain,
+    ell_aggregate,
+)
 from gigl_tpu_torch.ops.fanout import (
     _masked_reduce_bwd_plain,
     _masked_reduce_plain,
@@ -67,6 +81,10 @@ from gigl_tpu_torch.training.trainer import NALPTrainer, NALPTrainerConfig
 pytestmark = pytest.mark.cuda
 
 N, E = 700, 9000
+# The kernels a sampled NALP training step launches (not K6 / K7).
+TRAINING_KERNELS = ("sample_uniform", "uniform_ids", "build_neighbor_cache",
+                    "gather_rows", "masked_reduce", "masked_reduce_bwd",
+                    "retrieval_loss")
 
 
 @pytest.fixture
@@ -292,6 +310,105 @@ def test_wrappers_raise_on_what_kernels_do_not_take(dev):
         uniform_ids(4, 0, 0, 0, dev)
 
 
+def _ell_inputs(dev, n, w, m, d, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, d), generator=g, device=dev).to(dtype)
+    nbr = torch.randint(0, m, (n, w), generator=g, device=dev,
+                        dtype=torch.int32)
+    mask = torch.rand((n, w), generator=g, device=dev) < 0.7
+    if n > 2:
+        mask[1] = False                      # an all-masked row
+        mask[2, : min(w, 5000)] = True       # a hub row (degree 5000 at 8192)
+        mask[2, 5000:] = False
+    nbr = torch.where(mask, nbr, 0)          # masked slots point at row 0
+    deg = torch.randint(0, 60, (m,), generator=g, device=dev).float()
+    return x, nbr, mask, deg
+
+
+def _within(got, want, dtype):
+    scale = max(float(want.float().abs().max()), 1e-30)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * scale, (err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["mean", "sum", "max", "gcn"])
+@pytest.mark.parametrize("n,w,m,d", [(1, 4, 50, 128), (37, 4, 500, 256),
+                                     (300, 32, 1000, 128), (5, 8192, 6000, 64),
+                                     (20, 16, 100, 12)])
+def test_ell_aggregate_matches_plain(dev, dtype, op, n, w, m, d):
+    x, nbr, mask, deg = _ell_inputs(dev, n, w, m, d, dtype)
+    before = _build.launches["ell_aggregate"]
+    got = ell_aggregate(x, nbr, mask, op, deg[:n].contiguous(), deg)
+    torch.cuda.synchronize()
+    assert _build.launches["ell_aggregate"] == before + 1
+    want = _ell_aggregate_plain(x, nbr, mask, op, deg[:n], deg)
+    assert got.dtype == dtype and got.shape == (n, d)
+    if n > 2:
+        assert not got[1].any()
+    _within(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["gat", "gatv2", "transformer"])
+@pytest.mark.parametrize("n,w,m,heads,dh", [
+    (1, 4, 50, 4, 64), (300, 32, 1000, 4, 32), (37, 64, 400, 4, 64),
+    (5, 8192, 6000, 4, 32), (20, 100, 90, 3, 5)])
+def test_fanout_attention_matches_plain(dev, dtype, mode, n, w, m, heads,
+                                        dh):
+    _, nbr, mask, _ = _ell_inputs(dev, n, w, m, 8, dtype)
+    g = torch.Generator(device=dev).manual_seed(1)
+    hd = heads * dh
+    xd, ks, vs = (torch.randn(s, generator=g, device=dev).to(dtype)
+                  for s in ((n, hd), (m, hd), (m, hd)))
+    att, att2 = (torch.randn((heads, dh), generator=g, device=dev) * 0.3
+                 for _ in range(2))
+    atts = {"gat": (att, att2), "gatv2": (att, None),
+            "transformer": (None, None)}[mode]
+    before = _build.launches["fanout_attention"]
+    got = fanout_attention(xd, ks, vs, nbr, mask, mode, heads, *atts)
+    torch.cuda.synchronize()
+    assert _build.launches["fanout_attention"] == before + 1
+    flat = [None if a is None else a.reshape(-1) for a in atts]
+    want = _fanout_attention_plain(xd, ks, vs, nbr, mask, mode, heads, *flat)
+    assert got.dtype == dtype and got.shape == (n, hd)
+    if n > 2:
+        assert not got[1].any()
+    _within(got, want, dtype)
+
+
+def test_full_graph_inference_on_card_matches_cpu(dev):
+    """encode_ell on the card (K3, K6, K7) against the CPU's plain twins,
+    fp32, for SAGE, GCN, GAT and Transformer."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(5)
+    src, dst = rng.integers(0, N, E), rng.integers(0, N, E)
+    src = np.concatenate([src, rng.integers(0, N, 300)])
+    dst = np.concatenate([dst, np.full(300, 9)])            # a hub
+    x = rng.normal(size=(N, 16)).astype(np.float32)
+    csr = build_csr(src, dst, num_anchor_nodes=N)
+    for conv in ("graphsage", "gcn", "gat", "transformer"):
+        kw = {"heads": 4} if conv in ("gat", "transformer") else None
+        out = {}
+        for device in (dev, torch.device("cpu")):
+            _build.reset_launches()
+            enc = GNNEncoder(16, 32, 16, conv=conv, conv_kwargs=kw)
+            init_params(enc, 0)
+            enc.to(device)
+            ell = EllGraph.from_csr(csr, device=device)
+            with torch.inference_mode():
+                out[device.type] = enc.encode_ell(
+                    torch.from_numpy(x).to(device), ell).cpu()
+            if device.type == "cuda":
+                kern = ("fanout_attention" if conv in ("gat", "transformer")
+                        else "ell_aggregate")
+                assert _build.launches[kern] > 0 and \
+                    _build.launches["gather_rows"] == 2, _build.launches
+        torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4,
+                                   atol=1e-4)
+
+
 def test_inference_on_card_matches_cpu(dev):
     rng = np.random.default_rng(3)
     src, dst = rng.integers(0, N, E), rng.integers(0, N, E)
@@ -348,7 +465,7 @@ def test_two_train_steps_on_card_match_cpu(dev):
         out[device.type] = (losses.cpu(), {k: v.cpu() for k, v in
                                            t.model.state_dict().items()})
         if device.type == "cuda":
-            assert all(_build.launches[k] > 0 for k in _build.KERNEL_NAMES), \
+            assert all(_build.launches[k] > 0 for k in TRAINING_KERNELS), \
                 _build.launches
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
                                atol=0)

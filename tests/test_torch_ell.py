@@ -1,0 +1,238 @@
+"""Parity of the port's exact full-graph path (gigl_tpu_torch.ops.ell,
+GNNEncoder.encode_ell, run_full_graph_inference) with the JAX reference.
+
+The graph: 200 nodes, ~1,500 random directed edges, three isolated nodes
+(no in- or out-edges) and one hub of in-degree 40, so the ELL tables have
+buckets of widths 4 to 64 and all-masked rows in bucket 0. Params come
+from JAX through params_from_flax.
+
+- Every EllGraph table and static tuple: bit-equal.
+- fp32 encodes: the same sums in another order, within 1e-4 of the
+  output's largest entry.
+- bf16 encodes (graphsage, gat): the reference rounds every intermediate
+  to bf16 (each Dense output, its bf16 masked reductions), where the port's
+  GEMMs and kernels accumulate in fp32 and round once; a few bf16 ulps
+  (2**-8 relative) through two layers: within 2e-2 of the largest entry.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from gigl_tpu.graph.csr import HeteroGraph as RefHeteroGraph
+from gigl_tpu.graph.csr import build_csr as ref_build_csr
+from gigl_tpu.inference.inferencer import (
+    run_full_graph_inference as ref_run_full_graph_inference,
+)
+from gigl_tpu.models.encoders import GNNEncoder as RefGNNEncoder
+from gigl_tpu.ops import ell as ref_ell
+from gigl_tpu_torch.convert import params_from_flax
+from gigl_tpu_torch.graph.csr import HeteroGraph, build_csr
+from gigl_tpu_torch.inference.inferencer import run_full_graph_inference
+from gigl_tpu_torch.models.encoders import GNNEncoder
+from gigl_tpu_torch.ops import ell
+
+torch.set_num_threads(1)
+
+N, DIN, HID, OUT, HEADS = 200, 12, 16, 8, 2
+ISOLATED = (3, 77, 199)
+HUB = 5
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _graph(seed=0):
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, N, 1500)
+    dst = rng.integers(0, N, 1500)
+    keep = ~(np.isin(src, ISOLATED) | np.isin(dst, ISOLATED) | (dst == HUB))
+    hub_src = rng.choice([v for v in range(N) if v not in ISOLATED], 40,
+                         replace=False)
+    src = np.concatenate([src[keep], hub_src])
+    dst = np.concatenate([dst[keep], np.full(40, HUB)])
+    x = rng.normal(size=(N, DIN)).astype(np.float32)
+    return src, dst, x
+
+
+def _conv_kwargs(conv):
+    return {"heads": HEADS} if conv in ("gat", "gatv2", "transformer") else {}
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _close(got, want, dtype):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    assert got.shape == want.shape and np.isfinite(got).all()
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=tol * np.abs(want).max())
+
+
+@pytest.mark.parametrize("widths", [None, (4, 8, 16, 64), (4, 64)])
+def test_ell_tables_bit_equal(widths):
+    src, dst, _ = _graph()
+    ref = ref_ell.EllGraph.from_csr(
+        ref_build_csr(src, dst, num_anchor_nodes=N, num_neighbor_nodes=N),
+        widths=widths)
+    got = ell.EllGraph.from_csr(
+        build_csr(src, dst, num_anchor_nodes=N, num_neighbor_nodes=N),
+        widths=widths, device="cpu")
+    assert got.boundaries == ref.boundaries and got.widths == ref.widths
+    assert got.t_boundaries == ref.t_boundaries
+    assert got.t_widths == ref.t_widths
+    for name in ("perm", "rank", "deg_p", "t_rank", "edge_pos"):
+        g, r = getattr(got, name), np.asarray(getattr(ref, name))
+        assert g.device.type == "cpu" and str(g.dtype)[6:] == str(r.dtype)
+        np.testing.assert_array_equal(g.numpy(), r, err_msg=name)
+    for name in ("nbr", "mask", "edge_slots", "t_nbr", "t_mask"):
+        gs, rs = getattr(got, name), getattr(ref, name)
+        assert len(gs) == len(rs)
+        for g, r in zip(gs, rs):
+            r = np.asarray(r)
+            assert str(g.dtype)[6:] == str(r.dtype)
+            np.testing.assert_array_equal(g.numpy(), r, err_msg=name)
+    if widths is None:
+        assert got.widths == (4, 8, 16, 32, 64)
+        # isolated nodes are all-masked rows of bucket 0
+        rows = got.rank[list(ISOLATED)].numpy()
+        assert (rows < got.boundaries[1]).all()
+        assert not got.mask[0][rows].any()
+
+
+@pytest.mark.parametrize("deg,want", [
+    (0, (4,)), (1, (4,)), (4, (4,)), (5, (4, 8)), (47, (4, 8, 16, 32, 64)),
+    (5000, (4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192))])
+def test_default_widths(deg, want):
+    assert ell.default_widths(deg) == want == ref_ell.default_widths(deg)
+
+
+def test_from_csr_rejects_what_the_reference_rejects():
+    src, dst, _ = _graph()
+    csr = build_csr(src, dst, num_anchor_nodes=N)
+    with pytest.raises(ValueError, match="max degree"):
+        ell.EllGraph.from_csr(csr, widths=(4, 8), device="cpu")
+    with pytest.raises(ValueError, match="ascending"):
+        ell.EllGraph.from_csr(csr, widths=(64, 4), device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ell.EllGraph.from_csr(csr)
+
+
+CASES = [("graphsage", {"aggr": "mean"}, "float32"),
+         ("graphsage", {"aggr": "sum"}, "float32"),
+         ("graphsage", {"aggr": "max"}, "float32"),
+         ("gcn", {}, "float32"), ("gin", {}, "float32"),
+         ("gat", {}, "float32"), ("gatv2", {}, "float32"),
+         ("transformer", {}, "float32"),
+         ("graphsage", {"aggr": "mean"}, "bfloat16"),
+         ("gat", {}, "bfloat16")]
+
+
+def _encoders(conv, kw, dtype, l2=False, seed=0):
+    jdt, tdt = DTYPES[dtype]
+    kw = {**kw, **_conv_kwargs(conv)}
+    src, dst, x = _graph()
+    jell = ref_ell.EllGraph.from_csr(ref_build_csr(src, dst,
+                                                   num_anchor_nodes=N))
+    jenc = RefGNNEncoder(hid_dim=HID, out_dim=OUT, num_layers=2, conv=conv,
+                         conv_kwargs=kw, l2_normalize_output=l2, dtype=jdt)
+    # jit (here and below): one compile instead of an eager one per op
+    params = jax.jit(lambda k, x_, e: jenc.init(k, x_, e, method="encode_ell")
+                     )(jax.random.PRNGKey(seed), jnp.asarray(x), jell)
+    enc = GNNEncoder(DIN, HID, OUT, num_layers=2, conv=conv, conv_kwargs=kw,
+                     l2_normalize_output=l2, dtype=tdt)
+    enc.load_state_dict(params_from_flax(_np(params)))
+    return jenc, params, enc, (src, dst, x, jell)
+
+
+@pytest.mark.parametrize("conv,kw,dtype", CASES)
+def test_encode_ell_matches_jax(conv, kw, dtype):
+    jenc, params, enc, (src, dst, x, jell) = _encoders(conv, kw, dtype)
+    want = jax.jit(lambda p, x_, e: jenc.apply(p, x_, e, method="encode_ell")
+                   )(params, jnp.asarray(x), jell)
+    tell = ell.EllGraph.from_csr(build_csr(src, dst, num_anchor_nodes=N),
+                                 device="cpu")
+    with torch.inference_mode():
+        got = enc.encode_ell(torch.from_numpy(x), tell)
+    assert got.shape == (N, OUT) and got.dtype == DTYPES[dtype][1]
+    _close(got.float().numpy(), want, dtype)
+
+
+@pytest.mark.parametrize("conv,dtype,l2", [
+    ("graphsage", "float32", True), ("gat", "bfloat16", False),
+    ("gcn", "float32", False)])
+def test_run_full_graph_inference_matches_jax(conv, dtype, l2):
+    jenc, params, enc, (src, dst, x, _) = _encoders(conv, {}, dtype, l2=l2,
+                                                    seed=1)
+
+    class Sink:
+        def __init__(self):
+            self.ids, self.embs, self.flushed = [], [], False
+
+        def add_embeddings(self, ids, emb):
+            self.ids.append(np.asarray(ids))
+            self.embs.append(np.asarray(emb, np.float32))
+
+        def flush(self):
+            self.flushed = True
+
+    ref_sink, sink = Sink(), Sink()
+    n_ref = ref_run_full_graph_inference(
+        jenc, params, RefHeteroGraph.homogeneous(src, dst, num_nodes=N,
+                                                 node_features=x),
+        ref_sink, export_batch=64)
+    n = run_full_graph_inference(
+        enc, params_from_flax(_np(params)),
+        HeteroGraph.homogeneous(src, dst, num_nodes=N, node_features=x),
+        sink, export_batch=64, device="cpu")
+    assert n == n_ref == N and sink.flushed
+    assert len(sink.ids) == len(ref_sink.ids) == 4
+    ids = np.concatenate(sink.ids)
+    np.testing.assert_array_equal(ids, np.concatenate(ref_sink.ids))
+    np.testing.assert_array_equal(np.sort(ids), np.arange(N))
+    _close(np.concatenate(sink.embs), np.concatenate(ref_sink.embs), dtype)
+
+
+def test_run_full_graph_inference_guards():
+    src, dst, _ = _graph()
+    g = HeteroGraph.homogeneous(src, dst, num_nodes=N)
+    enc = GNNEncoder(1, HID, OUT)
+    with pytest.raises(ValueError, match="no feature table"):
+        run_full_graph_inference(enc, None, g, None, device="cpu")
+    out = []
+
+    class Sink:
+        def add_embeddings(self, ids, emb):
+            out.append(emb)
+
+        def flush(self):
+            pass
+
+    assert run_full_graph_inference(enc, None, g, Sink(), device="cpu",
+                                    allow_zero_features=True) == N
+    assert np.concatenate(out).shape == (N, OUT)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run_full_graph_inference(enc, None, g, Sink(),
+                                     allow_zero_features=True)
+
+
+def test_edge_features_raise():
+    src, dst, x = _graph()
+    tell = ell.EllGraph.from_csr(build_csr(src, dst, num_anchor_nodes=N),
+                                 device="cpu")
+    enc = GNNEncoder(DIN, HID, OUT)
+    ea = torch.zeros((len(src), 4))
+    with pytest.raises(NotImplementedError, match="ell_gather_edges"):
+        enc.encode_ell(torch.from_numpy(x), tell, ea)
+    with pytest.raises(NotImplementedError, match="ell_gather_edges"):
+        ell.ell_layer(enc.convs[0], torch.from_numpy(x), tell, ea)
+    for conv in ("gine", "edge_attr_gat"):
+        with pytest.raises(NotImplementedError, match="ell_gather_edges"):
+            GNNEncoder(DIN, HID, OUT, conv=conv)

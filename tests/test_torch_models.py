@@ -159,7 +159,7 @@ def test_cached_agg_kind_and_unported_options():
     with pytest.raises(ValueError, match="not hop-cacheable"):
         encoders.cached_agg_kind("gat")
     with pytest.raises(NotImplementedError, match="not ported"):
-        encoders.GNNEncoder(DIN, HID, OUT, conv="gat")
+        encoders.GNNEncoder(DIN, HID, OUT, conv="gine")
     with pytest.raises(NotImplementedError, match="not ported"):
         encoders.GNNEncoder(DIN, HID, OUT, batchnorm=True)
     with pytest.raises(NotImplementedError, match="not ported"):
