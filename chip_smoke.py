@@ -39,13 +39,30 @@
    through the plain versions; prints the host-clocked encode time, the
    profiler's device time per pass, nodes/s, edges aggregated per pass
    and the peak memory;
-8. prints one JSON line with every kernel's numbers, then the card line,
+8. node-classification training (the graph carries 16 random labels, as
+   _ell_bench.py:9-18 draws them): holds K6b ell_transpose_aggregate (mean
+   at layer 2's [100k, 256] fp32 cotangent; GCN, max, weighted, GATv2)
+   over the whole transpose walk and K7b fanout_attention_bwd (GAT at head
+   dims 64 and 4, GATv2, Transformer) at the largest bucket against their
+   plain versions, with bounds, an index_add_ yardstick (K6b) and an
+   SDPA-backward one (K7b, Transformer mode); then, per model, one
+   training step through the kernels against the same step through the
+   plain versions on the card, and the path itself with the launch counts
+   reset just before and read just after: FullBatchTrainer
+   (full_batch_data_from_graph, 2 layers, hidden 256, fp32, Adam 1e-2;
+   GraphSAGE and GAT with 4 heads) and NodeClassificationTrainer
+   (milestone 2's GAT: 3 layers, fanouts (15, 10, 5), hidden 64, 4 heads,
+   lr 0.005, batch 256, four batches of labeled nodes cycled; GraphSAGE at
+   fanouts (15, 10)); prints ms/step, edges/s or seeds/s, the profiler's
+   device time, busy share and top ops, peak memory, first and last loss;
+9. prints one JSON line with every kernel's numbers, then the card line,
    then {"ok": true, ...} as the last line.
 
 Any failed check raises; nothing is printed as a result without a card.
 It imports neither JAX nor the JAX package.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -72,8 +89,27 @@ FULL_GRAPH_KERNELS = {"graphsage": ("gather_rows", "ell_aggregate"),
                       "gat": ("gather_rows", "fanout_attention")}
 GAT_HEADS = 4               # examples/baseline_milestones.py:91
 FULL_GRAPH_PROFILED = 3     # passes under torch.profiler
+C = 16                      # classes (_ell_bench.py:15)
+FB_STEPS, FB_WARMUP, FB_PROFILED = 50, 3, 5
+FULL_BATCH_KERNELS = {
+    "graphsage": ("gather_rows", "ell_aggregate", "ell_transpose_aggregate"),
+    "gat": ("gather_rows", "fanout_attention", "fanout_attention_bwd",
+            "ell_transpose_aggregate")}
+# examples/baseline_milestones.py:86-94 (GAT), and GraphSAGE at (15, 10)
+NC_MODELS = {"gat": (3, (15, 10, 5), {"heads": 4}),
+             "graphsage": (2, (15, 10), None)}
+NC_HID, NC_BATCH, NC_LR = 64, 256, "0.005"
+NC_STEPS, NC_WARMUP, NC_PROFILED = 50, 3, 5
+NC_LABELED = 4              # batches of labeled nodes, cycled
+NC_KERNELS = {
+    "graphsage": ("sample_uniform", "gather_rows", "masked_reduce",
+                  "masked_reduce_bwd"),
+    "gat": ("sample_uniform", "gather_rows", "fanout_attention",
+            "fanout_attention_bwd")}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+# ReLU gates the plain step may see on the other side of 0 (fp32 rounding)
+FLIPS_MAX, FLIP_NEAR_ZERO = 8, 1e-4
 
 
 def check(cond, msg):
@@ -172,6 +208,128 @@ def profile_summary(prof, steps, window_us, host_ms_per_step):
                   "calls_per_step": c / steps} for n, (t, c) in top]}
 
 
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper of the node-classification paths replaced by
+    its plain PyTorch twin, on whatever device the tensors are: the same
+    step computed without a kernel, on the card."""
+    from gigl_tpu_torch.ops import attention, ell_aggregate, fanout, gather
+    from gigl_tpu_torch.sampling import neighbor_sampler
+    from gigl_tpu_torch.training import dataset
+
+    def agg_fwd(x, nbr, mask, op, deg_dst=None, deg_tab=None, out=None):
+        got = ell_aggregate._ell_aggregate_plain(x, nbr, mask, op, deg_dst,
+                                                 deg_tab)
+        return got if out is None else out.copy_(got)
+
+    def transpose(rows, ell, op, *args, **kw):
+        return ell_aggregate._ell_transpose_plain(rows, ell, op, *args, **kw)
+
+    def att_fwd(xd, ks, vs, nbr, mask, mode, heads, att, att2, slope,
+                out=None, stats=None):
+        got = attention._fanout_attention_plain(xd, ks, vs, nbr, mask, mode,
+                                                heads, att, att2, slope)
+        return got if out is None else out.copy_(got)
+
+    def att_bwd(g, xd, ks, vs, nbr, mask, out, stats, mode, heads, att=None,
+                att2=None, negative_slope=0.2, identity=False,
+                same_table=False, d_xd=None, alpha=None, coef=None):
+        got = attention._fanout_attention_bwd_plain(
+            g, xd, ks, vs, nbr, mask, out, mode, heads, att, att2,
+            negative_slope, identity, same_table)
+        fills = {"d_xd": d_xd, "alpha": alpha, "coef": coef}
+        return got._replace(**{k: b.copy_(getattr(got, k))
+                               for k, b in fills.items() if b is not None})
+
+    def rows(table, ids, row_vals=None):
+        return gather._gather_rows_plain(table, ids, row_vals)
+
+    patches = [
+        (ell_aggregate, "_ell_aggregate_fwd", agg_fwd),
+        (ell_aggregate, "ell_transpose_aggregate", transpose),
+        (attention, "ell_transpose_aggregate", transpose),
+        (attention, "_fanout_attention_fwd", att_fwd),
+        (attention, "fanout_attention_bwd", att_bwd),
+        (gather, "gather_rows", rows), (dataset, "gather_rows", rows),
+        (fanout, "_masked_reduce_fwd", fanout._masked_reduce_plain),
+        (fanout, "masked_reduce_bwd", fanout._masked_reduce_bwd_plain),
+        (neighbor_sampler, "sample_uniform",
+         neighbor_sampler._sample_uniform_plain)]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
+    for m, n, f in patches:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def step_vs_plain(model, loss_fn, launches):
+    """One step's loss and gradients through the kernels and again through
+    the plain twins (no kernel may launch), from the same weights: the
+    loss's relative error and each parameter's max gradient error over its
+    scale. The plain step reuses the kernel step's ReLU gates: the two
+    forwards round differently, and a pre-activation within an fp32 ulp of
+    0 may take the other side of the gate there, which moves a layer-1
+    weight gradient by ~1/sqrt(rows) of its scale (one row's share of the
+    sum) — not a kernel error. So the flipped gates are bounded: at most
+    FLIPS_MAX or one per million gates, and each flipped pre-activation
+    within FLIP_NEAR_ZERO of its layer's largest (a forward that disagrees
+    in sign anywhere else fails)."""
+    gates, flips, near = [], [], []
+
+    def record(x):
+        m = x > 0
+        gates.append(m)
+        return x * m                       # relu, with relu's gradient
+
+    def replay(x):
+        m = gates[len(flips)]
+        flip = (x > 0) != m
+        flips.append(int(flip.sum()))
+        near.append(float(x[flip].abs().max() / x.abs().max())
+                    if flips[-1] else 0.0)
+        return x * m
+
+    act = model.activation
+    model.zero_grad(set_to_none=True)
+    model.activation = record
+    loss_k = loss_fn()
+    loss_k.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    before = dict(launches)
+    model.activation = replay
+    with plain_kernels():
+        loss_p = loss_fn()
+        loss_p.backward()
+    model.activation = act
+    torch.cuda.synchronize()
+    check(dict(launches) == before, "the plain step launched a kernel")
+    check(len(flips) == len(gates), "the plain step's gates differ")
+    n_gates = int(sum(int(m.numel()) for m in gates))
+    check(sum(flips) <= max(FLIPS_MAX, n_gates // 10**6),
+          f"{sum(flips)} of {n_gates} ReLU gates flipped in the plain step")
+    check(max(near, default=0.0) <= FLIP_NEAR_ZERO,
+          f"a flipped ReLU gate's pre-activation is {max(near)} of its "
+          "layer's scale from 0")
+    errs = {}
+    for n, p in model.named_parameters():
+        scale = float(p.grad.abs().max())
+        check(scale > 0, f"plain step: no gradient for {n}")
+        errs[n] = float((grads[n] - p.grad).abs().max()) / scale
+    model.zero_grad(set_to_none=True)
+    lk, lp = float(loss_k.detach()), float(loss_p.detach())
+    return {"loss": lk, "loss_plain": lp,
+            "loss_rel_err": abs(lk - lp) / abs(lp),
+            "grad_err_rel_to_scale": errs,
+            "max_grad_err_rel_to_scale": max(errs.values()),
+            "relu_gates": n_gates,
+            "relu_gates_flipped_in_plain_forward": sum(flips),
+            "flipped_preactivation_rel_to_scale": max(near, default=0.0)}
+
+
 def main():
     if not (REPO / "gigl_tpu_torch" / "csrc").is_dir():
         sys.exit("chip_smoke: run from a checkout of the repository "
@@ -190,10 +348,12 @@ def main():
     from gigl_tpu_torch.losses.losses import retrieval_masks
     from gigl_tpu_torch.ops import _build
     from gigl_tpu_torch.ops.attention import (
-        _fanout_attention_plain, fanout_attention)
+        _fanout_attention_bwd_plain, _fanout_attention_fwd,
+        _fanout_attention_plain, fanout_attention_bwd)
     from gigl_tpu_torch.ops.ell import EllGraph
     from gigl_tpu_torch.ops.ell_aggregate import (
-        _ell_aggregate_plain, ell_aggregate)
+        _ell_aggregate_fwd, _ell_aggregate_plain, _ell_transpose_plain,
+        ell_aggregate_graph, ell_transpose_aggregate)
     from gigl_tpu_torch.ops.fanout import (
         MaskedReduce, _masked_reduce_bwd_plain, _masked_reduce_plain,
         masked_reduce, masked_reduce_bwd)
@@ -208,7 +368,11 @@ def main():
         _sample_uniform_plain, _uniform_ids_plain, sample_uniform,
         uniform_ids)
     from gigl_tpu_torch.training.dataset import DeviceGraph
-    from gigl_tpu_torch.training.trainer import NALPTrainer, NALPTrainerConfig
+    from gigl_tpu_torch.training.full_batch import (
+        FullBatchTrainer, full_batch_data_from_graph)
+    from gigl_tpu_torch.training.trainer import (
+        NALPTrainer, NALPTrainerConfig, NodeClassificationTrainer,
+        NodeClassificationTrainerConfig)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -235,7 +399,8 @@ def main():
     dst = rng.integers(0, N, E)
     graph = HeteroGraph.homogeneous(
         src=src, dst=dst, num_nodes=N,
-        node_features=rng.normal(size=(N, D)).astype(np.float32))
+        node_features=rng.normal(size=(N, D)).astype(np.float32),
+        node_labels=rng.integers(0, C, N))
     dg = DeviceGraph.from_hetero(graph, supervision_edges=np.stack([src, dst]))
     torch.cuda.synchronize()
     emit({"phase": "graph", "seconds": time.perf_counter() - t0})
@@ -718,7 +883,7 @@ def main():
         degs = (deg_dst_b, ell.deg_p) if op == "gcn" else (None, None)
 
         def k6_kernel(op=op, degs=degs):
-            return ell_aggregate(x6, nbr_b, mask_b, op, *degs)
+            return _ell_aggregate_fwd(x6, nbr_b, mask_b, op, *degs)
 
         def k6_plain(op=op, degs=degs):
             return _ell_aggregate_plain(x6, nbr_b, mask_b, op, *degs)
@@ -761,9 +926,9 @@ def main():
                             ("transformer", vs7, (None, None))):
         flat = [None if a is None else a.reshape(-1) for a in atts]
 
-        def k7_kernel(mode=mode, vs_=vs_, atts=atts):
-            return fanout_attention(xd7, ks7, vs_, nbr_b, mask_b, mode,
-                                    GAT_HEADS, *atts)
+        def k7_kernel(mode=mode, vs_=vs_, flat=flat):
+            return _fanout_attention_fwd(xd7, ks7, vs_, nbr_b, mask_b, mode,
+                                         GAT_HEADS, *flat, 0.2)
 
         def k7_plain(mode=mode, vs_=vs_, flat=flat):
             return _fanout_attention_plain(xd7, ks7, vs_, nbr_b, mask_b,
@@ -813,7 +978,8 @@ def main():
         """The pass again through the plain versions only."""
         h_ = x_.to(torch.bfloat16)[ell_.perm.long()]
         for li, conv in enumerate(enc.convs):
-            src_ = conv.source_table(h_)
+            src_ = (h_ if isinstance(conv, SAGEConv)
+                    else linear(conv.lin_src, h_, conv.dtype))
             outs = []
             for b_ in range(len(ell_.widths)):
                 lo_, hi_ = ell_.boundaries[b_], ell_.boundaries[b_ + 1]
@@ -908,21 +1074,325 @@ def main():
               "card": card})
         del enc, sink, embs
 
+    # -- node classification: the backward kernels, then the two paths -------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fb_data = full_batch_data_from_graph(graph, device=dev)
+    torch.cuda.synchronize()
+    fb_data_s = time.perf_counter() - t0
+    fell = fb_data.ell
+    t_nonempty = sum(hi > lo for lo, hi in zip(fell.t_boundaries,
+                                               fell.t_boundaries[1:]))
+    t_slots = sum(int(m_.numel()) for m_ in fell.t_mask)
+    n_ent = int(fell.ent_row.shape[0])
+    valid_ent = torch.cat([m_.reshape(-1) for m_ in fell.mask])
+    src_ent = torch.cat([nb_.reshape(-1) for nb_ in fell.nbr]).long()
+    n_valid = int(valid_ent.sum())
+    dst_rows = int((fell.deg_p > 0).sum())
+    emit({"phase": "full_batch_data", "seconds": fb_data_s,
+          "train": int(fb_data.train_mask.sum()),
+          "val": int(fb_data.val_mask.sum()),
+          "test": int(fb_data.test_mask.sum()),
+          "t_widths": list(fell.t_widths),
+          "rows_per_t_bucket": [hi - lo for lo, hi in zip(
+              fell.t_boundaries, fell.t_boundaries[1:])],
+          "t_slots": t_slots, "entries": n_ent, "valid_entries": n_valid})
+    check(n_valid == E, "the ELL entries are not the graph's edges")
+
+    # K6b over the whole transpose walk, layer 2's [100k, 256] fp32
+    # cotangent. bytes: each dst row with an in-edge read once, t_nbr and
+    # t_mask, each valid entry's row index, the degree and t_perm tables,
+    # [N, 256] written (weighted: + two fp32 per valid entry and head);
+    # ops: one multiply-add per valid entry and value.
+    gen8 = torch.Generator(device=dev).manual_seed(8)
+    g6 = torch.randn((N, HID), generator=gen8, device=dev)
+    wt6 = torch.rand((n_ent, GAT_HEADS), generator=gen8, device=dev) * 0.1
+    wt6b = torch.randn((n_ent, GAT_HEADS), generator=gen8, device=dev) * 0.1
+    vec6 = torch.randn(HID, generator=gen8, device=dev) * 0.2
+    k6b_bytes = (dst_rows * HID * 4 + t_slots * 5 + n_valid * 4 + N * 8
+                 + N * HID * 4)
+    q6, t6 = (torch.randn((N, HID), generator=gen8, device=dev)
+              for _ in range(2))
+    x6m = (t6 * 2).round()       # a coarse grid: the max has ties
+    max6 = ell_aggregate_graph(x6m, fell, "max")
+    k6b = {}
+    for mode, extra in (("mean", ()), ("gcn", ()),
+                        ("max", (None, None, None, 1, max6, x6m)),
+                        ("weighted", (wt6, wt6b, vec6, GAT_HEADS)),
+                        ("gatv2", (wt6, wt6b, vec6, GAT_HEADS, q6, t6))):
+        def k6b_kernel(mode=mode, extra=extra):
+            return ell_transpose_aggregate(g6, fell, mode, *extra)
+
+        def k6b_plain(mode=mode, extra=extra):
+            return _ell_transpose_plain(g6, fell, mode, *extra)
+
+        err = rel_err(k6b_kernel(), k6b_plain(), f"K6b {mode}", tol=1e-5)
+        # weighted: + two fp32 per valid entry and head; GATv2: + the query
+        # rows (as many as the cotangent rows) and the key table; max: + the
+        # forward's max rows, its input table and the fp32 tie counts (the
+        # tie-count pass reads the forward tables: nbr and mask)
+        nbytes = k6b_bytes + (n_valid * GAT_HEADS * 8 + HID * 4
+                              if mode in ("weighted", "gatv2") else 0) + (
+            dst_rows * HID * 4 + N * HID * 4 if mode == "gatv2" else 0) + (
+            N * HID * 4 * 4 + n_ent * 5 if mode == "max" else 0)
+        k6b[mode] = {"err": err, "ms": cuda_ms(k6b_kernel),
+                     "plain_ms": cuda_ms(k6b_plain, reps=1),
+                     "eager_ms": eager_ms(k6b_kernel),
+                     "bound_ms": bound_ms(nbytes, n_valid * HID * 2)[0]}
+    # the atomics version: index_add_ of the mean's weighted cotangent rows
+    # (gathered and weighted beforehand, not timed)
+    erow = fell.ent_row.long()[valid_ent]
+    msg6 = g6[erow] / fell.deg_p[erow].clamp(min=1.0)[:, None]
+    src_v = src_ent[valid_ent]
+
+    def k6b_library():
+        return torch.zeros((N, HID), device=dev).index_add_(0, src_v, msg6)
+
+    rel_err(k6b_library(), ell_transpose_aggregate(g6, fell, "mean"),
+            "index_add_ yardstick vs K6b mean", tol=1e-5)
+    record("ell_transpose_aggregate", "gigl_tpu_torch/csrc/ell_transpose.cu",
+           "gigl_tpu/ops/ell.py:255", max(v["err"] for v in k6b.values()),
+           k6b["mean"]["ms"], k6b["mean"]["plain_ms"], nbytes=k6b_bytes,
+           nops=n_valid * HID * 2, library_ms=cuda_ms(k6b_library),
+           library_call="torch.Tensor.index_add_ of the weighted cotangent "
+                        "rows (atomics; gather and weighting not timed)",
+           table=[N, HID], dtype="float32", t_launches=t_nonempty,
+           eager_ms=k6b["mean"]["eager_ms"], modes=k6b)
+    del msg6, src_v, erow, wt6, wt6b, q6, t6, x6m, max6
+
+    # K7b at the largest bucket, fp32: GAT layer 1 (H=4, Dh=64), GAT layer
+    # 2 (Dh=4) and Transformer. bytes: g, xd and out rows, each distinct
+    # source row of ks (and vs) read once, nbr, mask and the softmax
+    # statistics, d_xd and the per-entry alpha and coefficient written;
+    # ops per valid slot and value: logit 2, g·v 2, the d_xd / d_att_src
+    # share 2.
+    nb_f, mk_f = fell.nbr[big], fell.mask[big]
+    nf_b, wf_b = nb_f.shape
+    validf = int(mk_f.sum())
+    uniqf = unique(nb_f[mk_f])
+    k7b = {}
+    for label, mode, hd_ in (("gat_dh64", "gat", HID),
+                             ("gat_dh4", "gat", C),
+                             ("gatv2_dh64", "gatv2", HID),
+                             ("transformer_dh64", "transformer", HID)):
+        dh_ = hd_ // GAT_HEADS
+        xd_, ks_, vs_, g_ = (torch.randn(s_, generator=gen8, device=dev)
+                             for s_ in ((nf_b, hd_), (N, hd_), (N, hd_),
+                                        (nf_b, hd_)))
+        a1 = a2 = None
+        if mode != "transformer":
+            vs_ = ks_
+            a1, a2 = (torch.randn(hd_, generator=gen8, device=dev) * 0.3
+                      for _ in range(2))
+            a2 = a2 if mode == "gat" else None
+        st_ = torch.empty((nf_b, GAT_HEADS, 2), device=dev)
+        out_ = _fanout_attention_fwd(xd_, ks_, vs_, nb_f, mk_f, mode,
+                                     GAT_HEADS, a1, a2, 0.2, stats=st_)
+
+        def k7b_kernel(mode=mode, xd_=xd_, ks_=ks_, vs_=vs_, g_=g_, a1=a1,
+                       a2=a2, out_=out_, st_=st_):
+            return fanout_attention_bwd(g_, xd_, ks_, vs_, nb_f, mk_f, out_,
+                                        st_, mode, GAT_HEADS, a1, a2, 0.2)
+
+        def k7b_plain(mode=mode, xd_=xd_, ks_=ks_, vs_=vs_, g_=g_, a1=a1,
+                      a2=a2, out_=out_):
+            return _fanout_attention_bwd_plain(g_, xd_, ks_, vs_, nb_f, mk_f,
+                                               out_, mode, GAT_HEADS, a1, a2,
+                                               0.2)
+
+        got_, want_ = k7b_kernel(), k7b_plain()
+        # fp32 exps and sums in another order; d_logit = alpha (g·v - g·out)
+        # cancels: within 1e-4 of each output's scale
+        err = max(rel_err(getattr(got_, f_), getattr(want_, f_),
+                          f"K7b {label} {f_}", tol=1e-4)
+                  for f_ in ("d_xd", "alpha", "coef", "d_att")
+                  if getattr(want_, f_) is not None)
+        tables = 2 if mode == "transformer" else 1
+        nbytes = (3 * nf_b * hd_ * 4 + uniqf * hd_ * 4 * tables
+                  + nf_b * wf_b * 5 + nf_b * GAT_HEADS * 8
+                  + nf_b * wf_b * GAT_HEADS * 8 + nf_b * hd_ * 4)
+        nops = validf * hd_ * 6
+        row7 = {"err": err, "ms": cuda_ms(k7b_kernel),
+                "plain_ms": cuda_ms(k7b_plain, reps=1),
+                "eager_ms": eager_ms(k7b_kernel),
+                "bound_ms": bound_ms(nbytes, nops)[0], "nbytes": nbytes,
+                "nops": nops, "head_dim": dh_}
+        if mode == "transformer":
+            # SDPA's backward (memory-efficient backend) on pre-gathered
+            # K / V with the boolean mask: one PyTorch call, timed eagerly
+            q_s = xd_.reshape(nf_b, GAT_HEADS, 1, dh_).requires_grad_()
+            k_s, v_s = (t_[nb_f.long()].reshape(nf_b, wf_b, GAT_HEADS, dh_)
+                        .transpose(1, 2).contiguous().requires_grad_()
+                        for t_ in (ks_, vs_))
+            with torch.nn.attention.sdpa_kernel(
+                    [torch.nn.attention.SDPBackend.EFFICIENT_ATTENTION]):
+                o_s = F.scaled_dot_product_attention(
+                    q_s, k_s, v_s, attn_mask=mk_f[:, None, None, :])
+            g_s = g_.reshape(nf_b, GAT_HEADS, 1, dh_)
+            row7["library_ms"] = eager_ms(lambda: torch.autograd.grad(
+                o_s, (q_s, k_s, v_s), g_s, retain_graph=True), reps=10)
+            del q_s, k_s, v_s, o_s
+        k7b[label] = row7
+        del xd_, ks_, vs_, g_, out_, st_, got_, want_
+    record("fanout_attention_bwd",
+           "gigl_tpu_torch/csrc/fanout_attention_bwd.cu",
+           "gigl_tpu/models/convs.py:292", max(v["err"] for v in k7b.values()),
+           k7b["gat_dh64"]["ms"], k7b["gat_dh64"]["plain_ms"],
+           nbytes=k7b["gat_dh64"]["nbytes"], nops=k7b["gat_dh64"]["nops"],
+           library_ms=None,
+           library_call="GAT modes: none (no single call computes them); "
+                        "Transformer mode: modes.transformer_dh64.library_ms "
+                        "= SDPA backward, memory-efficient backend, K/V "
+                        "gathered beforehand, timed eagerly",
+           bucket=[nf_b, wf_b], heads=GAT_HEADS, dtype="float32",
+           eager_ms=k7b["gat_dh64"]["eager_ms"],
+           modes={m_: {k_: v_ for k_, v_ in v.items()
+                       if k_ not in ("nbytes", "nops")}
+                  for m_, v in k7b.items()})
+
+    def run_path(path, trainer, state, steps, warmup, profiled, kernels,
+                 nodes=None):
+        """``warmup`` + ``steps`` steps with the launch counts reset just
+        before and read just after, then ``profiled`` more under
+        torch.profiler."""
+        def step(st, k):
+            if nodes is None:
+                return trainer.train_step(st)
+            return trainer.train_step(st, nodes[k])
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        _build.reset_launches()
+        for k in range(warmup):
+            state, _ = step(state, k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = []
+        for k in range(warmup, warmup + steps):
+            state, loss = step(state, k)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / steps
+        counts = dict(_build.launches)
+        peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+        emit({"phase": "main_path", "path": path, "launches": counts,
+              "steps": warmup + steps})
+        for kname in kernels:
+            check(counts[kname] > 0, f"{kname} was not launched on the "
+                  f"{path} path")
+        losses = torch.stack(losses).float().cpu().numpy()
+        check(np.isfinite(losses).all(), f"{path}: loss not finite")
+        first, last = float(losses[:5].mean()), float(losses[-5:].mean())
+        check(last < first, f"{path}: loss did not fall: {first} -> {last}")
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for k in range(warmup + steps, warmup + steps + profiled):
+                state, _ = step(state, k)
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t0) * 1e6
+        return counts, warmup + steps, {
+            "steps": steps, "ms_per_step": step_s * 1e3,
+            "loss_first5": first, "loss_last5": last,
+            "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+            "peak_mem_gb": peak_gb,
+            "profile": profile_summary(prof, profiled, window_us,
+                                       step_s * 1e3), "card": card}
+
+    nc_launches = {}                 # path -> (launch counts, steps)
+    for model_name, kw in (("graphsage", None), ("gat", {"heads": GAT_HEADS})):
+        path = f"full_batch_{model_name}"
+        fbt = FullBatchTrainer(
+            GNNEncoder(D, HID, C, num_layers=2, conv=model_name,
+                       conv_kwargs=kw), fb_data,
+            optimizer_args={"learning_rate": "1e-2"}, device=dev)
+        state = fbt.init_state(0)
+        vs = step_vs_plain(fbt.encoder, fbt.loss, _build.launches)
+        emit({"phase": "full_batch_step_vs_plain", "model": model_name,
+              **vs})
+        # fp32: the same sums in another order
+        check(vs["loss_rel_err"] <= 1e-5,
+              f"{path}: loss differs from the plain step: {vs}")
+        check(vs["max_grad_err_rel_to_scale"] <= 1e-4,
+              f"{path}: a gradient differs from the plain step: {vs}")
+        counts, nsteps, row = run_path(path, fbt, state, FB_STEPS, FB_WARMUP,
+                                       FB_PROFILED,
+                                       FULL_BATCH_KERNELS[model_name])
+        nc_launches[path] = (counts, nsteps)
+        if model_name == "graphsage":
+            # layer 2's aggregate only: layer 1's input needs no gradient
+            check(counts["ell_transpose_aggregate"] == t_nonempty * nsteps,
+                  f"K6b launched {counts['ell_transpose_aggregate']} times, "
+                  f"not {t_nonempty} per step (layer 2 only)")
+        step_s = row["ms_per_step"] / 1e3
+        emit({"phase": "full_batch_train_throughput", "model": model_name,
+              "edges_per_step": 2 * E, "edges_per_s": 2 * E / step_s,
+              "nodes_per_s": N / step_s, **row})
+        del fbt, state
+
+    # a labeled set of NC_LABELED batches, cycled: semi-supervised node
+    # classification trains on few labels (milestone 2 on 1,600), and with
+    # random labels only the labeled nodes' loss can fall
+    labeled = np.random.default_rng(1).permutation(N)[
+        : NC_BATCH * NC_LABELED].reshape(NC_LABELED, NC_BATCH)
+    nc_nodes = labeled[np.arange(NC_WARMUP + NC_STEPS + NC_PROFILED)
+                       % NC_LABELED].astype(np.int32)
+    for model_name, (layers, fanouts, kw) in NC_MODELS.items():
+        path = f"nc_sampled_{model_name}"
+        nct = NodeClassificationTrainer(
+            GNNEncoder(D, NC_HID, C, num_layers=layers, conv=model_name,
+                       conv_kwargs=kw), dg,
+            NodeClassificationTrainerConfig(fanouts=fanouts),
+            optimizer_args={"learning_rate": NC_LR}, device=dev)
+        state = nct.init_state(0)
+        vs = step_vs_plain(nct.model, lambda: nct.loss(nc_nodes[0]),
+                           _build.launches)
+        emit({"phase": "nc_sampled_step_vs_plain", "model": model_name,
+              "fanouts": list(fanouts), **vs})
+        check(vs["loss_rel_err"] <= 1e-5,
+              f"{path}: loss differs from the plain step: {vs}")
+        check(vs["max_grad_err_rel_to_scale"] <= 1e-4,
+              f"{path}: a gradient differs from the plain step: {vs}")
+        counts, nsteps, row = run_path(path, nct, state, NC_STEPS, NC_WARMUP,
+                                       NC_PROFILED, NC_KERNELS[model_name],
+                                       nodes=nc_nodes)
+        nc_launches[path] = (counts, nsteps)
+        acc = nct.evaluate(labeled.reshape(-1), NC_BATCH)
+        check(0.0 <= acc <= 1.0, f"{path}: accuracy {acc}")
+        emit({"phase": "nc_sampled_train_throughput", "model": model_name,
+              "fanouts": list(fanouts), "batch": NC_BATCH,
+              "seeds_per_s": NC_BATCH / (row["ms_per_step"] / 1e3),
+              "labeled_nodes": int(labeled.size), "train_accuracy": acc,
+              **row})
+        del nct, state
+
     # launches on every kernel row: the training path's (K6 / K7: the
-    # full-graph passes'), and per pass of each other path
+    # full-graph passes'; K6b / K7b: the node-classification paths'), and
+    # per pass or step of each other path
     per_pass = {"sample_uniform": 1, "build_neighbor_cache": 1,
                 "gather_rows": n_batches, "masked_reduce": n_batches}
     for row in results:
         k = row["name"]
         fg = {m_: launches_fg[m_][k] for m_ in launches_fg}
-        row["launches"] = (launches[k] if k in TRAINING_KERNELS
-                           else sum(fg.values()))
+        nc = {p_: c_[k] for p_, (c_, _) in nc_launches.items()}
+        if k in TRAINING_KERNELS:
+            row["launches"] = launches[k]
+        elif k in ("ell_transpose_aggregate", "fanout_attention_bwd"):
+            row["launches"] = sum(nc.values())
+        else:
+            row["launches"] = sum(fg.values())
         row["launches_per_step"] = (launches[k] - after_init[k]) / (
             WARMUP + STEPS)
         row["launches_inference"] = launches_inf[k]
         row["launches_per_inference_pass"] = launches_inf[k] / per_pass.get(
             k, 1)
         row["launches_per_full_graph_pass"] = fg
+        row["launches_per_nc_step"] = {
+            p_: c_[k] / n_ for p_, (c_, n_) in nc_launches.items()}
+    check(len(results) == len(_build.KERNEL_NAMES) == 11,
+          "the kernels line does not list all eleven kernels")
     results.sort(key=lambda r: _build.KERNEL_NAMES.index(r["name"]))
 
     emit({"kernels": results})

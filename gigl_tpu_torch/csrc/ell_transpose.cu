@@ -1,0 +1,389 @@
+// K6b ell_transpose_aggregate — replaces gigl_tpu/ops/ell.py _ell_gather_bwd
+// (:255-283), the scatter-free custom VJP of ell_gather, fused with the
+// backward of the masked reduce that follows the gather in each conv.
+//
+// The forward entries of an ELL graph are the padded slots of its degree
+// buckets, flattened: entry p = off_b + i * W_b + j is slot j of row
+// boundaries[b] + i (ent_row[p], a derived [P] int32 table) and reads the
+// x_p row nbr[b][i, j]. The transpose tables list, per x_p row v, the entry
+// positions that read it: t-row t_rank[v] of a transpose bucket holds them
+// in t_nbr under t_mask. This kernel walks one transpose bucket:
+//   out[v] = sum_{j < Wt, t_mask[i, j]} w(p) * rows[ent_row[p]]
+//            (+ vec * sum_j w2(p), per head)          with p = t_nbr[i, j]
+// for each t-row i of the bucket, v = t_perm[i] (the inverse of t_rank), so
+// the result lands in x_p order and no gather follows. w(p) by mode:
+//   mean      1 / max(deg[row], 1)            (masked_mean's cotangent)
+//   sum       1
+//   gcn       rsqrt(deg[row] + 1) * rsqrt(deg[v] + 1)
+//   weighted  wt[p, h] for the output value's head h (K7b's alpha for the
+//             values, its logit cotangent for the keys); with wt2 and vec,
+//             also vec[e] * sum_j wt2[p, h] (GAT: att_src * the summed
+//             pre-activation cotangents);
+//   max       g[row] / cnt[row] where x[v] equals the forward's max out[row]
+//             (jnp.max's VJP shares the cotangent among ties; cnt counts
+//             them, from tie_count_kernel over the forward tables);
+//   gatv2     wt[p, h] * g[row] + wt2[p, h] * att[e] * leaky'(key[v] +
+//             query[row]) per value (GATv2's value and key gradients from
+//             K7b's alpha and logit cotangent: the key term depends on the
+//             pair, so this mode also reads the query row and its own key).
+// deg is the in-degree table in permuted order (the valid count of each
+// row). fp32 accumulation in slot order, one rounding to the output type.
+// Every row of the bucket is written once, rows with no valid slot (sources
+// without out-edges) with 0: no atomics, no [P, D] block.
+//
+// Bound: bytes — each distinct cotangent row is needed once, t_nbr, t_mask
+// and the entry tables once, [N, D] written once. Design: as K6, one thread
+// per 16-byte piece of an output row (4 fp32 or 8 bf16 values), consecutive
+// threads across D, so every gathered cotangent row is read as coalesced
+// 16-byte loads, and a slot's entry position, mask byte and row are one
+// broadcast load per thread group. Rows that are not 16-byte multiples (or
+// unaligned tables) take the same loop one element per thread. A hub source
+// (a wide transpose bucket) is walked by its row's threads alone — K6's
+// known weakness, kept for this first version.
+#include <cuda_bf16.h>
+
+#include <cstdint>
+#include <cstring>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMean = 0;
+constexpr int kSum = 1;
+constexpr int kMax = 2;
+constexpr int kGcn = 3;
+constexpr int kWeighted = 4;
+constexpr int kGatV2 = 5;
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t w) {
+  __nv_bfloat162 h;
+  memcpy(&h, &w, sizeof(h));
+  return __bfloat1622float2(h);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  uint32_t w;
+  memcpy(&w, &h, sizeof(w));
+  return w;
+}
+
+// P values of type T at p: P == 1 (any alignment) or one 16-byte piece.
+template <typename T, int P>
+__device__ __forceinline__ void load_piece(const T* __restrict__ p, float* v) {
+  if constexpr (P == 1) {
+    v[0] = to_float(*p);
+  } else {
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+    if constexpr (sizeof(T) == 4) {
+      v[0] = __uint_as_float(raw.x);
+      v[1] = __uint_as_float(raw.y);
+      v[2] = __uint_as_float(raw.z);
+      v[3] = __uint_as_float(raw.w);
+    } else {
+      float2 f;
+      f = unpack_bf16(raw.x); v[0] = f.x; v[1] = f.y;
+      f = unpack_bf16(raw.y); v[2] = f.x; v[3] = f.y;
+      f = unpack_bf16(raw.z); v[4] = f.x; v[5] = f.y;
+      f = unpack_bf16(raw.w); v[6] = f.x; v[7] = f.y;
+    }
+  }
+}
+
+template <typename T, int P>
+__device__ __forceinline__ void store_piece(T* __restrict__ p, const float* v) {
+  if constexpr (P == 1) {
+    *p = from_float<T>(v[0]);
+  } else if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                   __float_as_uint(v[2]), __float_as_uint(v[3]));
+  } else {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                   pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+  }
+}
+
+template <typename T, int P, int OP>
+__global__ void ell_transpose_kernel(
+    const T* __restrict__ rows, const int32_t* __restrict__ t_nbr,
+    const uint8_t* __restrict__ t_mask, const int32_t* __restrict__ t_perm,
+    const int32_t* __restrict__ ent_row, const float* __restrict__ deg,
+    const float* __restrict__ wt, const float* __restrict__ wt2,
+    const float* __restrict__ vec, const T* __restrict__ rows2,
+    const T* __restrict__ table, const float* __restrict__ cnt,
+    T* __restrict__ out, int64_t m, int w, int d, int heads, int dh,
+    float slope) {
+  const int pieces = d / P;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= m * pieces) return;
+  const int64_t r = i / pieces;
+  const int c = static_cast<int>(i - r * pieces) * P;
+  const int64_t v = __ldg(t_perm + r);
+  float acc[P], acc2[P];
+  int hu[P];
+#pragma unroll
+  for (int e = 0; e < P; ++e) {
+    acc[e] = 0.f;
+    acc2[e] = 0.f;
+    hu[e] = OP == kWeighted || OP == kGatV2 ? (c + e) / dh : 0;
+  }
+  float own[P];  // GATv2: this row of the key table; max: of the input
+  if constexpr (OP == kGatV2 || OP == kMax)
+    load_piece<T, P>(table + v * d + c, own);
+  float w_src = 0.f;
+  if (OP == kGcn) w_src = 1.f / sqrtf(__ldg(deg + v) + 1.f);
+  const int32_t* trow = t_nbr + r * w;
+  const uint8_t* mrow = t_mask + r * w;
+  for (int j = 0; j < w; ++j) {
+    if (!__ldg(mrow + j)) continue;
+    const int64_t p = __ldg(trow + j);
+    const int64_t row = __ldg(ent_row + p);
+    float x[P];
+    load_piece<T, P>(rows + row * d + c, x);
+    if (OP == kMean) {
+      const float cn = fmaxf(__ldg(deg + row), 1.f);
+#pragma unroll
+      for (int e = 0; e < P; ++e) acc[e] += x[e] / cn;
+    } else if (OP == kSum) {
+#pragma unroll
+      for (int e = 0; e < P; ++e) acc[e] += x[e];
+    } else if (OP == kGcn) {
+      const float wp = (1.f / sqrtf(__ldg(deg + row) + 1.f)) * w_src;
+#pragma unroll
+      for (int e = 0; e < P; ++e) acc[e] += x[e] * wp;
+    } else if (OP == kMax) {
+      // the share of the destination's cotangent that jnp.max's VJP gives
+      // each slot equal to the max: g / the number of such slots
+      float x2[P];
+      load_piece<T, P>(rows2 + row * d + c, x2);
+#pragma unroll
+      for (int e = 0; e < P; ++e)
+        if (own[e] == x2[e]) acc[e] += x[e] / __ldg(cnt + row * d + c + e);
+    } else if (OP == kGatV2) {
+      float x2[P];
+      load_piece<T, P>(rows2 + row * d + c, x2);
+      const float* wp = wt + p * heads;
+      const float* wp2 = wt2 + p * heads;
+#pragma unroll
+      for (int e = 0; e < P; ++e) {
+        const float z = own[e] + x2[e];
+        acc[e] += __ldg(wp + hu[e]) * x[e] +
+                  __ldg(wp2 + hu[e]) * __ldg(vec + c + e) *
+                      (z >= 0.f ? 1.f : slope);
+      }
+    } else {
+      const float* wp = wt + p * heads;
+#pragma unroll
+      for (int e = 0; e < P; ++e) acc[e] += __ldg(wp + hu[e]) * x[e];
+      if (wt2 != nullptr) {
+        const float* wp2 = wt2 + p * heads;
+#pragma unroll
+        for (int e = 0; e < P; ++e) acc2[e] += __ldg(wp2 + hu[e]);
+      }
+    }
+  }
+  if (OP == kWeighted && wt2 != nullptr) {
+#pragma unroll
+    for (int e = 0; e < P; ++e) acc[e] += __ldg(vec + c + e) * acc2[e];
+  }
+  store_piece<T, P>(out + v * d + c, acc);
+}
+
+template <typename T, int P>
+int launch(const void* rows, const void* t_nbr, const void* t_mask,
+           const void* t_perm, const void* ent_row, const void* deg,
+           const void* wt, const void* wt2, const void* vec,
+           const void* rows2, const void* table, const void* cnt, void* out,
+           long long m, int w, int d, int heads, int dh, int op, float slope,
+           cudaStream_t stream) {
+  const long long total = m * (d / P);
+  if (total == 0) return 0;
+  const int threads = 256;
+  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
+  const T* rv = static_cast<const T*>(rows);
+  const int32_t* tn = static_cast<const int32_t*>(t_nbr);
+  const uint8_t* tm = static_cast<const uint8_t*>(t_mask);
+  const int32_t* tp = static_cast<const int32_t*>(t_perm);
+  const int32_t* er = static_cast<const int32_t*>(ent_row);
+  const float* dg = static_cast<const float*>(deg);
+  const float* w1 = static_cast<const float*>(wt);
+  const float* w2 = static_cast<const float*>(wt2);
+  const float* vc = static_cast<const float*>(vec);
+  const T* r2 = static_cast<const T*>(rows2);
+  const T* tb = static_cast<const T*>(table);
+  const float* cn = static_cast<const float*>(cnt);
+  T* ov = static_cast<T*>(out);
+  switch (op) {
+    case kMean:
+      if (dg == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+      ell_transpose_kernel<T, P, kMean><<<blocks, threads, 0, stream>>>(
+          rv, tn, tm, tp, er, dg, w1, w2, vc, r2, tb, cn, ov, m, w, d, heads,
+          dh, slope);
+      break;
+    case kSum:
+      ell_transpose_kernel<T, P, kSum><<<blocks, threads, 0, stream>>>(
+          rv, tn, tm, tp, er, dg, w1, w2, vc, r2, tb, cn, ov, m, w, d, heads,
+          dh, slope);
+      break;
+    case kGcn:
+      if (dg == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+      ell_transpose_kernel<T, P, kGcn><<<blocks, threads, 0, stream>>>(
+          rv, tn, tm, tp, er, dg, w1, w2, vc, r2, tb, cn, ov, m, w, d, heads,
+          dh, slope);
+      break;
+    case kWeighted:
+      if (w1 == nullptr || heads < 1 || dh < 1 || heads * dh != d ||
+          ((w2 == nullptr) != (vc == nullptr)))
+        return static_cast<int>(cudaErrorInvalidValue);
+      ell_transpose_kernel<T, P, kWeighted><<<blocks, threads, 0, stream>>>(
+          rv, tn, tm, tp, er, dg, w1, w2, vc, r2, tb, cn, ov, m, w, d, heads,
+          dh, slope);
+      break;
+    case kMax:
+      if (r2 == nullptr || tb == nullptr || cn == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+      ell_transpose_kernel<T, P, kMax><<<blocks, threads, 0, stream>>>(
+          rv, tn, tm, tp, er, dg, w1, w2, vc, r2, tb, cn, ov, m, w, d, heads,
+          dh, slope);
+      break;
+    case kGatV2:
+      if (w1 == nullptr || w2 == nullptr || vc == nullptr || r2 == nullptr ||
+          tb == nullptr || heads < 1 || dh < 1 || heads * dh != d)
+        return static_cast<int>(cudaErrorInvalidValue);
+      ell_transpose_kernel<T, P, kGatV2><<<blocks, threads, 0, stream>>>(
+          rv, tn, tm, tp, er, dg, w1, w2, vc, r2, tb, cn, ov, m, w, d, heads,
+          dh, slope);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
+}
+
+// The forward's tie counts for the max backward: cnt[i, c] = the number of
+// valid slots j of row i whose x[nbr[i, j], c] equals ref[i, c] (the max
+// K6 wrote), in fp32. One thread per piece of a row, as K6.
+template <typename T, int P>
+__global__ void tie_count_kernel(const T* __restrict__ x,
+                                 const int32_t* __restrict__ nbr,
+                                 const uint8_t* __restrict__ mask,
+                                 const T* __restrict__ ref,
+                                 float* __restrict__ cnt, int64_t n, int w,
+                                 int d) {
+  const int pieces = d / P;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n * pieces) return;
+  const int64_t r = i / pieces;
+  const int c = static_cast<int>(i - r * pieces) * P;
+  float mx[P], acc[P];
+  load_piece<T, P>(ref + r * d + c, mx);
+#pragma unroll
+  for (int e = 0; e < P; ++e) acc[e] = 0.f;
+  for (int j = 0; j < w; ++j) {
+    if (!__ldg(mask + r * w + j)) continue;
+    float v[P];
+    load_piece<T, P>(x + static_cast<int64_t>(__ldg(nbr + r * w + j)) * d + c,
+                     v);
+#pragma unroll
+    for (int e = 0; e < P; ++e) acc[e] += v[e] == mx[e] ? 1.f : 0.f;
+  }
+#pragma unroll
+  for (int e = 0; e < P; ++e) cnt[r * d + c + e] = acc[e];
+}
+
+template <typename T, int P>
+int launch_ties(const void* x, const void* nbr, const void* mask,
+                const void* ref, void* cnt, long long n, int w, int d,
+                cudaStream_t stream) {
+  const long long total = n * (d / P);
+  if (total == 0) return 0;
+  const int threads = 256;
+  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
+  tie_count_kernel<T, P><<<blocks, threads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const int32_t*>(nbr),
+      static_cast<const uint8_t*>(mask), static_cast<const T*>(ref),
+      static_cast<float*>(cnt), n, w, d);
+  return 0;
+}
+
+}  // namespace
+
+// One transpose bucket: t_nbr / t_mask [m, w], t_perm [m] (x_p row of each
+// t-row), ent_row [P], rows [R, d] and out [N, d] of one dtype (0 = fp32,
+// 1 = bf16); deg [N] fp32 (mean, gcn), wt / wt2 [P, heads] fp32 and vec
+// [d] fp32 (weighted; GATv2), rows2 [R, d] and table [N, d] of rows' type
+// (GATv2: the query rows by destination row and the key table; max: the
+// forward's output by destination row and its input table), cnt [N, d]
+// fp32 (max: the tie counts). op: 0 mean, 1 sum, 2 max (g / cnt where the
+// source equals the max), 3 gcn, 4 weighted, 5 GATv2 (alpha * g + coef *
+// att * leaky'(key + query), leaky' = 1 at >= 0, else slope). vec_path: 1
+// when d * sizeof(T) is a multiple of 16 and the row tables and out are
+// 16-byte aligned.
+extern "C" int gigl_ell_transpose_aggregate(
+    const void* rows, const void* t_nbr, const void* t_mask,
+    const void* t_perm, const void* ent_row, const void* deg, const void* wt,
+    const void* wt2, const void* vec, const void* rows2, const void* table,
+    const void* cnt, void* out, long long m, int w, int d, int heads, int dh,
+    int dtype, int op, int vec_path, float slope, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc;
+  if (dtype == 0) {
+    rc = vec_path ? launch<float, 4>(rows, t_nbr, t_mask, t_perm, ent_row,
+                                     deg, wt, wt2, vec, rows2, table, cnt,
+                                     out, m, w, d, heads, dh, op, slope, s)
+                  : launch<float, 1>(rows, t_nbr, t_mask, t_perm, ent_row,
+                                     deg, wt, wt2, vec, rows2, table, cnt,
+                                     out, m, w, d, heads, dh, op, slope, s);
+  } else if (dtype == 1) {
+    rc = vec_path ? launch<__nv_bfloat16, 8>(rows, t_nbr, t_mask, t_perm,
+                                             ent_row, deg, wt, wt2, vec,
+                                             rows2, table, cnt, out, m, w, d,
+                                             heads, dh, op, slope, s)
+                  : launch<__nv_bfloat16, 1>(rows, t_nbr, t_mask, t_perm,
+                                             ent_row, deg, wt, wt2, vec,
+                                             rows2, table, cnt, out, m, w, d,
+                                             heads, dh, op, slope, s);
+  } else {
+    rc = static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One forward bucket's tie counts: x [M, d], nbr / mask [n, w], ref [n, d]
+// of one dtype (0 = fp32, 1 = bf16), cnt [n, d] fp32. vec_path as above.
+extern "C" int gigl_ell_tie_count(const void* x, const void* nbr,
+                                  const void* mask, const void* ref,
+                                  void* cnt, long long n, int w, int d,
+                                  int dtype, int vec_path, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc;
+  if (dtype == 0) {
+    rc = vec_path ? launch_ties<float, 4>(x, nbr, mask, ref, cnt, n, w, d, s)
+                  : launch_ties<float, 1>(x, nbr, mask, ref, cnt, n, w, d, s);
+  } else if (dtype == 1) {
+    rc = vec_path
+             ? launch_ties<__nv_bfloat16, 8>(x, nbr, mask, ref, cnt, n, w, d, s)
+             : launch_ties<__nv_bfloat16, 1>(x, nbr, mask, ref, cnt, n, w, d,
+                                             s);
+  } else {
+    rc = static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}

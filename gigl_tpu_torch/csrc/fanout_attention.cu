@@ -14,6 +14,8 @@
 // projected destination row (GAT: lin_dst(x_dst); Transformer: lin_q).
 // Rows are [H * Dh], head-major. Arithmetic in fp32, one rounding to the
 // output type; masked slots point at row 0 and are skipped by the mask.
+// When a gradient will be needed, each (row, head)'s final max and
+// denominator go to `stats` for the backward (K7b, fanout_attention_bwd.cu).
 //
 // Bound: bytes at the flagship widths (two reads of ~2*Dh bytes per valid
 // slot and head against ~6*Dh flops). Design: one 128-thread block per
@@ -124,8 +126,9 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_kernel(
     const T* __restrict__ xd, const T* __restrict__ ks,
     const T* __restrict__ vs, const int32_t* __restrict__ nbr,
     const uint8_t* __restrict__ mask, const float* __restrict__ att,
-    const float* __restrict__ att2, T* __restrict__ out, int w, int heads,
-    int dh, int mode, float slope, float sqrt_dh) {
+    const float* __restrict__ att2, T* __restrict__ out,
+    float* __restrict__ stats, int w, int heads, int dh, int mode,
+    float slope, float sqrt_dh) {
   constexpr int P = 16 / sizeof(T);
   extern __shared__ float smem[];
   const int hd = heads * dh;
@@ -306,6 +309,12 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_kernel(
   }
   for (int e = t; e < hd; e += kThreads)
     store(out + i * hd + e, acc[e] / fmaxf(den[e / dh], 1e-16f));
+  if (stats != nullptr) {
+    for (int h = t; h < heads; h += kThreads) {
+      stats[(i * heads + h) * 2] = mx[h];
+      stats[(i * heads + h) * 2 + 1] = den[h];
+    }
+  }
 }
 
 bool aligned16(const void* p) {
@@ -315,8 +324,8 @@ bool aligned16(const void* p) {
 template <typename T>
 int launch(const void* xd, const void* ks, const void* vs, const void* nbr,
            const void* mask, const void* att, const void* att2, void* out,
-           long long n, int w, int heads, int dh, int mode, float slope,
-           float sqrt_dh, cudaStream_t stream) {
+           void* stats, long long n, int w, int heads, int dh, int mode,
+           float slope, float sqrt_dh, cudaStream_t stream) {
   if (n == 0) return 0;
   if (mode < kGat || mode > kTransformer || w < 1 || heads < 1 || dh < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -340,12 +349,13 @@ int launch(const void* xd, const void* ks, const void* vs, const void* nbr,
   const float* a1 = static_cast<const float*>(att);
   const float* a2 = static_cast<const float*>(att2);
   T* o = static_cast<T*>(out);
+  float* st = static_cast<float*>(stats);
   if (vec) {
     fanout_attention_kernel<T, true><<<grid, kThreads, smem, stream>>>(
-        x, k, v, nb, mk, a1, a2, o, w, heads, dh, mode, slope, sqrt_dh);
+        x, k, v, nb, mk, a1, a2, o, st, w, heads, dh, mode, slope, sqrt_dh);
   } else {
     fanout_attention_kernel<T, false><<<grid, kThreads, smem, stream>>>(
-        x, k, v, nb, mk, a1, a2, o, w, heads, dh, mode, slope, sqrt_dh);
+        x, k, v, nb, mk, a1, a2, o, st, w, heads, dh, mode, slope, sqrt_dh);
   }
   return 0;
 }
@@ -354,21 +364,23 @@ int launch(const void* xd, const void* ks, const void* vs, const void* nbr,
 
 // dtype: 0 = fp32, 1 = bf16 (xd, ks, vs, out); att / att2 fp32 [H * Dh]
 // (mode 0: att_src / att_dst; mode 1: att / NULL; mode 2: NULL / NULL).
+// stats: NULL, or fp32 [n, H, 2] that receives each (row, head)'s final
+// softmax max and denominator for the backward (K7b).
 extern "C" int gigl_fanout_attention(const void* xd, const void* ks,
                                      const void* vs, const void* nbr,
                                      const void* mask, const void* att,
-                                     const void* att2, void* out, long long n,
-                                     int w, int heads, int dh, int dtype,
-                                     int mode, float slope, float sqrt_dh,
-                                     void* stream) {
+                                     const void* att2, void* out, void* stats,
+                                     long long n, int w, int heads, int dh,
+                                     int dtype, int mode, float slope,
+                                     float sqrt_dh, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (dtype == 0) {
-    rc = launch<float>(xd, ks, vs, nbr, mask, att, att2, out, n, w, heads, dh,
-                       mode, slope, sqrt_dh, s);
+    rc = launch<float>(xd, ks, vs, nbr, mask, att, att2, out, stats, n, w,
+                       heads, dh, mode, slope, sqrt_dh, s);
   } else if (dtype == 1) {
-    rc = launch<__nv_bfloat16>(xd, ks, vs, nbr, mask, att, att2, out, n, w,
-                               heads, dh, mode, slope, sqrt_dh, s);
+    rc = launch<__nv_bfloat16>(xd, ks, vs, nbr, mask, att, att2, out, stats,
+                               n, w, heads, dh, mode, slope, sqrt_dh, s);
   } else {
     rc = static_cast<int>(cudaErrorInvalidValue);
   }

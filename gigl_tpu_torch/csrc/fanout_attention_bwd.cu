@@ -1,0 +1,559 @@
+// K7b fanout_attention_bwd — the backward of K7 fanout_attention, which the
+// JAX package gets from autodiff of gigl_tpu/models/convs.py GATConv.block
+// (:292-310, v1 and v2) and TransformerConv.block (:361-377) with
+// masked_softmax (gigl_tpu/ops/fanout.py:83-95). Per destination row i and
+// head h, over the W slots j of the row (rows [H * Dh], head-major, as K7):
+//   logit_j  recomputed from xd[i], ks[nbr[i, j]] and the attention vectors
+//            (GAT: pre_j = ks_j·att_src + xd_i·att_dst, logit = leaky(pre);
+//            GATv2: att · leaky(ks_j + xd_i); Transformer: xd_i·ks_j /
+//            sqrt(Dh));
+//   alpha_j  = exp(logit_j - max) / den, from the (max, den) that K7 saved
+//            per (row, head); masked slots and all-masked rows get 0;
+//   d_alpha_j = g_i · vs_j;   t = sum_j alpha_j d_alpha_j = g_i · out_i
+//            (the forward's output, as FlashAttention's backward does);
+//   d_logit_j = alpha_j (d_alpha_j - t);  GAT: d_pre_j = d_logit_j *
+//            leaky'(pre_j) (1 for pre >= 0, else the slope, as jax.nn's).
+// It writes
+//   d_xd[i]  GAT: att_dst * sum_j d_pre_j; GATv2: sum_j d_logit_j att *
+//            leaky'(ks_j + xd_i) (per value); Transformer: sum_j d_logit_j
+//            ks_j / sqrt(Dh);
+//   per entry p = i * W + j (ELL mode): alpha[p, h] and coef[p, h] fp32 (GAT
+//            d_pre, GATv2 d_logit, Transformer d_logit / sqrt(Dh)), 0 at
+//            masked slots, at the flat entry position that the transpose
+//            tables index; K6b then forms the source rows' gradients
+//            (weighted mode; GATv2 its own mode, the key gradient depending
+//            on each (key, query) pair);
+//   per entry p (identity mode: the dense sampled block, nbr[p] = p, every
+//            source row read once): d_vs[p] = alpha_j g_i and d_ks[p] = GAT
+//            att_src * d_pre_j, GATv2 d_logit_j att * leaky'(ks_j + xd_i),
+//            Transformer xd_i * d_logit_j / sqrt(Dh); with one table for
+//            keys and values (GAT, GATv2), d_ks holds the sum;
+//   d_att_src = sum d_pre_j ks_j and d_att_dst = sum (sum_j d_pre_j) xd_i
+//            (GAT; GATv2: d_att = sum d_logit_j leaky(ks_j + xd_i)), as
+//            per-block partials summed by a second small kernel in a fixed
+//            order — no float atomics, the same bits on every run.
+// fp32 arithmetic, one rounding of d_xd / d_ks / d_vs to the tables' type.
+//
+// Bound: bytes (each slot's key and value row read once more than the
+// forward, the per-entry arrays written). Design: persistent blocks of 128
+// threads (a grid of a few blocks per SM that walks the rows), one warp per
+// slot: the lanes read the slot's key and value rows across H * Dh (one
+// coalesced load per 32 values) and reduce the two per-value products per
+// head — by shuffles within segments of min(Dh, 32) lanes when Dh is a
+// power of two up to 32 or a multiple of 32, else through shared memory,
+// one lane per head; the warp then re-reads the key row (from L1) to add
+// the slot's share of d_xd or d_att_src into per-warp shared accumulators.
+// Scalar loads keep head dims of 4 (the last GAT layer) on the same path
+// as 64.
+#include <cuda_bf16.h>
+
+#include <cstdint>
+#include <cstring>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kGat = 0;
+constexpr int kGatV2 = 1;
+constexpr int kTransformer = 2;
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxPiecesPerLane = 2;
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t w) {
+  __nv_bfloat162 h;
+  memcpy(&h, &w, sizeof(h));
+  return __bfloat1622float2(h);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  uint32_t w;
+  memcpy(&w, &h, sizeof(w));
+  return w;
+}
+
+// One 16-byte piece (P = 16 / sizeof(T) values) at a 16-byte aligned p.
+template <typename T, int P>
+__device__ __forceinline__ void load_piece(const T* __restrict__ p, float* v) {
+  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+  if constexpr (sizeof(T) == 4) {
+    v[0] = __uint_as_float(raw.x);
+    v[1] = __uint_as_float(raw.y);
+    v[2] = __uint_as_float(raw.z);
+    v[3] = __uint_as_float(raw.w);
+  } else {
+    float2 f;
+    f = unpack_bf16(raw.x); v[0] = f.x; v[1] = f.y;
+    f = unpack_bf16(raw.y); v[2] = f.x; v[3] = f.y;
+    f = unpack_bf16(raw.z); v[4] = f.x; v[5] = f.y;
+    f = unpack_bf16(raw.w); v[6] = f.x; v[7] = f.y;
+  }
+}
+
+template <typename T, int P>
+__device__ __forceinline__ void store_piece(T* __restrict__ p, const float* v) {
+  if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                   __float_as_uint(v[2]), __float_as_uint(v[3]));
+  } else {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                   pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+  }
+}
+
+__device__ __forceinline__ float leaky(float z, float slope) {
+  return z > 0.f ? z : z * slope;
+}
+
+// jax.nn.leaky_relu's derivative: 1 for z >= 0, else the slope.
+__device__ __forceinline__ float leaky_grad(float z, float slope) {
+  return z >= 0.f ? 1.f : slope;
+}
+
+// The logit's per-value product of one slot (summed per head).
+__device__ __forceinline__ float logit_term(int mode, float kv, float q,
+                                            float a, float slope) {
+  if (mode == kGat) return kv * a;
+  if (mode == kGatV2) return a * leaky(kv + q, slope);
+  return q * kv;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Shared memory in floats: q, g, at, ad, adst [hd]; red1, red2, wrow, watt
+// [kWarps, hd]; t, mx, dn, sd, ssum [heads]; cf, al, sacc [kWarps, heads].
+__host__ __device__ inline size_t smem_floats(int heads, int dh) {
+  const size_t hd = static_cast<size_t>(heads) * dh;
+  return 5 * hd + 4 * kWarps * hd + 5 * static_cast<size_t>(heads) +
+         3 * kWarps * static_cast<size_t>(heads);
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads) fanout_attention_bwd_kernel(
+    const T* __restrict__ g, const T* __restrict__ xd,
+    const T* __restrict__ ks, const T* __restrict__ vs,
+    const T* __restrict__ out, const float* __restrict__ stats,
+    const int32_t* __restrict__ nbr, const uint8_t* __restrict__ mask,
+    const float* __restrict__ att, const float* __restrict__ att2,
+    T* __restrict__ d_xd, float* __restrict__ e_alpha,
+    float* __restrict__ e_coef, T* __restrict__ d_ks, T* __restrict__ d_vs,
+    float* __restrict__ part, int64_t n, int w, int heads, int dh, int mode,
+    float slope, float sqrt_dh) {
+  extern __shared__ float smem[];
+  const int hd = heads * dh;
+  float* q = smem;                      // [hd] xd[i], fp32
+  float* gr = q + hd;                   // [hd] g[i], fp32
+  float* at = gr + hd;                  // [hd] att_src (GAT)
+  float* ad = at + hd;                  // [hd] att_dst (GAT)
+  float* adst = ad + hd;                // [hd] this block's d_att_dst
+  float* red1 = adst + hd;              // [kWarps, hd] logit products
+  float* red2 = red1 + kWarps * hd;     // [kWarps, hd] g·v products
+  float* wrow = red2 + kWarps * hd;     // [kWarps, hd] Transformer d_xd
+  float* watt = wrow + kWarps * hd;     // [kWarps, hd] GAT d_att_src
+  float* tt = watt + kWarps * hd;       // [heads] g·out
+  float* mx = tt + heads;               // [heads] the forward's max
+  float* dn = mx + heads;               // [heads] its denominator
+  float* sd = dn + heads;               // [heads] GAT xd·att_dst
+  float* ssum = sd + heads;             // [heads] sum_j d_pre (GAT)
+  float* cf = ssum + heads;             // [kWarps, heads] slot coefficient
+  float* al = cf + kWarps * heads;      // [kWarps, heads] slot alpha
+  float* sacc = al + kWarps * heads;    // [kWarps, heads] per-warp sums
+  const bool gat = mode == kGat;
+  const bool v2 = mode == kGatV2;
+  const bool same = ks == vs;
+  const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
+  constexpr int P = 16 / sizeof(T);
+  const int pieces = hd / P;       // VEC: 16-byte pieces of a row
+  const int pph = dh / P;          // VEC: pieces per head, a power of two
+  float kv[kMaxPiecesPerLane][P], vv[kMaxPiecesPerLane][P];
+  float p1[kMaxPiecesPerLane], p2[kMaxPiecesPerLane];
+  float racc[kMaxPiecesPerLane][P], rrow[kMaxPiecesPerLane][P];
+#pragma unroll
+  for (int k = 0; k < kMaxPiecesPerLane; ++k)
+#pragma unroll
+    for (int u = 0; u < P; ++u) {
+      racc[k][u] = 0.f;
+      rrow[k][u] = 0.f;
+    }
+  for (int e = t; e < hd; e += kThreads) {
+    at[e] = mode != kTransformer ? att[e] : 0.f;
+    ad[e] = gat ? att2[e] : 0.f;
+    adst[e] = 0.f;
+  }
+  for (int e = t; e < kWarps * hd; e += kThreads) watt[e] = 0.f;
+  __syncthreads();
+  for (int64_t i = blockIdx.x; i < n; i += gridDim.x) {
+    for (int e = t; e < hd; e += kThreads) {
+      q[e] = to_float(xd[i * hd + e]);
+      gr[e] = to_float(g[i * hd + e]);
+    }
+    for (int e = t; e < kWarps * hd; e += kThreads) wrow[e] = 0.f;
+    for (int e = t; e < kWarps * heads; e += kThreads) sacc[e] = 0.f;
+    for (int h = t; h < heads; h += kThreads) {
+      mx[h] = stats[(i * heads + h) * 2];
+      dn[h] = fmaxf(stats[(i * heads + h) * 2 + 1], 1e-16f);
+    }
+    __syncthreads();
+    for (int h = warp; h < heads; h += kWarps) {
+      float s1 = 0.f, s2 = 0.f;
+      for (int c = lane; c < dh; c += 32) {
+        s1 += gr[h * dh + c] * to_float(out[i * hd + h * dh + c]);
+        if (gat) s2 += q[h * dh + c] * ad[h * dh + c];
+      }
+      s1 = warp_sum(s1);
+      s2 = warp_sum(s2);
+      if (lane == 0) {
+        tt[h] = s1;
+        sd[h] = s2;
+      }
+    }
+    __syncthreads();
+    float* r1 = red1 + warp * hd;
+    float* r2 = red2 + warp * hd;
+    float* wr = wrow + warp * hd;
+    float* wa = watt + warp * hd;
+    float* cw = cf + warp * heads;
+    float* aw = al + warp * heads;
+    float* sw = sacc + warp * heads;
+    for (int jj = warp; jj < w; jj += kWarps) {
+      const int64_t p = i * w + jj;
+      if (!mask[p]) {  // the same for the whole warp
+        if (e_alpha != nullptr) {
+          for (int h = lane; h < heads; h += 32) {
+            e_alpha[p * heads + h] = 0.f;
+            e_coef[p * heads + h] = 0.f;
+          }
+        }
+        if (d_ks != nullptr) {
+          for (int e = lane; e < hd; e += 32) {
+            store(d_ks + p * hd + e, 0.f);
+            if (d_vs != nullptr) store(d_vs + p * hd + e, 0.f);
+          }
+        }
+        continue;
+      }
+      const int64_t s = nbr[p];
+      const T* kr = ks + s * hd;
+      const T* vr = vs + s * hd;
+      if constexpr (VEC) {
+        // one or two 16-byte pieces of the key and value rows per lane, in
+        // registers; per-head sums by shuffles within groups of pph lanes
+#pragma unroll
+        for (int k = 0; k < kMaxPiecesPerLane; ++k) {
+          const int pc = lane + 32 * k;
+          p1[k] = 0.f;
+          p2[k] = 0.f;
+          if (pc < pieces) {
+            load_piece<T, P>(kr + pc * P, kv[k]);
+            if (same) {
+#pragma unroll
+              for (int u = 0; u < P; ++u) vv[k][u] = kv[k][u];
+            } else {
+              load_piece<T, P>(vr + pc * P, vv[k]);
+            }
+#pragma unroll
+            for (int u = 0; u < P; ++u) {
+              const int e = pc * P + u;
+              p1[k] += logit_term(mode, kv[k][u], q[e], at[e], slope);
+              p2[k] += gr[e] * vv[k][u];
+            }
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kMaxPiecesPerLane; ++k) {
+          for (int o = pph >> 1; o > 0; o >>= 1) {
+            p1[k] += __shfl_xor_sync(0xffffffffu, p1[k], o);
+            p2[k] += __shfl_xor_sync(0xffffffffu, p2[k], o);
+          }
+          const int pc = lane + 32 * k;
+          if (pc < pieces && pc % pph == 0) {
+            r1[pc / pph] = p1[k];
+            r2[pc / pph] = p2[k];
+          }
+        }
+      } else {
+        for (int e = lane; e < hd; e += 32) {
+          const float kv1 = to_float(kr[e]);
+          const float vv1 = to_float(vr[e]);
+          r1[e] = logit_term(mode, kv1, q[e], at[e], slope);
+          r2[e] = gr[e] * vv1;
+        }
+      }
+      __syncwarp();
+      for (int h = lane; h < heads; h += 32) {
+        float a1 = 0.f, a2 = 0.f;
+        if constexpr (VEC) {
+          a1 = r1[h];
+          a2 = r2[h];
+        } else {
+          for (int c = 0; c < dh; ++c) {
+            a1 += r1[h * dh + c];
+            a2 += r2[h * dh + c];
+          }
+        }
+        float pre = 0.f, logit;
+        if (gat) {
+          pre = a1 + sd[h];
+          logit = leaky(pre, slope);
+        } else {
+          logit = v2 ? a1 : a1 / sqrt_dh;
+        }
+        const float alpha = expf(logit - mx[h]) / dn[h];
+        const float dlog = alpha * (a2 - tt[h]);
+        const float coef = gat ? dlog * leaky_grad(pre, slope)
+                               : (v2 ? dlog : dlog / sqrt_dh);
+        cw[h] = coef;
+        aw[h] = alpha;
+        sw[h] += coef;
+        if (e_alpha != nullptr) {
+          e_alpha[p * heads + h] = alpha;
+          e_coef[p * heads + h] = coef;
+        }
+      }
+      __syncwarp();
+      if constexpr (VEC) {
+#pragma unroll
+        for (int k = 0; k < kMaxPiecesPerLane; ++k) {
+          const int pc = lane + 32 * k;
+          if (pc >= pieces) continue;
+          const int h = pc / pph;
+          const float c = cw[h], a = aw[h];
+          float dk[P], dv[P];
+#pragma unroll
+          for (int u = 0; u < P; ++u) {
+            const int e = pc * P + u;
+            if (gat) {
+              racc[k][u] += c * kv[k][u];
+              dk[u] = at[e] * c;
+            } else if (v2) {
+              const float z = kv[k][u] + q[e];
+              dk[u] = c * at[e] * leaky_grad(z, slope);
+              rrow[k][u] += dk[u];
+              racc[k][u] += c * leaky(z, slope);
+            } else {
+              rrow[k][u] += c * kv[k][u];
+              dk[u] = q[e] * c;
+            }
+            dv[u] = a * gr[e];
+          }
+          if (d_ks != nullptr) {
+            if (d_vs != nullptr) {
+              store_piece<T, P>(d_ks + p * hd + pc * P, dk);
+              store_piece<T, P>(d_vs + p * hd + pc * P, dv);
+            } else {
+#pragma unroll
+              for (int u = 0; u < P; ++u) dk[u] += dv[u];
+              store_piece<T, P>(d_ks + p * hd + pc * P, dk);
+            }
+          }
+        }
+      } else {
+        for (int e = lane; e < hd; e += 32) {
+          const int h = e / dh;
+          const float c = cw[h];
+          const float kv1 = to_float(kr[e]);
+          float dk1;
+          if (gat) {
+            wa[e] += c * kv1;
+            dk1 = at[e] * c;
+          } else if (v2) {
+            const float z = kv1 + q[e];
+            dk1 = c * at[e] * leaky_grad(z, slope);
+            wr[e] += dk1;
+            wa[e] += c * leaky(z, slope);
+          } else {
+            wr[e] += c * kv1;
+            dk1 = q[e] * c;
+          }
+          if (d_ks != nullptr) {
+            const float dv1 = aw[h] * gr[e];
+            if (d_vs != nullptr) {
+              store(d_ks + p * hd + e, dk1);
+              store(d_vs + p * hd + e, dv1);
+            } else {
+              store(d_ks + p * hd + e, dk1 + dv1);
+            }
+          }
+        }
+      }
+      __syncwarp();
+    }
+    if constexpr (VEC) {
+      if (!gat) {
+#pragma unroll
+        for (int k = 0; k < kMaxPiecesPerLane; ++k) {
+          const int pc = lane + 32 * k;
+          if (pc >= pieces) continue;
+#pragma unroll
+          for (int u = 0; u < P; ++u) {
+            wr[pc * P + u] = rrow[k][u];
+            rrow[k][u] = 0.f;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    for (int h = t; h < heads; h += kThreads) {
+      float s = 0.f;
+#pragma unroll
+      for (int k = 0; k < kWarps; ++k) s += sacc[k * heads + h];
+      ssum[h] = s;
+    }
+    __syncthreads();
+    for (int e = t; e < hd; e += kThreads) {
+      float dx;
+      if (gat) {
+        const float s = ssum[e / dh];
+        dx = ad[e] * s;
+        adst[e] += q[e] * s;
+      } else {
+        dx = 0.f;
+#pragma unroll
+        for (int k = 0; k < kWarps; ++k) dx += wrow[k * hd + e];
+      }
+      store(d_xd + i * hd + e, dx);
+    }
+    __syncthreads();
+  }
+  if constexpr (VEC) {
+    if (mode != kTransformer) {
+      float* wa = watt + warp * hd;
+#pragma unroll
+      for (int k = 0; k < kMaxPiecesPerLane; ++k) {
+        const int pc = lane + 32 * k;
+        if (pc >= pieces) continue;
+#pragma unroll
+        for (int u = 0; u < P; ++u) wa[pc * P + u] = racc[k][u];
+      }
+    }
+    __syncthreads();
+  }
+  if (part != nullptr) {
+    float* pb = part + static_cast<int64_t>(blockIdx.x) * 2 * hd;
+    for (int e = t; e < hd; e += kThreads) {
+      float s = 0.f;
+#pragma unroll
+      for (int k = 0; k < kWarps; ++k) s += watt[k * hd + e];
+      pb[e] = s;
+      pb[hd + e] = adst[e];
+    }
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// d_att[e] = sum over blocks b of part[b, e], in block order.
+__global__ void sum_partials_kernel(const float* __restrict__ part,
+                                    float* __restrict__ d_att, int blocks,
+                                    int width) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= width) return;
+  float s = 0.f;
+  for (int b = 0; b < blocks; ++b) s += part[static_cast<int64_t>(b) * width + e];
+  d_att[e] = s;
+}
+
+template <typename T>
+int launch(const void* g, const void* xd, const void* ks, const void* vs,
+           const void* out, const void* stats, const void* nbr,
+           const void* mask, const void* att, const void* att2, void* d_xd,
+           void* e_alpha, void* e_coef, void* d_ks, void* d_vs, void* part,
+           void* d_att, long long n, int w, int heads, int dh, int mode,
+           float slope, float sqrt_dh, int grid, cudaStream_t stream) {
+  if (n == 0) return 0;
+  if (mode < kGat || mode > kTransformer || w < 1 || heads < 1 || dh < 1 ||
+      grid < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (mode != kTransformer &&
+      (att == nullptr || (mode == kGat && att2 == nullptr) ||
+       part == nullptr || d_att == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((e_alpha == nullptr) == (d_ks == nullptr) ||
+      (e_alpha != nullptr && e_coef == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * smem_floats(heads, dh);
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = static_cast<int>(n < grid ? n : grid);
+  constexpr int P = 16 / sizeof(T);
+  const int pph = dh / P;
+  const bool identity = d_ks != nullptr;
+  const bool vec = dh % P == 0 && (pph & (pph - 1)) == 0 && pph <= 32 &&
+                   heads * dh / P <= 32 * kMaxPiecesPerLane && aligned16(ks) &&
+                   aligned16(vs) && (!identity || (aligned16(d_ks) &&
+                                                   (d_vs == nullptr ||
+                                                    aligned16(d_vs))));
+  auto kernel = vec ? fanout_attention_bwd_kernel<T, true>
+                    : fanout_attention_bwd_kernel<T, false>;
+  kernel<<<blocks, kThreads, smem, stream>>>(
+      static_cast<const T*>(g), static_cast<const T*>(xd),
+      static_cast<const T*>(ks), static_cast<const T*>(vs),
+      static_cast<const T*>(out), static_cast<const float*>(stats),
+      static_cast<const int32_t*>(nbr), static_cast<const uint8_t*>(mask),
+      static_cast<const float*>(att), static_cast<const float*>(att2),
+      static_cast<T*>(d_xd), static_cast<float*>(e_alpha),
+      static_cast<float*>(e_coef), static_cast<T*>(d_ks),
+      static_cast<T*>(d_vs), static_cast<float*>(part), n, w, heads, dh,
+      mode, slope, sqrt_dh);
+  if (mode != kTransformer) {
+    const int width = 2 * heads * dh;
+    sum_partials_kernel<<<(width + 255) / 256, 256, 0, stream>>>(
+        static_cast<const float*>(part), static_cast<float*>(d_att), blocks,
+        width);
+  }
+  return 0;
+}
+
+}  // namespace
+
+// dtype: 0 = fp32, 1 = bf16 (g, xd, ks, vs, out, d_xd, d_ks, d_vs); stats
+// fp32 [n, H, 2] from K7; att / att2 fp32 [H * Dh] (mode 0 GAT: att_src /
+// att_dst; mode 1 GATv2: att / NULL; mode 2 Transformer: NULL / NULL). ELL mode: e_alpha / e_coef fp32 [n *
+// w, H], d_ks = d_vs = NULL. Identity mode: e_alpha = e_coef = NULL, d_ks
+// [n * w, H * Dh] and d_vs (NULL when keys and values are one table; d_ks
+// then holds the sum). GAT and GATv2: part fp32 [grid, 2 * H * Dh] scratch
+// and d_att fp32 [2 * H * Dh] (GAT: d_att_src then d_att_dst; GATv2: d_att
+// then zeros). grid: the number of
+// persistent blocks (a few per SM).
+extern "C" int gigl_fanout_attention_bwd(
+    const void* g, const void* xd, const void* ks, const void* vs,
+    const void* out, const void* stats, const void* nbr, const void* mask,
+    const void* att, const void* att2, void* d_xd, void* e_alpha,
+    void* e_coef, void* d_ks, void* d_vs, void* part, void* d_att,
+    long long n, int w, int heads, int dh, int dtype, int mode, float slope,
+    float sqrt_dh, int grid, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc;
+  if (dtype == 0) {
+    rc = launch<float>(g, xd, ks, vs, out, stats, nbr, mask, att, att2, d_xd,
+                       e_alpha, e_coef, d_ks, d_vs, part, d_att, n, w, heads,
+                       dh, mode, slope, sqrt_dh, grid, s);
+  } else if (dtype == 1) {
+    rc = launch<__nv_bfloat16>(g, xd, ks, vs, out, stats, nbr, mask, att,
+                               att2, d_xd, e_alpha, e_coef, d_ks, d_vs, part,
+                               d_att, n, w, heads, dh, mode, slope, sqrt_dh,
+                               grid, s);
+  } else {
+    rc = static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,8 +1,8 @@
 """Host graph containers: per-edge-type CSR adjacency + typed features.
 
 A numpy-only copy of what the port needs from ``gigl_tpu/graph/csr.py``:
-``CSR``, ``build_csr`` and the homogeneous ``HeteroGraph`` with its lazily
-built, cached CSRs. Neighbor lists are ordered by (anchor, original edge
+``CSR``, ``build_csr`` and the homogeneous ``HeteroGraph`` (features,
+labels) with its lazily built, cached CSRs. Neighbor lists are ordered by (anchor, original edge
 order) through a stable sort, so sampled draws are reproducible and equal
 to the reference's.
 """
@@ -85,6 +85,7 @@ class HeteroGraph:
     edges: Dict[EdgeType, np.ndarray]  # [2, E] (src row 0, dst row 1)
     node_features: Dict[NodeType, np.ndarray] = field(default_factory=dict)
     edge_features: Dict[str, np.ndarray] = field(default_factory=dict)
+    node_labels: Dict[NodeType, np.ndarray] = field(default_factory=dict)
     _csr_cache: Dict[Tuple[EdgeType, str], CSR] = field(default_factory=dict)
 
     def __post_init__(self):
@@ -124,6 +125,7 @@ class HeteroGraph:
         num_nodes: int,
         node_features: Optional[np.ndarray] = None,
         edge_features: Optional[np.ndarray] = None,
+        node_labels: Optional[np.ndarray] = None,
         make_undirected: bool = False,
     ) -> "HeteroGraph":
         """A homogeneous graph with the default node/edge type;
@@ -145,4 +147,7 @@ class HeteroGraph:
                 node_features)
         if ef is not None:
             g.edge_features[str(DEFAULT_HOMOGENEOUS_EDGE_TYPE)] = np.asarray(ef)
+        if node_labels is not None:
+            g.node_labels[DEFAULT_HOMOGENEOUS_NODE_TYPE] = np.asarray(
+                node_labels)
         return g

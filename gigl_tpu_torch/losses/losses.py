@@ -1,10 +1,12 @@
-"""Link-prediction losses (port of ``gigl_tpu/losses/losses.py``:
-``margin_loss``, ``softmax_loss``, ``retrieval_loss``).
+"""Losses (port of ``gigl_tpu/losses/losses.py``: ``margin_loss``,
+``softmax_loss``, ``retrieval_loss`` for link prediction,
+``cross_entropy_loss`` for node classification).
 
 Every loss returns ``(loss_sum, count)`` over static-shape scores with
 validity masks, as the reference does. ``retrieval_loss`` runs on kernel K5
-(``gigl_tpu_torch/ops/retrieval.py``), forward and backward; margin and
-softmax are plain PyTorch (differentiated by autograd).
+(``gigl_tpu_torch/ops/retrieval.py``), forward and backward; the others are
+plain PyTorch (differentiated by autograd) — the reference has no kernel
+for them either.
 """
 
 from __future__ import annotations
@@ -126,3 +128,19 @@ def retrieval_loss(
         query_mask=query_mask, candidate_mask=candidate_mask)
     return RetrievalLoss.apply(scores.contiguous(), masks, retrieval_fwd,
                                retrieval_bwd)
+
+
+def cross_entropy_loss(logits: Tensor, labels: Tensor, *,
+                       mask: Optional[Tensor] = None
+                       ) -> Tuple[Tensor, Tensor]:
+    """Softmax cross entropy ``logsumexp(logits) - logits[label]`` per row,
+    sum reduction, over the rows where ``mask`` (bool [N]) is set; count =
+    the masked rows (int32), or every row without a mask."""
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[:, None])[:, 0]
+    ce = logz - ll
+    if mask is not None:
+        return (torch.where(mask, ce, 0.0).sum(),
+                mask.sum().to(torch.int32))
+    return ce.sum(), torch.tensor(logits.shape[0], dtype=torch.int32,
+                                  device=logits.device)

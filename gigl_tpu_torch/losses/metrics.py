@@ -1,7 +1,7 @@
-"""Ranking metrics: Hits@K and mean reciprocal rank (port of
-``gigl_tpu/losses/metrics.py`` ``_ranks``, ``hits_at_k``,
-``mean_reciprocal_rank``). Each returns sums and a count; the caller
-divides."""
+"""Eval metrics: Hits@K and mean reciprocal rank for link prediction,
+accuracy for node classification (port of ``gigl_tpu/losses/metrics.py``
+``_ranks``, ``hits_at_k``, ``mean_reciprocal_rank``, ``accuracy``). Each
+returns sums and a count; the caller divides."""
 
 from __future__ import annotations
 
@@ -58,3 +58,14 @@ def mean_reciprocal_rank(
     rr = 1.0 / _ranks(pos_scores, neg_scores, neg_mask).float()
     valid = _valid(pos_scores, pos_mask)
     return torch.where(valid, rr, 0.0).sum(), valid.sum()
+
+
+def accuracy(logits: Tensor, labels: Tensor, *,
+             mask: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """(number of rows whose argmax is the label, count) over the rows
+    where ``mask`` is set, or every row."""
+    correct = logits.argmax(dim=-1) == labels
+    if mask is not None:
+        return (correct & mask).sum(), mask.sum()
+    return correct.sum(), torch.tensor(labels.shape[0], dtype=torch.int32,
+                                       device=labels.device)

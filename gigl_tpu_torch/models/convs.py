@@ -5,16 +5,19 @@ Ported: ``SAGEConv``, ``GCNConv``, ``GINConv``, ``GATConv`` (v1 and
 
 - ``block(x_dst, nbr, mask, edge_attr=None, degrees=None)``: the dense
   fanout-block path (``nbr [N, K, Din]``) of sampled encoding;
-- ``source_table(x)`` and ``indexed(x_dst, src, nbr_idx, mask,
-  degrees=None)``: the ELL path (``ops/ell.py`` ``ell_layer``), where the
-  neighbor rows are read through ``nbr_idx [n, W]`` inside kernel K6
-  (SAGE, GCN, GIN) or K7 (GAT, GATv2, Transformer) instead of being
-  gathered into an ``[n, W, D]`` block first.
+- ``ell(x_p, ell)``: the whole permuted graph of an ``EllGraph`` at once
+  (``ops/ell.py`` ``ell_layer``), where the neighbor rows are read through
+  the bucket index tables inside kernel K6 (SAGE, GCN, GIN;
+  ``ell_aggregate_graph``) or K7 (GAT, GATv2, Transformer;
+  ``fanout_attention_ell``) instead of being gathered into an
+  ``[n, W, D]`` block first; the linear layers run once over all N rows.
 
 SAGE, GCN and GIN keep the reference's dense block (K4, trainable through
-K4b); the attention convs' dense block is their indexed form over
-``nbr_idx = arange``, so it is forward-only like K7. ``block_cached``
-(SAGE, GCN, GIN) serves the cached-hop path. Parameters are fp32; the layer
+K4b); the attention convs' dense block projects the flattened ``[N*K,
+Din]`` block once and runs K7 over it (``fanout_attention_block``,
+trainable through K7b). The ELL forms train through K6b (SAGE, GCN, GIN)
+and K7b + K6b (GAT, GATv2, Transformer). ``block_cached`` (SAGE,
+GCN, GIN) serves the cached-hop path. Parameters are fp32; the layer
 computes in ``dtype`` the way flax's ``Dense(dtype=bf16, param_dtype=fp32)``
 does: input, weight and bias are cast to the compute type at the call (no
 autocast).
@@ -28,9 +31,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gigl_tpu_torch.ops.attention import fanout_attention
+from gigl_tpu_torch.ops.attention import (
+    fanout_attention_block,
+    fanout_attention_ell,
+)
 from gigl_tpu_torch.ops.ell import EDGE_FEATURES_NOT_PORTED
-from gigl_tpu_torch.ops.ell_aggregate import ell_aggregate
+from gigl_tpu_torch.ops.ell_aggregate import ell_aggregate_graph
 from gigl_tpu_torch.ops.fanout import masked_max, masked_mean, masked_sum
 
 
@@ -78,13 +84,9 @@ class SAGEConv(nn.Module):
             agg = masked_sum(nbr, mask)
         return self._combine(x_dst, agg)
 
-    def source_table(self, x):
-        return x
-
-    def indexed(self, x_dst, src, nbr_idx, mask, degrees=None):
-        """ELL form: neighbor rows of ``src`` through ``nbr_idx`` (K6)."""
-        return self._combine(x_dst, ell_aggregate(src, nbr_idx, mask,
-                                                  self.aggr))
+    def ell(self, x_p, ell):
+        """ELL form over the whole permuted graph (K6, backward K6b)."""
+        return self._combine(x_p, ell_aggregate_graph(x_p, ell, self.aggr))
 
     def forward(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
         return self.block(x_dst, nbr, mask, edge_attr, degrees)
@@ -95,14 +97,9 @@ def _no_edge_attr(edge_attr):
         raise NotImplementedError(EDGE_FEATURES_NOT_PORTED)
 
 
-def _dense_as_indexed(conv, x_dst, nbr, mask, degrees=None):
-    """A dense block [N, K, Din] through the conv's indexed form: the block
-    flattened to a [N*K, Din] table, read through nbr_idx = arange."""
-    n, k = nbr.shape[:2]
-    idx = torch.arange(n * k, dtype=torch.int32,
-                       device=nbr.device).reshape(n, k)
-    src = conv.source_table(nbr.reshape(n * k, nbr.shape[-1]))
-    return conv.indexed(x_dst, src, idx, mask, degrees)
+def _flat_block(nbr):
+    """[N, K, Din] -> [N*K, Din]: slot j of row i at row i*K + j."""
+    return nbr.reshape(-1, nbr.shape[-1])
 
 
 class GCNConv(nn.Module):
@@ -145,20 +142,13 @@ class GCNConv(nn.Module):
         agg = masked_sum(nbr, mask) * norm
         return linear(self.lin, agg + x_dst * norm, self.dtype)
 
-    def source_table(self, x):
-        return x
-
-    def indexed(self, x_dst, src, nbr_idx, mask, degrees=None):
-        """ELL form. ``degrees`` = (deg_dst [n], deg_tab [M]): in-degrees
-        of the dst rows and of every row of ``src`` — the in-degree for
-        both ends, as ``encode_ell`` uses it (``gigl_tpu/ops/ell.py:218,
-        342-344``); K6 computes the weights from them."""
-        if degrees is None:
-            raise ValueError("GCN's indexed form needs the degree tables")
-        deg_dst, deg_tab = degrees
-        agg = ell_aggregate(src, nbr_idx, mask, "gcn", deg_dst, deg_tab)
-        d = deg_dst.to(x_dst.dtype) + 1.0
-        return linear(self.lin, agg + x_dst / d[:, None], self.dtype)
+    def ell(self, x_p, ell):
+        """ELL form: the in-degree ``ell.deg_p`` for both ends, as
+        ``encode_ell`` uses it (``gigl_tpu/ops/ell.py:218, 342-344``); K6
+        computes the weights from it (backward K6b)."""
+        agg = ell_aggregate_graph(x_p, ell, "gcn")
+        d = ell.deg_p.to(x_p.dtype) + 1.0
+        return linear(self.lin, agg + x_p / d[:, None], self.dtype)
 
     def forward(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
         return self.block(x_dst, nbr, mask, edge_attr, degrees)
@@ -196,12 +186,9 @@ class GINConv(nn.Module):
         _no_edge_attr(edge_attr)
         return self._mlp((1.0 + self.eps) * x_dst + masked_sum(nbr, mask))
 
-    def source_table(self, x):
-        return x
-
-    def indexed(self, x_dst, src, nbr_idx, mask, degrees=None):
-        agg = ell_aggregate(src, nbr_idx, mask, "sum")
-        return self._mlp((1.0 + self.eps) * x_dst + agg)
+    def ell(self, x_p, ell):
+        return self._mlp((1.0 + self.eps) * x_p
+                         + ell_aggregate_graph(x_p, ell, "sum"))
 
     def forward(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
         return self.block(x_dst, nbr, mask, edge_attr, degrees)
@@ -251,30 +238,33 @@ class GATConv(nn.Module):
             out = out.reshape(-1, self.heads, self.head_dim).mean(1)
         return out + self.bias.to(out.dtype)
 
-    def source_table(self, x):
-        # The reference projects the gathered [N, K, Din] block
-        # (convs.py:295); projecting the [N, Din] table once and reading
-        # its rows changes the order of operations, not the function (a
-        # row gather commutes with a linear layer).
-        return linear(self.lin_src, x, self.dtype)
-
-    def indexed(self, x_dst, src, nbr_idx, mask, degrees=None):
-        """ELL form: ``src`` is ``source_table(x)``; logits, masked
-        softmax and the weighted sum run in K7."""
+    def _attend(self, attend, x_dst, x_src, *where):
+        """Project, then logits, masked softmax and the weighted sum in K7
+        (``attend``: ``fanout_attention_block`` or ``fanout_attention_ell``,
+        ``where`` its mask or EllGraph). The
+        reference projects the gathered neighbor rows (convs.py:295); a row
+        gather commutes with a linear layer, so projecting the source table
+        changes the order of operations, not the function."""
+        src = linear(self.lin_src, x_src, self.dtype)
         hd = linear(self.lin_dst, x_dst, self.dtype)
         if self.v2:
-            out = fanout_attention(hd, src, src, nbr_idx, mask, "gatv2",
-                                   self.heads, self.att,
-                                   negative_slope=self.negative_slope)
+            out = attend(hd, src, None, *where, "gatv2", self.heads,
+                         self.att, negative_slope=self.negative_slope)
         else:
-            out = fanout_attention(hd, src, src, nbr_idx, mask, "gat",
-                                   self.heads, self.att_src, self.att_dst,
-                                   negative_slope=self.negative_slope)
+            out = attend(hd, src, None, *where, "gat", self.heads,
+                         self.att_src, self.att_dst,
+                         negative_slope=self.negative_slope)
         return self._finish(out)
+
+    def ell(self, x_p, ell):
+        """ELL form over the whole permuted graph (K7, backward K7b +
+        K6b)."""
+        return self._attend(fanout_attention_ell, x_p, x_p, ell)
 
     def block(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
         _no_edge_attr(edge_attr)
-        return _dense_as_indexed(self, x_dst, nbr, mask)
+        return self._attend(fanout_attention_block, x_dst, _flat_block(nbr),
+                            mask)
 
     def forward(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
         return self.block(x_dst, nbr, mask, edge_attr, degrees)
@@ -300,23 +290,25 @@ class TransformerConv(nn.Module):
         self.lin_v = nn.Linear(in_dim, out_dim)
         self.lin_skip = nn.Linear(in_dim, out_dim)
 
-    def source_table(self, x):
-        # K and V of every row once (the reference projects the gathered
-        # block, convs.py:365-366): the order of operations changes, not
-        # the function.
-        return (linear(self.lin_k, x, self.dtype),
-                linear(self.lin_v, x, self.dtype))
-
-    def indexed(self, x_dst, src, nbr_idx, mask, degrees=None):
-        k, v = src
+    def _attend(self, attend, x_dst, x_src, *where):
+        """K and V of every source row once (the reference projects the
+        gathered block, convs.py:365-366): the order of operations changes,
+        not the function."""
+        k = linear(self.lin_k, x_src, self.dtype)
+        v = linear(self.lin_v, x_src, self.dtype)
         q = linear(self.lin_q, x_dst, self.dtype)
-        out = fanout_attention(q, k, v, nbr_idx, mask, "transformer",
-                               self.heads)
+        out = attend(q, k, v, *where, "transformer", self.heads)
         return out + linear(self.lin_skip, x_dst, self.dtype)
+
+    def ell(self, x_p, ell):
+        """ELL form over the whole permuted graph (K7, backward K7b +
+        K6b)."""
+        return self._attend(fanout_attention_ell, x_p, x_p, ell)
 
     def block(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
         _no_edge_attr(edge_attr)
-        return _dense_as_indexed(self, x_dst, nbr, mask)
+        return self._attend(fanout_attention_block, x_dst, _flat_block(nbr),
+                            mask)
 
     def forward(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
         return self.block(x_dst, nbr, mask, edge_attr, degrees)

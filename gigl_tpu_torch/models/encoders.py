@@ -11,7 +11,9 @@ the last conv (unless asked), activation otherwise.
 
 ``encode_ell(x, ell)`` is the exact full-graph path: a permute-gather in
 (K3), one ``ell_layer`` per conv over the degree buckets (K6 or K7), and
-the inverse gather out (K3). It is forward-only.
+the inverse gather out (K3). It trains: the gathers' backward is K3
+through the inverse permutation, the layers' K6b (after K7b for the
+attention convs).
 
 Ported so far: the GraphSAGE, GCN, GIN, GAT, GATv2 and Transformer convs
 (no edge features), activation placement, output L2 normalization, and
@@ -43,7 +45,7 @@ from gigl_tpu_torch.ops.ell import (
     EllGraph,
     ell_layer,
 )
-from gigl_tpu_torch.ops.gather import gather_rows
+from gigl_tpu_torch.ops.gather import permute_rows
 
 CONV_TYPES = (
     "graphsage", "gcn", "gin", "gine", "gat", "gatv2", "edge_attr_gat",
@@ -237,13 +239,14 @@ class GNNEncoder(nn.Module):
         """Exact full-graph encode through degree-bucketed blocks
         (ops/ell.py): x [N, Din] in original node order, on ``ell``'s
         device -> [N, out_dim] in original node order. The permute-gathers
-        in and out run through K3; each layer's aggregation through K6 or
-        K7. Forward-only."""
+        in and out run through K3 (differentiable, ``permute_rows``); each
+        layer's aggregation through K6 or K7, their backward through K6b
+        and K7b. ``train`` turns dropout on, drawn from ``generator``."""
         if edge_attr is not None:
             raise NotImplementedError(EDGE_FEATURES_NOT_PORTED)
-        x_p = gather_rows(x.to(self.dtype).contiguous(), ell.perm)[0]
+        x_p = permute_rows(x.to(self.dtype), ell.perm, ell.rank)
         for i, conv in enumerate(self.convs):
             is_last = i == self.num_layers - 1
-            x_p = ell_layer(conv, x_p, ell, with_degrees=(self.conv == "gcn"))
+            x_p = ell_layer(conv, x_p, ell)
             x_p = self._epilogue(x_p, is_last, train, generator)
-        return gather_rows(self._post(x_p).contiguous(), ell.rank)[0]
+        return permute_rows(self._post(x_p), ell.rank, ell.perm)

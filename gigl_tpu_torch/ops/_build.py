@@ -39,7 +39,8 @@ COMPILE_FLAGS = ARCH_FLAGS + [
 # retrieval_loss counts its forward and its backward entry point.
 KERNEL_NAMES = ("sample_uniform", "uniform_ids", "build_neighbor_cache",
                 "gather_rows", "masked_reduce", "masked_reduce_bwd",
-                "retrieval_loss", "ell_aggregate", "fanout_attention")
+                "retrieval_loss", "ell_aggregate", "fanout_attention",
+                "ell_transpose_aggregate", "fanout_attention_bwd")
 launches: Dict[str, int] = dict.fromkeys(KERNEL_NAMES, 0)
 
 _P = ctypes.c_void_p
@@ -65,8 +66,13 @@ _SIGNATURES = {
                                 _F32, _I32, _I32, _P, _P, _P, _P],
     "gigl_ell_aggregate": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
                            _I32, _I32, _P],
-    "gigl_fanout_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32,
-                              _I32, _I32, _I32, _I32, _F32, _F32, _P],
+    "gigl_fanout_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                              _I32, _I32, _I32, _I32, _I32, _F32, _F32, _P],
+    "gigl_ell_transpose_aggregate": [_P] * 13 + [_I64] + [_I32] * 7
+    + [_F32, _P],
+    "gigl_ell_tie_count": [_P] * 5 + [_I64] + [_I32] * 4 + [_P],
+    "gigl_fanout_attention_bwd": [_P] * 17 + [_I64] + [_I32] * 5
+    + [_F32, _F32, _I32, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -9,17 +9,23 @@ A forward pass costs one permute-gather in, L rounds of per-bucket
 aggregation, and one inverse-permute gather out.
 
 The tables are built on the host with numpy exactly as the reference builds
-them (bit-equal, including the transpose tables ``t_*`` and ``edge_pos``
-that the scatter-free backward of the next slice reads) and moved to the
-device as int32 / bool / float32 tensors.
+them (bit-equal, including the transpose tables ``t_*`` and ``edge_pos``)
+and moved to the device as int32 / bool / float32 tensors. Two derived
+tables serve the backward: ``t_perm``, the inverse of ``t_rank`` (the x_p
+row of each transpose row), and ``ent_row``, the destination row of each
+flat forward entry ``p = ent_off[b] + i * W_b + j`` (row
+``boundaries[b] + i``).
 
-:func:`ell_layer` is forward-only. It never materialises the reference's
-``x_p[nbr]`` block ``[n_b, W, D]`` (``ell_gather``, :237-247): each conv's
-``indexed`` form reads the neighbor rows through the index table inside
-kernel K6 ``ell_aggregate`` (SAGE, GCN, GIN; ``ops/ell_aggregate.py``) or
-K7 ``fanout_attention`` (GAT, GATv2, Transformer; ``ops/attention.py``).
-Masked slots point at row 0 (``rank[v] * m``); the kernels honour the mask,
-never the index.
+:func:`ell_layer` is one conv layer over every bucket: ``conv.ell(x_p,
+ell)``. It never materialises the reference's ``x_p[nbr]`` block
+``[n_b, W, D]`` (``ell_gather``, :237-247): the convs read neighbor rows
+through the index tables inside kernel K6 ``ell_aggregate`` (SAGE, GCN,
+GIN; ``ops/ell_aggregate.py``) or K7 ``fanout_attention`` (GAT, GATv2,
+Transformer; ``ops/attention.py``), one autograd node per layer whose
+forward launches the kernel once per bucket into one ``[N, D_out]`` output
+and whose backward walks the transpose tables once (K6b, after K7b for
+attention) — the scatter-free custom VJP of :237-286. Masked slots point
+at row 0 (``rank[v] * m``); the kernels honour the mask, never the index.
 """
 
 from __future__ import annotations
@@ -103,8 +109,10 @@ class EllGraph:
     permuted order. Per bucket b: nbr[b] [n_b, W_b] permuted-space neighbor
     rows, mask[b] validity, edge_slots[b] original COO edge row per entry;
     its dst rows are boundaries[b]:boundaries[b+1]. The transpose tables
-    (t_rank, t_nbr, t_mask, t_boundaries, t_widths) and edge_pos serve the
-    backward (not ported yet)."""
+    (t_rank, t_nbr, t_mask, t_boundaries, t_widths) serve the backward
+    (K6b), with the derived t_perm (inverse of t_rank) and ent_row /
+    ent_off (flat entry -> dst row, bucket b's first entry); edge_pos is
+    for edge features (not ported)."""
 
     perm: torch.Tensor                 # [N] int32
     rank: torch.Tensor                 # [N] int32
@@ -120,6 +128,13 @@ class EllGraph:
     widths: Tuple[int, ...]
     t_boundaries: Tuple[int, ...]
     t_widths: Tuple[int, ...]
+    t_perm: torch.Tensor               # [N] int32, t-row -> x_p row
+    ent_row: torch.Tensor              # [P] int32, flat entry -> dst row
+    ent_off: Tuple[int, ...]           # len = num_buckets + 1
+
+    @property
+    def num_nodes(self) -> int:
+        return self.perm.shape[0]
 
     @classmethod
     def from_csr(cls, csr, widths: Optional[Sequence[int]] = None,
@@ -168,8 +183,11 @@ class EllGraph:
         np.cumsum(np.bincount(us, minlength=n), out=t_indptr[1:])
         t_deg_max = int(np.diff(t_indptr).max()) if n else 0
         t_ws = default_widths(max(t_deg_max, 1))
-        _, t_rank_rows, t_boundaries, t_padded, t_masks, _ = (
+        t_perm, t_rank_rows, t_boundaries, t_padded, t_masks, _ = (
             _bucketize_rows(t_indptr, ps, t_ws))
+        offs.append(off)
+        ent_row = np.repeat(np.arange(n), np.repeat(
+            np.asarray(ws), np.diff(boundaries)))
 
         def i32(a):
             return torch.as_tensor(np.asarray(a, np.int32), device=device)
@@ -188,28 +206,15 @@ class EllGraph:
             t_mask=tuple(bools(m) for m in t_masks),
             boundaries=tuple(int(b) for b in boundaries), widths=ws,
             t_boundaries=tuple(int(b) for b in t_boundaries),
-            t_widths=tuple(t_ws))
+            t_widths=tuple(t_ws), t_perm=i32(t_perm), ent_row=i32(ent_row),
+            ent_off=tuple(int(o) for o in offs))
 
 
 def ell_layer(conv, x_p: torch.Tensor, ell: EllGraph,
-              edge_attr: Optional[torch.Tensor] = None,
-              with_degrees: bool = False) -> torch.Tensor:
-    """One conv layer over the whole permuted graph, bucket by bucket.
-
-    x_p: [N, D] in permuted order -> [N, D_out] in permuted order. The
-    conv projects the whole table once (``conv.source_table``), then each
-    non-empty bucket's rows go through ``conv.indexed`` with the bucket's
-    index table and mask; with ``with_degrees`` (GCN) it also gets the
-    in-degrees of its dst rows and the degree table of all rows."""
+              edge_attr: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One conv layer over the whole permuted graph: x_p [N, D] in
+    permuted order -> [N, D_out] in permuted order (``conv.ell``; GCN
+    reads the in-degrees ``ell.deg_p`` for both ends)."""
     if edge_attr is not None:
         raise NotImplementedError(EDGE_FEATURES_NOT_PORTED)
-    src = conv.source_table(x_p)
-    outs = []
-    for b in range(len(ell.widths)):
-        lo, hi = ell.boundaries[b], ell.boundaries[b + 1]
-        if hi == lo:
-            continue
-        degs = (ell.deg_p[lo:hi], ell.deg_p) if with_degrees else None
-        outs.append(conv.indexed(x_p[lo:hi], src, ell.nbr[b], ell.mask[b],
-                                 degs))
-    return torch.cat(outs, dim=0)
+    return conv.ell(x_p, ell)

@@ -13,6 +13,13 @@ of ``gigl_tpu/training/dataset.py`` ``sample_hop_blocks_tabularized``
 
 Both are bit-equal to the plain gathers (:func:`_expand_table_plain`,
 :func:`_gather_rows_plain`), which run for CPU tensors only.
+
+:func:`permute_rows` is the differentiable row permutation of
+``GNNEncoder.encode_ell`` (the reference's ``x[ell.perm]`` and
+``out[ell.rank]``): K3 forward, and K3 again through the inverse
+permutation backward (the cotangent of ``y = x[idx]`` is ``g[inv]`` when
+``inv[idx[i]] = i``), so no scatter; on the CPU both directions take the
+plain gather.
 """
 
 from __future__ import annotations
@@ -97,3 +104,27 @@ def gather_rows(
     shape = tuple(ids.shape)
     return (out.reshape(shape + (w,)),
             None if vals is None else vals.reshape(shape))
+
+
+class PermuteRows(torch.autograd.Function):
+    """``x[idx]`` for a permutation ``idx`` with inverse ``inv``; the
+    backward gathers the cotangent through ``inv`` (K3 both ways)."""
+
+    @staticmethod
+    def forward(ctx, x, idx, inv):
+        ctx.save_for_backward(inv)
+        return gather_rows(x, idx)[0]
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        (inv,) = ctx.saved_tensors
+        return gather_rows(grad_out.contiguous(), inv)[0], None, None
+
+
+def permute_rows(x: torch.Tensor, idx: torch.Tensor,
+                 inv: torch.Tensor) -> torch.Tensor:
+    """x [N, D], idx / inv [N] int32 inverse permutations -> x[idx],
+    differentiable in x (K3 rows mode both ways)."""
+    return PermuteRows.apply(x.contiguous(), idx, inv)

@@ -1,6 +1,7 @@
-"""Device-resident graph bundle and NALP batches (port of
-``gigl_tpu/training/dataset.py``: ``DeviceGraph``, ``NALPBatch``,
-``sample_nalp_batch``, ``AnchorBatchIterator``).
+"""Device-resident graph bundle and batches (port of
+``gigl_tpu/training/dataset.py``: ``DeviceGraph`` with its node labels,
+``NALPBatch``, ``NodeClassificationBatch``, ``sample_nalp_batch``,
+``AnchorBatchIterator``).
 
 The preprocessed graph lives on the device as CSR + feature tables; per
 batch, neighbor sampling and feature hydration are device work. With
@@ -43,6 +44,12 @@ def _not_ported(what: str, ref: str):
     return NotImplementedError(f"{what} is not ported yet ({ref})")
 
 
+class NodeClassificationBatch(NamedTuple):
+    nodes: torch.Tensor   # [B] int32
+    labels: torch.Tensor  # [B] int32
+    mask: torch.Tensor    # [B] bool (padding)
+
+
 class NALPBatch(NamedTuple):
     """Node-anchor link prediction batch (device tensors): anchors with
     per-anchor positives and hard negatives plus batch-shared random
@@ -63,7 +70,7 @@ class DeviceGraph:
     message_csr: adjacency for message passing (sampling direction "in":
     anchored on dst). supervision_csr / hard_neg_csr: label edges anchored
     on the anchor side, from which NALP batches draw positives and hard
-    negatives.
+    negatives. node_labels: int32 [N] class labels (node classification).
     """
 
     message_csr: DeviceCSR
@@ -71,6 +78,7 @@ class DeviceGraph:
     num_nodes: int
     supervision_csr: Optional[DeviceCSR] = None
     hard_neg_csr: Optional[DeviceCSR] = None
+    node_labels: Optional[torch.Tensor] = None    # [N] int32
     degrees: Optional[torch.Tensor] = None        # [N] f32 in-degrees
     nbr_cache: Optional[torch.Tensor] = None      # [N, D] hopcache table
     # Frozen per-node hop samples, one packed ids table [N, k] per in-tree
@@ -128,6 +136,7 @@ class DeviceGraph:
                 build_csr(edges[0], edges[1], num_anchor_nodes=n,
                           num_neighbor_nodes=n, anchor=anchor), device)
 
+        labels = graph.node_labels.get(nt)
         return cls(
             message_csr=DeviceCSR.from_csr(csr, device),
             node_features=torch.as_tensor(
@@ -135,6 +144,8 @@ class DeviceGraph:
             num_nodes=n,
             supervision_csr=label_csr(supervision_edges),
             hard_neg_csr=label_csr(hard_neg_edges),
+            node_labels=(None if labels is None else torch.as_tensor(
+                np.asarray(labels).astype(np.int32)).to(device)),
             degrees=torch.as_tensor(
                 np.diff(csr.indptr).astype(np.float32)).to(device),
         )

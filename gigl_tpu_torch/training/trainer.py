@@ -1,6 +1,7 @@
-"""Node-anchor link prediction trainer (port of
-``gigl_tpu/training/trainer.py``: ``TrainState``, ``make_optimizer``,
-``NALPTrainerConfig``, ``nalp_loss_from_embeddings`` and ``NALPTrainer``).
+"""Trainers for node-anchor link prediction and node classification (port
+of ``gigl_tpu/training/trainer.py``: ``TrainState``, ``make_optimizer``,
+``NALPTrainerConfig``, ``nalp_loss_from_embeddings``, ``NALPTrainer``,
+``NodeClassificationTrainerConfig`` and ``NodeClassificationTrainer``).
 
 One training step is: ``sample_nalp_batch`` (K1 positives, K1b random
 negatives), three encode chains (anchors, positives, random negatives; K3
@@ -11,12 +12,18 @@ optimizer update. The model's weights live in the model (``nn.Module``);
 Steps run eagerly on the current stream; ``train_steps`` keeps the losses
 on the device, so a chunk of steps does no host synchronisation.
 
+A node-classification step samples the labeled nodes' fanout tree live
+(K1, keyed by the config's seed on every step, as the reference does),
+hydrates it (K3), encodes it on the dense-block path (GraphSAGE: K4 / K4b;
+GAT and Transformer: K7 / K7b) and takes the mean cross entropy.
+
 Not ported: the count-min-sketch logQ correction (``use_cms_correction``,
 ROADMAP B5b), label-edge-feature scorers, and checkpointing in ``fit``.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from typing import Any, Dict, Iterable, Mapping, NamedTuple, Optional, Tuple
 
@@ -25,13 +32,29 @@ import torch
 from torch import nn
 
 from gigl_tpu_torch.device import DeviceLike, resolve_device
-from gigl_tpu_torch.losses.losses import margin_loss, retrieval_loss, softmax_loss
-from gigl_tpu_torch.losses.metrics import hits_at_k, mean_reciprocal_rank
+from gigl_tpu_torch.losses.losses import (
+    cross_entropy_loss,
+    margin_loss,
+    retrieval_loss,
+    softmax_loss,
+)
+from gigl_tpu_torch.losses.metrics import (
+    accuracy,
+    hits_at_k,
+    mean_reciprocal_rank,
+)
 from gigl_tpu_torch.models.encoders import cached_agg_kind
 from gigl_tpu_torch.models.init import init_params
 from gigl_tpu_torch.models.link_prediction import LinkPredictionGNN
 from gigl_tpu_torch.training.base import BaseInferencer
-from gigl_tpu_torch.training.dataset import DeviceGraph, NALPBatch
+from gigl_tpu_torch.training.dataset import (
+    AnchorBatchIterator,
+    DeviceGraph,
+    NALPBatch,
+)
+from gigl_tpu_torch.training.early_stop import EarlyStopper
+
+logger = logging.getLogger(__name__)
 
 
 class TrainState(NamedTuple):
@@ -413,3 +436,150 @@ class NALPTrainer(BaseInferencer):
             num_val_batches=num_val_batches,
             early_stop_patience=early_stop_patience, log_every=log_every,
             scalar_logger=scalar_logger, checkpoint_dir=checkpoint_dir)
+
+
+# ---------------------------------------------------------------------------
+# Node classification
+# ---------------------------------------------------------------------------
+
+@dataclass
+class NodeClassificationTrainerConfig:
+    fanouts: Tuple[int, ...] = (10, 5)
+    seed: int = 0
+    # Partitioned NC trainer only (not ported): this trainer samples live.
+    cached_hop: bool = False
+    # Kept for the reference's config; its NC trainer samples uniformly.
+    sampling_method: str = "uniform"
+
+
+class NodeClassificationTrainer:
+    """Supervised node classification over a DeviceGraph with labels: CE
+    loss on sampled fanout trees of labeled nodes, accuracy eval. The
+    model is an encoder whose output width is the number of classes."""
+
+    def __init__(self, model: nn.Module, graph: DeviceGraph,
+                 config: NodeClassificationTrainerConfig,
+                 optimizer_args: Optional[Dict[str, Any]] = None,
+                 device: DeviceLike = None):
+        if graph.node_labels is None:
+            raise ValueError("graph has no node labels")
+        self.device = resolve_device(device)
+        if graph.device != self.device:
+            raise ValueError(f"graph lives on {graph.device}, trainer "
+                             f"asked for {self.device}")
+        self.model = model.to(self.device).eval()
+        self.graph = graph
+        self.cfg = config
+        self.optimizer_args = dict(optimizer_args or {})
+        self.grad_clip_norm = 0.0
+        # Graph for evaluate() (inductive node classification swaps in the
+        # val / test message graph).
+        self.eval_graph: Optional[DeviceGraph] = None
+
+    def init_params(self, seed: int = 0) -> None:
+        init_params(self.model, seed)
+
+    def init_state(self, seed: int = 0, batch_size: Optional[int] = None,
+                   params: Optional[Mapping[str, torch.Tensor]] = None
+                   ) -> TrainState:
+        """Load ``params`` or initialize the weights from ``seed``, then
+        build the optimizer (``batch_size`` is the reference's tracing
+        shape, unused)."""
+        del batch_size
+        if params is None:
+            self.init_params(seed)
+        else:
+            self.model.load_state_dict(params)
+        opt, self.grad_clip_norm = make_optimizer(self.optimizer_args,
+                                                  self.model.parameters())
+        return TrainState(step=0, optimizer=opt)
+
+    def _ids(self, node_ids) -> torch.Tensor:
+        return torch.as_tensor(node_ids, dtype=torch.int32,
+                               device=self.device)
+
+    def _forward(self, graph: DeviceGraph, nodes: torch.Tensor, train: bool,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Logits [B, classes]: the live sample keyed by ``cfg.seed`` (the
+        same draw on every step, as the reference's), hydration, encode."""
+        blocks = graph.sample_hop_blocks(nodes, self.cfg.fanouts,
+                                         seed=self.cfg.seed)
+        feats, masks, degs = graph.hydrate(blocks)
+        return self.model(feats, masks, None, train=train, hop_degrees=degs,
+                          generator=generator)
+
+    def predict_batch(self, nodes) -> torch.Tensor:
+        """Inference logits of a batch of node ids."""
+        with torch.inference_mode():
+            return self._forward(self.graph, self._ids(nodes), False)
+
+    def loss(self, nodes, generator: Optional[torch.Generator] = None
+             ) -> torch.Tensor:
+        """Train-mode mean cross entropy of ``nodes`` (differentiable in
+        the model's weights)."""
+        nodes = self._ids(nodes)
+        labels = self.graph.node_labels[nodes.long()]
+        s, c = cross_entropy_loss(
+            self._forward(self.graph, nodes, True, generator), labels)
+        return s / torch.clamp(c.to(torch.float32), min=1.0)
+
+    def train_step(self, state: TrainState, nodes,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Tuple[TrainState, torch.Tensor]:
+        """One step: sample, forward, backward, update; the loss stays on
+        the device."""
+        state.optimizer.zero_grad(set_to_none=True)
+        loss = self.loss(nodes, generator)
+        loss.backward()
+        if self.grad_clip_norm > 0:
+            clip_by_global_norm_(self.model.parameters(), self.grad_clip_norm)
+        state.optimizer.step()
+        return state._replace(step=state.step + 1), loss.detach()
+
+    def _eval_step(self, graph: DeviceGraph, nodes: torch.Tensor):
+        logits = self._forward(graph, nodes, False)
+        return accuracy(logits, graph.node_labels[nodes.long()])
+
+    def evaluate(self, nodes, batch_size: int) -> float:
+        """Accuracy over ``nodes`` in batches (the last one padded by
+        wrapping, as the reference does); one host sync at the end."""
+        g = self.eval_graph if self.eval_graph is not None else self.graph
+        it = AnchorBatchIterator(np.asarray(nodes), batch_size,
+                                 drop_remainder=False)
+        with torch.inference_mode():
+            parts = [self._eval_step(g, self._ids(b)) for b in it.epoch(0)]
+            if not parts:
+                return 0.0
+            correct, total = (torch.stack(p).sum().cpu()
+                              for p in zip(*parts))
+        return float(correct) / max(float(total), 1.0)
+
+    def fit(self, state: TrainState, train_nodes, val_nodes, *,
+            batch_size: int, num_epochs: int = 10,
+            early_stop_patience: int = 5, log_every: int = 50
+            ) -> Tuple[TrainState, Dict[str, float]]:
+        """Epochs of shuffled train batches, a val evaluation after each,
+        early stopping on val accuracy; the best weights are loaded back.
+        Returns the best val accuracy."""
+        it = AnchorBatchIterator(np.asarray(train_nodes), batch_size,
+                                 seed=self.cfg.seed)
+        stopper = EarlyStopper(patience=early_stop_patience)
+        generator = torch.Generator(device=self.device).manual_seed(
+            self.cfg.seed)
+        step = 0
+        for epoch in range(num_epochs):
+            for nodes in it.epoch(epoch):
+                state, loss = self.train_step(state, nodes, generator)
+                step += 1
+                if log_every and step % log_every == 0:
+                    logger.info("epoch %d step %d loss %.4f", epoch, step,
+                                float(loss))
+            acc = self.evaluate(val_nodes, batch_size)
+            logger.info("epoch %d val acc %.4f", epoch, acc)
+            snap = {k: v.detach().clone()
+                    for k, v in self.model.state_dict().items()}
+            if stopper.update(acc, snap):
+                break
+        if stopper.best_state is not None:
+            self.model.load_state_dict(stopper.best_state)
+        return state, {"accuracy": stopper.best_value or 0.0}

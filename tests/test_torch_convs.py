@@ -1,6 +1,7 @@
 """Parity of the port's GCN, GIN, GAT, GATv2 and Transformer convs
 (gigl_tpu_torch.models.convs) and masked_softmax with the JAX reference, on
-dense fanout blocks; the forward-only K6 / K7 wrappers; the port's weight
+dense fanout blocks, forward and (GAT, Transformer: K7b's twin) backward;
+what stays forward-only; sampled attention training; the port's weight
 init for the new parameters.
 
 fp32: the same products summed in another order — within 1e-4 of the
@@ -24,14 +25,14 @@ from gigl_tpu.models import convs as ref_convs
 from gigl_tpu.models import encoders as ref_enc
 from gigl_tpu.ops import fanout as ref_fanout
 from gigl_tpu_torch.convert import params_from_flax
-from gigl_tpu_torch.graph.csr import HeteroGraph
+from gigl_tpu_torch.graph.csr import HeteroGraph, build_csr
 from gigl_tpu_torch.models import convs, encoders
 from gigl_tpu_torch.models.init import init_params
 from gigl_tpu_torch.models.link_prediction import (
     LinkPredictionDecoder,
     LinkPredictionGNN,
 )
-from gigl_tpu_torch.ops import attention, ell_aggregate, fanout
+from gigl_tpu_torch.ops import attention, ell, ell_aggregate, fanout
 from gigl_tpu_torch.training.dataset import DeviceGraph
 from gigl_tpu_torch.training.trainer import NALPTrainer, NALPTrainerConfig
 
@@ -199,7 +200,7 @@ def test_ell_aggregate_plain_matches_reference_ops(op):
         want = ref_fanout.masked_sum(feats * w[..., None], jnp.asarray(mask))
     else:
         want = getattr(ref_fanout, f"masked_{op}")(feats, jnp.asarray(mask))
-    got = ell_aggregate.ell_aggregate(
+    got = ell_aggregate._ell_aggregate_fwd(
         torch.from_numpy(x), torch.from_numpy(nbr), torch.from_numpy(mask),
         op, torch.from_numpy(deg[:12]), torch.from_numpy(deg))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
@@ -207,20 +208,32 @@ def test_ell_aggregate_plain_matches_reference_ops(op):
 
 
 def test_kernel_wrappers_backward_raises():
+    """The backward wrappers (K6b, K7b) raise on a mode they do not take and
+    on inputs a mode needs but was not given; the ELL max backward (K6b with
+    tie counts) trains."""
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.normal(size=(10, 8)).astype(np.float32))
     nbr = torch.from_numpy(rng.integers(0, 10, (4, 3)).astype(np.int32))
     mask = torch.ones((4, 3), dtype=torch.bool)
+    src, dst = rng.integers(0, 10, 30), rng.integers(0, 10, 30)
+    tell = ell.EllGraph.from_csr(build_csr(src, dst, num_anchor_nodes=10),
+                                 device="cpu")
+    with pytest.raises(ValueError, match="unknown mode"):
+        ell_aggregate.ell_transpose_aggregate(x, tell, "min")
+    with pytest.raises(ValueError, match="rows2 and table"):
+        ell_aggregate.ell_transpose_aggregate(x, tell, "max")
+    with pytest.raises(ValueError, match="weighted takes wt"):
+        ell_aggregate.ell_transpose_aggregate(x, tell, "weighted")
+    with pytest.raises(ValueError, match="Unknown attention mode"):
+        attention.fanout_attention_bwd(x[:4], x[:4], x, x, nbr, mask, x[:4],
+                                       None, "gatv3", 2)
     xg = x.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="B6 backward"):
-        ell_aggregate.ell_aggregate(xg, nbr, mask, "mean").sum().backward()
-    with pytest.raises(NotImplementedError, match="B8 backward"):
-        attention.fanout_attention(xg[:4], xg, xg, nbr, mask, "transformer",
-                                   2).sum().backward()
+    ell_aggregate.ell_aggregate_graph(xg, tell, "max").sum().backward()
+    assert xg.grad is not None and xg.grad.abs().sum() > 0
 
 
-def test_sampled_gat_train_step_raises():
-    rng = np.random.default_rng(6)
+def _sampled_trainer(conv, seed=6):
+    rng = np.random.default_rng(seed)
     n = 60
     src, dst = rng.integers(0, n, 400), rng.integers(0, n, 400)
     g = DeviceGraph.from_hetero(HeteroGraph.homogeneous(
@@ -228,15 +241,83 @@ def test_sampled_gat_train_step_raises():
         node_features=rng.normal(size=(n, DIN)).astype(np.float32)),
         supervision_edges=np.stack([src, dst]), device="cpu")
     model = LinkPredictionGNN(encoders.GNNEncoder(
-        DIN, 16, OUT, conv="gat", conv_kwargs={"heads": HEADS}),
+        DIN, 16, OUT, conv=conv, conv_kwargs={"heads": HEADS}),
         LinkPredictionDecoder())
     t = NALPTrainer(model, g, NALPTrainerConfig(fanouts=(3, 2),
                                                 num_random_negs=8),
-                    device="cpu")
-    state = t.init_state(0)
-    assert t.encode_batch(np.arange(8)).shape == (8, OUT)
-    with pytest.raises(NotImplementedError, match="B8 backward"):
-        t.train_step(state, rng.integers(0, n, 8))
+                    optimizer_args={"learning_rate": "0.01"}, device="cpu")
+    return t, t.init_state(0), rng
+
+
+def test_sampled_gat_train_step_raises():
+    """A sampled GAT, GATv2 and Transformer step trains through K7b. (The
+    name dates from when the attention backward was not ported and this
+    step raised.)"""
+    for conv in ("gat", "gatv2", "transformer"):
+        t, state, rng = _sampled_trainer(conv)
+        assert t.encode_batch(np.arange(8)).shape == (8, OUT)
+        before = [p.detach().clone() for p in t.model.parameters()]
+        state, loss = t.train_step(state, rng.integers(0, 60, 8))
+        assert state.step == 1 and torch.isfinite(loss)
+        assert all(not torch.equal(a, p.detach())
+                   for a, p in zip(before, t.model.parameters())), conv
+
+
+BLOCK_GRAD_CASES = [("gat", {"heads": HEADS}, "float32"),
+                    ("gat", {"heads": HEADS, "concat_heads": False},
+                     "float32"),
+                    ("gat", {"heads": 4}, "float32"),
+                    ("gat", {"heads": HEADS, "v2": True}, "float32"),
+                    ("gat", {"heads": HEADS, "v2": True}, "bfloat16"),
+                    ("transformer", {"heads": HEADS}, "float32"),
+                    ("gat", {"heads": HEADS}, "bfloat16"),
+                    ("transformer", {"heads": HEADS}, "bfloat16")]
+
+
+@pytest.mark.parametrize("conv,kw,dtype", BLOCK_GRAD_CASES)
+def test_attention_block_backward_matches_jax(conv, kw, dtype):
+    """K7b's twin (identity layout) through the dense block: the gradients
+    of x_dst, the neighbor block and every parameter against jax.vjp of
+    GATConv.block (v1, v2) / TransformerConv.block, with rows of no valid
+    slot.
+    fp32 within 1e-5 of each gradient's scale; bf16 within 2e-2. The
+    Transformer's key bias has a zero gradient by symmetry (it shifts every
+    slot's logit alike): in bf16 both sides hold rounding noise of up to
+    ~0.1 of the largest gradient, so it is held to 1/4 of that there."""
+    jdt, tdt = DTYPES[dtype]
+    jconv, params, port = _pair(conv, kw, dtype)
+    x, nbr, mask, *_ = _block(7)
+    g = np.random.default_rng(8).normal(size=(B, OUT)).astype(np.float32)
+
+    def f(p, xd, nb):
+        return jconv.apply(p, xd, nb, jnp.asarray(mask))
+
+    want_out, vjp = jax.vjp(f, params, jnp.asarray(x).astype(jdt),
+                            jnp.asarray(nbr).astype(jdt))
+    wp, wx, wn = vjp(jnp.asarray(g).astype(want_out.dtype))
+    xt = torch.from_numpy(x).to(tdt).requires_grad_()
+    nt = torch.from_numpy(nbr).to(tdt).requires_grad_()
+    out = port.block(xt, nt, torch.from_numpy(mask))
+    _close(out, want_out, dtype)
+    out.backward(torch.from_numpy(g).to(tdt))
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    want = {"x_dst": wx, "nbr": wn,
+            **{k[len("convs.0."):]: v for k, v in params_from_flax(
+                {"conv_0": _np(wp["params"])}).items()}}
+    got = {"x_dst": xt.grad, "nbr": nt.grad,
+           **{k: p.grad for k, p in port.named_parameters()}}
+    assert set(got) == set(want)
+    floor = 1e-2 * max(float(np.abs(np.asarray(
+        jnp.asarray(w).astype(jnp.float32))).max()) for w in want.values())
+    for name, w in want.items():
+        w = np.asarray(jnp.asarray(w).astype(jnp.float32))
+        assert got[name] is not None, name
+        atol = tol * max(np.abs(w).max(), floor)
+        if name == "lin_k.bias" and dtype == "bfloat16":
+            atol = 0.25 * floor / 1e-2
+        np.testing.assert_allclose(got[name].float().numpy(), w, rtol=0,
+                                   atol=atol, err_msg=name)
+    assert not nt.grad[~torch.from_numpy(mask)].any()   # masked slots: 0
 
 
 def test_init_params_covers_attention_and_eps():

@@ -20,7 +20,14 @@ in bf16 (each element rounded once from nearly equal fp32 values). K6
 ell_aggregate and K7 fanout_attention (one row of width 4, all-masked rows,
 a hub row of degree 5,000 in a width-8192 bucket, rows that are not 16-byte
 multiples): fp32 rtol/atol 1e-5 of the output scale (sums and exps in
-another order), bf16 within 2e-2 of the output scale.
+another order), bf16 within 2e-2 of the output scale. K6b
+ell_transpose_aggregate (every mode) and K7b fanout_attention_bwd (GAT,
+GATv2 and Transformer, the ELL and the dense-block layout) against their twins on
+graphs with a 5,000-out-degree hub (a width-8192 transpose bucket),
+sources without out-edges, one-row and all-masked buckets, rows that are
+not 16-byte multiples, head dim 4: the same tolerances. Then encode_ell's
+gradients on the card against the CPU's (ROADMAP C3), and full-batch and
+sampled node-classification steps on the card against the CPU.
 """
 
 import numpy as np
@@ -37,13 +44,18 @@ from gigl_tpu_torch.models.link_prediction import (
 )
 from gigl_tpu_torch.ops import _build
 from gigl_tpu_torch.ops.attention import (
+    _fanout_attention_bwd_plain,
+    _fanout_attention_fwd,
     _fanout_attention_plain,
-    fanout_attention,
+    fanout_attention_bwd,
 )
 from gigl_tpu_torch.ops.ell import EllGraph
 from gigl_tpu_torch.ops.ell_aggregate import (
+    _ell_aggregate_fwd,
     _ell_aggregate_plain,
-    ell_aggregate,
+    _ell_transpose_plain,
+    ell_aggregate_graph,
+    ell_transpose_aggregate,
 )
 from gigl_tpu_torch.ops.fanout import (
     _masked_reduce_bwd_plain,
@@ -76,7 +88,16 @@ from gigl_tpu_torch.sampling.neighbor_sampler import (
     uniform_ids,
 )
 from gigl_tpu_torch.training.dataset import DeviceGraph
-from gigl_tpu_torch.training.trainer import NALPTrainer, NALPTrainerConfig
+from gigl_tpu_torch.training.full_batch import (
+    FullBatchTrainer,
+    full_batch_data_from_graph,
+)
+from gigl_tpu_torch.training.trainer import (
+    NALPTrainer,
+    NALPTrainerConfig,
+    NodeClassificationTrainer,
+    NodeClassificationTrainerConfig,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -325,8 +346,8 @@ def _ell_inputs(dev, n, w, m, d, dtype, seed=0):
     return x, nbr, mask, deg
 
 
-def _within(got, want, dtype):
-    scale = max(float(want.float().abs().max()), 1e-30)
+def _within(got, want, dtype, floor=1e-30):
+    scale = max(float(want.float().abs().max()), floor)
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     err = float((got.float() - want.float()).abs().max())
     assert err <= tol * scale, (err, scale)
@@ -340,7 +361,7 @@ def _within(got, want, dtype):
 def test_ell_aggregate_matches_plain(dev, dtype, op, n, w, m, d):
     x, nbr, mask, deg = _ell_inputs(dev, n, w, m, d, dtype)
     before = _build.launches["ell_aggregate"]
-    got = ell_aggregate(x, nbr, mask, op, deg[:n].contiguous(), deg)
+    got = _ell_aggregate_fwd(x, nbr, mask, op, deg[:n].contiguous(), deg)
     torch.cuda.synchronize()
     assert _build.launches["ell_aggregate"] == before + 1
     want = _ell_aggregate_plain(x, nbr, mask, op, deg[:n], deg)
@@ -366,11 +387,12 @@ def test_fanout_attention_matches_plain(dev, dtype, mode, n, w, m, heads,
                  for _ in range(2))
     atts = {"gat": (att, att2), "gatv2": (att, None),
             "transformer": (None, None)}[mode]
+    flat = [None if a is None else a.reshape(-1) for a in atts]
     before = _build.launches["fanout_attention"]
-    got = fanout_attention(xd, ks, vs, nbr, mask, mode, heads, *atts)
+    got = _fanout_attention_fwd(xd, ks, vs, nbr, mask, mode, heads, *flat,
+                                0.2)
     torch.cuda.synchronize()
     assert _build.launches["fanout_attention"] == before + 1
-    flat = [None if a is None else a.reshape(-1) for a in atts]
     want = _fanout_attention_plain(xd, ks, vs, nbr, mask, mode, heads, *flat)
     assert got.dtype == dtype and got.shape == (n, hd)
     if n > 2:
@@ -471,3 +493,232 @@ def test_two_train_steps_on_card_match_cpu(dev):
                                atol=0)
     for k, v in out["cpu"][1].items():
         torch.testing.assert_close(out["cuda"][1][k], v, rtol=1e-4, atol=1e-5)
+
+
+def _hub_graph(n, seed=0, hub_out=5000):
+    """A directed graph on n nodes: random edges, nodes 0..2 without
+    out-edges (node 1 isolated), node 3 an out-hub of degree ``hub_out``
+    (a transpose bucket of width 8192 at 5000)."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(4, n, 6 * n)
+    dst = rng.integers(0, n, 6 * n)
+    keep = dst != 1
+    hub = rng.choice(np.arange(n)[np.arange(n) != 1], min(hub_out, n - 1),
+                     replace=False)
+    return (np.concatenate([src[keep], np.full(len(hub), 3)]),
+            np.concatenate([dst[keep], hub]))
+
+
+def _ell(dev, n, seed=0, hub_out=5000):
+    src, dst = _hub_graph(n, seed, hub_out)
+    return EllGraph.from_csr(build_csr(src, dst, num_anchor_nodes=n), device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["mean", "sum", "max", "gcn", "weighted",
+                                "weighted_vec", "gatv2"])
+@pytest.mark.parametrize("n,d,heads", [(6000, 128, 4), (6000, 12, 3),
+                                       (700, 16, 4), (700, 256, 4)])
+def test_ell_transpose_matches_plain(dev, dtype, op, n, d, heads):
+    ell = _ell(dev, n, hub_out=5000 if n > 5000 else 400)
+    assert max(ell.t_widths) >= (8192 if n > 5000 else 512)
+    g = torch.Generator(device=dev).manual_seed(4)
+    rows = torch.randn((n, d), generator=g, device=dev).to(dtype)
+    p = ell.ent_row.shape[0]
+    wt = wt2 = vec = rows2 = table = None
+    if op in ("weighted", "weighted_vec", "gatv2"):
+        wt = torch.randn((p, heads), generator=g, device=dev)
+        if op != "weighted":
+            wt2 = torch.randn((p, heads), generator=g, device=dev)
+            vec = torch.randn(d, generator=g, device=dev)
+        if op == "gatv2":
+            rows2, table = (torch.randn((n, d), generator=g, device=dev)
+                            .to(dtype) for _ in range(2))
+    if op == "max":     # a coarse grid, so the max has ties; K6's max
+        table = (torch.randn((n, d), generator=g, device=dev) * 2).round()
+        table = table.to(dtype)
+        rows2 = ell_aggregate_graph(table, ell, "max")
+    mode = mode_of(op)
+    before = _build.launches["ell_transpose_aggregate"]
+    got = ell_transpose_aggregate(rows, ell, mode, wt, wt2, vec, heads,
+                                  rows2=rows2, table=table)
+    torch.cuda.synchronize()
+    nonempty = sum(hi > lo for lo, hi in zip(ell.t_boundaries,
+                                             ell.t_boundaries[1:]))
+    if op == "max":     # the tie counts: one launch per forward bucket
+        nonempty += sum(hi > lo for lo, hi in zip(ell.boundaries,
+                                                  ell.boundaries[1:]))
+    assert _build.launches["ell_transpose_aggregate"] == before + nonempty
+    want = _ell_transpose_plain(rows, ell, mode, wt, wt2, vec, heads, rows2,
+                                table)
+    assert got.dtype == dtype and got.shape == (n, d)
+    sinks = ell.rank[:3].long()               # no out-edges: exactly 0
+    assert not got[sinks].any()
+    _within(got, want, dtype)
+
+
+def mode_of(op):
+    """K6b's mode for a test case name."""
+    return "weighted" if op.startswith("weighted") else op
+
+
+def _attention_case(dev, dtype, mode, n, w, m, heads, dh, identity):
+    _, nbr, mask, _ = _ell_inputs(dev, n, w, m, 8, dtype)
+    if identity:
+        nbr = torch.arange(n * w, dtype=torch.int32,
+                           device=dev).reshape(n, w)
+        m = n * w
+    g = torch.Generator(device=dev).manual_seed(2)
+    hd = heads * dh
+    xd, ks, vs, gout = (torch.randn(s, generator=g, device=dev).to(dtype)
+                        for s in ((n, hd), (m, hd), (m, hd), (n, hd)))
+    if mode != "transformer":
+        vs = ks
+    att, att2 = (torch.randn(hd, generator=g, device=dev) * 0.3
+                 for _ in range(2))
+    att, att2 = {"gat": (att, att2), "gatv2": (att, None),
+                 "transformer": (None, None)}[mode]
+    stats = torch.empty((n, heads, 2), dtype=torch.float32, device=dev)
+    out = _fanout_attention_fwd(xd, ks, vs, nbr, mask, mode, heads, att,
+                                att2, 0.2, stats=stats)
+    return xd, ks, vs, nbr, mask, gout, att, att2, out, stats
+
+
+ATTENTION_BWD_SHAPES = [
+    (identity, *shape)
+    for identity in (False, True)
+    for shape in ((1, 4, 50, 4, 64), (300, 32, 1000, 4, 64),
+                  (300, 32, 1000, 4, 4), (5, 8192, 6000, 4, 16),
+                  (20, 16, 90, 3, 5))
+    if not identity or shape[1] <= 64]     # a dense block is a fanout wide
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["gat", "gatv2", "transformer"])
+@pytest.mark.parametrize("identity,n,w,m,heads,dh", ATTENTION_BWD_SHAPES)
+def test_fanout_attention_bwd_matches_plain(dev, dtype, mode, identity, n,
+                                            w, m, heads, dh):
+    xd, ks, vs, nbr, mask, gout, att, att2, out, stats = _attention_case(
+        dev, dtype, mode, n, w, m, heads, dh, identity)
+    same = mode != "transformer"
+    before = _build.launches["fanout_attention_bwd"]
+    got = fanout_attention_bwd(gout, xd, ks, vs, nbr, mask, out, stats, mode,
+                               heads, att, att2, 0.2, identity=identity,
+                               same_table=same)
+    torch.cuda.synchronize()
+    assert _build.launches["fanout_attention_bwd"] == before + 1
+    want = _fanout_attention_bwd_plain(gout, xd, ks, vs, nbr, mask, out,
+                                       mode, heads, att, att2, 0.2, identity,
+                                       same)
+    assert got.d_xd.dtype == dtype
+    if n > 2:
+        assert not got.d_xd[1].any()          # an all-masked row
+    for name in ("d_xd", "alpha", "coef", "d_ks", "d_vs", "d_att"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert a.shape == b.shape, name
+            # floored at 1, the size of the unit-normal inputs: a row with
+            # one valid slot has d_logit = g·v - g·out = 0 exactly, which
+            # the kernel's and the twin's sums leave at a few fp32 ulps
+            _within(a, b, dtype, floor=1.0)
+    if not identity:
+        valid = mask.reshape(-1)
+        assert not got.alpha[~valid].any() and not got.coef[~valid].any()
+
+
+def _small_graph(seed=5):
+    rng = np.random.default_rng(seed)
+    src, dst = rng.integers(0, N, E), rng.integers(0, N, E)
+    src = np.concatenate([src, np.full(300, 9)])           # an out-hub
+    dst = np.concatenate([dst, rng.integers(0, N, 300)])
+    keep = ~np.isin(src, (1, 2))                           # no out-edges
+    return (src[keep], dst[keep], rng.normal(size=(N, 16)).astype(np.float32),
+            rng.integers(0, 6, N))
+
+
+def test_encode_ell_gradients_on_card_match_cpu(dev):
+    """ROADMAP C3: encode_ell on the card has a grad_fn and gives the CPU's
+    parameter gradients (fp32), through K3 both ways, K6 / K6b or K7 / K7b
+    / K6b; layer 1 of SAGE launches no K6b (its input needs no gradient)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    src, dst, x, _ = _small_graph()
+    csr = build_csr(src, dst, num_anchor_nodes=N)
+    for conv, kw in (("graphsage", None), ("graphsage", {"aggr": "max"}),
+                     ("gcn", None), ("gin", None), ("gat", {"heads": 4}),
+                     ("gatv2", {"heads": 4}), ("transformer", {"heads": 4})):
+        grads = {}
+        for device in (dev, torch.device("cpu")):
+            enc = GNNEncoder(16, 32, 8, conv=conv, conv_kwargs=kw)
+            init_params(enc, 0)
+            enc.to(device)
+            ell = EllGraph.from_csr(csr, device=device)
+            w = torch.from_numpy(np.random.default_rng(2).normal(
+                size=(N, 8)).astype(np.float32)).to(device)
+            _build.reset_launches()
+            out = enc.encode_ell(torch.from_numpy(x).to(device), ell)
+            assert out.grad_fn is not None, device
+            (out * w).sum().backward()
+            grads[device.type] = {k: p.grad.cpu()
+                                  for k, p in enc.named_parameters()}
+            if device.type == "cuda":
+                nonempty = sum(hi > lo for lo, hi in zip(
+                    ell.t_boundaries, ell.t_boundaries[1:]))
+                if kw == {"aggr": "max"}:   # + tie counts per bucket
+                    nonempty += sum(hi > lo for lo, hi in zip(
+                        ell.boundaries, ell.boundaries[1:]))
+                if conv in ("gat", "gatv2", "transformer"):
+                    assert _build.launches["fanout_attention_bwd"] > 0
+                else:      # once, for layer 2 only
+                    assert _build.launches["ell_transpose_aggregate"] == \
+                        nonempty, _build.launches
+                assert _build.launches["gather_rows"] == 3  # 2 fwd + 1 bwd
+        # a gradient that is 0 by symmetry (the Transformer's key bias) is
+        # held to 1e-4 of 1e-2 of the model's largest gradient
+        floor = 1e-2 * max(float(v.abs().max())
+                           for v in grads["cpu"].values())
+        for k, v in grads["cpu"].items():
+            err = float((grads["cuda"][k] - v).abs().max())
+            scale = max(float(v.abs().max()), floor)
+            assert err <= 1e-4 * scale, (conv, k, err, scale)
+
+
+def test_node_classification_steps_on_card_match_cpu(dev):
+    """Three fp32 full-batch steps (SAGE, GAT) and three sampled NC steps
+    (SAGE, GAT) on the card against the same steps on the CPU."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    src, dst, x, labels = _small_graph(6)
+    graph = HeteroGraph.homogeneous(src=src, dst=dst, num_nodes=N,
+                                    node_features=x, node_labels=labels)
+    nodes = np.random.default_rng(1).integers(0, N, (3, 64))
+    for conv, kw in (("graphsage", None), ("gat", {"heads": 4})):
+        out = {}
+        for device in (dev, torch.device("cpu")):
+            data = full_batch_data_from_graph(graph, device=device)
+            t = FullBatchTrainer(GNNEncoder(16, 32, 8, conv=conv,
+                                            conv_kwargs=kw), data,
+                                 optimizer_args={"learning_rate": "0.01"},
+                                 device=device)
+            st = t.init_state(0)
+            fb_losses = []
+            for _ in range(3):
+                st, loss = t.train_step(st)
+                fb_losses.append(float(loss))
+            nc = NodeClassificationTrainer(
+                GNNEncoder(16, 32, 8, conv=conv, conv_kwargs=kw),
+                DeviceGraph.from_hetero(graph, device=device),
+                NodeClassificationTrainerConfig(fanouts=(5, 3)),
+                optimizer_args={"learning_rate": "0.01"}, device=device)
+            st = nc.init_state(0)
+            nc_losses = []
+            for k in range(3):
+                st, loss = nc.train_step(st, nodes[k])
+                nc_losses.append(float(loss))
+            out[device.type] = (fb_losses, nc_losses,
+                                {k: v.cpu() for k, v in
+                                 nc.model.state_dict().items()})
+        np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+        np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4)
+        for k, v in out["cpu"][2].items():
+            torch.testing.assert_close(out["cuda"][2][k], v, rtol=1e-4,
+                                       atol=1e-5)
