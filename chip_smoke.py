@@ -55,7 +55,24 @@
    lr 0.005, batch 256, four batches of labeled nodes cycled; GraphSAGE at
    fanouts (15, 10)); prints ms/step, edges/s or seeds/s, the profiler's
    device time, busy share and top ops, peak memory, first and last loss;
-9. prints one JSON line with every kernel's numbers, then the card line,
+9. heterogeneous inference (a typed graph of the DBLP configuration's shape,
+   examples/configs/dblp_hetero_nalp_task_config.yaml, at the flagship's
+   scale: 100k papers, 50k authors, 400k author-writes-paper edges and
+   their reverse, 1M paper-cites-paper edges, fp32 features 128 wide, numpy
+   seed 0): times the SegmentIndex builds on the host; holds K8
+   segment_reduce (sum, mean, max, and the per-head weighted sum of HGT),
+   K9 segment_softmax and K10 sddmm against their plain versions at the
+   papers' 1.4M in-edges, H*dk = 128, with bounds and library yardsticks;
+   then runs run_full_graph_inference_hetero for the configuration's HGT
+   (4 heads, hidden 128, out 64, 2 layers, final linear, fp32) and for
+   RGCN with 2 bases at the same widths, and the sampled typed HGT path
+   (HeteroNALPTrainer.encode_batch over node_batches of 512, every node of
+   both types, live and tabularized, with the yaml's message-passing
+   paths), each with the launch counts reset just before and read just
+   after, the export checked and the pass (sampled: batch 0 of each type)
+   recomputed through the plain versions; prints encode ms, nodes/s,
+   device ms, busy share and peak memory;
+10. prints one JSON line with every kernel's numbers, then the card line,
    then {"ok": true, ...} as the last line.
 
 Any failed check raises; nothing is printed as a result without a card.
@@ -106,6 +123,25 @@ NC_KERNELS = {
                   "masked_reduce_bwd"),
     "gat": ("sample_uniform", "gather_rows", "fanout_attention",
             "fanout_attention_bwd")}
+# the typed graph and model (examples/configs/dblp_hetero_nalp_task_config
+# .yaml: author / paper, three edge types, HGT, 4 heads, hidden 128, out 64,
+# 2 layers; the scale of bench.py:593-615)
+HET_AUTHORS, HET_PAPERS = 50_000, 100_000
+HET_WRITES, HET_CITES = 400_000, 1_000_000
+HET_HID, HET_OUT, HET_HEADS, HET_BASES = 128, 64, 4, 2
+WRITES, REV_WRITES, CITES = ("author-writes-paper", "paper-rev_writes-author",
+                             "paper-cites-paper")
+# the yaml's message_passing_paths: (op, edge type, fanout, parent op)
+DBLP_PATHS = {
+    "paper": (("authors", WRITES, 10, None), ("cited", CITES, 10, None),
+              ("coauthored", REV_WRITES, 5, "authors"),
+              ("cited_authors", WRITES, 5, "cited")),
+    "author": (("papers", REV_WRITES, 10, None),
+               ("paper_authors", WRITES, 5, "papers"))}
+TYPED_FULL_KERNELS = {"hgt": ("sddmm", "segment_softmax", "segment_reduce"),
+                      "rgcn": ("segment_reduce",)}
+TYPED_SAMPLED_KERNELS = ("sample_uniform", "gather_rows", "fanout_attention")
+TYPED_PROFILED = 3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 # ReLU gates the plain step may see on the other side of 0 (fp32 rounding)
@@ -210,12 +246,14 @@ def profile_summary(prof, steps, window_us, host_ms_per_step):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Every kernel wrapper of the node-classification paths replaced by
-    its plain PyTorch twin, on whatever device the tensors are: the same
-    step computed without a kernel, on the card."""
-    from gigl_tpu_torch.ops import attention, ell_aggregate, fanout, gather
+    """Every kernel wrapper of the training, full-graph and typed paths
+    replaced by its plain PyTorch twin, on whatever device the tensors are:
+    the same step or pass computed without a kernel, on the card."""
+    from gigl_tpu_torch.models import hetero_convs
+    from gigl_tpu_torch.ops import (
+        attention, ell_aggregate, fanout, gather, segment)
     from gigl_tpu_torch.sampling import neighbor_sampler
-    from gigl_tpu_torch.training import dataset
+    from gigl_tpu_torch.training import dataset, hetero_dataset
 
     def agg_fwd(x, nbr, mask, op, deg_dst=None, deg_tab=None, out=None):
         got = ell_aggregate._ell_aggregate_plain(x, nbr, mask, op, deg_dst,
@@ -244,6 +282,16 @@ def plain_kernels():
     def rows(table, ids, row_vals=None):
         return gather._gather_rows_plain(table, ids, row_vals)
 
+    def seg_reduce(x, ids, n, *, op="sum", src=None, weight=None,
+                   index=None):
+        return segment._segment_reduce_plain(x, ids, n, op, src, weight)
+
+    def seg_softmax(logits, ids, n, *, index=None):
+        return segment._segment_softmax_plain(logits, ids, n)
+
+    def dot(src, dst, q, k, *, scale=None):
+        return segment._sddmm_plain(src, dst, q, k, scale)
+
     patches = [
         (ell_aggregate, "_ell_aggregate_fwd", agg_fwd),
         (ell_aggregate, "ell_transpose_aggregate", transpose),
@@ -254,7 +302,12 @@ def plain_kernels():
         (fanout, "_masked_reduce_fwd", fanout._masked_reduce_plain),
         (fanout, "masked_reduce_bwd", fanout._masked_reduce_bwd_plain),
         (neighbor_sampler, "sample_uniform",
-         neighbor_sampler._sample_uniform_plain)]
+         neighbor_sampler._sample_uniform_plain),
+        (segment, "segment_reduce", seg_reduce),
+        (hetero_convs, "segment_softmax", seg_softmax),
+        (hetero_convs, "sddmm", dot),
+        (hetero_dataset, "gather_rows", rows),
+        (hetero_dataset, "expand_table", gather._expand_table_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
     for m, n, f in patches:
         setattr(m, n, f)
@@ -328,6 +381,371 @@ def step_vs_plain(model, loss_fn, launches):
             "relu_gates": n_gates,
             "relu_gates_flipped_in_plain_forward": sum(flips),
             "flipped_preactivation_rel_to_scale": max(near, default=0.0)}
+
+
+class Sink:
+    """An exporter that keeps the rows it is given."""
+
+    def __init__(self):
+        self.ids, self.embs = [], []
+
+    def add_embeddings(self, ids, emb):
+        self.ids.append(np.asarray(ids))
+        self.embs.append(emb)
+
+    def flush(self):
+        pass
+
+    def table(self, n, width, what):
+        """The exported rows in id order, checked: every id in [0, n)
+        exactly once, [n, width], finite."""
+        ids = np.concatenate(self.ids)
+        embs = np.concatenate(self.embs)
+        check(np.array_equal(np.sort(ids), np.arange(n)),
+              f"{what}: exported ids are not every node exactly once")
+        check(embs.shape == (n, width) and np.isfinite(embs).all(),
+              f"{what}: embeddings are not finite [{n}, {width}]")
+        return embs[np.argsort(ids)]
+
+
+def typed_phases(dev, card, record, rel_err, unique):
+    """Phase 9 (see the module docstring): the typed graph, the segment
+    kernels K8-K10, the exact typed passes (HGT, RGCN) and the sampled
+    typed HGT path (live, tabularized). Returns {path: launch counts}."""
+    from gigl_tpu_torch.graph.csr import HeteroGraph
+    from gigl_tpu_torch.inference.inferencer import (
+        InferenceConfig, node_batches, run_full_graph_inference_hetero)
+    from gigl_tpu_torch.models.hetero_convs import TypedSegments
+    from gigl_tpu_torch.models.hetero_encoders import HeteroGNNEncoder
+    from gigl_tpu_torch.models.init import init_params
+    from gigl_tpu_torch.models.link_prediction import (
+        HeteroLinkPredictionGNN, LinkPredictionDecoder)
+    from gigl_tpu_torch.ops import _build
+    from gigl_tpu_torch.ops.segment import (
+        _sddmm_plain, _segment_reduce_plain, _segment_softmax_plain, sddmm,
+        segment_reduce, segment_softmax)
+    from gigl_tpu_torch.sampling.hetero_sampler import (
+        SamplingOp, resolve_path)
+    from gigl_tpu_torch.training.hetero_dataset import HeteroDeviceGraph
+    from gigl_tpu_torch.training.hetero_trainer import (
+        HeteroNALPTrainer, HeteroNALPTrainerConfig)
+    from gigl_tpu_torch.types.graph import EdgeType, GraphMetadata
+
+    # -- the typed graph (numpy seed 0) ---------------------------------------
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    num_nodes = {"author": HET_AUTHORS, "paper": HET_PAPERS}
+    w_src = rng.integers(0, HET_AUTHORS, HET_WRITES)
+    w_dst = rng.integers(0, HET_PAPERS, HET_WRITES)
+    c_src = rng.integers(0, HET_PAPERS, HET_CITES)
+    c_dst = rng.integers(0, HET_PAPERS, HET_CITES)
+    feats = {nt: rng.normal(size=(n, D)).astype(np.float32)
+             for nt, n in num_nodes.items()}
+    edge_types = (WRITES, REV_WRITES, CITES)
+    graph = HeteroGraph(
+        metadata=GraphMetadata(("author", "paper"), edge_types),
+        num_nodes=num_nodes,
+        edges={EdgeType.from_str(WRITES): np.stack([w_src, w_dst]),
+               EdgeType.from_str(REV_WRITES): np.stack([w_dst, w_src]),
+               EdgeType.from_str(CITES): np.stack([c_src, c_dst])},
+        node_features=feats)
+    n_nodes = HET_AUTHORS + HET_PAPERS
+    n_edges = 2 * HET_WRITES + HET_CITES
+    emit({"phase": "typed_graph", "seconds": time.perf_counter() - t0,
+          "nodes": num_nodes, "edges": n_edges,
+          "device_bytes": sum(f.nbytes for f in feats.values())
+          + n_edges * 2 * 4})
+    edges_np = {str(et): (coo[0], coo[1]) for et, coo in graph.edges.items()}
+    seg_s = {}
+    for by in ("dst", "relation"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        built = TypedSegments.build(edges_np, num_nodes, by, dev)
+        torch.cuda.synchronize()
+        seg_s[by] = time.perf_counter() - t0
+        if by == "dst":
+            seg_dst = built
+    emit({"phase": "segment_index", "build_s": seg_s,
+          "in_edges": {nt: i.num_edges for nt, i in seg_dst.index.items()}})
+
+    # -- K8, K9, K10 at the papers' 1.4M in-edges, H*dk = 128, fp32 -----------
+    idx = seg_dst.index["paper"]
+    src_p, dst_p = seg_dst.src_stack["paper"], seg_dst.dst_ids["paper"]
+    e_p, h, dk = idx.num_edges, HET_HEADS, HET_HID // HET_HEADS
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn((HET_PAPERS, h, dk), generator=gen, device=dev)
+    kr, msg = (torch.randn((n_nodes, h, dk), generator=gen, device=dev)
+               for _ in range(2))
+    scale = torch.full((h,), dk ** -0.5, device=dev)
+    u_src, u_dst = unique(src_p), unique(dst_p)
+    order = idx.order.long()
+
+    def k10():
+        return sddmm(src_p, dst_p, q, kr, scale=scale)
+
+    def k10_plain():
+        return _sddmm_plain(src_p, dst_p, q, kr, scale)
+
+    logits = k10()
+    err10 = rel_err(logits, k10_plain(), "K10 sddmm", tol=1e-5)
+    mask_csr = torch.sparse_csr_tensor(
+        idx.ptr.long().expand(h, -1).contiguous(),
+        src_p.long()[order].expand(h, -1).contiguous(),
+        torch.zeros((h, e_p), device=dev), (h, HET_PAPERS, n_nodes))
+    q_h = q.transpose(0, 1).contiguous()
+    k_h = kr.permute(1, 2, 0).contiguous()
+
+    def k10_library():
+        return torch.sparse.sampled_addmm(mask_csr, q_h, k_h, beta=0.0)
+
+    try:    # a yardstick only: cuSPARSE may refuse the batched shape
+        lib10 = k10_library()
+        rel_err(lib10.values() * dk ** -0.5, logits[order].T,
+                "sampled_addmm yardstick vs K10", tol=1e-5)
+        lib10_ms, lib10_note = cuda_ms(k10_library), None
+    except RuntimeError as exc:
+        lib10_ms, lib10_note = None, f"sampled_addmm failed: {exc}"[:200]
+    # bytes: each distinct q and k row read once, src and dst, the scores
+    # written; ops: a multiply-add per value
+    record("sddmm", "gigl_tpu_torch/csrc/sddmm.cu",
+           "gigl_tpu/ops/segment.py:90", err10, cuda_ms(k10),
+           cuda_ms(k10_plain, reps=3),
+           nbytes=(u_src + u_dst) * HET_HID * 4 + e_p * 8 + e_p * h * 4,
+           nops=e_p * HET_HID * 2, library_ms=lib10_ms,
+           library_call=lib10_note or "torch.sparse.sampled_addmm, batched "
+           "over heads (CSR of the in-edges, built beforehand, not timed; "
+           "the per-head scale not applied)",
+           edges=e_p, heads=h, head_dim=dk, eager_ms=eager_ms(k10))
+    del mask_csr, q_h, k_h
+
+    def k9():
+        return segment_softmax(logits, dst_p, HET_PAPERS, index=idx)
+
+    def k9_plain():
+        return _segment_softmax_plain(logits, dst_p, HET_PAPERS)
+
+    alpha = k9()
+    err9 = rel_err(alpha, k9_plain(), "K9 segment_softmax", tol=1e-5)
+    dst_l = dst_p.long()
+    ex = torch.exp(logits)
+    idx_h = dst_l[:, None].expand(e_p, h)
+
+    def k9_library():
+        m_ = torch.full((HET_PAPERS, h), float("-inf"), device=dev)
+        m_.scatter_reduce_(0, idx_h, logits, "amax")
+        return torch.zeros((HET_PAPERS, h), device=dev).index_add_(0, dst_l,
+                                                                    ex)
+
+    # bytes: the logits and the index read once, alpha written; ops: max,
+    # subtract, exp, add and divide per (edge, head)
+    record("segment_softmax", "gigl_tpu_torch/csrc/segment_softmax.cu",
+           "gigl_tpu/ops/segment.py:51", err9, cuda_ms(k9),
+           cuda_ms(k9_plain, reps=3),
+           nbytes=e_p * h * 4 * 2 + e_p * 4 + (HET_PAPERS + 1) * 4,
+           nops=e_p * h * 5, library_ms=cuda_ms(k9_library),
+           library_call="scatter_reduce_(amax) + index_add_ of the exps "
+           "(the shift, exp and division between them not timed)",
+           edges=e_p, heads=h, eager_ms=eager_ms(k9))
+    del ex, idx_h
+
+    k8 = {}
+    for mode, op, w in (("weighted", "sum", alpha), ("sum", "sum", None),
+                        ("mean", "mean", None), ("max", "max", None)):
+        def k8_kernel(op=op, w=w):
+            return segment_reduce(msg, dst_p, HET_PAPERS, op=op, src=src_p,
+                                  weight=w, index=idx)
+
+        def k8_plain(op=op, w=w):
+            return _segment_reduce_plain(msg, dst_p, HET_PAPERS, op, src_p, w)
+
+        err = rel_err(k8_kernel(), k8_plain(), f"K8 {mode}", tol=1e-5)
+        # bytes: each distinct source row read once, the index, the gather
+        # ids (and the [E, H] weights), [S, C] written; ops: an add (and a
+        # multiply) per edge and value
+        nbytes = (u_src * HET_HID * 4 + e_p * 8 + (HET_PAPERS + 1) * 4
+                  + HET_PAPERS * HET_HID * 4 + (e_p * h * 4 if w is not None
+                                                else 0))
+        nops = e_p * HET_HID * (2 if w is not None else 1)
+        k8[mode] = {"err": err, "ms": cuda_ms(k8_kernel),
+                    "plain_ms": cuda_ms(k8_plain, reps=3),
+                    "eager_ms": eager_ms(k8_kernel),
+                    "bound_ms": bound_ms(nbytes, nops)[0],
+                    "nbytes": nbytes, "nops": nops}
+    adj = torch.sparse_csr_tensor(
+        idx.ptr.long(), src_p.long()[order],
+        torch.ones(e_p, device=dev), (HET_PAPERS, n_nodes))
+    msg2 = msg.reshape(n_nodes, HET_HID)
+    rel_err(torch.sparse.mm(adj, msg2), segment_reduce(
+        msg, dst_p, HET_PAPERS, src=src_p, index=idx).reshape(-1, HET_HID),
+        "sparse.mm yardstick vs K8 sum", tol=1e-5)
+    rows_g = msg2[src_p.long()]
+    record("segment_reduce", "gigl_tpu_torch/csrc/segment_reduce.cu",
+           "gigl_tpu/ops/segment.py:64", max(v["err"] for v in k8.values()),
+           k8["weighted"]["ms"], k8["weighted"]["plain_ms"],
+           nbytes=k8["weighted"]["nbytes"], nops=k8["weighted"]["nops"],
+           library_ms=cuda_ms(lambda: torch.sparse.mm(adj, msg2)),
+           library_call="torch.sparse.mm (CSR of the in-edges, fp32) = the "
+           "sum mode; the weighted mode (ms, the HGT pass's) has no "
+           "single-call counterpart",
+           index_add_ms=cuda_ms(lambda: torch.zeros(
+               (HET_PAPERS, HET_HID), device=dev).index_add_(0, dst_l,
+                                                             rows_g)),
+           edges=e_p, width=HET_HID, eager_ms=k8["weighted"]["eager_ms"],
+           modes={m_: {k_: v_ for k_, v_ in v.items()
+                       if k_ not in ("nbytes", "nops")}
+                  for m_, v in k8.items()})
+    del q, kr, msg, msg2, logits, alpha, adj, rows_g
+
+    # -- exact typed inference: HGT and RGCN ----------------------------------
+    def make_encoder(conv):
+        return HeteroGNNEncoder(
+            HET_HID, HET_OUT, ("author", "paper"), edge_types,
+            {"author": D, "paper": D}, conv=conv, heads=HET_HEADS,
+            num_bases=HET_BASES if conv == "rgcn" else 0)
+
+    features = {nt: torch.as_tensor(f, device=dev) for nt, f in feats.items()}
+    edges_dev = {et: tuple(torch.as_tensor(a, device=dev).to(torch.int32)
+                           for a in pair) for et, pair in edges_np.items()}
+    counts = {}
+    for conv in ("hgt", "rgcn"):
+        enc = make_encoder(conv)
+        init_params(enc, 0)
+        sinks = {nt: Sink() for nt in num_nodes}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        run_full_graph_inference_hetero(enc, None, graph, sinks, device=dev)
+        torch.cuda.synchronize()
+        entry_s = time.perf_counter() - t0
+        path = f"typed_full_{conv}"
+        counts[path] = dict(_build.launches)
+        peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+        emit({"phase": "main_path", "path": path, "launches": counts[path],
+              "seconds": entry_s})
+        for k in TYPED_FULL_KERNELS[conv]:
+            check(counts[path][k] > 0, f"{k} was not launched on {path}")
+        got = {nt: sinks[nt].table(n, HET_OUT, path)
+               for nt, n in num_nodes.items()}
+        segs = TypedSegments.build(edges_np, num_nodes,
+                                   enc.convs[0].segments_by, dev)
+        before = dict(_build.launches)
+        with torch.inference_mode():
+            with plain_kernels():
+                want = enc.encode_full(features, edges_dev, num_nodes,
+                                       segments=segs)
+            check(dict(_build.launches) == before,
+                  "the plain typed pass launched a kernel")
+            # fp32: the same sums in another order
+            errs = {nt: rel_err(torch.as_tensor(got[nt]), want[nt].cpu(),
+                                f"{path} {nt} vs its plain pass", tol=1e-5)
+                    for nt in num_nodes}
+            del want
+            enc.encode_full(features, edges_dev, num_nodes, segments=segs)
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                enc.encode_full(features, edges_dev, num_nodes,
+                                segments=segs)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            encode_ms = float(np.median(times)) * 1e3
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(TYPED_PROFILED):
+                    enc.encode_full(features, edges_dev, num_nodes,
+                                    segments=segs)
+                torch.cuda.synchronize()
+                window_us = (time.perf_counter() - t0) * 1e6
+        emit({"phase": "typed_full_graph_throughput", "model": conv,
+              "max_abs_err": errs, "entry_point_s": entry_s,
+              "segment_build_s": seg_s["dst" if conv == "hgt"
+                                       else "relation"],
+              "encode_ms": encode_ms, "encode_ms_runs": [
+                  t_ * 1e3 for t_ in times],
+              "nodes_per_s": n_nodes / (encode_ms / 1e3),
+              "edges_per_pass": 2 * n_edges,
+              "edges_per_s": 2 * n_edges / (encode_ms / 1e3),
+              "peak_mem_gb": peak_gb,
+              "profile": profile_summary(prof, TYPED_PROFILED, window_us,
+                                         encode_ms), "card": card})
+        del enc, sinks, got
+
+    # -- the sampled typed HGT path: encode_batch over every node --------------
+    paths = {nt: resolve_path(nt, [
+        SamplingOp(name, et, k, () if parent is None else (parent,))
+        for name, et, k, parent in ops]) for nt, ops in DBLP_PATHS.items()}
+    dg = HeteroDeviceGraph.from_hetero(graph, paths, device=dev)
+    for tab in (False, True):
+        path = "typed_sampled_" + ("tabularized" if tab else "live")
+        sinks = {nt: Sink() for nt in num_nodes}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        trainer = HeteroNALPTrainer(
+            HeteroLinkPredictionGNN(make_encoder("hgt"),
+                                    LinkPredictionDecoder()), dg, paths,
+            HeteroNALPTrainerConfig("paper", "author", tabularized=tab),
+            device=dev)
+        trainer.init_params(0)
+        n_batches = 0
+        for nt in ("paper", "author"):
+            for ids, valid in node_batches(num_nodes[nt],
+                                           InferenceConfig(batch_size=BATCH)):
+                emb = trainer.encode_batch(ids, nt)
+                sinks[nt].add_embeddings(ids[:valid],
+                                         emb[:valid].float().cpu().numpy())
+                n_batches += 1
+        torch.cuda.synchronize()
+        pass_s = time.perf_counter() - t0
+        counts[path] = dict(_build.launches)
+        peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+        emit({"phase": "main_path", "path": path, "launches": counts[path],
+              "seconds": pass_s, "batches": n_batches})
+        for k in TYPED_SAMPLED_KERNELS:
+            check(counts[path][k] > 0, f"{k} was not launched on {path}")
+        errs = {}
+        before = dict(_build.launches)
+        with torch.inference_mode():
+            for nt, n in num_nodes.items():
+                got = sinks[nt].table(n, HET_OUT, path)
+                ids0 = torch.arange(BATCH, dtype=torch.int32, device=dev)
+                with plain_kernels():
+                    want = trainer._encode_impl(trainer.graph, ids0, nt, 0,
+                                                False)
+                errs[nt] = rel_err(torch.as_tensor(got[:BATCH]), want.cpu(),
+                                   f"{path} {nt} batch 0 vs plain", tol=1e-5)
+            check(dict(_build.launches) == before,
+                  "the plain typed batches launched a kernel")
+            ids_t = torch.arange(BATCH, dtype=torch.int32, device=dev)
+            device_ms = cuda_ms(lambda: trainer._encode_impl(
+                trainer.graph, ids_t, "paper", 0, False), reps=10)
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for b_ in range(20):
+                    trainer.encode_batch(np.arange(
+                        b_ * BATCH, (b_ + 1) * BATCH) % HET_PAPERS, "paper")
+                torch.cuda.synchronize()
+                window_us = (time.perf_counter() - t0) * 1e6
+        ms_batch = pass_s / n_batches * 1e3
+        emit({"phase": "typed_sampled_throughput", "path": path,
+              "max_abs_err_batch0": errs, "seconds": pass_s,
+              "nodes_per_s": n_nodes / pass_s, "ms_per_batch": ms_batch,
+              "device_ms_per_paper_batch": device_ms,
+              "peak_mem_gb": peak_gb,
+              "profile_20_paper_batches": profile_summary(
+                  prof, 20, window_us, window_us / 20 / 1e3),
+              "card": card})
+        del trainer, sinks
+    return counts
 
 
 def main():
@@ -529,17 +947,6 @@ def main():
            nops=valid4 * HID + BATCH * HID, eager_ms=eager_ms(k4_kernel))
 
     # -- the main path: refresh the tables, then embed every node -----------------
-    class Sink:
-        def __init__(self):
-            self.ids, self.embs = [], []
-
-        def add_embeddings(self, ids, emb):
-            self.ids.append(np.asarray(ids))
-            self.embs.append(emb)
-
-        def flush(self):
-            pass
-
     torch.manual_seed(0)
     model = LinkPredictionGNN(
         GNNEncoder(D, HID, OUT, num_layers=2, conv="graphsage",
@@ -1368,9 +1775,11 @@ def main():
               **row})
         del nct, state
 
+    typed = typed_phases(dev, card, record, rel_err, unique)
+
     # launches on every kernel row: the training path's (K6 / K7: the
-    # full-graph passes'; K6b / K7b: the node-classification paths'), and
-    # per pass or step of each other path
+    # full-graph passes'; K6b / K7b: the node-classification paths'; K8-K10:
+    # the exact typed passes'), and per pass or step of each other path
     per_pass = {"sample_uniform": 1, "build_neighbor_cache": 1,
                 "gather_rows": n_batches, "masked_reduce": n_batches}
     for row in results:
@@ -1381,6 +1790,9 @@ def main():
             row["launches"] = launches[k]
         elif k in ("ell_transpose_aggregate", "fanout_attention_bwd"):
             row["launches"] = sum(nc.values())
+        elif k in ("segment_reduce", "segment_softmax", "sddmm"):
+            row["launches"] = sum(typed[p_][k] for p_ in typed
+                                  if p_.startswith("typed_full"))
         else:
             row["launches"] = sum(fg.values())
         row["launches_per_step"] = (launches[k] - after_init[k]) / (
@@ -1391,8 +1803,10 @@ def main():
         row["launches_per_full_graph_pass"] = fg
         row["launches_per_nc_step"] = {
             p_: c_[k] / n_ for p_, (c_, n_) in nc_launches.items()}
-    check(len(results) == len(_build.KERNEL_NAMES) == 11,
-          "the kernels line does not list all eleven kernels")
+        row["launches_per_typed_pass"] = {p_: c_[k]
+                                          for p_, c_ in typed.items()}
+    check(len(results) == len(_build.KERNEL_NAMES) == 14,
+          "the kernels line does not list all fourteen kernels")
     results.sort(key=lambda r: _build.KERNEL_NAMES.index(r["name"]))
 
     emit({"kernels": results})

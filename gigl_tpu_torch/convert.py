@@ -14,6 +14,15 @@ of the matching port module. Per conv: ``Dense`` subtrees ``lin_self``,
 params' structure) to the per-parameter state of a ``torch.optim.Adam``
 over ``model.parameters()``, so both packages can start from one mid-run
 state.
+
+Typed trees (a ``HeteroGNNEncoder``'s, recognised by its ``in_{type}``
+input projections, bare or under ``encoder`` as a
+``HeteroLinkPredictionGNN``'s) map one to one: the port's typed modules
+register their layers and arrays under flax's names (``in_{type}``,
+``out_proj``, ``conv_{i}`` -> ``convs.{i}``, and in a conv ``k_{type}``,
+``watt_{edge type}``, ``w``, ``basis_{b}``, ``edge_emb`` ...), so every
+``Dense`` subtree becomes ``{name}.weight`` (transposed) and ``.bias``,
+and every array leaf the parameter of the same name.
 """
 
 from __future__ import annotations
@@ -69,17 +78,39 @@ def _convs(tree: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _typed(tree: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    """A typed tree under flax's names (see the module docstring)."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, sub in tree.items():
+        m = _CONV.match(name)
+        key = f"{prefix}convs.{m.group(1)}" if m else f"{prefix}{name}"
+        if isinstance(sub, Mapping) and "kernel" in sub:
+            _dense(sub, key, name, out)
+        elif isinstance(sub, Mapping):
+            out.update(_typed(sub, f"{key}."))
+        else:
+            out[key] = torch.tensor(np.asarray(sub, np.float32))
+    return out
+
+
+def _encoder(tree: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    if any(k.startswith("in_") for k in tree):
+        return _typed(tree, prefix)
+    return _convs(tree, prefix)
+
+
 def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """State dict for a ``LinkPredictionGNN`` (tree with an ``encoder``
-    subtree) or a ``GNNEncoder`` (tree of ``conv_{i}`` subtrees)."""
+    """State dict for a ``LinkPredictionGNN`` or ``HeteroLinkPredictionGNN``
+    (tree with an ``encoder`` subtree), a ``GNNEncoder`` (tree of
+    ``conv_{i}`` subtrees) or a ``HeteroGNNEncoder``."""
     if "params" in tree:
         tree = tree["params"]
     if "encoder" in tree:
         extra = set(tree) - {"encoder", "decoder"}
         if extra or tree.get("decoder"):
             raise ValueError(f"unsupported model parameters {sorted(extra)}")
-        return _convs(tree["encoder"], "encoder.")
-    return _convs(tree, "")
+        return _encoder(tree["encoder"], "encoder.")
+    return _encoder(tree, "")
 
 
 def _find_adam_state(state: Any) -> Optional[Any]:

@@ -36,13 +36,11 @@
 // added across the block's warps. Other rows take the scalar path: one
 // thread per (head, slot) reading the slot's Dh values in phase 1, one
 // thread per output value looping over the chunk's slots in phase 3.
-#include <cuda_bf16.h>
-
-#include <cstdint>
-#include <cstring>
-#include <cuda_runtime.h>
+#include "gigl_pieces.cuh"
 
 namespace {
+
+using namespace gigl;  // to_float, from_float, load_piece, ...
 
 constexpr int kGat = 0;
 constexpr int kGatV2 = 1;
@@ -52,37 +50,9 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxPiecesPerLane = 2;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float2 unpack_bf16(uint32_t w) {
-  __nv_bfloat162 h;
-  memcpy(&h, &w, sizeof(h));
-  return __bfloat1622float2(h);
-}
-
-// One 16-byte piece (P = 16 / sizeof(T) values) at a 16-byte aligned p.
-template <typename T, int P>
-__device__ __forceinline__ void load_piece(const T* __restrict__ p, float* v) {
-  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-  if constexpr (sizeof(T) == 4) {
-    v[0] = __uint_as_float(raw.x);
-    v[1] = __uint_as_float(raw.y);
-    v[2] = __uint_as_float(raw.z);
-    v[3] = __uint_as_float(raw.w);
-  } else {
-    float2 f;
-    f = unpack_bf16(raw.x); v[0] = f.x; v[1] = f.y;
-    f = unpack_bf16(raw.y); v[2] = f.x; v[3] = f.y;
-    f = unpack_bf16(raw.z); v[4] = f.x; v[5] = f.y;
-    f = unpack_bf16(raw.w); v[6] = f.x; v[7] = f.y;
-  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

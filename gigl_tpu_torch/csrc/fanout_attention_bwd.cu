@@ -45,13 +45,11 @@
 // the slot's share of d_xd or d_att_src into per-warp shared accumulators.
 // Scalar loads keep head dims of 4 (the last GAT layer) on the same path
 // as 64.
-#include <cuda_bf16.h>
-
-#include <cstdint>
-#include <cstring>
-#include <cuda_runtime.h>
+#include "gigl_pieces.cuh"
 
 namespace {
+
+using namespace gigl;  // to_float, from_float, load_piece, ...
 
 constexpr int kGat = 0;
 constexpr int kGatV2 = 1;
@@ -60,57 +58,9 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxPiecesPerLane = 2;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float2 unpack_bf16(uint32_t w) {
-  __nv_bfloat162 h;
-  memcpy(&h, &w, sizeof(h));
-  return __bfloat1622float2(h);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  uint32_t w;
-  memcpy(&w, &h, sizeof(w));
-  return w;
-}
-
-// One 16-byte piece (P = 16 / sizeof(T) values) at a 16-byte aligned p.
-template <typename T, int P>
-__device__ __forceinline__ void load_piece(const T* __restrict__ p, float* v) {
-  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-  if constexpr (sizeof(T) == 4) {
-    v[0] = __uint_as_float(raw.x);
-    v[1] = __uint_as_float(raw.y);
-    v[2] = __uint_as_float(raw.z);
-    v[3] = __uint_as_float(raw.w);
-  } else {
-    float2 f;
-    f = unpack_bf16(raw.x); v[0] = f.x; v[1] = f.y;
-    f = unpack_bf16(raw.y); v[2] = f.x; v[3] = f.y;
-    f = unpack_bf16(raw.z); v[4] = f.x; v[5] = f.y;
-    f = unpack_bf16(raw.w); v[6] = f.x; v[7] = f.y;
-  }
-}
-
-template <typename T, int P>
-__device__ __forceinline__ void store_piece(T* __restrict__ p, const float* v) {
-  if constexpr (sizeof(T) == 4) {
-    *reinterpret_cast<uint4*>(p) =
-        make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
-                   __float_as_uint(v[2]), __float_as_uint(v[3]));
-  } else {
-    *reinterpret_cast<uint4*>(p) =
-        make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
-                   pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
-  }
 }
 
 __device__ __forceinline__ float leaky(float z, float slope) {

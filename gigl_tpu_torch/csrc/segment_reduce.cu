@@ -1,0 +1,145 @@
+// K8 segment_reduce — replaces gigl_tpu/ops/segment.py segment_sum,
+// segment_mean and segment_max (:20-48) and coo_spmm (:64-87): the gather
+// of source rows and their reduce into destination segments.
+//
+// A SegmentIndex (ops/segment.py, built once per graph on the host) lists
+// the edges sorted by segment: order[ptr[s]:ptr[s+1]] are segment s's edge
+// ids, in their original order. For every segment s and value column j:
+//   out[s, j] = reduce_{e in seg(s)} w(e, j) * row(e)[j]
+// with row(e) = x[gather[e]] (coo_spmm) or x[e] (the segment_* functions),
+// w absent, [E] or [E, W] (W weight columns, each covering C / W adjacent
+// values: per head over an [H * dk] row), and reduce = sum, mean (divided
+// by the edge count, rounded to the data's type first as the reference
+// counts in it, at least 1) or max (a non-finite result, such as an empty
+// segment's, becomes 0). fp32 accumulation in the segment's edge order,
+// one rounding to the output type; an empty segment gives 0. Every output
+// row is written once: no atomics, the same bits on every run.
+//
+// Bound: bytes — each distinct row the segments read, the index and the
+// weights once, [S, C] written once; the [E, C] message block the reference
+// materialises is never written. Design: as K6, one thread per 16-byte
+// piece of an output row (4 fp32 or 8 bf16 values), consecutive threads
+// across the row, so every gathered row is read as coalesced 16-byte loads,
+// and an edge's id, gather index and weight are one broadcast load for the
+// row's threads. Rows that are not 16-byte multiples (or pieces that would
+// straddle two weight columns) take the same loop one element per thread.
+// A hub segment (degree 10^3-10^4) is walked by its row's threads alone:
+// slow but correct in this first version.
+#include "gigl_pieces.cuh"
+
+namespace {
+
+constexpr int kSum = 0;
+constexpr int kMean = 1;
+constexpr int kMax = 2;
+
+template <typename T, int P, int OP>
+__global__ void segment_reduce_kernel(const T* __restrict__ x,
+                                      const int32_t* __restrict__ gather,
+                                      const int32_t* __restrict__ order,
+                                      const int32_t* __restrict__ ptr,
+                                      const float* __restrict__ w,
+                                      T* __restrict__ out, int64_t s, int c,
+                                      int wc, int w_cols) {
+  const int pieces = c / P;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= s * pieces) return;
+  const int64_t seg = i / pieces;
+  const int col = static_cast<int>(i - seg * pieces) * P;
+  const int wcol = col / wc;  // this piece's weight column
+  float acc[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k)
+    acc[k] = OP == kMax ? -__int_as_float(0x7f800000) : 0.f;  // -inf or 0
+  const int32_t lo = __ldg(ptr + seg);
+  const int32_t hi = __ldg(ptr + seg + 1);
+  for (int32_t j = lo; j < hi; ++j) {
+    const int64_t e = __ldg(order + j);
+    const int64_t r = gather != nullptr ? __ldg(gather + e) : e;
+    float v[P];
+    gigl::load_piece<T, P>(x + r * c + col, v);
+    const float wt = w != nullptr ? __ldg(w + e * w_cols + wcol) : 1.f;
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const float m = v[k] * wt;
+      acc[k] = OP == kMax ? fmaxf(acc[k], m) : acc[k] + m;
+    }
+  }
+  if (OP == kMax) {
+#pragma unroll
+    for (int k = 0; k < P; ++k)
+      if (!isfinite(acc[k])) acc[k] = 0.f;
+  }
+  if (OP == kMean) {
+    float cn = static_cast<float>(hi - lo > 1 ? hi - lo : 1);
+    cn = gigl::to_float(gigl::from_float<T>(cn));  // the count in T
+#pragma unroll
+    for (int k = 0; k < P; ++k) acc[k] /= cn;
+  }
+  gigl::store_piece<T, P>(out + seg * c + col, acc);
+}
+
+template <typename T, int P>
+int launch(const void* x, const void* gather, const void* order,
+           const void* ptr, const void* w, void* out, long long s, int c,
+           int wc, int w_cols, int op, cudaStream_t stream) {
+  const long long total = s * (c / P);
+  if (total == 0) return 0;
+  const int threads = 256;
+  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
+  const T* xv = static_cast<const T*>(x);
+  const int32_t* gv = static_cast<const int32_t*>(gather);
+  const int32_t* ov = static_cast<const int32_t*>(order);
+  const int32_t* pv = static_cast<const int32_t*>(ptr);
+  const float* wv = static_cast<const float*>(w);
+  T* outv = static_cast<T*>(out);
+  switch (op) {
+    case kSum:
+      segment_reduce_kernel<T, P, kSum><<<blocks, threads, 0, stream>>>(
+          xv, gv, ov, pv, wv, outv, s, c, wc, w_cols);
+      break;
+    case kMean:
+      segment_reduce_kernel<T, P, kMean><<<blocks, threads, 0, stream>>>(
+          xv, gv, ov, pv, wv, outv, s, c, wc, w_cols);
+      break;
+    case kMax:
+      segment_reduce_kernel<T, P, kMax><<<blocks, threads, 0, stream>>>(
+          xv, gv, ov, pv, wv, outv, s, c, wc, w_cols);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
+}
+
+}  // namespace
+
+// x [M, C] (M = E without a gather), gather [E] int32 or NULL, order [E]
+// and ptr [S + 1] int32 (the SegmentIndex), w fp32 [E, w_cols] or NULL (wc =
+// C / w_cols values per weight column), out [S, C]. dtype: 0 = fp32, 1 =
+// bf16; op: 0 = sum, 1 = mean, 2 = max; vec: 1 when C * sizeof(T) and wc *
+// sizeof(T) are multiples of 16 and x and out are 16-byte aligned.
+extern "C" int gigl_segment_reduce(const void* x, const void* gather,
+                                   const void* order, const void* ptr,
+                                   const void* w, void* out, long long s,
+                                   int c, int wc, int w_cols, int dtype,
+                                   int op, int vec, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wc <= 0 || c % wc != 0) return static_cast<int>(cudaErrorInvalidValue);
+  int rc;
+  if (dtype == 0) {
+    rc = vec ? launch<float, 4>(x, gather, order, ptr, w, out, s, c, wc,
+                                w_cols, op, st)
+             : launch<float, 1>(x, gather, order, ptr, w, out, s, c, wc,
+                                w_cols, op, st);
+  } else if (dtype == 1) {
+    rc = vec ? launch<__nv_bfloat16, 8>(x, gather, order, ptr, w, out, s, c,
+                                        wc, w_cols, op, st)
+             : launch<__nv_bfloat16, 1>(x, gather, order, ptr, w, out, s, c,
+                                        wc, w_cols, op, st);
+  } else {
+    rc = static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,14 +1,19 @@
 """Embedding inference over the whole graph (port of ``InferenceConfig``,
-``node_batches``, ``run_inference`` and ``run_full_graph_inference`` in
-``gigl_tpu/inference/inferencer.py``).
+``node_batches``, ``run_inference``, ``run_full_graph_inference``,
+``exact_full_neighborhood_paths`` and ``run_full_graph_inference_hetero``
+in ``gigl_tpu/inference/inferencer.py``).
 
 ``run_inference`` iterates node-id ranges on the host; each batch is moved
-to the device and encoded by the inferencer's ``infer_batch``.
-``run_full_graph_inference`` encodes every node over its exact full
-neighborhood in one pass through the degree-bucketed ELL path
-(``GNNEncoder.encode_ell``). Either way the embeddings go to any exporter
-with ``add_embeddings(ids, emb)`` and ``flush()``, as fp32 numpy arrays
-(numpy has no bf16).
+to the device and encoded by the inferencer's ``infer_batch`` (a typed
+graph's sampled path: ``HeteroNALPTrainer.encode_batch(ids, node_type)``
+over ``node_batches`` of each node type, as the reference's task spec
+drives it). ``run_full_graph_inference`` encodes every node over its exact
+full neighborhood in one pass through the degree-bucketed ELL path
+(``GNNEncoder.encode_ell``); ``run_full_graph_inference_hetero`` does so
+for every node of every type of a typed graph through the COO segment
+kernels (``HeteroGNNEncoder.encode_full``). The embeddings go to any
+exporter with ``add_embeddings(ids, emb)`` and ``flush()``, as fp32 numpy
+arrays (numpy has no bf16).
 """
 
 from __future__ import annotations
@@ -16,13 +21,14 @@ from __future__ import annotations
 import logging
 import time
 from dataclasses import dataclass
-from typing import Iterator, Mapping, Optional, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from gigl_tpu_torch.device import DeviceLike, resolve_device
 from gigl_tpu_torch.ops.ell import EllGraph
+from gigl_tpu_torch.sampling.hetero_sampler import OpSpec
 from gigl_tpu_torch.training.base import BaseInferencer
 
 logger = logging.getLogger(__name__)
@@ -126,3 +132,99 @@ def run_inference(
                         total, rate)
     exporter.flush()
     return total
+
+
+def exact_full_neighborhood_paths(graph, num_layers: int
+                                  ) -> Dict[str, Tuple[OpSpec, ...]]:
+    """Per root node type, the full-neighborhood op tree: at every level one
+    INCOMING op per edge type arriving at a frontier type, with fanout =
+    that edge type's largest in-degree (at least 1), so every draw takes all
+    neighbors and encoding through these paths is exact. Host numpy."""
+    max_deg, by_dst = {}, {}
+    for et, coo in graph.edges.items():
+        dst = np.asarray(coo[1])
+        n_dst = graph.num_nodes[et.dst_node_type]
+        deg = np.bincount(dst, minlength=n_dst) if len(dst) else np.zeros(1)
+        max_deg[str(et)] = max(int(deg.max()), 1)
+        by_dst.setdefault(str(et.dst_node_type), []).append(et)
+    paths = {}
+    for root_nt in graph.metadata.node_types:
+        ops = []
+        frontier = [(-1, str(root_nt))]   # (op index or -1 = root, type)
+        for depth in range(1, num_layers + 1):
+            nxt = []
+            for parent_idx, nt in frontier:
+                for et in by_dst.get(nt, []):
+                    ops.append(OpSpec(
+                        name=f"{et}@d{depth}p{parent_idx}",
+                        edge_type=str(et), frontier_node_type=nt,
+                        neighbor_node_type=str(et.src_node_type),
+                        fanout=max_deg[str(et)], parent=parent_idx,
+                        depth=depth, direction="INCOMING"))
+                    nxt.append((len(ops) - 1, str(et.src_node_type)))
+            frontier = nxt
+        paths[str(root_nt)] = tuple(ops)
+    return paths
+
+
+def run_full_graph_inference_hetero(
+    model,
+    params: Optional[Mapping[str, torch.Tensor]],
+    graph,
+    exporters,
+    *,
+    num_layers: int = 2,
+    batch_size: int = 512,
+    node_types: Optional[Tuple[str, ...]] = None,
+    device: DeviceLike = None,
+) -> Dict[str, int]:
+    """Exact full-neighborhood inference of every node of every (or the
+    given) node type(s) of a typed ``HeteroGraph`` on ``device`` (CUDA
+    unless given): ``model`` (a ``HeteroGNNEncoder`` or a
+    ``HeteroLinkPredictionGNN``; ``params`` — a state dict, e.g. from
+    ``params_from_flax`` — loaded first) runs ``encode_full`` under
+    ``torch.inference_mode()`` on the segment kernels, with the graph's
+    SegmentIndexes built once on the host before the first layer; each
+    node type's rows go to ``exporters[node_type]`` in chunks of 65,536.
+    O(E) memory per layer: hubs cost edges, not padding. ``num_layers`` /
+    ``batch_size`` are the reference's API (the encoder's depth governs, the
+    whole graph is one pass). Returns {node_type: rows}."""
+    del num_layers, batch_size
+    device = resolve_device(device)
+    wanted = tuple(str(t) for t in (node_types or graph.metadata.node_types))
+    known = {str(t) for t in graph.metadata.node_types}
+    for nt in wanted:
+        if nt not in known:
+            raise ValueError(f"unknown node type {nt!r}; have "
+                             f"{sorted(known)}")
+    if params is not None:
+        model.load_state_dict(params)
+    model.to(device).eval()
+    encoder = getattr(model, "encoder", model)
+    features = {}
+    for t in graph.metadata.node_types:
+        f = (graph.node_features[t] if t in graph.node_features
+             else np.zeros((graph.num_nodes[t], 1), np.float32))
+        features[str(t)] = torch.as_tensor(np.asarray(f, np.float32),
+                                           device=device)
+    edges = {str(et): tuple(torch.as_tensor(np.asarray(row), device=device)
+                            .to(torch.int32) for row in coo[:2])
+             for et, coo in graph.edges.items()}
+    num_nodes = {str(t): int(graph.num_nodes[t])
+                 for t in graph.metadata.node_types}
+    segments = encoder.segments(
+        {str(et): (coo[0], coo[1]) for et, coo in graph.edges.items()},
+        num_nodes, device)
+    with torch.inference_mode():
+        embs = encoder.encode_full(features, edges, num_nodes,
+                                   segments=segments)
+        embs = {nt: embs[nt].float().cpu().numpy() for nt in wanted}
+    counts = {}
+    for nt in wanted:
+        n = num_nodes[nt]
+        for s in range(0, n, 65536):
+            ids = np.arange(s, min(s + 65536, n))
+            exporters[nt].add_embeddings(ids, embs[nt][ids])
+        exporters[nt].flush()
+        counts[nt] = n
+    return counts

@@ -39,7 +39,7 @@ from gigl_tpu_torch.models.convs import (
     SAGEConv,
     TransformerConv,
 )
-from gigl_tpu_torch.models.layers import l2_normalize
+from gigl_tpu_torch.models.layers import dropout, l2_normalize
 from gigl_tpu_torch.ops.ell import (
     EDGE_FEATURES_NOT_PORTED,
     EllGraph,
@@ -150,18 +150,7 @@ class GNNEncoder(nn.Module):
             return x
         # No batch norm is ported, so activation placement relative to it
         # does not matter.
-        return self._dropout(self.activation(x), train, generator)
-
-    def _dropout(self, x, train, generator):
-        """flax ``nn.Dropout``: keep with probability 1 - rate and scale by
-        1 / (1 - rate); the identity in eval mode or at rate 0."""
-        if not train or self.dropout == 0.0:
-            return x
-        if generator is None:
-            raise ValueError("train-mode dropout needs a torch.Generator")
-        u = torch.rand(x.shape, generator=generator, device=generator.device)
-        keep = (u >= self.dropout).to(x.device)
-        return torch.where(keep, x / (1.0 - self.dropout), 0.0).to(x.dtype)
+        return dropout(self.activation(x), self.dropout, train, generator)
 
     def _post(self, x):
         if self.l2_normalize_output:

@@ -7,10 +7,17 @@ every device:
 
 - every ``nn.Linear`` weight: flax ``Dense``'s lecun-normal, a normal
   truncated to [-2, 2] times sqrt(1 / fan_in) / 0.8796; biases 0;
-- GAT's ``att``, ``att_src``, ``att_dst`` ``[H, Dh]``: glorot-uniform,
-  uniform in +-sqrt(6 / (H + Dh)) (flax ``glorot_uniform`` with fan_in =
-  H, fan_out = Dh);
+- glorot-uniform, uniform in +-sqrt(6 / (fan_in + fan_out)) with flax's
+  fans (fan_in = shape[-2] * r, fan_out = shape[-1] * r, r the product of
+  the leading dims): GAT's ``att``, ``att_src``, ``att_dst`` ``[H, Dh]``
+  (fans H and Dh), SimpleHGN's ``att_*`` ``[1, 1, H, dk]`` and ``w_rel``,
+  RGCN's ``basis_coeff``, HGT's ``watt_*`` / ``wmsg_*`` ``[H, dk, dk]``
+  (fans H·dk each);
+- SimpleHGN's ``edge_emb``: normal with std 0.02;
+- HGT's ``skip_*`` and ``prior_*``: 1;
 - conv-level ``bias`` and GIN's ``eps``: 0.
+
+The distributions are flax's; the bits are not.
 """
 
 from __future__ import annotations
@@ -24,8 +31,21 @@ from torch import nn
 # sqrt(1 / fan_in) after truncation (0.8796... is the std of the truncated
 # unit normal).
 _TRUNC_STD = 0.87962566103423978
-_GLOROT = ("att", "att_src", "att_dst")
+_GLOROT = ("att", "att_src", "att_dst", "att_rel", "w_rel", "basis_coeff",
+           "watt_", "wmsg_")
 _ZEROS = ("bias", "eps")
+_ONES = ("skip_", "prior_")
+
+
+def _kind(name: str) -> str:
+    """A non-Linear parameter's initializer, by its (flax) name; names
+    ending in "_" above are prefixes (one parameter per type)."""
+    for kind, names in (("glorot", _GLOROT), ("zeros", _ZEROS),
+                        ("ones", _ONES), ("normal", ("edge_emb",))):
+        if any(name.startswith(n) if n.endswith("_") else name == n
+               for n in names):
+            return kind
+    raise ValueError(f"no initializer for parameter {name!r}")
 
 
 def init_params(model: nn.Module, seed: int = 0) -> None:
@@ -46,14 +66,16 @@ def init_params(model: nn.Module, seed: int = 0) -> None:
                     mod.bias.zero_()
                 continue
             for name, p in mod.named_parameters(recurse=False):
-                if name in _GLOROT:
-                    fan_in, fan_out = p.shape[-2], p.shape[-1]
+                kind = _kind(name)
+                if kind == "glorot":
+                    r = math.prod(p.shape[:-2])
+                    fan_in, fan_out = p.shape[-2] * r, p.shape[-1] * r
                     limit = math.sqrt(6.0 / (fan_in + fan_out))
                     u = torch.rand(p.shape, generator=gen,
                                    dtype=torch.float64)
                     p.copy_((2.0 * u - 1.0) * limit)
-                elif name in _ZEROS:
-                    p.zero_()
+                elif kind == "normal":
+                    p.copy_(0.02 * torch.randn(p.shape, generator=gen,
+                                               dtype=torch.float64))
                 else:
-                    raise ValueError(f"init_params: no initializer for "
-                                     f"{type(mod).__name__}.{name}")
+                    p.fill_(1.0 if kind == "ones" else 0.0)

@@ -1,6 +1,7 @@
-"""Link-prediction model wrapper and decoders (port of
+"""Link-prediction model wrappers and decoders (port of
 ``gigl_tpu/models/link_prediction.py``: inner-product and cosine decoders,
-``LinkPredictionGNN``)."""
+``LinkPredictionGNN``, ``HeteroLinkPredictionGNN`` without an edge
+scorer)."""
 
 from __future__ import annotations
 
@@ -68,3 +69,29 @@ class LinkPredictionGNN(nn.Module):
 
     def decode_all_pairs(self, q, c):
         return self.decoder.all_pairs(q, c)
+
+
+class HeteroLinkPredictionGNN(nn.Module):
+    """Typed encoder (``HeteroGNNEncoder``) + decoder bundle. The
+    label-edge-feature scorer is training (slice 6): ``decode`` ignores
+    ``edge_feats`` as the reference does without a scorer, and
+    ``edge_score`` raises."""
+
+    def __init__(self, encoder: nn.Module, decoder: LinkPredictionDecoder):
+        super().__init__()
+        self.encoder = encoder
+        self.decoder = decoder
+
+    def forward(self, blocks, feats, train: bool = False, generator=None):
+        return self.encoder(blocks, feats, train=train, generator=generator)
+
+    def decode(self, q, c, edge_feats=None):
+        return self.decoder(q, c)
+
+    def decode_all_pairs(self, q, c):
+        return self.decoder.all_pairs(q, c)
+
+    def edge_score(self, edge_feats):
+        raise NotImplementedError(
+            "the label-edge-feature scorer is not ported yet (typed "
+            "training, slice 6)")

@@ -40,7 +40,8 @@ COMPILE_FLAGS = ARCH_FLAGS + [
 KERNEL_NAMES = ("sample_uniform", "uniform_ids", "build_neighbor_cache",
                 "gather_rows", "masked_reduce", "masked_reduce_bwd",
                 "retrieval_loss", "ell_aggregate", "fanout_attention",
-                "ell_transpose_aggregate", "fanout_attention_bwd")
+                "ell_transpose_aggregate", "fanout_attention_bwd",
+                "segment_reduce", "segment_softmax", "sddmm")
 launches: Dict[str, int] = dict.fromkeys(KERNEL_NAMES, 0)
 
 _P = ctypes.c_void_p
@@ -73,6 +74,9 @@ _SIGNATURES = {
     "gigl_ell_tie_count": [_P] * 5 + [_I64] + [_I32] * 4 + [_P],
     "gigl_fanout_attention_bwd": [_P] * 17 + [_I64] + [_I32] * 5
     + [_F32, _F32, _I32, _P],
+    "gigl_segment_reduce": [_P] * 6 + [_I64] + [_I32] * 6 + [_P],
+    "gigl_segment_softmax": [_P] * 4 + [_I64, _I32, _I32, _P],
+    "gigl_sddmm": [_P] * 6 + [_I64] + [_I32] * 4 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,0 +1,243 @@
+"""Device-resident typed graph for heterogeneous inference (port of
+``gigl_tpu/training/hetero_dataset.py``: ``HeteroDeviceGraph`` with
+``from_hetero``, ``sample``, ``hydrate``, ``with_sample_tables`` and
+``sample_tabularized``, and ``paths_from_config``).
+
+Every (edge type, anchor) CSR that a sampling path uses is a
+:class:`~gigl_tpu_torch.sampling.neighbor_sampler.DeviceCSR`, and every
+node type's features a dense device table. Live typed sampling draws each
+op through K1; the tabularized path freezes one sample table per (CSR,
+fanout, method) through K1 (``build_sample_table``) and expands the op
+tree by table-row gathers through K3 (``expand_table``); ``hydrate``
+gathers each entry's feature rows through K3 (``gather_rows``).
+
+Not ported yet: weighted / top-k CSRs (A2), the label-edge features, the
+negative samplers and the positive / hard-negative draws (typed training,
+slice 6), and host-resident feature tables (the partitioned tier, A15).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from gigl_tpu_torch.device import DeviceLike, resolve_device
+from gigl_tpu_torch.graph.csr import HeteroGraph, build_csr
+from gigl_tpu_torch.ops.gather import expand_table, gather_rows
+from gigl_tpu_torch.ops.hopcache import build_sample_table
+from gigl_tpu_torch.sampling.hetero_sampler import (
+    WEIGHTED_NOT_PORTED,
+    OpSpec,
+    SamplingOp,
+    TypedBlocks,
+    chain_path,
+    resolve_path,
+    sample_typed_blocks,
+)
+from gigl_tpu_torch.sampling.neighbor_sampler import DeviceCSR
+from gigl_tpu_torch.types.graph import EdgeType
+
+TRAINING_NOT_PORTED = "typed training is not ported yet (slice 6)"
+
+
+@dataclass
+class HeteroDeviceGraph:
+    """Typed device graph: per-(edge type, anchor) CSRs keyed
+    "{edge_type}|{anchor}", per-node-type features, and optionally the
+    supervision / hard-negative CSRs and frozen sample tables keyed
+    ``OpSpec.table_key`` ([N_anchor, fanout] int32, -1 = no neighbor)."""
+
+    csrs: Dict[str, DeviceCSR]
+    node_features: Dict[str, torch.Tensor]     # node type -> [N_t, D_t] f32
+    num_nodes: Dict[str, int]
+    supervision_csr: Optional[DeviceCSR] = None
+    hard_neg_csr: Optional[DeviceCSR] = None
+    node_labels: Optional[Dict[str, torch.Tensor]] = None
+    sample_tables: Optional[Dict[str, torch.Tensor]] = None
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.node_features.values())).device
+
+    @classmethod
+    def from_hetero(
+        cls,
+        graph: HeteroGraph,
+        paths: Dict[str, Tuple[OpSpec, ...]],
+        *,
+        supervision_edge_type: Optional[EdgeType] = None,
+        supervision_edges: Optional[np.ndarray] = None,  # [2, Es] src, dst
+        hard_neg_edges: Optional[np.ndarray] = None,
+        supervision_anchor: str = "dst",
+        supervision_edge_features: Optional[np.ndarray] = None,
+        hard_neg_edge_features: Optional[np.ndarray] = None,
+        features_on_device: bool = True,
+        device: DeviceLike = None,
+    ) -> "HeteroDeviceGraph":
+        """Move the CSRs the ``paths`` sample and every node type's features
+        (zeros [N, 1] for a type without features) to ``device`` (CUDA
+        unless given). Supervision edges (and hard negatives) are anchored
+        on ``supervision_anchor``'s side of ``supervision_edge_type``."""
+        if not features_on_device:
+            raise NotImplementedError(
+                "host-resident feature tables are not ported yet (the "
+                "partitioned tier, ROADMAP A15)")
+        if (supervision_edge_features is not None
+                or hard_neg_edge_features is not None):
+            raise NotImplementedError(
+                f"label edge features: {TRAINING_NOT_PORTED}")
+        device = resolve_device(device)
+        csrs: Dict[str, DeviceCSR] = {}
+        for key in sorted({op.csr_key for ops in paths.values()
+                           for op in ops}):
+            methods = {op.method for ops in paths.values() for op in ops
+                       if op.csr_key == key}
+            if methods != {"uniform"}:
+                raise NotImplementedError(f"CSR {key!r}: "
+                                          f"{WEIGHTED_NOT_PORTED}")
+            et_str, anchor = key.rsplit("|", 1)
+            et = next(e for e in graph.metadata.edge_types
+                      if str(e) == et_str)
+            csrs[key] = DeviceCSR.from_csr(graph.csr(et, anchor=anchor),
+                                           device)
+        feats = {}
+        for nt in graph.metadata.node_types:
+            f = (graph.node_features[nt] if nt in graph.node_features
+                 else np.zeros((graph.num_nodes[nt], 1), np.float32))
+            feats[str(nt)] = torch.as_tensor(np.asarray(f, np.float32)).to(
+                device)
+        if supervision_anchor not in ("src", "dst"):
+            raise ValueError(f"bad supervision_anchor {supervision_anchor!r}")
+
+        def label_csr(edges):
+            if edges is None or supervision_edge_type is None:
+                return None
+            et = supervision_edge_type
+            anchor_nt, cand_nt = ((et.dst_node_type, et.src_node_type)
+                                  if supervision_anchor == "dst"
+                                  else (et.src_node_type, et.dst_node_type))
+            return DeviceCSR.from_csr(build_csr(
+                edges[0], edges[1],
+                num_anchor_nodes=graph.num_nodes[anchor_nt],
+                num_neighbor_nodes=graph.num_nodes[cand_nt],
+                anchor=supervision_anchor), device)
+
+        if supervision_edges is not None and supervision_edge_type is None:
+            raise ValueError("supervision_edges needs an edge type")
+        labels = {str(nt): torch.as_tensor(
+            np.asarray(lab).astype(np.int32)).to(device)
+            for nt, lab in graph.node_labels.items()} or None
+        return cls(csrs=csrs, node_features=feats,
+                   num_nodes={str(nt): int(n)
+                              for nt, n in graph.num_nodes.items()},
+                   supervision_csr=label_csr(supervision_edges),
+                   hard_neg_csr=label_csr(hard_neg_edges),
+                   node_labels=labels)
+
+    # -- tabularized sampling ---------------------------------------------------
+    def with_sample_tables(self, paths: Dict[str, Tuple[OpSpec, ...]], *,
+                           seed: int = 0) -> "HeteroDeviceGraph":
+        """A copy with one frozen sample table per (CSR, fanout, method)
+        that an op of ``paths`` uses, drawn through K1 at hop 1: a node
+        reuses its one sample at every tree position (the reference's
+        precomputed-sample regime). A new seed is a re-run of the sampler."""
+        tables: Dict[str, torch.Tensor] = dict(self.sample_tables or {})
+        for ops in paths.values():
+            for op in ops:
+                if op.table_key in tables:
+                    continue
+                ids_t, mask_t = build_sample_table(
+                    self.csrs[op.csr_key], fanout=int(op.fanout), seed=seed,
+                    hop_key=1, method=op.method)
+                tables[op.table_key] = torch.where(mask_t, ids_t, -1)
+        return dataclasses.replace(self, sample_tables=tables)
+
+    def sample_tabularized(self, roots: torch.Tensor, root_node_type: str,
+                           spec: Tuple[OpSpec, ...]) -> TypedBlocks:
+        """The op tree from the frozen tables: one K3 table-row gather per
+        op (``with_sample_tables(paths)`` first)."""
+        if self.sample_tables is None:
+            raise ValueError("no sample tables; with_sample_tables() first")
+        roots = roots.reshape(-1).to(torch.int32)
+        node_ids = [roots]
+        masks = [torch.ones(roots.shape, dtype=torch.bool,
+                            device=roots.device)]
+        for op in spec:
+            if op.table_key not in self.sample_tables:
+                raise ValueError(f"no sample table {op.table_key!r}; have "
+                                 f"{sorted(self.sample_tables)}")
+            nbr, m = expand_table(self.sample_tables[op.table_key],
+                                  node_ids[op.parent + 1],
+                                  masks[op.parent + 1])
+            node_ids.append(nbr)
+            masks.append(m)
+        return TypedBlocks(root_node_type=str(root_node_type),
+                           spec=tuple(spec), node_ids=node_ids, masks=masks,
+                           edge_slots=[None] * len(node_ids))
+
+    # -- live sampling and hydration -------------------------------------------
+    def sample(self, roots: torch.Tensor, root_node_type: str,
+               spec: Tuple[OpSpec, ...], *, seed: int = 0) -> TypedBlocks:
+        return sample_typed_blocks(self.csrs, roots.reshape(-1),
+                                   str(root_node_type), spec, seed=seed)
+
+    def hydrate(self, blocks: TypedBlocks):
+        """Each entry's feature rows through K3: entry 0 of the root type,
+        entry i + 1 of ``spec[i]``'s neighbor type. Returns (feats, masks)."""
+        types = [blocks.root_node_type] + [op.neighbor_node_type
+                                           for op in blocks.spec]
+        feats = [gather_rows(self.node_features[nt], ids)[0]
+                 for nt, ids in zip(types, blocks.node_ids)]
+        return feats, blocks.masks
+
+
+def paths_from_config(
+    graph: HeteroGraph,
+    sampling_cfg,
+    root_node_types: Sequence[str],
+    *,
+    default_fanouts: Tuple[int, ...] = (10, 5),
+) -> Dict[str, Tuple[OpSpec, ...]]:
+    """Per root node type, the op tree of the config's
+    ``message_passing_paths``, or the uniform ``fanouts`` expanded over the
+    root type's incoming edge types: a chain for a single-edge-type graph,
+    else one op per incoming edge type at each level."""
+    paths: Dict[str, Tuple[OpSpec, ...]] = {}
+    mpp = getattr(sampling_cfg, "message_passing_paths", {}) or {}
+    fanouts = tuple(getattr(sampling_cfg, "fanouts", ()) or default_fanouts)
+    edge_types = graph.metadata.edge_types
+    for nt in root_node_types:
+        nt = str(nt)
+        if nt in mpp:
+            paths[nt] = resolve_path(nt, mpp[nt])
+            continue
+        incident = [e for e in edge_types if str(e.dst_node_type) == nt]
+        if not incident:
+            raise ValueError(f"no in-edge types for root node type {nt!r}")
+        if len(incident) == 1 and len({str(e) for e in edge_types}) == 1:
+            paths[nt] = chain_path(nt, incident[0], fanouts)
+            continue
+        ops: List[SamplingOp] = []
+
+        def extend(frontier_nt: str, parent_names: Tuple[str, ...],
+                   depth: int, prefix: str):
+            if depth >= len(fanouts):
+                return
+            for e in edge_types:
+                if str(e.dst_node_type) != frontier_nt:
+                    continue
+                name = f"{prefix}/{e.relation}@{depth + 1}"
+                ops.append(SamplingOp(
+                    op_name=name, edge_type=e,
+                    num_nodes_to_sample=fanouts[depth],
+                    input_op_names=parent_names,
+                    sampling_direction="INCOMING"))
+                extend(str(e.src_node_type), (name,), depth + 1, name)
+
+        extend(nt, (), 0, nt)
+        paths[nt] = resolve_path(nt, ops)
+    return paths

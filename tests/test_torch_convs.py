@@ -249,10 +249,8 @@ def _sampled_trainer(conv, seed=6):
     return t, t.init_state(0), rng
 
 
-def test_sampled_gat_train_step_raises():
-    """A sampled GAT, GATv2 and Transformer step trains through K7b. (The
-    name dates from when the attention backward was not ported and this
-    step raised.)"""
+def test_sampled_attention_train_step_trains():
+    """A sampled GAT, GATv2 and Transformer step trains through K7b."""
     for conv in ("gat", "gatv2", "transformer"):
         t, state, rng = _sampled_trainer(conv)
         assert t.encode_batch(np.arange(8)).shape == (8, OUT)

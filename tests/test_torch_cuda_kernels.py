@@ -27,7 +27,17 @@ graphs with a 5,000-out-degree hub (a width-8192 transpose bucket),
 sources without out-edges, one-row and all-masked buckets, rows that are
 not 16-byte multiples, head dim 4: the same tolerances. Then encode_ell's
 gradients on the card against the CPU's (ROADMAP C3), and full-batch and
-sampled node-classification steps on the card against the CPU.
+sampled node-classification steps on the card against the CPU. K8
+segment_reduce (sum, mean, max; unweighted, [E] and [E, H] weights; gather
+and per-edge rows; rows of 128, 64, 12 and 4 values), K9 segment_softmax
+(H 1 and 4) and K10 sddmm (head dims 32, 128, 64, 8 and 3; scaled) on
+segments with empty segments, degree-1 segments and a 10^4 hub: the same
+tolerances (softmax, absolute: 5e-5 fp32, where the hub's 10^4-term
+denominator is summed in another order; 2**-8 bf16), the same bits on a
+repeat run; a CUDA input that requires grad raises (slice 6). Then the
+typed serving paths on the card against the CPU (exact full-graph HGT,
+SimpleHGN and RGCN; sampled HGT, live and tabularized), fp32 within 1e-5
+of the scale.
 """
 
 import numpy as np
@@ -35,10 +45,16 @@ import pytest
 import torch
 
 from gigl_tpu_torch.graph.csr import HeteroGraph, build_csr
-from gigl_tpu_torch.inference.inferencer import InferenceConfig, run_inference
+from gigl_tpu_torch.inference.inferencer import (
+    InferenceConfig,
+    run_full_graph_inference_hetero,
+    run_inference,
+)
 from gigl_tpu_torch.models.encoders import GNNEncoder
+from gigl_tpu_torch.models.hetero_encoders import HeteroGNNEncoder
 from gigl_tpu_torch.models.init import init_params
 from gigl_tpu_torch.models.link_prediction import (
+    HeteroLinkPredictionGNN,
     LinkPredictionDecoder,
     LinkPredictionGNN,
 )
@@ -80,6 +96,17 @@ from gigl_tpu_torch.ops.retrieval import (
     retrieval_bwd,
     retrieval_fwd,
 )
+from gigl_tpu_torch.ops.segment import (
+    SegmentIndex,
+    _sddmm_plain,
+    _segment_reduce_plain,
+    _segment_softmax_plain,
+    sddmm,
+    segment_reduce,
+    segment_softmax,
+    segment_sum,
+)
+from gigl_tpu_torch.sampling.hetero_sampler import SamplingOp, resolve_path
 from gigl_tpu_torch.sampling.neighbor_sampler import (
     DeviceCSR,
     _sample_uniform_plain,
@@ -92,12 +119,18 @@ from gigl_tpu_torch.training.full_batch import (
     FullBatchTrainer,
     full_batch_data_from_graph,
 )
+from gigl_tpu_torch.training.hetero_dataset import HeteroDeviceGraph
+from gigl_tpu_torch.training.hetero_trainer import (
+    HeteroNALPTrainer,
+    HeteroNALPTrainerConfig,
+)
 from gigl_tpu_torch.training.trainer import (
     NALPTrainer,
     NALPTrainerConfig,
     NodeClassificationTrainer,
     NodeClassificationTrainerConfig,
 )
+from gigl_tpu_torch.types.graph import EdgeType, GraphMetadata
 
 pytestmark = pytest.mark.cuda
 
@@ -722,3 +755,207 @@ def test_node_classification_steps_on_card_match_cpu(dev):
         for k, v in out["cpu"][2].items():
             torch.testing.assert_close(out["cuda"][2][k], v, rtol=1e-4,
                                        atol=1e-5)
+
+
+def _segment_graph(dev, s=3000, e=20000, hub_deg=10_000, seed=0):
+    """Segment ids on the card with 100 empty segments, 50 of degree 1 and
+    one hub segment (5) of degree ``hub_deg``, shuffled; and the index."""
+    rng = np.random.default_rng(seed)
+    ids = np.concatenate([rng.integers(0, s - 150, e),
+                          np.arange(s - 150, s - 100),
+                          np.full(hub_deg, 5)])
+    ids = torch.as_tensor(rng.permutation(ids).astype(np.int32), device=dev)
+    return ids, SegmentIndex.from_ids(ids, s)
+
+
+SEGMENT_CASES = [  # (C, heads of the weight, gather rows or per-edge data)
+    (128, 0, True), (128, 1, True), (128, 4, True), (128, 4, False),
+    (12, 3, True), (4, 1, False), (64, 2, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["sum", "mean", "max"])
+@pytest.mark.parametrize("c,w_heads,gather", SEGMENT_CASES)
+def test_segment_reduce_matches_plain(dev, dtype, op, c, w_heads, gather):
+    ids, index = _segment_graph(dev)
+    s, e = index.num_segments, index.num_edges
+    g = torch.Generator(device=dev).manual_seed(1)
+    m = 5000 if gather else e
+    x = torch.randn((m, c), generator=g, device=dev).to(dtype)
+    src = (torch.randint(0, m, (e,), generator=g, device=dev,
+                         dtype=torch.int32) if gather else None)
+    w = None
+    if w_heads:
+        w = torch.rand((e, w_heads) if w_heads > 1 else (e,), generator=g,
+                       device=dev)
+    got = segment_reduce(x, ids, s, op=op, src=src, weight=w, index=index)
+    want = _segment_reduce_plain(x, ids, s, op, src, w)
+    assert got.dtype == dtype and got.shape == (s, c)
+    _within(got, want, dtype)
+    assert not got[s - 100:].any()                # empty segments give 0
+    again = segment_reduce(x, ids, s, op=op, src=src, weight=w, index=index)
+    assert torch.equal(got, again)                # no atomics: same bits
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [1, 4])
+def test_segment_softmax_matches_plain(dev, dtype, heads):
+    ids, index = _segment_graph(dev)
+    s, e = index.num_segments, index.num_edges
+    g = torch.Generator(device=dev).manual_seed(2)
+    shape = (e,) if heads == 1 else (e, heads)
+    logits = (torch.randn(shape, generator=g, device=dev) * 4).to(dtype)
+    got = segment_softmax(logits, ids, s, index=index)
+    want = _segment_softmax_plain(logits, ids, s)
+    assert got.dtype == dtype and got.shape == shape
+    # alpha <= 1; the hub's denominator sums 10^4 exps in fp32 in another
+    # order (the twin: atomics), ~2e-5 relative apart
+    tol = 5e-5 if dtype == torch.float32 else 2.0 ** -8
+    err = (got.float() - want.float()).abs()
+    worst = int(err.reshape(e, -1).amax(1).argmax())
+    assert float(err.max()) <= tol, (
+        float(err.max()), worst, int(ids[worst]), got[worst].tolist(),
+        want[worst].tolist())
+    assert torch.equal(got, segment_softmax(logits, ids, s, index=index))
+    # no index: one is built on the host first, with the same result
+    assert torch.equal(got, segment_softmax(logits, ids, s))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,dk", [(4, 32), (1, 128), (4, 3), (2, 64),
+                                      (1, 8)])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_sddmm_matches_plain(dev, dtype, heads, dk, scaled):
+    ids, _ = _segment_graph(dev)
+    e = ids.shape[0]
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn((3000, heads, dk), generator=g, device=dev).to(dtype)
+    k = torch.randn((4000, heads, dk), generator=g, device=dev).to(dtype)
+    src = torch.randint(0, 4000, (e,), generator=g, device=dev,
+                        dtype=torch.int32)
+    scale = (torch.rand(heads, generator=g, device=dev) + 0.5
+             if scaled else None)
+    got = sddmm(src, ids, q, k, scale=scale)
+    want = _sddmm_plain(src, ids, q, k, scale)
+    assert got.dtype == dtype and got.shape == (e, heads)
+    _within(got, want, dtype)
+    flat = sddmm(src, ids, q[:, 0], k[:, 0])      # [N, D] -> [E]
+    assert flat.shape == (e,)
+    _within(flat, _sddmm_plain(src, ids, q[:, 0], k[:, 0]), dtype)
+
+
+def test_segment_ops_on_card_are_forward_only(dev):
+    ids, index = _segment_graph(dev, e=500, hub_deg=10)
+    s, e = index.num_segments, index.num_edges
+    x = torch.randn((e, 8), device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        segment_sum(x, ids, s, index=index)
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        segment_softmax(x[:, :2], ids, s, index=index)
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        sddmm(ids, ids, x[:s], x[:s])
+    with torch.no_grad():
+        segment_sum(x, ids, s, index=index)
+    with pytest.raises(ValueError, match="index covers"):
+        segment_sum(x.detach(), ids, s + 1, index=index)
+
+
+def _typed_graph(seed=0):
+    """A small typed graph of the DBLP configuration's shape: 300 authors,
+    500 papers (features 12 and 20 wide), writes / rev_writes / cites, a
+    paper cited 2,000 times, an author who writes nothing."""
+    rng = np.random.default_rng(seed)
+    a, p = 300, 500
+    w_src, w_dst = rng.integers(1, a, 2000), rng.integers(0, p, 2000)
+    c_src = rng.integers(0, p, 6000)
+    c_dst = np.concatenate([rng.integers(0, p, 4000), np.full(2000, 3)])
+    types = ("author-writes-paper", "paper-rev_writes-author",
+             "paper-cites-paper")
+    graph = HeteroGraph(
+        metadata=GraphMetadata(("author", "paper"), types),
+        num_nodes={"author": a, "paper": p},
+        edges={EdgeType.from_str(types[0]): np.stack([w_src, w_dst]),
+               EdgeType.from_str(types[1]): np.stack([w_dst, w_src]),
+               EdgeType.from_str(types[2]): np.stack([c_src, c_dst])},
+        node_features={"author": rng.normal(size=(a, 12)).astype(np.float32),
+                       "paper": rng.normal(size=(p, 20)).astype(np.float32)})
+    paths = {
+        "paper": resolve_path("paper", [
+            SamplingOp("authors", types[0], 10),
+            SamplingOp("cited", types[2], 10),
+            SamplingOp("coauthored", types[1], 5, ("authors",)),
+            SamplingOp("cited_authors", types[0], 5, ("cited",))]),
+        "author": resolve_path("author", [
+            SamplingOp("papers", types[1], 10),
+            SamplingOp("paper_authors", types[0], 5, ("papers",))])}
+    return graph, paths, types
+
+
+class _Rows:
+    def __init__(self):
+        self.parts = []
+
+    def add_embeddings(self, ids, emb):
+        self.parts.append((np.asarray(ids), np.asarray(emb)))
+
+    def flush(self):
+        pass
+
+    def table(self):
+        ids = np.concatenate([i for i, _ in self.parts])
+        return np.concatenate([e for _, e in self.parts])[np.argsort(ids)]
+
+
+def test_typed_inference_on_card_matches_cpu(dev):
+    """run_full_graph_inference_hetero (HGT, SimpleHGN, RGCN with 2 bases)
+    and HeteroNALPTrainer.encode_batch (HGT, live and tabularized) on the
+    card against the CPU, fp32 within 1e-5 of the scale, with the kernels
+    of each path launched."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    graph, paths, types = _typed_graph()
+    dims = {"author": 12, "paper": 20}
+    for conv, kw, kernels in (
+            ("hgt", {}, ("sddmm", "segment_softmax", "segment_reduce")),
+            ("simple_hgn", {}, ("segment_softmax", "segment_reduce")),
+            ("rgcn", {"num_bases": 2}, ("segment_reduce",))):
+        enc = HeteroGNNEncoder(32, 16, ("author", "paper"), types, dims,
+                               conv=conv, heads=4, **kw)
+        init_params(enc, 0)
+        out = {}
+        for device in (dev, torch.device("cpu")):
+            sinks = {"author": _Rows(), "paper": _Rows()}
+            _build.reset_launches()
+            run_full_graph_inference_hetero(enc, None, graph, sinks,
+                                            device=device)
+            if device.type == "cuda":
+                for k in kernels:
+                    assert _build.launches[k] > 0, (conv, k)
+            out[device.type] = {nt: s.table() for nt, s in sinks.items()}
+        for nt in ("author", "paper"):
+            want = out["cpu"][nt]
+            np.testing.assert_allclose(out["cuda"][nt], want, rtol=0,
+                                       atol=1e-5 * np.abs(want).max())
+    for tabularized in (False, True):
+        got = {}
+        for device in (dev, torch.device("cpu")):
+            model = HeteroLinkPredictionGNN(
+                HeteroGNNEncoder(32, 16, ("author", "paper"), types, dims),
+                LinkPredictionDecoder())
+            tr = HeteroNALPTrainer(
+                model, HeteroDeviceGraph.from_hetero(graph, paths,
+                                                     device=device),
+                paths, HeteroNALPTrainerConfig(
+                    "paper", "author", tabularized=tabularized),
+                device=device)
+            tr.init_params(0)
+            _build.reset_launches()
+            got[device.type] = [tr.encode_batch(np.arange(n), nt).cpu()
+                                for nt, n in (("paper", 500),
+                                              ("author", 300))]
+            if device.type == "cuda":
+                for k in ("gather_rows", "fanout_attention") + (
+                        () if tabularized else ("sample_uniform",)):
+                    assert _build.launches[k] > 0, (tabularized, k)
+        for g, w in zip(got["cuda"], got["cpu"]):
+            torch.testing.assert_close(g, w, rtol=0,
+                                       atol=1e-5 * float(w.abs().max()))

@@ -1,0 +1,255 @@
+"""Parity of the port's COO segment ops (gigl_tpu_torch.ops.segment: the
+plain twins of K8 segment_reduce, K9 segment_softmax and K10 sddmm, which
+run for CPU tensors) with the JAX reference (gigl_tpu.ops.segment).
+
+The graph: 60 segments, 700 edges with unsorted ids, 8 empty segments and
+one hub segment of degree 300. Tolerances:
+
+- fp32: the same sums in another order, within 1e-6 of the output's
+  largest entry;
+- bf16 against the reference in bf16, segments of degree <= 16 only: the
+  reference accumulates in bf16 (each partial sum rounded, so a degree-d
+  sum is off by up to ~d/2 ulps of its partial sums) where the port sums in
+  fp32 and rounds once: within 5e-2 of the largest entry;
+- bf16 against the reference in fp32 on the same bf16 inputs, every
+  segment: one rounding, within 2**-8 of the largest entry. The mean's count
+  is rounded to bf16 first: a hub of degree 301 divides by 300;
+- integer tables (the SegmentIndex) bit-equal to numpy's stable argsort.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from gigl_tpu.ops import segment as ref
+from gigl_tpu_torch.ops import segment as seg
+from gigl_tpu_torch.ops.segment import SegmentIndex
+
+torch.set_num_threads(1)
+
+S, E, HUB, HUB_DEG, N_SRC = 60, 700, 7, 300, 90
+EMPTY = (0, 3, 11, 12, 30, 41, 58, 59)
+H, DK = 4, 8
+
+
+def _ids(seed=0, e=E):
+    rng = np.random.default_rng(seed)
+    pool = np.array([s for s in range(S) if s not in EMPTY and s != HUB])
+    ids = rng.choice(pool, e - HUB_DEG)
+    ids = np.concatenate([ids, np.full(HUB_DEG, HUB)])
+    return rng.permutation(ids).astype(np.int32)
+
+
+def _data(shape, seed=1):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(np.asarray(a)).to(dtype)
+
+
+def _close(got, want, tol):
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    assert got.shape == want.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=tol * max(np.abs(want).max(), 1e-30))
+
+
+def test_segment_index_is_a_stable_sort():
+    ids = _ids()
+    idx = SegmentIndex.from_ids(ids, S, device="cpu")
+    want = np.argsort(ids, kind="stable")
+    np.testing.assert_array_equal(idx.order.numpy(), want)
+    np.testing.assert_array_equal(
+        idx.ptr.numpy(), np.concatenate([[0], np.cumsum(
+            np.bincount(ids, minlength=S))]))
+    assert idx.order.dtype == idx.ptr.dtype == torch.int32
+    assert idx.num_edges == E and idx.num_segments == S
+    for s in range(S):
+        members = idx.order[idx.ptr[s]:idx.ptr[s + 1]].numpy()
+        assert (ids[members] == s).all() and (np.diff(members) > 0).all()
+    assert idx.ptr[HUB + 1] - idx.ptr[HUB] == HUB_DEG
+    # from a tensor: built on the host, kept on the tensor's device
+    idx_t = SegmentIndex.from_ids(torch.from_numpy(ids), S)
+    assert torch.equal(idx_t.order, idx.order)
+    empty = SegmentIndex.from_ids(np.zeros(0, np.int32), 5, device="cpu")
+    assert empty.num_edges == 0 and empty.ptr.tolist() == [0] * 6
+    with pytest.raises(ValueError, match="lie in"):
+        SegmentIndex.from_ids(np.array([0, 5]), 5, device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            SegmentIndex.from_ids(ids, S)
+
+
+@pytest.mark.parametrize("fn", ["segment_sum", "segment_mean",
+                                "segment_max"])
+@pytest.mark.parametrize("shape", [(E,), (E, 12), (E, H, DK)])
+def test_segment_reduce_matches_jax_fp32(fn, shape):
+    ids, x = _ids(), _data(shape)
+    want = getattr(ref, fn)(jnp.asarray(x), jnp.asarray(ids), S)
+    got = getattr(seg, fn)(_t(x), _t(ids, torch.int32), S)
+    _close(got, want, 1e-6)
+    assert got.dtype == torch.float32
+    # empty segments give 0
+    assert not got[list(EMPTY)].any()
+
+
+@pytest.mark.parametrize("fn", ["segment_sum", "segment_mean",
+                                "segment_max"])
+def test_segment_reduce_with_no_edges(fn):
+    ids = np.zeros(0, np.int32)
+    x = np.zeros((0, 6), np.float32)
+    want = getattr(ref, fn)(jnp.asarray(x), jnp.asarray(ids), 4)
+    got = getattr(seg, fn)(_t(x), _t(ids, torch.int32), 4)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.shape == (4, 6) and not got.any()
+
+
+@pytest.mark.parametrize("reduce", ["sum", "mean", "max"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_coo_spmm_matches_jax(reduce, weighted):
+    ids = _ids()
+    src = np.random.default_rng(2).integers(0, N_SRC, E).astype(np.int32)
+    x = _data((N_SRC, 16))
+    w = np.random.default_rng(3).uniform(0.1, 2.0, E).astype(np.float32)
+    kw = {"edge_weight": jnp.asarray(w)} if weighted else {}
+    want = ref.coo_spmm(jnp.asarray(src), jnp.asarray(ids), jnp.asarray(x),
+                        S, reduce=reduce, **kw)
+    kw = {"edge_weight": _t(w)} if weighted else {}
+    got = seg.coo_spmm(_t(src, torch.int32), _t(ids, torch.int32), _t(x), S,
+                       reduce=reduce, **kw)
+    _close(got, want, 1e-6)
+
+
+@pytest.mark.parametrize("layout", ["3d", "flat"])
+def test_coo_spmm_per_head_weights(layout):
+    """[E, H] weights (the port's extension): the reference's segment_sum of
+    the per-head weighted messages, as HGTConv.coo computes them."""
+    ids = _ids()
+    src = np.random.default_rng(2).integers(0, N_SRC, E).astype(np.int32)
+    x = _data((N_SRC, H, DK))
+    w = np.random.default_rng(4).uniform(0.0, 1.0, (E, H)).astype(np.float32)
+    want = ref.segment_sum(jnp.asarray(w)[..., None] * jnp.asarray(x)[src],
+                           jnp.asarray(ids), S)
+    xt = _t(x) if layout == "3d" else _t(x.reshape(N_SRC, H * DK))
+    got = seg.coo_spmm(_t(src, torch.int32), _t(ids, torch.int32), xt, S,
+                       edge_weight=_t(w))
+    _close(got.reshape(S, H, DK), want, 1e-6)
+    with pytest.raises(ValueError, match="reduce"):
+        seg.coo_spmm(_t(src, torch.int32), _t(ids, torch.int32), xt, S,
+                     reduce="median")
+
+
+@pytest.mark.parametrize("shape", [(E,), (E, H)])
+def test_segment_softmax_matches_jax(shape):
+    ids = _ids()
+    logits = _data(shape) * 3.0
+    logits[5] = -np.inf          # one edge that can never be attended
+    want = ref.segment_softmax(jnp.asarray(logits), jnp.asarray(ids), S)
+    got = seg.segment_softmax(_t(logits), _t(ids, torch.int32), S)
+    _close(got, want, 1e-6)
+    sums = seg.segment_sum(got, _t(ids, torch.int32), S)
+    present = np.bincount(ids, minlength=S) > 0
+    np.testing.assert_allclose(sums.numpy()[present], 1.0, rtol=1e-5)
+    # a segment whose logits are all -inf gives 0 (the max becomes 0)
+    lone = seg.segment_softmax(torch.tensor([-np.inf, 1.0]),
+                               torch.tensor([0, 1]), 2)
+    assert lone.tolist() == [0.0, 1.0]
+
+
+@pytest.mark.parametrize("heads", [None, H])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_sddmm_matches_jax(heads, scaled):
+    rng = np.random.default_rng(5)
+    src = rng.integers(0, N_SRC, E).astype(np.int32)
+    dst = _ids()
+    tail = (heads, DK) if heads else (DK * 2,)
+    q, k = _data((S,) + tail, 6), _data((N_SRC,) + tail, 7)
+    want = ref.sddmm(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(q),
+                     jnp.asarray(k))
+    scale = rng.uniform(0.5, 2.0, heads or 1).astype(np.float32)
+    if scaled:
+        want = want * (jnp.asarray(scale) if heads else scale[0])
+    got = seg.sddmm(_t(src, torch.int32), _t(dst, torch.int32), _t(q), _t(k),
+                    scale=_t(scale) if scaled else None)
+    assert got.shape == ((E, heads) if heads else (E,))
+    _close(got, want, 1e-6)
+
+
+@pytest.mark.parametrize("fn", ["segment_sum", "segment_mean",
+                                "segment_max", "segment_softmax"])
+def test_bf16_matches_jax_on_small_segments(fn):
+    ids = _ids()
+    deg = np.bincount(ids, minlength=S)
+    keep = deg[ids] <= 16                        # drop the hub's edges
+    ids_s = ids[keep]
+    x = _data((len(ids_s), H) if fn == "segment_softmax"
+              else (len(ids_s), 16))
+    want = getattr(ref, fn)(jnp.asarray(x, jnp.bfloat16),
+                            jnp.asarray(ids_s), S)
+    got = getattr(seg, fn)(_t(x, torch.bfloat16), _t(ids_s, torch.int32), S)
+    assert got.dtype == torch.bfloat16
+    _close(got, want, 5e-2)
+
+
+@pytest.mark.parametrize("fn", ["segment_sum", "segment_mean",
+                                "segment_max", "segment_softmax"])
+def test_bf16_is_one_rounding_of_fp32(fn):
+    ids = np.concatenate([_ids(), np.full(1, HUB, np.int32)])  # hub: 301
+    shape = (len(ids), H) if fn == "segment_softmax" else (len(ids), 16)
+    xb = torch.from_numpy(_data(shape)).to(torch.bfloat16)
+    want = getattr(ref, fn)(jnp.asarray(xb.float().numpy()),
+                            jnp.asarray(ids), S)
+    if fn == "segment_mean":
+        # the count rounded to bf16: 301 -> 300
+        deg = np.bincount(ids, minlength=S)
+        want = want * (deg / np.asarray(
+            jnp.asarray(np.maximum(deg, 1), jnp.bfloat16), np.float32)
+            .clip(min=1))[:, None]
+    got = getattr(seg, fn)(xb, _t(ids, torch.int32), S)
+    _close(got, want, 2.0 ** -8)
+
+
+def test_twins_are_differentiable_like_jax():
+    """The CPU twins carry gradients (the backward of the kernels is
+    slice 6): coo_spmm with per-edge weights and segment_softmax, against
+    jax.vjp, fp32 within 1e-5 of the scale."""
+    ids = _ids()
+    src = np.random.default_rng(2).integers(0, N_SRC, E).astype(np.int32)
+    x, logits = _data((N_SRC, 16)), _data((E, H), 8)
+    g_out, g_att = _data((S, 16), 9), _data((E, H), 10)
+
+    def f_ref(x_, l_):
+        a = ref.segment_softmax(l_, jnp.asarray(ids), S)
+        m = ref.coo_spmm(jnp.asarray(src), jnp.asarray(ids), x_, S,
+                         edge_weight=a[:, 0])
+        return m, a
+
+    (_, _), vjp = jax.vjp(f_ref, jnp.asarray(x), jnp.asarray(logits))
+    dx_ref, dl_ref = vjp((jnp.asarray(g_out), jnp.asarray(g_att)))
+    xt = _t(x).requires_grad_()
+    lt = _t(logits).requires_grad_()
+    it, st = _t(ids, torch.int32), _t(src, torch.int32)
+    a = seg.segment_softmax(lt, it, S)
+    m = seg.coo_spmm(st, it, xt, S, edge_weight=a[:, 0])
+    torch.autograd.backward((m, a), (_t(g_out), _t(g_att)))
+    _close(xt.grad, dx_ref, 1e-5)
+    _close(lt.grad, dl_ref, 1e-5)
+
+
+def test_wrappers_check_their_arguments():
+    ids = _t(_ids(), torch.int32)
+    with pytest.raises(ValueError, match="segment ids"):
+        seg.segment_sum(torch.zeros(E - 1, 3), ids, S)
+    with pytest.raises(ValueError, match="weight"):
+        seg.coo_spmm(ids, ids, torch.zeros(S, 3), S,
+                     edge_weight=torch.zeros(E - 1))
+    with pytest.raises(ValueError, match="Unknown reduce"):
+        seg.segment_reduce(torch.zeros(E, 3), ids, S, op="min")
+    with pytest.raises(ValueError, match="scale"):
+        seg.sddmm(ids, ids, torch.zeros(S, 2, 4), torch.zeros(S, 2, 4),
+                  scale=torch.ones(3))
