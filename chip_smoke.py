@@ -55,24 +55,44 @@
    lr 0.005, batch 256, four batches of labeled nodes cycled; GraphSAGE at
    fanouts (15, 10)); prints ms/step, edges/s or seeds/s, the profiler's
    device time, busy share and top ops, peak memory, first and last loss;
-9. heterogeneous inference (a typed graph of the DBLP configuration's shape,
-   examples/configs/dblp_hetero_nalp_task_config.yaml, at the flagship's
-   scale: 100k papers, 50k authors, 400k author-writes-paper edges and
-   their reverse, 1M paper-cites-paper edges, fp32 features 128 wide, numpy
-   seed 0): times the SegmentIndex builds on the host; holds K8
-   segment_reduce (sum, mean, max, and the per-head weighted sum of HGT),
-   K9 segment_softmax and K10 sddmm against their plain versions at the
-   papers' 1.4M in-edges, H*dk = 128, with bounds and library yardsticks;
-   then runs run_full_graph_inference_hetero for the configuration's HGT
-   (4 heads, hidden 128, out 64, 2 layers, final linear, fp32) and for
-   RGCN with 2 bases at the same widths, and the sampled typed HGT path
-   (HeteroNALPTrainer.encode_batch over node_batches of 512, every node of
-   both types, live and tabularized, with the yaml's message-passing
-   paths), each with the launch counts reset just before and read just
-   after, the export checked and the pass (sampled: batch 0 of each type)
-   recomputed through the plain versions; prints encode ms, nodes/s,
-   device ms, busy share and peak memory;
-10. prints one JSON line with every kernel's numbers, then the card line,
+9. full-batch training over the COO segment ops (the same graph, labels
+   and widths): times the two SegmentIndex builds (destination and source)
+   on the host; holds K8b segment_reduce_bwd (sum, mean, max with ties,
+   per-head weighted) over the whole source walk at layer 2's [100k, 256]
+   fp32 cotangent, K9b segment_softmax_bwd at [2M, 4] and the sddmm
+   backward (K10b's coefficients and the scale's cotangent, with K8 for dq
+   and K8b for dk; 4 heads of 64) against autograd through the plain
+   twins, with bounds and yardsticks (index_add_ of the gathered rows; the
+   torch composition of the softmax backward), each repeated for the same
+   bits; then per model (GraphSAGE mean, GAT v1 and Transformer, 4 heads)
+   FullBatchTrainer(build_ell=False) — one step against the same step
+   through the plain twins, then 3 + 50 steps with the launch counts reset
+   just before and read just after, and 5 profiled;
+10. heterogeneous inference and training (a typed graph of the DBLP
+   configuration's shape, examples/configs/dblp_hetero_nalp_task_config.yaml,
+   at the flagship's scale: 100k papers, 50k authors, 400k
+   author-writes-paper edges and their reverse, 1M paper-cites-paper edges,
+   fp32 features 128 wide, numpy seed 0): times the SegmentIndex builds on
+   the host; holds K8 segment_reduce (sum, mean, max, and the per-head
+   weighted sum of HGT), K9 segment_softmax and K10 sddmm against their
+   plain versions at the papers' 1.4M in-edges, H*dk = 128, with bounds and
+   library yardsticks; then runs run_full_graph_inference_hetero for the
+   configuration's HGT (4 heads, hidden 128, out 64, 2 layers, final
+   linear, fp32) and for RGCN with 2 bases at the same widths, and the
+   sampled typed HGT path (HeteroNALPTrainer.encode_batch over node_batches
+   of 512, every node of both types, live and tabularized, with the yaml's
+   message-passing paths), each with the launch counts reset just before
+   and read just after, the export checked and the pass (sampled: batch 0
+   of each type) recomputed through the plain versions; prints encode ms,
+   nodes/s, device ms, busy share and peak memory. Then typed NALP training
+   for HGT and RGCN (the yaml's: papers anchored on author-writes-paper,
+   authors as candidates, batch 512, 1 positive, 512 random negatives,
+   retrieval loss at temperature 0.07, Adam 1e-3, live draws): one step
+   against the same step through the plain versions, then 5 + 100 steps
+   with the launch counts reset just before and read just after, 5
+   profiled, and evaluate over 4 batches; prints ms/step and edges/s
+   (counted over the typed tree as bench.py:631-638 counts them);
+11. prints one JSON line with every kernel's numbers, then the card line,
    then {"ok": true, ...} as the last line.
 
 Any failed check raises; nothing is printed as a result without a card.
@@ -118,6 +138,13 @@ NC_MODELS = {"gat": (3, (15, 10, 5), {"heads": 4}),
 NC_HID, NC_BATCH, NC_LR = 64, 256, "0.005"
 NC_STEPS, NC_WARMUP, NC_PROFILED = 50, 3, 5
 NC_LABELED = 4              # batches of labeled nodes, cycled
+COO_KERNELS = {
+    "graphsage": ("segment_reduce", "segment_reduce_bwd"),
+    "gat": ("gather_rows", "segment_reduce", "segment_reduce_bwd",
+            "segment_softmax", "segment_softmax_bwd", "sddmm"),
+    "transformer": ("sddmm", "segment_softmax", "segment_reduce",
+                    "segment_reduce_bwd", "segment_softmax_bwd",
+                    "sddmm_bwd")}
 NC_KERNELS = {
     "graphsage": ("sample_uniform", "gather_rows", "masked_reduce",
                   "masked_reduce_bwd"),
@@ -142,6 +169,14 @@ TYPED_FULL_KERNELS = {"hgt": ("sddmm", "segment_softmax", "segment_reduce"),
                       "rgcn": ("segment_reduce",)}
 TYPED_SAMPLED_KERNELS = ("sample_uniform", "gather_rows", "fanout_attention")
 TYPED_PROFILED = 3
+# typed NALP training (the yaml's: batch 512, 1 positive, 512 random
+# negatives, retrieval at temperature 0.07, Adam 1e-3)
+TT_STEPS, TT_WARMUP, TT_PROFILED, TT_EVAL_BATCHES = 100, 5, 5, 4
+TYPED_TRAIN_KERNELS = {
+    "hgt": ("sample_uniform", "uniform_ids", "gather_rows",
+            "fanout_attention", "fanout_attention_bwd", "retrieval_loss"),
+    "rgcn": ("sample_uniform", "uniform_ids", "gather_rows", "masked_reduce",
+             "masked_reduce_bwd", "retrieval_loss")}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 # ReLU gates the plain step may see on the other side of 0 (fp32 rounding)
@@ -248,10 +283,14 @@ def profile_summary(prof, steps, window_us, host_ms_per_step):
 def plain_kernels():
     """Every kernel wrapper of the training, full-graph and typed paths
     replaced by its plain PyTorch twin, on whatever device the tensors are:
-    the same step or pass computed without a kernel, on the card."""
-    from gigl_tpu_torch.models import hetero_convs
+    the same step or pass computed without a kernel, on the card. The
+    segment ops become their forward twins, differentiated by PyTorch's
+    autograd (not the port's backward kernels); the retrieval loss runs
+    its twins inside its autograd.Function."""
+    from gigl_tpu_torch.losses import losses
+    from gigl_tpu_torch.models import convs, hetero_convs
     from gigl_tpu_torch.ops import (
-        attention, ell_aggregate, fanout, gather, segment)
+        attention, ell_aggregate, fanout, gather, retrieval, segment)
     from gigl_tpu_torch.sampling import neighbor_sampler
     from gigl_tpu_torch.training import dataset, hetero_dataset
 
@@ -283,14 +322,17 @@ def plain_kernels():
         return gather._gather_rows_plain(table, ids, row_vals)
 
     def seg_reduce(x, ids, n, *, op="sum", src=None, weight=None,
-                   index=None):
+                   index=None, src_index=None):
         return segment._segment_reduce_plain(x, ids, n, op, src, weight)
 
     def seg_softmax(logits, ids, n, *, index=None):
         return segment._segment_softmax_plain(logits, ids, n)
 
-    def dot(src, dst, q, k, *, scale=None):
+    def dot(src, dst, q, k, *, scale=None, index=None, src_index=None):
         return segment._sddmm_plain(src, dst, q, k, scale)
+
+    def edge_rows(table, ids, *, index=None):
+        return table[ids.long()]
 
     patches = [
         (ell_aggregate, "_ell_aggregate_fwd", agg_fwd),
@@ -305,9 +347,14 @@ def plain_kernels():
          neighbor_sampler._sample_uniform_plain),
         (segment, "segment_reduce", seg_reduce),
         (hetero_convs, "segment_softmax", seg_softmax),
-        (hetero_convs, "sddmm", dot),
+        (hetero_convs, "sddmm", dot), (hetero_convs, "gather_edges", edge_rows),
+        (convs, "segment_softmax", seg_softmax), (convs, "sddmm", dot),
+        (convs, "gather_edges", edge_rows),
         (hetero_dataset, "gather_rows", rows),
-        (hetero_dataset, "expand_table", gather._expand_table_plain)]
+        (hetero_dataset, "expand_table", gather._expand_table_plain),
+        (dataset, "uniform_ids", neighbor_sampler._uniform_ids_plain),
+        (losses, "retrieval_fwd", retrieval._retrieval_fwd_plain),
+        (losses, "retrieval_bwd", retrieval._retrieval_bwd_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
     for m, n, f in patches:
         setattr(m, n, f)
@@ -318,11 +365,15 @@ def plain_kernels():
             setattr(m, n, f)
 
 
-def step_vs_plain(model, loss_fn, launches):
+def step_vs_plain(model, loss_fn, launches, gated=True, symmetric=()):
     """One step's loss and gradients through the kernels and again through
     the plain twins (no kernel may launch), from the same weights: the
     loss's relative error and each parameter's max gradient error over its
-    scale. The plain step reuses the kernel step's ReLU gates: the two
+    scale. ``symmetric``: the names of parameters whose gradient is zero by
+    symmetry (held to 1e-2 of the largest gradient instead, see below).
+    ``gated``: the model's ``activation`` is a ReLU (the typed
+    models have none: HGT's GELU is smooth, RGCN has no activation). The
+    plain step reuses the kernel step's ReLU gates: the two
     forwards round differently, and a pre-activation within an fp32 ulp of
     0 may take the other side of the gate there, which moves a layer-1
     weight gradient by ~1/sqrt(rows) of its scale (one row's share of the
@@ -345,42 +396,62 @@ def step_vs_plain(model, loss_fn, launches):
                     if flips[-1] else 0.0)
         return x * m
 
-    act = model.activation
+    act = getattr(model, "activation", None)
     model.zero_grad(set_to_none=True)
-    model.activation = record
+    if gated:
+        model.activation = record
     loss_k = loss_fn()
     loss_k.backward()
     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
     before = dict(launches)
-    model.activation = replay
+    if gated:
+        model.activation = replay
     with plain_kernels():
         loss_p = loss_fn()
         loss_p.backward()
-    model.activation = act
+    if gated:
+        model.activation = act
     torch.cuda.synchronize()
     check(dict(launches) == before, "the plain step launched a kernel")
     check(len(flips) == len(gates), "the plain step's gates differ")
     n_gates = int(sum(int(m.numel()) for m in gates))
     check(sum(flips) <= max(FLIPS_MAX, n_gates // 10**6),
           f"{sum(flips)} of {n_gates} ReLU gates flipped in the plain step")
-    check(max(near, default=0.0) <= FLIP_NEAR_ZERO,
-          f"a flipped ReLU gate's pre-activation is {max(near)} of its "
-          "layer's scale from 0")
-    errs = {}
+    worst = max(near, default=0.0)
+    check(worst <= FLIP_NEAR_ZERO, f"a flipped ReLU gate's pre-activation "
+          f"is {worst} of its layer's scale from 0")
+    # each error over its parameter's own scale; a parameter named in
+    # ``symmetric`` has a gradient that is zero by symmetry, so rounding
+    # noise on both sides: it must be below 1e-3 of the largest, and its
+    # error is taken over 1e-2 of the largest instead
+    largest = max(float(g_.abs().max()) for g_ in grads.values())
+    floor = 1e-2 * largest
+    errs, exempt = {}, {}
     for n, p in model.named_parameters():
+        check(p.grad is not None, f"plain step: no gradient for {n}")
         scale = float(p.grad.abs().max())
-        check(scale > 0, f"plain step: no gradient for {n}")
-        errs[n] = float((grads[n] - p.grad).abs().max()) / scale
+        err = float((grads[n] - p.grad).abs().max())
+        if n in symmetric:
+            check(scale <= 1e-3 * largest, f"plain step: {n}'s gradient "
+                  f"({scale}) is not zero by symmetry (largest {largest})")
+            exempt[n] = scale / largest
+            errs[n] = err / floor
+        else:
+            check(scale > 0, f"plain step: no gradient for {n}")
+            errs[n] = err / scale
+    check(set(exempt) == set(symmetric),
+          f"plain step: no parameters {sorted(set(symmetric) - set(exempt))}")
     model.zero_grad(set_to_none=True)
     lk, lp = float(loss_k.detach()), float(loss_p.detach())
-    return {"loss": lk, "loss_plain": lp,
+    return {"loss": lk, "loss_plain": lp, "grad_floor": floor,
+            "symmetric_grad_rel_to_largest": exempt,
             "loss_rel_err": abs(lk - lp) / abs(lp),
             "grad_err_rel_to_scale": errs,
             "max_grad_err_rel_to_scale": max(errs.values()),
             "relu_gates": n_gates,
             "relu_gates_flipped_in_plain_forward": sum(flips),
-            "flipped_preactivation_rel_to_scale": max(near, default=0.0)}
+            "flipped_preactivation_rel_to_scale": worst}
 
 
 class Sink:
@@ -409,9 +480,10 @@ class Sink:
 
 
 def typed_phases(dev, card, record, rel_err, unique):
-    """Phase 9 (see the module docstring): the typed graph, the segment
-    kernels K8-K10, the exact typed passes (HGT, RGCN) and the sampled
-    typed HGT path (live, tabularized). Returns {path: launch counts}."""
+    """Phase 10 (see the module docstring): the typed graph, the segment
+    kernels K8-K10, the exact typed passes (HGT, RGCN), the sampled typed
+    HGT path (live, tabularized) and typed NALP training (HGT, RGCN).
+    Returns {path: launch counts}."""
     from gigl_tpu_torch.graph.csr import HeteroGraph
     from gigl_tpu_torch.inference.inferencer import (
         InferenceConfig, node_batches, run_full_graph_inference_hetero)
@@ -456,16 +528,21 @@ def typed_phases(dev, card, record, rel_err, unique):
           "device_bytes": sum(f.nbytes for f in feats.values())
           + n_edges * 2 * 4})
     edges_np = {str(et): (coo[0], coo[1]) for et, coo in graph.edges.items()}
-    seg_s = {}
+    # inference builds the forward's indexes; a gradient also walks the
+    # source-sorted and per-relation ones
+    seg_s, seg_bwd_s = {}, {}
     for by in ("dst", "relation"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        built = TypedSegments.build(edges_np, num_nodes, by, dev)
-        torch.cuda.synchronize()
-        seg_s[by] = time.perf_counter() - t0
-        if by == "dst":
-            seg_dst = built
+        for backward, into in ((False, seg_s), (True, seg_bwd_s)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            built = TypedSegments.build(edges_np, num_nodes, by, dev,
+                                        backward=backward)
+            torch.cuda.synchronize()
+            into[by] = time.perf_counter() - t0
+            if by == "dst" and not backward:
+                seg_dst = built
     emit({"phase": "segment_index", "build_s": seg_s,
+          "build_s_with_backward": seg_bwd_s,
           "in_edges": {nt: i.num_edges for nt, i in seg_dst.index.items()}})
 
     # -- K8, K9, K10 at the papers' 1.4M in-edges, H*dk = 128, fp32 -----------
@@ -527,14 +604,17 @@ def typed_phases(dev, card, record, rel_err, unique):
     alpha = k9()
     err9 = rel_err(alpha, k9_plain(), "K9 segment_softmax", tol=1e-5)
     dst_l = dst_p.long()
-    ex = torch.exp(logits)
     idx_h = dst_l[:, None].expand(e_p, h)
 
     def k9_library():
         m_ = torch.full((HET_PAPERS, h), float("-inf"), device=dev)
         m_.scatter_reduce_(0, idx_h, logits, "amax")
-        return torch.zeros((HET_PAPERS, h), device=dev).index_add_(0, dst_l,
-                                                                    ex)
+        ex_ = torch.exp(logits - m_[dst_l])
+        den = torch.zeros((HET_PAPERS, h), device=dev).index_add_(0, dst_l,
+                                                                   ex_)
+        return ex_ / den[dst_l]
+
+    rel_err(k9_library(), alpha, "torch composition vs K9", tol=2e-5)
 
     # bytes: the logits and the index read once, alpha written; ops: max,
     # subtract, exp, add and divide per (edge, head)
@@ -543,10 +623,10 @@ def typed_phases(dev, card, record, rel_err, unique):
            cuda_ms(k9_plain, reps=3),
            nbytes=e_p * h * 4 * 2 + e_p * 4 + (HET_PAPERS + 1) * 4,
            nops=e_p * h * 5, library_ms=cuda_ms(k9_library),
-           library_call="scatter_reduce_(amax) + index_add_ of the exps "
-           "(the shift, exp and division between them not timed)",
+           library_call="the softmax in PyTorch: scatter_reduce_(amax), "
+           "the shift and exp, index_add_ of the exps, the division",
            edges=e_p, heads=h, eager_ms=eager_ms(k9))
-    del ex, idx_h
+    del idx_h
 
     k8 = {}
     for mode, op, w in (("weighted", "sum", alpha), ("sum", "sum", None),
@@ -629,7 +709,8 @@ def typed_phases(dev, card, record, rel_err, unique):
         got = {nt: sinks[nt].table(n, HET_OUT, path)
                for nt, n in num_nodes.items()}
         segs = TypedSegments.build(edges_np, num_nodes,
-                                   enc.convs[0].segments_by, dev)
+                                   enc.convs[0].segments_by, dev,
+                                   backward=False)
         before = dict(_build.launches)
         with torch.inference_mode():
             with plain_kernels():
@@ -745,6 +826,322 @@ def typed_phases(dev, card, record, rel_err, unique):
                   prof, 20, window_us, window_us / 20 / 1e3),
               "card": card})
         del trainer, sinks
+
+    # -- typed training: the DBLP yaml's configuration ------------------------
+    writes = EdgeType.from_str(WRITES)
+    t0 = time.perf_counter()
+    dg_t = HeteroDeviceGraph.from_hetero(
+        graph, paths, supervision_edge_type=writes,
+        supervision_edges=graph.edges[writes], supervision_anchor="dst",
+        device=dev)
+    torch.cuda.synchronize()
+    emit({"phase": "typed_train_graph", "seconds": time.perf_counter() - t0,
+          "supervision_edges": int(graph.edges[writes].shape[1])})
+    tcfg = HeteroNALPTrainerConfig(
+        "paper", "author", num_positives=1, num_hard_negs=0,
+        num_random_negs=R, loss_type="retrieval", temperature=0.07)
+    n_anchor = TT_WARMUP + TT_STEPS + TT_PROFILED + 1
+    anchors_t = (np.arange(BATCH * n_anchor) % HET_PAPERS).astype(
+        np.int32).reshape(n_anchor, BATCH)
+    # forward-aggregated edges per step, as bench.py:631-638 counts them
+    # over a fanout tree: an op's slots are aggregated once by each layer
+    # that updates its parent entry (L - depth + 1 of the L = 2 layers)
+    per_root = {}
+    for nt, spec in paths.items():
+        slots = []
+        for op in spec:
+            slots.append(op.fanout * (1 if op.parent < 0
+                                      else slots[op.parent]))
+        per_root[nt] = sum(k * max(0, 3 - op.depth)
+                           for k, op in zip(slots, spec))
+    edges_step = per_root["paper"] * BATCH + per_root["author"] * (
+        BATCH * tcfg.num_positives + R)
+    # HGT's last update of the candidates (authors) adds one bias to every
+    # candidate's embedding: each anchor's scores all move by the same
+    # amount, and the retrieval loss leaves that bias no gradient
+    symmetric = {"hgt": ("encoder.convs.1.a_author.bias",), "rgcn": ()}
+    for conv in ("hgt", "rgcn"):
+        path = f"typed_train_{conv}"
+        trainer = HeteroNALPTrainer(
+            HeteroLinkPredictionGNN(make_encoder(conv),
+                                    LinkPredictionDecoder()), dg_t, paths,
+            tcfg, optimizer_args={"learning_rate": "1e-3"}, device=dev)
+        state = trainer.init_state(0)
+        # the batch is drawn inside the loss, so the plain step draws it
+        # through the twins too
+        vs = step_vs_plain(trainer.model, lambda: trainer.loss(
+            trainer.sample_batch(anchors_t[-1], 0)), _build.launches,
+            gated=False, symmetric=symmetric[conv])
+        emit({"phase": "typed_train_step_vs_plain", "model": conv, **vs})
+        # fp32: the same sums in another order
+        check(vs["loss_rel_err"] <= 1e-5,
+              f"{path}: loss differs from the plain step: {vs}")
+        check(vs["max_grad_err_rel_to_scale"] <= 1e-4,
+              f"{path}: a gradient differs from the plain step: {vs}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        _build.reset_launches()
+        gen_t = torch.Generator(device=dev).manual_seed(1)
+        state, warm = trainer.train_steps(state, anchors_t[:TT_WARMUP], gen_t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, losses = trainer.train_steps(
+            state, anchors_t[TT_WARMUP:TT_WARMUP + TT_STEPS], gen_t)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / TT_STEPS
+        counts[path] = dict(_build.launches)
+        peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+        emit({"phase": "main_path", "path": path, "launches": counts[path],
+              "steps": TT_WARMUP + TT_STEPS})
+        for k in TYPED_TRAIN_KERNELS[conv]:
+            check(counts[path][k] > 0, f"{k} was not launched on {path}")
+        losses = losses.cpu().numpy()
+        check(np.isfinite(losses).all() and np.isfinite(warm.cpu().numpy())
+              .all(), f"{path}: loss not finite")
+        first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+        check(last < first, f"{path}: loss did not fall: {first} -> {last}")
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = trainer.train_steps(
+                state, anchors_t[TT_WARMUP + TT_STEPS:-1], gen_t)
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t0) * 1e6
+        metrics = trainer.evaluate(list(anchors_t[:TT_EVAL_BATCHES]),
+                                   step=state.step)
+        check(0.0 <= metrics["mrr"] <= 1.0, f"{path}: MRR {metrics}")
+        emit({"phase": "typed_train_throughput", "model": conv,
+              "steps": TT_STEPS, "ms_per_step": step_s * 1e3,
+              "edges_per_step": edges_step,
+              "edges_per_s": edges_step / step_s,
+              "loss_first10": first, "loss_last10": last,
+              "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+              "peak_mem_gb": peak_gb, "evaluate_4_batches": metrics,
+              "profile": profile_summary(prof, TT_PROFILED, window_us,
+                                         step_s * 1e3), "card": card})
+        del trainer, state
+    return counts
+
+
+def coo_phases(dev, card, graph, record, rel_err, run_path):
+    """Phase 9 (see the module docstring): full-batch training over the
+    COO segment ops — the two SegmentIndexes, the backward kernels K8b,
+    K9b, K10b at layer 2's shapes, then per model a step against its plain
+    recomputation and the path itself. Returns {path: (launch counts,
+    steps)}."""
+    from gigl_tpu_torch.models.encoders import GNNEncoder
+    from gigl_tpu_torch.ops import _build
+    from gigl_tpu_torch.ops.segment import (
+        SegmentIndex, _sddmm_bwd_coef_plain, _sddmm_plain,
+        _segment_reduce_bwd_plain, _segment_reduce_plain,
+        _segment_softmax_bwd_plain, _segment_softmax_plain, sddmm,
+        sddmm_bwd_coef, segment_reduce_bwd, segment_softmax,
+        segment_softmax_bwd)
+    from gigl_tpu_torch.training.full_batch import (
+        FullBatchTrainer, full_batch_data_from_graph)
+
+    coo = graph.edges[graph.metadata.edge_types[0]]
+    build_s = {}
+    for side, ids in (("dst", coo[1]), ("src", coo[0])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        SegmentIndex.from_ids(ids, N, dev)
+        torch.cuda.synchronize()
+        build_s[side] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fb = full_batch_data_from_graph(graph, build_ell=False, device=dev)
+    torch.cuda.synchronize()
+    fb_s = time.perf_counter() - t0
+    idx, sidx, src, dst = fb.index, fb.src_index, fb.src, fb.dst
+    emit({"phase": "full_batch_data", "path": "coo", "seconds": fb_s,
+          "index_build_s": build_s, "edges": idx.num_edges,
+          "max_in_degree": int((idx.ptr[1:] - idx.ptr[:-1]).max()),
+          "max_out_degree": int((sidx.ptr[1:] - sidx.ptr[:-1]).max())})
+    check(fb.ell is None and idx.num_edges == E, "the COO data is not the "
+          "graph's edges")
+    dst_l, src_l = dst.long(), src.long()
+    gen = torch.Generator(device=dev).manual_seed(10)
+
+    # K8b over the whole source walk, layer 2's [100k, 256] fp32 cotangent,
+    # against autograd through K8's plain twin. bytes: the cotangent, the
+    # dst ids, the source index and the output once (weighted: + [E, 4]
+    # fp32; mean: + the dst pointers; max: + the forward rows and the dst
+    # index, read by the tie pass); ops: an add (and a multiply) per edge
+    # and value.
+    g8 = torch.randn((N, HID), generator=gen, device=dev)
+    w8 = torch.rand((E, GAT_HEADS), generator=gen, device=dev)
+    x8 = (torch.randn((N, HID), generator=gen, device=dev) * 2).round()
+    base8 = N * HID * 4 * 2 + E * 8 + (N + 1) * 4
+    k8b = {}
+    for mode, op, w in (("sum", "sum", None), ("mean", "mean", None),
+                        ("max", "max", None), ("weighted", "sum", w8)):
+        xin = x8 if op == "max" else None
+
+        def k8b_kernel(op=op, w=w, xin=xin):
+            return segment_reduce_bwd(g8, dst, N, op=op, src=src, weight=w,
+                                      x=xin, index=idx, src_index=sidx)
+
+        def k8b_plain(op=op, w=w, xin=xin):
+            return _segment_reduce_bwd_plain(g8, dst, N, op, src, w, xin)
+
+        xx = x8.clone().requires_grad_()
+        _segment_reduce_plain(xx, dst, N, op, src, w).backward(g8)
+        got = k8b_kernel()
+        err = rel_err(got, xx.grad, f"K8b {mode}", tol=1e-5)
+        check(torch.equal(got, k8b_kernel()), f"K8b {mode}: a repeat run "
+              "differs")
+        nbytes = base8 + {"sum": 0, "mean": (N + 1) * 4,
+                          "max": N * HID * 4 + E * 4 + (N + 1) * 4,
+                          "weighted": E * GAT_HEADS * 4}[mode]
+        k8b[mode] = {"err": err, "ms": cuda_ms(k8b_kernel),
+                     "plain_ms": cuda_ms(k8b_plain, reps=3),
+                     "eager_ms": eager_ms(k8b_kernel),
+                     "bound_ms": bound_ms(nbytes, E * HID * (
+                         2 if w is not None else 1))[0], "nbytes": nbytes}
+        del xx, got
+    cnt = (idx.ptr[1:] - idx.ptr[:-1]).float().clamp(min=1.0)
+    rows8 = g8[dst_l] / cnt[dst_l][:, None]     # gathered beforehand
+
+    def k8b_library():
+        return torch.zeros((N, HID), device=dev).index_add_(0, src_l, rows8)
+
+    rel_err(k8b_library(), segment_reduce_bwd(
+        g8, dst, N, op="mean", src=src, index=idx, src_index=sidx),
+        "index_add_ yardstick vs K8b mean", tol=1e-5)
+    record("segment_reduce_bwd", "gigl_tpu_torch/csrc/segment_reduce_bwd.cu",
+           "gigl_tpu/ops/segment.py:20", max(v["err"] for v in k8b.values()),
+           k8b["mean"]["ms"], k8b["mean"]["plain_ms"],
+           nbytes=k8b["mean"]["nbytes"], nops=E * HID,
+           library_ms=cuda_ms(k8b_library),
+           library_call="torch.Tensor.index_add_ of the cotangent rows "
+                        "gathered by dst and divided by the count (atomics; "
+                        "gather and division not timed) = the mean mode",
+           table=[N, HID], dtype="float32", edges=E,
+           eager_ms=k8b["mean"]["eager_ms"],
+           modes={m_: {k_: v_ for k_, v_ in v.items() if k_ != "nbytes"}
+                  for m_, v in k8b.items()})
+    del g8, w8, x8, rows8
+
+    # K9b at [2M, 4]: alpha from K9, a random cotangent, against autograd
+    # through K9's plain twin. bytes: alpha and g read, dlogits written,
+    # the index; ops: a multiply-add for the sum, a subtract and a multiply.
+    lg9 = torch.randn((E, GAT_HEADS), generator=gen, device=dev) * 3
+    alpha9 = segment_softmax(lg9, dst, N, index=idx)
+    g9 = torch.randn((E, GAT_HEADS), generator=gen, device=dev)
+
+    def k9b_kernel():
+        return segment_softmax_bwd(alpha9, g9, dst, N, index=idx)
+
+    def k9b_plain():
+        return _segment_softmax_bwd_plain(alpha9, g9, dst, N)
+
+    def k9b_library():
+        ag = alpha9 * g9
+        return alpha9 * (g9 - torch.zeros((N, GAT_HEADS), device=dev)
+                         .index_add_(0, dst_l, ag)[dst_l])
+
+    lt = lg9.clone().requires_grad_()
+    _segment_softmax_plain(lt, dst, N).backward(g9)
+    got9 = k9b_kernel()
+    err9 = rel_err(got9, lt.grad, "K9b", tol=2e-5)
+    check(torch.equal(got9, k9b_kernel()), "K9b: a repeat run differs")
+    rel_err(k9b_library(), got9, "torch composition vs K9b", tol=2e-5)
+    record("segment_softmax_bwd",
+           "gigl_tpu_torch/csrc/segment_softmax_bwd.cu",
+           "gigl_tpu/ops/segment.py:51", err9, cuda_ms(k9b_kernel),
+           cuda_ms(k9b_plain, reps=3),
+           nbytes=E * GAT_HEADS * 4 * 3 + E * 4 + (N + 1) * 4,
+           nops=E * GAT_HEADS * 4, library_ms=cuda_ms(k9b_library),
+           library_call="alpha * (g - index_add_(alpha * g)[dst]) in "
+                        "PyTorch (one multiply, one index_add_, a gather, "
+                        "a subtract and a multiply)",
+           edges=E, heads=GAT_HEADS, eager_ms=eager_ms(k9b_kernel))
+    del lg9, alpha9, g9, lt, got9
+
+    # K10b at the Transformer's layer 2 (4 heads of 64): the coefficient
+    # pass with the scale's cotangent, and the whole sddmm backward (K10
+    # unscaled, K10b, K8 for dq, K8b for dk) against autograd through
+    # K10's plain twin. bytes: g and raw read, coef written; ops: a
+    # multiply for coef and a multiply-add for dscale per (edge, head).
+    q10, k10 = (torch.randn((N, GAT_HEADS, HID // GAT_HEADS), generator=gen,
+                            device=dev) for _ in range(2))
+    sc10 = torch.full((GAT_HEADS,), (HID // GAT_HEADS) ** -0.5, device=dev)
+    g10 = torch.randn((E, GAT_HEADS), generator=gen, device=dev)
+    raw10 = sddmm(src, dst, q10, k10)
+
+    def k10b_kernel():
+        return sddmm_bwd_coef(g10, sc10, raw10)
+
+    def k10b_plain():
+        return _sddmm_bwd_coef_plain(g10, sc10, raw10)
+
+    def full_bwd(fn):
+        leaves = [t.clone().requires_grad_() for t in (q10, k10, sc10)]
+        fn(*leaves).backward(g10)
+        return [t_.grad for t_ in leaves]
+
+    def kernel_bwd():
+        return full_bwd(lambda q_, k_, s_: sddmm(
+            src, dst, q_, k_, scale=s_, index=idx, src_index=sidx))
+
+    got10, want10 = kernel_bwd(), full_bwd(
+        lambda q_, k_, s_: _sddmm_plain(src, dst, q_, k_, s_))
+    err10 = max(rel_err(a, b, f"sddmm backward {n_}", tol=1e-5)
+                for n_, a, b in zip(("dq", "dk", "dscale"), got10, want10))
+    check(all(torch.equal(a, b) for a, b in zip(got10, kernel_bwd())),
+          "the sddmm backward: a repeat run differs")
+    record("sddmm_bwd", "gigl_tpu_torch/csrc/sddmm_bwd.cu",
+           "gigl_tpu/ops/segment.py:90", err10, cuda_ms(k10b_kernel),
+           cuda_ms(k10b_plain, reps=3),
+           nbytes=E * GAT_HEADS * 4 * 3 + GAT_HEADS * 4,
+           nops=E * GAT_HEADS * 3, library_ms=None,
+           library_call="none: no single PyTorch call computes the "
+                        "coefficients and the scale's cotangent",
+           edges=E, heads=GAT_HEADS, eager_ms=eager_ms(k10b_kernel),
+           whole_backward_eager_ms=eager_ms(kernel_bwd, reps=10),
+           whole_backward_plain_eager_ms=eager_ms(lambda: full_bwd(
+               lambda q_, k_, s_: _sddmm_plain(src, dst, q_, k_, s_)),
+               reps=3))
+    del q10, k10, g10, raw10, got10, want10
+
+    counts = {}
+    for model_name, kw in (("graphsage", None),
+                           ("gat", {"heads": GAT_HEADS}),
+                           ("transformer", {"heads": GAT_HEADS})):
+        path = f"coo_full_batch_{model_name}"
+        fbt = FullBatchTrainer(
+            GNNEncoder(D, HID, C, num_layers=2, conv=model_name,
+                       conv_kwargs=kw), fb,
+            optimizer_args={"learning_rate": "1e-2"}, device=dev)
+        state = fbt.init_state(0)
+        # the Transformer's key bias shifts all of a destination's logits
+        # alike, so the softmax leaves it no gradient
+        vs = step_vs_plain(fbt.encoder, fbt.loss, _build.launches,
+                           symmetric=tuple(
+                               f"convs.{i}.lin_k.bias" for i in range(2)
+                               if model_name == "transformer"))
+        emit({"phase": "coo_full_batch_step_vs_plain", "model": model_name,
+              **vs})
+        # fp32: the same sums in another order
+        check(vs["loss_rel_err"] <= 1e-5,
+              f"{path}: loss differs from the plain step: {vs}")
+        check(vs["max_grad_err_rel_to_scale"] <= 1e-4,
+              f"{path}: a gradient differs from the plain step: {vs}")
+        cnt_, nsteps, row = run_path(path, fbt, state, FB_STEPS, FB_WARMUP,
+                                     FB_PROFILED, COO_KERNELS[model_name])
+        counts[path] = (cnt_, nsteps)
+        if model_name == "graphsage":
+            # layer 2's aggregate only: layer 1's input needs no gradient
+            check(cnt_["segment_reduce_bwd"] == nsteps,
+                  f"K8b launched {cnt_['segment_reduce_bwd']} times in "
+                  f"{nsteps} steps, not once per step (layer 2 only)")
+        step_s = row["ms_per_step"] / 1e3
+        emit({"phase": "coo_full_batch_train_throughput", "model": model_name,
+              "edges_per_step": 2 * E, "edges_per_s": 2 * E / step_s,
+              "nodes_per_s": N / step_s, **row})
+        del fbt, state
     return counts
 
 
@@ -1775,11 +2172,14 @@ def main():
               **row})
         del nct, state
 
+    coo = coo_phases(dev, card, graph, record, rel_err, run_path)
     typed = typed_phases(dev, card, record, rel_err, unique)
+    tt_steps = TT_WARMUP + TT_STEPS
 
     # launches on every kernel row: the training path's (K6 / K7: the
     # full-graph passes'; K6b / K7b: the node-classification paths'; K8-K10:
-    # the exact typed passes'), and per pass or step of each other path
+    # the exact typed passes'; K8b-K10b: the COO full-batch paths'), and
+    # per pass or step of each other path
     per_pass = {"sample_uniform": 1, "build_neighbor_cache": 1,
                 "gather_rows": n_batches, "masked_reduce": n_batches}
     for row in results:
@@ -1793,6 +2193,8 @@ def main():
         elif k in ("segment_reduce", "segment_softmax", "sddmm"):
             row["launches"] = sum(typed[p_][k] for p_ in typed
                                   if p_.startswith("typed_full"))
+        elif k in ("segment_reduce_bwd", "segment_softmax_bwd", "sddmm_bwd"):
+            row["launches"] = sum(c_[k] for c_, _ in coo.values())
         else:
             row["launches"] = sum(fg.values())
         row["launches_per_step"] = (launches[k] - after_init[k]) / (
@@ -1803,10 +2205,16 @@ def main():
         row["launches_per_full_graph_pass"] = fg
         row["launches_per_nc_step"] = {
             p_: c_[k] / n_ for p_, (c_, n_) in nc_launches.items()}
-        row["launches_per_typed_pass"] = {p_: c_[k]
-                                          for p_, c_ in typed.items()}
-    check(len(results) == len(_build.KERNEL_NAMES) == 14,
-          "the kernels line does not list all fourteen kernels")
+        row["launches_per_coo_step"] = {
+            p_: c_[k] / n_ for p_, (c_, n_) in coo.items()}
+        row["launches_per_typed_pass"] = {
+            p_: c_[k] for p_, c_ in typed.items()
+            if not p_.startswith("typed_train")}
+        row["launches_per_typed_train_step"] = {
+            p_: c_[k] / tt_steps for p_, c_ in typed.items()
+            if p_.startswith("typed_train")}
+    check(len(results) == len(_build.KERNEL_NAMES) == 17,
+          "the kernels line does not list all seventeen kernels")
     results.sort(key=lambda r: _build.KERNEL_NAMES.index(r["name"]))
 
     emit({"kernels": results})

@@ -214,7 +214,7 @@ def run_full_graph_inference_hetero(
                  for t in graph.metadata.node_types}
     segments = encoder.segments(
         {str(et): (coo[0], coo[1]) for et, coo in graph.edges.items()},
-        num_nodes, device)
+        num_nodes, device, backward=False)
     with torch.inference_mode():
         embs = encoder.encode_full(features, edges, num_nodes,
                                    segments=segments)

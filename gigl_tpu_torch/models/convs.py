@@ -10,13 +10,24 @@ Ported: ``SAGEConv``, ``GCNConv``, ``GINConv``, ``GATConv`` (v1 and
   the bucket index tables inside kernel K6 (SAGE, GCN, GIN;
   ``ell_aggregate_graph``) or K7 (GAT, GATv2, Transformer;
   ``fanout_attention_ell``) instead of being gathered into an
-  ``[n, W, D]`` block first; the linear layers run once over all N rows.
+  ``[n, W, D]`` block first; the linear layers run once over all N rows;
+- ``coo(x, src, dst, num_nodes, edge_attr=None, *, index, src_index)``:
+  the whole graph as COO edges over the segment ops (``ops/segment.py``,
+  B7), walking the destination ``index`` and, in the backward, the
+  source-sorted ``src_index`` (both ``SegmentIndex``es, built once per
+  graph): SAGE, GCN and GIN on K8 (backward K8b); GAT v1 on per-node
+  attention terms gathered per edge, K9 and a per-head weighted K8 over the
+  source table (backward K8 for the gathers, K9b, K8b and K10 for the
+  weights); Transformer on K10, K9 and K8 (backward adds K10b). GATv2's
+  ``coo`` raises (ROADMAP A9, GATv2 coo): no B7 kernel computes its
+  per-edge LeakyReLU of a sum of rows.
 
 SAGE, GCN and GIN keep the reference's dense block (K4, trainable through
 K4b); the attention convs' dense block projects the flattened ``[N*K,
 Din]`` block once and runs K7 over it (``fanout_attention_block``,
 trainable through K7b). The ELL forms train through K6b (SAGE, GCN, GIN)
-and K7b + K6b (GAT, GATv2, Transformer). ``block_cached`` (SAGE,
+and K7b + K6b (GAT, GATv2, Transformer); the ``coo`` forms as listed
+above. ``block_cached`` (SAGE,
 GCN, GIN) serves the cached-hop path. Parameters are fp32; the layer
 computes in ``dtype`` the way flax's ``Dense(dtype=bf16, param_dtype=fp32)``
 does: input, weight and bias are cast to the compute type at the call (no
@@ -38,6 +49,18 @@ from gigl_tpu_torch.ops.attention import (
 from gigl_tpu_torch.ops.ell import EDGE_FEATURES_NOT_PORTED
 from gigl_tpu_torch.ops.ell_aggregate import ell_aggregate_graph
 from gigl_tpu_torch.ops.fanout import masked_max, masked_mean, masked_sum
+from gigl_tpu_torch.ops.segment import (
+    SegmentIndex,
+    coo_spmm,
+    gather_edges,
+    sddmm,
+    segment_softmax,
+)
+
+GATV2_COO_NOT_PORTED = (
+    "GATv2's coo form computes a LeakyReLU of a sum of gathered rows per "
+    "edge, which no B7 kernel computes: not ported yet (ROADMAP A9, GATv2 "
+    "coo); use encode_ell")
 
 
 def linear(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -88,6 +111,14 @@ class SAGEConv(nn.Module):
         """ELL form over the whole permuted graph (K6, backward K6b)."""
         return self._combine(x_p, ell_aggregate_graph(x_p, ell, self.aggr))
 
+    def coo(self, x, src, dst, num_nodes, edge_attr=None, *, index=None,
+            src_index=None):
+        """COO form (K8, backward K8b)."""
+        _no_edge_attr(edge_attr)
+        return self._combine(x, coo_spmm(src, dst, x, num_nodes,
+                                         reduce=self.aggr, index=index,
+                                         src_index=src_index))
+
     def forward(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
         return self.block(x_dst, nbr, mask, edge_attr, degrees)
 
@@ -95,6 +126,16 @@ class SAGEConv(nn.Module):
 def _no_edge_attr(edge_attr):
     if edge_attr is not None:
         raise NotImplementedError(EDGE_FEATURES_NOT_PORTED)
+
+
+def _indexes(src, dst, num_nodes, index, src_index):
+    """The destination and source SegmentIndexes of a COO graph, built on
+    the host where not given (a training path passes both, built once)."""
+    if index is None:
+        index = SegmentIndex.from_ids(dst, num_nodes)
+    if src_index is None:
+        src_index = SegmentIndex.from_ids(src, num_nodes)
+    return index, src_index
 
 
 def _flat_block(nbr):
@@ -150,6 +191,22 @@ class GCNConv(nn.Module):
         d = ell.deg_p.to(x_p.dtype) + 1.0
         return linear(self.lin, agg + x_p / d[:, None], self.dtype)
 
+    def coo(self, x, src, dst, num_nodes, edge_attr=None, *, index=None,
+            src_index=None):
+        """COO form, as the reference's ``coo`` (``convs.py:133-140``): the
+        destination's in-degree and the *source's out-degree*, each plus 1
+        for the self loop and counted in x's type, from the two indexes'
+        pointers (ROADMAP C2: ``encode_ell`` uses the in-degree at both
+        ends); K8 sums the weighted rows (backward K8b)."""
+        _no_edge_attr(edge_attr)
+        index, src_index = _indexes(src, dst, num_nodes, index, src_index)
+        deg = (index.ptr[1:] - index.ptr[:-1]).to(x.dtype) + 1.0
+        deg_src = (src_index.ptr[1:] - src_index.ptr[:-1]).to(x.dtype) + 1.0
+        w = torch.rsqrt(deg[dst.long()]) * torch.rsqrt(deg_src[src.long()])
+        agg = coo_spmm(src, dst, x, num_nodes, edge_weight=w, index=index,
+                       src_index=src_index)
+        return linear(self.lin, agg + x / deg[:, None], self.dtype)
+
     def forward(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
         return self.block(x_dst, nbr, mask, edge_attr, degrees)
 
@@ -189,6 +246,13 @@ class GINConv(nn.Module):
     def ell(self, x_p, ell):
         return self._mlp((1.0 + self.eps) * x_p
                          + ell_aggregate_graph(x_p, ell, "sum"))
+
+    def coo(self, x, src, dst, num_nodes, edge_attr=None, *, index=None,
+            src_index=None):
+        """COO form (K8, backward K8b)."""
+        _no_edge_attr(edge_attr)
+        return self._mlp((1.0 + self.eps) * x + coo_spmm(
+            src, dst, x, num_nodes, index=index, src_index=src_index))
 
     def forward(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
         return self.block(x_dst, nbr, mask, edge_attr, degrees)
@@ -266,6 +330,32 @@ class GATConv(nn.Module):
         return self._attend(fanout_attention_block, x_dst, _flat_block(nbr),
                             mask)
 
+    def coo(self, x, src, dst, num_nodes, edge_attr=None, *, index=None,
+            src_index=None):
+        """COO form of GAT v1 (``convs.py:312-328``): the attention terms
+        ``a_src = <W_src x, att_src>`` and ``a_dst`` once per node ([N, H]
+        tables), the logits LeakyReLU(a_src[src] + a_dst[dst]) by per-edge
+        gathers (backward: K8 over each index), K9 per destination, and the
+        message sum as K8 weighted per head over the [N, H*Dh] source table
+        — no [E, H, Dh] block (backward: K8b for the table, K10 for the
+        weights, K9b for the logits). GATv2 raises (module docstring)."""
+        _no_edge_attr(edge_attr)
+        if self.v2:
+            raise NotImplementedError(GATV2_COO_NOT_PORTED)
+        index, src_index = _indexes(src, dst, num_nodes, index, src_index)
+        h, dh = self.heads, self.head_dim
+        hs = linear(self.lin_src, x, self.dtype).reshape(-1, h, dh)
+        hd = linear(self.lin_dst, x, self.dtype).reshape(-1, h, dh)
+        a_src = (hs * self.att_src.to(self.dtype)).sum(-1)        # [N, H]
+        a_dst = (hd * self.att_dst.to(self.dtype)).sum(-1)
+        logits = F.leaky_relu(
+            gather_edges(a_src, src, index=src_index)
+            + gather_edges(a_dst, dst, index=index), self.negative_slope)
+        alpha = segment_softmax(logits, dst, num_nodes, index=index)
+        out = coo_spmm(src, dst, hs, num_nodes, edge_weight=alpha,
+                       index=index, src_index=src_index)
+        return self._finish(out.reshape(-1, h * dh))
+
     def forward(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
         return self.block(x_dst, nbr, mask, edge_attr, degrees)
 
@@ -309,6 +399,29 @@ class TransformerConv(nn.Module):
         _no_edge_attr(edge_attr)
         return self._attend(fanout_attention_block, x_dst, _flat_block(nbr),
                             mask)
+
+    def coo(self, x, src, dst, num_nodes, edge_attr=None, *, index=None,
+            src_index=None):
+        """COO form (``convs.py:379-392``): K10 logits ``<q[dst], k[src]> /
+        sqrt(Dh)``, K9 per destination, K8 sums the v rows weighted per
+        head, plus ``lin_skip(x)`` (backward: K8b and K10 for the sum, K9b,
+        then K10b's coefficients with K8 for q and K8b for k). Rounding: the
+        reference divides the bf16 dot by sqrt(Dh) in bf16 (two roundings);
+        K10 multiplies the fp32 dot by an fp32 1/sqrt(Dh) and rounds once."""
+        _no_edge_attr(edge_attr)
+        index, src_index = _indexes(src, dst, num_nodes, index, src_index)
+        h, dh = self.heads, self.head_dim
+        q = linear(self.lin_q, x, self.dtype).reshape(-1, h, dh)
+        k = linear(self.lin_k, x, self.dtype).reshape(-1, h, dh)
+        v = linear(self.lin_v, x, self.dtype).reshape(-1, h, dh)
+        scale = torch.full((h,), dh ** -0.5, dtype=torch.float32,
+                           device=x.device)
+        logits = sddmm(src, dst, q, k, scale=scale, index=index,
+                       src_index=src_index)
+        alpha = segment_softmax(logits, dst, num_nodes, index=index)
+        out = coo_spmm(src, dst, v, num_nodes, edge_weight=alpha,
+                       index=index, src_index=src_index)
+        return out.reshape(-1, h * dh) + linear(self.lin_skip, x, self.dtype)
 
     def forward(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
         return self.block(x_dst, nbr, mask, edge_attr, degrees)

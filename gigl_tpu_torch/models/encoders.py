@@ -15,9 +15,14 @@ the inverse gather out (K3). It trains: the gathers' backward is K3
 through the inverse permutation, the layers' K6b (after K7b for the
 attention convs).
 
+``encode_coo(x, src, dst, num_nodes)`` is the same exact full-graph
+encode over COO edges: each conv's ``coo`` form on the segment kernels
+(K8-K10, backward K8b-K10b), in original node order, walking the two
+``SegmentIndex``es of the graph (given, or built once per call).
+
 Ported so far: the GraphSAGE, GCN, GIN, GAT, GATv2 and Transformer convs
-(no edge features), activation placement, output L2 normalization, and
-eval and train modes. Train-mode dropout draws its keep mask from an
+(no edge features; GATv2 has no ``coo`` form yet), activation placement,
+output L2 normalization, and eval and train modes. Train-mode dropout draws its keep mask from an
 explicit ``torch.Generator`` (its bits differ from flax's); rate 0 is the
 identity, as in flax. GINE, EdgeAttrGAT, batch norm, jumping knowledge,
 the final linear layer, edge features and feature embeddings / DCN raise
@@ -46,6 +51,7 @@ from gigl_tpu_torch.ops.ell import (
     ell_layer,
 )
 from gigl_tpu_torch.ops.gather import permute_rows
+from gigl_tpu_torch.ops.segment import SegmentIndex
 
 CONV_TYPES = (
     "graphsage", "gcn", "gin", "gine", "gat", "gatv2", "edge_attr_gat",
@@ -239,3 +245,36 @@ class GNNEncoder(nn.Module):
             x_p = ell_layer(conv, x_p, ell)
             x_p = self._epilogue(x_p, is_last, train, generator)
         return permute_rows(self._post(x_p), ell.rank, ell.perm)
+
+    def encode_coo(
+        self,
+        x: torch.Tensor,
+        src: torch.Tensor,
+        dst: torch.Tensor,
+        num_nodes: int,
+        edge_attr: Optional[torch.Tensor] = None,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+        *,
+        index: Optional[SegmentIndex] = None,
+        src_index: Optional[SegmentIndex] = None,
+    ) -> torch.Tensor:
+        """Exact full-graph encode over COO edges (``encoders.py:303-324``):
+        x [N, Din], ``src`` / ``dst`` [E] int32 on x's device, messages
+        flowing src -> dst -> [N, out_dim]. ``index`` / ``src_index``: the
+        SegmentIndexes of ``dst`` and ``src`` over the N nodes, built here
+        on the host when not given (a trainer builds them once per graph).
+        ``train`` turns dropout on, drawn from ``generator``."""
+        if edge_attr is not None:
+            raise NotImplementedError(EDGE_FEATURES_NOT_PORTED)
+        if index is None:
+            index = SegmentIndex.from_ids(dst, num_nodes)
+        if src_index is None:
+            src_index = SegmentIndex.from_ids(src, num_nodes)
+        x = x.to(self.dtype)
+        for i, conv in enumerate(self.convs):
+            is_last = i == self.num_layers - 1
+            x = conv.coo(x, src, dst, num_nodes, index=index,
+                         src_index=src_index)
+            x = self._epilogue(x, is_last, train, generator)
+        return self._post(x)

@@ -11,15 +11,17 @@ Each conv has two forms:
   of every type through its exact full in-neighborhood, the
   ``{node_type: [N, D]}`` tables ``h`` and the COO edges ``edges[et] =
   (src, dst)``, on the segment kernels of ``ops/segment.py`` (B7) over the
-  :class:`TypedSegments` of the graph (built once per graph, on the host).
+  :class:`TypedSegments` of the graph (built once per graph, on the host);
+  differentiable through their backward kernels (K8b, K9b, K10b), which
+  walk the segments' source indexes.
 
 Kernels by form. HGT's block runs K7 ``fanout_attention_block`` in its
 Transformer mode; its ``coo`` form runs K10 ``sddmm`` (logits), K9
 ``segment_softmax`` and K8 ``segment_reduce`` (the weighted sum).
 SimpleHGN's block is plain PyTorch on every device, as the reference's is
 plain ``jnp`` (its per-relation additive logit term is a K7 mode still to
-add); its ``coo`` form computes the logits by plain gathers of per-node
-terms, then K9 and K8. RGCN's block runs K4 ``masked_mean`` per relation,
+add); its ``coo`` form computes the logits by row gathers of per-node terms,
+then K9 and K8. RGCN's block runs K4 ``masked_mean`` per relation,
 its ``coo`` form K8 in mean mode per relation (``coo_spmm``).
 
 Where the reference applies the relation maps ``W_att`` / ``W_msg``
@@ -50,6 +52,7 @@ from gigl_tpu_torch.ops.fanout import masked_mean
 from gigl_tpu_torch.ops.segment import (
     SegmentIndex,
     coo_spmm,
+    gather_edges,
     sddmm,
     segment_softmax,
 )
@@ -77,19 +80,32 @@ class TypedSegments:
     SimpleHGN): per destination type, its incoming edge types in the order
     of ``edges`` (the reference's ``by_dst``), their edges concatenated in
     that order (``dst_ids``), the source ids offset into the table stacked
-    from the relations' per-node source tables (``src_stack``), and the
-    index of ``dst_ids``. ``by="relation"`` (RGCN): one index per edge
-    type."""
+    from the relations' per-node source tables (``src_stack``), the index
+    of ``dst_ids`` and, for the backward's walks, the index of
+    ``src_stack`` (``src_index``) and each relation's own pair of
+    destination and source indexes (``rel``: HGT's per-relation logits and
+    SimpleHGN's per-relation gathers). ``by="relation"`` (RGCN): one
+    destination and one source index per edge type. Built without the
+    backward's indexes (``backward=False``: ``src_index`` and ``rel``
+    empty) for inference, which never walks them; a gradient through such
+    segments builds them on the host at each call."""
 
     by: str
     by_dst: Dict[str, List[str]]
     dst_ids: Dict[str, torch.Tensor]
     src_stack: Dict[str, torch.Tensor]
     index: Dict[str, SegmentIndex]   # dst type (by="dst") or edge type
+    src_index: Dict[str, SegmentIndex]   # same keys: the source-sorted twin
+    rel: Dict[str, Tuple[SegmentIndex, SegmentIndex]]   # by="dst" only
+
+    def rel_pair(self, et: str):
+        """The relation's (destination, source) indexes, or Nones."""
+        return self.rel.get(et, (None, None))
 
     @classmethod
     def build(cls, edges: Mapping[str, Tuple], num_nodes: Mapping[str, int],
-              by: str = "dst", device: DeviceLike = None) -> "TypedSegments":
+              by: str = "dst", device: DeviceLike = None,
+              backward: bool = True) -> "TypedSegments":
         """From ``edges[et] = (src, dst)`` (tensors or numpy arrays); the
         sorts run on the host with numpy, the tables go to ``device`` (the
         edges' own device when they are tensors)."""
@@ -107,13 +123,23 @@ class TypedSegments:
         by_dst: Dict[str, List[str]] = {}
         for et in edges:
             by_dst.setdefault(_src_dst(et)[1], []).append(et)
+
+        def pair(et):
+            """The relation's destination and source indexes."""
+            s_nt, d_nt = _src_dst(et)
+            src, dst = (host(a) for a in edges[et])
+            return (SegmentIndex.from_ids(dst, num_nodes[d_nt], device),
+                    SegmentIndex.from_ids(src, num_nodes[s_nt], device))
+
         if by == "relation":
-            index = {et: SegmentIndex.from_ids(host(dst),
-                                               num_nodes[_src_dst(et)[1]],
-                                               device)
-                     for et, (_, dst) in edges.items()}
-            return cls(by, by_dst, {}, {}, index)
-        dst_ids, src_stack, index = {}, {}, {}
+            index = {et: SegmentIndex.from_ids(
+                host(edges[et][1]), num_nodes[_src_dst(et)[1]], device)
+                for et in edges}
+            src_index = ({et: SegmentIndex.from_ids(
+                host(edges[et][0]), num_nodes[_src_dst(et)[0]], device)
+                for et in edges} if backward else {})
+            return cls(by, by_dst, {}, {}, index, src_index, {})
+        dst_ids, src_stack, index, src_index = {}, {}, {}, {}
         for nt, ets in by_dst.items():
             srcs, dsts, offset = [], [], 0
             for et in ets:
@@ -121,13 +147,16 @@ class TypedSegments:
                 srcs.append(src + offset)
                 dsts.append(dst)
                 offset += num_nodes[_src_dst(et)[0]]
-            d = np.concatenate(dsts)
+            d, s_ = np.concatenate(dsts), np.concatenate(srcs)
             index[nt] = SegmentIndex.from_ids(d, num_nodes[nt], device)
+            if backward:
+                src_index[nt] = SegmentIndex.from_ids(s_, offset, device)
             dst_ids[nt] = torch.from_numpy(d.astype(np.int32)).to(
                 index[nt].device)
-            src_stack[nt] = torch.from_numpy(
-                np.concatenate(srcs).astype(np.int32)).to(index[nt].device)
-        return cls(by, by_dst, dst_ids, src_stack, index)
+            src_stack[nt] = torch.from_numpy(s_.astype(np.int32)).to(
+                index[nt].device)
+        return cls(by, by_dst, dst_ids, src_stack, index, src_index,
+                   {et: pair(et) for et in edges} if backward else {})
 
 
 def _segments(segments, edges, num_nodes, by):
@@ -232,7 +261,9 @@ class HGTConv(_TypedConv):
         ``kr = k_src @ W_att`` and ``mr = v_src @ W_msg`` once per source
         node; K10 logits ``q[dst] · kr[src] * prior / sqrt(dk)``; K9 over
         all the type's in-edges; K8 sums the gathered ``mr`` rows weighted
-        per head (no [E, H, dk] block)."""
+        per head (no [E, H, dk] block). Differentiable: the prior trains
+        as K10's scale (its gradient from K10b), the rest through K8b, K9b
+        and K8, walking the segments' source and per-relation indexes."""
         seg = _segments(segments, edges, num_nodes, "dst")
         hh, d = self.heads, self.out_dim
         dk = d // hh
@@ -249,15 +280,18 @@ class HGTConv(_TypedConv):
                 src, dst = edges[et]
                 s_nt = _src_dst(et)[0]
                 scale = self._get("prior", et).float() / math.sqrt(dk)
+                r_index, r_src_index = seg.rel_pair(et)
                 logits.append(sddmm(src, dst, q[nt],
                                     self._rel("watt", et, k[s_nt]),
-                                    scale=scale))
+                                    scale=scale, index=r_index,
+                                    src_index=r_src_index))
                 msgs.append(self._rel("wmsg", et, v[s_nt]))
             att = segment_softmax(torch.cat(logits), seg.dst_ids[nt],
                                   num_nodes[nt], index=seg.index[nt])
             agg = coo_spmm(seg.src_stack[nt], seg.dst_ids[nt],
                            torch.cat(msgs), num_nodes[nt], edge_weight=att,
-                           index=seg.index[nt]).reshape(-1, d)
+                           index=seg.index[nt],
+                           src_index=seg.src_index.get(nt)).reshape(-1, d)
             out[nt] = self._finish(nt, agg, x)
         return out
 
@@ -329,9 +363,10 @@ class SimpleHGNConv(_TypedConv):
             segments: Optional[TypedSegments] = None
             ) -> Dict[str, torch.Tensor]:
         """Full-graph form: per-node terms ``w x`` (also the messages),
-        ``a_src`` and ``a_dst``; per-edge logits by plain gathers, K9 over
-        all the destination type's in-edges, K8 sums the gathered ``w x``
-        rows weighted per head."""
+        ``a_src`` and ``a_dst``; per-edge logits by row gathers (whose
+        backward is K8 over the relation's indexes), K9 over all the
+        destination type's in-edges, K8 sums the gathered ``w x`` rows
+        weighted per head."""
         seg = _segments(segments, edges, num_nodes, "dst")
         hh = self.heads
         w = {nt: linear(self.w, x, self.dtype).reshape(x.shape[0], hh, -1)
@@ -348,7 +383,9 @@ class SimpleHGNConv(_TypedConv):
             for et in incoming:
                 src, dst = edges[et]
                 s_nt = _src_dst(et)[0]
-                a = a_src[s_nt][src.long()] + a_dst[nt][dst.long()] \
+                r_index, r_src_index = seg.rel_pair(et)
+                a = gather_edges(a_src[s_nt], src, index=r_src_index) \
+                    + gather_edges(a_dst[nt], dst, index=r_index) \
                     + self._rel_term(et)
                 logits.append(F.leaky_relu(a, self.negative_slope))
                 vals.append(w[s_nt])
@@ -356,7 +393,8 @@ class SimpleHGNConv(_TypedConv):
                                   num_nodes[nt], index=seg.index[nt])
             agg = coo_spmm(seg.src_stack[nt], seg.dst_ids[nt],
                            torch.cat(vals), num_nodes[nt], edge_weight=att,
-                           index=seg.index[nt])
+                           index=seg.index[nt],
+                           src_index=seg.src_index.get(nt))
             out[nt] = agg.reshape(-1, self.out_dim) \
                 + linear(self.w_res, x, self.dtype)
         return out
@@ -412,6 +450,7 @@ class RGCNConv(_TypedConv):
         for et, (src, dst) in edges.items():
             s_nt, d_nt = _src_dst(et)
             mean_x = coo_spmm(src, dst, h[s_nt], num_nodes[d_nt],
-                              reduce="mean", index=seg.index[et])
+                              reduce="mean", index=seg.index[et],
+                              src_index=seg.src_index.get(et))
             out[d_nt] = out[d_nt] + self._rel_transform(et, mean_x)
         return out

@@ -139,11 +139,14 @@ class HeteroGNNEncoder(nn.Module):
         return self._post(h[0])
 
     def segments(self, edges: Mapping[str, Tuple],
-                 num_nodes: Mapping[str, int], device=None) -> TypedSegments:
+                 num_nodes: Mapping[str, int], device=None,
+                 backward: bool = True) -> TypedSegments:
         """The SegmentIndexes this encoder's convs walk, built on the host
-        once per graph (``TypedSegments.build``)."""
+        once per graph (``TypedSegments.build``; ``backward=False`` leaves
+        out the indexes only a gradient walks)."""
         return TypedSegments.build(edges, num_nodes,
-                                   self.convs[0].segments_by, device)
+                                   self.convs[0].segments_by, device,
+                                   backward=backward)
 
     def encode_full(self, features: Mapping[str, torch.Tensor],
                     edges: Mapping[str, Tuple[torch.Tensor, torch.Tensor]],

@@ -64,6 +64,14 @@ class LinkPredictionGNN(nn.Module):
                             hop_degrees=hop_degrees, cached_agg=cached_agg,
                             generator=generator)
 
+    def encode_coo(self, x, src, dst, num_nodes, edge_attr=None,
+                   train: bool = False, generator=None, *, index=None,
+                   src_index=None):
+        """The encoder's full-graph COO path (``GNNEncoder.encode_coo``)."""
+        return self.encoder.encode_coo(x, src, dst, num_nodes, edge_attr,
+                                       train=train, generator=generator,
+                                       index=index, src_index=src_index)
+
     def decode(self, q, c):
         return self.decoder(q, c)
 
@@ -73,9 +81,9 @@ class LinkPredictionGNN(nn.Module):
 
 class HeteroLinkPredictionGNN(nn.Module):
     """Typed encoder (``HeteroGNNEncoder``) + decoder bundle. The
-    label-edge-feature scorer is training (slice 6): ``decode`` ignores
-    ``edge_feats`` as the reference does without a scorer, and
-    ``edge_score`` raises."""
+    label-edge-feature scorer is not ported (ROADMAP A12, label-edge
+    features): ``decode`` ignores ``edge_feats`` as the reference does
+    without a scorer, and ``edge_score`` raises."""
 
     def __init__(self, encoder: nn.Module, decoder: LinkPredictionDecoder):
         super().__init__()
@@ -93,5 +101,5 @@ class HeteroLinkPredictionGNN(nn.Module):
 
     def edge_score(self, edge_feats):
         raise NotImplementedError(
-            "the label-edge-feature scorer is not ported yet (typed "
-            "training, slice 6)")
+            "the label-edge-feature scorer is not ported yet (ROADMAP A12, "
+            "label-edge features)")

@@ -36,12 +36,14 @@ COMPILE_FLAGS = ARCH_FLAGS + [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c"]
 
 # Kernel name -> number of launches since the last reset_launches().
-# retrieval_loss counts its forward and its backward entry point.
+# retrieval_loss counts its forward and its backward entry point;
+# segment_reduce_bwd its max mode's tie pass, sddmm_bwd both of its stages.
 KERNEL_NAMES = ("sample_uniform", "uniform_ids", "build_neighbor_cache",
                 "gather_rows", "masked_reduce", "masked_reduce_bwd",
                 "retrieval_loss", "ell_aggregate", "fanout_attention",
                 "ell_transpose_aggregate", "fanout_attention_bwd",
-                "segment_reduce", "segment_softmax", "sddmm")
+                "segment_reduce", "segment_softmax", "sddmm",
+                "segment_reduce_bwd", "segment_softmax_bwd", "sddmm_bwd")
 launches: Dict[str, int] = dict.fromkeys(KERNEL_NAMES, 0)
 
 _P = ctypes.c_void_p
@@ -77,6 +79,11 @@ _SIGNATURES = {
     "gigl_segment_reduce": [_P] * 6 + [_I64] + [_I32] * 6 + [_P],
     "gigl_segment_softmax": [_P] * 4 + [_I64, _I32, _I32, _P],
     "gigl_sddmm": [_P] * 6 + [_I64] + [_I32] * 4 + [_P],
+    "gigl_segment_reduce_bwd": [_P] * 10 + [_I64] + [_I32] * 6 + [_P],
+    "gigl_segment_max_ties": [_P] * 8 + [_I64] + [_I32] * 5 + [_P],
+    "gigl_segment_softmax_bwd": [_P] * 5 + [_I64, _I32, _I32, _P],
+    "gigl_sddmm_bwd_coef": [_P] * 5 + [_I64] + [_I32] * 3 + [_P],
+    "gigl_sddmm_bwd_scale": [_P, _P, _I32, _I32, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,38 +1,55 @@
 """COO segment ops (port of ``gigl_tpu/ops/segment.py``): gather source
 rows per edge and reduce them into destination segments, the per-segment
 softmax, and per-edge scores — the compute core of the ``coo`` forms of
-the typed convs (``models/hetero_convs.py``) and so of exact typed
-full-graph inference.
+the homogeneous convs (``models/convs.py``: ``GNNEncoder.encode_coo``,
+``FullBatchTrainer(build_ell=False)``) and of the typed convs
+(``models/hetero_convs.py``: exact typed full-graph inference).
 
-Three kernels replace the reference's segment ops (B7):
+Three kernels replace the reference's segment ops (B7), and three more
+their backward (jax's autodiff of the same functions):
 
 - K8 ``segment_reduce`` (``csrc/segment_reduce.cu``): ``segment_sum``,
   ``segment_mean``, ``segment_max`` and ``coo_spmm`` — the gather and the
   reduce in one pass, optionally weighted per edge ``[E]`` or per edge and
   head ``[E, H]``;
 - K9 ``segment_softmax`` (``csrc/segment_softmax.cu``);
-- K10 ``sddmm`` (``csrc/sddmm.cu``), with an optional per-head scale.
+- K10 ``sddmm`` (``csrc/sddmm.cu``), with an optional per-head scale;
+- K8b ``segment_reduce_bwd`` (``csrc/segment_reduce_bwd.cu``): the rows'
+  cotangent, each source row the sum of its edges' cotangent rows (the
+  mean's count and the max's tie share applied), walking the
+  source-sorted index; the weights' cotangent is K10's forward on the
+  cotangent and the rows;
+- K9b ``segment_softmax_bwd`` (``csrc/segment_softmax_bwd.cu``):
+  ``alpha * (g - sum_seg(alpha * g))``;
+- K10b ``sddmm_bwd`` (``csrc/sddmm_bwd.cu``): the per-edge coefficients
+  ``g * scale`` and the scale's cotangent; ``dq`` is K8 and ``dk`` K8b over
+  the two indexes.
 
 The kernels walk a :class:`SegmentIndex`: the edge ids sorted by segment
 (a stable sort, so each segment keeps its edges' original order) and the
 segment pointers. It is built once per graph on the host with numpy, as
-``EllGraph.from_csr`` is, and every function takes it as ``index=``. A call
-on CUDA without one builds it first, on the host: that copies the ids to
-the host and waits for the device. The kernels use no atomics and write
-each output row once, so they give the same bits on every run.
+``EllGraph.from_csr`` is, and every function takes it as ``index=``; the
+backward of a gather also walks the same sort of the source ids, passed as
+``src_index=``. A call on CUDA without one builds it first, on the host:
+that copies the ids to the host and waits for the device (a training path
+passes both, built once). The kernels use no atomics and write each output
+row once, so they give the same bits on every run.
 
 Each kernel has a plain PyTorch twin (``_segment_reduce_plain``,
-``_segment_softmax_plain``, ``_sddmm_plain``), which runs for CPU tensors
-only and is differentiable. On CUDA tensors only the forward is ported:
-a wrapper given a CUDA tensor that requires grad raises (the backward of
-B7 is slice 6). fp32 accumulation, one rounding to the data's type; the
+``_segment_softmax_plain``, ``_sddmm_plain``, ``_segment_reduce_bwd_plain``,
+``_segment_softmax_bwd_plain``, ``_sddmm_bwd_coef_plain``), which runs for
+CPU tensors only; the forward twins are differentiable by PyTorch's
+autograd. The public functions are ``autograd.Function``s on every device:
+their backward calls the kernel wrappers, which take their twins on the
+CPU (the tests hold that composition to ``jax.vjp``) and launch the kernels
+on CUDA tensors. fp32 accumulation, one rounding to the data's type; the
 mean divides by the edge count rounded to the data's type first, as the
 reference counts in it (``segment.py:32-36``), at least 1.
 
 The port's functions take the reference's arguments and keyword
 ``index``; ``coo_spmm`` also takes ``[E, H]`` weights for a table of ``H``
 heads (``[N, H, dk]`` or ``[N, H * dk]``), and ``sddmm`` a per-head
-``scale``.
+``scale`` (differentiable: HGT's ``prior`` trains through it).
 """
 
 from __future__ import annotations
@@ -46,12 +63,10 @@ import torch
 
 from gigl_tpu_torch.device import DeviceLike, resolve_device
 from gigl_tpu_torch.ops import _build
+from gigl_tpu_torch.ops.gather import gather_rows
 
 _OPS = {"sum": 0, "mean": 1, "max": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-BACKWARD_NOT_PORTED = ("the backward of the COO segment ops (B7) is not "
-                       "ported yet: it is slice 6 (typed training); call "
-                       "under torch.no_grad() or inference_mode")
 
 
 @dataclass
@@ -108,10 +123,9 @@ def _cols(t: torch.Tensor) -> int:
     return 1 if t.dim() == 1 else t.shape[1]
 
 
-def _no_grad_on_card(name: str, *tensors) -> None:
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(f"{name}: {BACKWARD_NOT_PORTED}")
+def _grad_on(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def _index(segment_ids, num_segments, index, num_edges):
@@ -125,19 +139,41 @@ def _index(segment_ids, num_segments, index, num_edges):
     return index
 
 
+def _counts(segment_ids, num_segments, index, dtype):
+    """The mean's divisor per segment, fp32 [S]: the edge count rounded to
+    ``dtype`` (the reference counts in the data's type), at least 1; from
+    the index's pointers when given (no host synchronisation)."""
+    if index is not None:
+        cnt = index.ptr[1:] - index.ptr[:-1]
+    else:
+        ids = segment_ids.long()
+        cnt = torch.zeros(num_segments, dtype=torch.int64,
+                          device=ids.device).index_add(0, ids,
+                                                       torch.ones_like(ids))
+    return cnt.to(dtype).float().clamp(min=1.0)
+
+
 # -- K8 segment_reduce ----------------------------------------------------------
+def _per_column(t, w):
+    """[E, C] values times w [E, W], each weight column over C / W values."""
+    if w is None:
+        return t
+    e, c = t.shape
+    return (t.reshape(e, w.shape[1], c // w.shape[1])
+            * w[..., None]).reshape(e, c)
+
+
 def _segment_reduce_plain(x, segment_ids, num_segments, op="sum", src=None,
                           weight=None):
     """Plain twin of K8 (the reference's gather and segment reduce): fp32
-    arithmetic, one rounding to x's type."""
-    rows = x if src is None else x[src.long()]
+    arithmetic, one rounding to x's type. The rows are widened before the
+    gather, so that autograd of this twin sums a gathered row's cotangent
+    in fp32 too, as K8b does."""
+    rows = x.float() if src is None else x.float()[src.long()]
     e, trailing = rows.shape[0], tuple(rows.shape[1:])
     c = math.prod(trailing)
-    acc = rows.float().reshape(e, c)
-    if weight is not None:
-        w = weight.float().reshape(e, _cols(weight))
-        acc = (acc.reshape(e, w.shape[1], c // w.shape[1])
-               * w[..., None]).reshape(e, c)
+    acc = _per_column(rows.reshape(e, c), None if weight is None
+                      else weight.float().reshape(e, _cols(weight)))
     ids = segment_ids.long()
     if op == "max":
         out = torch.full((num_segments, c), float("-inf"), device=acc.device)
@@ -154,31 +190,13 @@ def _segment_reduce_plain(x, segment_ids, num_segments, op="sum", src=None,
     return out.to(x.dtype).reshape((num_segments,) + trailing)
 
 
-def segment_reduce(x: torch.Tensor, segment_ids: torch.Tensor,
-                   num_segments: int, *, op: str = "sum",
-                   src: Optional[torch.Tensor] = None,
-                   weight: Optional[torch.Tensor] = None,
-                   index: Optional[SegmentIndex] = None) -> torch.Tensor:
-    """K8: ``out[s] = op_{e: segment_ids[e] = s} weight[e] * row(e)`` with
-    ``row(e) = x[src[e]]`` (src given) or ``x[e]``; x [M, ...], weight
-    [E] or [E, W] (W columns over the flattened trailing values: per head
-    for a [.., H, dk] row), op ``sum`` | ``mean`` | ``max`` -> [S, ...].
-    Empty segments give 0."""
-    if op not in _OPS:
-        raise ValueError(f"Unknown reduce {op!r}")
-    e = segment_ids.shape[0]
-    if (src is None and x.shape[0] != e) or (
-            src is not None and src.shape != (e,)):
-        raise ValueError(f"segment_reduce: {e} segment ids for "
-                         f"{x.shape[0] if src is None else src.shape[0]} "
-                         "rows")
-    if weight is not None and (weight.dim() not in (1, 2)
-                               or weight.shape[0] != e):
-        raise ValueError("segment_reduce: weight must be [E] or [E, W]")
+def _segment_reduce_fwd(x, segment_ids, num_segments, op="sum", src=None,
+                        weight=None, index=None):
+    """K8 launch (plain twin for CPU tensors): see :func:`segment_reduce`."""
     if x.device.type == "cpu":
         return _segment_reduce_plain(x, segment_ids, num_segments, op, src,
                                      weight)
-    _no_grad_on_card("segment_reduce", x, weight)
+    e = segment_ids.shape[0]
     index = _index(segment_ids, num_segments, index, e)
     c = math.prod(x.shape[1:])
     xf = x.contiguous().reshape(x.shape[0], c)
@@ -208,6 +226,205 @@ def segment_reduce(x: torch.Tensor, segment_ids: torch.Tensor,
     return out.reshape((num_segments,) + tuple(x.shape[1:]))
 
 
+# -- K8b segment_reduce_bwd -----------------------------------------------------
+def _segment_reduce_bwd_plain(g, segment_ids, num_rows, op="sum", src=None,
+                              weight=None, x=None):
+    """Plain twin of K8b, the reference's autodiff: each edge's cotangent
+    row ``g[dst]`` (divided by the mean's count; for max, g's share among
+    the segment's ties, none where the maximum is not finite) times its
+    weight, summed into its source row (or kept per edge without ``src``).
+    fp32 arithmetic, one rounding; [num_rows, C]."""
+    s = g.shape[0]
+    c = math.prod(g.shape[1:])
+    ids = segment_ids.long()
+    e = ids.shape[0]
+    gf = g.float().reshape(s, c)
+    w = None if weight is None else weight.float().reshape(e, _cols(weight))
+    if op == "max":
+        rows = x.float().reshape(x.shape[0], c)
+        vals = _per_column(rows if src is None else rows[src.long()], w)
+        m = torch.full((s, c), float("-inf"), device=gf.device).scatter_reduce(
+            0, ids[:, None].expand(e, c), vals, "amax")
+        tie = vals == m[ids]
+        ties = torch.zeros((s, c), device=gf.device).index_add(0, ids,
+                                                               tie.float())
+        share = torch.where(torch.isfinite(m), gf / ties.clamp(min=1.0), 0.0)
+        contrib = _per_column(torch.where(tie, share[ids], 0.0), w)
+    else:
+        contrib = gf[ids]
+        if op == "mean":
+            contrib = contrib / _counts(segment_ids, s, None,
+                                        g.dtype)[ids][:, None]
+        contrib = _per_column(contrib, w)
+    if src is not None:
+        contrib = torch.zeros((num_rows, c), device=gf.device).index_add(
+            0, src.long(), contrib)
+    return contrib.to(g.dtype)
+
+
+def segment_reduce_bwd(g: torch.Tensor, segment_ids: torch.Tensor,
+                       num_rows: int, *, op: str = "sum",
+                       src: Optional[torch.Tensor] = None,
+                       weight: Optional[torch.Tensor] = None,
+                       x: Optional[torch.Tensor] = None,
+                       index: Optional[SegmentIndex] = None,
+                       src_index: Optional[SegmentIndex] = None
+                       ) -> torch.Tensor:
+    """K8b: the cotangent [num_rows, C] of the rows ``x`` of ``out =
+    segment_reduce(x, segment_ids, S, op=op, src=src, weight=weight)``
+    from the output's cotangent ``g`` [S, ...]:
+    ``dx[r] = sum_{e: row(e) = r} w_e * c_e * g[segment_ids[e]]`` (c: 1, the
+    mean's 1 / count, or max's tie share, which needs ``x``). With ``src``
+    the kernel walks ``src_index`` (the SegmentIndex of ``src`` over
+    ``num_rows``); without, row r is edge r's. ``index`` is the forward's
+    (mean: its pointers; max: the tie pass walks it)."""
+    if op not in _OPS:
+        raise ValueError(f"Unknown reduce {op!r}")
+    if op == "max" and x is None:
+        raise ValueError("segment_reduce_bwd: max needs the forward's rows x")
+    e, s = segment_ids.shape[0], g.shape[0]
+    if (src is None and num_rows != e) or (
+            src is not None and src.shape != (e,)):
+        raise ValueError(f"segment_reduce_bwd: {e} edges for {num_rows} rows")
+    if g.device.type == "cpu":
+        return _segment_reduce_bwd_plain(g, segment_ids, num_rows, op, src,
+                                         weight, x)
+    c = math.prod(g.shape[1:])
+    gf = g.contiguous().reshape(s, c)
+    if op != "sum":
+        index = _index(segment_ids, s, index, e)
+    walk = None
+    if src is not None:
+        src_index = _index(src, num_rows, src_index, e)
+        walk = (src_index.order, src_index.ptr)
+    dst32 = segment_ids.to(torch.int32).contiguous()
+    w = (None if weight is None
+         else weight.float().reshape(e, _cols(weight)).contiguous())
+    xf = None if op != "max" else x.contiguous().reshape(x.shape[0], c)
+    tables = [t for t in (w, xf) if t is not None]
+    tables += [] if walk is None else list(walk)
+    tables += [] if op == "sum" else [index.order, index.ptr]
+    device = _build.require_cuda("segment_reduce_bwd", gf, dst32, *tables)
+    if gf.dtype not in _DTYPES or (xf is not None and xf.dtype != gf.dtype):
+        raise ValueError(f"segment_reduce_bwd: dtype {g.dtype} not supported "
+                         "(fp32 or bf16, x of g's type)")
+    if xf is not None and xf.shape[0] != num_rows:
+        raise ValueError("segment_reduce_bwd: x must have num_rows rows")
+    w_cols = 1 if w is None else w.shape[1]
+    if c % w_cols:
+        raise ValueError(f"segment_reduce_bwd: {c} values per row do not "
+                         f"split into {w_cols} weight columns")
+    wc = c // w_cols
+    out = torch.empty((num_rows, c), dtype=g.dtype, device=device)
+    esize = gf.element_size()
+    vec = int((c * esize) % 16 == 0 and (wc * esize) % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (gf, out, xf) if t is not None))
+    dtype = _DTYPES[g.dtype]
+    gs = mref = None
+    if op == "max":
+        mref = torch.empty((s, c), dtype=torch.float32, device=device)
+        gs = torch.empty_like(mref)
+        gather = None if src is None else src.to(torch.int32).contiguous()
+        if s * c:
+            _build.launch("segment_reduce_bwd", "gigl_segment_max_ties",
+                          device, gf.data_ptr(), xf.data_ptr(),
+                          _build.ptr(gather), index.order.data_ptr(),
+                          index.ptr.data_ptr(), _build.ptr(w),
+                          mref.data_ptr(), gs.data_ptr(), s, c, wc, w_cols,
+                          dtype, vec)
+    if num_rows * c:
+        _build.launch("segment_reduce_bwd", "gigl_segment_reduce_bwd", device,
+                      gf.data_ptr(), _build.ptr(gs), _build.ptr(mref),
+                      _build.ptr(xf), dst32.data_ptr(),
+                      _build.ptr(None if walk is None else walk[0]),
+                      _build.ptr(None if walk is None else walk[1]),
+                      _build.ptr(index.ptr if op == "mean" else None),
+                      _build.ptr(w), out.data_ptr(), num_rows, c, wc, w_cols,
+                      dtype, _OPS[op], vec)
+    return out
+
+
+def _weight_grad(g, x, segment_ids, op, src, weight, index):
+    """The weights' cotangent: per edge and weight column, the dot of the
+    destination's cotangent with the edge's row (over the column's values),
+    divided by the mean's count — K10's forward on (g, x)."""
+    if op == "max":
+        raise NotImplementedError(
+            "segment_reduce: the weight gradient of the max mode is not "
+            "ported (no conv trains a weighted max)")
+    e, s = segment_ids.shape[0], g.shape[0]
+    w_cols = _cols(weight)
+    c = math.prod(x.shape[1:])
+    rows = src if src is not None else torch.arange(
+        e, dtype=torch.int32, device=x.device)
+    dw = _sddmm_fwd(rows, segment_ids, g.reshape(s, w_cols, c // w_cols),
+                    x.reshape(x.shape[0], w_cols, c // w_cols)).float()
+    if op == "mean":
+        dw = dw / _counts(segment_ids, s, index,
+                          x.dtype)[segment_ids.long()][:, None]
+    return dw.reshape(weight.shape).to(weight.dtype)
+
+
+class SegmentReduce(torch.autograd.Function):
+    """K8; the backward is K8b for the rows and K10 for the weights."""
+
+    @staticmethod
+    def forward(ctx, x, weight, segment_ids, num_segments, op, src, index,
+                src_index):
+        out = _segment_reduce_fwd(x, segment_ids, num_segments, op, src,
+                                  weight, index)
+        ctx.save_for_backward(x, weight, segment_ids, src)
+        ctx.cfg = (op, index, src_index)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, ids, src = ctx.saved_tensors
+        op, index, src_index = ctx.cfg
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = segment_reduce_bwd(
+                g, ids, x.shape[0], op=op, src=src, weight=weight,
+                x=x if op == "max" else None, index=index,
+                src_index=src_index).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = _weight_grad(g, x, ids, op, src, weight, index)
+        return dx, dw, None, None, None, None, None, None
+
+
+def segment_reduce(x: torch.Tensor, segment_ids: torch.Tensor,
+                   num_segments: int, *, op: str = "sum",
+                   src: Optional[torch.Tensor] = None,
+                   weight: Optional[torch.Tensor] = None,
+                   index: Optional[SegmentIndex] = None,
+                   src_index: Optional[SegmentIndex] = None) -> torch.Tensor:
+    """K8: ``out[s] = op_{e: segment_ids[e] = s} weight[e] * row(e)`` with
+    ``row(e) = x[src[e]]`` (src given) or ``x[e]``; x [M, ...], weight
+    [E] or [E, W] (W columns over the flattened trailing values: per head
+    for a [.., H, dk] row), op ``sum`` | ``mean`` | ``max`` -> [S, ...].
+    Empty segments give 0. Differentiable in x (K8b over ``src_index``)
+    and in the weights of sum and mean (K10)."""
+    if op not in _OPS:
+        raise ValueError(f"Unknown reduce {op!r}")
+    e = segment_ids.shape[0]
+    if (src is None and x.shape[0] != e) or (
+            src is not None and src.shape != (e,)):
+        raise ValueError(f"segment_reduce: {e} segment ids for "
+                         f"{x.shape[0] if src is None else src.shape[0]} "
+                         "rows")
+    if weight is not None and (weight.dim() not in (1, 2)
+                               or weight.shape[0] != e):
+        raise ValueError("segment_reduce: weight must be [E] or [E, W]")
+    if x.device.type != "cpu":
+        index = _index(segment_ids, num_segments, index, e)
+    if not _grad_on(x, weight):
+        return _segment_reduce_fwd(x, segment_ids, num_segments, op, src,
+                                   weight, index)
+    return SegmentReduce.apply(x, weight, segment_ids, num_segments, op, src,
+                               index, src_index)
+
+
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int, *,
                 index: Optional[SegmentIndex] = None) -> torch.Tensor:
@@ -232,15 +449,57 @@ def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
 
 def coo_spmm(src: torch.Tensor, dst: torch.Tensor, x: torch.Tensor,
              num_dst: int, *, edge_weight: Optional[torch.Tensor] = None,
-             reduce: str = "sum",
-             index: Optional[SegmentIndex] = None) -> torch.Tensor:
+             reduce: str = "sum", index: Optional[SegmentIndex] = None,
+             src_index: Optional[SegmentIndex] = None) -> torch.Tensor:
     """Sparse A @ X over COO edges: ``out[d] = reduce_{(s, d) in E} w *
     x[s]`` (K8 in gather mode); ``edge_weight`` [E], or [E, H] for x
-    [N, H, dk] / [N, H * dk]. ``index`` is the SegmentIndex of ``dst``."""
+    [N, H, dk] / [N, H * dk]. ``index`` is the SegmentIndex of ``dst``,
+    ``src_index`` that of ``src`` over x's rows (the backward's walk)."""
     if reduce not in _OPS:
         raise ValueError(f"Unknown reduce {reduce!r}")
     return segment_reduce(x, dst, num_dst, op=reduce, src=src,
-                          weight=edge_weight, index=index)
+                          weight=edge_weight, index=index,
+                          src_index=src_index)
+
+
+def gather_edges(table: torch.Tensor, ids: torch.Tensor, *,
+                 index: Optional[SegmentIndex] = None) -> torch.Tensor:
+    """``table[ids]``: a per-node table [N, ...] read per edge, ids [E].
+    The forward is a row gather, K3 (a bf16 row of odd width padded to
+    whole 4-byte words first); its backward sums each edge's
+    cotangent row into its node's row with K8 over ``index`` (the
+    SegmentIndex of ``ids``), not with a scatter."""
+    if not _grad_on(table):
+        return _gather_edge_rows(table, ids)
+    if table.device.type != "cpu":
+        index = _index(ids, table.shape[0], index, ids.shape[0])
+    return _GatherEdges.apply(table, ids, index)
+
+
+def _gather_edge_rows(table, ids):
+    rows = table.reshape(table.shape[0], -1)
+    w = rows.shape[1]
+    if (w * rows.element_size()) % 4:
+        # K3 moves 4-byte words: a bf16 row of odd width (the attention
+        # terms of 1 or 3 heads) is padded by one column for the gather
+        rows = torch.nn.functional.pad(rows, (0, 1))
+    got, _ = gather_rows(rows.contiguous(), ids.to(torch.int32))
+    return got[..., :w].reshape(tuple(ids.shape) + tuple(table.shape[1:]))
+
+
+class _GatherEdges(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids, index):
+        ctx.save_for_backward(ids)
+        ctx.cfg = (table.shape[0], index)
+        return _gather_edge_rows(table, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        n, index = ctx.cfg
+        return (_segment_reduce_fwd(g.contiguous(), ids, n, "sum",
+                                    index=index), None, None)
 
 
 # -- K9 segment_softmax ---------------------------------------------------------
@@ -260,31 +519,101 @@ def _segment_softmax_plain(logits, segment_ids, num_segments):
     return out.reshape(logits.shape).to(logits.dtype)
 
 
-def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
-                    num_segments: int, *,
-                    index: Optional[SegmentIndex] = None) -> torch.Tensor:
-    """K9: softmax of ``logits`` [E] or [E, H] within each segment, in the
-    original edge order."""
-    e = segment_ids.shape[0]
-    if logits.dim() not in (1, 2) or logits.shape[0] != e:
-        raise ValueError("segment_softmax: logits must be [E] or [E, H]")
+def _segment_softmax_fwd(logits, segment_ids, num_segments, index=None):
+    """K9 launch (plain twin for CPU tensors)."""
     if logits.device.type == "cpu":
         return _segment_softmax_plain(logits, segment_ids, num_segments)
-    _no_grad_on_card("segment_softmax", logits)
+    e = segment_ids.shape[0]
     index = _index(segment_ids, num_segments, index, e)
     lg = logits.contiguous()
     device = _build.require_cuda("segment_softmax", lg, index.order,
                                  index.ptr)
     if lg.dtype not in _DTYPES:
         raise ValueError(f"segment_softmax: dtype {lg.dtype} not supported")
-    heads = _cols(lg)
     out = torch.empty_like(lg)
     if num_segments and e:
         _build.launch("segment_softmax", "gigl_segment_softmax", device,
                       lg.data_ptr(), index.order.data_ptr(),
                       index.ptr.data_ptr(), out.data_ptr(), num_segments,
-                      heads, _DTYPES[lg.dtype])
+                      _cols(lg), _DTYPES[lg.dtype])
     return out
+
+
+def _segment_softmax_bwd_plain(alpha, g, segment_ids, num_segments):
+    """Plain twin of K9b: ``alpha * (g - sum_seg(alpha * g))`` per head,
+    fp32, one rounding to alpha's type."""
+    e = alpha.shape[0]
+    a = alpha.float().reshape(e, _cols(alpha))
+    gf = g.float().reshape(a.shape)
+    ids = segment_ids.long()
+    s = torch.zeros((num_segments, a.shape[1]), device=a.device).index_add(
+        0, ids, a * gf)
+    return (a * (gf - s[ids])).reshape(alpha.shape).to(alpha.dtype)
+
+
+def segment_softmax_bwd(alpha: torch.Tensor, g: torch.Tensor,
+                        segment_ids: torch.Tensor, num_segments: int, *,
+                        index: Optional[SegmentIndex] = None) -> torch.Tensor:
+    """K9b: the logits' cotangent from the softmax ``alpha`` [E] or [E, H]
+    (K9's output) and its cotangent ``g``, walking the forward's
+    ``index``."""
+    e = segment_ids.shape[0]
+    if alpha.shape != g.shape or alpha.shape[0] != e or alpha.dim() > 2:
+        raise ValueError("segment_softmax_bwd: alpha and g must be [E] or "
+                         "[E, H]")
+    if alpha.device.type == "cpu":
+        return _segment_softmax_bwd_plain(alpha, g, segment_ids, num_segments)
+    index = _index(segment_ids, num_segments, index, e)
+    a, gc = alpha.contiguous(), g.contiguous().to(alpha.dtype)
+    device = _build.require_cuda("segment_softmax_bwd", a, gc, index.order,
+                                 index.ptr)
+    if a.dtype not in _DTYPES:
+        raise ValueError(f"segment_softmax_bwd: dtype {a.dtype} not "
+                         "supported")
+    if _cols(a) > 16:
+        raise ValueError(f"segment_softmax_bwd: {_cols(a)} heads (at most "
+                         "16)")
+    out = torch.empty_like(a)
+    if num_segments and e:
+        _build.launch("segment_softmax_bwd", "gigl_segment_softmax_bwd",
+                      device, a.data_ptr(), gc.data_ptr(),
+                      index.order.data_ptr(), index.ptr.data_ptr(),
+                      out.data_ptr(), num_segments, _cols(a),
+                      _DTYPES[a.dtype])
+    return out
+
+
+class SegmentSoftmax(torch.autograd.Function):
+    """K9; the backward is K9b from the saved softmax."""
+
+    @staticmethod
+    def forward(ctx, logits, segment_ids, num_segments, index):
+        out = _segment_softmax_fwd(logits, segment_ids, num_segments, index)
+        ctx.save_for_backward(out, segment_ids)
+        ctx.cfg = (num_segments, index)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        alpha, ids = ctx.saved_tensors
+        n, index = ctx.cfg
+        return segment_softmax_bwd(alpha, g, ids, n, index=index), None, \
+            None, None
+
+
+def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
+                    num_segments: int, *,
+                    index: Optional[SegmentIndex] = None) -> torch.Tensor:
+    """K9: softmax of ``logits`` [E] or [E, H] within each segment, in the
+    original edge order. Differentiable (K9b)."""
+    e = segment_ids.shape[0]
+    if logits.dim() not in (1, 2) or logits.shape[0] != e:
+        raise ValueError("segment_softmax: logits must be [E] or [E, H]")
+    if logits.device.type != "cpu":
+        index = _index(segment_ids, num_segments, index, e)
+    if not _grad_on(logits):
+        return _segment_softmax_fwd(logits, segment_ids, num_segments, index)
+    return SegmentSoftmax.apply(logits, segment_ids, num_segments, index)
 
 
 # -- K10 sddmm ------------------------------------------------------------------
@@ -297,29 +626,16 @@ def _sddmm_plain(src, dst, q, k, scale=None):
     return out.to(q.dtype)
 
 
-def sddmm(src: torch.Tensor, dst: torch.Tensor, q: torch.Tensor,
-          k: torch.Tensor, *,
-          scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K10: per-edge score ``<q[dst_e], k[src_e]>``; q [N_dst, H, D] or
-    [N_dst, D], k likewise -> [E, H] or [E], each head's score times
-    ``scale[h]`` (fp32 [H], or [1] without heads) when given."""
-    if q.dim() not in (2, 3) or k.dim() != q.dim() \
-            or k.shape[1:] != q.shape[1:]:
-        raise ValueError("sddmm: q and k must be [N, H, D] or [N, D] with "
-                         "the same trailing shape")
-    heads = q.shape[1] if q.dim() == 3 else 1
-    if scale is not None and scale.shape != (heads,):
-        raise ValueError(f"sddmm: scale must be [{heads}]")
-    if src.shape != dst.shape or src.dim() != 1:
-        raise ValueError("sddmm: src and dst must be [E]")
+def _sddmm_fwd(src, dst, q, k, scale=None):
+    """K10 launch (plain twin for CPU tensors): see :func:`sddmm`."""
     if q.device.type == "cpu":
         return _sddmm_plain(src, dst, q, k, scale)
-    _no_grad_on_card("sddmm", q, k)
+    heads = q.shape[1] if q.dim() == 3 else 1
     c = math.prod(q.shape[1:])
     qf = q.contiguous().reshape(q.shape[0], c)
     kf = k.contiguous().reshape(k.shape[0], c)
     s32, d32 = (t.to(torch.int32).contiguous() for t in (src, dst))
-    sc = None if scale is None else scale.float().contiguous()
+    sc = None if scale is None else scale.detach().float().contiguous()
     extra = () if sc is None else (sc,)
     device = _build.require_cuda("sddmm", qf, kf, s32, d32, *extra)
     if qf.dtype not in _DTYPES or kf.dtype != qf.dtype:
@@ -335,3 +651,130 @@ def sddmm(src: torch.Tensor, dst: torch.Tensor, q: torch.Tensor,
                       _build.ptr(sc), out.data_ptr(), e, c, heads,
                       _DTYPES[q.dtype], vec)
     return out if q.dim() == 3 else out.reshape(e)
+
+
+# -- K10b sddmm_bwd -------------------------------------------------------------
+def _sddmm_bwd_blocks(e: int) -> int:
+    """K10b's grid (and rows of its partial sums): a function of E alone."""
+    return min(max(-(-e // 256), 1), 1024)
+
+
+def _sddmm_bwd_coef_plain(g, scale=None, raw=None):
+    """Plain twin of K10b: fp32 ``g * scale`` and ``sum_e g * raw``."""
+    gf = g.float()
+    coef = gf if scale is None else gf * scale.float()
+    return coef, None if raw is None else (gf * raw.float()).sum(0)
+
+
+def sddmm_bwd_coef(g: torch.Tensor, scale: Optional[torch.Tensor] = None,
+                   raw: Optional[torch.Tensor] = None):
+    """K10b: from the scores' cotangent ``g`` [E, H], the per-edge
+    coefficients ``g * scale`` (fp32 [E, H]) that weigh dq's and dk's
+    gathers, and, given the unscaled scores ``raw`` [E, H], the scale's
+    cotangent ``sum_e g * raw`` (fp32 [H]; else None), summed in two
+    deterministic stages."""
+    if g.dim() != 2 or (raw is not None and raw.shape != g.shape):
+        raise ValueError("sddmm_bwd_coef: g (and raw) must be [E, H]")
+    e, heads = g.shape
+    if scale is not None and scale.shape != (heads,):
+        raise ValueError(f"sddmm_bwd_coef: scale must be [{heads}]")
+    if g.device.type == "cpu":
+        return _sddmm_bwd_coef_plain(g, scale, raw)
+    gc = g.contiguous()
+    sc = None if scale is None else scale.detach().float().contiguous()
+    rc = None if raw is None else raw.contiguous().to(gc.dtype)
+    device = _build.require_cuda(
+        "sddmm_bwd", gc, *(t for t in (sc, rc) if t is not None))
+    if gc.dtype not in _DTYPES:
+        raise ValueError(f"sddmm_bwd_coef: dtype {g.dtype} not supported")
+    if heads > 16:
+        raise ValueError(f"sddmm_bwd_coef: {heads} heads (at most 16)")
+    coef = torch.empty((e, heads), dtype=torch.float32, device=device)
+    blocks = _sddmm_bwd_blocks(e)
+    partial = (None if rc is None else
+               torch.empty((blocks, heads), dtype=torch.float32,
+                           device=device))
+    if e:
+        _build.launch("sddmm_bwd", "gigl_sddmm_bwd_coef", device,
+                      gc.data_ptr(), _build.ptr(sc), _build.ptr(rc),
+                      coef.data_ptr(), _build.ptr(partial), e, heads, blocks,
+                      _DTYPES[gc.dtype])
+    dscale = None
+    if rc is not None:
+        dscale = torch.zeros(heads, dtype=torch.float32, device=device)
+        if e:
+            _build.launch("sddmm_bwd", "gigl_sddmm_bwd_scale", device,
+                          partial.data_ptr(), dscale.data_ptr(), blocks,
+                          heads)
+    return coef, dscale
+
+
+class SDDMM(torch.autograd.Function):
+    """K10; the backward is K10b's coefficients (and the scale's
+    cotangent, from a second, unscaled K10; without a scale the
+    coefficients are the cotangent itself), then dq as K8 over the
+    destination index and dk as K8b over the source index, both weighted
+    per head by the coefficients."""
+
+    @staticmethod
+    def forward(ctx, q, k, scale, src, dst, index, src_index):
+        out = _sddmm_fwd(src, dst, q, k, scale)
+        ctx.save_for_backward(q, k, scale, src, dst)
+        ctx.cfg = (index, src_index)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, scale, src, dst = ctx.saved_tensors
+        index, src_index = ctx.cfg
+        need_q, need_k, need_s = ctx.needs_input_grad[:3]
+        e = src.shape[0]
+        heads = q.shape[1] if q.dim() == 3 else 1
+        c = math.prod(q.shape[1:])
+        g2, raw = g.reshape(e, heads), None
+        if need_s:
+            # the unscaled scores and g in fp32: a bf16 K10 output would
+            # round each term of the scale's cotangent once more
+            raw = _sddmm_fwd(src, dst, q.float(), k.float()).reshape(e, heads)
+            g2 = g2.float()
+        if scale is None:   # the coefficients are g itself (K8 / K8b widen it)
+            coef, dscale = g2, None
+        else:
+            coef, dscale = sddmm_bwd_coef(g2, scale, raw)
+        dq = dk = None
+        if need_q:   # K8 over the destination index
+            dq = _segment_reduce_fwd(k.reshape(k.shape[0], c), dst,
+                                     q.shape[0], "sum", src, coef,
+                                     index).reshape(q.shape)
+        if need_k:   # K8b over the source index
+            dk = segment_reduce_bwd(q.reshape(q.shape[0], c), dst,
+                                    k.shape[0], src=src, weight=coef,
+                                    index=index,
+                                    src_index=src_index).reshape(k.shape)
+        if dscale is not None:
+            dscale = dscale.to(scale.dtype)
+        return dq, dk, dscale, None, None, None, None
+
+
+def sddmm(src: torch.Tensor, dst: torch.Tensor, q: torch.Tensor,
+          k: torch.Tensor, *, scale: Optional[torch.Tensor] = None,
+          index: Optional[SegmentIndex] = None,
+          src_index: Optional[SegmentIndex] = None) -> torch.Tensor:
+    """K10: per-edge score ``<q[dst_e], k[src_e]>``; q [N_dst, H, D] or
+    [N_dst, D], k likewise -> [E, H] or [E], each head's score times
+    ``scale[h]`` (fp32 [H], or [1] without heads) when given.
+    Differentiable in q, k and scale (K10b, K8, K8b); ``index`` is the
+    SegmentIndex of ``dst`` over q's rows, ``src_index`` that of ``src``
+    over k's rows."""
+    if q.dim() not in (2, 3) or k.dim() != q.dim() \
+            or k.shape[1:] != q.shape[1:]:
+        raise ValueError("sddmm: q and k must be [N, H, D] or [N, D] with "
+                         "the same trailing shape")
+    heads = q.shape[1] if q.dim() == 3 else 1
+    if scale is not None and scale.shape != (heads,):
+        raise ValueError(f"sddmm: scale must be [{heads}]")
+    if src.shape != dst.shape or src.dim() != 1:
+        raise ValueError("sddmm: src and dst must be [E]")
+    if not _grad_on(q, k, scale):
+        return _sddmm_fwd(src, dst, q, k, scale)
+    return SDDMM.apply(q, k, scale, src, dst, index, src_index)

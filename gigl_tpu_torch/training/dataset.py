@@ -14,7 +14,8 @@ gather per level (K3).
 
 ``sample_nalp_batch`` draws per-anchor positives (and hard negatives) from
 the supervision (hard-negative) CSR through K1 and the batch-shared random
-negatives through K1b, bit-equal to the reference for every step.
+negatives through K1b, bit-equal to the reference for every step; the typed
+graph (``hetero_dataset.py``) draws through the same functions.
 """
 
 from __future__ import annotations
@@ -61,6 +62,59 @@ class NALPBatch(NamedTuple):
     hard_neg: torch.Tensor       # [B, H] int32 (H may be 0)
     hard_neg_mask: torch.Tensor  # [B, H] bool
     random_neg: torch.Tensor     # [R] int32
+
+
+def draw_positives(csr: Optional[DeviceCSR], anchors: torch.Tensor,
+                   num: int, *, seed: int, step: int):
+    """Per-anchor positives from the supervision CSR through K1 at hop
+    1_000_003 + step (wrapping mod 2**32): (ids, mask) [B, num]."""
+    if csr is None:
+        raise ValueError("No supervision CSR registered for NALP sampling")
+    pos, mask, _ = sample_neighbors(csr, anchors, num, seed=seed,
+                                    hop=1_000_003 + step)
+    return pos, mask
+
+
+def draw_hard_negatives(csr: Optional[DeviceCSR], anchors: torch.Tensor,
+                        num: int, *, seed: int, step: int):
+    """Per-anchor hard negatives from the hard-negative CSR through K1 at
+    hop 2_000_003 + step; (zeros, False) [B, num] when there are none."""
+    if num > 0 and csr is not None:
+        hard, mask, _ = sample_neighbors(csr, anchors, num, seed=seed,
+                                         hop=2_000_003 + step)
+        return hard, mask
+    shape = anchors.shape + (max(num, 0),)
+    return (torch.zeros(shape, dtype=torch.int32, device=anchors.device),
+            torch.zeros(shape, dtype=torch.bool, device=anchors.device))
+
+
+def draw_random_negatives(num: int, num_nodes: int, *, seed: int, step: int,
+                          device: torch.device) -> torch.Tensor:
+    """``num`` batch-shared uniform candidate ids in [0, num_nodes) through
+    K1b at hop 3_000_017 + step."""
+    return uniform_ids(num, seed, 3_000_017 + step, num_nodes, device)
+
+
+def sample_nalp_batch(supervision_csr: Optional[DeviceCSR],
+                      hard_neg_csr: Optional[DeviceCSR], num_candidates: int,
+                      anchors: torch.Tensor, *, num_positives: int,
+                      num_hard_negs: int = 0, num_random_negs: int = 512,
+                      seed: int = 0, step: int = 0) -> NALPBatch:
+    """A NALP batch: positives (K1, hop 1_000_003 + step) and hard
+    negatives (K1, hop 2_000_003 + step) from the label CSRs anchored on
+    the anchors' side, and ``num_random_negs`` batch-shared uniform
+    negatives of the ``num_candidates`` candidates (K1b, hop 3_000_017 +
+    step). The homogeneous and the typed graphs both draw through it."""
+    pos, pos_mask = draw_positives(supervision_csr, anchors, num_positives,
+                                   seed=seed, step=step)
+    hard, hard_mask = draw_hard_negatives(hard_neg_csr, anchors,
+                                          num_hard_negs, seed=seed,
+                                          step=step)
+    rand = draw_random_negatives(num_random_negs, num_candidates, seed=seed,
+                                 step=step, device=anchors.device)
+    return NALPBatch(anchors=anchors, pos=pos, pos_mask=pos_mask,
+                     hard_neg=hard, hard_neg_mask=hard_mask,
+                     random_neg=rand)
 
 
 @dataclass
@@ -161,30 +215,12 @@ class DeviceGraph:
         seed: int = 0,
         step: int = 0,
     ) -> NALPBatch:
-        """Positives (hop 1_000_003 + step) and hard negatives (hop
-        2_000_003 + step) from the label CSRs through K1; ``num_random_negs``
-        batch-shared uniform negatives (hop 3_000_017 + step) through K1b.
-        Hops wrap mod 2**32."""
-        if self.supervision_csr is None:
-            raise ValueError("No supervision CSR registered for NALP sampling")
-        anchors = anchors.to(device=self.device, dtype=torch.int32)
-        pos, pos_mask, _ = sample_neighbors(
-            self.supervision_csr, anchors, num_positives, seed=seed,
-            hop=1_000_003 + step)
-        if num_hard_negs > 0 and self.hard_neg_csr is not None:
-            hard, hard_mask, _ = sample_neighbors(
-                self.hard_neg_csr, anchors, num_hard_negs, seed=seed,
-                hop=2_000_003 + step)
-        else:
-            hard = torch.zeros(anchors.shape + (num_hard_negs,),
-                               dtype=torch.int32, device=self.device)
-            hard_mask = torch.zeros(anchors.shape + (num_hard_negs,),
-                                    dtype=torch.bool, device=self.device)
-        rand = uniform_ids(num_random_negs, seed, 3_000_017 + step,
-                           self.num_nodes, self.device)
-        return NALPBatch(anchors=anchors, pos=pos, pos_mask=pos_mask,
-                         hard_neg=hard, hard_neg_mask=hard_mask,
-                         random_neg=rand)
+        """The step's batch for ``anchors`` (:func:`sample_nalp_batch`)."""
+        return sample_nalp_batch(
+            self.supervision_csr, self.hard_neg_csr, self.num_nodes,
+            anchors.to(device=self.device, dtype=torch.int32),
+            num_positives=num_positives, num_hard_negs=num_hard_negs,
+            num_random_negs=num_random_negs, seed=seed, step=step)
 
     # -- live sampling ----------------------------------------------------------
     def sample_hop_blocks(

@@ -1,20 +1,24 @@
 """The NALP fit loop: validation cadence and early stopping (port of
-``gigl_tpu/training/fit_loop.py`` ``nalp_fit_loop``, replicated only).
+``gigl_tpu/training/fit_loop.py`` ``nalp_fit_loop``, replicated only, and
+of the typed trainer's loop, ``gigl_tpu/training/hetero_trainer.py``
+:283-330).
 
-Steps run in chunks of ``val_every_n_batches`` through
-``trainer.train_steps``; a full chunk ends with an evaluation of
-``num_val_batches`` val batches, and early stopping on val MRR keeps a
-clone of the best weights, loaded back into the model at the end. With
-``cached_hop`` the tabularized tables are resampled each epoch after the
-first. Checkpointing and sharded (partitioned-trainer) runs are not
-ported.
+Steps run in chunks through ``trainer.train_steps``. The homogeneous
+cadence cuts each epoch into chunks of ``val_every_n_batches`` and
+evaluates after each full chunk; the typed trainer's (``global_cadence``)
+evaluates at every ``val_every_n_batches``-th step counted over all
+epochs. An evaluation takes ``num_val_batches`` val batches, and early
+stopping on val MRR keeps a clone of the best weights, loaded back into
+the model at the end. ``refresh(epoch)``, when given, re-freezes the
+tabularized tables each epoch after the first. Checkpointing and sharded
+(partitioned-trainer) runs are not ported.
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +50,8 @@ def nalp_fit_loop(
     log_every: int = 50,
     scalar_logger=None,
     checkpoint_dir: Optional[str] = None,
+    refresh: Optional[Callable[[int], None]] = None,
+    global_cadence: bool = False,
 ) -> Tuple[object, Dict[str, float]]:
     """Train ``trainer`` from ``state``; returns (state, final val
     metrics) with the best weights (by val MRR) in the model."""
@@ -64,13 +70,17 @@ def nalp_fit_loop(
     t0 = time.time()
     stop = False
     for epoch in range(num_epochs):
-        if epoch > 0 and cfg.cached_hop:
+        if epoch > 0 and refresh is not None:
             # Resample the frozen tabularized tables — the analog of
             # re-running the reference's Subgraph Sampler.
-            trainer.refresh_cache(epoch)
+            refresh(epoch)
         batches = np.stack(list(it.epoch(epoch)))
-        for start in range(0, len(batches), val_every_n_batches):
-            chunk = batches[start: start + val_every_n_batches]
+        start = 0
+        while start < len(batches):
+            n = val_every_n_batches - (
+                global_step % val_every_n_batches if global_cadence else 0)
+            chunk = batches[start: start + n]
+            start += len(chunk)
             state, losses = trainer.train_steps(state, chunk, generator)
             global_step += len(chunk)
             if log_every:
@@ -81,7 +91,8 @@ def nalp_fit_loop(
                 t0 = time.time()
             if scalar_logger is not None:
                 scalar_logger.log(global_step, loss=float(losses[-1]))
-            if len(chunk) == val_every_n_batches:
+            if (global_step % val_every_n_batches == 0 if global_cadence
+                    else len(chunk) == val_every_n_batches):
                 metrics = trainer.evaluate(
                     list(_take(val_it.epoch(global_step), num_val_batches)),
                     step=global_step)

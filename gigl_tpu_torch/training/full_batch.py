@@ -4,16 +4,18 @@
 ``FullBatchTrainer``).
 
 One step encodes the whole graph through the ELL tables
-(``GNNEncoder.encode_ell``: K3 permute-gathers, K6 or K7 per bucket), takes
-the masked cross entropy over the train split divided by its count, runs
-the backward (K3 through the inverse permutations, K6b over the transpose
-tables, K7b for the attention convs) and the optimizer from
-``make_optimizer``. The graph tensors live on the device once; a step does
-no host synchronisation. Split masks come from the hash split of
-``graph/splitters.py``, bit-equal to the reference's.
+(``GNNEncoder.encode_ell``: K3 permute-gathers, K6 or K7 per bucket) or,
+built with ``build_ell=False``, over the COO edges (``encode_coo``: the
+segment kernels K8-K10 walking the two ``SegmentIndex``es that
+``full_batch_data_from_graph`` builds once), takes the masked cross
+entropy over the train split divided by its count, runs the backward (ELL:
+K3 through the inverse permutations, K6b over the transpose tables, K7b
+for the attention convs; COO: K8b, K9b, K10b with K8 and K10) and the
+optimizer from ``make_optimizer``. The graph tensors live on the device
+once; a step does no host synchronisation. Split masks come from the hash
+split of ``graph/splitters.py``, bit-equal to the reference's.
 
-Not ported: the COO path (``build_ell=False`` -> ``encode_coo`` over the
-segment ops, ROADMAP B7) and edge features.
+Not ported: edge features (ROADMAP B6 edges).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from gigl_tpu_torch.losses.losses import cross_entropy_loss
 from gigl_tpu_torch.losses.metrics import accuracy
 from gigl_tpu_torch.models.init import init_params
 from gigl_tpu_torch.ops.ell import EllGraph
+from gigl_tpu_torch.ops.segment import SegmentIndex
 from gigl_tpu_torch.training.early_stop import EarlyStopper
 from gigl_tpu_torch.training.trainer import (
     TrainState,
@@ -42,17 +45,12 @@ from gigl_tpu_torch.training.trainer import (
 
 logger = logging.getLogger(__name__)
 
-COO_NOT_PORTED = (
-    "full-batch training without the ELL tables (build_ell=False) runs "
-    "encode_coo over the COO segment ops, which is not ported yet "
-    "(ROADMAP B7)")
-
-
 @dataclass
 class FullBatchData:
     """Whole-graph device tensors: features, the COO edge list, labels,
-    the three split masks and (by default) the ELL tables the trainer
-    aggregates through."""
+    the three split masks and the tables the trainer aggregates through:
+    the ELL tables (by default) or, without them, the SegmentIndexes of
+    ``dst`` (``index``) and ``src`` (``src_index``)."""
 
     x: torch.Tensor            # [N, D] f32
     src: torch.Tensor          # [E] int32
@@ -63,6 +61,8 @@ class FullBatchData:
     test_mask: torch.Tensor
     edge_attr: Optional[torch.Tensor] = None
     ell: Optional[EllGraph] = None
+    index: Optional[SegmentIndex] = None
+    src_index: Optional[SegmentIndex] = None
 
     @property
     def num_nodes(self) -> int:
@@ -83,9 +83,10 @@ def full_batch_data_from_graph(
     device: DeviceLike = None,
 ) -> FullBatchData:
     """Device tensors and the deterministic hash-split masks of a
-    homogeneous graph with labels, on ``device`` (CUDA unless given).
-    ``seed`` is kept for the reference's signature: the hash split does
-    not draw."""
+    homogeneous graph with labels, on ``device`` (CUDA unless given), with
+    the ELL tables or (``build_ell=False``) the two SegmentIndexes, built
+    on the host once. ``seed`` is kept for the reference's signature: the
+    hash split does not draw."""
     del seed
     device = resolve_device(device)
     nt = graph.metadata.node_types[0]
@@ -108,12 +109,16 @@ def full_batch_data_from_graph(
     def i32(a):
         return torch.as_tensor(np.asarray(a).astype(np.int32)).to(device)
 
+    coo_tables = {}
+    if not build_ell:
+        coo_tables = {"index": SegmentIndex.from_ids(coo[1], n, device),
+                      "src_index": SegmentIndex.from_ids(coo[0], n, device)}
     return FullBatchData(
         x=torch.as_tensor(np.asarray(feats, np.float32)).to(device),
         src=i32(coo[0]), dst=i32(coo[1]), labels=i32(labels),
         train_mask=masks[0], val_mask=masks[1], test_mask=masks[2],
         ell=(EllGraph.from_csr(graph.csr(et, anchor="dst"), device=device)
-             if build_ell else None))
+             if build_ell else None), **coo_tables)
 
 
 @dataclass
@@ -125,7 +130,8 @@ class FullBatchTrainerConfig:
 
 
 class FullBatchTrainer:
-    """Whole-graph supervised node classification over the ELL tables."""
+    """Whole-graph supervised node classification over the ELL tables, or
+    over the COO segment ops when the data has none (``encode_coo``)."""
 
     def __init__(self, encoder: nn.Module, data: FullBatchData,
                  config: Optional[FullBatchTrainerConfig] = None,
@@ -135,8 +141,6 @@ class FullBatchTrainer:
         if data.device != self.device:
             raise ValueError(f"data lives on {data.device}, trainer asked "
                              f"for {self.device}")
-        if data.ell is None:
-            raise NotImplementedError(COO_NOT_PORTED)
         if data.edge_attr is not None:
             raise NotImplementedError(
                 "edge features on the full-batch path are not ported yet "
@@ -163,9 +167,15 @@ class FullBatchTrainer:
 
     def logits(self, train: bool = False,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """[N, classes] in original node order."""
-        return self.encoder.encode_ell(self.data.x, self.data.ell,
-                                       train=train, generator=generator)
+        """[N, classes] in original node order: ``encode_ell`` over the ELL
+        tables, else ``encode_coo`` (``full_batch.py:124-142``)."""
+        d = self.data
+        if d.ell is not None:
+            return self.encoder.encode_ell(d.x, d.ell, train=train,
+                                           generator=generator)
+        return self.encoder.encode_coo(d.x, d.src, d.dst, d.num_nodes,
+                                       train=train, generator=generator,
+                                       index=d.index, src_index=d.src_index)
 
     def loss(self, generator: Optional[torch.Generator] = None
              ) -> torch.Tensor:

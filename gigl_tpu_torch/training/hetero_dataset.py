@@ -1,7 +1,8 @@
-"""Device-resident typed graph for heterogeneous inference (port of
-``gigl_tpu/training/hetero_dataset.py``: ``HeteroDeviceGraph`` with
-``from_hetero``, ``sample``, ``hydrate``, ``with_sample_tables`` and
-``sample_tabularized``, and ``paths_from_config``).
+"""Device-resident typed graph for heterogeneous training and inference
+(port of ``gigl_tpu/training/hetero_dataset.py``: ``HeteroDeviceGraph``
+with ``from_hetero``, ``sample``, ``hydrate``, ``with_sample_tables``,
+``sample_tabularized``, the positive / hard-negative / random-negative
+draws, and ``paths_from_config``).
 
 Every (edge type, anchor) CSR that a sampling path uses is a
 :class:`~gigl_tpu_torch.sampling.neighbor_sampler.DeviceCSR`, and every
@@ -10,10 +11,14 @@ op through K1; the tabularized path freezes one sample table per (CSR,
 fanout, method) through K1 (``build_sample_table``) and expands the op
 tree by table-row gathers through K3 (``expand_table``); ``hydrate``
 gathers each entry's feature rows through K3 (``gather_rows``).
+Training batches draw positives and hard negatives from the supervision /
+hard-negative CSRs (anchored on the anchor type) through K1 and the
+batch-shared random negatives of the candidate type through K1b, with the
+homogeneous graph's functions (``training/dataset.py``), bit-equal to the
+reference.
 
-Not ported yet: weighted / top-k CSRs (A2), the label-edge features, the
-negative samplers and the positive / hard-negative draws (typed training,
-slice 6), and host-resident feature tables (the partitioned tier, A15).
+Not ported yet: weighted / top-k CSRs (A2), the label-edge features (the
+rest of A12) and host-resident feature tables (the partitioned tier, A15).
 """
 
 from __future__ import annotations
@@ -39,9 +44,18 @@ from gigl_tpu_torch.sampling.hetero_sampler import (
     sample_typed_blocks,
 )
 from gigl_tpu_torch.sampling.neighbor_sampler import DeviceCSR
+from gigl_tpu_torch.training.dataset import (
+    NALPBatch,
+    draw_hard_negatives,
+    draw_positives,
+    draw_random_negatives,
+    sample_nalp_batch,
+)
 from gigl_tpu_torch.types.graph import EdgeType
 
-TRAINING_NOT_PORTED = "typed training is not ported yet (slice 6)"
+LABEL_EDGE_FEATURES_NOT_PORTED = (
+    "label-edge features are not ported yet (ROADMAP A12, label-edge "
+    "features)")
 
 
 @dataclass
@@ -88,8 +102,7 @@ class HeteroDeviceGraph:
                 "partitioned tier, ROADMAP A15)")
         if (supervision_edge_features is not None
                 or hard_neg_edge_features is not None):
-            raise NotImplementedError(
-                f"label edge features: {TRAINING_NOT_PORTED}")
+            raise NotImplementedError(LABEL_EDGE_FEATURES_NOT_PORTED)
         device = resolve_device(device)
         csrs: Dict[str, DeviceCSR] = {}
         for key in sorted({op.csr_key for ops in paths.values()
@@ -193,6 +206,54 @@ class HeteroDeviceGraph:
         feats = [gather_rows(self.node_features[nt], ids)[0]
                  for nt, ids in zip(types, blocks.node_ids)]
         return feats, blocks.masks
+
+    # -- training draws (hetero_dataset.py:292-347) -----------------------------
+    def sample_positives(self, anchors: torch.Tensor, num_positives: int, *,
+                         seed: int, step: int):
+        """(ids, mask) [B, P]: K1 over the supervision CSR at hop 1_000_003
+        + step."""
+        return draw_positives(self.supervision_csr, anchors, num_positives,
+                              seed=seed, step=step)
+
+    def sample_positives_with_feats(self, anchors, num_positives, *, seed,
+                                    step):
+        """(ids, mask, None): the label-edge features are not ported."""
+        return (*self.sample_positives(anchors, num_positives, seed=seed,
+                                       step=step), None)
+
+    def sample_hard_negatives(self, anchors: torch.Tensor,
+                              num_hard_negs: int, *, seed: int, step: int):
+        """(ids, mask) [B, H]: K1 over the hard-negative CSR at hop
+        2_000_003 + step; zeros and an all-False mask without one."""
+        return draw_hard_negatives(self.hard_neg_csr, anchors, num_hard_negs,
+                                   seed=seed, step=step)
+
+    def sample_hard_negatives_with_feats(self, anchors, num_hard_negs, *,
+                                         seed, step):
+        """(ids, mask, None): the label-edge features are not ported."""
+        return (*self.sample_hard_negatives(anchors, num_hard_negs,
+                                            seed=seed, step=step), None)
+
+    def sample_random_negatives(self, num: int, candidate_node_type: str, *,
+                                seed: int, step: int) -> torch.Tensor:
+        """[num] ids of ``candidate_node_type``: K1b at hop 3_000_017 +
+        step."""
+        return draw_random_negatives(
+            num, self.num_nodes[str(candidate_node_type)], seed=seed,
+            step=step, device=self.device)
+
+    def sample_nalp_batch(self, anchors: torch.Tensor,
+                          candidate_node_type: str, *, num_positives: int,
+                          num_hard_negs: int = 0, num_random_negs: int = 512,
+                          seed: int = 0, step: int = 0) -> NALPBatch:
+        """The typed batch of ``step`` (the reference's ``_sample_batch``):
+        the three draws above, candidates of ``candidate_node_type``."""
+        return sample_nalp_batch(
+            self.supervision_csr, self.hard_neg_csr,
+            self.num_nodes[str(candidate_node_type)],
+            anchors.to(device=self.device, dtype=torch.int32),
+            num_positives=num_positives, num_hard_negs=num_hard_negs,
+            num_random_negs=num_random_negs, seed=seed, step=step)
 
 
 def paths_from_config(

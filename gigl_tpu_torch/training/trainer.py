@@ -435,7 +435,8 @@ class NALPTrainer(BaseInferencer):
             val_every_n_batches=val_every_n_batches,
             num_val_batches=num_val_batches,
             early_stop_patience=early_stop_patience, log_every=log_every,
-            scalar_logger=scalar_logger, checkpoint_dir=checkpoint_dir)
+            scalar_logger=scalar_logger, checkpoint_dir=checkpoint_dir,
+            refresh=self.refresh_cache if self.cfg.cached_hop else None)
 
 
 # ---------------------------------------------------------------------------

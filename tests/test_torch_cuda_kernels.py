@@ -34,10 +34,18 @@ and per-edge rows; rows of 128, 64, 12 and 4 values), K9 segment_softmax
 segments with empty segments, degree-1 segments and a 10^4 hub: the same
 tolerances (softmax, absolute: 5e-5 fp32, where the hub's 10^4-term
 denominator is summed in another order; 2**-8 bf16), the same bits on a
-repeat run; a CUDA input that requires grad raises (slice 6). Then the
-typed serving paths on the card against the CPU (exact full-graph HGT,
+repeat run. Their backward against autograd through the plain twins: K8b
+(sum, mean, max with ties; unweighted, [E] and [E, H] weights, whose
+gradient is K10; gather and per-edge rows; an x that needs no gradient)
+over a 10^4-edge source hub and empty segments, K9b (H 1 and 4) and the
+sddmm backward (K10b, K8, K8b; head dims 32, 64, 3; the scale absent,
+without and with grad), fp32 within 1e-5 of the scale (K9b 1e-4: the hub's
+softmax), bf16 within 2e-2, the same bits on a repeat run. Then
+encode_coo's gradients (SAGE, GAT, Transformer) and HGT's encode_full
+gradients (its prior through K10b) on the card against the CPU, the typed
+serving paths on the card against the CPU (exact full-graph HGT,
 SimpleHGN and RGCN; sampled HGT, live and tabularized), fp32 within 1e-5
-of the scale.
+of the scale, and three typed training steps (HGT, RGCN) against the CPU.
 """
 
 import numpy as np
@@ -59,6 +67,7 @@ from gigl_tpu_torch.models.link_prediction import (
     LinkPredictionGNN,
 )
 from gigl_tpu_torch.ops import _build
+from gigl_tpu_torch.ops import segment as segment_ops
 from gigl_tpu_torch.ops.attention import (
     _fanout_attention_bwd_plain,
     _fanout_attention_fwd,
@@ -845,19 +854,248 @@ def test_sddmm_matches_plain(dev, dtype, heads, dk, scaled):
 
 
 def test_segment_ops_on_card_are_forward_only(dev):
+    """Formerly forward only: a CUDA input that requires grad now records
+    the ops' autograd.Functions (their backward is K8b, K9b, K10b); a
+    mismatched index still raises."""
     ids, index = _segment_graph(dev, e=500, hub_deg=10)
     s, e = index.num_segments, index.num_edges
     x = torch.randn((e, 8), device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        segment_sum(x, ids, s, index=index)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        segment_softmax(x[:, :2], ids, s, index=index)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        sddmm(ids, ids, x[:s], x[:s])
+    assert "SegmentReduce" in segment_sum(x, ids, s, index=index) \
+        .grad_fn.name()
+    assert "SegmentSoftmax" in segment_softmax(
+        x[:, :2], ids, s, index=index).grad_fn.name()
+    assert "SDDMM" in sddmm(ids, ids, x[:s], x[:s]).grad_fn.name()
     with torch.no_grad():
-        segment_sum(x, ids, s, index=index)
+        assert segment_sum(x, ids, s, index=index).grad_fn is None
     with pytest.raises(ValueError, match="index covers"):
         segment_sum(x.detach(), ids, s + 1, index=index)
+
+
+def _grad_pair(fn, inputs, cot):
+    """Gradients of ``fn`` at ``inputs`` (those with requires_grad) for the
+    cotangent ``cot``."""
+    out = fn(*inputs)
+    out.backward(cot)
+    return [None if t.grad is None else t.grad.clone() for t in inputs]
+
+
+def _leaves(*tensors, grad=True):
+    return [t.detach().clone().requires_grad_(grad and t.is_floating_point())
+            for t in tensors]
+
+
+BWD_CASES = [  # (C, heads of the weight (0: none), gather rows, x needs grad)
+    (128, 0, True, True), (128, 1, True, True), (128, 4, True, True),
+    (128, 4, True, False), (64, 4, False, True), (12, 3, True, True),
+    (4, 1, False, True)]
+# no conv trains a weighted max (its weight gradient raises)
+BWD_OP_CASES = [(op,) + case for op in ("sum", "mean", "max")
+                for case in BWD_CASES if op != "max" or not case[1]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op,c,w_heads,gather,x_grad", BWD_OP_CASES)
+def test_segment_reduce_bwd_matches_plain(dev, dtype, op, c, w_heads,
+                                          gather, x_grad):
+    """K8b (rows; max on data with ties) and K10 (weights, sum and mean)
+    against autograd through the plain twin, on segments with 100 empty
+    ones and a 10^4 hub, sources with a 10^4-edge hub too (gather mode);
+    an x that needs no gradient launches no K8b. The same bits on a repeat
+    run."""
+    ids, index = _segment_graph(dev)
+    s, e = index.num_segments, index.num_edges
+    g = torch.Generator(device=dev).manual_seed(4)
+    m = 5000 if gather else e
+    x = torch.randn((m, c), generator=g, device=dev)
+    if op == "max":
+        x = (x * 2).round()                               # ties
+    x = x.to(dtype)
+    src = src_index = None
+    if gather:
+        src = torch.randint(0, m, (e,), generator=g, device=dev,
+                            dtype=torch.int32)
+        src[: 10_000] = 17                                # a source hub
+        src_index = SegmentIndex.from_ids(src, m)
+    w = None
+    if w_heads:
+        w = torch.rand((e, w_heads) if w_heads > 1 else (e,), generator=g,
+                       device=dev)
+    cot = torch.randn((s, c), generator=g, device=dev).to(dtype)
+
+    def run(fn):
+        xx = x.detach().clone().requires_grad_(x_grad)
+        ww = None if w is None else w.detach().clone().requires_grad_()
+        fn(xx, ww).backward(cot)
+        return xx.grad, None if ww is None else ww.grad
+
+    def kernels(x_, w_):
+        return segment_reduce(x_, ids, s, op=op, src=src, weight=w_,
+                              index=index, src_index=src_index)
+
+    _build.reset_launches()
+    got = run(kernels)
+    assert (_build.launches["segment_reduce_bwd"] > 0) == x_grad
+    assert (_build.launches["sddmm"] > 0) == (w is not None)
+    want = run(lambda x_, w_: _segment_reduce_plain(x_, ids, s, op, src,
+                                                     w_))
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if b is not None:
+            _within(a, b, dtype)
+    for a, b in zip(got, run(kernels)):          # no atomics: same bits
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [1, 4])
+def test_segment_softmax_bwd_matches_plain(dev, dtype, heads):
+    """K9b against autograd through the plain twin (empty segments, the
+    10^4 hub), the same bits on a repeat run."""
+    ids, index = _segment_graph(dev)
+    s, e = index.num_segments, index.num_edges
+    g = torch.Generator(device=dev).manual_seed(5)
+    shape = (e,) if heads == 1 else (e, heads)
+    logits = (torch.randn(shape, generator=g, device=dev) * 4).to(dtype)
+    cot = torch.randn(shape, generator=g, device=dev).to(dtype)
+    _build.reset_launches()
+    (got,) = _grad_pair(lambda l_: segment_softmax(l_, ids, s, index=index),
+                        _leaves(logits), cot)
+    assert _build.launches["segment_softmax_bwd"] == 1
+    (want,) = _grad_pair(lambda l_: _segment_softmax_plain(l_, ids, s),
+                         _leaves(logits), cot)
+    # the hub's softmax itself sits ~2e-5 from the twin's (see above)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    scale = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol * scale
+    (again,) = _grad_pair(lambda l_: segment_softmax(l_, ids, s,
+                                                     index=index),
+                          _leaves(logits), cot)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,dk", [(4, 32), (1, 64), (4, 3)])
+@pytest.mark.parametrize("scale_grad", [None, False, True])
+def test_sddmm_bwd_matches_plain(dev, dtype, heads, dk, scale_grad):
+    """dq (K8), dk (K8b) and dscale (K10b; scale absent, without and with
+    grad) against autograd through the plain twin, on the segment graph's
+    destinations with a 10^4 source hub; the same bits on a repeat run."""
+    ids, index = _segment_graph(dev)
+    e = ids.shape[0]
+    g = torch.Generator(device=dev).manual_seed(6)
+    q = torch.randn((3000, heads, dk), generator=g, device=dev).to(dtype)
+    k = torch.randn((4000, heads, dk), generator=g, device=dev).to(dtype)
+    src = torch.randint(0, 4000, (e,), generator=g, device=dev,
+                        dtype=torch.int32)
+    src[: 10_000] = 3
+    src_index = SegmentIndex.from_ids(src, 4000)
+    scale = None
+    if scale_grad is not None:
+        scale = (torch.rand(heads, generator=g, device=dev) + 0.5
+                 ).requires_grad_(scale_grad)
+    cot = torch.randn((e, heads), generator=g, device=dev).to(dtype)
+
+    def run(fn):
+        qq, kk = _leaves(q, k)
+        sc = None if scale is None else scale.detach().clone() \
+            .requires_grad_(bool(scale_grad))
+        fn(qq, kk, sc).backward(cot)
+        return qq.grad, kk.grad, None if sc is None else sc.grad
+
+    _build.reset_launches()
+    got = run(lambda q_, k_, s_: sddmm(src, ids, q_, k_, scale=s_,
+                                       index=index, src_index=src_index))
+    # unscaled, the coefficients are the cotangent itself: no K10b
+    assert _build.launches["sddmm_bwd"] == {None: 0, False: 1, True: 2}[
+        scale_grad]
+    assert _build.launches["segment_reduce"] == 1            # dq
+    assert _build.launches["segment_reduce_bwd"] == 1        # dk
+    want = run(lambda q_, k_, s_: _sddmm_plain(src, ids, q_, k_, s_))
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+        else:
+            _within(a, b, dtype if b.dtype == dtype else torch.float32)
+    again = run(lambda q_, k_, s_: sddmm(src, ids, q_, k_, scale=s_,
+                                         index=index, src_index=src_index))
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+def test_encode_coo_gradients_on_card_match_cpu(dev):
+    """encode_coo (GAT, Transformer; and SAGE, whose layer 1 launches no
+    K8b) on the card: the parameter gradients of the CPU's computation
+    (fp32), with K8b, K9b and K10b launched (and K3 for GAT's per-edge
+    attention terms)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    src, dst, x, _ = _small_graph()
+    for conv, kw, kernels in (
+            ("graphsage", None, ("segment_reduce", "segment_reduce_bwd")),
+            ("gat", {"heads": 4}, ("gather_rows", "segment_reduce",
+                                   "segment_reduce_bwd", "segment_softmax",
+                                   "segment_softmax_bwd", "sddmm")),
+            ("transformer", {"heads": 4}, (
+                "sddmm", "segment_softmax", "segment_reduce",
+                "segment_reduce_bwd", "segment_softmax_bwd", "sddmm_bwd"))):
+        grads = {}
+        for device in (dev, torch.device("cpu")):
+            enc = GNNEncoder(16, 32, 8, conv=conv, conv_kwargs=kw)
+            init_params(enc, 3)
+            enc = enc.to(device)
+            ts, td = (torch.as_tensor(a.astype(np.int32), device=device)
+                      for a in (src, dst))
+            idx, sidx = (SegmentIndex.from_ids(t, N) for t in (td, ts))
+            _build.reset_launches()
+            out = enc.encode_coo(torch.as_tensor(x, device=device), ts, td,
+                                 N, index=idx, src_index=sidx)
+            (out * torch.linspace(-1, 1, out.numel(), device=device)
+             .reshape(out.shape)).sum().backward()
+            if device.type == "cuda":
+                for k in kernels:
+                    assert _build.launches[k] > 0, (conv, k)
+                if conv == "graphsage":     # layer 2 only: x needs no grad
+                    assert _build.launches["segment_reduce_bwd"] == 1
+            grads[device.type] = {n: p.grad.cpu()
+                                  for n, p in enc.named_parameters()}
+        floor = 1e-2 * max(float(v.abs().max())
+                           for v in grads["cpu"].values())
+        for n, v in grads["cpu"].items():
+            err = float((grads["cuda"][n] - v).abs().max())
+            assert err <= 1e-4 * max(float(v.abs().max()), floor), (conv, n)
+
+
+@pytest.mark.parametrize("heads", [1, 3])
+def test_gat_coo_bf16_odd_heads_gathers_on_k3(dev, heads, monkeypatch):
+    """bf16 GAT at 1 and 3 heads: the [N, H] attention-term tables have
+    rows of odd bf16 width, whose per-edge gathers still run K3 (padded to
+    whole 4-byte words) and give the bits of PyTorch's indexing, in the
+    output and in every gradient."""
+    src, dst, x, _ = _small_graph()
+    ts, td = (torch.as_tensor(a.astype(np.int32), device=dev)
+              for a in (src, dst))
+    idx, sidx = (SegmentIndex.from_ids(t, N) for t in (td, ts))
+    xt = torch.as_tensor(x, device=dev)
+
+    def run():
+        enc = GNNEncoder(16, 24, 6, conv="gat", conv_kwargs={"heads": heads},
+                         dtype=torch.bfloat16)
+        init_params(enc, 3)
+        enc = enc.to(dev)
+        _build.reset_launches()
+        out = enc.encode_coo(xt, ts, td, N, index=idx, src_index=sidx)
+        (out.float() * torch.linspace(-1, 1, out.numel(), device=dev)
+         .reshape(out.shape)).sum().backward()
+        return out, {n: p.grad for n, p in enc.named_parameters()}
+
+    got, got_g = run()
+    assert _build.launches["gather_rows"] == 4  # 2 layers x (a_src, a_dst)
+    monkeypatch.setattr(segment_ops, "_gather_edge_rows",
+                        lambda t, i: t[i.long()])
+    want, want_g = run()
+    assert _build.launches["gather_rows"] == 0
+    assert torch.equal(got, want)
+    for n, g in want_g.items():
+        assert torch.equal(got_g[n], g), n
 
 
 def _typed_graph(seed=0):
@@ -959,3 +1197,86 @@ def test_typed_inference_on_card_matches_cpu(dev):
         for g, w in zip(got["cuda"], got["cpu"]):
             torch.testing.assert_close(g, w, rtol=0,
                                        atol=1e-5 * float(w.abs().max()))
+
+
+def test_hgt_encode_full_prior_gradient_on_card_matches_cpu(dev):
+    """HGT's prior is K10's scale in encode_full: on the card its gradient
+    (K10b) and every other parameter's match the same computation on the
+    CPU (fp32 within 1e-4 of the scale); no SegmentIndex is built inside
+    the pass (the segments are given)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    graph, _, types = _typed_graph()
+    dims = {"author": 12, "paper": 20}
+    grads = {}
+    for device in (dev, torch.device("cpu")):
+        enc = HeteroGNNEncoder(32, 16, ("author", "paper"), types, dims,
+                               heads=4)
+        init_params(enc, 1)
+        # priors away from 1, so they matter: the same draw on both devices
+        gen = torch.Generator().manual_seed(7)
+        with torch.no_grad():
+            for n, p in enc.named_parameters():
+                if ".prior_" in n:
+                    p.uniform_(0.5, 1.5, generator=gen)
+        enc = enc.to(device)
+        feats = {nt: torch.as_tensor(f, device=device)
+                 for nt, f in graph.node_features.items()}
+        edges = {str(et): tuple(torch.as_tensor(a.astype(np.int32),
+                                                device=device) for a in coo)
+                 for et, coo in graph.edges.items()}
+        nn_ = {"author": 300, "paper": 500}
+        segs = enc.segments(edges, nn_)
+        _build.reset_launches()
+        out = enc.encode_full(feats, edges, nn_, segments=segs)
+        sum((o * torch.linspace(-1, 1, o.numel(), device=device)
+             .reshape(o.shape)).sum() for o in out.values()).backward()
+        if device.type == "cuda":
+            for k in ("sddmm", "sddmm_bwd", "segment_softmax_bwd",
+                      "segment_reduce_bwd"):
+                assert _build.launches[k] > 0, k
+        grads[device.type] = {n: p.grad.cpu()
+                              for n, p in enc.named_parameters()}
+    floor = 1e-2 * max(float(v.abs().max()) for v in grads["cpu"].values())
+    priors = [n for n in grads["cpu"] if ".prior_" in n]
+    assert len(priors) == 6
+    for n, v in grads["cpu"].items():
+        err = float((grads["cuda"][n] - v).abs().max())
+        assert err <= 1e-4 * max(float(v.abs().max()), floor), (n, err)
+        if n in priors:
+            assert float(v.abs().max()) > 0, n
+
+
+def test_typed_training_steps_on_card_match_cpu(dev):
+    """Three typed NALP steps (HGT and RGCN with 2 bases, the DBLP paths)
+    on the card against the same steps on the CPU: the losses within 1e-4
+    relative, with K1, K1b, K3, K5 and K7 / K7b (HGT) or K4 / K4b (RGCN)
+    launched."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    graph, paths, types = _typed_graph()
+    dims = {"author": 12, "paper": 20}
+    writes = EdgeType.from_str(types[0])
+    anchors = np.random.default_rng(2).integers(0, 500, (3, 64))
+    for conv, kernels in (("hgt", ("fanout_attention",
+                                   "fanout_attention_bwd")),
+                          ("rgcn", ("masked_reduce", "masked_reduce_bwd"))):
+        losses = {}
+        for device in (dev, torch.device("cpu")):
+            model = HeteroLinkPredictionGNN(HeteroGNNEncoder(
+                32, 16, ("author", "paper"), types, dims, conv=conv,
+                heads=4, num_bases=2), LinkPredictionDecoder())
+            tr = HeteroNALPTrainer(
+                model, HeteroDeviceGraph.from_hetero(
+                    graph, paths, supervision_edge_type=writes,
+                    supervision_edges=graph.edges[writes], device=device),
+                paths, HeteroNALPTrainerConfig("paper", "author",
+                                               num_random_negs=64),
+                device=device)
+            st = tr.init_state(0)
+            _build.reset_launches()
+            st, got = tr.train_steps(st, anchors)
+            if device.type == "cuda":
+                for k in ("sample_uniform", "uniform_ids", "gather_rows",
+                          "retrieval_loss") + kernels:
+                    assert _build.launches[k] > 0, (conv, k)
+            losses[device.type] = got.cpu().numpy()
+        np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

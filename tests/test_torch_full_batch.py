@@ -26,6 +26,8 @@ prints them). 20 fp32 steps of Adam: losses within 1e-4 relative. ``fit``
 (dropout 0): the same number of steps and the same val and test accuracy.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -265,11 +267,20 @@ def test_fit_with_dropout_trains():
 
 
 def test_what_is_not_ported_raises():
+    """Without the ELL tables the trainer runs the COO path
+    (tests/test_torch_coo.py); edge features and GATv2's coo form are not
+    ported."""
     _, pg = _graphs()
     data = fb.full_batch_data_from_graph(pg, build_ell=False, device="cpu")
-    assert data.ell is None
-    with pytest.raises(NotImplementedError, match="B7"):
-        fb.FullBatchTrainer(GNNEncoder(DIN, HID, C), data, device="cpu")
+    assert data.ell is None and data.index is not None
+    t = fb.FullBatchTrainer(GNNEncoder(DIN, HID, C, conv="gatv2"), data,
+                            device="cpu")
+    t.init_state(0)
+    with pytest.raises(NotImplementedError, match="A9, GATv2 coo"):
+        t.logits()
+    with pytest.raises(NotImplementedError, match="B6 edges"):
+        fb.FullBatchTrainer(GNNEncoder(DIN, HID, C), dataclasses.replace(
+            data, edge_attr=torch.zeros(1)), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             fb.full_batch_data_from_graph(pg)

@@ -284,7 +284,7 @@ def test_unported_options_raise():
                                for op in paths["paper"])}
     with pytest.raises(NotImplementedError, match="A2"):
         HeteroDeviceGraph.from_hetero(port_g, weighted, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="A12, label-edge"):
         HeteroDeviceGraph.from_hetero(
             port_g, paths, supervision_edge_type=EdgeType.from_str(WRITES),
             supervision_edges=port_g.edges[EdgeType.from_str(WRITES)],
@@ -297,13 +297,14 @@ def test_unported_options_raise():
     model = HeteroLinkPredictionGNN(
         HeteroGNNEncoder(HID, OUT, NODE_TYPES, EDGE_TYPES, DIMS),
         LinkPredictionDecoder())
+    # typed training runs (tests/test_torch_hetero_training.py); the
+    # label-edge-feature scorer does not
     tr = HeteroNALPTrainer(model, dg, paths, HeteroNALPTrainerConfig(
-        "paper", "author"), device="cpu")
-    for fn in (tr.init_state, tr.train_step, tr.train_steps, tr.evaluate,
-               tr.fit):
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            fn(None)
-    with pytest.raises(NotImplementedError, match="slice 6"):
+        "paper", "author", num_random_negs=8), device="cpu")
+    state = tr.init_state(0)
+    state, loss = tr.train_step(state, np.arange(6))
+    assert state.step == 1 and np.isfinite(float(loss))
+    with pytest.raises(NotImplementedError, match="A12, label-edge"):
         model.edge_score(torch.zeros(1, 2))
 
 
@@ -382,10 +383,18 @@ def test_encoder_forward_and_encode_full_match_jax(conv, num_bases):
     ref_enc, params, port = _encoders(conv, num_bases)
     port_g, ref_g = _graphs()
     want = _ref_encode_full(ref_enc, params, ref_g)
+    feats, edges, nn_ = _full_inputs(port_g)
+    # inference's segments leave out the indexes only a gradient walks
+    fwd_only = port.segments(edges, nn_, backward=False)
+    assert fwd_only.src_index == {} and fwd_only.rel == {}
+    assert port.segments(edges, nn_).src_index
     with torch.inference_mode():
-        got = port.encode_full(*_full_inputs(port_g))
+        got = port.encode_full(feats, edges, nn_)
+        got_fwd_only = port.encode_full(feats, edges, nn_,
+                                        segments=fwd_only)
     for nt in NODE_TYPES:
         _close(got[nt], want[nt])
+        assert torch.equal(got_fwd_only[nt], got[nt])
     paths, ref_paths = _yaml_paths()
     dg = HeteroDeviceGraph.from_hetero(port_g, paths, device="cpu")
     rdg = RefHeteroDeviceGraph.from_hetero(ref_g, ref_paths)

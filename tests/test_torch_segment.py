@@ -1,6 +1,9 @@
 """Parity of the port's COO segment ops (gigl_tpu_torch.ops.segment: the
 plain twins of K8 segment_reduce, K9 segment_softmax and K10 sddmm, which
-run for CPU tensors) with the JAX reference (gigl_tpu.ops.segment).
+run for CPU tensors) with the JAX reference (gigl_tpu.ops.segment), and of
+their backward: each op's ``autograd.Function`` on CPU tensors, whose
+backward composes the twins of K8b, K9b, K10b (with K8 and K10), against
+``jax.vjp`` of the reference.
 
 The graph: 60 segments, 700 edges with unsorted ids, 8 empty segments and
 one hub segment of degree 300. Tolerances:
@@ -14,7 +17,10 @@ one hub segment of degree 300. Tolerances:
 - bf16 against the reference in fp32 on the same bf16 inputs, every
   segment: one rounding, within 2**-8 of the largest entry. The mean's count
   is rounded to bf16 first: a hub of degree 301 divides by 300;
-- integer tables (the SegmentIndex) bit-equal to numpy's stable argsort.
+- integer tables (the SegmentIndex) bit-equal to numpy's stable argsort;
+- the backward, fp32: within 1e-5 of each cotangent's largest entry (max
+  on data with ties: the cotangent shared among them, as jax.vjp shares
+  it; empty segments pass nothing).
 """
 
 import numpy as np
@@ -253,3 +259,136 @@ def test_wrappers_check_their_arguments():
     with pytest.raises(ValueError, match="scale"):
         seg.sddmm(ids, ids, torch.zeros(S, 2, 4), torch.zeros(S, 2, 4),
                   scale=torch.ones(3))
+
+
+# -- the backward: each Function's composition against jax.vjp ------------------
+def _vjp_close(f_ref, f_port, inputs, cot, names, tol=1e-5):
+    """jax.vjp of ``f_ref`` against backward() through ``f_port`` at the
+    same inputs (numpy) and output cotangent ``cot``; ``names`` are the
+    Function's backward nodes that must appear."""
+    want_out, vjp = jax.vjp(f_ref, *(jnp.asarray(a) for a in inputs))
+    want = vjp(jnp.asarray(cot))
+    ts = [_t(a).requires_grad_() for a in inputs]
+    out = f_port(*ts)
+    _close(out.detach(), want_out, 1e-6)
+    assert any(n in out.grad_fn.name() for n in names), out.grad_fn.name()
+    out.backward(_t(cot))
+    for t, w in zip(ts, want):
+        _close(t.grad, w, tol)
+
+
+def _ties(shape, seed=1):
+    """Data on a coarse grid: many exact ties within a segment."""
+    return np.round(_data(shape, seed) * 1.5).astype(np.float32)
+
+
+@pytest.mark.parametrize("fn", ["segment_sum", "segment_mean",
+                                "segment_max"])
+def test_segment_reduce_backward_matches_jax_vjp(fn):
+    """Rows per edge (no gather): K8b's row-gather mode."""
+    ids = _ids()
+    x = _ties((E, 12))
+    cot = _data((S, 12), 11)
+    _vjp_close(lambda x_: getattr(ref, fn)(x_, jnp.asarray(ids), S),
+               lambda x_: getattr(seg, fn)(x_, _t(ids, torch.int32), S),
+               [x], cot, ["SegmentReduce"])
+
+
+@pytest.mark.parametrize("reduce,weights", [
+    ("sum", None), ("sum", "e"), ("sum", "eh"), ("mean", None),
+    ("mean", "e"), ("mean", "eh"), ("max", None)])
+def test_coo_spmm_backward_matches_jax_vjp(reduce, weights):
+    """The gather mode: K8b's walk of the source index for the rows, K10
+    on (cotangent, rows) for the weights; [E, H] weights against the
+    reference's segment reduce of the per-head weighted messages. max on
+    data with ties (duplicate sources in a segment included)."""
+    ids = _ids()
+    src = np.random.default_rng(2).integers(0, N_SRC, E).astype(np.int32)
+    x = _ties((N_SRC, H, DK)) if reduce == "max" else _data((N_SRC, H, DK))
+    cot = _data((S, H, DK), 12)
+    jsrc, jids, tsrc, tids = (jnp.asarray(src), jnp.asarray(ids),
+                              _t(src, torch.int32), _t(ids, torch.int32))
+    red = {"sum": ref.segment_sum, "mean": ref.segment_mean,
+           "max": ref.segment_max}[reduce]
+    if weights is None:
+        _vjp_close(lambda x_: red(x_[jsrc], jids, S),
+                   lambda x_: seg.coo_spmm(tsrc, tids, x_, S, reduce=reduce),
+                   [x], cot, ["SegmentReduce"])
+        return
+    shape = (E,) if weights == "e" else (E, H)
+    w = np.random.default_rng(3).uniform(0.1, 2.0, shape).astype(np.float32)
+
+    def f_ref(x_, w_):
+        w3 = w_[:, None, None] if weights == "e" else w_[..., None]
+        return red(x_[jsrc] * w3, jids, S)
+
+    _vjp_close(f_ref, lambda x_, w_: seg.coo_spmm(
+        tsrc, tids, x_, S, edge_weight=w_, reduce=reduce), [x, w], cot,
+        ["SegmentReduce"])
+
+
+@pytest.mark.parametrize("shape", [(E,), (E, H)])
+def test_segment_softmax_backward_matches_jax_vjp(shape):
+    """K9b: alpha * (g - sum_seg(alpha * g)); the reference's segment max
+    is not under a stop-gradient, and its terms cancel."""
+    ids = _ids()
+    logits = _data(shape) * 3.0
+    _vjp_close(lambda l_: ref.segment_softmax(l_, jnp.asarray(ids), S),
+               lambda l_: seg.segment_softmax(l_, _t(ids, torch.int32), S),
+               [logits], _data(shape, 13), ["SegmentSoftmax"])
+
+
+@pytest.mark.parametrize("heads", [None, H])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_sddmm_backward_matches_jax_vjp(heads, scaled):
+    """dq (K8 over the destination index), dk (K8b over the source index)
+    and, with a scale, dscale (K10b's per-head sum) — the reference's
+    scores times the scale."""
+    rng = np.random.default_rng(5)
+    src = rng.integers(0, N_SRC, E).astype(np.int32)
+    dst = _ids()
+    tail = (heads, DK) if heads else (DK * 2,)
+    q, k = _data((S,) + tail, 6), _data((N_SRC,) + tail, 7)
+    cot = _data((E, heads) if heads else (E,), 14)
+    js, jd = jnp.asarray(src), jnp.asarray(dst)
+    ts, td = _t(src, torch.int32), _t(dst, torch.int32)
+    if not scaled:
+        _vjp_close(lambda q_, k_: ref.sddmm(js, jd, q_, k_),
+                   lambda q_, k_: seg.sddmm(ts, td, q_, k_), [q, k], cot,
+                   ["SDDMM"])
+        return
+    scale = rng.uniform(0.5, 2.0, heads or 1).astype(np.float32)
+    _vjp_close(
+        lambda q_, k_, s_: ref.sddmm(js, jd, q_, k_) * (s_ if heads
+                                                       else s_[0]),
+        lambda q_, k_, s_: seg.sddmm(ts, td, q_, k_, scale=s_),
+        [q, k, scale], cot, ["SDDMM"])
+
+
+def test_gather_edges_backward_is_a_segment_sum():
+    """A per-node table read per edge: the backward sums the edges'
+    cotangent rows per node (K8 over the ids' index), as jax.vjp's
+    scatter-add does."""
+    src = np.random.default_rng(2).integers(0, N_SRC, E).astype(np.int32)
+    table = _data((N_SRC, H))
+    _vjp_close(lambda t_: t_[jnp.asarray(src)],
+               lambda t_: seg.gather_edges(t_, _t(src, torch.int32)),
+               [table], _data((E, H), 15), ["GatherEdges"])
+
+
+def test_backward_wrappers_check_their_arguments():
+    ids = _t(_ids(), torch.int32)
+    g = torch.zeros(S, 4)
+    with pytest.raises(ValueError, match="max needs"):
+        seg.segment_reduce_bwd(g, ids, E, op="max")
+    with pytest.raises(ValueError, match="edges for"):
+        seg.segment_reduce_bwd(g, ids, E + 1)
+    with pytest.raises(ValueError, match="alpha and g"):
+        seg.segment_softmax_bwd(torch.zeros(E, 2), torch.zeros(E, 3), ids, S)
+    with pytest.raises(ValueError, match="scale"):
+        seg.sddmm_bwd_coef(torch.zeros(E, 2), torch.ones(3))
+    x = torch.zeros(N_SRC, 4, requires_grad=True)
+    w = torch.ones(E, requires_grad=True)
+    out = seg.coo_spmm(ids, ids, x, S, edge_weight=w, reduce="max")
+    with pytest.raises(NotImplementedError, match="max mode"):
+        out.sum().backward()
