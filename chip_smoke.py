@@ -92,7 +92,28 @@
    with the launch counts reset just before and read just after, 5
    profiled, and evaluate over 4 batches; prints ms/step and edges/s
    (counted over the typed tree as bench.py:631-638 counts them);
-11. prints one JSON line with every kernel's numbers, then the card line,
+11. edge features (the flagship graph with 8 fp32 features per edge,
+   ogbn-proteins' width, numpy seed 8): holds K6 in its gine mode and K7
+   with the edge addend at the largest bucket (bf16; K7 also without the
+   addend in the same call), K6b gine over the whole transpose walk, K7b
+   with the addend, and K11 ell_edge_grad in its three modes at EdgeAttrGAT
+   layer 1's [2M, 256] fp32 (yardstick: index_select of the flat
+   cotangent by edge_pos) against their plain versions; then, each with
+   the launch counts reset just before and read just after and checked
+   against the plain twins on the card: run_full_graph_inference with
+   edge_attr for GINE (hidden = out = 128) and for EdgeAttrGAT and the
+   Transformer with lin_edge (4 heads, hidden 256, out 128, bf16);
+   FullBatchTrainer over the ELL tables with FullBatchData.edge_attr
+   (GINE hidden 128, EdgeAttrGAT 4 heads hidden 256; 3 + 50 steps, the
+   edge rows' gradient held too); the live NALPTrainer over the
+   edge-featured graph (EdgeAttrGAT, fanouts (15, 10), batch 512, 1 hard
+   negative, R = 512, label-edge features on the supervision and
+   hard-negative edges, EdgeFeatureScorer(32), Adam 1e-3) and
+   run_inference over it; typed NALP training of HGT with label-edge
+   features on the author-writes-paper edges and the scorer; and SimpleHGN
+   (4 heads, hidden 128, out 64) on K7 with its relation bias:
+   encode_batch and training;
+12. prints one JSON line with every kernel's numbers, then the card line,
    then {"ok": true, ...} as the last line.
 
 Any failed check raises; nothing is printed as a result without a card.
@@ -177,6 +198,33 @@ TYPED_TRAIN_KERNELS = {
             "fanout_attention", "fanout_attention_bwd", "retrieval_loss"),
     "rgcn": ("sample_uniform", "uniform_ids", "gather_rows", "masked_reduce",
              "masked_reduce_bwd", "retrieval_loss")}
+# edge features (phase 11): EDGE_DE features per edge (ogbn-proteins'
+# width); GINE's hidden width equals D (it adds the projected edge rows to
+# the node rows)
+EDGE_DE, EDGE_GINE_HID, EDGE_HARD = 8, 128, 500_000
+EDGE_NALP_STEPS, EDGE_TYPED_STEPS = 50, 50
+EDGE_FULL_GRAPH = {       # model: (conv, hidden, conv_kwargs, kernels)
+    "gine": ("gine", EDGE_GINE_HID, None, ("gather_rows", "ell_aggregate")),
+    "edge_attr_gat": ("edge_attr_gat", HID, {"heads": 4},
+                      ("gather_rows", "fanout_attention")),
+    "transformer": ("transformer", HID, {"heads": 4, "use_edge_attr": True},
+                    ("gather_rows", "fanout_attention"))}
+EDGE_FULL_BATCH = {
+    "gine": ("gine", EDGE_GINE_HID, None,
+             ("gather_rows", "ell_aggregate", "ell_transpose_aggregate",
+              "ell_edge_grad")),
+    "edge_attr_gat": ("edge_attr_gat", HID, {"heads": 4},
+                      ("gather_rows", "fanout_attention",
+                       "fanout_attention_bwd", "ell_transpose_aggregate",
+                       "ell_edge_grad"))}
+EDGE_NALP_KERNELS = ("sample_uniform", "uniform_ids", "gather_rows",
+                     "fanout_attention", "fanout_attention_bwd",
+                     "retrieval_loss")
+EDGE_TYPED_KERNELS = {
+    "hgt": TYPED_TRAIN_KERNELS["hgt"],
+    "simple_hgn": ("sample_uniform", "uniform_ids", "gather_rows",
+                   "fanout_attention", "fanout_attention_bwd",
+                   "retrieval_loss")}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 # ReLU gates the plain step may see on the other side of 0 (fp32 rounding)
@@ -290,30 +338,33 @@ def plain_kernels():
     from gigl_tpu_torch.losses import losses
     from gigl_tpu_torch.models import convs, hetero_convs
     from gigl_tpu_torch.ops import (
-        attention, ell_aggregate, fanout, gather, retrieval, segment)
+        attention, ell, ell_aggregate, fanout, gather, retrieval, segment)
     from gigl_tpu_torch.sampling import neighbor_sampler
     from gigl_tpu_torch.training import dataset, hetero_dataset
 
-    def agg_fwd(x, nbr, mask, op, deg_dst=None, deg_tab=None, out=None):
+    def agg_fwd(x, nbr, mask, op, deg_dst=None, deg_tab=None, out=None,
+                ea=None, eslot=None):
         got = ell_aggregate._ell_aggregate_plain(x, nbr, mask, op, deg_dst,
-                                                 deg_tab)
+                                                 deg_tab, ea, eslot)
         return got if out is None else out.copy_(got)
 
     def transpose(rows, ell, op, *args, **kw):
         return ell_aggregate._ell_transpose_plain(rows, ell, op, *args, **kw)
 
     def att_fwd(xd, ks, vs, nbr, mask, mode, heads, att, att2, slope,
-                out=None, stats=None):
+                out=None, stats=None, he=None, eidx=None, bias=None):
         got = attention._fanout_attention_plain(xd, ks, vs, nbr, mask, mode,
-                                                heads, att, att2, slope)
+                                                heads, att, att2, slope, he,
+                                                eidx, bias)
         return got if out is None else out.copy_(got)
 
     def att_bwd(g, xd, ks, vs, nbr, mask, out, stats, mode, heads, att=None,
                 att2=None, negative_slope=0.2, identity=False,
-                same_table=False, d_xd=None, alpha=None, coef=None):
+                same_table=False, d_xd=None, alpha=None, coef=None, he=None,
+                eidx=None, bias=None):
         got = attention._fanout_attention_bwd_plain(
             g, xd, ks, vs, nbr, mask, out, mode, heads, att, att2,
-            negative_slope, identity, same_table)
+            negative_slope, identity, same_table, he, eidx, bias)
         fills = {"d_xd": d_xd, "alpha": alpha, "coef": coef}
         return got._replace(**{k: b.copy_(getattr(got, k))
                                for k, b in fills.items() if b is not None})
@@ -334,12 +385,19 @@ def plain_kernels():
     def edge_rows(table, ids, *, index=None):
         return table[ids.long()]
 
+    def edge_grad(g, ell_, mode, *, x=None, ea=None, alpha=None, coef=None,
+                  vec=None, xd=None, heads=1):
+        return ell._ell_edge_grad_plain(g, ell_, mode, x, ea, alpha, coef,
+                                        vec, xd, heads)
+
     patches = [
         (ell_aggregate, "_ell_aggregate_fwd", agg_fwd),
         (ell_aggregate, "ell_transpose_aggregate", transpose),
         (attention, "ell_transpose_aggregate", transpose),
         (attention, "_fanout_attention_fwd", att_fwd),
         (attention, "fanout_attention_bwd", att_bwd),
+        (attention, "ell_edge_grad", edge_grad),
+        (ell_aggregate, "ell_edge_grad", edge_grad),
         (gather, "gather_rows", rows), (dataset, "gather_rows", rows),
         (fanout, "_masked_reduce_fwd", fanout._masked_reduce_plain),
         (fanout, "masked_reduce_bwd", fanout._masked_reduce_bwd_plain),
@@ -365,15 +423,24 @@ def plain_kernels():
             setattr(m, n, f)
 
 
-def step_vs_plain(model, loss_fn, launches, gated=True, symmetric=()):
+def step_vs_plain(model, loss_fn, launches, gated=True, symmetric=(),
+                  extra=None, explain=None):
     """One step's loss and gradients through the kernels and again through
     the plain twins (no kernel may launch), from the same weights: the
     loss's relative error and each parameter's max gradient error over its
-    scale. ``symmetric``: the names of parameters whose gradient is zero by
-    symmetry (held to 1e-2 of the largest gradient instead, see below).
+    scale. ``extra``: more leaf tensors {name: tensor} whose gradients are
+    held the same way (an edge-feature table, a scorer outside ``model``).
+    ``explain(name, kernel_grad, plain_grad, scale)``: for such a tensor
+    whose error passes 1e-4 of its scale, returns the mask of rows whose
+    difference a recorded cause accounts for (a gate on the two sides of 0
+    in the two steps, see ``edge_gate_flips``) and a report; the error is
+    then taken over the other rows. ``symmetric``: the names of parameters
+    whose gradient is zero by symmetry (held to 1e-2 of the largest
+    gradient instead, see below).
     ``gated``: the model's ``activation`` is a ReLU (the typed
-    models have none: HGT's GELU is smooth, RGCN has no activation). The
-    plain step reuses the kernel step's ReLU gates: the two
+    models have none: HGT's GELU is smooth, RGCN has no activation); the
+    ReLUs inside GIN's and GINE's MLPs are gated with it. The plain step
+    reuses the kernel step's ReLU gates: the two
     forwards round differently, and a pre-activation within an fp32 ulp of
     0 may take the other side of the gate there, which moves a layer-1
     weight gradient by ~1/sqrt(rows) of its scale (one row's share of the
@@ -396,22 +463,46 @@ def step_vs_plain(model, loss_fn, launches, gated=True, symmetric=()):
                     if flips[-1] else 0.0)
         return x * m
 
+    from gigl_tpu_torch.models import convs as convs_mod
+
+    functional = convs_mod.F
+
+    class Gated:
+        """torch.nn.functional with ``relu`` recorded or replayed: the ReLU
+        inside GIN's and GINE's MLPs (``GINConv._mlp``)."""
+
+        def __init__(self, relu):
+            self.relu = relu
+
+        def __getattr__(self, name):
+            return getattr(functional, name)
+
     act = getattr(model, "activation", None)
-    model.zero_grad(set_to_none=True)
+    leaves = dict(model.named_parameters())
+    leaves.update(extra or {})
+
+    def zero_grad():
+        for t in leaves.values():
+            t.grad = None
+
+    zero_grad()
     if gated:
         model.activation = record
+        convs_mod.F = Gated(record)
     loss_k = loss_fn()
     loss_k.backward()
-    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
-    model.zero_grad(set_to_none=True)
+    grads = {n: p.grad.detach().clone() for n, p in leaves.items()}
+    zero_grad()
     before = dict(launches)
     if gated:
         model.activation = replay
+        convs_mod.F = Gated(replay)
     with plain_kernels():
         loss_p = loss_fn()
         loss_p.backward()
     if gated:
         model.activation = act
+        convs_mod.F = functional
     torch.cuda.synchronize()
     check(dict(launches) == before, "the plain step launched a kernel")
     check(len(flips) == len(gates), "the plain step's gates differ")
@@ -427,11 +518,15 @@ def step_vs_plain(model, loss_fn, launches, gated=True, symmetric=()):
     # error is taken over 1e-2 of the largest instead
     largest = max(float(g_.abs().max()) for g_ in grads.values())
     floor = 1e-2 * largest
-    errs, exempt = {}, {}
-    for n, p in model.named_parameters():
+    errs, exempt, explained = {}, {}, {}
+    for n, p in leaves.items():
         check(p.grad is not None, f"plain step: no gradient for {n}")
         scale = float(p.grad.abs().max())
         err = float((grads[n] - p.grad).abs().max())
+        if explain is not None and n in (extra or {}) and err > 1e-4 * scale:
+            rows, explained[n] = explain(n, grads[n], p.grad, scale)
+            err = float((grads[n] - p.grad)[~rows].abs().max()) if bool(
+                (~rows).any()) else 0.0
         if n in symmetric:
             check(scale <= 1e-3 * largest, f"plain step: {n}'s gradient "
                   f"({scale}) is not zero by symmetry (largest {largest})")
@@ -442,10 +537,11 @@ def step_vs_plain(model, loss_fn, launches, gated=True, symmetric=()):
             errs[n] = err / scale
     check(set(exempt) == set(symmetric),
           f"plain step: no parameters {sorted(set(symmetric) - set(exempt))}")
-    model.zero_grad(set_to_none=True)
+    zero_grad()
     lk, lp = float(loss_k.detach()), float(loss_p.detach())
     return {"loss": lk, "loss_plain": lp, "grad_floor": floor,
             "symmetric_grad_rel_to_largest": exempt,
+            "explained_rows": explained,
             "loss_rel_err": abs(lk - lp) / abs(lp),
             "grad_err_rel_to_scale": errs,
             "max_grad_err_rel_to_scale": max(errs.values()),
@@ -922,7 +1018,8 @@ def typed_phases(dev, card, record, rel_err, unique):
               "profile": profile_summary(prof, TT_PROFILED, window_us,
                                          step_s * 1e3), "card": card})
         del trainer, state
-    return counts
+    return counts, {"graph": graph, "paths": paths,
+                    "make_encoder": make_encoder, "anchors": anchors_t}
 
 
 def coo_phases(dev, card, graph, record, rel_err, run_path):
@@ -1142,6 +1239,548 @@ def coo_phases(dev, card, graph, record, rel_err, run_path):
               "edges_per_step": 2 * E, "edges_per_s": 2 * E / step_s,
               "nodes_per_s": N / step_s, **row})
         del fbt, state
+    return counts
+
+
+@contextlib.contextmanager
+def edge_gate_flips(ell, mode, slope=0.2):
+    """Record what K11 (or its twin) is given in the kernel step and in the
+    plain one, and yield an ``explain`` for ``step_vs_plain``. An edge's
+    gradient is one term of its entry — no sum dilutes it — so where the
+    two forwards' fp32 rounding puts a gate on the two sides of 0, that
+    edge's gradient row differs by a whole term: GINE's relu of ``x[src] +
+    e`` (recomputed from the recorded layer inputs), EdgeAttrGAT's
+    leaky_relu derivative of the logit's pre-activation (an entry whose K7b
+    coefficient is the plain one times the slope or its inverse). A gate
+    that flips in one layer also moves the cotangent of its entry's source
+    row (for attention, its destination's too) in the layer below, hence
+    that layer's rows of the edges into those nodes. ``explain`` marks the
+    edges with such a gate and, layer by layer downwards, the edges into
+    the nodes those moved; it checks that the flipped gates are few (at
+    most FLIPS_MAX or one per million) and, for GINE, each within
+    FLIP_NEAR_ZERO of its layer's scale from 0."""
+    from gigl_tpu_torch.ops import attention, ell as ell_mod, ell_aggregate
+
+    recs = []
+    holder = ell_aggregate if mode == "gine" else attention
+    orig_k, orig_p = holder.ell_edge_grad, ell_mod._ell_edge_grad_plain
+
+    def rec_k(g, ell_, mode_, **kw):
+        recs.append({k: v.detach().clone() for k, v in kw.items()
+                     if isinstance(v, torch.Tensor)})
+        return orig_k(g, ell_, mode_, **kw)
+
+    def rec_p(g, ell_, mode_, x=None, ea=None, alpha=None, coef=None,
+              *args):
+        recs.append({k: v.detach().clone() for k, v in (
+            ("x", x), ("ea", ea), ("alpha", alpha), ("coef", coef))
+            if v is not None})
+        return orig_p(g, ell_, mode_, x, ea, alpha, coef, *args)
+
+    def explain(name, gk, gp, scale):
+        half = len(recs) // 2
+        check(len(recs) == 2 * half > 0, f"{name}: K11 saw {len(recs)} "
+              "calls, not one per layer in each step")
+        pos = ell.edge_pos.long()
+        src, dst = ell.ent_src.long()[pos], ell.ent_row.long()[pos]
+        flipped = torch.zeros(gk.shape[0], dtype=torch.bool, device=gk.device)
+        moved = torch.zeros(ell.num_nodes, dtype=torch.bool,
+                            device=gk.device)  # sources whose cotangent moved
+        n_flip, n_gates, near = 0, 0, 0.0
+        # the backward calls K11 from the last layer down
+        for rk, rp in zip(recs[:half], recs[half:]):
+            here = moved[dst]
+            if mode == "gine":
+                zk, zp = rk["x"][src] + rk["ea"], rp["x"][src] + rp["ea"]
+                fl = (zk > 0) != (zp > 0)
+                if bool(fl.any()):
+                    near = max(near, float(zk[fl].abs().max()
+                                           / zk.abs().max()))
+                here |= fl.any(1)
+            else:
+                ck, cp = rk["coef"], rp["coef"]
+                off = (ck - cp).abs() > 1e-3 * cp.abs().max()
+                ratio = ck[off] / cp[off]
+                check(bool(((ratio - slope).abs() <= 1e-2 * slope).logical_or(
+                    (ratio - 1 / slope).abs() <= 1e-2 / slope).all()),
+                      f"{name}: K7b coefficients differ from the plain step "
+                      "by other than a leaky_relu slope")
+                fl = off & ell.ent_mask[:, None]
+                here |= fl.any(1)[pos]
+            flipped |= here
+            moved[src[here]] = True
+            if mode != "gine":      # the query's cotangent moves too
+                moved[dst[here]] = True
+            n_flip += int(fl.sum())
+            n_gates += fl.numel()
+        rows = (gk - gp).abs().amax(1) > 1e-4 * scale
+        check(n_flip <= max(FLIPS_MAX, n_gates // 10**6),
+              f"{name}: {n_flip} of {n_gates} gates flipped")
+        check(near <= FLIP_NEAR_ZERO, f"{name}: a flipped GINE gate's sum "
+              f"is {near} of its layer's scale from 0")
+        return rows & flipped, {
+            "rows_over_1e-4": int(rows.sum()),
+            "rows_with_a_flipped_gate": int(flipped.sum()),
+            "unexplained_rows": int((rows & ~flipped).sum()),
+            "gates": n_gates, "gates_flipped": n_flip,
+            "gine_flipped_sum_rel_to_scale": near}
+
+    holder.ell_edge_grad, ell_mod._ell_edge_grad_plain = rec_k, rec_p
+    try:
+        yield explain
+    finally:
+        holder.ell_edge_grad = orig_k
+        ell_mod._ell_edge_grad_plain = orig_p
+
+
+def edge_phases(dev, card, arrays, fb_data, typed, record, add_mode,
+                rel_err, unique, run_path):
+    """Phase 11 (see the module docstring): edge features. The flagship
+    graph gains EDGE_DE fp32 features per edge (numpy seed 8: ogbn-proteins'
+    width, a 64 MB table). K6 / K6b gine, K7 / K7b with the edge addend and
+    the logit bias, and K11 at the flagship's shapes, then the five paths:
+    edge_full_graph (run_full_graph_inference with edge_attr), the ELL
+    full-batch trainer with FullBatchData.edge_attr, the live NALPTrainer
+    over an edge-featured graph with the label-edge scorer (and
+    run_inference over it), typed NALP training with label-edge features
+    and the scorer, and SimpleHGN's block form. Returns {path: (launch
+    counts, steps or passes)}."""
+    import dataclasses
+
+    from gigl_tpu_torch.graph.csr import HeteroGraph
+    from gigl_tpu_torch.inference.inferencer import (
+        InferenceConfig, run_full_graph_inference, run_inference)
+    from gigl_tpu_torch.models.encoders import GNNEncoder
+    from gigl_tpu_torch.models.init import init_params
+    from gigl_tpu_torch.models.link_prediction import (
+        EdgeFeatureScorer, HeteroLinkPredictionGNN, LinkPredictionDecoder,
+        LinkPredictionGNN)
+    from gigl_tpu_torch.ops import _build
+    from gigl_tpu_torch.ops.attention import (
+        _fanout_attention_bwd_plain, _fanout_attention_fwd,
+        _fanout_attention_plain, fanout_attention_bwd)
+    from gigl_tpu_torch.ops.ell import _ell_edge_grad_plain, ell_edge_grad
+    from gigl_tpu_torch.ops.ell_aggregate import (
+        _ell_aggregate_fwd, _ell_aggregate_plain, _ell_transpose_plain,
+        ell_transpose_aggregate)
+    from gigl_tpu_torch.training.dataset import DeviceGraph
+    from gigl_tpu_torch.training.full_batch import FullBatchTrainer
+    from gigl_tpu_torch.training.hetero_dataset import HeteroDeviceGraph
+    from gigl_tpu_torch.training.hetero_trainer import (
+        HeteroNALPTrainer, HeteroNALPTrainerConfig)
+    from gigl_tpu_torch.training.trainer import (
+        NALPTrainer, NALPTrainerConfig)
+    from gigl_tpu_torch.types.graph import EdgeType
+
+    src_np, dst_np, x_np = arrays
+    erng = np.random.default_rng(8)
+    ea_np = erng.normal(size=(E, EDGE_DE)).astype(np.float32)
+    ea = torch.as_tensor(ea_np, device=dev)
+    fell = fb_data.ell
+    big = max(range(len(fell.widths)),
+              key=lambda b: fell.boundaries[b + 1] - fell.boundaries[b])
+    lo_b, hi_b = fell.boundaries[big], fell.boundaries[big + 1]
+    nb_b, mk_b, es_b = fell.nbr[big], fell.mask[big], fell.edge_slots[big]
+    n_b, w_b = nb_b.shape
+    valid_b = int(mk_b.sum())
+    uniq_b = unique(nb_b[mk_b])
+    gen = torch.Generator(device=dev).manual_seed(11)
+    counts = {}
+
+    # -- K6 gine at the largest bucket, bf16 [N, 128] rows and [E, 128] edge
+    # rows (GINE's hidden width). bytes: each distinct valid source row and
+    # each valid slot's edge row read once, nbr, mask and edge slots, [n_b,
+    # 128] written; ops: an add, a max and an add per valid slot and value.
+    x6 = torch.randn((N, EDGE_GINE_HID), generator=gen, device=dev).to(
+        torch.bfloat16)
+    e6 = torch.randn((E, EDGE_GINE_HID), generator=gen, device=dev).to(
+        torch.bfloat16)
+
+    def k6g_kernel():
+        return _ell_aggregate_fwd(x6, nb_b, mk_b, "gine", ea=e6, eslot=es_b)
+
+    def k6g_plain():
+        return _ell_aggregate_plain(x6, nb_b, mk_b, "gine", ea=e6,
+                                    eslot=es_b)
+
+    err = rel_err(k6g_kernel(), k6g_plain(), "K6 gine")
+    nbytes = ((uniq_b + valid_b) * EDGE_GINE_HID * 2 + n_b * w_b * 9
+              + n_b * EDGE_GINE_HID * 2)
+    add_mode("ell_aggregate", "gine", {
+        "err": err, "ms": cuda_ms(k6g_kernel),
+        "plain_ms": cuda_ms(k6g_plain, reps=3),
+        "eager_ms": eager_ms(k6g_kernel),
+        "bound_ms": bound_ms(nbytes, valid_b * EDGE_GINE_HID * 3)[0],
+        "bucket": [n_b, w_b], "edge_rows": valid_b})
+
+    # -- K6b gine over the whole transpose walk at layer 2's [N, 128] fp32
+    # cotangent. bytes: the cotangent rows (once each), each source's own
+    # row, each entry's edge row, the transpose tables, ent_row and
+    # ent_edge, [N, 128] written; ops: an add and a compare per entry.
+    g6, xt6 = (torch.randn((N, EDGE_GINE_HID), generator=gen, device=dev)
+               for _ in range(2))
+    et6 = torch.randn((E, EDGE_GINE_HID), generator=gen, device=dev)
+
+    def k6bg_kernel():
+        return ell_transpose_aggregate(g6, fell, "gine", table=xt6, ea=et6)
+
+    def k6bg_plain():
+        return _ell_transpose_plain(g6, fell, "gine", table=xt6, ea=et6)
+
+    err = rel_err(k6bg_kernel(), k6bg_plain(), "K6b gine", tol=1e-5)
+    t_slots = sum(int(m_.numel()) for m_ in fell.t_mask)
+    nbytes = (N * EDGE_GINE_HID * 4 * 3 + E * EDGE_GINE_HID * 4
+              + t_slots * 5 + E * 8 + N * 4)
+    add_mode("ell_transpose_aggregate", "gine", {
+        "err": err, "ms": cuda_ms(k6bg_kernel),
+        "plain_ms": cuda_ms(k6bg_plain, reps=1),
+        "eager_ms": eager_ms(k6bg_kernel),
+        "bound_ms": bound_ms(nbytes, E * EDGE_GINE_HID * 2)[0]})
+    del x6, e6, g6, xt6, et6
+
+    # -- K7 with the edge addend at EdgeAttrGAT layer 1's widths (H = 4,
+    # Dh = 64, bf16), against K7 without it in the same call. bytes: + each
+    # valid slot's edge row and the edge slots; ops: + an add per valid slot
+    # and value for the key and for the value.
+    hd7 = HID
+    xd7, ks7 = (torch.randn(s_, generator=gen, device=dev).to(torch.bfloat16)
+                for s_ in ((n_b, hd7), (N, hd7)))
+    he7 = torch.randn((E, hd7), generator=gen, device=dev).to(torch.bfloat16)
+    att7, att7b = (torch.randn(hd7, generator=gen, device=dev) * 0.2
+                   for _ in range(2))
+
+    def k7e_kernel():
+        return _fanout_attention_fwd(xd7, ks7, ks7, nb_b, mk_b, "gat",
+                                     GAT_HEADS, att7, att7b, 0.2, he=he7,
+                                     eidx=es_b)
+
+    def k7_plainrows():
+        return _fanout_attention_fwd(xd7, ks7, ks7, nb_b, mk_b, "gat",
+                                     GAT_HEADS, att7, att7b, 0.2)
+
+    def k7e_plain():
+        return _fanout_attention_plain(xd7, ks7, ks7, nb_b, mk_b, "gat",
+                                       GAT_HEADS, att7, att7b, 0.2, he=he7,
+                                       eidx=es_b)
+
+    err = rel_err(k7e_kernel(), k7e_plain(), "K7 gat + edge addend")
+    base7 = n_b * hd7 * 2 + uniq_b * hd7 * 2 + n_b * w_b * 5 + n_b * hd7 * 2
+    nbytes = base7 + valid_b * hd7 * 2 + n_b * w_b * 4
+    ms_e, ms_0 = cuda_ms(k7e_kernel), cuda_ms(k7_plainrows)
+    add_mode("fanout_attention", "gat_edge_addend", {
+        "err": err, "ms": ms_e, "ms_without_addend_same_call": ms_0,
+        "plain_ms": cuda_ms(k7e_plain, reps=3),
+        "eager_ms": eager_ms(k7e_kernel),
+        "bound_ms": bound_ms(nbytes, valid_b * hd7 * 6)[0]})
+
+    # -- K7b with the edge addend (ELL layout, fp32, Dh 64) ------------------
+    xdb, ksb, gb = (torch.randn(s_, generator=gen, device=dev)
+                    for s_ in ((n_b, hd7), (N, hd7), (n_b, hd7)))
+    heb = torch.randn((E, hd7), generator=gen, device=dev)
+    stb = torch.empty((n_b, GAT_HEADS, 2), device=dev)
+    outb = _fanout_attention_fwd(xdb, ksb, ksb, nb_b, mk_b, "gat", GAT_HEADS,
+                                 att7, att7b, 0.2, stats=stb, he=heb,
+                                 eidx=es_b)
+
+    def k7be_kernel():
+        return fanout_attention_bwd(gb, xdb, ksb, ksb, nb_b, mk_b, outb, stb,
+                                    "gat", GAT_HEADS, att7, att7b, 0.2,
+                                    he=heb, eidx=es_b)
+
+    def k7be_plain():
+        return _fanout_attention_bwd_plain(gb, xdb, ksb, ksb, nb_b, mk_b,
+                                           outb, "gat", GAT_HEADS, att7,
+                                           att7b, 0.2, he=heb, eidx=es_b)
+
+    got_, want_ = k7be_kernel(), k7be_plain()
+    err = max(rel_err(getattr(got_, f_), getattr(want_, f_),
+                      f"K7b edge addend {f_}", tol=1e-4)
+              for f_ in ("d_xd", "alpha", "coef", "d_att"))
+    nbytes = (3 * n_b * hd7 * 4 + uniq_b * hd7 * 4 + valid_b * hd7 * 4
+              + n_b * w_b * 9 + n_b * GAT_HEADS * 8
+              + n_b * w_b * GAT_HEADS * 8 + n_b * hd7 * 4)
+    add_mode("fanout_attention_bwd", "gat_edge_addend", {
+        "err": err, "ms": cuda_ms(k7be_kernel),
+        "plain_ms": cuda_ms(k7be_plain, reps=1),
+        "eager_ms": eager_ms(k7be_kernel),
+        "bound_ms": bound_ms(nbytes, valid_b * hd7 * 7)[0]})
+    del xd7, ks7, he7, xdb, ksb, gb, outb, got_, want_
+
+    # -- K11 at EdgeAttrGAT layer 1 (E = 2M, [E, 256] fp32 out, gat mode),
+    # with gine and transformer beside it. bytes: edge_pos, ent_row (and
+    # ent_src) per edge, each distinct destination's g row (and xd / x
+    # row), alpha and coef per edge, [E, D] written; ops: 3 per value.
+    p_total = int(fell.ent_row.shape[0])
+    g11, xd11, x11 = (torch.randn((N, HID), generator=gen, device=dev)
+                      for _ in range(3))
+    ea11 = torch.randn((E, HID), generator=gen, device=dev)
+    al11 = torch.rand((p_total, GAT_HEADS), generator=gen, device=dev)
+    cf11 = torch.randn((p_total, GAT_HEADS), generator=gen, device=dev)
+    k11 = {}
+    for mode in ("gat", "transformer", "gine"):
+        kw = {"gat": dict(alpha=al11, coef=cf11, vec=att7,
+                          heads=GAT_HEADS),
+              "transformer": dict(alpha=al11, coef=cf11, xd=xd11,
+                                  heads=GAT_HEADS),
+              "gine": dict(x=x11, ea=ea11)}[mode]
+
+        def k11_kernel(mode=mode, kw=kw):
+            return ell_edge_grad(g11, fell, mode, **kw)
+
+        def k11_plain(mode=mode, kw=kw):
+            return _ell_edge_grad_plain(g11, fell, mode, **kw)
+
+        err = rel_err(k11_kernel(), k11_plain(), f"K11 {mode}", tol=1e-6)
+        nbytes = (E * 8 + N * HID * 4 + E * HID * 4
+                  + {"gat": E * GAT_HEADS * 8 + HID * 4,
+                     "transformer": E * GAT_HEADS * 8 + N * HID * 4,
+                     "gine": E * 4 + N * HID * 4 + E * HID * 4}[mode])
+        k11[mode] = {"err": err, "ms": cuda_ms(k11_kernel),
+                     "plain_ms": cuda_ms(k11_plain, reps=1),
+                     "eager_ms": eager_ms(k11_kernel),
+                     "bound_ms": bound_ms(nbytes, E * HID * 3)[0],
+                     "nbytes": nbytes}
+    # the library yardstick: the flat [P, D] cotangent the reference builds,
+    # gathered by edge_pos (built beforehand, not timed)
+    flat11 = (al11.repeat_interleave(HID // GAT_HEADS, 1)
+              * g11[fell.ent_row.long()]
+              + cf11.repeat_interleave(HID // GAT_HEADS, 1) * att7[None, :])
+    pos11 = fell.edge_pos.long()
+    rel_err(torch.index_select(flat11, 0, pos11),
+            ell_edge_grad(g11, fell, "gat", alpha=al11, coef=cf11, vec=att7,
+                          heads=GAT_HEADS), "index_select vs K11", tol=1e-6)
+    record("ell_edge_grad", "gigl_tpu_torch/csrc/ell_edge_grad.cu",
+           "gigl_tpu/ops/ell.py:303", max(v["err"] for v in k11.values()),
+           k11["gat"]["ms"], k11["gat"]["plain_ms"],
+           nbytes=k11["gat"]["nbytes"], nops=E * HID * 3,
+           library_ms=cuda_ms(lambda: torch.index_select(flat11, 0, pos11)),
+           library_call="torch.index_select of the flat [P, 256] cotangent "
+                        "by edge_pos (the reference's _ell_ge_bwd gather; "
+                        "the flat block built beforehand, not timed)",
+           edges=E, width=HID, dtype="float32",
+           eager_ms=k11["gat"]["eager_ms"],
+           modes={m_: {k_: v_ for k_, v_ in v.items() if k_ != "nbytes"}
+                  for m_, v in k11.items()})
+    del g11, xd11, x11, ea11, al11, cf11, flat11
+
+    # -- edge_full_graph: run_full_graph_inference(edge_attr=) -----------------
+    graph_e = HeteroGraph.homogeneous(
+        src=src_np, dst=dst_np, num_nodes=N, node_features=x_np,
+        edge_features=ea_np)
+    x_full = torch.as_tensor(x_np, device=dev)
+    for model_name, (conv, hid, kw, kernels) in EDGE_FULL_GRAPH.items():
+        enc = GNNEncoder(D, hid, OUT, num_layers=2, conv=conv,
+                         conv_kwargs=kw, edge_dim=EDGE_DE,
+                         dtype=torch.bfloat16)
+        init_params(enc, 0)
+        sink = Sink()
+        path = f"edge_full_graph_{model_name}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        run_full_graph_inference(enc, None, graph_e, sink, edge_attr=ea_np,
+                                 device=dev)
+        torch.cuda.synchronize()
+        pass_s = time.perf_counter() - t0
+        counts[path] = (dict(_build.launches), 1)
+        peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+        emit({"phase": "main_path", "path": path,
+              "launches": counts[path][0], "seconds": pass_s})
+        for k in kernels:
+            check(counts[path][0][k] > 0, f"{k} was not launched on {path}")
+        embs = sink.table(N, OUT, path)
+        with torch.inference_mode(), plain_kernels():
+            ref = enc.encode_ell(x_full, fell, ea).float().cpu().numpy()
+        scale = float(np.abs(ref).max())
+        err = float(np.abs(embs - ref).max())
+        # bf16: the kernels and the twins round their fp32 sums in another
+        # order (as the full-graph passes above)
+        check(err <= 2e-2 * scale, f"{path} differs from the plain pass: "
+              f"{err} vs {scale}")
+        with torch.inference_mode():
+            enc.encode_ell(x_full, fell, ea)          # warm
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                enc.encode_ell(x_full, fell, ea)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            encode_ms = float(np.median(times)) * 1e3
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(FULL_GRAPH_PROFILED):
+                    enc.encode_ell(x_full, fell, ea)
+                torch.cuda.synchronize()
+                window_us = (time.perf_counter() - t0) * 1e6
+        emit({"phase": "edge_full_graph_throughput", "model": model_name,
+              "max_abs_err": err, "scale": scale, "entry_point_s": pass_s,
+              "encode_ms": encode_ms, "nodes_per_s": N / (encode_ms / 1e3),
+              "edges_per_s": 2 * E / (encode_ms / 1e3),
+              "peak_mem_gb": peak_gb,
+              "profile": profile_summary(prof, FULL_GRAPH_PROFILED,
+                                         window_us, encode_ms),
+              "card": card})
+        del enc, sink, embs, ref
+
+    # -- edge_full_batch_train: FullBatchTrainer over the ELL tables with
+    # FullBatchData.edge_attr ---------------------------------------------------
+    for model_name, (conv, hid, kw, kernels) in EDGE_FULL_BATCH.items():
+        path = f"edge_full_batch_{model_name}"
+        ea_leaf = torch.nn.Parameter(ea.clone())
+        data = dataclasses.replace(fb_data, edge_attr=ea_leaf)
+        fbt = FullBatchTrainer(
+            GNNEncoder(D, hid, C, num_layers=2, conv=conv, conv_kwargs=kw,
+                       edge_dim=EDGE_DE), data,
+            optimizer_args={"learning_rate": "1e-2"}, device=dev)
+        state = fbt.init_state(0)
+        with edge_gate_flips(fell, "gine" if conv == "gine" else "gat"
+                             ) as explain:
+            vs = step_vs_plain(fbt.encoder, fbt.loss, _build.launches,
+                               extra={"edge_attr": ea_leaf}, explain=explain)
+        emit({"phase": "edge_full_batch_step_vs_plain", "model": model_name,
+              **vs})
+        check(vs["loss_rel_err"] <= 1e-5,
+              f"{path}: loss differs from the plain step: {vs}")
+        check(vs["max_grad_err_rel_to_scale"] <= 1e-4,
+              f"{path}: a gradient differs from the plain step: {vs}")
+        # the trainer's own data: edge features are inputs, not weights
+        fbt.data = dataclasses.replace(fb_data, edge_attr=ea)
+        cnt_, nsteps, row = run_path(path, fbt, state, FB_STEPS, FB_WARMUP,
+                                     FB_PROFILED, kernels)
+        counts[path] = (cnt_, nsteps)
+        step_s = row["ms_per_step"] / 1e3
+        emit({"phase": "edge_full_batch_train_throughput",
+              "model": model_name, "edges_per_step": 2 * E,
+              "edges_per_s": 2 * E / step_s, "nodes_per_s": N / step_s,
+              **row})
+        del fbt, state, data, ea_leaf
+
+    # -- edge_nalp_train: the live NALPTrainer over an edge-featured graph,
+    # label-edge features on the supervision and hard-negative edges and
+    # the scorer; then run_inference over it ------------------------------------
+    hard_np = np.stack([erng.integers(0, N, EDGE_HARD),
+                        erng.integers(0, N, EDGE_HARD)])
+    t0 = time.perf_counter()
+    dg_e = DeviceGraph.from_hetero(
+        graph_e, supervision_edges=np.stack([src_np, dst_np]),
+        hard_neg_edges=hard_np,
+        supervision_edge_features=erng.normal(size=(E, EDGE_DE)).astype(
+            np.float32),
+        hard_neg_edge_features=erng.normal(size=(EDGE_HARD, EDGE_DE)).astype(
+            np.float32), device=dev)
+    torch.cuda.synchronize()
+    emit({"phase": "edge_graph", "seconds": time.perf_counter() - t0,
+          "edge_features": [E, EDGE_DE], "hard_negative_edges": EDGE_HARD})
+    ncfg = NALPTrainerConfig(fanouts=FANOUTS, num_positives=1,
+                             num_hard_negs=1, num_random_negs=R,
+                             loss_type="retrieval")
+    path = "edge_nalp_train"
+    trainer = NALPTrainer(
+        LinkPredictionGNN(
+            GNNEncoder(D, HID, OUT, num_layers=2, conv="edge_attr_gat",
+                       conv_kwargs={"heads": GAT_HEADS}, edge_dim=EDGE_DE),
+            LinkPredictionDecoder(), EdgeFeatureScorer(EDGE_DE, 32)),
+        dg_e, ncfg, optimizer_args={"learning_rate": "1e-3"}, device=dev)
+    state = trainer.init_state(0)
+    n_anchor = FB_WARMUP + EDGE_NALP_STEPS + FB_PROFILED
+    anchors = (np.arange(BATCH * n_anchor) % N).astype(np.int32).reshape(
+        n_anchor, BATCH)
+    scorer = {f"edge_scorer.{n_}": p_ for n_, p_ in
+              trainer.model.edge_scorer.named_parameters()}
+    vs = step_vs_plain(trainer.model.encoder, lambda: trainer.loss(
+        trainer.sample_batch(anchors[-1], 0)), _build.launches, extra=scorer)
+    emit({"phase": "edge_nalp_step_vs_plain", **vs})
+    check(vs["loss_rel_err"] <= 1e-5,
+          f"{path}: loss differs from the plain step: {vs}")
+    check(vs["max_grad_err_rel_to_scale"] <= 1e-4,
+          f"{path}: a gradient differs from the plain step: {vs}")
+    cnt_, nsteps, row = run_path(path, trainer, state, EDGE_NALP_STEPS,
+                                 FB_WARMUP, FB_PROFILED, EDGE_NALP_KERNELS,
+                                 nodes=anchors)
+    counts[path] = (cnt_, nsteps)
+    per_root = 2 * FANOUTS[0] + FANOUTS[0] * FANOUTS[1]   # bench.py:631-638
+    edges_step = per_root * (BATCH + BATCH + BATCH + R)   # anchors, pos,
+    emit({"phase": "edge_nalp_train_throughput",           # hard, random
+          "edges_per_step": edges_step,
+          "edges_per_s": edges_step / (row["ms_per_step"] / 1e3), **row})
+    sink = Sink()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    run_inference(trainer, N, sink, InferenceConfig(batch_size=BATCH))
+    torch.cuda.synchronize()
+    inf_s = time.perf_counter() - t0
+    path_i = "edge_nalp_inference"
+    counts[path_i] = (dict(_build.launches), 1)
+    emit({"phase": "main_path", "path": path_i, "launches": counts[path_i][0],
+          "seconds": inf_s})
+    for k in ("sample_uniform", "gather_rows", "fanout_attention"):
+        check(counts[path_i][0][k] > 0, f"{k} was not launched on {path_i}")
+    embs = sink.table(N, OUT, path_i)
+    with torch.inference_mode(), plain_kernels():
+        ref0 = trainer.encode_batch(np.arange(BATCH)).float().cpu().numpy()
+    err0 = float(np.abs(embs[:BATCH] - ref0).max())
+    scale0 = float(np.abs(ref0).max())
+    check(err0 <= 1e-4 * scale0, f"{path_i}: batch 0 differs from the "
+          f"plain recomputation: {err0} vs {scale0}")
+    emit({"phase": "edge_nalp_inference_throughput", "nodes_per_s": N / inf_s,
+          "ms_per_batch": inf_s / -(-N // BATCH) * 1e3,
+          "batch0_max_abs_err": err0, "scale": scale0, "card": card})
+    del trainer, state, dg_e, sink, embs
+
+    # -- typed_label_edge_train and simple_hgn on the typed graph -------------
+    tgraph, paths, make_encoder, anchors_t = (
+        typed["graph"], typed["paths"], typed["make_encoder"],
+        typed["anchors"])
+    writes = EdgeType.from_str(WRITES)
+    n_writes = int(tgraph.edges[writes].shape[1])
+    dg_t = HeteroDeviceGraph.from_hetero(
+        tgraph, paths, supervision_edge_type=writes,
+        supervision_edges=tgraph.edges[writes], supervision_anchor="dst",
+        supervision_edge_features=erng.normal(
+            size=(n_writes, EDGE_DE)).astype(np.float32), device=dev)
+    tcfg = HeteroNALPTrainerConfig(
+        "paper", "author", num_positives=1, num_hard_negs=0,
+        num_random_negs=R, loss_type="retrieval", temperature=0.07)
+    for conv, path, with_scorer, symmetric in (
+            ("hgt", "typed_label_edge_train", True,
+             ("encoder.convs.1.a_author.bias",)),
+            ("simple_hgn", "simple_hgn", False, ())):
+        model = HeteroLinkPredictionGNN(
+            make_encoder(conv), LinkPredictionDecoder(),
+            EdgeFeatureScorer(EDGE_DE, 32) if with_scorer else None)
+        trainer = HeteroNALPTrainer(model, dg_t, paths, tcfg,
+                                    optimizer_args={"learning_rate": "1e-3"},
+                                    device=dev)
+        state = trainer.init_state(0)
+        if conv == "simple_hgn":
+            # the serving path first: batch 0 of each type against the twins
+            for nt in ("paper", "author"):
+                ids0 = np.arange(BATCH)
+                got0 = trainer.encode_batch(ids0, nt)
+                with torch.inference_mode(), plain_kernels():
+                    ref0 = trainer.encode_batch(ids0, nt)
+                rel_err(got0, ref0, f"simple_hgn encode_batch {nt}",
+                        tol=1e-5)
+        vs = step_vs_plain(trainer.model, lambda: trainer.loss(
+            trainer.sample_batch(anchors_t[-1], 0)), _build.launches,
+            gated=False, symmetric=symmetric)
+        emit({"phase": f"{path}_step_vs_plain", **vs})
+        check(vs["loss_rel_err"] <= 1e-5,
+              f"{path}: loss differs from the plain step: {vs}")
+        check(vs["max_grad_err_rel_to_scale"] <= 1e-4,
+              f"{path}: a gradient differs from the plain step: {vs}")
+        cnt_, nsteps, row = run_path(
+            path, trainer, state, EDGE_TYPED_STEPS, FB_WARMUP, FB_PROFILED,
+            EDGE_TYPED_KERNELS[conv], nodes=anchors_t)
+        counts[path] = (cnt_, nsteps)
+        emit({"phase": f"{path}_throughput", "model": conv, **row})
+        del trainer, state, model
+    del dg_t
     return counts
 
 
@@ -2173,8 +2812,18 @@ def main():
         del nct, state
 
     coo = coo_phases(dev, card, graph, record, rel_err, run_path)
-    typed = typed_phases(dev, card, record, rel_err, unique)
+    typed, typed_ctx = typed_phases(dev, card, record, rel_err, unique)
     tt_steps = TT_WARMUP + TT_STEPS
+
+    def add_mode(kname, mode, entry):
+        """One more mode's numbers on a kernel row recorded above."""
+        row_ = next(r_ for r_ in results if r_["name"] == kname)
+        row_.setdefault("modes", {})[mode] = entry
+
+    edge = edge_phases(
+        dev, card, (src, dst, np.asarray(graph.node_features[
+            graph.metadata.node_types[0]])), fb_data, typed_ctx, record,
+        add_mode, rel_err, unique, run_path)
 
     # launches on every kernel row: the training path's (K6 / K7: the
     # full-graph passes'; K6b / K7b: the node-classification paths'; K8-K10:
@@ -2195,6 +2844,9 @@ def main():
                                   if p_.startswith("typed_full"))
         elif k in ("segment_reduce_bwd", "segment_softmax_bwd", "sddmm_bwd"):
             row["launches"] = sum(c_[k] for c_, _ in coo.values())
+        elif k == "ell_edge_grad":
+            row["launches"] = sum(c_[k] for p_, (c_, _) in edge.items()
+                                  if p_.startswith("edge_full_batch"))
         else:
             row["launches"] = sum(fg.values())
         row["launches_per_step"] = (launches[k] - after_init[k]) / (
@@ -2213,8 +2865,10 @@ def main():
         row["launches_per_typed_train_step"] = {
             p_: c_[k] / tt_steps for p_, c_ in typed.items()
             if p_.startswith("typed_train")}
-    check(len(results) == len(_build.KERNEL_NAMES) == 17,
-          "the kernels line does not list all seventeen kernels")
+        row["launches_per_edge_path_step"] = {
+            p_: c_[k] / n_ for p_, (c_, n_) in edge.items()}
+    check(len(results) == len(_build.KERNEL_NAMES) == 18,
+          "the kernels line does not list all eighteen kernels")
     results.sort(key=lambda r: _build.KERNEL_NAMES.index(r["name"]))
 
     emit({"kernels": results})

@@ -5,11 +5,15 @@ numpy arrays — ``params/encoder/conv_{i}/...`` for a ``LinkPredictionGNN``,
 or ``conv_{i}/...`` for a bare ``GNNEncoder`` — and returns the state dict
 of the matching port module. Per conv: ``Dense`` subtrees ``lin_self``,
 ``lin_nbr`` (SAGE), ``lin`` (GCN), ``lin_src``, ``lin_dst`` (GAT),
-``lin_q``, ``lin_k``, ``lin_v``, ``lin_skip`` (Transformer) and GIN's
+``lin_q``, ``lin_k``, ``lin_v``, ``lin_skip`` (Transformer), ``lin_edge``
+(EdgeAttrGAT, the Transformer with edges) and GIN's / GINE's
 ``mlp/layers_0``, ``mlp/layers_2`` (-> ``mlp.0``, ``mlp.2``); array leaves
 ``att``, ``att_src``, ``att_dst`` ``[H, Dh]``, ``bias`` and GIN's scalar
-``eps``, copied as they are. A flax ``Dense`` kernel is ``[in, out]``; an
-``nn.Linear.weight`` is ``[out, in]``. ``adam_state_from_optax`` maps an optax Adam state
+``eps``, copied as they are. Beside the convs, the encoder's
+``edge_in_proj`` and the model's ``edge_scorer`` (``e0``, ``e1``) are
+``Dense`` layers of the same names. A flax ``Dense`` kernel is ``[in,
+out]``; an ``nn.Linear.weight`` is ``[out, in]``.
+``adam_state_from_optax`` maps an optax Adam state
 (``ScaleByAdamState(count, mu, nu)``, whose moments are trees of the
 params' structure) to the per-parameter state of a ``torch.optim.Adam``
 over ``model.parameters()``, so both packages can start from one mid-run
@@ -35,7 +39,7 @@ import torch
 
 _CONV = re.compile(r"conv_(\d+)$")
 _LINEARS = ("lin_self", "lin_nbr", "lin", "lin_src", "lin_dst", "lin_q",
-            "lin_k", "lin_v", "lin_skip")
+            "lin_k", "lin_v", "lin_skip", "lin_edge")
 _ARRAYS = ("att", "att_src", "att_dst", "bias", "eps")
 _MLP = re.compile(r"layers_(\d+)$")
 
@@ -55,6 +59,9 @@ def _dense(leaves: Mapping[str, Any], key: str, where: str,
 def _convs(tree: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for name, sub in tree.items():
+        if name == "edge_in_proj":
+            _dense(sub, f"{prefix}edge_in_proj", name, out)
+            continue
         m = _CONV.match(name)
         if m is None:
             raise ValueError(f"unsupported encoder parameter {name!r}")
@@ -106,10 +113,14 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     if "params" in tree:
         tree = tree["params"]
     if "encoder" in tree:
-        extra = set(tree) - {"encoder", "decoder"}
+        extra = set(tree) - {"encoder", "decoder", "edge_scorer"}
         if extra or tree.get("decoder"):
             raise ValueError(f"unsupported model parameters {sorted(extra)}")
-        return _encoder(tree["encoder"], "encoder.")
+        out = _encoder(tree["encoder"], "encoder.")
+        for layer, leaves in tree.get("edge_scorer", {}).items():
+            _dense(leaves, f"edge_scorer.{layer}", f"edge_scorer/{layer}",
+                   out)
+        return out
     return _encoder(tree, "")
 
 

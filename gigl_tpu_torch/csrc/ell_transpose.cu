@@ -26,6 +26,11 @@
 //             query[row]) per value (GATv2's value and key gradients from
 //             K7b's alpha and logit cotangent: the key term depends on the
 //             pair, so this mode also reads the query row and its own key).
+//   gine      g[row] * 1[x[v] + ea[ent_edge[p]] > 0] per value (GINE's
+//             sum of relu(x_j + e_ij), gigl_tpu/models/convs.py:217-223:
+//             the relu's gate recomputed from the source's own row and the
+//             entry's edge row, ent_edge the flat entry -> COO edge table;
+//             ea NULL gates on x[v] alone).
 // deg is the in-degree table in permuted order (the valid count of each
 // row). fp32 accumulation in slot order, one rounding to the output type.
 // Every row of the bucket is written once, rows with no valid slot (sources
@@ -52,6 +57,7 @@ constexpr int kMax = 2;
 constexpr int kGcn = 3;
 constexpr int kWeighted = 4;
 constexpr int kGatV2 = 5;
+constexpr int kGine = 6;
 
 template <typename T, int P, int OP>
 __global__ void ell_transpose_kernel(
@@ -61,6 +67,7 @@ __global__ void ell_transpose_kernel(
     const float* __restrict__ wt, const float* __restrict__ wt2,
     const float* __restrict__ vec, const T* __restrict__ rows2,
     const T* __restrict__ table, const float* __restrict__ cnt,
+    const T* __restrict__ ea, const int32_t* __restrict__ ent_edge,
     T* __restrict__ out, int64_t m, int w, int d, int heads, int dh,
     float slope) {
   const int pieces = d / P;
@@ -77,8 +84,8 @@ __global__ void ell_transpose_kernel(
     acc2[e] = 0.f;
     hu[e] = OP == kWeighted || OP == kGatV2 ? (c + e) / dh : 0;
   }
-  float own[P];  // GATv2: this row of the key table; max: of the input
-  if constexpr (OP == kGatV2 || OP == kMax)
+  float own[P];  // GATv2: this row of the key table; max, GINE: of the input
+  if constexpr (OP == kGatV2 || OP == kMax || OP == kGine)
     load_piece<T, P>(table + v * d + c, own);
   float w_src = 0.f;
   if (OP == kGcn) w_src = 1.f / sqrtf(__ldg(deg + v) + 1.f);
@@ -109,6 +116,16 @@ __global__ void ell_transpose_kernel(
 #pragma unroll
       for (int e = 0; e < P; ++e)
         if (own[e] == x2[e]) acc[e] += x[e] / __ldg(cnt + row * d + c + e);
+    } else if (OP == kGine) {
+      float ev[P];
+#pragma unroll
+      for (int e = 0; e < P; ++e) ev[e] = 0.f;
+      if (ea != nullptr)
+        load_piece<T, P>(ea + static_cast<int64_t>(__ldg(ent_edge + p)) * d + c,
+                         ev);
+#pragma unroll
+      for (int e = 0; e < P; ++e)
+        if (own[e] + ev[e] > 0.f) acc[e] += x[e];
     } else if (OP == kGatV2) {
       float x2[P];
       load_piece<T, P>(rows2 + row * d + c, x2);
@@ -143,8 +160,9 @@ template <typename T, int P>
 int launch(const void* rows, const void* t_nbr, const void* t_mask,
            const void* t_perm, const void* ent_row, const void* deg,
            const void* wt, const void* wt2, const void* vec,
-           const void* rows2, const void* table, const void* cnt, void* out,
-           long long m, int w, int d, int heads, int dh, int op, float slope,
+           const void* rows2, const void* table, const void* cnt,
+           const void* ea, const void* ent_edge, void* out, long long m,
+           int w, int d, int heads, int dh, int op, float slope,
            cudaStream_t stream) {
   const long long total = m * (d / P);
   if (total == 0) return 0;
@@ -162,47 +180,56 @@ int launch(const void* rows, const void* t_nbr, const void* t_mask,
   const T* r2 = static_cast<const T*>(rows2);
   const T* tb = static_cast<const T*>(table);
   const float* cn = static_cast<const float*>(cnt);
+  const T* ev = static_cast<const T*>(ea);
+  const int32_t* ee = static_cast<const int32_t*>(ent_edge);
   T* ov = static_cast<T*>(out);
   switch (op) {
     case kMean:
       if (dg == nullptr) return static_cast<int>(cudaErrorInvalidValue);
       ell_transpose_kernel<T, P, kMean><<<blocks, threads, 0, stream>>>(
-          rv, tn, tm, tp, er, dg, w1, w2, vc, r2, tb, cn, ov, m, w, d, heads,
-          dh, slope);
+          rv, tn, tm, tp, er, dg, w1, w2, vc, r2, tb, cn, ev, ee, ov, m, w, d,
+          heads, dh, slope);
       break;
     case kSum:
       ell_transpose_kernel<T, P, kSum><<<blocks, threads, 0, stream>>>(
-          rv, tn, tm, tp, er, dg, w1, w2, vc, r2, tb, cn, ov, m, w, d, heads,
-          dh, slope);
+          rv, tn, tm, tp, er, dg, w1, w2, vc, r2, tb, cn, ev, ee, ov, m, w, d,
+          heads, dh, slope);
       break;
     case kGcn:
       if (dg == nullptr) return static_cast<int>(cudaErrorInvalidValue);
       ell_transpose_kernel<T, P, kGcn><<<blocks, threads, 0, stream>>>(
-          rv, tn, tm, tp, er, dg, w1, w2, vc, r2, tb, cn, ov, m, w, d, heads,
-          dh, slope);
+          rv, tn, tm, tp, er, dg, w1, w2, vc, r2, tb, cn, ev, ee, ov, m, w, d,
+          heads, dh, slope);
       break;
     case kWeighted:
       if (w1 == nullptr || heads < 1 || dh < 1 || heads * dh != d ||
           ((w2 == nullptr) != (vc == nullptr)))
         return static_cast<int>(cudaErrorInvalidValue);
       ell_transpose_kernel<T, P, kWeighted><<<blocks, threads, 0, stream>>>(
-          rv, tn, tm, tp, er, dg, w1, w2, vc, r2, tb, cn, ov, m, w, d, heads,
-          dh, slope);
+          rv, tn, tm, tp, er, dg, w1, w2, vc, r2, tb, cn, ev, ee, ov, m, w, d,
+          heads, dh, slope);
       break;
     case kMax:
       if (r2 == nullptr || tb == nullptr || cn == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
       ell_transpose_kernel<T, P, kMax><<<blocks, threads, 0, stream>>>(
-          rv, tn, tm, tp, er, dg, w1, w2, vc, r2, tb, cn, ov, m, w, d, heads,
-          dh, slope);
+          rv, tn, tm, tp, er, dg, w1, w2, vc, r2, tb, cn, ev, ee, ov, m, w, d,
+          heads, dh, slope);
       break;
     case kGatV2:
       if (w1 == nullptr || w2 == nullptr || vc == nullptr || r2 == nullptr ||
           tb == nullptr || heads < 1 || dh < 1 || heads * dh != d)
         return static_cast<int>(cudaErrorInvalidValue);
       ell_transpose_kernel<T, P, kGatV2><<<blocks, threads, 0, stream>>>(
-          rv, tn, tm, tp, er, dg, w1, w2, vc, r2, tb, cn, ov, m, w, d, heads,
-          dh, slope);
+          rv, tn, tm, tp, er, dg, w1, w2, vc, r2, tb, cn, ev, ee, ov, m, w, d,
+          heads, dh, slope);
+      break;
+    case kGine:
+      if (tb == nullptr || (ev != nullptr && ee == nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
+      ell_transpose_kernel<T, P, kGine><<<blocks, threads, 0, stream>>>(
+          rv, tn, tm, tp, er, dg, w1, w2, vc, r2, tb, cn, ev, ee, ov, m, w, d,
+          heads, dh, slope);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -264,35 +291,42 @@ int launch_ties(const void* x, const void* nbr, const void* mask,
 // [d] fp32 (weighted; GATv2), rows2 [R, d] and table [N, d] of rows' type
 // (GATv2: the query rows by destination row and the key table; max: the
 // forward's output by destination row and its input table), cnt [N, d]
-// fp32 (max: the tie counts). op: 0 mean, 1 sum, 2 max (g / cnt where the
-// source equals the max), 3 gcn, 4 weighted, 5 GATv2 (alpha * g + coef *
-// att * leaky'(key + query), leaky' = 1 at >= 0, else slope). vec_path: 1
+// fp32 (max: the tie counts), ea [E, d] of rows' type and ent_edge [P]
+// int32 (GINE's edge rows, or both NULL). op: 0 mean, 1 sum, 2 max (g /
+// cnt where the source equals the max), 3 gcn, 4 weighted, 5 GATv2
+// (alpha * g + coef * att * leaky'(key + query), leaky' = 1 at >= 0, else
+// slope), 6 GINE (g where table[v] + ea[ent_edge[p]] > 0). vec_path: 1
 // when d * sizeof(T) is a multiple of 16 and the row tables and out are
 // 16-byte aligned.
 extern "C" int gigl_ell_transpose_aggregate(
     const void* rows, const void* t_nbr, const void* t_mask,
     const void* t_perm, const void* ent_row, const void* deg, const void* wt,
     const void* wt2, const void* vec, const void* rows2, const void* table,
-    const void* cnt, void* out, long long m, int w, int d, int heads, int dh,
-    int dtype, int op, int vec_path, float slope, void* stream) {
+    const void* cnt, const void* ea, const void* ent_edge, void* out,
+    long long m, int w, int d, int heads, int dh, int dtype, int op,
+    int vec_path, float slope, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (dtype == 0) {
     rc = vec_path ? launch<float, 4>(rows, t_nbr, t_mask, t_perm, ent_row,
                                      deg, wt, wt2, vec, rows2, table, cnt,
-                                     out, m, w, d, heads, dh, op, slope, s)
+                                     ea, ent_edge, out, m, w, d, heads, dh,
+                                     op, slope, s)
                   : launch<float, 1>(rows, t_nbr, t_mask, t_perm, ent_row,
                                      deg, wt, wt2, vec, rows2, table, cnt,
-                                     out, m, w, d, heads, dh, op, slope, s);
+                                     ea, ent_edge, out, m, w, d, heads, dh,
+                                     op, slope, s);
   } else if (dtype == 1) {
     rc = vec_path ? launch<__nv_bfloat16, 8>(rows, t_nbr, t_mask, t_perm,
                                              ent_row, deg, wt, wt2, vec,
-                                             rows2, table, cnt, out, m, w, d,
-                                             heads, dh, op, slope, s)
+                                             rows2, table, cnt, ea, ent_edge,
+                                             out, m, w, d, heads, dh, op,
+                                             slope, s)
                   : launch<__nv_bfloat16, 1>(rows, t_nbr, t_mask, t_perm,
                                              ent_row, deg, wt, wt2, vec,
-                                             rows2, table, cnt, out, m, w, d,
-                                             heads, dh, op, slope, s);
+                                             rows2, table, cnt, ea, ent_edge,
+                                             out, m, w, d, heads, dh, op,
+                                             slope, s);
   } else {
     rc = static_cast<int>(cudaErrorInvalidValue);
   }

@@ -16,6 +16,17 @@
 // output type; masked slots point at row 0 and are skipped by the mask.
 // When a gradient will be needed, each (row, head)'s final max and
 // denominator go to `stats` for the backward (K7b, fanout_attention_bwd.cu).
+// Two optional operands:
+//   he [E, H*Dh] an edge row per slot, read through eidx [n, W] int32 (the
+//      ELL bucket's edge slots): added to the slot's key row and to its
+//      value row, as EdgeAttrGAT adds lin_edge(e) to lin_src(x_j)
+//      (convs.py:296-298, keys and values one table) and the Transformer
+//      adds it to both k and v (:367-370) — the forward of ell_gather_edges
+//      (gigl_tpu/ops/ell.py:289-316) fused in, no [n, W, H*Dh] block;
+//   bias [W, H] fp32 (GAT v1 only) a logit term per slot column and head,
+//      added before the leaky_relu: SimpleHGN's relation term
+//      (edge_emb[r] @ w_rel)·att_rel broadcast to the relation's slots of
+//      the concatenated block (gigl_tpu/models/hetero_convs.py:221-228).
 //
 // Bound: bytes at the flagship widths (two reads of ~2*Dh bytes per valid
 // slot and head against ~6*Dh flops). Design: one 128-thread block per
@@ -91,14 +102,20 @@ __host__ __device__ inline size_t smem_floats(int heads, int dh, bool vec,
   return n;
 }
 
-template <typename T, bool VEC>
+template <typename T, bool VEC, bool EXTRA>
 __global__ void __launch_bounds__(kThreads) fanout_attention_kernel(
     const T* __restrict__ xd, const T* __restrict__ ks,
     const T* __restrict__ vs, const int32_t* __restrict__ nbr,
     const uint8_t* __restrict__ mask, const float* __restrict__ att,
-    const float* __restrict__ att2, T* __restrict__ out,
-    float* __restrict__ stats, int w, int heads, int dh, int mode,
-    float slope, float sqrt_dh) {
+    const float* __restrict__ att2, const T* __restrict__ he,
+    const int32_t* __restrict__ eidx, const float* __restrict__ bias,
+    T* __restrict__ out, float* __restrict__ stats, int w, int heads, int dh,
+    int mode, float slope, float sqrt_dh) {
+  // without the optional operands their code folds away (EXTRA false)
+  if constexpr (!EXTRA) {
+    he = nullptr;
+    bias = nullptr;
+  }
   constexpr int P = 16 / sizeof(T);
   extern __shared__ float smem[];
   const int hd = heads * dh;
@@ -139,6 +156,7 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_kernel(
   }
   const int32_t* nrow = nbr + i * w;
   const uint8_t* mrow = mask + i * w;
+  const int32_t* erow = he != nullptr ? eidx + i * w : nullptr;
   for (int c0 = 0; c0 < w; c0 += kChunk) {
     const int cw = min(kChunk, w - c0);
     // 1. logits of the chunk
@@ -149,9 +167,18 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_kernel(
         const bool valid = mrow[c0 + jj];  // the same for the whole warp
         if (valid) {
           const T* kr = ks + static_cast<int64_t>(nrow[c0 + jj]) * hd;
+          const T* er = erow != nullptr
+                            ? he + static_cast<int64_t>(erow[c0 + jj]) * hd
+                            : nullptr;
           for (int pc = lane; pc < pieces; pc += 32) {
             float kv[P];
             load_piece<T, P>(kr + pc * P, kv);
+            if (er != nullptr) {
+              float ev[P];
+              load_piece<T, P>(er + pc * P, ev);
+#pragma unroll
+              for (int u = 0; u < P; ++u) kv[u] += ev[u];
+            }
             const int e0 = pc * P;
             float a = 0.f;
 #pragma unroll
@@ -172,7 +199,9 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_kernel(
           if (valid) {
             float a = 0.f;
             for (int pc = h * pph; pc < (h + 1) * pph; ++pc) a += rw[pc];
-            l = finish_logit(a, mode, sd[h], slope, sqrt_dh);
+            const float bj =
+                bias != nullptr ? bias[(c0 + jj) * heads + h] : 0.f;
+            l = finish_logit(a, mode, sd[h] + bj, slope, sqrt_dh);
           }
           lg[h * kChunk + jj] = l;
         }
@@ -184,11 +213,16 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_kernel(
         float l = neg_inf;
         if (mrow[c0 + jj]) {
           const T* kr = ks + static_cast<int64_t>(nrow[c0 + jj]) * hd + h * dh;
+          const T* er = erow != nullptr
+                            ? he + static_cast<int64_t>(erow[c0 + jj]) * hd +
+                                  h * dh
+                            : nullptr;
           const float* qh = q + h * dh;
           const float* ah = at + h * dh;
           float a = 0.f;
           for (int e = 0; e < dh; ++e) {
-            const float kv = to_float(kr[e]);
+            const float kv =
+                to_float(kr[e]) + (er != nullptr ? to_float(er[e]) : 0.f);
             if (mode == kGat)
               a += kv * ah[e];
             else if (mode == kGatV2)
@@ -196,7 +230,9 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_kernel(
             else
               a += qh[e] * kv;
           }
-          l = finish_logit(a, mode, sd[h], slope, sqrt_dh);
+          const float bj =
+              bias != nullptr ? bias[(c0 + jj) * heads + h] : 0.f;
+          l = finish_logit(a, mode, sd[h] + bj, slope, sqrt_dh);
         }
         lg[h * kChunk + jj] = l;
       }
@@ -236,6 +272,9 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_kernel(
       for (int jj = warp; jj < cw; jj += kWarps) {
         if (!mrow[c0 + jj]) continue;  // the same for the whole warp
         const T* vr = vs + static_cast<int64_t>(nrow[c0 + jj]) * hd;
+        const T* er = erow != nullptr
+                          ? he + static_cast<int64_t>(erow[c0 + jj]) * hd
+                          : nullptr;
 #pragma unroll
         for (int k = 0; k < kMaxPiecesPerLane; ++k) {
           const int pc = lane + 32 * k;
@@ -243,6 +282,12 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_kernel(
           const float p = lg[(pc * P / dh) * kChunk + jj];
           float vv[P];
           load_piece<T, P>(vr + pc * P, vv);
+          if (er != nullptr) {
+            float ev[P];
+            load_piece<T, P>(er + pc * P, ev);
+#pragma unroll
+            for (int u = 0; u < P; ++u) vv[u] += ev[u];
+          }
 #pragma unroll
           for (int u = 0; u < P; ++u) part[k][u] += p * vv[u];
         }
@@ -270,7 +315,10 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_kernel(
         for (int jj = 0; jj < cw; ++jj) {
           const float p = ph[jj];
           if (p == 0.f) continue;
-          a += p * to_float(vs[static_cast<int64_t>(nrow[c0 + jj]) * hd + e]);
+          float v = to_float(vs[static_cast<int64_t>(nrow[c0 + jj]) * hd + e]);
+          if (erow != nullptr)
+            v += to_float(he[static_cast<int64_t>(erow[c0 + jj]) * hd + e]);
+          a += p * v;
         }
         acc[e] = a;
       }
@@ -293,19 +341,22 @@ bool aligned16(const void* p) {
 
 template <typename T>
 int launch(const void* xd, const void* ks, const void* vs, const void* nbr,
-           const void* mask, const void* att, const void* att2, void* out,
+           const void* mask, const void* att, const void* att2,
+           const void* he, const void* eidx, const void* bias, void* out,
            void* stats, long long n, int w, int heads, int dh, int mode,
            float slope, float sqrt_dh, cudaStream_t stream) {
   if (n == 0) return 0;
   if (mode < kGat || mode > kTransformer || w < 1 || heads < 1 || dh < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((mode != kTransformer && att == nullptr) ||
-      (mode == kGat && att2 == nullptr))
+      (mode == kGat && att2 == nullptr) || (he != nullptr && eidx == nullptr) ||
+      (bias != nullptr && mode != kGat))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int P = 16 / sizeof(T);
   const int pieces = heads * dh / P;
   const bool vec = dh % P == 0 && pieces <= 32 * kMaxPiecesPerLane &&
                    aligned16(ks) && aligned16(vs) &&
+                   (he == nullptr || aligned16(he)) &&
                    smem_floats(heads, dh, true, pieces) * sizeof(float) <=
                        48 * 1024;
   const size_t smem = sizeof(float) * smem_floats(heads, dh, vec, pieces);
@@ -318,15 +369,19 @@ int launch(const void* xd, const void* ks, const void* vs, const void* nbr,
   const uint8_t* mk = static_cast<const uint8_t*>(mask);
   const float* a1 = static_cast<const float*>(att);
   const float* a2 = static_cast<const float*>(att2);
+  const T* ev = static_cast<const T*>(he);
+  const int32_t* ei = static_cast<const int32_t*>(eidx);
+  const float* bs = static_cast<const float*>(bias);
   T* o = static_cast<T*>(out);
   float* st = static_cast<float*>(stats);
-  if (vec) {
-    fanout_attention_kernel<T, true><<<grid, kThreads, smem, stream>>>(
-        x, k, v, nb, mk, a1, a2, o, st, w, heads, dh, mode, slope, sqrt_dh);
-  } else {
-    fanout_attention_kernel<T, false><<<grid, kThreads, smem, stream>>>(
-        x, k, v, nb, mk, a1, a2, o, st, w, heads, dh, mode, slope, sqrt_dh);
-  }
+  const bool extra = he != nullptr || bias != nullptr;
+  auto kernel = vec ? (extra ? fanout_attention_kernel<T, true, true>
+                             : fanout_attention_kernel<T, true, false>)
+                    : (extra ? fanout_attention_kernel<T, false, true>
+                             : fanout_attention_kernel<T, false, false>);
+  kernel<<<grid, kThreads, smem, stream>>>(x, k, v, nb, mk, a1, a2, ev, ei,
+                                           bs, o, st, w, heads, dh, mode,
+                                           slope, sqrt_dh);
   return 0;
 }
 
@@ -335,22 +390,28 @@ int launch(const void* xd, const void* ks, const void* vs, const void* nbr,
 // dtype: 0 = fp32, 1 = bf16 (xd, ks, vs, out); att / att2 fp32 [H * Dh]
 // (mode 0: att_src / att_dst; mode 1: att / NULL; mode 2: NULL / NULL).
 // stats: NULL, or fp32 [n, H, 2] that receives each (row, head)'s final
-// softmax max and denominator for the backward (K7b).
+// softmax max and denominator for the backward (K7b). he [E, H * Dh] of
+// xd's type with eidx [n, W] int32, or both NULL: the slot's edge row,
+// added to its key and value rows. bias [W, H] fp32 or NULL (mode 0 only):
+// a logit term per slot column.
 extern "C" int gigl_fanout_attention(const void* xd, const void* ks,
                                      const void* vs, const void* nbr,
                                      const void* mask, const void* att,
-                                     const void* att2, void* out, void* stats,
-                                     long long n, int w, int heads, int dh,
-                                     int dtype, int mode, float slope,
-                                     float sqrt_dh, void* stream) {
+                                     const void* att2, const void* he,
+                                     const void* eidx, const void* bias,
+                                     void* out, void* stats, long long n,
+                                     int w, int heads, int dh, int dtype,
+                                     int mode, float slope, float sqrt_dh,
+                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (dtype == 0) {
-    rc = launch<float>(xd, ks, vs, nbr, mask, att, att2, out, stats, n, w,
-                       heads, dh, mode, slope, sqrt_dh, s);
+    rc = launch<float>(xd, ks, vs, nbr, mask, att, att2, he, eidx, bias, out,
+                       stats, n, w, heads, dh, mode, slope, sqrt_dh, s);
   } else if (dtype == 1) {
-    rc = launch<__nv_bfloat16>(xd, ks, vs, nbr, mask, att, att2, out, stats,
-                               n, w, heads, dh, mode, slope, sqrt_dh, s);
+    rc = launch<__nv_bfloat16>(xd, ks, vs, nbr, mask, att, att2, he, eidx,
+                               bias, out, stats, n, w, heads, dh, mode, slope,
+                               sqrt_dh, s);
   } else {
     rc = static_cast<int>(cudaErrorInvalidValue);
   }

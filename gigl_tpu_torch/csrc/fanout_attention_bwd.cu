@@ -32,6 +32,12 @@
 //            (GAT; GATv2: d_att = sum d_logit_j leaky(ks_j + xd_i)), as
 //            per-block partials summed by a second small kernel in a fixed
 //            order — no float atomics, the same bits on every run.
+// With K7's optional operands, the slot's key and value rows are ks_j +
+// he[eidx[i, j]] and vs_j + he[eidx[i, j]] (the edge row; its gradient is
+// K11's, ell_edge_grad.cu, from the alpha and coef written here) and the
+// GAT pre-activation carries bias[j, h] (SimpleHGN's relation term; its
+// cotangent is d_pre, written per entry to e_coef in the identity layout
+// too, and summed per relation by the caller).
 // fp32 arithmetic, one rounding of d_xd / d_ks / d_vs to the tables' type.
 //
 // Bound: bytes (each slot's key and value row read once more than the
@@ -94,17 +100,24 @@ __host__ __device__ inline size_t smem_floats(int heads, int dh) {
          3 * kWarps * static_cast<size_t>(heads);
 }
 
-template <typename T, bool VEC>
+template <typename T, bool VEC, bool EXTRA>
 __global__ void __launch_bounds__(kThreads) fanout_attention_bwd_kernel(
     const T* __restrict__ g, const T* __restrict__ xd,
     const T* __restrict__ ks, const T* __restrict__ vs,
     const T* __restrict__ out, const float* __restrict__ stats,
     const int32_t* __restrict__ nbr, const uint8_t* __restrict__ mask,
     const float* __restrict__ att, const float* __restrict__ att2,
-    T* __restrict__ d_xd, float* __restrict__ e_alpha,
+    const T* __restrict__ he, const int32_t* __restrict__ eidx,
+    const float* __restrict__ bias, T* __restrict__ d_xd,
+    float* __restrict__ e_alpha,
     float* __restrict__ e_coef, T* __restrict__ d_ks, T* __restrict__ d_vs,
     float* __restrict__ part, int64_t n, int w, int heads, int dh, int mode,
     float slope, float sqrt_dh) {
+  // without K7's optional operands their code folds away (EXTRA false)
+  if constexpr (!EXTRA) {
+    he = nullptr;
+    bias = nullptr;
+  }
   extern __shared__ float smem[];
   const int hd = heads * dh;
   float* q = smem;                      // [hd] xd[i], fp32
@@ -185,11 +198,9 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_bwd_kernel(
     for (int jj = warp; jj < w; jj += kWarps) {
       const int64_t p = i * w + jj;
       if (!mask[p]) {  // the same for the whole warp
-        if (e_alpha != nullptr) {
-          for (int h = lane; h < heads; h += 32) {
-            e_alpha[p * heads + h] = 0.f;
-            e_coef[p * heads + h] = 0.f;
-          }
+        for (int h = lane; h < heads; h += 32) {
+          if (e_alpha != nullptr) e_alpha[p * heads + h] = 0.f;
+          if (e_coef != nullptr) e_coef[p * heads + h] = 0.f;
         }
         if (d_ks != nullptr) {
           for (int e = lane; e < hd; e += 32) {
@@ -202,6 +213,8 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_bwd_kernel(
       const int64_t s = nbr[p];
       const T* kr = ks + s * hd;
       const T* vr = vs + s * hd;
+      const T* er = he != nullptr ? he + static_cast<int64_t>(eidx[p]) * hd
+                                  : nullptr;
       if constexpr (VEC) {
         // one or two 16-byte pieces of the key and value rows per lane, in
         // registers; per-head sums by shuffles within groups of pph lanes
@@ -212,11 +225,19 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_bwd_kernel(
           p2[k] = 0.f;
           if (pc < pieces) {
             load_piece<T, P>(kr + pc * P, kv[k]);
+            float ev[P];
+#pragma unroll
+            for (int u = 0; u < P; ++u) ev[u] = 0.f;
+            if (er != nullptr) load_piece<T, P>(er + pc * P, ev);
+#pragma unroll
+            for (int u = 0; u < P; ++u) kv[k][u] += ev[u];
             if (same) {
 #pragma unroll
               for (int u = 0; u < P; ++u) vv[k][u] = kv[k][u];
             } else {
               load_piece<T, P>(vr + pc * P, vv[k]);
+#pragma unroll
+              for (int u = 0; u < P; ++u) vv[k][u] += ev[u];
             }
 #pragma unroll
             for (int u = 0; u < P; ++u) {
@@ -240,8 +261,9 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_bwd_kernel(
         }
       } else {
         for (int e = lane; e < hd; e += 32) {
-          const float kv1 = to_float(kr[e]);
-          const float vv1 = to_float(vr[e]);
+          const float ev1 = er != nullptr ? to_float(er[e]) : 0.f;
+          const float kv1 = to_float(kr[e]) + ev1;
+          const float vv1 = to_float(vr[e]) + ev1;
           r1[e] = logit_term(mode, kv1, q[e], at[e], slope);
           r2[e] = gr[e] * vv1;
         }
@@ -260,7 +282,7 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_bwd_kernel(
         }
         float pre = 0.f, logit;
         if (gat) {
-          pre = a1 + sd[h];
+          pre = a1 + sd[h] + (bias != nullptr ? bias[jj * heads + h] : 0.f);
           logit = leaky(pre, slope);
         } else {
           logit = v2 ? a1 : a1 / sqrt_dh;
@@ -272,10 +294,8 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_bwd_kernel(
         cw[h] = coef;
         aw[h] = alpha;
         sw[h] += coef;
-        if (e_alpha != nullptr) {
-          e_alpha[p * heads + h] = alpha;
-          e_coef[p * heads + h] = coef;
-        }
+        if (e_alpha != nullptr) e_alpha[p * heads + h] = alpha;
+        if (e_coef != nullptr) e_coef[p * heads + h] = coef;
       }
       __syncwarp();
       if constexpr (VEC) {
@@ -318,7 +338,8 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_bwd_kernel(
         for (int e = lane; e < hd; e += 32) {
           const int h = e / dh;
           const float c = cw[h];
-          const float kv1 = to_float(kr[e]);
+          const float kv1 =
+              to_float(kr[e]) + (er != nullptr ? to_float(er[e]) : 0.f);
           float dk1;
           if (gat) {
             wa[e] += c * kv1;
@@ -425,7 +446,8 @@ __global__ void sum_partials_kernel(const float* __restrict__ part,
 template <typename T>
 int launch(const void* g, const void* xd, const void* ks, const void* vs,
            const void* out, const void* stats, const void* nbr,
-           const void* mask, const void* att, const void* att2, void* d_xd,
+           const void* mask, const void* att, const void* att2,
+           const void* he, const void* eidx, const void* bias, void* d_xd,
            void* e_alpha, void* e_coef, void* d_ks, void* d_vs, void* part,
            void* d_att, long long n, int w, int heads, int dh, int mode,
            float slope, float sqrt_dh, int grid, cudaStream_t stream) {
@@ -437,8 +459,11 @@ int launch(const void* g, const void* xd, const void* ks, const void* vs,
       (att == nullptr || (mode == kGat && att2 == nullptr) ||
        part == nullptr || d_att == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if ((e_alpha == nullptr) == (d_ks == nullptr) ||
-      (e_alpha != nullptr && e_coef == nullptr))
+  // ELL layout: alpha and coef per entry; identity layout: d_ks, and coef
+  // per entry only when asked (the bias's cotangent)
+  if ((d_ks == nullptr && (e_alpha == nullptr || e_coef == nullptr)) ||
+      (d_ks != nullptr && e_alpha != nullptr) ||
+      (he != nullptr && eidx == nullptr) || (bias != nullptr && mode != kGat))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) * smem_floats(heads, dh);
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
@@ -448,18 +473,24 @@ int launch(const void* g, const void* xd, const void* ks, const void* vs,
   const bool identity = d_ks != nullptr;
   const bool vec = dh % P == 0 && (pph & (pph - 1)) == 0 && pph <= 32 &&
                    heads * dh / P <= 32 * kMaxPiecesPerLane && aligned16(ks) &&
-                   aligned16(vs) && (!identity || (aligned16(d_ks) &&
+                   aligned16(vs) && (he == nullptr || aligned16(he)) &&
+                   (!identity || (aligned16(d_ks) &&
                                                    (d_vs == nullptr ||
                                                     aligned16(d_vs))));
-  auto kernel = vec ? fanout_attention_bwd_kernel<T, true>
-                    : fanout_attention_bwd_kernel<T, false>;
+  const bool extra = he != nullptr || bias != nullptr;
+  auto kernel = vec ? (extra ? fanout_attention_bwd_kernel<T, true, true>
+                             : fanout_attention_bwd_kernel<T, true, false>)
+                    : (extra ? fanout_attention_bwd_kernel<T, false, true>
+                             : fanout_attention_bwd_kernel<T, false, false>);
   kernel<<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(g), static_cast<const T*>(xd),
       static_cast<const T*>(ks), static_cast<const T*>(vs),
       static_cast<const T*>(out), static_cast<const float*>(stats),
       static_cast<const int32_t*>(nbr), static_cast<const uint8_t*>(mask),
       static_cast<const float*>(att), static_cast<const float*>(att2),
-      static_cast<T*>(d_xd), static_cast<float*>(e_alpha),
+      static_cast<const T*>(he), static_cast<const int32_t*>(eidx),
+      static_cast<const float*>(bias), static_cast<T*>(d_xd),
+      static_cast<float*>(e_alpha),
       static_cast<float*>(e_coef), static_cast<T*>(d_ks),
       static_cast<T*>(d_vs), static_cast<float*>(part), n, w, heads, dh,
       mode, slope, sqrt_dh);
@@ -476,8 +507,10 @@ int launch(const void* g, const void* xd, const void* ks, const void* vs,
 
 // dtype: 0 = fp32, 1 = bf16 (g, xd, ks, vs, out, d_xd, d_ks, d_vs); stats
 // fp32 [n, H, 2] from K7; att / att2 fp32 [H * Dh] (mode 0 GAT: att_src /
-// att_dst; mode 1 GATv2: att / NULL; mode 2 Transformer: NULL / NULL). ELL mode: e_alpha / e_coef fp32 [n *
-// w, H], d_ks = d_vs = NULL. Identity mode: e_alpha = e_coef = NULL, d_ks
+// att_dst; mode 1 GATv2: att / NULL; mode 2 Transformer: NULL / NULL).
+// he / eidx / bias: K7's optional operands (NULL when absent). ELL mode:
+// e_alpha / e_coef fp32 [n * w, H], d_ks = d_vs = NULL. Identity mode:
+// e_alpha = NULL, e_coef NULL or fp32 [n * w, H] (d_pre, with a bias), d_ks
 // [n * w, H * Dh] and d_vs (NULL when keys and values are one table; d_ks
 // then holds the sum). GAT and GATv2: part fp32 [grid, 2 * H * Dh] scratch
 // and d_att fp32 [2 * H * Dh] (GAT: d_att_src then d_att_dst; GATv2: d_att
@@ -486,21 +519,22 @@ int launch(const void* g, const void* xd, const void* ks, const void* vs,
 extern "C" int gigl_fanout_attention_bwd(
     const void* g, const void* xd, const void* ks, const void* vs,
     const void* out, const void* stats, const void* nbr, const void* mask,
-    const void* att, const void* att2, void* d_xd, void* e_alpha,
-    void* e_coef, void* d_ks, void* d_vs, void* part, void* d_att,
-    long long n, int w, int heads, int dh, int dtype, int mode, float slope,
-    float sqrt_dh, int grid, void* stream) {
+    const void* att, const void* att2, const void* he, const void* eidx,
+    const void* bias, void* d_xd, void* e_alpha, void* e_coef, void* d_ks,
+    void* d_vs, void* part, void* d_att, long long n, int w, int heads,
+    int dh, int dtype, int mode, float slope, float sqrt_dh, int grid,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (dtype == 0) {
-    rc = launch<float>(g, xd, ks, vs, out, stats, nbr, mask, att, att2, d_xd,
-                       e_alpha, e_coef, d_ks, d_vs, part, d_att, n, w, heads,
-                       dh, mode, slope, sqrt_dh, grid, s);
+    rc = launch<float>(g, xd, ks, vs, out, stats, nbr, mask, att, att2, he,
+                       eidx, bias, d_xd, e_alpha, e_coef, d_ks, d_vs, part,
+                       d_att, n, w, heads, dh, mode, slope, sqrt_dh, grid, s);
   } else if (dtype == 1) {
     rc = launch<__nv_bfloat16>(g, xd, ks, vs, out, stats, nbr, mask, att,
-                               att2, d_xd, e_alpha, e_coef, d_ks, d_vs, part,
-                               d_att, n, w, heads, dh, mode, slope, sqrt_dh,
-                               grid, s);
+                               att2, he, eidx, bias, d_xd, e_alpha, e_coef,
+                               d_ks, d_vs, part, d_att, n, w, heads, dh, mode,
+                               slope, sqrt_dh, grid, s);
   } else {
     rc = static_cast<int>(cudaErrorInvalidValue);
   }

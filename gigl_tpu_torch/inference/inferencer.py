@@ -73,8 +73,10 @@ def run_full_graph_inference(
     pass on ``device`` (CUDA unless given): build the ELL tables of the
     dst-anchored CSR, run ``encoder.encode_ell`` (a ``GNNEncoder``; its
     weights, or ``params`` — a state dict, e.g. from ``params_from_flax``
-    — loaded first) under ``torch.inference_mode()``, and export every
-    node's row in chunks of ``export_batch``. Returns the row count."""
+    — loaded first) under ``torch.inference_mode()`` with ``edge_attr``
+    ([E, De] in the graph's COO edge order, an array or a tensor; moved to
+    ``device`` as fp32), and export every node's row in chunks of
+    ``export_batch``. Returns the row count."""
     device = resolve_device(device)
     nt = graph.metadata.node_types[0]
     et = graph.metadata.edge_types[0]
@@ -97,6 +99,9 @@ def run_full_graph_inference(
     encoder.to(device).eval()
     ell = EllGraph.from_csr(graph.csr(et, anchor="dst"), device=device)
     x = torch.as_tensor(np.asarray(feats, np.float32), device=device)
+    if edge_attr is not None:
+        edge_attr = torch.as_tensor(edge_attr, dtype=torch.float32,
+                                    device=device)
     with torch.inference_mode():
         emb = encoder.encode_ell(x, ell, edge_attr)
         emb = emb.float().cpu().numpy()

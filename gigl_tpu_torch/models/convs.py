@@ -1,16 +1,20 @@
 """Message-passing convolution layers (port of ``gigl_tpu/models/convs.py``).
 
-Ported: ``SAGEConv``, ``GCNConv``, ``GINConv``, ``GATConv`` (v1 and
-``v2=True``) and ``TransformerConv``, without edge features. Each has
+Ported: ``SAGEConv``, ``GCNConv``, ``GINConv``, ``GINEConv``, ``GATConv``
+(v1 and ``v2=True``, with ``use_edge_attr``: EdgeAttrGAT) and
+``TransformerConv`` (with ``use_edge_attr``). Each has
 
 - ``block(x_dst, nbr, mask, edge_attr=None, degrees=None)``: the dense
-  fanout-block path (``nbr [N, K, Din]``) of sampled encoding;
-- ``ell(x_p, ell)``: the whole permuted graph of an ``EllGraph`` at once
-  (``ops/ell.py`` ``ell_layer``), where the neighbor rows are read through
-  the bucket index tables inside kernel K6 (SAGE, GCN, GIN;
-  ``ell_aggregate_graph``) or K7 (GAT, GATv2, Transformer;
-  ``fanout_attention_ell``) instead of being gathered into an
-  ``[n, W, D]`` block first; the linear layers run once over all N rows;
+  fanout-block path (``nbr [N, K, Din]``, ``edge_attr [N, K, De]``) of
+  sampled encoding;
+- ``ell(x_p, ell, edge_attr=None)``: the whole permuted graph of an
+  ``EllGraph`` at once (``ops/ell.py`` ``ell_layer``; ``edge_attr [E, De]``
+  in COO edge order), where the neighbor and edge rows are read through
+  the bucket index tables inside kernel K6 (SAGE, GCN, GIN, GINE;
+  ``ell_aggregate_graph``) or K7 (GAT, GATv2, Transformer, the projected
+  edge rows as K7's addend; ``fanout_attention_ell``) instead of being
+  gathered into ``[n, W, D]`` blocks first; the linear layers run once
+  over all N rows (and E edge rows);
 - ``coo(x, src, dst, num_nodes, edge_attr=None, *, index, src_index)``:
   the whole graph as COO edges over the segment ops (``ops/segment.py``,
   B7), walking the destination ``index`` and, in the backward, the
@@ -20,18 +24,25 @@ Ported: ``SAGEConv``, ``GCNConv``, ``GINConv``, ``GATConv`` (v1 and
   source table (backward K8 for the gathers, K9b, K8b and K10 for the
   weights); Transformer on K10, K9 and K8 (backward adds K10b). GATv2's
   ``coo`` raises (ROADMAP A9, GATv2 coo): no B7 kernel computes its
-  per-edge LeakyReLU of a sum of rows.
+  per-edge LeakyReLU of a sum of rows. Edge features in the ``coo`` forms
+  raise too (ROADMAP slice 8: a per-edge term inside K8-K10).
 
-SAGE, GCN and GIN keep the reference's dense block (K4, trainable through
-K4b); the attention convs' dense block projects the flattened ``[N*K,
-Din]`` block once and runs K7 over it (``fanout_attention_block``,
-trainable through K7b). The ELL forms train through K6b (SAGE, GCN, GIN)
-and K7b + K6b (GAT, GATv2, Transformer); the ``coo`` forms as listed
-above. ``block_cached`` (SAGE,
-GCN, GIN) serves the cached-hop path. Parameters are fp32; the layer
-computes in ``dtype`` the way flax's ``Dense(dtype=bf16, param_dtype=fp32)``
-does: input, weight and bias are cast to the compute type at the call (no
-autocast).
+The convs without edge features (SAGE, GCN, GIN, GAT without
+``use_edge_attr``) ignore ``edge_attr`` in their block and ELL forms, as
+the reference's blocks do.
+
+SAGE, GCN, GIN and GINE keep the reference's dense block (K4, trainable
+through K4b; GINE takes ``relu(nbr + edge_attr)`` elementwise first); the
+attention convs' dense block projects the flattened ``[N*K, Din]`` block
+once (and the edge block with ``lin_edge``, added elementwise as the
+reference adds it) and runs K7 over it (``fanout_attention_block``,
+trainable through K7b). The ELL forms train through K6b (SAGE, GCN, GIN,
+GINE) and K7b + K6b (GAT, GATv2, Transformer), the edge tables through K11
+(GINE, EdgeAttrGAT, Transformer); the ``coo`` forms as listed above.
+``block_cached`` (SAGE, GCN, GIN) serves the cached-hop path. Parameters
+are fp32; the layer computes in ``dtype`` the way flax's ``Dense(dtype=
+bf16, param_dtype=fp32)`` does: input, weight and bias are cast to the
+compute type at the call (no autocast).
 """
 
 from __future__ import annotations
@@ -46,7 +57,7 @@ from gigl_tpu_torch.ops.attention import (
     fanout_attention_block,
     fanout_attention_ell,
 )
-from gigl_tpu_torch.ops.ell import EDGE_FEATURES_NOT_PORTED
+from gigl_tpu_torch.ops.ell import COO_EDGE_FEATURES_NOT_PORTED
 from gigl_tpu_torch.ops.ell_aggregate import ell_aggregate_graph
 from gigl_tpu_torch.ops.fanout import masked_max, masked_mean, masked_sum
 from gigl_tpu_torch.ops.segment import (
@@ -107,7 +118,7 @@ class SAGEConv(nn.Module):
             agg = masked_sum(nbr, mask)
         return self._combine(x_dst, agg)
 
-    def ell(self, x_p, ell):
+    def ell(self, x_p, ell, edge_attr=None):
         """ELL form over the whole permuted graph (K6, backward K6b)."""
         return self._combine(x_p, ell_aggregate_graph(x_p, ell, self.aggr))
 
@@ -125,7 +136,7 @@ class SAGEConv(nn.Module):
 
 def _no_edge_attr(edge_attr):
     if edge_attr is not None:
-        raise NotImplementedError(EDGE_FEATURES_NOT_PORTED)
+        raise NotImplementedError(COO_EDGE_FEATURES_NOT_PORTED)
 
 
 def _indexes(src, dst, num_nodes, index, src_index):
@@ -169,7 +180,6 @@ class GCNConv(nn.Module):
 
     def block(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
         """``degrees``: optional (dst_deg [N], nbr_deg [N, K])."""
-        _no_edge_attr(edge_attr)
         if degrees is not None:
             dst_deg, nbr_deg = degrees
             dst_deg = dst_deg.to(x_dst.dtype) + 1.0
@@ -183,7 +193,7 @@ class GCNConv(nn.Module):
         agg = masked_sum(nbr, mask) * norm
         return linear(self.lin, agg + x_dst * norm, self.dtype)
 
-    def ell(self, x_p, ell):
+    def ell(self, x_p, ell, edge_attr=None):
         """ELL form: the in-degree ``ell.deg_p`` for both ends, as
         ``encode_ell`` uses it (``gigl_tpu/ops/ell.py:218, 342-344``); K6
         computes the weights from it (backward K6b)."""
@@ -211,8 +221,8 @@ class GCNConv(nn.Module):
         return self.block(x_dst, nbr, mask, edge_attr, degrees)
 
 
-class GINConv(nn.Module):
-    """GIN conv: MLP((1 + eps) x + sum(neighbors)), learnable eps."""
+class _GINBase(nn.Module):
+    """GIN's and GINE's MLP and learnable eps."""
 
     def __init__(self, in_dim: int, out_dim: int,
                  hidden_dim: Optional[int] = None, train_eps: bool = True,
@@ -232,6 +242,13 @@ class GINConv(nn.Module):
         h = F.relu(linear(self.mlp[0], x, self.dtype))
         return linear(self.mlp[2], h, self.dtype)
 
+    def forward(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
+        return self.block(x_dst, nbr, mask, edge_attr, degrees)
+
+
+class GINConv(_GINBase):
+    """GIN conv: MLP((1 + eps) x + sum(neighbors)), learnable eps."""
+
     @property
     def cached_agg_kind(self) -> str:
         return "sum"
@@ -240,10 +257,9 @@ class GINConv(nn.Module):
         return self._mlp((1.0 + self.eps) * x_dst + agg.to(x_dst.dtype))
 
     def block(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
-        _no_edge_attr(edge_attr)
         return self._mlp((1.0 + self.eps) * x_dst + masked_sum(nbr, mask))
 
-    def ell(self, x_p, ell):
+    def ell(self, x_p, ell, edge_attr=None):
         return self._mlp((1.0 + self.eps) * x_p
                          + ell_aggregate_graph(x_p, ell, "sum"))
 
@@ -254,8 +270,55 @@ class GINConv(nn.Module):
         return self._mlp((1.0 + self.eps) * x + coo_spmm(
             src, dst, x, num_nodes, index=index, src_index=src_index))
 
-    def forward(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
-        return self.block(x_dst, nbr, mask, edge_attr, degrees)
+
+class GINEConv(_GINBase):
+    """GIN-E conv: MLP((1 + eps) x + sum_j relu(x_j + e_ij)), learnable eps.
+    The edge rows are added to the neighbor rows, so they must be as wide
+    (the encoder projects them to ``hid_dim``; the reference's test notes
+    the same constraint, ``tests/test_ell.py:85-103``)."""
+
+    def _edges(self, edge_attr, width):
+        if edge_attr is None:
+            return None
+        if edge_attr.shape[-1] != width:
+            raise ValueError(
+                f"GINE adds the edge rows ({edge_attr.shape[-1]} wide) to "
+                f"the node rows ({width} wide): incompatible shapes")
+        return edge_attr
+
+    def block(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
+        """relu(nbr + edge_attr) elementwise, then K4's masked sum."""
+        ea = self._edges(edge_attr, nbr.shape[-1])
+        nbr = torch.relu(nbr if ea is None else nbr + ea.to(nbr.dtype))
+        return self._mlp((1.0 + self.eps) * x_dst + masked_sum(nbr, mask))
+
+    def ell(self, x_p, ell, edge_attr=None):
+        """K6 in gine mode reads each entry's edge row through the bucket's
+        edge slots (backward: K6b gine for x_p, K11 for the edge table)."""
+        ea = self._edges(edge_attr, x_p.shape[-1])
+        return self._mlp((1.0 + self.eps) * x_p + ell_aggregate_graph(
+            x_p, ell, "gine", ea=None if ea is None else ea.to(x_p.dtype)))
+
+    def coo(self, x, src, dst, num_nodes, edge_attr=None, *, index=None,
+            src_index=None):
+        """COO form without edge features: ``relu(x)[src]`` summed per
+        destination (K8, backward K8b); with them it raises (module
+        docstring)."""
+        _no_edge_attr(edge_attr)
+        return self._mlp((1.0 + self.eps) * x + coo_spmm(
+            src, dst, torch.relu(x), num_nodes, index=index,
+            src_index=src_index))
+
+
+def _edge_linear(conv, edge_attr):
+    """``lin_edge(edge_attr)`` in the conv's type, or None when the conv
+    reads no edge features."""
+    if edge_attr is None or not conv.use_edge_attr:
+        return None
+    if conv.lin_edge is None:
+        raise ValueError(f"{type(conv).__name__} was built without edge_dim: "
+                         "it has no lin_edge for edge features")
+    return linear(conv.lin_edge, edge_attr, conv.dtype)
 
 
 def _glorot_param(heads, head_dim):
@@ -272,10 +335,9 @@ class GATConv(nn.Module):
     def __init__(self, in_dim: int, out_dim: int, heads: int = 1,
                  concat_heads: bool = True, negative_slope: float = 0.2,
                  v2: bool = False, use_edge_attr: bool = False,
+                 edge_dim: Optional[int] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if use_edge_attr:
-            raise NotImplementedError(EDGE_FEATURES_NOT_PORTED)
         if concat_heads and out_dim % heads:
             raise ValueError(
                 f"out_dim {out_dim} not divisible by heads {heads}")
@@ -288,6 +350,11 @@ class GATConv(nn.Module):
         d = heads * self.head_dim
         self.lin_src = nn.Linear(in_dim, d, bias=False)
         self.lin_dst = nn.Linear(in_dim, d, bias=False)
+        # EdgeAttrGAT: lin_edge(e) added to lin_src(x_j), as the key and the
+        # value; ``edge_dim`` is the edge rows' width (flax infers it)
+        self.use_edge_attr = use_edge_attr
+        self.lin_edge = (nn.Linear(edge_dim, d, bias=False)
+                         if use_edge_attr and edge_dim is not None else None)
         if v2:
             self.att = _glorot_param(heads, self.head_dim)
         else:
@@ -302,33 +369,43 @@ class GATConv(nn.Module):
             out = out.reshape(-1, self.heads, self.head_dim).mean(1)
         return out + self.bias.to(out.dtype)
 
-    def _attend(self, attend, x_dst, x_src, *where):
+    def _attend(self, attend, x_dst, x_src, *where, he=None, block_he=None):
         """Project, then logits, masked softmax and the weighted sum in K7
         (``attend``: ``fanout_attention_block`` or ``fanout_attention_ell``,
-        ``where`` its mask or EllGraph). The
-        reference projects the gathered neighbor rows (convs.py:295); a row
-        gather commutes with a linear layer, so projecting the source table
-        changes the order of operations, not the function."""
+        ``where`` its mask or EllGraph). The reference projects the
+        gathered neighbor rows (convs.py:295); a row gather commutes with a
+        linear layer, so projecting the source table changes the order of
+        operations, not the function. EdgeAttrGAT: ``he``, the ELL form's
+        projected edge table (K7's addend), or ``block_he``, the dense
+        block's projected edge rows, added elementwise as the reference
+        adds them (convs.py:296-298)."""
         src = linear(self.lin_src, x_src, self.dtype)
         hd = linear(self.lin_dst, x_dst, self.dtype)
+        if block_he is not None:
+            src = src + block_he
+        edges = {} if he is None else {"he": he}
         if self.v2:
             out = attend(hd, src, None, *where, "gatv2", self.heads,
-                         self.att, negative_slope=self.negative_slope)
+                         self.att, negative_slope=self.negative_slope,
+                         **edges)
         else:
             out = attend(hd, src, None, *where, "gat", self.heads,
                          self.att_src, self.att_dst,
-                         negative_slope=self.negative_slope)
+                         negative_slope=self.negative_slope, **edges)
         return self._finish(out)
 
-    def ell(self, x_p, ell):
+    def ell(self, x_p, ell, edge_attr=None):
         """ELL form over the whole permuted graph (K7, backward K7b +
-        K6b)."""
-        return self._attend(fanout_attention_ell, x_p, x_p, ell)
+        K6b); EdgeAttrGAT's ``lin_edge`` projects the [E, De] edge table
+        once and K7 adds its rows to the source rows (backward: K11)."""
+        return self._attend(fanout_attention_ell, x_p, x_p, ell,
+                            he=_edge_linear(self, edge_attr))
 
     def block(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
-        _no_edge_attr(edge_attr)
+        he = _edge_linear(self, edge_attr)
         return self._attend(fanout_attention_block, x_dst, _flat_block(nbr),
-                            mask)
+                            mask, block_he=None if he is None
+                            else he.reshape(-1, he.shape[-1]))
 
     def coo(self, x, src, dst, num_nodes, edge_attr=None, *, index=None,
             src_index=None):
@@ -365,11 +442,9 @@ class TransformerConv(nn.Module):
     over K/V (neighbors) per head, plus a root skip ``lin_skip(x_dst)``."""
 
     def __init__(self, in_dim: int, out_dim: int, heads: int = 1,
-                 use_edge_attr: bool = False,
+                 use_edge_attr: bool = False, edge_dim: Optional[int] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if use_edge_attr:
-            raise NotImplementedError(EDGE_FEATURES_NOT_PORTED)
         if out_dim % heads:
             raise ValueError("out_dim must divide heads")
         self.heads = heads
@@ -379,26 +454,38 @@ class TransformerConv(nn.Module):
         self.lin_k = nn.Linear(in_dim, out_dim)
         self.lin_v = nn.Linear(in_dim, out_dim)
         self.lin_skip = nn.Linear(in_dim, out_dim)
+        # lin_edge(e) added to k and v (convs.py:367-370)
+        self.use_edge_attr = use_edge_attr
+        self.lin_edge = (nn.Linear(edge_dim, out_dim, bias=False)
+                         if use_edge_attr and edge_dim is not None else None)
 
-    def _attend(self, attend, x_dst, x_src, *where):
+    def _attend(self, attend, x_dst, x_src, *where, he=None, block_he=None):
         """K and V of every source row once (the reference projects the
         gathered block, convs.py:365-366): the order of operations changes,
-        not the function."""
+        not the function. ``he``: the ELL form's projected edge table (K7's
+        addend); ``block_he``: the dense block's projected edge rows, added
+        to k and v elementwise as the reference adds them."""
         k = linear(self.lin_k, x_src, self.dtype)
         v = linear(self.lin_v, x_src, self.dtype)
         q = linear(self.lin_q, x_dst, self.dtype)
-        out = attend(q, k, v, *where, "transformer", self.heads)
+        if block_he is not None:
+            k, v = k + block_he, v + block_he
+        edges = {} if he is None else {"he": he}
+        out = attend(q, k, v, *where, "transformer", self.heads, **edges)
         return out + linear(self.lin_skip, x_dst, self.dtype)
 
-    def ell(self, x_p, ell):
+    def ell(self, x_p, ell, edge_attr=None):
         """ELL form over the whole permuted graph (K7, backward K7b +
-        K6b)."""
-        return self._attend(fanout_attention_ell, x_p, x_p, ell)
+        K6b; with edges, ``lin_edge`` over the [E, De] table once and K7's
+        addend, backward K11)."""
+        return self._attend(fanout_attention_ell, x_p, x_p, ell,
+                            he=_edge_linear(self, edge_attr))
 
     def block(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
-        _no_edge_attr(edge_attr)
+        he = _edge_linear(self, edge_attr)
         return self._attend(fanout_attention_block, x_dst, _flat_block(nbr),
-                            mask)
+                            mask, block_he=None if he is None
+                            else he.reshape(-1, he.shape[-1]))
 
     def coo(self, x, src, dst, num_nodes, edge_attr=None, *, index=None,
             src_index=None):

@@ -9,24 +9,34 @@ shallower and layer 1 consumes the cache through ``conv.block_cached``.
 The per-layer epilogue keeps the reference ordering: no activation after
 the last conv (unless asked), activation otherwise.
 
-``encode_ell(x, ell)`` is the exact full-graph path: a permute-gather in
-(K3), one ``ell_layer`` per conv over the degree buckets (K6 or K7), and
-the inverse gather out (K3). It trains: the gathers' backward is K3
-through the inverse permutation, the layers' K6b (after K7b for the
-attention convs).
+``encode_ell(x, ell, edge_attr=None)`` is the exact full-graph path: a
+permute-gather in (K3), one ``ell_layer`` per conv over the degree buckets
+(K6 or K7, the edge rows read through the buckets' edge slots), and the
+inverse gather out (K3). It trains: the gathers' backward is K3 through
+the inverse permutation, the layers' K6b (after K7b for the attention
+convs), the edge tables' K11.
 
 ``encode_coo(x, src, dst, num_nodes)`` is the same exact full-graph
 encode over COO edges: each conv's ``coo`` form on the segment kernels
 (K8-K10, backward K8b-K10b), in original node order, walking the two
-``SegmentIndex``es of the graph (given, or built once per call).
+``SegmentIndex``es of the graph (given, or built once per call); edge
+features raise there (ROADMAP slice 8).
 
-Ported so far: the GraphSAGE, GCN, GIN, GAT, GATv2 and Transformer convs
-(no edge features; GATv2 has no ``coo`` form yet), activation placement,
-output L2 normalization, and eval and train modes. Train-mode dropout draws its keep mask from an
+Edge features: with ``edge_dim`` and an edge conv (GINE, EdgeAttrGAT,
+Transformer) the raw edge rows are projected once to ``hid_dim`` by
+``edge_in_proj`` (no bias), as the reference does; EdgeAttrGAT and the
+Transformer (with ``conv_kwargs={"use_edge_attr": True}``) then project
+them per layer with ``lin_edge``, GINE adds them to the neighbor rows (so
+its layer 1 needs ``in_dim == hid_dim``). The other convs ignore edge
+features, as the reference's do.
+
+Ported so far: the GraphSAGE, GCN, GIN, GINE, GAT, GATv2, EdgeAttrGAT and
+Transformer convs (GATv2 has no ``coo`` form yet), edge features on the
+block and ELL paths, activation placement, output L2 normalization, and
+eval and train modes. Train-mode dropout draws its keep mask from an
 explicit ``torch.Generator`` (its bits differ from flax's); rate 0 is the
-identity, as in flax. GINE, EdgeAttrGAT, batch norm, jumping knowledge,
-the final linear layer, edge features and feature embeddings / DCN raise
-``NotImplementedError``.
+identity, as in flax. Batch norm, jumping knowledge, the final linear
+layer and feature embeddings / DCN raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,12 +51,14 @@ from gigl_tpu_torch.models.convs import (
     GATConv,
     GCNConv,
     GINConv,
+    GINEConv,
     SAGEConv,
     TransformerConv,
+    linear,
 )
 from gigl_tpu_torch.models.layers import dropout, l2_normalize
 from gigl_tpu_torch.ops.ell import (
-    EDGE_FEATURES_NOT_PORTED,
+    COO_EDGE_FEATURES_NOT_PORTED,
     EllGraph,
     ell_layer,
 )
@@ -57,6 +69,9 @@ CONV_TYPES = (
     "graphsage", "gcn", "gin", "gine", "gat", "gatv2", "edge_attr_gat",
     "transformer",
 )
+
+# Convs for which ``edge_dim`` builds ``edge_in_proj`` (encoders.py:70).
+_CONVS_WITH_EDGE_ATTR = {"gine", "edge_attr_gat", "transformer"}
 
 # Convs whose first-layer neighbor aggregation is weight-independent and can
 # therefore consume a precomputed hop cache (ops/hopcache.py).
@@ -80,7 +95,9 @@ def cached_agg_kind(conv: str, conv_kwargs=None) -> str:
 
 
 def _make_conv(conv: str, in_dim: int, out_dim: int, dtype,
-               kwargs: Dict[str, Any]) -> nn.Module:
+               kwargs: Dict[str, Any], edge_dim: Optional[int]) -> nn.Module:
+    """One conv; ``edge_dim`` is the width of the edge rows it would read
+    (``lin_edge``'s input), None without edge features."""
     kw = dict(kwargs)
     if conv == "graphsage":
         return SAGEConv(in_dim, out_dim, dtype=dtype, **kw)
@@ -88,15 +105,19 @@ def _make_conv(conv: str, in_dim: int, out_dim: int, dtype,
         return GCNConv(in_dim, out_dim, dtype=dtype, **kw)
     if conv == "gin":
         return GINConv(in_dim, out_dim, dtype=dtype, **kw)
+    if conv == "gine":
+        return GINEConv(in_dim, out_dim, dtype=dtype, **kw)
     if conv == "gat":
-        return GATConv(in_dim, out_dim, dtype=dtype, **kw)
+        return GATConv(in_dim, out_dim, dtype=dtype, edge_dim=edge_dim, **kw)
     if conv == "gatv2":
-        return GATConv(in_dim, out_dim, v2=True, dtype=dtype, **kw)
+        return GATConv(in_dim, out_dim, v2=True, dtype=dtype,
+                       edge_dim=edge_dim, **kw)
+    if conv == "edge_attr_gat":
+        return GATConv(in_dim, out_dim, use_edge_attr=True, dtype=dtype,
+                       edge_dim=edge_dim, **kw)
     if conv == "transformer":
-        return TransformerConv(in_dim, out_dim, dtype=dtype, **kw)
-    if conv in ("gine", "edge_attr_gat"):
-        raise NotImplementedError(
-            f"conv {conv!r}: {EDGE_FEATURES_NOT_PORTED}")
+        return TransformerConv(in_dim, out_dim, dtype=dtype,
+                               edge_dim=edge_dim, **kw)
     raise ValueError(f"Unknown conv type {conv!r}; known: {CONV_TYPES}")
 
 
@@ -133,7 +154,7 @@ class GNNEncoder(nn.Module):
             raise ValueError(f"Unknown conv type {conv!r}; known: {CONV_TYPES}")
         for flag, what in ((batchnorm, "batchnorm"),
                            (linear_layer, "linear_layer"),
-                           (jk_mode, "jk_mode"), (edge_dim, "edge_dim"),
+                           (jk_mode, "jk_mode"),
                            (feature_interaction_layers,
                             "feature_interaction_layers")):
             if flag:
@@ -147,8 +168,14 @@ class GNNEncoder(nn.Module):
         self.l2_normalize_output = l2_normalize_output
         self.dtype = dtype
         dims = [in_dim] + [hid_dim] * (num_layers - 1) + [out_dim]
+        # raw edge rows projected once to hid_dim (encoders.py:138-141)
+        self.edge_in_proj = (nn.Linear(edge_dim, hid_dim, bias=False)
+                             if edge_dim is not None
+                             and conv in _CONVS_WITH_EDGE_ATTR else None)
+        edge_in = hid_dim if self.edge_in_proj is not None else edge_dim
         self.convs = nn.ModuleList(
-            _make_conv(conv, dims[i], dims[i + 1], dtype, conv_kwargs or {})
+            _make_conv(conv, dims[i], dims[i + 1], dtype, conv_kwargs or {},
+                       edge_in)
             for i in range(num_layers))
 
     def _epilogue(self, x, is_last, train, generator):
@@ -163,6 +190,13 @@ class GNNEncoder(nn.Module):
             x = l2_normalize(x)
         return x
 
+    def _edge_in(self, edge_attr):
+        """The edge rows the convs read: ``edge_in_proj(edge_attr)`` in the
+        compute type where the encoder has it, else as given."""
+        if edge_attr is None or self.edge_in_proj is None:
+            return edge_attr
+        return linear(self.edge_in_proj, edge_attr, self.dtype)
+
     def forward(
         self,
         hop_feats: Sequence[torch.Tensor],
@@ -173,12 +207,12 @@ class GNNEncoder(nn.Module):
         cached_agg: Optional[Sequence[torch.Tensor]] = None,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        """hop_feats[d]: [B, K1..Kd, Din]; masks[d]: [B, K1..Kd] bool.
-        With cached_agg (cached_agg[d] [B, K1..Kd, Din]) the tree has
-        num_layers levels, otherwise num_layers + 1. Returns [B, out_dim].
-        ``train`` turns dropout on, drawn from ``generator``."""
-        if edge_feats is not None and any(e is not None for e in edge_feats):
-            raise _not_ported("edge features")
+        """hop_feats[d]: [B, K1..Kd, Din]; masks[d]: [B, K1..Kd] bool;
+        edge_feats (optional): edge_feats[d] [B, K1..Kd, De] the features of
+        the edges into level d's slots (None for the roots). With
+        cached_agg (cached_agg[d] [B, K1..Kd, Din]) the tree has num_layers
+        levels, otherwise num_layers + 1. Returns [B, out_dim]. ``train``
+        turns dropout on, drawn from ``generator``."""
         L = self.num_layers
         if cached_agg is not None:
             if self.conv not in CACHEABLE_CONVS:
@@ -191,6 +225,9 @@ class GNNEncoder(nn.Module):
             raise ValueError(
                 f"need {L + 1} hop levels for {L} layers, got {len(hop_feats)}")
         h = [f.to(self.dtype) for f in hop_feats]
+        if edge_feats is not None:
+            edge_feats = [None if e is None else self._edge_in(e)
+                          for e in edge_feats]
         for i, conv in enumerate(self.convs):
             is_last = i == L - 1
             new_h = []
@@ -215,9 +252,13 @@ class GNNEncoder(nn.Module):
                 if hop_degrees is not None:
                     degs = (hop_degrees[d].reshape(-1),
                             hop_degrees[d + 1].reshape(-1, k))
+                ea = None
+                if edge_feats is not None and edge_feats[d + 1] is not None:
+                    ea = edge_feats[d + 1].reshape(
+                        -1, k, edge_feats[d + 1].shape[-1])
                 out = conv.block(dst.reshape(-1, dst.shape[-1]),
                                  nbr.reshape(-1, k, nbr.shape[-1]),
-                                 masks[d + 1].reshape(-1, k), None, degs)
+                                 masks[d + 1].reshape(-1, k), ea, degs)
                 out = self._epilogue(out, is_last, train, generator)
                 new_h.append(out.reshape(lead + (out.shape[-1],)))
             h = new_h
@@ -236,13 +277,14 @@ class GNNEncoder(nn.Module):
         device -> [N, out_dim] in original node order. The permute-gathers
         in and out run through K3 (differentiable, ``permute_rows``); each
         layer's aggregation through K6 or K7, their backward through K6b
-        and K7b. ``train`` turns dropout on, drawn from ``generator``."""
-        if edge_attr is not None:
-            raise NotImplementedError(EDGE_FEATURES_NOT_PORTED)
+        and K7b. ``edge_attr`` [E, De] in original COO edge order (the
+        layers reach it through ``ell.edge_slots``; its gradient is K11's).
+        ``train`` turns dropout on, drawn from ``generator``."""
         x_p = permute_rows(x.to(self.dtype), ell.perm, ell.rank)
+        edge_attr = self._edge_in(edge_attr)
         for i, conv in enumerate(self.convs):
             is_last = i == self.num_layers - 1
-            x_p = ell_layer(conv, x_p, ell)
+            x_p = ell_layer(conv, x_p, ell, edge_attr)
             x_p = self._epilogue(x_p, is_last, train, generator)
         return permute_rows(self._post(x_p), ell.rank, ell.perm)
 
@@ -266,7 +308,7 @@ class GNNEncoder(nn.Module):
         on the host when not given (a trainer builds them once per graph).
         ``train`` turns dropout on, drawn from ``generator``."""
         if edge_attr is not None:
-            raise NotImplementedError(EDGE_FEATURES_NOT_PORTED)
+            raise NotImplementedError(COO_EDGE_FEATURES_NOT_PORTED)
         if index is None:
             index = SegmentIndex.from_ids(dst, num_nodes)
         if src_index is None:

@@ -18,9 +18,10 @@ Each conv has two forms:
 Kernels by form. HGT's block runs K7 ``fanout_attention_block`` in its
 Transformer mode; its ``coo`` form runs K10 ``sddmm`` (logits), K9
 ``segment_softmax`` and K8 ``segment_reduce`` (the weighted sum).
-SimpleHGN's block is plain PyTorch on every device, as the reference's is
-plain ``jnp`` (its per-relation additive logit term is a K7 mode still to
-add); its ``coo`` form computes the logits by row gathers of per-node terms,
+SimpleHGN's block runs K7 in its GAT mode over the relations' concatenated
+slots, with the per-relation logit term as K7's per-slot bias (backward
+K7b, whose per-slot bias cotangent is summed per relation by autograd);
+its ``coo`` form computes the logits by row gathers of per-node terms,
 then K9 and K8. RGCN's block runs K4 ``masked_mean`` per relation,
 its ``coo`` form K8 in mean mode per relation (``coo_spmm``).
 
@@ -333,27 +334,27 @@ class SimpleHGNConv(_TypedConv):
         return (rel.to(self.dtype) * self._att("att_rel")).sum(-1)
 
     def forward(self, x_dst, dst_node_type: str, children, train=False):
-        """Dense typed-block form, plain PyTorch (see the module
-        docstring)."""
+        """Dense typed-block form (``hetero_convs.py:210-239``) on K7's GAT
+        mode: the relations' slots concatenated into one block (``w x`` is
+        both key and value), the logit ``leaky_relu(a_src + a_dst +
+        a_rel[r])`` with ``a_rel[r]`` as K7's bias over relation r's slot
+        columns, the softmax over all slots. A row with no valid slot gets
+        0 (the reference's ``finfo.min`` masking gives the same)."""
         if not children:
             return linear(self.w_res, x_dst, self.dtype)
-        m, hh = x_dst.shape[0], self.heads
-        wd = linear(self.w, x_dst, self.dtype).reshape(m, 1, hh, -1)
-        a_dst = (wd * self._att("att_dst")).sum(-1)            # [M, 1, H]
-        logits, vals, masks = [], [], []
+        m = x_dst.shape[0]
+        wd = linear(self.w, x_dst, self.dtype)                  # [M, H*dk]
+        vals, masks, bias = [], [], []
         for x_nbr, mask, et, _src_nt in children:
-            wn = linear(self.w, x_nbr, self.dtype).reshape(m, -1, hh,
-                                                           wd.shape[-1])
-            a = (wn * self._att("att_src")).sum(-1) + a_dst \
-                + self._rel_term(et)
-            logits.append(F.leaky_relu(a, self.negative_slope))
-            vals.append(wn)
+            vals.append(linear(self.w, x_nbr, self.dtype))      # [M, K_r, d]
             masks.append(mask)
-        logit = torch.cat(logits, 1)                            # [M, K, H]
-        mask = torch.cat(masks, 1)[..., None]
-        logit = torch.where(mask, logit, torch.finfo(torch.float32).min)
-        att = torch.where(mask, torch.softmax(logit, dim=1), 0.0)
-        agg = torch.einsum("mkh,mkhd->mhd", att, torch.cat(vals, 1))
+            bias.append(self._rel_term(et).float().expand(mask.shape[1], -1))
+        val = torch.cat(vals, 1)
+        agg = fanout_attention_block(
+            wd, val.reshape(-1, val.shape[-1]), None, torch.cat(masks, 1),
+            "gat", self.heads, self.att_src.to(self.dtype),
+            self.att_dst.to(self.dtype), negative_slope=self.negative_slope,
+            bias=torch.cat(bias))
         return agg.reshape(m, self.out_dim) \
             + linear(self.w_res, x_dst, self.dtype)
 

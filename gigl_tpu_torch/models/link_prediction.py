@@ -1,14 +1,17 @@
 """Link-prediction model wrappers and decoders (port of
 ``gigl_tpu/models/link_prediction.py``: inner-product and cosine decoders,
-``LinkPredictionGNN``, ``HeteroLinkPredictionGNN`` without an edge
-scorer)."""
+``EdgeFeatureScorer``, ``LinkPredictionGNN`` and
+``HeteroLinkPredictionGNN``, each with an optional label-edge scorer)."""
 
 from __future__ import annotations
 
 import enum
+from typing import Optional
 
 import torch
 from torch import nn
+
+from gigl_tpu_torch.models.convs import linear
 
 
 class DecoderType(str, enum.Enum):
@@ -49,14 +52,55 @@ class LinkPredictionDecoder(nn.Module):
         return q @ c.T
 
 
-class LinkPredictionGNN(nn.Module):
-    """Encoder + decoder bundle: ``forward`` encodes, ``decode`` scores
-    pairs, ``decode_all_pairs`` scores every (query, candidate) pair."""
+class EdgeFeatureScorer(nn.Module):
+    """Scores a supervision (label) edge from its own features:
+    ``e1(relu(e0(edge_feats)))[..., 0]`` (``link_prediction.py:101-116``),
+    added to the pair score by ``decode(q, c, edge_feats)``. ``in_dim`` is
+    the edge features' width (flax infers it); the layers compute in
+    ``dtype`` from fp32 parameters."""
 
-    def __init__(self, encoder: nn.Module, decoder: LinkPredictionDecoder):
+    def __init__(self, in_dim: int, hidden_dim: int = 32,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.e0 = nn.Linear(in_dim, hidden_dim)
+        self.e1 = nn.Linear(hidden_dim, 1)
+
+    def forward(self, edge_feats: torch.Tensor) -> torch.Tensor:
+        h = torch.relu(linear(self.e0, edge_feats, self.dtype))
+        return linear(self.e1, h, self.dtype)[..., 0]
+
+
+class _Scored(nn.Module):
+    """``decode`` / ``edge_score`` with the optional edge scorer, shared by
+    both link-prediction models (as the reference's are alike)."""
+
+    def decode(self, q, c, edge_feats=None):
+        s = self.decoder(q, c)
+        if edge_feats is not None and self.edge_scorer is not None:
+            s = s + self.edge_scorer(edge_feats)
+        return s
+
+    def decode_all_pairs(self, q, c):
+        return self.decoder.all_pairs(q, c)
+
+    def edge_score(self, edge_feats):
+        if self.edge_scorer is None:
+            raise ValueError("model built without an edge_scorer")
+        return self.edge_scorer(edge_feats)
+
+
+class LinkPredictionGNN(_Scored):
+    """Encoder + decoder bundle: ``forward`` encodes, ``decode`` scores
+    pairs (plus the edge scorer's term of their label edges when given),
+    ``decode_all_pairs`` scores every (query, candidate) pair."""
+
+    def __init__(self, encoder: nn.Module, decoder: LinkPredictionDecoder,
+                 edge_scorer: Optional[EdgeFeatureScorer] = None):
         super().__init__()
         self.encoder = encoder
         self.decoder = decoder
+        self.edge_scorer = edge_scorer
 
     def forward(self, hop_feats, masks, edge_feats=None, train: bool = False,
                 hop_degrees=None, cached_agg=None, generator=None):
@@ -72,34 +116,17 @@ class LinkPredictionGNN(nn.Module):
                                        train=train, generator=generator,
                                        index=index, src_index=src_index)
 
-    def decode(self, q, c):
-        return self.decoder(q, c)
 
-    def decode_all_pairs(self, q, c):
-        return self.decoder.all_pairs(q, c)
+class HeteroLinkPredictionGNN(_Scored):
+    """Typed encoder (``HeteroGNNEncoder``) + decoder bundle, with the
+    optional label-edge scorer of typed supervision edges."""
 
-
-class HeteroLinkPredictionGNN(nn.Module):
-    """Typed encoder (``HeteroGNNEncoder``) + decoder bundle. The
-    label-edge-feature scorer is not ported (ROADMAP A12, label-edge
-    features): ``decode`` ignores ``edge_feats`` as the reference does
-    without a scorer, and ``edge_score`` raises."""
-
-    def __init__(self, encoder: nn.Module, decoder: LinkPredictionDecoder):
+    def __init__(self, encoder: nn.Module, decoder: LinkPredictionDecoder,
+                 edge_scorer: Optional[EdgeFeatureScorer] = None):
         super().__init__()
         self.encoder = encoder
         self.decoder = decoder
+        self.edge_scorer = edge_scorer
 
     def forward(self, blocks, feats, train: bool = False, generator=None):
         return self.encoder(blocks, feats, train=train, generator=generator)
-
-    def decode(self, q, c, edge_feats=None):
-        return self.decoder(q, c)
-
-    def decode_all_pairs(self, q, c):
-        return self.decoder.all_pairs(q, c)
-
-    def edge_score(self, edge_feats):
-        raise NotImplementedError(
-            "the label-edge-feature scorer is not ported yet (ROADMAP A12, "
-            "label-edge features)")

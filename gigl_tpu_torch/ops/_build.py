@@ -43,7 +43,8 @@ KERNEL_NAMES = ("sample_uniform", "uniform_ids", "build_neighbor_cache",
                 "retrieval_loss", "ell_aggregate", "fanout_attention",
                 "ell_transpose_aggregate", "fanout_attention_bwd",
                 "segment_reduce", "segment_softmax", "sddmm",
-                "segment_reduce_bwd", "segment_softmax_bwd", "sddmm_bwd")
+                "segment_reduce_bwd", "segment_softmax_bwd", "sddmm_bwd",
+                "ell_edge_grad")
 launches: Dict[str, int] = dict.fromkeys(KERNEL_NAMES, 0)
 
 _P = ctypes.c_void_p
@@ -67,14 +68,13 @@ _SIGNATURES = {
                                 _F32, _I32, _I32, _P, _P, _P, _P, _P],
     "gigl_retrieval_loss_bwd": [_P, _I64, _I64, _I32, _P, _P, _P, _P, _F32,
                                 _F32, _I32, _I32, _P, _P, _P, _P],
-    "gigl_ell_aggregate": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
-                           _I32, _I32, _P],
-    "gigl_fanout_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
-                              _I32, _I32, _I32, _I32, _I32, _F32, _F32, _P],
-    "gigl_ell_transpose_aggregate": [_P] * 13 + [_I64] + [_I32] * 7
+    "gigl_ell_aggregate": [_P] * 8 + [_I64] + [_I32] * 5 + [_P],
+    "gigl_fanout_attention": [_P] * 12 + [_I64] + [_I32] * 5
+    + [_F32, _F32, _P],
+    "gigl_ell_transpose_aggregate": [_P] * 15 + [_I64] + [_I32] * 7
     + [_F32, _P],
     "gigl_ell_tie_count": [_P] * 5 + [_I64] + [_I32] * 4 + [_P],
-    "gigl_fanout_attention_bwd": [_P] * 17 + [_I64] + [_I32] * 5
+    "gigl_fanout_attention_bwd": [_P] * 20 + [_I64] + [_I32] * 5
     + [_F32, _F32, _I32, _P],
     "gigl_segment_reduce": [_P] * 6 + [_I64] + [_I32] * 6 + [_P],
     "gigl_segment_softmax": [_P] * 4 + [_I64, _I32, _I32, _P],
@@ -84,6 +84,7 @@ _SIGNATURES = {
     "gigl_segment_softmax_bwd": [_P] * 5 + [_I64, _I32, _I32, _P],
     "gigl_sddmm_bwd_coef": [_P] * 5 + [_I64] + [_I32] * 3 + [_P],
     "gigl_sddmm_bwd_scale": [_P, _P, _I32, _I32, _P],
+    "gigl_ell_edge_grad": [_P] * 11 + [_I64] + [_I32] * 6 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

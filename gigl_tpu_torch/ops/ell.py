@@ -10,22 +10,29 @@ aggregation, and one inverse-permute gather out.
 
 The tables are built on the host with numpy exactly as the reference builds
 them (bit-equal, including the transpose tables ``t_*`` and ``edge_pos``)
-and moved to the device as int32 / bool / float32 tensors. Two derived
-tables serve the backward: ``t_perm``, the inverse of ``t_rank`` (the x_p
-row of each transpose row), and ``ent_row``, the destination row of each
-flat forward entry ``p = ent_off[b] + i * W_b + j`` (row
-``boundaries[b] + i``).
+and moved to the device as int32 / bool / float32 tensors. Derived tables
+serve the backward: ``t_perm``, the inverse of ``t_rank`` (the x_p row of
+each transpose row), and, per flat forward entry ``p = ent_off[b] + i *
+W_b + j``, its destination row ``ent_row`` (``boundaries[b] + i``), its
+source row ``ent_src`` (the concatenated ``nbr``) and its COO edge
+``ent_edge`` (the concatenated ``edge_slots``); masked entries hold 0 in
+the last two.
 
 :func:`ell_layer` is one conv layer over every bucket: ``conv.ell(x_p,
-ell)``. It never materialises the reference's ``x_p[nbr]`` block
-``[n_b, W, D]`` (``ell_gather``, :237-247): the convs read neighbor rows
-through the index tables inside kernel K6 ``ell_aggregate`` (SAGE, GCN,
-GIN; ``ops/ell_aggregate.py``) or K7 ``fanout_attention`` (GAT, GATv2,
-Transformer; ``ops/attention.py``), one autograd node per layer whose
-forward launches the kernel once per bucket into one ``[N, D_out]`` output
-and whose backward walks the transpose tables once (K6b, after K7b for
-attention) — the scatter-free custom VJP of :237-286. Masked slots point
-at row 0 (``rank[v] * m``); the kernels honour the mask, never the index.
+ell)``, or ``conv.ell(x_p, ell, edge_attr)`` with edge features in
+original COO order. It never materialises the reference's ``x_p[nbr]``
+block ``[n_b, W, D]`` (``ell_gather``, :237-247) nor its ``edge_attr[
+edge_slots]`` block (``ell_gather_edges``, :289-316): the convs read
+neighbor and edge rows through the index tables inside kernel K6
+``ell_aggregate`` (SAGE, GCN, GIN, GINE; ``ops/ell_aggregate.py``) or K7
+``fanout_attention`` (GAT, GATv2, Transformer, with the edge rows as an
+addend; ``ops/attention.py``), one autograd node per layer whose forward
+launches the kernel once per bucket into one ``[N, D_out]`` output and
+whose backward walks the transpose tables once (K6b, after K7b for
+attention) — the scatter-free custom VJP of :237-286 — and writes the edge
+table's gradient once per edge (K11 :func:`ell_edge_grad`, the
+permutation VJP of :303-313). Masked slots point at row 0 (``rank[v] *
+m``, ``eid * m``); the kernels honour the mask, never the index.
 """
 
 from __future__ import annotations
@@ -37,11 +44,14 @@ import numpy as np
 import torch
 
 from gigl_tpu_torch.device import DeviceLike, resolve_device
+from gigl_tpu_torch.ops import _build
 
-EDGE_FEATURES_NOT_PORTED = (
-    "edge features on the ELL path need ell_gather_edges "
-    "(gigl_tpu/ops/ell.py:289-316), which is not ported yet (ROADMAP B6 "
-    "edges)")
+COO_EDGE_FEATURES_NOT_PORTED = (
+    "edge features on the COO path need a per-edge term inside the segment "
+    "kernels K8-K10, which is not ported yet (ROADMAP slice 8, COO per-edge "
+    "terms); use encode_ell")
+EDGE_GRAD_MODES = {"gine": 0, "gat": 1, "transformer": 2}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def default_widths(max_degree: int) -> Tuple[int, ...]:
@@ -110,9 +120,10 @@ class EllGraph:
     rows, mask[b] validity, edge_slots[b] original COO edge row per entry;
     its dst rows are boundaries[b]:boundaries[b+1]. The transpose tables
     (t_rank, t_nbr, t_mask, t_boundaries, t_widths) serve the backward
-    (K6b), with the derived t_perm (inverse of t_rank) and ent_row /
-    ent_off (flat entry -> dst row, bucket b's first entry); edge_pos is
-    for edge features (not ported)."""
+    (K6b), with the derived t_perm (inverse of t_rank), ent_row / ent_src
+    / ent_edge (flat entry -> dst row, source row, COO edge) and ent_off
+    (bucket b's first entry); edge_pos (COO edge -> flat entry) serves the
+    edge features' backward (K11)."""
 
     perm: torch.Tensor                 # [N] int32
     rank: torch.Tensor                 # [N] int32
@@ -131,6 +142,17 @@ class EllGraph:
     t_perm: torch.Tensor               # [N] int32, t-row -> x_p row
     ent_row: torch.Tensor              # [P] int32, flat entry -> dst row
     ent_off: Tuple[int, ...]           # len = num_buckets + 1
+    ent_src: torch.Tensor              # [P] int32, flat entry -> x_p row
+    ent_edge: torch.Tensor             # [P] int32, flat entry -> COO edge
+
+    @property
+    def num_edges(self) -> int:
+        return self.edge_pos.shape[0]
+
+    @property
+    def ent_mask(self) -> torch.Tensor:
+        """[P] bool: the validity of each flat entry."""
+        return torch.cat([m.reshape(-1) for m in self.mask])
 
     @property
     def num_nodes(self) -> int:
@@ -155,7 +177,9 @@ class EllGraph:
         nbrs = [rank[v] * m for v, m in zip(padded_nbr, masks)]
         eid = (np.asarray(csr.edge_ids, np.int64)
                if csr.edge_ids is not None else np.arange(len(indices)))
-        slots_l = [eid[s] * m for s, m in zip(slot_idx, masks)]
+        # (an edgeless graph has no slot to read: its tables are all 0)
+        slots_l = [eid[s] * m if len(eid) else np.zeros_like(s)
+                   for s, m in zip(slot_idx, masks)]
 
         # Transpose structure over flat forward entry positions: bucket b
         # entry (i, j) sits at off_b + i * W_b + j.
@@ -189,6 +213,10 @@ class EllGraph:
         ent_row = np.repeat(np.arange(n), np.repeat(
             np.asarray(ws), np.diff(boundaries)))
 
+        def flat(tables):
+            return (np.concatenate([t.reshape(-1) for t in tables])
+                    if tables else np.zeros((0,), np.int64))
+
         def i32(a):
             return torch.as_tensor(np.asarray(a, np.int32), device=device)
 
@@ -207,14 +235,115 @@ class EllGraph:
             boundaries=tuple(int(b) for b in boundaries), widths=ws,
             t_boundaries=tuple(int(b) for b in t_boundaries),
             t_widths=tuple(t_ws), t_perm=i32(t_perm), ent_row=i32(ent_row),
-            ent_off=tuple(int(o) for o in offs))
+            ent_off=tuple(int(o) for o in offs), ent_src=i32(flat(nbrs)),
+            ent_edge=i32(flat(slots_l)))
+
+
+def _edge_rows(ea, slots):
+    """ea[slots] in fp32 (slots of masked entries are 0; a graph without
+    edges has no valid entry to read)."""
+    if ea.shape[0] == 0:
+        return torch.zeros(slots.shape + ea.shape[1:], dtype=torch.float32,
+                           device=ea.device)
+    return ea[slots.long()].float()
+
+
+def _ell_edge_grad_plain(g, ell, mode, x=None, ea=None, alpha=None,
+                         coef=None, vec=None, xd=None, heads=1):
+    """Plain twin of K11, as the reference's ``_ell_ge_bwd``: the flat
+    ``[P, D]`` cotangent of the gathered edge rows (each entry's term from
+    its destination row of ``g``), masked, then gathered by ``edge_pos``.
+    fp32 arithmetic, one rounding."""
+    d = g.shape[1]
+    if ell.num_edges == 0:
+        return torch.zeros((0, d), dtype=g.dtype, device=g.device)
+    r = ell.ent_row.long()
+    gf = g.float()[r]                                      # [P, D]
+    if mode == "gine":
+        z = x.float()[ell.ent_src.long()] + _edge_rows(ea, ell.ent_edge)
+        flat = torch.where(z > 0, gf, 0.0)
+    else:
+        dh = d // heads
+        other = (vec.float()[None, :] if mode == "gat"
+                 else xd.float()[r])
+        flat = (alpha.repeat_interleave(dh, dim=1) * gf
+                + coef.repeat_interleave(dh, dim=1) * other)
+    flat = flat * ell.ent_mask[:, None]
+    return flat[ell.edge_pos.long()].to(g.dtype)
+
+
+def ell_edge_grad(g: torch.Tensor, ell: EllGraph, mode: str, *,
+                  x: Optional[torch.Tensor] = None,
+                  ea: Optional[torch.Tensor] = None,
+                  alpha: Optional[torch.Tensor] = None,
+                  coef: Optional[torch.Tensor] = None,
+                  vec: Optional[torch.Tensor] = None,
+                  xd: Optional[torch.Tensor] = None,
+                  heads: int = 1) -> torch.Tensor:
+    """K11: the gradient of an ELL layer's edge table, [E, D] in COO edge
+    order, each row written once (edge e's entry ``edge_pos[e]``). ``g``
+    [N, D]: the layer's output cotangent by destination row. ``mode``
+    ``gine``: ``g[row] * 1[x[src] + ea[e] > 0]`` (x [N, D] the layer's
+    input, ea [E, D] its edge table); ``gat``: ``alpha[p, h] * g[row] +
+    coef[p, h] * vec`` (alpha, coef [P, H] fp32 from K7b, vec [D] fp32
+    att_src); ``transformer``: ``alpha * g[row] + coef * xd[row]`` (xd
+    [N, D] the query rows; K7b's coef is divided by sqrt(Dh) already)."""
+    if mode not in EDGE_GRAD_MODES:
+        raise ValueError(f"ell_edge_grad: unknown mode {mode!r}")
+    need = {"gine": (x, ea), "gat": (alpha, coef, vec),
+            "transformer": (alpha, coef, xd)}[mode]
+    if any(t is None for t in need):
+        raise ValueError(f"ell_edge_grad: mode {mode!r} is missing an "
+                         "operand")
+    d = g.shape[1]
+    if d % heads:
+        raise ValueError(f"ell_edge_grad: {d} not divisible by {heads} "
+                         "heads")
+    if g.device.type == "cpu":
+        return _ell_edge_grad_plain(g, ell, mode, x, ea, alpha, coef, vec,
+                                    xd, heads)
+    device = _build.require_cuda("ell_edge_grad", g, ell.edge_pos,
+                                 ell.ent_row, ell.ent_src, *need)
+    n, e, p_total = ell.num_nodes, ell.num_edges, ell.ent_row.shape[0]
+    if g.dim() != 2 or g.shape[0] != n or g.dtype not in _DTYPES:
+        raise ValueError("ell_edge_grad: g must be [N, D], fp32 or bf16")
+    rows = {"x": (x, (n, d)), "ea": (ea, (e, d)), "xd": (xd, (n, d))}
+    for name, (t, shape) in rows.items():
+        if t is not None and (t.shape != shape or t.dtype != g.dtype):
+            raise ValueError(f"ell_edge_grad: {name} must be {shape} of "
+                             "g's type")
+    for t in (alpha, coef):
+        if t is not None and (t.dtype != torch.float32
+                              or t.shape != (p_total, heads)):
+            raise ValueError("ell_edge_grad: alpha / coef must be fp32 "
+                             f"[P={p_total}, {heads}]")
+    if vec is not None and (vec.dtype != torch.float32 or vec.shape != (d,)):
+        raise ValueError(f"ell_edge_grad: vec must be fp32 [{d}]")
+    out = torch.empty((e, d), dtype=g.dtype, device=device)
+    vec_path = int((d * g.element_size()) % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (g, x, ea, xd, out)
+        if t is not None))
+    _build.launch("ell_edge_grad", "gigl_ell_edge_grad", device,
+                  g.data_ptr(), ell.edge_pos.data_ptr(),
+                  ell.ent_row.data_ptr(), ell.ent_src.data_ptr(),
+                  _build.ptr(x), _build.ptr(ea), _build.ptr(alpha),
+                  _build.ptr(coef), _build.ptr(vec), _build.ptr(xd),
+                  out.data_ptr(), e, d, heads, d // heads, _DTYPES[g.dtype],
+                  EDGE_GRAD_MODES[mode], vec_path)
+    return out
 
 
 def ell_layer(conv, x_p: torch.Tensor, ell: EllGraph,
               edge_attr: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One conv layer over the whole permuted graph: x_p [N, D] in
     permuted order -> [N, D_out] in permuted order (``conv.ell``; GCN
-    reads the in-degrees ``ell.deg_p`` for both ends)."""
-    if edge_attr is not None:
-        raise NotImplementedError(EDGE_FEATURES_NOT_PORTED)
-    return conv.ell(x_p, ell)
+    reads the in-degrees ``ell.deg_p`` for both ends). ``edge_attr`` [E,
+    De] in original COO order, reached through ``ell.edge_slots``: the
+    edge convs read it, the others ignore it as the reference's blocks
+    do."""
+    if edge_attr is None:
+        return conv.ell(x_p, ell)
+    if edge_attr.shape[0] != ell.num_edges:
+        raise ValueError(f"edge_attr has {edge_attr.shape[0]} rows for "
+                         f"{ell.num_edges} edges")
+    return conv.ell(x_p, ell, edge_attr)

@@ -15,7 +15,13 @@ gather per level (K3).
 ``sample_nalp_batch`` draws per-anchor positives (and hard negatives) from
 the supervision (hard-negative) CSR through K1 and the batch-shared random
 negatives through K1b, bit-equal to the reference for every step; the typed
-graph (``hetero_dataset.py``) draws through the same functions.
+graph (``hetero_dataset.py``) draws through the same functions. With label
+edge features (``supervision_edge_features`` / ``hard_neg_edge_features``,
+kept in CSR slot order) the batch also carries each drawn edge's feature
+row, gathered through K3 by the draw's CSR slots (the reference's
+``label_edge_features``). Message-edge features (``edge_features``, CSR
+slot order) reach the sampled tree through ``hydrate_edges``: one K3 row
+gather per hop, by the slots the sampler drew.
 """
 
 from __future__ import annotations
@@ -54,7 +60,8 @@ class NodeClassificationBatch(NamedTuple):
 class NALPBatch(NamedTuple):
     """Node-anchor link prediction batch (device tensors): anchors with
     per-anchor positives and hard negatives plus batch-shared random
-    negatives. Label edge features are not ported."""
+    negatives, and the drawn label edges' features when the graph has
+    them (None otherwise)."""
 
     anchors: torch.Tensor        # [B] int32
     pos: torch.Tensor            # [B, P] int32
@@ -62,30 +69,55 @@ class NALPBatch(NamedTuple):
     hard_neg: torch.Tensor       # [B, H] int32 (H may be 0)
     hard_neg_mask: torch.Tensor  # [B, H] bool
     random_neg: torch.Tensor     # [R] int32
+    pos_edge_feats: Optional[torch.Tensor] = None       # [B, P, De] f32
+    hard_neg_edge_feats: Optional[torch.Tensor] = None  # [B, H, De] f32
+
+
+def _edge_feats(table: Optional[torch.Tensor], slots: torch.Tensor,
+                mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``table[slots]`` through K3 ([..., De], or None without a table);
+    with ``mask``, the rows of invalid draws zeroed (the typed graph's
+    draws, ``hetero_dataset.py:310-312``)."""
+    if table is None:
+        return None
+    rows = gather_rows(table, slots)[0]
+    return rows if mask is None else torch.where(mask[..., None], rows, 0.0)
 
 
 def draw_positives(csr: Optional[DeviceCSR], anchors: torch.Tensor,
-                   num: int, *, seed: int, step: int):
+                   num: int, *, seed: int, step: int,
+                   edge_features: Optional[torch.Tensor] = None,
+                   zero_invalid: bool = False):
     """Per-anchor positives from the supervision CSR through K1 at hop
-    1_000_003 + step (wrapping mod 2**32): (ids, mask) [B, num]."""
+    1_000_003 + step (wrapping mod 2**32): (ids, mask, feats) [B, num],
+    feats the drawn edges' rows of ``edge_features`` (CSR slot order; a
+    padded slot reads its anchor's first slot, zeroed with
+    ``zero_invalid``) or None."""
     if csr is None:
         raise ValueError("No supervision CSR registered for NALP sampling")
-    pos, mask, _ = sample_neighbors(csr, anchors, num, seed=seed,
-                                    hop=1_000_003 + step)
-    return pos, mask
+    pos, mask, slots = sample_neighbors(csr, anchors, num, seed=seed,
+                                        hop=1_000_003 + step)
+    return pos, mask, _edge_feats(edge_features, slots,
+                                  mask if zero_invalid else None)
 
 
 def draw_hard_negatives(csr: Optional[DeviceCSR], anchors: torch.Tensor,
-                        num: int, *, seed: int, step: int):
+                        num: int, *, seed: int, step: int,
+                        edge_features: Optional[torch.Tensor] = None,
+                        zero_invalid: bool = False):
     """Per-anchor hard negatives from the hard-negative CSR through K1 at
-    hop 2_000_003 + step; (zeros, False) [B, num] when there are none."""
+    hop 2_000_003 + step, with their edges' feature rows as
+    :func:`draw_positives`; (zeros, False, None) [B, num] when there are
+    none."""
     if num > 0 and csr is not None:
-        hard, mask, _ = sample_neighbors(csr, anchors, num, seed=seed,
-                                         hop=2_000_003 + step)
-        return hard, mask
+        hard, mask, slots = sample_neighbors(csr, anchors, num, seed=seed,
+                                             hop=2_000_003 + step)
+        return hard, mask, _edge_feats(edge_features, slots,
+                                       mask if zero_invalid else None)
     shape = anchors.shape + (max(num, 0),)
     return (torch.zeros(shape, dtype=torch.int32, device=anchors.device),
-            torch.zeros(shape, dtype=torch.bool, device=anchors.device))
+            torch.zeros(shape, dtype=torch.bool, device=anchors.device),
+            None)
 
 
 def draw_random_negatives(num: int, num_nodes: int, *, seed: int, step: int,
@@ -99,22 +131,29 @@ def sample_nalp_batch(supervision_csr: Optional[DeviceCSR],
                       hard_neg_csr: Optional[DeviceCSR], num_candidates: int,
                       anchors: torch.Tensor, *, num_positives: int,
                       num_hard_negs: int = 0, num_random_negs: int = 512,
-                      seed: int = 0, step: int = 0) -> NALPBatch:
+                      seed: int = 0, step: int = 0,
+                      sup_edge_features: Optional[torch.Tensor] = None,
+                      hard_neg_edge_features: Optional[torch.Tensor] = None,
+                      zero_invalid: bool = False) -> NALPBatch:
     """A NALP batch: positives (K1, hop 1_000_003 + step) and hard
     negatives (K1, hop 2_000_003 + step) from the label CSRs anchored on
-    the anchors' side, and ``num_random_negs`` batch-shared uniform
+    the anchors' side, with their label edges' feature rows when the
+    tables are given (K3; ``zero_invalid``: rows of padded draws zeroed,
+    as the typed graph does), and ``num_random_negs`` batch-shared uniform
     negatives of the ``num_candidates`` candidates (K1b, hop 3_000_017 +
     step). The homogeneous and the typed graphs both draw through it."""
-    pos, pos_mask = draw_positives(supervision_csr, anchors, num_positives,
-                                   seed=seed, step=step)
-    hard, hard_mask = draw_hard_negatives(hard_neg_csr, anchors,
-                                          num_hard_negs, seed=seed,
-                                          step=step)
+    pos, pos_mask, pos_ef = draw_positives(
+        supervision_csr, anchors, num_positives, seed=seed, step=step,
+        edge_features=sup_edge_features, zero_invalid=zero_invalid)
+    hard, hard_mask, hard_ef = draw_hard_negatives(
+        hard_neg_csr, anchors, num_hard_negs, seed=seed, step=step,
+        edge_features=hard_neg_edge_features, zero_invalid=zero_invalid)
     rand = draw_random_negatives(num_random_negs, num_candidates, seed=seed,
                                  step=step, device=anchors.device)
     return NALPBatch(anchors=anchors, pos=pos, pos_mask=pos_mask,
                      hard_neg=hard, hard_neg_mask=hard_mask,
-                     random_neg=rand)
+                     random_neg=rand, pos_edge_feats=pos_ef,
+                     hard_neg_edge_feats=hard_ef)
 
 
 @dataclass
@@ -125,6 +164,9 @@ class DeviceGraph:
     anchored on dst). supervision_csr / hard_neg_csr: label edges anchored
     on the anchor side, from which NALP batches draw positives and hard
     negatives. node_labels: int32 [N] class labels (node classification).
+    edge_features: the message edges' features in CSR slot order (read by
+    ``hydrate_edges``); sup_edge_features / hard_neg_edge_features: the
+    label edges' features in their CSRs' slot order.
     """
 
     message_csr: DeviceCSR
@@ -141,6 +183,9 @@ class DeviceGraph:
     # Fused [N, D + D] table concat(node_features, nbr_cache); nbr_cache is
     # then a view of its right half.
     fused_table: Optional[torch.Tensor] = None
+    edge_features: Optional[torch.Tensor] = None           # [E, De] f32
+    sup_edge_features: Optional[torch.Tensor] = None       # [Es, De] f32
+    hard_neg_edge_features: Optional[torch.Tensor] = None  # [Eh, De] f32
 
     @property
     def device(self) -> torch.device:
@@ -161,21 +206,22 @@ class DeviceGraph:
         hard_neg_edge_features: Optional[np.ndarray] = None,
         device: DeviceLike = None,
     ) -> "DeviceGraph":
-        """Move a homogeneous graph to ``device`` (CUDA unless given)."""
+        """Move a homogeneous graph to ``device`` (CUDA unless given). The
+        edge type's features (if the graph has them) and the label edges'
+        features are reordered into their CSRs' slot order (``csr.
+        edge_ids``), as the reference does."""
         ref = "gigl_tpu.training.dataset.DeviceGraph.from_hetero"
         if quantize_features:
             raise _not_ported("quantize_features", ref)
         if sampling_weight_index is not None:
             raise _not_ported("sampling_weight_index", ref)
-        if (supervision_edge_features is not None
-                or hard_neg_edge_features is not None):
-            raise _not_ported("label edge features", ref)
+        if supervision_edge_features is not None and supervision_edges is None:
+            raise ValueError(
+                "supervision_edge_features needs supervision_edges")
+        if hard_neg_edge_features is not None and hard_neg_edges is None:
+            raise ValueError("hard_neg_edge_features needs hard_neg_edges")
         device = resolve_device(device)
         et = edge_type or graph.metadata.edge_types[0]
-        if str(et) in graph.edge_features:
-            raise _not_ported("edge features",
-                              "gigl_tpu.training.dataset.DeviceGraph."
-                              "hydrate_edges")
         nt = et.dst_node_type if sampling_direction == "in" else et.src_node_type
         anchor = "dst" if sampling_direction == "in" else "src"
         csr = graph.csr(et, anchor=anchor)
@@ -183,25 +229,42 @@ class DeviceGraph:
         feats = (graph.node_features[nt] if nt in graph.node_features
                  else np.zeros((n, 1), np.float32))
 
-        def label_csr(edges):
-            if edges is None:
-                return None
-            return DeviceCSR.from_csr(
-                build_csr(edges[0], edges[1], num_anchor_nodes=n,
-                          num_neighbor_nodes=n, anchor=anchor), device)
+        def f32(a):
+            return torch.as_tensor(np.ascontiguousarray(
+                np.asarray(a, np.float32))).to(device)
 
+        def label_csr(edges, feats):
+            """(the label CSR, its edges' features in slot order)."""
+            if edges is None:
+                return None, None
+            lc = build_csr(edges[0], edges[1], num_anchor_nodes=n,
+                           num_neighbor_nodes=n, anchor=anchor)
+            ef = (None if feats is None
+                  else f32(np.asarray(feats)[lc.edge_ids]))
+            return DeviceCSR.from_csr(lc, device), ef
+
+        sup_csr, sup_ef = label_csr(supervision_edges,
+                                    supervision_edge_features)
+        hn_csr, hn_ef = label_csr(hard_neg_edges, hard_neg_edge_features)
+        edge_features = None
+        if str(et) in graph.edge_features:
+            edge_features = f32(np.asarray(
+                graph.edge_features[str(et)])[csr.edge_ids])
         labels = graph.node_labels.get(nt)
         return cls(
             message_csr=DeviceCSR.from_csr(csr, device),
             node_features=torch.as_tensor(
                 np.asarray(feats, np.float32)).to(device),
             num_nodes=n,
-            supervision_csr=label_csr(supervision_edges),
-            hard_neg_csr=label_csr(hard_neg_edges),
+            supervision_csr=sup_csr,
+            hard_neg_csr=hn_csr,
             node_labels=(None if labels is None else torch.as_tensor(
                 np.asarray(labels).astype(np.int32)).to(device)),
             degrees=torch.as_tensor(
                 np.diff(csr.indptr).astype(np.float32)).to(device),
+            edge_features=edge_features,
+            sup_edge_features=sup_ef,
+            hard_neg_edge_features=hn_ef,
         )
 
     # -- NALP batches -----------------------------------------------------------
@@ -215,12 +278,17 @@ class DeviceGraph:
         seed: int = 0,
         step: int = 0,
     ) -> NALPBatch:
-        """The step's batch for ``anchors`` (:func:`sample_nalp_batch`)."""
+        """The step's batch for ``anchors`` (:func:`sample_nalp_batch`),
+        with the drawn label edges' features when the graph has them
+        (padded draws read their anchor's first slot, as the reference's
+        do: the loss masks them)."""
         return sample_nalp_batch(
             self.supervision_csr, self.hard_neg_csr, self.num_nodes,
             anchors.to(device=self.device, dtype=torch.int32),
             num_positives=num_positives, num_hard_negs=num_hard_negs,
-            num_random_negs=num_random_negs, seed=seed, step=step)
+            num_random_negs=num_random_negs, seed=seed, step=step,
+            sup_edge_features=self.sup_edge_features,
+            hard_neg_edge_features=self.hard_neg_edge_features)
 
     # -- live sampling ----------------------------------------------------------
     def sample_hop_blocks(
@@ -333,6 +401,16 @@ class DeviceGraph:
         if self.nbr_cache is None:
             raise ValueError("no neighbor cache; call with_neighbor_cache()")
         return [gather_rows(self.nbr_cache, ids)[0] for ids in blocks.node_ids]
+
+    def hydrate_edges(self, blocks: SampledBlocks):
+        """Per-hop edge features aligned to the block slots (K3 by the
+        drawn CSR slots; None for the roots), or None without edge
+        features. Padded slots read their node's first slot, as the
+        reference's do: the mask excludes them downstream."""
+        if self.edge_features is None:
+            return None
+        return [None] + [gather_rows(self.edge_features, es)[0]
+                         for es in blocks.edge_slots[1:]]
 
 
 @dataclass

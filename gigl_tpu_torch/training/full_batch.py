@@ -15,7 +15,10 @@ optimizer from ``make_optimizer``. The graph tensors live on the device
 once; a step does no host synchronisation. Split masks come from the hash
 split of ``graph/splitters.py``, bit-equal to the reference's.
 
-Not ported: edge features (ROADMAP B6 edges).
+Edge features (``FullBatchData.edge_attr`` [E, De] in COO edge order, set
+by the caller as in the reference) feed the ELL path: the edge convs read
+them through the ELL tables' edge slots (K6 / K7) and train them through
+K11. The COO path raises with them (ROADMAP slice 8, COO per-edge terms).
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from gigl_tpu_torch.graph.splitters import HashedNodeAnchorLinkSplitter
 from gigl_tpu_torch.losses.losses import cross_entropy_loss
 from gigl_tpu_torch.losses.metrics import accuracy
 from gigl_tpu_torch.models.init import init_params
-from gigl_tpu_torch.ops.ell import EllGraph
+from gigl_tpu_torch.ops.ell import COO_EDGE_FEATURES_NOT_PORTED, EllGraph
 from gigl_tpu_torch.ops.segment import SegmentIndex
 from gigl_tpu_torch.training.early_stop import EarlyStopper
 from gigl_tpu_torch.training.trainer import (
@@ -141,10 +144,8 @@ class FullBatchTrainer:
         if data.device != self.device:
             raise ValueError(f"data lives on {data.device}, trainer asked "
                              f"for {self.device}")
-        if data.edge_attr is not None:
-            raise NotImplementedError(
-                "edge features on the full-batch path are not ported yet "
-                "(ROADMAP B6 edges)")
+        if data.edge_attr is not None and data.ell is None:
+            raise NotImplementedError(COO_EDGE_FEATURES_NOT_PORTED)
         self.encoder = encoder.to(self.device)
         self.data = data
         self.cfg = config or FullBatchTrainerConfig()
@@ -168,11 +169,12 @@ class FullBatchTrainer:
     def logits(self, train: bool = False,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """[N, classes] in original node order: ``encode_ell`` over the ELL
-        tables, else ``encode_coo`` (``full_batch.py:124-142``)."""
+        tables (with the data's edge features), else ``encode_coo``
+        (``full_batch.py:124-142``)."""
         d = self.data
         if d.ell is not None:
-            return self.encoder.encode_ell(d.x, d.ell, train=train,
-                                           generator=generator)
+            return self.encoder.encode_ell(d.x, d.ell, d.edge_attr,
+                                           train=train, generator=generator)
         return self.encoder.encode_coo(d.x, d.src, d.dst, d.num_nodes,
                                        train=train, generator=generator,
                                        index=d.index, src_index=d.src_index)

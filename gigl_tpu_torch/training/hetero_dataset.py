@@ -15,10 +15,13 @@ Training batches draw positives and hard negatives from the supervision /
 hard-negative CSRs (anchored on the anchor type) through K1 and the
 batch-shared random negatives of the candidate type through K1b, with the
 homogeneous graph's functions (``training/dataset.py``), bit-equal to the
-reference.
+reference. The label edges' features (``supervision_edge_features`` /
+``hard_neg_edge_features``, in their CSRs' slot order) come with the
+draws, gathered through K3 by the drawn slots, with the rows of padded
+draws zeroed (``hetero_dataset.py:301-330``).
 
-Not ported yet: weighted / top-k CSRs (A2), the label-edge features (the
-rest of A12) and host-resident feature tables (the partitioned tier, A15).
+Not ported yet: weighted / top-k CSRs (A2) and host-resident feature
+tables (the partitioned tier, A15).
 """
 
 from __future__ import annotations
@@ -53,17 +56,13 @@ from gigl_tpu_torch.training.dataset import (
 )
 from gigl_tpu_torch.types.graph import EdgeType
 
-LABEL_EDGE_FEATURES_NOT_PORTED = (
-    "label-edge features are not ported yet (ROADMAP A12, label-edge "
-    "features)")
-
-
 @dataclass
 class HeteroDeviceGraph:
     """Typed device graph: per-(edge type, anchor) CSRs keyed
     "{edge_type}|{anchor}", per-node-type features, and optionally the
-    supervision / hard-negative CSRs and frozen sample tables keyed
-    ``OpSpec.table_key`` ([N_anchor, fanout] int32, -1 = no neighbor)."""
+    supervision / hard-negative CSRs (with their edges' features in slot
+    order) and frozen sample tables keyed ``OpSpec.table_key``
+    ([N_anchor, fanout] int32, -1 = no neighbor)."""
 
     csrs: Dict[str, DeviceCSR]
     node_features: Dict[str, torch.Tensor]     # node type -> [N_t, D_t] f32
@@ -72,6 +71,8 @@ class HeteroDeviceGraph:
     hard_neg_csr: Optional[DeviceCSR] = None
     node_labels: Optional[Dict[str, torch.Tensor]] = None
     sample_tables: Optional[Dict[str, torch.Tensor]] = None
+    sup_edge_features: Optional[torch.Tensor] = None       # [Es, De] f32
+    hard_neg_edge_features: Optional[torch.Tensor] = None  # [Eh, De] f32
 
     @property
     def device(self) -> torch.device:
@@ -95,14 +96,18 @@ class HeteroDeviceGraph:
         """Move the CSRs the ``paths`` sample and every node type's features
         (zeros [N, 1] for a type without features) to ``device`` (CUDA
         unless given). Supervision edges (and hard negatives) are anchored
-        on ``supervision_anchor``'s side of ``supervision_edge_type``."""
+        on ``supervision_anchor``'s side of ``supervision_edge_type``; their
+        features (rows aligned to the edges' columns) are reordered into
+        the CSRs' slot order."""
         if not features_on_device:
             raise NotImplementedError(
                 "host-resident feature tables are not ported yet (the "
                 "partitioned tier, ROADMAP A15)")
-        if (supervision_edge_features is not None
-                or hard_neg_edge_features is not None):
-            raise NotImplementedError(LABEL_EDGE_FEATURES_NOT_PORTED)
+        if supervision_edge_features is not None and supervision_edges is None:
+            raise ValueError("supervision_edge_features needs "
+                             "supervision_edges")
+        if hard_neg_edge_features is not None and hard_neg_edges is None:
+            raise ValueError("hard_neg_edge_features needs hard_neg_edges")
         device = resolve_device(device)
         csrs: Dict[str, DeviceCSR] = {}
         for key in sorted({op.csr_key for ops in paths.values()
@@ -126,30 +131,37 @@ class HeteroDeviceGraph:
         if supervision_anchor not in ("src", "dst"):
             raise ValueError(f"bad supervision_anchor {supervision_anchor!r}")
 
-        def label_csr(edges):
+        def label_csr(edges, feats):
+            """(the label CSR, its edges' features in slot order)."""
             if edges is None or supervision_edge_type is None:
-                return None
+                return None, None
             et = supervision_edge_type
             anchor_nt, cand_nt = ((et.dst_node_type, et.src_node_type)
                                   if supervision_anchor == "dst"
                                   else (et.src_node_type, et.dst_node_type))
-            return DeviceCSR.from_csr(build_csr(
-                edges[0], edges[1],
-                num_anchor_nodes=graph.num_nodes[anchor_nt],
-                num_neighbor_nodes=graph.num_nodes[cand_nt],
-                anchor=supervision_anchor), device)
+            lc = build_csr(edges[0], edges[1],
+                           num_anchor_nodes=graph.num_nodes[anchor_nt],
+                           num_neighbor_nodes=graph.num_nodes[cand_nt],
+                           anchor=supervision_anchor)
+            ef = None if feats is None else torch.as_tensor(
+                np.ascontiguousarray(np.asarray(feats, np.float32)[
+                    lc.edge_ids])).to(device)
+            return DeviceCSR.from_csr(lc, device), ef
 
         if supervision_edges is not None and supervision_edge_type is None:
             raise ValueError("supervision_edges needs an edge type")
         labels = {str(nt): torch.as_tensor(
             np.asarray(lab).astype(np.int32)).to(device)
             for nt, lab in graph.node_labels.items()} or None
+        sup_csr, sup_ef = label_csr(supervision_edges,
+                                    supervision_edge_features)
+        hn_csr, hn_ef = label_csr(hard_neg_edges, hard_neg_edge_features)
         return cls(csrs=csrs, node_features=feats,
                    num_nodes={str(nt): int(n)
                               for nt, n in graph.num_nodes.items()},
-                   supervision_csr=label_csr(supervision_edges),
-                   hard_neg_csr=label_csr(hard_neg_edges),
-                   node_labels=labels)
+                   supervision_csr=sup_csr, hard_neg_csr=hn_csr,
+                   node_labels=labels, sup_edge_features=sup_ef,
+                   hard_neg_edge_features=hn_ef)
 
     # -- tabularized sampling ---------------------------------------------------
     def with_sample_tables(self, paths: Dict[str, Tuple[OpSpec, ...]], *,
@@ -213,26 +225,33 @@ class HeteroDeviceGraph:
         """(ids, mask) [B, P]: K1 over the supervision CSR at hop 1_000_003
         + step."""
         return draw_positives(self.supervision_csr, anchors, num_positives,
-                              seed=seed, step=step)
+                              seed=seed, step=step)[:2]
 
     def sample_positives_with_feats(self, anchors, num_positives, *, seed,
                                     step):
-        """(ids, mask, None): the label-edge features are not ported."""
-        return (*self.sample_positives(anchors, num_positives, seed=seed,
-                                       step=step), None)
+        """(ids, mask, feats): the same draw with the drawn edges' feature
+        rows [B, P, De] (K3; zero where the draw is padded), or None
+        without label-edge features."""
+        return draw_positives(self.supervision_csr, anchors, num_positives,
+                              seed=seed, step=step,
+                              edge_features=self.sup_edge_features,
+                              zero_invalid=True)
 
     def sample_hard_negatives(self, anchors: torch.Tensor,
                               num_hard_negs: int, *, seed: int, step: int):
         """(ids, mask) [B, H]: K1 over the hard-negative CSR at hop
         2_000_003 + step; zeros and an all-False mask without one."""
         return draw_hard_negatives(self.hard_neg_csr, anchors, num_hard_negs,
-                                   seed=seed, step=step)
+                                   seed=seed, step=step)[:2]
 
     def sample_hard_negatives_with_feats(self, anchors, num_hard_negs, *,
                                          seed, step):
-        """(ids, mask, None): the label-edge features are not ported."""
-        return (*self.sample_hard_negatives(anchors, num_hard_negs,
-                                            seed=seed, step=step), None)
+        """(ids, mask, feats): the same draw with the drawn edges' feature
+        rows [B, H, De] (zero where padded), or None."""
+        return draw_hard_negatives(self.hard_neg_csr, anchors, num_hard_negs,
+                                   seed=seed, step=step,
+                                   edge_features=self.hard_neg_edge_features,
+                                   zero_invalid=True)
 
     def sample_random_negatives(self, num: int, candidate_node_type: str, *,
                                 seed: int, step: int) -> torch.Tensor:
@@ -247,13 +266,17 @@ class HeteroDeviceGraph:
                           num_hard_negs: int = 0, num_random_negs: int = 512,
                           seed: int = 0, step: int = 0) -> NALPBatch:
         """The typed batch of ``step`` (the reference's ``_sample_batch``):
-        the three draws above, candidates of ``candidate_node_type``."""
+        the three draws above, with the label edges' features, candidates
+        of ``candidate_node_type``."""
         return sample_nalp_batch(
             self.supervision_csr, self.hard_neg_csr,
             self.num_nodes[str(candidate_node_type)],
             anchors.to(device=self.device, dtype=torch.int32),
             num_positives=num_positives, num_hard_negs=num_hard_negs,
-            num_random_negs=num_random_negs, seed=seed, step=step)
+            num_random_negs=num_random_negs, seed=seed, step=step,
+            sup_edge_features=self.sup_edge_features,
+            hard_neg_edge_features=self.hard_neg_edge_features,
+            zero_invalid=True)
 
 
 def paths_from_config(

@@ -6,7 +6,8 @@
 the node type's op tree is drawn live through K1 (keyed by the config's
 seed) or, with ``tabularized``, expanded from frozen sample tables through
 K3; the feature rows are gathered through K3 (``hydrate``) and encoded
-through the typed block tree (HGT: K7; RGCN: K4; SimpleHGN: plain).
+through the typed block tree (HGT: K7; RGCN: K4; SimpleHGN: K7 with its
+relation bias).
 
 Training follows the reference, which trains typed models through the
 block form only: a step draws the batch (``HeteroDeviceGraph.
@@ -22,9 +23,10 @@ optimizer. Dropout draws from an explicit ``torch.Generator``; the model is
 kept in ``eval()`` and each call's ``train=`` turns dropout on. Evaluation
 ranks each positive against the batch's random negatives (MRR, hits@k);
 ``fit`` validates every ``val_every_n_batches`` steps with early stopping,
-re-freezing the sample tables each epoch when tabularized.
-
-Not ported: the label-edge features and their scorer (ROADMAP A12).
+re-freezing the sample tables each epoch when tabularized. With the
+model's ``EdgeFeatureScorer`` and the graph's label-edge features, the
+batch carries each drawn edge's features and the loss (and evaluation's
+positive scores) add the scorer's term, as the homogeneous trainer does.
 """
 
 from __future__ import annotations
@@ -239,7 +241,8 @@ class HeteroNALPTrainer(BaseInferencer):
                                   seed=self.cfg.seed + 7_777_777)
         q, pos, _, rand = self._scores(graph, batch, train=False)
         p = pos.shape[1]
-        pos_flat = self.model.decode(q[:, None, :], pos).reshape(-1)
+        pos_flat = self.model.decode(q[:, None, :], pos,
+                                     batch.pos_edge_feats).reshape(-1)
         neg_rep = self.model.decode_all_pairs(q, rand).repeat_interleave(
             p, dim=0)                                              # [B*P, R]
         mask_flat = batch.pos_mask.reshape(-1)

@@ -12,13 +12,20 @@ optimizer update. The model's weights live in the model (``nn.Module``);
 Steps run eagerly on the current stream; ``train_steps`` keeps the losses
 on the device, so a chunk of steps does no host synchronisation.
 
+With message-edge features the live encode hydrates the drawn edges'
+rows too (``hydrate_edges``, K3) and the encoder's edge convs read them;
+with an ``EdgeFeatureScorer`` on the model and label-edge features on the
+graph, each positive's and hard negative's score gains the scorer's term
+of its own label edge (``nalp_loss_from_embeddings``), added to the score
+matrix before K5.
+
 A node-classification step samples the labeled nodes' fanout tree live
 (K1, keyed by the config's seed on every step, as the reference does),
 hydrates it (K3), encodes it on the dense-block path (GraphSAGE: K4 / K4b;
 GAT and Transformer: K7 / K7b) and takes the mean cross entropy.
 
 Not ported: the count-min-sketch logQ correction (``use_cms_correction``,
-ROADMAP B5b), label-edge-feature scorers, and checkpointing in ``fit``.
+ROADMAP B5b) and checkpointing in ``fit``.
 """
 
 from __future__ import annotations
@@ -139,11 +146,18 @@ def nalp_loss_from_embeddings(model, cfg: NALPTrainerConfig,
     ++ hard negatives ++ random negatives, padded positive / hard slots
     masked as candidate columns; diagonal labels, duplicate-query and
     accidental-hit masks (K5). Margin / softmax: each positive against the
-    hard and random negatives."""
-    if getattr(model, "edge_scorer", None) is not None:
-        raise NotImplementedError(
-            "edge-scorer loss terms are not ported yet "
-            "(gigl_tpu.training.trainer.nalp_loss_from_embeddings)")
+    hard and random negatives.
+
+    Label-edge terms (``trainer.py:152-192``): with the model's
+    ``edge_scorer`` and the batch's label-edge features, the scorer's term
+    of each supervision edge is added to that pair's score — never to a
+    random negative. Retrieval: row r's own positive is column r (the
+    diagonal of the positive block); anchor b's hard edge (b, j) scores
+    against all of b's query rows."""
+    has_scorer = getattr(model, "edge_scorer", None) is not None
+    use_pos_ef = has_scorer and batch.pos_edge_feats is not None
+    use_hard_ef = (has_scorer and hard is not None
+                   and batch.hard_neg_edge_feats is not None)
     B, P, D = pos.shape
     if cfg.loss_type == "retrieval":
         parts = [pos.reshape(B * P, D)]
@@ -159,6 +173,9 @@ def nalp_loss_from_embeddings(model, cfg: NALPTrainerConfig,
                                       device=rand.device))
         scores = model.decode_all_pairs(q.repeat_interleave(P, dim=0),
                                         torch.cat(parts))      # [B*P, C]
+        if use_pos_ef or use_hard_ef:
+            scores = scores + _label_edge_terms(model, batch, scores, B, P,
+                                                use_pos_ef, use_hard_ef)
         loss_sum, count = retrieval_loss(
             scores,
             temperature=cfg.temperature,
@@ -168,13 +185,17 @@ def nalp_loss_from_embeddings(model, cfg: NALPTrainerConfig,
             query_mask=batch.pos_mask.reshape(-1),
             candidate_mask=torch.cat(cmask_parts))
     else:
-        pos_scores = model.decode(q[:, None, :], pos)          # [B, P]
+        pos_scores = model.decode(
+            q[:, None, :], pos,
+            batch.pos_edge_feats if use_pos_ef else None)      # [B, P]
         neg_scores = model.decode_all_pairs(q, rand)           # [B, R]
         neg_mask = torch.ones(neg_scores.shape, dtype=torch.bool,
                               device=neg_scores.device)
         if hard is not None:
             neg_scores = torch.cat(
-                [model.decode(q[:, None, :], hard), neg_scores], -1)
+                [model.decode(q[:, None, :], hard,
+                              batch.hard_neg_edge_feats if use_hard_ef
+                              else None), neg_scores], -1)
             neg_mask = torch.cat([batch.hard_neg_mask, neg_mask], -1)
         if cfg.loss_type == "margin":
             loss_sum, count = margin_loss(
@@ -187,6 +208,32 @@ def nalp_loss_from_embeddings(model, cfg: NALPTrainerConfig,
         else:
             raise ValueError(f"Unknown loss {cfg.loss_type!r}")
     return loss_sum / torch.clamp(count.to(torch.float32), min=1.0)
+
+
+def _label_edge_terms(model, batch: NALPBatch, scores: torch.Tensor, B: int,
+                      P: int, use_pos: bool, use_hard: bool) -> torch.Tensor:
+    """The [B*P, C] addend of the retrieval scores: the positive edges'
+    scorer terms on the positive block's diagonal and the hard edges' on
+    their anchor's rows of the hard block, zero elsewhere (in the scores'
+    type, as the reference's scatter-add casts them)."""
+    C = scores.shape[1]
+    cols = []
+    if use_pos:
+        e_pos = model.edge_score(batch.pos_edge_feats.reshape(B * P, -1))
+        cols.append(torch.diag(e_pos))
+    else:
+        cols.append(scores.new_zeros((B * P, B * P)))
+    if use_hard:
+        H = batch.hard_neg.shape[1]
+        e_hard = model.edge_score(
+            batch.hard_neg_edge_feats.reshape(B * H, -1))       # [B*H]
+        row_b = torch.arange(B * P, device=scores.device) // P
+        col_b = torch.arange(B * H, device=scores.device) // H
+        cols.append(torch.where(row_b[:, None] == col_b[None, :],
+                                e_hard[None, :], 0.0))
+    used = sum(c.shape[1] for c in cols)
+    cols.append(scores.new_zeros((B * P, C - used)))
+    return torch.cat([c.to(scores.dtype) for c in cols], dim=1)
 
 
 class NALPTrainer(BaseInferencer):
@@ -292,8 +339,8 @@ class NALPTrainer(BaseInferencer):
             node_ids, self.cfg.fanouts, seed=self.cfg.seed + seed_offset,
             method=self.cfg.sampling_method)
         feats, masks, degs = graph.hydrate(blocks)
-        emb = self.model(feats, masks, None, train=train, hop_degrees=degs,
-                         generator=generator)
+        emb = self.model(feats, masks, graph.hydrate_edges(blocks),
+                         train=train, hop_degrees=degs, generator=generator)
         return emb.reshape(shape + (emb.shape[-1],))
 
     def _ids(self, node_ids) -> torch.Tensor:
@@ -384,7 +431,8 @@ class NALPTrainer(BaseInferencer):
             step=step)
         q, pos, _, rand = self._scores(graph, batch, train=False)
         P = pos.shape[1]
-        pos_flat = self.model.decode(q[:, None, :], pos).reshape(-1)
+        pos_flat = self.model.decode(q[:, None, :], pos,
+                                     batch.pos_edge_feats).reshape(-1)
         neg_rep = self.model.decode_all_pairs(q, rand).repeat_interleave(
             P, dim=0)                                              # [B*P, R]
         mask_flat = batch.pos_mask.reshape(-1)

@@ -345,6 +345,6 @@ def test_init_params_covers_attention_and_eps():
 
 def test_unsupported_trees_raise():
     with pytest.raises(ValueError, match="unsupported conv parameter"):
-        params_from_flax({"conv_0": {"lin_edge": {"kernel": np.zeros((2, 2))}}})
+        params_from_flax({"conv_0": {"lin_other": {"kernel": np.zeros((2, 2))}}})
     with pytest.raises(ValueError, match="unsupported conv parameter"):
         params_from_flax({"conv_0": {"mlp": {"dense": {}}}})

@@ -46,6 +46,14 @@ gradients (its prior through K10b) on the card against the CPU, the typed
 serving paths on the card against the CPU (exact full-graph HGT,
 SimpleHGN and RGCN; sampled HGT, live and tabularized), fp32 within 1e-5
 of the scale, and three typed training steps (HGT, RGCN) against the CPU.
+Edge features: K6 / K6b in gine mode and K11 ell_edge_grad (gine, gat,
+transformer; heads 1, 3, 4; widths 128, 12, 5; an edgeless graph; ELL
+graphs with empty buckets), K7 / K7b with the edge addend (ELL layout) and
+with the per-slot logit bias (dense block, an all-masked relation), the
+same tolerances (K11 gine bit-equal: a gated permutation); encode_ell's
+gradients with edge features (GINE, EdgeAttrGAT, Transformer) and NALP /
+typed SimpleHGN steps with the label-edge scorer on the card against the
+CPU.
 """
 
 import numpy as np
@@ -62,11 +70,13 @@ from gigl_tpu_torch.models.encoders import GNNEncoder
 from gigl_tpu_torch.models.hetero_encoders import HeteroGNNEncoder
 from gigl_tpu_torch.models.init import init_params
 from gigl_tpu_torch.models.link_prediction import (
+    EdgeFeatureScorer,
     HeteroLinkPredictionGNN,
     LinkPredictionDecoder,
     LinkPredictionGNN,
 )
 from gigl_tpu_torch.ops import _build
+from gigl_tpu_torch.ops import ell as edge_ops
 from gigl_tpu_torch.ops import segment as segment_ops
 from gigl_tpu_torch.ops.attention import (
     _fanout_attention_bwd_plain,
@@ -1280,3 +1290,274 @@ def test_typed_training_steps_on_card_match_cpu(dev):
                     assert _build.launches[k] > 0, (conv, k)
             losses[device.type] = got.cpu().numpy()
         np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+# -- edge features: K6 / K6b gine, K11, K7 / K7b edge addend and bias -------------
+def _edge_case(dev, n_nodes, d, dtype, seed=7, edgeless=False):
+    """An ELL graph with a 400-out-degree hub source and empty buckets
+    (widths up to 256, in-degrees below 64), its input rows and an edge
+    table (GINE's width)."""
+    if edgeless:
+        src = dst = np.zeros((0,), np.int64)
+    else:
+        src, dst = _hub_graph(n_nodes, seed, 400)
+    ell = EllGraph.from_csr(build_csr(src, dst, num_anchor_nodes=n_nodes,
+                                      num_neighbor_nodes=n_nodes),
+                            widths=(4, 8, 16, 32, 64, 128, 256), device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n_nodes, d), generator=g, device=dev).to(dtype)
+    ea = torch.randn((len(src), d), generator=g, device=dev).to(dtype)
+    return ell, x, ea, g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [128, 12, 5])
+@pytest.mark.parametrize("with_edges", [True, False])
+def test_ell_gine_forward_and_backward_match_plain(dev, dtype, d,
+                                                   with_edges):
+    """K6 gine per bucket, K6b gine over the transpose walk and K11 gine,
+    against their twins; empty buckets launch nothing; odd widths take the
+    one-element path."""
+    ell, x, ea, g = _edge_case(dev, 700, d, dtype)
+    assert any(hi == lo for lo, hi in zip(ell.boundaries,
+                                          ell.boundaries[1:]))
+    ea = ea if with_edges else None
+    _build.reset_launches()
+    for b in range(len(ell.widths)):
+        lo, hi = ell.boundaries[b], ell.boundaries[b + 1]
+        if hi == lo:
+            continue
+        eslot = None if ea is None else ell.edge_slots[b]
+        got = _ell_aggregate_fwd(x, ell.nbr[b], ell.mask[b], "gine", ea=ea,
+                                 eslot=eslot)
+        want = _ell_aggregate_plain(x, ell.nbr[b], ell.mask[b], "gine",
+                                    ea=ea, eslot=eslot)
+        _within(got, want, dtype, floor=1.0)
+    gout = torch.randn(x.shape, generator=g, device=dev).to(dtype)
+    got = ell_transpose_aggregate(gout, ell, "gine", table=x, ea=ea)
+    want = _ell_transpose_plain(gout, ell, "gine", table=x, ea=ea)
+    _within(got, want, dtype, floor=1.0)
+    assert not got[ell.rank[:3].long()].any()     # sources without out-edges
+    if ea is not None:
+        got = edge_ops.ell_edge_grad(gout, ell, "gine", x=x, ea=ea)
+        want = edge_ops._ell_edge_grad_plain(gout, ell, "gine", x, ea)
+        assert torch.equal(got, want)             # a permutation and a gate
+        assert _build.launches["ell_edge_grad"] == 1
+    torch.cuda.synchronize()
+    nonempty = sum(hi > lo for lo, hi in zip(ell.boundaries,
+                                             ell.boundaries[1:]))
+    assert _build.launches["ell_aggregate"] == nonempty
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["gat", "transformer"])
+@pytest.mark.parametrize("heads,dh", [(1, 8), (3, 5), (4, 64)])
+def test_ell_edge_grad_matches_plain(dev, dtype, mode, heads, dh):
+    ell, _, _, g = _edge_case(dev, 700, heads * dh, dtype)
+    d, p = heads * dh, ell.ent_row.shape[0]
+    gout, xd = (torch.randn((700, d), generator=g, device=dev).to(dtype)
+                for _ in range(2))
+    alpha = torch.rand((p, heads), generator=g, device=dev)
+    coef = torch.randn((p, heads), generator=g, device=dev)
+    vec = torch.randn(d, generator=g, device=dev)
+    kw = dict(alpha=alpha, coef=coef, heads=heads,
+              vec=vec if mode == "gat" else None,
+              xd=xd if mode == "transformer" else None)
+    got = edge_ops.ell_edge_grad(gout, ell, mode, **kw)
+    want = edge_ops._ell_edge_grad_plain(gout, ell, mode, **kw)
+    assert got.shape == (ell.num_edges, d) and got.dtype == dtype
+    _within(got, want, dtype)
+
+
+def test_ell_edge_grad_edgeless_graph(dev):
+    ell, x, ea, _ = _edge_case(dev, 50, 8, torch.float32, edgeless=True)
+    _build.reset_launches()
+    got = edge_ops.ell_edge_grad(x, ell, "gine", x=x, ea=ea)
+    assert got.shape == (0, 8) and _build.launches["ell_edge_grad"] == 1
+    out = ell_aggregate_graph(x, ell, "gine", ea=ea)
+    assert not out.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["gat", "transformer"])
+@pytest.mark.parametrize("heads,dh", [(1, 8), (3, 5), (4, 64)])
+def test_fanout_attention_edge_addend_matches_plain(dev, dtype, mode, heads,
+                                                    dh):
+    """K7 and K7b (ELL layout) with the edge rows added to every slot's
+    key and value, per bucket of an ELL graph with empty buckets."""
+    hd = heads * dh
+    ell, _, _, g = _edge_case(dev, 700, hd, dtype)
+    xd, ks, vs, gout = (torch.randn((700, hd), generator=g, device=dev)
+                        .to(dtype) for _ in range(4))
+    he = torch.randn((ell.num_edges, hd), generator=g, device=dev).to(dtype)
+    if mode == "gat":
+        vs = ks
+    att, att2 = (torch.randn(hd, generator=g, device=dev) * 0.3
+                 for _ in range(2))
+    att, att2 = (att, att2) if mode == "gat" else (None, None)
+    for b in range(len(ell.widths)):
+        lo, hi = ell.boundaries[b], ell.boundaries[b + 1]
+        if hi == lo:
+            continue
+        nbr, mask, es = ell.nbr[b], ell.mask[b], ell.edge_slots[b]
+        stats = torch.empty((hi - lo, heads, 2), device=dev)
+        out = _fanout_attention_fwd(xd[lo:hi], ks, vs, nbr, mask, mode,
+                                    heads, att, att2, 0.2, stats=stats,
+                                    he=he, eidx=es)
+        want = _fanout_attention_plain(xd[lo:hi], ks, vs, nbr, mask, mode,
+                                       heads, att, att2, 0.2, he=he, eidx=es)
+        _within(out, want, dtype, floor=1.0)
+        got = fanout_attention_bwd(gout[lo:hi], xd[lo:hi], ks, vs, nbr, mask,
+                                   out, stats, mode, heads, att, att2, 0.2,
+                                   he=he, eidx=es)
+        wb = _fanout_attention_bwd_plain(gout[lo:hi], xd[lo:hi], ks, vs, nbr,
+                                         mask, out, mode, heads, att, att2,
+                                         0.2, he=he, eidx=es)
+        for name in ("d_xd", "alpha", "coef", "d_att"):
+            a, w = getattr(got, name), getattr(wb, name)
+            if a is not None:
+                _within(a, w, dtype, floor=1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,dh", [(1, 8), (3, 5), (4, 32)])
+def test_fanout_attention_block_bias_matches_plain(dev, dtype, heads, dh):
+    """K7 / K7b's per-slot logit bias (SimpleHGN's relation term) in the
+    dense-block layout, with all-masked rows and an all-masked column
+    group: forward, d_xd, d_ks, d_att and the per-entry coefficient (the
+    bias's cotangent)."""
+    n, w, hd = 40, 12, heads * dh
+    g = torch.Generator(device=dev).manual_seed(9)
+    nbr = torch.arange(n * w, dtype=torch.int32, device=dev).reshape(n, w)
+    mask = torch.rand((n, w), generator=g, device=dev) < 0.6
+    mask[:2] = False
+    mask[:, 8:] = False                      # a relation with no valid slot
+    xd, gout = (torch.randn((n, hd), generator=g, device=dev).to(dtype)
+                for _ in range(2))
+    ks = torch.randn((n * w, hd), generator=g, device=dev).to(dtype)
+    att, att2 = (torch.randn(hd, generator=g, device=dev) * 0.3
+                 for _ in range(2))
+    bias = torch.randn((w, heads), generator=g, device=dev)
+    stats = torch.empty((n, heads, 2), device=dev)
+    out = _fanout_attention_fwd(xd, ks, ks, nbr, mask, "gat", heads, att,
+                                att2, 0.2, stats=stats, bias=bias)
+    want = _fanout_attention_plain(xd, ks, ks, nbr, mask, "gat", heads, att,
+                                   att2, 0.2, bias=bias)
+    _within(out, want, dtype, floor=1.0)
+    assert not out[:2].any()
+    got = fanout_attention_bwd(gout, xd, ks, ks, nbr, mask, out, stats,
+                               "gat", heads, att, att2, 0.2, identity=True,
+                               same_table=True, bias=bias)
+    wb = _fanout_attention_bwd_plain(gout, xd, ks, ks, nbr, mask, out, "gat",
+                                     heads, att, att2, 0.2, True, True,
+                                     bias=bias)
+    for name in ("d_xd", "coef", "d_ks", "d_att"):
+        _within(getattr(got, name), getattr(wb, name), dtype, floor=1.0)
+    assert not got.coef.reshape(n, w, heads)[:, 8:].any()
+
+
+def test_edge_featured_encode_ell_gradients_on_card_match_cpu(dev):
+    """The new autograd paths on the card (ROADMAP C3's lesson): encode_ell
+    with edge features for GINE, EdgeAttrGAT and the Transformer — every
+    parameter's gradient (edge_in_proj's, lin_edge's) and the edge rows'
+    against the CPU's, fp32, with K6 / K6b gine or K7 / K7b and K11
+    launched."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    src, dst, x, _ = _small_graph()
+    ea = np.random.default_rng(3).normal(size=(len(src), 5)).astype(
+        np.float32)
+    csr = build_csr(src, dst, num_anchor_nodes=N)
+    for conv, kw in (("gine", None), ("edge_attr_gat", {"heads": 4}),
+                     ("transformer", {"heads": 4, "use_edge_attr": True})):
+        grads = {}
+        for device in (dev, torch.device("cpu")):
+            enc = GNNEncoder(16, 16, 8, conv=conv, conv_kwargs=kw,
+                             edge_dim=5)
+            init_params(enc, 0)
+            enc.to(device)
+            ell = EllGraph.from_csr(csr, widths=(4, 8, 16, 32, 64, 128, 256,
+                                                 512), device=device)
+            tea = torch.from_numpy(ea).to(device).requires_grad_()
+            w = torch.from_numpy(np.random.default_rng(2).normal(
+                size=(N, 8)).astype(np.float32)).to(device)
+            _build.reset_launches()
+            out = enc.encode_ell(torch.from_numpy(x).to(device), ell, tea)
+            assert out.grad_fn is not None
+            (out * w).sum().backward()
+            grads[device.type] = {k: p.grad.cpu()
+                                  for k, p in enc.named_parameters()}
+            grads[device.type]["edge_attr"] = tea.grad.cpu()
+            if device.type == "cuda":
+                names = (("ell_aggregate", "ell_transpose_aggregate")
+                         if conv == "gine" else
+                         ("fanout_attention", "fanout_attention_bwd"))
+                for k in names + ("ell_edge_grad",):
+                    assert _build.launches[k] > 0, (conv, k)
+        floor = 1e-2 * max(float(v.abs().max())
+                           for v in grads["cpu"].values())
+        for k, v in grads["cpu"].items():
+            err = float((grads["cuda"][k] - v).abs().max())
+            scale = max(float(v.abs().max()), floor)
+            assert err <= 1e-4 * scale, (conv, k, err, scale)
+
+
+def test_label_edge_and_simple_hgn_steps_on_card_match_cpu(dev):
+    """Three NALP steps with message-edge features (EdgeAttrGAT, live:
+    K3 hydrates the edge rows) and the label-edge scorer, and three typed
+    SimpleHGN steps with the scorer (K7 / K7b with the relation bias), on
+    the card against the CPU: losses within 1e-4 relative."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    src, dst, x, _ = _small_graph()
+    rng = np.random.default_rng(4)
+    ea = rng.normal(size=(len(src), 4)).astype(np.float32)
+    sup_ef = rng.normal(size=(len(src), 3)).astype(np.float32)
+    anchors = rng.integers(0, N, (3, 64))
+    losses = {}
+    for device in (dev, torch.device("cpu")):
+        g = DeviceGraph.from_hetero(
+            HeteroGraph.homogeneous(src, dst, num_nodes=N, node_features=x,
+                                    edge_features=ea),
+            supervision_edges=np.stack([src, dst]),
+            supervision_edge_features=sup_ef, device=device)
+        model = LinkPredictionGNN(
+            GNNEncoder(16, 32, 16, conv="edge_attr_gat",
+                       conv_kwargs={"heads": 4}, edge_dim=4),
+            LinkPredictionDecoder(), EdgeFeatureScorer(3, 8))
+        tr = NALPTrainer(model, g, NALPTrainerConfig(fanouts=(5, 3),
+                                                     num_random_negs=64),
+                         device=device)
+        st = tr.init_state(0)
+        _build.reset_launches()
+        st, got = tr.train_steps(st, anchors)
+        if device.type == "cuda":
+            for k in ("sample_uniform", "gather_rows", "fanout_attention",
+                      "fanout_attention_bwd", "retrieval_loss"):
+                assert _build.launches[k] > 0, k
+        losses[device.type] = got.cpu().numpy()
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    graph, paths, types = _typed_graph()
+    writes = EdgeType.from_str(types[0])
+    n_writes = graph.edges[writes].shape[1]
+    feats = rng.normal(size=(n_writes, 3)).astype(np.float32)
+    typed_anchors = rng.integers(0, 500, (3, 64))
+    for device in (dev, torch.device("cpu")):
+        model = HeteroLinkPredictionGNN(HeteroGNNEncoder(
+            32, 16, ("author", "paper"), types, {"author": 12, "paper": 20},
+            conv="simple_hgn", heads=4), LinkPredictionDecoder(),
+            EdgeFeatureScorer(3, 8))
+        tr = HeteroNALPTrainer(
+            model, HeteroDeviceGraph.from_hetero(
+                graph, paths, supervision_edge_type=writes,
+                supervision_edges=graph.edges[writes],
+                supervision_edge_features=feats, device=device),
+            paths, HeteroNALPTrainerConfig("paper", "author",
+                                           num_random_negs=64),
+            device=device)
+        st = tr.init_state(0)
+        _build.reset_launches()
+        st, got = tr.train_steps(st, typed_anchors)
+        if device.type == "cuda":
+            for k in ("fanout_attention", "fanout_attention_bwd"):
+                assert _build.launches[k] > 0, k
+        losses[device.type] = got.cpu().numpy()
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

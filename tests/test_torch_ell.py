@@ -236,18 +236,34 @@ def test_run_full_graph_inference_guards():
 
 
 def test_edge_features_raise():
+    """Edge features run on the ELL path (tests/test_torch_edge_features.py);
+    the convs without edge features ignore them, as the reference's blocks
+    do. What still raises: a table of the wrong length, an edge conv built
+    without ``edge_dim`` given edge rows, GATv2 with edge rows on the ELL
+    path (ROADMAP A9, edges) and edge features on the COO path (slice 8)."""
     src, dst, x = _graph()
     tell = ell.EllGraph.from_csr(build_csr(src, dst, num_anchor_nodes=N),
                                  device="cpu")
     enc = GNNEncoder(DIN, HID, OUT)
     ea = torch.zeros((len(src), 4))
-    with pytest.raises(NotImplementedError, match="ell_gather_edges"):
-        enc.encode_ell(torch.from_numpy(x), tell, ea)
-    with pytest.raises(NotImplementedError, match="ell_gather_edges"):
-        ell.ell_layer(enc.convs[0], torch.from_numpy(x), tell, ea)
+    with torch.inference_mode():
+        np.testing.assert_array_equal(
+            enc.encode_ell(torch.from_numpy(x), tell, ea).numpy(),
+            enc.encode_ell(torch.from_numpy(x), tell).numpy())
+    with pytest.raises(ValueError, match="rows for"):
+        ell.ell_layer(enc.convs[0], torch.from_numpy(x), tell, ea[1:])
     for conv in ("gine", "edge_attr_gat"):
-        with pytest.raises(NotImplementedError, match="ell_gather_edges"):
-            GNNEncoder(DIN, HID, OUT, conv=conv)
+        assert len(GNNEncoder(DIN, HID, OUT, conv=conv).convs) == 2
+    with pytest.raises(ValueError, match="without edge_dim"):
+        GNNEncoder(DIN, HID, OUT, conv="edge_attr_gat").encode_ell(
+            torch.from_numpy(x), tell, ea)
+    v2 = GNNEncoder(DIN, HID, OUT, conv="gatv2", edge_dim=4,
+                    conv_kwargs={"use_edge_attr": True})
+    with pytest.raises(NotImplementedError, match="A9, edges"):
+        v2.encode_ell(torch.from_numpy(x), tell, ea)
+    ts, td = (torch.as_tensor(a.astype(np.int32)) for a in (src, dst))
+    with pytest.raises(NotImplementedError, match="slice 8"):
+        enc.encode_coo(torch.from_numpy(x), ts, td, N, ea)
 
 
 def _ref_layer_agg(jell, op):

@@ -268,8 +268,9 @@ def test_fit_with_dropout_trains():
 
 def test_what_is_not_ported_raises():
     """Without the ELL tables the trainer runs the COO path
-    (tests/test_torch_coo.py); edge features and GATv2's coo form are not
-    ported."""
+    (tests/test_torch_coo.py); edge features there (slice 8) and GATv2's
+    coo form are not ported. ELL data with edge features trains
+    (tests/test_torch_edge_features.py)."""
     _, pg = _graphs()
     data = fb.full_batch_data_from_graph(pg, build_ell=False, device="cpu")
     assert data.ell is None and data.index is not None
@@ -278,9 +279,17 @@ def test_what_is_not_ported_raises():
     t.init_state(0)
     with pytest.raises(NotImplementedError, match="A9, GATv2 coo"):
         t.logits()
-    with pytest.raises(NotImplementedError, match="B6 edges"):
+    with pytest.raises(NotImplementedError, match="slice 8"):
         fb.FullBatchTrainer(GNNEncoder(DIN, HID, C), dataclasses.replace(
             data, edge_attr=torch.zeros(1)), device="cpu")
+    ell_data = fb.full_batch_data_from_graph(pg, device="cpu")
+    ea = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(ell_data.src.shape[0], 3)).astype(np.float32))
+    t = fb.FullBatchTrainer(
+        GNNEncoder(DIN, HID, C, conv="edge_attr_gat", edge_dim=3),
+        dataclasses.replace(ell_data, edge_attr=ea), device="cpu")
+    state, loss = t.train_step(t.init_state(0))
+    assert state.step == 1 and np.isfinite(float(loss))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             fb.full_batch_data_from_graph(pg)

@@ -284,11 +284,13 @@ def test_unported_options_raise():
                                for op in paths["paper"])}
     with pytest.raises(NotImplementedError, match="A2"):
         HeteroDeviceGraph.from_hetero(port_g, weighted, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12, label-edge"):
-        HeteroDeviceGraph.from_hetero(
-            port_g, paths, supervision_edge_type=EdgeType.from_str(WRITES),
-            supervision_edges=port_g.edges[EdgeType.from_str(WRITES)],
-            supervision_edge_features=np.zeros((200, 2)), device="cpu")
+    # label-edge features are ported (the graph keeps them in slot order)
+    n_writes = port_g.edges[EdgeType.from_str(WRITES)].shape[1]
+    with_ef = HeteroDeviceGraph.from_hetero(
+        port_g, paths, supervision_edge_type=EdgeType.from_str(WRITES),
+        supervision_edges=port_g.edges[EdgeType.from_str(WRITES)],
+        supervision_edge_features=np.zeros((n_writes, 2)), device="cpu")
+    assert with_ef.sup_edge_features.shape == (n_writes, 2)
     dg = HeteroDeviceGraph.from_hetero(
         port_g, paths, supervision_edge_type=EdgeType.from_str(WRITES),
         supervision_edges=port_g.edges[EdgeType.from_str(WRITES)],
@@ -297,14 +299,14 @@ def test_unported_options_raise():
     model = HeteroLinkPredictionGNN(
         HeteroGNNEncoder(HID, OUT, NODE_TYPES, EDGE_TYPES, DIMS),
         LinkPredictionDecoder())
-    # typed training runs (tests/test_torch_hetero_training.py); the
-    # label-edge-feature scorer does not
+    # typed training runs (tests/test_torch_hetero_training.py); a model
+    # without a label-edge scorer has no edge_score, as the reference's
     tr = HeteroNALPTrainer(model, dg, paths, HeteroNALPTrainerConfig(
         "paper", "author", num_random_negs=8), device="cpu")
     state = tr.init_state(0)
     state, loss = tr.train_step(state, np.arange(6))
     assert state.step == 1 and np.isfinite(float(loss))
-    with pytest.raises(NotImplementedError, match="A12, label-edge"):
+    with pytest.raises(ValueError, match="without an edge_scorer"):
         model.edge_score(torch.zeros(1, 2))
 
 

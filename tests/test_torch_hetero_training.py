@@ -406,18 +406,30 @@ def test_tabularized_fit_keeps_the_reference_tables():
 
 
 def test_label_edge_features_raise():
+    """Typed label-edge features are ported (the draws carry them,
+    tests/test_torch_label_edge_features.py holds them and the scorer to
+    JAX); what still raises, as in the reference: features without their
+    edges, and ``edge_score`` on a model without a scorer."""
     port_g, _, edges, _ = _dblp_graphs()
     paths, _ = _yaml_paths()
-    with pytest.raises(NotImplementedError, match="A12, label-edge"):
+    feats = np.arange(edges[WRITES].shape[1] * 2, dtype=np.float32).reshape(
+        -1, 2)
+    dg = HeteroDeviceGraph.from_hetero(
+        port_g, paths, supervision_edge_type=EdgeType.from_str(WRITES),
+        supervision_edges=edges[WRITES], supervision_edge_features=feats,
+        device="cpu")
+    pos, mask, ef = dg.sample_positives_with_feats(
+        torch.arange(8, dtype=torch.int32), 2, seed=0, step=0)
+    assert ef.shape == (8, 2, 2)
+    assert bool((ef[~mask] == 0).all())
+    with pytest.raises(ValueError, match="needs supervision_edges"):
         HeteroDeviceGraph.from_hetero(
             port_g, paths, supervision_edge_type=EdgeType.from_str(WRITES),
-            supervision_edges=edges[WRITES],
-            supervision_edge_features=np.zeros((edges[WRITES].shape[1], 2)),
-            device="cpu")
+            supervision_edge_features=feats, device="cpu")
     model = HeteroLinkPredictionGNN(
         HeteroGNNEncoder(16, 8, NODE_TYPES, EDGE_TYPES, DIMS),
         LinkPredictionDecoder())
-    with pytest.raises(NotImplementedError, match="A12, label-edge"):
+    with pytest.raises(ValueError, match="without an edge_scorer"):
         model.edge_score(torch.zeros(1, 2))
 
 

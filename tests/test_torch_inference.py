@@ -195,11 +195,17 @@ def test_unported_branches_raise():
     for kw in ({"quantize_features": True}, {"sampling_weight_index": 0}):
         with pytest.raises(NotImplementedError, match="not ported"):
             DeviceGraph.from_hetero(g, device="cpu", **kw)
+    # edge features are ported: the graph keeps them in CSR slot order
+    # (tests/test_torch_edge_features.py holds hydrate_edges to JAX); label
+    # edge features still need their edges, as in the reference
     ge = HeteroGraph.homogeneous(src=src, dst=dst, num_nodes=N,
                                  node_features=x,
                                  edge_features=np.ones((len(src), 2)))
-    with pytest.raises(NotImplementedError, match="hydrate_edges"):
-        DeviceGraph.from_hetero(ge, device="cpu")
+    assert DeviceGraph.from_hetero(ge, device="cpu").edge_features.shape \
+        == (len(src), 2)
+    with pytest.raises(ValueError, match="needs supervision_edges"):
+        DeviceGraph.from_hetero(ge, device="cpu",
+                                supervision_edge_features=np.ones((3, 2)))
 
 
 _GUARD = r"""

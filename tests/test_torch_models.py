@@ -158,8 +158,12 @@ def test_cached_agg_kind_and_unported_options():
     assert encoders.CACHEABLE_CONVS == ref_enc.CACHEABLE_CONVS
     with pytest.raises(ValueError, match="not hop-cacheable"):
         encoders.cached_agg_kind("gat")
+    # GINE is ported (tests/test_torch_edge_features.py); the encoder
+    # options below are not
+    assert all(isinstance(c, convs.GINEConv) for c in encoders.GNNEncoder(
+        DIN, DIN, OUT, conv="gine").convs)
     with pytest.raises(NotImplementedError, match="not ported"):
-        encoders.GNNEncoder(DIN, HID, OUT, conv="gine")
+        encoders.GNNEncoder(DIN, HID, OUT, jk_mode="cat")
     with pytest.raises(NotImplementedError, match="not ported"):
         encoders.GNNEncoder(DIN, HID, OUT, batchnorm=True)
     with pytest.raises(NotImplementedError, match="not ported"):
