@@ -113,7 +113,29 @@
    features on the author-writes-paper edges and the scorer; and SimpleHGN
    (4 heads, hidden 128, out 64) on K7 with its relation bias:
    encode_batch and training;
-12. prints one JSON line with every kernel's numbers, then the card line,
+12. times K7 and K7b in their GAT mode with SimpleHGN's relation bias
+   alone, at the largest dense block of a SimpleHGN training step (its own
+   inputs, recorded from the step), against their plain versions;
+13. quantized tables and the logQ correction on the flagship NALP path:
+   DeviceGraph.from_hetero(quantize_features=True) (int8 features, 4x
+   smaller), then holds K12 gather_rows_q8 (the step's 512 x 15 first-hop
+   rows with their degrees, and the whole table; beside K3 over the fp32
+   rows), K13 cms_add and K14 cms_estimate (the 1,024 candidate ids of a
+   real first step, on a fresh sketch and on one that has counted 20
+   steps; yardstick scatter_add_), K2 in its int8 mode over the whole
+   graph and K5 with the logQ term at [512, 1024] bf16 against their plain
+   versions (bit-equal where integer or one rounding); one step of
+   NALPTrainer(cached_hop=True, quantize_cache=True, use_cms_correction=
+   True) against the same step through the plain versions, and the sketch
+   after a step against a plain recount of its candidates; then the path
+   (5 + 200 steps, 20 profiled; the refresh timed: K2 int8 and the host
+   quantize) with the launch counts reset just before and read just
+   after, the sketch's total checked (205 x 1024), the step's host cost
+   in turns (phase 6's fp32 fused-table step, the int8 tables without the
+   sketch, with it: 50 steps a turn, A B C C B A), and run_inference over
+   every node of the quantized graph (batch 0 recomputed through the plain
+   versions);
+14. prints one JSON line with every kernel's numbers, then the card line,
    then {"ok": true, ...} as the last line.
 
 Any failed check raises; nothing is printed as a result without a card.
@@ -121,6 +143,7 @@ It imports neither JAX nor the JAX package.
 """
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -225,6 +248,15 @@ EDGE_TYPED_KERNELS = {
     "simple_hgn": ("sample_uniform", "uniform_ids", "gather_rows",
                    "fanout_attention", "fanout_attention_bwd",
                    "retrieval_loss")}
+# quantized tables and the logQ correction (phase 13): the flagship NALP
+# path over int8 features and cache with the count-min sketch
+QUANT_TRAIN_KERNELS = ("sample_uniform", "uniform_ids",
+                       "build_neighbor_cache", "gather_rows", "masked_reduce",
+                       "masked_reduce_bwd", "retrieval_loss",
+                       "gather_rows_q8", "cms_add", "cms_estimate")
+QUANT_INFERENCE_KERNELS = ("gather_rows", "gather_rows_q8", "masked_reduce")
+MID_STEPS = 20              # the sketch K14 and K5's logQ mode are held on
+AB_STEPS = 50               # steps per turn of the host-cost comparison
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 # ReLU gates the plain step may see on the other side of 0 (fp32 rounding)
@@ -329,18 +361,20 @@ def profile_summary(prof, steps, window_us, host_ms_per_step):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Every kernel wrapper of the training, full-graph and typed paths
-    replaced by its plain PyTorch twin, on whatever device the tensors are:
+    """Every kernel wrapper of the training, full-graph, typed and
+    quantized paths replaced by its plain PyTorch twin, on whatever device
+    the tensors are:
     the same step or pass computed without a kernel, on the card. The
     segment ops become their forward twins, differentiated by PyTorch's
     autograd (not the port's backward kernels); the retrieval loss runs
     its twins inside its autograd.Function."""
-    from gigl_tpu_torch.losses import losses
+    from gigl_tpu_torch.losses import count_min_sketch, losses
     from gigl_tpu_torch.models import convs, hetero_convs
     from gigl_tpu_torch.ops import (
-        attention, ell, ell_aggregate, fanout, gather, retrieval, segment)
+        attention, ell, ell_aggregate, fanout, gather, quantized, retrieval,
+        segment)
     from gigl_tpu_torch.sampling import neighbor_sampler
-    from gigl_tpu_torch.training import dataset, hetero_dataset
+    from gigl_tpu_torch.training import dataset, hetero_dataset, trainer
 
     def agg_fwd(x, nbr, mask, op, deg_dst=None, deg_tab=None, out=None,
                 ea=None, eslot=None):
@@ -412,7 +446,12 @@ def plain_kernels():
         (hetero_dataset, "expand_table", gather._expand_table_plain),
         (dataset, "uniform_ids", neighbor_sampler._uniform_ids_plain),
         (losses, "retrieval_fwd", retrieval._retrieval_fwd_plain),
-        (losses, "retrieval_bwd", retrieval._retrieval_bwd_plain)]
+        (losses, "retrieval_bwd", retrieval._retrieval_bwd_plain),
+        (dataset, "expand_table", gather._expand_table_plain),
+        (quantized, "gather_rows_q8", quantized._gather_rows_q8_plain),
+        (trainer, "cms_add", count_min_sketch._cms_add_plain),
+        (trainer, "cms_sampling_probability",
+         count_min_sketch._cms_probability_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
     for m, n, f in patches:
         setattr(m, n, f)
@@ -1333,6 +1372,88 @@ def edge_gate_flips(ell, mode, slope=0.2):
         ell_mod._ell_edge_grad_plain = orig_p
 
 
+def simple_hgn_bias_timing(loss_fn, add_mode, rel_err, gen):
+    """K7 and K7b in their GAT mode with SimpleHGN's per-slot relation bias,
+    alone, at the largest dense block of one SimpleHGN training step
+    (recorded from the step's own K7 calls: its inputs, masks and bias),
+    against their plain versions, beside their byte bounds; added as the
+    ``simple_hgn_bias`` mode of both kernel rows."""
+    from gigl_tpu_torch.ops import attention
+
+    fwd, seen = attention._fanout_attention_fwd, []
+
+    def recorder(xd, ks, vs, nbr, mask, mode, heads, att, att2, slope,
+                 **kw):
+        if kw.get("bias") is not None and (
+                not seen or nbr.numel() > seen[0][3].numel()):
+            seen[:] = [tuple(t.detach() if torch.is_tensor(t) else t
+                             for t in (xd, ks, vs, nbr, mask, mode, heads,
+                                       att, att2, slope, kw["bias"]))]
+        return fwd(xd, ks, vs, nbr, mask, mode, heads, att, att2, slope,
+                   **kw)
+
+    attention._fanout_attention_fwd = recorder
+    try:
+        with torch.no_grad():
+            loss_fn()
+    finally:
+        attention._fanout_attention_fwd = fwd
+    check(len(seen) == 1, "the SimpleHGN step launched no K7 with a bias")
+    xd, ks, vs, nbr, mask, mode, heads, att, att2, slope, bias = seen[0]
+    n, w = nbr.shape
+    hd, es = xd.shape[1], xd.element_size()
+    stats = torch.empty((n, heads, 2), device=xd.device)
+
+    def k7():
+        return attention._fanout_attention_fwd(
+            xd, ks, vs, nbr, mask, mode, heads, att, att2, slope,
+            stats=stats, bias=bias)
+
+    def k7_plain():
+        return attention._fanout_attention_plain(
+            xd, ks, vs, nbr, mask, mode, heads, att, att2, slope, bias=bias)
+
+    out = k7()
+    err = rel_err(out, k7_plain(), "K7 simple_hgn bias", tol=1e-5)
+    valid = int(mask.sum())
+    # bytes: xd, the block's slot rows (the dense layout: each read once),
+    # the mask and the [W, H] bias read, out written; ops: per valid slot
+    # and value a logit term, an exp-weighted add (~4).
+    nbytes = (n * hd + n * w * hd + n * hd) * es + n * w + w * heads * 4
+    add_mode("fanout_attention", "simple_hgn_bias", {
+        "err": err, "ms": cuda_ms(k7), "plain_ms": cuda_ms(k7_plain, reps=3),
+        "eager_ms": eager_ms(k7),
+        "bound_ms": bound_ms(nbytes, valid * hd * 4)[0],
+        "block": [n, w], "heads": heads, "width": hd,
+        "dtype": str(xd.dtype).replace("torch.", "")})
+    g = torch.randn(out.shape, generator=gen, device=xd.device).to(xd.dtype)
+
+    def k7b():
+        return attention.fanout_attention_bwd(
+            g, xd, ks, vs, nbr, mask, out, stats, mode, heads, att, att2,
+            slope, identity=True, same_table=True, bias=bias)
+
+    def k7b_plain():
+        return attention._fanout_attention_bwd_plain(
+            g, xd, ks, vs, nbr, mask, out, mode, heads, att, att2, slope,
+            True, True, bias=bias)
+
+    got, want = k7b(), k7b_plain()
+    err = max(rel_err(getattr(got, f_), getattr(want, f_),
+                      f"K7b simple_hgn bias {f_}", tol=1e-4)
+              for f_ in ("d_xd", "d_ks", "coef", "d_att"))
+    # bytes: g, xd, the slot rows, out, the statistics, the mask and the
+    # bias read; d_xd, d_ks and the per-slot coefficient written.
+    nbytes = ((3 * n * hd + n * w * hd) * es + n * heads * 8 + n * w
+              + w * heads * 4 + (n * hd + n * w * hd) * es
+              + n * w * heads * 4)
+    add_mode("fanout_attention_bwd", "simple_hgn_bias", {
+        "err": err, "ms": cuda_ms(k7b), "plain_ms": cuda_ms(k7b_plain, reps=3),
+        "eager_ms": eager_ms(k7b),
+        "bound_ms": bound_ms(nbytes, valid * hd * 7)[0],
+        "block": [n, w], "heads": heads, "width": hd})
+
+
 def edge_phases(dev, card, arrays, fb_data, typed, record, add_mode,
                 rel_err, unique, run_path):
     """Phase 11 (see the module docstring): edge features. The flagship
@@ -1345,8 +1466,6 @@ def edge_phases(dev, card, arrays, fb_data, typed, record, add_mode,
     run_inference over it), typed NALP training with label-edge features
     and the scorer, and SimpleHGN's block form. Returns {path: (launch
     counts, steps or passes)}."""
-    import dataclasses
-
     from gigl_tpu_torch.graph.csr import HeteroGraph
     from gigl_tpu_torch.inference.inferencer import (
         InferenceConfig, run_full_graph_inference, run_inference)
@@ -1766,6 +1885,9 @@ def edge_phases(dev, card, arrays, fb_data, typed, record, add_mode,
                     ref0 = trainer.encode_batch(ids0, nt)
                 rel_err(got0, ref0, f"simple_hgn encode_batch {nt}",
                         tol=1e-5)
+            simple_hgn_bias_timing(
+                lambda: trainer.loss(trainer.sample_batch(anchors_t[-1], 0)),
+                add_mode, rel_err, gen)
         vs = step_vs_plain(trainer.model, lambda: trainer.loss(
             trainer.sample_batch(anchors_t[-1], 0)), _build.launches,
             gated=False, symmetric=symmetric)
@@ -1781,6 +1903,366 @@ def edge_phases(dev, card, arrays, fb_data, typed, record, add_mode,
         emit({"phase": f"{path}_throughput", "model": conv, **row})
         del trainer, state, model
     del dg_t
+    return counts
+
+
+def quantized_phases(dev, card, graph, edges, record, add_mode, unique,
+                     make_model, opt_args, anchors, base):
+    """Phase 13 (see the module docstring): int8 quantized tables and the
+    count-min-sketch logQ correction on the flagship NALP path. K12, K13,
+    K14, K2's int8 mode and K5's logQ mode against their plain versions at
+    the path's shapes; one training step against the plain twins and the
+    sketch after it against a plain recount; then the path (5 + 200
+    steps, 20 profiled) and run_inference over every node, each with the
+    launch counts reset just before and read just after; then the host
+    cost of the path taken apart, in turns within this process: the fp32
+    fused-table step of phase 6 (``base``: its graph and config), the int8
+    tables without the sketch, and with it. Returns {path: (launch counts,
+    steps or passes)}."""
+    from gigl_tpu_torch.inference.inferencer import (
+        InferenceConfig, run_inference)
+    from gigl_tpu_torch.losses.count_min_sketch import (
+        _cms_add_plain, _cms_estimate_plain, _cms_hash_plain,
+        _cms_probability_plain, cms_add, cms_estimate, cms_init,
+        cms_sampling_probability)
+    from gigl_tpu_torch.losses.losses import retrieval_masks
+    from gigl_tpu_torch.ops import _build
+    from gigl_tpu_torch.ops.gather import gather_rows
+    from gigl_tpu_torch.ops.hopcache import (
+        _neighbor_cache_plain, build_neighbor_cache)
+    from gigl_tpu_torch.ops.quantized import (
+        _gather_rows_q8_plain, gather_rows_q8)
+    from gigl_tpu_torch.ops.retrieval import (
+        _retrieval_bwd_plain, _retrieval_fwd_plain, retrieval_bwd,
+        retrieval_fwd)
+    from gigl_tpu_torch.sampling.neighbor_sampler import (
+        _sample_uniform_plain)
+    from gigl_tpu_torch.training.dataset import DeviceGraph
+    from gigl_tpu_torch.training.trainer import (
+        NALPTrainer, NALPTrainerConfig)
+
+    k1, k2 = FANOUTS
+    counts = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qg = DeviceGraph.from_hetero(graph, supervision_edges=edges,
+                                 quantize_features=True, device=dev)
+    torch.cuda.synchronize()
+    xq, csr, deg = qg.node_features, qg.message_csr, qg.degrees
+    x32 = torch.as_tensor(np.asarray(graph.node_features[
+        graph.metadata.node_types[0]]), device=dev)
+    emit({"phase": "quantized_graph", "seconds": time.perf_counter() - t0,
+          "feature_bytes": xq.nbytes, "feature_bytes_fp32": N * D * 4})
+    qcfg = NALPTrainerConfig(fanouts=FANOUTS, num_random_negs=R,
+                             loss_type="retrieval", num_positives=1,
+                             cached_hop=True, quantize_cache=True,
+                             use_cms_correction=True)
+    # a trainer for the checks (its launches are not the path's)
+    chk = NALPTrainer(make_model(), qg, qcfg, optimizer_args=opt_args)
+    state = chk.init_state(0, batch_size=BATCH)
+    a0 = torch.as_tensor(anchors[0], device=dev)
+
+    # -- K12 at the step's largest hydrate (the 512 x 15 first-hop rows,
+    # with the degrees) and over the whole table. bytes: ids read, each
+    # distinct int8 row with its scale and degree read once, the fp32 rows
+    # and degrees written; ops: one multiply per value.
+    lvl = chk.graph.sample_hop_blocks_tabularized(a0, (k1,)).node_ids[1]
+    ids_whole = torch.arange(N, dtype=torch.int32, device=dev)
+
+    def k12_case(ids):
+        def kern():
+            return gather_rows_q8(xq.q, xq.scale, ids, torch.float32, deg)
+
+        def plain():
+            return _gather_rows_q8_plain(xq.q, xq.scale, ids, torch.float32,
+                                         deg)
+
+        got, want = kern(), plain()
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              "K12 gather_rows_q8 is not bit-equal")
+        m, u = ids.numel(), unique(ids)
+        nbytes, nops = m * 4 + u * (D + 8) + m * (D * 4 + 4), m * D
+        return {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
+                "eager_ms": eager_ms(kern),
+                "k3_fp32_same_rows_ms": cuda_ms(
+                    lambda: gather_rows(x32, ids, deg)),
+                "bound_ms": bound_ms(nbytes, nops)[0], "nbytes": nbytes,
+                "nops": nops, "rows": m, "distinct_rows": u}
+
+    hyd, whole = k12_case(lvl), k12_case(ids_whole)
+    record("gather_rows_q8", "gigl_tpu_torch/csrc/gather_rows_q8.cu",
+           "gigl_tpu/ops/quantized.py:98", 0.0, hyd["ms"], hyd["plain_ms"],
+           nbytes=hyd["nbytes"], nops=hyd["nops"], rows=hyd["rows"],
+           distinct_rows=hyd["distinct_rows"], width=D,
+           k3_fp32_same_rows_ms=hyd["k3_fp32_same_rows_ms"],
+           eager_ms=hyd["eager_ms"],
+           whole_table={k_: v_ for k_, v_ in whole.items()
+                        if k_ not in ("nbytes", "nops")})
+
+    # -- K13 / K14 on the candidate ids of a real first step (C = 1024:
+    # the positives, then the random negatives)
+    batch0 = chk.sample_batch(a0, 0)
+    cids = torch.cat([batch0.pos.reshape(-1), batch0.random_neg])
+    check(cids.shape == (BATCH + R,), "step 0 has not 1024 candidates")
+    sk0 = cms_init(device=dev)
+    got, want = cms_add(sk0, cids), _cms_add_plain(sk0, cids)
+    check(torch.equal(got.table, want.table)
+          and torch.equal(got.total, want.total)
+          and int(got.total) == BATCH + R and not sk0.table.any(),
+          "K13 cms_add is not bit-equal to its recount")
+    depth, width = got.depth, got.width
+    buckets = _cms_hash_plain(cids, depth, width)
+    flat_b = (buckets + torch.arange(depth, device=dev)[:, None] * width
+              ).reshape(-1)
+    ones = torch.ones_like(flat_b, dtype=torch.int32)
+    scratch = torch.zeros(depth * width, dtype=torch.int32, device=dev)
+    # bytes: the table read and the new one written, the ids, the totals
+    record("cms_add", "gigl_tpu_torch/csrc/cms.cu",
+           "gigl_tpu/losses/count_min_sketch.py:50", 0.0,
+           cuda_ms(lambda: cms_add(sk0, cids)),
+           cuda_ms(lambda: _cms_add_plain(sk0, cids)),
+           nbytes=2 * depth * width * 4 + cids.numel() * 4 + 8,
+           nops=cids.numel() * depth * 12,
+           library_ms=cuda_ms(lambda: scratch.scatter_add_(0, flat_b, ones)),
+           library_call="scatter_add_ of ones into the flat table by the "
+                        "buckets (hashed beforehand, not timed)",
+           ids=cids.numel(), distinct_ids=unique(cids), depth=depth,
+           width=width, eager_ms=eager_ms(lambda: cms_add(sk0, cids)))
+    # K14 on a sketch that has counted the candidates of the first
+    # MID_STEPS steps (collisions make the estimates differ by column)
+    mid = got
+    for k_ in range(1, MID_STEPS):
+        b_ = chk.sample_batch(torch.as_tensor(anchors[k_], device=dev), k_)
+        mid = cms_add(mid, torch.cat([b_.pos.reshape(-1), b_.random_neg]))
+    got = cms_add(mid, cids)
+    want = _cms_add_plain(mid, cids)
+    est = cms_estimate(got, cids)
+    prob = cms_sampling_probability(got, cids)
+    check(torch.equal(got.table, want.table)
+          and torch.equal(est, _cms_estimate_plain(want, cids))
+          and torch.equal(prob, _cms_probability_plain(want, cids)),
+          "K14 cms_estimate is not bit-equal")
+    cells = sum(unique(buckets[r_]) for r_ in range(depth))
+    # bytes: the ids, the table cells the ids hash to, total read, the
+    # probabilities written
+    record("cms_estimate", "gigl_tpu_torch/csrc/cms.cu",
+           "gigl_tpu/losses/count_min_sketch.py:61", 0.0,
+           cuda_ms(lambda: cms_sampling_probability(got, cids)),
+           cuda_ms(lambda: _cms_probability_plain(got, cids)),
+           nbytes=cids.numel() * 8 + cells * 4 + 4,
+           nops=cids.numel() * depth * 13, ids=cids.numel(),
+           table_cells_read=cells, sketch_total=int(got.total),
+           distinct_estimates=unique(est),
+           est_ms=cuda_ms(lambda: cms_estimate(got, cids)),
+           eager_ms=eager_ms(lambda: cms_sampling_probability(got, cids)))
+
+    # -- K2 in its int8 mode over the whole graph (mean of 10 rows), beside
+    # the fp32 mode in the same call. bytes: indptr, the drawn slots, each
+    # drawn int8 row and scale once, the fp32 table written.
+    out2 = torch.empty((N, D), dtype=torch.float32, device=dev)
+    plain2 = torch.empty_like(out2)
+
+    def k2q():
+        return build_neighbor_cache(csr, xq, fanout=k2, seed=0, hop_key=2,
+                                    agg="mean", out=out2)
+
+    def k2q_plain():
+        return _neighbor_cache_plain(csr, xq, k2, 0, 2, "mean", None, plain2)
+
+    k2q()
+    k2q_plain()
+    torch.testing.assert_close(out2, plain2, rtol=1e-5, atol=1e-6)
+    d_ids, d_mask, d_slots = _sample_uniform_plain(csr.indptr, csr.indices,
+                                                   ids_whole, k2, 0, 2)
+    nbytes = ((N + 1) * 4 + unique(d_slots[d_mask]) * 4
+              + unique(d_ids[d_mask]) * (D + 4) + N * D * 4)
+    add_mode("build_neighbor_cache", "int8", {
+        "err": float((out2 - plain2).abs().max()), "ms": cuda_ms(k2q),
+        "ms_fp32_same_call": cuda_ms(lambda: build_neighbor_cache(
+            csr, x32, fanout=k2, seed=0, hop_key=2, agg="mean", out=out2)),
+        "plain_ms": cuda_ms(k2q_plain, reps=5), "eager_ms": eager_ms(k2q),
+        "bound_ms": bound_ms(nbytes, int(d_mask.sum()) * D * 2 + N * D)[0]})
+
+    # -- K5 with the logQ term on the step's [512, 1024] bf16 scores
+    with torch.no_grad():
+        q0, pos0, _, rand0 = chk._scores(chk.graph, batch0, train=True)
+        scores = chk.model.decode_all_pairs(
+            q0, torch.cat([pos0.reshape(BATCH, OUT), rand0]))
+    check(scores.shape == (BATCH, BATCH + R)
+          and scores.dtype == torch.bfloat16, "quantized step-0 scores are "
+          "not [512, 1024] bf16")
+    kw5 = dict(temperature=qcfg.temperature, query_ids=batch0.anchors,
+               candidate_ids=cids, remove_accidental_hits=True,
+               query_mask=batch0.pos_mask.reshape(-1),
+               candidate_mask=torch.cat([batch0.pos_mask.reshape(-1),
+                                         torch.ones(R, dtype=torch.bool,
+                                                    device=dev)]))
+    masks = retrieval_masks(candidate_sampling_probability=prob, **kw5)
+    masks0 = retrieval_masks(**kw5)
+    loss_k, cnt_k, lse_k, _ = retrieval_fwd(scores, masks)
+    loss_p, cnt_p, lse_p, _ = _retrieval_fwd_plain(scores, masks)
+    g5 = 1.0 / torch.clamp(cnt_k.float(), min=1.0)
+    ds_k = retrieval_bwd(scores, masks, lse_k, g5)
+    ds_p = _retrieval_bwd_plain(scores, masks, lse_p, g5)
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    check(int(cnt_k) == int(cnt_p) and loss_rel <= 1e-5,
+          f"K5 logQ loss_sum relative error {loss_rel} > 1e-5")
+    check(float(loss_k) != float(retrieval_fwd(scores, masks0)[0]),
+          "the logQ term did not move K5's loss")
+    ds_scale = float(ds_p.float().abs().max())
+    ulp = 2.0 ** (np.floor(np.log2(ds_scale)) - 7)
+    err5 = float((ds_k.float() - ds_p.float()).abs().max())
+    check(err5 <= ulp, f"K5 logQ dS error {err5} > one bf16 ulp {ulp}")
+    qc = BATCH * (BATCH + R)
+    ids_bytes = BATCH * 4 + (BATCH + R) * 4 + BATCH + (BATCH + R)
+    fwd_ms = cuda_ms(lambda: retrieval_fwd(scores, masks))
+    bwd_ms = cuda_ms(lambda: retrieval_bwd(scores, masks, lse_k, g5))
+    # bytes: K5's (see its row) and the [C] probabilities, read by each pass
+    add_mode("retrieval_loss", "logq", {
+        "err": err5, "loss_rel_err": loss_rel, "ms": fwd_ms + bwd_ms,
+        "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+        "ms_without_logq_same_call": cuda_ms(
+            lambda: retrieval_fwd(scores, masks0)) + cuda_ms(
+            lambda: retrieval_bwd(scores, masks0, lse_k, g5)),
+        "plain_ms": cuda_ms(lambda: _retrieval_fwd_plain(scores, masks))
+        + cuda_ms(lambda: _retrieval_bwd_plain(scores, masks, lse_p, g5)),
+        "bound_ms": bound_ms((qc * 2 + ids_bytes + (BATCH + R) * 4
+                              + BATCH * 8 + 8)
+                             + (qc * 4 + ids_bytes + (BATCH + R) * 4
+                                + BATCH * 4 + 4), qc * 15)[0],
+        "scores": [BATCH, BATCH + R], "dtype": "bfloat16"})
+    del scores, ds_k, ds_p
+
+    # -- one training step against the plain twins, then the sketch after a
+    # real step against a plain recount of its candidates
+    vs = step_vs_plain(chk.model,
+                       lambda: chk.loss_and_sketch(batch0, state.cms)[0],
+                       _build.launches, gated=False)
+    emit({"phase": "quantized_train_step_vs_plain", **vs})
+    # bf16 compute, as the flagship step's check (phase 5): K4's and K5's
+    # fp32 sums rounded in another order
+    check(vs["loss_rel_err"] <= 1e-2,
+          f"quantized step: loss differs from the plain step: {vs}")
+    check(vs["max_grad_err_rel_to_scale"] <= 5e-2,
+          f"quantized step: a gradient differs from the plain step: {vs}")
+    state, _ = chk.train_step(state, anchors[0])
+    recount = _cms_add_plain(cms_init(device=dev), cids)
+    check(torch.equal(state.cms.table, recount.table)
+          and int(state.cms.total) == BATCH + R,
+          "the sketch after a step differs from a recount of its candidates")
+    del chk, state
+
+    # -- the path: refresh (K2 int8 + the host quantize), 5 + 200 steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    trainer = NALPTrainer(make_model(), qg, qcfg, optimizer_args=opt_args)
+    state = trainer.init_state(0, batch_size=BATCH)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(1)
+    state, warm = trainer.train_steps(state, anchors[:WARMUP], gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, losses = trainer.train_steps(state, anchors, gen)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    path = "quantized_train"
+    counts[path] = (dict(_build.launches), WARMUP + STEPS)
+    peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+    emit({"phase": "main_path", "path": path, "launches": counts[path][0],
+          "init_s": init_s, "steps": WARMUP + STEPS})
+    for k in QUANT_TRAIN_KERNELS:
+        check(counts[path][0][k] > 0, f"{k} was not launched on {path}")
+    total = int(state.cms.total)
+    check(total == (WARMUP + STEPS) * (BATCH + R),
+          f"the sketch counted {total}, not {WARMUP + STEPS} x 1024")
+    losses = losses.float().cpu().numpy()
+    check(np.isfinite(losses).all() and np.isfinite(
+        warm.float().cpu().numpy()).all(), f"{path}: loss not finite")
+    first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+    check(last < first, f"{path}: loss did not decrease: {first} -> {last}")
+    ms_step = train_s / STEPS * 1e3
+    edges_per_step = (2 * k1 + k1 * k2) * (BATCH + BATCH + R)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = trainer.train_steps(state, anchors[:PROFILED], gen)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.refresh_cache(1)
+    torch.cuda.synchronize()
+    refresh_ms = (time.perf_counter() - t0) * 1e3
+    cache = trainer.graph.nbr_cache
+    # the step's host cost in turns (A B C C B A, AB_STEPS each)
+    dg, cfg = base
+    variants = {"fp32_fused": NALPTrainer(make_model(), dg, cfg,
+                                          optimizer_args=opt_args),
+                "int8_no_sketch": NALPTrainer(
+                    make_model(), qg, dataclasses.replace(
+                        qcfg, use_cms_correction=False),
+                    optimizer_args=opt_args),
+                "int8_sketch": trainer}
+    ab_state = {k_: (state if k_ == "int8_sketch" else
+                     t_.init_state(0, batch_size=BATCH))
+                for k_, t_ in variants.items()}
+    ab_ms = {k_: [] for k_ in variants}
+    for k_ in list(variants) + list(variants)[::-1]:
+        t_ = variants[k_]
+        ab_state[k_], _ = t_.train_steps(ab_state[k_], anchors[:5], gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ab_state[k_], _ = t_.train_steps(ab_state[k_], anchors[:AB_STEPS],
+                                         gen)
+        torch.cuda.synchronize()
+        ab_ms[k_].append((time.perf_counter() - t0) / AB_STEPS * 1e3)
+    state = ab_state["int8_sketch"]
+    del variants, ab_state
+    emit({"phase": "quantized_train_throughput", "steps": STEPS,
+          "ms_per_step": ms_step, "edges_per_step": edges_per_step,
+          "edges_per_s": edges_per_step / (ms_step / 1e3),
+          "loss_first20": first, "loss_last20": last,
+          "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+          "sketch_total": total, "peak_mem_gb": peak_gb,
+          "feature_table_bytes": xq.nbytes,
+          "cache_table_bytes": cache.nbytes,
+          "fp32_table_bytes_each": N * D * 4,
+          "refresh_ms": refresh_ms,
+          "ms_per_step_in_turns": ab_ms,
+          "profile": profile_summary(prof, PROFILED, window_us, ms_step),
+          "card": card})
+
+    # -- run_inference over every node on the quantized tables
+    sink = Sink()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    run_inference(trainer, N, sink, InferenceConfig(batch_size=BATCH))
+    torch.cuda.synchronize()
+    inf_s = time.perf_counter() - t0
+    path_i = "quantized_inference"
+    counts[path_i] = (dict(_build.launches), 1)
+    emit({"phase": "main_path", "path": path_i, "launches": counts[path_i][0],
+          "seconds": inf_s})
+    for k in QUANT_INFERENCE_KERNELS:
+        check(counts[path_i][0][k] > 0, f"{k} was not launched on {path_i}")
+    embs = sink.table(N, OUT, path_i)
+    with torch.inference_mode(), plain_kernels():
+        ref0 = trainer.encode_batch(np.arange(BATCH)).float().cpu().numpy()
+    err0 = float(np.abs(embs[:BATCH] - ref0).max())
+    scale0 = float(np.abs(ref0).max())
+    # bf16, as batch 0 of the sampled-inference path (phase 4)
+    check(err0 <= 3e-2 * scale0, f"{path_i}: batch 0 differs from the plain "
+          f"recomputation: {err0} vs {scale0}")
+    n_batches = -(-N // BATCH)
+    emit({"phase": "quantized_inference_throughput", "nodes": N,
+          "nodes_per_s": N / inf_s, "ms_per_batch": inf_s / n_batches * 1e3,
+          "batch0_max_abs_err": err0, "scale": scale0, "card": card})
+    del trainer, state, sink, embs, qg
     return counts
 
 
@@ -2824,6 +3306,9 @@ def main():
         dev, card, (src, dst, np.asarray(graph.node_features[
             graph.metadata.node_types[0]])), fb_data, typed_ctx, record,
         add_mode, rel_err, unique, run_path)
+    quant = quantized_phases(dev, card, graph, np.stack([src, dst]), record,
+                             add_mode, unique, make_model, opt_args, anchors,
+                             (dg, cfg))
 
     # launches on every kernel row: the training path's (K6 / K7: the
     # full-graph passes'; K6b / K7b: the node-classification paths'; K8-K10:
@@ -2847,6 +3332,8 @@ def main():
         elif k == "ell_edge_grad":
             row["launches"] = sum(c_[k] for p_, (c_, _) in edge.items()
                                   if p_.startswith("edge_full_batch"))
+        elif k in ("gather_rows_q8", "cms_add", "cms_estimate"):
+            row["launches"] = quant["quantized_train"][0][k]
         else:
             row["launches"] = sum(fg.values())
         row["launches_per_step"] = (launches[k] - after_init[k]) / (
@@ -2867,8 +3354,10 @@ def main():
             if p_.startswith("typed_train")}
         row["launches_per_edge_path_step"] = {
             p_: c_[k] / n_ for p_, (c_, n_) in edge.items()}
-    check(len(results) == len(_build.KERNEL_NAMES) == 18,
-          "the kernels line does not list all eighteen kernels")
+        row["launches_per_quantized_path_step"] = {
+            p_: c_[k] / n_ for p_, (c_, n_) in quant.items()}
+    check(len(results) == len(_build.KERNEL_NAMES) == 21,
+          "the kernels line does not list all twenty-one kernels")
     results.sort(key=lambda r: _build.KERNEL_NAMES.index(r["name"]))
 
     emit({"kernels": results})

@@ -27,6 +27,14 @@ register their layers and arrays under flax's names (``in_{type}``,
 ``watt_{edge type}``, ``w``, ``basis_{b}``, ``edge_emb`` ...), so every
 ``Dense`` subtree becomes ``{name}.weight`` (transposed) and ``.bias``,
 and every array leaf the parameter of the same name.
+
+Tables and state beside the parameters: ``quantized_table_from_jax`` builds
+a :class:`~gigl_tpu_torch.ops.quantized.QuantizedTable` from the
+reference's ``q`` (int32-packed rows, unpacked little-endian as the
+reference unpacks them, or int8 rows) and ``scale``; ``cms_from_jax`` a
+:class:`~gigl_tpu_torch.losses.count_min_sketch.CountMinSketch` from its
+table and total. Both take numpy arrays, so the two packages can start from
+the same tables and the same sketch.
 """
 
 from __future__ import annotations
@@ -36,6 +44,10 @@ from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+from gigl_tpu_torch.device import DeviceLike, resolve_device
+from gigl_tpu_torch.losses.count_min_sketch import CountMinSketch
+from gigl_tpu_torch.ops.quantized import QuantizedTable
 
 _CONV = re.compile(r"conv_(\d+)$")
 _LINEARS = ("lin_self", "lin_nbr", "lin", "lin_src", "lin_dst", "lin_q",
@@ -156,3 +168,35 @@ def adam_state_from_optax(opt_state: Any, model: torch.nn.Module
     return {i: {"step": torch.tensor(step, dtype=torch.float32),
                 "exp_avg": mu[name], "exp_avg_sq": nu[name]}
             for i, name in enumerate(names)}
+
+
+def quantized_table_from_jax(q: np.ndarray, scale: np.ndarray, dim: int,
+                             out_dtype: torch.dtype = torch.float32,
+                             device: DeviceLike = None) -> QuantizedTable:
+    """The reference's ``QuantizedTable`` (``q`` [N, D/4] int32-packed or
+    [N, D] int8, ``scale`` [N, 1] fp32, its ``dim``) as the port's int8
+    table on ``device`` (CUDA unless given)."""
+    q = np.ascontiguousarray(np.asarray(q))
+    n = q.shape[0]
+    if q.dtype == np.int32:
+        q = q.view(np.int8).reshape(n, -1)   # little-endian bytes, in order
+    if q.dtype != np.int8 or q.shape != (n, dim):
+        raise ValueError(f"q must be int32-packed or int8 rows of {dim} "
+                         f"values, got {q.dtype} {q.shape}")
+    device = resolve_device(device)
+    return QuantizedTable(
+        q=torch.from_numpy(q.copy()).to(device),
+        scale=torch.from_numpy(np.asarray(scale, np.float32).reshape(n, 1)
+                               .copy()).to(device),
+        out_dtype=out_dtype)
+
+
+def cms_from_jax(table: np.ndarray, total, device: DeviceLike = None
+                 ) -> CountMinSketch:
+    """The reference's ``CountMinSketch`` (table [depth, width] int32, total
+    int32) on ``device`` (CUDA unless given)."""
+    device = resolve_device(device)
+    return CountMinSketch(
+        table=torch.from_numpy(np.asarray(table, np.int32).copy()).to(device),
+        total=torch.tensor(int(np.asarray(total)), dtype=torch.int32,
+                           device=device))

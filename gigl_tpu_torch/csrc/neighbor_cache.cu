@@ -11,6 +11,13 @@
 // neighbor row, accumulating in fp32 in slot order. The result is written
 // through a row stride, straight into the right half of the fused
 // [N, D + D] table (training/dataset.py:378-383 concatenates instead).
+//
+// int8 mode (`scale` given): the features are a per-row symmetric int8
+// table [N, D] (ops/quantized.py's QuantizedTable) and each lane reads 4
+// int8 values of a neighbor row (4 bytes, a quarter of the fp32 row's
+// bytes) and that row's scale, dequantizing each value as the reference's
+// gather does, float(q) * scale rounded once to fp32 (__fmul_rn, never fused
+// into the accumulation), before the same fp32 accumulation in slot order.
 #include "gigl_common.cuh"
 
 namespace {
@@ -19,11 +26,29 @@ constexpr int kMean = 0;
 constexpr int kSum = 1;
 constexpr int kGcn = 2;
 
-template <int AGG>
+// Four values of row u (pieces of 4 from c): fp32, or int8 times the row's
+// scale s.
+template <bool Q8>
+__device__ __forceinline__ float4 row_piece(const void* features, int d4,
+                                            int32_t u, int c, float s) {
+  const int64_t at = static_cast<int64_t>(u) * d4 + c;
+  if constexpr (Q8) {
+    const char4 b = __ldg(static_cast<const char4*>(features) + at);
+    return make_float4(__fmul_rn(static_cast<float>(b.x), s),
+                       __fmul_rn(static_cast<float>(b.y), s),
+                       __fmul_rn(static_cast<float>(b.z), s),
+                       __fmul_rn(static_cast<float>(b.w), s));
+  } else {
+    return __ldg(static_cast<const float4*>(features) + at);
+  }
+}
+
+template <int AGG, bool Q8>
 __global__ void neighbor_cache_kernel(
     const int32_t* __restrict__ indptr, const int32_t* __restrict__ indices,
-    int64_t n_edges, int64_t n_nodes, const float4* __restrict__ features,
-    int d4, const float* __restrict__ degrees, int fanout, uint32_t seed,
+    int64_t n_edges, int64_t n_nodes, const void* __restrict__ features,
+    const float* __restrict__ scale, int d4,
+    const float* __restrict__ degrees, int fanout, uint32_t seed,
     uint32_t hop, float* __restrict__ out, int64_t out_stride) {
   const int lane = threadIdx.x & 31;
   // One warp per node; blockDim is a multiple of 32, so v is warp-uniform.
@@ -42,6 +67,7 @@ __global__ void neighbor_cache_kernel(
       int32_t nbr = 0;
       int valid = 0;
       float w = 1.f;
+      float sc = 1.f;
       if (s < fanout) {
         const gigl::UniformDraw d = gigl::draw_uniform(
             start, deg, static_cast<int32_t>(v), seed, hop, s, fanout,
@@ -50,6 +76,7 @@ __global__ void neighbor_cache_kernel(
           valid = 1;
           nbr = __ldg(indices + d.edge_slot);
           if (AGG == kGcn) w = rsqrtf(__ldg(degrees + nbr) + 1.f);
+          if (Q8) sc = __ldg(scale + nbr);
         }
       }
       const int nb = min(32, fanout - s0);
@@ -57,8 +84,9 @@ __global__ void neighbor_cache_kernel(
         const int32_t u = __shfl_sync(0xffffffffu, nbr, j);
         const int ok = __shfl_sync(0xffffffffu, valid, j);
         const float wj = __shfl_sync(0xffffffffu, w, j);
+        const float sj = __shfl_sync(0xffffffffu, sc, j);
         if (ok && c < d4) {
-          const float4 x = __ldg(features + static_cast<int64_t>(u) * d4 + c);
+          const float4 x = row_piece<Q8>(features, d4, u, c, sj);
           if (AGG == kGcn) {
             acc.x += x.x * wj;
             acc.y += x.y * wj;
@@ -86,35 +114,64 @@ __global__ void neighbor_cache_kernel(
   }
 }
 
+template <int AGG, bool Q8>
+void launch_cache(const void* indptr, const void* indices, long long n_edges,
+                  long long n_nodes, const void* features, const void* scale,
+                  int d4, const void* degrees, int fanout, uint32_t seed,
+                  uint32_t hop, void* out, long long out_stride,
+                  cudaStream_t s) {
+  const int threads = 256;  // 8 nodes per block
+  const long long blocks = (n_nodes * 32 + threads - 1) / threads;
+  neighbor_cache_kernel<AGG, Q8><<<static_cast<unsigned>(blocks), threads, 0,
+                                   s>>>(
+      static_cast<const int32_t*>(indptr),
+      static_cast<const int32_t*>(indices), n_edges, n_nodes, features,
+      static_cast<const float*>(scale), d4,
+      static_cast<const float*>(degrees), fanout, seed, hop,
+      static_cast<float*>(out), out_stride);
+}
+
+template <int AGG>
+void launch_agg(const void* indptr, const void* indices, long long n_edges,
+                long long n_nodes, const void* features, const void* scale,
+                int d4, const void* degrees, int fanout, uint32_t seed,
+                uint32_t hop, void* out, long long out_stride,
+                cudaStream_t s) {
+  if (scale != nullptr) {
+    launch_cache<AGG, true>(indptr, indices, n_edges, n_nodes, features,
+                            scale, d4, degrees, fanout, seed, hop, out,
+                            out_stride, s);
+  } else {
+    launch_cache<AGG, false>(indptr, indices, n_edges, n_nodes, features,
+                             scale, d4, degrees, fanout, seed, hop, out,
+                             out_stride, s);
+  }
+}
+
 }  // namespace
 
+// features: [n_nodes, dim] fp32, or int8 when scale ([n_nodes] fp32) is
+// given; dim % 4 == 0. out: [n_nodes, dim] fp32 rows at out_stride floats.
 extern "C" int gigl_build_neighbor_cache(
     const void* indptr, const void* indices, long long n_edges,
-    long long n_nodes, const void* features, int dim, const void* degrees,
-    int fanout, uint32_t seed, uint32_t hop, int agg, void* out,
-    long long out_stride, void* stream) {
+    long long n_nodes, const void* features, const void* scale, int dim,
+    const void* degrees, int fanout, uint32_t seed, uint32_t hop, int agg,
+    void* out, long long out_stride, void* stream) {
   if (n_nodes > 0) {
-    const int threads = 256;  // 8 nodes per block
-    const long long blocks = (n_nodes * 32 + threads - 1) / threads;
     const int d4 = dim / 4;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define GIGL_LAUNCH_CACHE(AGG)                                               \
-  neighbor_cache_kernel<AGG><<<static_cast<unsigned>(blocks), threads, 0, s>>>( \
-      static_cast<const int32_t*>(indptr),                                   \
-      static_cast<const int32_t*>(indices), n_edges, n_nodes,                \
-      static_cast<const float4*>(features), d4,                              \
-      static_cast<const float*>(degrees), fanout, seed, hop,                 \
-      static_cast<float*>(out), out_stride)
     if (agg == kMean) {
-      GIGL_LAUNCH_CACHE(kMean);
+      launch_agg<kMean>(indptr, indices, n_edges, n_nodes, features, scale,
+                        d4, degrees, fanout, seed, hop, out, out_stride, s);
     } else if (agg == kSum) {
-      GIGL_LAUNCH_CACHE(kSum);
+      launch_agg<kSum>(indptr, indices, n_edges, n_nodes, features, scale,
+                       d4, degrees, fanout, seed, hop, out, out_stride, s);
     } else if (agg == kGcn) {
-      GIGL_LAUNCH_CACHE(kGcn);
+      launch_agg<kGcn>(indptr, indices, n_edges, n_nodes, features, scale,
+                       d4, degrees, fanout, seed, hop, out, out_stride, s);
     } else {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-#undef GIGL_LAUNCH_CACHE
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,6 +11,13 @@
 // removed. The label, duplicate and hit masks are rebuilt from the ids on
 // the fly, so no [Q, C] mask is ever materialised. The finite minimum (not
 // -inf) keeps rows whose diagonal is masked equal to the reference.
+// logQ mode (a [C] fp32 candidate sampling probability p, the count-min
+// sketch's estimate; losses.py:119-123): S_ij / T becomes
+//   S_ij / T - round_dtype(log(max(p_j, 1e-10)))
+// before the masks, the log rounded to S's type as the reference's
+// .astype(dtype) rounds it; the backward's recomputed v_ij carries the same
+// term and no cotangent flows to p. The mode is a template flag, so the
+// kernels without it compile no extra load or branch.
 //   forward:  lse_i = logsumexp_j v_ij, ce_i = qmask_i ? lse_i - v_ii : 0,
 //             loss_sum = sum_i ce_i (fixed order), count = sum_i qmask_i
 //   backward: dS_ij = g * qmask_i * (exp(v_ij - lse_i) - label_ij)
@@ -47,6 +54,7 @@ struct Logits {
   const int32_t* cids;           // [C] or NULL
   const uint8_t* qmask;          // [Q] or NULL
   const uint8_t* cmask;          // [C] or NULL
+  const float* cprob;            // [C] candidate sampling probability (logQ)
   float t;                       // temperature (1 when none)
   float fmin;                    // finfo(S's dtype).min
   bool use_qids;
@@ -65,6 +73,18 @@ __device__ __forceinline__ float load_f<__nv_bfloat16>(const void* p,
   return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[at]);
 }
 
+// v rounded to T and back (the reference's .astype(dtype) of the log term).
+template <typename T>
+__device__ __forceinline__ float round_as(float v);
+template <>
+__device__ __forceinline__ float round_as<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float round_as<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 template <typename T>
 __device__ __forceinline__ void store_f(void* p, int64_t at, float v);
 template <>
@@ -78,11 +98,13 @@ __device__ __forceinline__ void store_f<__nv_bfloat16>(void* p, int64_t at,
 }
 
 // The masked logit v_ij (see the header). qid_i / own_i are row constants.
-template <typename T>
+template <typename T, bool kLogQ>
 __device__ __forceinline__ float logit(const Logits& a, int64_t i, int64_t j,
                                        int32_t qid_i, int32_t own_i) {
   if (a.cmask != nullptr && !__ldg(a.cmask + j)) return a.fmin;
   float v = load_f<T>(a.scores, i * a.c + j) / a.t;
+  if constexpr (kLogQ)
+    v = v - round_as<T>(logf(fmaxf(__ldg(a.cprob + j), 1e-10f)));
   if (a.use_qids || a.rah) {
     const bool dup = (a.use_qids && j < a.q && __ldg(a.qids + j) == qid_i) ||
                      (a.rah && __ldg(a.cids + j) == own_i);
@@ -123,24 +145,25 @@ __device__ __forceinline__ RowConsts row_consts(const Logits& a, int64_t i) {
   return r;
 }
 
-template <typename T>
+template <typename T, bool kLogQ>
 __global__ void retrieval_fwd_rows(Logits a, float* __restrict__ lse,
                                    float* __restrict__ ce) {
   const int64_t i = blockIdx.x;
   const RowConsts rc = row_consts(a, i);
   float m = -INFINITY;
   for (int64_t j = threadIdx.x; j < a.c; j += kRowThreads)
-    m = fmaxf(m, logit<T>(a, i, j, rc.qid, rc.own));
+    m = fmaxf(m, logit<T, kLogQ>(a, i, j, rc.qid, rc.own));
   m = block_reduce<true>(m);
   float s = 0.f;
   for (int64_t j = threadIdx.x; j < a.c; j += kRowThreads)
-    s += expf(logit<T>(a, i, j, rc.qid, rc.own) - m);
+    s += expf(logit<T, kLogQ>(a, i, j, rc.qid, rc.own) - m);
   s = block_reduce<false>(s);
   if (threadIdx.x == 0) {
     const float l = m + logf(s);
     const bool valid = a.qmask == nullptr || __ldg(a.qmask + i);
     // Row i's label column is i when i < C; rows past C have no label.
-    const float diag = i < a.c ? logit<T>(a, i, i, rc.qid, rc.own) : 0.f;
+    const float diag =
+        i < a.c ? logit<T, kLogQ>(a, i, i, rc.qid, rc.own) : 0.f;
     lse[i] = l;
     ce[i] = valid ? l - diag : 0.f;
   }
@@ -175,7 +198,7 @@ __global__ void retrieval_fwd_sum(const float* __restrict__ ce,
   }
 }
 
-template <typename T>
+template <typename T, bool kLogQ>
 __global__ void retrieval_bwd(Logits a, const float* __restrict__ lse,
                               const float* __restrict__ g,
                               void* __restrict__ ds) {
@@ -188,7 +211,8 @@ __global__ void retrieval_bwd(Logits a, const float* __restrict__ lse,
   float d = 0.f;
   if (valid && (a.cmask == nullptr || __ldg(a.cmask + j))) {
     const RowConsts rc = row_consts(a, i);
-    const float p = expf(logit<T>(a, i, j, rc.qid, rc.own) - __ldg(lse + i));
+    const float p =
+        expf(logit<T, kLogQ>(a, i, j, rc.qid, rc.own) - __ldg(lse + i));
     d = __ldg(g) * (p - (i == j ? 1.f : 0.f)) / a.t;
   }
   store_f<T>(ds, at, d);
@@ -196,14 +220,29 @@ __global__ void retrieval_bwd(Logits a, const float* __restrict__ lse,
 
 Logits make_logits(const void* scores, long long q, long long c,
                    const void* qids, const void* cids, const void* qmask,
-                   const void* cmask, float t, float fmin, int use_qids,
-                   int rah) {
+                   const void* cmask, const void* cprob, float t, float fmin,
+                   int use_qids, int rah) {
   return Logits{scores, q, c,
                 static_cast<const int32_t*>(qids),
                 static_cast<const int32_t*>(cids),
                 static_cast<const uint8_t*>(qmask),
                 static_cast<const uint8_t*>(cmask),
+                static_cast<const float*>(cprob),
                 t, fmin, use_qids != 0, rah != 0};
+}
+
+template <typename T, bool kLogQ>
+void launch_fwd(const Logits& a, float* lse, float* ce, cudaStream_t s) {
+  retrieval_fwd_rows<T, kLogQ>
+      <<<static_cast<unsigned>(a.q), kRowThreads, 0, s>>>(a, lse, ce);
+}
+
+template <typename T, bool kLogQ>
+void launch_bwd(const Logits& a, const float* lse, const float* g, void* ds,
+                cudaStream_t s) {
+  const unsigned blocks =
+      static_cast<unsigned>((a.q * a.c + kBwdThreads - 1) / kBwdThreads);
+  retrieval_bwd<T, kLogQ><<<blocks, kBwdThreads, 0, s>>>(a, lse, g, ds);
 }
 
 bool bad_args(const Logits& a, int dtype) {
@@ -214,25 +253,28 @@ bool bad_args(const Logits& a, int dtype) {
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16. Writes lse [Q] and ce [Q] (fp32), loss_sum
-// (fp32 scalar) and count (int32 scalar).
+// dtype: 0 = fp32, 1 = bf16; cprob: [C] fp32 or NULL (logQ mode). Writes
+// lse [Q] and ce [Q] (fp32), loss_sum (fp32 scalar) and count (int32
+// scalar).
 extern "C" int gigl_retrieval_loss_fwd(
     const void* scores, long long q, long long c, int dtype, const void* qids,
-    const void* cids, const void* qmask, const void* cmask, float t,
-    float fmin, int use_qids, int rah, void* lse, void* ce, void* loss_sum,
-    void* count, void* stream) {
-  const Logits a = make_logits(scores, q, c, qids, cids, qmask, cmask, t, fmin,
-                               use_qids, rah);
+    const void* cids, const void* qmask, const void* cmask, const void* cprob,
+    float t, float fmin, int use_qids, int rah, void* lse, void* ce,
+    void* loss_sum, void* count, void* stream) {
+  const Logits a = make_logits(scores, q, c, qids, cids, qmask, cmask, cprob,
+                               t, fmin, use_qids, rah);
   if (bad_args(a, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q > 0) {
-    const unsigned blocks = static_cast<unsigned>(q);
+    float* l = static_cast<float*>(lse);
+    float* e = static_cast<float*>(ce);
+    const bool logq = cprob != nullptr;
     if (dtype == 0) {
-      retrieval_fwd_rows<float><<<blocks, kRowThreads, 0, s>>>(
-          a, static_cast<float*>(lse), static_cast<float*>(ce));
+      logq ? launch_fwd<float, true>(a, l, e, s)
+           : launch_fwd<float, false>(a, l, e, s);
     } else {
-      retrieval_fwd_rows<__nv_bfloat16><<<blocks, kRowThreads, 0, s>>>(
-          a, static_cast<float*>(lse), static_cast<float*>(ce));
+      logq ? launch_fwd<__nv_bfloat16, true>(a, l, e, s)
+           : launch_fwd<__nv_bfloat16, false>(a, l, e, s);
     }
   }
   retrieval_fwd_sum<<<1, kSumThreads, 0, s>>>(
@@ -245,22 +287,23 @@ extern "C" int gigl_retrieval_loss_fwd(
 // in S's type.
 extern "C" int gigl_retrieval_loss_bwd(
     const void* scores, long long q, long long c, int dtype, const void* qids,
-    const void* cids, const void* qmask, const void* cmask, float t,
-    float fmin, int use_qids, int rah, const void* lse, const void* g,
+    const void* cids, const void* qmask, const void* cmask, const void* cprob,
+    float t, float fmin, int use_qids, int rah, const void* lse, const void* g,
     void* ds, void* stream) {
-  const Logits a = make_logits(scores, q, c, qids, cids, qmask, cmask, t, fmin,
-                               use_qids, rah);
+  const Logits a = make_logits(scores, q, c, qids, cids, qmask, cmask, cprob,
+                               t, fmin, use_qids, rah);
   if (bad_args(a, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q > 0 && c > 0) {
-    const unsigned blocks =
-        static_cast<unsigned>((q * c + kBwdThreads - 1) / kBwdThreads);
+    const float* l = static_cast<const float*>(lse);
+    const float* gg = static_cast<const float*>(g);
+    const bool logq = cprob != nullptr;
     if (dtype == 0) {
-      retrieval_bwd<float><<<blocks, kBwdThreads, 0, s>>>(
-          a, static_cast<const float*>(lse), static_cast<const float*>(g), ds);
+      logq ? launch_bwd<float, true>(a, l, gg, ds, s)
+           : launch_bwd<float, false>(a, l, gg, ds, s);
     } else {
-      retrieval_bwd<__nv_bfloat16><<<blocks, kBwdThreads, 0, s>>>(
-          a, static_cast<const float*>(lse), static_cast<const float*>(g), ds);
+      logq ? launch_bwd<__nv_bfloat16, true>(a, l, gg, ds, s)
+           : launch_bwd<__nv_bfloat16, false>(a, l, gg, ds, s);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -82,9 +82,11 @@ def retrieval_masks(
     remove_accidental_hits: bool = False,
     query_mask: Optional[Tensor] = None,
     candidate_mask: Optional[Tensor] = None,
+    candidate_sampling_probability: Optional[Tensor] = None,
 ) -> RetrievalMasks:
     """K5's description of the masked logits (ids as int32, masks as
-    bool); the arguments are :func:`retrieval_loss`'s."""
+    bool, the sampling probability as fp32); the arguments are
+    :func:`retrieval_loss`'s."""
     if remove_accidental_hits and candidate_ids is None:
         raise ValueError("remove_accidental_hits requires candidate_ids")
 
@@ -98,7 +100,9 @@ def retrieval_masks(
                           torch.int32),
         remove_accidental_hits=bool(remove_accidental_hits),
         query_mask=opt(query_mask, torch.bool),
-        candidate_mask=opt(candidate_mask, torch.bool))
+        candidate_mask=opt(candidate_mask, torch.bool),
+        candidate_sampling_probability=opt(candidate_sampling_probability,
+                                           torch.float32))
 
 
 def retrieval_loss(
@@ -114,18 +118,23 @@ def retrieval_loss(
 ) -> Tuple[Tensor, Tensor]:
     """In-batch sampled-softmax retrieval loss, sum reduction: labels are
     the diagonal of ``[Q, C]``; duplicate-query and accidental-hit cells
-    and masked candidate columns go to dtype-min. Returns (loss_sum f32,
-    count int32). Runs on kernel K5 (plain twin on the CPU)."""
-    if candidate_sampling_probability is not None:
-        raise NotImplementedError(
-            "candidate_sampling_probability (the count-min-sketch logQ "
-            "correction, gigl_tpu/losses/count_min_sketch.py) is not ported "
-            "yet (ROADMAP B5b)")
+    and masked candidate columns go to dtype-min. With
+    ``candidate_sampling_probability`` (the count-min sketch's estimate) each
+    column's logit loses ``log(max(p_j, 1e-10))``, rounded to the scores'
+    type (the logQ correction). Returns (loss_sum f32, count int32). Runs on
+    kernel K5 (plain twin on the CPU)."""
+    if candidate_sampling_probability is not None \
+            and tuple(candidate_sampling_probability.shape) \
+            != (scores.shape[1],):
+        raise ValueError("candidate_sampling_probability must be [C] = "
+                         f"[{scores.shape[1]}], got "
+                         f"{tuple(candidate_sampling_probability.shape)}")
     masks = retrieval_masks(
         temperature=temperature, query_ids=query_ids,
         candidate_ids=candidate_ids,
         remove_accidental_hits=remove_accidental_hits,
-        query_mask=query_mask, candidate_mask=candidate_mask)
+        query_mask=query_mask, candidate_mask=candidate_mask,
+        candidate_sampling_probability=candidate_sampling_probability)
     return RetrievalLoss.apply(scores.contiguous(), masks, retrieval_fwd,
                                retrieval_bwd)
 

@@ -44,7 +44,7 @@ KERNEL_NAMES = ("sample_uniform", "uniform_ids", "build_neighbor_cache",
                 "ell_transpose_aggregate", "fanout_attention_bwd",
                 "segment_reduce", "segment_softmax", "sddmm",
                 "segment_reduce_bwd", "segment_softmax_bwd", "sddmm_bwd",
-                "ell_edge_grad")
+                "ell_edge_grad", "gather_rows_q8", "cms_add", "cms_estimate")
 launches: Dict[str, int] = dict.fromkeys(KERNEL_NAMES, 0)
 
 _P = ctypes.c_void_p
@@ -57,17 +57,17 @@ _SIGNATURES = {
     "gigl_sample_uniform": [_P, _P, _I64, _P, _I64, _I32, _U32, _U32,
                             _P, _P, _P, _P],
     "gigl_uniform_ids": [_I64, _U32, _U32, _U32, _P, _P],
-    "gigl_build_neighbor_cache": [_P, _P, _I64, _I64, _P, _I32, _P, _I32,
-                                  _U32, _U32, _I32, _P, _I64, _P],
+    "gigl_build_neighbor_cache": [_P, _P, _I64, _I64, _P, _P, _I32, _P,
+                                  _I32, _U32, _U32, _I32, _P, _I64, _P],
     "gigl_gather_rows": [_P, _I64, _I64, _I32, _P, _I64, _P, _P, _P, _P,
                          _P, _P],
     "gigl_masked_reduce": [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P],
     "gigl_masked_reduce_bwd": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
                                _I32, _P],
-    "gigl_retrieval_loss_fwd": [_P, _I64, _I64, _I32, _P, _P, _P, _P, _F32,
-                                _F32, _I32, _I32, _P, _P, _P, _P, _P],
-    "gigl_retrieval_loss_bwd": [_P, _I64, _I64, _I32, _P, _P, _P, _P, _F32,
-                                _F32, _I32, _I32, _P, _P, _P, _P],
+    "gigl_retrieval_loss_fwd": [_P, _I64, _I64, _I32, _P, _P, _P, _P, _P,
+                                _F32, _F32, _I32, _I32, _P, _P, _P, _P, _P],
+    "gigl_retrieval_loss_bwd": [_P, _I64, _I64, _I32, _P, _P, _P, _P, _P,
+                                _F32, _F32, _I32, _I32, _P, _P, _P, _P],
     "gigl_ell_aggregate": [_P] * 8 + [_I64] + [_I32] * 5 + [_P],
     "gigl_fanout_attention": [_P] * 12 + [_I64] + [_I32] * 5
     + [_F32, _F32, _P],
@@ -85,6 +85,10 @@ _SIGNATURES = {
     "gigl_sddmm_bwd_coef": [_P] * 5 + [_I64] + [_I32] * 3 + [_P],
     "gigl_sddmm_bwd_scale": [_P, _P, _I32, _I32, _P],
     "gigl_ell_edge_grad": [_P] * 11 + [_I64] + [_I32] * 6 + [_P],
+    "gigl_gather_rows_q8": [_P, _P, _I64, _I32, _P, _I64, _I32, _P, _P, _P,
+                            _P],
+    "gigl_cms_add": [_P, _I32, _I32, _P, _I64, _P, _P, _P, _P],
+    "gigl_cms_estimate": [_P, _I32, _I32, _P, _I64, _P, _P, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -13,18 +13,23 @@ Kernel K2 ``build_neighbor_cache`` (``csrc/neighbor_cache.cu``) fuses the
 draw, the k-row gather and the reduce, one warp per node, and writes each
 row through a row stride — straight into the right half of the fused
 ``[N, D + D]`` table when ``out`` is that half (an in-place write into a
-buffer the caller allocated). :func:`_neighbor_cache_plain` is its plain
-twin, used for CPU tensors only.
+buffer the caller allocated). Over a quantized feature table
+(``ops/quantized.py``, the reference's ``features[nbr]`` through
+``QuantizedTable.__getitem__``) K2 runs in its int8 mode: it reads each
+neighbor's int8 row and scale and dequantizes as K12 does before the same
+fp32 accumulation. :func:`_neighbor_cache_plain` is its plain twin, used for
+CPU tensors only.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
 from gigl_tpu_torch.ops import _build
 from gigl_tpu_torch.ops.fanout import _masked_reduce_plain
+from gigl_tpu_torch.ops.quantized import QuantizedTable, _gather_rows_q8_plain
 from gigl_tpu_torch.sampling.neighbor_sampler import (
     DeviceCSR,
     _sample_uniform_plain,
@@ -44,7 +49,11 @@ def _neighbor_cache_plain(csr, features, fanout, seed, hop_key, agg,
                            device=features.device)
         nbr, mask, _ = _sample_uniform_plain(csr.indptr, csr.indices, ids,
                                              fanout, seed, hop_key)
-        x = features[nbr.to(torch.int64)]                      # [C, k, D]
+        if isinstance(features, QuantizedTable):
+            x = _gather_rows_q8_plain(features.q, features.scale, nbr,
+                                      torch.float32)[0]       # [C, k, D]
+        else:
+            x = features[nbr.to(torch.int64)]                  # [C, k, D]
         if agg == "gcn":
             w = torch.rsqrt(degrees[nbr.to(torch.int64)] + 1.0)
             x = x * w[..., None]
@@ -55,7 +64,7 @@ def _neighbor_cache_plain(csr, features, fanout, seed, hop_key, agg,
 
 def build_neighbor_cache(
     csr: DeviceCSR,
-    features: torch.Tensor,          # [N, D] f32
+    features: Union[torch.Tensor, QuantizedTable],   # [N, D] f32 or int8
     *,
     fanout: int,
     seed: int = 0,
@@ -76,28 +85,41 @@ def build_neighbor_cache(
         raise NotImplementedError(
             f"sampling method {method!r} is not ported yet "
             "(gigl_tpu.ops.hopcache.build_neighbor_cache, method=weighted/top_k)")
+    quantized = isinstance(features, QuantizedTable)
+    if quantized and features.out_dtype != torch.float32:
+        raise ValueError("build_neighbor_cache: a quantized table must "
+                         "dequantize to f32")
     n, d = csr.num_anchor_nodes, features.shape[-1]
     if out is None:
         out = torch.empty((n, d), dtype=torch.float32, device=features.device)
     if features.device.type == "cpu":
         return _neighbor_cache_plain(csr, features, int(fanout), seed,
                                      hop_key, agg, degrees, out)
-    device = _build.require_cuda("build_neighbor_cache", features,
-                                 csr.indptr, csr.indices)
-    if features.dtype != torch.float32 or out.dtype != torch.float32:
-        raise ValueError("build_neighbor_cache: features and out must be f32")
+    table = features.q if quantized else features
+    device = _build.require_cuda("build_neighbor_cache", table, csr.indptr,
+                                 csr.indices)
+    if quantized:
+        _build.require_cuda("build_neighbor_cache", table, features.scale)
+        if features.scale.dtype != torch.float32 \
+                or features.scale.numel() != table.shape[0]:
+            raise ValueError("build_neighbor_cache: scale must be f32 [N, 1]")
+    if (not quantized and features.dtype != torch.float32) \
+            or out.dtype != torch.float32:
+        raise ValueError("build_neighbor_cache: features (unless quantized) "
+                         "and out must be f32")
     if d % 4 or out.shape != (n, d) or out.stride(1) != 1 \
             or out.stride(0) % 4 or out.data_ptr() % 16 \
-            or out.device != device:
+            or table.data_ptr() % 16 or out.device != device:
         raise ValueError("build_neighbor_cache: D and the out row stride "
-                         "must be multiples of 4, out 16-byte aligned")
+                         "must be multiples of 4, out and the features "
+                         "16-byte aligned")
     if agg == "gcn":
-        _build.require_cuda("build_neighbor_cache", features, degrees)
+        _build.require_cuda("build_neighbor_cache", table, degrees)
     _build.launch(
         "build_neighbor_cache", "gigl_build_neighbor_cache", device,
         csr.indptr.data_ptr(), csr.indices.data_ptr(), csr.indices.shape[0],
-        n, features.data_ptr(), d,
-        degrees.data_ptr() if agg == "gcn" else None,
+        n, table.data_ptr(), features.scale.data_ptr() if quantized else None,
+        d, degrees.data_ptr() if agg == "gcn" else None,
         int(fanout), int(seed) & _M32, int(hop_key) & _M32, _AGG_CODES[agg],
         out.data_ptr(), out.stride(0))
     return out

@@ -1,0 +1,147 @@
+"""Quantized feature tables: per-row symmetric int8 rows with fp32 scales
+(port of ``gigl_tpu/ops/quantized.py``).
+
+A :class:`QuantizedTable` holds ``q`` ``[N, D]`` int8 and ``scale`` ``[N,
+1]`` fp32: 4x less device memory than an fp32 table, the capacity lever for
+graphs whose features do not fit (the reference's MAG240M regime). Rows are
+quantized on the host with the reference's numpy recipe (abs-max per row
+over 127, ``np.rint``, clipped to +-127), so the int8 values and scales are
+bit-equal to the reference's. The reference packs four int8 values into an
+int32 lane where ``D % 4 == 0``, a workaround for the TPU's gather; here
+every table stays int8 ``[N, D]`` and :mod:`gigl_tpu_torch.convert` unpacks
+a reference table (``quantized_table_from_jax``).
+
+Kernel K12 ``gather_rows_q8`` (``csrc/gather_rows_q8.cu``) is the
+dequantizing gather of ``__getitem__``: rows ``q[ids]`` times their scales,
+rounded once to ``out_dtype``, optionally with a per-row scalar (the degree)
+gathered alongside. :func:`_gather_rows_q8_plain` is its plain twin, used
+for CPU tensors only. The neighbor cache (K2) reads a quantized feature table
+in place (``ops/hopcache.py``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from gigl_tpu_torch.device import DeviceLike, resolve_device
+from gigl_tpu_torch.ops import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _gather_rows_q8_plain(q, scale, ids, out_dtype, row_vals=None):
+    """(``(float(q[ids]) * scale[ids]).to(out_dtype)`` [..., D],
+    ``row_vals[ids]`` or None): the reference's arithmetic, one fp32
+    multiply and one rounding."""
+    idx = ids.to(torch.int64)
+    rows = (q[idx].to(torch.float32) * scale.reshape(-1)[idx][..., None]
+            ).to(out_dtype)
+    return rows, (None if row_vals is None else row_vals[idx])
+
+
+def gather_rows_q8(
+    q: torch.Tensor, scale: torch.Tensor, ids: torch.Tensor,
+    out_dtype: torch.dtype = torch.float32,
+    row_vals: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K12: q [N, D] int8, scale [N, 1] (or [N]) fp32, ids [...] int32 ->
+    (rows [..., D] ``out_dtype`` (fp32 or bf16), row_vals[ids] [...] fp32
+    or None). CPU tensors take the plain twin."""
+    if ids.device.type == "cpu":
+        return _gather_rows_q8_plain(q, scale, ids, out_dtype, row_vals)
+    flat = ids.reshape(-1).contiguous()
+    device = _build.require_cuda("gather_rows_q8", flat, q, scale)
+    if q.dtype != torch.int8 or q.dim() != 2:
+        raise ValueError("gather_rows_q8: q must be a 2-D int8 table")
+    n, d = q.shape
+    if scale.dtype != torch.float32 or scale.numel() != n:
+        raise ValueError("gather_rows_q8: scale must be f32 with one value "
+                         "per row")
+    if flat.dtype != torch.int32:
+        raise ValueError("gather_rows_q8: ids must be int32")
+    if out_dtype not in _DTYPES:
+        raise ValueError(f"gather_rows_q8: out_dtype {out_dtype} not "
+                         "supported (float32, bfloat16)")
+    if n == 0 or d == 0:
+        raise ValueError("gather_rows_q8: empty table")
+    if row_vals is not None:
+        _build.require_cuda("gather_rows_q8", flat, row_vals)
+        if row_vals.dtype != torch.float32 or row_vals.shape != (n,):
+            raise ValueError("gather_rows_q8: row_vals must be f32 [N]")
+    m = flat.shape[0]
+    out = torch.empty((m, d), dtype=out_dtype, device=device)
+    vals = (None if row_vals is None
+            else torch.empty((m,), dtype=torch.float32, device=device))
+    _build.launch("gather_rows_q8", "gigl_gather_rows_q8", device,
+                  q.data_ptr(), scale.data_ptr(), n, d, flat.data_ptr(), m,
+                  _DTYPES[out_dtype], out.data_ptr(), _build.ptr(row_vals),
+                  _build.ptr(vals))
+    shape = tuple(ids.shape)
+    return (out.reshape(shape + (d,)),
+            None if vals is None else vals.reshape(shape))
+
+
+@dataclass
+class QuantizedTable:
+    """Per-row symmetric int8 quantized table: ``q`` [N, D] int8, ``scale``
+    [N, 1] fp32; ``table[ids]`` dequantizes to ``out_dtype`` (K12)."""
+
+    q: torch.Tensor        # [N, D] int8
+    scale: torch.Tensor    # [N, 1] f32
+    out_dtype: torch.dtype = torch.float32
+
+    @classmethod
+    def quantize(cls, x, out_dtype: torch.dtype = torch.float32,
+                 device: DeviceLike = None) -> "QuantizedTable":
+        """Quantize ``x`` [N, D] (numpy or a tensor) on the host with the
+        reference's recipe, then move it to ``device`` (CUDA unless
+        given)."""
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().numpy()
+        x = np.asarray(x, np.float32)
+        absmax = np.maximum(np.abs(x).max(axis=1, keepdims=True), 1e-12)
+        scale = absmax / 127.0
+        q = np.clip(np.rint(x / scale), -127, 127).astype(np.int8)
+        device = resolve_device(device)
+        return cls(q=torch.from_numpy(q).to(device),
+                   scale=torch.from_numpy(scale).to(device),
+                   out_dtype=out_dtype)
+
+    @property
+    def dim(self) -> int:
+        return int(self.q.shape[1])
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (int(self.q.shape[0]), self.dim)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.out_dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.q.device
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the table (int8 rows and fp32 scales)."""
+        return (self.q.numel() * self.q.element_size()
+                + self.scale.numel() * self.scale.element_size())
+
+    def gather(self, ids: torch.Tensor,
+               row_vals: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(rows [..., D] ``out_dtype``, ``row_vals[ids]`` or None) for
+        int32 ``ids`` of any shape (K12)."""
+        return gather_rows_q8(self.q, self.scale, ids, self.out_dtype,
+                              row_vals)
+
+    def __getitem__(self, idx) -> torch.Tensor:
+        """Dequantizing gather; any integer index shape -> [..., D]."""
+        ids = torch.as_tensor(idx, device=self.device).to(torch.int32)
+        return self.gather(ids)[0]

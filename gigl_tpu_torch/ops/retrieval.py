@@ -10,6 +10,11 @@ The masked logit is computed in fp32 as the reference computes it::
     v_ij = S_ij / T + (dup_ij - label_ij) * finfo(S.dtype).min
     v_ij = finfo(S.dtype).min      where candidate j is masked
 
+With a candidate sampling probability ``p [C]`` (the logQ correction,
+``losses.py:119-123``; a template flag of the kernel), ``S_ij / T`` becomes
+``S_ij / T - round(log(max(p_j, 1e-10)))``, the log rounded to S's type as
+the reference rounds it; no cotangent flows to ``p``.
+
 Forward: per-row ``lse`` (saved for the backward), per-row ``ce`` (0 for a
 masked query), ``loss_sum`` from a fixed-order reduction (a repeat run is
 bit-equal) and ``count``, the number of valid queries. Backward::
@@ -38,7 +43,9 @@ class RetrievalMasks:
     """The inputs that define the masked logits besides the scores.
     ``query_ids`` ([Q] int32) turns on the duplicate-query mask;
     ``remove_accidental_hits`` needs ``candidate_ids`` ([C] int32); masks
-    are bool ([Q] / [C]) or None for all valid."""
+    are bool ([Q] / [C]) or None for all valid;
+    ``candidate_sampling_probability`` ([C] fp32 or None) turns on the logQ
+    correction."""
 
     temperature: float = 1.0
     query_ids: Optional[torch.Tensor] = None
@@ -46,6 +53,7 @@ class RetrievalMasks:
     remove_accidental_hits: bool = False
     query_mask: Optional[torch.Tensor] = None
     candidate_mask: Optional[torch.Tensor] = None
+    candidate_sampling_probability: Optional[torch.Tensor] = None
 
 
 def _masked_logits_plain(scores: torch.Tensor,
@@ -54,6 +62,9 @@ def _masked_logits_plain(scores: torch.Tensor,
     q, c = scores.shape
     fmin = torch.finfo(scores.dtype).min
     v = scores.float() / a.temperature
+    if a.candidate_sampling_probability is not None:
+        p = a.candidate_sampling_probability.float()
+        v = v - torch.log(torch.clamp(p, min=1e-10)).to(scores.dtype).float()
     if a.query_ids is not None or a.remove_accidental_hits:
         dup = torch.zeros((q, c), dtype=torch.bool, device=scores.device)
         if a.query_ids is not None:
@@ -107,7 +118,8 @@ def _kernel_args(scores: torch.Tensor, a: RetrievalMasks):
     """Validate for K5 and return the C arguments after S, Q, C, dtype."""
     q, c = scores.shape
     opt = [t for t in (a.query_ids, a.candidate_ids, a.query_mask,
-                       a.candidate_mask) if t is not None]
+                       a.candidate_mask, a.candidate_sampling_probability)
+           if t is not None]
     device = _build.require_cuda("retrieval_loss", scores, *opt)
     if scores.dtype not in _DTYPES:
         raise ValueError(f"retrieval_loss: dtype {scores.dtype} not supported")
@@ -116,7 +128,10 @@ def _kernel_args(scores: torch.Tensor, a: RetrievalMasks):
                                torch.int32),
                               ("query_mask", a.query_mask, q, torch.bool),
                               ("candidate_mask", a.candidate_mask, c,
-                               torch.bool)):
+                               torch.bool),
+                              ("candidate_sampling_probability",
+                               a.candidate_sampling_probability, c,
+                               torch.float32)):
         if t is not None and (t.shape != (n,) or t.dtype != dtype):
             raise ValueError(f"retrieval_loss: {name} must be {dtype} [{n}], "
                              f"got {t.dtype} {tuple(t.shape)}")
@@ -127,7 +142,8 @@ def _kernel_args(scores: torch.Tensor, a: RetrievalMasks):
     return device, (
         _build.ptr(a.query_ids), _build.ptr(a.candidate_ids),
         _build.ptr(a.query_mask), _build.ptr(a.candidate_mask),
-        float(a.temperature), float(torch.finfo(scores.dtype).min),
+        _build.ptr(a.candidate_sampling_probability), float(a.temperature),
+        float(torch.finfo(scores.dtype).min),
         int(a.query_ids is not None), int(a.remove_accidental_hits))
 
 

@@ -22,13 +22,29 @@ row, gathered through K3 by the draw's CSR slots (the reference's
 ``label_edge_features``). Message-edge features (``edge_features``, CSR
 slot order) reach the sampled tree through ``hydrate_edges``: one K3 row
 gather per hop, by the slots the sampler drew.
+
+The node features (``from_hetero(quantize_features=True)``) and the
+neighbor cache (``with_neighbor_cache(quantize=True)``) may be int8
+``QuantizedTable`` objects (``ops/quantized.py``), 4x smaller on the
+device: ``hydrate`` and ``hydrate_cached`` then gather through K12, which
+dequantizes on the fly, and K2 reads the quantized features in its int8
+mode. The quantized cache is K2's fp32 table quantized on the host, as the
+reference does it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence
+from typing import (
+    Dict,
+    Iterator,
+    List,
+    NamedTuple,
+    Optional,
+    Sequence,
+    Union,
+)
 
 import numpy as np
 import torch
@@ -37,6 +53,7 @@ from gigl_tpu_torch.device import DeviceLike, resolve_device
 from gigl_tpu_torch.graph.csr import HeteroGraph, build_csr
 from gigl_tpu_torch.ops.gather import expand_table, gather_rows
 from gigl_tpu_torch.ops.hopcache import build_neighbor_cache, build_sample_table
+from gigl_tpu_torch.ops.quantized import QuantizedTable
 from gigl_tpu_torch.sampling.neighbor_sampler import (
     DeviceCSR,
     SampledBlocks,
@@ -49,6 +66,18 @@ from gigl_tpu_torch.types.graph import EdgeType
 
 def _not_ported(what: str, ref: str):
     return NotImplementedError(f"{what} is not ported yet ({ref})")
+
+
+Table = Union[torch.Tensor, QuantizedTable]
+
+
+def _table_rows(table: Table, ids: torch.Tensor,
+                row_vals: Optional[torch.Tensor] = None):
+    """(``table[ids]``, ``row_vals[ids]`` or None): K12 for a quantized
+    table, K3 otherwise."""
+    if isinstance(table, QuantizedTable):
+        return table.gather(ids, row_vals)
+    return gather_rows(table, ids, row_vals)
 
 
 class NodeClassificationBatch(NamedTuple):
@@ -170,13 +199,13 @@ class DeviceGraph:
     """
 
     message_csr: DeviceCSR
-    node_features: torch.Tensor          # [N, D] f32
+    node_features: Table                 # [N, D] f32 (or int8, quantized)
     num_nodes: int
     supervision_csr: Optional[DeviceCSR] = None
     hard_neg_csr: Optional[DeviceCSR] = None
     node_labels: Optional[torch.Tensor] = None    # [N] int32
     degrees: Optional[torch.Tensor] = None        # [N] f32 in-degrees
-    nbr_cache: Optional[torch.Tensor] = None      # [N, D] hopcache table
+    nbr_cache: Optional[Table] = None             # [N, D] hopcache table
     # Frozen per-node hop samples, one packed ids table [N, k] per in-tree
     # fanout k; invalid slots are -1.
     sample_tables: Optional[Dict[int, torch.Tensor]] = None
@@ -209,10 +238,10 @@ class DeviceGraph:
         """Move a homogeneous graph to ``device`` (CUDA unless given). The
         edge type's features (if the graph has them) and the label edges'
         features are reordered into their CSRs' slot order (``csr.
-        edge_ids``), as the reference does."""
+        edge_ids``), as the reference does. ``quantize_features``: the node
+        features become an int8 :class:`QuantizedTable` (quantized on the
+        host, 4x less device memory; gathers dequantize on the fly)."""
         ref = "gigl_tpu.training.dataset.DeviceGraph.from_hetero"
-        if quantize_features:
-            raise _not_ported("quantize_features", ref)
         if sampling_weight_index is not None:
             raise _not_ported("sampling_weight_index", ref)
         if supervision_edge_features is not None and supervision_edges is None:
@@ -251,10 +280,15 @@ class DeviceGraph:
             edge_features = f32(np.asarray(
                 graph.edge_features[str(et)])[csr.edge_ids])
         labels = graph.node_labels.get(nt)
+        if quantize_features:
+            node_features = QuantizedTable.quantize(np.asarray(feats),
+                                                    device=device)
+        else:
+            node_features = torch.as_tensor(
+                np.asarray(feats, np.float32)).to(device)
         return cls(
             message_csr=DeviceCSR.from_csr(csr, device),
-            node_features=torch.as_tensor(
-                np.asarray(feats, np.float32)).to(device),
+            node_features=node_features,
             num_nodes=n,
             supervision_csr=sup_csr,
             hard_neg_csr=hn_csr,
@@ -304,7 +338,7 @@ class DeviceGraph:
 
     def hydrate(self, blocks: SampledBlocks):
         """Gather hop features (+ per-hop degrees) for encoder input."""
-        rows = [gather_rows(self.node_features, ids, self.degrees)
+        rows = [_table_rows(self.node_features, ids, self.degrees)
                 for ids in blocks.node_ids]
         feats = [r for r, _ in rows]
         degs = None if self.degrees is None else [d for _, d in rows]
@@ -327,9 +361,14 @@ class DeviceGraph:
         deepest-hop aggregate table and, when ``table_fanouts`` is given, one
         frozen packed sample table per distinct fanout. ``hop_key`` must
         equal the hop index the live sampler uses for the cached hop
-        (len(fanouts)); the sample tables always use hop 1."""
-        if quantize:
-            raise _not_ported("quantize", "gigl_tpu.ops.quantized.QuantizedTable")
+        (len(fanouts)); the sample tables always use hop 1. ``quantize``:
+        the aggregate table is stored int8 (K2's fp32 table quantized on the
+        host, as the reference does); ``fuse_features`` needs both tables
+        unquantized."""
+        if fuse_features and quantize:
+            raise ValueError("fuse_features requires an unquantized cache")
+        if fuse_features and isinstance(self.node_features, QuantizedTable):
+            raise ValueError("fuse_features requires unquantized features")
         fused = None
         out = None
         if fuse_features:
@@ -342,6 +381,8 @@ class DeviceGraph:
             self.message_csr, self.node_features, fanout=fanout, seed=seed,
             hop_key=hop_key, agg=agg, degrees=self.degrees, method=method,
             out=out)
+        if quantize:
+            cache = QuantizedTable.quantize(cache, device=self.device)
         tables = None
         if table_fanouts:
             tables = {}
@@ -400,7 +441,8 @@ class DeviceGraph:
         """Gather the hopcache rows for every tree node."""
         if self.nbr_cache is None:
             raise ValueError("no neighbor cache; call with_neighbor_cache()")
-        return [gather_rows(self.nbr_cache, ids)[0] for ids in blocks.node_ids]
+        return [_table_rows(self.nbr_cache, ids)[0]
+                for ids in blocks.node_ids]
 
     def hydrate_edges(self, blocks: SampledBlocks):
         """Per-hop edge features aligned to the block slots (K3 by the

@@ -202,7 +202,7 @@ class HeteroNALPTrainer(BaseInferencer):
         model's weights)."""
         q, pos, hard, rand = self._scores(self.graph, batch, True, generator)
         return nalp_loss_from_embeddings(self.model, self.cfg, batch, q, pos,
-                                         hard, rand)
+                                         hard, rand)[0]
 
     def train_step(self, state: TrainState, anchors,
                    generator: Optional[torch.Generator] = None

@@ -24,8 +24,15 @@ A node-classification step samples the labeled nodes' fanout tree live
 hydrates it (K3), encodes it on the dense-block path (GraphSAGE: K4 / K4b;
 GAT and Transformer: K7 / K7b) and takes the mean cross entropy.
 
-Not ported: the count-min-sketch logQ correction (``use_cms_correction``,
-ROADMAP B5b) and checkpointing in ``fit``.
+With ``use_cms_correction`` the state carries a count-min sketch: each
+retrieval step adds all its candidate ids to it (K13, padded slots
+included, as the reference counts them), estimates their sampling
+probability from the new sketch (K14) and subtracts its log from the
+logits inside K5 (the logQ correction). With ``quantize_cache`` (and a graph
+from ``from_hetero(quantize_features=True)``) the cache (and the features)
+are int8 tables, hydrated through K12.
+
+Not ported: checkpointing in ``fit``.
 """
 
 from __future__ import annotations
@@ -39,6 +46,12 @@ import torch
 from torch import nn
 
 from gigl_tpu_torch.device import DeviceLike, resolve_device
+from gigl_tpu_torch.losses.count_min_sketch import (
+    CountMinSketch,
+    cms_add,
+    cms_init,
+    cms_sampling_probability,
+)
 from gigl_tpu_torch.losses.losses import (
     cross_entropy_loss,
     margin_loss,
@@ -67,7 +80,7 @@ logger = logging.getLogger(__name__)
 class TrainState(NamedTuple):
     step: int                          # host int; keys the per-step draws
     optimizer: torch.optim.Optimizer   # over the model's parameters
-    cms: None = None                   # count-min sketch: not ported (B5b)
+    cms: Optional[CountMinSketch] = None  # retrieval candidate sketch
 
 
 def make_optimizer(args: Mapping[str, Any], params: Iterable[nn.Parameter]
@@ -127,7 +140,8 @@ class NALPTrainerConfig:
     # Tabularized deepest-hop cache (ops/hopcache.py): gather per-node
     # precomputed aggregates instead of resampling the deepest hop.
     cached_hop: bool = False
-    # int8 hop cache (not ported).
+    # Store the hop cache int8-quantized (4x less device memory; features
+    # are quantized at DeviceGraph.from_hetero(quantize_features=True)).
     quantize_cache: bool = False
     # One fused [N, D + D] table of features and aggregates, so layer-1
     # hydration is one row gather per tree level.
@@ -137,16 +151,21 @@ class NALPTrainerConfig:
 
 
 def nalp_loss_from_embeddings(model, cfg: NALPTrainerConfig,
-                              batch: NALPBatch, q, pos, hard, rand
-                              ) -> torch.Tensor:
-    """Mean NALP loss from the encoded groups (q [B, D], pos [B, P, D],
-    hard [B, H, D] or None, rand [R, D]).
+                              batch: NALPBatch, q, pos, hard, rand,
+                              cms: Optional[CountMinSketch] = None
+                              ) -> Tuple[torch.Tensor,
+                                         Optional[CountMinSketch]]:
+    """(mean NALP loss, updated sketch) from the encoded groups (q [B, D],
+    pos [B, P, D], hard [B, H, D] or None, rand [R, D]).
 
     Retrieval: queries repeated once per positive; candidates = positives
     ++ hard negatives ++ random negatives, padded positive / hard slots
     masked as candidate columns; diagonal labels, duplicate-query and
-    accidental-hit masks (K5). Margin / softmax: each positive against the
-    hard and random negatives.
+    accidental-hit masks (K5). With a sketch ``cms``, every candidate id
+    (padded ones too) is added to it first (K13), and the new sketch's
+    estimate of each candidate's sampling probability (K14) is K5's logQ
+    term. Margin / softmax: each positive against the hard and random
+    negatives; the sketch is returned as given.
 
     Label-edge terms (``trainer.py:152-192``): with the model's
     ``edge_scorer`` and the batch's label-edge features, the scorer's term
@@ -176,11 +195,17 @@ def nalp_loss_from_embeddings(model, cfg: NALPTrainerConfig,
         if use_pos_ef or use_hard_ef:
             scores = scores + _label_edge_terms(model, batch, scores, B, P,
                                                 use_pos_ef, use_hard_ef)
+        cids = torch.cat(id_parts)
+        prob = None
+        if cms is not None:
+            cms = cms_add(cms, cids)
+            prob = cms_sampling_probability(cms, cids)
         loss_sum, count = retrieval_loss(
             scores,
             temperature=cfg.temperature,
+            candidate_sampling_probability=prob,
             query_ids=batch.anchors.repeat_interleave(P),
-            candidate_ids=torch.cat(id_parts),
+            candidate_ids=cids,
             remove_accidental_hits=cfg.remove_accidental_hits,
             query_mask=batch.pos_mask.reshape(-1),
             candidate_mask=torch.cat(cmask_parts))
@@ -207,7 +232,7 @@ def nalp_loss_from_embeddings(model, cfg: NALPTrainerConfig,
                 pos_mask=batch.pos_mask, neg_mask=neg_mask)
         else:
             raise ValueError(f"Unknown loss {cfg.loss_type!r}")
-    return loss_sum / torch.clamp(count.to(torch.float32), min=1.0)
+    return loss_sum / torch.clamp(count.to(torch.float32), min=1.0), cms
 
 
 def _label_edge_terms(model, batch: NALPBatch, scores: torch.Tensor, B: int,
@@ -259,14 +284,6 @@ class NALPTrainer(BaseInferencer):
         # Graph for evaluate() when the val/test supervision edges differ
         # from the train graph's.
         self.eval_graph: Optional[DeviceGraph] = None
-        if config.quantize_cache:
-            raise NotImplementedError(
-                "quantize_cache is not ported yet "
-                "(gigl_tpu.ops.quantized.QuantizedTable)")
-        if config.use_cms_correction:
-            raise NotImplementedError(
-                "use_cms_correction (count-min-sketch logQ correction) is "
-                "not ported yet (ROADMAP B5b)")
         if self.cfg.cached_hop:
             # Validates the conv is cacheable up front and builds the tables.
             self.refresh_cache(0)
@@ -281,7 +298,8 @@ class NALPTrainer(BaseInferencer):
                    params: Optional[Mapping[str, torch.Tensor]] = None
                    ) -> TrainState:
         """Load ``params`` (a state dict, e.g. from ``params_from_flax``)
-        or initialize the weights from ``seed``, then build the optimizer.
+        or initialize the weights from ``seed``, then build the optimizer
+        (and, with ``use_cms_correction``, an empty sketch on the device).
         ``batch_size`` is the reference's tracing shape; the port's weights
         do not depend on it."""
         del batch_size
@@ -291,7 +309,9 @@ class NALPTrainer(BaseInferencer):
             self.model.load_state_dict(params)
         opt, self.grad_clip_norm = make_optimizer(self.optimizer_args,
                                                   self.model.parameters())
-        return TrainState(step=0, optimizer=opt)
+        cms = cms_init(device=self.device) if self.cfg.use_cms_correction \
+            else None
+        return TrainState(step=0, optimizer=opt, cms=cms)
 
     # -- hop cache -------------------------------------------------------------
     def refresh_cache(self, epoch: int = 0) -> None:
@@ -381,27 +401,37 @@ class NALPTrainer(BaseInferencer):
             seed=self.cfg.seed,
             step=step)
 
-    def loss(self, batch: NALPBatch,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Train-mode mean loss of ``batch`` (differentiable in the
-        model's weights)."""
+    def loss_and_sketch(self, batch: NALPBatch,
+                        cms: Optional[CountMinSketch] = None,
+                        generator: Optional[torch.Generator] = None
+                        ) -> Tuple[torch.Tensor, Optional[CountMinSketch]]:
+        """(train-mode mean loss of ``batch``, differentiable in the
+        model's weights; the sketch ``cms`` with the batch's candidates
+        added, or None without one)."""
         q, pos, hard, rand = self._scores(self.graph, batch, True, generator)
         return nalp_loss_from_embeddings(self.model, self.cfg, batch, q, pos,
-                                         hard, rand)
+                                         hard, rand, cms)
+
+    def loss(self, batch: NALPBatch,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Train-mode mean loss of ``batch`` without the logQ correction
+        (differentiable in the model's weights)."""
+        return self.loss_and_sketch(batch, None, generator)[0]
 
     def train_step(self, state: TrainState, anchors,
                    generator: Optional[torch.Generator] = None
                    ) -> Tuple[TrainState, torch.Tensor]:
-        """One step: sample, forward, backward, update. Returns the new
-        state and the loss as a 0-d device tensor (no host sync)."""
+        """One step: sample, forward, backward, update, and the sketch
+        advanced. Returns the new state and the loss as a 0-d device tensor
+        (no host sync)."""
         batch = self.sample_batch(anchors, state.step)
         state.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss(batch, generator)
+        loss, cms = self.loss_and_sketch(batch, state.cms, generator)
         loss.backward()
         if self.grad_clip_norm > 0:
             clip_by_global_norm_(self.model.parameters(), self.grad_clip_norm)
         state.optimizer.step()
-        return state._replace(step=state.step + 1), loss.detach()
+        return state._replace(step=state.step + 1, cms=cms), loss.detach()
 
     def train_steps(self, state: TrainState, anchors_kb,
                     generator: Optional[torch.Generator] = None

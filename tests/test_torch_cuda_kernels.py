@@ -53,8 +53,17 @@ with the per-slot logit bias (dense block, an all-masked relation), the
 same tolerances (K11 gine bit-equal: a gated permutation); encode_ell's
 gradients with edge features (GINE, EdgeAttrGAT, Transformer) and NALP /
 typed SimpleHGN steps with the label-edge scorer on the card against the
-CPU.
+CPU. Quantized tables and the count-min sketch: K12 gather_rows_q8 (D 6,
+12, 16, 128 and 136: its one-, four- and eight-value pieces; fp32 and bf16
+out; with the degrees) and K13 cms_add / K14 cms_estimate (the shared-memory and the
+global-atomic K13, odd widths, ids up to 2**31 - 1, an empty batch)
+bit-equal to their twins; K2 in its int8 mode within rtol 1e-5; K5 with
+the logQ term (p = 0 included) at K5's tolerances; two NALP steps over int8
+features and cache with the sketch on, on the card against the CPU (losses
+and weights within 1e-4 relative, the sketch bit-equal).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -107,6 +116,12 @@ from gigl_tpu_torch.ops.gather import (
 from gigl_tpu_torch.ops.hopcache import (
     _neighbor_cache_plain,
     build_neighbor_cache,
+)
+from gigl_tpu_torch.losses import count_min_sketch as cms_ops
+from gigl_tpu_torch.ops.quantized import (
+    QuantizedTable,
+    _gather_rows_q8_plain,
+    gather_rows_q8,
 )
 from gigl_tpu_torch.ops.retrieval import (
     RetrievalMasks,
@@ -1561,3 +1576,155 @@ def test_label_edge_and_simple_hgn_steps_on_card_match_cpu(dev):
                 assert _build.launches[k] > 0, k
         losses[device.type] = got.cpu().numpy()
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim", [6, 12, 16, 128, 136])
+def test_gather_rows_q8_bit_equal(dev, dtype, dim):
+    """K12 at each load width (D 6: one value a thread; fp32: four; bf16:
+    eight, or four at D 12), with the degrees alongside."""
+    rng = np.random.default_rng(dim)
+    x = rng.normal(size=(N, dim)).astype(np.float32) * rng.uniform(
+        0.01, 30.0, (N, 1)).astype(np.float32)
+    x[7] = 0.0
+    t = QuantizedTable.quantize(x, out_dtype=dtype, device=dev)
+    deg = torch.from_numpy(rng.random(N).astype(np.float32)).to(dev)
+    ids = torch.from_numpy(rng.integers(0, N, (50, 7)).astype(np.int32)).to(
+        dev)
+    ids[0, :2] = torch.tensor([0, N - 1], dtype=torch.int32)
+    before = _build.launches["gather_rows_q8"]
+    rows, vals = t.gather(ids, deg)
+    torch.cuda.synchronize()
+    assert _build.launches["gather_rows_q8"] == before + 1
+    want, wvals = _gather_rows_q8_plain(t.q, t.scale, ids, dtype, deg)
+    assert rows.dtype == dtype and rows.shape == (50, 7, dim)
+    assert torch.equal(rows, want) and torch.equal(vals, wvals)
+    assert torch.equal(t[ids[0]], want[0])
+    assert gather_rows_q8(t.q, t.scale, ids[1], dtype)[1] is None
+
+
+@pytest.mark.parametrize("depth,width", [(5, 2048), (3, 2047), (1, 7),
+                                         (4, 4099)])
+def test_cms_kernels_bit_equal(dev, depth, width):
+    """K13 (shared-memory table; 4 x 4099 is past 48 KB: the global-atomic
+    pass) and K14 against their twins on the card, ids up to 2**31 - 1
+    with duplicates, three batches and an empty one; the input sketch is
+    never written."""
+    rng = np.random.default_rng(width)
+    top = np.arange(2**31 - 8, 2**31, dtype=np.int64).astype(np.int32)
+    got = cms_ops.cms_init(depth, width, device=dev)
+    want = got
+    for k in range(4):
+        n = (0, 1024, 333, 1)[k]
+        ids = np.concatenate([rng.integers(0, 500, n), top[:min(n, 8)]])
+        t_ids = torch.from_numpy(ids.astype(np.int32)).to(dev)
+        before = got.table.clone()
+        launches = _build.launches["cms_add"]
+        nxt = cms_ops.cms_add(got, t_ids)
+        torch.cuda.synchronize()
+        assert _build.launches["cms_add"] == launches + 1
+        assert torch.equal(got.table, before)
+        got, want = nxt, cms_ops._cms_add_plain(want, t_ids)
+        assert torch.equal(got.table, want.table)
+        assert int(got.total) == int(want.total) and got.total.shape == ()
+        query = torch.from_numpy(np.concatenate(
+            [rng.integers(0, 800, 200), top]).astype(np.int32)).to(dev)
+        assert torch.equal(cms_ops.cms_estimate(got, query),
+                           cms_ops._cms_estimate_plain(want, query))
+        assert torch.equal(cms_ops.cms_sampling_probability(got, query),
+                           cms_ops._cms_probability_plain(want, query))
+
+
+@pytest.mark.parametrize("agg", ["mean", "sum", "gcn"])
+@pytest.mark.parametrize("fanout,dim", [(3, 16), (10, 128), (40, 132)])
+def test_neighbor_cache_int8_matches_plain(dev, agg, fanout, dim):
+    csr = _csr(dev, 2)
+    rng = np.random.default_rng(dim)
+    t = QuantizedTable.quantize(rng.normal(size=(N, dim)), device=dev)
+    deg = torch.diff(csr.indptr).float()
+    before = _build.launches["build_neighbor_cache"]
+    out = build_neighbor_cache(csr, t, fanout=fanout, seed=7, hop_key=2,
+                               agg=agg, degrees=deg)
+    torch.cuda.synchronize()
+    assert _build.launches["build_neighbor_cache"] == before + 1
+    want = torch.empty((N, dim), device=dev)
+    _neighbor_cache_plain(csr, t, fanout, 7, 2, agg, deg, want)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q,c", [(1, 40), (50, 77), (512, 1024)])
+def test_retrieval_loss_logq_matches_plain(dev, dtype, q, c):
+    """K5 with the logQ term (a template flag): p = 0 columns (clamped to
+    1e-10), masked columns; the same tolerances as without it."""
+    scores, masks = _retrieval_inputs(dev, q, c, dtype, seed=3)
+    g = torch.Generator(device=dev).manual_seed(4)
+    prob = torch.randint(0, 9, (c,), generator=g, device=dev).float() / 37.0
+    masks = dataclasses.replace(masks, candidate_sampling_probability=prob)
+    loss, count, lse, ce = retrieval_fwd(scores, masks)
+    gscale = torch.tensor(0.37, device=dev)
+    ds = retrieval_bwd(scores, masks, lse, gscale)
+    torch.cuda.synchronize()
+    wloss, wcount, wlse, wce = _retrieval_fwd_plain(scores, masks)
+    wds = _retrieval_bwd_plain(scores, masks, wlse, gscale)
+    assert int(count) == int(wcount)
+    assert abs(float(loss) - float(wloss)) <= 1e-5 * abs(float(wloss))
+    torch.testing.assert_close(ce, wce, rtol=1e-5, atol=1e-5)
+    scale = float(wds.float().abs().max())
+    tol = (1e-5 * scale if dtype == torch.float32 or scale == 0
+           else 2.0 ** (np.floor(np.log2(scale)) - 7))
+    assert float((ds.float() - wds.float()).abs().max()) <= tol
+    if int(count):     # a single query may be masked: nothing to move
+        plain = retrieval_fwd(scores, dataclasses.replace(
+            masks, candidate_sampling_probability=None))[0]
+        assert float(plain) != float(loss)
+
+
+def test_quantized_cms_train_steps_on_card_match_cpu(dev):
+    """Two NALP steps over int8 features and an int8 cache with the sketch
+    on (cached hop, tabularized): K12, K13, K14 and K5's logQ mode on the
+    card against the CPU, from the CPU graph's quantized cache (the card
+    builds its own from fp32 sums in another order)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(6)
+    src, dst = rng.integers(0, N, E), rng.integers(0, N, E)
+    x = rng.normal(size=(N, 16)).astype(np.float32)
+    anchors = rng.integers(0, N, (2, 64))
+    out, cpu_cache = {}, None
+    for device in (torch.device("cpu"), dev):
+        g = DeviceGraph.from_hetero(
+            HeteroGraph.homogeneous(src=src, dst=dst, num_nodes=N,
+                                    node_features=x),
+            supervision_edges=np.stack([src, dst]), quantize_features=True,
+            device=device)
+        _build.reset_launches()
+        t = NALPTrainer(LinkPredictionGNN(GNNEncoder(16, 32, 16),
+                                          LinkPredictionDecoder()),
+                        g, NALPTrainerConfig(fanouts=(4, 3), cached_hop=True,
+                                             quantize_cache=True,
+                                             use_cms_correction=True,
+                                             num_random_negs=64),
+                        optimizer_args={"learning_rate": "0.01"},
+                        device=device)
+        if cpu_cache is None:
+            cpu_cache = t.graph.nbr_cache
+        else:
+            t.graph = dataclasses.replace(t.graph, nbr_cache=QuantizedTable(
+                cpu_cache.q.to(dev), cpu_cache.scale.to(dev)))
+        state = t.init_state(0)
+        state, losses = t.train_steps(state, anchors)
+        out[device.type] = (losses.cpu(), {k: v.cpu() for k, v in
+                                           t.model.state_dict().items()},
+                            state.cms)
+        if device.type == "cuda":
+            for k in ("sample_uniform", "uniform_ids", "build_neighbor_cache",
+                      "gather_rows", "gather_rows_q8", "masked_reduce",
+                      "masked_reduce_bwd", "retrieval_loss", "cms_add",
+                      "cms_estimate"):
+                assert _build.launches[k] > 0, k
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=0)
+    for k, v in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][k], v, rtol=1e-4, atol=1e-5)
+    assert torch.equal(out["cuda"][2].table.cpu(), out["cpu"][2].table)
+    assert int(out["cuda"][2].total) == int(out["cpu"][2].total) == 2 * 128

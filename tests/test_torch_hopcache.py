@@ -135,8 +135,10 @@ def test_cache_validation_errors():
     with pytest.raises(ValueError, match="degrees"):
         port.build_neighbor_cache(pg.message_csr, pg.node_features, fanout=3,
                                   agg="gcn")
-    with pytest.raises(NotImplementedError):
-        pg.with_neighbor_cache(fanout=3, quantize=True)
+    # the quantized cache is ported (tests/test_torch_quantized.py), but
+    # not fused with the features, as in the reference
+    with pytest.raises(ValueError, match="unquantized cache"):
+        pg.with_neighbor_cache(fanout=3, quantize=True, fuse_features=True)
     with pytest.raises(ValueError, match="no sample table"):
         pg.with_neighbor_cache(fanout=3, table_fanouts=(4,)) \
             .sample_hop_blocks_tabularized(torch.zeros(2, dtype=torch.int32),

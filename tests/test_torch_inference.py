@@ -192,9 +192,11 @@ def test_unported_branches_raise():
     src, dst, x = _graph_arrays()
     g = HeteroGraph.homogeneous(src=src, dst=dst, num_nodes=N,
                                 node_features=x)
-    for kw in ({"quantize_features": True}, {"sampling_weight_index": 0}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            DeviceGraph.from_hetero(g, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        DeviceGraph.from_hetero(g, device="cpu", sampling_weight_index=0)
+    # int8 features are ported (tests/test_torch_quantized.py)
+    assert DeviceGraph.from_hetero(g, device="cpu", quantize_features=True) \
+        .node_features.q.dtype == torch.int8
     # edge features are ported: the graph keeps them in CSR slot order
     # (tests/test_torch_edge_features.py holds hydrate_edges to JAX); label
     # edge features still need their edges, as in the reference

@@ -114,8 +114,10 @@ def test_retrieval_masks_are_applied():
 
 def test_retrieval_loss_unported_and_invalid_options_raise():
     s = torch.zeros((4, 8))
-    with pytest.raises(NotImplementedError, match="B5b"):
-        port.retrieval_loss(s, candidate_sampling_probability=torch.ones(8))
+    # the logQ correction is ported (tests/test_torch_cms.py); a probability
+    # vector of the wrong length raises
+    with pytest.raises(ValueError, match="candidate_sampling_probability"):
+        port.retrieval_loss(s, candidate_sampling_probability=torch.ones(4))
     with pytest.raises(ValueError, match="candidate_ids"):
         port.retrieval_loss(s, remove_accidental_hits=True)
 

@@ -304,8 +304,10 @@ def test_unported_training_options_raise():
     with pytest.raises(NotImplementedError, match="A11"):
         pt.fit(ps, np.arange(N), np.arange(64), batch_size=B,
                checkpoint_dir="ckpt")
-    with pytest.raises(NotImplementedError, match="B5b"):
-        NALPTrainer(pt.model, pt.graph,
-                    NALPTrainerConfig(fanouts=FANOUTS,
-                                      use_cms_correction=True),
-                    device="cpu")
+    # the logQ correction is ported (tests/test_torch_cms.py): the state
+    # carries an empty sketch
+    cms = NALPTrainer(pt.model, pt.graph,
+                      NALPTrainerConfig(fanouts=FANOUTS,
+                                        use_cms_correction=True),
+                      device="cpu").init_state(0).cms
+    assert cms.table.shape == (5, 2048) and int(cms.total) == 0
