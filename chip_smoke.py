@@ -135,7 +135,25 @@
    sketch, with it: 50 steps a turn, A B C C B A), and run_inference over
    every node of the quantized graph (batch 0 recomputed through the plain
    versions);
-14. prints one JSON line with every kernel's numbers, then the card line,
+14. partitioned NALP training: the flagship graph range-partitioned over
+   make_mesh(4), four shards sharing the one card (the collectives are
+   copies within its memory: no NVLink traffic is measured), live
+   sampling, capacity factor 4. In fp32, the per-shard pool's loss
+   against the mean of the replicated NALPTrainer's per-shard losses (the
+   same anchors and draws) and the ring pool's against K5 over the whole
+   batch's [512, 1024] score matrix (1e-5 relative), and one step of each
+   pool (the sketch on) against the same step through the plain versions;
+   K15 route_requests and K16 unroute_rows (bit-equal; yardsticks: a
+   stable sort with scatter_add_ counts, index_select + where), K17
+   ring_retrieval's fold and backward (yardsticks logsumexp, softmax) and
+   K1's row-offset mode (against the plain mode on the same rows) at the
+   shapes a real ring step gives them; then each pool's path in bf16 with
+   the sketch on (3 + 20 steps, 5 profiled) with the launch counts reset
+   just before and read just after, zero overflow and the sketch's total
+   checked, and encode_batch over every node (batch 0 against the plain
+   versions); prints ms/step, edges/s, launches and all_to_all bytes per
+   step, nodes/s;
+15. prints one JSON line with every kernel's numbers, then the card line,
    then {"ok": true, ...} as the last line.
 
 Any failed check raises; nothing is printed as a result without a card.
@@ -257,6 +275,15 @@ QUANT_TRAIN_KERNELS = ("sample_uniform", "uniform_ids",
 QUANT_INFERENCE_KERNELS = ("gather_rows", "gather_rows_q8", "masked_reduce")
 MID_STEPS = 20              # the sketch K14 and K5's logQ mode are held on
 AB_STEPS = 50               # steps per turn of the host-cost comparison
+# partitioned training (phase 14): the flagship graph over PART_SHARDS
+# shards sharing the one card, live sampling, capacity factor 4
+PART_SHARDS, PART_CAPACITY = 4, 4.0
+PART_STEPS, PART_WARMUP, PART_PROFILED = 20, 3, 5
+PART_TRAIN_KERNELS = ("sample_uniform", "uniform_ids", "gather_rows",
+                      "masked_reduce", "masked_reduce_bwd", "cms_add",
+                      "cms_estimate", "route_requests", "unroute_rows")
+PART_ENCODE_KERNELS = ("sample_uniform", "gather_rows", "masked_reduce",
+                       "route_requests", "unroute_rows")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 # ReLU gates the plain step may see on the other side of 0 (fp32 rounding)
@@ -361,20 +388,23 @@ def profile_summary(prof, steps, window_us, host_ms_per_step):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Every kernel wrapper of the training, full-graph, typed and
-    quantized paths replaced by its plain PyTorch twin, on whatever device
-    the tensors are:
+    """Every kernel wrapper of the training, full-graph, typed, quantized
+    and partitioned paths replaced by its plain PyTorch twin, on whatever
+    device the tensors are:
     the same step or pass computed without a kernel, on the card. The
     segment ops become their forward twins, differentiated by PyTorch's
     autograd (not the port's backward kernels); the retrieval loss runs
     its twins inside its autograd.Function."""
-    from gigl_tpu_torch.losses import count_min_sketch, losses
+    from gigl_tpu_torch.losses import (
+        count_min_sketch, losses, sharded_retrieval)
     from gigl_tpu_torch.models import convs, hetero_convs
     from gigl_tpu_torch.ops import (
         attention, ell, ell_aggregate, fanout, gather, quantized, retrieval,
         segment)
+    from gigl_tpu_torch.parallel import feature_lookup
     from gigl_tpu_torch.sampling import neighbor_sampler
-    from gigl_tpu_torch.training import dataset, hetero_dataset, trainer
+    from gigl_tpu_torch.training import (
+        dataset, dist_sampled, hetero_dataset, trainer)
 
     def agg_fwd(x, nbr, mask, op, deg_dst=None, deg_tab=None, out=None,
                 ea=None, eslot=None):
@@ -451,7 +481,19 @@ def plain_kernels():
         (quantized, "gather_rows_q8", quantized._gather_rows_q8_plain),
         (trainer, "cms_add", count_min_sketch._cms_add_plain),
         (trainer, "cms_sampling_probability",
-         count_min_sketch._cms_probability_plain)]
+         count_min_sketch._cms_probability_plain),
+        (feature_lookup, "route_requests",
+         feature_lookup._route_requests_plain),
+        (feature_lookup, "unroute_rows", feature_lookup._unroute_plain),
+        (feature_lookup, "sample_uniform",
+         neighbor_sampler._sample_uniform_plain),
+        (feature_lookup, "gather_rows", rows),
+        (dist_sampled, "cms_add", count_min_sketch._cms_add_plain),
+        (dist_sampled, "cms_sampling_probability",
+         count_min_sketch._cms_probability_plain),
+        (sharded_retrieval, "ring_fold", sharded_retrieval._ring_fold_plain),
+        (sharded_retrieval, "ring_block_bwd",
+         sharded_retrieval._ring_block_bwd_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
     for m, n, f in patches:
         setattr(m, n, f)
@@ -2266,6 +2308,407 @@ def quantized_phases(dev, card, graph, edges, record, add_mode, unique,
     return counts
 
 
+@contextlib.contextmanager
+def spy(module, name, keep):
+    """Record ``keep(args, kwargs)`` for every call of ``module.name`` while
+    the call itself runs unchanged; yields the list of records."""
+    orig = getattr(module, name)
+    calls = []
+
+    def wrapper(*args, **kwargs):
+        calls.append(keep(args, kwargs))
+        return orig(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def partitioned_phases(dev, card, dg, record, add_mode, unique, make_model,
+                       opt_args):
+    """Phase 14 (see the module docstring): the partitioned NALP trainer
+    over PART_SHARDS shards on the card. The loss checks (fp32): the
+    per-shard pool against the replicated trainer's per-shard losses, the
+    ring against K5 over the global score matrix, each pool's step against
+    the plain twins; K15, K16, K17 and K1's row-offset mode at the step's
+    largest shapes against their twins; then both pools' training paths
+    (bf16, the sketch on) and encode_batch over every node, each with the
+    launch counts reset just before and read just after. Returns {path:
+    (launch counts, steps or passes)}."""
+    from gigl_tpu_torch.losses import sharded_retrieval as sr
+    from gigl_tpu_torch.models.encoders import GNNEncoder
+    from gigl_tpu_torch.models.link_prediction import (
+        LinkPredictionDecoder, LinkPredictionGNN)
+    from gigl_tpu_torch.ops import _build
+    from gigl_tpu_torch.parallel import feature_lookup as fl
+    from gigl_tpu_torch.parallel.mesh import make_mesh
+    from gigl_tpu_torch.sampling.neighbor_sampler import (
+        _sample_uniform_plain, sample_uniform)
+    from gigl_tpu_torch.training.dist_sampled import (
+        PartitionedGraph, PartitionedNALPTrainer)
+    from gigl_tpu_torch.training.trainer import (
+        NALPTrainer, NALPTrainerConfig)
+
+    k1, k2 = FANOUTS
+    shards = PART_SHARDS
+    counts = {}
+    # the NALP path reads no node labels (a partitioned graph takes none)
+    dg = dataclasses.replace(dg, node_labels=None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mesh = make_mesh(shards)
+    pg = PartitionedGraph.build(dg, mesh)
+    torch.cuda.synchronize()
+    emit({"phase": "partitioned_graph", "seconds": time.perf_counter() - t0,
+          "shards": shards, "rows_per_shard": pg.rows_per_shard,
+          "feat_deg_bytes_per_shard": pg.feat_deg[0].nbytes,
+          "msg_edges_per_shard": [int(ip[-1]) for ip in pg.msg_indptr]})
+    base = dict(fanouts=FANOUTS, num_random_negs=R, loss_type="retrieval",
+                num_positives=1)
+
+    def fp32_model():
+        return LinkPredictionGNN(GNNEncoder(D, HID, OUT, num_layers=2,
+                                            conv="graphsage"),
+                                 LinkPredictionDecoder())
+
+    def trainer_for(model, **kw):
+        return PartitionedNALPTrainer(
+            model, pg, mesh, NALPTrainerConfig(**base, **kw),
+            optimizer_args=opt_args, capacity_factor=PART_CAPACITY,
+            overflow_policy="raise")
+
+    n_anchor = PART_WARMUP + PART_STEPS + PART_PROFILED
+    anchors = (np.arange(BATCH * n_anchor) % N).astype(np.int32).reshape(
+        n_anchor, BATCH)
+    a0 = torch.as_tensor(anchors[0], device=dev)
+
+    # -- the losses against the replicated trainer (fp32, no sketch): the
+    # per-shard pool is the mean of the replicated per-shard losses (the
+    # same anchors and draws); the ring's global pool is K5 over the whole
+    # batch's [512, 1024] score matrix
+    per = trainer_for(fp32_model())
+    per.init_state(0)
+    params = {k_: v_.clone() for k_, v_ in per.model.state_dict().items()}
+    ring = trainer_for(fp32_model(), global_candidate_pool=True)
+    ring.init_state(params=params)
+    rep = NALPTrainer(fp32_model(), dg, NALPTrainerConfig(**base))
+    rep.init_state(params=params)
+    with torch.no_grad():
+        loss_per = float(per.loss_and_sketch(a0, 0)[0])
+        loss_ring = float(ring.loss_and_sketch(a0, 0)[0])
+        shard_losses = [float(rep.loss(rep.sample_batch(a_, 0)))
+                        for a_ in a0.reshape(shards, -1)]
+        loss_full = float(rep.loss(rep.sample_batch(a0, 0)))
+    mean = float(np.mean(shard_losses))
+    per_rel = abs(loss_per - mean) / abs(mean)
+    ring_rel = abs(loss_ring - loss_full) / abs(loss_full)
+    emit({"phase": "partitioned_loss_checks", "per_shard_pool": loss_per,
+          "replicated_per_shard_mean": mean, "per_shard_rel_err": per_rel,
+          "ring_pool": loss_ring, "k5_global_matrix": loss_full,
+          "ring_rel_err": ring_rel})
+    check(per_rel <= 1e-5, f"the per-shard pool's loss {loss_per} is not "
+          f"the mean of the replicated per-shard losses {mean}")
+    check(ring_rel <= 1e-5, f"the ring's loss {loss_ring} is not K5 over "
+          f"the global score matrix {loss_full}")
+    del per, rep
+
+    # -- each pool's step (fp32, the sketch on) against the plain twins;
+    # the ring step's routed calls and folds recorded for the kernel rows
+    for pool in ("per_shard", "ring"):
+        t_ = trainer_for(fp32_model(), use_cms_correction=True,
+                         global_candidate_pool=pool == "ring")
+        st = t_.init_state(0)
+        loss_fn = lambda: t_.loss_and_sketch(a0, 0, st.cms)[0]  # noqa: E731
+        vs = step_vs_plain(t_.model.encoder, loss_fn, _build.launches)
+        emit({"phase": "partitioned_step_vs_plain", "pool": pool, **vs})
+        check(vs["loss_rel_err"] <= 1e-5,
+              f"partitioned {pool} step: loss differs from the plain step: "
+              f"{vs}")
+        check(vs["max_grad_err_rel_to_scale"] <= 1e-4,
+              f"partitioned {pool} step: a gradient differs from the plain "
+              f"step: {vs}")
+    with spy(fl, "route_requests",
+             lambda a, k: (a[0].clone(),) + tuple(a[1:])) as routes, \
+            spy(fl, "unroute_rows",
+                lambda a, k: tuple(x.clone() for x in a)) as unroutes, \
+            spy(fl, "sample_uniform",
+                lambda a, k: tuple(a[:2]) + (a[2].clone(),) + tuple(a[3:])
+                + (k["row_offset"],)) as draws, \
+            spy(sr, "ring_fold", lambda a, k: a[:4]) as folds, \
+            spy(sr, "ring_block_bwd", lambda a, k: a) as bwds:
+        loss = t_.loss_and_sketch(a0, 0, st.cms)[0]
+        loss.backward()
+    torch.cuda.synchronize()
+    del t_, st, loss
+
+    # -- K15 at the step's largest request vector (one shard's union
+    # gather). bytes: the ids read, owner / pos / ok and the [P, C] table
+    # written; ops: ~12 integer ops per id. Yardstick: a stable sort of the
+    # owners with their counts (scatter_add_, bincount's work without its
+    # host sync) and the positions scattered back.
+    ids15, rows15, p15, cap15 = max(routes, key=lambda r_: r_[0].numel())
+    got = fl.route_requests(ids15, rows15, p15, cap15)
+    want = fl._route_requests_plain(ids15, rows15, p15, cap15)
+    check(all(torch.equal(g_, w_) for g_, w_ in zip(got, want)),
+          "K15 route_requests is not bit-equal")
+    g15 = ids15.numel()
+    owner64 = torch.div(ids15.long(), rows15, rounding_mode="floor").clamp(
+        0, p15 - 1)
+    ones64 = torch.ones_like(owner64)
+    iota = torch.arange(g15, device=dev)
+
+    def k15_library():
+        srt, perm = torch.sort(owner64, stable=True)
+        cnt = torch.zeros(p15, dtype=torch.int64, device=dev).scatter_add_(
+            0, owner64, ones64)
+        pos = torch.empty_like(perm)
+        pos[perm] = iota - (torch.cumsum(cnt, 0) - cnt)[srt]
+        return pos
+
+    lib_pos = k15_library()
+    check(torch.equal(lib_pos.to(torch.int32), got[2]),
+          "the K15 yardstick's positions differ from K15's")
+    record("route_requests", "gigl_tpu_torch/csrc/route.cu",
+           "gigl_tpu/parallel/feature_lookup.py:48", 0.0,
+           cuda_ms(lambda: fl.route_requests(ids15, rows15, p15, cap15)),
+           cuda_ms(lambda: fl._route_requests_plain(ids15, rows15, p15,
+                                                    cap15)),
+           nbytes=g15 * 4 + g15 * 9 + p15 * cap15 * 4, nops=g15 * 12,
+           library_ms=cuda_ms(k15_library),
+           library_call="torch.sort(stable=True) of the owners, counts by "
+                        "scatter_add_, positions scattered back",
+           ids=g15, shards=p15, capacity=cap15, rows_per_shard=rows15,
+           eager_ms=eager_ms(lambda: fl.route_requests(ids15, rows15, p15,
+                                                       cap15)))
+
+    # -- K16 at the union gather's [P, C, D + 1] fp32 answers, and its mode
+    # over the widest drawn neighbor rows (int32). bytes: owner / pos / ok
+    # read, each answered row read once, each output row written once.
+    def k16_case(case):
+        back, owner, pos, ok = case
+        got_ = fl.unroute_rows(back, owner, pos, ok)
+        check(torch.equal(got_, fl._unroute_plain(back, owner, pos, ok)),
+              "K16 unroute_rows is not bit-equal")
+        c_ = back.shape[1]
+        flat = back.reshape(back.shape[0] * c_, -1)
+        idx = owner.long() * c_ + pos.clamp(max=c_ - 1).long()
+        zero = torch.zeros((), dtype=back.dtype, device=dev)
+        row_b = flat.shape[1] * back.element_size()
+        g_ = owner.numel()
+        return {"ms": cuda_ms(lambda: fl.unroute_rows(back, owner, pos, ok)),
+                "plain_ms": cuda_ms(
+                    lambda: fl._unroute_plain(back, owner, pos, ok)),
+                "library_ms": cuda_ms(lambda: torch.where(
+                    ok[:, None], flat.index_select(0, idx), zero)),
+                "nbytes": g_ * 9 + int(ok.sum()) * row_b + g_ * row_b,
+                "rows": g_, "row_bytes": row_b, "answers": list(back.shape),
+                "dtype": str(back.dtype).replace("torch.", "")}
+
+    fp_cases = [u_ for u_ in unroutes if u_[0].dtype == torch.float32]
+    int_cases = [u_ for u_ in unroutes if u_[0].dtype == torch.int32]
+    u16 = k16_case(max(fp_cases, key=lambda u_: u_[0].numel()))
+    record("unroute_rows", "gigl_tpu_torch/csrc/route.cu",
+           "gigl_tpu/parallel/feature_lookup.py:83", 0.0, u16["ms"],
+           u16["plain_ms"], nbytes=u16["nbytes"], nops=0,
+           library_ms=u16["library_ms"],
+           library_call="index_select of the flattened answers by owner * C "
+                        "+ pos (computed beforehand), then where(ok)",
+           **{k_: v_ for k_, v_ in u16.items()
+              if k_ in ("rows", "row_bytes", "answers", "dtype")})
+    u16i = k16_case(max(int_cases, key=lambda u_: u_[0].numel()))
+    u16i["bound_ms"] = bound_ms(u16i.pop("nbytes"), 0)[0]
+    add_mode("unroute_rows", "int32_draw", u16i)
+
+    # -- K1's row-offset mode at the step's largest owner-side draw on
+    # shard 0 (its local rows are the global rows, so the old mode over
+    # the global CSR gives the same bits on the same frontier)
+    ip1, ix1, fr1, fan1, seed1, hop1, off1 = max(
+        (d_ for d_ in draws if d_[6] == 0), key=lambda d_: d_[2].numel())
+    csr = dg.message_csr
+    got1 = sample_uniform(ip1, ix1, fr1, fan1, seed1, hop1, row_offset=off1)
+    old1 = sample_uniform(csr.indptr, csr.indices, fr1, fan1, seed1, hop1)
+    twin1 = _sample_uniform_plain(ip1, ix1, fr1, fan1, seed1, hop1, off1)
+    check(all(torch.equal(a_, b_) and torch.equal(a_, c_)
+              for a_, b_, c_ in zip(got1, old1, twin1)),
+          "K1's row-offset mode differs from its twin or the plain mode")
+    m1 = fr1.numel()
+    add_mode("sample_uniform", "row_offset", {
+        "err": 0.0, "frontier": list(fr1.shape), "fanout": fan1,
+        "ms": cuda_ms(lambda: sample_uniform(ip1, ix1, fr1, fan1, seed1,
+                                             hop1, row_offset=off1)),
+        "ms_plain_mode_same_rows": cuda_ms(lambda: sample_uniform(
+            csr.indptr, csr.indices, fr1, fan1, seed1, hop1)),
+        "plain_ms": cuda_ms(lambda: _sample_uniform_plain(
+            ip1, ix1, fr1, fan1, seed1, hop1, off1)),
+        "bound_ms": bound_ms(m1 * 4 + unique(fr1) * 8
+                             + unique(got1[2][got1[1]]) * 4 + m1 * fan1 * 9,
+                             m1 * fan1 * 24)[0]})
+
+    # -- K17: the fold of shard 0's own block and the backward of its
+    # first block ([Q_l, C_l] fp32). bytes: S read (and dS written), the
+    # column ids, masks and logQ, the row data and the running state.
+    sc, rws, cls, own = folds[0]
+    ql, cl = sc.shape
+    fresh = (torch.full((ql,), sr.FMIN, device=dev),
+             torch.zeros(ql, device=dev), torch.zeros(ql, device=dev))
+    got_state = [t_.clone() for t_ in fresh]
+    want_state = [t_.clone() for t_ in fresh]
+    sr.ring_fold(sc, rws, cls, own, *got_state)
+    sr._ring_fold_plain(sc, rws, cls, own, *want_state)
+    for g_, w_ in zip(got_state, want_state):
+        torch.testing.assert_close(g_, w_, rtol=1e-5, atol=0)
+    fold_err = max(float((g_ - w_).abs().max())
+                   for g_, w_ in zip(got_state, want_state))
+    bsc, brw, bcl, bown, lse, gr = bwds[0]
+    ds_k = sr.ring_block_bwd(bsc, brw, bcl, bown, lse, gr)
+    ds_p = sr._ring_block_bwd_plain(bsc, brw, bcl, bown, lse, gr)
+    ds_scale = float(ds_p.abs().max())
+    ds_err = float((ds_k - ds_p).abs().max())
+    check(ds_err <= 1e-5 * ds_scale,
+          f"K17 backward error {ds_err} > 1e-5 * {ds_scale}")
+    v_fold = sr._masked_block_plain(sc, rws, cls, own)[0]
+    v_bwd = sr._masked_block_plain(bsc, brw, bcl, bown)[0]
+    work = [t_.clone() for t_ in fresh]
+    fold_ms = cuda_ms(lambda: sr.ring_fold(sc, rws, cls, own, *work))
+    bwd_ms = cuda_ms(lambda: sr.ring_block_bwd(bsc, brw, bcl, bown, lse, gr))
+    plain_fold_ms = cuda_ms(lambda: sr._ring_fold_plain(sc, rws, cls, own,
+                                                        *work))
+    plain_bwd_ms = cuda_ms(lambda: sr._ring_block_bwd_plain(
+        bsc, brw, bcl, bown, lse, gr))
+    v_lib = v_bwd.detach().clone().requires_grad_()
+    lib_fold = cuda_ms(lambda: torch.logsumexp(v_fold, 1))
+    # the block's logsumexp and its gradient (the softmax), as K5's
+    # yardstick takes cross_entropy and its gradient
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        torch.logsumexp(v_lib, 1).sum(), v_lib))
+    cols_b = cl * 13
+    rows_b = ql * 12
+    record("ring_retrieval", "gigl_tpu_torch/csrc/ring_retrieval.cu",
+           "gigl_tpu/losses/sharded_retrieval.py:40",
+           max(fold_err, ds_err), fold_ms + bwd_ms,
+           plain_fold_ms + plain_bwd_ms,
+           nbytes=(ql * cl * 4 + cols_b + rows_b + ql * 24)
+           + (ql * cl * 8 + cols_b + rows_b + ql * 8),
+           nops=ql * cl * 22, library_ms=lib_ms,
+           library_call="torch.logsumexp over the masked block and its "
+                        "gradient (autograd.grad)",
+           fold_ms=fold_ms, bwd_ms=bwd_ms, plain_fold_ms=plain_fold_ms,
+           plain_bwd_ms=plain_bwd_ms, library_fold_ms=lib_fold,
+           block=[ql, cl], ds_scale=ds_scale,
+           folds_per_step=len(folds), bwds_per_step=len(bwds),
+           eager_ms=eager_ms(lambda: sr.ring_fold(sc, rws, cls, own, *work)))
+    a2a_union = fp_cases[0][0].nbytes * shards
+    del routes, unroutes, draws, folds, bwds, fp_cases, int_cases, work
+
+    # -- the paths: both pools (bf16, the sketch on), then encode_batch
+    # over every node
+    edges_per_step = (2 * k1 + k1 * k2) * (BATCH + BATCH + R)
+    trainer = None
+    for path, pool in (("partitioned_train", "per_shard"),
+                       ("partitioned_ring_train", "ring")):
+        trainer = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        mesh.reset_counts()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        trainer = trainer_for(make_model(), use_cms_correction=True,
+                              global_candidate_pool=pool == "ring")
+        state = trainer.init_state(0)
+        gens = [torch.Generator(device=dev).manual_seed(s_)
+                for s_ in range(shards)]
+        state, warm = trainer.train_steps(state, anchors[:PART_WARMUP], gens)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, losses = trainer.train_steps(
+            state, anchors[PART_WARMUP: PART_WARMUP + PART_STEPS], gens)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t1
+        nsteps = PART_WARMUP + PART_STEPS
+        counts[path] = (dict(_build.launches), nsteps)
+        a2a_per_step = mesh.a2a_bytes / nsteps
+        a2a_calls = mesh.a2a_calls / nsteps
+        peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+        emit({"phase": "main_path", "path": path, "pool": pool,
+              "launches": counts[path][0], "steps": nsteps,
+              "seconds": time.perf_counter() - t0})
+        want_k = PART_TRAIN_KERNELS + (
+            ("ring_retrieval",) if pool == "ring" else ("retrieval_loss",))
+        for k in want_k:
+            check(counts[path][0][k] > 0, f"{k} was not launched on {path}")
+        check(trainer.overflow_total == 0,
+              f"{path}: {trainer.overflow_total} routed requests dropped")
+        total = int(state.cms.total)
+        check(total == nsteps * (BATCH + R),
+              f"{path}: the sketch counted {total}, not {nsteps} x "
+              f"{BATCH + R}")
+        losses = losses.float().cpu().numpy()
+        check(np.isfinite(losses).all() and np.isfinite(
+            warm.float().cpu().numpy()).all(), f"{path}: loss not finite")
+        ms_step = train_s / PART_STEPS * 1e3
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            state, _ = trainer.train_steps(
+                state, anchors[PART_WARMUP + PART_STEPS:], gens)
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t1) * 1e6
+        emit({"phase": "partitioned_train_throughput", "pool": pool,
+              "shards": shards, "steps": PART_STEPS, "ms_per_step": ms_step,
+              "edges_per_step": edges_per_step,
+              "edges_per_s": edges_per_step / (ms_step / 1e3),
+              "launches_per_step": {k_: v_ / nsteps for k_, v_ in
+                                    counts[path][0].items() if v_},
+              "a2a_bytes_per_step": a2a_per_step,
+              "a2a_calls_per_step": a2a_calls,
+              "a2a_bytes_union_gather": a2a_union,
+              "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+              "sketch_total": total, "overflow_total": trainer.overflow_total,
+              "peak_mem_gb": peak_gb,
+              "profile": profile_summary(prof, PART_PROFILED, window_us,
+                                         ms_step), "card": card})
+        del state
+
+    path = "partitioned_encode"
+    mesh.reset_counts()
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    embs = torch.cat([trainer.encode_batch(
+        np.arange(i_, min(i_ + BATCH, N), dtype=np.int32))
+        for i_ in range(0, N, BATCH)])
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    n_batches = -(-N // BATCH)
+    counts[path] = (dict(_build.launches), n_batches)
+    emit({"phase": "main_path", "path": path, "launches": counts[path][0],
+          "batches": n_batches, "seconds": enc_s})
+    for k in PART_ENCODE_KERNELS:
+        check(counts[path][0][k] > 0, f"{k} was not launched on {path}")
+    check(embs.shape == (N, OUT) and bool(torch.isfinite(embs).all()),
+          f"{path}: embeddings are not finite [{N}, {OUT}]")
+    with torch.inference_mode(), plain_kernels():
+        ref0 = trainer.encode_batch(np.arange(BATCH, dtype=np.int32))
+    err0 = float((embs[:BATCH].float() - ref0.float()).abs().max())
+    scale0 = float(ref0.float().abs().max())
+    # the same inputs through the same bf16 casts: the kernels and their
+    # twins give the same bits here (0.0 measured on the H100)
+    check(err0 == 0.0, f"{path}: batch 0 differs from the plain "
+          f"recomputation: {err0} (scale {scale0})")
+    emit({"phase": "partitioned_encode_throughput", "nodes": N,
+          "nodes_per_s": N / enc_s, "ms_per_batch": enc_s / n_batches * 1e3,
+          "launches_per_batch": {k_: v_ / n_batches for k_, v_ in
+                                 counts[path][0].items() if v_},
+          "a2a_bytes_per_batch": mesh.a2a_bytes / n_batches,
+          "batch0_max_abs_err": err0, "scale": scale0, "card": card})
+    del trainer, embs, pg, mesh
+    return counts
+
+
 def main():
     if not (REPO / "gigl_tpu_torch" / "csrc").is_dir():
         sys.exit("chip_smoke: run from a checkout of the repository "
@@ -3309,6 +3752,8 @@ def main():
     quant = quantized_phases(dev, card, graph, np.stack([src, dst]), record,
                              add_mode, unique, make_model, opt_args, anchors,
                              (dg, cfg))
+    part = partitioned_phases(dev, card, dg, record, add_mode, unique,
+                              make_model, opt_args)
 
     # launches on every kernel row: the training path's (K6 / K7: the
     # full-graph passes'; K6b / K7b: the node-classification paths'; K8-K10:
@@ -3334,6 +3779,10 @@ def main():
                                   if p_.startswith("edge_full_batch"))
         elif k in ("gather_rows_q8", "cms_add", "cms_estimate"):
             row["launches"] = quant["quantized_train"][0][k]
+        elif k in ("route_requests", "unroute_rows"):
+            row["launches"] = part["partitioned_train"][0][k]
+        elif k == "ring_retrieval":
+            row["launches"] = part["partitioned_ring_train"][0][k]
         else:
             row["launches"] = sum(fg.values())
         row["launches_per_step"] = (launches[k] - after_init[k]) / (
@@ -3356,8 +3805,10 @@ def main():
             p_: c_[k] / n_ for p_, (c_, n_) in edge.items()}
         row["launches_per_quantized_path_step"] = {
             p_: c_[k] / n_ for p_, (c_, n_) in quant.items()}
-    check(len(results) == len(_build.KERNEL_NAMES) == 21,
-          "the kernels line does not list all twenty-one kernels")
+        row["launches_per_partitioned_step"] = {
+            p_: c_[k] / n_ for p_, (c_, n_) in part.items()}
+    check(len(results) == len(_build.KERNEL_NAMES) == 24,
+          "the kernels line does not list all twenty-four kernels")
     results.sort(key=lambda r: _build.KERNEL_NAMES.index(r["name"]))
 
     emit({"kernels": results})

@@ -9,8 +9,10 @@ same module that runs only for CPU tensors.
 Entry points (``DeviceGraph.from_hetero``, ``NALPTrainer``,
 ``run_inference``, ``run_full_graph_inference``, the node-classification
 trainers, ``HeteroDeviceGraph.from_hetero``, ``HeteroNALPTrainer``,
-``run_full_graph_inference_hetero``) run on CUDA unless the caller passes
-``device="cpu"``.
+``run_full_graph_inference_hetero``, and the partitioned trainer:
+``make_mesh``, ``PartitionedGraph.build``, ``PartitionedNALPTrainer``) run
+on CUDA unless the caller passes ``device="cpu"`` (for the partitioned
+trainer: ``make_mesh(P, "cpu")``).
 """
 
 from gigl_tpu_torch.device import resolve_device

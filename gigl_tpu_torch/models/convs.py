@@ -25,7 +25,7 @@ Ported: ``SAGEConv``, ``GCNConv``, ``GINConv``, ``GINEConv``, ``GATConv``
   weights); Transformer on K10, K9 and K8 (backward adds K10b). GATv2's
   ``coo`` raises (ROADMAP A9, GATv2 coo): no B7 kernel computes its
   per-edge LeakyReLU of a sum of rows. Edge features in the ``coo`` forms
-  raise too (ROADMAP slice 9: a per-edge term inside K8-K10).
+  raise too (ROADMAP slice 10: a per-edge term inside K8-K10).
 
 The convs without edge features (SAGE, GCN, GIN, GAT without
 ``use_edge_attr``) ignore ``edge_attr`` in their block and ELL forms, as
@@ -71,7 +71,7 @@ from gigl_tpu_torch.ops.segment import (
 GATV2_COO_NOT_PORTED = (
     "GATv2's coo form computes a LeakyReLU of a sum of gathered rows per "
     "edge, which no B7 kernel computes: not ported yet (ROADMAP A9, GATv2 "
-    "coo, slice 9); use encode_ell")
+    "coo, slice 10); use encode_ell")
 
 
 def linear(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -20,7 +20,7 @@ convs), the edge tables' K11.
 encode over COO edges: each conv's ``coo`` form on the segment kernels
 (K8-K10, backward K8b-K10b), in original node order, walking the two
 ``SegmentIndex``es of the graph (given, or built once per call); edge
-features raise there (ROADMAP slice 9).
+features raise there (ROADMAP slice 10).
 
 Edge features: with ``edge_dim`` and an edge conv (GINE, EdgeAttrGAT,
 Transformer) the raw edge rows are projected once to ``hid_dim`` by

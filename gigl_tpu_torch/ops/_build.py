@@ -36,15 +36,17 @@ COMPILE_FLAGS = ARCH_FLAGS + [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c"]
 
 # Kernel name -> number of launches since the last reset_launches().
-# retrieval_loss counts its forward and its backward entry point;
-# segment_reduce_bwd its max mode's tie pass, sddmm_bwd both of its stages.
+# retrieval_loss and ring_retrieval count their forward and their backward
+# entry point; segment_reduce_bwd its max mode's tie pass, sddmm_bwd both
+# of its stages.
 KERNEL_NAMES = ("sample_uniform", "uniform_ids", "build_neighbor_cache",
                 "gather_rows", "masked_reduce", "masked_reduce_bwd",
                 "retrieval_loss", "ell_aggregate", "fanout_attention",
                 "ell_transpose_aggregate", "fanout_attention_bwd",
                 "segment_reduce", "segment_softmax", "sddmm",
                 "segment_reduce_bwd", "segment_softmax_bwd", "sddmm_bwd",
-                "ell_edge_grad", "gather_rows_q8", "cms_add", "cms_estimate")
+                "ell_edge_grad", "gather_rows_q8", "cms_add", "cms_estimate",
+                "route_requests", "unroute_rows", "ring_retrieval")
 launches: Dict[str, int] = dict.fromkeys(KERNEL_NAMES, 0)
 
 _P = ctypes.c_void_p
@@ -55,7 +57,7 @@ _F32 = ctypes.c_float
 # C entry point -> argument types (the trailing pointer is the stream).
 _SIGNATURES = {
     "gigl_sample_uniform": [_P, _P, _I64, _P, _I64, _I32, _U32, _U32,
-                            _P, _P, _P, _P],
+                            _I32, _I32, _I64, _P, _P, _P, _P],
     "gigl_uniform_ids": [_I64, _U32, _U32, _U32, _P, _P],
     "gigl_build_neighbor_cache": [_P, _P, _I64, _I64, _P, _P, _I32, _P,
                                   _I32, _U32, _U32, _I32, _P, _I64, _P],
@@ -89,6 +91,12 @@ _SIGNATURES = {
                             _P],
     "gigl_cms_add": [_P, _I32, _I32, _P, _I64, _P, _P, _P, _P],
     "gigl_cms_estimate": [_P, _I32, _I32, _P, _I64, _P, _P, _P, _P],
+    "gigl_route_requests": [_P, _I64, _I32, _I32, _I32, _P, _P, _P, _P, _P],
+    "gigl_unroute_rows": [_P, _I32, _I32, _I32, _P, _P, _P, _I64, _P, _P],
+    "gigl_ring_fold": [_P, _I32, _I32] + [_P] * 7 + [_F32, _F32]
+    + [_P] * 4,
+    "gigl_ring_block_bwd": [_P, _I32, _I32] + [_P] * 7 + [_F32, _F32]
+    + [_P] * 4,
 }
 
 _lib: Optional[ctypes.CDLL] = None

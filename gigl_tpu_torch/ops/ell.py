@@ -48,7 +48,7 @@ from gigl_tpu_torch.ops import _build
 
 COO_EDGE_FEATURES_NOT_PORTED = (
     "edge features on the COO path need a per-edge term inside the segment "
-    "kernels K8-K10, which is not ported yet (ROADMAP slice 9, COO per-edge "
+    "kernels K8-K10, which is not ported yet (ROADMAP slice 10, COO per-edge "
     "terms); use encode_ell")
 EDGE_GRAD_MODES = {"gine": 0, "gat": 1, "transformer": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

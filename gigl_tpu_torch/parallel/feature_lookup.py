@@ -1,0 +1,279 @@
+"""Routed per-id lookups across a range-sharded table or graph (port of
+``gigl_tpu/parallel/feature_lookup.py``: ``request_capacity``,
+``_route_requests``, ``_unroute``, ``routed_gather`` and the uniform
+``routed_sample_neighbors``).
+
+The table (feature rows, or per-node CSR adjacency) is range-partitioned
+over the shards of a :class:`~gigl_tpu_torch.parallel.mesh.Mesh`: global
+row r lives on shard r // rows at local row r % rows. A lookup of arbitrary
+global ids is one all_to_all round trip:
+
+  1. bucket each shard's requested ids by owner shard (K15),
+  2. ``all_to_all`` the request buckets (each shard receives the ids it
+     owns),
+  3. answer locally: a row gather (K3) or the owner-side neighbor draw
+     (K1 in its row-offset mode, keyed by the global id),
+  4. ``all_to_all`` the answers back and read each request's row at its
+     bucket coordinates (K16).
+
+Shapes are static: each shard sends at most ``capacity`` requests to each
+peer; requests beyond it are dropped (``ok`` False, rows zero-filled), the
+analog of an RPC timeout that the trainers count as overflow.
+
+Kernels (``csrc/route.cu``): K15 ``route_requests`` (the counting-sort
+bucketing, bit-equal to :func:`_route_requests_plain`) and K16
+``unroute_rows`` (bit-equal to :func:`_unroute_plain`); the twins run for
+CPU tensors only. The functions take the mesh and every shard's tensors
+as per-shard lists (entry p is shard p's), since a routed lookup needs
+every shard's requests at once; the answering side takes its ``shard``
+index explicitly.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from gigl_tpu_torch.ops import _build
+from gigl_tpu_torch.ops.gather import gather_rows
+from gigl_tpu_torch.parallel.mesh import Mesh
+from gigl_tpu_torch.sampling.neighbor_sampler import sample_uniform
+
+MAX_SHARDS = 32  # K15 takes one warp per owner shard
+
+
+def request_capacity(num_requests: int, num_shards: int,
+                     factor: float = 2.0) -> int:
+    """Per-(src, dst) shard bucket capacity: factor x the balanced load,
+    rounded up to a multiple of 8."""
+    base = int(math.ceil(num_requests / max(num_shards, 1) * factor))
+    return max(8, ((base + 7) // 8) * 8)
+
+
+def _route_requests_plain(ids: torch.Tensor, rows: int, num_shards: int,
+                          capacity: int):
+    """Plain twin of K15: (req [P, C] int32, owner [G] int32, pos [G]
+    int32, ok [G] bool), the reference's one-hot cumsum."""
+    owner = torch.div(ids.to(torch.int64), int(rows),
+                      rounding_mode="floor").clamp(0, num_shards - 1)
+    onehot = owner[:, None] == torch.arange(num_shards, device=ids.device)
+    counts = torch.cumsum(onehot.to(torch.int32), dim=0)
+    pos = counts.gather(1, owner[:, None])[:, 0] - 1
+    ok = pos < capacity
+    # (owner, pos) is distinct for every kept request; dropped ones write
+    # to one spare cell past the table (no host sync: the twin is timed in
+    # CUDA graphs too)
+    cells = torch.where(ok, owner * capacity + pos, num_shards * capacity)
+    req = torch.zeros((num_shards * capacity + 1,), dtype=torch.int32,
+                      device=ids.device)
+    req.scatter_(0, cells, ids.to(torch.int32))
+    return (req[:-1].reshape(num_shards, capacity), owner.to(torch.int32),
+            pos.to(torch.int32), ok)
+
+
+def route_requests(ids: torch.Tensor, rows: int, num_shards: int,
+                   capacity: int):
+    """K15: bucket one shard's request vector ``ids`` [G] int32 by owner
+    shard clip(id // rows, 0, P - 1), first come first served. Returns
+    (req [P, C] int32, zero where unused; owner, pos [G] int32; ok [G]
+    bool = pos < C). CPU tensors take the plain twin."""
+    if ids.device.type == "cpu":
+        return _route_requests_plain(ids, rows, num_shards, capacity)
+    ids = ids.contiguous()
+    device = _build.require_cuda("route_requests", ids)
+    if ids.dtype != torch.int32 or ids.dim() != 1:
+        raise ValueError("route_requests: ids must be int32 [G]")
+    if not 1 <= num_shards <= MAX_SHARDS:
+        raise ValueError(f"route_requests: {num_shards} shards; K15 takes "
+                         f"1 to {MAX_SHARDS}")
+    if rows < 1 or capacity < 1:
+        raise ValueError("route_requests: rows and capacity must be >= 1")
+    g = ids.shape[0]
+    req = torch.empty((num_shards, capacity), dtype=torch.int32,
+                      device=device)
+    owner = torch.empty((g,), dtype=torch.int32, device=device)
+    pos = torch.empty((g,), dtype=torch.int32, device=device)
+    ok = torch.empty((g,), dtype=torch.bool, device=device)
+    _build.launch("route_requests", "gigl_route_requests", device,
+                  ids.data_ptr(), g, int(rows), int(num_shards),
+                  int(capacity), req.data_ptr(), owner.data_ptr(),
+                  pos.data_ptr(), ok.data_ptr())
+    return req, owner, pos, ok
+
+
+def _unroute_plain(back: torch.Tensor, owner: torch.Tensor,
+                   pos: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K16: back[owner, min(pos, C - 1)], zero where not
+    ``ok``."""
+    out = back[owner.to(torch.int64),
+               pos.clamp(max=back.shape[1] - 1).to(torch.int64)]
+    keep = ok.reshape(ok.shape + (1,) * (out.dim() - 1))
+    return torch.where(keep, out, torch.zeros((), dtype=out.dtype,
+                                              device=out.device))
+
+
+def unroute_rows(back: torch.Tensor, owner: torch.Tensor, pos: torch.Tensor,
+                 ok: torch.Tensor) -> torch.Tensor:
+    """K16: each request's answer row ``back[owner, min(pos, C - 1)]``
+    ([P, C, ...] answers of a 2- or 4-byte type) in request order, zero
+    where the request overflowed. CPU tensors take the plain twin."""
+    if back.device.type == "cpu":
+        return _unroute_plain(back, owner, pos, ok)
+    back = back.contiguous()
+    device = _build.require_cuda("unroute_rows", back, owner, pos, ok)
+    g = owner.shape[0]
+    if (owner.dtype != torch.int32 or pos.dtype != torch.int32
+            or ok.dtype != torch.bool or pos.shape != (g,)
+            or ok.shape != (g,) or back.dim() < 2):
+        raise ValueError("unroute_rows: back [P, C, ...]; owner, pos int32 "
+                         "and ok bool, all [G]")
+    esize = back.element_size()
+    if esize not in (2, 4):
+        raise ValueError(f"unroute_rows: {back.dtype} rows not supported "
+                         "(2- or 4-byte types)")
+    tail = tuple(back.shape[2:])
+    row_bytes = math.prod(tail) * esize
+    out = torch.empty((g,) + tail, dtype=back.dtype, device=device)
+    word = 16 if row_bytes % 16 == 0 and back.data_ptr() % 16 == 0 else (
+        4 if row_bytes % 4 == 0 else 2)
+    _build.launch("unroute_rows", "gigl_unroute_rows", device,
+                  back.data_ptr(), back.shape[1], row_bytes, word,
+                  owner.data_ptr(), pos.data_ptr(), ok.data_ptr(), g,
+                  out.data_ptr())
+    return out
+
+
+def _capacity(g: int, num_shards: int, capacity: Optional[int],
+              factor: float) -> int:
+    if capacity is None:
+        capacity = request_capacity(g, num_shards, factor)
+    return min(capacity, g) if g > 0 else capacity
+
+
+def _route_all(mesh: Mesh, global_ids: Sequence[torch.Tensor], rows: int,
+               capacity: Optional[int], factor: float):
+    """Every shard's requests bucketed (K15) and exchanged: (recv [P, C]
+    per shard — the ids each shard owns and was asked for —, and each
+    shard's (owner, pos, ok))."""
+    p = mesh.num_shards
+    cap = _capacity(global_ids[0].shape[0], p, capacity, factor)
+    routed = [route_requests(ids.to(torch.int32), rows, p, cap)
+              for ids in global_ids]
+    recv = mesh.all_to_all([r[0] for r in routed])
+    return recv, [r[1:] for r in routed]
+
+
+def answer_gather(shard: int, local_table: torch.Tensor,
+                  recv: torch.Tensor) -> torch.Tensor:
+    """Shard ``shard``'s answers to its requests ``recv`` [P, C] global
+    ids: its own rows (K3 over the [P * C] rows), [P, C, W]."""
+    rows = local_table.shape[0]
+    local = (recv - shard * rows).clamp(0, rows - 1).to(torch.int32)
+    vals, _ = gather_rows(local_table, local.reshape(-1))
+    return vals.reshape(tuple(recv.shape) + tuple(local_table.shape[1:]))
+
+
+def routed_gather(
+    mesh: Mesh,
+    local_tables: Sequence[torch.Tensor],
+    global_ids: Sequence[torch.Tensor],
+    *,
+    capacity: Optional[int] = None,
+    capacity_factor: float = 2.0,
+) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Rows of a range-sharded table by GLOBAL row id, for every shard.
+
+    ``local_tables[p]`` is shard p's [rows, W] block; ``global_ids[p]`` its
+    [G] int32 request vector (each shard requests its own set; every shard
+    the same G). Returns per shard (values [G, W], ok [G] bool); ``ok`` is
+    False only for requests dropped by bucket overflow (rows zero-filled).
+
+    One shard takes the reference's closed form: one K3 gather of the
+    clipped ids."""
+    p = mesh.num_shards
+    rows = local_tables[0].shape[0]
+    if p == 1:
+        ids = global_ids[0].to(torch.int32).clamp(0, rows - 1)
+        return [gather_rows(local_tables[0], ids)[0]], [
+            torch.ones(ids.shape, dtype=torch.bool, device=ids.device)]
+    recv, coords = _route_all(mesh, global_ids, rows, capacity,
+                              capacity_factor)
+    answers = [answer_gather(q, local_tables[q], recv[q]) for q in range(p)]
+    back = mesh.all_to_all(answers)
+    return ([unroute_rows(back[s], *coords[s]) for s in range(p)],
+            [c[2] for c in coords])
+
+
+def answer_draw(local_indptr: torch.Tensor, local_indices: torch.Tensor,
+                recv: torch.Tensor, fanout: int, row_offset: int, seed: int,
+                hop: int) -> torch.Tensor:
+    """A shard's owner-side draw for its requests ``recv`` (global ids):
+    K1 in its row-offset mode, keyed by the global id, so the draw is the
+    replicated sampler's. Returns the packed [..., fanout] int32 neighbor
+    ids, -1 in invalid slots."""
+    nbr, mask, _ = sample_uniform(local_indptr, local_indices, recv,
+                                  int(fanout), seed, hop,
+                                  row_offset=int(row_offset))
+    return torch.where(mask, nbr, -1)
+
+
+def routed_sample_neighbors(
+    mesh: Mesh,
+    local_indptr: Sequence[torch.Tensor],
+    local_indices: Sequence[torch.Tensor],
+    global_ids: Sequence[torch.Tensor],
+    fanout: int,
+    *,
+    seed: int = 0,
+    hop: int = 1,
+    capacity: Optional[int] = None,
+    capacity_factor: float = 2.0,
+    method: str = "uniform",
+    local_weights=None,
+    local_edge_feats=None,
+) -> Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]:
+    """``fanout`` uniform neighbor draws per frontier node over a
+    row-sharded CSR, for every shard.
+
+    Shard p holds the CSR of global nodes [p * rows, (p + 1) * rows) as a
+    local ``local_indptr[p]`` [rows + 1] / ``local_indices[p]`` [E_pad]
+    pair (indices are GLOBAL neighbor ids). Frontier ids route to their
+    owner, which draws with the replicated sampler's counter RNG (K1's
+    row-offset mode, keyed by the global id), and the drawn ids route
+    back.
+
+    Returns per shard (neighbor ids [G, fanout] int32, mask [G, fanout]
+    bool, ok [G] bool); a dropped request's mask row is all False."""
+    if method != "uniform" or local_weights is not None:
+        raise NotImplementedError(
+            f"routed_sample_neighbors(method={method!r}): weighted / top-k "
+            "owner-side draws are not ported yet (ROADMAP A2)")
+    if local_edge_feats is not None:
+        raise NotImplementedError(
+            "routed_sample_neighbors(local_edge_feats=...): the partitioned "
+            "label-edge features are not ported yet (ROADMAP A15, rest)")
+    p = mesh.num_shards
+    rows = local_indptr[0].shape[0] - 1
+    if p == 1:
+        # the closed form: the owner-side draw on the raw request vector
+        ids = global_ids[0].to(torch.int32)
+        nbr, mask, _ = sample_uniform(local_indptr[0], local_indices[0], ids,
+                                      int(fanout), seed, hop, row_offset=0)
+        return [nbr], [mask], [torch.ones(ids.shape, dtype=torch.bool,
+                                          device=ids.device)]
+    recv, coords = _route_all(mesh, global_ids, rows, capacity,
+                              capacity_factor)
+    packed = [answer_draw(local_indptr[q], local_indices[q], recv[q], fanout,
+                          q * rows, seed, hop) for q in range(p)]
+    back = mesh.all_to_all(packed)
+    nbrs, masks, oks = [], [], []
+    for s in range(p):
+        out = unroute_rows(back[s], *coords[s])
+        ok = coords[s][2]
+        m = (out >= 0) & ok[:, None]
+        nbrs.append(torch.where(m, out, 0))
+        masks.append(m)
+        oks.append(ok)
+    return nbrs, masks, oks

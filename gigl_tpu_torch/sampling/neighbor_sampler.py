@@ -9,7 +9,9 @@ degrees sample with replacement. The draw is bit-equal to the reference.
 Kernel K1 ``sample_uniform`` (``csrc/sample_uniform.cu``) replaces
 ``counter_rng_uniform`` + ``uniform_offsets`` + ``sample_neighbors``: one
 CUDA thread per (node, slot). :func:`_sample_uniform_plain` is its plain
-PyTorch twin, used for CPU tensors only. Kernel K1b ``uniform_ids`` (the
+PyTorch twin, used for CPU tensors only; its row-offset mode is the
+owner-side draw of the partitioned graph's routed sampling
+(``parallel/feature_lookup.py``). Kernel K1b ``uniform_ids`` (the
 same source) is the batch-shared random-negative draw of
 ``sample_nalp_batch``, with :func:`_uniform_ids_plain` as its twin. The
 hash runs in the twins in int64
@@ -100,10 +102,13 @@ class DeviceCSR:
 
 def _sample_uniform_plain(
     indptr: torch.Tensor, indices: torch.Tensor, frontier: torch.Tensor,
-    fanout: int, seed: int, hop: int,
+    fanout: int, seed: int, hop: int, row_offset: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch twin of K1 (sample_neighbors, method="uniform")."""
+    """Plain PyTorch twin of K1 (sample_neighbors, method="uniform"; with
+    ``row_offset``, the owner-side draw of routed_sample_neighbors)."""
     f = frontier.to(torch.int64)
+    if row_offset is not None:
+        f = (f - int(row_offset)).clamp(0, indptr.shape[0] - 2)
     start = indptr[f].to(torch.int64)
     deg = indptr[f + 1].to(torch.int64) - start
     offsets, mask = uniform_offsets(deg, frontier, seed, hop, fanout)
@@ -114,16 +119,19 @@ def _sample_uniform_plain(
 
 def sample_uniform(
     indptr: torch.Tensor, indices: torch.Tensor, frontier: torch.Tensor,
-    fanout: int, seed: int, hop: int,
+    fanout: int, seed: int, hop: int, row_offset: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1: ``fanout`` uniform draws per frontier node ([...] int32).
 
     Returns (neighbor ids [..., fanout] int32, mask bool, CSR edge slots
-    int32). Frontier ids must lie in [0, N). CPU tensors take the plain
-    version; CUDA tensors launch the kernel (or raise)."""
+    int32). Frontier ids must lie in [0, N). With ``row_offset`` (the
+    row-offset mode) the CSR is one shard's row block: a frontier holds
+    global ids, node v reads local row clip(v - row_offset, 0, rows - 1)
+    and its draw stays keyed by v. CPU tensors take the plain version;
+    CUDA tensors launch the kernel (or raise)."""
     if frontier.device.type == "cpu":
         return _sample_uniform_plain(indptr, indices, frontier, fanout,
-                                     seed, hop)
+                                     seed, hop, row_offset)
     flat = frontier.reshape(-1).contiguous()
     device = _build.require_cuda("sample_uniform", flat, indptr, indices)
     for t in (indptr, indices, flat):
@@ -137,7 +145,9 @@ def sample_uniform(
         "sample_uniform", "gigl_sample_uniform", device,
         indptr.data_ptr(), indices.data_ptr(), indices.shape[0],
         flat.data_ptr(), m, int(fanout), int(seed) & _M32, int(hop) & _M32,
-        ids.data_ptr(), mask.data_ptr(), slots.data_ptr())
+        int(row_offset is not None), int(row_offset or 0),
+        indptr.shape[0] - 1, ids.data_ptr(), mask.data_ptr(),
+        slots.data_ptr())
     shape = tuple(frontier.shape) + (fanout,)
     return ids.reshape(shape), mask.reshape(shape), slots.reshape(shape)
 

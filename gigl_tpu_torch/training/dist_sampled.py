@@ -1,0 +1,669 @@
+"""Sampled NALP training over a graph PARTITIONED across a mesh of shards
+(port of the homogeneous part of ``gigl_tpu/training/dist_sampled.py``:
+``_shard_csr``, ``apply_overflow_policy``, ``PartitionedGraph`` and
+``PartitionedNALPTrainer``, live sampling).
+
+Every shard holds only its 1/P range of the graph — the feature rows with
+the in-degree fused as the last column, and its blocks of the message,
+supervision and hard-negative CSRs — and a training step is one program
+over all shards (``parallel/mesh.py``: a single controller; a shard's state
+is its own tensors):
+
+  - frontier expansion is ``routed_sample_neighbors`` (frontier ids go to
+    their owner shard, which draws fanout slots with the replicated
+    sampler's counter RNG — K1 in its row-offset mode — and the ids come
+    back: K15, K16),
+  - feature hydration is ONE ``routed_gather`` over the union of a shard's
+    encode trees (anchors, positives, its slice of the shared random
+    negatives, hard negatives; K15, K3 on the owner, K16),
+  - random negatives are drawn identically on every shard (K1b keyed by
+    the step), each shard encodes its R/P slice, and the candidate
+    embeddings are all_gathered (the per-shard pool: K5 per shard, the
+    sketch counts psum-reduced), or, with ``global_candidate_pool``, stay
+    sharded and the softmax runs as a ring over every shard's block (K17),
+  - the loss is the mean over shards (``pmean``); with one parameter set
+    on one controller its gradient is the reference's pmean of gradients.
+
+With capacity sized so no request overflows, a P-shard step computes the
+same sample trees as P independent replicated steps on the per-shard
+anchor slices with shared random negatives (the draws are keyed by global
+id). One shard takes the closed forms of the routed lookups (plain K1 /
+K3 calls, no collective), so its union gather is one K3 call.
+
+Not ported (ROADMAP A15, rest): the node-classification trainer, the
+tabularized partitioned layout (``cached_hop``), int8 rows, weighted
+draws (A2), node labels and label-edge features on the partitioned graph,
+and the ring's own-block edge bias.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from dataclasses import dataclass
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from gigl_tpu_torch.losses.count_min_sketch import (
+    CountMinSketch,
+    cms_add,
+    cms_init,
+    cms_sampling_probability,
+)
+from gigl_tpu_torch.losses.metrics import hits_at_k, mean_reciprocal_rank
+from gigl_tpu_torch.losses.sharded_retrieval import (
+    ring_blocks,
+    ring_candidate_pool,
+    ring_retrieval_loss,
+)
+from gigl_tpu_torch.models.init import init_params
+from gigl_tpu_torch.models.link_prediction import DecoderType, _unit
+from gigl_tpu_torch.parallel.feature_lookup import (
+    routed_gather,
+    routed_sample_neighbors,
+)
+from gigl_tpu_torch.parallel.mesh import Mesh
+from gigl_tpu_torch.training.dataset import (
+    DeviceGraph,
+    NALPBatch,
+    draw_random_negatives,
+)
+from gigl_tpu_torch.training.trainer import (
+    NALPTrainerConfig,
+    TrainState,
+    clip_by_global_norm_,
+    make_optimizer,
+    nalp_loss_from_embeddings,
+)
+
+logger = logging.getLogger(__name__)
+
+A15_REST = "is not ported yet (ROADMAP A15, rest)"
+OVERFLOW_POLICIES = ("warn", "raise", "silent", "grow")
+
+
+def _shard_csr(indptr: np.ndarray, indices: np.ndarray, num_shards: int,
+               rows_per_shard: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Split a global CSR into per-shard row-range blocks: (local indptr
+    [P, rows + 1] int32 rebased per shard, local indices [P, E_pad] int32
+    global neighbor ids, zero-padded to the largest shard's edge count).
+    Global row r lives on shard r // rows; when N does not divide P the
+    last shards' trailing rows are empty."""
+    n = indptr.shape[0] - 1
+    blocks_ip, blocks_ix = [], []
+    for p in range(num_shards):
+        lo = min(p * rows_per_shard, n)
+        hi = min(lo + rows_per_shard, n)
+        ip = indptr[lo: hi + 1].astype(np.int64)
+        if hi - lo < rows_per_shard:
+            ip = np.concatenate(
+                [ip, np.full(rows_per_shard - (hi - lo), ip[-1], np.int64)])
+        blocks_ip.append((ip - ip[0]).astype(np.int32))
+        blocks_ix.append(np.asarray(indices[indptr[lo]: indptr[hi]],
+                                    np.int32))
+    e_pad = max(max(len(b) for b in blocks_ix), 1)
+    ix_arr = np.zeros((num_shards, e_pad), np.int32)
+    for p, b in enumerate(blocks_ix):
+        ix_arr[p, : len(b)] = b
+    return np.stack(blocks_ip), ix_arr
+
+
+def apply_overflow_policy(trainer, count: int) -> None:
+    """Routed-lookup overflow handling: add ``count`` dropped requests to
+    ``trainer.overflow_total`` and act per ``trainer.overflow_policy``
+    (warn | raise | silent | grow — grow doubles ``capacity_factor``, which
+    the next lookup reads; the dropped requests of this chunk are already
+    masked out of the loss)."""
+    if not count:
+        return
+    trainer.overflow_total += int(count)
+    msg = (f"routed lookup dropped {int(count)} requests this chunk "
+           f"(bucket capacity overflow — skewed access pattern); "
+           f"raise capacity_factor above {trainer.capacity_factor}")
+    policy = trainer.overflow_policy
+    if policy == "raise":
+        raise RuntimeError(msg)
+    if policy == "grow":
+        trainer.capacity_factor *= 2.0
+        logger.warning("%s — growing capacity_factor to %.1f", msg,
+                       trainer.capacity_factor)
+    elif policy == "warn":
+        logger.warning(msg)
+
+
+def _per_shard(stacked: np.ndarray, device: torch.device
+               ) -> List[torch.Tensor]:
+    return [torch.from_numpy(np.ascontiguousarray(b)).to(device)
+            for b in stacked]
+
+
+@dataclass
+class PartitionedGraph:
+    """A range-partitioned graph: shard p's tensors are entry p of each
+    list, on the mesh's device.
+
+    feat_deg[p]: [rows, D + 1] fp32 — shard p's feature rows with the
+    node's message in-degree fused as the LAST column, so hydration and
+    the degree lookup are one routed gather. msg_* / sup_* / hard_*: the
+    per-shard CSR blocks of :func:`_shard_csr` (supervision and hard
+    negatives None when the graph has none)."""
+
+    feat_deg: List[torch.Tensor]
+    msg_indptr: List[torch.Tensor]
+    msg_indices: List[torch.Tensor]
+    sup_indptr: Optional[List[torch.Tensor]]
+    sup_indices: Optional[List[torch.Tensor]]
+    hard_indptr: Optional[List[torch.Tensor]]
+    hard_indices: Optional[List[torch.Tensor]]
+    num_nodes: int
+    rows_per_shard: int
+    feat_dim: int
+
+    @property
+    def num_shards(self) -> int:
+        return len(self.feat_deg)
+
+    @property
+    def device(self) -> torch.device:
+        return self.feat_deg[0].device
+
+    @classmethod
+    def build(cls, device_graph: DeviceGraph, mesh: Mesh,
+              quantize_features: bool = False) -> "PartitionedGraph":
+        """Partition a DeviceGraph across ``mesh``'s shards, onto the
+        mesh's device (CUDA unless the mesh was made for the CPU)."""
+        dg = device_graph
+        if quantize_features or not isinstance(dg.node_features,
+                                               torch.Tensor):
+            raise NotImplementedError(
+                f"int8 partitioned feature rows {A15_REST}")
+        if dg.node_labels is not None:
+            raise NotImplementedError(
+                f"node labels on a PartitionedGraph (the partitioned "
+                f"node-classification trainer) {A15_REST}")
+        if (dg.sup_edge_features is not None
+                or dg.hard_neg_edge_features is not None):
+            raise NotImplementedError(
+                f"label-edge features on a PartitionedGraph {A15_REST}")
+        p = mesh.num_shards
+        n = dg.num_nodes
+        rows = -(-n // p)
+        feats = dg.node_features.detach().cpu().numpy().astype(np.float32)
+        d = feats.shape[1]
+        deg = (dg.degrees.cpu().numpy().astype(np.float32)
+               if dg.degrees is not None else np.zeros((n,), np.float32))
+        fd = np.zeros((p * rows, d + 1), np.float32)
+        fd[:n, :d] = feats
+        fd[:n, d] = deg
+
+        def blocks(csr):
+            if csr is None:
+                return None, None
+            ip, ix = _shard_csr(csr.indptr.cpu().numpy(),
+                                csr.indices.cpu().numpy(), p, rows)
+            return _per_shard(ip, mesh.device), _per_shard(ix, mesh.device)
+
+        msg_ip, msg_ix = blocks(dg.message_csr)
+        sup_ip, sup_ix = blocks(dg.supervision_csr)
+        hard_ip, hard_ix = blocks(dg.hard_neg_csr)
+        return cls(feat_deg=_per_shard(fd.reshape(p, rows, d + 1),
+                                       mesh.device),
+                   msg_indptr=msg_ip, msg_indices=msg_ix,
+                   sup_indptr=sup_ip, sup_indices=sup_ix,
+                   hard_indptr=hard_ip, hard_indices=hard_ix,
+                   num_nodes=n, rows_per_shard=rows, feat_dim=d)
+
+    def decode_rows(self, rows: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Gathered table rows -> (features [G, D], degrees [G])."""
+        d = self.feat_dim
+        return rows[:, :d], rows[:, d]
+
+    def with_tabularized(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"PartitionedGraph.with_tabularized (the partitioned cached_hop "
+            f"layout) {A15_REST}")
+
+
+Groups = List[List[Tuple[torch.Tensor, int]]]   # per shard: (roots, offset)
+
+
+class PartitionedNALPTrainer:
+    """NALP trainer whose graph and features live partitioned across the
+    shards of a :class:`Mesh`; the model's one parameter set drives every
+    shard. Anchors arrive as global [B] batches split over the shards
+    (B % P == 0)."""
+
+    def __init__(self, model, pgraph: PartitionedGraph, mesh: Mesh,
+                 config: NALPTrainerConfig,
+                 optimizer_args: Optional[Dict[str, Any]] = None,
+                 capacity_factor: float = 4.0,
+                 overflow_policy: str = "warn"):
+        p = mesh.num_shards
+        if config.num_random_negs % p:
+            raise ValueError("num_random_negs must divide the mesh axis size")
+        if config.global_candidate_pool and config.loss_type != "retrieval":
+            raise ValueError("global_candidate_pool is a retrieval-loss "
+                             "contract (ring sampled softmax); margin/"
+                             "softmax losses use the per-shard pool")
+        if overflow_policy not in OVERFLOW_POLICIES:
+            raise ValueError(
+                "overflow_policy must be warn | raise | silent | grow")
+        if config.cached_hop:
+            raise NotImplementedError(
+                f"PartitionedNALPTrainer(cached_hop=True) {A15_REST}")
+        if config.sampling_method != "uniform":
+            raise NotImplementedError(
+                f"sampling_method={config.sampling_method!r} over a "
+                "PartitionedGraph is not ported yet (ROADMAP A2)")
+        if pgraph.num_shards != p or pgraph.device != mesh.device:
+            raise ValueError("the graph is not partitioned over this mesh")
+        self.mesh = mesh
+        self.device = mesh.device
+        self.num_shards = p
+        self.model = model.to(self.device).eval()
+        self.pg = pgraph
+        self.cfg = config
+        self.optimizer_args = dict(optimizer_args or {})
+        self.grad_clip_norm = 0.0
+        self.capacity_factor = capacity_factor
+        self.overflow_policy = overflow_policy
+        # Routed-lookup requests dropped by bucket overflow (the RPC-timeout
+        # analog), over every train and eval chunk.
+        self.overflow_total = 0
+        rows = pgraph.rows_per_shard
+        zeros = [torch.zeros((rows + 1,), dtype=torch.int32,
+                             device=self.device) for _ in range(p)]
+        # no supervision CSR: positives come from the message CSR; no hard
+        # CSR: an all-degree-0 one, so hard draws mask to empty
+        self._sup = (pgraph.sup_indptr or pgraph.msg_indptr,
+                     pgraph.sup_indices or pgraph.msg_indices)
+        self._hard = (pgraph.hard_indptr or zeros,
+                      pgraph.hard_indices or [torch.zeros(
+                          (1,), dtype=torch.int32, device=self.device)
+                          for _ in range(p)])
+
+    # -- state -----------------------------------------------------------------
+    def init_state(self, seed: int = 0, batch_size: Optional[int] = None,
+                   params: Optional[Mapping[str, torch.Tensor]] = None
+                   ) -> TrainState:
+        """Load ``params`` (a state dict) or initialize the weights from
+        ``seed``, then build the optimizer (and, with
+        ``use_cms_correction``, an empty sketch)."""
+        del batch_size
+        if params is None:
+            init_params(self.model, seed)
+        else:
+            self.model.load_state_dict(params)
+        opt, self.grad_clip_norm = make_optimizer(self.optimizer_args,
+                                                  self.model.parameters())
+        cms = cms_init(device=self.device) if self.cfg.use_cms_correction \
+            else None
+        return TrainState(step=0, optimizer=opt, cms=cms)
+
+    def _ids(self, node_ids) -> torch.Tensor:
+        if isinstance(node_ids, torch.Tensor):
+            return node_ids.to(device=self.device, dtype=torch.int32)
+        return torch.as_tensor(np.asarray(node_ids), dtype=torch.int32,
+                               device=self.device)
+
+    def _split(self, ids: torch.Tensor) -> List[torch.Tensor]:
+        if ids.shape[0] % self.num_shards:
+            raise ValueError(f"batch size {ids.shape[0]} not divisible by "
+                             f"{self.num_shards} shards")
+        return list(ids.reshape(self.num_shards, -1).unbind(0))
+
+    def _zero(self) -> torch.Tensor:
+        return torch.zeros((), dtype=torch.int32, device=self.device)
+
+    # -- sampling and encoding -------------------------------------------------
+    def _sample_tree(self, roots: Sequence[torch.Tensor], seed_offset: int):
+        """Every shard's live fanout tree from its ``roots`` (owner-routed
+        draws, hop index from 1): (node ids per shard per level, masks,
+        dropped requests)."""
+        ids = [[r.reshape(-1).to(torch.int32)] for r in roots]
+        masks = [[torch.ones(i[0].shape, dtype=torch.bool,
+                             device=self.device)] for i in ids]
+        ovf = self._zero()
+        for hop, k in enumerate(self.cfg.fanouts, start=1):
+            nbr, m, ok = routed_sample_neighbors(
+                self.mesh, self.pg.msg_indptr, self.pg.msg_indices,
+                [i[-1].reshape(-1) for i in ids], int(k),
+                seed=self.cfg.seed + seed_offset, hop=hop,
+                capacity_factor=self.capacity_factor)
+            for s in range(self.num_shards):
+                ovf = ovf + (~ok[s]).sum(dtype=torch.int32)
+                shape = tuple(ids[s][-1].shape) + (int(k),)
+                m_s = m[s].reshape(shape) & masks[s][-1][..., None]
+                ids[s].append(torch.where(m_s, nbr[s].reshape(shape), 0))
+                masks[s].append(m_s)
+        return ids, masks, ovf
+
+    def _encode(self, rows: torch.Tensor, levels, masks, roots_shape,
+                train: bool, generator):
+        """Encode one group of one shard from its gathered level rows."""
+        d = self.pg.feat_dim
+        feats, degs = [], []
+        offset = 0
+        for lvl in levels:
+            f, deg = self.pg.decode_rows(rows[offset: offset + lvl.numel()])
+            offset += lvl.numel()
+            feats.append(f.contiguous().reshape(tuple(lvl.shape) + (d,)))
+            degs.append(deg.reshape(lvl.shape))
+        emb = self.model(feats, masks, None, train=train, hop_degrees=degs,
+                         generator=generator)
+        return emb.reshape(tuple(roots_shape) + (emb.shape[-1],))
+
+    def _encode_groups(self, groups: Groups, train: bool,
+                       generators: Optional[Sequence] = None):
+        """Sample every shard's trees for its (roots, seed offset) groups,
+        hydrate the UNION of each shard's tree ids with one routed gather,
+        and encode: (embeddings per shard per group, dropped requests)."""
+        p = self.num_shards
+        gens = list(generators) if generators is not None else [None] * p
+        n_groups = len(groups[0])
+        outs: List[List[torch.Tensor]] = [[] for _ in range(p)]
+        ovf = self._zero()
+        trees = []
+        for g in range(n_groups):
+            ids, masks, o = self._sample_tree(
+                [groups[s][g][0] for s in range(p)], groups[0][g][1])
+            trees.append((ids, masks))
+            ovf = ovf + o
+        union = [torch.cat([lvl.reshape(-1) for ids, _ in trees
+                            for lvl in ids[s]]) for s in range(p)]
+        rows, ok = routed_gather(self.mesh, self.pg.feat_deg, union,
+                                 capacity_factor=self.capacity_factor)
+        for s in range(p):
+            ovf = ovf + (~ok[s]).sum(dtype=torch.int32)
+            offset = 0
+            for g, (ids, masks) in enumerate(trees):
+                n = sum(lvl.numel() for lvl in ids[s])
+                outs[s].append(self._encode(
+                    rows[s][offset: offset + n], ids[s], masks[s],
+                    groups[s][g][0].shape, train, gens[s]))
+                offset += n
+        return outs, ovf
+
+    # -- batches and losses ----------------------------------------------------
+    def _make_batches(self, anchors: Sequence[torch.Tensor], step: int):
+        """Every shard's NALP batch: routed positive (hop 1_000_003 + step)
+        and hard-negative (2_000_003 + step) draws, and the random
+        negatives, the same global draw on every shard (K1b at 3_000_017 +
+        step). Returns (batches, dropped requests)."""
+        cfg = self.cfg
+        pos, pos_mask, ok_p = routed_sample_neighbors(
+            self.mesh, *self._sup, list(anchors), cfg.num_positives,
+            seed=cfg.seed, hop=1_000_003 + step,
+            capacity_factor=self.capacity_factor)
+        ovf = sum((~o).sum(dtype=torch.int32) for o in ok_p)
+        rand = draw_random_negatives(cfg.num_random_negs, self.pg.num_nodes,
+                                     seed=cfg.seed, step=step,
+                                     device=self.device)
+        h = cfg.num_hard_negs
+        if h > 0:
+            hard, hard_mask, ok_h = routed_sample_neighbors(
+                self.mesh, *self._hard, list(anchors), h, seed=cfg.seed,
+                hop=2_000_003 + step, capacity_factor=self.capacity_factor)
+            ovf = ovf + sum((~o).sum(dtype=torch.int32) for o in ok_h)
+        else:
+            hard = [torch.zeros(a.shape + (0,), dtype=torch.int32,
+                                device=self.device) for a in anchors]
+            hard_mask = [torch.zeros(a.shape + (0,), dtype=torch.bool,
+                                     device=self.device) for a in anchors]
+        batches = [NALPBatch(anchors=a.to(torch.int32), pos=pos[s],
+                             pos_mask=pos_mask[s], hard_neg=hard[s],
+                             hard_neg_mask=hard_mask[s], random_neg=rand)
+                   for s, a in enumerate(anchors)]
+        return batches, ovf
+
+    def _rand_local(self, rand: torch.Tensor, shard: int) -> torch.Tensor:
+        r_per = self.cfg.num_random_negs // self.num_shards
+        return rand[shard * r_per: (shard + 1) * r_per]
+
+    @staticmethod
+    def _plus(cms: CountMinSketch, table: torch.Tensor, total: torch.Tensor
+              ) -> CountMinSketch:
+        return CountMinSketch(cms.table + table, cms.total + total)
+
+    def _psum_delta(self, ids: Sequence[torch.Tensor], cms: CountMinSketch
+                    ) -> CountMinSketch:
+        """The sketch plus the psum over shards of each shard's count delta
+        of ``ids[shard]`` (K13 per shard, into an empty sketch)."""
+        zero = CountMinSketch(torch.zeros_like(cms.table),
+                              torch.zeros_like(cms.total))
+        deltas = [cms_add(zero, i) for i in ids]
+        return self._plus(cms, self.mesh.psum([d.table for d in deltas])[0],
+                          self.mesh.psum([d.total for d in deltas])[0])
+
+    def loss_and_sketch(self, anchors, step: int,
+                        cms: Optional[CountMinSketch] = None,
+                        generators=None):
+        """(train-mode global mean loss of ``step`` for the global [B]
+        ``anchors``, differentiable in the model's weights; the sketch with
+        the step's candidates added, or None; the routed requests dropped,
+        a device scalar)."""
+        cfg = self.cfg
+        batches, ovf = self._make_batches(self._split(self._ids(anchors)),
+                                          step)
+        groups = []
+        for s, b in enumerate(batches):
+            g = [(b.anchors, 0), (b.pos, 1),
+                 (self._rand_local(b.random_neg, s), 2)]
+            if cfg.num_hard_negs > 0:
+                g.append((b.hard_neg, 3))
+            groups.append(g)
+        embs, ovf2 = self._encode_groups(groups, True, generators)
+        ovf = ovf + ovf2
+        if cfg.global_candidate_pool:
+            loss, cms = self._ring_loss(batches, embs, cms)
+            return loss, cms, ovf
+        rand = self.mesh.all_gather([e[2] for e in embs])
+        if cms is not None and cfg.loss_type == "retrieval":
+            # own candidates (positives, hard negatives) psum-reduced; the
+            # shared random negatives, the same on every shard, once
+            own = [torch.cat([b.pos.reshape(-1), b.hard_neg.reshape(-1)])
+                   for b in batches]
+            counted = self._psum_delta(own, cms)
+            shared = cms_add(CountMinSketch(torch.zeros_like(cms.table),
+                                            torch.zeros_like(cms.total)),
+                             batches[0].random_neg)
+            cms = self._plus(counted, shared.table, shared.total)
+        losses = []
+        for s, b in enumerate(batches):
+            q, pos, _ = embs[s][:3]
+            hard = embs[s][3] if cfg.num_hard_negs > 0 else None
+            loss, _ = nalp_loss_from_embeddings(
+                self.model, cfg, b, q, pos, hard, rand[s], cms,
+                counted=True)
+            losses.append(loss)
+        return self.mesh.pmean(losses)[0], cms, ovf
+
+    def _ring_loss(self, batches: Sequence[NALPBatch], embs,
+                   cms: Optional[CountMinSketch]):
+        """The global-candidate-pool retrieval loss: every shard's query
+        rows against every shard's candidate block, folded round the ring
+        (K17); the global mean psum(ce) / psum(count) as the pmean of
+        ce_sum * P / psum(count)."""
+        cfg, p = self.cfg, self.num_shards
+        cands, cols = [], []
+        for s, b in enumerate(batches):
+            q, pos, rand_l = embs[s][:3]
+            hard = embs[s][3] if cfg.num_hard_negs > 0 else None
+            c, col = ring_candidate_pool(b, pos, hard, rand_l,
+                                         self._rand_local(b.random_neg, s))
+            cands.append(c)
+            cols.append(col)
+        if cms is not None:
+            # every shard's candidates appear once in the global pool
+            cms = self._psum_delta([c.ids for c in cols], cms)
+            cols = [dataclasses.replace(c, log_q=torch.log(torch.clamp(
+                cms_sampling_probability(cms, c.ids), min=1e-10)).to(
+                    torch.float32)) for c in cols]
+        if self.model.decoder.decoder_type == DecoderType.COSINE:
+            cands = [_unit(c) for c in cands]
+        cand_views, col_views = ring_blocks(self.mesh, cands), ring_blocks(
+            self.mesh, cols)
+        sums, counts = [], []
+        for s, b in enumerate(batches):
+            n_pos = b.pos.shape[1]
+            q_rows = embs[s][0].repeat_interleave(n_pos, dim=0)
+            if self.model.decoder.decoder_type == DecoderType.COSINE:
+                q_rows = _unit(q_rows)
+            ce_sum, count = ring_retrieval_loss(
+                q_rows, cand_views[s], col_views[s],
+                temperature=cfg.temperature,
+                label_local_cols=torch.arange(
+                    q_rows.shape[0], dtype=torch.int32, device=self.device),
+                query_ids=b.anchors.repeat_interleave(n_pos),
+                own_pos_ids=b.pos.reshape(-1),
+                query_mask=b.pos_mask.reshape(-1),
+                remove_accidental_hits=cfg.remove_accidental_hits)
+            sums.append(ce_sum)
+            counts.append(count)
+        total = self.mesh.psum(counts)[0].to(torch.float32)
+        losses = [c * p / torch.clamp(total, min=1.0) for c in sums]
+        return self.mesh.pmean(losses)[0], cms
+
+    # -- training --------------------------------------------------------------
+    def _generators(self, generators):
+        if isinstance(generators, torch.Generator):
+            return [generators] * self.num_shards
+        return generators
+
+    def _step(self, state: TrainState, anchors: torch.Tensor, generators):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, cms, ovf = self.loss_and_sketch(anchors, state.step, state.cms,
+                                              generators)
+        loss.backward()
+        if self.grad_clip_norm > 0:
+            clip_by_global_norm_(self.model.parameters(), self.grad_clip_norm)
+        state.optimizer.step()
+        return state._replace(step=state.step + 1, cms=cms), loss.detach(), \
+            ovf
+
+    def train_steps(self, state: TrainState, anchors_kb, generators=None
+                    ) -> Tuple[TrainState, torch.Tensor]:
+        """``anchors_kb.shape[0]`` consecutive steps over global [K, B]
+        anchors; returns the state and the per-step losses [K] on the
+        device. ``generators``: one ``torch.Generator`` per shard for
+        dropout (or one shared by all). The dropped requests are read once
+        at the end (one host sync) and handled per ``overflow_policy``."""
+        anchors_kb = self._ids(anchors_kb)
+        generators = self._generators(generators)
+        losses = torch.empty((anchors_kb.shape[0],), dtype=torch.float32,
+                             device=self.device)
+        ovf = self._zero()
+        for k in range(anchors_kb.shape[0]):
+            state, losses[k], o = self._step(state, anchors_kb[k],
+                                             generators)
+            ovf = ovf + o
+        apply_overflow_policy(self, int(ovf))
+        return state, losses
+
+    def train_step(self, state: TrainState, anchors, generators=None
+                   ) -> Tuple[TrainState, torch.Tensor]:
+        """One step (``train_steps`` of one batch)."""
+        state, losses = self.train_steps(
+            state, self._ids(anchors)[None, :], generators)
+        return state, losses[0]
+
+    # -- evaluation and inference ------------------------------------------------
+    def _eval_step(self, anchors: torch.Tensor, step: int):
+        """Positives ranked against the shared random negatives: (rr sum,
+        hits sums, count, dropped requests), summed over shards."""
+        parts = self._split(anchors)
+        batches, ovf = self._make_batches(parts, step)
+        groups = [[(b.anchors, 0), (b.pos, 1),
+                   (self._rand_local(b.random_neg, s), 2)]
+                  for s, b in enumerate(batches)]
+        embs, ovf2 = self._encode_groups(groups, False)
+        rand = self.mesh.all_gather([e[2] for e in embs])
+        rr_t, hits_t, cnt_t = [], [], []
+        for s, b in enumerate(batches):
+            q, pos, _ = embs[s]
+            n_pos = pos.shape[1]
+            pos_flat = self.model.decode(q[:, None, :], pos).reshape(-1)
+            neg_rep = self.model.decode_all_pairs(q, rand[s]) \
+                .repeat_interleave(n_pos, dim=0)
+            mask_flat = b.pos_mask.reshape(-1)
+            neg_mask = b.pos.reshape(-1)[:, None] != b.random_neg[None, :]
+            rr, cnt = mean_reciprocal_rank(pos_flat, neg_rep,
+                                           pos_mask=mask_flat,
+                                           neg_mask=neg_mask)
+            hits, _ = hits_at_k(pos_flat, neg_rep, self.cfg.eval_ks,
+                                pos_mask=mask_flat, neg_mask=neg_mask)
+            rr_t.append(rr)
+            hits_t.append(torch.stack([hits[int(k)]
+                                       for k in self.cfg.eval_ks]))
+            cnt_t.append(cnt)
+        psum = self.mesh.psum
+        return psum(rr_t)[0], psum(hits_t)[0], psum(cnt_t)[0], ovf + ovf2
+
+    def evaluate(self, anchor_batches, step: int = 0) -> Dict[str, float]:
+        """MRR and hits@k over ``anchor_batches`` (batch i keyed by step +
+        i, each cut to a multiple of the shard count); one host sync at
+        the end."""
+        parts = []
+        with torch.inference_mode():
+            for i, a in enumerate(anchor_batches):
+                a = np.asarray(a)
+                a = a[: len(a) // self.num_shards * self.num_shards]
+                if len(a):
+                    parts.append(self._eval_step(self._ids(a), step + i))
+            if parts:
+                rr, hits, cnt, ovf = (torch.stack(x).sum(0).cpu()
+                                      for x in zip(*parts))
+        if not parts:
+            rr, cnt, ovf = 0.0, 0.0, 0
+            hits = np.zeros(len(self.cfg.eval_ks))
+        apply_overflow_policy(self, int(ovf))
+        cnt_total = max(float(cnt), 1.0)
+        out = {"mrr": float(rr) / cnt_total}
+        for i, k in enumerate(self.cfg.eval_ks):
+            out[f"hits@{k}"] = float(hits[i]) / cnt_total
+        return out
+
+    def encode_batch(self, node_ids) -> torch.Tensor:
+        """Inference embeddings of ``node_ids`` over the partitioned graph
+        (padded with node 0 to a multiple of the shard count; the pad rows
+        dropped)."""
+        ids = self._ids(node_ids).reshape(-1)
+        m = ids.shape[0]
+        pad = -(-m // self.num_shards) * self.num_shards - m
+        ids = torch.cat([ids, ids.new_zeros((pad,))])
+        with torch.inference_mode():
+            embs, _ = self._encode_groups(
+                [[(part, 0)] for part in self._split(ids)], False)
+            return torch.cat([e[0] for e in embs])[:m]
+
+    def fit(
+        self,
+        state: TrainState,
+        train_anchors: np.ndarray,
+        val_anchors: np.ndarray,
+        *,
+        batch_size: int,
+        num_epochs: int = 1,
+        val_every_n_batches: int = 100,
+        num_val_batches: int = 8,
+        early_stop_patience: int = 5,
+        log_every: int = 50,
+        scalar_logger=None,
+        checkpoint_dir: Optional[str] = None,
+    ) -> Tuple[TrainState, Dict[str, float]]:
+        """The NALP train loop (``fit_loop.nalp_fit_loop``) over the
+        partitioned graph: the shard count drives batch divisibility and
+        the val padding."""
+        from gigl_tpu_torch.training.fit_loop import nalp_fit_loop
+
+        return nalp_fit_loop(
+            self, state, train_anchors, val_anchors,
+            batch_size=batch_size, num_epochs=num_epochs,
+            val_every_n_batches=val_every_n_batches,
+            num_val_batches=num_val_batches,
+            early_stop_patience=early_stop_patience, log_every=log_every,
+            scalar_logger=scalar_logger, checkpoint_dir=checkpoint_dir,
+            num_shards=self.num_shards)

@@ -1,7 +1,7 @@
 """The NALP fit loop: validation cadence and early stopping (port of
-``gigl_tpu/training/fit_loop.py`` ``nalp_fit_loop``, replicated only, and
-of the typed trainer's loop, ``gigl_tpu/training/hetero_trainer.py``
-:283-330).
+``gigl_tpu/training/fit_loop.py`` ``nalp_fit_loop``, replicated and
+partitioned, and of the typed trainer's loop,
+``gigl_tpu/training/hetero_trainer.py`` :283-330).
 
 Steps run in chunks through ``trainer.train_steps``. The homogeneous
 cadence cuts each epoch into chunks of ``val_every_n_batches`` and
@@ -10,8 +10,10 @@ evaluates at every ``val_every_n_batches``-th step counted over all
 epochs. An evaluation takes ``num_val_batches`` val batches, and early
 stopping on val MRR keeps a clone of the best weights, loaded back into
 the model at the end. ``refresh(epoch)``, when given, re-freezes the
-tabularized tables each epoch after the first. Checkpointing and sharded
-(partitioned-trainer) runs are not ported.
+tabularized tables each epoch after the first. ``num_shards`` > 1 (the
+partitioned trainer) needs a batch size that the shards divide and pads
+the val pool by wrapping to a multiple of the shard count. Checkpointing
+is not ported.
 """
 
 from __future__ import annotations
@@ -52,18 +54,27 @@ def nalp_fit_loop(
     checkpoint_dir: Optional[str] = None,
     refresh: Optional[Callable[[int], None]] = None,
     global_cadence: bool = False,
+    num_shards: int = 1,
 ) -> Tuple[object, Dict[str, float]]:
     """Train ``trainer`` from ``state``; returns (state, final val
     metrics) with the best weights (by val MRR) in the model."""
+    if num_shards > 1 and batch_size % num_shards:
+        raise ValueError(f"batch_size {batch_size} must divide the "
+                         f"{num_shards}-shard mesh axis")
     if checkpoint_dir is not None:
         raise NotImplementedError(
             "checkpoint_dir: training/checkpoint.py is not ported yet "
             "(ROADMAP A11)")
     cfg = trainer.cfg
     it = AnchorBatchIterator(train_anchors, batch_size, seed=cfg.seed)
-    val_bs = max(1, min(batch_size, len(val_anchors)))
-    val_it = AnchorBatchIterator(np.asarray(val_anchors), val_bs,
-                                 seed=cfg.seed + 1)
+    val_pool = np.asarray(val_anchors)
+    if num_shards > 1:
+        val_bs = max(num_shards, min(batch_size, len(val_pool))
+                     // num_shards * num_shards)
+        val_pool = np.resize(val_pool, max(len(val_pool), val_bs))
+    else:
+        val_bs = max(1, min(batch_size, len(val_pool)))
+    val_it = AnchorBatchIterator(val_pool, val_bs, seed=cfg.seed + 1)
     stopper = EarlyStopper(patience=early_stop_patience)
     generator = torch.Generator(device=trainer.device).manual_seed(cfg.seed)
     global_step = 0

@@ -18,7 +18,7 @@ split of ``graph/splitters.py``, bit-equal to the reference's.
 Edge features (``FullBatchData.edge_attr`` [E, De] in COO edge order, set
 by the caller as in the reference) feed the ELL path: the edge convs read
 them through the ELL tables' edge slots (K6 / K7) and train them through
-K11. The COO path raises with them (ROADMAP slice 9, COO per-edge terms).
+K11. The COO path raises with them (ROADMAP slice 10, COO per-edge terms).
 """
 
 from __future__ import annotations

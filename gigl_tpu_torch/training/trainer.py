@@ -146,13 +146,15 @@ class NALPTrainerConfig:
     # One fused [N, D + D] table of features and aggregates, so layer-1
     # hydration is one row gather per tree level.
     fused_cache: bool = False
-    # Partitioned trainers only (not ported).
+    # Partitioned trainer only: the retrieval softmax over every shard's
+    # candidates, as a ring (losses/sharded_retrieval.py).
     global_candidate_pool: bool = False
 
 
 def nalp_loss_from_embeddings(model, cfg: NALPTrainerConfig,
                               batch: NALPBatch, q, pos, hard, rand,
-                              cms: Optional[CountMinSketch] = None
+                              cms: Optional[CountMinSketch] = None,
+                              counted: bool = False
                               ) -> Tuple[torch.Tensor,
                                          Optional[CountMinSketch]]:
     """(mean NALP loss, updated sketch) from the encoded groups (q [B, D],
@@ -164,7 +166,9 @@ def nalp_loss_from_embeddings(model, cfg: NALPTrainerConfig,
     accidental-hit masks (K5). With a sketch ``cms``, every candidate id
     (padded ones too) is added to it first (K13), and the new sketch's
     estimate of each candidate's sampling probability (K14) is K5's logQ
-    term. Margin / softmax: each positive against the hard and random
+    term; with ``counted`` the sketch already holds them (the partitioned
+    trainer adds every shard's candidates first) and is only read.
+    Margin / softmax: each positive against the hard and random
     negatives; the sketch is returned as given.
 
     Label-edge terms (``trainer.py:152-192``): with the model's
@@ -198,7 +202,8 @@ def nalp_loss_from_embeddings(model, cfg: NALPTrainerConfig,
         cids = torch.cat(id_parts)
         prob = None
         if cms is not None:
-            cms = cms_add(cms, cids)
+            if not counted:
+                cms = cms_add(cms, cids)
             prob = cms_sampling_probability(cms, cids)
         loss_sum, count = retrieval_loss(
             scores,

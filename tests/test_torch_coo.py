@@ -234,6 +234,6 @@ def test_link_prediction_encode_coo_and_what_raises():
     v2 = GNNEncoder(DIN, HID, C, conv="gatv2", conv_kwargs={"heads": 2})
     with pytest.raises(NotImplementedError, match="A9, GATv2 coo"):
         v2.encode_coo(torch.from_numpy(x), ts, td, N)
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    with pytest.raises(NotImplementedError, match="slice 10"):
         enc.encode_coo(torch.from_numpy(x), ts, td, N,
                        edge_attr=torch.zeros(len(src), 2))

@@ -118,6 +118,9 @@ from gigl_tpu_torch.ops.hopcache import (
     build_neighbor_cache,
 )
 from gigl_tpu_torch.losses import count_min_sketch as cms_ops
+from gigl_tpu_torch.losses import sharded_retrieval
+from gigl_tpu_torch.parallel import feature_lookup as fl
+from gigl_tpu_torch.parallel.mesh import Mesh
 from gigl_tpu_torch.ops.quantized import (
     QuantizedTable,
     _gather_rows_q8_plain,
@@ -148,6 +151,7 @@ from gigl_tpu_torch.sampling.neighbor_sampler import (
     sample_uniform,
     uniform_ids,
 )
+from gigl_tpu_torch.training import dist_sampled
 from gigl_tpu_torch.training.dataset import DeviceGraph
 from gigl_tpu_torch.training.full_batch import (
     FullBatchTrainer,
@@ -1728,3 +1732,219 @@ def test_quantized_cms_train_steps_on_card_match_cpu(dev):
         torch.testing.assert_close(out["cuda"][1][k], v, rtol=1e-4, atol=1e-5)
     assert torch.equal(out["cuda"][2].table.cpu(), out["cpu"][2].table)
     assert int(out["cuda"][2].total) == int(out["cpu"][2].total) == 2 * 128
+
+
+# -- partitioned training: K15, K16, K1's row-offset mode, K17 ---------------
+
+def _route_ids(g, hi, seed):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, hi, g).astype(np.int32)
+    if g >= 6:
+        ids[:3] = ids[3:6]
+        ids[-1], ids[-2] = hi + 17, -5
+    return torch.from_numpy(ids)
+
+
+@pytest.mark.parametrize("num_shards", [1, 2, 4, 32])
+@pytest.mark.parametrize("g,rows,cap", [(0, 40, 8), (1, 7, 8),
+                                        (5000, 300, 700), (5000, 300, 64),
+                                        (63_744, 25_000, 63_744)])
+def test_route_requests_bit_equal(dev, num_shards, g, rows, cap):
+    """K15 against its twin: an empty vector, one id, overflow, ids past
+    the table and negative ids, the flagship's union size."""
+    ids = _route_ids(g, num_shards * rows, seed=g + num_shards)
+    want = fl._route_requests_plain(ids, rows, num_shards, cap)
+    got = fl.route_requests(ids.to(dev), rows, num_shards, cap)
+    for name, w, k in zip(("req", "owner", "pos", "ok"), want, got):
+        assert torch.equal(k.cpu(), w), name
+
+
+def test_route_requests_rejects_too_many_shards(dev):
+    with pytest.raises(ValueError, match="shards"):
+        fl.route_requests(torch.zeros(4, dtype=torch.int32, device=dev), 1,
+                          fl.MAX_SHARDS + 1, 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+@pytest.mark.parametrize("width", [1, 10, 15, 129, 132])
+@pytest.mark.parametrize("num_shards,cap", [(1, 300), (4, 40)])
+def test_unroute_rows_bit_equal(dev, dtype, width, num_shards, cap):
+    """K16 against its twin: 2- and 4-byte words and 16-byte rows, zero
+    rows for dropped requests (cap 40 overflows)."""
+    ids = _route_ids(300, num_shards * 100, seed=width)
+    _, owner, pos, ok = fl._route_requests_plain(ids, 100, num_shards, cap)
+    back = (torch.randn((num_shards, cap, width),
+                        generator=torch.Generator().manual_seed(width))
+            * 100).to(dtype)
+    want = fl._unroute_plain(back, owner, pos, ok)
+    got = fl.unroute_rows(back.to(dev), owner.to(dev), pos.to(dev),
+                          ok.to(dev))
+    assert got.dtype == dtype and torch.equal(got.cpu(), want)
+    empty = fl.unroute_rows(back.to(dev), *(t[:0].to(dev)
+                                            for t in (owner, pos, ok)))
+    assert empty.shape == (0, width)
+
+
+def test_sample_uniform_row_offset_mode(dev):
+    """K1's row-offset mode against its twin on one shard's block, and
+    against the plain mode over the global CSR for the shard's own ids."""
+    csr = _csr(dev)
+    ip, ix = dist_sampled._shard_csr(csr.indptr.cpu().numpy(),
+                                     csr.indices.cpu().numpy(), 4, 175)
+    for shard in range(4):
+        lip = torch.from_numpy(ip[shard]).to(dev)
+        lix = torch.from_numpy(ix[shard]).to(dev)
+        frontier = _route_ids(3000, N, seed=shard).to(dev)
+        got = sample_uniform(lip, lix, frontier, 10, 5, 2,
+                             row_offset=shard * 175)
+        want = _sample_uniform_plain(lip.cpu(), lix.cpu(), frontier.cpu(),
+                                     10, 5, 2, row_offset=shard * 175)
+        for k, w in zip(got, want):
+            assert torch.equal(k.cpu(), w)
+        own = torch.arange(shard * 175, (shard + 1) * 175, dtype=torch.int32,
+                           device=dev)
+        a = sample_uniform(lip, lix, own, 10, 5, 2, row_offset=shard * 175)
+        b = sample_uniform(csr.indptr, csr.indices, own, 10, 5, 2)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def _ring_case(dev, ql, cl, seed, own_labels=True):
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    scores = t((rng.normal(size=(ql, cl)) * 3).astype(np.float32))
+    qids = t(rng.integers(0, max(ql // 2, 1), ql).astype(np.int32))
+    own_pos = t(rng.integers(0, 50, ql).astype(np.int32))
+    cids = t(rng.integers(0, 50, cl).astype(np.int32))
+    pos_qids = np.full(cl, -1, np.int32)
+    pos_qids[: min(ql, cl)] = qids.cpu().numpy()[: min(ql, cl)]
+    cmask = rng.random(cl) < 0.8
+    logq = np.log(np.clip(rng.integers(0, 5, cl) / 9.0, 1e-10, None))
+    rows = sharded_retrieval.RingRows(
+        temperature=0.07,
+        label_cols=t(np.arange(ql, dtype=np.int32) if own_labels
+                     else np.full(ql, cl + 5, np.int32)),
+        query_ids=qids, own_pos_ids=own_pos)
+    cols = sharded_retrieval.RingColumns(
+        ids=cids, pos_qids=t(pos_qids), mask=t(cmask),
+        log_q=t(logq.astype(np.float32)))
+    state = torch.full((ql,), sharded_retrieval.FMIN, device=dev)
+    return scores, rows, cols, state
+
+
+@pytest.mark.parametrize("ql,cl", [(1, 40), (128, 256), (77, 1000)])
+@pytest.mark.parametrize("own", [True, False])
+def test_ring_fold_and_backward_match_plain(dev, ql, cl, own):
+    """K17's fold (three blocks folded in turn, the first own) and its
+    backward against the twins: rtol 1e-5 (exps summed in another
+    order). The first block is fully masked, so every row is fully masked
+    after it (the reference's guard); ``own`` False: no label columns."""
+    scores, rows, cols, m0 = _ring_case(dev, ql, cl, seed=ql + cl,
+                                        own_labels=own)
+    empty = dataclasses.replace(cols, mask=torch.zeros_like(cols.mask))
+    run = {}
+    for name, fold in (("kern", sharded_retrieval.ring_fold),
+                       ("plain", sharded_retrieval._ring_fold_plain)):
+        m, s, p = m0.clone(), torch.zeros_like(m0), torch.zeros_like(m0)
+        for t, blk_cols in enumerate((empty, cols, cols)):
+            fold(scores * (t + 1), rows, blk_cols, t == 0, m, s, p)
+        run[name] = (m, s, p)
+    for k, w in zip(run["kern"], run["plain"]):
+        torch.testing.assert_close(k, w, rtol=1e-5, atol=0)
+    m, s, _ = run["plain"]
+    lse = torch.log(torch.clamp(s, min=1e-30)) + m
+    g = torch.rand((ql,), device=dev)
+    for blk_cols in (cols, empty):
+        got = sharded_retrieval.ring_block_bwd(scores, rows, blk_cols, True,
+                                               lse, g)
+        want = sharded_retrieval._ring_block_bwd_plain(scores, rows,
+                                                       blk_cols, True, lse, g)
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-5 * max(scale, 1e-30)
+    assert not sharded_retrieval.ring_block_bwd(
+        scores, rows, empty, True, lse, g).any()
+
+
+def test_ring_retrieval_gradients_on_card_match_cpu(dev):
+    """K17's autograd.Function on the card against the same function on
+    the CPU: (ce_sum, count) and every gradient, 4 shards (ROADMAP C3)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(9)
+    p, ql, cl, d = 4, 32, 48, 16
+    q0 = rng.normal(size=(p, ql, d)).astype(np.float32)
+    c0 = rng.normal(size=(p, cl, d)).astype(np.float32)
+    out = {}
+    for device in (torch.device("cpu"), dev):
+        mesh = Mesh(p, device)
+        q = [torch.from_numpy(q0[s]).to(device).requires_grad_()
+             for s in range(p)]
+        c = [torch.from_numpy(c0[s]).to(device).requires_grad_()
+             for s in range(p)]
+        cols = [sharded_retrieval.RingColumns(
+            ids=torch.arange(s * cl, (s + 1) * cl, dtype=torch.int32,
+                             device=device),
+            pos_qids=torch.full((cl,), -1, dtype=torch.int32, device=device),
+            mask=torch.arange(cl, device=device) % 7 != 3) for s in range(p)]
+        cv, colv = (sharded_retrieval.ring_blocks(mesh, x) for x in (c, cols))
+        _build.reset_launches()
+        total = sum(sharded_retrieval.ring_retrieval_loss(
+            q[s], cv[s], colv[s], temperature=0.1,
+            own_pos_ids=torch.arange(s * cl, s * cl + ql, dtype=torch.int32,
+                                     device=device))[0] for s in range(p))
+        total.backward()
+        if device.type == "cuda":
+            assert _build.launches["ring_retrieval"] == 2 * p * p
+        out[device.type] = (total.detach().cpu(),
+                            [x.grad.cpu() for x in q + c])
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=0)
+    for k, w in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((k - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("ring", [False, True], ids=["per_shard", "ring"])
+def test_partitioned_steps_on_card_match_cpu(dev, ring):
+    """Three partitioned steps at 4 shards (the sketch on) on the card
+    against the CPU: losses and weights within 1e-4 relative, the sketch
+    bit-equal; every kernel of the path launched."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(12)
+    src, dst = rng.integers(0, N, E), rng.integers(0, N, E)
+    x = rng.normal(size=(N, 16)).astype(np.float32)
+    anchors = rng.integers(0, N, (3, 64))
+    out = {}
+    for device in (torch.device("cpu"), dev):
+        g = DeviceGraph.from_hetero(
+            HeteroGraph.homogeneous(src=src, dst=dst, num_nodes=N,
+                                    node_features=x),
+            supervision_edges=np.stack([src, dst]), device=device)
+        mesh = Mesh(4, device)
+        model = LinkPredictionGNN(GNNEncoder(16, 32, 16),
+                                  LinkPredictionDecoder())
+        t = dist_sampled.PartitionedNALPTrainer(
+            model, dist_sampled.PartitionedGraph.build(g, mesh), mesh,
+            NALPTrainerConfig(fanouts=(4, 3), num_random_negs=64,
+                              use_cms_correction=True,
+                              global_candidate_pool=ring),
+            optimizer_args={"learning_rate": "0.01"}, capacity_factor=8.0)
+        state = t.init_state(0)
+        _build.reset_launches()
+        state, losses = t.train_steps(state, anchors)
+        out[device.type] = (losses.cpu(), {k: v.cpu() for k, v in
+                                           t.model.state_dict().items()},
+                            state.cms)
+        if device.type == "cuda":
+            for k in ("sample_uniform", "uniform_ids", "gather_rows",
+                      "masked_reduce", "masked_reduce_bwd", "cms_add",
+                      "cms_estimate", "route_requests", "unroute_rows",
+                      "ring_retrieval" if ring else "retrieval_loss"):
+                assert _build.launches[k] > 0, k
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=0)
+    for k, v in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][k], v, rtol=1e-4, atol=1e-5)
+    assert torch.equal(out["cuda"][2].table.cpu(), out["cpu"][2].table)
+    assert int(out["cuda"][2].total) == int(out["cpu"][2].total) == 3 * 128

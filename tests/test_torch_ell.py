@@ -240,7 +240,7 @@ def test_edge_features_raise():
     the convs without edge features ignore them, as the reference's blocks
     do. What still raises: a table of the wrong length, an edge conv built
     without ``edge_dim`` given edge rows, GATv2 with edge rows on the ELL
-    path (ROADMAP A9, edges) and edge features on the COO path (slice 9)."""
+    path (ROADMAP A9, edges) and edge features on the COO path (slice 10)."""
     src, dst, x = _graph()
     tell = ell.EllGraph.from_csr(build_csr(src, dst, num_anchor_nodes=N),
                                  device="cpu")
@@ -262,7 +262,7 @@ def test_edge_features_raise():
     with pytest.raises(NotImplementedError, match="A9, edges"):
         v2.encode_ell(torch.from_numpy(x), tell, ea)
     ts, td = (torch.as_tensor(a.astype(np.int32)) for a in (src, dst))
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    with pytest.raises(NotImplementedError, match="slice 10"):
         enc.encode_coo(torch.from_numpy(x), ts, td, N, ea)
 
 

@@ -268,7 +268,7 @@ def test_fit_with_dropout_trains():
 
 def test_what_is_not_ported_raises():
     """Without the ELL tables the trainer runs the COO path
-    (tests/test_torch_coo.py); edge features there (slice 9) and GATv2's
+    (tests/test_torch_coo.py); edge features there (slice 10) and GATv2's
     coo form are not ported. ELL data with edge features trains
     (tests/test_torch_edge_features.py)."""
     _, pg = _graphs()
@@ -279,7 +279,7 @@ def test_what_is_not_ported_raises():
     t.init_state(0)
     with pytest.raises(NotImplementedError, match="A9, GATv2 coo"):
         t.logits()
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    with pytest.raises(NotImplementedError, match="slice 10"):
         fb.FullBatchTrainer(GNNEncoder(DIN, HID, C), dataclasses.replace(
             data, edge_attr=torch.zeros(1)), device="cpu")
     ell_data = fb.full_batch_data_from_graph(pg, device="cpu")
