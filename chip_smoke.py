@@ -153,7 +153,25 @@
    checked, and encode_batch over every node (batch 0 against the plain
    versions); prints ms/step, edges/s, launches and all_to_all bytes per
    step, nodes/s;
-15. prints one JSON line with every kernel's numbers, then the card line,
+15. the ring halo exchange and graph-sharded full-batch training on the
+   same graph over make_mesh(4) (25,000 rows a shard): times the ring
+   schedule's host build and its device index (every bucket holds its
+   edges, their counts sum to E); holds K18 ring_spmm against its plain
+   version at the largest bucket, forward at D 128 and 256 and transposed
+   at 256, with bounds and two yardsticks (torch.sparse.mm of the bucket's
+   CSR, index_add_ of the gathered rows as the reference computes them);
+   the whole ring (sum and mean) against one shard's and against coo_spmm;
+   then per model (GCN, GraphSAGE: 2 layers, hidden 256, 16 classes, fp32,
+   Adam 1e-2) ShardedFullBatchTrainer — one step against the same step
+   through the plain versions (the loss, every gradient and the gradient
+   into layer 2's input), then 3 + 50 steps with the launch counts reset
+   just before the trainer is built and read just after (48 K18 launches a
+   step checked) and 5 profiled; prints ms/step, edges/s, device ms, busy
+   share, peak memory, val accuracy and phase 9's COO GraphSAGE ms/step
+   beside it. Then run_partitioned_inference over phase 14's per-shard-pool
+   trainer: every node into an in-memory exporter, each row against
+   encode_batch's for the same ids, nodes/s;
+16. prints one JSON line with every kernel's numbers, then the card line,
    then {"ok": true, ...} as the last line.
 
 Any failed check raises; nothing is printed as a result without a card.
@@ -388,10 +406,10 @@ def profile_summary(prof, steps, window_us, host_ms_per_step):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Every kernel wrapper of the training, full-graph, typed, quantized
-    and partitioned paths replaced by its plain PyTorch twin, on whatever
-    device the tensors are:
-    the same step or pass computed without a kernel, on the card. The
+    """Every kernel wrapper of the training, full-graph, typed, quantized,
+    partitioned and sharded paths replaced by its plain PyTorch twin, on
+    whatever device the tensors are: the same step or pass computed
+    without a kernel, on the card. The
     segment ops become their forward twins, differentiated by PyTorch's
     autograd (not the port's backward kernels); the retrieval loss runs
     its twins inside its autograd.Function."""
@@ -401,7 +419,7 @@ def plain_kernels():
     from gigl_tpu_torch.ops import (
         attention, ell, ell_aggregate, fanout, gather, quantized, retrieval,
         segment)
-    from gigl_tpu_torch.parallel import feature_lookup
+    from gigl_tpu_torch.parallel import feature_lookup, halo
     from gigl_tpu_torch.sampling import neighbor_sampler
     from gigl_tpu_torch.training import (
         dataset, dist_sampled, hetero_dataset, trainer)
@@ -493,7 +511,8 @@ def plain_kernels():
          count_min_sketch._cms_probability_plain),
         (sharded_retrieval, "ring_fold", sharded_retrieval._ring_fold_plain),
         (sharded_retrieval, "ring_block_bwd",
-         sharded_retrieval._ring_block_bwd_plain)]
+         sharded_retrieval._ring_block_bwd_plain),
+        (halo, "ring_spmm_bucket", halo._ring_spmm_bucket_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
     for m, n, f in patches:
         setattr(m, n, f)
@@ -1108,7 +1127,7 @@ def coo_phases(dev, card, graph, record, rel_err, run_path):
     COO segment ops — the two SegmentIndexes, the backward kernels K8b,
     K9b, K10b at layer 2's shapes, then per model a step against its plain
     recomputation and the path itself. Returns {path: (launch counts,
-    steps)}."""
+    steps)} and {model: ms per step}."""
     from gigl_tpu_torch.models.encoders import GNNEncoder
     from gigl_tpu_torch.ops import _build
     from gigl_tpu_torch.ops.segment import (
@@ -1284,7 +1303,7 @@ def coo_phases(dev, card, graph, record, rel_err, run_path):
                reps=3))
     del q10, k10, g10, raw10, got10, want10
 
-    counts = {}
+    counts, ms = {}, {}
     for model_name, kw in (("graphsage", None),
                            ("gat", {"heads": GAT_HEADS}),
                            ("transformer", {"heads": GAT_HEADS})):
@@ -1316,11 +1335,12 @@ def coo_phases(dev, card, graph, record, rel_err, run_path):
                   f"K8b launched {cnt_['segment_reduce_bwd']} times in "
                   f"{nsteps} steps, not once per step (layer 2 only)")
         step_s = row["ms_per_step"] / 1e3
+        ms[model_name] = row["ms_per_step"]
         emit({"phase": "coo_full_batch_train_throughput", "model": model_name,
               "edges_per_step": 2 * E, "edges_per_s": 2 * E / step_s,
               "nodes_per_s": N / step_s, **row})
         del fbt, state
-    return counts
+    return counts, ms
 
 
 @contextlib.contextmanager
@@ -2336,7 +2356,7 @@ def partitioned_phases(dev, card, dg, record, add_mode, unique, make_model,
     largest shapes against their twins; then both pools' training paths
     (bf16, the sketch on) and encode_batch over every node, each with the
     launch counts reset just before and read just after. Returns {path:
-    (launch counts, steps or passes)}."""
+    (launch counts, steps or passes)} and the per-shard pool's trainer."""
     from gigl_tpu_torch.losses import sharded_retrieval as sr
     from gigl_tpu_torch.models.encoders import GNNEncoder
     from gigl_tpu_torch.models.link_prediction import (
@@ -2657,6 +2677,8 @@ def partitioned_phases(dev, card, dg, record, add_mode, unique, make_model,
                 state, anchors[PART_WARMUP + PART_STEPS:], gens)
             torch.cuda.synchronize()
             window_us = (time.perf_counter() - t1) * 1e6
+        if pool == "per_shard":
+            per_shard_trainer = trainer
         emit({"phase": "partitioned_train_throughput", "pool": pool,
               "shards": shards, "steps": PART_STEPS, "ms_per_step": ms_step,
               "edges_per_step": edges_per_step,
@@ -2706,6 +2728,286 @@ def partitioned_phases(dev, card, dg, record, add_mode, unique, make_model,
           "a2a_bytes_per_batch": mesh.a2a_bytes / n_batches,
           "batch0_max_abs_err": err0, "scale": scale0, "card": card})
     del trainer, embs, pg, mesh
+    return counts, per_shard_trainer
+
+
+def sharded_phases(dev, card, arrays, masks, record, unique, coo_ms,
+                   part_trainer):
+    """Phase 15 (see the module docstring): the ring halo exchange and the
+    graph-sharded full-batch trainer over PART_SHARDS shards on the card, then
+    run_partitioned_inference over phase 14's per-shard-pool trainer.
+    Returns {path: (launch counts, steps or passes)}."""
+    from gigl_tpu_torch.inference.inferencer import (
+        InferenceConfig, node_batches, run_partitioned_inference)
+    from gigl_tpu_torch.ops import _build
+    from gigl_tpu_torch.ops.segment import SegmentIndex, coo_spmm
+    from gigl_tpu_torch.parallel import halo
+    from gigl_tpu_torch.parallel.mesh import make_mesh
+    from gigl_tpu_torch.parallel.partition import shard_features_rowwise
+    from gigl_tpu_torch.training import sharded_full_batch as sfb
+
+    src, dst, feats, labels = arrays
+    edges = np.stack([src, dst])
+    shards = PART_SHARDS
+    counts = {}
+
+    # -- the schedule (host build, then the device index)
+    t0 = time.perf_counter()
+    sched = halo.build_ring_schedule(edges, N, shards)
+    build_s = time.perf_counter() - t0
+    mesh = make_mesh(shards)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    placed = halo.put_ring_schedule(sched, mesh)
+    torch.cuda.synchronize()
+    put_s = time.perf_counter() - t0
+    bucket_counts = sched.counts.reshape(-1)
+    emit({"phase": "sharded_schedule", "shards": shards, "per": sched.per,
+          "build_s": build_s, "put_s": put_s,
+          "e_max": int(sched.src_local.shape[-1]),
+          "bucket_edges": [int(c_) for c_ in bucket_counts]})
+    check(int(bucket_counts.sum()) == E,
+          "the ring buckets do not hold every edge once")
+    check(bool((bucket_counts > 0).all()),
+          "an empty bucket on the flagship graph")
+
+    # -- K18 at the largest bucket: forward at D 128 (layer 1) and 256
+    # (layer 2), transposed at 256. bytes: the bucket's index (ptr, col, w)
+    # read once, each distinct row it reads once, each touched output row
+    # read and written once; ops: a multiply-add per edge and value.
+    b = int(np.argmax(bucket_counts))
+    s_b, k_b = divmod(b, shards)
+    c_b = int(bucket_counts[b])
+    per = sched.per
+    gen = torch.Generator(device=dev).manual_seed(15)
+    modes = {}
+    for label, width, side in (("fwd_d256", HID, "fwd"),
+                               ("fwd_d128", D, "fwd"),
+                               ("transposed_d256", HID, "bwd")):
+        index = placed.fwd if side == "fwd" else placed.bwd
+        ptr, row, col, w = index["sum"][b]
+        xb = torch.randn((per, width), generator=gen, device=dev)
+        acc0 = torch.randn((per, width), generator=gen, device=dev)
+        got = halo.ring_spmm_bucket(xb, acc0.clone(), ptr, row, col, w)
+        want = halo._ring_spmm_bucket_plain(xb, acc0.clone(), ptr, row, col,
+                                            w)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        check(err <= 1e-5 * scale, f"K18 {label}: error {err} > 1e-5 * "
+              f"{scale}")
+        again = halo.ring_spmm_bucket(xb, acc0.clone(), ptr, row, col, w)
+        check(torch.equal(got, again), f"K18 {label}: not the same bits on "
+              f"a repeat launch")
+        acc = acc0.clone()
+        touched = int((torch.diff(ptr.long()) > 0).sum())
+        nbytes = ((per + 1) * 4 + c_b * 8 + unique(col) * width * 4
+                  + touched * width * 8)
+        adj = torch.sparse_csr_tensor(ptr, col, w, (per, per))
+        # the reference's body over the bucket's slots in their order
+        order_src = torch.as_tensor(sched.src_local[s_b, k_b, :c_b],
+                                    device=dev).long()
+        order_dst = torch.as_tensor(sched.dst_local[s_b, k_b, :c_b],
+                                    device=dev).long()
+        if side == "bwd":
+            order_src, order_dst = order_dst, order_src
+        w_slot = torch.as_tensor(sched.weight[s_b, k_b, :c_b], device=dev)
+        check(float((torch.sparse.mm(adj, xb) + acc0 - want).abs().max())
+              <= 1e-5 * scale, f"the sparse.mm yardstick ({label}) differs")
+        modes[label] = {
+            "err": err, "scale": scale, "width": width,
+            "ms": cuda_ms(lambda: halo.ring_spmm_bucket(xb, acc, ptr, row,
+                                                        col, w)),
+            "plain_ms": cuda_ms(lambda: halo._ring_spmm_bucket_plain(
+                xb, acc, ptr, row, col, w)),
+            "bound_ms": bound_ms(nbytes, 2 * c_b * width)[0],
+            "library_ms": cuda_ms(lambda: acc.add_(torch.sparse.mm(adj,
+                                                                   xb))),
+            "index_add_ms": cuda_ms(lambda: acc.index_add_(
+                0, order_dst, xb[order_src] * w_slot[:, None])),
+            "eager_ms": eager_ms(lambda: halo.ring_spmm_bucket(
+                xb, acc, ptr, row, col, w)),
+            "nbytes": nbytes, "nops": 2 * c_b * width,
+            "rows_touched": touched, "distinct_rows_read": unique(col)}
+        del xb, acc0, acc, got, want, again, adj
+    main_mode = modes["fwd_d256"]
+    record("ring_spmm", "gigl_tpu_torch/csrc/ring_spmm.cu",
+           "gigl_tpu/parallel/halo.py:143",
+           max(v["err"] for v in modes.values()), main_mode["ms"],
+           main_mode["plain_ms"], nbytes=main_mode["nbytes"],
+           nops=main_mode["nops"], library_ms=main_mode["library_ms"],
+           library_call="acc.add_(torch.sparse.mm(bucket CSR [per, per], "
+                        "block)) (the CSR built beforehand); index_add_ms: "
+                        "acc.index_add_(0, dst, blk[src] * w[:, None]) over "
+                        "the schedule's slots, the reference's body",
+           index_add_ms=main_mode["index_add_ms"], bucket=[s_b, k_b],
+           edges=c_b, rows=per, eager_ms=main_mode["eager_ms"],
+           modes={m_: {k_: v_ for k_, v_ in v.items()
+                       if k_ not in ("nbytes", "nops")}
+                  for m_, v in modes.items()})
+
+    # -- the whole ring (sum, mean) at PART_SHARDS shards against one shard
+    # (one bucket) and against coo_spmm (K8) on the same graph
+    x = shard_features_rowwise(feats, mesh)
+    mesh1 = make_mesh(1)
+    placed1 = halo.put_ring_schedule(halo.build_ring_schedule(edges, N, 1),
+                                     mesh1)
+    x1 = shard_features_rowwise(feats, mesh1)
+    src_t = torch.as_tensor(src.astype(np.int32), device=dev)
+    dst_t = torch.as_tensor(dst.astype(np.int32), device=dev)
+    index = SegmentIndex.from_ids(dst, N, dev)
+    ring = {}
+    for reduce in ("sum", "mean"):
+        _build.reset_launches()
+        got = halo.ring_spmm(x, placed, mesh, reduce=reduce)[:N]
+        torch.cuda.synchronize()
+        check(_build.launches["ring_spmm"] == shards * shards,
+              f"the {reduce} ring launched {_build.launches['ring_spmm']} "
+              f"kernels, not {shards * shards}")
+        one = halo.ring_spmm(x1, placed1, mesh1, reduce=reduce)[:N]
+        coo = coo_spmm(src_t, dst_t, x1[:N], N, reduce=reduce, index=index)
+        scale = float(coo.abs().max())
+        e1 = float((got - one).abs().max())
+        e2 = float((got - coo).abs().max())
+        check(max(e1, e2) <= 1e-5 * scale, f"the {reduce} ring differs: "
+              f"{e1} from one shard, {e2} from coo_spmm (scale {scale})")
+        ring[reduce] = {
+            "err_vs_one_shard": e1, "err_vs_coo_spmm": e2, "scale": scale,
+            "ms": cuda_ms(lambda: halo.ring_spmm(x, placed, mesh,
+                                                 reduce=reduce), reps=5),
+            "eager_ms": eager_ms(lambda: halo.ring_spmm(x, placed, mesh,
+                                                        reduce=reduce)),
+            "one_shard_ms": cuda_ms(lambda: halo.ring_spmm(
+                x1, placed1, mesh1, reduce=reduce), reps=5),
+            "coo_spmm_ms": cuda_ms(lambda: coo_spmm(
+                src_t, dst_t, x1[:N], N, reduce=reduce, index=index),
+                reps=5)}
+    emit({"phase": "sharded_ring_checks", "shards": shards, "width": D,
+          **ring, "card": card})
+    del x, x1, mesh1, placed1, got, one, coo, placed, index
+
+    # -- per model: one step against the plain twins (the loss, every
+    # parameter's gradient and the gradient into layer 2's input), then the
+    # path with the launch counts reset just before and read just after
+    train, val, test = masks
+    kw = dict(hid_dim=HID, out_dim=C, num_layers=2)
+    for conv in ("gcn", "graphsage"):
+        path = f"sharded_{conv}"
+        t_ = sfb.ShardedFullBatchTrainer(
+            edges, feats, labels, train, val, test, mesh,
+            sfb.ShardedFullBatchConfig(conv=conv, **kw),
+            optimizer_args={"learning_rate": "1e-2"})
+        t_.init_state(0)
+
+        def keep(a, k):
+            if a[0].requires_grad:
+                a[0].retain_grad()
+            return a[0]
+
+        with spy(sfb, "ring_spmm", keep) as inputs:
+            vs = step_vs_plain(t_.model, t_.loss, _build.launches)
+        check(len(inputs) == 4, "the step did not run two rings")
+        g_k, g_p = inputs[1].grad, inputs[3].grad
+        g_scale = float(g_p.abs().max())
+        g_err = float((g_k - g_p).abs().max()) / g_scale
+        emit({"phase": "sharded_step_vs_plain", "model": conv, **vs,
+              "layer2_input_grad_err_rel_to_scale": g_err})
+        check(vs["loss_rel_err"] <= 1e-5,
+              f"{path}: loss differs from the plain step: {vs}")
+        check(max(vs["max_grad_err_rel_to_scale"], g_err) <= 1e-4,
+              f"{path}: a gradient differs from the plain step: {vs}, "
+              f"layer 2's input {g_err}")
+        del t_, inputs, g_k, g_p
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        trainer = sfb.ShardedFullBatchTrainer(
+            edges, feats, labels, train, val, test, mesh,
+            sfb.ShardedFullBatchConfig(conv=conv, **kw),
+            optimizer_args={"learning_rate": "1e-2"})
+        state = trainer.init_state(0)
+        for _ in range(FB_WARMUP):
+            state, _ = trainer.train_step(state)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses = []
+        for _ in range(FB_STEPS):
+            state, loss = trainer.train_step(state)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t1) / FB_STEPS
+        nsteps = FB_WARMUP + FB_STEPS
+        counts[path] = (dict(_build.launches), nsteps)
+        emit({"phase": "main_path", "path": path,
+              "launches": counts[path][0], "steps": nsteps,
+              "seconds": time.perf_counter() - t0})
+        per_step = counts[path][0]["ring_spmm"] / nsteps
+        check(per_step == 3 * shards * shards,
+              f"{path}: {per_step} K18 launches a step, not "
+              f"{3 * shards * shards} (two rings forward, one backward)")
+        losses = torch.stack(losses).float().cpu().numpy()
+        check(np.isfinite(losses).all(), f"{path}: loss not finite")
+        first, last = float(losses[:5].mean()), float(losses[-5:].mean())
+        check(last < first, f"{path}: loss did not fall: {first} -> {last}")
+        peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for _ in range(FB_PROFILED):
+                state, _ = trainer.train_step(state)
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t1) * 1e6
+        acc = trainer.accuracy("val")
+        check(0.0 <= acc <= 1.0, f"{path}: accuracy {acc}")
+        logits = trainer.logits()
+        check(logits.shape == (N, C) and bool(torch.isfinite(logits).all()),
+              f"{path}: logits are not finite [{N}, {C}]")
+        emit({"phase": "sharded_train_throughput", "model": conv,
+              "shards": shards, "steps": FB_STEPS,
+              "ms_per_step": step_s * 1e3,
+              "edges_per_step": 2 * E, "edges_per_s": 2 * E / step_s,
+              "ring_spmm_launches_per_step": per_step,
+              "coo_full_batch_graphsage_ms_per_step": coo_ms["graphsage"],
+              "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+              "loss_first5": first, "loss_last5": last, "val_accuracy": acc,
+              "peak_mem_gb": peak_gb,
+              "profile": profile_summary(prof, FB_PROFILED, window_us,
+                                         step_s * 1e3), "card": card})
+        del trainer, state, logits
+
+    # -- run_partitioned_inference over phase 14's per-shard-pool trainer:
+    # every node into an in-memory exporter, each row against encode_batch
+    path = "partitioned_inference"
+    sink = Sink()
+    cfg = InferenceConfig(batch_size=BATCH)
+    part_trainer.mesh.reset_counts()
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    total = run_partitioned_inference(part_trainer, N, sink, cfg)
+    inf_s = time.perf_counter() - t0
+    n_batches = -(-N // BATCH)
+    counts[path] = (dict(_build.launches), n_batches)
+    emit({"phase": "main_path", "path": path, "launches": counts[path][0],
+          "batches": n_batches, "seconds": inf_s})
+    for k in PART_ENCODE_KERNELS:
+        check(counts[path][0][k] > 0, f"{k} was not launched on {path}")
+    check(total == N, f"{path}: {total} rows exported, not {N}")
+    embs = sink.table(N, OUT, path)
+    worst = 0.0
+    for ids, valid in node_batches(N, cfg):
+        want = part_trainer.encode_batch(ids).float().cpu().numpy()[:valid]
+        worst = max(worst, float(np.abs(embs[ids[:valid]] - want).max()))
+    check(worst == 0.0, f"{path}: exported rows differ from encode_batch's "
+          f"by {worst}")
+    emit({"phase": "partitioned_inference_throughput", "nodes": N,
+          "nodes_per_s": N / inf_s, "ms_per_batch": inf_s / n_batches * 1e3,
+          "max_abs_err_vs_encode_batch": worst, "card": card})
+    del mesh, sink, embs
     return counts
 
 
@@ -3736,7 +4038,7 @@ def main():
               **row})
         del nct, state
 
-    coo = coo_phases(dev, card, graph, record, rel_err, run_path)
+    coo, coo_ms = coo_phases(dev, card, graph, record, rel_err, run_path)
     typed, typed_ctx = typed_phases(dev, card, record, rel_err, unique)
     tt_steps = TT_WARMUP + TT_STEPS
 
@@ -3752,8 +4054,16 @@ def main():
     quant = quantized_phases(dev, card, graph, np.stack([src, dst]), record,
                              add_mode, unique, make_model, opt_args, anchors,
                              (dg, cfg))
-    part = partitioned_phases(dev, card, dg, record, add_mode, unique,
-                              make_model, opt_args)
+    part, part_trainer = partitioned_phases(dev, card, dg, record, add_mode,
+                                            unique, make_model, opt_args)
+    sharded = sharded_phases(
+        dev, card, (src, dst, np.asarray(graph.node_features[
+            graph.metadata.node_types[0]]), np.asarray(graph.node_labels[
+                graph.metadata.node_types[0]])),
+        [m_.cpu().numpy() for m_ in (fb_data.train_mask, fb_data.val_mask,
+                                     fb_data.test_mask)],
+        record, unique, coo_ms, part_trainer)
+    del part_trainer
 
     # launches on every kernel row: the training path's (K6 / K7: the
     # full-graph passes'; K6b / K7b: the node-classification paths'; K8-K10:
@@ -3783,6 +4093,9 @@ def main():
             row["launches"] = part["partitioned_train"][0][k]
         elif k == "ring_retrieval":
             row["launches"] = part["partitioned_ring_train"][0][k]
+        elif k == "ring_spmm":
+            row["launches"] = sum(c_[k] for p_, (c_, _) in sharded.items()
+                                  if p_.startswith("sharded_"))
         else:
             row["launches"] = sum(fg.values())
         row["launches_per_step"] = (launches[k] - after_init[k]) / (
@@ -3807,8 +4120,10 @@ def main():
             p_: c_[k] / n_ for p_, (c_, n_) in quant.items()}
         row["launches_per_partitioned_step"] = {
             p_: c_[k] / n_ for p_, (c_, n_) in part.items()}
-    check(len(results) == len(_build.KERNEL_NAMES) == 24,
-          "the kernels line does not list all twenty-four kernels")
+        row["launches_per_sharded_step"] = {
+            p_: c_[k] / n_ for p_, (c_, n_) in sharded.items()}
+    check(len(results) == len(_build.KERNEL_NAMES) == 25,
+          "the kernels line does not list all twenty-five kernels")
     results.sort(key=lambda r: _build.KERNEL_NAMES.index(r["name"]))
 
     emit({"kernels": results})

@@ -35,6 +35,12 @@ reference unpacks them, or int8 rows) and ``scale``; ``cms_from_jax`` a
 :class:`~gigl_tpu_torch.losses.count_min_sketch.CountMinSketch` from its
 table and total. Both take numpy arrays, so the two packages can start from
 the same tables and the same sketch.
+
+``sharded_params_from_jax`` takes the reference's
+``ShardedFullBatchTrainer`` parameters (a list of ``{"w", "b"}`` or
+``{"w_self", "w_nbr", "b"}`` arrays, ``[in, out]`` matrices used as ``h @
+w``, not flax ``Dense`` layers) and returns the port trainer's state dict
+(``layers.{i}.{name}``, the matrices as they are).
 """
 
 from __future__ import annotations
@@ -200,3 +206,16 @@ def cms_from_jax(table: np.ndarray, total, device: DeviceLike = None
         table=torch.from_numpy(np.asarray(table, np.int32).copy()).to(device),
         total=torch.tensor(int(np.asarray(total)), dtype=torch.int32,
                            device=device))
+
+
+def sharded_params_from_jax(params) -> Dict[str, torch.Tensor]:
+    """The reference's sharded full-batch parameters (a list of per-layer
+    dicts of arrays) as the state dict of the port's
+    ``ShardedFullBatchTrainer.model``: ``layers.{i}.{name}``, fp32, the
+    ``[in, out]`` matrices untransposed."""
+    out = {}
+    for i, layer in enumerate(params):
+        for name, value in layer.items():
+            out[f"layers.{i}.{name}"] = torch.from_numpy(
+                np.array(value, dtype=np.float32))
+    return out

@@ -1,7 +1,7 @@
 """Embedding inference over the whole graph (port of ``InferenceConfig``,
 ``node_batches``, ``run_inference``, ``run_full_graph_inference``,
-``exact_full_neighborhood_paths`` and ``run_full_graph_inference_hetero``
-in ``gigl_tpu/inference/inferencer.py``).
+``exact_full_neighborhood_paths``, ``run_full_graph_inference_hetero``
+and ``run_partitioned_inference`` in ``gigl_tpu/inference/inferencer.py``).
 
 ``run_inference`` iterates node-id ranges on the host; each batch is moved
 to the device and encoded by the inferencer's ``infer_batch`` (a typed
@@ -11,7 +11,9 @@ drives it). ``run_full_graph_inference`` encodes every node over its exact
 full neighborhood in one pass through the degree-bucketed ELL path
 (``GNNEncoder.encode_ell``); ``run_full_graph_inference_hetero`` does so
 for every node of every type of a typed graph through the COO segment
-kernels (``HeteroGNNEncoder.encode_full``). The embeddings go to any
+kernels (``HeteroGNNEncoder.encode_full``); ``run_partitioned_inference``
+streams every node through a partitioned trainer's ``encode_batch`` (one
+program over the mesh's shards). The embeddings go to any
 exporter with ``add_embeddings(ids, emb)`` and ``flush()``, as fp32 numpy
 arrays (numpy has no bf16).
 """
@@ -233,3 +235,42 @@ def run_full_graph_inference_hetero(
         exporters[nt].flush()
         counts[nt] = n
     return counts
+
+
+def run_partitioned_inference(
+    trainer,
+    num_nodes: int,
+    exporter,
+    cfg: Optional[InferenceConfig] = None,
+    *,
+    node_type: Optional[str] = None,
+    device: DeviceLike = None,
+) -> int:
+    """Full-graph inference over a PARTITIONED backend: every node of this
+    worker's range, in ``node_batches``, through the trainer's sharded
+    ``encode_batch`` (a ``PartitionedNALPTrainer``, whose mesh lives on
+    ``device``: CUDA unless given) into the exporter. The trainer holds its
+    parameters, so there is no ``params`` argument. Returns the row
+    count."""
+    if node_type is not None:
+        raise NotImplementedError(
+            "run_partitioned_inference(node_type=...): the typed partitioned "
+            "trainer is not ported yet (ROADMAP A15, rest)")
+    cfg = cfg or InferenceConfig()
+    device = resolve_device(device)
+    if trainer.device != device:
+        raise ValueError(f"the trainer's mesh lives on {trainer.device}, "
+                         f"inference asked for {device}")
+    total = 0
+    t0 = time.time()
+    for batch_idx, (ids, valid) in enumerate(node_batches(num_nodes, cfg)):
+        ids_t = torch.as_tensor(ids, dtype=torch.int32, device=device)
+        emb = trainer.encode_batch(ids_t)[:valid].float().cpu().numpy()
+        exporter.add_embeddings(ids[:valid], emb)
+        total += valid
+        if (batch_idx + 1) % cfg.log_every_n_batches == 0:
+            rate = total / max(time.time() - t0, 1e-9)
+            logger.info("partitioned inference: %d nodes (%.0f nodes/s)",
+                        total, rate)
+    exporter.flush()
+    return total

@@ -37,8 +37,8 @@ COMPILE_FLAGS = ARCH_FLAGS + [
 
 # Kernel name -> number of launches since the last reset_launches().
 # retrieval_loss and ring_retrieval count their forward and their backward
-# entry point; segment_reduce_bwd its max mode's tie pass, sddmm_bwd both
-# of its stages.
+# entry point, ring_spmm its forward and its transposed launches;
+# segment_reduce_bwd its max mode's tie pass, sddmm_bwd both of its stages.
 KERNEL_NAMES = ("sample_uniform", "uniform_ids", "build_neighbor_cache",
                 "gather_rows", "masked_reduce", "masked_reduce_bwd",
                 "retrieval_loss", "ell_aggregate", "fanout_attention",
@@ -46,7 +46,8 @@ KERNEL_NAMES = ("sample_uniform", "uniform_ids", "build_neighbor_cache",
                 "segment_reduce", "segment_softmax", "sddmm",
                 "segment_reduce_bwd", "segment_softmax_bwd", "sddmm_bwd",
                 "ell_edge_grad", "gather_rows_q8", "cms_add", "cms_estimate",
-                "route_requests", "unroute_rows", "ring_retrieval")
+                "route_requests", "unroute_rows", "ring_retrieval",
+                "ring_spmm")
 launches: Dict[str, int] = dict.fromkeys(KERNEL_NAMES, 0)
 
 _P = ctypes.c_void_p
@@ -97,6 +98,7 @@ _SIGNATURES = {
     + [_P] * 4,
     "gigl_ring_block_bwd": [_P, _I32, _I32] + [_P] * 7 + [_F32, _F32]
     + [_P] * 4,
+    "gigl_ring_spmm": [_P] * 5 + [_I32] * 3 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

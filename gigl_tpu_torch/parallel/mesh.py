@@ -11,8 +11,10 @@ and each collective is a copy or a sum across those lists:
 - ``jax.lax.all_to_all(x, axis, 0, 0, tiled=True)`` -> :meth:`Mesh.all_to_all`:
   ``out[q][p] = in[p][q]`` (each input split into P blocks on axis 0),
   one stacking copy per shard;
-- ``jax.lax.ppermute(x, axis, [(i, i + 1 mod P)])`` -> :meth:`Mesh.ppermute`:
-  ``out[(i + 1) % P] = in[i]``, no copy (the tensors change hands);
+- ``jax.lax.ppermute(x, axis, [(i, i + shift mod P)])`` ->
+  :meth:`Mesh.ppermute`: ``out[(i + shift) % P] = in[i]``, no copy (the
+  tensors change hands); the retrieval ring shifts up (+1), the halo ring
+  down (-1);
 - ``jax.lax.psum`` / ``pmean`` -> :meth:`Mesh.psum` / :meth:`Mesh.pmean`:
   one sum over the shards (fixed order, shard 0 first), which every
   shard's entry shares (tensors are never written in place);
@@ -74,11 +76,13 @@ class Mesh:
         self.a2a_calls += 1
         return out
 
-    def ppermute(self, xs: Sequence) -> list:
-        """Shard i's entry moves to shard (i + 1) mod P (the ring's
-        rotation); entries may be any per-shard values."""
+    def ppermute(self, xs: Sequence, shift: int = 1) -> list:
+        """Shard i's entry moves to shard (i + shift) mod P (a ring's
+        rotation: +1 the retrieval ring's, -1 the halo ring's); entries may
+        be any per-shard values."""
         self._check(xs, "ppermute")
-        return [xs[q - 1] for q in range(self.num_shards)]
+        p = self.num_shards
+        return [xs[(q - shift) % p] for q in range(p)]
 
     def psum(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """The sum over the shards, shard 0 first; every entry is that one

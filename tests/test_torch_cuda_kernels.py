@@ -60,7 +60,16 @@ global-atomic K13, odd widths, ids up to 2**31 - 1, an empty batch)
 bit-equal to their twins; K2 in its int8 mode within rtol 1e-5; K5 with
 the logQ term (p = 0 included) at K5's tolerances; two NALP steps over int8
 features and cache with the sketch on, on the card against the CPU (losses
-and weights within 1e-4 relative, the sketch bit-equal).
+and weights within 1e-4 relative, the sketch bit-equal). The ring halo
+exchange: K18 ring_spmm's one-bucket launch (forward and transposed index)
+against its twin at widths 256, 128, 7 (4-byte loads), 4 on a misaligned
+base, 1 and 33, on a bucket of 9,000 edges, a hub bucket with every edge
+on one row and 37 rows (not a multiple of 32): fp32 within 1e-5 of the
+scale, the same bits on a repeat run; an empty bucket launches nothing;
+the whole ring (P 1, 4, 5; sum and mean) and its gradient (ring_spmm's
+autograd.Function) on the card against the CPU within 1e-5 of the scale,
+P^2 launches each way; three sharded full-batch steps (GCN, GraphSAGE)
+on the card against the CPU (losses and weights within 1e-4 relative).
 """
 
 import dataclasses
@@ -120,6 +129,8 @@ from gigl_tpu_torch.ops.hopcache import (
 from gigl_tpu_torch.losses import count_min_sketch as cms_ops
 from gigl_tpu_torch.losses import sharded_retrieval
 from gigl_tpu_torch.parallel import feature_lookup as fl
+from gigl_tpu_torch.parallel import halo
+from gigl_tpu_torch.parallel.partition import shard_features_rowwise
 from gigl_tpu_torch.parallel.mesh import Mesh
 from gigl_tpu_torch.ops.quantized import (
     QuantizedTable,
@@ -152,6 +163,7 @@ from gigl_tpu_torch.sampling.neighbor_sampler import (
     uniform_ids,
 )
 from gigl_tpu_torch.training import dist_sampled
+from gigl_tpu_torch.training import sharded_full_batch as sfb
 from gigl_tpu_torch.training.dataset import DeviceGraph
 from gigl_tpu_torch.training.full_batch import (
     FullBatchTrainer,
@@ -1948,3 +1960,141 @@ def test_partitioned_steps_on_card_match_cpu(dev, ring):
         torch.testing.assert_close(out["cuda"][1][k], v, rtol=1e-4, atol=1e-5)
     assert torch.equal(out["cuda"][2].table.cpu(), out["cpu"][2].table)
     assert int(out["cuda"][2].total) == int(out["cpu"][2].total) == 3 * 128
+
+
+def _ring_bucket(dev, rows, m, e, d, hub=False, seed=0, misalign=False):
+    """One bucket's row-sorted edges: (x [m, d], acc [rows, d] random, ptr,
+    row, col, w) on ``dev``; ``hub``: every edge on row 3."""
+    rng = np.random.default_rng(seed)
+    row = (np.full(e, 3) if hub else rng.integers(0, rows, e)).astype(
+        np.int32)
+    col = rng.integers(0, m, e).astype(np.int32)
+    order = np.argsort(row, kind="stable")
+    row, col = row[order], col[order]
+    ptr = np.concatenate([[0], np.cumsum(np.bincount(row, minlength=rows))])
+    w = rng.random(e).astype(np.float32)
+    x = rng.normal(size=(m, d)).astype(np.float32)
+    if misalign:        # a base 4 bytes past a 16-byte boundary
+        flat = torch.zeros(m * d + 1)
+        flat[1:] = torch.from_numpy(x).reshape(-1)
+        xt = flat.to(dev)[1:].view(m, d)
+    else:
+        xt = torch.from_numpy(x).to(dev)
+    acc = torch.from_numpy(rng.normal(size=(rows, d)).astype(np.float32))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return (xt, acc.to(dev), t(ptr.astype(np.int32)), t(row), t(col), t(w))
+
+
+@pytest.mark.parametrize("case", ["bucket", "hub", "rows37"])
+@pytest.mark.parametrize("d,misalign", [(256, False), (128, False),
+                                        (7, False), (4, True), (1, False),
+                                        (33, False)])
+def test_ring_spmm_bucket_matches_plain(dev, case, d, misalign):
+    rows, m, e = {"bucket": (1000, 1200, 9000), "hub": (50, 900, 5000),
+                  "rows37": (37, 300, 700)}[case]
+    x, acc, ptr, row, col, w = _ring_bucket(dev, rows, m, e, d,
+                                            hub=case == "hub",
+                                            misalign=misalign)
+    if misalign:
+        assert x.data_ptr() % 16 != 0
+    want = halo._ring_spmm_bucket_plain(x, acc.clone(), ptr, row, col, w)
+    _build.reset_launches()
+    got = halo.ring_spmm_bucket(x, acc.clone(), ptr, row, col, w)
+    again = halo.ring_spmm_bucket(x, acc.clone(), ptr, row, col, w)
+    torch.cuda.synchronize()
+    assert _build.launches["ring_spmm"] == 2
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    assert torch.equal(got, again)
+    untouched = torch.diff(ptr.long()) == 0
+    assert torch.equal(got[untouched], acc[untouched])
+
+
+def test_ring_spmm_bucket_empty_launches_nothing(dev):
+    x, acc, ptr, row, col, w = _ring_bucket(dev, 40, 50, 0, 8)
+    _build.reset_launches()
+    got = halo.ring_spmm_bucket(x, acc.clone(), ptr, row, col, w)
+    torch.cuda.synchronize()
+    assert _build.launches["ring_spmm"] == 0
+    assert torch.equal(got, acc)
+
+
+def _ring_graph(n, e, seed, hub=False):
+    rng = np.random.default_rng(seed)
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    if hub:
+        dst[: e // 2] = 5          # a destination hub of e / 2 edges
+    return np.stack([src, dst]), rng.random(e).astype(np.float32)
+
+
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+@pytest.mark.parametrize("num_shards", [1, 4, 5])
+def test_ring_spmm_gradients_on_card_match_cpu(dev, num_shards, reduce):
+    """ring_spmm's autograd.Function on the card against the CPU: the
+    output and the input's gradient through two stacked rings, P^2 forward
+    launches a ring (every bucket non-empty here) and P^2 transposed ones
+    a ring that needs a gradient (ROADMAP C3)."""
+    edges, w = _ring_graph(1003, 20000, seed=num_shards, hub=True)
+    g0 = np.random.default_rng(1).normal(size=(1005, 24)).astype(np.float32)
+    x0 = np.random.default_rng(2).normal(size=(1003, 24)).astype(np.float32)
+    out = {}
+    for device in (torch.device("cpu"), dev):
+        mesh = Mesh(num_shards, device)
+        sched = halo.build_ring_schedule(edges, 1003, num_shards,
+                                         edge_weight=w)
+        assert (sched.counts > 0).all()
+        placed = halo.put_ring_schedule(sched, mesh)
+        x = shard_features_rowwise(x0, mesh)
+        pad = x.shape[0]
+        x = x.requires_grad_()
+        g = torch.from_numpy(g0[:pad]).to(device)
+        _build.reset_launches()
+        y = halo.ring_spmm(torch.tanh(halo.ring_spmm(x, placed, mesh,
+                                                     reduce=reduce)),
+                           placed, mesh, reduce=reduce)
+        (y * g).sum().backward()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert _build.launches["ring_spmm"] == 4 * num_shards ** 2
+        out[device.type] = (y.detach().cpu(), x.grad.cpu())
+    for k, c in zip(out["cuda"], out["cpu"]):
+        assert float((k - c).abs().max()) <= 1e-5 * float(c.abs().max())
+
+
+@pytest.mark.parametrize("conv", ["gcn", "graphsage"])
+def test_sharded_full_batch_steps_on_card_match_cpu(dev, conv):
+    """Three steps at 4 shards on the card against the CPU from the same
+    seeded params: losses and weights within 1e-4 relative; 48 K18
+    launches a step (two rings forward, the second one's backward)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(5)
+    n = 1001
+    edges = np.stack([rng.integers(0, n, 12000), rng.integers(0, n, 12000)])
+    x = rng.normal(size=(n, 32)).astype(np.float32)
+    labels = rng.integers(0, 7, n)
+    masks = rng.random((3, n)) < np.array([[0.6], [0.2], [0.2]])
+    out = {}
+    for device in (torch.device("cpu"), dev):
+        t = sfb.ShardedFullBatchTrainer(
+            edges, x, labels, *masks, Mesh(4, device),
+            sfb.ShardedFullBatchConfig(conv=conv, hid_dim=64, out_dim=7),
+            optimizer_args={"learning_rate": "0.01"})
+        state = t.init_state(0)
+        _build.reset_launches()
+        losses = []
+        for _ in range(3):
+            state, loss = t.train_step(state)
+            losses.append(loss)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert _build.launches["ring_spmm"] == 3 * 48
+        out[device.type] = (torch.stack(losses).cpu(),
+                            {k: v.cpu() for k, v in
+                             t.model.state_dict().items()})
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=0)
+    for k, v in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][k], v, rtol=1e-4, atol=1e-5)

@@ -14,7 +14,9 @@ same math, sums in another order, drifting through Adam); the ring loss at
 relative (one logsumexp against a ring of them); the per-shard pool
 against the mean of the replicated trainer's per-shard losses within 1e-5
 relative; evaluate's metrics within 1e-6 and encode_batch within 1e-5 of
-the embeddings' scale.
+the embeddings' scale; run_partitioned_inference's exported rows from the
+same (untrained) params within 1e-5 of the scale (measured 1.9e-7), the
+exported ids equal, the rows equal to the port's encode_batch's.
 """
 
 import logging
@@ -26,6 +28,10 @@ import torch
 import jax
 
 from gigl_tpu.graph.csr import HeteroGraph as JaxHeteroGraph
+from gigl_tpu.inference.inferencer import (
+    InferenceConfig as JaxInferenceConfig,
+    run_partitioned_inference as jax_run_partitioned_inference,
+)
 from gigl_tpu.models.encoders import GNNEncoder as JaxGNNEncoder
 from gigl_tpu.models.link_prediction import (
     LinkPredictionDecoder as JaxDecoder,
@@ -41,6 +47,10 @@ from gigl_tpu.training.dist_sampled import (
 from gigl_tpu.training.trainer import NALPTrainerConfig as JaxConfig
 from gigl_tpu_torch.convert import params_from_flax
 from gigl_tpu_torch.graph.csr import HeteroGraph
+from gigl_tpu_torch.inference.inferencer import (
+    InferenceConfig,
+    run_partitioned_inference,
+)
 from gigl_tpu_torch.models.encoders import GNNEncoder
 from gigl_tpu_torch.models.link_prediction import (
     LinkPredictionDecoder,
@@ -396,3 +406,51 @@ def test_bad_configs_raise():
     state = pt.init_state(0)
     with pytest.raises(ValueError, match="divisible"):
         pt.train_steps(state, np.zeros((1, 30), np.int32))
+
+
+class _Sink:
+    def __init__(self):
+        self.ids, self.embs, self.flushed = [], [], 0
+
+    def add_embeddings(self, ids, emb):
+        self.ids.append(np.asarray(ids))
+        self.embs.append(np.asarray(emb))
+
+    def flush(self):
+        self.flushed += 1
+
+
+@pytest.fixture(scope="module")
+def fresh_pair():
+    """Both trainers on the same untrained params (4 shards)."""
+    jt, js, pt, _, _ = _pair()
+    return jt, js, pt
+
+
+@pytest.mark.parametrize("batch_size", [64, 100])
+def test_run_partitioned_inference_matches_jax(fresh_pair, batch_size):
+    """Every node through each trainer's encode_batch into an exporter (100:
+    a tail batch of 12 real ids, padded), from the same params; the rows are
+    the port's encode_batch's."""
+    jt, js, pt = fresh_pair
+    want, got = _Sink(), _Sink()
+    n_want = jax_run_partitioned_inference(
+        jt, js.params, N, want, JaxInferenceConfig(batch_size=batch_size))
+    n_got = run_partitioned_inference(
+        pt, N, got, InferenceConfig(batch_size=batch_size), device="cpu")
+    assert n_got == n_want == N and got.flushed == 1
+    assert all(np.array_equal(a, b) for a, b in zip(got.ids, want.ids))
+    g, w = np.concatenate(got.embs), np.concatenate(want.embs)
+    assert g.shape == w.shape == (N, OUT) and g.dtype == np.float32
+    np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * np.abs(w).max())
+    ids = np.concatenate(got.ids)
+    assert np.array_equal(g, pt.encode_batch(ids).numpy())
+
+
+def test_run_partitioned_inference_options_raise(fresh_pair):
+    pt = fresh_pair[2]
+    with pytest.raises(NotImplementedError, match="A15, rest"):
+        run_partitioned_inference(pt, N, _Sink(), node_type="user",
+                                  device="cpu")
+    with pytest.raises(ValueError, match="mesh lives on"):
+        run_partitioned_inference(pt, N, _Sink(), device="meta")
