@@ -171,7 +171,25 @@
    beside it. Then run_partitioned_inference over phase 14's per-shard-pool
    trainer: every node into an in-memory exporter, each row against
    encode_batch's for the same ids, nodes/s;
-16. prints one JSON line with every kernel's numbers, then the card line,
+16. weighted and top-k draws: the flagship graph with an [E, 8] fp32 edge
+   table (ogbn-proteins' width; column 0 uniform [0, 1) weights, numpy
+   seed 16) through DeviceGraph.from_hetero(sampling_weight_index=0), whose
+   host row sort is timed; holds K19 sample_weighted bit-equal to its twin
+   over all N nodes at fanout 15 (both methods), at the live hops' shapes,
+   on a hub CSR (1,000 rows of degree 1,000, integer weights 0-3) and in
+   its row-offset mode on shard 1 of phase 14's 4-way layout (yardstick:
+   torch.topk of the prebuilt score matrix), and K2's weighted mode (fp32,
+   int8, and top_k) beside its uniform mode; then, each with the launch
+   counts reset just before and read just after — every path launches
+   K19 and K1 only for the positives, which the reference draws uniformly
+   too — the tabularized weighted NALP path (a step against the plain
+   step, 5 + 50 steps, 5 profiled, run_inference over every node), the
+   same refresh and run_inference with top_k, the live weighted step (6
+   K19 a step), the typed DBLP-shaped encode_batch with every op weighted
+   (batch 0 against the plain versions) and PartitionedNALPTrainer over
+   make_mesh(4) (a fp32 step against the plain step, 3 + 10 steps, zero
+   overflow); prints ms/step beside phase 6's uniform ms/step;
+17. prints one JSON line with every kernel's numbers, then the card line,
    then {"ok": true, ...} as the last line.
 
 Any failed check raises; nothing is printed as a result without a card.
@@ -302,6 +320,18 @@ PART_TRAIN_KERNELS = ("sample_uniform", "uniform_ids", "gather_rows",
                       "cms_estimate", "route_requests", "unroute_rows")
 PART_ENCODE_KERNELS = ("sample_uniform", "gather_rows", "masked_reduce",
                        "route_requests", "unroute_rows")
+# weighted and top-k draws (phase 16): the flagship graph with an
+# [E, W_DE] fp32 edge table (ogbn-proteins' width) whose column 0 holds
+# uniform [0, 1) sampling weights (numpy seed W_SEED)
+W_DE, W_SEED, W_WINDOW = 8, 16, 128
+W_STEPS, W_WARMUP, W_PROFILED = 50, 5, 5
+W_PART_STEPS, W_PART_WARMUP = 10, 3
+W_TYPED_BATCHES = 10        # encode_batch batches of each node type
+W_AB_STEPS = 25             # steps per turn of the weighted / uniform turns
+W_HUB_ROWS, W_HUB_DEG = 1000, 1000
+W_TRAIN_KERNELS = ("sample_weighted", "uniform_ids", "build_neighbor_cache",
+                   "gather_rows", "masked_reduce", "masked_reduce_bwd",
+                   "retrieval_loss")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 # ReLU gates the plain step may see on the other side of 0 (fp32 rounding)
@@ -485,6 +515,8 @@ def plain_kernels():
         (fanout, "masked_reduce_bwd", fanout._masked_reduce_bwd_plain),
         (neighbor_sampler, "sample_uniform",
          neighbor_sampler._sample_uniform_plain),
+        (neighbor_sampler, "sample_weighted",
+         neighbor_sampler._sample_weighted_plain),
         (segment, "segment_reduce", seg_reduce),
         (hetero_convs, "segment_softmax", seg_softmax),
         (hetero_convs, "sddmm", dot), (hetero_convs, "gather_edges", edge_rows),
@@ -505,6 +537,8 @@ def plain_kernels():
         (feature_lookup, "unroute_rows", feature_lookup._unroute_plain),
         (feature_lookup, "sample_uniform",
          neighbor_sampler._sample_uniform_plain),
+        (feature_lookup, "sample_weighted",
+         neighbor_sampler._sample_weighted_plain),
         (feature_lookup, "gather_rows", rows),
         (dist_sampled, "cms_add", count_min_sketch._cms_add_plain),
         (dist_sampled, "cms_sampling_probability",
@@ -3011,6 +3045,518 @@ def sharded_phases(dev, card, arrays, masks, record, unique, coo_ms,
     return counts
 
 
+def weighted_phases(dev, card, arrays, record, add_mode, unique, make_model,
+                    opt_args, base_cfg, uniform_ms_step, typed_ctx, rel_err):
+    """Phase 16 (see the module docstring): the weighted and top-k draws.
+    K19 sample_weighted and K2's weighted mode against their twins at the
+    path's shapes, then the weighted / top-k paths, each with the launch
+    counts reset just before and read just after: every path launches K19
+    and K1 only for the label-edge draws the reference makes uniformly
+    (the positives), never for a message-graph draw. Returns {path:
+    (launch counts, steps or passes)}."""
+    from gigl_tpu_torch.graph.csr import HeteroGraph
+    from gigl_tpu_torch.inference.inferencer import (
+        InferenceConfig, run_inference)
+    from gigl_tpu_torch.models.encoders import GNNEncoder
+    from gigl_tpu_torch.models.link_prediction import (
+        HeteroLinkPredictionGNN, LinkPredictionDecoder, LinkPredictionGNN)
+    from gigl_tpu_torch.ops import _build
+    from gigl_tpu_torch.ops.hopcache import (
+        _neighbor_cache_plain, build_neighbor_cache)
+    from gigl_tpu_torch.ops.quantized import QuantizedTable
+    from gigl_tpu_torch.parallel.mesh import make_mesh
+    from gigl_tpu_torch.sampling.neighbor_sampler import (
+        DeviceCSR, _sample_weighted_plain, sample_weighted, window_scores)
+    from gigl_tpu_torch.training.dataset import DeviceGraph
+    from gigl_tpu_torch.training.dist_sampled import (
+        PartitionedGraph, PartitionedNALPTrainer, _shard_csr)
+    from gigl_tpu_torch.training.hetero_dataset import HeteroDeviceGraph
+    from gigl_tpu_torch.training.hetero_trainer import (
+        HeteroNALPTrainer, HeteroNALPTrainerConfig)
+    from gigl_tpu_torch.training.trainer import (
+        NALPTrainer, NALPTrainerConfig)
+
+    src, dst, x_np = arrays
+    k1, k2 = FANOUTS
+    counts = {}
+
+    # -- the weighted graph: from_hetero sorts each row by weight ------------
+    rng = np.random.default_rng(W_SEED)
+    ef = rng.random((E, W_DE), dtype=np.float32)
+    graph = HeteroGraph.homogeneous(src=src, dst=dst, num_nodes=N,
+                                    node_features=x_np, edge_features=ef)
+    csr_h = graph.csr(graph.metadata.edge_types[0], anchor="dst")
+    t0 = time.perf_counter()
+    row_of = np.repeat(np.arange(N), np.diff(csr_h.indptr))
+    np.lexsort((-ef[csr_h.edge_ids, 0], row_of))
+    sort_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dg = DeviceGraph.from_hetero(graph, supervision_edges=np.stack([src, dst]),
+                                 sampling_weight_index=0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    csr = dg.message_csr
+    w_dev = csr.edge_weights
+    same_row = torch.as_tensor(row_of[1:] == row_of[:-1], device=dev)
+    check(bool(((w_dev[1:] <= w_dev[:-1]) | ~same_row).all()),
+          "a CSR row is not sorted by descending weight")
+    check(torch.equal(w_dev, dg.edge_features[:, 0]),
+          "the weights are not the edge rows' column 0 in slot order")
+    emit({"phase": "weighted_graph", "edge_features": [E, W_DE],
+          "host_sort_s": sort_s, "from_hetero_s": build_s,
+          "weight_bytes": w_dev.nbytes})
+
+    # -- K19 against its twin (bit-equal) at the path's shapes --------------
+    def k19_case(label, csr_, frontier, fanout, method, seed, hop,
+                 row_offset=None):
+        args = (csr_.indptr, csr_.indices, csr_.edge_weights, frontier,
+                fanout, W_WINDOW, method, seed, hop, row_offset)
+        got = sample_weighted(*args)
+        want = _sample_weighted_plain(*args)
+        check(all(torch.equal(g_, w_) for g_, w_ in zip(got, want)),
+              f"K19 sample_weighted ({label}) is not bit-equal to its twin")
+        f = frontier.reshape(-1).long()
+        if row_offset is not None:
+            f = (f - row_offset).clamp(0, csr_.indptr.shape[0] - 2)
+        start = csr_.indptr[f].long()
+        deg = csr_.indptr[f + 1].long() - start
+        scores = window_scores(csr_.edge_weights, start, deg,
+                               frontier.reshape(-1), seed, hop, method,
+                               W_WINDOW)
+        m = f.numel()
+        rows_u = torch.unique(f)
+        deg_u = (csr_.indptr[rows_u + 1] - csr_.indptr[rows_u]).long()
+        valid = int(deg.clamp(max=W_WINDOW).sum())
+        # bytes: the frontier, each distinct row's indptr pair and window
+        # weights read once, each distinct drawn CSR slot read once, ids +
+        # mask + slots written; ops: the hash and two logs a valid slot
+        # (weighted; one log for top_k) and one compare a window slot.
+        nbytes = (m * 4 + rows_u.numel() * 8
+                  + int(deg_u.clamp(max=W_WINDOW).sum()) * 4
+                  + unique(got[2][got[1]]) * 4 + m * fanout * 9)
+        nops = valid * (40 if method == "weighted" else 14) + m * W_WINDOW
+        return {"frontier": list(frontier.shape), "fanout": fanout,
+                "method": method, "ms": cuda_ms(lambda: sample_weighted(
+                    *args)),
+                "plain_ms": cuda_ms(lambda: _sample_weighted_plain(*args),
+                                    reps=3),
+                "library_ms": cuda_ms(lambda: torch.topk(scores, fanout)),
+                "eager_ms": eager_ms(lambda: sample_weighted(*args)),
+                "bound_ms": bound_ms(nbytes, nops)[0], "nbytes": nbytes,
+                "nops": nops, "valid_window_slots": valid,
+                "row_offset": row_offset}
+
+    ids_all = torch.arange(N, dtype=torch.int32, device=dev)
+    k19 = {}
+    for method in ("weighted", "top_k"):
+        k19[f"all_nodes_{method}"] = k19_case(
+            f"all nodes, {method}", csr, ids_all, k1, method, 0, 1)
+    hop1 = torch.arange(3 * BATCH, dtype=torch.int32, device=dev) % N
+    k19["live_hop1"] = k19_case("live hop 1", csr, hop1, k1, "weighted", 0, 1)
+    ids1, mask1, _ = sample_weighted(csr.indptr, csr.indices, w_dev, hop1, k1,
+                                     W_WINDOW, "weighted", 0, 1)
+    hop2 = torch.where(mask1, ids1, 0)
+    k19["live_hop2"] = k19_case("live hop 2", csr, hop2, k2, "weighted", 0, 2)
+    hrng = np.random.default_rng(W_SEED + 1)
+    hub_ip = (np.arange(W_HUB_ROWS + 1) * W_HUB_DEG).astype(np.int32)
+    hub = DeviceCSR(
+        torch.as_tensor(hub_ip, device=dev),
+        torch.as_tensor(hrng.integers(0, N, W_HUB_ROWS * W_HUB_DEG).astype(
+            np.int32), device=dev),
+        torch.as_tensor(hrng.integers(0, 4, W_HUB_ROWS * W_HUB_DEG).astype(
+            np.float32), device=dev))
+    hub_ids = torch.arange(W_HUB_ROWS, dtype=torch.int32, device=dev)
+    for method in ("weighted", "top_k"):
+        k19[f"hub_{method}"] = k19_case(f"hub, {method}", hub, hub_ids, k1,
+                                        method, 0, 1)
+    # the row-offset mode on phase 14's layout: shard 1's block of the
+    # 4-way row partition, asked for the hop-2 ids it owns
+    rows = -(-N // PART_SHARDS)
+    ip_s, ix_s, w_s = _shard_csr(csr.indptr.cpu().numpy(),
+                                 csr.indices.cpu().numpy(), PART_SHARDS, rows,
+                                 weights=w_dev.cpu().numpy())
+    shard1 = DeviceCSR(torch.as_tensor(ip_s[1], device=dev),
+                       torch.as_tensor(ix_s[1], device=dev),
+                       torch.as_tensor(w_s[1], device=dev))
+    flat2 = hop2.reshape(-1)
+    owned = flat2[(flat2 >= rows) & (flat2 < 2 * rows)].contiguous()
+    k19["row_offset"] = k19_case("row offset", shard1, owned, k2, "weighted",
+                                 0, 2, row_offset=rows)
+    main = k19["all_nodes_weighted"]
+    record("sample_weighted", "gigl_tpu_torch/csrc/sample_weighted.cu",
+           "gigl_tpu/sampling/neighbor_sampler.py:96", 0.0, main["ms"],
+           main["plain_ms"], nbytes=main["nbytes"], nops=main["nops"],
+           library_ms=main["library_ms"],
+           library_call="torch.topk(scores, fanout) over the [m, 128] score "
+                        "matrix built beforehand",
+           window=W_WINDOW, frontier=main["frontier"], fanout=k1,
+           eager_ms=main["eager_ms"],
+           modes={m_: {k_: v_ for k_, v_ in v.items()
+                       if k_ not in ("nbytes", "nops")}
+                  for m_, v in k19.items() if m_ != "all_nodes_weighted"})
+
+    # -- K2's weighted mode (mean of 10 rows), fp32 and int8, beside the
+    # uniform mode in the same call
+    x = dg.node_features
+    xq = QuantizedTable.quantize(x_np, device=dev)
+    out2 = torch.empty((N, D), dtype=torch.float32, device=dev)
+    plain2 = torch.empty_like(out2)
+    d_ids, d_mask, d_slots = _sample_weighted_plain(
+        csr.indptr, csr.indices, w_dev, ids_all, k2, W_WINDOW, "weighted", 0,
+        2)
+    deg_all = torch.diff(csr.indptr.long())
+    window_w = int(deg_all.clamp(max=W_WINDOW).sum())
+    for label, feats, method in (("weighted_fp32", x, "weighted"),
+                                 ("top_k_fp32", x, "top_k"),
+                                 ("weighted_int8", xq, "weighted")):
+        def k2w():
+            return build_neighbor_cache(csr, feats, fanout=k2, seed=0,
+                                        hop_key=2, agg="mean", method=method,
+                                        out=out2)
+
+        def k2w_plain():
+            return _neighbor_cache_plain(csr, feats, k2, 0, 2, "mean", None,
+                                         plain2, method=method)
+
+        k2w()
+        k2w_plain()
+        scale2 = float(plain2.abs().max())
+        err2 = float((out2 - plain2).abs().max())
+        # fp32 means of <= 10 rows in another order
+        check(err2 <= 1e-5 * scale2, f"K2 {label} error {err2} > 1e-5 * "
+              f"{scale2}")
+        row_b = D + 4 if label.endswith("int8") else D * 4
+        nbytes = ((N + 1) * 4 + window_w * 4 + unique(d_slots[d_mask]) * 4
+                  + unique(d_ids[d_mask]) * row_b + N * D * 4)
+        add_mode("build_neighbor_cache", label, {
+            "err": err2, "ms": cuda_ms(k2w),
+            "ms_uniform_same_call": cuda_ms(lambda: build_neighbor_cache(
+                csr, feats, fanout=k2, seed=0, hop_key=2, agg="mean",
+                out=out2)),
+            "plain_ms": cuda_ms(k2w_plain, reps=3), "eager_ms": eager_ms(k2w),
+            "bound_ms": bound_ms(nbytes, int(d_mask.sum()) * D * 2 + N * D
+                                 + window_w * 40)[0]})
+    del xq, out2, plain2, d_ids, d_mask, d_slots
+
+    # -- the paths ---------------------------------------------------------
+    n_anchor = W_WARMUP + W_STEPS + W_PROFILED
+    anchors = (np.arange(BATCH * n_anchor) % N).astype(np.int32).reshape(
+        n_anchor, BATCH)
+    a0 = torch.as_tensor(anchors[0], device=dev)
+    cfg_tab = dataclasses.replace(base_cfg, sampling_method="weighted")
+    cfg_live = dataclasses.replace(base_cfg, sampling_method="weighted",
+                                   cached_hop=False, fused_cache=False)
+    edges_per_step = (2 * k1 + k1 * k2) * (BATCH + BATCH + R)
+
+    for path, cfg_ in (("weighted_tabularized_train", cfg_tab),
+                       ("weighted_live_train", cfg_live)):
+        # one step against the same step through the plain versions (a
+        # separate trainer: these launches are not the path's)
+        chk = NALPTrainer(make_model(), dg, cfg_, optimizer_args=opt_args,
+                          device=dev)
+        chk.init_state(0, batch_size=BATCH)
+        vs = step_vs_plain(chk.model.encoder,
+                           lambda: chk.loss(chk.sample_batch(a0, 0)),
+                           _build.launches)
+        emit({"phase": "weighted_step_vs_plain", "path": path, **vs})
+        # bf16, as phase 6's step
+        check(vs["loss_rel_err"] <= 1e-2,
+              f"{path}: loss differs from the plain step: {vs}")
+        check(vs["max_grad_err_rel_to_scale"] <= 5e-2,
+              f"{path}: a gradient differs from the plain step: {vs}")
+        del chk
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        tr = NALPTrainer(make_model(), dg, cfg_, optimizer_args=opt_args,
+                         device=dev)
+        torch.cuda.synchronize()
+        refresh_ms = (time.perf_counter() - t0) * 1e3
+        at_init = dict(_build.launches)
+        state = tr.init_state(0, batch_size=BATCH)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        state, warm = tr.train_steps(state, anchors[:W_WARMUP], gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, losses = tr.train_steps(
+            state, anchors[W_WARMUP: W_WARMUP + W_STEPS], gen)
+        torch.cuda.synchronize()
+        ms_step = (time.perf_counter() - t1) / W_STEPS * 1e3
+        nsteps = W_WARMUP + W_STEPS
+        c_ = dict(_build.launches)
+        tabular = cfg_.cached_hop
+        # a refresh draws the fanout-15 table (K19) and the cache (K2); a
+        # live step draws each encode group's two hops (K19); K1 draws one
+        # positive a step from the supervision CSR, as the reference does
+        k19_init, k19_step = (1, 0) if tabular else (0, 6)
+        check(at_init["sample_weighted"] == k19_init
+              and at_init["build_neighbor_cache"] == int(tabular),
+              f"{path}: the refresh made {at_init['sample_weighted']} K19 "
+              f"and {at_init['build_neighbor_cache']} K2 launches")
+        check(c_["sample_weighted"] == k19_init + k19_step * nsteps,
+              f"{path}: {c_['sample_weighted']} K19 launches, not "
+              f"{k19_init} + {k19_step} a step")
+        check(c_["sample_uniform"] == nsteps, f"{path}: "
+              f"{c_['sample_uniform']} K1 launches, not one a step (the "
+              "positives): a message draw fell back to the uniform draw")
+        kernels = W_TRAIN_KERNELS if tabular else tuple(
+            k_ for k_ in W_TRAIN_KERNELS if k_ != "build_neighbor_cache")
+        for k_ in kernels:
+            check(c_[k_] > 0, f"{k_} was not launched on {path}")
+        losses = losses.float().cpu().numpy()
+        check(np.isfinite(losses).all() and np.isfinite(
+            warm.float().cpu().numpy()).all(), f"{path}: loss not finite")
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            state, _ = tr.train_steps(state, anchors[W_WARMUP + W_STEPS:],
+                                      gen)
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t1) * 1e6
+        row = {"steps": W_STEPS, "ms_per_step": ms_step,
+               "uniform_ms_per_step_phase6": uniform_ms_step,
+               "edges_per_step": edges_per_step,
+               "edges_per_s": edges_per_step / (ms_step / 1e3),
+               "refresh_ms": refresh_ms,
+               "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+               "peak_mem_gb": (torch.cuda.max_memory_allocated() - base_mem)
+               / 2**30,
+               "profile": profile_summary(prof, W_PROFILED, window_us,
+                                          ms_step), "card": card}
+        if tabular:
+            # run_inference over every node: the export checked, batch 0
+            # against the plain versions
+            sink = Sink()
+            t1 = time.perf_counter()
+            total = run_inference(tr, N, sink,
+                                  InferenceConfig(batch_size=BATCH),
+                                  device=dev)
+            torch.cuda.synchronize()
+            inf_s = time.perf_counter() - t1
+            c_ = dict(_build.launches)
+            ids_ = np.concatenate(sink.ids)
+            embs = np.concatenate(sink.embs)
+            check(total == N and np.array_equal(np.sort(ids_), np.arange(N)),
+                  f"{path}: the export is not every node exactly once")
+            check(embs.shape == (N, OUT) and np.isfinite(embs).all(),
+                  f"{path}: embeddings are not finite [N, {OUT}]")
+            check(c_["sample_weighted"] == k19_init
+                  and c_["sample_uniform"] == nsteps + W_PROFILED,
+                  f"{path}: run_inference drew through K19 or K1")
+            with torch.inference_mode(), plain_kernels():
+                ref0 = tr.encode_batch(np.arange(BATCH, dtype=np.int32))
+            row["inference_batch0_err"] = rel_err(
+                torch.as_tensor(embs[:BATCH]), ref0.float().cpu(),
+                f"{path}: run_inference batch 0 vs plain")
+            row["inference_nodes_per_s"] = N / inf_s
+            row["inference_ms_per_batch"] = inf_s / -(-N // BATCH) * 1e3
+        counts[path] = (c_, nsteps)
+        emit({"phase": "main_path", "path": path, "launches": c_,
+              "steps": nsteps, "launches_at_refresh": at_init})
+        emit({"phase": "weighted_train_throughput", "path": path, **row})
+        del tr, state
+
+    # -- the host cost of the draw: the weighted and the uniform step over
+    # the same graph in turns (W U U W), tabularized and live, since host
+    # clocks drift between phases
+    turns = {}
+    for mode, cfg_w, cfg_u in (("tabularized", cfg_tab, base_cfg),
+                               ("live", cfg_live, dataclasses.replace(
+                                   base_cfg, cached_hop=False,
+                                   fused_cache=False))):
+        pair = {}
+        for name_, cfg_ in (("weighted", cfg_w), ("uniform", cfg_u)):
+            tr = NALPTrainer(make_model(), dg, cfg_, optimizer_args=opt_args,
+                             device=dev)
+            st = tr.init_state(0, batch_size=BATCH)
+            gen = torch.Generator(device=dev).manual_seed(1)
+            st, _ = tr.train_steps(st, anchors[:W_WARMUP], gen)
+            pair[name_] = [tr, st, gen, []]
+        for name_ in ("weighted", "uniform", "uniform", "weighted"):
+            tr, st, gen, times = pair[name_]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, _ = tr.train_steps(st, anchors[W_WARMUP: W_WARMUP
+                                               + W_AB_STEPS], gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) / W_AB_STEPS * 1e3)
+            pair[name_][1] = st
+        turns[mode] = {n_: v_[3] for n_, v_ in pair.items()}
+        del pair
+    emit({"phase": "weighted_vs_uniform_turns", "order": "W U U W",
+          "steps_per_turn": W_AB_STEPS, "ms_per_step": turns, "card": card})
+
+    # -- top_k: the same refresh and run_inference -------------------------
+    path = "top_k_tabularized_inference"
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = NALPTrainer(make_model(), dg,
+                     dataclasses.replace(base_cfg, sampling_method="top_k"),
+                     device=dev)
+    torch.cuda.synchronize()
+    refresh_ms = (time.perf_counter() - t0) * 1e3
+    tr.init_params(0)
+    sink = Sink()
+    t0 = time.perf_counter()
+    total = run_inference(tr, N, sink, InferenceConfig(batch_size=BATCH),
+                          device=dev)
+    torch.cuda.synchronize()
+    inf_s = time.perf_counter() - t0
+    c_ = dict(_build.launches)
+    n_batches = -(-N // BATCH)
+    counts[path] = (c_, n_batches)
+    emit({"phase": "main_path", "path": path, "launches": c_,
+          "batches": n_batches})
+    check(c_["sample_weighted"] == 1 and c_["build_neighbor_cache"] == 1
+          and c_["sample_uniform"] == 0,
+          f"{path}: the refresh did not draw through K19 and K2 alone: {c_}")
+    ids_ = np.concatenate(sink.ids)
+    embs = np.concatenate(sink.embs)
+    check(total == N and np.array_equal(np.sort(ids_), np.arange(N))
+          and np.isfinite(embs).all(), f"{path}: the export is wrong")
+    with torch.inference_mode(), plain_kernels():
+        ref0 = tr.encode_batch(np.arange(BATCH, dtype=np.int32))
+    err0 = rel_err(torch.as_tensor(embs[:BATCH]), ref0.float().cpu(),
+                   f"{path}: batch 0 vs plain")
+    emit({"phase": "weighted_inference_throughput", "path": path,
+          "refresh_ms": refresh_ms, "nodes_per_s": N / inf_s,
+          "ms_per_batch": inf_s / n_batches * 1e3,
+          "batch0_max_abs_err": err0, "card": card})
+    del tr, sink
+
+    # -- the typed sampled path: DBLP's shape, every op weighted ------------
+    path = "weighted_typed_encode"
+    tg = typed_ctx["graph"]
+    trng = np.random.default_rng(W_SEED + 2)
+    edge_tables = {str(et): trng.random((coo.shape[1], W_DE),
+                                        dtype=np.float32)
+                   for et, coo in tg.edges.items()}
+    wg = HeteroGraph(metadata=tg.metadata, num_nodes=tg.num_nodes,
+                     edges=tg.edges, node_features=tg.node_features,
+                     edge_features=edge_tables)
+    paths_w = {nt: tuple(dataclasses.replace(op, method="weighted")
+                         for op in ops)
+               for nt, ops in typed_ctx["paths"].items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hdg = HeteroDeviceGraph.from_hetero(wg, paths_w, device=dev)
+    torch.cuda.synchronize()
+    typed_build_s = time.perf_counter() - t0
+    ttr = HeteroNALPTrainer(
+        HeteroLinkPredictionGNN(typed_ctx["make_encoder"]("hgt"),
+                                LinkPredictionDecoder()), hdg, paths_w,
+        HeteroNALPTrainerConfig("paper", "author"), device=dev)
+    ttr.init_params(0)
+    for nt in ("paper", "author"):   # warm-up batches, not timed
+        ttr.encode_batch(np.arange(BATCH, dtype=np.int32), nt)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    embs = {}
+    for nt in ("paper", "author"):
+        embs[nt] = [ttr.encode_batch(np.arange(b_ * BATCH, (b_ + 1) * BATCH,
+                                               dtype=np.int32), nt)
+                    for b_ in range(W_TYPED_BATCHES)]
+    torch.cuda.synchronize()
+    typed_s = time.perf_counter() - t0
+    c_ = dict(_build.launches)
+    counts[path] = (c_, 2 * W_TYPED_BATCHES)
+    emit({"phase": "main_path", "path": path, "launches": c_,
+          "batches": 2 * W_TYPED_BATCHES})
+    ops_per_batch = {"paper": len(paths_w["paper"]),
+                     "author": len(paths_w["author"])}
+    check(c_["sample_weighted"] == W_TYPED_BATCHES * sum(
+        ops_per_batch.values()) and c_["sample_uniform"] == 0,
+          f"{path}: {c_['sample_weighted']} K19 and {c_['sample_uniform']} "
+          "K1 launches, not one K19 an op")
+    errs = {}
+    with torch.inference_mode():
+        for nt in ("paper", "author"):
+            ids0 = torch.arange(BATCH, dtype=torch.int32, device=dev)
+            with plain_kernels():
+                want = ttr._encode_impl(ttr.graph, ids0, nt, 0, False)
+            errs[nt] = rel_err(embs[nt][0].float().cpu(), want.float().cpu(),
+                               f"{path} {nt} batch 0 vs plain", tol=1e-5)
+    emit({"phase": "weighted_typed_throughput", "path": path,
+          "from_hetero_s": typed_build_s,
+          "ms_per_batch": typed_s / (2 * W_TYPED_BATCHES) * 1e3,
+          "max_abs_err_batch0": errs, "card": card})
+    del ttr, hdg, wg, edge_tables, embs
+
+    # -- the partitioned trainer over make_mesh(4), weighted -----------------
+    path = "weighted_partitioned_train"
+    mesh = make_mesh(PART_SHARDS, dev)
+    pg = PartitionedGraph.build(dg, mesh)
+    check(pg.msg_weights is not None, "the partitioned graph has no weights")
+    base = dict(fanouts=FANOUTS, num_random_negs=R, loss_type="retrieval",
+                num_positives=1, sampling_method="weighted")
+
+    def part_trainer(model):
+        return PartitionedNALPTrainer(
+            model, pg, mesh, NALPTrainerConfig(**base),
+            optimizer_args=opt_args, capacity_factor=PART_CAPACITY,
+            overflow_policy="raise")
+
+    chk = part_trainer(LinkPredictionGNN(
+        GNNEncoder(D, HID, OUT, num_layers=2, conv="graphsage"),
+        LinkPredictionDecoder()))
+    chk.init_state(0)
+    vs = step_vs_plain(chk.model.encoder,
+                       lambda: chk.loss_and_sketch(a0, 0)[0],
+                       _build.launches)
+    emit({"phase": "weighted_step_vs_plain", "path": path, **vs})
+    check(vs["loss_rel_err"] <= 1e-5,
+          f"{path}: loss differs from the plain step: {vs}")
+    check(vs["max_grad_err_rel_to_scale"] <= 1e-4,
+          f"{path}: a gradient differs from the plain step: {vs}")
+    del chk
+    _build.reset_launches()
+    mesh.reset_counts()
+    ptr = part_trainer(make_model())
+    state = ptr.init_state(0)
+    gens = [torch.Generator(device=dev).manual_seed(s_)
+            for s_ in range(PART_SHARDS)]
+    state, warm = ptr.train_steps(state, anchors[:W_PART_WARMUP], gens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, losses = ptr.train_steps(
+        state, anchors[W_PART_WARMUP: W_PART_WARMUP + W_PART_STEPS], gens)
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) / W_PART_STEPS * 1e3
+    nsteps = W_PART_WARMUP + W_PART_STEPS
+    c_ = dict(_build.launches)
+    counts[path] = (c_, nsteps)
+    emit({"phase": "main_path", "path": path, "launches": c_,
+          "steps": nsteps})
+    # each step: 3 encode groups x 2 hops, one owner-side K19 per shard;
+    # the positives' routed draw one K1 per shard
+    check(c_["sample_weighted"] == 6 * PART_SHARDS * nsteps,
+          f"{path}: {c_['sample_weighted']} K19 launches, not "
+          f"{6 * PART_SHARDS} a step")
+    check(c_["sample_uniform"] == PART_SHARDS * nsteps,
+          f"{path}: {c_['sample_uniform']} K1 launches, not the positives' "
+          f"{PART_SHARDS} a step")
+    check(ptr.overflow_total == 0,
+          f"{path}: {ptr.overflow_total} routed requests dropped")
+    losses = losses.float().cpu().numpy()
+    check(np.isfinite(losses).all() and np.isfinite(
+        warm.float().cpu().numpy()).all(), f"{path}: loss not finite")
+    emit({"phase": "weighted_partitioned_throughput", "path": path,
+          "shards": PART_SHARDS, "steps": W_PART_STEPS,
+          "ms_per_step": ms_step, "edges_per_step": edges_per_step,
+          "edges_per_s": edges_per_step / (ms_step / 1e3),
+          "a2a_bytes_per_step": mesh.a2a_bytes / nsteps,
+          "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+          "overflow_total": ptr.overflow_total, "card": card})
+    del ptr, state, pg, mesh, dg
+    return counts
+
+
 def main():
     if not (REPO / "gigl_tpu_torch" / "csrc").is_dir():
         sys.exit("chip_smoke: run from a checkout of the repository "
@@ -4064,6 +4610,10 @@ def main():
                                      fb_data.test_mask)],
         record, unique, coo_ms, part_trainer)
     del part_trainer
+    weighted = weighted_phases(
+        dev, card, (src, dst, np.asarray(graph.node_features[
+            graph.metadata.node_types[0]])), record, add_mode, unique,
+        make_model, opt_args, cfg, ms_step, typed_ctx, rel_err)
 
     # launches on every kernel row: the training path's (K6 / K7: the
     # full-graph passes'; K6b / K7b: the node-classification paths'; K8-K10:
@@ -4096,6 +4646,8 @@ def main():
         elif k == "ring_spmm":
             row["launches"] = sum(c_[k] for p_, (c_, _) in sharded.items()
                                   if p_.startswith("sharded_"))
+        elif k == "sample_weighted":
+            row["launches"] = weighted["weighted_tabularized_train"][0][k]
         else:
             row["launches"] = sum(fg.values())
         row["launches_per_step"] = (launches[k] - after_init[k]) / (
@@ -4122,8 +4674,10 @@ def main():
             p_: c_[k] / n_ for p_, (c_, n_) in part.items()}
         row["launches_per_sharded_step"] = {
             p_: c_[k] / n_ for p_, (c_, n_) in sharded.items()}
-    check(len(results) == len(_build.KERNEL_NAMES) == 25,
-          "the kernels line does not list all twenty-five kernels")
+        row["launches_per_weighted_path_step"] = {
+            p_: c_[k] / n_ for p_, (c_, n_) in weighted.items()}
+    check(len(results) == len(_build.KERNEL_NAMES) == 26,
+          "the kernels line does not list all twenty-six kernels")
     results.sort(key=lambda r: _build.KERNEL_NAMES.index(r["name"]))
 
     emit({"kernels": results})

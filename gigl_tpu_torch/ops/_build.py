@@ -47,7 +47,7 @@ KERNEL_NAMES = ("sample_uniform", "uniform_ids", "build_neighbor_cache",
                 "segment_reduce_bwd", "segment_softmax_bwd", "sddmm_bwd",
                 "ell_edge_grad", "gather_rows_q8", "cms_add", "cms_estimate",
                 "route_requests", "unroute_rows", "ring_retrieval",
-                "ring_spmm")
+                "ring_spmm", "sample_weighted")
 launches: Dict[str, int] = dict.fromkeys(KERNEL_NAMES, 0)
 
 _P = ctypes.c_void_p
@@ -60,8 +60,12 @@ _SIGNATURES = {
     "gigl_sample_uniform": [_P, _P, _I64, _P, _I64, _I32, _U32, _U32,
                             _I32, _I32, _I64, _P, _P, _P, _P],
     "gigl_uniform_ids": [_I64, _U32, _U32, _U32, _P, _P],
-    "gigl_build_neighbor_cache": [_P, _P, _I64, _I64, _P, _P, _I32, _P,
-                                  _I32, _U32, _U32, _I32, _P, _I64, _P],
+    "gigl_sample_weighted": [_P, _P, _I64, _P, _I64, _P, _I64, _I32, _I32,
+                             _I32, _U32, _U32, _I32, _I32, _I64, _P, _P, _P,
+                             _P],
+    "gigl_build_neighbor_cache": [_P, _P, _I64, _I64, _P, _P, _I32, _P, _P,
+                                  _I64, _I32, _I32, _U32, _U32, _I32, _P,
+                                  _I64, _P],
     "gigl_gather_rows": [_P, _I64, _I64, _I32, _P, _I64, _P, _P, _P, _P,
                          _P, _P],
     "gigl_masked_reduce": [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P],

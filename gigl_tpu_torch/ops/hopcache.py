@@ -17,8 +17,11 @@ buffer the caller allocated). Over a quantized feature table
 (``ops/quantized.py``, the reference's ``features[nbr]`` through
 ``QuantizedTable.__getitem__``) K2 runs in its int8 mode: it reads each
 neighbor's int8 row and scale and dequantizes as K12 does before the same
-fp32 accumulation. :func:`_neighbor_cache_plain` is its plain twin, used for
-CPU tensors only.
+fp32 accumulation. With ``method="weighted"`` / ``"top_k"`` (a CSR with
+edge weights) K2 runs in its weighted mode: each node's draw is K19's
+(``sample_neighbors``' weighted / top-k draw over the first 128 CSR slots)
+by the same warp device code. :func:`_neighbor_cache_plain` is its plain
+twin, used for CPU tensors only.
 """
 
 from __future__ import annotations
@@ -31,24 +34,32 @@ from gigl_tpu_torch.ops import _build
 from gigl_tpu_torch.ops.fanout import _masked_reduce_plain
 from gigl_tpu_torch.ops.quantized import QuantizedTable, _gather_rows_q8_plain
 from gigl_tpu_torch.sampling.neighbor_sampler import (
+    WEIGHTED_METHODS,
     DeviceCSR,
     _sample_uniform_plain,
+    _sample_weighted_plain,
     sample_neighbors,
 )
 
 CACHEABLE_AGGS = ("mean", "sum", "gcn")
 _AGG_CODES = {"mean": 0, "sum": 1, "gcn": 2}
 _M32 = 0xFFFFFFFF
+CACHE_WEIGHT_WINDOW = 128   # sample_neighbors' default weight_window
 
 
 def _neighbor_cache_plain(csr, features, fanout, seed, hop_key, agg,
-                          degrees, out, chunk=8192):
+                          degrees, out, chunk=8192, method="uniform"):
     n = csr.num_anchor_nodes
     for s in range(0, n, chunk):
         ids = torch.arange(s, min(s + chunk, n), dtype=torch.int32,
                            device=features.device)
-        nbr, mask, _ = _sample_uniform_plain(csr.indptr, csr.indices, ids,
-                                             fanout, seed, hop_key)
+        if method == "uniform":
+            nbr, mask, _ = _sample_uniform_plain(
+                csr.indptr, csr.indices, ids, fanout, seed, hop_key)
+        else:
+            nbr, mask, _ = _sample_weighted_plain(
+                csr.indptr, csr.indices, csr.edge_weights, ids, fanout,
+                CACHE_WEIGHT_WINDOW, method, seed, hop_key)
         if isinstance(features, QuantizedTable):
             x = _gather_rows_q8_plain(features.q, features.scale, nbr,
                                       torch.float32)[0]       # [C, k, D]
@@ -81,10 +92,15 @@ def build_neighbor_cache(
         raise ValueError(f"agg={agg!r} not in {CACHEABLE_AGGS}")
     if agg == "gcn" and degrees is None:
         raise ValueError('agg="gcn" requires true node degrees')
-    if method != "uniform":
-        raise NotImplementedError(
-            f"sampling method {method!r} is not ported yet "
-            "(gigl_tpu.ops.hopcache.build_neighbor_cache, method=weighted/top_k)")
+    weighted = method != "uniform"
+    if weighted:
+        if method not in WEIGHTED_METHODS:
+            raise ValueError(f"Unknown sampling method {method!r}")
+        if csr.edge_weights is None:
+            raise ValueError(f"method={method!r} requires edge_weights")
+        if not 0 < int(fanout) <= CACHE_WEIGHT_WINDOW:
+            raise ValueError(f"fanout {fanout} must lie in [1, window "
+                             f"{CACHE_WEIGHT_WINDOW}]")
     quantized = isinstance(features, QuantizedTable)
     if quantized and features.out_dtype != torch.float32:
         raise ValueError("build_neighbor_cache: a quantized table must "
@@ -94,7 +110,8 @@ def build_neighbor_cache(
         out = torch.empty((n, d), dtype=torch.float32, device=features.device)
     if features.device.type == "cpu":
         return _neighbor_cache_plain(csr, features, int(fanout), seed,
-                                     hop_key, agg, degrees, out)
+                                     hop_key, agg, degrees, out,
+                                     method=method)
     table = features.q if quantized else features
     device = _build.require_cuda("build_neighbor_cache", table, csr.indptr,
                                  csr.indices)
@@ -115,13 +132,19 @@ def build_neighbor_cache(
                          "16-byte aligned")
     if agg == "gcn":
         _build.require_cuda("build_neighbor_cache", table, degrees)
+    weights = csr.edge_weights if weighted else None
+    if weighted:
+        _build.require_cuda("build_neighbor_cache", table, weights)
+        if weights.dtype != torch.float32:
+            raise ValueError("build_neighbor_cache: edge weights must be f32")
     _build.launch(
         "build_neighbor_cache", "gigl_build_neighbor_cache", device,
         csr.indptr.data_ptr(), csr.indices.data_ptr(), csr.indices.shape[0],
         n, table.data_ptr(), features.scale.data_ptr() if quantized else None,
         d, degrees.data_ptr() if agg == "gcn" else None,
-        int(fanout), int(seed) & _M32, int(hop_key) & _M32, _AGG_CODES[agg],
-        out.data_ptr(), out.stride(0))
+        _build.ptr(weights), 0 if weights is None else weights.shape[0],
+        WEIGHTED_METHODS.get(method, 0), int(fanout), int(seed) & _M32,
+        int(hop_key) & _M32, _AGG_CODES[agg], out.data_ptr(), out.stride(0))
     return out
 
 
@@ -135,7 +158,8 @@ def build_sample_table(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Frozen per-node neighbor-sample table: (ids [N, fanout] int32,
     mask [N, fanout] bool) — row v holds the draw sample_neighbors makes for
-    node v at (seed, hop_key). Rows of isolated nodes are fully masked."""
+    node v at (seed, hop_key) by ``method`` (K1, or K19 for weighted /
+    top-k). Rows of isolated nodes are fully masked."""
     n = csr.num_anchor_nodes
     ids = torch.arange(n, dtype=torch.int32, device=csr.indptr.device)
     nbr, mask, _ = sample_neighbors(csr, ids, int(fanout), seed=seed,

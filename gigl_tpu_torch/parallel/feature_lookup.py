@@ -1,7 +1,7 @@
 """Routed per-id lookups across a range-sharded table or graph (port of
 ``gigl_tpu/parallel/feature_lookup.py``: ``request_capacity``,
-``_route_requests``, ``_unroute``, ``routed_gather`` and the uniform
-``routed_sample_neighbors``).
+``_route_requests``, ``_unroute``, ``routed_gather`` and
+``routed_sample_neighbors``, uniform, weighted and top-k).
 
 The table (feature rows, or per-node CSR adjacency) is range-partitioned
 over the shards of a :class:`~gigl_tpu_torch.parallel.mesh.Mesh`: global
@@ -12,7 +12,8 @@ global ids is one all_to_all round trip:
   2. ``all_to_all`` the request buckets (each shard receives the ids it
      owns),
   3. answer locally: a row gather (K3) or the owner-side neighbor draw
-     (K1 in its row-offset mode, keyed by the global id),
+     (K1, or K19 for weighted / top-k draws over the shard's edge weights,
+     in their row-offset mode, keyed by the global id),
   4. ``all_to_all`` the answers back and read each request's row at its
      bucket coordinates (K16).
 
@@ -39,7 +40,10 @@ import torch
 from gigl_tpu_torch.ops import _build
 from gigl_tpu_torch.ops.gather import gather_rows
 from gigl_tpu_torch.parallel.mesh import Mesh
-from gigl_tpu_torch.sampling.neighbor_sampler import sample_uniform
+from gigl_tpu_torch.sampling.neighbor_sampler import (
+    sample_uniform,
+    sample_weighted,
+)
 
 MAX_SHARDS = 32  # K15 takes one warp per owner shard
 
@@ -206,16 +210,34 @@ def routed_gather(
             [c[2] for c in coords])
 
 
+def owner_draw(local_indptr: torch.Tensor, local_indices: torch.Tensor,
+               recv: torch.Tensor, fanout: int, row_offset: int, seed: int,
+               hop: int, method: str = "uniform",
+               local_weights: Optional[torch.Tensor] = None,
+               weight_window: int = 128):
+    """A shard's owner-side draw for global ids ``recv``: K1, or K19 over
+    the shard's ``local_weights`` [E_pad] for weighted / top-k, in their
+    row-offset mode, keyed by the global id, so the draw is the replicated
+    sampler's. Returns (ids, mask, edge slots), each [..., fanout]."""
+    if method == "uniform":
+        return sample_uniform(local_indptr, local_indices, recv, int(fanout),
+                              seed, hop, row_offset=int(row_offset))
+    return sample_weighted(local_indptr, local_indices, local_weights, recv,
+                           int(fanout), int(weight_window), method, seed, hop,
+                           row_offset=int(row_offset))
+
+
 def answer_draw(local_indptr: torch.Tensor, local_indices: torch.Tensor,
                 recv: torch.Tensor, fanout: int, row_offset: int, seed: int,
-                hop: int) -> torch.Tensor:
-    """A shard's owner-side draw for its requests ``recv`` (global ids):
-    K1 in its row-offset mode, keyed by the global id, so the draw is the
-    replicated sampler's. Returns the packed [..., fanout] int32 neighbor
-    ids, -1 in invalid slots."""
-    nbr, mask, _ = sample_uniform(local_indptr, local_indices, recv,
-                                  int(fanout), seed, hop,
-                                  row_offset=int(row_offset))
+                hop: int, method: str = "uniform",
+                local_weights: Optional[torch.Tensor] = None,
+                weight_window: int = 128) -> torch.Tensor:
+    """A shard's answers to its draw requests ``recv`` (global ids): the
+    packed [..., fanout] int32 neighbor ids of :func:`owner_draw`, -1 in
+    invalid slots."""
+    nbr, mask, _ = owner_draw(local_indptr, local_indices, recv, fanout,
+                              row_offset, seed, hop, method, local_weights,
+                              weight_window)
     return torch.where(mask, nbr, -1)
 
 
@@ -231,42 +253,49 @@ def routed_sample_neighbors(
     capacity: Optional[int] = None,
     capacity_factor: float = 2.0,
     method: str = "uniform",
-    local_weights=None,
+    local_weights: Optional[Sequence[torch.Tensor]] = None,
+    weight_window: int = 128,
     local_edge_feats=None,
 ) -> Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]:
-    """``fanout`` uniform neighbor draws per frontier node over a
-    row-sharded CSR, for every shard.
+    """``fanout`` neighbor draws per frontier node over a row-sharded CSR,
+    for every shard.
 
     Shard p holds the CSR of global nodes [p * rows, (p + 1) * rows) as a
     local ``local_indptr[p]`` [rows + 1] / ``local_indices[p]`` [E_pad]
-    pair (indices are GLOBAL neighbor ids). Frontier ids route to their
-    owner, which draws with the replicated sampler's counter RNG (K1's
-    row-offset mode, keyed by the global id), and the drawn ids route
-    back.
+    pair (indices are GLOBAL neighbor ids) and, for ``method`` "weighted" /
+    "top_k", its CSR-slot-aligned ``local_weights[p]`` [E_pad]. Frontier
+    ids route to their owner, which draws with the replicated sampler's
+    counter RNG (K1's or K19's row-offset mode, keyed by the global id),
+    and the drawn ids route back.
 
     Returns per shard (neighbor ids [G, fanout] int32, mask [G, fanout]
     bool, ok [G] bool); a dropped request's mask row is all False."""
-    if method != "uniform" or local_weights is not None:
-        raise NotImplementedError(
-            f"routed_sample_neighbors(method={method!r}): weighted / top-k "
-            "owner-side draws are not ported yet (ROADMAP A2)")
+    if method != "uniform" and local_weights is None:
+        raise ValueError(f"method={method!r} requires local_weights")
+    if method == "uniform":
+        local_weights = None
     if local_edge_feats is not None:
         raise NotImplementedError(
             "routed_sample_neighbors(local_edge_feats=...): the partitioned "
             "label-edge features are not ported yet (ROADMAP A15, rest)")
     p = mesh.num_shards
     rows = local_indptr[0].shape[0] - 1
+    def weights(q):
+        return None if local_weights is None else local_weights[q]
+
     if p == 1:
         # the closed form: the owner-side draw on the raw request vector
         ids = global_ids[0].to(torch.int32)
-        nbr, mask, _ = sample_uniform(local_indptr[0], local_indices[0], ids,
-                                      int(fanout), seed, hop, row_offset=0)
+        nbr, mask, _ = owner_draw(local_indptr[0], local_indices[0], ids,
+                                  fanout, 0, seed, hop, method, weights(0),
+                                  weight_window)
         return [nbr], [mask], [torch.ones(ids.shape, dtype=torch.bool,
                                           device=ids.device)]
     recv, coords = _route_all(mesh, global_ids, rows, capacity,
                               capacity_factor)
     packed = [answer_draw(local_indptr[q], local_indices[q], recv[q], fanout,
-                          q * rows, seed, hop) for q in range(p)]
+                          q * rows, seed, hop, method, weights(q),
+                          weight_window) for q in range(p)]
     back = mesh.all_to_all(packed)
     nbrs, masks, oks = [], [], []
     for s in range(p):

@@ -8,13 +8,14 @@ in-edges of a frontier of the edge type's dst node type, so the neighbors
 are of its src node type; OUTGOING ops the reverse. :func:`resolve_path`
 turns the ops into a static tree of :class:`OpSpec`\\ s, and
 :func:`sample_typed_blocks` draws it: each op contributes a dense block
-``[B, K1, ..., Kd]``. Every draw goes through kernel K1
-(``sample_neighbors``) with the reference's per-op hop salt, ``op.depth *
-1_000_003 + i``, so the ids and masks are bit-equal to the reference's.
+``[B, K1, ..., Kd]``. Every draw goes through ``sample_neighbors`` —
+kernel K1, or K19 for an op whose method is ``weighted`` / ``top_k`` (the
+op's method overrides the call's) — with the reference's per-op hop salt,
+``op.depth * 1_000_003 + i``, so the ids and masks are bit-equal to the
+reference's.
 
 ``SamplingOp`` is a copy of ``gigl_tpu/config/task_config.py:40-70`` (the
-port imports nothing of the JAX package). Only ``uniform`` draws are
-ported; ``weighted`` and ``top_k`` raise (A2).
+port imports nothing of the JAX package).
 """
 
 from __future__ import annotations
@@ -26,11 +27,6 @@ import torch
 
 from gigl_tpu_torch.sampling.neighbor_sampler import DeviceCSR, sample_neighbors
 from gigl_tpu_torch.types.graph import EdgeType, _as_edge_type
-
-WEIGHTED_NOT_PORTED = ("weighted and top_k sampling are not ported yet "
-                       "(ROADMAP A2: gigl_tpu.sampling.neighbor_sampler."
-                       "weighted_offsets)")
-
 
 @dataclass
 class SamplingOp:
@@ -204,22 +200,20 @@ def sample_typed_blocks(csrs: Dict[str, DeviceCSR], roots: torch.Tensor,
                         seed: int = 0, method: str = "uniform"
                         ) -> TypedBlocks:
     """Draw a resolved op tree from per-edge-type CSRs keyed by
-    ``OpSpec.csr_key``; each op through K1 with hop ``op.depth *
-    1_000_003 + i`` (ops at one depth sampling other edge types draw
-    independent bits)."""
+    ``OpSpec.csr_key``; each op with hop ``op.depth * 1_000_003 + i`` (ops
+    at one depth sampling other edge types draw independent bits), by the
+    op's method (uniform ops take ``method``)."""
     node_ids: List[torch.Tensor] = [roots.to(torch.int32)]
     masks: List[torch.Tensor] = [torch.ones(roots.shape, dtype=torch.bool,
                                             device=roots.device)]
     edge_slots: List[Optional[torch.Tensor]] = [None]
     for i, op in enumerate(spec):
         op_method = op.method if op.method != "uniform" else method
-        if op_method != "uniform":
-            raise NotImplementedError(f"op {op.name!r}: {WEIGHTED_NOT_PORTED}")
         frontier = node_ids[op.parent + 1]
         parent_mask = masks[op.parent + 1]
         nbr, m, es = sample_neighbors(
             csrs[op.csr_key], frontier, op.fanout, seed=seed,
-            hop=op.depth * 1_000_003 + i)
+            hop=op.depth * 1_000_003 + i, method=op_method)
         m = m & parent_mask[..., None]
         node_ids.append(torch.where(m, nbr, 0))
         masks.append(m)

@@ -1,10 +1,13 @@
 """On-device layerwise neighbor sampling over CSR -> dense fanout blocks.
 
-Port of ``gigl_tpu/sampling/neighbor_sampler.py`` (uniform method). For
-each frontier node, ``fanout`` neighbor slots are drawn from the CSR
-adjacency with a counter-based hash keyed by (seed, node, hop, slot): nodes
-with degree <= fanout take all their neighbors in slot order, larger
-degrees sample with replacement. The draw is bit-equal to the reference.
+Port of ``gigl_tpu/sampling/neighbor_sampler.py``. For each frontier node,
+``fanout`` neighbor slots are drawn from the CSR adjacency with a
+counter-based hash keyed by (seed, node, hop, slot). The uniform method:
+nodes with degree <= fanout take all their neighbors in slot order, larger
+degrees sample with replacement. The weighted and top-k methods score the
+node's first ``weight_window`` CSR slots by their edge weights (plus Gumbel
+noise from the same hash for ``weighted``) and take the ``fanout`` best.
+Every draw is bit-equal to the reference.
 
 Kernel K1 ``sample_uniform`` (``csrc/sample_uniform.cu``) replaces
 ``counter_rng_uniform`` + ``uniform_offsets`` + ``sample_neighbors``: one
@@ -13,7 +16,14 @@ PyTorch twin, used for CPU tensors only; its row-offset mode is the
 owner-side draw of the partitioned graph's routed sampling
 (``parallel/feature_lookup.py``). Kernel K1b ``uniform_ids`` (the
 same source) is the batch-shared random-negative draw of
-``sample_nalp_batch``, with :func:`_uniform_ids_plain` as its twin. The
+``sample_nalp_batch``, with :func:`_uniform_ids_plain` as its twin.
+
+Kernel K19 ``sample_weighted`` (``csrc/sample_weighted.cu``) replaces
+``weighted_offsets`` + ``sample_neighbors`` for ``weighted`` / ``top_k``:
+one warp per frontier node, the window's keys in registers, ``fanout``
+rounds of a warp arg-max (ties to the lower slot, as ``lax.top_k``); it
+has K1's row-offset mode. :func:`_sample_weighted_plain` is its twin
+(:func:`weighted_offsets` in float32 and a stable descending sort). The
 hash runs in the twins in int64
 masked to 32 bits (PyTorch's CPU ``uint32`` lacks ``>>`` and ``%``), with
 each multiply split into 16-bit halves so nothing relies on signed
@@ -81,19 +91,98 @@ def uniform_offsets(
     return offsets.to(torch.int32), mask
 
 
+WEIGHTED_METHODS = {"weighted": 1, "top_k": 2}   # K19's method codes
+MAX_WEIGHT_WINDOW = 1024     # K19 holds the window in registers (32 a lane)
+_F32_MIN = torch.finfo(torch.float32).min
+
+
+def weighted_scores(logw: torch.Tensor, bits: torch.Tensor,
+                    valid: torch.Tensor, method: str) -> torch.Tensor:
+    """weighted_offsets' window scores in float32: ``logw`` for
+    ``top_k``; for ``weighted`` ``logw - log(-log(u))`` with ``u =
+    (float32(bits) + 0.5) / 2**32`` (``bits`` int64 in [0, 2**32); bits >=
+    2**32 - 128 round u to 1.0 and score +inf); invalid slots score
+    finfo(float32).min."""
+    if method == "top_k":
+        return torch.where(valid, logw, _F32_MIN)
+    if method != "weighted":
+        raise ValueError(f"Unknown weighted method {method!r}")
+    u = (bits.to(torch.float32) + 0.5) / 4294967296.0
+    return torch.where(valid, logw - torch.log(-torch.log(u)), _F32_MIN)
+
+
+def window_scores(
+    edge_weights: torch.Tensor, start: torch.Tensor, deg: torch.Tensor,
+    node_ids: torch.Tensor, seed: int, hop: int, method: str,
+    window: int = 128,
+) -> torch.Tensor:
+    """The [..., window] float32 scores of each node's first ``window`` CSR
+    slots: slot j reads ``edge_weights[clip(start + min(j, deg - 1), 0,
+    len - 1)]`` (see :func:`weighted_scores`)."""
+    deg = deg.to(torch.int64)
+    win = torch.arange(int(window), dtype=torch.int64, device=deg.device)
+    valid = win < deg[..., None]
+    slots = start.to(torch.int64)[..., None] + torch.minimum(
+        win, (deg - 1).clamp(min=0)[..., None])
+    w = edge_weights[slots.clamp(0, edge_weights.shape[0] - 1)]
+    logw = torch.log(torch.clamp(w.to(torch.float32), min=1e-30))
+    bits = (counter_rng_uniform(node_ids, seed, hop, int(window))
+            if method == "weighted" else None)
+    return weighted_scores(logw, bits, valid, method)
+
+
+def weighted_offsets(
+    edge_weights: torch.Tensor, start: torch.Tensor, deg: torch.Tensor,
+    node_ids: torch.Tensor, seed: int, hop: int, fanout: int, method: str,
+    window: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Weighted / top-k draw over each node's first ``window`` CSR slots
+    (rows need not be sorted): per-node offsets [..., fanout] int32 and the
+    validity mask. The ``fanout`` best :func:`window_scores` are taken in
+    descending order with ties to the lower slot, as ``lax.top_k`` orders
+    them (a slot whose weight is NaN ranks last)."""
+    if not 0 < int(fanout) <= int(window):
+        raise ValueError(f"fanout {fanout} must lie in [1, window {window}]")
+    deg = deg.to(torch.int64)
+    scores = window_scores(edge_weights, start, deg, node_ids, seed, hop,
+                           method, window)
+    # lax.top_k orders by the floats' total order, and the reference's CPU
+    # log turns any NaN weight into a NEGATIVE NaN (0xFFFFFFFF): such a
+    # slot ranks below every other one, invalid slots included. No other
+    # score can be -inf (log-weights are >= log(1e-30)), so NaN -> -inf
+    # and a stable descending sort order the window as lax.top_k does.
+    scores = torch.where(torch.isnan(scores), float("-inf"), scores)
+    top = torch.sort(scores, dim=-1, descending=True,
+                     stable=True).indices[..., :int(fanout)]
+    offsets = torch.minimum(top, (deg - 1).clamp(min=0)[..., None])
+    slot_iota = torch.arange(int(fanout), dtype=torch.int64,
+                             device=deg.device)
+    mask = slot_iota < deg.clamp(max=int(fanout))[..., None]
+    return offsets.to(torch.int32), mask
+
+
 @dataclass
 class DeviceCSR:
-    """CSR adjacency resident on a device (int32 ``indptr`` / ``indices``)."""
+    """CSR adjacency resident on a device (int32 ``indptr`` / ``indices``),
+    with optional per-slot fp32 ``edge_weights`` for the weighted and
+    top-k draws."""
 
     indptr: torch.Tensor  # [N+1] int32
     indices: torch.Tensor  # [E] int32
+    edge_weights: Optional[torch.Tensor] = None  # [E] f32
 
     @classmethod
-    def from_csr(cls, csr: CSR, device: torch.device) -> "DeviceCSR":
+    def from_csr(cls, csr: CSR, device: torch.device,
+                 edge_weights=None) -> "DeviceCSR":
         def put(a):
             return torch.as_tensor(a).to(device=device, dtype=torch.int32)
 
-        return cls(indptr=put(csr.indptr), indices=put(csr.indices))
+        weights = None
+        if edge_weights is not None:
+            weights = torch.as_tensor(edge_weights).to(
+                device=device, dtype=torch.float32).contiguous()
+        return cls(indptr=put(csr.indptr), indices=put(csr.indices),
+                   edge_weights=weights)
 
     @property
     def num_anchor_nodes(self) -> int:
@@ -152,6 +241,73 @@ def sample_uniform(
     return ids.reshape(shape), mask.reshape(shape), slots.reshape(shape)
 
 
+def _sample_weighted_plain(
+    indptr: torch.Tensor, indices: torch.Tensor, weights: torch.Tensor,
+    frontier: torch.Tensor, fanout: int, window: int, method: str,
+    seed: int, hop: int, row_offset: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of K19 (sample_neighbors, method="weighted" /
+    "top_k"; with ``row_offset``, the owner-side weighted draw)."""
+    f = frontier.to(torch.int64)
+    if row_offset is not None:
+        f = (f - int(row_offset)).clamp(0, indptr.shape[0] - 2)
+    start = indptr[f].to(torch.int64)
+    deg = indptr[f + 1].to(torch.int64) - start
+    offsets, mask = weighted_offsets(weights, start, deg, frontier, seed,
+                                     hop, fanout, method, window)
+    edge_slots = (start[..., None] + offsets).clamp(0, indices.shape[0] - 1)
+    nbr = torch.where(mask, indices[edge_slots], 0).to(torch.int32)
+    return nbr, mask, edge_slots.to(torch.int32)
+
+
+def sample_weighted(
+    indptr: torch.Tensor, indices: torch.Tensor, weights: torch.Tensor,
+    frontier: torch.Tensor, fanout: int, window: int, method: str,
+    seed: int, hop: int, row_offset: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K19: ``fanout`` weighted (Gumbel top-k) or top-k draws per frontier
+    node ([...] int32) over its first ``window`` CSR slots, ``weights``
+    [E] fp32 in slot order.
+
+    Returns (neighbor ids [..., fanout] int32, mask bool, CSR edge slots
+    int32), as K1. ``row_offset`` is K1's row-offset mode. CPU tensors take
+    the plain version; CUDA tensors launch the kernel (or raise)."""
+    if method not in WEIGHTED_METHODS:
+        raise ValueError(f"Unknown weighted method {method!r}")
+    if not 0 < int(fanout) <= int(window):
+        raise ValueError(f"sample_weighted: fanout {fanout} must lie in "
+                         f"[1, window {window}]")
+    if frontier.device.type == "cpu":
+        return _sample_weighted_plain(indptr, indices, weights, frontier,
+                                      int(fanout), int(window), method,
+                                      seed, hop, row_offset)
+    if int(window) > MAX_WEIGHT_WINDOW:
+        raise ValueError(f"sample_weighted: window {window} exceeds the "
+                         f"kernel's {MAX_WEIGHT_WINDOW}")
+    flat = frontier.reshape(-1).contiguous()
+    device = _build.require_cuda("sample_weighted", flat, indptr, indices,
+                                 weights)
+    for t in (indptr, indices, flat):
+        if t.dtype != torch.int32:
+            raise ValueError(f"sample_weighted: expected int32, got {t.dtype}")
+    if weights.dtype != torch.float32:
+        raise ValueError("sample_weighted: weights must be f32")
+    m = flat.shape[0]
+    ids = torch.empty((m, fanout), dtype=torch.int32, device=flat.device)
+    mask = torch.empty((m, fanout), dtype=torch.bool, device=flat.device)
+    slots = torch.empty((m, fanout), dtype=torch.int32, device=flat.device)
+    _build.launch(
+        "sample_weighted", "gigl_sample_weighted", device,
+        indptr.data_ptr(), indices.data_ptr(), indices.shape[0],
+        weights.data_ptr(), weights.shape[0], flat.data_ptr(), m,
+        int(fanout), int(window), WEIGHTED_METHODS[method],
+        int(seed) & _M32, int(hop) & _M32, int(row_offset is not None),
+        int(row_offset or 0), indptr.shape[0] - 1, ids.data_ptr(),
+        mask.data_ptr(), slots.data_ptr())
+    shape = tuple(frontier.shape) + (int(fanout),)
+    return ids.reshape(shape), mask.reshape(shape), slots.reshape(shape)
+
+
 def _uniform_ids_plain(count: int, seed: int, hop: int, num_nodes: int,
                        device: torch.device) -> torch.Tensor:
     """Plain PyTorch twin of K1b: the batch-shared random-negative draw of
@@ -190,17 +346,24 @@ def sample_neighbors(
     seed: int,
     hop: int,
     method: str = "uniform",
+    weight_window: int = 128,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Sample ``fanout`` neighbor slots for each frontier node.
+    """Sample ``fanout`` neighbor slots for each frontier node: uniform
+    (K1), or weighted / top-k over the node's first ``weight_window`` CSR
+    slots (K19; needs ``csr.edge_weights``).
 
     Returns (neighbor_ids [..., fanout], mask [..., fanout], edge_slots);
     padded slots point at the node's first slot and are masked out."""
-    if method != "uniform":
-        raise NotImplementedError(
-            f"sampling method {method!r} is not ported yet "
-            "(gigl_tpu.sampling.neighbor_sampler.weighted_offsets)")
-    return sample_uniform(csr.indptr, csr.indices, frontier, int(fanout),
-                          seed, hop)
+    if method == "uniform":
+        return sample_uniform(csr.indptr, csr.indices, frontier, int(fanout),
+                              seed, hop)
+    if method not in WEIGHTED_METHODS:
+        raise ValueError(f"Unknown sampling method {method!r}")
+    if csr.edge_weights is None:
+        raise ValueError(f"method={method!r} requires edge_weights")
+    return sample_weighted(csr.indptr, csr.indices, csr.edge_weights,
+                           frontier, int(fanout), int(weight_window), method,
+                           seed, hop)
 
 
 @dataclass

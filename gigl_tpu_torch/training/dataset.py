@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from gigl_tpu_torch.device import DeviceLike, resolve_device
-from gigl_tpu_torch.graph.csr import HeteroGraph, build_csr
+from gigl_tpu_torch.graph.csr import CSR, HeteroGraph, build_csr
 from gigl_tpu_torch.ops.gather import expand_table, gather_rows
 from gigl_tpu_torch.ops.hopcache import build_neighbor_cache, build_sample_table
 from gigl_tpu_torch.ops.quantized import QuantizedTable
@@ -62,10 +62,6 @@ from gigl_tpu_torch.sampling.neighbor_sampler import (
     uniform_ids,
 )
 from gigl_tpu_torch.types.graph import EdgeType
-
-
-def _not_ported(what: str, ref: str):
-    return NotImplementedError(f"{what} is not ported yet ({ref})")
 
 
 Table = Union[torch.Tensor, QuantizedTable]
@@ -240,10 +236,13 @@ class DeviceGraph:
         features are reordered into their CSRs' slot order (``csr.
         edge_ids``), as the reference does. ``quantize_features``: the node
         features become an int8 :class:`QuantizedTable` (quantized on the
-        host, 4x less device memory; gathers dequantize on the fly)."""
-        ref = "gigl_tpu.training.dataset.DeviceGraph.from_hetero"
-        if sampling_weight_index is not None:
-            raise _not_ported("sampling_weight_index", ref)
+        host, 4x less device memory; gathers dequantize on the fly).
+        ``sampling_weight_index``: the edge-feature column used as per-edge
+        sampling weights (``method="weighted"`` / ``"top_k"``, the
+        reference's RandomWeighted / TopK ops); every CSR row is then sorted
+        by descending weight on the host (a stable sort, so equal weights
+        keep CSR order), the indices, edge features and weights moved
+        together, so the bounded window holds the heaviest edges."""
         if supervision_edge_features is not None and supervision_edges is None:
             raise ValueError(
                 "supervision_edge_features needs supervision_edges")
@@ -275,10 +274,27 @@ class DeviceGraph:
         sup_csr, sup_ef = label_csr(supervision_edges,
                                     supervision_edge_features)
         hn_csr, hn_ef = label_csr(hard_neg_edges, hard_neg_edge_features)
-        edge_features = None
+        edge_rows = None   # the edge type's features in CSR slot order
         if str(et) in graph.edge_features:
-            edge_features = f32(np.asarray(
-                graph.edge_features[str(et)])[csr.edge_ids])
+            edge_rows = np.asarray(graph.edge_features[str(et)],
+                                   np.float32)[csr.edge_ids]
+        weights = None
+        if sampling_weight_index is not None:
+            if edge_rows is None:
+                raise ValueError(
+                    "sampling_weight_index requires edge features")
+            weights = edge_rows[:, sampling_weight_index]
+            row_of = np.repeat(np.arange(len(csr.indptr) - 1),
+                               np.diff(csr.indptr))
+            order = np.lexsort((-weights, row_of))
+            csr = CSR(indptr=csr.indptr,
+                      indices=np.asarray(csr.indices)[order],
+                      edge_ids=(None if csr.edge_ids is None
+                                else np.asarray(csr.edge_ids)[order]),
+                      num_neighbor_nodes=csr.num_neighbor_nodes)
+            edge_rows = edge_rows[order]
+            weights = weights[order]
+        edge_features = None if edge_rows is None else f32(edge_rows)
         labels = graph.node_labels.get(nt)
         if quantize_features:
             node_features = QuantizedTable.quantize(np.asarray(feats),
@@ -287,7 +303,7 @@ class DeviceGraph:
             node_features = torch.as_tensor(
                 np.asarray(feats, np.float32)).to(device)
         return cls(
-            message_csr=DeviceCSR.from_csr(csr, device),
+            message_csr=DeviceCSR.from_csr(csr, device, edge_weights=weights),
             node_features=node_features,
             num_nodes=n,
             supervision_csr=sup_csr,

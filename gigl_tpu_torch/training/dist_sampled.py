@@ -11,8 +11,9 @@ is its own tensors):
 
   - frontier expansion is ``routed_sample_neighbors`` (frontier ids go to
     their owner shard, which draws fanout slots with the replicated
-    sampler's counter RNG — K1 in its row-offset mode — and the ids come
-    back: K15, K16),
+    sampler's counter RNG — K1 in its row-offset mode, or K19's for
+    ``sampling_method="weighted"`` / ``"top_k"`` over the shard's edge
+    weights — and the ids come back: K15, K16),
   - feature hydration is ONE ``routed_gather`` over the union of a shard's
     encode trees (anchors, positives, its slice of the shared random
     negatives, hard negatives; K15, K3 on the owner, K16),
@@ -31,9 +32,9 @@ id). One shard takes the closed forms of the routed lookups (plain K1 /
 K3 calls, no collective), so its union gather is one K3 call.
 
 Not ported (ROADMAP A15, rest): the node-classification trainer, the
-tabularized partitioned layout (``cached_hop``), int8 rows, weighted
-draws (A2), node labels and label-edge features on the partitioned graph,
-and the ring's own-block edge bias.
+tabularized partitioned layout (``cached_hop``), int8 rows, node labels
+and label-edge features on the partitioned graph, and the ring's
+own-block edge bias.
 """
 
 from __future__ import annotations
@@ -85,14 +86,16 @@ OVERFLOW_POLICIES = ("warn", "raise", "silent", "grow")
 
 
 def _shard_csr(indptr: np.ndarray, indices: np.ndarray, num_shards: int,
-               rows_per_shard: int) -> Tuple[np.ndarray, np.ndarray]:
+               rows_per_shard: int, weights: Optional[np.ndarray] = None):
     """Split a global CSR into per-shard row-range blocks: (local indptr
     [P, rows + 1] int32 rebased per shard, local indices [P, E_pad] int32
-    global neighbor ids, zero-padded to the largest shard's edge count).
-    Global row r lives on shard r // rows; when N does not divide P the
-    last shards' trailing rows are empty."""
+    global neighbor ids, zero-padded to the largest shard's edge count),
+    plus the per-shard edge weights [P, E_pad] fp32 (zero-padded) when
+    ``weights`` (CSR slot order) is given. Global row r lives on shard r
+    // rows; when N does not divide P the last shards' trailing rows are
+    empty."""
     n = indptr.shape[0] - 1
-    blocks_ip, blocks_ix = [], []
+    blocks_ip, blocks_ix, blocks_w = [], [], []
     for p in range(num_shards):
         lo = min(p * rows_per_shard, n)
         hi = min(lo + rows_per_shard, n)
@@ -103,11 +106,19 @@ def _shard_csr(indptr: np.ndarray, indices: np.ndarray, num_shards: int,
         blocks_ip.append((ip - ip[0]).astype(np.int32))
         blocks_ix.append(np.asarray(indices[indptr[lo]: indptr[hi]],
                                     np.int32))
+        if weights is not None:
+            blocks_w.append(np.asarray(weights[indptr[lo]: indptr[hi]],
+                                       np.float32))
     e_pad = max(max(len(b) for b in blocks_ix), 1)
     ix_arr = np.zeros((num_shards, e_pad), np.int32)
     for p, b in enumerate(blocks_ix):
         ix_arr[p, : len(b)] = b
-    return np.stack(blocks_ip), ix_arr
+    if weights is None:
+        return np.stack(blocks_ip), ix_arr
+    w_arr = np.zeros((num_shards, e_pad), np.float32)
+    for p, b in enumerate(blocks_w):
+        w_arr[p, : len(b)] = b
+    return np.stack(blocks_ip), ix_arr, w_arr
 
 
 def apply_overflow_policy(trainer, count: int) -> None:
@@ -148,7 +159,9 @@ class PartitionedGraph:
     node's message in-degree fused as the LAST column, so hydration and
     the degree lookup are one routed gather. msg_* / sup_* / hard_*: the
     per-shard CSR blocks of :func:`_shard_csr` (supervision and hard
-    negatives None when the graph has none)."""
+    negatives None when the graph has none). msg_weights[p]: [E_pad] fp32,
+    shard p's message-edge sampling weights in slot order (None when the
+    graph has none)."""
 
     feat_deg: List[torch.Tensor]
     msg_indptr: List[torch.Tensor]
@@ -160,6 +173,7 @@ class PartitionedGraph:
     num_nodes: int
     rows_per_shard: int
     feat_dim: int
+    msg_weights: Optional[List[torch.Tensor]] = None
 
     @property
     def num_shards(self) -> int:
@@ -199,21 +213,27 @@ class PartitionedGraph:
         fd[:n, d] = deg
 
         def blocks(csr):
+            """The CSR's per-shard blocks (indptr, indices and, when it has
+            edge weights, the weights), or Nones."""
             if csr is None:
-                return None, None
-            ip, ix = _shard_csr(csr.indptr.cpu().numpy(),
-                                csr.indices.cpu().numpy(), p, rows)
-            return _per_shard(ip, mesh.device), _per_shard(ix, mesh.device)
+                return None, None, None
+            w = csr.edge_weights
+            out = _shard_csr(csr.indptr.cpu().numpy(),
+                             csr.indices.cpu().numpy(), p, rows,
+                             weights=None if w is None else w.cpu().numpy())
+            return tuple(_per_shard(a, mesh.device) for a in out) + (
+                None,) * (3 - len(out))
 
-        msg_ip, msg_ix = blocks(dg.message_csr)
-        sup_ip, sup_ix = blocks(dg.supervision_csr)
-        hard_ip, hard_ix = blocks(dg.hard_neg_csr)
+        msg_ip, msg_ix, msg_w = blocks(dg.message_csr)
+        sup_ip, sup_ix, _ = blocks(dg.supervision_csr)
+        hard_ip, hard_ix, _ = blocks(dg.hard_neg_csr)
         return cls(feat_deg=_per_shard(fd.reshape(p, rows, d + 1),
                                        mesh.device),
                    msg_indptr=msg_ip, msg_indices=msg_ix,
                    sup_indptr=sup_ip, sup_indices=sup_ix,
                    hard_indptr=hard_ip, hard_indices=hard_ix,
-                   num_nodes=n, rows_per_shard=rows, feat_dim=d)
+                   num_nodes=n, rows_per_shard=rows, feat_dim=d,
+                   msg_weights=msg_w)
 
     def decode_rows(self, rows: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -254,10 +274,10 @@ class PartitionedNALPTrainer:
         if config.cached_hop:
             raise NotImplementedError(
                 f"PartitionedNALPTrainer(cached_hop=True) {A15_REST}")
-        if config.sampling_method != "uniform":
-            raise NotImplementedError(
-                f"sampling_method={config.sampling_method!r} over a "
-                "PartitionedGraph is not ported yet (ROADMAP A2)")
+        if config.sampling_method != "uniform" and pgraph.msg_weights is None:
+            raise ValueError(
+                f"method={config.sampling_method!r} needs a PartitionedGraph "
+                "built from a DeviceGraph with edge weights")
         if pgraph.num_shards != p or pgraph.device != mesh.device:
             raise ValueError("the graph is not partitioned over this mesh")
         self.mesh = mesh
@@ -332,7 +352,9 @@ class PartitionedNALPTrainer:
                 self.mesh, self.pg.msg_indptr, self.pg.msg_indices,
                 [i[-1].reshape(-1) for i in ids], int(k),
                 seed=self.cfg.seed + seed_offset, hop=hop,
-                capacity_factor=self.capacity_factor)
+                capacity_factor=self.capacity_factor,
+                method=self.cfg.sampling_method,
+                local_weights=self.pg.msg_weights)
             for s in range(self.num_shards):
                 ovf = ovf + (~ok[s]).sum(dtype=torch.int32)
                 shape = tuple(ids[s][-1].shape) + (int(k),)

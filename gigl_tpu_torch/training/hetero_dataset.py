@@ -7,9 +7,11 @@ draws, and ``paths_from_config``).
 Every (edge type, anchor) CSR that a sampling path uses is a
 :class:`~gigl_tpu_torch.sampling.neighbor_sampler.DeviceCSR`, and every
 node type's features a dense device table. Live typed sampling draws each
-op through K1; the tabularized path freezes one sample table per (CSR,
-fanout, method) through K1 (``build_sample_table``) and expands the op
-tree by table-row gathers through K3 (``expand_table``); ``hydrate``
+op through K1 (K19 for a weighted / top-k op, over a CSR whose edge
+weights are column 0 of its edge type's features, rows NOT sorted, as the
+reference builds them); the tabularized path freezes one sample table
+per (CSR, fanout, method) the same way (``build_sample_table``) and
+expands the op tree by table-row gathers through K3 (``expand_table``); ``hydrate``
 gathers each entry's feature rows through K3 (``gather_rows``).
 Training batches draw positives and hard negatives from the supervision /
 hard-negative CSRs (anchored on the anchor type) through K1 and the
@@ -20,8 +22,7 @@ reference. The label edges' features (``supervision_edge_features`` /
 draws, gathered through K3 by the drawn slots, with the rows of padded
 draws zeroed (``hetero_dataset.py:301-330``).
 
-Not ported yet: weighted / top-k CSRs (A2) and host-resident feature
-tables (the partitioned tier, A15).
+Not ported yet: host-resident feature tables (the partitioned tier, A15).
 """
 
 from __future__ import annotations
@@ -38,7 +39,6 @@ from gigl_tpu_torch.graph.csr import HeteroGraph, build_csr
 from gigl_tpu_torch.ops.gather import expand_table, gather_rows
 from gigl_tpu_torch.ops.hopcache import build_sample_table
 from gigl_tpu_torch.sampling.hetero_sampler import (
-    WEIGHTED_NOT_PORTED,
     OpSpec,
     SamplingOp,
     TypedBlocks,
@@ -95,7 +95,9 @@ class HeteroDeviceGraph:
     ) -> "HeteroDeviceGraph":
         """Move the CSRs the ``paths`` sample and every node type's features
         (zeros [N, 1] for a type without features) to ``device`` (CUDA
-        unless given). Supervision edges (and hard negatives) are anchored
+        unless given). A CSR that a weighted / top-k op samples carries
+        column 0 of its edge type's features as edge weights (its rows are
+        not sorted). Supervision edges (and hard negatives) are anchored
         on ``supervision_anchor``'s side of ``supervision_edge_type``; their
         features (rows aligned to the edges' columns) are reordered into
         the CSRs' slot order."""
@@ -114,14 +116,19 @@ class HeteroDeviceGraph:
                            for op in ops}):
             methods = {op.method for ops in paths.values() for op in ops
                        if op.csr_key == key}
-            if methods != {"uniform"}:
-                raise NotImplementedError(f"CSR {key!r}: "
-                                          f"{WEIGHTED_NOT_PORTED}")
             et_str, anchor = key.rsplit("|", 1)
             et = next(e for e in graph.metadata.edge_types
                       if str(e) == et_str)
-            csrs[key] = DeviceCSR.from_csr(graph.csr(et, anchor=anchor),
-                                           device)
+            csr = graph.csr(et, anchor=anchor)
+            weights = None
+            if methods & {"weighted", "top_k"}:
+                ef = graph.edge_features.get(et_str)
+                if ef is None:
+                    raise ValueError(
+                        f"edge type {et_str!r} sampled weighted/top_k but "
+                        "has no edge features to use as weights")
+                weights = np.asarray(ef)[csr.edge_ids, 0]
+            csrs[key] = DeviceCSR.from_csr(csr, device, edge_weights=weights)
         feats = {}
         for nt in graph.metadata.node_types:
             f = (graph.node_features[nt] if nt in graph.node_features
@@ -167,9 +174,9 @@ class HeteroDeviceGraph:
     def with_sample_tables(self, paths: Dict[str, Tuple[OpSpec, ...]], *,
                            seed: int = 0) -> "HeteroDeviceGraph":
         """A copy with one frozen sample table per (CSR, fanout, method)
-        that an op of ``paths`` uses, drawn through K1 at hop 1: a node
-        reuses its one sample at every tree position (the reference's
-        precomputed-sample regime). A new seed is a re-run of the sampler."""
+        that an op of ``paths`` uses, drawn through K1 (K19 for a weighted /
+        top-k op) at hop 1: a node reuses its one sample at every tree
+        position (the reference's precomputed-sample regime). A new seed is a re-run of the sampler."""
         tables: Dict[str, torch.Tensor] = dict(self.sample_tables or {})
         for ops in paths.values():
             for op in ops:

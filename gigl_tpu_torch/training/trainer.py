@@ -4,10 +4,11 @@ of ``gigl_tpu/training/trainer.py``: ``TrainState``, ``make_optimizer``,
 ``NodeClassificationTrainerConfig`` and ``NodeClassificationTrainer``).
 
 One training step is: ``sample_nalp_batch`` (K1 positives, K1b random
-negatives), three encode chains (anchors, positives, random negatives; K3
-gathers and K4 reduces forward, K4b backward), ``decode_all_pairs`` (a
-plain matmul), the loss (K5 for the retrieval loss), backward and the
-optimizer update. The model's weights live in the model (``nn.Module``);
+negatives), three encode chains (anchors, positives, random negatives;
+message-graph draws through K1, or K19 with ``sampling_method="weighted"``
+/ ``"top_k"``; K3 gathers and K4 reduces forward, K4b backward),
+``decode_all_pairs`` (a plain matmul), the loss (K5 for the retrieval
+loss), backward and the optimizer update. The model's weights live in the model (``nn.Module``);
 ``TrainState`` holds the step and the ``torch.optim`` optimizer over them.
 Steps run eagerly on the current stream; ``train_steps`` keeps the losses
 on the device, so a chunk of steps does no host synchronisation.
@@ -135,7 +136,9 @@ class NALPTrainerConfig:
     use_cms_correction: bool = False
     eval_ks: Tuple[int, ...] = (1, 5, 10, 50, 100)
     seed: int = 0
-    # Neighbor-sampling method; only "uniform" is ported.
+    # Neighbor-sampling method of the message graph: uniform (K1), or
+    # weighted / top_k (K19; a graph from from_hetero(sampling_weight_index)).
+    # The label-edge draws (positives, hard negatives) stay uniform.
     sampling_method: str = "uniform"
     # Tabularized deepest-hop cache (ops/hopcache.py): gather per-node
     # precomputed aggregates instead of resampling the deepest hop.

@@ -70,6 +70,11 @@ the whole ring (P 1, 4, 5; sum and mean) and its gradient (ring_spmm's
 autograd.Function) on the card against the CPU within 1e-5 of the scale,
 P^2 launches each way; three sharded full-batch steps (GCN, GraphSAGE)
 on the card against the CPU (losses and weights within 1e-4 relative).
+The weighted and top-k draw: K19 sample_weighted bit-equal to its twin
+(windows 8, 32, 128, 200 and 1024, fanout = window, all-invalid rows, a
+hub beyond every window, tied weights, +inf and NaN weights, the
+row-offset mode), its wrapper's refusals, and K2's weighted mode (fp32
+and int8 features) within rtol 1e-5.
 """
 
 import dataclasses
@@ -158,8 +163,10 @@ from gigl_tpu_torch.sampling.hetero_sampler import SamplingOp, resolve_path
 from gigl_tpu_torch.sampling.neighbor_sampler import (
     DeviceCSR,
     _sample_uniform_plain,
+    _sample_weighted_plain,
     _uniform_ids_plain,
     sample_uniform,
+    sample_weighted,
     uniform_ids,
 )
 from gigl_tpu_torch.training import dist_sampled
@@ -2098,3 +2105,121 @@ def test_sharded_full_batch_steps_on_card_match_cpu(dev, conv):
                                atol=0)
     for k, v in out["cpu"][1].items():
         torch.testing.assert_close(out["cuda"][1][k], v, rtol=1e-4, atol=1e-5)
+
+
+def _weighted_csr(dev, kind, seed=0):
+    """A CSR of 700 rows (degrees 0-60, a hub of 1,500 beyond every window,
+    three isolated rows) with weights: continuous, tied integers 0-3 with
+    negatives, or continuous with +inf and NaN entries (two +inf in the
+    hub's first 32 slots)."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 61, N)
+    deg[11] = 1500
+    deg[[5, 6, 699]] = 0
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    e = int(indptr[-1])
+    w = (rng.integers(-1, 4, e) if kind == "tied"
+         else rng.random(e)).astype(np.float32)
+    if kind == "special":
+        w[rng.integers(0, e, 30)] = np.inf
+        w[rng.integers(0, e, 30)] = np.nan
+        w[indptr[11] + 3] = w[indptr[11] + 20] = np.inf
+    return DeviceCSR(torch.from_numpy(indptr).to(dev),
+                     torch.from_numpy(rng.integers(0, N, e).astype(
+                         np.int32)).to(dev),
+                     torch.from_numpy(w).to(dev))
+
+
+@pytest.mark.parametrize("window,fanout", [(32, 32), (128, 15), (128, 128),
+                                           (1024, 40), (1024, 1024),
+                                           (200, 33), (8, 3)])
+@pytest.mark.parametrize("kind", ["continuous", "tied", "special"])
+@pytest.mark.parametrize("method", ["weighted", "top_k"])
+def test_sample_weighted_bit_equal(dev, method, kind, window, fanout):
+    """K19 against its twin on the card: windows of one to 32 keys a lane,
+    fanout = window, all-invalid rows, a hub beyond the window, ties, +inf
+    and NaN scores; the seed and hop wrap mod 2**32."""
+    csr = _weighted_csr(dev, kind)
+    frontier = torch.cat([torch.arange(N, dtype=torch.int32, device=dev),
+                          torch.tensor([5, 11], dtype=torch.int32,
+                                       device=dev)]).reshape(-1, 3)
+    before = _build.launches["sample_weighted"]
+    got = sample_weighted(csr.indptr, csr.indices, csr.edge_weights,
+                          frontier, fanout, window, method, 2**32 - 3,
+                          2**31 + 7)
+    torch.cuda.synchronize()
+    assert _build.launches["sample_weighted"] == before + 1
+    want = _sample_weighted_plain(csr.indptr, csr.indices, csr.edge_weights,
+                                  frontier, fanout, window, method,
+                                  2**32 - 3, 2**31 + 7)
+    for g, w in zip(got, want):
+        assert g.shape == frontier.shape + (fanout,)
+        assert torch.equal(g, w)
+    assert not got[1].reshape(-1, fanout)[[5, 6, 699]].any()
+
+
+@pytest.mark.parametrize("method", ["weighted", "top_k"])
+def test_sample_weighted_row_offset_mode(dev, method):
+    """The owner-side draw over one shard's row block (global ids, local
+    rows clipped, the hash keyed by the global id) is the replicated draw
+    for the shard's own ids and the twin's for every id."""
+    csr = _weighted_csr(dev, "tied", 1)
+    ip = csr.indptr.cpu().numpy()
+    lo, hi = 200, 400
+    local_ip = torch.from_numpy(ip[lo: hi + 1] - ip[lo]).to(dev)
+    local_ix = csr.indices[ip[lo]: ip[hi]].contiguous()
+    local_w = csr.edge_weights[ip[lo]: ip[hi]].contiguous()
+    ids = torch.arange(0, N, dtype=torch.int32, device=dev)
+    got = sample_weighted(local_ip, local_ix, local_w, ids, 10, 128, method,
+                          9, 4, row_offset=lo)
+    want = _sample_weighted_plain(local_ip, local_ix, local_w, ids, 10, 128,
+                                  method, 9, 4, row_offset=lo)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    repl = sample_weighted(csr.indptr, csr.indices, csr.edge_weights,
+                           ids[lo:hi], 10, 128, method, 9, 4)
+    assert torch.equal(got[0][lo:hi], repl[0])
+    assert torch.equal(got[1][lo:hi], repl[1])
+
+
+def test_sample_weighted_raises_on_what_it_does_not_take(dev):
+    csr = _weighted_csr(dev, "continuous")
+    ids = torch.arange(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="window"):
+        sample_weighted(csr.indptr, csr.indices, csr.edge_weights, ids, 9, 8,
+                        "top_k", 0, 1)
+    with pytest.raises(ValueError, match="exceeds"):
+        sample_weighted(csr.indptr, csr.indices, csr.edge_weights, ids, 9,
+                        2048, "top_k", 0, 1)
+    with pytest.raises(ValueError, match="f32"):
+        sample_weighted(csr.indptr, csr.indices, csr.edge_weights.double(),
+                        ids, 3, 8, "top_k", 0, 1)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("agg", ["mean", "sum", "gcn"])
+@pytest.mark.parametrize("method,fanout,dim", [
+    ("weighted", 10, 128), ("top_k", 40, 132), ("weighted", 128, 16)])
+def test_neighbor_cache_weighted_matches_plain(dev, method, fanout, dim, agg,
+                                               quantized):
+    """K2's weighted mode (K19's draw over the first 128 slots, in the
+    same warp) against its twin: fp32 within 1e-5 of the output's scale
+    (sums of up to 128 rows in another order; a flat atol of 1e-6 does not
+    hold for sums of 40-128 rows that cancel, measured 1.6e-6 on values of
+    scale ~40)."""
+    csr = _weighted_csr(dev, "special", 2)
+    rng = np.random.default_rng(dim)
+    x = rng.normal(size=(N, dim)).astype(np.float32)
+    feats = (QuantizedTable.quantize(x, device=dev) if quantized
+             else torch.from_numpy(x).to(dev))
+    deg = torch.diff(csr.indptr).float()
+    before = _build.launches["build_neighbor_cache"]
+    out = build_neighbor_cache(csr, feats, fanout=fanout, seed=7, hop_key=2,
+                               agg=agg, degrees=deg, method=method)
+    torch.cuda.synchronize()
+    assert _build.launches["build_neighbor_cache"] == before + 1
+    want = torch.empty((N, dim), device=dev)
+    _neighbor_cache_plain(csr, feats, fanout, 7, 2, agg, deg, want,
+                          method=method)
+    _within(out, want, torch.float32)
+    assert torch.equal(out[[5, 6, 699]], torch.zeros_like(out[:3]))

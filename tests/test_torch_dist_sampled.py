@@ -376,11 +376,15 @@ def test_unported_options_raise(case):
         with pytest.raises(NotImplementedError, match="A15"):
             pg.with_tabularized(fanouts=FANOUTS)
         return
-    cfg = (NALPTrainerConfig(fanouts=FANOUTS, cached_hop=True)
-           if case == "cached_hop"
-           else NALPTrainerConfig(fanouts=FANOUTS, sampling_method="weighted"))
-    with pytest.raises(NotImplementedError,
-                       match="A15" if case == "cached_hop" else "A2"):
+    if case == "weighted":
+        # weighted draws are ported (tests/test_torch_weighted_sampling.py):
+        # a graph without edge weights raises the reference's ValueError
+        cfg = NALPTrainerConfig(fanouts=FANOUTS, sampling_method="weighted")
+        with pytest.raises(ValueError, match="with edge weights"):
+            PartitionedNALPTrainer(model, pg, mesh, cfg)
+        return
+    cfg = NALPTrainerConfig(fanouts=FANOUTS, cached_hop=True)
+    with pytest.raises(NotImplementedError, match="A15"):
         PartitionedNALPTrainer(model, pg, mesh, cfg)
 
 

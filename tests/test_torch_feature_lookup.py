@@ -279,10 +279,15 @@ def test_make_mesh_defaults_to_cuda():
 @pytest.mark.parametrize("kw,match", [
     ({"method": "weighted"}, "A2"), ({"local_edge_feats": object()}, "A15")])
 def test_routed_sample_unported_options_raise(kw, match):
+    """Label-edge features still raise (A15); the weighted owner-side draw
+    (A2) is ported (tests/test_torch_weighted_sampling.py) and without
+    local weights raises the reference's own ValueError."""
     mesh = Mesh(2, "cpu")
     ip = [torch.zeros(3, dtype=torch.int32)] * 2
     ix = [torch.zeros(1, dtype=torch.int32)] * 2
-    with pytest.raises(NotImplementedError, match=match):
+    err, match = ((ValueError, "requires local_weights") if "method" in kw
+                  else (NotImplementedError, match))
+    with pytest.raises(err, match=match):
         fl.routed_sample_neighbors(mesh, ip, ix, [torch.zeros(
             2, dtype=torch.int32)] * 2, 2, **kw)
 

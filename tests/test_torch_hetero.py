@@ -282,8 +282,24 @@ def test_unported_options_raise():
     paths, _ = _yaml_paths()
     weighted = {"paper": tuple(dataclasses.replace(op, method="weighted")
                                for op in paths["paper"])}
-    with pytest.raises(NotImplementedError, match="A2"):
+    # weighted ops are ported (tests/test_torch_weighted_sampling.py); an
+    # edge type without features raises the reference's ValueError, and
+    # with them the CSR carries column 0 as its weights
+    with pytest.raises(ValueError, match="no edge features"):
         HeteroDeviceGraph.from_hetero(port_g, weighted, device="cpu")
+    with_w = HeteroGraph(metadata=port_g.metadata, num_nodes=port_g.num_nodes,
+                         edges=port_g.edges,
+                         node_features=port_g.node_features,
+                         edge_features={
+                             str(k): np.stack([np.arange(v.shape[1]),
+                                               np.zeros(v.shape[1])], 1)
+                             for k, v in port_g.edges.items()})
+    wg = HeteroDeviceGraph.from_hetero(with_w, weighted, device="cpu")
+    for key, csr in wg.csrs.items():
+        et = EdgeType.from_str(key.rsplit("|", 1)[0])
+        eids = with_w.csr(et, anchor=key.rsplit("|", 1)[1]).edge_ids
+        np.testing.assert_array_equal(csr.edge_weights.numpy(),
+                                      eids.astype(np.float32))
     # label-edge features are ported (the graph keeps them in slot order)
     n_writes = port_g.edges[EdgeType.from_str(WRITES)].shape[1]
     with_ef = HeteroDeviceGraph.from_hetero(

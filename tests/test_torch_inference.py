@@ -192,8 +192,18 @@ def test_unported_branches_raise():
     src, dst, x = _graph_arrays()
     g = HeteroGraph.homogeneous(src=src, dst=dst, num_nodes=N,
                                 node_features=x)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # sampling weights are ported (tests/test_torch_weighted_sampling.py):
+    # without edge features they raise the reference's ValueError
+    with pytest.raises(ValueError, match="requires edge features"):
         DeviceGraph.from_hetero(g, device="cpu", sampling_weight_index=0)
+    gw = HeteroGraph.homogeneous(
+        src=src, dst=dst, num_nodes=N, node_features=x,
+        edge_features=np.arange(len(src), dtype=np.float32)[:, None])
+    dgw = DeviceGraph.from_hetero(gw, device="cpu", sampling_weight_index=0)
+    ip = dgw.message_csr.indptr.numpy()
+    w = dgw.message_csr.edge_weights.numpy()
+    assert all((np.diff(w[ip[v]: ip[v + 1]]) <= 0).all() for v in range(N))
+    assert np.array_equal(w, dgw.edge_features[:, 0].numpy())
     # int8 features are ported (tests/test_torch_quantized.py)
     assert DeviceGraph.from_hetero(g, device="cpu", quantize_features=True) \
         .node_features.q.dtype == torch.int8

@@ -120,7 +120,24 @@ def test_sample_blocks_bit_equal(fanouts, seed):
 
 
 def test_weighted_methods_raise_not_implemented():
-    _, pc = _csrs()
-    with pytest.raises(NotImplementedError, match="weighted_offsets"):
-        port.sample_neighbors(pc, torch.arange(4, dtype=torch.int32), 3,
-                              seed=0, hop=1, method="top_k")
+    """The weighted / top-k draws are ported (K19; parity in
+    tests/test_torch_weighted_sampling.py): over a CSR with weights they
+    draw bit-equal to the reference, and without weights they raise the
+    reference's own ValueError."""
+    jc, pc = _csrs()
+    rng = np.random.default_rng(3)
+    w = rng.random(pc.indices.shape[0]).astype(np.float32)
+    jw = ref.DeviceCSR(jc.indptr, jc.indices, edge_weights=jnp.asarray(w))
+    pw = port.DeviceCSR(pc.indptr, pc.indices,
+                        edge_weights=torch.from_numpy(w))
+    frontier = np.array([0, 3, 7, 42, 499], np.int32)
+    for method in ("top_k", "weighted"):
+        want = ref.sample_neighbors(jw, jnp.asarray(frontier), 3, seed=0,
+                                    hop=1, method=method)
+        got = port.sample_neighbors(pw, torch.from_numpy(frontier), 3,
+                                    seed=0, hop=1, method=method)
+        for g, wt in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(wt))
+        with pytest.raises(ValueError, match="edge_weights"):
+            port.sample_neighbors(pc, torch.arange(4, dtype=torch.int32), 3,
+                                  seed=0, hop=1, method=method)
