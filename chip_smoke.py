@@ -122,9 +122,10 @@
    rows with their degrees, and the whole table; beside K3 over the fp32
    rows), K13 cms_add and K14 cms_estimate (the 1,024 candidate ids of a
    real first step, on a fresh sketch and on one that has counted 20
-   steps; yardstick scatter_add_), K2 in its int8 mode over the whole
-   graph and K5 with the logQ term at [512, 1024] bf16 against their plain
-   versions (bit-equal where integer or one rounding); one step of
+   steps; yardstick scatter_add_; K13 also into a 5 x 16384 sketch), K2
+   in its int8 mode over the whole graph and K5 with the logQ term at
+   [512, 1024] bf16 against their plain versions (bit-equal where
+   integer or one rounding); one step of
    NALPTrainer(cached_hop=True, quantize_cache=True, use_cms_correction=
    True) against the same step through the plain versions, and the sketch
    after a step against a plain recount of its candidates; then the path
@@ -1722,9 +1723,11 @@ def edge_phases(dev, card, arrays, fb_data, typed, record, add_mode,
     del xd7, ks7, he7, xdb, ksb, gb, outb, got_, want_
 
     # -- K11 at EdgeAttrGAT layer 1 (E = 2M, [E, 256] fp32 out, gat mode),
-    # with gine and transformer beside it. bytes: edge_pos, ent_row (and
-    # ent_src) per edge, each distinct destination's g row (and xd / x
-    # row), alpha and coef per edge, [E, D] written; ops: 3 per value.
+    # with gine and transformer beside it. The walk in destination order
+    # reads ent_mask over all P entries, padding included, and per valid
+    # entry ent_edge and ent_row (and ent_src), alpha and coef, each
+    # destination's g row (and xd row) once, and for gine each source's x
+    # row and each edge's ea row; [E, D] written; ops: 3 per value.
     p_total = int(fell.ent_row.shape[0])
     g11, xd11, x11 = (torch.randn((N, HID), generator=gen, device=dev)
                       for _ in range(3))
@@ -1746,7 +1749,7 @@ def edge_phases(dev, card, arrays, fb_data, typed, record, add_mode,
             return _ell_edge_grad_plain(g11, fell, mode, **kw)
 
         err = rel_err(k11_kernel(), k11_plain(), f"K11 {mode}", tol=1e-6)
-        nbytes = (E * 8 + N * HID * 4 + E * HID * 4
+        nbytes = (p_total + E * 8 + N * HID * 4 + E * HID * 4
                   + {"gat": E * GAT_HEADS * 8 + HID * 4,
                      "transformer": E * GAT_HEADS * 8 + N * HID * 4,
                      "gine": E * 4 + N * HID * 4 + E * HID * 4}[mode])
@@ -2124,6 +2127,24 @@ def quantized_phases(dev, card, graph, edges, record, add_mode, unique,
                         "buckets (hashed beforehand, not timed)",
            ids=cids.numel(), distinct_ids=unique(cids), depth=depth,
            width=width, eager_ms=eager_ms(lambda: cms_add(sk0, cids)))
+    # the same ids into a 5 x 16384 sketch (320 KB, past the 48 KB that
+    # K13's first design could stage in one block)
+    skw = cms_init(5, 16384, device=dev)
+    got_w, want_w = cms_add(skw, cids), _cms_add_plain(skw, cids)
+    check(torch.equal(got_w.table, want_w.table)
+          and torch.equal(got_w.total, want_w.total) and not skw.table.any(),
+          "K13 cms_add at 5 x 16384 is not bit-equal to its recount")
+    flat_w = (_cms_hash_plain(cids, 5, 16384)
+              + torch.arange(5, device=dev)[:, None] * 16384).reshape(-1)
+    scratch_w = torch.zeros(5 * 16384, dtype=torch.int32, device=dev)
+    add_mode("cms_add", "wide_5x16384", {
+        "bit_equal": True, "ms": cuda_ms(lambda: cms_add(skw, cids)),
+        "plain_ms": cuda_ms(lambda: _cms_add_plain(skw, cids)),
+        "library_ms": cuda_ms(
+            lambda: scratch_w.scatter_add_(0, flat_w, ones)),
+        "bound_ms": bound_ms(2 * 5 * 16384 * 4 + cids.numel() * 4 + 8,
+                             cids.numel() * 5 * 12)[0],
+        "eager_ms": eager_ms(lambda: cms_add(skw, cids))})
     # K14 on a sketch that has counted the candidates of the first
     # MID_STEPS steps (collisions make the estimates differ by column)
     mid = got

@@ -17,14 +17,23 @@
 //
 // Bound: latency. At the flagship (n = 1024 candidate ids, depth 5, width
 // 2048: a 40 KB table) each kernel moves ~50 KB, ~0.015 us of HBM time, and
-// does ~10^5 integer operations: both are a launch's latency. Design: K13
-// stages the whole table in shared memory when it fits (48 KB, the default
-// sketch is 40 KB): one block copies it in, adds one count per (row, id) with
-// shared-memory atomics (integer adds commute, so every order gives the same
-// table) and writes the new table out; a larger table takes a copy kernel
-// and a pass of global atomics. total is read and written on the device, so
-// a training step needs no host synchronisation and can be captured in a
-// CUDA graph. K14: one thread per id, walking the rows.
+// does ~10^5 integer operations: both are a launch's latency, so the design
+// keeps the chain of dependent memory round trips short. K13 is one kernel
+// for every sketch size: block (t, r) of a depth x ceil(width / T) grid owns
+// cells [t*T, (t+1)*T) of row r. It first starts its tile's loads of the old
+// table (16-byte loads where the width is a multiple of 4) into registers,
+// so their latency overlaps the hashing, and zeroes a count tile in shared
+// memory; each thread then hashes its share of the n ids for row r alone
+// and, where the bucket falls in the tile, adds 1 with a shared integer
+// atomic (integer adds commute, so every order gives the same table); after
+// one __syncthreads the block writes table + count with 16-byte stores.
+// Block (0, 0) writes total + n. Two global round trips remain. T grows
+// with the width (1024, 2048, 4096, then 8192 cells: 32 KB of counts), so a
+// sketch up to 8192 wide is one tile a row and a wider one takes
+// ceil(width / 8192) tiles, each hashing every id: at 8 x 65536 and n =
+// 65536 that is 4.2M hashes over 64 blocks. total is read and written on
+// the device, so a training step needs no host synchronisation and can be
+// captured in a CUDA graph. K14: one thread per id, walking the rows.
 #include <climits>
 #include <cstdint>
 
@@ -32,64 +41,107 @@
 
 namespace {
 
-constexpr int kAddThreads = 1024;
-constexpr int kThreads = 256;
-constexpr long long kSharedBytes = 48 * 1024;
+constexpr int kAddThreads = 256;   // K13: a block's threads
+constexpr int kMaxPieces = 8;      // K13: T = kAddThreads * 4 * pieces
+constexpr int kThreads = 256;      // K14
 
-__device__ __forceinline__ int64_t bucket(int32_t id, uint32_t row,
-                                          uint32_t width) {
+__device__ __forceinline__ uint32_t bucket(int32_t id, uint32_t row,
+                                           uint32_t width) {
   const uint32_t x = static_cast<uint32_t>(id) + row * 0x9E3779B9u;
-  return static_cast<int64_t>(gigl::mix32(x) % width);
+  return gigl::mix32(x) % width;
 }
 
-__device__ __forceinline__ int32_t add_total(const int32_t* total, long long n) {
-  return static_cast<int32_t>(static_cast<uint32_t>(*total) +
-                              static_cast<uint32_t>(n));
-}
-
-__global__ void cms_add_shared(const int32_t* __restrict__ table, int depth,
-                               int width, const int32_t* __restrict__ ids,
-                               long long n, const int32_t* __restrict__ total,
-                               int32_t* __restrict__ out,
-                               int32_t* __restrict__ out_total) {
-  extern __shared__ int32_t sketch[];
-  const long long cells = static_cast<long long>(depth) * width;
-  for (long long i = threadIdx.x; i < cells; i += blockDim.x)
-    sketch[i] = table[i];
-  __syncthreads();
-  for (long long i = threadIdx.x; i < n * depth; i += blockDim.x) {
-    const long long k = i / depth;
-    const int r = static_cast<int>(i - k * depth);
-    atomicAdd(sketch + static_cast<long long>(r) * width +
-                  bucket(ids[k], r, width),
-              1);
+// Block (t, r): cells [t * kTile, (t + 1) * kTile) of row r. Each thread
+// owns PIECES pieces of 4 consecutive cells (16-byte accesses when VEC:
+// width % 4 == 0 and both tables 16-byte aligned), piece k at cell
+// 4 * (threadIdx.x + k * kAddThreads) of the tile; without VEC, cell
+// threadIdx.x + j * kAddThreads for j < 4 * PIECES.
+template <int PIECES, bool VEC>
+__global__ void __launch_bounds__(kAddThreads)
+cms_add_kernel(const int32_t* __restrict__ table, int width,
+               const int32_t* __restrict__ ids, long long n,
+               const int32_t* __restrict__ total, int32_t* __restrict__ out,
+               int32_t* __restrict__ out_total) {
+  constexpr int kCells = 4 * PIECES;  // per thread
+  constexpr int kTile = kAddThreads * kCells;
+  __shared__ __align__(16) int32_t counts[kTile];
+  const uint32_t r = blockIdx.y;
+  const long long lo = static_cast<long long>(blockIdx.x) * kTile;
+  const long long row = static_cast<long long>(r) * width + lo;
+  const uint32_t cells = static_cast<uint32_t>(
+      min(static_cast<long long>(kTile), width - lo));
+  const int tid = threadIdx.x;
+  int32_t old[kCells];
+#pragma unroll
+  for (int k = 0; k < PIECES; ++k) {
+    if constexpr (VEC) {
+      const uint32_t c = 4u * (tid + k * kAddThreads);
+      if (c < cells) {
+        const int4 v = __ldg(reinterpret_cast<const int4*>(table + row + c));
+        old[4 * k] = v.x;
+        old[4 * k + 1] = v.y;
+        old[4 * k + 2] = v.z;
+        old[4 * k + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const uint32_t c = tid + (4 * k + u) * kAddThreads;
+        if (c < cells) old[4 * k + u] = __ldg(table + row + c);
+      }
+    }
+    reinterpret_cast<int4*>(counts)[tid + k * kAddThreads] =
+        make_int4(0, 0, 0, 0);
   }
   __syncthreads();
-  for (long long i = threadIdx.x; i < cells; i += blockDim.x)
-    out[i] = sketch[i];
-  if (threadIdx.x == 0) *out_total = add_total(total, n);
+  for (long long i = tid; i < n; i += kAddThreads) {
+    const uint32_t b =
+        bucket(__ldg(ids + i), r, static_cast<uint32_t>(width)) -
+        static_cast<uint32_t>(lo);
+    if (b < cells) atomicAdd(counts + b, 1);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < PIECES; ++k) {
+    if constexpr (VEC) {
+      const uint32_t c = 4u * (tid + k * kAddThreads);
+      if (c < cells) {
+        const int4 add = reinterpret_cast<const int4*>(counts)[c / 4];
+        // int32 sums wrap as the reference's do: add as uint32
+        *reinterpret_cast<int4*>(out + row + c) = make_int4(
+            static_cast<int32_t>(static_cast<uint32_t>(old[4 * k]) + add.x),
+            static_cast<int32_t>(static_cast<uint32_t>(old[4 * k + 1]) +
+                                 add.y),
+            static_cast<int32_t>(static_cast<uint32_t>(old[4 * k + 2]) +
+                                 add.z),
+            static_cast<int32_t>(static_cast<uint32_t>(old[4 * k + 3]) +
+                                 add.w));
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const uint32_t c = tid + (4 * k + u) * kAddThreads;
+        if (c < cells)
+          out[row + c] = static_cast<int32_t>(
+              static_cast<uint32_t>(old[4 * k + u]) + counts[c]);
+      }
+    }
+  }
+  if (blockIdx.x == 0 && r == 0 && tid == 0)
+    *out_total = static_cast<int32_t>(static_cast<uint32_t>(*total) +
+                                      static_cast<uint32_t>(n));
 }
 
-__global__ void cms_copy(const int32_t* __restrict__ table, long long cells,
-                         int32_t* __restrict__ out) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i < cells) out[i] = table[i];
-}
-
-__global__ void cms_add_global(int depth, int width,
-                               const int32_t* __restrict__ ids, long long n,
-                               const int32_t* __restrict__ total,
-                               int32_t* __restrict__ out,
-                               int32_t* __restrict__ out_total) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i == 0) *out_total = add_total(total, n);
-  if (i >= n * depth) return;
-  const long long k = i / depth;
-  const int r = static_cast<int>(i - k * depth);
-  atomicAdd(out + static_cast<long long>(r) * width + bucket(ids[k], r, width),
-            1);
+template <int PIECES>
+void launch_add(bool vec, dim3 grid, cudaStream_t s, const int32_t* t,
+                int width, const int32_t* id, long long n,
+                const int32_t* tot, int32_t* o, int32_t* ot) {
+  if (vec)
+    cms_add_kernel<PIECES, true><<<grid, kAddThreads, 0, s>>>(
+        t, width, id, n, tot, o, ot);
+  else
+    cms_add_kernel<PIECES, false><<<grid, kAddThreads, 0, s>>>(
+        t, width, id, n, tot, o, ot);
 }
 
 __global__ void cms_estimate_kernel(const int32_t* __restrict__ table,
@@ -121,27 +173,32 @@ unsigned blocks_for(long long work, int threads) {
 
 // table: [depth, width] int32, total: int32 scalar (device); ids: [n]
 // int32. Writes out: [depth, width] int32 (a buffer other than table) and
-// out_total: int32 scalar.
+// out_total: int32 scalar. One launch for every size.
 extern "C" int gigl_cms_add(const void* table, int depth, int width,
                             const void* ids, long long n, const void* total,
                             void* out, void* out_total, void* stream) {
-  if (depth <= 0 || width <= 0 || n < 0 || table == out)
+  if (depth <= 0 || depth > 65535 || width <= 0 || n < 0 || table == out)
     return static_cast<int>(cudaErrorInvalidValue);
+  int pieces = 1;
+  while (pieces < kMaxPieces && 4LL * kAddThreads * pieces < width)
+    pieces *= 2;
+  const long long tile = 4LL * kAddThreads * pieces;
+  const dim3 grid(static_cast<unsigned>((width + tile - 1) / tile),
+                  static_cast<unsigned>(depth));
+  const bool vec = width % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long cells = static_cast<long long>(depth) * width;
   const auto* t = static_cast<const int32_t*>(table);
   const auto* id = static_cast<const int32_t*>(ids);
   const auto* tot = static_cast<const int32_t*>(total);
   auto* o = static_cast<int32_t*>(out);
   auto* ot = static_cast<int32_t*>(out_total);
-  if (cells * 4 <= kSharedBytes) {
-    cms_add_shared<<<1, kAddThreads, static_cast<size_t>(cells * 4), s>>>(
-        t, depth, width, id, n, tot, o, ot);
-  } else {
-    cms_copy<<<blocks_for(cells, kThreads), kThreads, 0, s>>>(t, cells, o);
-    const long long work = n * depth > 0 ? n * depth : 1;
-    cms_add_global<<<blocks_for(work, kThreads), kThreads, 0, s>>>(
-        depth, width, id, n, tot, o, ot);
+  switch (pieces) {
+    case 1: launch_add<1>(vec, grid, s, t, width, id, n, tot, o, ot); break;
+    case 2: launch_add<2>(vec, grid, s, t, width, id, n, tot, o, ot); break;
+    case 4: launch_add<4>(vec, grid, s, t, width, id, n, tot, o, ot); break;
+    default: launch_add<8>(vec, grid, s, t, width, id, n, tot, o, ot);
   }
   return static_cast<int>(cudaGetLastError());
 }

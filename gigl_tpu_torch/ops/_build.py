@@ -91,7 +91,7 @@ _SIGNATURES = {
     "gigl_segment_softmax_bwd": [_P] * 5 + [_I64, _I32, _I32, _P],
     "gigl_sddmm_bwd_coef": [_P] * 5 + [_I64] + [_I32] * 3 + [_P],
     "gigl_sddmm_bwd_scale": [_P, _P, _I32, _I32, _P],
-    "gigl_ell_edge_grad": [_P] * 11 + [_I64] + [_I32] * 6 + [_P],
+    "gigl_ell_edge_grad": [_P] * 12 + [_I64] + [_I32] * 6 + [_P],
     "gigl_gather_rows_q8": [_P, _P, _I64, _I32, _P, _I64, _I32, _P, _P, _P,
                             _P],
     "gigl_cms_add": [_P, _I32, _I32, _P, _I64, _P, _P, _P, _P],

@@ -16,7 +16,7 @@ each transpose row), and, per flat forward entry ``p = ent_off[b] + i *
 W_b + j``, its destination row ``ent_row`` (``boundaries[b] + i``), its
 source row ``ent_src`` (the concatenated ``nbr``) and its COO edge
 ``ent_edge`` (the concatenated ``edge_slots``); masked entries hold 0 in
-the last two.
+the last two, and ``ent_mask`` says which entries are real.
 
 :func:`ell_layer` is one conv layer over every bucket: ``conv.ell(x_p,
 ell)``, or ``conv.ell(x_p, ell, edge_attr)`` with edge features in
@@ -121,9 +121,10 @@ class EllGraph:
     its dst rows are boundaries[b]:boundaries[b+1]. The transpose tables
     (t_rank, t_nbr, t_mask, t_boundaries, t_widths) serve the backward
     (K6b), with the derived t_perm (inverse of t_rank), ent_row / ent_src
-    / ent_edge (flat entry -> dst row, source row, COO edge) and ent_off
-    (bucket b's first entry); edge_pos (COO edge -> flat entry) serves the
-    edge features' backward (K11)."""
+    / ent_edge / ent_mask (flat entry -> dst row, source row, COO edge,
+    validity: the masks flattened once) and ent_off (bucket b's first
+    entry); edge_pos (COO edge -> flat entry) serves the edge features'
+    backward (K11)."""
 
     perm: torch.Tensor                 # [N] int32
     rank: torch.Tensor                 # [N] int32
@@ -144,15 +145,11 @@ class EllGraph:
     ent_off: Tuple[int, ...]           # len = num_buckets + 1
     ent_src: torch.Tensor              # [P] int32, flat entry -> x_p row
     ent_edge: torch.Tensor             # [P] int32, flat entry -> COO edge
+    ent_mask: torch.Tensor             # [P] bool, flat entry validity
 
     @property
     def num_edges(self) -> int:
         return self.edge_pos.shape[0]
-
-    @property
-    def ent_mask(self) -> torch.Tensor:
-        """[P] bool: the validity of each flat entry."""
-        return torch.cat([m.reshape(-1) for m in self.mask])
 
     @property
     def num_nodes(self) -> int:
@@ -236,7 +233,8 @@ class EllGraph:
             t_boundaries=tuple(int(b) for b in t_boundaries),
             t_widths=tuple(t_ws), t_perm=i32(t_perm), ent_row=i32(ent_row),
             ent_off=tuple(int(o) for o in offs), ent_src=i32(flat(nbrs)),
-            ent_edge=i32(flat(slots_l)))
+            ent_edge=i32(flat(slots_l)),
+            ent_mask=bools(flat(masks).astype(bool)))
 
 
 def _edge_rows(ea, slots):
@@ -281,7 +279,8 @@ def ell_edge_grad(g: torch.Tensor, ell: EllGraph, mode: str, *,
                   xd: Optional[torch.Tensor] = None,
                   heads: int = 1) -> torch.Tensor:
     """K11: the gradient of an ELL layer's edge table, [E, D] in COO edge
-    order, each row written once (edge e's entry ``edge_pos[e]``). ``g``
+    order, each row written once from edge e's entry ``edge_pos[e]`` (the
+    kernel walks the valid entries in destination order). ``g``
     [N, D]: the layer's output cotangent by destination row. ``mode``
     ``gine``: ``g[row] * 1[x[src] + ea[e] > 0]`` (x [N, D] the layer's
     input, ea [E, D] its edge table); ``gat``: ``alpha[p, h] * g[row] +
@@ -302,8 +301,9 @@ def ell_edge_grad(g: torch.Tensor, ell: EllGraph, mode: str, *,
     if g.device.type == "cpu":
         return _ell_edge_grad_plain(g, ell, mode, x, ea, alpha, coef, vec,
                                     xd, heads)
-    device = _build.require_cuda("ell_edge_grad", g, ell.edge_pos,
-                                 ell.ent_row, ell.ent_src, *need)
+    device = _build.require_cuda("ell_edge_grad", g, ell.ent_mask,
+                                 ell.ent_row, ell.ent_src, ell.ent_edge,
+                                 *need)
     n, e, p_total = ell.num_nodes, ell.num_edges, ell.ent_row.shape[0]
     if g.dim() != 2 or g.shape[0] != n or g.dtype not in _DTYPES:
         raise ValueError("ell_edge_grad: g must be [N, D], fp32 or bf16")
@@ -324,12 +324,13 @@ def ell_edge_grad(g: torch.Tensor, ell: EllGraph, mode: str, *,
         t.data_ptr() % 16 == 0 for t in (g, x, ea, xd, out)
         if t is not None))
     _build.launch("ell_edge_grad", "gigl_ell_edge_grad", device,
-                  g.data_ptr(), ell.edge_pos.data_ptr(),
+                  g.data_ptr(), ell.ent_mask.data_ptr(),
                   ell.ent_row.data_ptr(), ell.ent_src.data_ptr(),
-                  _build.ptr(x), _build.ptr(ea), _build.ptr(alpha),
-                  _build.ptr(coef), _build.ptr(vec), _build.ptr(xd),
-                  out.data_ptr(), e, d, heads, d // heads, _DTYPES[g.dtype],
-                  EDGE_GRAD_MODES[mode], vec_path)
+                  ell.ent_edge.data_ptr(), _build.ptr(x), _build.ptr(ea),
+                  _build.ptr(alpha), _build.ptr(coef), _build.ptr(vec),
+                  _build.ptr(xd), out.data_ptr(), p_total, d, heads,
+                  d // heads, _DTYPES[g.dtype], EDGE_GRAD_MODES[mode],
+                  vec_path)
     return out
 
 

@@ -47,16 +47,18 @@ serving paths on the card against the CPU (exact full-graph HGT,
 SimpleHGN and RGCN; sampled HGT, live and tabularized), fp32 within 1e-5
 of the scale, and three typed training steps (HGT, RGCN) against the CPU.
 Edge features: K6 / K6b in gine mode and K11 ell_edge_grad (gine, gat,
-transformer; heads 1, 3, 4; widths 128, 12, 5; an edgeless graph; ELL
-graphs with empty buckets), K7 / K7b with the edge addend (ELL layout) and
+transformer; heads 1, 3, 4; widths 256, 128, 15, 12, 8, 6, 5; an edgeless
+graph; ELL graphs with empty buckets, a width-4096 hub bucket, isolated
+nodes, multi-edges and self-loops), K7 / K7b with the edge addend (ELL layout) and
 with the per-slot logit bias (dense block, an all-masked relation), the
 same tolerances (K11 gine bit-equal: a gated permutation); encode_ell's
 gradients with edge features (GINE, EdgeAttrGAT, Transformer) and NALP /
 typed SimpleHGN steps with the label-edge scorer on the card against the
 CPU. Quantized tables and the count-min sketch: K12 gather_rows_q8 (D 6,
 12, 16, 128 and 136: its one-, four- and eight-value pieces; fp32 and bf16
-out; with the degrees) and K13 cms_add / K14 cms_estimate (the shared-memory and the
-global-atomic K13, odd widths, ids up to 2**31 - 1, an empty batch)
+out; with the degrees) and K13 cms_add / K14 cms_estimate (widths 1 to
+65536, depth 1 to 8, odd widths, ids up to 2**31 - 1 and negative, one id
+repeated 1,024 times, empty and 65,536-id batches, a wrapping total)
 bit-equal to their twins; K2 in its int8 mode within rtol 1e-5; K5 with
 the logQ term (p = 0 included) at K5's tolerances; two NALP steps over int8
 features and cache with the sketch on, on the card against the CPU (losses
@@ -1387,24 +1389,61 @@ def test_ell_gine_forward_and_backward_match_plain(dev, dtype, d,
     assert _build.launches["ell_aggregate"] == nonempty
 
 
+def _edge_grad_graph(dev, kind, seed=7):
+    """K11's graphs: ``buckets`` (_edge_case's: empty buckets, widths up to
+    256), ``hub`` (node 2 of in-degree 3,100: a width-4096 bucket whose row
+    spans many of K11's entry chunks), ``multi`` (isolated nodes, repeated
+    edges and self-loops) and ``edgeless``."""
+    if kind == "buckets":
+        return _edge_case(dev, 700, 8, torch.float32, seed)[0], 700
+    rng = np.random.default_rng(seed)
+    src, dst = _hub_graph(700, seed, 400)
+    if kind == "hub":
+        src = np.concatenate([src, rng.integers(0, 700, 3100)])
+        dst = np.concatenate([dst, np.full(3100, 2)])
+    elif kind == "multi":
+        src = np.concatenate([src, [5, 5, 5, 9, 9, 11, 12]])
+        dst = np.concatenate([dst, [6, 6, 6, 9, 9, 11, 12]])
+    elif kind == "edgeless":
+        src = dst = np.zeros((0,), np.int64)
+    ell = EllGraph.from_csr(build_csr(src, dst, num_anchor_nodes=700,
+                                      num_neighbor_nodes=700), device=dev)
+    return ell, 700
+
+
+@pytest.mark.parametrize("graph", ["buckets", "hub", "multi", "edgeless"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("mode", ["gat", "transformer"])
-@pytest.mark.parametrize("heads,dh", [(1, 8), (3, 5), (4, 64)])
-def test_ell_edge_grad_matches_plain(dev, dtype, mode, heads, dh):
-    ell, _, _, g = _edge_case(dev, 700, heads * dh, dtype)
+@pytest.mark.parametrize("mode", ["gat", "transformer", "gine"])
+@pytest.mark.parametrize("heads,dh", [(1, 8), (3, 5), (3, 2), (4, 64)])
+def test_ell_edge_grad_matches_plain(dev, dtype, mode, heads, dh, graph):
+    """K11 against its twin, every edge's row (so every row was written),
+    one launch a call: the 16-byte path (D 8 and 256) and the scalar one
+    (D 15; D 6 in bf16), gine bit-equal (a gated permutation)."""
+    ell, n = _edge_grad_graph(dev, graph)
+    if graph == "hub":
+        assert ell.widths[-1] == 4096
+    g = torch.Generator(device=dev).manual_seed(heads * dh)
     d, p = heads * dh, ell.ent_row.shape[0]
-    gout, xd = (torch.randn((700, d), generator=g, device=dev).to(dtype)
-                for _ in range(2))
+    gout, xd, x = (torch.randn((n, d), generator=g, device=dev).to(dtype)
+                   for _ in range(3))
+    ea = torch.randn((ell.num_edges, d), generator=g, device=dev).to(dtype)
     alpha = torch.rand((p, heads), generator=g, device=dev)
     coef = torch.randn((p, heads), generator=g, device=dev)
     vec = torch.randn(d, generator=g, device=dev)
-    kw = dict(alpha=alpha, coef=coef, heads=heads,
-              vec=vec if mode == "gat" else None,
-              xd=xd if mode == "transformer" else None)
+    kw = {"gine": dict(x=x, ea=ea),
+          "gat": dict(alpha=alpha, coef=coef, vec=vec, heads=heads),
+          "transformer": dict(alpha=alpha, coef=coef, xd=xd,
+                              heads=heads)}[mode]
+    _build.reset_launches()
     got = edge_ops.ell_edge_grad(gout, ell, mode, **kw)
+    torch.cuda.synchronize()
+    assert _build.launches["ell_edge_grad"] == 1
     want = edge_ops._ell_edge_grad_plain(gout, ell, mode, **kw)
     assert got.shape == (ell.num_edges, d) and got.dtype == dtype
-    _within(got, want, dtype)
+    if mode == "gine":
+        assert torch.equal(got, want)
+    elif ell.num_edges:
+        _within(got, want, dtype)
 
 
 def test_ell_edge_grad_edgeless_graph(dev):
@@ -1626,20 +1665,29 @@ def test_gather_rows_q8_bit_equal(dev, dtype, dim):
     assert gather_rows_q8(t.q, t.scale, ids[1], dtype)[1] is None
 
 
-@pytest.mark.parametrize("depth,width", [(5, 2048), (3, 2047), (1, 7),
-                                         (4, 4099)])
+@pytest.mark.parametrize("depth,width", [
+    (5, 2048), (3, 2047), (1, 7), (4, 4099), (1, 1), (8, 1), (8, 7),
+    (1, 2048), (8, 2049), (1, 65536), (8, 65536)])
 def test_cms_kernels_bit_equal(dev, depth, width):
-    """K13 (shared-memory table; 4 x 4099 is past 48 KB: the global-atomic
-    pass) and K14 against their twins on the card, ids up to 2**31 - 1
-    with duplicates, three batches and an empty one; the input sketch is
-    never written."""
+    """K13 (one tiled kernel for every width: 65536 is a 256 KB sketch of
+    eight 8192-cell tiles a row, 2049 and 7 take the one-cell accesses) and
+    K14 against their twins on the card, over batches of no id, one id,
+    1,024 ids up to 2**31 - 1 with duplicates, 1,024 copies of one id
+    (1,024 atomics on one cell a row), negative ids and 65,536 ids, with
+    the total wrapping past 2**31 - 1; one launch a call, and the input
+    sketch is never written."""
     rng = np.random.default_rng(width)
     top = np.arange(2**31 - 8, 2**31, dtype=np.int64).astype(np.int32)
     got = cms_ops.cms_init(depth, width, device=dev)
+    got = got._replace(total=torch.tensor(2**31 - 50_000, dtype=torch.int32,
+                                          device=dev))
     want = got
-    for k in range(4):
-        n = (0, 1024, 333, 1)[k]
-        ids = np.concatenate([rng.integers(0, 500, n), top[:min(n, 8)]])
+    batches = [np.zeros(0, np.int64),
+               np.concatenate([rng.integers(0, 500, 1016), top]),
+               rng.integers(0, 500, 333), np.array([7]),
+               np.full(1024, 123_456_789), rng.integers(-2**31, 0, 999),
+               rng.integers(-2**31, 2**31, 65_536)]
+    for ids in batches:
         t_ids = torch.from_numpy(ids.astype(np.int32)).to(dev)
         before = got.table.clone()
         launches = _build.launches["cms_add"]
@@ -1656,6 +1704,7 @@ def test_cms_kernels_bit_equal(dev, depth, width):
                            cms_ops._cms_estimate_plain(want, query))
         assert torch.equal(cms_ops.cms_sampling_probability(got, query),
                            cms_ops._cms_probability_plain(want, query))
+    assert int(got.total) < 0                    # wrapped past 2**31 - 1
 
 
 @pytest.mark.parametrize("agg", ["mean", "sum", "gcn"])

@@ -128,6 +128,58 @@ def test_entry_tables_bit_equal(widths):
     np.testing.assert_array_equal(flat[1][pos], np.arange(len(src)))
 
 
+def _graph_of(kind):
+    """The edge sets K11's validity table is checked on: the module's graph,
+    a hub of in-degree 3,000 (a width-4096 bucket), repeated edges and
+    self-loops beside isolated nodes, and no edges."""
+    src, dst, _ = _graph()
+    if kind == "hub":
+        rng = np.random.default_rng(11)
+        src = np.concatenate([src, rng.integers(0, N, 3000)])
+        dst = np.concatenate([dst, np.full(3000, HUB)])
+    elif kind == "multi":
+        src = np.concatenate([src, [7, 7, 7, 9, 9, 10]])
+        dst = np.concatenate([dst, [8, 8, 8, 9, 9, 10]])
+    elif kind == "edgeless":
+        src = dst = np.zeros((0,), np.int64)
+    return src, dst
+
+
+@pytest.mark.parametrize("kind", ["random", "hub", "multi", "edgeless"])
+def test_entry_validity_table(kind):
+    """ent_mask, the flat table K11 reads to skip padding entries: the
+    port's per-bucket masks flattened and the reference's, bit for bit
+    (the reference builds no edgeless EllGraph, whose entries are all
+    padding); edge_pos[ent_edge[p]] == p exactly on the valid entries; the
+    valid entries are the edges, each once."""
+    src, dst = _graph_of(kind)
+    if kind == "edgeless":   # the reference's from_csr needs an edge
+        tell = ell.EllGraph.from_csr(build_csr(
+            src, dst, num_anchor_nodes=N, num_neighbor_nodes=N),
+            device="cpu")
+        jmask = np.zeros(tell.ent_row.shape[0], bool)
+    else:
+        jell, tell = _ells(src, dst)
+        jmask = np.concatenate([np.asarray(m).reshape(-1)
+                                for m in jell.mask])
+    if kind == "hub":
+        assert tell.widths[-1] == 4096
+    valid = tell.ent_mask.numpy()
+    assert tell.ent_mask.dtype == torch.bool
+    assert valid.shape == (tell.ent_row.shape[0],)
+    np.testing.assert_array_equal(valid, torch.cat(
+        [m.reshape(-1) for m in tell.mask]).numpy())
+    np.testing.assert_array_equal(valid, jmask)
+    ent_edge, pos = tell.ent_edge.numpy(), tell.edge_pos.numpy()
+    p = np.arange(len(valid))
+    if len(src):
+        np.testing.assert_array_equal(pos[ent_edge] == p, valid)
+    assert int(valid.sum()) == len(src)
+    np.testing.assert_array_equal(np.sort(ent_edge[valid]),
+                                  np.arange(len(src)))
+    np.testing.assert_array_equal(np.sort(pos), p[valid])
+
+
 # -- K6 / K6b gine and K11 against jax.vjp of the reference's ops -----------------
 def _ref_gine_agg(x_p, ea, jell):
     """The reference's ell_gather + ell_gather_edges + GINEConv.block's

@@ -164,6 +164,37 @@ def test_isolated_nodes_and_empty_buckets():
         assert _build.launches["ring_spmm"] == 0   # twins on the CPU
 
 
+def test_padding_slots_with_a_non_finite_held_row():
+    """ROADMAP C8: where a held block's row 0 is not finite, the reference's
+    padding slots add 0 * inf = NaN into row 0 of the holding shard
+    (gigl_tpu/parallel/halo.py:173-174); K18's index has no padding slots,
+    so the port's rows stay finite. Both outputs as they are: NaN exactly
+    in row 0 of every shard with a padded bucket on the reference's side,
+    every other row equal."""
+    n, d, p = 40, 4, 8                          # per = 5
+    rng = np.random.default_rng(2)
+    src, dst = rng.integers(0, n, 120), rng.integers(0, n, 120)
+    keep = src % 5 != 0          # no real edge reads a block's row 0
+    edges = np.stack([src[keep], dst[keep]])
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x[::5] = np.inf                             # row 0 of every block
+    want, _, _ = jax_halo.ring_sharded_aggregate(
+        edges, x, n, jax_make_mesh(p), reduce="sum")
+    want = np.asarray(want)
+    got, _, sched = halo.ring_sharded_aggregate(
+        edges, x, n, Mesh(p, "cpu"), reduce="sum")
+    got = got.numpy()
+    padded = [s * 5 for s in range(p)
+              if (sched.counts[s] < sched.counts.max()).any()]
+    assert padded
+    np.testing.assert_array_equal(
+        np.nonzero(np.isnan(want).any(1))[0], padded)
+    assert np.isnan(want[padded]).all()
+    assert np.isfinite(got).all()
+    rest = np.setdiff1d(np.arange(n), padded)
+    assert _rel(got[rest], want[rest]) <= 1e-5
+
+
 def test_ring_sharded_aggregate_reusable_closure():
     edges, x, w = _graph(n=97, e=801, d=8, seed=3)
     out, run, sched = halo.ring_sharded_aggregate(
