@@ -31,8 +31,10 @@
    flagship graph on the host; holds K6 ell_aggregate (mean, sum, max,
    GCN-weighted) and K7 fanout_attention (GAT v1, GATv2, Transformer, H=4)
    against their plain versions at the flagship's largest ELL bucket
-   ([77,433, 32]) in bf16 and times them beside their bounds and library
-   yardsticks; then runs run_full_graph_inference at full width for the
+   ([77,433, 32]) in bf16 (K7 also GAT in fp32 at head dims 64 and 4, the
+   full-batch GAT step's two layers; its row and K7b's print the loads
+   ahead compiled in, `kDepth`) and times them beside their bounds and
+   library yardsticks; then runs run_full_graph_inference at full width for the
    flagship GraphSAGE and for GAT v1 with 4 heads (hidden 256, out 128,
    bf16, seeded init_params), each with the launch counts reset just before
    and read just after, checks the export and recomputes the whole pass
@@ -200,6 +202,7 @@ It imports neither JAX nor the JAX package.
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -396,6 +399,18 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+def loads_ahead():
+    """The loads ahead compiled into the attention kernels (K7, K7b): the
+    pieces of max(1, kDepth / K) slots per lane, K the slot row's pieces
+    per lane (csrc/gigl_attention.cuh)."""
+    text = (REPO / "gigl_tpu_torch" / "csrc" / "gigl_attention.cuh"
+            ).read_text()
+    depth = re.search(r"constexpr int kDepth = (\d+);", text)
+    check(depth is not None, "gigl_attention.cuh: no kDepth")
+    return {"k_depth": int(depth.group(1)),
+            "slots_ahead_per_lane": "max(1, kDepth / K)"}
+
+
 def profile_summary(prof, steps, window_us, host_ms_per_step):
     """Device time per step, busy share and the top device ops from a
     torch.profiler run over ``steps`` training steps."""
@@ -423,9 +438,17 @@ def profile_summary(prof, steps, window_us, host_ms_per_step):
         by_name[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
     device_ms = sum(t for t, _ in by_name.values()) / steps / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    attention = dict.fromkeys(("fanout_attention", "fanout_attention_bwd"),
+                              0.0)
+    for n, (t, _) in by_name.items():
+        if "fanout_attention_bwd" in n or "sum_partials_kernel" in n:
+            attention["fanout_attention_bwd"] += t / steps / 1e3
+        elif "fanout_attention_" in n:
+            attention["fanout_attention"] += t / steps / 1e3
     return {
         "device_events": len(events),
         "device_ms_per_step": device_ms,
+        "attention_ms_per_step": attention,
         "device_busy_ms_per_step": busy / steps / 1e3,
         "busy_share_of_profiled_window": busy / window_us,
         "busy_share_of_unprofiled_step": busy / steps / 1e3
@@ -1387,7 +1410,10 @@ def edge_gate_flips(ell, mode, slope=0.2):
     edge's gradient row differs by a whole term: GINE's relu of ``x[src] +
     e`` (recomputed from the recorded layer inputs), EdgeAttrGAT's
     leaky_relu derivative of the logit's pre-activation (an entry whose K7b
-    coefficient is the plain one times the slope or its inverse). A gate
+    coefficient is the plain one times the slope or its inverse: every
+    entry whose two coefficients differ by more than 1e-3 of the layer's
+    largest must be one, and one whose differ by more than fp32 noise, 1e-5
+    of it, is one when its ratio is the slope's). A gate
     that flips in one layer also moves the cotangent of its entry's source
     row (for attention, its destination's too) in the layer below, hence
     that layer's rows of the edges into those nodes. ``explain`` marks the
@@ -1423,6 +1449,10 @@ def edge_gate_flips(ell, mode, slope=0.2):
         moved = torch.zeros(ell.num_nodes, dtype=torch.bool,
                             device=gk.device)  # sources whose cotangent moved
         n_flip, n_gates, near = 0, 0, 0.0
+        # attention: entries whose coefficients differ by more than fp32
+        # noise (1e-5 of the layer's largest) but less than 1e-3 of it, by
+        # the slope's ratio (a flipped gate of a smaller coefficient) or not
+        n_small_ratio, n_small_other = 0, 0
         # the backward calls K11 from the last layer down
         for rk, rp in zip(recs[:half], recs[half:]):
             here = moved[dst]
@@ -1441,7 +1471,15 @@ def edge_gate_flips(ell, mode, slope=0.2):
                     (ratio - 1 / slope).abs() <= 1e-2 / slope).all()),
                       f"{name}: K7b coefficients differ from the plain step "
                       "by other than a leaky_relu slope")
-                fl = off & ell.ent_mask[:, None]
+                small = ((ck - cp).abs() > 1e-5 * cp.abs().max()) & ~off
+                rs = ck[small] / cp[small]
+                is_ratio = ((rs - slope).abs() <= 1e-2 * slope) | (
+                    (rs - 1 / slope).abs() <= 1e-2 / slope)
+                n_small_ratio += int(is_ratio.sum())
+                n_small_other += int((~is_ratio).sum())
+                flips = off.clone()
+                flips[small] = is_ratio
+                fl = flips & ell.ent_mask[:, None]
                 here |= fl.any(1)[pos]
             flipped |= here
             moved[src[here]] = True
@@ -1458,6 +1496,8 @@ def edge_gate_flips(ell, mode, slope=0.2):
             "rows_over_1e-4": int(rows.sum()),
             "rows_with_a_flipped_gate": int(flipped.sum()),
             "unexplained_rows": int((rows & ~flipped).sum()),
+            "small_slope_ratio_entries": n_small_ratio,
+            "small_other_entries": n_small_other,
             "gates": n_gates, "gates_flipped": n_flip,
             "gine_flipped_sum_rel_to_scale": near}
 
@@ -4181,6 +4221,34 @@ def main():
                     "eager_ms": eager_ms(k7_kernel),
                     "bound_ms": bound_ms(nbytes, nops)[0],
                     "nbytes": nbytes, "nops": nops}
+    # GAT in fp32 at the full-batch GAT step's two layers: Dh 64 (hidden
+    # 256) and Dh 4 (16 classes over 4 heads), the same bucket
+    for hd_ in (HID, C):
+        xd_, ks_ = (torch.randn(s_, generator=gen6, device=dev)
+                    for s_ in ((n_b, hd_), (N, hd_)))
+        a1_, a2_ = (torch.randn(hd_, generator=gen6, device=dev) * 0.2
+                    for _ in range(2))
+
+        def k7f_kernel(xd_=xd_, ks_=ks_, a1_=a1_, a2_=a2_):
+            return _fanout_attention_fwd(xd_, ks_, ks_, nbr_b, mask_b, "gat",
+                                         GAT_HEADS, a1_, a2_, 0.2)
+
+        def k7f_plain(xd_=xd_, ks_=ks_, a1_=a1_, a2_=a2_):
+            return _fanout_attention_plain(xd_, ks_, ks_, nbr_b, mask_b,
+                                           "gat", GAT_HEADS, a1_, a2_)
+
+        # fp32 sums and exps in another order
+        err = rel_err(k7f_kernel(), k7f_plain(),
+                      f"K7 gat fp32 Dh {hd_ // GAT_HEADS}", tol=1e-5)
+        nbytes = n_b * hd_ * 4 * 2 + uniq_b * hd_ * 4 + n_b * w_b * 5
+        nops = valid_b * hd_ * 4
+        k7[f"gat_dh{hd_ // GAT_HEADS}_fp32"] = {
+            "err": err, "ms": cuda_ms(k7f_kernel),
+            "plain_ms": cuda_ms(k7f_plain, reps=3),
+            "eager_ms": eager_ms(k7f_kernel),
+            "bound_ms": bound_ms(nbytes, nops)[0], "nbytes": nbytes,
+            "nops": nops, "head_dim": hd_ // GAT_HEADS}
+        del xd_, ks_
     q_s = xd7.reshape(n_b, GAT_HEADS, 1, dh7)
     k_s, v_s = (t_[nbr_b.long()].reshape(n_b, w_b, GAT_HEADS, dh7)
                 .transpose(1, 2).contiguous() for t_ in (ks7, vs7))
@@ -4205,6 +4273,7 @@ def main():
                         "no single-call counterpart",
            bucket=[n_b, w_b], heads=GAT_HEADS, head_dim=dh7,
            eager_ms=k7["gat"]["eager_ms"],
+           loads_ahead=loads_ahead(),
            modes={m_: {k_: v_ for k_, v_ in v.items()
                        if k_ not in ("nbytes", "nops")}
                   for m_, v in k7.items()})
@@ -4483,6 +4552,7 @@ def main():
                         "gathered beforehand, timed eagerly",
            bucket=[nf_b, wf_b], heads=GAT_HEADS, dtype="float32",
            eager_ms=k7b["gat_dh64"]["eager_ms"],
+           loads_ahead=loads_ahead(),
            modes={m_: {k_: v_ for k_, v_ in v.items()
                        if k_ not in ("nbytes", "nops")}
                   for m_, v in k7b.items()})

@@ -13,10 +13,10 @@
 // ks = vs = lin_src(x); Transformer: lin_k(x), lin_v(x)) and xd[i] the
 // projected destination row (GAT: lin_dst(x_dst); Transformer: lin_q).
 // Rows are [H * Dh], head-major. Arithmetic in fp32, one rounding to the
-// output type; masked slots point at row 0 and are skipped by the mask.
-// When a gradient will be needed, each (row, head)'s final max and
-// denominator go to `stats` for the backward (K7b, fanout_attention_bwd.cu).
-// Two optional operands:
+// output type; masked slots are skipped. When a gradient will be needed,
+// each (row, head)'s final max and the denominator relative to it go to
+// `stats` for the backward (K7b, fanout_attention_bwd.cu). Two optional
+// operands:
 //   he [E, H*Dh] an edge row per slot, read through eidx [n, W] int32 (the
 //      ELL bucket's edge slots): added to the slot's key row and to its
 //      value row, as EdgeAttrGAT adds lin_edge(e) to lin_src(x_j)
@@ -28,38 +28,61 @@
 //      (edge_emb[r] @ w_rel)·att_rel broadcast to the relation's slots of
 //      the concatenated block (gigl_tpu/models/hetero_convs.py:221-228).
 //
-// Bound: bytes at the flagship widths (two reads of ~2*Dh bytes per valid
-// slot and head against ~6*Dh flops). Design: one 128-thread block per
-// destination row (not one warp: the K5 lesson, 132 SMs to fill). W is
-// walked in chunks of kChunk slots, each in three phases:
-//   1. logits into shared memory;
-//   2. one warp per head takes the chunk's max, rescales the running sum
-//      once, and writes exp(logit - max) back — one exp per slot, as in
-//      K5's second version, and a single chunk for every width up to
-//      kChunk (the flagship's buckets);
-//   3. the weighted sum of the value rows.
-// Rows made of 16-byte pieces that stay within a head (H*Dh and Dh
-// multiples of 8 bf16 / 4 fp32, H*Dh <= 64 pieces, 16-byte aligned tables)
-// take the vector path: one warp per slot, each lane one or two 16-byte
-// pieces of the slot's row, so every gathered row is read as coalesced
-// 16-byte loads in phases 1 and 3; the per-piece dot products are summed
-// per head through shared memory, and each warp's partial value sums are
-// added across the block's warps. Other rows take the scalar path: one
-// thread per (head, slot) reading the slot's Dh values in phase 1, one
-// thread per output value looping over the chunk's slots in phase 3.
-#include "gigl_pieces.cuh"
+// Bound: bytes. Each valid slot gathers a key row (and a value row when it
+// is another table) of H * Dh values, ~2-4 flops per value read; at the
+// flagship's widths a row is 64 B (Dh 4 fp32) to 1 KB (Dh 64 fp32).
+//
+// Design: a warp per destination row (fanout_attention_warp.cuh), the lane
+// map of gigl_attention.cuh. The row's query piece (and the attention
+// vector's) sits in registers in the same lane layout as a slot's pieces.
+// A chunk of the row's slots is read one slot a lane (nbr, mask, eidx
+// coalesced) and compacted to its valid slots by a ballot, so masked slots
+// cost nothing; each slot group then takes its next valid slot, broadcast
+// by __shfl_sync. The raw 16-, 8- or 4-byte pieces of the next
+// max(1, kDepth / K) slots (edge rows and bias terms too) are loaded
+// before the current ones' arithmetic. Per head, a logit is a butterfly of
+// xor shuffles inside the head's lanes, which all compute the same logit,
+// and each slot group keeps an online softmax in registers (running max,
+// denominator and weighted value sum; one rescale a batch, one exp a
+// slot). At the row's end the groups are merged by shuffles, rescaled to
+// the common max, and group 0 writes the output and the stats. No shared
+// memory, no block barrier. Narrow heads fill the warp: at Dh 4 fp32, H 4
+// a slot takes 4 lanes and a warp works on 8 slots at once (Dh 4 bf16:
+// 8-byte pieces, the same); the W 4 and W 8 buckets put 2 to 8 rows on a
+// warp. The mode is a template constant for the hot shapes (16-byte
+// pieces at K <= 2, 8-byte pieces at K 1; fanout_attention_fp32.cu and
+// _bf16.cu) and read at run time for the others. At the flagship's largest
+// bucket (chip_smoke, H100 80GB HBM3, 700 W) bf16 GAT Dh 64 takes 0.32 ms
+// and fp32 Dh 64 0.51-0.54: ~3 TB/s of gathered rows, since each valid
+// slot's row comes again from a table the 50 MB L2 does not hold, where
+// the bound counts each distinct row once.
+// Heads whose bytes are not a multiple of 4 (bf16 heads of odd Dh), rows
+// wider than 128 virtual lanes (more than 512 fp32 or 1,024 bf16 values at
+// 16-byte pieces), and tables not 4-byte aligned take the scalar code
+// instead — the first version's, chosen by shape in the launcher: one
+// 128-thread block per row, chunks of kChunk slots in three phases through
+// shared memory (logits; the chunk's max, exps and rescaled sum per head;
+// one thread per output value summing the value rows).
+// The first version ran every shape that way, with a warp per slot of a
+// 16-byte-piece row: 0.983 ms for bf16 GAT Dh 64 at the flagship's largest
+// bucket, 23x its 0.0427 ms bound, the block's fixed cost spread over ~20
+// valid slots a row and 28 of 32 lanes idle at Dh 4.
+#include "fanout_attention_warp.cuh"
+
+namespace gigl {
+namespace k7 {
+GIGL_K7_FAST(GIGL_K7_DECLARE, float)
+GIGL_K7_FAST(GIGL_K7_DECLARE, __nv_bfloat16)
+}  // namespace k7
+}  // namespace gigl
 
 namespace {
 
 using namespace gigl;  // to_float, from_float, load_piece, ...
+using namespace gigl::attn;
+using namespace gigl::k7;
 
-constexpr int kGat = 0;
-constexpr int kGatV2 = 1;
-constexpr int kTransformer = 2;
-constexpr int kChunk = 64;
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxPiecesPerLane = 2;
+constexpr int kChunk = 64;  // the scalar code's slots per chunk
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
@@ -68,42 +91,29 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 
-__device__ __forceinline__ float leaky(float z, float slope) {
-  return z > 0.f ? z : z * slope;
-}
-
-// The logit of one head from its summed dot product (phase 1's epilogue).
-__device__ __forceinline__ float finish_logit(float a, int mode, float sd_h,
-                                              float slope, float sqrt_dh) {
-  if (mode == kGat) return leaky(a + sd_h, slope);
-  if (mode == kGatV2) return a;
-  return a / sqrt_dh;
-}
+// ---------------------------------------------------------------------------
+// The scalar code (the first version's), for the shapes the warp path has
+// no lane map for.
 
 // Shared memory in floats: q, att, acc [hd]; lg [heads, kChunk]; mx, den,
-// rs, sd [heads]; and for the vector path red [kWarps, pieces] and wacc
-// [kWarps, hd].
-__host__ __device__ inline size_t smem_floats(int heads, int dh, bool vec,
-                                              int pieces) {
+// rs, sd [heads].
+__host__ __device__ inline size_t smem_floats(int heads, int dh) {
   const size_t hd = static_cast<size_t>(heads) * dh;
-  size_t n = 3 * hd + static_cast<size_t>(heads) * kChunk + 4 * heads;
-  if (vec) n += kWarps * (static_cast<size_t>(pieces) + hd);
-  return n;
+  return 3 * hd + static_cast<size_t>(heads) * kChunk + 4 * heads;
 }
 
-template <typename T, bool VEC, bool EXTRA>
-__global__ void __launch_bounds__(kThreads) fanout_attention_kernel(
+template <typename T, bool EXTRA>
+__global__ void __launch_bounds__(kThreads) fanout_attention_scalar(
     const T* __restrict__ xd, const T* __restrict__ ks,
     const T* __restrict__ vs, const int32_t* __restrict__ nbr,
     const uint8_t* __restrict__ mask, const float* __restrict__ att,
@@ -111,15 +121,12 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_kernel(
     const int32_t* __restrict__ eidx, const float* __restrict__ bias,
     T* __restrict__ out, float* __restrict__ stats, int w, int heads, int dh,
     int mode, float slope, float sqrt_dh) {
-  // without the optional operands their code folds away (EXTRA false)
   if constexpr (!EXTRA) {
     he = nullptr;
     bias = nullptr;
   }
-  constexpr int P = 16 / sizeof(T);
   extern __shared__ float smem[];
   const int hd = heads * dh;
-  const int pieces = hd / P;
   float* q = smem;                   // [hd] the destination row, fp32
   float* at = q + hd;                // [hd] att_src (v1) or att (v2)
   float* acc = at + hd;              // [hd] running weighted sums
@@ -128,12 +135,11 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_kernel(
   float* den = mx + heads;           // [heads] running denominator
   float* rs = den + heads;           // [heads] this chunk's rescale
   float* sd = rs + heads;            // [heads] GAT v1: xd[i,h]·att_dst[h]
-  float* red = sd + heads;           // VEC: [kWarps, pieces] dot partials
-  float* wacc = red + kWarps * pieces;  // VEC: [kWarps, hd] value partials
   const float neg_inf = -__int_as_float(0x7f800000);
   const int64_t i = blockIdx.x;
   const int t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
+  constexpr int kWarps = kThreads / 32;
   for (int e = t; e < hd; e += kThreads) {
     q[e] = to_float(xd[i * hd + e]);
     at[e] = mode == kTransformer ? 0.f : att[e];
@@ -159,93 +165,43 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_kernel(
   const int32_t* erow = he != nullptr ? eidx + i * w : nullptr;
   for (int c0 = 0; c0 < w; c0 += kChunk) {
     const int cw = min(kChunk, w - c0);
-    // 1. logits of the chunk
-    if constexpr (VEC) {
-      const int pph = dh / P;  // pieces per head
-      float* rw = red + warp * pieces;
-      for (int jj = warp; jj < cw; jj += kWarps) {
-        const bool valid = mrow[c0 + jj];  // the same for the whole warp
-        if (valid) {
-          const T* kr = ks + static_cast<int64_t>(nrow[c0 + jj]) * hd;
-          const T* er = erow != nullptr
-                            ? he + static_cast<int64_t>(erow[c0 + jj]) * hd
-                            : nullptr;
-          for (int pc = lane; pc < pieces; pc += 32) {
-            float kv[P];
-            load_piece<T, P>(kr + pc * P, kv);
-            if (er != nullptr) {
-              float ev[P];
-              load_piece<T, P>(er + pc * P, ev);
-#pragma unroll
-              for (int u = 0; u < P; ++u) kv[u] += ev[u];
-            }
-            const int e0 = pc * P;
-            float a = 0.f;
-#pragma unroll
-            for (int u = 0; u < P; ++u) {
-              if (mode == kGat)
-                a += kv[u] * at[e0 + u];
-              else if (mode == kGatV2)
-                a += at[e0 + u] * leaky(kv[u] + q[e0 + u], slope);
-              else
-                a += q[e0 + u] * kv[u];
-            }
-            rw[pc] = a;
-          }
+    // 1. logits of the chunk, a thread per (head, slot)
+    for (int it = t; it < heads * cw; it += kThreads) {
+      const int h = it / cw, jj = it - h * cw;
+      float l = neg_inf;
+      if (mrow[c0 + jj]) {
+        const T* kr = ks + static_cast<int64_t>(nrow[c0 + jj]) * hd + h * dh;
+        const T* er = erow != nullptr
+                          ? he + static_cast<int64_t>(erow[c0 + jj]) * hd +
+                                h * dh
+                          : nullptr;
+        const float* qh = q + h * dh;
+        const float* ah = at + h * dh;
+        float a = 0.f;
+        for (int e = 0; e < dh; ++e) {
+          const float kv =
+              to_float(kr[e]) + (er != nullptr ? to_float(er[e]) : 0.f);
+          if (mode == kGat)
+            a += kv * ah[e];
+          else if (mode == kGatV2)
+            a += ah[e] * leaky(kv + qh[e], slope);
+          else
+            a += qh[e] * kv;
         }
-        __syncwarp();
-        for (int h = lane; h < heads; h += 32) {
-          float l = neg_inf;
-          if (valid) {
-            float a = 0.f;
-            for (int pc = h * pph; pc < (h + 1) * pph; ++pc) a += rw[pc];
-            const float bj =
-                bias != nullptr ? bias[(c0 + jj) * heads + h] : 0.f;
-            l = finish_logit(a, mode, sd[h] + bj, slope, sqrt_dh);
-          }
-          lg[h * kChunk + jj] = l;
-        }
-        __syncwarp();
+        const float bj = bias != nullptr ? bias[(c0 + jj) * heads + h] : 0.f;
+        l = finish_logit(a, mode, sd[h] + bj, slope, sqrt_dh);
       }
-    } else {
-      for (int it = t; it < heads * cw; it += kThreads) {
-        const int h = it / cw, jj = it - h * cw;
-        float l = neg_inf;
-        if (mrow[c0 + jj]) {
-          const T* kr = ks + static_cast<int64_t>(nrow[c0 + jj]) * hd + h * dh;
-          const T* er = erow != nullptr
-                            ? he + static_cast<int64_t>(erow[c0 + jj]) * hd +
-                                  h * dh
-                            : nullptr;
-          const float* qh = q + h * dh;
-          const float* ah = at + h * dh;
-          float a = 0.f;
-          for (int e = 0; e < dh; ++e) {
-            const float kv =
-                to_float(kr[e]) + (er != nullptr ? to_float(er[e]) : 0.f);
-            if (mode == kGat)
-              a += kv * ah[e];
-            else if (mode == kGatV2)
-              a += ah[e] * leaky(kv + qh[e], slope);
-            else
-              a += qh[e] * kv;
-          }
-          const float bj =
-              bias != nullptr ? bias[(c0 + jj) * heads + h] : 0.f;
-          l = finish_logit(a, mode, sd[h] + bj, slope, sqrt_dh);
-        }
-        lg[h * kChunk + jj] = l;
-      }
+      lg[h * kChunk + jj] = l;
     }
     __syncthreads();
     // 2. per head: the chunk's max, one exp per slot, the rescaled sum
     for (int h = warp; h < heads; h += kWarps) {
       float* lh = lg + h * kChunk;
-      float m = neg_inf;
-      for (int jj = lane; jj < cw; jj += 32) m = fmaxf(m, lh[jj]);
-      m = warp_max(m);
+      float mm = neg_inf;
+      for (int jj = lane; jj < cw; jj += 32) mm = fmaxf(mm, lh[jj]);
+      mm = warp_max(mm);
       const float old = mx[h];
-      const float nm = fmaxf(old, m);
+      const float nm = fmaxf(old, mm);
       float s = 0.f;
       for (int jj = lane; jj < cw; jj += 32) {
         const float l = lh[jj];
@@ -262,66 +218,20 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_kernel(
       }
     }
     __syncthreads();
-    // 3. weighted sum of the value rows
-    if constexpr (VEC) {
-      float part[kMaxPiecesPerLane][P];
-#pragma unroll
-      for (int k = 0; k < kMaxPiecesPerLane; ++k)
-#pragma unroll
-        for (int u = 0; u < P; ++u) part[k][u] = 0.f;
-      for (int jj = warp; jj < cw; jj += kWarps) {
-        if (!mrow[c0 + jj]) continue;  // the same for the whole warp
-        const T* vr = vs + static_cast<int64_t>(nrow[c0 + jj]) * hd;
-        const T* er = erow != nullptr
-                          ? he + static_cast<int64_t>(erow[c0 + jj]) * hd
-                          : nullptr;
-#pragma unroll
-        for (int k = 0; k < kMaxPiecesPerLane; ++k) {
-          const int pc = lane + 32 * k;
-          if (pc >= pieces) continue;
-          const float p = lg[(pc * P / dh) * kChunk + jj];
-          float vv[P];
-          load_piece<T, P>(vr + pc * P, vv);
-          if (er != nullptr) {
-            float ev[P];
-            load_piece<T, P>(er + pc * P, ev);
-#pragma unroll
-            for (int u = 0; u < P; ++u) vv[u] += ev[u];
-          }
-#pragma unroll
-          for (int u = 0; u < P; ++u) part[k][u] += p * vv[u];
-        }
+    // 3. weighted sum of the value rows, a thread per output value
+    for (int e = t; e < hd; e += kThreads) {
+      const int h = e / dh;
+      const float* ph = lg + h * kChunk;
+      float a = acc[e] * rs[h];
+      for (int jj = 0; jj < cw; ++jj) {
+        const float p = ph[jj];
+        if (p == 0.f) continue;
+        float v = to_float(vs[static_cast<int64_t>(nrow[c0 + jj]) * hd + e]);
+        if (erow != nullptr)
+          v += to_float(he[static_cast<int64_t>(erow[c0 + jj]) * hd + e]);
+        a += p * v;
       }
-      float* wa = wacc + warp * hd;
-#pragma unroll
-      for (int k = 0; k < kMaxPiecesPerLane; ++k) {
-        const int pc = lane + 32 * k;
-        if (pc >= pieces) continue;
-#pragma unroll
-        for (int u = 0; u < P; ++u) wa[pc * P + u] = part[k][u];
-      }
-      __syncthreads();
-      for (int e = t; e < hd; e += kThreads) {
-        float a = acc[e] * rs[e / dh];
-#pragma unroll
-        for (int k = 0; k < kWarps; ++k) a += wacc[k * hd + e];
-        acc[e] = a;
-      }
-    } else {
-      for (int e = t; e < hd; e += kThreads) {
-        const int h = e / dh;
-        const float* ph = lg + h * kChunk;
-        float a = acc[e] * rs[h];
-        for (int jj = 0; jj < cw; ++jj) {
-          const float p = ph[jj];
-          if (p == 0.f) continue;
-          float v = to_float(vs[static_cast<int64_t>(nrow[c0 + jj]) * hd + e]);
-          if (erow != nullptr)
-            v += to_float(he[static_cast<int64_t>(erow[c0 + jj]) * hd + e]);
-          a += p * v;
-        }
-        acc[e] = a;
-      }
+      acc[e] = a;
     }
     __syncthreads();
   }
@@ -335,8 +245,54 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_kernel(
   }
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+// ---------------------------------------------------------------------------
+
+// The warp path's form for a (piece width, pieces per lane): the mode a
+// compile-time constant where GIGL_K7_FAST has it (GAT and GATv2 over one
+// table for keys and values, as the port's callers pass them), else read
+// at run time.
+template <typename T, int PW, int K>
+void launch_pw(const Args<T>& a, long long n, int w, const LaneMap& m,
+               int mode, float slope, float sqrt_dh, cudaStream_t stream) {
+  const bool extra = a.he != nullptr || a.bias != nullptr;
+  constexpr bool fast = (PW == 16 && K <= 2) || (PW == 8 && K == 1);
+  if constexpr (fast) {
+    if (mode == kGat && a.ks == a.vs) {
+      if (extra)
+        launch_warp<T, PW, K, kGat, true>(a, n, w, m, mode, slope, sqrt_dh,
+                                          stream);
+      else
+        launch_warp<T, PW, K, kGat, false>(a, n, w, m, mode, slope, sqrt_dh,
+                                           stream);
+      return;
+    }
+    if (mode == kGatV2 && a.ks == a.vs && !extra) {
+      launch_warp<T, PW, K, kGatV2, false>(a, n, w, m, mode, slope, sqrt_dh,
+                                           stream);
+      return;
+    }
+    if (mode == kTransformer) {
+      if (extra)
+        launch_warp<T, PW, K, kTransformer, true>(a, n, w, m, mode, slope,
+                                                  sqrt_dh, stream);
+      else
+        launch_warp<T, PW, K, kTransformer, false>(a, n, w, m, mode, slope,
+                                                   sqrt_dh, stream);
+      return;
+    }
+  }
+  launch_warp<T, PW, K, -1, true>(a, n, w, m, mode, slope, sqrt_dh, stream);
+}
+
+template <typename T, int PW>
+void launch_k(int kk, const Args<T>& a, long long n, int w, const LaneMap& m,
+              int mode, float slope, float sqrt_dh, cudaStream_t stream) {
+  if (kk == 1)
+    launch_pw<T, PW, 1>(a, n, w, m, mode, slope, sqrt_dh, stream);
+  else if (kk == 2)
+    launch_pw<T, PW, 2>(a, n, w, m, mode, slope, sqrt_dh, stream);
+  else
+    launch_pw<T, PW, 4>(a, n, w, m, mode, slope, sqrt_dh, stream);
 }
 
 template <typename T>
@@ -352,16 +308,6 @@ int launch(const void* xd, const void* ks, const void* vs, const void* nbr,
       (mode == kGat && att2 == nullptr) || (he != nullptr && eidx == nullptr) ||
       (bias != nullptr && mode != kGat))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int P = 16 / sizeof(T);
-  const int pieces = heads * dh / P;
-  const bool vec = dh % P == 0 && pieces <= 32 * kMaxPiecesPerLane &&
-                   aligned16(ks) && aligned16(vs) &&
-                   (he == nullptr || aligned16(he)) &&
-                   smem_floats(heads, dh, true, pieces) * sizeof(float) <=
-                       48 * 1024;
-  const size_t smem = sizeof(float) * smem_floats(heads, dh, vec, pieces);
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned grid = static_cast<unsigned>(n);
   const T* x = static_cast<const T*>(xd);
   const T* k = static_cast<const T*>(ks);
   const T* v = static_cast<const T*>(vs);
@@ -374,14 +320,29 @@ int launch(const void* xd, const void* ks, const void* vs, const void* nbr,
   const float* bs = static_cast<const float*>(bias);
   T* o = static_cast<T*>(out);
   float* st = static_cast<float*>(stats);
+  // the warp path wherever a lane map exists (the shape decides)
+  LaneMap m;
+  const int pw = piece_bytes(dh * static_cast<int>(sizeof(T)),
+                             {xd, ks, vs, he, out});
+  const int kk = make_lane_map(heads, dh, sizeof(T), pw, w, &m);
+  if (kk != 0) {
+    const Args<T> a{x, k, v, nb, mk, a1, a2, ev, ei, bs, o, st};
+    if (pw == 16)
+      launch_k<T, 16>(kk, a, n, w, m, mode, slope, sqrt_dh, stream);
+    else if (pw == 8)
+      launch_k<T, 8>(kk, a, n, w, m, mode, slope, sqrt_dh, stream);
+    else
+      launch_k<T, 4>(kk, a, n, w, m, mode, slope, sqrt_dh, stream);
+    return 0;
+  }
+  const size_t smem = sizeof(float) * smem_floats(heads, dh);
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   const bool extra = he != nullptr || bias != nullptr;
-  auto kernel = vec ? (extra ? fanout_attention_kernel<T, true, true>
-                             : fanout_attention_kernel<T, true, false>)
-                    : (extra ? fanout_attention_kernel<T, false, true>
-                             : fanout_attention_kernel<T, false, false>);
-  kernel<<<grid, kThreads, smem, stream>>>(x, k, v, nb, mk, a1, a2, ev, ei,
-                                           bs, o, st, w, heads, dh, mode,
-                                           slope, sqrt_dh);
+  auto kernel = extra ? fanout_attention_scalar<T, true>
+                      : fanout_attention_scalar<T, false>;
+  kernel<<<static_cast<unsigned>(n), kThreads, smem, stream>>>(
+      x, k, v, nb, mk, a1, a2, ev, ei, bs, o, st, w, heads, dh, mode, slope,
+      sqrt_dh);
   return 0;
 }
 

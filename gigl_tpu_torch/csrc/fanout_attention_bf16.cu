@@ -1,0 +1,10 @@
+// K7 fanout_attention's warp path with the mode fixed, bf16 tables: the
+// forms of GIGL_K7_FAST (fanout_attention_warp.cuh), built beside
+// fanout_attention.cu so that the two compile in parallel.
+#include "fanout_attention_warp.cuh"
+
+namespace gigl {
+namespace k7 {
+GIGL_K7_FAST(GIGL_K7_DEFINE, __nv_bfloat16)
+}  // namespace k7
+}  // namespace gigl

@@ -40,57 +40,75 @@
 // too, and summed per relation by the caller).
 // fp32 arithmetic, one rounding of d_xd / d_ks / d_vs to the tables' type.
 //
-// Bound: bytes (each slot's key and value row read once more than the
-// forward, the per-entry arrays written). Design: persistent blocks of 128
-// threads (a grid of a few blocks per SM that walks the rows), one warp per
-// slot: the lanes read the slot's key and value rows across H * Dh (one
-// coalesced load per 32 values) and reduce the two per-value products per
-// head — by shuffles within segments of min(Dh, 32) lanes when Dh is a
-// power of two up to 32 or a multiple of 32, else through shared memory,
-// one lane per head; the warp then re-reads the key row (from L1) to add
-// the slot's share of d_xd or d_att_src into per-warp shared accumulators.
-// Scalar loads keep head dims of 4 (the last GAT layer) on the same path
-// as 64.
-#include "gigl_pieces.cuh"
+// Bound: bytes. Each valid slot reads its key row (and value row) once
+// more than the forward, and the per-entry arrays (ELL) or key / value
+// gradient rows (identity) are written; at the flagship's ELL GAT step
+// 0.153 ms for Dh 64 fp32 and 0.0359 ms for Dh 4 at the largest bucket.
+//
+// Design: persistent warps, a warp per destination row
+// (fanout_attention_bwd_warp.cuh), the lane map of gigl_attention.cuh (as
+// K7). The row's xd, g and att pieces sit in registers in a slot's lane
+// layout, and each lane reads its head's g·out, max and denominator. The
+// row's slots are compacted to the valid ones a chunk at a time (one slot
+// a lane, a ballot) and every slot group takes its next valid slot; the
+// key / value / edge rows of the next max(1, kDepth / K) slots are loaded
+// before the current ones' arithmetic. The two per-head sums of a slot (its
+// logit's and g·v) are xor butterflies inside the head's lanes, so every
+// lane of a head computes the slot's alpha and coefficient itself, and the
+// head's first lane writes the entry's alpha and coef. d_xd (GATv2,
+// Transformer) and GAT's per-head sum of d_pre stay in registers over the
+// row's slots and are reduced across the slot groups at the row's end;
+// d_att_src (GATv2: d_att) stays in registers over every row the warp
+// takes and d_att_dst is summed row by row in the warp's shared memory;
+// the block sums its warps in order into `part`, which
+// sum_partials_kernel sums in block order. No float atomics and no block
+// barrier on the slot path; the same bits on every run (the grid is fixed
+// by the card and the shape). At Dh 4 fp32 a slot's four heads are four
+// lanes, each holding a whole head, so a slot needs no shuffle at all. The
+// mode is a template constant for the hot shapes, as in K7. At the
+// flagship's largest bucket (chip_smoke, H100 80GB HBM3, 700 W): 0.83 ms
+// at GAT Dh 64 fp32, 0.14 at Dh 4; K7 gathers the same Dh 64 rows in
+// ~0.5 ms, the floor here (each valid slot's row again from a 102 MB
+// table).
+// Heads whose bytes are not a multiple of 4 (bf16 heads of odd Dh), rows
+// wider than 128 virtual lanes, and tables not 4-byte aligned take the
+// scalar code instead — the first version's, chosen by shape in the
+// launcher: persistent 128-thread blocks walking one row at a time, a warp
+// per slot, per-head sums through shared memory.
+// The first version ran every shape that way (with 16-byte register loads
+// for rows of 16-byte pieces): 2.640 ms GAT Dh 64 fp32 and 1.446 ms at
+// Dh 4 at the flagship's largest bucket, 17x and 40x their bounds: three
+// or more block barriers a row, each slot a dependent chain through shared
+// memory, 28 of 32 lanes idle at Dh 4.
+#include "fanout_attention_bwd_warp.cuh"
+
+namespace gigl {
+namespace k7b {
+GIGL_K7B_FAST(GIGL_K7B_DECLARE, float)
+GIGL_K7B_FAST(GIGL_K7B_DECLARE, __nv_bfloat16)
+}  // namespace k7b
+}  // namespace gigl
 
 namespace {
 
 using namespace gigl;  // to_float, from_float, load_piece, ...
-
-constexpr int kGat = 0;
-constexpr int kGatV2 = 1;
-constexpr int kTransformer = 2;
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxPiecesPerLane = 2;
+using namespace gigl::attn;
+using namespace gigl::k7b;
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-__device__ __forceinline__ float leaky(float z, float slope) {
-  return z > 0.f ? z : z * slope;
-}
-
-// jax.nn.leaky_relu's derivative: 1 for z >= 0, else the slope.
-__device__ __forceinline__ float leaky_grad(float z, float slope) {
-  return z >= 0.f ? 1.f : slope;
-}
-
-// The logit's per-value product of one slot (summed per head).
-__device__ __forceinline__ float logit_term(int mode, float kv, float q,
-                                            float a, float slope) {
-  if (mode == kGat) return kv * a;
-  if (mode == kGatV2) return a * leaky(kv + q, slope);
-  return q * kv;
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
+
+// ---------------------------------------------------------------------------
+// The scalar code (the first version's), for the shapes the warp path has
+// no lane map for.
 
 // Shared memory in floats: q, g, at, ad, adst [hd]; red1, red2, wrow, watt
 // [kWarps, hd]; t, mx, dn, sd, ssum [heads]; cf, al, sacc [kWarps, heads].
@@ -100,8 +118,8 @@ __host__ __device__ inline size_t smem_floats(int heads, int dh) {
          3 * kWarps * static_cast<size_t>(heads);
 }
 
-template <typename T, bool VEC, bool EXTRA>
-__global__ void __launch_bounds__(kThreads) fanout_attention_bwd_kernel(
+template <typename T, bool EXTRA>
+__global__ void __launch_bounds__(kThreads) fanout_attention_bwd_scalar(
     const T* __restrict__ g, const T* __restrict__ xd,
     const T* __restrict__ ks, const T* __restrict__ vs,
     const T* __restrict__ out, const float* __restrict__ stats,
@@ -113,7 +131,6 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_bwd_kernel(
     float* __restrict__ e_coef, T* __restrict__ d_ks, T* __restrict__ d_vs,
     float* __restrict__ part, int64_t n, int w, int heads, int dh, int mode,
     float slope, float sqrt_dh) {
-  // without K7's optional operands their code folds away (EXTRA false)
   if constexpr (!EXTRA) {
     he = nullptr;
     bias = nullptr;
@@ -139,22 +156,8 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_bwd_kernel(
   float* sacc = al + kWarps * heads;    // [kWarps, heads] per-warp sums
   const bool gat = mode == kGat;
   const bool v2 = mode == kGatV2;
-  const bool same = ks == vs;
   const int t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
-  constexpr int P = 16 / sizeof(T);
-  const int pieces = hd / P;       // VEC: 16-byte pieces of a row
-  const int pph = dh / P;          // VEC: pieces per head, a power of two
-  float kv[kMaxPiecesPerLane][P], vv[kMaxPiecesPerLane][P];
-  float p1[kMaxPiecesPerLane], p2[kMaxPiecesPerLane];
-  float racc[kMaxPiecesPerLane][P], rrow[kMaxPiecesPerLane][P];
-#pragma unroll
-  for (int k = 0; k < kMaxPiecesPerLane; ++k)
-#pragma unroll
-    for (int u = 0; u < P; ++u) {
-      racc[k][u] = 0.f;
-      rrow[k][u] = 0.f;
-    }
   for (int e = t; e < hd; e += kThreads) {
     at[e] = mode != kTransformer ? att[e] : 0.f;
     ad[e] = gat ? att2[e] : 0.f;
@@ -215,70 +218,19 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_bwd_kernel(
       const T* vr = vs + s * hd;
       const T* er = he != nullptr ? he + static_cast<int64_t>(eidx[p]) * hd
                                   : nullptr;
-      if constexpr (VEC) {
-        // one or two 16-byte pieces of the key and value rows per lane, in
-        // registers; per-head sums by shuffles within groups of pph lanes
-#pragma unroll
-        for (int k = 0; k < kMaxPiecesPerLane; ++k) {
-          const int pc = lane + 32 * k;
-          p1[k] = 0.f;
-          p2[k] = 0.f;
-          if (pc < pieces) {
-            load_piece<T, P>(kr + pc * P, kv[k]);
-            float ev[P];
-#pragma unroll
-            for (int u = 0; u < P; ++u) ev[u] = 0.f;
-            if (er != nullptr) load_piece<T, P>(er + pc * P, ev);
-#pragma unroll
-            for (int u = 0; u < P; ++u) kv[k][u] += ev[u];
-            if (same) {
-#pragma unroll
-              for (int u = 0; u < P; ++u) vv[k][u] = kv[k][u];
-            } else {
-              load_piece<T, P>(vr + pc * P, vv[k]);
-#pragma unroll
-              for (int u = 0; u < P; ++u) vv[k][u] += ev[u];
-            }
-#pragma unroll
-            for (int u = 0; u < P; ++u) {
-              const int e = pc * P + u;
-              p1[k] += logit_term(mode, kv[k][u], q[e], at[e], slope);
-              p2[k] += gr[e] * vv[k][u];
-            }
-          }
-        }
-#pragma unroll
-        for (int k = 0; k < kMaxPiecesPerLane; ++k) {
-          for (int o = pph >> 1; o > 0; o >>= 1) {
-            p1[k] += __shfl_xor_sync(0xffffffffu, p1[k], o);
-            p2[k] += __shfl_xor_sync(0xffffffffu, p2[k], o);
-          }
-          const int pc = lane + 32 * k;
-          if (pc < pieces && pc % pph == 0) {
-            r1[pc / pph] = p1[k];
-            r2[pc / pph] = p2[k];
-          }
-        }
-      } else {
-        for (int e = lane; e < hd; e += 32) {
-          const float ev1 = er != nullptr ? to_float(er[e]) : 0.f;
-          const float kv1 = to_float(kr[e]) + ev1;
-          const float vv1 = to_float(vr[e]) + ev1;
-          r1[e] = logit_term(mode, kv1, q[e], at[e], slope);
-          r2[e] = gr[e] * vv1;
-        }
+      for (int e = lane; e < hd; e += 32) {
+        const float ev1 = er != nullptr ? to_float(er[e]) : 0.f;
+        const float kv1 = to_float(kr[e]) + ev1;
+        const float vv1 = to_float(vr[e]) + ev1;
+        r1[e] = logit_term(mode, kv1, q[e], at[e], slope);
+        r2[e] = gr[e] * vv1;
       }
       __syncwarp();
       for (int h = lane; h < heads; h += 32) {
         float a1 = 0.f, a2 = 0.f;
-        if constexpr (VEC) {
-          a1 = r1[h];
-          a2 = r2[h];
-        } else {
-          for (int c = 0; c < dh; ++c) {
-            a1 += r1[h * dh + c];
-            a2 += r2[h * dh + c];
-          }
+        for (int c = 0; c < dh; ++c) {
+          a1 += r1[h * dh + c];
+          a2 += r2[h * dh + c];
         }
         float pre = 0.f, logit;
         if (gat) {
@@ -298,87 +250,35 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_bwd_kernel(
         if (e_coef != nullptr) e_coef[p * heads + h] = coef;
       }
       __syncwarp();
-      if constexpr (VEC) {
-#pragma unroll
-        for (int k = 0; k < kMaxPiecesPerLane; ++k) {
-          const int pc = lane + 32 * k;
-          if (pc >= pieces) continue;
-          const int h = pc / pph;
-          const float c = cw[h], a = aw[h];
-          float dk[P], dv[P];
-#pragma unroll
-          for (int u = 0; u < P; ++u) {
-            const int e = pc * P + u;
-            if (gat) {
-              racc[k][u] += c * kv[k][u];
-              dk[u] = at[e] * c;
-            } else if (v2) {
-              const float z = kv[k][u] + q[e];
-              dk[u] = c * at[e] * leaky_grad(z, slope);
-              rrow[k][u] += dk[u];
-              racc[k][u] += c * leaky(z, slope);
-            } else {
-              rrow[k][u] += c * kv[k][u];
-              dk[u] = q[e] * c;
-            }
-            dv[u] = a * gr[e];
-          }
-          if (d_ks != nullptr) {
-            if (d_vs != nullptr) {
-              store_piece<T, P>(d_ks + p * hd + pc * P, dk);
-              store_piece<T, P>(d_vs + p * hd + pc * P, dv);
-            } else {
-#pragma unroll
-              for (int u = 0; u < P; ++u) dk[u] += dv[u];
-              store_piece<T, P>(d_ks + p * hd + pc * P, dk);
-            }
-          }
+      for (int e = lane; e < hd; e += 32) {
+        const int h = e / dh;
+        const float c = cw[h];
+        const float kv1 =
+            to_float(kr[e]) + (er != nullptr ? to_float(er[e]) : 0.f);
+        float dk1;
+        if (gat) {
+          wa[e] += c * kv1;
+          dk1 = at[e] * c;
+        } else if (v2) {
+          const float z = kv1 + q[e];
+          dk1 = c * at[e] * leaky_grad(z, slope);
+          wr[e] += dk1;
+          wa[e] += c * leaky(z, slope);
+        } else {
+          wr[e] += c * kv1;
+          dk1 = q[e] * c;
         }
-      } else {
-        for (int e = lane; e < hd; e += 32) {
-          const int h = e / dh;
-          const float c = cw[h];
-          const float kv1 =
-              to_float(kr[e]) + (er != nullptr ? to_float(er[e]) : 0.f);
-          float dk1;
-          if (gat) {
-            wa[e] += c * kv1;
-            dk1 = at[e] * c;
-          } else if (v2) {
-            const float z = kv1 + q[e];
-            dk1 = c * at[e] * leaky_grad(z, slope);
-            wr[e] += dk1;
-            wa[e] += c * leaky(z, slope);
+        if (d_ks != nullptr) {
+          const float dv1 = aw[h] * gr[e];
+          if (d_vs != nullptr) {
+            store(d_ks + p * hd + e, dk1);
+            store(d_vs + p * hd + e, dv1);
           } else {
-            wr[e] += c * kv1;
-            dk1 = q[e] * c;
-          }
-          if (d_ks != nullptr) {
-            const float dv1 = aw[h] * gr[e];
-            if (d_vs != nullptr) {
-              store(d_ks + p * hd + e, dk1);
-              store(d_vs + p * hd + e, dv1);
-            } else {
-              store(d_ks + p * hd + e, dk1 + dv1);
-            }
+            store(d_ks + p * hd + e, dk1 + dv1);
           }
         }
       }
       __syncwarp();
-    }
-    if constexpr (VEC) {
-      if (!gat) {
-#pragma unroll
-        for (int k = 0; k < kMaxPiecesPerLane; ++k) {
-          const int pc = lane + 32 * k;
-          if (pc >= pieces) continue;
-#pragma unroll
-          for (int u = 0; u < P; ++u) {
-            wr[pc * P + u] = rrow[k][u];
-            rrow[k][u] = 0.f;
-          }
-        }
-      }
     }
     __syncthreads();
     for (int h = t; h < heads; h += kThreads) {
@@ -403,19 +303,6 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_bwd_kernel(
     }
     __syncthreads();
   }
-  if constexpr (VEC) {
-    if (mode != kTransformer) {
-      float* wa = watt + warp * hd;
-#pragma unroll
-      for (int k = 0; k < kMaxPiecesPerLane; ++k) {
-        const int pc = lane + 32 * k;
-        if (pc >= pieces) continue;
-#pragma unroll
-        for (int u = 0; u < P; ++u) wa[pc * P + u] = racc[k][u];
-      }
-    }
-    __syncthreads();
-  }
   if (part != nullptr) {
     float* pb = part + static_cast<int64_t>(blockIdx.x) * 2 * hd;
     for (int e = t; e < hd; e += kThreads) {
@@ -428,10 +315,6 @@ __global__ void __launch_bounds__(kThreads) fanout_attention_bwd_kernel(
   }
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 // d_att[e] = sum over blocks b of part[b, e], in block order.
 __global__ void sum_partials_kernel(const float* __restrict__ part,
                                     float* __restrict__ d_att, int blocks,
@@ -441,6 +324,50 @@ __global__ void sum_partials_kernel(const float* __restrict__ part,
   float s = 0.f;
   for (int b = 0; b < blocks; ++b) s += part[static_cast<int64_t>(b) * width + e];
   d_att[e] = s;
+}
+
+// ---------------------------------------------------------------------------
+
+// The warp path's form for a (piece width, pieces per lane): the mode a
+// compile-time constant where GIGL_K7B_FAST has it (GAT and GATv2 over one
+// table for keys and values, as the port's callers pass them), else read
+// at run time.
+template <typename T, int PW, int K>
+int launch_pw(const Args<T>& a, long long n, int w, const LaneMap& m,
+              int mode, float slope, float sqrt_dh, int grid,
+              cudaStream_t stream) {
+  const bool extra = a.he != nullptr || a.bias != nullptr;
+  constexpr bool fast = (PW == 16 && K <= 2) || (PW == 8 && K == 1);
+  if constexpr (fast) {
+    if (mode == kGat && a.ks == a.vs)
+      return extra ? launch_warp<T, PW, K, kGat, true>(
+                         a, n, w, m, mode, slope, sqrt_dh, grid, stream)
+                   : launch_warp<T, PW, K, kGat, false>(
+                         a, n, w, m, mode, slope, sqrt_dh, grid, stream);
+    if (mode == kGatV2 && a.ks == a.vs && !extra)
+      return launch_warp<T, PW, K, kGatV2, false>(a, n, w, m, mode, slope,
+                                                  sqrt_dh, grid, stream);
+    if (mode == kTransformer)
+      return extra ? launch_warp<T, PW, K, kTransformer, true>(
+                         a, n, w, m, mode, slope, sqrt_dh, grid, stream)
+                   : launch_warp<T, PW, K, kTransformer, false>(
+                         a, n, w, m, mode, slope, sqrt_dh, grid, stream);
+  }
+  return launch_warp<T, PW, K, -1, true>(a, n, w, m, mode, slope, sqrt_dh,
+                                         grid, stream);
+}
+
+template <typename T, int PW>
+int launch_k(int kk, const Args<T>& a, long long n, int w, const LaneMap& m,
+             int mode, float slope, float sqrt_dh, int grid,
+             cudaStream_t stream) {
+  if (kk == 1)
+    return launch_pw<T, PW, 1>(a, n, w, m, mode, slope, sqrt_dh, grid,
+                               stream);
+  if (kk == 2)
+    return launch_pw<T, PW, 2>(a, n, w, m, mode, slope, sqrt_dh, grid,
+                               stream);
+  return launch_pw<T, PW, 4>(a, n, w, m, mode, slope, sqrt_dh, grid, stream);
 }
 
 template <typename T>
@@ -467,33 +394,44 @@ int launch(const void* g, const void* xd, const void* ks, const void* vs,
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) * smem_floats(heads, dh);
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = static_cast<int>(n < grid ? n : grid);
-  constexpr int P = 16 / sizeof(T);
-  const int pph = dh / P;
-  const bool identity = d_ks != nullptr;
-  const bool vec = dh % P == 0 && (pph & (pph - 1)) == 0 && pph <= 32 &&
-                   heads * dh / P <= 32 * kMaxPiecesPerLane && aligned16(ks) &&
-                   aligned16(vs) && (he == nullptr || aligned16(he)) &&
-                   (!identity || (aligned16(d_ks) &&
-                                                   (d_vs == nullptr ||
-                                                    aligned16(d_vs))));
-  const bool extra = he != nullptr || bias != nullptr;
-  auto kernel = vec ? (extra ? fanout_attention_bwd_kernel<T, true, true>
-                             : fanout_attention_bwd_kernel<T, true, false>)
-                    : (extra ? fanout_attention_bwd_kernel<T, false, true>
-                             : fanout_attention_bwd_kernel<T, false, false>);
-  kernel<<<blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(g), static_cast<const T*>(xd),
-      static_cast<const T*>(ks), static_cast<const T*>(vs),
-      static_cast<const T*>(out), static_cast<const float*>(stats),
-      static_cast<const int32_t*>(nbr), static_cast<const uint8_t*>(mask),
-      static_cast<const float*>(att), static_cast<const float*>(att2),
-      static_cast<const T*>(he), static_cast<const int32_t*>(eidx),
-      static_cast<const float*>(bias), static_cast<T*>(d_xd),
-      static_cast<float*>(e_alpha),
-      static_cast<float*>(e_coef), static_cast<T*>(d_ks),
-      static_cast<T*>(d_vs), static_cast<float*>(part), n, w, heads, dh,
-      mode, slope, sqrt_dh);
+  const Args<T> a{static_cast<const T*>(g), static_cast<const T*>(xd),
+                  static_cast<const T*>(ks), static_cast<const T*>(vs),
+                  static_cast<const T*>(out), static_cast<const float*>(stats),
+                  static_cast<const int32_t*>(nbr),
+                  static_cast<const uint8_t*>(mask),
+                  static_cast<const float*>(att),
+                  static_cast<const float*>(att2), static_cast<const T*>(he),
+                  static_cast<const int32_t*>(eidx),
+                  static_cast<const float*>(bias), static_cast<T*>(d_xd),
+                  static_cast<float*>(e_alpha), static_cast<float*>(e_coef),
+                  static_cast<T*>(d_ks), static_cast<T*>(d_vs),
+                  mode != kTransformer ? static_cast<float*>(part) : nullptr};
+  // the warp path wherever a lane map exists (the shape decides)
+  LaneMap m;
+  const int pw = piece_bytes(dh * static_cast<int>(sizeof(T)),
+                             {g, xd, ks, vs, out, he, d_xd, d_ks, d_vs});
+  const int kk = make_lane_map(heads, dh, sizeof(T), pw, w, &m);
+  int blocks;
+  if (kk != 0) {
+    if (pw == 16)
+      blocks = launch_k<T, 16>(kk, a, n, w, m, mode, slope, sqrt_dh, grid,
+                               stream);
+    else if (pw == 8)
+      blocks = launch_k<T, 8>(kk, a, n, w, m, mode, slope, sqrt_dh, grid,
+                              stream);
+    else
+      blocks = launch_k<T, 4>(kk, a, n, w, m, mode, slope, sqrt_dh, grid,
+                              stream);
+  } else {
+    blocks = static_cast<int>(n < grid ? n : grid);
+    const bool extra = he != nullptr || bias != nullptr;
+    auto kernel = extra ? fanout_attention_bwd_scalar<T, true>
+                        : fanout_attention_bwd_scalar<T, false>;
+    kernel<<<blocks, kThreads, smem, stream>>>(
+        a.g, a.xd, a.ks, a.vs, a.out, a.stats, a.nbr, a.mask, a.att, a.att2,
+        a.he, a.eidx, a.bias, a.d_xd, a.e_alpha, a.e_coef, a.d_ks, a.d_vs,
+        a.part, n, w, heads, dh, mode, slope, sqrt_dh);
+  }
   if (mode != kTransformer) {
     const int width = 2 * heads * dh;
     sum_partials_kernel<<<(width + 255) / 256, 256, 0, stream>>>(
@@ -514,8 +452,8 @@ int launch(const void* g, const void* xd, const void* ks, const void* vs,
 // [n * w, H * Dh] and d_vs (NULL when keys and values are one table; d_ks
 // then holds the sum). GAT and GATv2: part fp32 [grid, 2 * H * Dh] scratch
 // and d_att fp32 [2 * H * Dh] (GAT: d_att_src then d_att_dst; GATv2: d_att
-// then zeros). grid: the number of
-// persistent blocks (a few per SM).
+// then zeros). grid: the most persistent blocks to launch (a few per SM;
+// the warp path launches at most as many as are resident at once).
 extern "C" int gigl_fanout_attention_bwd(
     const void* g, const void* xd, const void* ks, const void* vs,
     const void* out, const void* stats, const void* nbr, const void* mask,

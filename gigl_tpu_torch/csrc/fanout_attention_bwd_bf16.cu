@@ -1,0 +1,10 @@
+// K7b fanout_attention_bwd's warp path with the mode fixed, bf16 tables:
+// the forms of GIGL_K7B_FAST (fanout_attention_bwd_warp.cuh), built beside
+// fanout_attention_bwd.cu so that the two compile in parallel.
+#include "fanout_attention_bwd_warp.cuh"
+
+namespace gigl {
+namespace k7b {
+GIGL_K7B_FAST(GIGL_K7B_DEFINE, __nv_bfloat16)
+}  // namespace k7b
+}  // namespace gigl

@@ -17,10 +17,12 @@ rounding): fp32 rtol 1e-6, bf16 within one ulp of the gradient's scale.
 The retrieval loss: loss_sum within 1e-5 relative (fp32 sums in another
 order), dS within 1e-5 of its scale in fp32 and one bf16 ulp of its scale
 in bf16 (each element rounded once from nearly equal fp32 values). K6
-ell_aggregate and K7 fanout_attention (one row of width 4, all-masked rows,
-a hub row of degree 5,000 in a width-8192 bucket, rows that are not 16-byte
-multiples): fp32 rtol/atol 1e-5 of the output scale (sums and exps in
-another order), bf16 within 2e-2 of the output scale. K6b
+ell_aggregate and K7 fanout_attention (one row of width 4, all-masked rows
+and an all-masked bucket, a hub row of degree 5,000 in a width-8192
+bucket, rows that are not 16-byte multiples, head dim 4 in the W 4, 8 and
+32 buckets, where a warp takes several slots or rows): fp32 rtol/atol 1e-5
+of the output scale (sums and exps in another order), bf16 within 2e-2 of
+the output scale; K7 and K7b give the same bits on a repeat run. K6b
 ell_transpose_aggregate (every mode) and K7b fanout_attention_bwd (GAT,
 GATv2 and Transformer, the ELL and the dense-block layout) against their twins on
 graphs with a 5,000-out-degree hub (a width-8192 transpose bucket),
@@ -467,10 +469,20 @@ def test_ell_aggregate_matches_plain(dev, dtype, op, n, w, m, d):
 @pytest.mark.parametrize("mode", ["gat", "gatv2", "transformer"])
 @pytest.mark.parametrize("n,w,m,heads,dh", [
     (1, 4, 50, 4, 64), (300, 32, 1000, 4, 32), (37, 64, 400, 4, 64),
-    (5, 8192, 6000, 4, 32), (20, 100, 90, 3, 5)])
+    (5, 8192, 6000, 4, 32), (20, 100, 90, 3, 5),
+    # head dim 4: 8 slots a warp (fp32; bf16 in 8-byte pieces), the W 4 and
+    # W 8 buckets (several rows a warp), a width-8192 hub row, and a bucket
+    # whose rows are all masked (n = 0 below marks it)
+    (300, 32, 1000, 4, 4), (37, 4, 400, 4, 4), (37, 8, 400, 4, 4),
+    (5, 8192, 6000, 4, 4), (0, 16, 100, 4, 4)])
 def test_fanout_attention_matches_plain(dev, dtype, mode, n, w, m, heads,
                                         dh):
+    all_masked = n == 0
+    n = 24 if all_masked else n
     _, nbr, mask, _ = _ell_inputs(dev, n, w, m, 8, dtype)
+    if all_masked:
+        mask = torch.zeros_like(mask)
+        nbr = torch.zeros_like(nbr)
     g = torch.Generator(device=dev).manual_seed(1)
     hd = heads * dh
     xd, ks, vs = (torch.randn(s, generator=g, device=dev).to(dtype)
@@ -489,6 +501,8 @@ def test_fanout_attention_matches_plain(dev, dtype, mode, n, w, m, heads,
     assert got.dtype == dtype and got.shape == (n, hd)
     if n > 2:
         assert not got[1].any()
+    if all_masked:
+        assert not got.any()
     _within(got, want, dtype)
 
 
@@ -681,7 +695,7 @@ ATTENTION_BWD_SHAPES = [
     for identity in (False, True)
     for shape in ((1, 4, 50, 4, 64), (300, 32, 1000, 4, 64),
                   (300, 32, 1000, 4, 4), (5, 8192, 6000, 4, 16),
-                  (20, 16, 90, 3, 5))
+                  (20, 16, 90, 3, 5), (37, 4, 400, 4, 4))
     if not identity or shape[1] <= 64]     # a dense block is a fanout wide
 
 
@@ -717,6 +731,34 @@ def test_fanout_attention_bwd_matches_plain(dev, dtype, mode, identity, n,
     if not identity:
         valid = mask.reshape(-1)
         assert not got.alpha[~valid].any() and not got.coef[~valid].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["gat", "gatv2", "transformer"])
+@pytest.mark.parametrize("dh", [4, 64])
+def test_fanout_attention_repeat_runs_are_bit_equal(dev, dtype, mode, dh):
+    """K7 and K7b run twice on the same inputs give the same bits: out and
+    stats, and K7b's d_xd, d_att and per-entry alpha / coef (the ELL
+    layout) and d_ks (the dense-block layout). K7b's d_att sums per-warp
+    partials in a fixed order, with no float atomics."""
+    same = mode != "transformer"
+    for identity in (False, True):
+        xd, ks, vs, nbr, mask, gout, att, att2, out, stats = _attention_case(
+            dev, dtype, mode, 300, 32, 1000, 4, dh, identity)
+        out2 = torch.empty_like(out)
+        stats2 = torch.empty_like(stats)
+        _fanout_attention_fwd(xd, ks, vs, nbr, mask, mode, 4, att, att2, 0.2,
+                              out=out2, stats=stats2)
+        assert torch.equal(out, out2) and torch.equal(stats, stats2)
+        a, b = (fanout_attention_bwd(gout, xd, ks, vs, nbr, mask, out,
+                                     stats, mode, 4, att, att2, 0.2,
+                                     identity=identity, same_table=same)
+                for _ in range(2))
+        torch.cuda.synchronize()
+        for name in ("d_xd", "alpha", "coef", "d_ks", "d_att"):
+            x, y = getattr(a, name), getattr(b, name)
+            assert (x is None) == (y is None), name
+            assert x is None or torch.equal(x, y), name
 
 
 def _small_graph(seed=5):
@@ -1457,7 +1499,7 @@ def test_ell_edge_grad_edgeless_graph(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["gat", "transformer"])
-@pytest.mark.parametrize("heads,dh", [(1, 8), (3, 5), (4, 64)])
+@pytest.mark.parametrize("heads,dh", [(1, 8), (3, 5), (4, 64), (4, 4)])
 def test_fanout_attention_edge_addend_matches_plain(dev, dtype, mode, heads,
                                                     dh):
     """K7 and K7b (ELL layout) with the edge rows added to every slot's
@@ -1497,7 +1539,7 @@ def test_fanout_attention_edge_addend_matches_plain(dev, dtype, mode, heads,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("heads,dh", [(1, 8), (3, 5), (4, 32)])
+@pytest.mark.parametrize("heads,dh", [(1, 8), (3, 5), (4, 32), (4, 4)])
 def test_fanout_attention_block_bias_matches_plain(dev, dtype, heads, dh):
     """K7 / K7b's per-slot logit bias (SimpleHGN's relation term) in the
     dense-block layout, with all-masked rows and an all-masked column

@@ -19,6 +19,10 @@ from JAX through params_from_flax.
   gcn / max (ties shared), fp32 within 1e-5 of the scale; the weighted mode against a plain
   ``index_add_`` of the weighted entry rows; the permute-gathers of
   ``encode_ell`` (ROADMAP C3) against ``jax.vjp`` of ``x[perm]``.
+- The attention layers (GAT, GATv2, Transformer) at 4 heads of 4 values,
+  the full-batch GAT step's layer-2 split: the output and every gradient
+  against ``jax.vjp`` of the reference's ``encode_ell``, fp32 within 1e-5
+  of each output's scale.
 """
 
 import numpy as np
@@ -356,6 +360,53 @@ def test_ell_transpose_weighted_matches_scatter(op):
            ).reshape(p, -1)
     want = torch.zeros_like(rows).index_add_(0, nbr[valid], msg[valid])
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("conv", ["gat", "gatv2", "transformer"])
+def test_encode_ell_attention_heads_4x4_match_jax_vjp(conv):
+    """The attention convs' ELL layers at 4 heads of 4 values (the split of
+    the full-batch GAT step's layer 2: 16 classes over 4 heads, the narrow
+    heads the attention kernels' lane map packs 8 slots a warp for), both
+    layers, fp32: the forward through the plain twins and every gradient
+    of a seeded cotangent (the input's and each parameter's) against
+    ``jax.vjp`` of the reference's ``encode_ell``, within 1e-5 of each
+    output's scale (fp32 sums in another order; parameters whose gradient
+    is zero by symmetry, the Transformer's key bias, are held to a floor
+    of 1e-2 of the largest gradient)."""
+    kw = {"heads": 4}
+    src, dst, x = _graph()
+    jell = ref_ell.EllGraph.from_csr(ref_build_csr(src, dst,
+                                                   num_anchor_nodes=N))
+    jenc = RefGNNEncoder(hid_dim=16, out_dim=16, num_layers=2, conv=conv,
+                         conv_kwargs=kw)
+    params = jax.jit(lambda k, x_, e: jenc.init(k, x_, e, method="encode_ell")
+                     )(jax.random.PRNGKey(3), jnp.asarray(x), jell)
+    enc = GNNEncoder(DIN, 16, 16, num_layers=2, conv=conv, conv_kwargs=kw)
+    enc.load_state_dict(params_from_flax(_np(params)))
+    assert all(c.heads == 4 and c.head_dim == 4
+               for c in enc.convs), "both layers at 4 heads x 4 values"
+    want, vjp = jax.vjp(jax.jit(lambda p, x_: jenc.apply(
+        p, x_, jell, method="encode_ell")), params, jnp.asarray(x))
+    g = np.random.default_rng(13).normal(size=(N, 16)).astype(np.float32)
+    want_p, want_x = vjp(jnp.asarray(g))
+    tell = ell.EllGraph.from_csr(build_csr(src, dst, num_anchor_nodes=N),
+                                 device="cpu")
+    xt = torch.from_numpy(x).requires_grad_()
+    got = enc.encode_ell(xt, tell)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=0, atol=1e-5 * np.abs(want).max())
+    got.backward(torch.from_numpy(g))
+    want_x = np.asarray(want_x)
+    np.testing.assert_allclose(xt.grad.numpy(), want_x, rtol=0,
+                               atol=1e-5 * np.abs(want_x).max())
+    wp = params_from_flax(_np(want_p))
+    assert {n for n, _ in enc.named_parameters()} == set(wp)
+    floor = 1e-2 * max(float(w.abs().max()) for w in wp.values())
+    for name, p in enc.named_parameters():
+        w = wp[name].numpy()
+        np.testing.assert_allclose(
+            p.grad.numpy(), w, rtol=0,
+            atol=1e-5 * max(float(np.abs(w).max()), floor), err_msg=name)
 
 
 def test_encode_ell_permute_gathers_are_differentiable():
