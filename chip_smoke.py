@@ -66,7 +66,13 @@
    and K8b for dk; 4 heads of 64) against autograd through the plain
    twins, with bounds and yardsticks (index_add_ of the gathered rows; the
    torch composition of the softmax backward), each repeated for the same
-   bits; then per model (GraphSAGE mean, GAT v1 and Transformer, 4 heads)
+   bits; K10 sddmm and K8 segment_reduce (weighted per head by an [E, 4]
+   alpha) at the COO Transformer's two layers (the 2M edges in their random
+   order, 4 heads of 64 and of 4 fp32 values) against their plain twins,
+   with bounds, gathered_bytes (E x a gathered row's bytes) and yardsticks
+   (sparse.sampled_addmm; sparse.mm beside K8's unweighted sum), modes
+   coo_layer1 / coo_layer2 on the kernel rows; then per model (GraphSAGE
+   mean, GAT v1 and Transformer, 4 heads)
    FullBatchTrainer(build_ell=False) — one step against the same step
    through the plain twins, then 3 + 50 steps with the launch counts reset
    just before and read just after, and 5 profiled;
@@ -192,8 +198,12 @@
    (batch 0 against the plain versions) and PartitionedNALPTrainer over
    make_mesh(4) (a fp32 step against the plain step, 3 + 10 steps, zero
    overflow); prints ms/step beside phase 6's uniform ms/step;
-17. prints one JSON line with every kernel's numbers, then the card line,
-   then {"ok": true, ...} as the last line.
+17. prints the SegmentIndex host builds counted inside every timed window
+   of a path (SegmentIndex.from_ids wrapped from the build on; each must
+   read 0: a segment op on the card given no index builds one on the
+   host), one JSON line with every kernel's numbers, then the card line,
+   then {"ok": true, ...} as the last line. Every profile carries K7 / K7b
+   (attention_ms_per_step) and K10 / K8 (segment_ms_per_step) device ms.
 
 Any failed check raises; nothing is printed as a result without a card.
 It imports neither JAX nor the JAX package.
@@ -411,6 +421,38 @@ def loads_ahead():
             "slots_ahead_per_lane": "max(1, kDepth / K)"}
 
 
+# SegmentIndex.from_ids calls (each a host build: the ids copied to the
+# host, a wait for the device), counted once count_host_index_builds() ran;
+# a path's timed window must hold none
+HOST_INDEX_BUILDS = {"calls": 0}
+INDEX_BUILDS_IN_WINDOWS = {}
+
+
+def count_host_index_builds():
+    """Count every SegmentIndex.from_ids call from here on."""
+    from gigl_tpu_torch.ops.segment import SegmentIndex
+
+    build = SegmentIndex.from_ids.__func__
+
+    def counted(cls, *args, **kwargs):
+        HOST_INDEX_BUILDS["calls"] += 1
+        return build(cls, *args, **kwargs)
+
+    SegmentIndex.from_ids = classmethod(counted)
+
+
+@contextlib.contextmanager
+def timed_window(path):
+    """A path's timed steps or passes: a segment op on the card given no
+    SegmentIndex builds one on the host, so none may be built inside."""
+    before = HOST_INDEX_BUILDS["calls"]
+    yield
+    n = HOST_INDEX_BUILDS["calls"] - before
+    INDEX_BUILDS_IN_WINDOWS[path] = INDEX_BUILDS_IN_WINDOWS.get(path, 0) + n
+    check(n == 0, f"{path}: {n} SegmentIndex host builds inside its timed "
+          "window")
+
+
 def profile_summary(prof, steps, window_us, host_ms_per_step):
     """Device time per step, busy share and the top device ops from a
     torch.profiler run over ``steps`` training steps."""
@@ -440,15 +482,21 @@ def profile_summary(prof, steps, window_us, host_ms_per_step):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
     attention = dict.fromkeys(("fanout_attention", "fanout_attention_bwd"),
                               0.0)
+    segment = dict.fromkeys(("sddmm", "segment_reduce"), 0.0)
     for n, (t, _) in by_name.items():
         if "fanout_attention_bwd" in n or "sum_partials_kernel" in n:
             attention["fanout_attention_bwd"] += t / steps / 1e3
         elif "fanout_attention_" in n:
             attention["fanout_attention"] += t / steps / 1e3
+        elif "sddmm_" in n and "sddmm_bwd" not in n:
+            segment["sddmm"] += t / steps / 1e3
+        elif "segment_reduce_" in n and "segment_reduce_bwd" not in n:
+            segment["segment_reduce"] += t / steps / 1e3
     return {
         "device_events": len(events),
         "device_ms_per_step": device_ms,
         "attention_ms_per_step": attention,
+        "segment_ms_per_step": segment,
         "device_busy_ms_per_step": busy / steps / 1e3,
         "busy_share_of_profiled_window": busy / window_us,
         "busy_share_of_unprofiled_step": busy / steps / 1e3
@@ -733,6 +781,122 @@ class Sink:
         return embs[np.argsort(ids)]
 
 
+SDDMM_LIBRARY_CALL = (
+    "torch.sparse.sampled_addmm, batched over heads (CSR of the in-edges, "
+    "built beforehand, not timed; the per-head scale not applied)")
+
+
+def sddmm_library(index, src, q, k, scale, got, rel_err):
+    """K10's yardstick: torch.sparse.sampled_addmm batched over the heads
+    of q, k [N, H, dk], over the CSR of the destination ``index`` (built
+    here, not timed), checked against K10's scores ``got``. Returns (ms,
+    None), or (None, why) where cuSPARSE refuses the shape."""
+    h, e = q.shape[1], index.num_edges
+    order = index.order.long()
+    mask = torch.sparse_csr_tensor(
+        index.ptr.long().expand(h, -1).contiguous(),
+        src.long()[order].expand(h, -1).contiguous(),
+        torch.zeros((h, e), device=q.device), (h, q.shape[0], k.shape[0]))
+    q_h = q.transpose(0, 1).contiguous()
+    k_h = k.permute(1, 2, 0).contiguous()
+
+    def library():
+        return torch.sparse.sampled_addmm(mask, q_h, k_h, beta=0.0)
+
+    try:    # a yardstick only: cuSPARSE may refuse the batched shape
+        rel_err(library().values() * scale[:, None], got[order].T,
+                "sampled_addmm yardstick vs K10", tol=1e-5)
+        return cuda_ms(library), None
+    except RuntimeError as exc:
+        return None, f"sampled_addmm failed: {exc}"[:200]
+
+
+def segment_walk_rows(dev, fb, rel_err, unique):
+    """K10 sddmm and K8 segment_reduce at the COO Transformer's two layers
+    (the flagship's 2M edges in their random order, destination-sorted by
+    the step's SegmentIndex): q, k and v [N, 4, 64] fp32 (layer 1) and
+    [N, 4, 4] (layer 2), K10 scaled by 1 / sqrt(dk), K8 summing the v
+    rows weighted per head by an [E, 4] alpha, as coo_spmm does in the
+    step. Each against its plain twin (fp32: 1e-5), the same bits on a
+    repeat run, its bound, its library yardstick (K10:
+    sparse.sampled_addmm; K8: sparse.mm, the unweighted sum, whose kernel
+    time is beside it) and gathered_bytes, E x the bytes of a gathered
+    row, which the byte bound counts once per distinct row. Returns
+    {kernel: {mode: numbers}} for the kernel rows."""
+    from gigl_tpu_torch.ops.segment import (
+        _sddmm_plain, _segment_reduce_plain, sddmm, segment_reduce)
+
+    idx, src, dst = fb.index, fb.src, fb.dst
+    e, n, h = idx.num_edges, idx.num_segments, GAT_HEADS
+    u_src, u_dst = unique(src), unique(dst)
+    order = idx.order.long()
+    gen = torch.Generator(device=dev).manual_seed(14)
+    adj = torch.sparse_csr_tensor(idx.ptr.long(), src.long()[order],
+                                  torch.ones(e, device=dev), (n, n))
+    rows = {"sddmm": {}, "segment_reduce": {}}
+    for layer, dk in (("coo_layer1", HID // h), ("coo_layer2", C // h)):
+        c = h * dk
+        q, k, v = (torch.randn((n, h, dk), generator=gen, device=dev)
+                   for _ in range(3))
+        scale = torch.full((h,), dk ** -0.5, device=dev)
+        alpha = torch.rand((e, h), generator=gen, device=dev)
+
+        def k10():
+            return sddmm(src, dst, q, k, scale=scale, index=idx)
+
+        def k10_plain():
+            return _sddmm_plain(src, dst, q, k, scale)
+
+        got = k10()
+        err = rel_err(got, k10_plain(), f"K10 {layer}", tol=1e-5)
+        check(torch.equal(got, k10()), f"K10 {layer}: a repeat run differs")
+        lib_ms, lib_note = sddmm_library(idx, src, q, k, scale, got, rel_err)
+        # bytes: each distinct q and k row once, src and dst, the scores
+        # written; ops: a multiply-add per value
+        b, by = bound_ms((u_src + u_dst) * c * 4 + e * 8 + e * h * 4,
+                         e * c * 2)
+        rows["sddmm"][layer] = {
+            "err": err, "ms": cuda_ms(k10), "plain_ms": cuda_ms(k10_plain,
+                                                             reps=3),
+            "eager_ms": eager_ms(k10), "bound_ms": b, "bound_by": by,
+            "gathered_bytes": e * c * 4, "library_ms": lib_ms,
+            "library_call": lib_note or SDDMM_LIBRARY_CALL, "edges": e,
+            "heads": h, "head_dim": dk}
+        del got
+
+        def k8(weight=alpha):
+            return segment_reduce(v, dst, n, src=src, weight=weight,
+                                  index=idx)
+
+        def k8_plain():
+            return _segment_reduce_plain(v, dst, n, "sum", src, alpha)
+
+        got = k8()
+        err = rel_err(got, k8_plain(), f"K8 {layer}", tol=1e-5)
+        check(torch.equal(got, k8()), f"K8 {layer}: a repeat run differs")
+        v2 = v.reshape(n, c)
+        rel_err(torch.sparse.mm(adj, v2), k8(None).reshape(n, c),
+                f"sparse.mm yardstick vs K8 sum {layer}", tol=1e-5)
+        # bytes: each distinct v row once, the index, the gather ids, the
+        # [E, 4] weights, [N, C] written; ops: a multiply and an add per
+        # edge and value
+        b, by = bound_ms(u_src * c * 4 + e * 8 + (n + 1) * 4 + n * c * 4
+                         + e * h * 4, e * c * 2)
+        rows["segment_reduce"][layer] = {
+            "err": err, "ms": cuda_ms(k8), "plain_ms": cuda_ms(k8_plain,
+                                                            reps=3),
+            "eager_ms": eager_ms(k8), "bound_ms": b, "bound_by": by,
+            "gathered_bytes": e * c * 4,
+            "library_ms": cuda_ms(lambda: torch.sparse.mm(adj, v2)),
+            "library_call": "torch.sparse.mm (CSR of the in-edges, fp32) = "
+                            "the unweighted sum (sum_ms)",
+            "sum_ms": cuda_ms(lambda: k8(None)), "edges": e, "heads": h,
+            "head_dim": dk}
+        del got, q, k, v, v2, alpha
+    del adj
+    return rows
+
+
 def typed_phases(dev, card, record, rel_err, unique):
     """Phase 10 (see the module docstring): the typed graph, the segment
     kernels K8-K10, the exact typed passes (HGT, RGCN), the sampled typed
@@ -812,42 +976,26 @@ def typed_phases(dev, card, record, rel_err, unique):
     order = idx.order.long()
 
     def k10():
-        return sddmm(src_p, dst_p, q, kr, scale=scale)
+        return sddmm(src_p, dst_p, q, kr, scale=scale, index=idx)
 
     def k10_plain():
         return _sddmm_plain(src_p, dst_p, q, kr, scale)
 
     logits = k10()
     err10 = rel_err(logits, k10_plain(), "K10 sddmm", tol=1e-5)
-    mask_csr = torch.sparse_csr_tensor(
-        idx.ptr.long().expand(h, -1).contiguous(),
-        src_p.long()[order].expand(h, -1).contiguous(),
-        torch.zeros((h, e_p), device=dev), (h, HET_PAPERS, n_nodes))
-    q_h = q.transpose(0, 1).contiguous()
-    k_h = kr.permute(1, 2, 0).contiguous()
-
-    def k10_library():
-        return torch.sparse.sampled_addmm(mask_csr, q_h, k_h, beta=0.0)
-
-    try:    # a yardstick only: cuSPARSE may refuse the batched shape
-        lib10 = k10_library()
-        rel_err(lib10.values() * dk ** -0.5, logits[order].T,
-                "sampled_addmm yardstick vs K10", tol=1e-5)
-        lib10_ms, lib10_note = cuda_ms(k10_library), None
-    except RuntimeError as exc:
-        lib10_ms, lib10_note = None, f"sampled_addmm failed: {exc}"[:200]
+    lib10_ms, lib10_note = sddmm_library(idx, src_p, q, kr, scale, logits,
+                                         rel_err)
     # bytes: each distinct q and k row read once, src and dst, the scores
-    # written; ops: a multiply-add per value
+    # written; ops: a multiply-add per value. gathered_bytes: the k rows
+    # the walk reads, one an edge
     record("sddmm", "gigl_tpu_torch/csrc/sddmm.cu",
            "gigl_tpu/ops/segment.py:90", err10, cuda_ms(k10),
            cuda_ms(k10_plain, reps=3),
            nbytes=(u_src + u_dst) * HET_HID * 4 + e_p * 8 + e_p * h * 4,
            nops=e_p * HET_HID * 2, library_ms=lib10_ms,
-           library_call=lib10_note or "torch.sparse.sampled_addmm, batched "
-           "over heads (CSR of the in-edges, built beforehand, not timed; "
-           "the per-head scale not applied)",
+           library_call=lib10_note or SDDMM_LIBRARY_CALL,
+           gathered_bytes=e_p * HET_HID * 4,
            edges=e_p, heads=h, head_dim=dk, eager_ms=eager_ms(k10))
-    del mask_csr, q_h, k_h
 
     def k9():
         return segment_softmax(logits, dst_p, HET_PAPERS, index=idx)
@@ -904,6 +1052,7 @@ def typed_phases(dev, card, record, rel_err, unique):
                     "plain_ms": cuda_ms(k8_plain, reps=3),
                     "eager_ms": eager_ms(k8_kernel),
                     "bound_ms": bound_ms(nbytes, nops)[0],
+                    "gathered_bytes": e_p * HET_HID * 4,
                     "nbytes": nbytes, "nops": nops}
     adj = torch.sparse_csr_tensor(
         idx.ptr.long(), src_p.long()[order],
@@ -925,6 +1074,7 @@ def typed_phases(dev, card, record, rel_err, unique):
                (HET_PAPERS, HET_HID), device=dev).index_add_(0, dst_l,
                                                              rows_g)),
            edges=e_p, width=HET_HID, eager_ms=k8["weighted"]["eager_ms"],
+           gathered_bytes=e_p * HET_HID * 4,
            modes={m_: {k_: v_ for k_, v_ in v.items()
                        if k_ not in ("nbytes", "nops")}
                   for m_, v in k8.items()})
@@ -979,15 +1129,16 @@ def typed_phases(dev, card, record, rel_err, unique):
             del want
             enc.encode_full(features, edges_dev, num_nodes, segments=segs)
             times = []
-            for _ in range(5):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                enc.encode_full(features, edges_dev, num_nodes,
-                                segments=segs)
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
+            with timed_window(path):
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    enc.encode_full(features, edges_dev, num_nodes,
+                                    segments=segs)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
             encode_ms = float(np.median(times)) * 1e3
-            with torch.profiler.profile(activities=[
+            with timed_window(path), torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
@@ -1180,7 +1331,8 @@ def typed_phases(dev, card, record, rel_err, unique):
                     "make_encoder": make_encoder, "anchors": anchors_t}
 
 
-def coo_phases(dev, card, graph, record, rel_err, run_path):
+def coo_phases(dev, card, graph, record, rel_err, unique,
+               run_path):
     """Phase 9 (see the module docstring): full-batch training over the
     COO segment ops — the two SegmentIndexes, the backward kernels K8b,
     K9b, K10b at layer 2's shapes, then per model a step against its plain
@@ -1324,7 +1476,7 @@ def coo_phases(dev, card, graph, record, rel_err, run_path):
                             device=dev) for _ in range(2))
     sc10 = torch.full((GAT_HEADS,), (HID // GAT_HEADS) ** -0.5, device=dev)
     g10 = torch.randn((E, GAT_HEADS), generator=gen, device=dev)
-    raw10 = sddmm(src, dst, q10, k10)
+    raw10 = sddmm(src, dst, q10, k10, index=idx)
 
     def k10b_kernel():
         return sddmm_bwd_coef(g10, sc10, raw10)
@@ -1360,6 +1512,7 @@ def coo_phases(dev, card, graph, record, rel_err, run_path):
                lambda q_, k_, s_: _sddmm_plain(src, dst, q_, k_, s_)),
                reps=3))
     del q10, k10, g10, raw10, got10, want10
+    walk = segment_walk_rows(dev, fb, rel_err, unique)
 
     counts, ms = {}, {}
     for model_name, kw in (("graphsage", None),
@@ -1398,7 +1551,7 @@ def coo_phases(dev, card, graph, record, rel_err, run_path):
               "edges_per_step": 2 * E, "edges_per_s": 2 * E / step_s,
               "nodes_per_s": N / step_s, **row})
         del fbt, state
-    return counts, ms
+    return counts, ms, walk
 
 
 @contextlib.contextmanager
@@ -3679,6 +3832,7 @@ def main():
     _build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.build_seconds})
+    count_host_index_builds()
 
     # -- the flagship graph, exactly as bench.py builds it -------------------------
     t0 = time.perf_counter()
@@ -4576,10 +4730,11 @@ def main():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         losses = []
-        for k in range(warmup, warmup + steps):
-            state, loss = step(state, k)
-            losses.append(loss)
-        torch.cuda.synchronize()
+        with timed_window(path):
+            for k in range(warmup, warmup + steps):
+                state, loss = step(state, k)
+                losses.append(loss)
+            torch.cuda.synchronize()
         step_s = (time.perf_counter() - t0) / steps
         counts = dict(_build.launches)
         peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
@@ -4592,7 +4747,7 @@ def main():
         check(np.isfinite(losses).all(), f"{path}: loss not finite")
         first, last = float(losses[:5].mean()), float(losses[-5:].mean())
         check(last < first, f"{path}: loss did not fall: {first} -> {last}")
-        with torch.profiler.profile(activities=[
+        with timed_window(path), torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -4675,7 +4830,8 @@ def main():
               **row})
         del nct, state
 
-    coo, coo_ms = coo_phases(dev, card, graph, record, rel_err, run_path)
+    coo, coo_ms, walk = coo_phases(dev, card, graph, record, rel_err,
+                                   unique, run_path)
     typed, typed_ctx = typed_phases(dev, card, record, rel_err, unique)
     tt_steps = TT_WARMUP + TT_STEPS
 
@@ -4684,6 +4840,9 @@ def main():
         row_ = next(r_ for r_ in results if r_["name"] == kname)
         row_.setdefault("modes", {})[mode] = entry
 
+    for kname, modes in walk.items():
+        for mode, entry in modes.items():
+            add_mode(kname, mode, entry)
     edge = edge_phases(
         dev, card, (src, dst, np.asarray(graph.node_features[
             graph.metadata.node_types[0]])), fb_data, typed_ctx, record,
@@ -4769,6 +4928,13 @@ def main():
             p_: c_[k] / n_ for p_, (c_, n_) in weighted.items()}
     check(len(results) == len(_build.KERNEL_NAMES) == 26,
           "the kernels line does not list all twenty-six kernels")
+    emit({"phase": "host_index_builds",
+          "in_timed_windows": INDEX_BUILDS_IN_WINDOWS,
+          "calls_in_run": HOST_INDEX_BUILDS["calls"]})
+    check(all(p_ in INDEX_BUILDS_IN_WINDOWS for p_ in coo)
+          and all(f"typed_full_{m_}" in INDEX_BUILDS_IN_WINDOWS
+                  for m_ in TYPED_FULL_KERNELS),
+          "a segment path's timed window was not watched for host builds")
     results.sort(key=lambda r: _build.KERNEL_NAMES.index(r["name"]))
 
     emit({"kernels": results})

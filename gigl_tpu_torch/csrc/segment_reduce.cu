@@ -24,7 +24,12 @@
 // row's threads. Rows that are not 16-byte multiples (or pieces that would
 // straddle two weight columns) take the same loop one element per thread.
 // A hub segment (degree 10^3-10^4) is walked by its row's threads alone:
-// slow but correct in this first version.
+// slow but correct in this first version. A walk of the destination
+// segments as K10's (gigl_segment.cuh: a slot group of lanes a segment,
+// its edge ids shuffled, the next edges' rows loaded ahead) was measured
+// against this design on an H100 and lost 4-7% at every row width the
+// paths run (4 x 4 to 4 x 64 fp32, random edge order); it won only on
+// 1,000-edge hubs (PERF.md §6), so this design stays.
 #include "gigl_pieces.cuh"
 
 namespace {

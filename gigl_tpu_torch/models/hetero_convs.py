@@ -87,8 +87,9 @@ class TypedSegments:
     destination and source indexes (``rel``: HGT's per-relation logits and
     SimpleHGN's per-relation gathers). ``by="relation"`` (RGCN): one
     destination and one source index per edge type. Built without the
-    backward's indexes (``backward=False``: ``src_index`` and ``rel``
-    empty) for inference, which never walks them; a gradient through such
+    backward's source indexes (``backward=False``: ``src_index`` empty,
+    ``rel`` holding each relation's destination index alone, which K10
+    walks) for inference, which never walks them; a gradient through such
     segments builds them on the host at each call."""
 
     by: str
@@ -126,11 +127,12 @@ class TypedSegments:
             by_dst.setdefault(_src_dst(et)[1], []).append(et)
 
         def pair(et):
-            """The relation's destination and source indexes."""
+            """The relation's destination and (backward) source indexes."""
             s_nt, d_nt = _src_dst(et)
             src, dst = (host(a) for a in edges[et])
             return (SegmentIndex.from_ids(dst, num_nodes[d_nt], device),
-                    SegmentIndex.from_ids(src, num_nodes[s_nt], device))
+                    SegmentIndex.from_ids(src, num_nodes[s_nt], device)
+                    if backward else None)
 
         if by == "relation":
             index = {et: SegmentIndex.from_ids(
@@ -157,7 +159,7 @@ class TypedSegments:
             src_stack[nt] = torch.from_numpy(s_.astype(np.int32)).to(
                 index[nt].device)
         return cls(by, by_dst, dst_ids, src_stack, index, src_index,
-                   {et: pair(et) for et in edges} if backward else {})
+                   {et: pair(et) for et in edges})
 
 
 def _segments(segments, edges, num_nodes, by):

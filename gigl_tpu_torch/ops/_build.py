@@ -85,7 +85,7 @@ _SIGNATURES = {
     + [_F32, _F32, _I32, _P],
     "gigl_segment_reduce": [_P] * 6 + [_I64] + [_I32] * 6 + [_P],
     "gigl_segment_softmax": [_P] * 4 + [_I64, _I32, _I32, _P],
-    "gigl_sddmm": [_P] * 6 + [_I64] + [_I32] * 4 + [_P],
+    "gigl_sddmm": [_P] * 8 + [_I64, _I64] + [_I32] * 3 + [_P],
     "gigl_segment_reduce_bwd": [_P] * 10 + [_I64] + [_I32] * 6 + [_P],
     "gigl_segment_max_ties": [_P] * 8 + [_I64] + [_I32] * 5 + [_P],
     "gigl_segment_softmax_bwd": [_P] * 5 + [_I64, _I32, _I32, _P],

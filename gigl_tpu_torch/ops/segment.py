@@ -13,7 +13,9 @@ their backward (jax's autodiff of the same functions):
   reduce in one pass, optionally weighted per edge ``[E]`` or per edge and
   head ``[E, H]``;
 - K9 ``segment_softmax`` (``csrc/segment_softmax.cu``);
-- K10 ``sddmm`` (``csrc/sddmm.cu``), with an optional per-head scale;
+- K10 ``sddmm`` (``csrc/sddmm.cu``), with an optional per-head scale,
+  walking the destination index for rows of 512 bytes and more (q read
+  once a segment), in edge order below;
 - K8b ``segment_reduce_bwd`` (``csrc/segment_reduce_bwd.cu``): the rows'
   cotangent, each source row the sum of its edges' cotangent rows (the
   mean's count and the max's tie share applied), walking the
@@ -358,7 +360,8 @@ def _weight_grad(g, x, segment_ids, op, src, weight, index):
     rows = src if src is not None else torch.arange(
         e, dtype=torch.int32, device=x.device)
     dw = _sddmm_fwd(rows, segment_ids, g.reshape(s, w_cols, c // w_cols),
-                    x.reshape(x.shape[0], w_cols, c // w_cols)).float()
+                    x.reshape(x.shape[0], w_cols, c // w_cols),
+                    index=index).float()
     if op == "mean":
         dw = dw / _counts(segment_ids, s, index,
                           x.dtype)[segment_ids.long()][:, None]
@@ -416,7 +419,7 @@ def segment_reduce(x: torch.Tensor, segment_ids: torch.Tensor,
     if weight is not None and (weight.dim() not in (1, 2)
                                or weight.shape[0] != e):
         raise ValueError("segment_reduce: weight must be [E] or [E, W]")
-    if x.device.type != "cpu":
+    if index is not None or x.device.type != "cpu":
         index = _index(segment_ids, num_segments, index, e)
     if not _grad_on(x, weight):
         return _segment_reduce_fwd(x, segment_ids, num_segments, op, src,
@@ -617,6 +620,11 @@ def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
 
 
 # -- K10 sddmm ------------------------------------------------------------------
+# Rows of this many bytes and more take K10's walk of the destination index
+# (csrc/sddmm.cu's kWalkRowBytes); narrower rows run in edge order.
+_SDDMM_WALK_ROW_BYTES = 512
+
+
 def _sddmm_plain(src, dst, q, k, scale=None):
     """Plain twin of K10: fp32 products summed over the last axis, one
     rounding to q's type."""
@@ -626,30 +634,34 @@ def _sddmm_plain(src, dst, q, k, scale=None):
     return out.to(q.dtype)
 
 
-def _sddmm_fwd(src, dst, q, k, scale=None):
-    """K10 launch (plain twin for CPU tensors): see :func:`sddmm`."""
+def _sddmm_fwd(src, dst, q, k, scale=None, index=None):
+    """K10 launch (plain twin for CPU tensors): see :func:`sddmm`; the
+    kernel walks ``index``, the SegmentIndex of ``dst`` over q's rows, at
+    rows of _SDDMM_WALK_ROW_BYTES and more (built here when not given), and
+    reads no index below."""
     if q.device.type == "cpu":
         return _sddmm_plain(src, dst, q, k, scale)
+    e = src.shape[0]
     heads = q.shape[1] if q.dim() == 3 else 1
     c = math.prod(q.shape[1:])
+    if c * q.element_size() >= _SDDMM_WALK_ROW_BYTES:
+        index = _index(dst, q.shape[0], index, e)
     qf = q.contiguous().reshape(q.shape[0], c)
     kf = k.contiguous().reshape(k.shape[0], c)
     s32, d32 = (t.to(torch.int32).contiguous() for t in (src, dst))
     sc = None if scale is None else scale.detach().float().contiguous()
-    extra = () if sc is None else (sc,)
-    device = _build.require_cuda("sddmm", qf, kf, s32, d32, *extra)
+    order, ptr = (None, None) if index is None else (index.order, index.ptr)
+    device = _build.require_cuda("sddmm", *(
+        t for t in (qf, kf, s32, d32, order, ptr, sc) if t is not None))
     if qf.dtype not in _DTYPES or kf.dtype != qf.dtype:
         raise ValueError("sddmm: q and k must share one dtype, fp32 or bf16")
-    e = src.shape[0]
     out = torch.empty((e, heads), dtype=q.dtype, device=device)
-    esize = qf.element_size()
-    vec = int(((c // heads) * esize) % 16 == 0 and qf.data_ptr() % 16 == 0
-              and kf.data_ptr() % 16 == 0)
     if e:
         _build.launch("sddmm", "gigl_sddmm", device, qf.data_ptr(),
                       kf.data_ptr(), s32.data_ptr(), d32.data_ptr(),
-                      _build.ptr(sc), out.data_ptr(), e, c, heads,
-                      _DTYPES[q.dtype], vec)
+                      _build.ptr(order), _build.ptr(ptr), _build.ptr(sc),
+                      out.data_ptr(), e, q.shape[0], c, heads,
+                      _DTYPES[q.dtype])
     return out if q.dim() == 3 else out.reshape(e)
 
 
@@ -718,7 +730,7 @@ class SDDMM(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, scale, src, dst, index, src_index):
-        out = _sddmm_fwd(src, dst, q, k, scale)
+        out = _sddmm_fwd(src, dst, q, k, scale, index)
         ctx.save_for_backward(q, k, scale, src, dst)
         ctx.cfg = (index, src_index)
         return out
@@ -735,7 +747,8 @@ class SDDMM(torch.autograd.Function):
         if need_s:
             # the unscaled scores and g in fp32: a bf16 K10 output would
             # round each term of the scale's cotangent once more
-            raw = _sddmm_fwd(src, dst, q.float(), k.float()).reshape(e, heads)
+            raw = _sddmm_fwd(src, dst, q.float(), k.float(),
+                             index=index).reshape(e, heads)
             g2 = g2.float()
         if scale is None:   # the coefficients are g itself (K8 / K8b widen it)
             coef, dscale = g2, None
@@ -764,8 +777,13 @@ def sddmm(src: torch.Tensor, dst: torch.Tensor, q: torch.Tensor,
     [N_dst, D], k likewise -> [E, H] or [E], each head's score times
     ``scale[h]`` (fp32 [H], or [1] without heads) when given.
     Differentiable in q, k and scale (K10b, K8, K8b); ``index`` is the
-    SegmentIndex of ``dst`` over q's rows, ``src_index`` that of ``src``
-    over k's rows."""
+    SegmentIndex of ``dst`` over q's rows
+    (``SegmentIndex.from_ids(dst, q.shape[0])``), ``src_index`` that of
+    ``src`` over k's rows. Only their sizes are checked against the call:
+    on the card K10 reads the destinations of rows of 512 bytes and more
+    from ``index`` alone, so an index of other destinations with the same
+    counts gives wrong scores there. Without one, a CUDA call at those
+    widths builds it on the host."""
     if q.dim() not in (2, 3) or k.dim() != q.dim() \
             or k.shape[1:] != q.shape[1:]:
         raise ValueError("sddmm: q and k must be [N, H, D] or [N, D] with "
@@ -775,6 +793,8 @@ def sddmm(src: torch.Tensor, dst: torch.Tensor, q: torch.Tensor,
         raise ValueError(f"sddmm: scale must be [{heads}]")
     if src.shape != dst.shape or src.dim() != 1:
         raise ValueError("sddmm: src and dst must be [E]")
+    if index is not None:
+        index = _index(dst, q.shape[0], index, src.shape[0])
     if not _grad_on(q, k, scale):
-        return _sddmm_fwd(src, dst, q, k, scale)
+        return _sddmm_fwd(src, dst, q, k, scale, index)
     return SDDMM.apply(q, k, scale, src, dst, index, src_index)

@@ -22,100 +22,33 @@ and power limit.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import re
-import shutil
-import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from _kernel_sweep import card, cuda_ms, finish_variant, load, start_variant
+
 REPO = Path(__file__).resolve().parent.parent
 N, E, HEADS = 100_000, 2_000_000, 4
 
 
-def start_variant(depth, min_blocks, _build):
+def start_depth(depth, min_blocks, _build):
     """Start compiling the attention sources (fanout_attention*.cu) with
     kDepth = depth in gigl_attention.cuh (and, for min_blocks > 0, the warp
-    kernels' launch bounds); finish_variant links them."""
-    out = REPO / "build" / "depth_sweep" / f"d{depth}_b{min_blocks}"
-    if out.exists():
-        shutil.rmtree(out)
-    shutil.copytree(_build.CSRC, out)
-    header = out / "gigl_attention.cuh"
-    text, count = re.subn(r"constexpr int kDepth = \d+;",
-                          f"constexpr int kDepth = {depth};",
-                          header.read_text())
-    if count != 1:
-        raise RuntimeError("gigl_attention.cuh: kDepth not found")
-    header.write_text(text)
+    kernels' launch bounds)."""
+    edits = {"gigl_attention.cuh": [(r"constexpr int kDepth = \d+;",
+                                     f"constexpr int kDepth = {depth};")]}
     if min_blocks > 0:
         for name in ("fanout_attention_warp.cuh",
                      "fanout_attention_bwd_warp.cuh"):
-            path = out / name
-            text, count = re.subn(
-                r"__launch_bounds__\(kThreads\)",
-                f"__launch_bounds__(kThreads, {min_blocks})",
-                path.read_text())
-            if count != 1:
-                raise RuntimeError(f"{name}: launch bounds not found")
-            path.write_text(text)
-    procs = []
-    for src in sorted(out.glob("fanout_attention*.cu")):
-        obj = src.with_suffix(".o")
-        procs.append((obj, subprocess.Popen(
-            [_build._nvcc(), *_build.COMPILE_FLAGS, "-I", str(out), "-o",
-             str(obj), str(src)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)))
-    return out, procs
-
-
-def finish_variant(out, procs, _build):
-    """Wait for a variant's compiles and link its library; its path."""
-    for obj, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {obj.name}:\n{log}")
-    lib = out / "libattention.so"
-    subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, "-shared", "-o",
-                    str(lib), *[str(o) for o, _ in procs]], check=True)
-    return lib
-
-
-def load(path, _build):
-    lib = ctypes.CDLL(str(path))
-    for fn in ("gigl_fanout_attention", "gigl_fanout_attention_bwd"):
-        f = getattr(lib, fn)
-        f.argtypes = _build._SIGNATURES[fn]
-        f.restype = ctypes.c_int
-    return lib
-
-
-def cuda_ms(fn, reps=20):
-    """Device ms of one call: reps calls in one CUDA graph, replayed."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(5):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (5 * reps)
+            edits[name] = [(r"__launch_bounds__\(kThreads\)",
+                            f"__launch_bounds__(kThreads, {min_blocks})")]
+    return start_variant(
+        REPO / "build" / "depth_sweep" / f"d{depth}_b{min_blocks}",
+        _build.CSRC, ["fanout_attention*.cu"], edits, _build)
 
 
 def main():
@@ -134,9 +67,11 @@ def main():
 
     dev = torch.device("cuda", 0)
     variants = [(d, b) for d in args.depths for b in args.min_blocks]
-    started = {v: start_variant(*v, _build) for v in variants}
+    started = {v: start_depth(*v, _build) for v in variants}
     _build.build()           # the port's own library, meanwhile
-    libs = {v: load(finish_variant(*started[v], _build), _build)
+    signatures = {fn: _build._SIGNATURES[fn] for fn in (
+        "gigl_fanout_attention", "gigl_fanout_attention_bwd")}
+    libs = {v: load(finish_variant(*started[v], _build), signatures)
             for v in variants}
     rng = np.random.default_rng(0)
     src, dst = rng.integers(0, N, E), rng.integers(0, N, E)
@@ -187,10 +122,7 @@ def main():
                               "bucket": [n_b, int(nbr.shape[1])],
                               "ms": cuda_ms(fn)}), flush=True)
     _build._lib = None
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True).stdout
-    print(card.strip(), flush=True)
+    print(card(), flush=True)
 
 
 if __name__ == "__main__":

@@ -83,9 +83,10 @@ def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def _pair(conv, cfg=None):
+def _pair(conv, cfg=None, num_layers=2, out=C, conv_kwargs=None):
     """A JAX and a port FullBatchTrainer over the COO edges, same params."""
     src, dst, x, labels = _arrays()
+    kw = _kw(conv) if conv_kwargs is None else conv_kwargs
     jdata = ref_fb.full_batch_data_from_graph(
         RefHeteroGraph.homogeneous(src, dst, num_nodes=N, node_features=x,
                                    node_labels=labels), build_ell=False)
@@ -93,12 +94,12 @@ def _pair(conv, cfg=None):
         HeteroGraph.homogeneous(src, dst, num_nodes=N, node_features=x,
                                 node_labels=labels),
         build_ell=False, device="cpu")
-    jenc = RefGNNEncoder(hid_dim=HID, out_dim=C, num_layers=2,
-                         conv=_name(conv), conv_kwargs=_kw(conv))
+    jenc = RefGNNEncoder(hid_dim=HID, out_dim=out, num_layers=num_layers,
+                         conv=_name(conv), conv_kwargs=kw)
     jt = ref_fb.FullBatchTrainer(jenc, jdata, cfg, optimizer_args=OPT)
     js = jt.init_state(jax.random.PRNGKey(0))
-    enc = GNNEncoder(DIN, HID, C, num_layers=2, conv=_name(conv),
-                     conv_kwargs=_kw(conv))
+    enc = GNNEncoder(DIN, HID, out, num_layers=num_layers, conv=_name(conv),
+                     conv_kwargs=kw)
     pt = fb.FullBatchTrainer(enc, pdata, cfg, optimizer_args=OPT,
                              device="cpu")
     ps = pt.init_state(params=params_from_flax(_np(js.params)))
@@ -133,7 +134,12 @@ def test_conv_coo_forward_and_gradients_match_jax(conv):
     parameter and of the input features against jax.value_and_grad: layer
     2's backward runs K8b (and K9b, K10, K10b for the attention convs),
     and the input gradient runs layer 1's too."""
-    jt, js, pt, _ = _pair(conv)
+    _forward_and_gradients_match(*_pair(conv)[:3])
+
+
+def _forward_and_gradients_match(jt, js, pt):
+    """encode_coo's logits and one step's loss, parameter gradients and
+    input gradient, the port (given both indexes) against the reference."""
     data = jt.data
     want_logits = jax.jit(lambda p: jt._forward(data, p, False))(js.params)
     _close(pt.logits(), want_logits, 1e-5)
@@ -164,6 +170,18 @@ def test_conv_coo_forward_and_gradients_match_jax(conv):
         assert p.grad is not None, name
         _close(p.grad, w, 1e-5, max(np.abs(w).max(), floor))
     _close(x.grad, jgx, 1e-5)
+
+
+@pytest.mark.parametrize("heads,out", [(4, 16), (4, 256), (2, 6)])
+def test_transformer_layer_coo_over_the_indexes_matches_jax(heads, out):
+    """One TransformerConv layer end to end (K10 over the destination
+    index, K9, K8; backward K10b, K8, K8b, K9b) on the edges in their
+    random order, heads of 4, 64 and 3 values: the logits, the loss, every
+    parameter's and the input's gradient against the reference's."""
+    jt, js, pt, _ = _pair("transformer", num_layers=1, out=out,
+                          conv_kwargs={"heads": heads})
+    assert (np.diff(pt.data.dst.numpy()) < 0).any()          # not sorted
+    _forward_and_gradients_match(jt, js, pt)
 
 
 def test_gcn_coo_normalises_sources_by_out_degree():

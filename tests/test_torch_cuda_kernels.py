@@ -945,6 +945,171 @@ def test_sddmm_matches_plain(dev, dtype, heads, dk, scaled):
     _within(flat, _sddmm_plain(src, ids, q[:, 0], k[:, 0]), dtype)
 
 
+def _walk_graph(dev, seed=0):
+    """Segment ids on the card, shuffled: segments 0-4 of 0, 1, 31, 33 and
+    5,000 edges, 5-9 empty, the rest random; 19,076 edges (not a multiple
+    of 32); and the index."""
+    rng = np.random.default_rng(seed)
+    s = 2000
+    ids = np.concatenate([rng.integers(10, s, 14_011)]
+                         + [np.full(d, seg) for seg, d in
+                            enumerate((0, 1, 31, 33, 5000))])
+    ids = torch.as_tensor(rng.permutation(ids).astype(np.int32), device=dev)
+    return ids, SegmentIndex.from_ids(ids, s)
+
+
+def _shifted(t, nbytes=4):
+    """A copy of t whose storage starts ``nbytes`` past a 16-byte
+    boundary (an unaligned table)."""
+    n = t.numel() * t.element_size()
+    raw = torch.empty(n + 32, dtype=torch.uint8, device=t.device)
+    start = (-raw.data_ptr()) % 16 + nbytes
+    out = raw[start:start + n].view(t.dtype).reshape(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == nbytes
+    return out
+
+
+WALK_HEADS = [(1, 3), (4, 3), (1, 4), (4, 4), (4, 8), (1, 32), (4, 32),
+              (4, 64), (1, 128), (4, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,dk", WALK_HEADS)
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_sddmm_walk_matches_plain(dev, dtype, heads, dk, scaled, shifted):
+    """K10 walks the destination index: each score lands at its edge's own
+    position (edge order shuffled) over segments of 0, 1, 31, 33 and 5,000
+    edges; Dh 3 in bf16 has no lane map (the scalar code); tables 4 bytes
+    past a 16-byte boundary take 4-byte pieces. One launch, the same bits
+    on a repeat launch."""
+    ids, index = _walk_graph(dev)
+    e, s = index.num_edges, index.num_segments
+    g = torch.Generator(device=dev).manual_seed(14)
+    q = torch.randn((s, heads, dk), generator=g, device=dev).to(dtype)
+    k = torch.randn((3000, heads, dk), generator=g, device=dev).to(dtype)
+    src = torch.randint(0, 3000, (e,), generator=g, device=dev,
+                        dtype=torch.int32)
+    scale = (torch.rand(heads, generator=g, device=dev) + 0.5
+             if scaled else None)
+    if shifted:
+        q, k = _shifted(q), _shifted(k)
+    before = _build.launches["sddmm"]
+    got = sddmm(src, ids, q, k, scale=scale, index=index)
+    torch.cuda.synchronize()
+    assert _build.launches["sddmm"] == before + 1
+    want = _sddmm_plain(src, ids, q, k, scale)
+    assert got.dtype == dtype and got.shape == (e, heads)
+    _within(got, want, dtype)
+    assert torch.equal(got, sddmm(src, ids, q, k, scale=scale, index=index))
+
+
+@pytest.mark.parametrize("heads,dk", [(4, 4), (4, 32), (4, 64)])
+def test_sddmm_without_an_index_builds_one_only_to_walk(dev, monkeypatch,
+                                                        heads, dk):
+    """Without an index K10 builds one on the host only for rows it walks
+    (512 bytes and more: 4 x 32 fp32 up); narrower rows run in edge order
+    with no index. Either way the scores match the plain twin."""
+    ids, index = _walk_graph(dev)
+    e, s = index.num_edges, index.num_segments
+    g = torch.Generator(device=dev).manual_seed(17)
+    q = torch.randn((s, heads, dk), generator=g, device=dev)
+    k = torch.randn((3000, heads, dk), generator=g, device=dev)
+    src = torch.randint(0, 3000, (e,), generator=g, device=dev,
+                        dtype=torch.int32)
+    builds = []
+    from_ids = SegmentIndex.from_ids
+    monkeypatch.setattr(SegmentIndex, "from_ids", staticmethod(
+        lambda *a, **kw: builds.append(1) or from_ids(*a, **kw)))
+    got = sddmm(src, ids, q, k)
+    assert len(builds) == (1 if heads * dk * 4 >= 512 else 0)
+    _within(got, _sddmm_plain(src, ids, q, k), torch.float32)
+
+
+REDUCE_ROWS = [  # (weight columns (heads), values per column)
+    (1, 3), (1, 4), (4, 4), (3, 4), (4, 8), (4, 32), (4, 64), (1, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["sum", "mean", "max"])
+@pytest.mark.parametrize("weights", ["none", "edge", "head"])
+@pytest.mark.parametrize("gather", [True, False])
+@pytest.mark.parametrize("heads,dk", REDUCE_ROWS)
+def test_segment_reduce_over_the_index_matches_plain(dev, dtype, op, weights,
+                                                     gather, heads, dk):
+    """K8 over segments of 0, 1, 31, 33 and 5,000 edges in a
+    shuffled edge order, every mode, weights none / [E] / [E, H], rows
+    gathered or per edge, and (gathered rows) a table 4 bytes past a
+    16-byte boundary; empty segments give 0. One launch, the same bits on
+    a repeat launch."""
+    ids, index = _walk_graph(dev)
+    e, s = index.num_edges, index.num_segments
+    g = torch.Generator(device=dev).manual_seed(15)
+    m = 4000 if gather else e
+    x = torch.randn((m, heads * dk), generator=g, device=dev)
+    if op == "max":
+        x = (x * 2).round()                               # ties
+    x = x.to(dtype)
+    src = None
+    if gather:
+        src = torch.randint(0, m, (e,), generator=g, device=dev,
+                            dtype=torch.int32)
+        x = _shifted(x)
+    w = {"none": None,
+         "edge": torch.rand((e,), generator=g, device=dev),
+         "head": torch.rand((e, heads), generator=g, device=dev)}[weights]
+    before = _build.launches["segment_reduce"]
+    got = segment_reduce(x, ids, s, op=op, src=src, weight=w, index=index)
+    torch.cuda.synchronize()
+    assert _build.launches["segment_reduce"] == before + 1
+    want = _segment_reduce_plain(x, ids, s, op, src, w)
+    assert got.dtype == dtype and got.shape == (s, heads * dk)
+    _within(got, want, dtype)
+    assert not got[5:10].any()                     # empty segments give 0
+    assert torch.equal(got, segment_reduce(x, ids, s, op=op, src=src,
+                                           weight=w, index=index))
+
+
+@pytest.mark.parametrize("heads,dk", [(4, 4), (4, 64), (1, 3)])
+def test_sddmm_and_coo_spmm_gradients_on_card_match_cpu(dev, heads, dk):
+    """The sddmm and the weighted coo_spmm backward (K10b, K8, K8b, K10 for
+    the weights) on the card against the same functions on the CPU, whose
+    backward composes the plain twins (fp32: 1e-5 of each gradient's
+    scale), over the shuffled walk graph."""
+    ids_d, index = _walk_graph(dev)
+    e, s = index.num_edges, index.num_segments
+    rng = np.random.default_rng(16)
+    src_np = rng.integers(0, 3000, e).astype(np.int32)
+    src_np[:5000] = 7                                    # a source hub
+    arrays = {"q": rng.normal(size=(s, heads, dk)),
+              "k": rng.normal(size=(3000, heads, dk)),
+              "v": rng.normal(size=(3000, heads, dk)),
+              "w": rng.random((e, heads)), "scale": rng.random(heads) + 0.5,
+              "g_score": rng.normal(size=(e, heads)),
+              "g_out": rng.normal(size=(s, heads, dk))}
+    grads = {}
+    for device in (dev, torch.device("cpu")):
+        t = {k_: torch.tensor(a, dtype=torch.float32, device=device)
+             .requires_grad_(not k_.startswith("g_"))
+             for k_, a in arrays.items()}
+        ids = ids_d.to(device)
+        src = torch.as_tensor(src_np, device=device)
+        idx = index if device == dev else None
+        sidx = SegmentIndex.from_ids(src, 3000) if device == dev else None
+        score = sddmm(src, ids, t["q"], t["k"], scale=t["scale"], index=idx,
+                      src_index=sidx)
+        out = segment_ops.coo_spmm(src, ids, t["v"], s, edge_weight=t["w"],
+                                   index=idx, src_index=sidx)
+        ((score * t["g_score"]).sum() + (out * t["g_out"]).sum()).backward()
+        grads[device.type] = {k_: t[k_].grad.cpu() for k_ in
+                              ("q", "k", "v", "w", "scale")}
+    for k_, want in grads["cpu"].items():
+        scale = float(want.abs().max())
+        err = float((grads["cuda"][k_] - want).abs().max())
+        assert err <= 1e-5 * scale, (k_, err, scale)
+
+
 def test_segment_ops_on_card_are_forward_only(dev):
     """Formerly forward only: a CUDA input that requires grad now records
     the ops' autograd.Functions (their backward is K8b, K9b, K10b); a
@@ -956,7 +1121,8 @@ def test_segment_ops_on_card_are_forward_only(dev):
         .grad_fn.name()
     assert "SegmentSoftmax" in segment_softmax(
         x[:, :2], ids, s, index=index).grad_fn.name()
-    assert "SDDMM" in sddmm(ids, ids, x[:s], x[:s]).grad_fn.name()
+    q = torch.randn((s, 8), device=dev, requires_grad=True)
+    assert "SDDMM" in sddmm(ids, ids, q, q).grad_fn.name()
     with torch.no_grad():
         assert segment_sum(x, ids, s, index=index).grad_fn is None
     with pytest.raises(ValueError, match="index covers"):
