@@ -201,9 +201,14 @@
 17. prints the SegmentIndex host builds counted inside every timed window
    of a path (SegmentIndex.from_ids wrapped from the build on; each must
    read 0: a segment op on the card given no index builds one on the
-   host), one JSON line with every kernel's numbers, then the card line,
-   then {"ok": true, ...} as the last line. Every profile carries K7 / K7b
-   (attention_ms_per_step) and K10 / K8 (segment_ms_per_step) device ms.
+   host) and K8's gathering launches there by mode (none may be chained:
+   every index is built with the very src its pass gives K8, whose
+   composed mode reads the rows from the index), one JSON line with every
+   kernel's numbers, then the card line, then {"ok": true, ...} as the
+   last line. Every profile carries K7 / K7b (attention_ms_per_step), K10
+   / K8 (segment_ms_per_step) and K6b (ell_transpose_ms_per_step) device
+   ms. K8's rows time its composed mode (ms) beside its chained mode
+   (chained_ms: a copy of src), bit-equal.
 
 Any failed check raises; nothing is printed as a result without a card.
 It imports neither JAX nor the JAX package.
@@ -441,16 +446,36 @@ def count_host_index_builds():
     SegmentIndex.from_ids = classmethod(counted)
 
 
+# K8's launches with a gather inside each path's timed windows, by mode
+# (_build.launches' segment_reduce_composed and segment_reduce_chained):
+# every one must read the index's composed rows
+K8_GATHER_IN_WINDOWS = {}
+K8_MODES = ("composed", "chained")
+
+
 @contextlib.contextmanager
 def timed_window(path):
     """A path's timed steps or passes: a segment op on the card given no
-    SegmentIndex builds one on the host, so none may be built inside."""
+    SegmentIndex builds one on the host, so none may be built inside; and
+    every K8 launch with a gather reads the composed rows of an index built
+    from that very gather (no chained launch)."""
+    from gigl_tpu_torch.ops import _build
+
     before = HOST_INDEX_BUILDS["calls"]
+    k8_before = {m_: _build.launches[f"segment_reduce_{m_}"]
+                 for m_ in K8_MODES}
     yield
     n = HOST_INDEX_BUILDS["calls"] - before
     INDEX_BUILDS_IN_WINDOWS[path] = INDEX_BUILDS_IN_WINDOWS.get(path, 0) + n
     check(n == 0, f"{path}: {n} SegmentIndex host builds inside its timed "
           "window")
+    seen = K8_GATHER_IN_WINDOWS.setdefault(path, dict.fromkeys(K8_MODES, 0))
+    for mode in K8_MODES:
+        seen[mode] += (_build.launches[f"segment_reduce_{mode}"]
+                       - k8_before[mode])
+    check(seen["chained"] == 0, f"{path}: {seen['chained']} K8 launches "
+          "read a gather through the index's order (chained mode) inside "
+          "its timed window")
 
 
 def profile_summary(prof, steps, window_us, host_ms_per_step):
@@ -483,7 +508,10 @@ def profile_summary(prof, steps, window_us, host_ms_per_step):
     attention = dict.fromkeys(("fanout_attention", "fanout_attention_bwd"),
                               0.0)
     segment = dict.fromkeys(("sddmm", "segment_reduce"), 0.0)
+    transpose = 0.0   # K6b: its bucket walks and the max mode's tie pass
     for n, (t, _) in by_name.items():
+        if "ell_transpose_" in n or "tie_count_kernel" in n:
+            transpose += t / steps / 1e3
         if "fanout_attention_bwd" in n or "sum_partials_kernel" in n:
             attention["fanout_attention_bwd"] += t / steps / 1e3
         elif "fanout_attention_" in n:
@@ -497,6 +525,7 @@ def profile_summary(prof, steps, window_us, host_ms_per_step):
         "device_ms_per_step": device_ms,
         "attention_ms_per_step": attention,
         "segment_ms_per_step": segment,
+        "ell_transpose_ms_per_step": transpose,
         "device_busy_ms_per_step": busy / steps / 1e3,
         "busy_share_of_profiled_window": busy / window_us,
         "busy_share_of_unprofiled_step": busy / steps / 1e3
@@ -811,6 +840,29 @@ def sddmm_library(index, src, q, k, scale, got, rel_err):
         return None, f"sampled_addmm failed: {exc}"[:200]
 
 
+def k8_modes_checked(composed, chained, what):
+    """K8's output through its composed mode (``composed()``: src is the
+    tensor the index was built from) and its chained mode (``chained()``:
+    a copy of it), checked to have run in those modes and to agree bit for
+    bit, and a repeat composed run too; returns the output."""
+    from gigl_tpu_torch.ops import _build
+
+    def modes():
+        return tuple(_build.launches[f"segment_reduce_{m_}"]
+                     for m_ in K8_MODES)
+
+    before = modes()
+    got = composed()
+    check(modes() == (before[0] + 1, before[1]),
+          f"{what}: the index's own src did not run the composed mode")
+    other = chained()
+    check(modes() == (before[0] + 1, before[1] + 1),
+          f"{what}: a copy of src did not run the chained mode")
+    check(torch.equal(got, other), f"{what}: composed and chained differ")
+    check(torch.equal(got, composed()), f"{what}: a repeat run differs")
+    return got
+
+
 def segment_walk_rows(dev, fb, rel_err, unique):
     """K10 sddmm and K8 segment_reduce at the COO Transformer's two layers
     (the flagship's 2M edges in their random order, destination-sorted by
@@ -821,12 +873,15 @@ def segment_walk_rows(dev, fb, rel_err, unique):
     repeat run, its bound, its library yardstick (K10:
     sparse.sampled_addmm; K8: sparse.mm, the unweighted sum, whose kernel
     time is beside it) and gathered_bytes, E x the bytes of a gathered
-    row, which the byte bound counts once per distinct row. Returns
-    {kernel: {mode: numbers}} for the kernel rows."""
+    row, which the byte bound counts once per distinct row. K8 runs
+    composed (the step's index was built from its src: ms, sum_ms) and
+    chained (a copy of src: chained_ms, chained_sum_ms), bit-equal.
+    Returns {kernel: {mode: numbers}} for the kernel rows."""
     from gigl_tpu_torch.ops.segment import (
         _sddmm_plain, _segment_reduce_plain, sddmm, segment_reduce)
 
     idx, src, dst = fb.index, fb.src, fb.dst
+    src_copy = src.clone()   # the same ids in another tensor: chained mode
     e, n, h = idx.num_edges, idx.num_segments, GAT_HEADS
     u_src, u_dst = unique(src), unique(dst)
     order = idx.order.long()
@@ -864,22 +919,24 @@ def segment_walk_rows(dev, fb, rel_err, unique):
             "heads": h, "head_dim": dk}
         del got
 
-        def k8(weight=alpha):
+        def k8(weight=alpha, src=src):
             return segment_reduce(v, dst, n, src=src, weight=weight,
                                   index=idx)
 
         def k8_plain():
             return _segment_reduce_plain(v, dst, n, "sum", src, alpha)
 
-        got = k8()
+        def k8_chained(weight=alpha):
+            return k8(weight, src_copy)
+
+        got = k8_modes_checked(k8, k8_chained, f"K8 {layer}")
         err = rel_err(got, k8_plain(), f"K8 {layer}", tol=1e-5)
-        check(torch.equal(got, k8()), f"K8 {layer}: a repeat run differs")
         v2 = v.reshape(n, c)
         rel_err(torch.sparse.mm(adj, v2), k8(None).reshape(n, c),
                 f"sparse.mm yardstick vs K8 sum {layer}", tol=1e-5)
-        # bytes: each distinct v row once, the index, the gather ids, the
-        # [E, 4] weights, [N, C] written; ops: a multiply and an add per
-        # edge and value
+        # bytes: each distinct v row once, the index's pointers, gathered
+        # ids and order (to find each edge's weights), the [E, 4] weights,
+        # [N, C] written; ops: a multiply and an add per edge and value
         b, by = bound_ms(u_src * c * 4 + e * 8 + (n + 1) * 4 + n * c * 4
                          + e * h * 4, e * c * 2)
         rows["segment_reduce"][layer] = {
@@ -890,8 +947,10 @@ def segment_walk_rows(dev, fb, rel_err, unique):
             "library_ms": cuda_ms(lambda: torch.sparse.mm(adj, v2)),
             "library_call": "torch.sparse.mm (CSR of the in-edges, fp32) = "
                             "the unweighted sum (sum_ms)",
-            "sum_ms": cuda_ms(lambda: k8(None)), "edges": e, "heads": h,
-            "head_dim": dk}
+            "sum_ms": cuda_ms(lambda: k8(None)),
+            "chained_ms": cuda_ms(k8_chained),
+            "chained_sum_ms": cuda_ms(lambda: k8_chained(None)),
+            "edges": e, "heads": h, "head_dim": dk}
         del got, q, k, v, v2, alpha
     del adj
     return rows
@@ -1031,24 +1090,32 @@ def typed_phases(dev, card, record, rel_err, unique):
     del idx_h
 
     k8 = {}
+    src_copy = src_p.clone()   # the same ids in another tensor: chained
     for mode, op, w in (("weighted", "sum", alpha), ("sum", "sum", None),
                         ("mean", "mean", None), ("max", "max", None)):
-        def k8_kernel(op=op, w=w):
-            return segment_reduce(msg, dst_p, HET_PAPERS, op=op, src=src_p,
+        def k8_kernel(op=op, w=w, src=src_p):
+            return segment_reduce(msg, dst_p, HET_PAPERS, op=op, src=src,
                                   weight=w, index=idx)
 
         def k8_plain(op=op, w=w):
             return _segment_reduce_plain(msg, dst_p, HET_PAPERS, op, src_p, w)
 
-        err = rel_err(k8_kernel(), k8_plain(), f"K8 {mode}", tol=1e-5)
-        # bytes: each distinct source row read once, the index, the gather
-        # ids (and the [E, H] weights), [S, C] written; ops: an add (and a
-        # multiply) per edge and value
-        nbytes = (u_src * HET_HID * 4 + e_p * 8 + (HET_PAPERS + 1) * 4
-                  + HET_PAPERS * HET_HID * 4 + (e_p * h * 4 if w is not None
-                                                else 0))
+        def k8_chained(op=op, w=w):
+            return k8_kernel(op, w, src_copy)
+
+        err = rel_err(k8_modes_checked(k8_kernel, k8_chained,
+                                       f"K8 typed {mode}"),
+                      k8_plain(), f"K8 {mode}", tol=1e-5)
+        # bytes: each distinct source row read once, the index's pointers
+        # and gathered ids (weighted: + its order, to find each edge's
+        # weights, and the [E, H] weights), [S, C] written; ops: an add
+        # (and a multiply) per edge and value
+        nbytes = (u_src * HET_HID * 4 + e_p * 4 + (HET_PAPERS + 1) * 4
+                  + HET_PAPERS * HET_HID * 4 + (e_p * 4 + e_p * h * 4
+                                                if w is not None else 0))
         nops = e_p * HET_HID * (2 if w is not None else 1)
         k8[mode] = {"err": err, "ms": cuda_ms(k8_kernel),
+                    "chained_ms": cuda_ms(k8_chained),
                     "plain_ms": cuda_ms(k8_plain, reps=3),
                     "eager_ms": eager_ms(k8_kernel),
                     "bound_ms": bound_ms(nbytes, nops)[0],
@@ -1112,7 +1179,7 @@ def typed_phases(dev, card, record, rel_err, unique):
             check(counts[path][k] > 0, f"{k} was not launched on {path}")
         got = {nt: sinks[nt].table(n, HET_OUT, path)
                for nt, n in num_nodes.items()}
-        segs = TypedSegments.build(edges_np, num_nodes,
+        segs = TypedSegments.build(edges_dev, num_nodes,
                                    enc.convs[0].segments_by, dev,
                                    backward=False)
         before = dict(_build.launches)
@@ -1824,8 +1891,9 @@ def edge_phases(dev, card, arrays, fb_data, typed, record, add_mode,
 
     # -- K6b gine over the whole transpose walk at layer 2's [N, 128] fp32
     # cotangent. bytes: the cotangent rows (once each), each source's own
-    # row, each entry's edge row, the transpose tables, ent_row and
-    # ent_edge, [N, 128] written; ops: an add and a compare per entry.
+    # row, each entry's edge row, t_row and t_nbr (the slot's row id and
+    # flat entry), each entry's ent_edge, t_perm, [N, 128] written; ops: an
+    # add and a compare per entry.
     g6, xt6 = (torch.randn((N, EDGE_GINE_HID), generator=gen, device=dev)
                for _ in range(2))
     et6 = torch.randn((E, EDGE_GINE_HID), generator=gen, device=dev)
@@ -1837,9 +1905,9 @@ def edge_phases(dev, card, arrays, fb_data, typed, record, add_mode,
         return _ell_transpose_plain(g6, fell, "gine", table=xt6, ea=et6)
 
     err = rel_err(k6bg_kernel(), k6bg_plain(), "K6b gine", tol=1e-5)
-    t_slots = sum(int(m_.numel()) for m_ in fell.t_mask)
+    t_slots = sum(int(r_.numel()) for r_ in fell.t_row)
     nbytes = (N * EDGE_GINE_HID * 4 * 3 + E * EDGE_GINE_HID * 4
-              + t_slots * 5 + E * 8 + N * 4)
+              + t_slots * 8 + E * 4 + N * 4)
     add_mode("ell_transpose_aggregate", "gine", {
         "err": err, "ms": cuda_ms(k6bg_kernel),
         "plain_ms": cuda_ms(k6bg_plain, reps=1),
@@ -4543,7 +4611,7 @@ def main():
     fell = fb_data.ell
     t_nonempty = sum(hi > lo for lo, hi in zip(fell.t_boundaries,
                                                fell.t_boundaries[1:]))
-    t_slots = sum(int(m_.numel()) for m_ in fell.t_mask)
+    t_slots = sum(int(r_.numel()) for r_ in fell.t_row)
     n_ent = int(fell.ent_row.shape[0])
     valid_ent = torch.cat([m_.reshape(-1) for m_ in fell.mask])
     src_ent = torch.cat([nb_.reshape(-1) for nb_ in fell.nbr]).long()
@@ -4560,17 +4628,17 @@ def main():
     check(n_valid == E, "the ELL entries are not the graph's edges")
 
     # K6b over the whole transpose walk, layer 2's [100k, 256] fp32
-    # cotangent. bytes: each dst row with an in-edge read once, t_nbr and
-    # t_mask, each valid entry's row index, the degree and t_perm tables,
-    # [N, 256] written (weighted: + two fp32 per valid entry and head);
-    # ops: one multiply-add per valid entry and value.
+    # cotangent. bytes: each dst row with an in-edge read once, t_row (a
+    # slot's composed row id, 4 bytes a transpose slot), the degree and
+    # t_perm tables, [N, 256] written (weighted, gatv2: + t_nbr, the slot's
+    # flat entry, and two fp32 per valid entry and head); ops: one
+    # multiply-add per valid entry and value.
     gen8 = torch.Generator(device=dev).manual_seed(8)
     g6 = torch.randn((N, HID), generator=gen8, device=dev)
     wt6 = torch.rand((n_ent, GAT_HEADS), generator=gen8, device=dev) * 0.1
     wt6b = torch.randn((n_ent, GAT_HEADS), generator=gen8, device=dev) * 0.1
     vec6 = torch.randn(HID, generator=gen8, device=dev) * 0.2
-    k6b_bytes = (dst_rows * HID * 4 + t_slots * 5 + n_valid * 4 + N * 8
-                 + N * HID * 4)
+    k6b_bytes = dst_rows * HID * 4 + t_slots * 4 + N * 8 + N * HID * 4
     q6, t6 = (torch.randn((N, HID), generator=gen8, device=dev)
               for _ in range(2))
     x6m = (t6 * 2).round()       # a coarse grid: the max has ties
@@ -4591,7 +4659,8 @@ def main():
         # rows (as many as the cotangent rows) and the key table; max: + the
         # forward's max rows, its input table and the fp32 tie counts (the
         # tie-count pass reads the forward tables: nbr and mask)
-        nbytes = k6b_bytes + (n_valid * GAT_HEADS * 8 + HID * 4
+        nbytes = k6b_bytes + (t_slots * 4 + n_valid * GAT_HEADS * 8
+                              + HID * 4
                               if mode in ("weighted", "gatv2") else 0) + (
             dst_rows * HID * 4 + N * HID * 4 if mode == "gatv2" else 0) + (
             N * HID * 4 * 4 + n_ent * 5 if mode == "max" else 0)
@@ -4617,7 +4686,8 @@ def main():
            library_call="torch.Tensor.index_add_ of the weighted cotangent "
                         "rows (atomics; gather and weighting not timed)",
            table=[N, HID], dtype="float32", t_launches=t_nonempty,
-           eager_ms=k6b["mean"]["eager_ms"], modes=k6b)
+           eager_ms=k6b["mean"]["eager_ms"], modes=k6b,
+           gathered_bytes=n_valid * HID * 4)
     del msg6, src_v, erow, wt6, wt6b, q6, t6, x6m, max6
 
     # K7b at the largest bucket, fp32: GAT layer 1 (H=4, Dh=64), GAT layer
@@ -4930,11 +5000,15 @@ def main():
           "the kernels line does not list all twenty-six kernels")
     emit({"phase": "host_index_builds",
           "in_timed_windows": INDEX_BUILDS_IN_WINDOWS,
-          "calls_in_run": HOST_INDEX_BUILDS["calls"]})
-    check(all(p_ in INDEX_BUILDS_IN_WINDOWS for p_ in coo)
-          and all(f"typed_full_{m_}" in INDEX_BUILDS_IN_WINDOWS
-                  for m_ in TYPED_FULL_KERNELS),
+          "calls_in_run": HOST_INDEX_BUILDS["calls"],
+          "k8_gather_launches_in_timed_windows": K8_GATHER_IN_WINDOWS})
+    segment_paths = list(coo) + [f"typed_full_{m_}"
+                                 for m_ in TYPED_FULL_KERNELS]
+    check(all(p_ in INDEX_BUILDS_IN_WINDOWS for p_ in segment_paths),
           "a segment path's timed window was not watched for host builds")
+    check(all(K8_GATHER_IN_WINDOWS[p_]["composed"] > 0
+              for p_ in segment_paths),
+          "a segment path's timed window ran no composed K8 launch")
     results.sort(key=lambda r: _build.KERNEL_NAMES.index(r["name"]))
 
     emit({"kernels": results})

@@ -17,19 +17,30 @@
 //
 // Bound: bytes — each distinct row the segments read, the index and the
 // weights once, [S, C] written once; the [E, C] message block the reference
-// materialises is never written. Design: as K6, one thread per 16-byte
-// piece of an output row (4 fp32 or 8 bf16 values), consecutive threads
-// across the row, so every gathered row is read as coalesced 16-byte loads,
-// and an edge's id, gather index and weight are one broadcast load for the
-// row's threads. Rows that are not 16-byte multiples (or pieces that would
-// straddle two weight columns) take the same loop one element per thread.
-// A hub segment (degree 10^3-10^4) is walked by its row's threads alone:
-// slow but correct in this first version. A walk of the destination
-// segments as K10's (gigl_segment.cuh: a slot group of lanes a segment,
-// its edge ids shuffled, the next edges' rows loaded ahead) was measured
-// against this design on an H100 and lost 4-7% at every row width the
-// paths run (4 x 4 to 4 x 64 fp32, random edge order); it won only on
-// 1,000-edge hubs (PERF.md §6), so this design stays.
+// materialises is never written. Design: one thread per 16-byte piece of an
+// output row (4 fp32 or 8 bf16 values), consecutive threads across the row,
+// so every gathered row is read as coalesced 16-byte loads, and an edge's
+// ids and weight are one broadcast load for the row's threads. Rows that
+// are not 16-byte multiples (or pieces that would straddle two weight
+// columns) take the same loop one element per thread.
+//
+// The row a slot reads is known once the graph is: with a gather, the first
+// version read order[j], then gather[e] (a random 4-byte read) and only then
+// the row, three dependent loads an edge. An index built with its gather
+// (SegmentIndex.from_ids(..., gather=src)) holds gathered = gather[order],
+// composed on the host in walk order, and the composed mode (COMPOSED, the
+// wrapper's choice when src is the tensor the index was built from) reads
+// gathered[j], a sequential id, then the row; weights are still read
+// through order[j], but the row load no longer waits on them. The chained
+// mode (any other src) is the same kernel with the first version's chain.
+// Each thread of the composed mode keeps kSlotsInFlight (4) slots in
+// flight: their ids, rows and weights are loaded before any is added, and
+// they are added in edge order, so the sums round as the first version's,
+// bit for bit; the chained mode keeps one (two measured 4% slower at 1 KB
+// rows). A hub segment (degree 10^3-10^4) is walked by its row's threads
+// alone. A walk of the destination segments as K10's (gigl_segment.cuh: a
+// slot group of lanes a segment) lost 4-7% to this design at every row
+// width the paths run (PERF.md §6).
 #include "gigl_pieces.cuh"
 
 namespace {
@@ -37,15 +48,31 @@ namespace {
 constexpr int kSum = 0;
 constexpr int kMean = 1;
 constexpr int kMax = 2;
+// Slots a thread of the composed mode keeps in flight (4 measured 1-6%
+// faster than 2 at every path shape; the chained mode keeps one, which
+// measured faster than two at 1 KB rows: PERF.md §6).
+constexpr int kSlotsInFlight = 4;
 
-template <typename T, int P, int OP>
+// One slot's row piece and weight, loaded; folded into acc in slot order.
+template <int P, int OP>
+__device__ __forceinline__ void fold(float* acc, const float* v, float wt) {
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const float m = v[k] * wt;
+    acc[k] = OP == kMax ? fmaxf(acc[k], m) : acc[k] + m;
+  }
+}
+
+template <typename T, int P, int OP, bool COMPOSED>
 __global__ void segment_reduce_kernel(const T* __restrict__ x,
                                       const int32_t* __restrict__ gather,
                                       const int32_t* __restrict__ order,
+                                      const int32_t* __restrict__ gathered,
                                       const int32_t* __restrict__ ptr,
                                       const float* __restrict__ w,
                                       T* __restrict__ out, int64_t s, int c,
                                       int wc, int w_cols) {
+  constexpr int K = COMPOSED ? kSlotsInFlight : 1;
   const int pieces = c / P;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= s * pieces) return;
@@ -58,17 +85,39 @@ __global__ void segment_reduce_kernel(const T* __restrict__ x,
     acc[k] = OP == kMax ? -__int_as_float(0x7f800000) : 0.f;  // -inf or 0
   const int32_t lo = __ldg(ptr + seg);
   const int32_t hi = __ldg(ptr + seg + 1);
-  for (int32_t j = lo; j < hi; ++j) {
-    const int64_t e = __ldg(order + j);
-    const int64_t r = gather != nullptr ? __ldg(gather + e) : e;
+  // slot j's row and, with weights, its edge id
+  auto row_of = [&](int32_t j, int64_t& e) -> int64_t {
+    if constexpr (COMPOSED) {
+      if (w != nullptr) e = __ldg(order + j);
+      return __ldg(gathered + j);
+    } else {
+      e = __ldg(order + j);
+      return gather != nullptr ? __ldg(gather + e) : e;
+    }
+  };
+  auto weight_of = [&](int64_t e) -> float {
+    return w != nullptr ? __ldg(w + e * w_cols + wcol) : 1.f;
+  };
+  int32_t j = lo;
+  for (; j + K <= hi; j += K) {  // K slots' loads before their sums
+    int64_t e[K] = {}, r[K];
+    float v[K][P], wt[K];
+#pragma unroll
+    for (int q = 0; q < K; ++q) r[q] = row_of(j + q, e[q]);
+#pragma unroll
+    for (int q = 0; q < K; ++q)
+      gigl::load_piece<T, P>(x + r[q] * c + col, v[q]);
+#pragma unroll
+    for (int q = 0; q < K; ++q) wt[q] = weight_of(e[q]);
+#pragma unroll
+    for (int q = 0; q < K; ++q) fold<P, OP>(acc, v[q], wt[q]);
+  }
+  for (; j < hi; ++j) {  // the last hi - lo mod K slots
+    int64_t e = 0;
+    const int64_t r = row_of(j, e);
     float v[P];
     gigl::load_piece<T, P>(x + r * c + col, v);
-    const float wt = w != nullptr ? __ldg(w + e * w_cols + wcol) : 1.f;
-#pragma unroll
-    for (int k = 0; k < P; ++k) {
-      const float m = v[k] * wt;
-      acc[k] = OP == kMax ? fmaxf(acc[k], m) : acc[k] + m;
-    }
+    fold<P, OP>(acc, v, weight_of(e));
   }
   if (OP == kMax) {
 #pragma unroll
@@ -84,10 +133,11 @@ __global__ void segment_reduce_kernel(const T* __restrict__ x,
   gigl::store_piece<T, P>(out + seg * c + col, acc);
 }
 
-template <typename T, int P>
-int launch(const void* x, const void* gather, const void* order,
-           const void* ptr, const void* w, void* out, long long s, int c,
-           int wc, int w_cols, int op, cudaStream_t stream) {
+template <typename T, int P, bool COMPOSED>
+int launch_mode(const void* x, const void* gather, const void* order,
+                const void* gathered, const void* ptr, const void* w,
+                void* out, long long s, int c, int wc, int w_cols, int op,
+                cudaStream_t stream) {
   const long long total = s * (c / P);
   if (total == 0) return 0;
   const int threads = 256;
@@ -95,21 +145,25 @@ int launch(const void* x, const void* gather, const void* order,
   const T* xv = static_cast<const T*>(x);
   const int32_t* gv = static_cast<const int32_t*>(gather);
   const int32_t* ov = static_cast<const int32_t*>(order);
+  const int32_t* cv = static_cast<const int32_t*>(gathered);
   const int32_t* pv = static_cast<const int32_t*>(ptr);
   const float* wv = static_cast<const float*>(w);
   T* outv = static_cast<T*>(out);
   switch (op) {
     case kSum:
-      segment_reduce_kernel<T, P, kSum><<<blocks, threads, 0, stream>>>(
-          xv, gv, ov, pv, wv, outv, s, c, wc, w_cols);
+      segment_reduce_kernel<T, P, kSum, COMPOSED>
+          <<<blocks, threads, 0, stream>>>(xv, gv, ov, cv, pv, wv, outv, s, c,
+                                           wc, w_cols);
       break;
     case kMean:
-      segment_reduce_kernel<T, P, kMean><<<blocks, threads, 0, stream>>>(
-          xv, gv, ov, pv, wv, outv, s, c, wc, w_cols);
+      segment_reduce_kernel<T, P, kMean, COMPOSED>
+          <<<blocks, threads, 0, stream>>>(xv, gv, ov, cv, pv, wv, outv, s, c,
+                                           wc, w_cols);
       break;
     case kMax:
-      segment_reduce_kernel<T, P, kMax><<<blocks, threads, 0, stream>>>(
-          xv, gv, ov, pv, wv, outv, s, c, wc, w_cols);
+      segment_reduce_kernel<T, P, kMax, COMPOSED>
+          <<<blocks, threads, 0, stream>>>(xv, gv, ov, cv, pv, wv, outv, s, c,
+                                           wc, w_cols);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -117,31 +171,45 @@ int launch(const void* x, const void* gather, const void* order,
   return 0;
 }
 
+template <typename T, int P>
+int launch(const void* x, const void* gather, const void* order,
+           const void* gathered, const void* ptr, const void* w, void* out,
+           long long s, int c, int wc, int w_cols, int op,
+           cudaStream_t stream) {
+  return gathered != nullptr
+             ? launch_mode<T, P, true>(x, gather, order, gathered, ptr, w,
+                                       out, s, c, wc, w_cols, op, stream)
+             : launch_mode<T, P, false>(x, gather, order, gathered, ptr, w,
+                                        out, s, c, wc, w_cols, op, stream);
+}
+
 }  // namespace
 
 // x [M, C] (M = E without a gather), gather [E] int32 or NULL, order [E]
-// and ptr [S + 1] int32 (the SegmentIndex), w fp32 [E, w_cols] or NULL (wc =
-// C / w_cols values per weight column), out [S, C]. dtype: 0 = fp32, 1 =
-// bf16; op: 0 = sum, 1 = mean, 2 = max; vec: 1 when C * sizeof(T) and wc *
-// sizeof(T) are multiples of 16 and x and out are 16-byte aligned.
+// and ptr [S + 1] int32 (the SegmentIndex), gathered [E] int32 (the
+// index's gather[order]: the composed mode, gather unread) or NULL, w fp32
+// [E, w_cols] or NULL (wc = C / w_cols values per weight column), out
+// [S, C]. dtype: 0 = fp32, 1 = bf16; op: 0 = sum, 1 = mean, 2 = max; vec:
+// 1 when C * sizeof(T) and wc * sizeof(T) are multiples of 16 and x and out
+// are 16-byte aligned.
 extern "C" int gigl_segment_reduce(const void* x, const void* gather,
-                                   const void* order, const void* ptr,
-                                   const void* w, void* out, long long s,
-                                   int c, int wc, int w_cols, int dtype,
-                                   int op, int vec, void* stream) {
+                                   const void* order, const void* gathered,
+                                   const void* ptr, const void* w, void* out,
+                                   long long s, int c, int wc, int w_cols,
+                                   int dtype, int op, int vec, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wc <= 0 || c % wc != 0) return static_cast<int>(cudaErrorInvalidValue);
   int rc;
   if (dtype == 0) {
-    rc = vec ? launch<float, 4>(x, gather, order, ptr, w, out, s, c, wc,
-                                w_cols, op, st)
-             : launch<float, 1>(x, gather, order, ptr, w, out, s, c, wc,
-                                w_cols, op, st);
+    rc = vec ? launch<float, 4>(x, gather, order, gathered, ptr, w, out, s,
+                                c, wc, w_cols, op, st)
+             : launch<float, 1>(x, gather, order, gathered, ptr, w, out, s,
+                                c, wc, w_cols, op, st);
   } else if (dtype == 1) {
-    rc = vec ? launch<__nv_bfloat16, 8>(x, gather, order, ptr, w, out, s, c,
-                                        wc, w_cols, op, st)
-             : launch<__nv_bfloat16, 1>(x, gather, order, ptr, w, out, s, c,
-                                        wc, w_cols, op, st);
+    rc = vec ? launch<__nv_bfloat16, 8>(x, gather, order, gathered, ptr, w,
+                                        out, s, c, wc, w_cols, op, st)
+             : launch<__nv_bfloat16, 1>(x, gather, order, gathered, ptr, w,
+                                        out, s, c, wc, w_cols, op, st);
   } else {
     rc = static_cast<int>(cudaErrorInvalidValue);
   }

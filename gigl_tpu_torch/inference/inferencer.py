@@ -219,9 +219,9 @@ def run_full_graph_inference_hetero(
              for et, coo in graph.edges.items()}
     num_nodes = {str(t): int(graph.num_nodes[t])
                  for t in graph.metadata.node_types}
-    segments = encoder.segments(
-        {str(et): (coo[0], coo[1]) for et, coo in graph.edges.items()},
-        num_nodes, device, backward=False)
+    # built from the device tensors the pass reads, so that each
+    # destination index composes its own source ids (K8's composed mode)
+    segments = encoder.segments(edges, num_nodes, device, backward=False)
     with torch.inference_mode():
         embs = encoder.encode_full(features, edges, num_nodes,
                                    segments=segments)

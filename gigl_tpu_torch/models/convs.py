@@ -143,7 +143,7 @@ def _indexes(src, dst, num_nodes, index, src_index):
     """The destination and source SegmentIndexes of a COO graph, built on
     the host where not given (a training path passes both, built once)."""
     if index is None:
-        index = SegmentIndex.from_ids(dst, num_nodes)
+        index = SegmentIndex.from_ids(dst, num_nodes, gather=src)
     if src_index is None:
         src_index = SegmentIndex.from_ids(src, num_nodes)
     return index, src_index

@@ -310,7 +310,7 @@ class GNNEncoder(nn.Module):
         if edge_attr is not None:
             raise NotImplementedError(COO_EDGE_FEATURES_NOT_PORTED)
         if index is None:
-            index = SegmentIndex.from_ids(dst, num_nodes)
+            index = SegmentIndex.from_ids(dst, num_nodes, gather=src)
         if src_index is None:
             src_index = SegmentIndex.from_ids(src, num_nodes)
         x = x.to(self.dtype)

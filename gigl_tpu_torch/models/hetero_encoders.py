@@ -143,7 +143,9 @@ class HeteroGNNEncoder(nn.Module):
                  backward: bool = True) -> TypedSegments:
         """The SegmentIndexes this encoder's convs walk, built on the host
         once per graph (``TypedSegments.build``; ``backward=False`` leaves
-        out the indexes only a gradient walks)."""
+        out the indexes only a gradient walks). Given the very tensors the
+        pass reads, each destination index keeps its source ids composed
+        in walk order for K8."""
         return TypedSegments.build(edges, num_nodes,
                                    self.convs[0].segments_by, device,
                                    backward=backward)

@@ -48,7 +48,11 @@ KERNEL_NAMES = ("sample_uniform", "uniform_ids", "build_neighbor_cache",
                 "ell_edge_grad", "gather_rows_q8", "cms_add", "cms_estimate",
                 "route_requests", "unroute_rows", "ring_retrieval",
                 "ring_spmm", "sample_weighted")
-launches: Dict[str, int] = dict.fromkeys(KERNEL_NAMES, 0)
+# Beside them, the launches of a kernel's mode that the paths' checks
+# count: K8's launches with a gather, by ops/segment.py's gather_mode
+# (composed: the index's gathered rows; chained: its order, then src).
+MODE_NAMES = ("segment_reduce_composed", "segment_reduce_chained")
+launches: Dict[str, int] = dict.fromkeys(KERNEL_NAMES + MODE_NAMES, 0)
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -78,12 +82,12 @@ _SIGNATURES = {
     "gigl_ell_aggregate": [_P] * 8 + [_I64] + [_I32] * 5 + [_P],
     "gigl_fanout_attention": [_P] * 12 + [_I64] + [_I32] * 5
     + [_F32, _F32, _P],
-    "gigl_ell_transpose_aggregate": [_P] * 15 + [_I64] + [_I32] * 7
+    "gigl_ell_transpose_aggregate": [_P] * 14 + [_I64] + [_I32] * 7
     + [_F32, _P],
     "gigl_ell_tie_count": [_P] * 5 + [_I64] + [_I32] * 4 + [_P],
     "gigl_fanout_attention_bwd": [_P] * 20 + [_I64] + [_I32] * 5
     + [_F32, _F32, _I32, _P],
-    "gigl_segment_reduce": [_P] * 6 + [_I64] + [_I32] * 6 + [_P],
+    "gigl_segment_reduce": [_P] * 7 + [_I64] + [_I32] * 6 + [_P],
     "gigl_segment_softmax": [_P] * 4 + [_I64, _I32, _I32, _P],
     "gigl_sddmm": [_P] * 8 + [_I64, _I64] + [_I32] * 3 + [_P],
     "gigl_segment_reduce_bwd": [_P] * 10 + [_I64] + [_I32] * 6 + [_P],
@@ -110,7 +114,7 @@ build_seconds: Optional[float] = None  # wall time of this process's build
 
 
 def reset_launches() -> None:
-    for name in KERNEL_NAMES:
+    for name in launches:
         launches[name] = 0
 
 

@@ -16,7 +16,10 @@ each transpose row), and, per flat forward entry ``p = ent_off[b] + i *
 W_b + j``, its destination row ``ent_row`` (``boundaries[b] + i``), its
 source row ``ent_src`` (the concatenated ``nbr``) and its COO edge
 ``ent_edge`` (the concatenated ``edge_slots``); masked entries hold 0 in
-the last two, and ``ent_mask`` says which entries are real.
+the last two, and ``ent_mask`` says which entries are real. Per transpose
+bucket, ``t_row = ent_row[t_nbr]`` where ``t_mask`` holds and -1 elsewhere:
+each transpose slot's destination row, composed in walk order, which K6b
+reads in place of the mask, the entry position and ``ent_row``.
 
 :func:`ell_layer` is one conv layer over every bucket: ``conv.ell(x_p,
 ell)``, or ``conv.ell(x_p, ell, edge_attr)`` with edge features in
@@ -120,11 +123,12 @@ class EllGraph:
     rows, mask[b] validity, edge_slots[b] original COO edge row per entry;
     its dst rows are boundaries[b]:boundaries[b+1]. The transpose tables
     (t_rank, t_nbr, t_mask, t_boundaries, t_widths) serve the backward
-    (K6b), with the derived t_perm (inverse of t_rank), ent_row / ent_src
-    / ent_edge / ent_mask (flat entry -> dst row, source row, COO edge,
-    validity: the masks flattened once) and ent_off (bucket b's first
-    entry); edge_pos (COO edge -> flat entry) serves the edge features'
-    backward (K11)."""
+    (K6b), with the derived t_perm (inverse of t_rank), t_row (per
+    transpose bucket, each slot's dst row, -1 where masked), ent_row /
+    ent_src / ent_edge / ent_mask (flat entry -> dst row, source row, COO
+    edge, validity: the masks flattened once) and ent_off (bucket b's
+    first entry); edge_pos (COO edge -> flat entry) serves the edge
+    features' backward (K11)."""
 
     perm: torch.Tensor                 # [N] int32
     rank: torch.Tensor                 # [N] int32
@@ -146,6 +150,7 @@ class EllGraph:
     ent_src: torch.Tensor              # [P] int32, flat entry -> x_p row
     ent_edge: torch.Tensor             # [P] int32, flat entry -> COO edge
     ent_mask: torch.Tensor             # [P] bool, flat entry validity
+    t_row: Tuple[torch.Tensor, ...]    # per t-bucket [m, Wt] int32, dst row
 
     @property
     def num_edges(self) -> int:
@@ -220,6 +225,11 @@ class EllGraph:
         def bools(a):
             return torch.as_tensor(a, device=device)
 
+        def t_row_of(t_nbr, t_mask):
+            rows = np.full(t_nbr.shape, -1, np.int64)
+            rows[t_mask] = ent_row[t_nbr[t_mask]]
+            return rows
+
         return cls(
             perm=i32(perm), rank=i32(rank),
             deg_p=torch.as_tensor(deg[perm].astype(np.float32), device=device),
@@ -234,7 +244,9 @@ class EllGraph:
             t_widths=tuple(t_ws), t_perm=i32(t_perm), ent_row=i32(ent_row),
             ent_off=tuple(int(o) for o in offs), ent_src=i32(flat(nbrs)),
             ent_edge=i32(flat(slots_l)),
-            ent_mask=bools(flat(masks).astype(bool)))
+            ent_mask=bools(flat(masks).astype(bool)),
+            t_row=tuple(i32(t_row_of(v, m))
+                        for v, m in zip(t_padded, t_masks)))
 
 
 def _edge_rows(ea, slots):

@@ -20,8 +20,9 @@ plain twin, run for CPU tensors only.
 
 ``csrc/ell_transpose.cu`` (K6b) replaces ``_ell_gather_bwd`` (:255-283),
 the scatter-free custom VJP of ``ell_gather``, fused with the reduce's
-cotangent: it walks the transpose tables and writes each source row's
-gradient once, in x_p order (see :func:`ell_transpose_aggregate`). Its
+cotangent: it walks the transpose tables (each slot's destination row
+composed in ``EllGraph.t_row``) and writes each source row's gradient
+once, in x_p order (see :func:`ell_transpose_aggregate`). Its
 plain twin :func:`_ell_transpose_plain` follows the reference's
 formulation: the flat ``[P, D]`` entry cotangents, ``flat[t_nbr] * t_mask``
 summed per transpose bucket, gathered back by ``t_rank``.
@@ -262,7 +263,9 @@ def ell_transpose_aggregate(rows: torch.Tensor, ell, op: str,
     extra = tuple(t for t in (wt, wt2, vec, rows2, table, ea)
                   if t is not None)
     device = _build.require_cuda("ell_transpose_aggregate", rows,
-                                 ell.ent_row, ell.t_perm, ell.deg_p, *extra)
+                                 ell.t_perm, ell.deg_p, *ell.t_row, *extra)
+    # the modes that read each slot's flat entry beside its row
+    by_entry = op in ("weighted", "gatv2") or ea is not None
     if rows.dim() != 2 or rows.shape[0] != n or rows.dtype not in _DTYPES:
         raise ValueError("ell_transpose_aggregate: rows must be [N, D], "
                          "fp32 or bf16")
@@ -296,11 +299,12 @@ def ell_transpose_aggregate(rows: torch.Tensor, ell, op: str,
             continue
         _build.launch("ell_transpose_aggregate",
                       "gigl_ell_transpose_aggregate", device,
-                      rows.data_ptr(), ell.t_nbr[tb].data_ptr(),
-                      ell.t_mask[tb].data_ptr(), ell.t_perm[lo:hi].data_ptr(),
-                      ell.ent_row.data_ptr(), ell.deg_p.data_ptr(),
-                      _build.ptr(wt), _build.ptr(wt2), _build.ptr(vec),
-                      _build.ptr(rows2), _build.ptr(table), _build.ptr(cnt),
+                      rows.data_ptr(),
+                      _build.ptr(ell.t_nbr[tb] if by_entry else None),
+                      ell.t_row[tb].data_ptr(), ell.t_perm[lo:hi].data_ptr(),
+                      ell.deg_p.data_ptr(), _build.ptr(wt), _build.ptr(wt2),
+                      _build.ptr(vec), _build.ptr(rows2), _build.ptr(table),
+                      _build.ptr(cnt),
                       _build.ptr(ea),
                       _build.ptr(None if ea is None else ell.ent_edge),
                       out.data_ptr(),

@@ -27,15 +27,22 @@ their backward (jax's autodiff of the same functions):
   ``g * scale`` and the scale's cotangent; ``dq`` is K8 and ``dk`` K8b over
   the two indexes.
 
-The kernels walk a :class:`SegmentIndex`: the edge ids sorted by segment
-(a stable sort, so each segment keeps its edges' original order) and the
+The kernels walk a :class:`SegmentIndex`: the edge ids sorted by segment (a
+stable sort, so each segment keeps its edges' original order) and the
 segment pointers. It is built once per graph on the host with numpy, as
 ``EllGraph.from_csr`` is, and every function takes it as ``index=``; the
 backward of a gather also walks the same sort of the source ids, passed as
 ``src_index=``. A call on CUDA without one builds it first, on the host:
 that copies the ids to the host and waits for the device (a training path
-passes both, built once). The kernels use no atomics and write each output
-row once, so they give the same bits on every run.
+passes both, built once). A destination index built with the edges' source
+ids (``SegmentIndex.from_ids(dst, n, gather=src)``) also holds ``gathered =
+src[order]``, each slot's row composed in walk order: K8 reads it when it
+is given that very ``src`` tensor, unchanged since the build (its composed
+mode), and reads ``order`` then ``src`` for any other (its chained mode);
+every path builds its destination indexes with their gather, and a call on
+CUDA without an index builds one with its ``src``. The kernels use no
+atomics and write each output row once, so they give the same bits on
+every run.
 
 Each kernel has a plain PyTorch twin (``_segment_reduce_plain``,
 ``_segment_softmax_plain``, ``_sddmm_plain``, ``_segment_reduce_bwd_plain``,
@@ -75,11 +82,22 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 class SegmentIndex:
     """Edges grouped by segment: ``order[ptr[s]:ptr[s + 1]]`` are the ids
     (positions in the original edge order) of segment ``s``'s edges, in
-    that order. int32 tensors on one device."""
+    that order. int32 tensors on one device. An index built with the
+    edges' ``gather`` ids (the source rows they read) also holds that
+    tensor and ``gathered = gather[order]``, each slot's row composed in
+    walk order: K8 reads it when it is called with this very ``gather``
+    tensor as ``src``. That tensor must not be changed in place while the
+    index is in use: ``gather_version`` records its version counter at the
+    build, and a src changed since then takes K8's chained mode (an
+    inference tensor has no version counter: nothing is recorded for
+    it)."""
 
     order: torch.Tensor  # [E] int32
     ptr: torch.Tensor    # [S + 1] int32
     num_segments: int
+    gather: Optional[torch.Tensor] = None    # [E], the src it was built for
+    gathered: Optional[torch.Tensor] = None  # [E] int32, gather[order]
+    gather_version: Optional[int] = None      # _version(gather) at the build
 
     @property
     def num_edges(self) -> int:
@@ -91,11 +109,14 @@ class SegmentIndex:
 
     @classmethod
     def from_ids(cls, segment_ids, num_segments: int,
-                 device: DeviceLike = None) -> "SegmentIndex":
+                 device: DeviceLike = None, gather=None) -> "SegmentIndex":
         """Build on the host from ``segment_ids`` [E] (numpy or a tensor)
         with a stable argsort and a bincount cumsum; the tables go to
         ``device`` (a tensor's own device when not given, else CUDA unless
-        asked). Ids must lie in [0, num_segments)."""
+        asked). Ids must lie in [0, num_segments). ``gather`` [E] (numpy
+        or a tensor): the row each edge reads; the index keeps it on the
+        device (the tensor itself when it is there already, so that callers
+        pass that object as ``src``) and composes ``gathered``."""
         if isinstance(segment_ids, torch.Tensor):
             if device is None:
                 device = segment_ids.device
@@ -116,8 +137,28 @@ class SegmentIndex:
         def put(a):
             return torch.from_numpy(a).to(device)
 
+        kept = gathered = None
+        if gather is not None:
+            rows = (gather.detach().cpu().numpy()
+                    if isinstance(gather, torch.Tensor)
+                    else np.asarray(gather))
+            if rows.shape != ids.shape:
+                raise ValueError(f"gather {rows.shape} for {ids.shape} "
+                                 "segment ids")
+            gathered = put(rows[order].astype(np.int32))
+            kept = (gather if isinstance(gather, torch.Tensor)
+                    and gather.device == gathered.device
+                    else put(np.ascontiguousarray(rows)))
         return cls(order=put(order), ptr=put(ptr),
-                   num_segments=int(num_segments))
+                   num_segments=int(num_segments), gather=kept,
+                   gathered=gathered,
+                   gather_version=None if kept is None else _version(kept))
+
+
+def _version(t: torch.Tensor) -> Optional[int]:
+    """``t``'s version counter (moved by every in-place change), None for
+    an inference tensor, which keeps none."""
+    return None if t.is_inference() else t._version
 
 
 def _cols(t: torch.Tensor) -> int:
@@ -130,10 +171,12 @@ def _grad_on(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def _index(segment_ids, num_segments, index, num_edges):
-    """``index``, or one built now on the host (see the module docstring)."""
+def _index(segment_ids, num_segments, index, num_edges, gather=None):
+    """``index``, or one built now on the host (see the module docstring),
+    with ``gather``'s rows composed when given."""
     if index is None:
-        index = SegmentIndex.from_ids(segment_ids, num_segments)
+        index = SegmentIndex.from_ids(segment_ids, num_segments,
+                                      gather=gather)
     if index.num_segments != num_segments or index.num_edges != num_edges:
         raise ValueError(
             f"index covers {index.num_edges} edges in {index.num_segments} "
@@ -156,6 +199,8 @@ def _counts(segment_ids, num_segments, index, dtype):
 
 
 # -- K8 segment_reduce ----------------------------------------------------------
+
+
 def _per_column(t, w):
     """[E, C] values times w [E, W], each weight column over C / W values."""
     if w is None:
@@ -163,6 +208,19 @@ def _per_column(t, w):
     e, c = t.shape
     return (t.reshape(e, w.shape[1], c // w.shape[1])
             * w[..., None]).reshape(e, c)
+
+
+def gather_mode(src, index) -> Optional[str]:
+    """K8's mode for a gather ``src`` over ``index``: ``composed`` (each
+    slot's row read from ``index.gathered``) when src is the very tensor
+    the index was built from and has not been changed in place since —
+    an identity test and the version counter, so nothing is compared on
+    the device — ``chained`` (order, then src) for any other src, None
+    without a gather."""
+    if src is None:
+        return None
+    return ("composed" if src is index.gather
+            and _version(src) == index.gather_version else "chained")
 
 
 def _segment_reduce_plain(x, segment_ids, num_segments, op="sum", src=None,
@@ -199,13 +257,17 @@ def _segment_reduce_fwd(x, segment_ids, num_segments, op="sum", src=None,
         return _segment_reduce_plain(x, segment_ids, num_segments, op, src,
                                      weight)
     e = segment_ids.shape[0]
-    index = _index(segment_ids, num_segments, index, e)
+    index = _index(segment_ids, num_segments, index, e, src)
     c = math.prod(x.shape[1:])
     xf = x.contiguous().reshape(x.shape[0], c)
-    gather = None if src is None else src.to(torch.int32).contiguous()
+    mode = gather_mode(src, index)
+    composed = mode == "composed"
+    gathered = index.gathered if composed else None
+    gather = (None if src is None or composed
+              else src.to(torch.int32).contiguous())
     w = (None if weight is None
          else weight.float().reshape(e, _cols(weight)).contiguous())
-    extra = tuple(t for t in (gather, w) if t is not None)
+    extra = tuple(t for t in (gather, gathered, w) if t is not None)
     device = _build.require_cuda("segment_reduce", xf, index.order,
                                  index.ptr, *extra)
     if xf.dtype not in _DTYPES:
@@ -221,10 +283,13 @@ def _segment_reduce_fwd(x, segment_ids, num_segments, op="sum", src=None,
               and xf.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     if num_segments * c:
         _build.launch("segment_reduce", "gigl_segment_reduce", device,
-                      xf.data_ptr(), _build.ptr(gather), index.order.data_ptr(),
+                      xf.data_ptr(), _build.ptr(gather),
+                      index.order.data_ptr(), _build.ptr(gathered),
                       index.ptr.data_ptr(), _build.ptr(w), out.data_ptr(),
                       num_segments, c, wc, w_cols, _DTYPES[x.dtype],
                       _OPS[op], vec)
+        if mode is not None:
+            _build.launches[f"segment_reduce_{mode}"] += 1
     return out.reshape((num_segments,) + tuple(x.shape[1:]))
 
 
@@ -420,7 +485,7 @@ def segment_reduce(x: torch.Tensor, segment_ids: torch.Tensor,
                                or weight.shape[0] != e):
         raise ValueError("segment_reduce: weight must be [E] or [E, W]")
     if index is not None or x.device.type != "cpu":
-        index = _index(segment_ids, num_segments, index, e)
+        index = _index(segment_ids, num_segments, index, e, src)
     if not _grad_on(x, weight):
         return _segment_reduce_fwd(x, segment_ids, num_segments, op, src,
                                    weight, index)

@@ -1,0 +1,627 @@
+#!/usr/bin/env python3
+"""Time variants of the port's CUDA kernels on one NVIDIA GPU: copies of
+their sources with constants replaced, and the sources of an earlier
+checkout, each built as the port builds them and timed in turns.
+
+    python3 scripts/kernel_sweep.py SWEEP [--set KNOB=V1,V2 ...]
+        [--min-blocks B ...] [--first DIR] [--repeats R]
+
+``SWEEP`` is an entry of ``SWEEPS`` below, which names its sources, its
+knobs (a constant of the sources: the file and the pattern that sets it),
+the kernels that ``--min-blocks`` caps, its cases and, where it has one,
+the C signature of its earlier version:
+
+- ``attention``: K7 fanout_attention and K7b fanout_attention_bwd at the
+  flagship graph's largest ELL bucket: K7 GAT bf16 Dh 64, fp32 Dh 64 and
+  Dh 4; K7b GAT fp32 Dh 64 and Dh 4, Transformer Dh 64. Knob ``depth``
+  (kDepth, the loads ahead, csrc/gigl_attention.cuh).
+- ``walk``: K10 sddmm at 4 heads of 64, 32 and 4 (fp32, scaled by
+  1 / sqrt(dk)) over the flagship graph's destination index; at 64 and 4
+  also over the same edges sorted by destination (``_sorted``) and over
+  2,000 destinations of 1,000 edges each (``_hub1000``). Knobs
+  ``seg_depth`` (kSegDepth, csrc/gigl_segment.cuh) and ``walk_row_bytes``
+  (kWalkRowBytes, csrc/sddmm.cu). ``first``: an sddmm that walks no index.
+- ``gather``: K8 segment_reduce at the COO Transformer's two layers (v
+  [N, 4, 64] and [N, 4, 4] fp32, weighted per head by an [E, 4] alpha, and
+  unweighted) and at a typed relation's shape (1.4M edges from 150k
+  sources, [150k, 4 x 32], weighted), in its composed mode (src the
+  tensor the index was built from) and its chained mode (a copy); K6b
+  ell_transpose_aggregate over the whole transpose walk of the graph's
+  ELL tables at [N, 256] fp32 in every mode (max: its walk alone, the
+  tie counts given) and gine at [N, 128] with and without [E, 128] edge
+  rows. Knobs: ``slots`` (kSlotsInFlight in both sources: K8's composed
+  mode, K6b's sum, gcn, gatv2 and gine), ``k8_chained_slots``,
+  ``k6b_mean_weighted_slots`` and ``k6b_max_slots`` (the slots in flight
+  of the other modes). ``first``: a K8
+  without composed rows and a K6b that reads the mask, the entry and
+  ``ent_row``; every output is held bit for bit against its output.
+
+The flagship graph is chip_smoke.py's: N=100k nodes, E=2M uniform random
+edges in their random order, numpy seed 0. Variants: ``kept`` (the port's
+own library), one per combination of the knob values given and launch
+bound (``--min-blocks B``: ``__launch_bounds__(threads, B)``, a cap on the
+registers for B resident blocks an SM), and ``first`` (``--first DIR``, a
+csrc directory of an earlier checkout: ``git archive <commit>
+gigl_tpu_torch/csrc | tar -x -C build/first``), built with the port's
+nvcc flags under build/sweep/SWEEP/. Prints one JSON line per kernel form
+of each variant's sources with its registers a thread, spill bytes and
+static shared memory (the ptxas report, ``-Xptxas -v``); holds every
+case's output against its plain twin (1e-5 of its scale, where the case
+has one), against ``first``'s where the sweep asks, and against a repeat
+run; then prints one JSON line per (variant, case, mode, turn) with the
+device ms of one call from CUDA-graph replay, the variants in turns (the
+order given, then reversed, ``--repeats`` times) in one process on one
+card. Last, the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import itertools
+import json
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+N, E, HEADS = 100_000, 2_000_000, 4
+TYPED_SRC, TYPED_E = 150_000, 1_400_000   # the gather sweep's typed relation
+_P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_float)
+K6B_OPS = {"mean": 0, "sum": 1, "max": 2, "gcn": 3, "weighted": 4,
+           "gatv2": 5, "gine": 6}
+
+
+# -- variants: edited copies of the sources, built as the port builds --------
+def edit_sources(out: Path, csrc: Path, edits) -> None:
+    """Copy ``csrc`` to ``out`` (replacing it) and apply ``edits`` ({file
+    name: [(pattern, replacement), ...]}, each pattern matching once)."""
+    if out.exists():
+        shutil.rmtree(out)
+    shutil.copytree(csrc, out)
+    for name, subs in edits.items():
+        path = out / name
+        text = path.read_text()
+        for pattern, repl in subs:
+            text, count = re.subn(pattern, repl, text)
+            if count != 1:
+                raise RuntimeError(f"{name}: {pattern} matched {count} times")
+        path.write_text(text)
+
+
+def start_build(out: Path, sources, _build):
+    """One nvcc per source of ``out`` matching the globs ``sources``, all
+    started together, with the port's compile flags."""
+    procs = []
+    for src in sorted({p for g in sources for p in out.glob(g)}):
+        obj = src.with_suffix(".o")
+        procs.append((obj, subprocess.Popen(
+            [_build._nvcc(), *_build.COMPILE_FLAGS, "-I", str(out), "-o",
+             str(obj), str(src)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    return out, procs
+
+
+def finish_build(out: Path, procs, _build) -> Path:
+    """Wait for the compiles, write their output to ``out/build.log`` (as
+    the port's build writes its own) and link the library; its path."""
+    logs = []
+    for obj, proc in procs:
+        log, _ = proc.communicate()
+        logs.append(f"== {obj.stem}.cu (rc {proc.returncode})\n{log}")
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {obj.name}:\n{log}")
+    (out / "build.log").write_text("\n".join(logs))
+    lib = out / "libsweep.so"
+    subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, "-shared", "-o",
+                    str(lib), *[str(o) for o, _ in procs]], check=True)
+    return lib
+
+
+def load(path: Path, signatures) -> ctypes.CDLL:
+    """The library at ``path`` with ``signatures`` ({C entry: argtypes})
+    declared, each returning an int."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in signatures.items():
+        f = getattr(lib, name)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return lib
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_USED = re.compile(r"Used (\d+) registers")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def registers(log: Path, sources):
+    """The ptxas report in a build log, for the sources matching the globs
+    ``sources``: per kernel form its source, name and template arguments
+    (demangled by c++filt where the toolchain has it), registers a thread,
+    spill stores and loads and static shared memory (bytes)."""
+    rows, source, cur = [], None, None
+    for line in log.read_text().splitlines():
+        if line.startswith("== "):
+            source = line.split()[1]
+        elif m := _ENTRY.search(line):
+            cur = {"source": source, "kernel": m.group(1)}
+            rows.append(cur)
+        elif cur is not None:
+            if m := _USED.search(line):
+                cur["registers"] = int(m.group(1))
+                if s := _SMEM.search(line):
+                    cur["smem_bytes"] = int(s.group(1))
+            elif m := _SPILL.search(line):
+                cur["spill_store_bytes"] = int(m.group(1))
+                cur["spill_load_bytes"] = int(m.group(2))
+    rows = [r for r in rows if any(Path(r["source"]).match(g)
+                                   for g in sources)]
+    tool = shutil.which("c++filt")
+    names = [r["kernel"] for r in rows]
+    if tool is not None and names:
+        out = subprocess.run([tool], input="\n".join(names),
+                             capture_output=True, text=True).stdout
+        if len(out.splitlines()) == len(names):
+            names = out.splitlines()
+    for row, name in zip(rows, names):
+        # the kernel and its template arguments, without its parameters
+        row["kernel"] = name.replace("void (anonymous namespace)::",
+                                     "").split("(", 1)[0]
+    return rows
+
+
+def cuda_ms(fn, reps=20) -> float:
+    """Device ms of one call: reps calls in one CUDA graph, replayed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (5 * reps)
+
+
+# -- the cases: {label: ({mode: fn}, plain twin or None)} ----------------------
+# Each case builder takes the device, the port's _build module and
+# ``first(entry, *args)``, which launches the earlier version's C entry on
+# the current stream (None without --first); a mode named ``first`` runs
+# only in the turns of the variant ``first``, the others in every other's.
+def flagship():
+    rng = np.random.default_rng(0)
+    return rng, rng.integers(0, N, E), rng.integers(0, N, E)
+
+
+def attention_cases(dev, _build, first):
+    from gigl_tpu_torch.graph.csr import build_csr
+    from gigl_tpu_torch.ops.attention import (
+        _fanout_attention_fwd, fanout_attention_bwd)
+    from gigl_tpu_torch.ops.ell import EllGraph
+
+    _, src, dst = flagship()
+    ell = EllGraph.from_csr(build_csr(src, dst, num_anchor_nodes=N),
+                            device=dev)
+    sizes = [hi - lo for lo, hi in zip(ell.boundaries, ell.boundaries[1:])]
+    big = int(np.argmax(sizes))
+    nbr, mask = ell.nbr[big], ell.mask[big]
+    n_b = nbr.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cases = {}
+    for label, mode, dtype, hd in (
+            ("k7_gat_bf16_dh64", "gat", torch.bfloat16, 256),
+            ("k7_gat_fp32_dh64", "gat", torch.float32, 256),
+            ("k7_gat_fp32_dh4", "gat", torch.float32, 16),
+            ("k7b_gat_fp32_dh64", "gat", torch.float32, 256),
+            ("k7b_gat_fp32_dh4", "gat", torch.float32, 16),
+            ("k7b_transformer_fp32_dh64", "transformer", torch.float32,
+             256)):
+        xd, ks, vs, g = (torch.randn(s, generator=gen, device=dev).to(dtype)
+                         for s in ((n_b, hd), (N, hd), (N, hd), (n_b, hd)))
+        att = att2 = None
+        if mode == "gat":
+            vs = ks
+            att, att2 = (torch.randn(hd, generator=gen, device=dev) * 0.2
+                         for _ in range(2))
+        stats = torch.empty((n_b, HEADS, 2), device=dev)
+        out = _fanout_attention_fwd(xd, ks, vs, nbr, mask, mode, HEADS, att,
+                                    att2, 0.2, stats=stats)
+        if label.startswith("k7b"):
+            fn = (lambda g=g, xd=xd, ks=ks, vs=vs, out=out, stats=stats,
+                  mode=mode, att=att, att2=att2: fanout_attention_bwd(
+                      g, xd, ks, vs, nbr, mask, out, stats, mode, HEADS, att,
+                      att2, 0.2))
+        else:
+            fn = (lambda xd=xd, ks=ks, vs=vs, mode=mode, att=att,
+                  att2=att2: _fanout_attention_fwd(
+                      xd, ks, vs, nbr, mask, mode, HEADS, att, att2, 0.2))
+        cases[label] = ({"kept": fn}, None)
+    return cases
+
+
+def walk_cases(dev, _build, first):
+    from gigl_tpu_torch.ops.segment import SegmentIndex, _sddmm_plain, sddmm
+
+    rng, src_np, dst_np = flagship()
+    by_dst = np.argsort(dst_np, kind="stable")
+    hub_np = rng.permutation(np.repeat(np.arange(2000), E // 2000))
+    graphs = {}
+    for name, (s_np, d_np) in (("", (src_np, dst_np)),
+                               ("_sorted", (src_np[by_dst], dst_np[by_dst])),
+                               ("_hub1000", (src_np, hub_np))):
+        s_t, d_t = (torch.as_tensor(a.astype(np.int32), device=dev)
+                    for a in (s_np, d_np))
+        graphs[name] = (s_t, d_t, SegmentIndex.from_ids(d_t, N))
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    def k10_first(g, q, k, scale):
+        src, dst, _ = g
+        out = torch.empty((E, HEADS), dtype=q.dtype, device=dev)
+        first("gigl_sddmm", q.data_ptr(), k.data_ptr(), src.data_ptr(),
+              dst.data_ptr(), scale.data_ptr(), out.data_ptr(), E,
+              q.shape[1] * q.shape[2], HEADS, 0, 1)
+        return out
+
+    cases = {}
+    for dk in (64, 32, 4):
+        q, k = (torch.randn((N, HEADS, dk), generator=gen, device=dev)
+                for _ in range(2))
+        scale = torch.full((HEADS,), dk ** -0.5, device=dev)
+        for name, g in graphs.items():
+            if name and dk not in (64, 4):
+                continue
+            fns = {"kept": lambda g=g, q=q, k=k, scale=scale: sddmm(
+                g[0], g[1], q, k, scale=scale, index=g[2])}
+            if first is not None:
+                fns["first"] = (lambda g=g, q=q, k=k, scale=scale:
+                                k10_first(g, q, k, scale))
+            cases[f"k10_dh{dk}{name}"] = (
+                fns, lambda g=g, q=q, k=k, scale=scale: _sddmm_plain(
+                    g[0], g[1], q, k, scale))
+    return cases
+
+
+def gather_cases(dev, _build, first):
+    from gigl_tpu_torch.graph.csr import HeteroGraph
+    from gigl_tpu_torch.ops.ell import EllGraph
+    from gigl_tpu_torch.ops.ell_aggregate import (
+        _ell_transpose_plain, _tie_count_plain, ell_aggregate_graph,
+        ell_transpose_aggregate)
+    from gigl_tpu_torch.ops.segment import (
+        SegmentIndex, _segment_reduce_plain, segment_reduce)
+
+    rng, src_np, dst_np = flagship()
+    gen = torch.Generator(device=dev).manual_seed(15)
+    cases = {}
+
+    def k8_case(label, src, dst, n_dst, x, w):
+        index = SegmentIndex.from_ids(dst, n_dst, gather=src)
+        src_copy = src.clone()
+        c = x.shape[1] * x.shape[2]
+        w_cols = 1 if w is None else w.shape[1]
+
+        def run_first():
+            out = torch.empty((n_dst, c), device=dev)
+            first("gigl_segment_reduce", x.data_ptr(), src.data_ptr(),
+                  index.order.data_ptr(), index.ptr.data_ptr(),
+                  _build.ptr(w), out.data_ptr(), n_dst, c, c // w_cols,
+                  w_cols, 0, 0, 1)
+            return out.reshape((n_dst,) + tuple(x.shape[1:]))
+
+        fns = {"composed": lambda: segment_reduce(
+                   x, dst, n_dst, src=src, weight=w, index=index),
+               "chained": lambda: segment_reduce(
+                   x, dst, n_dst, src=src_copy, weight=w, index=index)}
+        if first is not None:
+            fns["first"] = run_first
+        cases[label] = (fns, lambda: _segment_reduce_plain(
+            x, dst, n_dst, "sum", src, w))
+
+    src_t, dst_t = (torch.as_tensor(a.astype(np.int32), device=dev)
+                    for a in (src_np, dst_np))
+    alpha = torch.rand((E, HEADS), generator=gen, device=dev)
+    for layer, dk in (("coo_layer1", 64), ("coo_layer2", 4)):
+        v = torch.randn((N, HEADS, dk), generator=gen, device=dev)
+        k8_case(f"k8_{layer}_weighted", src_t, dst_t, N, v, alpha)
+        k8_case(f"k8_{layer}_sum", src_t, dst_t, N, v, None)
+    t_src = torch.as_tensor(rng.integers(0, TYPED_SRC, TYPED_E)
+                            .astype(np.int32), device=dev)
+    t_dst = torch.as_tensor(rng.integers(0, N, TYPED_E).astype(np.int32),
+                            device=dev)
+    msg = torch.randn((TYPED_SRC, HEADS, 32), generator=gen, device=dev)
+    k8_case("k8_typed_weighted", t_src, t_dst, N, msg,
+            torch.rand((TYPED_E, HEADS), generator=gen, device=dev))
+
+    graph = HeteroGraph.homogeneous(src=src_np, dst=dst_np, num_nodes=N)
+    et = graph.metadata.edge_types[0]
+    ell = EllGraph.from_csr(graph.csr(et, anchor="dst"), device=dev)
+    p_total = ell.ent_row.shape[0]
+
+    def walk(rows, op, cnt, wt=None, wt2=None, vec=None, rows2=None,
+             table=None, ea=None):
+        """K6b's walk alone over the current library (max: over the tie
+        counts given; the wrapper also runs the tie-count pass)."""
+        out = torch.empty_like(rows)
+        by_entry = op in ("weighted", "gatv2") or ea is not None
+        for tb, tw in enumerate(ell.t_widths):
+            lo, hi = ell.t_boundaries[tb], ell.t_boundaries[tb + 1]
+            if hi == lo:
+                continue
+            _build.launch(
+                "ell_transpose_aggregate", "gigl_ell_transpose_aggregate",
+                dev, rows.data_ptr(),
+                _build.ptr(ell.t_nbr[tb] if by_entry else None),
+                ell.t_row[tb].data_ptr(), ell.t_perm[lo:hi].data_ptr(),
+                ell.deg_p.data_ptr(), *map(_build.ptr, (
+                    wt, wt2, vec, rows2, table, cnt, ea,
+                    None if ea is None else ell.ent_edge)),
+                out.data_ptr(), hi - lo, tw, rows.shape[1], HEADS,
+                rows.shape[1] // HEADS, 0, K6B_OPS[op], 1, 0.2)
+        return out
+
+    def k6b_case(label, rows, op, **kw):
+        cnt = (_tie_count_plain(kw["table"], ell, kw["rows2"])
+               if op == "max" else None)
+
+        def run_first():
+            out = torch.empty_like(rows)
+            ea = kw.get("ea")
+            for tb, tw in enumerate(ell.t_widths):
+                lo, hi = ell.t_boundaries[tb], ell.t_boundaries[tb + 1]
+                if hi == lo:
+                    continue
+                first("gigl_ell_transpose_aggregate", rows.data_ptr(),
+                      ell.t_nbr[tb].data_ptr(), ell.t_mask[tb].data_ptr(),
+                      ell.t_perm[lo:hi].data_ptr(), ell.ent_row.data_ptr(),
+                      ell.deg_p.data_ptr(), *map(_build.ptr, (
+                          kw.get("wt"), kw.get("wt2"), kw.get("vec"),
+                          kw.get("rows2"), kw.get("table"), cnt, ea,
+                          None if ea is None else ell.ent_edge)),
+                      out.data_ptr(), hi - lo, tw, rows.shape[1], HEADS,
+                      rows.shape[1] // HEADS, 0, K6B_OPS[op], 1, 0.2)
+            return out
+
+        fns = {"kept": (lambda: walk(rows, op, cnt, **kw)) if op == "max"
+               else (lambda: ell_transpose_aggregate(rows, ell, op,
+                                                     heads=HEADS, **kw))}
+        if first is not None:
+            fns["first"] = run_first
+        cases[label] = (fns, lambda: _ell_transpose_plain(
+            rows, ell, op, heads=HEADS, **kw))
+
+    g = torch.randn((N, 256), generator=gen, device=dev)
+    wt = torch.rand((p_total, HEADS), generator=gen, device=dev) * 0.1
+    wt2 = torch.randn((p_total, HEADS), generator=gen, device=dev) * 0.1
+    vec = torch.randn(256, generator=gen, device=dev) * 0.2
+    q, t = (torch.randn((N, 256), generator=gen, device=dev)
+            for _ in range(2))
+    xm = (t * 2).round()          # a coarse grid: the max has ties
+    for op in ("mean", "sum", "gcn"):
+        k6b_case(f"k6b_{op}", g, op)
+    k6b_case("k6b_weighted", g, "weighted", wt=wt, wt2=wt2, vec=vec)
+    k6b_case("k6b_gatv2", g, "gatv2", wt=wt, wt2=wt2, vec=vec, rows2=q,
+             table=t)
+    k6b_case("k6b_max", g, "max", rows2=ell_aggregate_graph(xm, ell, "max"),
+             table=xm)
+    g128, x128 = (torch.randn((N, 128), generator=gen, device=dev)
+                  for _ in range(2))
+    ea = torch.randn((E, 128), generator=gen, device=dev)
+    k6b_case("k6b_gine_edges", g128, "gine", table=x128, ea=ea)
+    k6b_case("k6b_gine", g128, "gine", table=x128)
+    return cases
+
+
+# -- the sweeps ----------------------------------------------------------------
+# knobs: name -> [(file, pattern whose group 1 is the constant's value)];
+# bounds: [(file, pattern, replacement with {b})] for --min-blocks B.
+SWEEPS = {
+    "attention": {
+        "sources": ["fanout_attention*.cu"],
+        "entries": ["gigl_fanout_attention", "gigl_fanout_attention_bwd"],
+        "knobs": {"depth": [("gigl_attention.cuh",
+                             r"constexpr int kDepth = (\d+);")]},
+        "bounds": [(name, r"__launch_bounds__\(kThreads\)",
+                    "__launch_bounds__(kThreads, {b})")
+                   for name in ("fanout_attention_warp.cuh",
+                                "fanout_attention_bwd_warp.cuh")],
+        "cases": attention_cases, "first": None, "bit_equal_first": False},
+    "walk": {
+        "sources": ["sddmm.cu"],
+        "entries": ["gigl_sddmm"],
+        "knobs": {"seg_depth": [("gigl_segment.cuh",
+                                 r"constexpr int kSegDepth = (\d+);")],
+                  "walk_row_bytes": [("sddmm.cu",
+                                      r"constexpr int kWalkRowBytes = "
+                                      r"(\d+);")]},
+        "bounds": [("sddmm.cu", r"__launch_bounds__\(kThreads\) sddmm_walk",
+                    "__launch_bounds__(kThreads, {b}) sddmm_walk")],
+        "cases": walk_cases,
+        # q, k, src, dst, scale, out, E, C, heads, dtype, vec, stream
+        "first": {"gigl_sddmm": [_P] * 6 + [_I64] + [_I32] * 4 + [_P]},
+        "bit_equal_first": False},
+    "gather": {
+        "sources": ["segment_reduce.cu", "ell_transpose.cu"],
+        "entries": ["gigl_segment_reduce", "gigl_ell_transpose_aggregate"],
+        "knobs": {"slots": [(name, r"constexpr int kSlotsInFlight = (\d+);")
+                            for name in ("segment_reduce.cu",
+                                         "ell_transpose.cu")],
+                  "k8_chained_slots": [("segment_reduce.cu",
+                                        r"COMPOSED \? kSlotsInFlight : "
+                                        r"(\d+);")],
+                  "k6b_mean_weighted_slots": [("ell_transpose.cu",
+                                               r"OP == kWeighted \? (\d+) :")],
+                  "k6b_max_slots": [("ell_transpose.cu",
+                                     r"OP == kMax \? (\d+) :")]},
+        "bounds": [(name, rf"__global__ void {kernel}\(",
+                    f"__global__ void __launch_bounds__(256, {{b}}) "
+                    f"{kernel}(")
+                   for name, kernel in (
+                       ("segment_reduce.cu", "segment_reduce_kernel"),
+                       ("ell_transpose.cu", "ell_transpose_kernel"))],
+        "cases": gather_cases,
+        # K8: x, gather, order, ptr, w, out, S, C, wc, w_cols, dtype, op,
+        # vec, stream; K6b: rows, t_nbr, t_mask, t_perm, ent_row, deg, wt,
+        # wt2, vec, rows2, table, cnt, ea, ent_edge, out, n, W, D, heads,
+        # dh, dtype, op, vec, slope, stream
+        "first": {"gigl_segment_reduce": [_P] * 6 + [_I64] + [_I32] * 6
+                  + [_P],
+                  "gigl_ell_transpose_aggregate": [_P] * 15 + [_I64]
+                  + [_I32] * 7 + [_F32, _P]},
+        "bit_equal_first": True},
+}
+
+
+def variant_edits(sweep, knobs, min_blocks):
+    """The edits of one variant: each knob's constant set, the launch
+    bounds added when min_blocks > 0."""
+    edits = {}
+    for name, value in knobs.items():
+        for file, pattern in sweep["knobs"][name]:
+            prefix, suffix = pattern.split(r"(\d+)")
+            edits.setdefault(file, []).append(
+                (pattern, prefix.replace("\\", "") + str(value)
+                 + suffix.replace("\\", "")))
+    if min_blocks:
+        for file, pattern, repl in sweep["bounds"]:
+            edits.setdefault(file, []).append(
+                (pattern, repl.format(b=min_blocks)))
+    return edits
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("sweep", choices=sorted(SWEEPS))
+    parser.add_argument("--set", action="append", default=[],
+                        metavar="KNOB=V1,V2",
+                        help="values of one of the sweep's knobs")
+    parser.add_argument("--min-blocks", type=int, nargs="+", default=[0])
+    parser.add_argument("--first", type=Path, default=None,
+                        help="csrc directory of an earlier version")
+    parser.add_argument("--repeats", type=int, default=1)
+    args = parser.parse_args()
+    sweep = SWEEPS[args.sweep]
+    knob_values = {}
+    for item in args.set:
+        name, _, values = item.partition("=")
+        if name not in sweep["knobs"]:
+            parser.error(f"{args.sweep} has no knob {name!r}: "
+                         f"{sorted(sweep['knobs'])}")
+        knob_values[name] = [int(v) for v in values.split(",")]
+    if args.first is not None and sweep["first"] is None:
+        parser.error(f"{args.sweep} has no earlier version to compare")
+    if not torch.cuda.is_available():
+        sys.exit("kernel_sweep: no CUDA device")
+    sys.path.insert(0, str(REPO))
+    from gigl_tpu_torch.ops import _build
+
+    root = REPO / "build" / "sweep" / args.sweep
+    started = {}
+    for combo in itertools.product(*knob_values.values()):
+        for b in args.min_blocks:
+            knobs = dict(zip(knob_values, combo))
+            if not knobs and not b:
+                continue                                 # that is kept
+            name = ",".join([f"{k}={v}" for k, v in knobs.items()]
+                            + ([f"b{b}"] if b else []))
+            edit_sources(root / name, _build.CSRC,
+                         variant_edits(sweep, knobs, b))
+            started[name] = start_build(root / name, sweep["sources"],
+                                        _build)
+    if args.first is not None:
+        edit_sources(root / "first", args.first, {})
+        started["first"] = start_build(root / "first", sweep["sources"],
+                                       _build)
+    libs = {"kept": _build.library()}     # the port's own, meanwhile
+    logs = {"kept": _build.BUILD_DIR / "build.log"}
+    first_lib = None
+    for name, job in started.items():
+        lib = finish_build(*job, _build)
+        logs[name] = job[0] / "build.log"
+        if name == "first":
+            first_lib = load(lib, sweep["first"])
+        else:
+            libs[name] = load(lib, {fn: _build._SIGNATURES[fn]
+                                    for fn in sweep["entries"]})
+    for name, log in logs.items():
+        for row in registers(log, sweep["sources"]):
+            print(json.dumps({"phase": "registers", "variant": name, **row}),
+                  flush=True)
+    dev = torch.device("cuda", 0)
+
+    def first(fn, *a):
+        """The earlier version's entry ``fn`` on the current stream (a CUDA
+        graph's capture stream inside cuda_ms)."""
+        rc = getattr(first_lib, fn)(*a,
+                                    torch.cuda.current_stream(dev).cuda_stream)
+        if rc:
+            raise RuntimeError(f"first {fn}: cudaError {rc}")
+
+    cases = sweep["cases"](dev, _build, first if first_lib else None)
+    errs = {}
+    for label, (fns, plain) in cases.items():
+        want = None if plain is None else plain()
+        ref = fns["first"]() if "first" in fns else None
+        for variant, lib in libs.items():
+            _build._lib = lib
+            for mode, fn in fns.items():
+                if mode == "first" and variant != "kept":
+                    continue
+                got = fn()
+                if want is not None:
+                    err = float((got.float() - want.float()).abs().max()
+                                / want.float().abs().max())
+                    errs[label] = max(errs.get(label, 0.0), err)
+                    if not err <= 1e-5:
+                        raise RuntimeError(f"{variant} {mode} {label}: "
+                                           f"{err} from the twin")
+                if (ref is not None and mode != "first"
+                        and sweep["bit_equal_first"]
+                        and not torch.equal(got, ref)):
+                    raise RuntimeError(f"{variant} {mode} {label}: not "
+                                       "bit-equal to first")
+                if want is not None and not torch.equal(got, fn()):
+                    raise RuntimeError(f"{variant} {mode} {label}: a "
+                                       "repeat run differs")
+        del want, ref
+    names = list(libs) + (["first"] if first_lib else [])
+    turns = names + list(reversed(names))
+    for rep in range(args.repeats):
+        for turn, variant in enumerate(turns):
+            if variant != "first":
+                _build._lib = libs[variant]
+            for label, (fns, _) in cases.items():
+                for mode, fn in fns.items():
+                    if (mode == "first") != (variant == "first"):
+                        continue
+                    print(json.dumps({
+                        "phase": f"{args.sweep}_sweep", "variant": variant,
+                        "mode": mode, "repeat": rep, "turn": turn,
+                        "case": label, "err": errs.get(label),
+                        "ms": cuda_ms(fn)}), flush=True)
+    _build._lib = libs["kept"]
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip(), flush=True)
+
+
+if __name__ == "__main__":
+    main()

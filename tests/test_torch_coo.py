@@ -36,6 +36,7 @@ from gigl_tpu_torch.models.link_prediction import (
     LinkPredictionDecoder,
     LinkPredictionGNN,
 )
+from gigl_tpu_torch.ops import segment as seg
 from gigl_tpu_torch.ops.segment import SegmentIndex
 from gigl_tpu_torch.training import full_batch as fb
 
@@ -126,6 +127,31 @@ def test_full_batch_data_carries_both_indexes():
     deg_out = np.diff(d.src_index.ptr.numpy())
     assert deg_out[OUT_HUB] >= 50 and deg_out[list(SINKS)].sum() == 0
     assert np.diff(d.index.ptr.numpy())[IN_HUB] == 30
+
+
+def test_graphsage_layer_coo_over_the_composed_index_matches_jax(
+        monkeypatch):
+    """One GraphSAGE layer end to end over full_batch_data_from_graph's
+    indexes: the destination index holds the data's own src tensor and
+    src[order] (K8's composed mode: every gathering K8 call is given that
+    very tensor); the logits, the loss, every parameter's and the input's
+    gradient against the reference's."""
+    jt, js, pt, _ = _pair("graphsage", num_layers=1)
+    d = pt.data
+    assert d.index.gather is d.src
+    np.testing.assert_array_equal(
+        d.index.gathered.numpy(), d.src.numpy()[d.index.order.numpy()])
+    assert d.src_index.gathered is None
+    modes = []
+    fwd = seg._segment_reduce_fwd
+
+    def spy(x, ids, n, op="sum", src=None, weight=None, index=None):
+        modes.append(seg.gather_mode(src, index))
+        return fwd(x, ids, n, op, src, weight, index)
+
+    monkeypatch.setattr(seg, "_segment_reduce_fwd", spy)
+    _forward_and_gradients_match(jt, js, pt)
+    assert modes and set(modes) == {"composed"}, modes
 
 
 @pytest.mark.parametrize("conv", CONVS)

@@ -36,7 +36,12 @@ and per-edge rows; rows of 128, 64, 12 and 4 values), K9 segment_softmax
 segments with empty segments, degree-1 segments and a 10^4 hub: the same
 tolerances (softmax, absolute: 5e-5 fp32, where the hub's 10^4-term
 denominator is summed in another order; 2**-8 bf16), the same bits on a
-repeat run. Their backward against autograd through the plain twins: K8b
+repeat run. K8's composed mode (an index built with its gather) against
+its chained mode (a copy of the gather) and per-edge rows, bit for bit,
+over segments of 0, 1, 2, 3, 31, 33 and 5,000 edges and an odd edge
+count, every op and weighting, fp32 and bf16, aligned and 4-byte-offset
+tables; and K6b over ``EllGraph.t_row`` in all seven modes over transpose
+buckets of every width from 4 to 8,192. Their backward against autograd through the plain twins: K8b
 (sum, mean, max with ties; unweighted, [E] and [E, H] weights, whose
 gradient is K10; gather and per-edge rows; an x that needs no gradient)
 over a 10^4-edge source hub and empty segments, K9b (H 1 and 4) and the
@@ -2480,3 +2485,217 @@ def test_neighbor_cache_weighted_matches_plain(dev, method, fanout, dim, agg,
                           method=method)
     _within(out, want, torch.float32)
     assert torch.equal(out[[5, 6, 699]], torch.zeros_like(out[:3]))
+
+
+# -- K8's composed mode and K6b's composed transpose table ----------------------
+def _composed_graph(dev, seed=0):
+    """Segment ids on the card, shuffled, with an odd edge count: segments
+    0-6 of 0, 1, 2, 3, 31, 33 and 5,000 edges, the rest random (so that
+    K8's two slots in flight end on an odd tail); source ids over 4,000
+    rows; the index built with them (``gather``: K8's composed mode)."""
+    rng = np.random.default_rng(seed)
+    s = 2000
+    ids = np.concatenate([rng.integers(7, s, 14_013)]
+                         + [np.full(d, seg) for seg, d in
+                            enumerate((0, 1, 2, 3, 31, 33, 5000))])
+    ids = torch.as_tensor(rng.permutation(ids).astype(np.int32), device=dev)
+    src = torch.as_tensor(rng.integers(0, 4000, ids.shape[0]).astype(
+        np.int32), device=dev)
+    assert ids.shape[0] % 2 == 1
+    return ids, src, SegmentIndex.from_ids(ids, s, gather=src)
+
+
+def _k8_modes():
+    """K8's launches with a gather so far: (composed, chained)."""
+    return (_build.launches["segment_reduce_composed"],
+            _build.launches["segment_reduce_chained"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["sum", "mean", "max"])
+@pytest.mark.parametrize("weights", ["none", "edge", "head"])
+@pytest.mark.parametrize("heads,dk,shift", [
+    (4, 64, 0), (4, 4, 0), (1, 3, 0), (4, 32, 4), (1, 8, 4)])
+def test_segment_reduce_composed_and_chained_modes_agree(
+        dev, dtype, op, weights, heads, dk, shift):
+    """K8 given the tensor its index was built from (the composed mode:
+    each slot's row read from ``index.gathered``) and a copy of it (the
+    chained mode: order, then src): one launch each, counted by mode,
+    bit-equal to each other and on a repeat launch, and within the
+    twin's tolerance; rows of 1 KB to 12 bytes (the vector and the scalar
+    paths), tables 4 bytes past a 16-byte boundary (``shift``); without
+    a gather K8 reads rows per edge."""
+    ids, src, index = _composed_graph(dev)
+    e, s = index.num_edges, index.num_segments
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn((4000, heads * dk), generator=g, device=dev)
+    if op == "max":
+        x = (x * 2).round()                               # ties
+    x = x.to(dtype)
+    if shift:
+        x = _shifted(x, shift)
+    w = {"none": None,
+         "edge": torch.rand((e,), generator=g, device=dev),
+         "head": torch.rand((e, heads), generator=g, device=dev)}[weights]
+    composed0, chained0 = _k8_modes()
+    launches = _build.launches["segment_reduce"]
+    got = segment_reduce(x, ids, s, op=op, src=src, weight=w, index=index)
+    torch.cuda.synchronize()
+    assert _k8_modes() == (composed0 + 1, chained0)
+    chained = segment_reduce(x, ids, s, op=op, src=src.clone(), weight=w,
+                             index=index)
+    torch.cuda.synchronize()
+    assert _k8_modes() == (composed0 + 1, chained0 + 1)
+    assert _build.launches["segment_reduce"] == launches + 2
+    assert torch.equal(got, chained)
+    assert torch.equal(got, segment_reduce(x, ids, s, op=op, src=src,
+                                           weight=w, index=index))
+    want = _segment_reduce_plain(x, ids, s, op, src, w)
+    assert got.dtype == dtype and got.shape == (s, heads * dk)
+    _within(got, want, dtype)
+    assert not got[0].any()                       # an empty segment: 0
+    rows = segment_reduce(x[src.long()], ids, s, op=op, weight=w,
+                          index=index)            # per-edge rows, no gather
+    assert torch.equal(rows, got)
+
+
+def test_segment_reduce_mismatched_src_takes_the_chained_mode(dev):
+    """Other source ids than the index's (a different tensor with other
+    values): the chained mode reads them, and the result is theirs."""
+    ids, src, index = _composed_graph(dev)
+    s = index.num_segments
+    g = torch.Generator(device=dev).manual_seed(22)
+    x = torch.randn((4000, 64), generator=g, device=dev)
+    other = torch.flip(src, (0,)).contiguous()
+    composed0, chained0 = _k8_modes()
+    got = segment_reduce(x, ids, s, src=other, index=index)
+    torch.cuda.synchronize()
+    assert _k8_modes() == (composed0, chained0 + 1)
+    _within(got, _segment_reduce_plain(x, ids, s, "sum", other),
+            torch.float32)
+
+
+def test_segment_reduce_src_changed_in_place_takes_the_chained_mode(dev):
+    """The index's own src tensor, changed in place after the build (its
+    version counter moved): K8 reads the new ids through the chained mode,
+    not the stale composed rows, and agrees with its twin on them."""
+    ids, src, index = _composed_graph(dev)
+    s = index.num_segments
+    g = torch.Generator(device=dev).manual_seed(24)
+    x = torch.randn((4000, 64), generator=g, device=dev)
+    src.copy_(torch.flip(src, (0,)))
+    assert segment_ops.gather_mode(src, index) == "chained"
+    composed0, chained0 = _k8_modes()
+    got = segment_reduce(x, ids, s, src=src, index=index)
+    torch.cuda.synchronize()
+    assert _k8_modes() == (composed0, chained0 + 1)
+    _within(got, _segment_reduce_plain(x, ids, s, "sum", src),
+            torch.float32)
+
+
+def test_coo_spmm_composed_gradients_on_card_match_cpu(dev):
+    """coo_spmm over an index built with its gather (K8 composed forward,
+    K8b over the source index, K10 for the weights) and the sddmm backward's
+    dq (K8 composed) on the card against the CPU (fp32: 1e-5 of each
+    gradient's scale)."""
+    ids_d, src_d, index = _composed_graph(dev)
+    e, s = index.num_edges, index.num_segments
+    rng = np.random.default_rng(23)
+    arrays = {"q": rng.normal(size=(s, 4, 16)),
+              "k": rng.normal(size=(4000, 4, 16)),
+              "v": rng.normal(size=(4000, 4, 16)),
+              "w": rng.random((e, 4)), "g_score": rng.normal(size=(e, 4)),
+              "g_out": rng.normal(size=(s, 4, 16))}
+    grads = {}
+    for device in (dev, torch.device("cpu")):
+        t = {k_: torch.tensor(a, dtype=torch.float32, device=device)
+             .requires_grad_(not k_.startswith("g_"))
+             for k_, a in arrays.items()}
+        ids, src = ids_d.to(device), src_d.to(device)
+        idx = (index if device == dev
+               else SegmentIndex.from_ids(ids, s, gather=src))
+        sidx = SegmentIndex.from_ids(src, 4000)
+        composed0, chained0 = _k8_modes()
+        score = sddmm(src, ids, t["q"], t["k"], index=idx, src_index=sidx)
+        out = segment_ops.coo_spmm(src, ids, t["v"], s, edge_weight=t["w"],
+                                   index=idx, src_index=sidx)
+        ((score * t["g_score"]).sum() + (out * t["g_out"]).sum()).backward()
+        if device == dev:   # the forward and the backward's dq
+            assert _k8_modes() == (composed0 + 2, chained0)
+        grads[device.type] = {k_: t[k_].grad.cpu() for k_ in
+                              ("q", "k", "v", "w")}
+    for k_, want in grads["cpu"].items():
+        scale = float(want.abs().max())
+        err = float((grads["cuda"][k_] - want).abs().max())
+        assert err <= 1e-5 * scale, (k_, err, scale)
+
+
+def _every_width_ell(dev, n=6000, seed=3):
+    """An ELL graph whose sources have out-degrees in every transpose
+    bucket width from 4 to 8,192 (a 5,000-edge hub source), sources
+    without out-edges (0-2) and random edges."""
+    rng = np.random.default_rng(seed)
+    src = [rng.integers(20, n, 4 * n)]
+    dst = [rng.integers(0, n, 4 * n)]
+    for v, deg in zip(range(3, 20), (3, 6, 12, 24, 48, 96, 192, 384, 768,
+                                     1536, 3000, 5000)):
+        src.append(np.full(deg, v))
+        dst.append(rng.choice(n, deg, replace=False))
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    ell = EllGraph.from_csr(build_csr(src, dst, num_anchor_nodes=n),
+                            device=dev)
+    return ell, len(src)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["mean", "sum", "gcn", "weighted", "gatv2",
+                                "max", "gine", "gine_edges"])
+@pytest.mark.parametrize("d,heads", [(128, 4), (12, 3)])
+def test_ell_transpose_over_t_row_matches_plain(dev, dtype, op, d, heads):
+    """K6b walking ``EllGraph.t_row`` (each slot's destination row,
+    composed at build; the entry read beside it by the weighted, gatv2
+    and edge-row gine modes) over transpose buckets of every width up to a
+    5,000-slot hub, in all seven modes: one launch per non-empty bucket
+    (and per forward bucket for max's tie pass), within the twin's
+    tolerance, the same bits on a repeat launch, 0 for sources without
+    out-edges."""
+    ell, e = _every_width_ell(dev)
+    widths = [w for w, lo, hi in zip(ell.t_widths, ell.t_boundaries,
+                                     ell.t_boundaries[1:]) if hi > lo]
+    assert widths == [4 * 2 ** k for k in range(12)]
+    for t_row, t_nbr, t_mask in zip(ell.t_row, ell.t_nbr, ell.t_mask):
+        assert torch.equal(t_row.long(), torch.where(
+            t_mask, ell.ent_row.long()[t_nbr.long()], -1))
+    n = ell.num_nodes
+    g = torch.Generator(device=dev).manual_seed(24)
+    rows = torch.randn((n, d), generator=g, device=dev).to(dtype)
+    p = ell.ent_row.shape[0]
+    kw = {}
+    if op in ("weighted", "gatv2"):
+        kw = {"wt": torch.randn((p, heads), generator=g, device=dev),
+              "wt2": torch.randn((p, heads), generator=g, device=dev),
+              "vec": torch.randn(d, generator=g, device=dev),
+              "heads": heads}
+    if op == "gatv2":
+        kw["rows2"], kw["table"] = (torch.randn(
+            (n, d), generator=g, device=dev).to(dtype) for _ in range(2))
+    if op == "max":
+        kw["table"] = (torch.randn((n, d), generator=g, device=dev) * 2
+                       ).round().to(dtype)
+        kw["rows2"] = ell_aggregate_graph(kw["table"], ell, "max")
+    if op.startswith("gine"):
+        kw["table"] = torch.randn((n, d), generator=g, device=dev).to(dtype)
+        if op == "gine_edges":
+            kw["ea"] = torch.randn((e, d), generator=g, device=dev).to(dtype)
+    mode = "gine" if op == "gine_edges" else op
+    before = _build.launches["ell_transpose_aggregate"]
+    got = ell_transpose_aggregate(rows, ell, mode, **kw)
+    torch.cuda.synchronize()
+    launches = len(widths) + (sum(hi > lo for lo, hi in zip(
+        ell.boundaries, ell.boundaries[1:])) if op == "max" else 0)
+    assert _build.launches["ell_transpose_aggregate"] == before + launches
+    assert torch.equal(got, ell_transpose_aggregate(rows, ell, mode, **kw))
+    want = _ell_transpose_plain(rows, ell, mode, **kw)
+    assert got.dtype == dtype and got.shape == (n, d)
+    assert not got[ell.rank[:3].long()].any()
+    _within(got, want, dtype)

@@ -121,6 +121,40 @@ def test_ell_tables_bit_equal(widths):
         assert not got.mask[0][rows].any()
 
 
+@pytest.mark.parametrize("widths", [None, (4, 8, 16, 64), (4, 64)])
+def test_ell_t_row_is_ent_row_composed_in_walk_order(widths):
+    """t_row, the table K6b walks: per transpose bucket, the destination
+    row of each slot's flat entry (``ent_row[t_nbr]``, from the
+    reference's own tables) where ``t_mask`` holds and -1 elsewhere; every
+    source's valid slots name exactly the destinations of its out-edges,
+    in permuted space."""
+    src, dst, _ = _graph()
+    ref = ref_ell.EllGraph.from_csr(
+        ref_build_csr(src, dst, num_anchor_nodes=N, num_neighbor_nodes=N),
+        widths=widths)
+    got = ell.EllGraph.from_csr(
+        build_csr(src, dst, num_anchor_nodes=N, num_neighbor_nodes=N),
+        widths=widths, device="cpu")
+    bounds = np.asarray(ref.boundaries)
+    ent_row = np.repeat(np.arange(N), np.repeat(np.asarray(ref.widths),
+                                                np.diff(bounds)))
+    np.testing.assert_array_equal(got.ent_row.numpy(), ent_row)
+    assert len(got.t_row) == len(ref.t_nbr)
+    for t_row, t_nbr, t_mask in zip(got.t_row, ref.t_nbr, ref.t_mask):
+        t_nbr, t_mask = np.asarray(t_nbr), np.asarray(t_mask)
+        assert t_row.dtype == torch.int32 and t_row.shape == t_nbr.shape
+        np.testing.assert_array_equal(
+            t_row.numpy(), np.where(t_mask, ent_row[t_nbr], -1))
+    rank, t_bounds = np.asarray(ref.rank), np.asarray(ref.t_boundaries)
+    t_perm = got.t_perm.numpy()
+    for i in range(N):
+        b = int(np.searchsorted(t_bounds, i, side="right")) - 1
+        slots = got.t_row[b][i - t_bounds[b]].numpy()
+        want = rank[dst[rank[src] == t_perm[i]]]
+        np.testing.assert_array_equal(np.sort(slots[slots >= 0]),
+                                      np.sort(want))
+
+
 @pytest.mark.parametrize("deg,want", [
     (0, (4,)), (1, (4,)), (4, (4,)), (5, (4, 8)), (47, (4, 8, 16, 32, 64)),
     (5000, (4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192))])

@@ -76,6 +76,7 @@ from gigl_tpu_torch.models.hetero_encoders import (
     hetero_encoder_from_config,
 )
 from gigl_tpu_torch.models.init import init_params
+from gigl_tpu_torch.ops import segment as seg_ops
 from gigl_tpu_torch.models.link_prediction import (
     HeteroLinkPredictionGNN,
     LinkPredictionDecoder,
@@ -368,6 +369,72 @@ def test_hgt_layer_coo_over_the_relation_indexes_matches_jax(backward):
     (dh,) = vjp({nt: jnp.asarray(c) for nt, c in cot.items()})
     torch.autograd.backward([got[nt] for nt in NODE_TYPES],
                             [torch.from_numpy(cot[nt]) for nt in NODE_TYPES])
+    for nt in NODE_TYPES:
+        _close(got[nt], want[nt])
+        _close(ht[nt].grad, dh[nt])
+
+
+@pytest.mark.parametrize("by", ["dst", "relation"])
+def test_typed_segments_compose_each_destination_index(by):
+    """Each destination index of TypedSegments keeps the source ids its
+    edges gather, composed in walk order, so that K8 reads them (the
+    composed mode): ``src_stack`` per destination type (by="dst", and each
+    relation's own index with the relation's src), the caller's own source
+    tensor per relation (by="relation")."""
+    port_g, _ = _graphs()
+    _, edges, nn_ = _full_inputs(port_g)
+    segs = hetero_convs.TypedSegments.build(edges, nn_, by, "cpu")
+    if by == "dst":
+        pairs = [(segs.index[nt], segs.src_stack[nt]) for nt in segs.index]
+        pairs += [(segs.rel[et][0], edges[et][0]) for et in EDGE_TYPES]
+    else:
+        pairs = [(segs.index[et], edges[et][0]) for et in EDGE_TYPES]
+    for idx, src in pairs:
+        assert idx.gather is src
+        assert seg_ops.gather_mode(src, idx) == "composed"
+        np.testing.assert_array_equal(
+            idx.gathered.numpy(), src.numpy()[idx.order.numpy()])
+    assert all(seg_ops.gather_mode(src.clone(), idx) == "chained"
+               for idx, src in pairs)
+
+
+def test_hgt_layer_coo_reads_composed_indexes_matches_jax(monkeypatch):
+    """One exact HGT layer end to end (layer 2 of a warmed-up encoder)
+    over TypedSegments built from the edges it reads: every K8 call
+    (the messages' sum, and dq's in the logits' backward) is given the
+    gather its index was built from; the output and the inputs' gradient
+    against the reference's coo form and its jax.vjp, fp32 within 1e-5 of
+    the scale."""
+    _, params, port = _encoders("hgt", 0)
+    p_conv = jax.tree_util.tree_map(np.asarray, params["params"]["conv_1"])
+    ref = _ref_conv("hgt", 0)
+    rng = np.random.default_rng(15)
+    port_g, ref_g = _graphs()
+    h = {"author": (2 * rng.normal(size=(A, HID))).astype(np.float32),
+         "paper": (2 * rng.normal(size=(P, HID))).astype(np.float32)}
+    _, r_edges, nn_ = _ref_full_inputs(ref_g)
+    _, edges, _ = _full_inputs(port_g)
+    segs = port.segments(edges, nn_)
+    modes = []
+    fwd = seg_ops._segment_reduce_fwd
+
+    def spy(x, ids, n, op="sum", src=None, weight=None, index=None):
+        modes.append(seg_ops.gather_mode(src, index))
+        return fwd(x, ids, n, op, src, weight, index)
+
+    monkeypatch.setattr(seg_ops, "_segment_reduce_fwd", spy)
+    want, vjp = jax.vjp(lambda h_: ref.apply(
+        {"params": p_conv}, h_, r_edges, nn_, method="coo"),
+        {nt: jnp.asarray(v) for nt, v in h.items()})
+    ht = {nt: torch.from_numpy(v).requires_grad_() for nt, v in h.items()}
+    got = port.convs[1].coo(ht, edges, nn_, segments=segs)
+    cot = {nt: rng.normal(size=np.shape(want[nt])).astype(np.float32)
+           for nt in NODE_TYPES}
+    (dh,) = vjp({nt: jnp.asarray(c) for nt, c in cot.items()})
+    torch.autograd.backward([got[nt] for nt in NODE_TYPES],
+                            [torch.from_numpy(cot[nt]) for nt in NODE_TYPES])
+    gathered = [m for m in modes if m is not None]
+    assert gathered and set(gathered) == {"composed"}, modes
     for nt in NODE_TYPES:
         _close(got[nt], want[nt])
         _close(ht[nt].grad, dh[nt])

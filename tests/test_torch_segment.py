@@ -496,3 +496,139 @@ def test_backward_wrappers_check_their_arguments():
     out = seg.coo_spmm(ids, ids, x, S, edge_weight=w, reduce="max")
     with pytest.raises(NotImplementedError, match="max mode"):
         out.sum().backward()
+
+
+@pytest.mark.parametrize("kind", ["tensor", "numpy", "int64"])
+def test_segment_index_composes_its_gather(kind):
+    """``from_ids(dst, S, gather=src)``: ``gathered`` is ``src[order]``
+    (int32, each slot's row in walk order); a tensor on the index's device
+    is kept as it is, so K8 can tell it by identity; numpy ids are moved
+    to the device."""
+    ids = _ids(seed=6)
+    src = np.random.default_rng(30).integers(0, N_SRC, E)
+    given = {"tensor": _t(src, torch.int32), "numpy": src,
+             "int64": _t(src, torch.int64)}[kind]
+    idx = SegmentIndex.from_ids(ids, S, device="cpu", gather=given)
+    order = np.argsort(ids, kind="stable")
+    np.testing.assert_array_equal(idx.order.numpy(), order)
+    assert idx.gathered.dtype == torch.int32
+    np.testing.assert_array_equal(idx.gathered.numpy(), src[order])
+    if kind == "numpy":
+        np.testing.assert_array_equal(idx.gather.numpy(), src)
+    else:
+        assert idx.gather is given
+    assert seg.gather_mode(idx.gather, idx) == "composed"
+    plain = SegmentIndex.from_ids(ids, S, device="cpu")
+    assert plain.gather is None and plain.gathered is None
+    with pytest.raises(ValueError, match="gather"):
+        SegmentIndex.from_ids(ids, S, device="cpu", gather=src[:-1])
+
+
+@pytest.mark.parametrize("change", ["copy_", "setitem", "add_"])
+def test_gather_changed_in_place_takes_the_chained_mode(change):
+    """The index records its gather's version counter: the very tensor it
+    was built from, changed in place afterwards, no longer matches
+    ``gathered`` and takes K8's chained mode (order, then the new ids)."""
+    ids = _ids(seed=8)
+    src = np.random.default_rng(35).integers(0, N_SRC - 1, E)
+    own = _t(src, torch.int32)
+    idx = SegmentIndex.from_ids(ids, S, device="cpu", gather=own)
+    assert seg.gather_mode(own, idx) == "composed"
+    {"copy_": lambda: own.copy_(torch.flip(own, (0,))),
+     "setitem": lambda: own.__setitem__(0, 1),
+     "add_": lambda: own.add_(1)}[change]()
+    assert seg.gather_mode(own, idx) == "chained"
+    assert seg.gather_mode(None, idx) is None
+
+
+def test_an_index_built_for_a_call_composes_its_src():
+    """A K8 call on the card given no index builds one with its src as
+    the gather (``_index``), so it runs the composed mode; the index of a
+    call without a src composes nothing."""
+    ids = _ids(seed=9)
+    src = np.random.default_rng(36).integers(0, N_SRC, E)
+    own = _t(src, torch.int32)
+    built = seg._index(_t(ids, torch.int32), S, None, E, own)
+    assert built.gather is own and seg.gather_mode(own, built) == "composed"
+    order = np.argsort(ids, kind="stable")
+    np.testing.assert_array_equal(built.gathered.numpy(), src[order])
+    bare = seg._index(_t(ids, torch.int32), S, None, E)
+    assert bare.gathered is None and seg.gather_mode(own, bare) == "chained"
+
+
+@pytest.mark.parametrize("op", ["sum", "mean", "max"])
+@pytest.mark.parametrize("weights", [None, "e", "eh"])
+@pytest.mark.parametrize("which", ["own", "copy", "other"])
+def test_coo_spmm_over_a_composed_index_matches_jax(op, weights, which):
+    """coo_spmm given an index built with its gather: with that very src
+    tensor (K8's composed mode), with a copy of it and with other source
+    ids (the chained mode: K8 reads order, then src), against the
+    reference's segment_sum / segment_mean / segment_max of the gathered,
+    weighted messages (coo_spmm for [E] weights) and its jax.vjp where the
+    port differentiates (a weighted max has no weight gradient)."""
+    ids = _ids(seed=7)
+    src = np.random.default_rng(31).integers(0, N_SRC, E).astype(np.int32)
+    own = _t(src, torch.int32)
+    idx = SegmentIndex.from_ids(ids, S, device="cpu", gather=own)
+    if which == "other":
+        src = np.random.default_rng(32).integers(0, N_SRC, E).astype(
+            np.int32)
+    tsrc = {"own": own, "copy": own.clone(), "other": _t(src, torch.int32)
+            }[which]
+    assert seg.gather_mode(tsrc, idx) == ("composed" if which == "own"
+                                          else "chained")
+    kw = {"index": idx,
+          "src_index": SegmentIndex.from_ids(src, N_SRC, device="cpu")}
+    x = _ties((N_SRC, H, DK)) if op == "max" else _data((N_SRC, H, DK), 33)
+    cot = _data((S, H, DK), 34)
+    red = {"sum": ref.segment_sum, "mean": ref.segment_mean,
+           "max": ref.segment_max}[op]
+    jsrc, jids, tids = jnp.asarray(src), jnp.asarray(ids), _t(ids,
+                                                             torch.int32)
+
+    def port(x_, w_=None):
+        return seg.coo_spmm(tsrc, tids, x_, S, edge_weight=w_, reduce=op,
+                            **kw)
+
+    if weights is None:
+        _vjp_close(lambda x_: red(x_[jsrc], jids, S), port, [x], cot,
+                   ["SegmentReduce"])
+        return
+    shape = (E,) if weights == "e" else (E, H)
+    w = np.random.default_rng(35).uniform(0.1, 2.0, shape).astype(np.float32)
+
+    def f_ref(x_, w_):
+        if weights == "e":
+            return ref.coo_spmm(jsrc, jids, x_, S, edge_weight=w_, reduce=op)
+        return red(x_[jsrc] * w_[..., None], jids, S)
+
+    if op == "max":
+        _close(port(_t(x), _t(w)), f_ref(jnp.asarray(x), jnp.asarray(w)),
+               1e-5)
+        return
+    _vjp_close(f_ref, port, [x, w], cot, ["SegmentReduce"])
+
+
+@pytest.mark.parametrize("op", ["sum", "mean", "max"])
+def test_bf16_over_a_composed_index_is_one_rounding(op):
+    """bf16 rows through a composed index: the reference's reduce in fp32
+    of the same bf16 inputs, rounded once (2**-8 of the largest entry;
+    the mean's count rounded to bf16 first, as the reference counts)."""
+    ids = _ids(seed=8)
+    src = np.random.default_rng(36).integers(0, N_SRC, E).astype(np.int32)
+    own = _t(src, torch.int32)
+    idx = SegmentIndex.from_ids(ids, S, device="cpu", gather=own)
+    x = _t(_data((N_SRC, 12), 37), torch.bfloat16)
+    got = seg.coo_spmm(own, _t(ids, torch.int32), x, S, reduce=op,
+                       index=idx)
+    assert got.dtype == torch.bfloat16
+    xf = jnp.asarray(x.float().numpy())[jnp.asarray(src)]
+    jids = jnp.asarray(ids)
+    if op == "mean":
+        cnt = np.bincount(ids, minlength=S).astype(np.float32)
+        cnt = np.maximum(_t(cnt).to(torch.bfloat16).float().numpy(), 1.0)
+        want = ref.segment_sum(xf, jids, S) / cnt[:, None]
+    else:
+        want = {"sum": ref.segment_sum, "max": ref.segment_max}[op](
+            xf, jids, S)
+    _close(got, want, 2.0 ** -8)
