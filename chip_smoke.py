@@ -61,17 +61,24 @@
    and widths): times the two SegmentIndex builds (destination and source)
    on the host; holds K8b segment_reduce_bwd (sum, mean, max with ties,
    per-head weighted) over the whole source walk at layer 2's [100k, 256]
-   fp32 cotangent, K9b segment_softmax_bwd at [2M, 4] and the sddmm
+   fp32 cotangent in its composed mode (the segment ids the source index
+   was built from) and its chained mode (a copy: chained_ms), bit-equal,
+   K9b segment_softmax_bwd at [2M, 4] and the sddmm
    backward (K10b's coefficients and the scale's cotangent, with K8 for dq
    and K8b for dk; 4 heads of 64) against autograd through the plain
-   twins, with bounds and yardsticks (index_add_ of the gathered rows; the
-   torch composition of the softmax backward), each repeated for the same
+   twins, with bounds and yardsticks (K8b: sparse.mm of the source-sorted
+   CSR, values 1 or 1 / count, for sum and mean, and index_add_ of the
+   gathered rows beside it; the torch composition of the softmax
+   backward), each repeated for the same
    bits; K10 sddmm and K8 segment_reduce (weighted per head by an [E, 4]
    alpha) at the COO Transformer's two layers (the 2M edges in their random
    order, 4 heads of 64 and of 4 fp32 values) against their plain twins,
    with bounds, gathered_bytes (E x a gathered row's bytes) and yardsticks
    (sparse.sampled_addmm; sparse.mm beside K8's unweighted sum), modes
-   coo_layer1 / coo_layer2 on the kernel rows; then per model (GraphSAGE
+   coo_layer1 / coo_layer2 on the kernel rows, and K9 segment_softmax at
+   the steps' [2M, 4] logits, fp32 and bf16 (modes coo_fp32 / coo_bf16 on
+   its row; gathered_bytes: a 32-byte sector a slot read and one written;
+   the softmax in PyTorch beside fp32); then per model (GraphSAGE
    mean, GAT v1 and Transformer, 4 heads)
    FullBatchTrainer(build_ell=False) — one step against the same step
    through the plain twins, then 3 + 50 steps with the launch counts reset
@@ -201,14 +208,17 @@
 17. prints the SegmentIndex host builds counted inside every timed window
    of a path (SegmentIndex.from_ids wrapped from the build on; each must
    read 0: a segment op on the card given no index builds one on the
-   host) and K8's gathering launches there by mode (none may be chained:
+   host), K8's gathering launches there by mode (none may be chained:
    every index is built with the very src its pass gives K8, whose
-   composed mode reads the rows from the index), one JSON line with every
+   composed mode reads the rows from the index) and K8b's over a source
+   walk (none may be chained either: every source index is built with the
+   very destination ids its pass gives K8b), one JSON line with every
    kernel's numbers, then the card line, then {"ok": true, ...} as the
    last line. Every profile carries K7 / K7b (attention_ms_per_step), K10
-   / K8 (segment_ms_per_step) and K6b (ell_transpose_ms_per_step) device
-   ms. K8's rows time its composed mode (ms) beside its chained mode
-   (chained_ms: a copy of src), bit-equal.
+   / K8 / K8b / K9 (segment_ms_per_step) and K6b
+   (ell_transpose_ms_per_step) device ms. K8's and K8b's rows time their
+   composed mode (ms) beside their chained mode (chained_ms: a copy of src
+   or of the segment ids), bit-equal.
 
 Any failed check raises; nothing is printed as a result without a card.
 It imports neither JAX nor the JAX package.
@@ -446,10 +456,12 @@ def count_host_index_builds():
     SegmentIndex.from_ids = classmethod(counted)
 
 
-# K8's launches with a gather inside each path's timed windows, by mode
-# (_build.launches' segment_reduce_composed and segment_reduce_chained):
-# every one must read the index's composed rows
+# K8's launches with a gather and K8b's over a source walk inside each
+# path's timed windows, by mode (_build.launches' segment_reduce_composed /
+# _chained and segment_reduce_bwd_composed / _chained): every one must read
+# its index's composed ids
 K8_GATHER_IN_WINDOWS = {}
+K8B_WALK_IN_WINDOWS = {}
 K8_MODES = ("composed", "chained")
 
 
@@ -457,25 +469,29 @@ K8_MODES = ("composed", "chained")
 def timed_window(path):
     """A path's timed steps or passes: a segment op on the card given no
     SegmentIndex builds one on the host, so none may be built inside; and
-    every K8 launch with a gather reads the composed rows of an index built
-    from that very gather (no chained launch)."""
+    every K8 launch with a gather (every K8b launch over a source walk)
+    reads the composed ids of an index built from that very gather
+    (those very segment ids): no chained launch."""
     from gigl_tpu_torch.ops import _build
 
     before = HOST_INDEX_BUILDS["calls"]
-    k8_before = {m_: _build.launches[f"segment_reduce_{m_}"]
-                 for m_ in K8_MODES}
+    kinds = (("K8", "segment_reduce", K8_GATHER_IN_WINDOWS),
+             ("K8b", "segment_reduce_bwd", K8B_WALK_IN_WINDOWS))
+    mode_before = {f"{k_}_{m_}": _build.launches[f"{k_}_{m_}"]
+                   for _, k_, _ in kinds for m_ in K8_MODES}
     yield
     n = HOST_INDEX_BUILDS["calls"] - before
     INDEX_BUILDS_IN_WINDOWS[path] = INDEX_BUILDS_IN_WINDOWS.get(path, 0) + n
     check(n == 0, f"{path}: {n} SegmentIndex host builds inside its timed "
           "window")
-    seen = K8_GATHER_IN_WINDOWS.setdefault(path, dict.fromkeys(K8_MODES, 0))
-    for mode in K8_MODES:
-        seen[mode] += (_build.launches[f"segment_reduce_{mode}"]
-                       - k8_before[mode])
-    check(seen["chained"] == 0, f"{path}: {seen['chained']} K8 launches "
-          "read a gather through the index's order (chained mode) inside "
-          "its timed window")
+    for what, kernel, table in kinds:
+        seen = table.setdefault(path, dict.fromkeys(K8_MODES, 0))
+        for mode in K8_MODES:
+            key = f"{kernel}_{mode}"
+            seen[mode] += _build.launches[key] - mode_before[key]
+        check(seen["chained"] == 0, f"{path}: {seen['chained']} {what} "
+              "launches read their ids through the index's order (chained "
+              "mode) inside its timed window")
 
 
 def profile_summary(prof, steps, window_us, host_ms_per_step):
@@ -507,7 +523,8 @@ def profile_summary(prof, steps, window_us, host_ms_per_step):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
     attention = dict.fromkeys(("fanout_attention", "fanout_attention_bwd"),
                               0.0)
-    segment = dict.fromkeys(("sddmm", "segment_reduce"), 0.0)
+    segment = dict.fromkeys(("sddmm", "segment_reduce", "segment_reduce_bwd",
+                             "segment_softmax"), 0.0)
     transpose = 0.0   # K6b: its bucket walks and the max mode's tie pass
     for n, (t, _) in by_name.items():
         if "ell_transpose_" in n or "tie_count_kernel" in n:
@@ -518,8 +535,12 @@ def profile_summary(prof, steps, window_us, host_ms_per_step):
             attention["fanout_attention"] += t / steps / 1e3
         elif "sddmm_" in n and "sddmm_bwd" not in n:
             segment["sddmm"] += t / steps / 1e3
-        elif "segment_reduce_" in n and "segment_reduce_bwd" not in n:
+        elif "segment_reduce_bwd" in n or "segment_max_ties" in n:
+            segment["segment_reduce_bwd"] += t / steps / 1e3
+        elif "segment_reduce_" in n:
             segment["segment_reduce"] += t / steps / 1e3
+        elif "segment_softmax_" in n and "segment_softmax_bwd" not in n:
+            segment["segment_softmax"] += t / steps / 1e3
     return {
         "device_events": len(events),
         "device_ms_per_step": device_ms,
@@ -840,24 +861,24 @@ def sddmm_library(index, src, q, k, scale, got, rel_err):
         return None, f"sampled_addmm failed: {exc}"[:200]
 
 
-def k8_modes_checked(composed, chained, what):
-    """K8's output through its composed mode (``composed()``: src is the
-    tensor the index was built from) and its chained mode (``chained()``:
-    a copy of it), checked to have run in those modes and to agree bit for
-    bit, and a repeat composed run too; returns the output."""
+def k8_modes_checked(composed, chained, what, kernel="segment_reduce"):
+    """K8's (K8b's) output through its composed mode (``composed()``: src
+    (the segment ids) is the tensor the index was built from) and its
+    chained mode (``chained()``: a copy of it), checked to have run in
+    those modes and to agree bit for bit, and a repeat composed run too;
+    returns the output."""
     from gigl_tpu_torch.ops import _build
 
     def modes():
-        return tuple(_build.launches[f"segment_reduce_{m_}"]
-                     for m_ in K8_MODES)
+        return tuple(_build.launches[f"{kernel}_{m_}"] for m_ in K8_MODES)
 
     before = modes()
     got = composed()
     check(modes() == (before[0] + 1, before[1]),
-          f"{what}: the index's own src did not run the composed mode")
+          f"{what}: the index's own ids did not run the composed mode")
     other = chained()
     check(modes() == (before[0] + 1, before[1] + 1),
-          f"{what}: a copy of src did not run the chained mode")
+          f"{what}: a copy of the ids did not run the chained mode")
     check(torch.equal(got, other), f"{what}: composed and chained differ")
     check(torch.equal(got, composed()), f"{what}: a repeat run differs")
     return got
@@ -953,7 +974,67 @@ def segment_walk_rows(dev, fb, rel_err, unique):
             "edges": e, "heads": h, "head_dim": dk}
         del got, q, k, v, v2, alpha
     del adj
+    rows["segment_softmax"] = k9_coo_rows(dev, idx, dst, rel_err)
     return rows
+
+
+def k9_coo_rows(dev, idx, dst, rel_err):
+    """K9 segment_softmax at the COO GAT and Transformer steps' shape: [E, 4]
+    logits over the flagship's 2M edges (random order, the step's
+    destination index), fp32 and bf16, each against its plain twin (fp32
+    1e-5; bf16 one rounding, 2**-8 of the largest alpha), the same bits on
+    a repeat run, with its bound (bytes: the logits, order and ptr read
+    once, alpha written once) and gathered_bytes (the 32-byte sectors a
+    walk in random edge order touches: one a slot for the logits' read
+    and one for alpha's write). The fp32 softmax in PyTorch is the
+    library yardstick."""
+    from gigl_tpu_torch.ops.segment import (
+        _segment_softmax_plain, segment_softmax)
+
+    e, n, h = idx.num_edges, idx.num_segments, GAT_HEADS
+    gen = torch.Generator(device=dev).manual_seed(16)
+    dst_l = dst.long()
+    idx_h = dst_l[:, None].expand(e, h)
+    out = {}
+    for mode, dtype, tol in (("coo_fp32", torch.float32, 1e-5),
+                             ("coo_bf16", torch.bfloat16, 2.0 ** -8)):
+        lg = (torch.randn((e, h), generator=gen, device=dev) * 3).to(dtype)
+
+        def k9(lg=lg):
+            return segment_softmax(lg, dst, n, index=idx)
+
+        def k9_plain(lg=lg):
+            return _segment_softmax_plain(lg, dst, n)
+
+        got = k9()
+        err = rel_err(got, k9_plain(), f"K9 {mode}", tol=tol)
+        check(torch.equal(got, k9()), f"K9 {mode}: a repeat run differs")
+        esize = lg.element_size()
+        b, by = bound_ms(e * h * esize * 2 + e * 4 + (n + 1) * 4, e * h * 5)
+        entry = {"err": err, "ms": cuda_ms(k9),
+                 "plain_ms": cuda_ms(k9_plain, reps=3),
+                 "eager_ms": eager_ms(k9), "bound_ms": b, "bound_by": by,
+                 "gathered_bytes": 2 * e * 32, "edges": e, "heads": h,
+                 "dtype": str(dtype).split(".")[-1]}
+        if dtype == torch.float32:
+            def k9_library(lg=lg):
+                m_ = torch.full((n, h), float("-inf"), device=dev)
+                m_.scatter_reduce_(0, idx_h, lg, "amax")
+                ex_ = torch.exp(lg - m_[dst_l])
+                den = torch.zeros((n, h), device=dev).index_add_(0, dst_l,
+                                                                 ex_)
+                return ex_ / den[dst_l]
+
+            rel_err(k9_library(), got, f"torch composition vs K9 {mode}",
+                    tol=2e-5)
+            entry["library_ms"] = cuda_ms(k9_library)
+            entry["library_call"] = ("the softmax in PyTorch: "
+                                     "scatter_reduce_(amax), the shift and "
+                                     "exp, index_add_ of the exps, the "
+                                     "division")
+        out[mode] = entry
+        del lg, got
+    return out
 
 
 def typed_phases(dev, card, record, rel_err, unique):
@@ -1439,64 +1520,91 @@ def coo_phases(dev, card, graph, record, rel_err, unique,
     gen = torch.Generator(device=dev).manual_seed(10)
 
     # K8b over the whole source walk, layer 2's [100k, 256] fp32 cotangent,
-    # against autograd through K8's plain twin. bytes: the cotangent, the
-    # dst ids, the source index and the output once (weighted: + [E, 4]
-    # fp32; mean: + the dst pointers; max: + the forward rows and the dst
-    # index, read by the tie pass); ops: an add (and a multiply) per edge
-    # and value.
+    # against autograd through K8's plain twin, in its composed mode (the
+    # segment ids are fb.dst, which the source index was built from: ms)
+    # and its chained mode (a copy: chained_ms), bit-equal. bytes, as the
+    # composed mode reads: the cotangent, the source index's pointers and
+    # gathered destinations and the output once (weighted: + its order and
+    # the [E, 4] fp32 weights; mean: + the dst pointers; max: + the forward
+    # rows and the dst index, read by the tie pass); ops: an add (and a
+    # multiply) per edge and value. gathered_bytes: the cotangent rows the
+    # walk reads, one an edge.
     g8 = torch.randn((N, HID), generator=gen, device=dev)
     w8 = torch.rand((E, GAT_HEADS), generator=gen, device=dev)
     x8 = (torch.randn((N, HID), generator=gen, device=dev) * 2).round()
-    base8 = N * HID * 4 * 2 + E * 8 + (N + 1) * 4
+    base8 = N * HID * 4 * 2 + E * 4 + (N + 1) * 4
+    # the yardstick: torch.sparse.mm of the source-sorted CSR (row r's
+    # columns the destinations of the edges that read r, in walk order;
+    # values 1, or 1 / count for the mean), built here, not timed
+    col8 = dst_l[sidx.order.long()]
+    cnt = (idx.ptr[1:] - idx.ptr[:-1]).float().clamp(min=1.0)
+    csr8 = {op: torch.sparse_csr_tensor(
+        sidx.ptr.long(), col8, vals, (N, N)) for op, vals in (
+            ("sum", torch.ones(E, device=dev)), ("mean", 1.0 / cnt[col8]))}
+    dst_copy = dst.clone()   # the same ids in another tensor: chained mode
     k8b = {}
     for mode, op, w in (("sum", "sum", None), ("mean", "mean", None),
                         ("max", "max", None), ("weighted", "sum", w8)):
         xin = x8 if op == "max" else None
 
-        def k8b_kernel(op=op, w=w, xin=xin):
-            return segment_reduce_bwd(g8, dst, N, op=op, src=src, weight=w,
+        def k8b_kernel(op=op, w=w, xin=xin, ids=dst):
+            return segment_reduce_bwd(g8, ids, N, op=op, src=src, weight=w,
                                       x=xin, index=idx, src_index=sidx)
+
+        def k8b_chained(op=op, w=w, xin=xin):
+            return k8b_kernel(op, w, xin, dst_copy)
 
         def k8b_plain(op=op, w=w, xin=xin):
             return _segment_reduce_bwd_plain(g8, dst, N, op, src, w, xin)
 
         xx = x8.clone().requires_grad_()
         _segment_reduce_plain(xx, dst, N, op, src, w).backward(g8)
-        got = k8b_kernel()
+        got = k8_modes_checked(k8b_kernel, k8b_chained, f"K8b {mode}",
+                               "segment_reduce_bwd")
         err = rel_err(got, xx.grad, f"K8b {mode}", tol=1e-5)
-        check(torch.equal(got, k8b_kernel()), f"K8b {mode}: a repeat run "
-              "differs")
         nbytes = base8 + {"sum": 0, "mean": (N + 1) * 4,
                           "max": N * HID * 4 + E * 4 + (N + 1) * 4,
-                          "weighted": E * GAT_HEADS * 4}[mode]
+                          "weighted": E * 4 + E * GAT_HEADS * 4}[mode]
         k8b[mode] = {"err": err, "ms": cuda_ms(k8b_kernel),
+                     "chained_ms": cuda_ms(k8b_chained),
                      "plain_ms": cuda_ms(k8b_plain, reps=3),
                      "eager_ms": eager_ms(k8b_kernel),
                      "bound_ms": bound_ms(nbytes, E * HID * (
-                         2 if w is not None else 1))[0], "nbytes": nbytes}
+                         2 if w is not None else 1))[0], "nbytes": nbytes,
+                     "gathered_bytes": E * HID * 4}
+        if mode in csr8:
+            def k8b_sparse(mode=mode):
+                return torch.sparse.mm(csr8[mode], g8)
+
+            rel_err(k8b_sparse(), got, f"sparse.mm yardstick vs K8b {mode}",
+                    tol=1e-5)
+            k8b[mode]["library_ms"] = cuda_ms(k8b_sparse)
         del xx, got
-    cnt = (idx.ptr[1:] - idx.ptr[:-1]).float().clamp(min=1.0)
     rows8 = g8[dst_l] / cnt[dst_l][:, None]     # gathered beforehand
 
-    def k8b_library():
+    def k8b_index_add():
         return torch.zeros((N, HID), device=dev).index_add_(0, src_l, rows8)
 
-    rel_err(k8b_library(), segment_reduce_bwd(
+    rel_err(k8b_index_add(), segment_reduce_bwd(
         g8, dst, N, op="mean", src=src, index=idx, src_index=sidx),
         "index_add_ yardstick vs K8b mean", tol=1e-5)
     record("segment_reduce_bwd", "gigl_tpu_torch/csrc/segment_reduce_bwd.cu",
            "gigl_tpu/ops/segment.py:20", max(v["err"] for v in k8b.values()),
            k8b["mean"]["ms"], k8b["mean"]["plain_ms"],
            nbytes=k8b["mean"]["nbytes"], nops=E * HID,
-           library_ms=cuda_ms(k8b_library),
-           library_call="torch.Tensor.index_add_ of the cotangent rows "
-                        "gathered by dst and divided by the count (atomics; "
-                        "gather and division not timed) = the mean mode",
+           library_ms=k8b["mean"]["library_ms"],
+           library_call="torch.sparse.mm of the source-sorted CSR (values "
+                        "1 / count) and the [N, 256] cotangent = the mean "
+                        "mode; sum: values 1 (modes.sum.library_ms)",
+           index_add_ms=cuda_ms(k8b_index_add),
+           index_add_call="torch.Tensor.index_add_ of the cotangent rows "
+                          "gathered by dst and divided by the count "
+                          "(atomics; gather and division not timed)",
            table=[N, HID], dtype="float32", edges=E,
            eager_ms=k8b["mean"]["eager_ms"],
            modes={m_: {k_: v_ for k_, v_ in v.items() if k_ != "nbytes"}
                   for m_, v in k8b.items()})
-    del g8, w8, x8, rows8
+    del g8, w8, x8, rows8, csr8, col8
 
     # K9b at [2M, 4]: alpha from K9, a random cotangent, against autograd
     # through K9's plain twin. bytes: alpha and g read, dlogits written,
@@ -5001,7 +5109,8 @@ def main():
     emit({"phase": "host_index_builds",
           "in_timed_windows": INDEX_BUILDS_IN_WINDOWS,
           "calls_in_run": HOST_INDEX_BUILDS["calls"],
-          "k8_gather_launches_in_timed_windows": K8_GATHER_IN_WINDOWS})
+          "k8_gather_launches_in_timed_windows": K8_GATHER_IN_WINDOWS,
+          "k8b_walk_launches_in_timed_windows": K8B_WALK_IN_WINDOWS})
     segment_paths = list(coo) + [f"typed_full_{m_}"
                                  for m_ in TYPED_FULL_KERNELS]
     check(all(p_ in INDEX_BUILDS_IN_WINDOWS for p_ in segment_paths),
@@ -5009,6 +5118,8 @@ def main():
     check(all(K8_GATHER_IN_WINDOWS[p_]["composed"] > 0
               for p_ in segment_paths),
           "a segment path's timed window ran no composed K8 launch")
+    check(all(K8B_WALK_IN_WINDOWS[p_]["composed"] > 0 for p_ in coo),
+          "a COO step's timed window ran no composed K8b launch")
     results.sort(key=lambda r: _build.KERNEL_NAMES.index(r["name"]))
 
     emit({"kernels": results})

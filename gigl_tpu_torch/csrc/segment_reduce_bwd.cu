@@ -27,10 +27,32 @@
 // size), the index, dst ids and weights once. Design: as K8, one thread per
 // 16-byte piece of an output row (4 fp32 or 8 bf16 values), consecutive
 // threads across the row, so the gathered cotangent rows are read as
-// coalesced 16-byte loads and an edge's id, dst and weight are broadcast
-// loads for the row's threads; rows that are not 16-byte multiples take
-// the same loop one element per thread. A hub source is walked by its row's
-// threads alone. fp32 accumulation, one rounding to the output type.
+// coalesced 16-byte loads and an edge's ids and weight are broadcast loads
+// for the row's threads; rows that are not 16-byte multiples take the same
+// loop one element per thread. A hub source is walked by its row's threads
+// alone. fp32 accumulation, one rounding to the output type.
+//
+// The destination a slot reads is known once the graph is: the first
+// version read order[j], then dst[e] (a random 4-byte read from the [E]
+// ids) and only then the cotangent row, three dependent loads a slot (the
+// mean two more, dst_ptr[d] and dst_ptr[d + 1]). A source index built with
+// the destination ids as its gather (SegmentIndex.from_ids(src, n,
+// gather=dst)) holds gathered = dst[order], composed on the host in walk
+// order, and the composed mode (COMPOSED, the wrapper's choice when the
+// segment ids are the tensor the index was built from) reads gathered[j],
+// a sequential id, then the row, and the mean's pointers beside it; the
+// weights are still read through order[j], but the row load no longer
+// waits on them. The chained mode (any other ids) is the same kernel with
+// the first version's chain. Each thread of the composed mode keeps
+// kSlotsInFlight slots in flight: their ids, rows, counts and weights are
+// loaded before any is added, and they are added in slot order, so the
+// sums round as the first version's, bit for bit; the chained mode keeps
+// one, as K8's does. The sum and the weighted sum no longer divide each
+// value by the count 1 (x / 1 is x, but the compiler kept the division,
+// PERF.md §6); the mean keeps its division, the rounding both the first
+// version and the reference take.
+#include <type_traits>
+
 #include "gigl_pieces.cuh"
 
 namespace {
@@ -38,15 +60,18 @@ namespace {
 constexpr int kSum = 0;
 constexpr int kMean = 1;
 constexpr int kMax = 2;
+// Slots a thread of the composed mode keeps in flight.
+constexpr int kSlotsInFlight = 4;
 
-template <typename T, int P, int OP>
+template <typename T, int P, int OP, bool COMPOSED>
 __global__ void segment_reduce_bwd_kernel(
     const T* __restrict__ g, const float* __restrict__ gs,
     const float* __restrict__ mref, const T* __restrict__ x,
     const int32_t* __restrict__ dst, const int32_t* __restrict__ order,
-    const int32_t* __restrict__ ptr, const int32_t* __restrict__ dst_ptr,
-    const float* __restrict__ w, T* __restrict__ out, int64_t rows, int c,
-    int wc, int w_cols) {
+    const int32_t* __restrict__ gathered, const int32_t* __restrict__ ptr,
+    const int32_t* __restrict__ dst_ptr, const float* __restrict__ w,
+    T* __restrict__ out, int64_t rows, int c, int wc, int w_cols) {
+  constexpr int K = COMPOSED ? kSlotsInFlight : 1;
   const int pieces = c / P;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= rows * pieces) return;
@@ -59,30 +84,67 @@ __global__ void segment_reduce_bwd_kernel(
   float xr[P];
   if (OP == kMax) gigl::load_piece<T, P>(x + r * c + col, xr);
   // source walk, or the row's own edge when there is no gather
-  const int64_t lo = order != nullptr ? __ldg(ptr + r) : r;
-  const int64_t hi = order != nullptr ? __ldg(ptr + r + 1) : r + 1;
-  for (int64_t j = lo; j < hi; ++j) {
-    const int64_t e = order != nullptr ? __ldg(order + j) : j;
-    const int64_t d = __ldg(dst + e);
-    const float wt = w != nullptr ? __ldg(w + e * w_cols + wcol) : 1.f;
-    if (OP == kMax) {
-      const int64_t o = d * c + col;
-#pragma unroll
-      for (int k = 0; k < P; ++k)
-        if (xr[k] * wt == __ldg(mref + o + k)) acc[k] += __ldg(gs + o + k) * wt;
+  const int32_t lo =
+      order != nullptr ? __ldg(ptr + r) : static_cast<int32_t>(r);
+  const int32_t hi = order != nullptr ? __ldg(ptr + r + 1) : lo + 1;
+  // slot j's destination and, with weights, its edge id
+  auto dst_of = [&](int32_t j, int64_t& e) -> int64_t {
+    if constexpr (COMPOSED) {
+      if (w != nullptr) e = __ldg(order + j);
+      return __ldg(gathered + j);
     } else {
-      float gv[P];
-      gigl::load_piece<T, P>(g + d * c + col, gv);
-      float cn = 1.f;
-      if (OP == kMean) {
-        const int32_t cnt = __ldg(dst_ptr + d + 1) - __ldg(dst_ptr + d);
-        cn = gigl::to_float(gigl::from_float<T>(
-            static_cast<float>(cnt > 1 ? cnt : 1)));  // the forward's count
-      }
-#pragma unroll
-      for (int k = 0; k < P; ++k) acc[k] += gv[k] / cn * wt;
+      e = order != nullptr ? __ldg(order + j) : j;
+      return __ldg(dst + e);
     }
-  }
+  };
+  // the forward's count of destination d, in T, at least 1
+  auto count_of = [&](int64_t d) -> float {
+    const int32_t cnt = __ldg(dst_ptr + d + 1) - __ldg(dst_ptr + d);
+    return gigl::to_float(
+        gigl::from_float<T>(static_cast<float>(cnt > 1 ? cnt : 1)));
+  };
+  // K slots' loads (destinations, then rows, counts and weights), then
+  // their sums in slot order
+  auto slots = [&](int32_t j, auto k_slots) {
+    constexpr int KS = decltype(k_slots)::value;
+    int64_t e[KS] = {}, d[KS];
+    float v[KS][P], m[KS][P], cn[KS], wt[KS];
+#pragma unroll
+    for (int q = 0; q < KS; ++q) d[q] = dst_of(j + q, e[q]);
+#pragma unroll
+    for (int q = 0; q < KS; ++q) {
+      const int64_t o = d[q] * c + col;
+      if (OP == kMax) {
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          m[q][k] = __ldg(mref + o + k);
+          v[q][k] = __ldg(gs + o + k);
+        }
+      } else {
+        gigl::load_piece<T, P>(g + o, v[q]);
+      }
+      if (OP == kMean) cn[q] = count_of(d[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < KS; ++q)
+      wt[q] = w != nullptr ? __ldg(w + e[q] * w_cols + wcol) : 1.f;
+#pragma unroll
+    for (int q = 0; q < KS; ++q) {
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        if (OP == kMax) {
+          if (xr[k] * wt[q] == m[q][k]) acc[k] += v[q][k] * wt[q];
+        } else if (OP == kMean) {
+          acc[k] += v[q][k] / cn[q] * wt[q];
+        } else {  // the first version's v / 1 * wt, without the division
+          acc[k] += v[q][k] * wt[q];
+        }
+      }
+    }
+  };
+  int32_t j = lo;
+  for (; j + K <= hi; j += K) slots(j, std::integral_constant<int, K>{});
+  for (; j < hi; ++j) slots(j, std::integral_constant<int, 1>{});
   gigl::store_piece<T, P>(out + r * c + col, acc);
 }
 
@@ -133,12 +195,13 @@ __global__ void segment_max_ties_kernel(
   }
 }
 
-template <typename T, int P>
-int launch_bwd(const void* g, const void* gs, const void* mref,
-               const void* x, const void* dst, const void* order,
-               const void* ptr, const void* dst_ptr, const void* w,
-               void* out, long long rows, int c, int wc, int w_cols, int op,
-               cudaStream_t stream) {
+template <typename T, int P, bool COMPOSED>
+int launch_bwd_mode(const void* g, const void* gs, const void* mref,
+                    const void* x, const void* dst, const void* order,
+                    const void* gathered, const void* ptr,
+                    const void* dst_ptr, const void* w, void* out,
+                    long long rows, int c, int wc, int w_cols, int op,
+                    cudaStream_t stream) {
   const long long total = rows * (c / P);
   if (total == 0) return 0;
   const int threads = 256;
@@ -149,27 +212,49 @@ int launch_bwd(const void* g, const void* gs, const void* mref,
   const T* xv = static_cast<const T*>(x);
   const int32_t* dv = static_cast<const int32_t*>(dst);
   const int32_t* ov = static_cast<const int32_t*>(order);
+  const int32_t* cv = static_cast<const int32_t*>(gathered);
   const int32_t* pv = static_cast<const int32_t*>(ptr);
   const int32_t* dpv = static_cast<const int32_t*>(dst_ptr);
   const float* wv = static_cast<const float*>(w);
   T* outv = static_cast<T*>(out);
   switch (op) {
     case kSum:
-      segment_reduce_bwd_kernel<T, P, kSum><<<blocks, threads, 0, stream>>>(
-          gv, gsv, mv, xv, dv, ov, pv, dpv, wv, outv, rows, c, wc, w_cols);
+      segment_reduce_bwd_kernel<T, P, kSum, COMPOSED>
+          <<<blocks, threads, 0, stream>>>(gv, gsv, mv, xv, dv, ov, cv, pv,
+                                           dpv, wv, outv, rows, c, wc,
+                                           w_cols);
       break;
     case kMean:
-      segment_reduce_bwd_kernel<T, P, kMean><<<blocks, threads, 0, stream>>>(
-          gv, gsv, mv, xv, dv, ov, pv, dpv, wv, outv, rows, c, wc, w_cols);
+      segment_reduce_bwd_kernel<T, P, kMean, COMPOSED>
+          <<<blocks, threads, 0, stream>>>(gv, gsv, mv, xv, dv, ov, cv, pv,
+                                           dpv, wv, outv, rows, c, wc,
+                                           w_cols);
       break;
     case kMax:
-      segment_reduce_bwd_kernel<T, P, kMax><<<blocks, threads, 0, stream>>>(
-          gv, gsv, mv, xv, dv, ov, pv, dpv, wv, outv, rows, c, wc, w_cols);
+      segment_reduce_bwd_kernel<T, P, kMax, COMPOSED>
+          <<<blocks, threads, 0, stream>>>(gv, gsv, mv, xv, dv, ov, cv, pv,
+                                           dpv, wv, outv, rows, c, wc,
+                                           w_cols);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return 0;
+}
+
+template <typename T, int P>
+int launch_bwd(const void* g, const void* gs, const void* mref,
+               const void* x, const void* dst, const void* order,
+               const void* gathered, const void* ptr, const void* dst_ptr,
+               const void* w, void* out, long long rows, int c, int wc,
+               int w_cols, int op, cudaStream_t stream) {
+  return gathered != nullptr
+             ? launch_bwd_mode<T, P, true>(g, gs, mref, x, dst, order,
+                                           gathered, ptr, dst_ptr, w, out,
+                                           rows, c, wc, w_cols, op, stream)
+             : launch_bwd_mode<T, P, false>(g, gs, mref, x, dst, order,
+                                            gathered, ptr, dst_ptr, w, out,
+                                            rows, c, wc, w_cols, op, stream);
 }
 
 template <typename T, int P>
@@ -195,33 +280,38 @@ int launch_ties(const void* g, const void* x, const void* gather,
 // mref fp32 [S, C] (max only, from gigl_segment_max_ties), x [R, C] (max
 // only: the forward's rows, R = the output rows), dst [E] int32, order and
 // ptr (the source-sorted SegmentIndex: ptr [R + 1]; both NULL when output
-// row r is edge r, R = E), dst_ptr [S + 1] (mean only: the destination
-// index's pointers), w fp32 [E, w_cols] or NULL, out [R, C]. op: 0 = sum,
-// 1 = mean, 2 = max; vec: 1 when C * sizeof(T) and wc * sizeof(T) are
-// multiples of 16 and g, x and out are 16-byte aligned.
+// row r is edge r, R = E), gathered [E] int32 (the source index's
+// dst[order]: the composed mode, dst unread) or NULL, dst_ptr [S + 1] (mean
+// only: the destination index's pointers), w fp32 [E, w_cols] or NULL, out
+// [R, C]. op: 0 = sum, 1 = mean, 2 = max; vec: 1 when C * sizeof(T) and wc
+// * sizeof(T) are multiples of 16 and g, x and out are 16-byte aligned.
 extern "C" int gigl_segment_reduce_bwd(const void* g, const void* gs,
                                        const void* mref, const void* x,
                                        const void* dst, const void* order,
-                                       const void* ptr, const void* dst_ptr,
-                                       const void* w, void* out,
-                                       long long rows, int c, int wc,
-                                       int w_cols, int dtype, int op, int vec,
-                                       void* stream) {
+                                       const void* gathered, const void* ptr,
+                                       const void* dst_ptr, const void* w,
+                                       void* out, long long rows, int c,
+                                       int wc, int w_cols, int dtype, int op,
+                                       int vec, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wc <= 0 || c % wc != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (gathered != nullptr && order == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   int rc;
   if (dtype == 0) {
-    rc = vec ? launch_bwd<float, 4>(g, gs, mref, x, dst, order, ptr, dst_ptr,
-                                    w, out, rows, c, wc, w_cols, op, st)
-             : launch_bwd<float, 1>(g, gs, mref, x, dst, order, ptr, dst_ptr,
-                                    w, out, rows, c, wc, w_cols, op, st);
+    rc = vec ? launch_bwd<float, 4>(g, gs, mref, x, dst, order, gathered,
+                                    ptr, dst_ptr, w, out, rows, c, wc,
+                                    w_cols, op, st)
+             : launch_bwd<float, 1>(g, gs, mref, x, dst, order, gathered,
+                                    ptr, dst_ptr, w, out, rows, c, wc,
+                                    w_cols, op, st);
   } else if (dtype == 1) {
-    rc = vec ? launch_bwd<__nv_bfloat16, 8>(g, gs, mref, x, dst, order, ptr,
-                                            dst_ptr, w, out, rows, c, wc,
-                                            w_cols, op, st)
-             : launch_bwd<__nv_bfloat16, 1>(g, gs, mref, x, dst, order, ptr,
-                                            dst_ptr, w, out, rows, c, wc,
-                                            w_cols, op, st);
+    rc = vec ? launch_bwd<__nv_bfloat16, 8>(g, gs, mref, x, dst, order,
+                                            gathered, ptr, dst_ptr, w, out,
+                                            rows, c, wc, w_cols, op, st)
+             : launch_bwd<__nv_bfloat16, 1>(g, gs, mref, x, dst, order,
+                                            gathered, ptr, dst_ptr, w, out,
+                                            rows, c, wc, w_cols, op, st);
   } else {
     rc = static_cast<int>(cudaErrorInvalidValue);
   }

@@ -141,11 +141,12 @@ def _no_edge_attr(edge_attr):
 
 def _indexes(src, dst, num_nodes, index, src_index):
     """The destination and source SegmentIndexes of a COO graph, built on
-    the host where not given (a training path passes both, built once)."""
+    the host where not given (a training path passes both, built once),
+    each composing the other side's ids."""
     if index is None:
         index = SegmentIndex.from_ids(dst, num_nodes, gather=src)
     if src_index is None:
-        src_index = SegmentIndex.from_ids(src, num_nodes)
+        src_index = SegmentIndex.from_ids(src, num_nodes, gather=dst)
     return index, src_index
 
 

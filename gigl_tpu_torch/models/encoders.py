@@ -312,7 +312,7 @@ class GNNEncoder(nn.Module):
         if index is None:
             index = SegmentIndex.from_ids(dst, num_nodes, gather=src)
         if src_index is None:
-            src_index = SegmentIndex.from_ids(src, num_nodes)
+            src_index = SegmentIndex.from_ids(src, num_nodes, gather=dst)
         x = x.to(self.dtype)
         for i, conv in enumerate(self.convs):
             is_last = i == self.num_layers - 1

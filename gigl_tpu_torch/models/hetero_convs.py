@@ -46,7 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gigl_tpu_torch.device import DeviceLike, resolve_device
+from gigl_tpu_torch.device import DeviceLike
 from gigl_tpu_torch.models.convs import linear
 from gigl_tpu_torch.ops.attention import fanout_attention_block
 from gigl_tpu_torch.ops.fanout import masked_mean
@@ -132,19 +132,21 @@ class TypedSegments:
             src, dst = (host(a) for a in edges[et])
             return (SegmentIndex.from_ids(dst, num_nodes[d_nt], device,
                                           gather=edges[et][0]),
-                    SegmentIndex.from_ids(src, num_nodes[s_nt], device)
+                    SegmentIndex.from_ids(src, num_nodes[s_nt], device,
+                                          gather=edges[et][1])
                     if backward else None)
 
-        # each destination index is built with its edges' source ids (the
-        # callers' own tensors, or src_stack), so that K8 reads them
+        # each destination index is built with its edges' source ids and
+        # each source index with their destination ids (the callers' own
+        # tensors, or src_stack and dst_ids), so that K8 and K8b read them
         # composed in walk order
         if by == "relation":
             index = {et: SegmentIndex.from_ids(
                 host(edges[et][1]), num_nodes[_src_dst(et)[1]], device,
                 gather=edges[et][0]) for et in edges}
             src_index = ({et: SegmentIndex.from_ids(
-                host(edges[et][0]), num_nodes[_src_dst(et)[0]], device)
-                for et in edges} if backward else {})
+                host(edges[et][0]), num_nodes[_src_dst(et)[0]], device,
+                gather=edges[et][1]) for et in edges} if backward else {})
             return cls(by, by_dst, {}, {}, index, src_index, {})
         dst_ids, src_stack, index, src_index = {}, {}, {}, {}
         for nt, ets in by_dst.items():
@@ -155,14 +157,15 @@ class TypedSegments:
                 dsts.append(dst)
                 offset += num_nodes[_src_dst(et)[0]]
             d, s_ = np.concatenate(dsts), np.concatenate(srcs)
-            src_stack[nt] = torch.from_numpy(s_.astype(np.int32)).to(
-                resolve_device(device))
             index[nt] = SegmentIndex.from_ids(d, num_nodes[nt], device,
-                                              gather=src_stack[nt])
-            if backward:
-                src_index[nt] = SegmentIndex.from_ids(s_, offset, device)
+                                              gather=s_.astype(np.int32))
+            src_stack[nt] = index[nt].gather
             dst_ids[nt] = torch.from_numpy(d.astype(np.int32)).to(
                 index[nt].device)
+            if backward:   # stacked as src_stack is
+                src_index[nt] = SegmentIndex.from_ids(s_, offset, device,
+                                                      gather=dst_ids[nt])
+                dst_ids[nt] = src_index[nt].gather
         return cls(by, by_dst, dst_ids, src_stack, index, src_index,
                    {et: pair(et) for et in edges})
 

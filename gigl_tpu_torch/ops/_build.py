@@ -49,9 +49,12 @@ KERNEL_NAMES = ("sample_uniform", "uniform_ids", "build_neighbor_cache",
                 "route_requests", "unroute_rows", "ring_retrieval",
                 "ring_spmm", "sample_weighted")
 # Beside them, the launches of a kernel's mode that the paths' checks
-# count: K8's launches with a gather, by ops/segment.py's gather_mode
-# (composed: the index's gathered rows; chained: its order, then src).
-MODE_NAMES = ("segment_reduce_composed", "segment_reduce_chained")
+# count, by ops/segment.py's gather_mode: K8's launches with a gather
+# (composed: the destination index's gathered rows; chained: its order,
+# then src) and K8b's over a source walk (composed: the source index's
+# gathered destinations; chained: its order, then the segment ids).
+MODE_NAMES = ("segment_reduce_composed", "segment_reduce_chained",
+              "segment_reduce_bwd_composed", "segment_reduce_bwd_chained")
 launches: Dict[str, int] = dict.fromkeys(KERNEL_NAMES + MODE_NAMES, 0)
 
 _P = ctypes.c_void_p
@@ -88,9 +91,9 @@ _SIGNATURES = {
     "gigl_fanout_attention_bwd": [_P] * 20 + [_I64] + [_I32] * 5
     + [_F32, _F32, _I32, _P],
     "gigl_segment_reduce": [_P] * 7 + [_I64] + [_I32] * 6 + [_P],
-    "gigl_segment_softmax": [_P] * 4 + [_I64, _I32, _I32, _P],
+    "gigl_segment_softmax": [_P] * 4 + [_I64] + [_I32] * 4 + [_P],
     "gigl_sddmm": [_P] * 8 + [_I64, _I64] + [_I32] * 3 + [_P],
-    "gigl_segment_reduce_bwd": [_P] * 10 + [_I64] + [_I32] * 6 + [_P],
+    "gigl_segment_reduce_bwd": [_P] * 11 + [_I64] + [_I32] * 6 + [_P],
     "gigl_segment_max_ties": [_P] * 8 + [_I64] + [_I32] * 5 + [_P],
     "gigl_segment_softmax_bwd": [_P] * 5 + [_I64, _I32, _I32, _P],
     "gigl_sddmm_bwd_coef": [_P] * 5 + [_I64] + [_I32] * 3 + [_P],

@@ -12,14 +12,16 @@ their backward (jax's autodiff of the same functions):
   ``segment_mean``, ``segment_max`` and ``coo_spmm`` — the gather and the
   reduce in one pass, optionally weighted per edge ``[E]`` or per edge and
   head ``[E, H]``;
-- K9 ``segment_softmax`` (``csrc/segment_softmax.cu``);
+- K9 ``segment_softmax`` (``csrc/segment_softmax.cu``): each edge's [H]
+  logits row read once, held in registers for all heads;
 - K10 ``sddmm`` (``csrc/sddmm.cu``), with an optional per-head scale,
   walking the destination index for rows of 512 bytes and more (q read
   once a segment), in edge order below;
 - K8b ``segment_reduce_bwd`` (``csrc/segment_reduce_bwd.cu``): the rows'
   cotangent, each source row the sum of its edges' cotangent rows (the
   mean's count and the max's tie share applied), walking the
-  source-sorted index; the weights' cotangent is K10's forward on the
+  source-sorted index, reading each slot's destination composed there
+  (as K8 reads its rows); the weights' cotangent is K10's forward on the
   cotangent and the rows;
 - K9b ``segment_softmax_bwd`` (``csrc/segment_softmax_bwd.cu``):
   ``alpha * (g - sum_seg(alpha * g))``;
@@ -38,9 +40,12 @@ passes both, built once). A destination index built with the edges' source
 ids (``SegmentIndex.from_ids(dst, n, gather=src)``) also holds ``gathered =
 src[order]``, each slot's row composed in walk order: K8 reads it when it
 is given that very ``src`` tensor, unchanged since the build (its composed
-mode), and reads ``order`` then ``src`` for any other (its chained mode);
-every path builds its destination indexes with their gather, and a call on
-CUDA without an index builds one with its ``src``. The kernels use no
+mode), and reads ``order`` then ``src`` for any other (its chained mode).
+A source index built with the destination ids
+(``SegmentIndex.from_ids(src, n, gather=dst)``) holds ``dst[order]`` the
+same way, which K8b reads when its ``segment_ids`` are that ``dst``. Every
+path builds both indexes with their gathers, and a call on CUDA without an
+index builds one with its own ids. The kernels use no
 atomics and write each output row once, so they give the same bits on
 every run.
 
@@ -85,19 +90,20 @@ class SegmentIndex:
     that order. int32 tensors on one device. An index built with the
     edges' ``gather`` ids (the source rows they read) also holds that
     tensor and ``gathered = gather[order]``, each slot's row composed in
-    walk order: K8 reads it when it is called with this very ``gather``
-    tensor as ``src``. That tensor must not be changed in place while the
-    index is in use: ``gather_version`` records its version counter at the
-    build, and a src changed since then takes K8's chained mode (an
-    inference tensor has no version counter: nothing is recorded for
-    it)."""
+    walk order: K8 (K8b) reads it when it is called with this very
+    ``gather`` tensor as ``src`` (``segment_ids``). ``gather_version``
+    records that tensor's version counter at the build, so that one changed
+    in place since then takes the chained mode. An inference tensor keeps
+    no version counter: the index keeps its own copy of such a gather,
+    made outside inference mode, which callers pass on as
+    ``index.gather``."""
 
     order: torch.Tensor  # [E] int32
     ptr: torch.Tensor    # [S + 1] int32
     num_segments: int
-    gather: Optional[torch.Tensor] = None    # [E], the src it was built for
+    gather: Optional[torch.Tensor] = None    # [E], the ids it was built for
     gathered: Optional[torch.Tensor] = None  # [E] int32, gather[order]
-    gather_version: Optional[int] = None      # _version(gather) at the build
+    gather_version: Optional[int] = None      # gather._version at the build
 
     @property
     def num_edges(self) -> int:
@@ -114,9 +120,11 @@ class SegmentIndex:
         with a stable argsort and a bincount cumsum; the tables go to
         ``device`` (a tensor's own device when not given, else CUDA unless
         asked). Ids must lie in [0, num_segments). ``gather`` [E] (numpy
-        or a tensor): the row each edge reads; the index keeps it on the
-        device (the tensor itself when it is there already, so that callers
-        pass that object as ``src``) and composes ``gathered``."""
+        or a tensor): the row each edge reads (or, for a source index, the
+        destination it adds to); the index keeps it on the device (the
+        tensor itself when it is there already and not an inference
+        tensor, so that callers pass that object on; else a copy) and
+        composes ``gathered``."""
         if isinstance(segment_ids, torch.Tensor):
             if device is None:
                 device = segment_ids.device
@@ -146,19 +154,16 @@ class SegmentIndex:
                 raise ValueError(f"gather {rows.shape} for {ids.shape} "
                                  "segment ids")
             gathered = put(rows[order].astype(np.int32))
-            kept = (gather if isinstance(gather, torch.Tensor)
+            kept = gather
+            if not (isinstance(gather, torch.Tensor)
                     and gather.device == gathered.device
-                    else put(np.ascontiguousarray(rows)))
+                    and not gather.is_inference()):
+                with torch.inference_mode(False):  # a version counter
+                    kept = put(np.ascontiguousarray(rows))
         return cls(order=put(order), ptr=put(ptr),
                    num_segments=int(num_segments), gather=kept,
                    gathered=gathered,
-                   gather_version=None if kept is None else _version(kept))
-
-
-def _version(t: torch.Tensor) -> Optional[int]:
-    """``t``'s version counter (moved by every in-place change), None for
-    an inference tensor, which keeps none."""
-    return None if t.is_inference() else t._version
+                   gather_version=None if kept is None else kept._version)
 
 
 def _cols(t: torch.Tensor) -> int:
@@ -210,17 +215,19 @@ def _per_column(t, w):
             * w[..., None]).reshape(e, c)
 
 
-def gather_mode(src, index) -> Optional[str]:
-    """K8's mode for a gather ``src`` over ``index``: ``composed`` (each
-    slot's row read from ``index.gathered``) when src is the very tensor
-    the index was built from and has not been changed in place since —
-    an identity test and the version counter, so nothing is compared on
-    the device — ``chained`` (order, then src) for any other src, None
-    without a gather."""
-    if src is None:
+def gather_mode(ids, index) -> Optional[str]:
+    """The mode of K8 for a gather ``src`` over its destination index, and
+    of K8b for its ``segment_ids`` over its source index: ``composed``
+    (each slot's id read from ``index.gathered``) when ``ids`` is the very
+    tensor the index was built from and has not been changed in place
+    since — an identity test and the version counter, so nothing is
+    compared on the device; the index's own tensor is never an inference
+    tensor, so every change shows — ``chained`` (order, then ids) for any
+    other ids, None without them."""
+    if ids is None:
         return None
-    return ("composed" if src is index.gather
-            and _version(src) == index.gather_version else "chained")
+    return ("composed" if ids is index.gather
+            and ids._version == index.gather_version else "chained")
 
 
 def _segment_reduce_plain(x, segment_ids, num_segments, op="sum", src=None,
@@ -343,8 +350,11 @@ def segment_reduce_bwd(g: torch.Tensor, segment_ids: torch.Tensor,
     ``dx[r] = sum_{e: row(e) = r} w_e * c_e * g[segment_ids[e]]`` (c: 1, the
     mean's 1 / count, or max's tie share, which needs ``x``). With ``src``
     the kernel walks ``src_index`` (the SegmentIndex of ``src`` over
-    ``num_rows``); without, row r is edge r's. ``index`` is the forward's
-    (mean: its pointers; max: the tie pass walks it)."""
+    ``num_rows``; built here when not given), reading each slot's
+    destination from ``src_index.gathered`` when ``segment_ids`` is the
+    tensor it was built from (:func:`gather_mode`), else through its order;
+    without, row r is edge r's. ``index`` is the forward's (mean: its
+    pointers; max: the tie pass walks it)."""
     if op not in _OPS:
         raise ValueError(f"Unknown reduce {op!r}")
     if op == "max" and x is None:
@@ -360,15 +370,22 @@ def segment_reduce_bwd(g: torch.Tensor, segment_ids: torch.Tensor,
     gf = g.contiguous().reshape(s, c)
     if op != "sum":
         index = _index(segment_ids, s, index, e)
-    walk = None
+    walk = gathered = mode = None
     if src is not None:
-        src_index = _index(src, num_rows, src_index, e)
+        if src_index is None:   # built with the ids: they run composed
+            src_index = _index(src, num_rows, None, e, segment_ids)
+            segment_ids = src_index.gather
+        else:
+            src_index = _index(src, num_rows, src_index, e)
         walk = (src_index.order, src_index.ptr)
+        mode = gather_mode(segment_ids, src_index)
+        if mode == "composed":
+            gathered = src_index.gathered
     dst32 = segment_ids.to(torch.int32).contiguous()
     w = (None if weight is None
          else weight.float().reshape(e, _cols(weight)).contiguous())
     xf = None if op != "max" else x.contiguous().reshape(x.shape[0], c)
-    tables = [t for t in (w, xf) if t is not None]
+    tables = [t for t in (w, xf, gathered) if t is not None]
     tables += [] if walk is None else list(walk)
     tables += [] if op == "sum" else [index.order, index.ptr]
     device = _build.require_cuda("segment_reduce_bwd", gf, dst32, *tables)
@@ -404,10 +421,13 @@ def segment_reduce_bwd(g: torch.Tensor, segment_ids: torch.Tensor,
                       gf.data_ptr(), _build.ptr(gs), _build.ptr(mref),
                       _build.ptr(xf), dst32.data_ptr(),
                       _build.ptr(None if walk is None else walk[0]),
+                      _build.ptr(gathered),
                       _build.ptr(None if walk is None else walk[1]),
                       _build.ptr(index.ptr if op == "mean" else None),
                       _build.ptr(w), out.data_ptr(), num_rows, c, wc, w_cols,
                       dtype, _OPS[op], vec)
+        if mode is not None:
+            _build.launches[f"segment_reduce_bwd_{mode}"] += 1
     return out
 
 
@@ -484,8 +504,12 @@ def segment_reduce(x: torch.Tensor, segment_ids: torch.Tensor,
     if weight is not None and (weight.dim() not in (1, 2)
                                or weight.shape[0] != e):
         raise ValueError("segment_reduce: weight must be [E] or [E, W]")
-    if index is not None or x.device.type != "cpu":
-        index = _index(segment_ids, num_segments, index, e, src)
+    if index is None and x.device.type != "cpu":
+        index = _index(segment_ids, num_segments, None, e, src)
+        if src is not None:   # the index's own src runs composed
+            src = index.gather
+    elif index is not None:
+        index = _index(segment_ids, num_segments, index, e)
     if not _grad_on(x, weight):
         return _segment_reduce_fwd(x, segment_ids, num_segments, op, src,
                                    weight, index)
@@ -587,6 +611,16 @@ def _segment_softmax_plain(logits, segment_ids, num_segments):
     return out.reshape(logits.shape).to(logits.dtype)
 
 
+def _softmax_streams(logits: torch.Tensor) -> bool:
+    """K9's evict-first reads: for rows narrower than a 32-byte sector (each
+    written a part of a sector at a time) when the logits and alpha pass
+    three quarters of the device's L2 (PERF.md §6: at 64 and 44.8 MB
+    1.8-1.9x faster; at 32 MB 12% slower, the L2 holding them)."""
+    row = _cols(logits) * logits.element_size()
+    l2 = torch.cuda.get_device_properties(logits.device).L2_cache_size
+    return row < 32 and 2 * logits.shape[0] * row > 0.75 * l2
+
+
 def _segment_softmax_fwd(logits, segment_ids, num_segments, index=None):
     """K9 launch (plain twin for CPU tensors)."""
     if logits.device.type == "cpu":
@@ -599,11 +633,14 @@ def _segment_softmax_fwd(logits, segment_ids, num_segments, index=None):
     if lg.dtype not in _DTYPES:
         raise ValueError(f"segment_softmax: dtype {lg.dtype} not supported")
     out = torch.empty_like(lg)
+    heads = _cols(lg)
+    vec = int(lg.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     if num_segments and e:
         _build.launch("segment_softmax", "gigl_segment_softmax", device,
                       lg.data_ptr(), index.order.data_ptr(),
                       index.ptr.data_ptr(), out.data_ptr(), num_segments,
-                      _cols(lg), _DTYPES[lg.dtype])
+                      heads, _DTYPES[lg.dtype], vec,
+                      int(_softmax_streams(lg)))
     return out
 
 

@@ -112,15 +112,17 @@ def full_batch_data_from_graph(
     def i32(a):
         return torch.as_tensor(np.asarray(a).astype(np.int32)).to(device)
 
-    src = i32(coo[0])
+    src, dst = i32(coo[0]), i32(coo[1])
     coo_tables = {}
-    if not build_ell:   # the destination index composes src in walk order
+    if not build_ell:   # each index composes the other side in walk order
         coo_tables = {"index": SegmentIndex.from_ids(coo[1], n, device,
                                                      gather=src),
-                      "src_index": SegmentIndex.from_ids(coo[0], n, device)}
+                      "src_index": SegmentIndex.from_ids(coo[0], n, device,
+                                                         gather=dst)}
+        src, dst = (coo_tables[k].gather for k in ("index", "src_index"))
     return FullBatchData(
         x=torch.as_tensor(np.asarray(feats, np.float32)).to(device),
-        src=src, dst=i32(coo[1]), labels=i32(labels),
+        src=src, dst=dst, labels=i32(labels),
         train_mask=masks[0], val_mask=masks[1], test_mask=masks[2],
         ell=(EllGraph.from_csr(graph.csr(et, anchor="dst"), device=device)
              if build_ell else None), **coo_tables)

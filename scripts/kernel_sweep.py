@@ -35,6 +35,27 @@ the C signature of its earlier version:
   of the other modes). ``first``: a K8
   without composed rows and a K6b that reads the mask, the entry and
   ``ent_row``; every output is held bit for bit against its output.
+- ``k8b``: K8b segment_reduce_bwd over the flagship graph's source walk at
+  [N, 256] fp32 cotangents, mean, sum and weighted per head by an [E, 4]
+  alpha, and the COO Transformer's layer 2 ([N, 4 x 4], weighted), over
+  the graph and over 2,000 destinations of 1,000 edges each
+  (``_hub1000``), in its composed mode (the segment ids the source index
+  was built from) and its chained mode (a copy); the mean also as
+  ``sparse.mm`` of the source-sorted CSR (``library``) and as each
+  cotangent row divided by its count beforehand, then the sum walk
+  (``prescaled``, the division's time included). Knob ``slots``
+  (kSlotsInFlight, the composed mode's slots in flight). ``first``: the
+  K8b that reads order, then dst, then the row;
+  every output is held bit for bit against its output.
+- ``softmax``: K9 segment_softmax over the flagship graph's destination
+  index at [2M, 4] fp32 and bf16 and at 1 and 16 heads, the typed
+  relation's shape (1.4M edges into 100k destinations, 4 heads) and
+  ``_hub1000``, through the wrapper (``kept``) and with its evict-first
+  reads forced on and off (``stream``, ``cache``). Knobs ``group_lanes``
+  (kGroupLanes, the lanes a segment for up to 4 heads: 8, 16 or 32) and
+  ``slots_per_lane`` (kSlotsPerLane). ``first``: the K9 that walks a
+  segment three times a head; every output is held bit for bit against
+  its output.
 
 The flagship graph is chip_smoke.py's: N=100k nodes, E=2M uniform random
 edges in their random order, numpy seed 0. Variants: ``kept`` (the port's
@@ -201,11 +222,13 @@ def cuda_ms(fn, reps=20) -> float:
     return start.elapsed_time(end) / (5 * reps)
 
 
-# -- the cases: {label: ({mode: fn}, plain twin or None)} ----------------------
+# -- the cases: {label: ({mode: fn}, plain twin or None[, tolerance])} ---------
 # Each case builder takes the device, the port's _build module and
 # ``first(entry, *args)``, which launches the earlier version's C entry on
 # the current stream (None without --first); a mode named ``first`` runs
 # only in the turns of the variant ``first``, the others in every other's.
+# The tolerance against the twin is 1e-5 of its scale unless the case gives
+# another.
 def flagship():
     rng = np.random.default_rng(0)
     return rng, rng.integers(0, N, E), rng.integers(0, N, E)
@@ -429,6 +452,123 @@ def gather_cases(dev, _build, first):
     return cases
 
 
+def k8b_cases(dev, _build, first):
+    from gigl_tpu_torch.ops.segment import (
+        SegmentIndex, _segment_reduce_bwd_plain, segment_reduce_bwd)
+
+    rng, src_np, dst_np = flagship()
+    hub_np = rng.permutation(np.repeat(np.arange(2000), E // 2000))
+    gen = torch.Generator(device=dev).manual_seed(16)
+    alpha = torch.rand((E, HEADS), generator=gen, device=dev)
+    src = torch.as_tensor(src_np.astype(np.int32), device=dev)
+    cases = {}
+
+    def graph_cases(name, d_np):
+        dst = torch.as_tensor(d_np.astype(np.int32), device=dev)
+        index = SegmentIndex.from_ids(dst, N, gather=src)
+        sidx = SegmentIndex.from_ids(src, N, gather=dst)
+        dst_copy = dst.clone()
+        cnt = index.ptr[1:] - index.ptr[:-1]
+        cnt_t = cnt.float().clamp(min=1.0)
+        col = sidx.gathered.long()
+        csr = torch.sparse_csr_tensor(
+            sidx.ptr.long(), col, 1.0 / cnt.float().clamp(min=1.0)[col],
+            (N, N))
+
+        def case(label, c, op, w):
+            g = torch.randn((N, c), generator=gen, device=dev)
+            w_cols = 1 if w is None else w.shape[1]
+
+            def kernel(ids):
+                return segment_reduce_bwd(g, ids, N, op=op, src=src,
+                                          weight=w, index=index,
+                                          src_index=sidx)
+
+            def run_first():
+                out = torch.empty((N, c), device=dev)
+                first("gigl_segment_reduce_bwd", g.data_ptr(), None, None,
+                      None, dst.data_ptr(), sidx.order.data_ptr(),
+                      sidx.ptr.data_ptr(),
+                      index.ptr.data_ptr() if op == "mean" else None,
+                      _build.ptr(w), out.data_ptr(), N, c, c // w_cols,
+                      w_cols, 0, {"sum": 0, "mean": 1}[op], 1)
+                return out
+
+            fns = {"composed": lambda: kernel(dst),
+                   "chained": lambda: kernel(dst_copy)}
+            if op == "mean":
+                fns["library"] = lambda: torch.sparse.mm(csr, g)
+                # each cotangent row divided by its count once, before the
+                # walk (a PyTorch division), then the sum walk: the mean's
+                # bits without a division a slot
+                fns["prescaled"] = lambda: segment_reduce_bwd(
+                    g / cnt_t[:, None], dst, N, op="sum", src=src,
+                    index=index, src_index=sidx)
+            if first is not None:
+                fns["first"] = run_first
+            cases[f"k8b_{label}{name}"] = (
+                fns, lambda: _segment_reduce_bwd_plain(g, dst, N, op, src, w))
+
+        case("mean", 256, "mean", None)
+        if not name:
+            case("sum", 256, "sum", None)
+        case("weighted", 256, "sum", alpha)
+        case("layer2_weighted", 16, "sum", alpha)
+
+    graph_cases("", dst_np)
+    graph_cases("_hub1000", hub_np)
+    return cases
+
+
+def softmax_cases(dev, _build, first):
+    from gigl_tpu_torch.ops import segment as seg
+
+    rng, _, dst_np = flagship()
+    hub_np = rng.permutation(np.repeat(np.arange(2000), E // 2000))
+    typed_np = rng.integers(0, N, TYPED_E)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    cases = {}
+    for label, d_np, heads, dtype in (
+            ("fp32_h4", dst_np, 4, torch.float32),
+            ("bf16_h4", dst_np, 4, torch.bfloat16),
+            ("fp32_h1", dst_np, 1, torch.float32),
+            ("fp32_h16", dst_np, 16, torch.float32),
+            ("typed_fp32_h4", typed_np, 4, torch.float32),
+            ("hub1000_fp32_h4", hub_np, 4, torch.float32)):
+        dst = torch.as_tensor(d_np.astype(np.int32), device=dev)
+        index = seg.SegmentIndex.from_ids(dst, N)
+        e = dst.shape[0]
+        lg = (torch.randn((e, heads), generator=gen, device=dev) * 3).to(
+            dtype)
+        dcode = 0 if dtype == torch.float32 else 1
+
+        def forced(stream, lg=lg, index=index, heads=heads, dcode=dcode):
+            out = torch.empty_like(lg)
+            _build.launch("segment_softmax", "gigl_segment_softmax", dev,
+                          lg.data_ptr(), index.order.data_ptr(),
+                          index.ptr.data_ptr(), out.data_ptr(), N, heads,
+                          dcode, 1, stream)
+            return out
+
+        def run_first(lg=lg, index=index, heads=heads, dcode=dcode):
+            out = torch.empty_like(lg)
+            first("gigl_segment_softmax", lg.data_ptr(),
+                  index.order.data_ptr(), index.ptr.data_ptr(),
+                  out.data_ptr(), N, heads, dcode)
+            return out
+
+        fns = {"kept": lambda lg=lg, dst=dst, index=index:
+               seg.segment_softmax(lg, dst, N, index=index),
+               "stream": lambda forced=forced: forced(1),
+               "cache": lambda forced=forced: forced(0)}
+        if first is not None:
+            fns["first"] = run_first
+        cases[f"k9_{label}"] = (
+            fns, lambda lg=lg, dst=dst: seg._segment_softmax_plain(lg, dst, N),
+            1e-5 if dtype == torch.float32 else 2.0 ** -8)
+    return cases
+
+
 # -- the sweeps ----------------------------------------------------------------
 # knobs: name -> [(file, pattern whose group 1 is the constant's value)];
 # bounds: [(file, pattern, replacement with {b})] for --min-blocks B.
@@ -485,6 +625,36 @@ SWEEPS = {
                   + [_P],
                   "gigl_ell_transpose_aggregate": [_P] * 15 + [_I64]
                   + [_I32] * 7 + [_F32, _P]},
+        "bit_equal_first": True},
+    "k8b": {
+        "sources": ["segment_reduce_bwd.cu"],
+        "entries": ["gigl_segment_reduce_bwd"],
+        "knobs": {"slots": [("segment_reduce_bwd.cu",
+                             r"constexpr int kSlotsInFlight = (\d+);")]},
+        "bounds": [("segment_reduce_bwd.cu",
+                    r"__global__ void segment_reduce_bwd_kernel\(",
+                    "__global__ void __launch_bounds__(256, {b}) "
+                    "segment_reduce_bwd_kernel(")],
+        "cases": k8b_cases,
+        # g, gs, mref, x, dst, order, ptr, dst_ptr, w, out, rows, C, wc,
+        # w_cols, dtype, op, vec, stream
+        "first": {"gigl_segment_reduce_bwd": [_P] * 10 + [_I64] + [_I32] * 6
+                  + [_P]},
+        "bit_equal_first": True},
+    "softmax": {
+        "sources": ["segment_softmax.cu"],
+        "entries": ["gigl_segment_softmax"],
+        "knobs": {name: [("segment_softmax.cu",
+                          rf"constexpr int {const} = (\d+);")]
+                  for name, const in (("group_lanes", "kGroupLanes"),
+                                      ("slots_per_lane", "kSlotsPerLane"))},
+        "bounds": [("segment_softmax.cu",
+                    r"__global__ void segment_softmax_kernel\(",
+                    "__global__ void __launch_bounds__(256, {b}) "
+                    "segment_softmax_kernel(")],
+        "cases": softmax_cases,
+        # logits, order, ptr, out, S, heads, dtype, stream
+        "first": {"gigl_segment_softmax": [_P] * 4 + [_I64, _I32, _I32, _P]},
         "bit_equal_first": True},
 }
 
@@ -576,7 +746,8 @@ def main():
 
     cases = sweep["cases"](dev, _build, first if first_lib else None)
     errs = {}
-    for label, (fns, plain) in cases.items():
+    for label, (fns, plain, *tol) in cases.items():
+        tol = tol[0] if tol else 1e-5
         want = None if plain is None else plain()
         ref = fns["first"]() if "first" in fns else None
         for variant, lib in libs.items():
@@ -589,15 +760,16 @@ def main():
                     err = float((got.float() - want.float()).abs().max()
                                 / want.float().abs().max())
                     errs[label] = max(errs.get(label, 0.0), err)
-                    if not err <= 1e-5:
+                    if not err <= tol:
                         raise RuntimeError(f"{variant} {mode} {label}: "
                                            f"{err} from the twin")
-                if (ref is not None and mode != "first"
+                if (ref is not None and mode not in ("first", "library")
                         and sweep["bit_equal_first"]
                         and not torch.equal(got, ref)):
                     raise RuntimeError(f"{variant} {mode} {label}: not "
                                        "bit-equal to first")
-                if want is not None and not torch.equal(got, fn()):
+                if (want is not None and mode != "library"
+                        and not torch.equal(got, fn())):
                     raise RuntimeError(f"{variant} {mode} {label}: a "
                                        "repeat run differs")
         del want, ref
@@ -607,7 +779,7 @@ def main():
         for turn, variant in enumerate(turns):
             if variant != "first":
                 _build._lib = libs[variant]
-            for label, (fns, _) in cases.items():
+            for label, (fns, *_) in cases.items():
                 for mode, fn in fns.items():
                     if (mode == "first") != (variant == "first"):
                         continue

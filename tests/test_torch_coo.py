@@ -134,14 +134,18 @@ def test_graphsage_layer_coo_over_the_composed_index_matches_jax(
     """One GraphSAGE layer end to end over full_batch_data_from_graph's
     indexes: the destination index holds the data's own src tensor and
     src[order] (K8's composed mode: every gathering K8 call is given that
-    very tensor); the logits, the loss, every parameter's and the input's
-    gradient against the reference's."""
+    very tensor), and the source index the data's own dst tensor and
+    dst[order] (K8b's); the logits, the loss, every parameter's and the
+    input's gradient against the reference's."""
     jt, js, pt, _ = _pair("graphsage", num_layers=1)
     d = pt.data
     assert d.index.gather is d.src
     np.testing.assert_array_equal(
         d.index.gathered.numpy(), d.src.numpy()[d.index.order.numpy()])
-    assert d.src_index.gathered is None
+    assert d.src_index.gather is d.dst
+    np.testing.assert_array_equal(
+        d.src_index.gathered.numpy(),
+        d.dst.numpy()[d.src_index.order.numpy()])
     modes = []
     fwd = seg._segment_reduce_fwd
 
@@ -152,6 +156,53 @@ def test_graphsage_layer_coo_over_the_composed_index_matches_jax(
     monkeypatch.setattr(seg, "_segment_reduce_fwd", spy)
     _forward_and_gradients_match(jt, js, pt)
     assert modes and set(modes) == {"composed"}, modes
+
+
+def _k8b_modes(monkeypatch):
+    """Record gather_mode of every K8b call's segment ids over its source
+    index (K8b reads the index's composed destinations for the ids it was
+    built from)."""
+    modes = []
+    bwd = seg.segment_reduce_bwd
+
+    def spy(g, ids, num_rows, **kw):
+        if kw.get("src") is not None:
+            modes.append(seg.gather_mode(ids, kw["src_index"]))
+        return bwd(g, ids, num_rows, **kw)
+
+    monkeypatch.setattr(seg, "segment_reduce_bwd", spy)
+    return modes
+
+
+@pytest.mark.parametrize("conv", ["graphsage", "gcn", "gat", "transformer"])
+def test_coo_step_reads_the_composed_source_index(conv, monkeypatch):
+    """A full-batch COO step over full_batch_data_from_graph's indexes:
+    every K8b launch over the source walk (layer 2's aggregate, the
+    attention convs' dk and the gathered attention terms) is given the
+    data's own dst, the ids its source index was built from (the composed
+    mode); the loss and every gradient still match the reference's."""
+    jt, js, pt, _ = _pair(conv)
+    modes = _k8b_modes(monkeypatch)
+    _forward_and_gradients_match(jt, js, pt)
+    assert modes and set(modes) == {"composed"}, modes
+
+
+def test_encode_coo_without_indexes_builds_composed_ones(monkeypatch):
+    """encode_coo given no indexes builds both on the host, each with the
+    other side's ids: K8 and K8b run their composed modes, and the
+    gradients equal those over full_batch_data_from_graph's indexes."""
+    _, _, pt, _ = _pair("gat")
+    d = pt.data
+    modes = _k8b_modes(monkeypatch)
+    grads = []
+    for kw in ({}, {"index": d.index, "src_index": d.src_index}):
+        x = d.x.clone().requires_grad_()
+        pt.encoder.zero_grad()
+        pt.encoder.encode_coo(x, d.src, d.dst, N, **kw).square().sum(
+        ).backward()
+        grads.append(x.grad)
+    assert modes and set(modes) == {"composed"}, modes
+    assert torch.equal(*grads)
 
 
 @pytest.mark.parametrize("conv", CONVS)

@@ -161,11 +161,15 @@ from gigl_tpu_torch.ops.retrieval import (
 from gigl_tpu_torch.ops.segment import (
     SegmentIndex,
     _sddmm_plain,
+    _segment_reduce_bwd_plain,
     _segment_reduce_plain,
+    _segment_softmax_bwd_plain,
     _segment_softmax_plain,
     sddmm,
     segment_reduce,
+    segment_reduce_bwd,
     segment_softmax,
+    segment_softmax_bwd,
     segment_sum,
 )
 from gigl_tpu_torch.sampling.hetero_sampler import SamplingOp, resolve_path
@@ -2591,6 +2595,189 @@ def test_segment_reduce_src_changed_in_place_takes_the_chained_mode(dev):
     assert _k8_modes() == (composed0, chained0 + 1)
     _within(got, _segment_reduce_plain(x, ids, s, "sum", src),
             torch.float32)
+
+
+def test_segment_reduce_inference_src_changed_in_place_takes_the_chained_mode(
+        dev):
+    """ROADMAP C10 on the card: an index built under inference mode keeps
+    its own copy of the inference src; that src changed in place runs the
+    chained mode and sums the new rows (segment 0: x[1], not the stale
+    x[3]), and so does the index's copy changed in place under inference
+    mode (its version counter moves); the twin's results, bit for bit."""
+    x = torch.arange(16.0, device=dev).reshape(4, 4)
+    with torch.inference_mode():
+        dst = torch.tensor([0, 1, 1, 2], dtype=torch.int32, device=dev)
+        src = torch.tensor([3, 2, 1, 0], dtype=torch.int32, device=dev)
+        index = SegmentIndex.from_ids(dst, 3, gather=src)
+        assert index.gather is not src and not index.gather.is_inference()
+        src[0] = 1
+        for ids in (src, index.gather):
+            if ids is index.gather:
+                ids[0] = 1
+            composed0, chained0 = _k8_modes()
+            got = segment_reduce(x, dst, 3, src=ids, index=index)
+            torch.cuda.synchronize()
+            assert _k8_modes() == (composed0, chained0 + 1)
+            assert torch.equal(got, _segment_reduce_plain(
+                x.cpu(), dst.cpu(), 3, "sum", ids.cpu()).to(dev))
+            assert torch.equal(got[0], x[1])
+
+
+def _k8b_modes():
+    """K8b's launches over a source walk so far: (composed, chained)."""
+    return (_build.launches["segment_reduce_bwd_composed"],
+            _build.launches["segment_reduce_bwd_chained"])
+
+
+def _k8b_graph(dev, seed=25):
+    """20,001 edges from 4,000 sources (a hub of 1,000 edges; sources
+    3,900-3,999 read by none) into 2,000 destinations; the destination
+    index built with the sources and the source index with the
+    destination ids (K8 and K8b composed)."""
+    rng = np.random.default_rng(seed)
+    e = 20_001
+    src = rng.integers(0, 3900, e)
+    src[:1000] = 7
+    src = rng.permutation(src)
+    ids = rng.integers(0, 2000, e)
+    ids, src = (torch.as_tensor(a.astype(np.int32), device=dev)
+                for a in (ids, src))
+    return (ids, src, SegmentIndex.from_ids(ids, 2000, gather=src),
+            SegmentIndex.from_ids(src, 4000, gather=ids))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["sum", "mean", "max"])
+@pytest.mark.parametrize("weights", ["none", "edge", "head"])
+@pytest.mark.parametrize("heads,dk", [(4, 64), (4, 4), (1, 3), (1, 8)])
+def test_segment_reduce_bwd_composed_and_chained_modes_agree(
+        dev, dtype, op, weights, heads, dk):
+    """K8b given the destination ids its source index was built from (the
+    composed mode: each slot's destination read from the index's
+    ``gathered``) and a copy of them (the chained mode: order, then the
+    ids): one launch each, counted by mode, bit-equal to each other and on
+    a repeat launch, within the twin's tolerance; rows of 1 KB to 12 bytes
+    (the vector and the scalar paths), a 1,000-edge source hub, sources
+    without edges (0)."""
+    ids, src, index, src_index = _k8b_graph(dev)
+    e, s, c = index.num_edges, index.num_segments, heads * dk
+    g = torch.Generator(device=dev).manual_seed(26)
+    cot = torch.randn((s, c), generator=g, device=dev).to(dtype)
+    x = None
+    if op == "max":
+        x = (torch.randn((4000, c), generator=g, device=dev) * 2).round(
+        ).to(dtype)                                        # ties
+    w = {"none": None,
+         "edge": torch.rand((e,), generator=g, device=dev),
+         "head": torch.rand((e, heads), generator=g, device=dev)}[weights]
+
+    def k8b(ids_):
+        return segment_reduce_bwd(cot, ids_, 4000, op=op, src=src, weight=w,
+                                  x=x, index=index, src_index=src_index)
+
+    composed0, chained0 = _k8b_modes()
+    got = k8b(ids)
+    torch.cuda.synchronize()
+    assert _k8b_modes() == (composed0 + 1, chained0)
+    chained = k8b(ids.clone())
+    torch.cuda.synchronize()
+    assert _k8b_modes() == (composed0 + 1, chained0 + 1)
+    assert torch.equal(got, chained)
+    assert torch.equal(got, k8b(ids))
+    want = _segment_reduce_bwd_plain(cot, ids, 4000, op, src, w, x)
+    assert got.dtype == dtype and got.shape == (4000, c)
+    _within(got, want, dtype)
+    assert not got[3900:].any()                   # no edges: 0
+
+
+def test_segment_reduce_bwd_ids_changed_in_place_take_the_chained_mode(dev):
+    """K8b's side of ROADMAP C10: the source index's own destination ids,
+    changed in place after the build, and an inference tensor's, changed
+    under inference mode (the index keeps a copy), run the chained mode
+    and add to the new destinations, as the twin does."""
+    ids, src, index, src_index = _k8b_graph(dev)
+    g = torch.Generator(device=dev).manual_seed(27)
+    cot = torch.randn((2000, 64), generator=g, device=dev)
+    ids.copy_(torch.flip(ids, (0,)))
+    composed0, chained0 = _k8b_modes()
+    got = segment_reduce_bwd(cot, ids, 4000, op="mean", src=src,
+                             src_index=src_index)
+    torch.cuda.synchronize()
+    assert _k8b_modes() == (composed0, chained0 + 1)
+    _within(got, _segment_reduce_bwd_plain(cot.cpu(), ids.cpu(), 4000,
+                                           "mean", src.cpu()).to(dev),
+            torch.float32)
+    with torch.inference_mode():
+        dst = torch.tensor([0, 1, 1, 2], dtype=torch.int32, device=dev)
+        s4 = torch.tensor([3, 2, 1, 0], dtype=torch.int32, device=dev)
+        sidx = SegmentIndex.from_ids(s4, 4, gather=dst)
+        assert sidx.gather is not dst and not sidx.gather.is_inference()
+        dst[0] = 1
+        g4 = cot[:3, :4].contiguous()
+        composed0, chained0 = _k8b_modes()
+        got = segment_reduce_bwd(g4, dst, 4, src=s4, src_index=sidx)
+        torch.cuda.synchronize()
+        assert _k8b_modes() == (composed0, chained0 + 1)
+        assert torch.equal(got[3], g4[1])
+
+
+def _softmax_graph(dev, seed=28):
+    """Segments of 0, 1, 16, 17, 32, 33 and 1,000 edges, then 3,000 of
+    Poisson(20) edges and 500 of Poisson(3) (a warp's lane groups hold
+    several segments; some spill past a group's registers), the edges in
+    random order."""
+    rng = np.random.default_rng(seed)
+    sizes = np.concatenate([[0, 1, 16, 17, 32, 33, 1000],
+                            rng.poisson(20, 3000), rng.poisson(3, 500)])
+    ids = rng.permutation(np.repeat(np.arange(len(sizes)), sizes))
+    ids = torch.as_tensor(ids.astype(np.int32), device=dev)
+    return ids, SegmentIndex.from_ids(ids, len(sizes))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [1, 2, 4, 8, 16, 17])
+def test_segment_softmax_forms_agree(dev, dtype, heads):
+    """K9 over lane groups that hold several segments (a warp each above 4
+    heads), whose rows stay in registers or, past a group's capacity, are
+    read again in three passes, and over rows 4 bytes off a 16-byte
+    boundary (the re-reading form, a value at a time): the same bits in
+    every form and on a repeat run, zeros for
+    a segment of -inf logits, and within the twin's tolerance (fp32 5e-5
+    absolute, the 1,000-edge segment summed in another order; bf16 2**-8)
+    outside a segment with a row of NaN logits. There the clamp keeps the
+    NaN sum, so the whole segment is NaN, as the twin's torch.clamp and the
+    reference's jnp.maximum give (ROADMAP C11: the first version's fmaxf
+    dropped it, and only the NaN row was NaN); K9b over that alpha is NaN
+    where its twin is."""
+    ids, index = _softmax_graph(dev)
+    e, s = index.num_edges, index.num_segments
+    g = torch.Generator(device=dev).manual_seed(29)
+    shape = (e,) if heads == 1 else (e, heads)
+    logits = torch.randn(shape, generator=g, device=dev) * 4
+    logits[ids == 8] = float("-inf")
+    logits[int(torch.nonzero(ids == 9)[0])] = float("nan")
+    logits = logits.to(dtype)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    outs = [segment_softmax(t, ids, s, index=index)
+            for t in (logits, _shifted(logits), logits)]
+    for other in outs[1:]:
+        assert torch.equal(outs[0].view(bits), other.view(bits))
+    got = outs[0]
+    want = _segment_softmax_plain(logits, ids, s)
+    poisoned = ids == 9
+    assert torch.isnan(want[poisoned]).all()
+    assert torch.isnan(got[poisoned]).all()
+    assert not torch.isnan(got[~poisoned]).any()
+    assert not got[ids == 8].any()
+    tol = 5e-5 if dtype == torch.float32 else 2.0 ** -8
+    err = (got.float() - want.float())[~poisoned].abs().max()
+    assert float(err) <= tol
+    if heads <= 16:                      # K9b takes at most 16 heads
+        cot = torch.randn(shape, generator=g, device=dev).to(dtype)
+        d_got = segment_softmax_bwd(got, cot, ids, s, index=index)
+        d_want = _segment_softmax_bwd_plain(got, cot, ids, s)
+        assert torch.isnan(d_got[poisoned]).all()
+        assert torch.equal(torch.isnan(d_got), torch.isnan(d_want))
 
 
 def test_coo_spmm_composed_gradients_on_card_match_cpu(dev):

@@ -398,11 +398,43 @@ def test_typed_segments_compose_each_destination_index(by):
                for idx, src in pairs)
 
 
+@pytest.mark.parametrize("by", ["dst", "relation"])
+def test_typed_segments_compose_each_source_index(by):
+    """Each source index of TypedSegments keeps the destination ids its
+    edges add to, composed in walk order, so that K8b reads them (the
+    composed mode): ``dst_ids`` per destination type, stacked as
+    ``src_stack`` is (by="dst", and each relation's own source index with
+    the relation's dst), the caller's own destination tensor per relation
+    (by="relation"). Built without the backward, there are none."""
+    port_g, _ = _graphs()
+    _, edges, nn_ = _full_inputs(port_g)
+    segs = hetero_convs.TypedSegments.build(edges, nn_, by, "cpu")
+    if by == "dst":
+        pairs = [(segs.src_index[nt], segs.dst_ids[nt])
+                 for nt in segs.src_index]
+        pairs += [(segs.rel[et][1], edges[et][1]) for et in EDGE_TYPES]
+    else:
+        pairs = [(segs.src_index[et], edges[et][1]) for et in EDGE_TYPES]
+    assert pairs
+    for idx, dst in pairs:
+        assert idx.gather is dst
+        assert seg_ops.gather_mode(dst, idx) == "composed"
+        np.testing.assert_array_equal(
+            idx.gathered.numpy(), dst.numpy()[idx.order.numpy()])
+    assert all(seg_ops.gather_mode(dst.clone(), idx) == "chained"
+               for idx, dst in pairs)
+    bare = hetero_convs.TypedSegments.build(edges, nn_, by, "cpu",
+                                            backward=False)
+    assert not bare.src_index
+
+
 def test_hgt_layer_coo_reads_composed_indexes_matches_jax(monkeypatch):
     """One exact HGT layer end to end (layer 2 of a warmed-up encoder)
     over TypedSegments built from the edges it reads: every K8 call
     (the messages' sum, and dq's in the logits' backward) is given the
-    gather its index was built from; the output and the inputs' gradient
+    gather its index was built from, and every K8b call (the messages'
+    and dk's cotangents) the destination ids its source index was built
+    from; the output and the inputs' gradient
     against the reference's coo form and its jax.vjp, fp32 within 1e-5 of
     the scale."""
     _, params, port = _encoders("hgt", 0)
@@ -423,6 +455,14 @@ def test_hgt_layer_coo_reads_composed_indexes_matches_jax(monkeypatch):
         return fwd(x, ids, n, op, src, weight, index)
 
     monkeypatch.setattr(seg_ops, "_segment_reduce_fwd", spy)
+    bwd_modes = []
+    bwd = seg_ops.segment_reduce_bwd
+
+    def bwd_spy(g, ids, num_rows, **kw):
+        bwd_modes.append(seg_ops.gather_mode(ids, kw["src_index"]))
+        return bwd(g, ids, num_rows, **kw)
+
+    monkeypatch.setattr(seg_ops, "segment_reduce_bwd", bwd_spy)
     want, vjp = jax.vjp(lambda h_: ref.apply(
         {"params": p_conv}, h_, r_edges, nn_, method="coo"),
         {nt: jnp.asarray(v) for nt, v in h.items()})
@@ -435,6 +475,7 @@ def test_hgt_layer_coo_reads_composed_indexes_matches_jax(monkeypatch):
                             [torch.from_numpy(cot[nt]) for nt in NODE_TYPES])
     gathered = [m for m in modes if m is not None]
     assert gathered and set(gathered) == {"composed"}, modes
+    assert bwd_modes and set(bwd_modes) == {"composed"}, bwd_modes
     for nt in NODE_TYPES:
         _close(got[nt], want[nt])
         _close(ht[nt].grad, dh[nt])

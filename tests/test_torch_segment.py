@@ -541,6 +541,70 @@ def test_gather_changed_in_place_takes_the_chained_mode(change):
     assert seg.gather_mode(None, idx) is None
 
 
+def test_a_source_index_composes_the_destination_ids():
+    """``from_ids(src, n, gather=dst)``, the source index K8b walks:
+    ``gathered`` is ``dst[order_src]`` bit for bit (each slot's
+    destination in walk order), ``gather`` the dst tensor itself, and K8b's
+    mode for those ids composed, for a copy chained."""
+    ids = _ids(seed=10)
+    src = np.random.default_rng(37).integers(0, N_SRC, E).astype(np.int32)
+    dst = _t(ids, torch.int32)
+    sidx = SegmentIndex.from_ids(_t(src, torch.int32), N_SRC, device="cpu",
+                                 gather=dst)
+    order = np.argsort(src, kind="stable")
+    np.testing.assert_array_equal(sidx.order.numpy(), order)
+    assert sidx.gathered.dtype == torch.int32
+    np.testing.assert_array_equal(sidx.gathered.numpy(), ids[order])
+    assert sidx.gather is dst
+    assert seg.gather_mode(dst, sidx) == "composed"
+    assert seg.gather_mode(dst.clone(), sidx) == "chained"
+
+
+@pytest.mark.parametrize("ids_of", ["k8_src", "k8b_segment_ids"])
+def test_an_inference_gather_changed_in_place_takes_the_chained_mode(ids_of):
+    """ROADMAP C10: under ``torch.inference_mode()`` the ids an index is
+    built from are an inference tensor, which keeps no version counter.
+    The index keeps its own copy of them, made outside inference mode: the
+    caller's tensor, changed in place, takes the chained mode (the new ids,
+    as the reference reads them), and the index's copy, changed in place
+    even under inference mode, moves its counter and takes it too. K8's
+    src over its destination index (C10's smallest case: segment 0 then
+    sums x[1], not the stale x[3]) and K8b's segment ids over its source
+    index alike; the results are the twin's on the new ids."""
+    x = _t(np.arange(16, dtype=np.float32).reshape(4, 4))
+    with torch.inference_mode():
+        dst = torch.tensor([0, 1, 1, 2], dtype=torch.int32)
+        src = torch.tensor([3, 2, 1, 0], dtype=torch.int32)
+        if ids_of == "k8_src":
+            ids, idx = src, SegmentIndex.from_ids(dst, 3, gather=src)
+        else:
+            ids, idx = dst, SegmentIndex.from_ids(src, 4, gather=dst)
+        assert ids.is_inference() and idx.gather is not ids
+        assert not idx.gather.is_inference()
+        assert torch.equal(idx.gather, ids)
+        assert seg.gather_mode(idx.gather, idx) == "composed"
+        assert seg.gather_mode(ids, idx) == "chained"
+        stale = idx.gathered.clone()
+        ids[0] = 1
+        assert seg.gather_mode(ids, idx) == "chained"
+        assert not torch.equal(idx.gathered, ids[idx.order.long()])
+        assert torch.equal(idx.gathered, stale)
+        idx.gather[0] = 1
+        assert seg.gather_mode(idx.gather, idx) == "chained"
+        if ids_of == "k8_src":
+            got = seg.coo_spmm(src, dst, x, 3, index=idx)
+            want = x[src.long()].new_zeros((3, 4)).index_add(
+                0, dst.long(), x[src.long()])
+            assert torch.equal(got[0], x[1])
+        else:
+            g = x[:3]
+            got = seg.segment_reduce_bwd(g, dst, 4, src=src, src_index=idx)
+            want = torch.zeros((4, 4)).index_add(0, src.long(),
+                                                 g[dst.long()])
+            assert torch.equal(got[3], g[1])
+        assert torch.equal(got, want)
+
+
 def test_an_index_built_for_a_call_composes_its_src():
     """A K8 call on the card given no index builds one with its src as
     the gather (``_index``), so it runs the composed mode; the index of a
