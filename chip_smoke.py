@@ -63,7 +63,8 @@
    per-head weighted) over the whole source walk at layer 2's [100k, 256]
    fp32 cotangent in its composed mode (the segment ids the source index
    was built from) and its chained mode (a copy: chained_ms), bit-equal,
-   K9b segment_softmax_bwd at [2M, 4] and the sddmm
+   K9b segment_softmax_bwd at [2M, 4] (fp32 and bf16: modes coo_fp32 /
+   coo_bf16 on its row, with gathered_bytes) and the sddmm
    backward (K10b's coefficients and the scale's cotangent, with K8 for dq
    and K8b for dk; 4 heads of 64) against autograd through the plain
    twins, with bounds and yardsticks (K8b: sparse.mm of the source-sorted
@@ -159,8 +160,9 @@
    same anchors and draws) and the ring pool's against K5 over the whole
    batch's [512, 1024] score matrix (1e-5 relative), and one step of each
    pool (the sketch on) against the same step through the plain versions;
-   K15 route_requests and K16 unroute_rows (bit-equal; yardsticks: a
-   stable sort with scatter_add_ counts, index_select + where), K17
+   K15 route_requests (every shard's request vector in one call, and one
+   vector alone: mode single) and K16 unroute_rows (bit-equal; yardsticks:
+   a stable sort with scatter_add_ counts, index_select + where), K17
    ring_retrieval's fold and backward (yardsticks logsumexp, softmax) and
    K1's row-offset mode (against the plain mode on the same rows) at the
    shapes a real ring step gives them; then each pool's path in bf16 with
@@ -215,8 +217,8 @@
    very destination ids its pass gives K8b), one JSON line with every
    kernel's numbers, then the card line, then {"ok": true, ...} as the
    last line. Every profile carries K7 / K7b (attention_ms_per_step), K10
-   / K8 / K8b / K9 (segment_ms_per_step) and K6b
-   (ell_transpose_ms_per_step) device ms. K8's and K8b's rows time their
+   / K8 / K8b / K9 / K9b / K10b (segment_ms_per_step), K6b
+   (ell_transpose_ms_per_step) and K15 (route_ms_per_step) device ms. K8's and K8b's rows time their
    composed mode (ms) beside their chained mode (chained_ms: a copy of src
    or of the segment ids), bit-equal.
 
@@ -524,22 +526,30 @@ def profile_summary(prof, steps, window_us, host_ms_per_step):
     attention = dict.fromkeys(("fanout_attention", "fanout_attention_bwd"),
                               0.0)
     segment = dict.fromkeys(("sddmm", "segment_reduce", "segment_reduce_bwd",
-                             "segment_softmax"), 0.0)
+                             "segment_softmax", "segment_softmax_bwd",
+                             "sddmm_bwd"), 0.0)
     transpose = 0.0   # K6b: its bucket walks and the max mode's tie pass
+    route = 0.0       # K15: its count and write launches
     for n, (t, _) in by_name.items():
         if "ell_transpose_" in n or "tie_count_kernel" in n:
             transpose += t / steps / 1e3
+        if "route_requests_" in n:
+            route += t / steps / 1e3
         if "fanout_attention_bwd" in n or "sum_partials_kernel" in n:
             attention["fanout_attention_bwd"] += t / steps / 1e3
         elif "fanout_attention_" in n:
             attention["fanout_attention"] += t / steps / 1e3
-        elif "sddmm_" in n and "sddmm_bwd" not in n:
+        elif "sddmm_bwd" in n:
+            segment["sddmm_bwd"] += t / steps / 1e3
+        elif "sddmm_" in n:
             segment["sddmm"] += t / steps / 1e3
         elif "segment_reduce_bwd" in n or "segment_max_ties" in n:
             segment["segment_reduce_bwd"] += t / steps / 1e3
         elif "segment_reduce_" in n:
             segment["segment_reduce"] += t / steps / 1e3
-        elif "segment_softmax_" in n and "segment_softmax_bwd" not in n:
+        elif "segment_softmax_bwd" in n:
+            segment["segment_softmax_bwd"] += t / steps / 1e3
+        elif "segment_softmax_" in n:
             segment["segment_softmax"] += t / steps / 1e3
     return {
         "device_events": len(events),
@@ -547,6 +557,7 @@ def profile_summary(prof, steps, window_us, host_ms_per_step):
         "attention_ms_per_step": attention,
         "segment_ms_per_step": segment,
         "ell_transpose_ms_per_step": transpose,
+        "route_ms_per_step": route,
         "device_busy_ms_per_step": busy / steps / 1e3,
         "busy_share_of_profiled_window": busy / window_us,
         "busy_share_of_unprofiled_step": busy / steps / 1e3
@@ -1606,41 +1617,69 @@ def coo_phases(dev, card, graph, record, rel_err, unique,
                   for m_, v in k8b.items()})
     del g8, w8, x8, rows8, csr8, col8
 
-    # K9b at [2M, 4]: alpha from K9, a random cotangent, against autograd
-    # through K9's plain twin. bytes: alpha and g read, dlogits written,
-    # the index; ops: a multiply-add for the sum, a subtract and a multiply.
-    lg9 = torch.randn((E, GAT_HEADS), generator=gen, device=dev) * 3
-    alpha9 = segment_softmax(lg9, dst, N, index=idx)
-    g9 = torch.randn((E, GAT_HEADS), generator=gen, device=dev)
+    # K9b at [2M, 4]: alpha from K9, a random cotangent. fp32 against
+    # autograd through K9's plain twin (2e-5); bf16 (alpha from bf16
+    # logits) against K9b's plain twin (one rounding: 2**-8 of the scale).
+    # bytes: alpha and g read, dlogits written, the index; ops: a
+    # multiply-add for the sum, a subtract and a multiply. gathered_bytes:
+    # the 32-byte sectors a walk in random edge order touches, one a slot
+    # for each of alpha, g and dlogits.
+    k9b = {}
+    for mode, dtype in (("coo_fp32", torch.float32),
+                        ("coo_bf16", torch.bfloat16)):
+        lg9 = (torch.randn((E, GAT_HEADS), generator=gen, device=dev)
+               * 3).to(dtype)
+        alpha9 = segment_softmax(lg9, dst, N, index=idx)
+        g9 = torch.randn((E, GAT_HEADS), generator=gen, device=dev).to(dtype)
 
-    def k9b_kernel():
-        return segment_softmax_bwd(alpha9, g9, dst, N, index=idx)
+        def k9b_kernel(alpha9=alpha9, g9=g9):
+            return segment_softmax_bwd(alpha9, g9, dst, N, index=idx)
 
-    def k9b_plain():
-        return _segment_softmax_bwd_plain(alpha9, g9, dst, N)
+        def k9b_plain(alpha9=alpha9, g9=g9):
+            return _segment_softmax_bwd_plain(alpha9, g9, dst, N)
 
-    def k9b_library():
-        ag = alpha9 * g9
-        return alpha9 * (g9 - torch.zeros((N, GAT_HEADS), device=dev)
-                         .index_add_(0, dst_l, ag)[dst_l])
+        got9 = k9b_kernel()
+        check(torch.equal(got9, k9b_kernel()),
+              f"K9b {mode}: a repeat run differs")
+        if dtype == torch.float32:
+            lt = lg9.clone().requires_grad_()
+            _segment_softmax_plain(lt, dst, N).backward(g9)
+            err9 = rel_err(got9, lt.grad, f"K9b {mode}", tol=2e-5)
+            del lt
+        else:
+            err9 = rel_err(got9, k9b_plain(), f"K9b {mode}", tol=2.0 ** -8)
+        esize = lg9.element_size()
+        b9, by9 = bound_ms(E * GAT_HEADS * esize * 3 + E * 4 + (N + 1) * 4,
+                           E * GAT_HEADS * 4)
+        k9b[mode] = {"err": err9, "ms": cuda_ms(k9b_kernel),
+                     "plain_ms": cuda_ms(k9b_plain, reps=3),
+                     "eager_ms": eager_ms(k9b_kernel), "bound_ms": b9,
+                     "bound_by": by9, "gathered_bytes": 3 * E * 32,
+                     "edges": E, "heads": GAT_HEADS,
+                     "dtype": str(dtype).split(".")[-1]}
+        if dtype == torch.float32:
+            def k9b_library(alpha9=alpha9, g9=g9):
+                ag = alpha9 * g9
+                return alpha9 * (g9 - torch.zeros(
+                    (N, GAT_HEADS), device=dev).index_add_(0, dst_l, ag)[
+                        dst_l])
 
-    lt = lg9.clone().requires_grad_()
-    _segment_softmax_plain(lt, dst, N).backward(g9)
-    got9 = k9b_kernel()
-    err9 = rel_err(got9, lt.grad, "K9b", tol=2e-5)
-    check(torch.equal(got9, k9b_kernel()), "K9b: a repeat run differs")
-    rel_err(k9b_library(), got9, "torch composition vs K9b", tol=2e-5)
+            rel_err(k9b_library(), got9, "torch composition vs K9b",
+                    tol=2e-5)
+            k9b[mode]["library_ms"] = cuda_ms(k9b_library)
+        del lg9, alpha9, g9, got9
+    main9 = k9b["coo_fp32"]
     record("segment_softmax_bwd",
            "gigl_tpu_torch/csrc/segment_softmax_bwd.cu",
-           "gigl_tpu/ops/segment.py:51", err9, cuda_ms(k9b_kernel),
-           cuda_ms(k9b_plain, reps=3),
+           "gigl_tpu/ops/segment.py:51", main9["err"], main9["ms"],
+           main9["plain_ms"],
            nbytes=E * GAT_HEADS * 4 * 3 + E * 4 + (N + 1) * 4,
-           nops=E * GAT_HEADS * 4, library_ms=cuda_ms(k9b_library),
+           nops=E * GAT_HEADS * 4, library_ms=main9["library_ms"],
            library_call="alpha * (g - index_add_(alpha * g)[dst]) in "
                         "PyTorch (one multiply, one index_add_, a gather, "
                         "a subtract and a multiply)",
-           edges=E, heads=GAT_HEADS, eager_ms=eager_ms(k9b_kernel))
-    del lg9, alpha9, g9, lt, got9
+           edges=E, heads=GAT_HEADS, eager_ms=main9["eager_ms"],
+           gathered_bytes=main9["gathered_bytes"], modes=k9b)
 
     # K10b at the Transformer's layer 2 (4 heads of 64): the coefficient
     # pass with the scale's cotangent, and the whole sddmm backward (K10
@@ -2887,45 +2926,66 @@ def partitioned_phases(dev, card, dg, record, add_mode, unique, make_model,
     torch.cuda.synchronize()
     del t_, st, loss
 
-    # -- K15 at the step's largest request vector (one shard's union
-    # gather). bytes: the ids read, owner / pos / ok and the [P, C] table
-    # written; ops: ~12 integer ops per id. Yardstick: a stable sort of the
-    # owners with their counts (scatter_add_, bincount's work without its
-    # host sync) and the positions scattered back.
+    # -- K15 at the step's largest routed lookup: every shard's request
+    # vector in one call ([P, G]: the union gather), and one vector alone
+    # (mode single). bytes: the ids read, owner / pos / ok and the [P, C]
+    # tables written, per vector; ops: ~12 integer ops per id. Yardstick:
+    # a stable sort of each vector's owners with their counts (scatter_add_,
+    # bincount's work without its host sync) and the positions scattered
+    # back, the vectors batched (owners offset by P a vector).
     ids15, rows15, p15, cap15 = max(routes, key=lambda r_: r_[0].numel())
-    got = fl.route_requests(ids15, rows15, p15, cap15)
-    want = fl._route_requests_plain(ids15, rows15, p15, cap15)
-    check(all(torch.equal(g_, w_) for g_, w_ in zip(got, want)),
-          "K15 route_requests is not bit-equal")
-    g15 = ids15.numel()
-    owner64 = torch.div(ids15.long(), rows15, rounding_mode="floor").clamp(
-        0, p15 - 1)
-    ones64 = torch.ones_like(owner64)
-    iota = torch.arange(g15, device=dev)
+    check(ids15.dim() == 2 and ids15.shape[0] == p15,
+          f"K15: the step routed {tuple(ids15.shape)}, not every shard's "
+          "vector in one call")
+    k15 = {}
+    for mode, ids_m in (("batched", ids15), ("single", ids15[0])):
+        got = fl.route_requests(ids_m, rows15, p15, cap15)
+        want = fl._route_requests_plain(ids_m, rows15, p15, cap15)
+        check(all(torch.equal(g_, w_) for g_, w_ in zip(got, want)),
+              f"K15 route_requests ({mode}) is not bit-equal")
+        s15, g15 = ids_m.reshape(-1, ids_m.shape[-1]).shape
+        owner64 = (torch.div(ids_m.reshape(s15, g15).long(), rows15,
+                             rounding_mode="floor").clamp(0, p15 - 1)
+                   + torch.arange(s15, device=dev)[:, None] * p15
+                   ).reshape(-1)
+        ones64 = torch.ones_like(owner64)
+        iota = torch.arange(s15 * g15, device=dev)
 
-    def k15_library():
-        srt, perm = torch.sort(owner64, stable=True)
-        cnt = torch.zeros(p15, dtype=torch.int64, device=dev).scatter_add_(
-            0, owner64, ones64)
-        pos = torch.empty_like(perm)
-        pos[perm] = iota - (torch.cumsum(cnt, 0) - cnt)[srt]
-        return pos
+        def k15_library(owner64=owner64, ones64=ones64, iota=iota,
+                        n_=s15 * p15):
+            srt, perm = torch.sort(owner64, stable=True)
+            cnt = torch.zeros(n_, dtype=torch.int64,
+                              device=dev).scatter_add_(0, owner64, ones64)
+            pos = torch.empty_like(perm)
+            pos[perm] = iota - (torch.cumsum(cnt, 0) - cnt)[srt]
+            return pos
 
-    lib_pos = k15_library()
-    check(torch.equal(lib_pos.to(torch.int32), got[2]),
-          "the K15 yardstick's positions differ from K15's")
+        check(torch.equal(k15_library().to(torch.int32).reshape(
+            got[2].shape), got[2]),
+              f"the K15 yardstick's positions differ from K15's ({mode})")
+        b15, by15 = bound_ms(s15 * (g15 * 4 + g15 * 9 + p15 * cap15 * 4),
+                             s15 * g15 * 12)
+        k15[mode] = {
+            "ms": cuda_ms(lambda ids_m=ids_m: fl.route_requests(
+                ids_m, rows15, p15, cap15)),
+            "plain_ms": cuda_ms(lambda ids_m=ids_m: fl._route_requests_plain(
+                ids_m, rows15, p15, cap15)),
+            "eager_ms": eager_ms(lambda ids_m=ids_m: fl.route_requests(
+                ids_m, rows15, p15, cap15)),
+            "library_ms": cuda_ms(k15_library), "bound_ms": b15,
+            "bound_by": by15, "vectors": s15, "ids": g15}
+    main15 = k15["batched"]
     record("route_requests", "gigl_tpu_torch/csrc/route.cu",
-           "gigl_tpu/parallel/feature_lookup.py:48", 0.0,
-           cuda_ms(lambda: fl.route_requests(ids15, rows15, p15, cap15)),
-           cuda_ms(lambda: fl._route_requests_plain(ids15, rows15, p15,
-                                                    cap15)),
-           nbytes=g15 * 4 + g15 * 9 + p15 * cap15 * 4, nops=g15 * 12,
-           library_ms=cuda_ms(k15_library),
-           library_call="torch.sort(stable=True) of the owners, counts by "
-                        "scatter_add_, positions scattered back",
-           ids=g15, shards=p15, capacity=cap15, rows_per_shard=rows15,
-           eager_ms=eager_ms(lambda: fl.route_requests(ids15, rows15, p15,
-                                                       cap15)))
+           "gigl_tpu/parallel/feature_lookup.py:48", 0.0, main15["ms"],
+           main15["plain_ms"],
+           nbytes=p15 * (g15 * 4 + g15 * 9 + p15 * cap15 * 4),
+           nops=p15 * g15 * 12, library_ms=main15["library_ms"],
+           library_call="torch.sort(stable=True) of the owners (offset by "
+                        "P a vector), counts by scatter_add_, positions "
+                        "scattered back",
+           vectors=p15, ids=g15, shards=p15, capacity=cap15,
+           rows_per_shard=rows15, eager_ms=main15["eager_ms"],
+           modes={"single": k15["single"]})
 
     # -- K16 at the union gather's [P, C, D + 1] fp32 answers, and its mode
     # over the widest drawn neighbor rows (int32). bytes: owner / pos / ok

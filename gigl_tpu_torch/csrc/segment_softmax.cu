@@ -26,170 +26,29 @@
 // re-reading form of the same kernel: three passes (max, sum, write),
 // each reading the row once, in chunks of 16 heads for other head counts.
 // Over a working set past the L2, narrow rows are read evict-first
-// (STREAM, below).
+// (STREAM: load_once in gigl_softmax.cuh).
 //
-// The bits are the first version's: its warp gave lane L the slots L +
+// The bits are the first version's (its warp gave lane L the slots L +
 // 32u, summed each lane's exps in slot order and reduced the lanes by an
-// xor butterfly. A lane of a G-lane group stands for the 32 / G lanes l +
-// G t of that warp: it keeps one partial sum for each (slot k adds to
-// partial k mod 32 / G), combines them in the butterfly's first levels'
-// order and shuffles the rest; the max is the same in any order. So every
-// group width and both forms give the first version's alpha, bit for bit,
-// where the sum is not NaN (the first version clamped a NaN sum to 1e-16),
-// and the same result on every run.
-#include "gigl_pieces.cuh"
+// xor butterfly): every group width and both forms give them, as
+// gigl_softmax.cuh describes (the max is the same in any order), where the
+// sum is not NaN (the first version clamped a NaN sum to 1e-16), and the
+// same result on every run.
+#include "gigl_softmax.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarp = 32;
-// Most slots a lane keeps in registers (logits rows, then their exps);
-// wide heads keep fewer, so that a lane holds at most 16 values.
-constexpr int kSlotsPerLane = 4;
-// Heads a pass of the re-reading form keeps per lane, for head counts
-// that are not 1, 2, 4, 8 or 16 (or rows that are not aligned).
-constexpr int kChunk = 16;
-// Lanes a segment for heads up to 4 (groups of 8, 16 and 32 give the same
-// bits; 16 measured fastest or tied at every path shape, PERF.md §6).
-constexpr int kGroupLanes = 16;
+using namespace gigl::softmax;
 
-// A value read once: with STREAM an evict-first load (ld.global.cs), which
-// keeps the L2 for the alpha rows being written. Rows narrower than a
-// 32-byte sector are written a part of a sector at a time, in random
-// order: while their sector stays in the L2 it is written back whole, once
-// evicted each part costs the DRAM a read and a write. The wrapper streams
-// rows narrower than a sector when the logits and alpha pass three
-// quarters of the L2 (ops/segment.py _softmax_streams; PERF.md §6).
-template <bool STREAM, typename V>
-__device__ __forceinline__ V load_once(const V* p) {
-  if constexpr (STREAM) {
-    return __ldcs(p);
-  } else {
-    return __ldg(p);
-  }
-}
+constexpr int kThreads = 256;
 
-template <int H>
-__host__ __device__ constexpr int slots_per_lane() {
-  const int k = H >= 16 ? 1 : 16 / H;
-  return k < kSlotsPerLane ? k : kSlotsPerLane;
-}
-
-template <typename T>
-__device__ __forceinline__ void unpack_word(uint32_t w, float* v) {
-  if constexpr (sizeof(T) == 4) {
-    v[0] = __uint_as_float(w);
-  } else {
-    const float2 f = gigl::unpack_bf16(w);
-    v[0] = f.x;
-    v[1] = f.y;
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ uint32_t pack_word(const float* v) {
-  if constexpr (sizeof(T) == 4) {
-    return __float_as_uint(v[0]);
-  } else {
-    return gigl::pack_bf16(v[0], v[1]);
-  }
-}
-
-// The [H] row at p as fp32: whole words of 4, 8 or 16 bytes (p aligned to
-// the row's bytes, or to 16 above them), or one value at a time below 4.
-template <typename T, int H, bool STREAM>
-__device__ __forceinline__ void load_row(const T* __restrict__ p, float* v) {
-  constexpr int kBytes = H * static_cast<int>(sizeof(T));
-  constexpr int kPer = 4 / static_cast<int>(sizeof(T));  // values a word
-  if constexpr (kBytes < 4) {
-#pragma unroll
-    for (int h = 0; h < H; ++h) v[h] = gigl::to_float(p[h]);
-  } else {
-    constexpr int kWords = kBytes / 4;
-    uint32_t w[kWords];
-    if constexpr (kWords == 1) {
-      w[0] = load_once<STREAM>(reinterpret_cast<const unsigned int*>(p));
-    } else if constexpr (kWords == 2) {
-      const uint2 r = load_once<STREAM>(reinterpret_cast<const uint2*>(p));
-      w[0] = r.x;
-      w[1] = r.y;
-    } else {
-#pragma unroll
-      for (int i = 0; i < kWords / 4; ++i) {
-        const uint4 r =
-            load_once<STREAM>(reinterpret_cast<const uint4*>(p) + i);
-        w[4 * i] = r.x;
-        w[4 * i + 1] = r.y;
-        w[4 * i + 2] = r.z;
-        w[4 * i + 3] = r.w;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kWords; ++i) unpack_word<T>(w[i], v + i * kPer);
-  }
-}
-
-template <typename T, int H>
-__device__ __forceinline__ void store_row(T* __restrict__ p, const float* v) {
-  constexpr int kBytes = H * static_cast<int>(sizeof(T));
-  constexpr int kPer = 4 / static_cast<int>(sizeof(T));
-  if constexpr (kBytes < 4) {
-#pragma unroll
-    for (int h = 0; h < H; ++h) p[h] = gigl::from_float<T>(v[h]);
-  } else {
-    constexpr int kWords = kBytes / 4;
-    uint32_t w[kWords];
-#pragma unroll
-    for (int i = 0; i < kWords; ++i) w[i] = pack_word<T>(v + i * kPer);
-    if constexpr (kWords == 1) {
-      *reinterpret_cast<unsigned int*>(p) = w[0];
-    } else if constexpr (kWords == 2) {
-      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kWords / 4; ++i)
-        reinterpret_cast<uint4*>(p)[i] =
-            make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
-    }
-  }
-}
-
-// The group's maximum of m (each lane's own over its slots), 0 where it
-// is not finite.
+// The group's sum of the exps, clamped at 1e-16 (a NaN sum kept).
 template <int G, int NH>
-__device__ __forceinline__ void group_max(float* m) {
+__device__ __forceinline__ void group_denom(float (*x)[NH], float* denom) {
+  group_sum<G, NH>(x, denom);
 #pragma unroll
-  for (int h = 0; h < NH; ++h) {
-#pragma unroll
-    for (int off = G / 2; off > 0; off >>= 1)
-      m[h] = fmaxf(m[h], __shfl_xor_sync(kFull, m[h], off));
-    if (!isfinite(m[h])) m[h] = 0.f;
-  }
-}
-
-// The group's sum of the partials x[t] (t: the first version's lane l +
-// G t), in its butterfly's order: first the levels inside the lane (lanes
-// 16, 8, ... apart there), then the shuffles; the denominator clamped at
-// 1e-16, a NaN sum kept.
-template <int G, int NH>
-__device__ __forceinline__ void group_sum(float (*x)[NH], float* denom) {
-  constexpr int kT = kWarp / G;
-#pragma unroll
-  for (int half = kT / 2; half > 0; half >>= 1) {
-#pragma unroll
-    for (int t = 0; t < half; ++t) {
-#pragma unroll
-      for (int h = 0; h < NH; ++h) x[t][h] += x[t + half][h];
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < NH; ++h) {
-    float sum = x[0][h];
-#pragma unroll
-    for (int off = G / 2; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(kFull, sum, off);
-    denom[h] = sum != sum ? sum : fmaxf(sum, 1e-16f);
-  }
+  for (int h = 0; h < NH; ++h)
+    denom[h] = denom[h] != denom[h] ? denom[h] : fmaxf(denom[h], 1e-16f);
 }
 
 // The re-reading form for one segment [lo, hi) of lane l's group: a pass
@@ -203,45 +62,20 @@ __device__ void softmax_passes(const T* __restrict__ logits,
                                int l, int heads) {
   constexpr int NH = H > 0 ? H : kChunk;
   constexpr int kT = kWarp / G;
-  // slots a lane loads before it uses them: a whole number of partials
-  constexpr int U = kT >= 4 ? kT : 4;
+  const T* const tables[1] = {logits};
   const int row = H > 0 ? H : heads;
   for (int h0 = 0; h0 < row; h0 += NH) {
     const int nh = H > 0 ? H : min(NH, heads - h0);
-    auto load = [&](int64_t e, float* v) {
-      if constexpr (H > 0) {
-        load_row<T, H, STREAM>(logits + e * H, v);
-      } else {
-#pragma unroll
-        for (int h = 0; h < NH; ++h)
-          v[h] = h < nh ? gigl::to_float(logits[e * heads + h0 + h]) : 0.f;
-      }
-    };
-    // each pass: U slots of the lane (j = lo + l + G k) loaded, then used
-    // in slot order
     auto pass = [&](auto&& use) {
-      for (int32_t k0 = 0; lo + l + G * k0 < hi; k0 += U) {
-        int64_t e[U];
-        float v[U][NH];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int32_t j = lo + l + G * (k0 + u);
-          e[u] = j < hi ? load_once<STREAM>(order + j) : -1;
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u)
-          if (e[u] >= 0) load(e[u], v[u]);
-#pragma unroll
-        for (int u = 0; u < U; ++u)
-          if (e[u] >= 0) use(u, e[u], v[u]);
-      }
+      walk_rows<T, H, G, NH, 1, STREAM>(tables, order, lo, hi, l, heads, h0,
+                                        nh, use);
     };
     float m[NH], x[kT][NH], denom[NH];
 #pragma unroll
     for (int h = 0; h < NH; ++h) m[h] = -__int_as_float(0x7f800000);
-    pass([&](int, int64_t, const float* v) {
+    pass([&](int, int64_t, const float (*v)[NH]) {
 #pragma unroll
-      for (int h = 0; h < NH; ++h) m[h] = fmaxf(m[h], v[h]);
+      for (int h = 0; h < NH; ++h) m[h] = fmaxf(m[h], v[0][h]);
     });
     group_max<G, NH>(m);
 #pragma unroll
@@ -249,22 +83,16 @@ __device__ void softmax_passes(const T* __restrict__ logits,
 #pragma unroll
       for (int h = 0; h < NH; ++h) x[t][h] = 0.f;
     }
-    pass([&](int u, int64_t, const float* v) {
+    pass([&](int k, int64_t, const float (*v)[NH]) {
 #pragma unroll
-      for (int h = 0; h < NH; ++h) x[u % kT][h] += expf(v[h] - m[h]);
+      for (int h = 0; h < NH; ++h) x[k % kT][h] += expf(v[0][h] - m[h]);
     });
-    group_sum<G, NH>(x, denom);
-    pass([&](int, int64_t e, const float* v) {
+    group_denom<G, NH>(x, denom);
+    pass([&](int, int64_t e, const float (*v)[NH]) {
       float a[NH];
 #pragma unroll
-      for (int h = 0; h < NH; ++h) a[h] = expf(v[h] - m[h]) / denom[h];
-      if constexpr (H > 0) {
-        store_row<T, H>(out + e * H, a);
-      } else {
-#pragma unroll
-        for (int h = 0; h < NH; ++h)
-          if (h < nh) out[e * heads + h0 + h] = gigl::from_float<T>(a[h]);
-      }
+      for (int h = 0; h < NH; ++h) a[h] = expf(v[0][h] - m[h]) / denom[h];
+      store_heads<T, H, NH>(out, e, heads, h0, nh, a);
     });
   }
 }
@@ -279,38 +107,24 @@ __global__ void segment_softmax_kernel(const T* __restrict__ logits,
                                        T* __restrict__ out, int64_t s,
                                        int heads) {
   constexpr int kT = kWarp / G;
-  const int lane = threadIdx.x & (kWarp - 1);
-  const int l = lane & (G - 1);
-  const int64_t warp =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
-  if (warp * kT >= s) return;  // uniform across the warp
-  const int64_t seg = warp * kT + lane / G;
-  int32_t lo = 0, hi = 0;  // a segment past the last is empty
-  if (seg < s) {
-    lo = __ldg(ptr + seg);
-    hi = __ldg(ptr + seg + 1);
-  }
+  int l;
+  int32_t lo, hi;
+  if (!group_segment<G>(ptr, s, l, lo, hi)) return;
   if constexpr (H > 0) {
     constexpr int K = slots_per_lane<H>();
     if (__all_sync(kFull, hi - lo <= G * K)) {
       // every segment of the warp fits: its rows stay in registers
+      const T* const tables[1] = {logits};
       int64_t e[K];
-      float v[K][H], m[H], x[kT][H], denom[H];
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int32_t j = lo + l + G * k;
-        e[k] = j < hi ? load_once<STREAM>(order + j) : -1;
-      }
-#pragma unroll
-      for (int k = 0; k < K; ++k)
-        if (e[k] >= 0) load_row<T, H, STREAM>(logits + e[k] * H, v[k]);
+      float v[K][1][H], m[H], x[kT][H], denom[H];
+      load_slots<T, H, G, K, 1, STREAM>(tables, order, lo, hi, l, e, v);
 #pragma unroll
       for (int h = 0; h < H; ++h) m[h] = -__int_as_float(0x7f800000);
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         if (e[k] < 0) continue;
 #pragma unroll
-        for (int h = 0; h < H; ++h) m[h] = fmaxf(m[h], v[k][h]);
+        for (int h = 0; h < H; ++h) m[h] = fmaxf(m[h], v[k][0][h]);
       }
       group_max<G, H>(m);
 #pragma unroll
@@ -323,17 +137,17 @@ __global__ void segment_softmax_kernel(const T* __restrict__ logits,
         if (e[k] < 0) continue;
 #pragma unroll
         for (int h = 0; h < H; ++h) {
-          v[k][h] = expf(v[k][h] - m[h]);
-          x[k % kT][h] += v[k][h];
+          v[k][0][h] = expf(v[k][0][h] - m[h]);
+          x[k % kT][h] += v[k][0][h];
         }
       }
-      group_sum<G, H>(x, denom);
+      group_denom<G, H>(x, denom);
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         if (e[k] < 0) continue;
 #pragma unroll
-        for (int h = 0; h < H; ++h) v[k][h] /= denom[h];
-        store_row<T, H>(out + e[k] * H, v[k]);
+        for (int h = 0; h < H; ++h) v[k][0][h] /= denom[h];
+        store_row<T, H>(out + e[k] * H, v[k][0]);
       }
       return;
     }
@@ -345,13 +159,10 @@ template <typename T, int H, int G, bool STREAM>
 void launch_form(const void* logits, const int32_t* order,
                  const int32_t* ptr, void* out, long long s, int heads,
                  cudaStream_t st) {
-  const int threads = 256;
-  const long long warps = (s + kWarp / G - 1) / (kWarp / G);
-  const unsigned blocks =
-      static_cast<unsigned>((warps * kWarp + threads - 1) / threads);
-  segment_softmax_kernel<T, H, G, STREAM><<<blocks, threads, 0, st>>>(
-      static_cast<const T*>(logits), order, ptr, static_cast<T*>(out), s,
-      heads);
+  segment_softmax_kernel<T, H, G, STREAM>
+      <<<group_blocks<G>(s, kThreads), kThreads, 0, st>>>(
+          static_cast<const T*>(logits), order, ptr, static_cast<T*>(out), s,
+          heads);
 }
 
 // Heads above 4 hold too much for groups narrower than a warp; rows of a
@@ -360,7 +171,7 @@ template <typename T, int H>
 void launch_heads(const void* logits, const int32_t* order,
                   const int32_t* ptr, void* out, long long s, int stream,
                   cudaStream_t st) {
-  constexpr int G = H > 4 ? kWarp : kGroupLanes;
+  constexpr int G = group_lanes<H>();
   if constexpr (H * sizeof(T) < 32) {
     if (stream) {
       launch_form<T, H, G, true>(logits, order, ptr, out, s, H, st);

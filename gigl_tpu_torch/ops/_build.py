@@ -8,10 +8,12 @@ interface (no PyTorch headers), so a full build takes seconds. The build
 happens at the first kernel launch, and again whenever a hash of the
 sources and flags changes.
 
-Each C entry point enqueues one kernel on the stream it is given (the
-current PyTorch stream), never synchronises, allocates nothing, and returns
-``cudaGetLastError()``; :func:`launch` raises when that is not 0 and counts
-the launch under the kernel's name in :data:`launches`.
+Each C entry point enqueues its kernel on the stream it is given (the
+current PyTorch stream; K15's entry enqueues a count launch and a write
+launch), never synchronises, allocates
+nothing, and returns ``cudaGetLastError()``; :func:`launch` raises when
+that is not 0 and counts the call under the kernel's name in
+:data:`launches`.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ COMPILE_FLAGS = ARCH_FLAGS + [
 # Kernel name -> number of launches since the last reset_launches().
 # retrieval_loss and ring_retrieval count their forward and their backward
 # entry point, ring_spmm its forward and its transposed launches;
-# segment_reduce_bwd its max mode's tie pass, sddmm_bwd both of its stages.
+# segment_reduce_bwd its max mode's tie pass, sddmm_bwd both of its stages;
+# route_requests counts one a call, however many request vectors it takes.
 KERNEL_NAMES = ("sample_uniform", "uniform_ids", "build_neighbor_cache",
                 "gather_rows", "masked_reduce", "masked_reduce_bwd",
                 "retrieval_loss", "ell_aggregate", "fanout_attention",
@@ -95,7 +98,7 @@ _SIGNATURES = {
     "gigl_sddmm": [_P] * 8 + [_I64, _I64] + [_I32] * 3 + [_P],
     "gigl_segment_reduce_bwd": [_P] * 11 + [_I64] + [_I32] * 6 + [_P],
     "gigl_segment_max_ties": [_P] * 8 + [_I64] + [_I32] * 5 + [_P],
-    "gigl_segment_softmax_bwd": [_P] * 5 + [_I64, _I32, _I32, _P],
+    "gigl_segment_softmax_bwd": [_P] * 5 + [_I64] + [_I32] * 4 + [_P],
     "gigl_sddmm_bwd_coef": [_P] * 5 + [_I64] + [_I32] * 3 + [_P],
     "gigl_sddmm_bwd_scale": [_P, _P, _I32, _I32, _P],
     "gigl_ell_edge_grad": [_P] * 12 + [_I64] + [_I32] * 6 + [_P],
@@ -103,7 +106,8 @@ _SIGNATURES = {
                             _P],
     "gigl_cms_add": [_P, _I32, _I32, _P, _I64, _P, _P, _P, _P],
     "gigl_cms_estimate": [_P, _I32, _I32, _P, _I64, _P, _P, _P, _P],
-    "gigl_route_requests": [_P, _I64, _I32, _I32, _I32, _P, _P, _P, _P, _P],
+    "gigl_route_requests": [_P, _I64, _I64, _I32, _I32, _I32] + [_P] * 6,
+    "gigl_route_tiles": [_I64],
     "gigl_unroute_rows": [_P, _I32, _I32, _I32, _P, _P, _P, _I64, _P, _P],
     "gigl_ring_fold": [_P, _I32, _I32] + [_P] * 7 + [_F32, _F32]
     + [_P] * 4,

@@ -611,14 +611,16 @@ def _segment_softmax_plain(logits, segment_ids, num_segments):
     return out.reshape(logits.shape).to(logits.dtype)
 
 
-def _softmax_streams(logits: torch.Tensor) -> bool:
-    """K9's evict-first reads: for rows narrower than a 32-byte sector (each
-    written a part of a sector at a time) when the logits and alpha pass
-    three quarters of the device's L2 (PERF.md §6: at 64 and 44.8 MB
-    1.8-1.9x faster; at 32 MB 12% slower, the L2 holding them)."""
-    row = _cols(logits) * logits.element_size()
-    l2 = torch.cuda.get_device_properties(logits.device).L2_cache_size
-    return row < 32 and 2 * logits.shape[0] * row > 0.75 * l2
+def _softmax_streams(rows: torch.Tensor, tables: int = 2) -> bool:
+    """K9's and K9b's evict-first reads: for rows narrower than a 32-byte
+    sector (each written a part of a sector at a time) when the ``tables``
+    [E, H] tables the kernel reads and writes (K9: the logits and alpha;
+    K9b: alpha, g and dlogits) pass three quarters of the device's L2
+    (PERF.md §6: K9 at 64 and 44.8 MB 1.8-1.9x faster; at 32 MB 12%
+    slower, the L2 holding them)."""
+    row = _cols(rows) * rows.element_size()
+    l2 = torch.cuda.get_device_properties(rows.device).L2_cache_size
+    return row < 32 and tables * rows.shape[0] * row > 0.75 * l2
 
 
 def _segment_softmax_fwd(logits, segment_ids, num_segments, index=None):
@@ -679,12 +681,14 @@ def segment_softmax_bwd(alpha: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"segment_softmax_bwd: {_cols(a)} heads (at most "
                          "16)")
     out = torch.empty_like(a)
+    vec = int(all(t.data_ptr() % 16 == 0 for t in (a, gc, out)))
     if num_segments and e:
         _build.launch("segment_softmax_bwd", "gigl_segment_softmax_bwd",
                       device, a.data_ptr(), gc.data_ptr(),
                       index.order.data_ptr(), index.ptr.data_ptr(),
                       out.data_ptr(), num_segments, _cols(a),
-                      _DTYPES[a.dtype])
+                      _DTYPES[a.dtype], vec,
+                      int(_softmax_streams(a, 3)))  # alpha, g, dlogits
     return out
 
 

@@ -45,7 +45,7 @@ from gigl_tpu_torch.sampling.neighbor_sampler import (
     sample_weighted,
 )
 
-MAX_SHARDS = 32  # K15 takes one warp per owner shard
+MAX_SHARDS = 32  # K15 keeps its counts per owner shard for 32 owners
 
 
 def request_capacity(num_requests: int, num_shards: int,
@@ -58,52 +58,63 @@ def request_capacity(num_requests: int, num_shards: int,
 
 def _route_requests_plain(ids: torch.Tensor, rows: int, num_shards: int,
                           capacity: int):
-    """Plain twin of K15: (req [P, C] int32, owner [G] int32, pos [G]
-    int32, ok [G] bool), the reference's one-hot cumsum."""
-    owner = torch.div(ids.to(torch.int64), int(rows),
+    """Plain twin of K15, the reference's one-hot cumsum for each request
+    vector: ids [G] or [S, G] int32 -> (req [P, C] or [S, P, C] int32;
+    owner, pos int32 and ok bool, shaped as ids)."""
+    lead = tuple(ids.shape[:-1])
+    s = math.prod(lead)
+    flat = ids.reshape(s, ids.shape[-1])
+    owner = torch.div(flat.to(torch.int64), int(rows),
                       rounding_mode="floor").clamp(0, num_shards - 1)
-    onehot = owner[:, None] == torch.arange(num_shards, device=ids.device)
-    counts = torch.cumsum(onehot.to(torch.int32), dim=0)
-    pos = counts.gather(1, owner[:, None])[:, 0] - 1
+    onehot = owner[..., None] == torch.arange(num_shards, device=ids.device)
+    counts = torch.cumsum(onehot.to(torch.int32), dim=1)
+    pos = counts.gather(2, owner[..., None])[..., 0] - 1
     ok = pos < capacity
     # (owner, pos) is distinct for every kept request; dropped ones write
-    # to one spare cell past the table (no host sync: the twin is timed in
-    # CUDA graphs too)
+    # to one spare cell past the vector's table (no host sync: the twin is
+    # timed in CUDA graphs too)
     cells = torch.where(ok, owner * capacity + pos, num_shards * capacity)
-    req = torch.zeros((num_shards * capacity + 1,), dtype=torch.int32,
+    req = torch.zeros((s, num_shards * capacity + 1), dtype=torch.int32,
                       device=ids.device)
-    req.scatter_(0, cells, ids.to(torch.int32))
-    return (req[:-1].reshape(num_shards, capacity), owner.to(torch.int32),
-            pos.to(torch.int32), ok)
+    req.scatter_(1, cells, flat.to(torch.int32))
+    return (req[:, :-1].reshape(lead + (num_shards, capacity)),
+            *(t_.reshape(ids.shape) for t_ in (
+                owner.to(torch.int32), pos.to(torch.int32), ok)))
 
 
 def route_requests(ids: torch.Tensor, rows: int, num_shards: int,
                    capacity: int):
-    """K15: bucket one shard's request vector ``ids`` [G] int32 by owner
-    shard clip(id // rows, 0, P - 1), first come first served. Returns
-    (req [P, C] int32, zero where unused; owner, pos [G] int32; ok [G]
-    bool = pos < C). CPU tensors take the plain twin."""
+    """K15: bucket each request vector by owner shard clip(id // rows, 0,
+    P - 1), first come first served. ``ids`` is one vector [G] or S of them
+    [S, G] (int32), all bucketed in one call. Returns (req [P, C] int32,
+    zero where unused; owner, pos int32 and ok = pos < C bool, [G]), with a
+    leading S for [S, G]. CPU tensors take the plain twin."""
     if ids.device.type == "cpu":
         return _route_requests_plain(ids, rows, num_shards, capacity)
     ids = ids.contiguous()
     device = _build.require_cuda("route_requests", ids)
-    if ids.dtype != torch.int32 or ids.dim() != 1:
-        raise ValueError("route_requests: ids must be int32 [G]")
+    if ids.dtype != torch.int32 or ids.dim() not in (1, 2):
+        raise ValueError("route_requests: ids must be int32 [G] or [S, G]")
     if not 1 <= num_shards <= MAX_SHARDS:
         raise ValueError(f"route_requests: {num_shards} shards; K15 takes "
                          f"1 to {MAX_SHARDS}")
     if rows < 1 or capacity < 1:
         raise ValueError("route_requests: rows and capacity must be >= 1")
-    g = ids.shape[0]
-    req = torch.empty((num_shards, capacity), dtype=torch.int32,
+    s, g = (1,) + tuple(ids.shape) if ids.dim() == 1 else tuple(ids.shape)
+    lead = tuple(ids.shape[:-1])
+    req = torch.empty(lead + (num_shards, capacity), dtype=torch.int32,
                       device=device)
-    owner = torch.empty((g,), dtype=torch.int32, device=device)
-    pos = torch.empty((g,), dtype=torch.int32, device=device)
-    ok = torch.empty((g,), dtype=torch.bool, device=device)
-    _build.launch("route_requests", "gigl_route_requests", device,
-                  ids.data_ptr(), g, int(rows), int(num_shards),
-                  int(capacity), req.data_ptr(), owner.data_ptr(),
-                  pos.data_ptr(), ok.data_ptr())
+    owner = torch.empty(ids.shape, dtype=torch.int32, device=device)
+    pos = torch.empty(ids.shape, dtype=torch.int32, device=device)
+    ok = torch.empty(ids.shape, dtype=torch.bool, device=device)
+    tiles = _build.library().gigl_route_tiles(g)
+    scratch = torch.empty((s * tiles * num_shards,), dtype=torch.int32,
+                          device=device)
+    if s:
+        _build.launch("route_requests", "gigl_route_requests", device,
+                      ids.data_ptr(), s, g, int(rows), int(num_shards),
+                      int(capacity), req.data_ptr(), owner.data_ptr(),
+                      pos.data_ptr(), ok.data_ptr(), scratch.data_ptr())
     return req, owner, pos, ok
 
 
@@ -158,15 +169,21 @@ def _capacity(g: int, num_shards: int, capacity: Optional[int],
 
 def _route_all(mesh: Mesh, global_ids: Sequence[torch.Tensor], rows: int,
                capacity: Optional[int], factor: float):
-    """Every shard's requests bucketed (K15) and exchanged: (recv [P, C]
-    per shard — the ids each shard owns and was asked for —, and each
-    shard's (owner, pos, ok))."""
+    """Every shard's requests bucketed (K15, one call for the [P, G]
+    stack of them) and exchanged: (recv [P, C] per shard — the ids each
+    shard owns and was asked for —, and each shard's (owner, pos, ok))."""
     p = mesh.num_shards
-    cap = _capacity(global_ids[0].shape[0], p, capacity, factor)
-    routed = [route_requests(ids.to(torch.int32), rows, p, cap)
-              for ids in global_ids]
-    recv = mesh.all_to_all([r[0] for r in routed])
-    return recv, [r[1:] for r in routed]
+    g = global_ids[0].shape[0]
+    if any(ids.shape != (g,) for ids in global_ids):
+        raise ValueError("routed lookups: every shard's request vector must "
+                         f"be [G] with one G, got "
+                         f"{[tuple(ids.shape) for ids in global_ids]}")
+    cap = _capacity(g, p, capacity, factor)
+    req, owner, pos, ok = route_requests(
+        torch.stack([ids.to(torch.int32) for ids in global_ids]), rows, p,
+        cap)
+    recv = mesh.all_to_all(list(req))
+    return recv, list(zip(owner, pos, ok))
 
 
 def answer_gather(shard: int, local_table: torch.Tensor,

@@ -53,9 +53,23 @@ the C signature of its earlier version:
   ``_hub1000``, through the wrapper (``kept``) and with its evict-first
   reads forced on and off (``stream``, ``cache``). Knobs ``group_lanes``
   (kGroupLanes, the lanes a segment for up to 4 heads: 8, 16 or 32) and
-  ``slots_per_lane`` (kSlotsPerLane). ``first``: the K9 that walks a
+  ``slots_per_lane`` (kSlotsPerLane), in csrc/gigl_softmax.cuh. ``first``: the K9 that walks a
   segment three times a head; every output is held bit for bit against
   its output.
+- ``softmax_bwd``: K9b segment_softmax_bwd at K9's cases (alpha the
+  softmax of random logits, g random), through the wrapper (``kept``) and
+  with its evict-first reads forced on and off (``stream``, ``cache``).
+  Knobs ``group_lanes`` and ``slots_per_lane`` (csrc/gigl_softmax.cuh, the
+  walk K9 and K9b share). ``first``: the K9b that walks a segment twice
+  with a warp, a value at a time; every output is held bit for bit
+  against its output.
+- ``route``: K15 route_requests at the partitioned step's largest routed
+  lookup (4 request vectors of 63,744 ids over N = 100k nodes in 4 shards
+  of 25,000 rows, capacity 31,872), all four in one call (``batched_s4``)
+  and one vector (``single``). Knob ``tile`` (kRouteTile, the ids a
+  block). ``first``: the K15
+  that ran one block a vector, called once a vector; every output is held
+  bit for bit against its output.
 
 The flagship graph is chip_smoke.py's: N=100k nodes, E=2M uniform random
 edges in their random order, numpy seed 0. Variants: ``kept`` (the port's
@@ -193,8 +207,9 @@ def registers(log: Path, sources):
             names = out.splitlines()
     for row, name in zip(rows, names):
         # the kernel and its template arguments, without its parameters
-        row["kernel"] = name.replace("void (anonymous namespace)::",
-                                     "").split("(", 1)[0]
+        # (a template's demangled name starts with its return type)
+        row["kernel"] = name.replace("void ", "", 1).replace(
+            "(anonymous namespace)::", "").split("(", 1)[0]
     return rows
 
 
@@ -569,7 +584,104 @@ def softmax_cases(dev, _build, first):
     return cases
 
 
+def softmax_bwd_cases(dev, _build, first):
+    from gigl_tpu_torch.ops import segment as seg
+
+    rng, _, dst_np = flagship()
+    hub_np = rng.permutation(np.repeat(np.arange(2000), E // 2000))
+    typed_np = rng.integers(0, N, TYPED_E)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    cases = {}
+    for label, d_np, heads, dtype in (
+            ("fp32_h4", dst_np, 4, torch.float32),
+            ("bf16_h4", dst_np, 4, torch.bfloat16),
+            ("fp32_h1", dst_np, 1, torch.float32),
+            ("fp32_h16", dst_np, 16, torch.float32),
+            ("typed_fp32_h4", typed_np, 4, torch.float32),
+            ("hub1000_fp32_h4", hub_np, 4, torch.float32)):
+        dst = torch.as_tensor(d_np.astype(np.int32), device=dev)
+        index = seg.SegmentIndex.from_ids(dst, N)
+        e = dst.shape[0]
+        lg = torch.randn((e, heads), generator=gen, device=dev) * 3
+        alpha = seg._segment_softmax_plain(lg, dst, N).to(dtype)
+        g = torch.randn((e, heads), generator=gen, device=dev).to(dtype)
+        dcode = 0 if dtype == torch.float32 else 1
+        del lg
+
+        def forced(stream, a=alpha, g=g, index=index, heads=heads,
+                   dcode=dcode):
+            out = torch.empty_like(a)
+            _build.launch("segment_softmax_bwd", "gigl_segment_softmax_bwd",
+                          dev, a.data_ptr(), g.data_ptr(),
+                          index.order.data_ptr(), index.ptr.data_ptr(),
+                          out.data_ptr(), N, heads, dcode, 1, stream)
+            return out
+
+        def run_first(a=alpha, g=g, index=index, heads=heads, dcode=dcode):
+            out = torch.empty_like(a)
+            first("gigl_segment_softmax_bwd", a.data_ptr(), g.data_ptr(),
+                  index.order.data_ptr(), index.ptr.data_ptr(),
+                  out.data_ptr(), N, heads, dcode)
+            return out
+
+        fns = {"kept": lambda a=alpha, g=g, dst=dst, index=index:
+               seg.segment_softmax_bwd(a, g, dst, N, index=index),
+               "stream": lambda forced=forced: forced(1),
+               "cache": lambda forced=forced: forced(0)}
+        if first is not None:
+            fns["first"] = run_first
+        cases[f"k9b_{label}"] = (
+            fns, lambda a=alpha, g=g, dst=dst:
+            seg._segment_softmax_bwd_plain(a, g, dst, N),
+            1e-5 if dtype == torch.float32 else 2.0 ** -8)
+    return cases
+
+
+def route_cases(dev, _build, first):
+    from gigl_tpu_torch.parallel import feature_lookup as fl
+
+    s, g, p, rows = 4, 63_744, 4, N // 4
+    cap = fl.request_capacity(g, p)
+    rng = np.random.default_rng(19)
+    ids = torch.as_tensor(rng.integers(0, N, (s, g)).astype(np.int32),
+                          device=dev)
+
+    def flat(out):
+        """The four outputs as one int32 vector (the sweep compares one
+        tensor)."""
+        return torch.cat([t_.reshape(-1).to(torch.int32) for t_ in out])
+
+    def run_first(vectors):
+        outs = []
+        for v in vectors:
+            req = torch.empty((p, cap), dtype=torch.int32, device=dev)
+            owner, pos = (torch.empty((g,), dtype=torch.int32, device=dev)
+                          for _ in range(2))
+            ok = torch.empty((g,), dtype=torch.bool, device=dev)
+            first("gigl_route_requests", v.data_ptr(), g, rows, p, cap,
+                  req.data_ptr(), owner.data_ptr(), pos.data_ptr(),
+                  ok.data_ptr())
+            outs.append((req, owner, pos, ok))
+        return flat([torch.stack(x) for x in zip(*outs)])
+
+    cases = {}
+    for label, vec in (("batched_s4", ids), ("single", ids[0])):
+        rows_of = vec.reshape(-1, g)
+        fns = {"kept": lambda vec=vec: flat(fl.route_requests(vec, rows, p,
+                                                              cap))}
+        if first is not None:
+            fns["first"] = lambda rows_of=rows_of: run_first(rows_of)
+        cases[f"k15_{label}"] = (fns, lambda vec=vec: flat(
+            fl._route_requests_plain(vec, rows, p, cap)), 0.0)
+    return cases
+
+
 # -- the sweeps ----------------------------------------------------------------
+# K9's and K9b's shared walk (csrc/gigl_softmax.cuh)
+SOFTMAX_KNOBS = {name: [("gigl_softmax.cuh",
+                         rf"constexpr int {const} = (\d+);")]
+                 for name, const in (("group_lanes", "kGroupLanes"),
+                                     ("slots_per_lane", "kSlotsPerLane"))}
 # knobs: name -> [(file, pattern whose group 1 is the constant's value)];
 # bounds: [(file, pattern, replacement with {b})] for --min-blocks B.
 SWEEPS = {
@@ -644,10 +756,7 @@ SWEEPS = {
     "softmax": {
         "sources": ["segment_softmax.cu"],
         "entries": ["gigl_segment_softmax"],
-        "knobs": {name: [("segment_softmax.cu",
-                          rf"constexpr int {const} = (\d+);")]
-                  for name, const in (("group_lanes", "kGroupLanes"),
-                                      ("slots_per_lane", "kSlotsPerLane"))},
+        "knobs": SOFTMAX_KNOBS,
         "bounds": [("segment_softmax.cu",
                     r"__global__ void segment_softmax_kernel\(",
                     "__global__ void __launch_bounds__(256, {b}) "
@@ -655,6 +764,28 @@ SWEEPS = {
         "cases": softmax_cases,
         # logits, order, ptr, out, S, heads, dtype, stream
         "first": {"gigl_segment_softmax": [_P] * 4 + [_I64, _I32, _I32, _P]},
+        "bit_equal_first": True},
+    "softmax_bwd": {
+        "sources": ["segment_softmax_bwd.cu"],
+        "entries": ["gigl_segment_softmax_bwd"],
+        "knobs": SOFTMAX_KNOBS,
+        "bounds": [("segment_softmax_bwd.cu",
+                    r"__global__ void segment_softmax_bwd_kernel\(",
+                    "__global__ void __launch_bounds__(256, {b}) "
+                    "segment_softmax_bwd_kernel(")],
+        "cases": softmax_bwd_cases,
+        # alpha, g, order, ptr, out, S, heads, dtype, stream
+        "first": {"gigl_segment_softmax_bwd": [_P] * 5
+                  + [_I64, _I32, _I32, _P]},
+        "bit_equal_first": True},
+    "route": {
+        "sources": ["route.cu"],
+        "entries": ["gigl_route_requests", "gigl_route_tiles"],
+        "knobs": {"tile": [("route.cu", r"constexpr int kRouteTile = (\d+);")]},
+        "bounds": [],
+        "cases": route_cases,
+        # ids, G, rows, P, C, req, owner, pos, ok, stream
+        "first": {"gigl_route_requests": [_P, _I64] + [_I32] * 3 + [_P] * 5},
         "bit_equal_first": True},
 }
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Where K9 segment_softmax's time goes inside a COO full-batch step, on one
-NVIDIA GPU: the same launch timed in the step and alone, in several states
-of the L2.
+"""Where K9 segment_softmax's and K9b segment_softmax_bwd's time goes
+inside a COO full-batch step, on one NVIDIA GPU: K9's launch timed in the
+step and alone, in several states of the L2, and K9b's in the step.
 
     python3 scripts/softmax_in_step.py [--models gat transformer]
         [--steps 3] [--calls 10]
@@ -13,8 +13,11 @@ model it runs ``--steps`` training steps under torch.profiler and prints
 every K9 launch of the step: its kernel form (the template arguments in
 its name: the dtype, the heads, the lane group and the evict-first reads),
 its device time, what the wrapper was given (shape, contiguity, 16-byte
-alignment, the ``_softmax_streams`` choice) and the device op before it.
-Then, on each layer's logits as the step made them, ``--calls`` launches
+alignment, the ``_softmax_streams`` choice) and the device op before it,
+and the same for every K9b launch (``k9b_in_step``: the backward of each
+layer's softmax, cold as the step leaves the L2), after a ``step`` line
+with the device ms a step (every device op) and K9's and K9b's share. Then, on each layer's
+logits as the step made them, ``--calls`` launches
 of the wrapper, each profiled alone, after one of:
 
 - ``warm``: the previous launch on the same logits (back to back);
@@ -67,6 +70,10 @@ def is_k9(name):
     return "segment_softmax_kernel" in name
 
 
+def is_k9b(name):
+    return "segment_softmax_bwd_kernel" in name
+
+
 def summary(ms):
     return {"ms_mean": float(np.mean(ms)), "ms_min": float(np.min(ms)),
             "ms_max": float(np.max(ms)), "launches": len(ms)}
@@ -108,13 +115,14 @@ def main():
     seen, keep = [], {"on": False}
     streams = seg._softmax_streams
 
-    def watched(lg):
-        choice = streams(lg)
-        seen.append({"shape": list(lg.shape), "dtype": str(lg.dtype),
+    def watched(lg, *tables):
+        choice = streams(lg, *tables)   # K9 passes no table count
+        seen.append({"kernel": "K9b" if tables else "K9",
+                     "shape": list(lg.shape), "dtype": str(lg.dtype),
                      "contiguous": lg.is_contiguous(),
                      "aligned16": lg.data_ptr() % 16 == 0,
                      "streams": choice})
-        if keep["on"]:
+        if keep["on"] and not tables:
             keep.setdefault("logits", []).append(lg.detach().clone())
         return choice
 
@@ -139,16 +147,28 @@ def main():
                 state, _ = fbt.train_step(state)
             torch.cuda.synchronize()
         events = k9_events(prof)
-        k9 = [(i, ev) for i, ev in enumerate(events) if is_k9(ev[0])]
-        calls = len(k9) // args.steps
-        for c_ in range(calls):
-            mine = [ev for k, (_, ev) in enumerate(k9) if k % calls == c_]
-            before = {events[i - 1][0][:90] for k, (i, _) in enumerate(k9)
-                      if k % calls == c_ and i > 0}
-            emit({"phase": "k9_in_step", "model": model, "call": c_,
-                  "layer": c_ + 1, "form": mine[0][0][:160],
-                  "wrapper_saw": seen[c_], "device_op_before":
-                  sorted(before), **summary([ev[2] for ev in mine])})
+        emit({"phase": "step", "model": model, "steps": args.steps,
+              "device_ms_per_step": sum(ev[2] for ev in events)
+              / args.steps, **{f"{k_}_ms_per_step": sum(
+                  ev[2] for ev in events if m_(ev[0])) / args.steps
+                  for k_, m_ in (("k9", is_k9), ("k9b", is_k9b))}})
+        for phase, match, kernel in (("k9_in_step", is_k9, "K9"),
+                                     ("k9b_in_step", is_k9b, "K9b")):
+            hits = [(i, ev) for i, ev in enumerate(events) if match(ev[0])]
+            saw = [x for x in seen if x["kernel"] == kernel]
+            n_calls = len(hits) // args.steps
+            for c_ in range(n_calls):
+                mine = [ev for k, (_, ev) in enumerate(hits)
+                        if k % n_calls == c_]
+                before = {events[i - 1][0][:90]
+                          for k, (i, _) in enumerate(hits)
+                          if k % n_calls == c_ and i > 0}
+                emit({"phase": phase, "model": model, "call": c_,
+                      "form": mine[0][0][:160],
+                      "wrapper_saw": saw[c_] if c_ < len(saw) else None,
+                      "device_op_before": sorted(before),
+                      **summary([ev[2] for ev in mine])})
+        calls = len([ev for ev in events if is_k9(ev[0])]) // args.steps
         keep["on"] = True
         state, _ = fbt.train_step(state)
         torch.cuda.synchronize()

@@ -2044,6 +2044,36 @@ def test_route_requests_bit_equal(dev, num_shards, g, rows, cap):
         assert torch.equal(k.cpu(), w), name
 
 
+ROUTE_BATCH_CASES = [  # (G, rows per shard, capacity)
+    (0, 40, 8), (1, 7, 8), (2047, 100, 300), (2049, 100, 3000),
+    (4096, 300, 1200), (5000, 300, 700), (5000, 300, 64),
+    (63_744, 25_000, 31_872)]
+
+
+@pytest.mark.parametrize("num_shards", [1, 4, 32])
+@pytest.mark.parametrize("g,rows,cap", ROUTE_BATCH_CASES)
+@pytest.mark.parametrize("s", [1, 2, 3, 4])
+def test_route_requests_batched_bit_equal(dev, s, num_shards, g, rows, cap):
+    """K15 over S request vectors in one call ([S, G]) against the twin of
+    each vector alone, and the one-vector call [G] against the first row:
+    duplicates, ids past the table and negative ids, overflow past C, an
+    empty vector, G not a multiple of the tile, the flagship's union
+    size."""
+    ids = torch.stack([_route_ids(g, num_shards * rows, seed=g + v)
+                       for v in range(s)])
+    got = fl.route_requests(ids.to(dev), rows, num_shards, cap)
+    assert got[0].shape == (s, num_shards, cap)
+    for v in range(s):
+        want = fl._route_requests_plain(ids[v], rows, num_shards, cap)
+        for name, w, k in zip(("req", "owner", "pos", "ok"), want, got):
+            assert torch.equal(k[v].cpu(), w), (v, name)
+    one = fl.route_requests(ids[0].to(dev), rows, num_shards, cap)
+    for a, b in zip(one, got):
+        assert torch.equal(a, b[0])
+    again = fl.route_requests(ids.to(dev), rows, num_shards, cap)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
 def test_route_requests_rejects_too_many_shards(dev):
     with pytest.raises(ValueError, match="shards"):
         fl.route_requests(torch.zeros(4, dtype=torch.int32, device=dev), 1,
@@ -2778,6 +2808,91 @@ def test_segment_softmax_forms_agree(dev, dtype, heads):
         d_want = _segment_softmax_bwd_plain(got, cot, ids, s)
         assert torch.isnan(d_got[poisoned]).all()
         assert torch.equal(torch.isnan(d_got), torch.isnan(d_want))
+
+
+def _fmaf(a, b, c):
+    """fp32 fmaf(a, b, c) on the CPU, rounded once: the product is exact in
+    float64, and the float64 sum's own rounding error (TwoSum) decides a
+    float32 tie that the sum lands on."""
+    p_, c64 = a.double() * b.double(), c.double()
+    s_ = p_ + c64
+    bb = s_ - p_
+    err = (p_ - (s_ - bb)) + (c64 - bb)
+    r = s_.float()
+    d = s_ - r.double()
+    nxt = torch.nextafter(r, torch.where(d > 0, float("inf"),
+                                         float("-inf")).float())
+    tie = (d != 0) & (s_ == (r.double() + nxt.double()) / 2)
+    past = tie & (err != 0) & ((err > 0) == (d > 0))
+    return torch.where(past, nxt, r)
+
+
+def _k9b_first_bits(alpha, g, ids, index):
+    """K9b's first version on the CPU, operation for operation: a warp a
+    segment, lane L summing fmaf(alpha, g) over the slots L, L + 32, ... in
+    slot order, the lanes reduced by an xor butterfly (16, 8, 4, 2, 1),
+    then alpha * (g - sum), rounded once to alpha's type."""
+    e, s = index.num_edges, index.num_segments
+    a = alpha.float().reshape(e, -1).cpu()
+    gf = g.float().reshape(a.shape).cpu()
+    order, ptr = index.order.long().cpu(), index.ptr.long().cpu()
+    seg = torch.repeat_interleave(torch.arange(s), ptr[1:] - ptr[:-1])
+    k = torch.arange(e) - ptr[seg]
+    x = torch.zeros((s, 32, a.shape[1]))
+    for u in range(int(k.max()) // 32 + 1 if e else 0):
+        sel = k // 32 == u
+        at, ln, ed = seg[sel], k[sel] % 32, order[sel]
+        x[at, ln] = _fmaf(a[ed], gf[ed], x[at, ln])
+    for off in (16, 8, 4, 2, 1):
+        x = x + x[:, torch.arange(32) ^ off]
+    out = a * (gf - x[:, 0][ids.long().cpu()])
+    return out.reshape(alpha.shape).to(alpha.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [1, 2, 3, 4, 8, 16])
+def test_segment_softmax_bwd_forms_agree(dev, dtype, heads):
+    """K9b over lane groups that hold several segments (16 lanes up to 4
+    heads, a warp above), whose rows stay in registers or, past a group's
+    capacity, are read again in two passes (segments of 33 to 1,000 edges
+    and a 10^4 hub), and over rows 4 bytes off a 16-byte boundary (the
+    passes a value at a time, a warp a segment): every form gives the
+    first version's bits (a CPU replay of its fmaf and butterfly order),
+    the same on a repeat run, and stays within the twin's tolerance (fp32
+    1e-4, bf16 2e-2 of the scale). A NaN in g makes its segment's head NaN,
+    as in the twin."""
+    ids, index = _softmax_graph(dev)
+    hub = torch.full((10_000,), 5, dtype=torch.int32, device=dev)
+    ids = torch.cat([ids, hub])[torch.randperm(
+        ids.shape[0] + 10_000, generator=torch.Generator().manual_seed(30))
+        .to(dev)]
+    s = index.num_segments
+    index = SegmentIndex.from_ids(ids, s)
+    e = index.num_edges
+    gen = torch.Generator(device=dev).manual_seed(31)
+    shape = (e,) if heads == 1 else (e, heads)
+    alpha = segment_softmax(torch.randn(shape, generator=gen, device=dev)
+                            * 4, ids, s, index=index).to(dtype)
+    g = torch.randn(shape, generator=gen, device=dev)
+    poisoned = int(torch.nonzero(ids == 9)[0])
+    g[poisoned] = float("nan")
+    g = g.to(dtype)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    outs = [segment_softmax_bwd(a_, g_, ids, s, index=index)
+            for a_, g_ in ((alpha, g), (_shifted(alpha), _shifted(g)),
+                           (alpha, g))]
+    want = _k9b_first_bits(alpha, g, ids, index).to(dev)
+    nan = torch.isnan(want)
+    assert nan[ids == 9].all() and not nan[ids != 9].any()
+    for got in outs:
+        assert torch.equal(torch.isnan(got), nan)
+        assert torch.equal(got[~nan].view(bits), want[~nan].view(bits))
+    twin = _segment_softmax_bwd_plain(alpha, g, ids, s)
+    fin = ~torch.isnan(twin)
+    scale = float(twin[fin].float().abs().max())
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert float((outs[0][fin].float() - twin[fin].float()).abs().max()) \
+        <= tol * scale
 
 
 def test_coo_spmm_composed_gradients_on_card_match_cpu(dev):

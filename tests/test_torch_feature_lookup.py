@@ -4,7 +4,8 @@ reference on the virtual CPU mesh, on the CPU, where K15 route_requests,
 K16 unroute_rows, K1 (row-offset mode) and K3 run their plain twins.
 
 Everything here is integer work or a copy, so every comparison is
-BIT-EQUAL: the routing tables (req, owner, pos, ok), the un-routed rows
+BIT-EQUAL: the routing tables (req, owner, pos, ok; one vector, and S
+vectors in one call, each against the reference's), the un-routed rows
 (fp32, bf16 and int32, widths 1 to 132), the routed gather's values and
 ok bits at 1, 2, 4 and 8 shards (the one-shard closed form and the routed
 path at capacities from overflowing to one past every request), the routed draws (against the reference's routed draws and the
@@ -66,6 +67,37 @@ def test_route_requests_bit_equal(num_shards, case):
         np.testing.assert_array_equal(t.numpy(), w, err_msg=name)
     if case[2] == 16:
         assert not got[3].all()                 # overflow happened
+
+
+@pytest.mark.parametrize("num_shards", [1, 2, 4, 32])
+@pytest.mark.parametrize("case", ROUTE_CASES,
+                         ids=["fits", "overflow", "empty", "one", "big_c"])
+@pytest.mark.parametrize("s", [1, 2, 4])
+def test_route_requests_batched_bit_equal(s, num_shards, case):
+    """S request vectors bucketed in one call ([S, G], as _route_all stacks
+    every shard's): each vector's tables bit-equal to the reference's
+    _route_requests of that vector alone."""
+    g, rows, cap = case
+    ids = np.stack([_ids(g, num_shards * rows, seed=g + num_shards + v)
+                    for v in range(s)]).reshape(s, g)
+    got = fl.route_requests(torch.from_numpy(ids), rows, num_shards, cap)
+    assert got[0].shape == (s, num_shards, cap)
+    for v in range(s):
+        want = ref_fl._route_requests(jnp.asarray(ids[v]), rows, num_shards,
+                                      cap)
+        for name, w, t in zip(("req", "owner", "pos", "ok"), want, got):
+            np.testing.assert_array_equal(t[v].numpy(), np.asarray(w),
+                                          err_msg=f"{name} of vector {v}")
+
+
+def test_routed_lookup_rejects_ragged_vectors():
+    """Every shard's request vector is routed in one K15 call, so the
+    vectors must have one length."""
+    mesh = Mesh(2, "cpu")
+    tables = [torch.zeros((4, 3))] * 2
+    with pytest.raises(ValueError, match="one G"):
+        fl.routed_gather(mesh, tables, [torch.zeros(5, dtype=torch.int32),
+                                        torch.zeros(4, dtype=torch.int32)])
 
 
 @pytest.mark.parametrize("width", [1, 10, 15, 129, 132])
