@@ -29,9 +29,14 @@
    share and the five device ops that took longest;
 7. exact full-graph inference: times EllGraph.from_csr of the
    flagship graph on the host; holds K6 ell_aggregate (mean, sum, max,
-   GCN-weighted) and K7 fanout_attention (GAT v1, GATv2, Transformer, H=4)
+   GCN-weighted; the largest bucket's rows of its one launch over the
+   graph) and K7 fanout_attention (GAT v1, GATv2, Transformer, H=4)
    against their plain versions at the flagship's largest ELL bucket
-   ([77,433, 32]) in bf16 (K7 also GAT in fp32 at head dims 64 and 4, the
+   ([77,433, 32]) in bf16, and K6 mean over the whole graph at the
+   full-graph pass's and the ELL full-batch step's layer widths (bf16 and
+   fp32, D 128 and 256; the bound of each path's K6 beside them; the pass
+   checked at one K6 launch a layer) (K7 also GAT in fp32 at head dims 64
+   and 4, the
    full-batch GAT step's two layers; its row and K7b's print the loads
    ahead compiled in, `kDepth`) and times them beside their bounds and
    library yardsticks; then runs run_full_graph_inference at full width for the
@@ -109,7 +114,8 @@
    profiled, and evaluate over 4 batches; prints ms/step and edges/s
    (counted over the typed tree as bench.py:631-638 counts them);
 11. edge features (the flagship graph with 8 fp32 features per edge,
-   ogbn-proteins' width, numpy seed 8): holds K6 in its gine mode and K7
+   ogbn-proteins' width, numpy seed 8): holds K6 in its gine mode (at the
+   largest bucket and over the whole graph) and K7
    with the edge addend at the largest bucket (bf16; K7 also without the
    addend in the same call), K6b gine over the whole transpose walk, K7b
    with the addend, and K11 ell_edge_grad in its three modes at EdgeAttrGAT
@@ -163,7 +169,9 @@
    K15 route_requests (every shard's request vector in one call, and one
    vector alone: mode single) and K16 unroute_rows (bit-equal; yardsticks:
    a stable sort with scatter_add_ counts, index_select + where), K17
-   ring_retrieval's fold and backward (yardsticks logsumexp, softmax) and
+   ring_retrieval's fold and backward over a shard's P blocks in one
+   launch each (and the fold of one block alone; yardsticks logsumexp,
+   softmax; a fold and a backward a shard checked on the ring path) and
    K1's row-offset mode (against the plain mode on the same rows) at the
    shapes a real ring step gives them; then each pool's path in bf16 with
    the sketch on (3 + 20 steps, 5 profiled) with the launch counts reset
@@ -217,8 +225,10 @@
    very destination ids its pass gives K8b), one JSON line with every
    kernel's numbers, then the card line, then {"ok": true, ...} as the
    last line. Every profile carries K7 / K7b (attention_ms_per_step), K10
-   / K8 / K8b / K9 / K9b / K10b (segment_ms_per_step), K6b
-   (ell_transpose_ms_per_step) and K15 (route_ms_per_step) device ms. K8's and K8b's rows time their
+   / K8 / K8b / K9 / K9b / K10b (segment_ms_per_step), K6
+   (ell_aggregate_ms_per_step, with its launches a step), K6b
+   (ell_transpose_ms_per_step), K15 (route_ms_per_step) and K17
+   (ring_ms_per_step) device ms. K8's and K8b's rows time their
    composed mode (ms) beside their chained mode (chained_ms: a copy of src
    or of the segment ids), bit-equal.
 
@@ -530,7 +540,16 @@ def profile_summary(prof, steps, window_us, host_ms_per_step):
                              "sddmm_bwd"), 0.0)
     transpose = 0.0   # K6b: its bucket walks and the max mode's tie pass
     route = 0.0       # K15: its count and write launches
-    for n, (t, _) in by_name.items():
+    k6 = [0.0, 0]     # K6: device ms and launches a step
+    ring = {"fold": 0.0, "bwd": 0.0}     # K17
+    for n, (t, c) in by_name.items():
+        if "ell_aggregate_kernel" in n:
+            k6[0] += t / steps / 1e3
+            k6[1] += c / steps
+        if "ring_fold_kernel" in n:
+            ring["fold"] += t / steps / 1e3
+        if "ring_block_bwd_kernel" in n:
+            ring["bwd"] += t / steps / 1e3
         if "ell_transpose_" in n or "tie_count_kernel" in n:
             transpose += t / steps / 1e3
         if "route_requests_" in n:
@@ -557,6 +576,9 @@ def profile_summary(prof, steps, window_us, host_ms_per_step):
         "attention_ms_per_step": attention,
         "segment_ms_per_step": segment,
         "ell_transpose_ms_per_step": transpose,
+        "ell_aggregate_ms_per_step": k6[0],
+        "ell_aggregate_launches_per_step": k6[1],
+        "ring_ms_per_step": ring,
         "route_ms_per_step": route,
         "device_busy_ms_per_step": busy / steps / 1e3,
         "busy_share_of_profiled_window": busy / window_us,
@@ -587,11 +609,8 @@ def plain_kernels():
     from gigl_tpu_torch.training import (
         dataset, dist_sampled, hetero_dataset, trainer)
 
-    def agg_fwd(x, nbr, mask, op, deg_dst=None, deg_tab=None, out=None,
-                ea=None, eslot=None):
-        got = ell_aggregate._ell_aggregate_plain(x, nbr, mask, op, deg_dst,
-                                                 deg_tab, ea, eslot)
-        return got if out is None else out.copy_(got)
+    def agg_fwd(x, ell_, op, ea=None, rows=None):
+        return ell_aggregate._ell_aggregate_graph_plain(x, ell_, op, ea, rows)
 
     def transpose(rows, ell, op, *args, **kw):
         return ell_aggregate._ell_transpose_plain(rows, ell, op, *args, **kw)
@@ -1984,7 +2003,7 @@ def edge_phases(dev, card, arrays, fb_data, typed, record, add_mode,
         _fanout_attention_plain, fanout_attention_bwd)
     from gigl_tpu_torch.ops.ell import _ell_edge_grad_plain, ell_edge_grad
     from gigl_tpu_torch.ops.ell_aggregate import (
-        _ell_aggregate_fwd, _ell_aggregate_plain, _ell_transpose_plain,
+        _ell_aggregate_fwd, _ell_aggregate_graph_plain, _ell_transpose_plain,
         ell_transpose_aggregate)
     from gigl_tpu_torch.training.dataset import DeviceGraph
     from gigl_tpu_torch.training.full_batch import FullBatchTrainer
@@ -2010,31 +2029,40 @@ def edge_phases(dev, card, arrays, fb_data, typed, record, add_mode,
     gen = torch.Generator(device=dev).manual_seed(11)
     counts = {}
 
-    # -- K6 gine at the largest bucket, bf16 [N, 128] rows and [E, 128] edge
-    # rows (GINE's hidden width). bytes: each distinct valid source row and
-    # each valid slot's edge row read once, nbr, mask and edge slots, [n_b,
-    # 128] written; ops: an add, a max and an add per valid slot and value.
+    # -- K6 gine at the largest bucket (its rows of the one launch over the
+    # graph), bf16 [N, 128] rows and [E, 128] edge rows (GINE's hidden
+    # width), and over the whole graph (layer: the full-graph GINE pass's
+    # launch). bytes: each distinct valid source row and each valid slot's
+    # edge row read once, each valid slot's id and edge id, each row's
+    # count, [n, 128] written; ops: an add, a max and an add per valid slot
+    # and value.
     x6 = torch.randn((N, EDGE_GINE_HID), generator=gen, device=dev).to(
         torch.bfloat16)
     e6 = torch.randn((E, EDGE_GINE_HID), generator=gen, device=dev).to(
         torch.bfloat16)
 
-    def k6g_kernel():
-        return _ell_aggregate_fwd(x6, nb_b, mk_b, "gine", ea=e6, eslot=es_b)
+    def k6g_kernel(rows=(lo_b, hi_b)):
+        return _ell_aggregate_fwd(x6, fell, "gine", ea=e6, rows=rows)
 
-    def k6g_plain():
-        return _ell_aggregate_plain(x6, nb_b, mk_b, "gine", ea=e6,
-                                    eslot=es_b)
+    def k6g_plain(rows=(lo_b, hi_b)):
+        return _ell_aggregate_graph_plain(x6, fell, "gine", e6, rows)
 
     err = rel_err(k6g_kernel(), k6g_plain(), "K6 gine")
-    nbytes = ((uniq_b + valid_b) * EDGE_GINE_HID * 2 + n_b * w_b * 9
-              + n_b * EDGE_GINE_HID * 2)
+    err_layer = rel_err(k6g_kernel(None), k6g_plain(None), "K6 gine layer")
+    nbytes = ((uniq_b + valid_b) * EDGE_GINE_HID * 2 + valid_b * 8
+              + n_b * 4 + n_b * EDGE_GINE_HID * 2)
+    src_rows = unique(fell.ent_src[fell.ent_mask])
+    layer_bytes = ((src_rows + E) * EDGE_GINE_HID * 2 + E * 8 + N * 4
+                   + N * EDGE_GINE_HID * 2)
     add_mode("ell_aggregate", "gine", {
-        "err": err, "ms": cuda_ms(k6g_kernel),
+        "err": max(err, err_layer), "ms": cuda_ms(k6g_kernel),
         "plain_ms": cuda_ms(k6g_plain, reps=3),
         "eager_ms": eager_ms(k6g_kernel),
         "bound_ms": bound_ms(nbytes, valid_b * EDGE_GINE_HID * 3)[0],
-        "bucket": [n_b, w_b], "edge_rows": valid_b})
+        "bucket": [n_b, w_b], "edge_rows": valid_b,
+        "layer_ms": cuda_ms(lambda: k6g_kernel(None)),
+        "layer_plain_ms": cuda_ms(lambda: k6g_plain(None), reps=1),
+        "layer_bound_ms": bound_ms(layer_bytes, E * EDGE_GINE_HID * 3)[0]})
 
     # -- K6b gine over the whole transpose walk at layer 2's [N, 128] fp32
     # cotangent. bytes: the cotangent rows (once each), each source's own
@@ -2216,6 +2244,10 @@ def edge_phases(dev, card, arrays, fb_data, typed, record, add_mode,
               "launches": counts[path][0], "seconds": pass_s})
         for k in kernels:
             check(counts[path][0][k] > 0, f"{k} was not launched on {path}")
+        if conv == "gine":
+            check(counts[path][0]["ell_aggregate"] == 2,
+                  f"{path}: K6 launched {counts[path][0]['ell_aggregate']} "
+                  "times in two layers, not once a layer")
         embs = sink.table(N, OUT, path)
         with torch.inference_mode(), plain_kernels():
             ref = enc.encode_ell(x_full, fell, ea).float().cpu().numpy()
@@ -2279,6 +2311,10 @@ def edge_phases(dev, card, arrays, fb_data, typed, record, add_mode,
         cnt_, nsteps, row = run_path(path, fbt, state, FB_STEPS, FB_WARMUP,
                                      FB_PROFILED, kernels)
         counts[path] = (cnt_, nsteps)
+        if conv == "gine":
+            check(cnt_["ell_aggregate"] == 2 * nsteps,
+                  f"{path}: K6 launched {cnt_['ell_aggregate']} times in "
+                  f"{nsteps} steps, not once a layer")
         step_s = row["ms_per_step"] / 1e3
         emit({"phase": "edge_full_batch_train_throughput",
               "model": model_name, "edges_per_step": 2 * E,
@@ -3050,11 +3086,18 @@ def partitioned_phases(dev, card, dg, record, add_mode, unique, make_model,
                              + unique(got1[2][got1[1]]) * 4 + m1 * fan1 * 9,
                              m1 * fan1 * 24)[0]})
 
-    # -- K17: the fold of shard 0's own block and the backward of its
-    # first block ([Q_l, C_l] fp32). bytes: S read (and dS written), the
-    # column ids, masks and logQ, the row data and the running state.
+    # -- K17: shard 0's fold of its P blocks ([P, Q_l, C_l] fp32 in ring
+    # order, one launch) and their backward (one launch). bytes: S read
+    # (and dS written), the blocks' column ids, masks and logQ, the row
+    # data and the running state.
+    check(len(folds) == shards and len(bwds) == shards,
+          f"K17: {len(folds)} folds and {len(bwds)} backward calls in a "
+          f"step, not one each a shard ({shards})")
     sc, rws, cls, own = folds[0]
-    ql, cl = sc.shape
+    check(sc.dim() == 3 and sc.shape[0] == shards,
+          f"K17: the step folded {tuple(sc.shape)}, not a shard's "
+          f"{shards} blocks in one call")
+    p17, ql, cl = sc.shape
     fresh = (torch.full((ql,), sr.FMIN, device=dev),
              torch.zeros(ql, device=dev), torch.zeros(ql, device=dev))
     got_state = [t_.clone() for t_ in fresh]
@@ -3072,39 +3115,45 @@ def partitioned_phases(dev, card, dg, record, add_mode, unique, make_model,
     ds_err = float((ds_k - ds_p).abs().max())
     check(ds_err <= 1e-5 * ds_scale,
           f"K17 backward error {ds_err} > 1e-5 * {ds_scale}")
-    v_fold = sr._masked_block_plain(sc, rws, cls, own)[0]
-    v_bwd = sr._masked_block_plain(bsc, brw, bcl, bown)[0]
+    # the masked scores of all P blocks side by side: the yardstick's input
+    v_all = torch.cat([sr._masked_block_plain(
+        bsc[t_], brw, sr._block_cols(bcl, t_), bown and t_ == 0)[0]
+        for t_ in range(p17)], 1)
     work = [t_.clone() for t_ in fresh]
     fold_ms = cuda_ms(lambda: sr.ring_fold(sc, rws, cls, own, *work))
     bwd_ms = cuda_ms(lambda: sr.ring_block_bwd(bsc, brw, bcl, bown, lse, gr))
+    sc0, cls0 = sc[0].contiguous(), sr._block_cols(cls, 0)
+    fold_one_ms = cuda_ms(lambda: sr.ring_fold(sc0, rws, cls0, own, *work))
     plain_fold_ms = cuda_ms(lambda: sr._ring_fold_plain(sc, rws, cls, own,
                                                         *work))
     plain_bwd_ms = cuda_ms(lambda: sr._ring_block_bwd_plain(
         bsc, brw, bcl, bown, lse, gr))
-    v_lib = v_bwd.detach().clone().requires_grad_()
-    lib_fold = cuda_ms(lambda: torch.logsumexp(v_fold, 1))
-    # the block's logsumexp and its gradient (the softmax), as K5's
+    v_lib = v_all.detach().clone().requires_grad_()
+    lib_fold = cuda_ms(lambda: torch.logsumexp(v_all, 1))
+    # the P blocks' logsumexp and its gradient (the softmax), as K5's
     # yardstick takes cross_entropy and its gradient
     lib_ms = cuda_ms(lambda: torch.autograd.grad(
         torch.logsumexp(v_lib, 1).sum(), v_lib))
-    cols_b = cl * 13
+    cols_b = p17 * cl * 13
     rows_b = ql * 12
     record("ring_retrieval", "gigl_tpu_torch/csrc/ring_retrieval.cu",
            "gigl_tpu/losses/sharded_retrieval.py:40",
            max(fold_err, ds_err), fold_ms + bwd_ms,
            plain_fold_ms + plain_bwd_ms,
-           nbytes=(ql * cl * 4 + cols_b + rows_b + ql * 24)
-           + (ql * cl * 8 + cols_b + rows_b + ql * 8),
-           nops=ql * cl * 22, library_ms=lib_ms,
-           library_call="torch.logsumexp over the masked block and its "
-                        "gradient (autograd.grad)",
-           fold_ms=fold_ms, bwd_ms=bwd_ms, plain_fold_ms=plain_fold_ms,
-           plain_bwd_ms=plain_bwd_ms, library_fold_ms=lib_fold,
-           block=[ql, cl], ds_scale=ds_scale,
-           folds_per_step=len(folds), bwds_per_step=len(bwds),
+           nbytes=(p17 * ql * cl * 4 + cols_b + rows_b + ql * 24)
+           + (p17 * ql * cl * 8 + cols_b + rows_b + ql * 8),
+           nops=p17 * ql * cl * 22, library_ms=lib_ms,
+           library_call="torch.logsumexp over the P masked blocks side by "
+                        "side and its gradient (autograd.grad)",
+           fold_ms=fold_ms, bwd_ms=bwd_ms, fold_one_block_ms=fold_one_ms,
+           plain_fold_ms=plain_fold_ms, plain_bwd_ms=plain_bwd_ms,
+           library_fold_ms=lib_fold, blocks=[p17, ql, cl],
+           ds_scale=ds_scale, folds_per_step=len(folds),
+           bwds_per_step=len(bwds),
            eager_ms=eager_ms(lambda: sr.ring_fold(sc, rws, cls, own, *work)))
     a2a_union = fp_cases[0][0].nbytes * shards
     del routes, unroutes, draws, folds, bwds, fp_cases, int_cases, work
+    del v_all, v_lib
 
     # -- the paths: both pools (bf16, the sketch on), then encode_batch
     # over every node
@@ -3143,6 +3192,11 @@ def partitioned_phases(dev, card, dg, record, add_mode, unique, make_model,
             ("ring_retrieval",) if pool == "ring" else ("retrieval_loss",))
         for k in want_k:
             check(counts[path][0][k] > 0, f"{k} was not launched on {path}")
+        if pool == "ring":
+            check(counts[path][0]["ring_retrieval"] == 2 * shards * nsteps,
+                  f"{path}: K17 launched "
+                  f"{counts[path][0]['ring_retrieval']} times in {nsteps} "
+                  "steps, not a fold and a backward a shard")
         check(trainer.overflow_total == 0,
               f"{path}: {trainer.overflow_total} routed requests dropped")
         total = int(state.cms.total)
@@ -4029,8 +4083,8 @@ def main():
         _fanout_attention_plain, fanout_attention_bwd)
     from gigl_tpu_torch.ops.ell import EllGraph
     from gigl_tpu_torch.ops.ell_aggregate import (
-        _ell_aggregate_fwd, _ell_aggregate_plain, _ell_transpose_plain,
-        ell_aggregate_graph, ell_transpose_aggregate)
+        _ell_aggregate_fwd, _ell_aggregate_graph_plain, _ell_aggregate_plain,
+        _ell_transpose_plain, ell_aggregate_graph, ell_transpose_aggregate)
     from gigl_tpu_torch.ops.fanout import (
         MaskedReduce, _masked_reduce_bwd_plain, _masked_reduce_plain,
         masked_reduce, masked_reduce_bwd)
@@ -4542,18 +4596,18 @@ def main():
         check(err <= tol * scale, f"{what} error {err} > {tol}*{scale}")
         return err
 
-    # K6 in every mode. bytes: each distinct valid neighbor row read once,
-    # nbr and mask read once, [n_b, D] written (GCN: the degrees of those
-    # rows too); ops: one multiply-add per valid slot and value.
+    # K6 in every mode at the largest bucket: its rows (lo_b, hi_b) of the
+    # one launch over the graph. bytes: each distinct valid neighbor row
+    # read once, each valid slot's id and each row's count read once,
+    # [n_b, D] written (GCN: the degrees of those rows too); ops: one
+    # multiply-add per valid slot and value.
     k6 = {}
     for op in ("mean", "sum", "max", "gcn"):
-        degs = (deg_dst_b, ell.deg_p) if op == "gcn" else (None, None)
+        def k6_kernel(op=op):
+            return _ell_aggregate_fwd(x6, ell, op, rows=(lo_b, hi_b))
 
-        def k6_kernel(op=op, degs=degs):
-            return _ell_aggregate_fwd(x6, nbr_b, mask_b, op, *degs)
-
-        def k6_plain(op=op, degs=degs):
-            return _ell_aggregate_plain(x6, nbr_b, mask_b, op, *degs)
+        def k6_plain(op=op):
+            return _ell_aggregate_graph_plain(x6, ell, op, rows=(lo_b, hi_b))
 
         err = rel_err(k6_kernel(), k6_plain(), f"K6 {op}")
         k6[op] = {"err": err, "ms": cuda_ms(k6_kernel),
@@ -4564,7 +4618,47 @@ def main():
     adj = torch.sparse_csr_tensor(
         crow, nbr_b[mask_b].long(),
         torch.ones(valid_b, dtype=torch.bfloat16, device=dev), (n_b, N))
-    k6_bytes = uniq_b * HID * 2 + n_b * w_b * 5 + n_b * HID * 2
+    k6_bytes = uniq_b * HID * 2 + valid_b * 4 + n_b * 4 + n_b * HID * 2
+    # K6 over a whole layer, one launch over every bucket, at the widths
+    # the paths run: the full-graph pass's two layers (bf16 [N, 128] and
+    # [N, 256]) and the ELL full-batch step's (fp32), mean. bytes: each
+    # distinct source row once, every valid slot's id (GINE: and its edge
+    # id and edge row), every row's count, [N, D] written; the bound of a
+    # path's K6 is the sum over its two layers.
+    n_edges = int(ell.ent_mask.sum())
+    src_rows = unique(ell.ent_src[ell.ent_mask])
+
+    def k6_layer_bound(d_, elt, edge_elt=0):
+        nbytes = (src_rows * d_ * elt + n_edges * 4 + N * 4 + N * d_ * elt
+                  + (n_edges * (4 + d_ * edge_elt) if edge_elt else 0))
+        return bound_ms(nbytes, n_edges * d_ * (3 if edge_elt else 1))[0]
+
+    k6_layers = {}
+    for label, d_, dt_ in (("bf16_d128", D, torch.bfloat16),
+                           ("bf16_d256", HID, torch.bfloat16),
+                           ("fp32_d128", D, torch.float32),
+                           ("fp32_d256", HID, torch.float32)):
+        xl = torch.randn((N, d_), generator=gen6, device=dev).to(dt_)
+
+        def k6l_kernel(xl=xl):
+            return _ell_aggregate_fwd(xl, ell, "mean")
+
+        def k6l_plain(xl=xl):
+            return _ell_aggregate_graph_plain(xl, ell, "mean")
+
+        err = rel_err(k6l_kernel(), k6l_plain(), f"K6 mean layer {label}")
+        k6_layers[label] = {
+            "err": err, "ms": cuda_ms(k6l_kernel),
+            "plain_ms": cuda_ms(k6l_plain, reps=1),
+            "bound_ms": k6_layer_bound(d_, xl.element_size())}
+        del xl
+    k6_path_bounds = {
+        "full_graph_graphsage": k6_layers["bf16_d128"]["bound_ms"]
+        + k6_layers["bf16_d256"]["bound_ms"],
+        "full_batch_graphsage": k6_layers["fp32_d128"]["bound_ms"]
+        + k6_layers["fp32_d256"]["bound_ms"],
+        "edge_full_graph_gine": 2 * k6_layer_bound(EDGE_GINE_HID, 2, 2),
+        "edge_full_batch_gine": 2 * k6_layer_bound(EDGE_GINE_HID, 4, 4)}
     record("ell_aggregate", "gigl_tpu_torch/csrc/ell_aggregate.cu",
            "gigl_tpu/ops/ell.py:237", max(v["err"] for v in k6.values()),
            k6["mean"]["ms"], k6["mean"]["plain_ms"],
@@ -4576,7 +4670,8 @@ def main():
            modes={op: {**v, "bound_ms": bound_ms(
                k6_bytes + (uniq_b * 4 + n_b * 4 if op == "gcn" else 0),
                valid_b * HID * (2 if op == "gcn" else 1))[0]}
-               for op, v in k6.items()})
+               for op, v in k6.items()},
+           layers=k6_layers, path_bounds_ms=k6_path_bounds)
 
     # K7 in every mode at GAT layer 1's widths (H=4, Dh=64). bytes: xd, each
     # distinct valid source row of ks (and of vs when it is another table)
@@ -4721,6 +4816,11 @@ def main():
             check(launches_fg[model_name][kname] > 0,
                   f"{kname} was not launched on the {model_name} "
                   "full-graph path")
+        if model_name == "graphsage":
+            check(launches_fg[model_name]["ell_aggregate"] == 2,
+                  "K6 launched "
+                  f"{launches_fg[model_name]['ell_aggregate']} times in the "
+                  "two-layer full-graph pass, not once a layer")
         ids = np.concatenate(sink.ids)
         embs = np.concatenate(sink.embs)
         check(total == N and ids.shape == (N,)
@@ -5022,6 +5122,9 @@ def main():
                                        FULL_BATCH_KERNELS[model_name])
         nc_launches[path] = (counts, nsteps)
         if model_name == "graphsage":
+            check(counts["ell_aggregate"] == 2 * nsteps,
+                  f"K6 launched {counts['ell_aggregate']} times in "
+                  f"{nsteps} steps, not once a layer")
             # layer 2's aggregate only: layer 1's input needs no gradient
             check(counts["ell_transpose_aggregate"] == t_nonempty * nsteps,
                   f"K6b launched {counts['ell_transpose_aggregate']} times, "

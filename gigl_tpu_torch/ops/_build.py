@@ -85,7 +85,7 @@ _SIGNATURES = {
                                 _F32, _F32, _I32, _I32, _P, _P, _P, _P, _P],
     "gigl_retrieval_loss_bwd": [_P, _I64, _I64, _I32, _P, _P, _P, _P, _P,
                                 _F32, _F32, _I32, _I32, _P, _P, _P, _P],
-    "gigl_ell_aggregate": [_P] * 8 + [_I64] + [_I32] * 5 + [_P],
+    "gigl_ell_aggregate": [_P] * 7 + [_I32, _I64] + [_I32] * 5 + [_P],
     "gigl_fanout_attention": [_P] * 12 + [_I64] + [_I32] * 5
     + [_F32, _F32, _P],
     "gigl_ell_transpose_aggregate": [_P] * 14 + [_I64] + [_I32] * 7
@@ -109,9 +109,9 @@ _SIGNATURES = {
     "gigl_route_requests": [_P, _I64, _I64, _I32, _I32, _I32] + [_P] * 6,
     "gigl_route_tiles": [_I64],
     "gigl_unroute_rows": [_P, _I32, _I32, _I32, _P, _P, _P, _I64, _P, _P],
-    "gigl_ring_fold": [_P, _I32, _I32] + [_P] * 7 + [_F32, _F32]
+    "gigl_ring_fold": [_P, _I32, _I32, _I32] + [_P] * 7 + [_F32, _F32]
     + [_P] * 4,
-    "gigl_ring_block_bwd": [_P, _I32, _I32] + [_P] * 7 + [_F32, _F32]
+    "gigl_ring_block_bwd": [_P, _I32, _I32, _I32] + [_P] * 7 + [_F32, _F32]
     + [_P] * 4,
     "gigl_ring_spmm": [_P] * 5 + [_I32] * 3 + [_P],
 }

@@ -30,12 +30,14 @@ neighbor and edge rows through the index tables inside kernel K6
 ``ell_aggregate`` (SAGE, GCN, GIN, GINE; ``ops/ell_aggregate.py``) or K7
 ``fanout_attention`` (GAT, GATv2, Transformer, with the edge rows as an
 addend; ``ops/attention.py``), one autograd node per layer whose forward
-launches the kernel once per bucket into one ``[N, D_out]`` output and
-whose backward walks the transpose tables once (K6b, after K7b for
-attention) — the scatter-free custom VJP of :237-286 — and writes the edge
-table's gradient once per edge (K11 :func:`ell_edge_grad`, the
-permutation VJP of :303-313). Masked slots point at row 0 (``rank[v] *
-m``, ``eid * m``); the kernels honour the mask, never the index.
+fills one ``[N, D_out]`` output (K6: one launch over every bucket; K7:
+one launch per bucket) and whose backward walks the transpose tables once
+(K6b, after K7b for attention) — the scatter-free custom VJP of :237-286 —
+and writes the edge table's gradient once per edge (K11
+:func:`ell_edge_grad`, the permutation VJP of :303-313). Masked slots
+point at row 0 (``rank[v] * m``, ``eid * m``); the kernels honour the
+mask (K6 as each row's count: the mask is its left-packed prefix), never
+the index.
 """
 
 from __future__ import annotations
@@ -113,6 +115,20 @@ def _bucketize_rows(
     return perm, rank, boundaries, padded, masks, slot_idx
 
 
+def _check_prefix_masks(masks: Sequence[np.ndarray], deg_p: np.ndarray,
+                        boundaries: Sequence[int]) -> None:
+    """Raise unless every bucket's mask is a left-packed prefix whose row
+    sums are the rows' in-degrees ``deg_p`` (permuted order): the valid
+    slots of a row are then exactly its first ``deg_p`` entries, which is
+    all that K6 reads of the mask."""
+    for b, mk in enumerate(masks):
+        deg = np.asarray(deg_p[boundaries[b]:boundaries[b + 1]])
+        if mk.shape[0] != deg.shape[0] or not np.array_equal(
+                mk, np.arange(mk.shape[1])[None, :] < deg[:, None]):
+            raise ValueError(f"EllGraph: bucket {b}'s mask is not the "
+                             "left-packed prefix of its rows' in-degrees")
+
+
 @dataclass
 class EllGraph:
     """Bucketed padded adjacency in permuted node space.
@@ -128,7 +144,9 @@ class EllGraph:
     ent_src / ent_edge / ent_mask (flat entry -> dst row, source row, COO
     edge, validity: the masks flattened once) and ent_off (bucket b's
     first entry); edge_pos (COO edge -> flat entry) serves the edge
-    features' backward (K11)."""
+    features' backward (K11). Each bucket's mask is the left-packed prefix
+    of its rows' in-degrees (``from_csr`` checks it): K6 walks a row's
+    first ``deg_p`` entries of ``ent_src`` and reads no mask."""
 
     perm: torch.Tensor                 # [N] int32
     rank: torch.Tensor                 # [N] int32
@@ -176,6 +194,7 @@ class EllGraph:
             raise ValueError(f"widths must be ascending: {ws}")
         perm, rank, boundaries, padded_nbr, masks, slot_idx = (
             _bucketize_rows(indptr, indices, ws))
+        _check_prefix_masks(masks, deg[perm], boundaries)
         nbrs = [rank[v] * m for v, m in zip(padded_nbr, masks)]
         eid = (np.asarray(csr.edge_ids, np.int64)
                if csr.edge_ids is not None else np.arange(len(indices)))

@@ -15,8 +15,14 @@
 ``ell_gather_edges`` (``gigl_tpu/ops/ell.py:289-316``) fused in: the edge
 rows are read through the bucket's edge slots, no ``[n, W, D]`` edge block.
 fp32 accumulation (GINE: the add and the relu too), one rounding to x's
-type; rows with no valid slot give 0. :func:`_ell_aggregate_plain` is its
-plain twin, run for CPU tensors only.
+type; rows with no valid slot give 0. One launch covers every bucket of an
+:class:`~gigl_tpu_torch.ops.ell.EllGraph` (:func:`_ell_aggregate_fwd`): it
+walks the flat entry tables ``ent_src`` / ``ent_edge`` up to each row's
+count ``deg_p`` (its mask is that left-packed prefix, which ``from_csr``
+checks), so it reads no mask. :func:`_ell_aggregate_plain` is the
+reference's arithmetic over one bucket's ``nbr`` / ``mask`` and
+:func:`_ell_aggregate_graph_plain` the same over every bucket from the flat
+tables: K6's plain twin, run for CPU tensors only.
 
 ``csrc/ell_transpose.cu`` (K6b) replaces ``_ell_gather_bwd`` (:255-283),
 the scatter-free custom VJP of ``ell_gather``, fused with the reduce's
@@ -29,7 +35,7 @@ summed per transpose bucket, gathered back by ``t_rank``.
 
 :func:`ell_aggregate_graph` is the trainable form over a whole
 :class:`~gigl_tpu_torch.ops.ell.EllGraph`: one ``autograd.Function`` whose
-forward launches K6 per bucket into one ``[N, D]`` output and whose
+forward launches K6 once into one ``[N, D]`` output and whose
 backward is K6b (mean, sum, gcn, and max: the cotangent shared among the
 slots equal to the max, as ``jax.vjp`` of ``jnp.max`` shares it, from tie
 counts taken over the forward tables; gine: each entry gated by its relu)
@@ -40,6 +46,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from gigl_tpu_torch.ops import _build
@@ -50,6 +57,10 @@ OPS = {"mean": 0, "sum": 1, "max": 2, "gcn": 3, "gine": 4}
 T_OPS = {"mean": 0, "sum": 1, "max": 2, "gcn": 3, "weighted": 4,
          "gatv2": 5, "gine": 6}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Non-empty buckets one K6 launch walks (csrc/ell_aggregate.cu kMaxSegments):
+# default widths give far fewer; a graph with more takes a launch per this
+# many of them.
+MAX_SEGMENTS = 48
 
 
 def _ell_aggregate_plain(x, nbr, mask, op, deg_dst=None, deg_tab=None,
@@ -67,62 +78,98 @@ def _ell_aggregate_plain(x, nbr, mask, op, deg_dst=None, deg_tab=None,
     return _masked_reduce_plain(feats, mask, op).to(x.dtype)
 
 
-def _ell_aggregate_fwd(x, nbr, mask, op, deg_dst=None, deg_tab=None,
-                       out=None, ea=None, eslot=None):
-    """K6 launch (plain twin for CPU tensors): x [M, D], nbr [n, W] int32
-    rows of x, mask [n, W] bool -> [n, D], into ``out`` when given; ``op``
-    "gcn" also takes deg_dst [n] and deg_tab [M] (f32 in-degrees, without
-    the self loop), "gine" ea [E, D] of x's type with eslot [n, W] int32
-    (its rows per slot), or neither (relu of the neighbor rows alone)."""
+def _rows_of(ell, rows):
+    """The graph rows [lo, hi) a K6 call covers (all by default)."""
+    lo, hi = (0, ell.num_nodes) if rows is None else (int(rows[0]),
+                                                      int(rows[1]))
+    if not 0 <= lo <= hi <= ell.num_nodes:
+        raise ValueError(f"ell_aggregate: rows [{lo}, {hi}) outside the "
+                         f"graph's {ell.num_nodes}")
+    return lo, hi
+
+
+def _bucket_parts(ell, lo, hi):
+    """Per bucket b meeting [lo, hi): (b, its first and last row + 1 there,
+    the flat entry of that first row), in bucket order."""
+    parts = []
+    for b, w in enumerate(ell.widths):
+        r0 = max(lo, ell.boundaries[b])
+        r1 = min(hi, ell.boundaries[b + 1])
+        if r1 > r0:
+            parts.append((b, r0, r1,
+                          ell.ent_off[b] + (r0 - ell.boundaries[b]) * w))
+    return parts
+
+
+def _ell_aggregate_graph_plain(x, ell, op, ea=None, rows=None):
+    """Plain twin of K6 over ``ell``'s rows [lo, hi): per bucket, the
+    reference's gather and masked reduce (:func:`_ell_aggregate_plain`)
+    over its block of the flat entry tables, the mask each row's count
+    ``deg_p`` as a left-packed prefix."""
+    lo, hi = _rows_of(ell, rows)
+    outs = []
+    for b, r0, r1, e0 in _bucket_parts(ell, lo, hi):
+        w = ell.widths[b]
+        ent = slice(e0, e0 + (r1 - r0) * w)
+        deg = ell.deg_p[r0:r1]
+        mask = torch.arange(w, device=deg.device)[None, :] < deg[:, None]
+        eslot = None if ea is None else ell.ent_edge[ent].view(-1, w)
+        outs.append(_ell_aggregate_plain(
+            x, ell.ent_src[ent].view(-1, w), mask, op, deg, ell.deg_p, ea,
+            eslot))
+    if not outs:
+        return torch.zeros((hi - lo, x.shape[1]), dtype=x.dtype,
+                           device=x.device)
+    return torch.cat(outs)
+
+
+def _ell_aggregate_fwd(x, ell, op, ea=None, rows=None):
+    """K6 launch (plain twin for CPU tensors): x [N, D] in permuted order
+    -> [hi - lo, D], every row r of ``ell`` in ``rows`` = (lo, hi) (all
+    by default) reduced over its in-neighbors, in one launch (one per
+    ``MAX_SEGMENTS`` non-empty buckets past that many). ``op`` "gcn"
+    reads ``ell.deg_p`` for both ends; "gine" takes ea [E, D] of x's type
+    (read through ``ell.ent_edge``), or None (relu of the neighbor rows
+    alone)."""
     if op not in OPS:
         raise ValueError(f"Unknown reduce {op!r}")
-    if op == "gcn" and (deg_dst is None or deg_tab is None):
-        raise ValueError("ell_aggregate: gcn needs deg_dst and deg_tab")
-    if (ea is None) != (eslot is None) or (ea is not None and op != "gine"):
-        raise ValueError("ell_aggregate: ea and eslot go together, in gine "
-                         "mode only")
+    if ea is not None and op != "gine":
+        raise ValueError("ell_aggregate: edge rows in gine mode only")
+    lo, hi = _rows_of(ell, rows)
     if x.device.type == "cpu":
-        got = _ell_aggregate_plain(x, nbr, mask, op, deg_dst, deg_tab, ea,
-                                   eslot)
-        return got if out is None else out.copy_(got)
-    degs = (deg_dst, deg_tab) if op == "gcn" else ()
-    edges = (ea, eslot) if ea is not None else ()
-    device = _build.require_cuda("ell_aggregate", x, nbr, mask, *degs,
+        return _ell_aggregate_graph_plain(x, ell, op, ea, (lo, hi))
+    edges = (ea, ell.ent_edge) if ea is not None else ()
+    device = _build.require_cuda("ell_aggregate", x, ell.ent_src, ell.deg_p,
                                  *edges)
-    if x.dim() != 2 or nbr.dim() != 2 or mask.shape != nbr.shape:
-        raise ValueError("ell_aggregate: expected x [M, D], nbr and mask "
-                         f"[n, W], got {tuple(x.shape)} / {tuple(nbr.shape)} "
-                         f"/ {tuple(mask.shape)}")
-    if nbr.dtype != torch.int32 or mask.dtype != torch.bool:
-        raise ValueError("ell_aggregate: nbr must be int32 and mask bool")
-    if x.dtype not in _DTYPES:
-        raise ValueError(f"ell_aggregate: dtype {x.dtype} not supported")
-    (n, w), d = nbr.shape, x.shape[1]
-    if op == "gcn" and (deg_dst.dtype != torch.float32 or deg_dst.shape != (n,)
-                        or deg_tab.dtype != torch.float32
-                        or deg_tab.shape != (x.shape[0],)):
-        raise ValueError("ell_aggregate: gcn needs f32 deg_dst [n] and "
-                         "deg_tab [M]")
-    if ea is not None and (ea.dim() != 2 or ea.shape[1] != d
-                           or ea.dtype != x.dtype or eslot.shape != nbr.shape
-                           or eslot.dtype != torch.int32):
-        raise ValueError("ell_aggregate: gine needs ea [E, D] of x's type "
-                         "and eslot [n, W] int32")
-    if out is None:
-        out = torch.empty((n, d), dtype=x.dtype, device=device)
-    elif out.shape != (n, d) or out.dtype != x.dtype \
-            or not out.is_contiguous() or out.device != device:
-        raise ValueError("ell_aggregate: out must be a contiguous [n, D] "
-                         "tensor of x's type on x's device")
-    vec = int((d * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0
-              and out.data_ptr() % 16 == 0
-              and (ea is None or ea.data_ptr() % 16 == 0))
-    _build.launch("ell_aggregate", "gigl_ell_aggregate", device,
-                  x.data_ptr(), nbr.data_ptr(), mask.data_ptr(),
-                  _build.ptr(deg_dst if degs else None),
-                  _build.ptr(deg_tab if degs else None), _build.ptr(ea),
-                  _build.ptr(eslot), out.data_ptr(),
-                  n, w, d, _DTYPES[x.dtype], OPS[op], vec)
+    if x.dim() != 2 or x.shape[0] != ell.num_nodes \
+            or x.dtype not in _DTYPES:
+        raise ValueError(f"ell_aggregate: x must be [N={ell.num_nodes}, D], "
+                         f"fp32 or bf16, got {x.dtype} {tuple(x.shape)}")
+    d = x.shape[1]
+    if ea is not None and (ea.shape != (ell.num_edges, d)
+                           or ea.dtype != x.dtype):
+        raise ValueError(f"ell_aggregate: gine needs ea [E={ell.num_edges}, "
+                         "D] of x's type")
+    out = torch.empty((hi - lo, d), dtype=x.dtype, device=device)
+    # the widest bucket's rows first: hub rows do not form the tail
+    parts = _bucket_parts(ell, lo, hi)[::-1]
+    if not parts:
+        return out
+    segs = np.array([(r0, r1 - r0, e0, ell.widths[b])
+                     for b, r0, r1, e0 in parts], np.int64).reshape(-1, 4)
+    vec = int((d * x.element_size()) % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (x, out, ea) if t is not None))
+    ids4 = int(all(e0 % 4 == 0 and ell.widths[b] % 4 == 0
+                   for b, _, _, e0 in parts) and all(
+        t.data_ptr() % 16 == 0 for t in (ell.ent_src, *edges[1:])))
+    for k in range(0, len(segs), MAX_SEGMENTS):
+        chunk = segs[k:k + MAX_SEGMENTS]                 # rows: contiguous
+        _build.launch("ell_aggregate", "gigl_ell_aggregate", device,
+                      x.data_ptr(), ell.ent_src.data_ptr(),
+                      _build.ptr(edges[1] if edges else None),
+                      ell.deg_p.data_ptr(), _build.ptr(ea), out.data_ptr(),
+                      chunk.ctypes.data, len(chunk), lo, d,
+                      _DTYPES[x.dtype], OPS[op], vec, ids4)
     return out
 
 
@@ -314,22 +361,12 @@ def ell_transpose_aggregate(rows: torch.Tensor, ell, op: str,
 
 
 class EllAggregateGraph(torch.autograd.Function):
-    """K6 per bucket into one [N, D] output; the backward is K6b (and, for
-    GINE's edge table, K11)."""
+    """K6 over every bucket in one launch into one [N, D] output; the
+    backward is K6b (and, for GINE's edge table, K11)."""
 
     @staticmethod
     def forward(ctx, src, ea, ell, op):
-        out = torch.empty((ell.num_nodes, src.shape[1]), dtype=src.dtype,
-                          device=src.device)
-        for b in range(len(ell.widths)):
-            lo, hi = ell.boundaries[b], ell.boundaries[b + 1]
-            if hi == lo:
-                continue
-            degs = (ell.deg_p[lo:hi], ell.deg_p) if op == "gcn" else (None,
-                                                                      None)
-            _ell_aggregate_fwd(src, ell.nbr[b], ell.mask[b], op, *degs,
-                               out=out[lo:hi], ea=ea,
-                               eslot=None if ea is None else ell.edge_slots[b])
+        out = _ell_aggregate_fwd(src, ell, op, ea=ea)
         ctx.ell, ctx.op = ell, op
         if op == "max":
             ctx.save_for_backward(src, out)

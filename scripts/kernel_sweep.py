@@ -63,6 +63,24 @@ the C signature of its earlier version:
   walk K9 and K9b share). ``first``: the K9b that walks a segment twice
   with a warp, a value at a time; every output is held bit for bit
   against its output.
+- ``ell``: K6 ell_aggregate over the flagship graph's ELL tables, one
+  launch over every bucket: the two layers' widths (D 128 and 256) in
+  bf16 and fp32, mean, sum, max and gcn, and gine at D 128 with and
+  without [E, 128] edge rows; and the largest bucket's rows alone (bf16
+  D 256 mean). Modes ``kept`` (CUDA-graph replay), ``kept_eager`` and
+  ``window_eager`` (eager calls between CUDA events, the latter with a
+  persisting L2 access-policy window over x, the set-aside the most the
+  card grants). Knob ``slots`` (kSlotsInFlight).
+  ``first``: the K6 that launched once a bucket and walked every slot's
+  mask byte, id and row; every output is held bit for bit against its
+  output.
+- ``ring``: K17 ring_retrieval's fold and backward at a shard's
+  [P, 128, 256] fp32 scores (the flagship ring step's), P 1 and 4, with
+  every mask on and a logQ term. Knob ``warps`` (kRingWarps, the rows a
+  block of the fold). ``first``: the K17 that took one block a launch,
+  launched once a block; every output is held bit for bit against its
+  output (the fold's [3, Ql] state, reset before and copied out after the
+  fold in every variant).
 - ``route``: K15 route_requests at the partitioned step's largest routed
   lookup (4 request vectors of 63,744 ids over N = 100k nodes in 4 shards
   of 25,000 rows, capacity 31,872), all four in one call (``batched_s4``)
@@ -211,6 +229,23 @@ def registers(log: Path, sources):
         row["kernel"] = name.replace("void ", "", 1).replace(
             "(anonymous namespace)::", "").split("(", 1)[0]
     return rows
+
+
+def eager_ms(fn, reps=20) -> float:
+    """Device ms of one call: reps eager calls between two CUDA events,
+    after two warm calls (for modes that a CUDA graph would not capture as
+    they run, such as a stream attribute set around the launch)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def cuda_ms(fn, reps=20) -> float:
@@ -676,6 +711,207 @@ def route_cases(dev, _build, first):
     return cases
 
 
+class _AccessPolicyWindow(ctypes.Structure):
+    _fields_ = [("base_ptr", ctypes.c_void_p), ("num_bytes", ctypes.c_size_t),
+                ("hit_ratio", ctypes.c_float), ("hit_prop", ctypes.c_int),
+                ("miss_prop", ctypes.c_int)]
+
+
+class _StreamAttr(ctypes.Union):
+    _fields_ = [("window", _AccessPolicyWindow), ("pad", ctypes.c_char * 64)]
+
+
+def persisting_window(dev, table):
+    """``fn -> fn'``: fn run with a persisting L2 access-policy window over
+    ``table``'s bytes on the current stream (CUDA driver API, this process's
+    context: its persisting L2 set-aside raised to the most the card
+    allows), the window removed after; and the set-aside in bytes. (None,
+    0) where the driver grants no set-aside."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    torch.cuda.synchronize(dev)
+    size, most, window = ctypes.c_size_t(), ctypes.c_int(), ctypes.c_int()
+    device = ctypes.c_int()
+    # CU_DEVICE_ATTRIBUTE_MAX_PERSISTING_L2_CACHE_SIZE (108): ask for it
+    # (CU_LIMIT_PERSISTING_L2_CACHE_SIZE, 0x06), read back what is granted;
+    # the window at most CU_DEVICE_ATTRIBUTE_MAX_ACCESS_POLICY_WINDOW_SIZE
+    # (109)
+    rcs = (cuda.cuCtxGetDevice(ctypes.byref(device)),
+           cuda.cuDeviceGetAttribute(ctypes.byref(most), 108, device),
+           cuda.cuDeviceGetAttribute(ctypes.byref(window), 109, device),
+           cuda.cuCtxSetLimit(0x06, ctypes.c_size_t(most.value)),
+           cuda.cuCtxGetLimit(ctypes.byref(size), 0x06))
+    nbytes = min(table.numel() * table.element_size(), window.value)
+    print(json.dumps({"phase": "persisting_l2", "cu_results": rcs,
+                      "max_set_aside_bytes": most.value,
+                      "set_aside_bytes": size.value,
+                      "max_window_bytes": window.value,
+                      "window_bytes": nbytes}), flush=True)
+    if any(rcs) or size.value == 0 or nbytes == 0:
+        return None, 0
+    on, off = _StreamAttr(), _StreamAttr()
+    on.window = _AccessPolicyWindow(table.data_ptr(), nbytes,
+                                    min(1.0, size.value / nbytes), 2, 1)
+    off.window = _AccessPolicyWindow(table.data_ptr(), 0, 0.0, 0, 0)
+
+    def wrap(fn):
+        def run():
+            stream = ctypes.c_void_p(torch.cuda.current_stream(dev)
+                                     .cuda_stream)
+            # CU_STREAM_ATTRIBUTE_ACCESS_POLICY_WINDOW
+            rc = cuda.cuStreamSetAttribute(stream, 1, ctypes.byref(on))
+            if rc:
+                raise RuntimeError(f"access-policy window: CUresult {rc}")
+            out = fn()
+            rc = cuda.cuStreamSetAttribute(stream, 1, ctypes.byref(off))
+            if rc:
+                raise RuntimeError(f"access-policy window: CUresult {rc}")
+            return out
+        return run
+    return wrap, size.value
+
+
+def ell_cases(dev, _build, first):
+    from gigl_tpu_torch.graph.csr import build_csr
+    from gigl_tpu_torch.ops.ell import EllGraph
+    from gigl_tpu_torch.ops.ell_aggregate import (
+        OPS, _ell_aggregate_fwd, _ell_aggregate_graph_plain)
+
+    _, src, dst = flagship()
+    ell = EllGraph.from_csr(build_csr(src, dst, num_anchor_nodes=N),
+                            device=dev)
+    sizes = [hi - lo for lo, hi in zip(ell.boundaries, ell.boundaries[1:])]
+    big = int(np.argmax(sizes))
+    gen = torch.Generator(device=dev).manual_seed(20)
+    dtypes = {torch.float32: 0, torch.bfloat16: 1}
+    cases = {}
+
+    def run_first(x, op, ea, rows=None):
+        """The first version: one launch a bucket, each into its rows."""
+        lo_r, hi_r = rows or (0, N)
+        d = x.shape[1]
+        out = torch.empty((hi_r - lo_r, d), dtype=x.dtype, device=dev)
+        vec = int(d * x.element_size() % 16 == 0)
+        for b, w in enumerate(ell.widths):
+            lo, hi = ell.boundaries[b], ell.boundaries[b + 1]
+            if hi == lo or lo < lo_r or hi > hi_r:
+                continue
+            gcn = op == "gcn"
+            first("gigl_ell_aggregate", x.data_ptr(), ell.nbr[b].data_ptr(),
+                  ell.mask[b].data_ptr(),
+                  ell.deg_p[lo:].data_ptr() if gcn else None,
+                  ell.deg_p.data_ptr() if gcn else None, _build.ptr(ea),
+                  None if ea is None else ell.edge_slots[b].data_ptr(),
+                  out[lo - lo_r:].data_ptr(), hi - lo, w, d, dtypes[x.dtype],
+                  OPS[op], vec)
+        return out
+
+    def case(label, x, op, ea=None, rows=None):
+        window, _ = persisting_window(dev, x)
+
+        def kept():
+            return _ell_aggregate_fwd(x, ell, op, ea=ea, rows=rows)
+
+        fns = {"kept": kept, "kept_eager": kept}
+        if window is not None:
+            fns["window_eager"] = window(kept)
+        if first is not None:
+            fns["first"] = lambda: run_first(x, op, ea, rows)
+        cases[label] = (fns, lambda: _ell_aggregate_graph_plain(
+            x, ell, op, ea, rows),
+            1e-5 if x.dtype == torch.float32 else 2.0 ** -7)
+
+    x_big = torch.randn((N, 256), generator=gen, device=dev).to(
+        torch.bfloat16)
+    case("k6_bucket_bf16_d256_mean", x_big, "mean",
+         rows=(ell.boundaries[big], ell.boundaries[big + 1]))
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        for d in (128, 256):
+            x = torch.randn((N, d), generator=gen, device=dev).to(dtype)
+            for op in ("mean", "sum", "max", "gcn"):
+                case(f"k6_{tag}_d{d}_{op}", x, op)
+        x = torch.randn((N, 128), generator=gen, device=dev).to(dtype)
+        ea = torch.randn((E, 128), generator=gen, device=dev).to(dtype)
+        case(f"k6_{tag}_d128_gine_edges", x, "gine", ea=ea)
+        case(f"k6_{tag}_d128_gine", x, "gine")
+    return cases
+
+
+def ring_cases(dev, _build, first):
+    from gigl_tpu_torch.losses import sharded_retrieval as sr
+
+    ql, cl = 128, 256       # a shard's rows and block at the flagship step
+    rng = np.random.default_rng(21)
+    cases = {}
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    rows = sr.RingRows(
+        temperature=0.07, label_cols=t(np.arange(ql, dtype=np.int32)),
+        query_ids=t(rng.integers(0, N, ql).astype(np.int32)),
+        own_pos_ids=t(rng.integers(0, N, ql).astype(np.int32)))
+    for p in (1, 4):
+        scores = t((rng.normal(size=(p, ql, cl)) * 3).astype(np.float32))
+        blocks = [sr.RingColumns(
+            ids=t(rng.integers(0, N, cl).astype(np.int32)),
+            pos_qids=t(np.where(np.arange(cl) < ql,
+                                rng.integers(0, N, cl), -1).astype(np.int32)),
+            mask=t(rng.random(cl) < 0.95),
+            log_q=t(np.log(rng.random(cl) * 1e-3 + 1e-6).astype(np.float32)))
+            for _ in range(p)]
+        cols = sr.stack_columns(blocks)
+        fresh = torch.stack([torch.full((ql,), sr.FMIN, device=dev),
+                             torch.zeros(ql, device=dev),
+                             torch.zeros(ql, device=dev)])
+        state = torch.empty_like(fresh)
+
+        def fold(fn, state=state, fresh=fresh):
+            """[3, Ql]: (m, s, pos) after the fold (a reset copy before it
+            and a copy out after it, in every variant)."""
+            state.copy_(fresh)
+            fn(*state)
+            return state.clone()
+
+        def args(b, s_t, own):
+            _, a = sr._kernel_args("ring_retrieval", s_t, rows, b, own)
+            return a
+
+        def first_fold(m, s, pos, scores=scores, blocks=blocks):
+            for k, b in enumerate(blocks):
+                a = args(b, scores[k], k == 0)
+                first("gigl_ring_fold", a[0], *a[2:], m.data_ptr(),
+                      s.data_ptr(), pos.data_ptr())
+
+        st = fresh.clone()        # the fold's own logsumexp
+        sr._ring_fold_plain(scores, rows, cols, True, *st)
+        lse = torch.log(torch.clamp(st[1], min=1e-30)) + st[0]
+        g = torch.rand(ql, device=dev)
+
+        def first_bwd(scores=scores, blocks=blocks, lse=lse, g=g):
+            ds = torch.empty_like(scores)
+            for k, b in enumerate(blocks):
+                a = args(b, scores[k], k == 0)
+                first("gigl_ring_block_bwd", a[0], *a[2:], lse.data_ptr(),
+                      g.data_ptr(), ds[k].data_ptr())
+            return ds
+
+        fns = {"kept": lambda scores=scores, cols=cols, fold=fold: fold(
+            lambda *st: sr.ring_fold(scores, rows, cols, True, *st))}
+        if first is not None:
+            fns["first"] = lambda fold=fold, ff=first_fold: fold(ff)
+        cases[f"k17_fold_p{p}"] = (fns, lambda scores=scores, cols=cols,
+                                   fold=fold: fold(
+            lambda *st: sr._ring_fold_plain(scores, rows, cols, True, *st)))
+        fns = {"kept": lambda scores=scores, cols=cols, lse=lse, g=g:
+               sr.ring_block_bwd(scores, rows, cols, True, lse, g)}
+        if first is not None:
+            fns["first"] = first_bwd
+        cases[f"k17_bwd_p{p}"] = (fns, lambda scores=scores, cols=cols,
+                                  lse=lse, g=g: sr._ring_block_bwd_plain(
+            scores, rows, cols, True, lse, g))
+    return cases
+
+
 # -- the sweeps ----------------------------------------------------------------
 # K9's and K9b's shared walk (csrc/gigl_softmax.cuh)
 SOFTMAX_KNOBS = {name: [("gigl_softmax.cuh",
@@ -777,6 +1013,34 @@ SWEEPS = {
         # alpha, g, order, ptr, out, S, heads, dtype, stream
         "first": {"gigl_segment_softmax_bwd": [_P] * 5
                   + [_I64, _I32, _I32, _P]},
+        "bit_equal_first": True},
+    "ell": {
+        "sources": ["ell_aggregate.cu"],
+        "entries": ["gigl_ell_aggregate"],
+        "knobs": {"slots": [("ell_aggregate.cu",
+                             r"constexpr int kSlotsInFlight = (\d+);")]},
+        "bounds": [("ell_aggregate.cu",
+                    r"__global__ void ell_aggregate_kernel\(",
+                    "__global__ void __launch_bounds__(256, {b}) "
+                    "ell_aggregate_kernel(")],
+        "cases": ell_cases,
+        # x, nbr, mask, deg_dst, deg_tab, ea, eslot, out, n, W, D, dtype,
+        # op, vec, stream
+        "first": {"gigl_ell_aggregate": [_P] * 8 + [_I64] + [_I32] * 5
+                  + [_P]},
+        "bit_equal_first": True},
+    "ring": {
+        "sources": ["ring_retrieval.cu"],
+        "entries": ["gigl_ring_fold", "gigl_ring_block_bwd"],
+        "knobs": {"warps": [("ring_retrieval.cu",
+                             r"constexpr int kRingWarps = (\d+);")]},
+        "bounds": [],
+        "cases": ring_cases,
+        # scores, Ql, Cl, label_col, qid, pos_qid, own_pos, cand_id, cmask,
+        # logq, T, fmin, then m, s, pos (fold) or lse, g, ds (backward),
+        # stream
+        "first": {fn: [_P, _I32, _I32] + [_P] * 7 + [_F32, _F32] + [_P] * 4
+                  for fn in ("gigl_ring_fold", "gigl_ring_block_bwd")},
         "bit_equal_first": True},
     "route": {
         "sources": ["route.cu"],
@@ -918,7 +1182,8 @@ def main():
                         "phase": f"{args.sweep}_sweep", "variant": variant,
                         "mode": mode, "repeat": rep, "turn": turn,
                         "case": label, "err": errs.get(label),
-                        "ms": cuda_ms(fn)}), flush=True)
+                        "ms": (eager_ms if mode.endswith("_eager")
+                               else cuda_ms)(fn)}), flush=True)
     _build._lib = libs["kept"]
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -200,7 +200,7 @@ def test_ell_aggregate_plain_matches_reference_ops(op):
         want = ref_fanout.masked_sum(feats * w[..., None], jnp.asarray(mask))
     else:
         want = getattr(ref_fanout, f"masked_{op}")(feats, jnp.asarray(mask))
-    got = ell_aggregate._ell_aggregate_fwd(
+    got = ell_aggregate._ell_aggregate_plain(
         torch.from_numpy(x), torch.from_numpy(nbr), torch.from_numpy(mask),
         op, torch.from_numpy(deg[:12]), torch.from_numpy(deg))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,

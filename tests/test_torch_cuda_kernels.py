@@ -17,12 +17,17 @@ rounding): fp32 rtol 1e-6, bf16 within one ulp of the gradient's scale.
 The retrieval loss: loss_sum within 1e-5 relative (fp32 sums in another
 order), dS within 1e-5 of its scale in fp32 and one bf16 ulp of its scale
 in bf16 (each element rounded once from nearly equal fp32 values). K6
-ell_aggregate and K7 fanout_attention (one row of width 4, all-masked rows
-and an all-masked bucket, a hub row of degree 5,000 in a width-8192
-bucket, rows that are not 16-byte multiples, head dim 4 in the W 4, 8 and
-32 buckets, where a warp takes several slots or rows): fp32 rtol/atol 1e-5
-of the output scale (sums and exps in another order), bf16 within 2e-2 of
-the output scale; K7 and K7b give the same bits on a repeat run. K6b
+ell_aggregate over whole graphs in one launch (empty buckets, degree-0
+rows, a 5,000-in-degree row in a width-8192 bucket, widths that are not
+multiples of 4, entry tables and rows off a 16-byte boundary, one node;
+every mode, gine with and without edge rows; a row range bit-equal to the
+whole call's rows) and K7 fanout_attention (one row of width 4,
+all-masked rows and an all-masked bucket, a hub row of degree 5,000 in a
+width-8192 bucket, rows that are not 16-byte multiples, head dim 4 in the
+W 4, 8 and 32 buckets, where a warp takes several slots or rows): fp32
+rtol/atol 1e-5 of the output scale (sums and exps in another order), bf16
+within 2e-2 of the output scale; K7 and K7b give the same bits on a repeat
+run; K6's autograd.Function on the card against the CPU. K6b
 ell_transpose_aggregate (every mode) and K7b fanout_attention_bwd (GAT,
 GATv2 and Transformer, the ELL and the dense-block layout) against their twins on
 graphs with a 5,000-out-degree hub (a width-8192 transpose bucket),
@@ -83,7 +88,11 @@ The weighted and top-k draw: K19 sample_weighted bit-equal to its twin
 (windows 8, 32, 128, 200 and 1024, fanout = window, all-invalid rows, a
 hub beyond every window, tied weights, +inf and NaN weights, the
 row-offset mode), its wrapper's refusals, and K2's weighted mode (fp32
-and int8 features) within rtol 1e-5.
+and int8 features) within rtol 1e-5. K17 ring_retrieval folds a shard's
+P blocks in one launch and differentiates them in another, bit-equal to
+one-block launches in turn and within rtol 1e-5 of its twins (Cl up to
+1,100, where a lane recomputes its values); the loss's [P, Ql, Cl] scores
+are each block's product's bits.
 """
 
 import dataclasses
@@ -118,8 +127,9 @@ from gigl_tpu_torch.ops.attention import (
 )
 from gigl_tpu_torch.ops.ell import EllGraph
 from gigl_tpu_torch.ops.ell_aggregate import (
+    MAX_SEGMENTS,
     _ell_aggregate_fwd,
-    _ell_aggregate_plain,
+    _ell_aggregate_graph_plain,
     _ell_transpose_plain,
     ell_aggregate_graph,
     ell_transpose_aggregate,
@@ -456,22 +466,101 @@ def _within(got, want, dtype, floor=1e-30):
     assert err <= tol * scale, (err, scale)
 
 
+def _k6_graph(dev, case, d, dtype, seed=0):
+    """An ELL graph for K6, its input rows and an edge table: ``hub``
+    (a 5,000-in-degree row in a width-8192 bucket, empty buckets between,
+    degree-0 rows), ``random`` (3,000 nodes, 60,000 edges: buckets 4 to
+    64), ``odd_widths`` (widths 3, 6, 13, 50: ids one at a time),
+    ``misaligned`` (``random`` with its entry tables and x 4 bytes off a
+    16-byte boundary: ids one at a time, one value a thread), ``one_row``
+    (a single node with a self-loop) and ``many_buckets`` (widths 1 to 60,
+    59 holding rows: more buckets than one launch's segment table, so two
+    launches)."""
+    rng = np.random.default_rng(seed)
+    n, e = {"hub": (700, 6000), "one_row": (1, 1)}.get(case, (3000, 60000))
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    if case == "many_buckets":                    # node v: in-degree v % 60
+        n = 700
+        dst = np.repeat(np.arange(n), np.arange(n) % 60)
+        src = rng.integers(0, n, len(dst))
+    if case == "hub":
+        keep = (dst != 1) & (dst != 2)            # degree-0 rows
+        src = np.concatenate([src[keep], rng.integers(0, n, 5000)])
+        dst = np.concatenate([dst[keep], np.full(5000, 7)])
+    widths = {"odd_widths": (3, 6, 13, 50),
+              "many_buckets": tuple(range(1, 61))}.get(case)
+    ell = EllGraph.from_csr(build_csr(src, dst, num_anchor_nodes=n),
+                            widths=widths, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, d), generator=g, device=dev).to(dtype)
+    ea = torch.randn((len(src), d), generator=g, device=dev).to(dtype)
+    if case == "misaligned":
+        def off(t):
+            return torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(
+                t.shape)
+        ell = dataclasses.replace(ell, ent_src=off(ell.ent_src),
+                                  ent_edge=off(ell.ent_edge))
+        x, ea = off(x), off(ea)
+        assert ell.ent_src.data_ptr() % 16 and x.data_ptr() % 16
+    return ell, x, ea
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("op", ["mean", "sum", "max", "gcn"])
-@pytest.mark.parametrize("n,w,m,d", [(1, 4, 50, 128), (37, 4, 500, 256),
-                                     (300, 32, 1000, 128), (5, 8192, 6000, 64),
-                                     (20, 16, 100, 12)])
-def test_ell_aggregate_matches_plain(dev, dtype, op, n, w, m, d):
-    x, nbr, mask, deg = _ell_inputs(dev, n, w, m, d, dtype)
+@pytest.mark.parametrize("op", ["mean", "sum", "max", "gcn", "gine",
+                                "gine_edges"])
+@pytest.mark.parametrize("case,d", [("hub", 64), ("random", 256),
+                                    ("odd_widths", 128), ("random", 12),
+                                    ("misaligned", 128), ("one_row", 8),
+                                    ("many_buckets", 16)])
+def test_ell_aggregate_matches_plain(dev, dtype, op, case, d):
+    """K6 over every bucket of a graph in one launch (one per
+    MAX_SEGMENTS non-empty buckets past that many) against its plain
+    twin; a range of rows across buckets gives the whole call's rows bit
+    for bit; degree-0 rows give 0."""
+    ell, x, ea = _k6_graph(dev, case, d, dtype)
+    mode, ea = ("gine", ea) if op == "gine_edges" else (op, None)
     before = _build.launches["ell_aggregate"]
-    got = _ell_aggregate_fwd(x, nbr, mask, op, deg[:n].contiguous(), deg)
+    got = _ell_aggregate_fwd(x, ell, mode, ea=ea)
     torch.cuda.synchronize()
-    assert _build.launches["ell_aggregate"] == before + 1
-    want = _ell_aggregate_plain(x, nbr, mask, op, deg[:n], deg)
-    assert got.dtype == dtype and got.shape == (n, d)
-    if n > 2:
-        assert not got[1].any()
-    _within(got, want, dtype)
+    parts = sum(hi > lo for lo, hi in zip(ell.boundaries,
+                                          ell.boundaries[1:]))
+    assert parts > MAX_SEGMENTS if case == "many_buckets" else parts >= 1
+    assert _build.launches["ell_aggregate"] == before + -(-parts
+                                                          // MAX_SEGMENTS)
+    want = _ell_aggregate_graph_plain(x, ell, mode, ea)
+    assert got.dtype == dtype and got.shape == (ell.num_nodes, d)
+    assert not got[ell.deg_p == 0].any()
+    _within(got, want, dtype, floor=1.0)
+    lo, hi = ell.boundaries[1] // 2, (ell.boundaries[-2]
+                                      + ell.boundaries[-1] + 1) // 2
+    part = _ell_aggregate_fwd(x, ell, mode, ea=ea, rows=(lo, hi))
+    assert torch.equal(part, got[lo:hi])
+    assert torch.equal(_ell_aggregate_fwd(x, ell, mode, ea=ea), got)
+
+
+@pytest.mark.parametrize("op", ["mean", "sum", "max", "gcn", "gine",
+                                "gine_edges"])
+def test_ell_aggregate_graph_gradients_on_card_match_cpu(dev, op):
+    """EllAggregateGraph (one K6 launch forward, K6b / K11 backward) on the
+    card against the CPU: the output and the gradients of x and of the
+    edge rows, fp32 within 1e-5 of each one's scale."""
+    out = {}
+    cpu = torch.device("cpu")
+    _, x0, ea0 = _k6_graph(cpu, "hub", 16, torch.float32, seed=3)
+    for device in (cpu, dev):
+        ell = _k6_graph(device, "hub", 16, torch.float32, seed=3)[0]
+        x = x0.to(device, copy=True).requires_grad_()
+        ea = ea0.to(device, copy=True).requires_grad_() \
+            if op == "gine_edges" else None
+        mode = "gine" if op == "gine_edges" else op
+        y = ell_aggregate_graph(x, ell, mode, ea=ea)
+        w = torch.linspace(-1, 1, y.numel(), device=device).view(y.shape)
+        (y * w).sum().backward()
+        out[device.type] = [t.detach().cpu() for t in (
+            y, x.grad, *(() if ea is None else (ea.grad,)))]
+    for k, w in zip(out["cuda"], out["cpu"]):
+        assert float((k - w).abs().max()) <= 1e-5 * max(
+            float(w.abs().max()), 1.0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1572,24 +1661,17 @@ def _edge_case(dev, n_nodes, d, dtype, seed=7, edgeless=False):
 @pytest.mark.parametrize("with_edges", [True, False])
 def test_ell_gine_forward_and_backward_match_plain(dev, dtype, d,
                                                    with_edges):
-    """K6 gine per bucket, K6b gine over the transpose walk and K11 gine,
-    against their twins; empty buckets launch nothing; odd widths take the
+    """K6 gine over every bucket in one launch, K6b gine over the
+    transpose walk and K11 gine, against their twins; odd widths take the
     one-element path."""
     ell, x, ea, g = _edge_case(dev, 700, d, dtype)
     assert any(hi == lo for lo, hi in zip(ell.boundaries,
                                           ell.boundaries[1:]))
     ea = ea if with_edges else None
     _build.reset_launches()
-    for b in range(len(ell.widths)):
-        lo, hi = ell.boundaries[b], ell.boundaries[b + 1]
-        if hi == lo:
-            continue
-        eslot = None if ea is None else ell.edge_slots[b]
-        got = _ell_aggregate_fwd(x, ell.nbr[b], ell.mask[b], "gine", ea=ea,
-                                 eslot=eslot)
-        want = _ell_aggregate_plain(x, ell.nbr[b], ell.mask[b], "gine",
-                                    ea=ea, eslot=eslot)
-        _within(got, want, dtype, floor=1.0)
+    got = _ell_aggregate_fwd(x, ell, "gine", ea=ea)
+    want = _ell_aggregate_graph_plain(x, ell, "gine", ea)
+    _within(got, want, dtype, floor=1.0)
     gout = torch.randn(x.shape, generator=g, device=dev).to(dtype)
     got = ell_transpose_aggregate(gout, ell, "gine", table=x, ea=ea)
     want = _ell_transpose_plain(gout, ell, "gine", table=x, ea=ea)
@@ -1601,9 +1683,7 @@ def test_ell_gine_forward_and_backward_match_plain(dev, dtype, d,
         assert torch.equal(got, want)             # a permutation and a gate
         assert _build.launches["ell_edge_grad"] == 1
     torch.cuda.synchronize()
-    nonempty = sum(hi > lo for lo, hi in zip(ell.boundaries,
-                                             ell.boundaries[1:]))
-    assert _build.launches["ell_aggregate"] == nonempty
+    assert _build.launches["ell_aggregate"] == 1     # every bucket at once
 
 
 def _edge_grad_graph(dev, kind, seed=7):
@@ -2150,42 +2230,73 @@ def _ring_case(dev, ql, cl, seed, own_labels=True):
     return scores, rows, cols, state
 
 
-@pytest.mark.parametrize("ql,cl", [(1, 40), (128, 256), (77, 1000)])
+@pytest.mark.parametrize("ql,cl", [(1, 40), (128, 256), (77, 1000),
+                                   (9, 1100), (33, 70)])
 @pytest.mark.parametrize("own", [True, False])
 def test_ring_fold_and_backward_match_plain(dev, ql, cl, own):
-    """K17's fold (three blocks folded in turn, the first own) and its
-    backward against the twins: rtol 1e-5 (exps summed in another
-    order). The first block is fully masked, so every row is fully masked
-    after it (the reference's guard); ``own`` False: no label columns."""
+    """K17's fold of three blocks [3, Ql, Cl] in one launch (the first own
+    and fully masked, so every row is fully masked after it: the
+    reference's guard; ``own`` False: no label columns) and its backward
+    over the three, against the twins (rtol 1e-5: exps summed in another
+    order) and bit for bit against three one-block launches in turn.
+    Above 1,024 columns a lane recomputes its values for the exp-sum."""
     scores, rows, cols, m0 = _ring_case(dev, ql, cl, seed=ql + cl,
                                         own_labels=own)
     empty = dataclasses.replace(cols, mask=torch.zeros_like(cols.mask))
+    blocks = [empty, cols, cols]
+    stacked = sharded_retrieval.stack_columns(blocks)
+    s3 = torch.stack([scores * (t + 1) for t in range(3)])
     run = {}
     for name, fold in (("kern", sharded_retrieval.ring_fold),
                        ("plain", sharded_retrieval._ring_fold_plain)):
         m, s, p = m0.clone(), torch.zeros_like(m0), torch.zeros_like(m0)
-        for t, blk_cols in enumerate((empty, cols, cols)):
-            fold(scores * (t + 1), rows, blk_cols, t == 0, m, s, p)
+        before = _build.launches["ring_retrieval"]
+        fold(s3, rows, stacked, True, m, s, p)
+        if name == "kern":
+            assert _build.launches["ring_retrieval"] == before + 1
         run[name] = (m, s, p)
-    for k, w in zip(run["kern"], run["plain"]):
+    m, s, p = m0.clone(), torch.zeros_like(m0), torch.zeros_like(m0)
+    for t, blk_cols in enumerate(blocks):
+        sharded_retrieval.ring_fold(s3[t].contiguous(), rows, blk_cols,
+                                    t == 0, m, s, p)
+    for k, w, one in zip(run["kern"], run["plain"], (m, s, p)):
         torch.testing.assert_close(k, w, rtol=1e-5, atol=0)
+        assert torch.equal(k, one)
     m, s, _ = run["plain"]
     lse = torch.log(torch.clamp(s, min=1e-30)) + m
     g = torch.rand((ql,), device=dev)
-    for blk_cols in (cols, empty):
-        got = sharded_retrieval.ring_block_bwd(scores, rows, blk_cols, True,
-                                               lse, g)
-        want = sharded_retrieval._ring_block_bwd_plain(scores, rows,
-                                                       blk_cols, True, lse, g)
-        scale = float(want.abs().max())
-        assert float((got - want).abs().max()) <= 1e-5 * max(scale, 1e-30)
-    assert not sharded_retrieval.ring_block_bwd(
-        scores, rows, empty, True, lse, g).any()
+    got = sharded_retrieval.ring_block_bwd(s3, rows, stacked, True, lse, g)
+    want = sharded_retrieval._ring_block_bwd_plain(s3, rows, stacked, True,
+                                                   lse, g)
+    assert got.shape == (3, ql, cl)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * max(scale, 1e-30)
+    assert not got[0].any()                  # the fully masked block
+    for t, blk_cols in enumerate(blocks):
+        assert torch.equal(got[t], sharded_retrieval.ring_block_bwd(
+            s3[t].contiguous(), rows, blk_cols, t == 0, lse, g))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ql,cl,d", [(128, 256, 128), (5, 33, 16),
+                                     (77, 1000, 64)])
+def test_ring_block_scores_bit_equal(dev, dtype, ql, cl, d):
+    """The ring loss's [P, Ql, Cl] scores: block t the bits of
+    ``(q @ c_t.T).float()``, written in place where aligned."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(ql)
+    q = torch.randn((ql, d), generator=g, device=dev).to(dtype)
+    cands = [torch.randn((cl, d), generator=g, device=dev).to(dtype)
+             for _ in range(4)]
+    got = sharded_retrieval._block_scores(q, cands)
+    for t, c in enumerate(cands):
+        assert torch.equal(got[t], (q @ c.T).float())
 
 
 def test_ring_retrieval_gradients_on_card_match_cpu(dev):
     """K17's autograd.Function on the card against the same function on
-    the CPU: (ce_sum, count) and every gradient, 4 shards (ROADMAP C3)."""
+    the CPU: (ce_sum, count) and every gradient, 4 shards (ROADMAP C3), one
+    fold and one backward launch a shard."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(9)
     p, ql, cl, d = 4, 32, 48, 16
@@ -2210,8 +2321,8 @@ def test_ring_retrieval_gradients_on_card_match_cpu(dev):
             own_pos_ids=torch.arange(s * cl, s * cl + ql, dtype=torch.int32,
                                      device=device))[0] for s in range(p))
         total.backward()
-        if device.type == "cuda":
-            assert _build.launches["ring_retrieval"] == 2 * p * p
+        if device.type == "cuda":   # a fold and a backward a shard
+            assert _build.launches["ring_retrieval"] == 2 * p
         out[device.type] = (total.detach().cpu(),
                             [x.grad.cpu() for x in q + c])
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,

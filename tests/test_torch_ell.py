@@ -19,6 +19,17 @@ from JAX through params_from_flax.
   gcn / max (ties shared), fp32 within 1e-5 of the scale; the weighted mode against a plain
   ``index_add_`` of the weighted entry rows; the permute-gathers of
   ``encode_ell`` (ROADMAP C3) against ``jax.vjp`` of ``x[perm]``.
+- K6's plain twin over the whole graph (one call, the flat entry tables
+  walked up to each row's count ``deg_p``) against the per-bucket twin
+  (the bucket's ``nbr`` / ``mask``): bit-equal, every mode, fp32 and bf16,
+  with an empty bucket, degree-0 rows and a width-8192 hub bucket; and
+  against the reference's ``ell_layer`` with each conv's reduce as its
+  block (masked mean / sum / max, GCN's degree weights, GINE's relu of the
+  row plus its edge row): fp32 within 1e-6 of the output's scale, bf16
+  within one bf16 rounding of the reference computed in fp32 on the same
+  bf16 inputs (2**-8 of each value, plus 1e-6 of the scale). Every bucket
+  mask ``from_csr`` builds is the left-packed prefix of its rows'
+  in-degrees, and a table whose mask is not one is refused.
 - The attention layers (GAT, GATv2, Transformer) at 4 heads of 4 values,
   the full-batch GAT step's layer-2 split: the output and every gradient
   against ``jax.vjp`` of the reference's ``encode_ell``, fp32 within 1e-5
@@ -39,12 +50,16 @@ from gigl_tpu.inference.inferencer import (
 )
 from gigl_tpu.models.encoders import GNNEncoder as RefGNNEncoder
 from gigl_tpu.ops import ell as ref_ell
+from gigl_tpu.ops import fanout as ref_fanout
 from gigl_tpu_torch.convert import params_from_flax
 from gigl_tpu_torch.graph.csr import HeteroGraph, build_csr
 from gigl_tpu_torch.inference.inferencer import run_full_graph_inference
 from gigl_tpu_torch.models.encoders import GNNEncoder
 from gigl_tpu_torch.ops import ell
 from gigl_tpu_torch.ops.ell_aggregate import (
+    _ell_aggregate_fwd,
+    _ell_aggregate_graph_plain,
+    _ell_aggregate_plain,
     _tie_count_plain,
     ell_aggregate_graph,
     ell_transpose_aggregate,
@@ -172,6 +187,116 @@ def test_from_csr_rejects_what_the_reference_rejects():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ell.EllGraph.from_csr(csr)
+
+
+def _k6_case(kind, seed=0):
+    """(src, dst, n, widths) of a K6 test graph: ``module`` (_graph:
+    buckets 4 to 64, isolated rows), ``empty_bucket`` (the same with a
+    width-32 bucket that holds no row, degree-0 rows in bucket 0) or
+    ``hub8192`` (60 nodes, one of in-degree 5,000)."""
+    if kind == "hub8192":
+        rng = np.random.default_rng(seed)
+        src = np.concatenate([rng.integers(0, 60, 300),
+                              rng.integers(0, 60, 5000)])
+        dst = np.concatenate([rng.integers(0, 60, 300), np.full(5000, 9)])
+        return src, dst, 60, None
+    src, dst, _ = _graph(seed)
+    return src, dst, N, (4, 8, 16, 32, 64) if kind == "module" else \
+        (4, 8, 16, 24, 32, 64, 128)
+
+
+@pytest.mark.parametrize("kind", ["module", "empty_bucket", "hub8192"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_from_csr_masks_are_left_packed_prefixes(kind, seed):
+    src, dst, n, widths = _k6_case(kind, seed)
+    g = ell.EllGraph.from_csr(build_csr(src, dst, num_anchor_nodes=n),
+                              widths=widths, device="cpu")
+    for b, mk in enumerate(g.mask):
+        deg = g.deg_p[g.boundaries[b]:g.boundaries[b + 1]]
+        assert torch.equal(mk, torch.arange(mk.shape[1])[None, :]
+                           < deg[:, None])
+    assert int(g.deg_p.sum()) == len(src)
+
+
+def test_prefix_check_refuses_a_mask_that_is_not_a_prefix():
+    """A hand-made table: a valid slot after a masked one, then row sums
+    that are not the in-degrees."""
+    mask = np.array([[True, True, False, False],
+                     [True, False, True, False]])
+    deg = np.array([2.0, 2.0], np.float32)
+    with pytest.raises(ValueError, match="left-packed prefix"):
+        ell._check_prefix_masks([mask], deg, (0, 2))
+    mask[1] = (True, True, False, False)
+    ell._check_prefix_masks([mask], deg, (0, 2))         # now a prefix
+    with pytest.raises(ValueError, match="left-packed prefix"):
+        ell._check_prefix_masks([mask], np.array([2.0, 3.0]), (0, 2))
+
+
+class _RefReduce:
+    """A conv for the reference's ``ell_layer`` whose block is one conv's
+    reduce alone (convs.py: SAGE's masked mean / sum / max, GCNConv.block's
+    degree weights, GINEConv.block's relu of row plus edge row)."""
+
+    def __init__(self, op):
+        self.op = op
+
+    def block(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
+        if self.op == "gcn":
+            dst_deg, nbr_deg = degrees
+            w = jax.lax.rsqrt(dst_deg + 1.0)[:, None] * jax.lax.rsqrt(
+                nbr_deg + 1.0)
+            return ref_fanout.masked_sum(nbr * w[..., None], mask)
+        if self.op == "gine":
+            nbr = jax.nn.relu(nbr if edge_attr is None else nbr + edge_attr)
+            return ref_fanout.masked_sum(nbr, mask)
+        return getattr(ref_fanout, f"masked_{self.op}")(nbr, mask)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op", ["mean", "sum", "max", "gcn", "gine",
+                                "gine_edges"])
+@pytest.mark.parametrize("kind", ["module", "empty_bucket", "hub8192"])
+def test_k6_graph_twin_matches_per_bucket_twin_and_jax(dtype, op, kind):
+    src, dst, n, widths = _k6_case(kind)
+    g = ell.EllGraph.from_csr(build_csr(src, dst, num_anchor_nodes=n),
+                              widths=widths, device="cpu")
+    if kind == "empty_bucket":
+        assert any(hi == lo for lo, hi in zip(g.boundaries,
+                                              g.boundaries[1:]))
+    rng = np.random.default_rng(3)
+    tdt = DTYPES[dtype][1]
+    x = torch.from_numpy(rng.normal(size=(n, 8)).astype(np.float32)).to(tdt)
+    ea = torch.from_numpy(rng.normal(size=(len(src), 8)).astype(
+        np.float32)).to(tdt) if op == "gine_edges" else None
+    mode = "gine" if op == "gine_edges" else op
+    got = _ell_aggregate_fwd(x, g, mode, ea=ea)
+    assert torch.equal(got, _ell_aggregate_graph_plain(x, g, mode, ea))
+    parts = []
+    for b in range(len(g.widths)):
+        lo, hi = g.boundaries[b], g.boundaries[b + 1]
+        if hi > lo:
+            parts.append(_ell_aggregate_plain(
+                x, g.nbr[b], g.mask[b], mode, g.deg_p[lo:hi], g.deg_p, ea,
+                None if ea is None else g.edge_slots[b]))
+    assert torch.equal(got, torch.cat(parts))
+    lo, hi = g.boundaries[1] // 2, n - 3
+    assert torch.equal(_ell_aggregate_fwd(x, g, mode, ea=ea, rows=(lo, hi)),
+                       got[lo:hi])
+    assert not got[g.deg_p == 0].any()
+    jg = ref_ell.EllGraph.from_csr(
+        ref_build_csr(src, dst, num_anchor_nodes=n, num_neighbor_nodes=n),
+        widths=widths)
+    want = np.asarray(jax.jit(
+        lambda x_, e_: ref_ell.ell_layer(_RefReduce(mode), x_, jg, e_,
+                                         with_degrees=mode == "gcn"))(
+        jnp.asarray(x.float().numpy()),
+        None if ea is None else jnp.asarray(ea.float().numpy())))
+    got = got.float().numpy()
+    scale = np.abs(want).max()
+    tol = 1e-6 * scale + (0 if dtype == "float32" else 2.0 ** -8 * np.abs(
+        want))
+    assert got.shape == want.shape
+    assert (np.abs(got - want) <= tol).all(), np.abs(got - want).max()
 
 
 CASES = [("graphsage", {"aggr": "mean"}, "float32"),

@@ -2,6 +2,10 @@
 against the JAX reference's ring_retrieval_loss on the virtual CPU mesh,
 on the CPU, where K17's fold and backward run their plain twins.
 
+K17's twins take a shard's P blocks at once ([P, Ql, Cl] scores, [P, Cl]
+columns): they equal P one-block twins in ring order bit for bit, and
+the [P, Ql, Cl] scores are each block's product's bits.
+
 Tolerances: (ce_sum, count) per shard within 1e-6 relative in fp32 (the
 same fold; the row sums and exps in another order); the gradients of the
 queries and of every shard's candidate block against jax.grad through
@@ -126,7 +130,7 @@ OPTIONS = [  # temperature, logQ, query mask, accidental hits
 OPTION_IDS = ["all", "plain", "qmask_nohits", "logq_only"]
 
 
-@pytest.mark.parametrize("num_shards", [2, 4])
+@pytest.mark.parametrize("num_shards", [2, 4, 1])
 @pytest.mark.parametrize("opts", OPTIONS, ids=OPTION_IDS)
 def test_ring_loss_matches_jax(num_shards, opts):
     c = _case(num_shards, seed=num_shards)
@@ -158,6 +162,86 @@ def test_ring_loss_gradients_match_jax(opts):
         scale = np.abs(want).max()
         assert scale > 0
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("num_shards", [1, 2])
+@pytest.mark.parametrize("opts", OPTIONS[:2], ids=OPTION_IDS[:2])
+def test_ring_loss_gradients_match_jax_at_fewer_shards(num_shards, opts):
+    """test_ring_loss_gradients_match_jax at P 1 and 2: one fold and one
+    backward call a shard over its P blocks."""
+    c = _case(num_shards, seed=12)
+    ws, wn, wgq, wgc = _jax_ring(c, *opts, grads=True)
+    gs, gn, ggq, ggc = _port_ring(c, *opts, grads=True)
+    np.testing.assert_allclose(gs, ws, rtol=1e-6)
+    for got, want in ((ggq, wgq), (ggc, wgc)):
+        scale = np.abs(want).max()
+        assert scale > 0
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("num_shards", [1, 2, 4])
+@pytest.mark.parametrize("opts", OPTIONS, ids=OPTION_IDS)
+def test_stacked_twins_equal_sequential_block_twins(num_shards, opts):
+    """The fold and backward twins over [P, Ql, Cl] with [P, Cl] columns
+    (the form K17 takes) equal P one-block twins in ring order, bit for
+    bit."""
+    temperature, use_logq, _, hits = opts
+    c = _case(num_shards, seed=20 + num_shards)
+    t = {k: torch.from_numpy(v) for k, v in c.items()}
+    blocks = [sr.RingColumns(ids=t["cand_ids"][s], pos_qids=t["pos_qids"][s],
+                             mask=t["cmask"][s],
+                             log_q=t["logq"][s] if use_logq else None)
+              for s in range(num_shards)]
+    rows = sr.RingRows(temperature=temperature,
+                       label_cols=torch.arange(QL, dtype=torch.int32),
+                       query_ids=t["qids"][0],
+                       own_pos_ids=t["pos_ids"][0] if hits else None)
+    scores = torch.stack([t["q"][0] @ t["cand"][s].T
+                          for s in range(num_shards)])
+    stacked = sr.stack_columns(blocks)
+    state = [torch.full((QL,), sr.FMIN), torch.zeros(QL), torch.zeros(QL)]
+    one = [x.clone() for x in state]
+    sr._ring_fold_plain(scores, rows, stacked, True, *state)
+    for s, b in enumerate(blocks):
+        sr._ring_fold_plain(scores[s], rows, b, s == 0, *one)
+    for a, b in zip(state, one):
+        assert torch.equal(a, b)
+    lse = torch.log(state[1]) + state[0]
+    g = torch.rand(QL, generator=torch.Generator().manual_seed(1))
+    ds = sr._ring_block_bwd_plain(scores, rows, stacked, True, lse, g)
+    assert ds.shape == scores.shape
+    for s, b in enumerate(blocks):
+        assert torch.equal(ds[s], sr._ring_block_bwd_plain(
+            scores[s], rows, b, s == 0, lse, g))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cl", [10, 7])
+def test_block_scores_are_the_per_block_products(dtype, cl):
+    """The ring loss's [P, Ql, Cl] scores: block t the bits of
+    ``(q @ c_t.T).float()`` (Cl 7: blocks off a 16-byte boundary)."""
+    rng = np.random.default_rng(cl)
+    q = torch.from_numpy(rng.normal(size=(QL, D)).astype(np.float32)).to(
+        dtype)
+    cands = [torch.from_numpy(rng.normal(size=(cl, D)).astype(
+        np.float32)).to(dtype) for _ in range(3)]
+    got = sr._block_scores(q, cands)
+    assert got.shape == (3, QL, cl) and got.dtype == torch.float32
+    for s, c in enumerate(cands):
+        assert torch.equal(got[s], (q @ c.T).float())
+
+
+def test_stack_columns_refuses_blocks_that_differ():
+    ids = torch.arange(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="some blocks have mask"):
+        sr.stack_columns([sr.RingColumns(ids, ids),
+                          sr.RingColumns(ids, ids, mask=ids > 0)])
+    with pytest.raises(ValueError, match="different widths"):
+        sr.stack_columns([sr.RingColumns(ids, ids),
+                          sr.RingColumns(ids[:3], ids[:3])])
+    both = sr.stack_columns([sr.RingColumns(ids, ids),
+                             sr.RingColumns(ids + 4, ids)])
+    assert both.ids.shape == (2, 4) and both.mask is None
 
 
 def test_ring_loss_equals_replicated_over_global_matrix():
