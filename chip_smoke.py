@@ -426,6 +426,20 @@ def eager_ms(fn, reps=50):
     return start.elapsed_time(end) / reps
 
 
+def device_launches(fn, name):
+    """The device kernels whose name holds ``name`` that one call of
+    ``fn`` launches, counted by torch.profiler."""
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and name in e.name)
+
+
 def bound_ms(nbytes, nops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / FP32_OPS_PER_S * 1e3
@@ -4414,6 +4428,13 @@ def main():
             F.cross_entropy(v_lib, target, ignore_index=-100,
                             reduction="sum"), v_lib)
 
+    k5_device_launches = {
+        "fwd": device_launches(lambda: retrieval_fwd(scores, masks),
+                               "retrieval_"),
+        "bwd": device_launches(
+            lambda: retrieval_bwd(scores, masks, lse_k, g5), "retrieval_")}
+    check(k5_device_launches == {"fwd": 1, "bwd": 1},
+          f"K5 made {k5_device_launches} CUDA launches, not 1 and 1")
     fwd_ms = cuda_ms(lambda: retrieval_fwd(scores, masks))
     bwd_ms = cuda_ms(lambda: retrieval_bwd(scores, masks, lse_k, g5))
     plain_fwd_ms = cuda_ms(lambda: _retrieval_fwd_plain(scores, masks))
@@ -4431,7 +4452,8 @@ def main():
            + (qc * 4 + ids_bytes + BATCH * 4 + 4),
            nops=qc * 13, library_ms=cuda_ms(k5_library),
            fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_fwd_ms=plain_fwd_ms,
-           plain_bwd_ms=plain_bwd_ms, loss_rel_err=loss_rel,
+           plain_bwd_ms=plain_bwd_ms, cuda_launches=k5_device_launches,
+           loss_rel_err=loss_rel,
            ds_scale=ds_scale, accidental_hit_cells=hit_cells,
            eager_ms=eager_ms(lambda: retrieval_bwd(
                scores, masks, *retrieval_fwd(scores, masks)[2:3], g5)))

@@ -10,8 +10,16 @@
 // flagship encoder: 512 x 15 x 256 bf16, 3.9 MB) and [M, D] written once.
 // Design: one thread per 16-byte piece of an output row (8 bf16 or 4 fp32
 // values), consecutive threads across D, so each of the K slot rows is read
-// as coalesced 16-byte loads; the mask byte of a slot is shared by the
-// row's threads and skips the load of an invalid slot entirely.
+// as coalesced 16-byte loads; small blocks (kBlockRows rows of 32 pieces)
+// spread the flagship's 16,384 pieces over every SM. A thread reads its
+// row's mask once, as the aligned 8-byte words that hold it, and issues the
+// row load of every valid slot of a chunk (kSlotChunk slots) before any
+// add, holding the loaded 16-byte words as they are (not widened); an
+// invalid slot's row is never loaded. The adds then run in slot order, as
+// the first version's loop did, so the output is the same bits. Rows in
+// flight cost registers: a grid larger than the card holds at once in
+// that form walks the slots one at a time (the first version's loop) at
+// full occupancy, which measured faster there.
 #include <cuda_bf16.h>
 
 #include <cstring>
@@ -69,11 +77,103 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
+constexpr int kBlockRows = 2;   // rows in flight: a block of 2 rows of 32 pieces
+constexpr int kSlotChunk = 16;  // rows in flight: slot rows a thread
+constexpr int kMaskGroup = 56;  // slots whose mask bits one 64-bit word holds
+constexpr int kWalkThreads = 256;  // the slot walk: a block
+
+// The valid-slot bits of the n <= kMaskGroup mask bytes at p (bit s: byte
+// s nonzero), read as the aligned 8-byte words that hold them. A word may
+// reach up to 7 bytes past either end of the mask; it never leaves the
+// mask's allocation (allocations are aligned to more than 8 bytes and
+// their sizes rounded up past it), and those bytes are shifted away.
+__device__ __forceinline__ uint64_t mask_bits(const uint8_t* p, int n) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(p);
+  const unsigned long long* w =
+      reinterpret_cast<const unsigned long long*>(at & ~uintptr_t{7});
+  const int off = static_cast<int>(at & 7);
+  uint64_t bits = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    if (8 * k >= off + n) break;
+    uint64_t b = __ldg(w + k);
+    b |= b >> 4;  // bit 0 of each byte: the OR of the byte's bits
+    b |= b >> 2;
+    b |= b >> 1;
+    // gather bit 0 of each byte into the top byte, byte e at bit 56 + e
+    b = ((b & 0x0101010101010101ull) * 0x0102040810204080ull) >> 56;
+    bits |= b << (8 * k);
+  }
+  return (bits >> off) & ((1ull << n) - 1ull);
+}
+
 template <typename T, int OP>
-__global__ void masked_reduce_kernel(const uint4* __restrict__ x,
-                                     const uint8_t* __restrict__ mask,
-                                     uint4* __restrict__ out, int64_t m, int k,
-                                     int dv) {
+__device__ __forceinline__ void finish(float* acc, int cnt, uint4* out) {
+  constexpr int N = Vec<T>::N;
+  if (OP == kMax && cnt == 0) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) acc[e] = 0.f;
+  }
+  if (OP == kMean) {
+    const float n = static_cast<float>(cnt > 1 ? cnt : 1);
+#pragma unroll
+    for (int e = 0; e < N; ++e) acc[e] /= n;
+  }
+  *out = Vec<T>::store(acc);
+}
+
+// Rows in flight: the row's mask read once, then every valid slot's row
+// load of a chunk of kSlotChunk slots issued before the chunk's adds.
+template <typename T, int OP>
+__global__ void __launch_bounds__(kBlockRows * 32)
+    masked_reduce_kernel(const uint4* __restrict__ x,
+                         const uint8_t* __restrict__ mask,
+                         uint4* __restrict__ out, int64_t m, int k, int dv) {
+  constexpr int N = Vec<T>::N;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= m * dv) return;
+  const int64_t r = i / dv;
+  const int c = static_cast<int>(i - r * dv);
+  const uint4* row = x + r * k * dv + c;
+  float acc[N];
+#pragma unroll
+  for (int e = 0; e < N; ++e)
+    acc[e] = OP == kMax ? -__int_as_float(0x7f800000) : 0.f;  // -inf or 0
+  int cnt = 0;
+  for (int g0 = 0; g0 < k; g0 += kMaskGroup) {  // once for K <= 56
+    const int gn = k - g0 < kMaskGroup ? k - g0 : kMaskGroup;
+    const uint64_t valid = mask_bits(mask + r * k + g0, gn);
+    for (int j0 = 0; j0 < gn; j0 += kSlotChunk) {
+      const uint32_t bits = static_cast<uint32_t>(
+          (valid >> j0) & ((1ull << kSlotChunk) - 1ull));
+      uint4 held[kSlotChunk];
+#pragma unroll
+      for (int s = 0; s < kSlotChunk; ++s)
+        if ((bits >> s) & 1u)
+          held[s] = __ldg(row + static_cast<int64_t>(g0 + j0 + s) * dv);
+#pragma unroll
+      for (int s = 0; s < kSlotChunk; ++s) {
+        if (!((bits >> s) & 1u)) continue;
+        ++cnt;
+        float v[N];
+        Vec<T>::load(held[s], v);
+#pragma unroll
+        for (int e = 0; e < N; ++e)
+          acc[e] = OP == kMax ? fmaxf(acc[e], v[e]) : acc[e] + v[e];
+      }
+    }
+  }
+  finish<T, OP>(acc, cnt, out + i);
+}
+
+// The slot walk (the first version's loop): a slot's mask byte, then its
+// row, one slot at a time, at full occupancy.
+template <typename T, int OP>
+__global__ void __launch_bounds__(kWalkThreads)
+    masked_reduce_walk_kernel(const uint4* __restrict__ x,
+                              const uint8_t* __restrict__ mask,
+                              uint4* __restrict__ out, int64_t m, int k,
+                              int dv) {
   constexpr int N = Vec<T>::N;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= m * dv) return;
@@ -93,16 +193,7 @@ __global__ void masked_reduce_kernel(const uint4* __restrict__ x,
     for (int e = 0; e < N; ++e)
       acc[e] = OP == kMax ? fmaxf(acc[e], v[e]) : acc[e] + v[e];
   }
-  if (OP == kMax && cnt == 0) {
-#pragma unroll
-    for (int e = 0; e < N; ++e) acc[e] = 0.f;
-  }
-  if (OP == kMean) {
-    const float n = static_cast<float>(cnt > 1 ? cnt : 1);
-#pragma unroll
-    for (int e = 0; e < N; ++e) acc[e] /= n;
-  }
-  out[i] = Vec<T>::store(acc);
+  finish<T, OP>(acc, cnt, out + i);
 }
 
 // K4b masked_reduce_bwd — the backward of K4 (JAX differentiates
@@ -205,23 +296,55 @@ int launch_bwd(const void* grad_out, const void* mask, const void* x,
   return 0;
 }
 
+// The blocks of `threads` threads of `kernel` that the card holds at once.
+template <typename K>
+long long resident_blocks(K kernel, int threads) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  return static_cast<long long>(per_sm) * sms;
+}
+
+// Rows in flight cost registers, and so resident blocks: a grid that the
+// card holds at once in that form takes it (the flagship's [512, 15, 256]
+// bf16, 256 blocks of 64); a larger one takes the slot walk at full
+// occupancy ([8192, 10, 128]: 2,048 or 4,096 blocks of 64), where the
+// resident threads keep as many loads in flight. The card's capacity for
+// the rows-in-flight form is read once (the first card's).
+template <typename T, int OP>
+void launch_op(const uint4* x, const uint8_t* mask, uint4* out, long long m,
+               int k, int dv, cudaStream_t stream) {
+  const long long total = m * dv;
+  constexpr int threads = kBlockRows * 32;
+  static const long long held =
+      resident_blocks(masked_reduce_kernel<T, OP>, threads);
+  const long long blocks = (total + threads - 1) / threads;
+  if (blocks <= held) {
+    masked_reduce_kernel<T, OP>
+        <<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+            x, mask, out, m, k, dv);
+  } else {
+    masked_reduce_walk_kernel<T, OP>
+        <<<static_cast<unsigned>((total + kWalkThreads - 1) / kWalkThreads),
+           kWalkThreads, 0, stream>>>(x, mask, out, m, k, dv);
+  }
+}
+
 template <typename T>
 int launch(const void* x, const void* mask, void* out, long long m, int k,
            int d, int op, cudaStream_t stream) {
   const int dv = d / Vec<T>::N;
-  const long long total = m * dv;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
+  if (m * dv == 0) return 0;
   const uint4* xv = static_cast<const uint4*>(x);
   const uint8_t* mv = static_cast<const uint8_t*>(mask);
   uint4* ov = static_cast<uint4*>(out);
   if (op == kMean) {
-    masked_reduce_kernel<T, kMean><<<blocks, threads, 0, stream>>>(xv, mv, ov, m, k, dv);
+    launch_op<T, kMean>(xv, mv, ov, m, k, dv, stream);
   } else if (op == kSum) {
-    masked_reduce_kernel<T, kSum><<<blocks, threads, 0, stream>>>(xv, mv, ov, m, k, dv);
+    launch_op<T, kSum>(xv, mv, ov, m, k, dv, stream);
   } else if (op == kMax) {
-    masked_reduce_kernel<T, kMax><<<blocks, threads, 0, stream>>>(xv, mv, ov, m, k, dv);
+    launch_op<T, kMax>(xv, mv, ov, m, k, dv, stream);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -85,6 +85,7 @@ _SIGNATURES = {
                                 _F32, _F32, _I32, _I32, _P, _P, _P, _P, _P],
     "gigl_retrieval_loss_bwd": [_P, _I64, _I64, _I32, _P, _P, _P, _P, _P,
                                 _F32, _F32, _I32, _I32, _P, _P, _P, _P],
+    "gigl_retrieval_loss_ticket": [_P, _P],
     "gigl_ell_aggregate": [_P] * 7 + [_I32, _I64] + [_I32] * 5 + [_P],
     "gigl_fanout_attention": [_P] * 12 + [_I64] + [_I32] * 5
     + [_F32, _F32, _P],

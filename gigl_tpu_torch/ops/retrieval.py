@@ -15,9 +15,12 @@ With a candidate sampling probability ``p [C]`` (the logQ correction,
 ``S_ij / T - round(log(max(p_j, 1e-10)))``, the log rounded to S's type as
 the reference rounds it; no cotangent flows to ``p``.
 
-Forward: per-row ``lse`` (saved for the backward), per-row ``ce`` (0 for a
-masked query), ``loss_sum`` from a fixed-order reduction (a repeat run is
-bit-equal) and ``count``, the number of valid queries. Backward::
+Forward (one launch): per-row ``lse`` (saved for the backward), per-row
+``ce`` (0 for a masked query), ``loss_sum`` from a fixed-order reduction
+(a repeat run is bit-equal) and ``count``, the number of valid queries;
+the block that finishes last sums them, found by a per-device ticket
+counter that is 0 between calls (:func:`forward_ticket` reads it). K5's
+forward calls on one device must be ordered on one stream. Backward::
 
     dS_ij = g * qmask_i * (exp(v_ij - lse_i) - label_ij) * (cmask_j ? 1/T : 0)
 
@@ -183,6 +186,18 @@ def retrieval_bwd(scores: torch.Tensor, a: RetrievalMasks,
                   scores.data_ptr(), q, c, _DTYPES[scores.dtype], *args,
                   lse.data_ptr(), g.data_ptr(), ds.data_ptr())
     return ds
+
+
+def forward_ticket(device: torch.device) -> int:
+    """K5's forward ticket counter on ``device`` (0 whenever no forward is
+    in flight there), read after the work queued on the current stream."""
+    out = torch.empty((), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        rc = _build.library().gigl_retrieval_loss_ticket(
+            out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"gigl_retrieval_loss_ticket: cudaError {rc}")
+    return int(out)
 
 
 class RetrievalLoss(torch.autograd.Function):

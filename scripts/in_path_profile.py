@@ -11,9 +11,12 @@ of the substrings under NAME (the names are those chip_smoke.py's
 ``profile_summary`` matches: ``ell_aggregate_kernel`` for K6,
 ``ring_fold_kernel`` / ``ring_block_bwd_kernel`` for K17,
 ``segment_softmax_kernel`` / ``segment_softmax_bwd_kernel`` for K9 / K9b,
-...). The graph is chip_smoke.py's flagship: N=100k nodes, E=2M uniform
-random edges (numpy seed 0), 128 fp32 features and 16 labels, and 8 fp32
-features an edge (numpy seed 8). The paths (``--paths``, all by default):
+``masked_reduce_kernel`` / ``masked_reduce_walk_kernel`` for K4's two
+forms, ``retrieval_fwd`` / ``retrieval_bwd`` for K5's forward and
+backward launches, ...). The graph is chip_smoke.py's flagship: N=100k
+nodes, E=2M uniform random edges (numpy seed 0), 128 fp32 features and
+16 labels, and 8 fp32 features an edge (numpy seed 8). The paths
+(``--paths``, all by default):
 
 - ``full_graph_graphsage``: ``GNNEncoder.encode_ell`` (GraphSAGE, hidden
   256, out 128, bf16, ``init_params`` seed 0) under inference mode;
@@ -28,7 +31,14 @@ features an edge (numpy seed 8). The paths (``--paths``, all by default):
 - ``partitioned_ring``: ``PartitionedNALPTrainer`` over ``make_mesh(4)``
   with the global candidate pool (the ring loss) and the sketch on:
   GraphSAGE (15, 10), bf16, batch 512, 512 random negatives, capacity
-  factor 4.
+  factor 4;
+- ``nalp_step``: the flagship NALP training step, ``NALPTrainer.train_steps``
+  one step a call (GraphSAGE (15, 10), cached hop in the fused table,
+  bf16, batch 512, 512 random negatives, the retrieval loss, Adam 1e-3;
+  anchors ``arange % N`` as bench.py:617 draws them);
+- ``sampled_inference``: ``run_inference`` over every node of the
+  flagship graph with that trainer's model (batch 512: 196 batches a
+  pass, the rows kept in host memory).
 
 Per path, two warm calls (a pass or a step), then ``--count`` more under
 torch.profiler: one JSON line with the device ms a call (every device
@@ -56,7 +66,8 @@ N, E, D = 100_000, 2_000_000, 128
 HID, OUT, C, EDGE_DE, GINE_HID, HEADS = 256, 128, 16, 8, 128, 4
 BATCH, R, SHARDS = 512, 512, 4   # the ring step: anchors, negatives
 PATHS = ("full_graph_graphsage", "full_graph_gine", "full_batch_graphsage",
-         "full_batch_gine", "coo_gat", "coo_transformer", "partitioned_ring")
+         "full_batch_gine", "coo_gat", "coo_transformer", "partitioned_ring",
+         "nalp_step", "sampled_inference")
 
 
 def profiled(fn, count, kernels):
@@ -209,6 +220,70 @@ def partitioned_ring(g, count):
     return ring_step
 
 
+class _Rows:
+    """An exporter that keeps the rows it is given."""
+
+    def __init__(self):
+        self.rows = []
+
+    def add_embeddings(self, ids, emb):
+        self.rows.append((ids, emb))
+
+    def flush(self):
+        pass
+
+
+def nalp_trainer(g):
+    """The flagship NALP trainer (chip_smoke.py's main paths)."""
+    from gigl_tpu_torch.models.encoders import GNNEncoder
+    from gigl_tpu_torch.models.link_prediction import (
+        LinkPredictionDecoder, LinkPredictionGNN)
+    from gigl_tpu_torch.training.dataset import DeviceGraph
+    from gigl_tpu_torch.training.trainer import (
+        NALPTrainer, NALPTrainerConfig)
+
+    dg = DeviceGraph.from_hetero(
+        g.graph, supervision_edges=np.stack([g.src, g.dst]), device=g.dev)
+    torch.manual_seed(0)
+    return NALPTrainer(
+        LinkPredictionGNN(GNNEncoder(D, HID, OUT, num_layers=2,
+                                     conv="graphsage", dtype=torch.bfloat16),
+                          LinkPredictionDecoder()),
+        dg, NALPTrainerConfig(fanouts=(15, 10), num_random_negs=R,
+                              loss_type="retrieval", num_positives=1,
+                              cached_hop=True, fused_cache=True),
+        optimizer_args={"learning_rate": "1e-3"}, device=g.dev)
+
+
+def nalp_step(g, count):
+    """A flagship NALP training step."""
+    trainer = nalp_trainer(g)
+    state = [trainer.init_state(0, batch_size=BATCH)]
+    gen = torch.Generator(device=g.dev).manual_seed(1)
+    anchors = (np.arange(BATCH * (count + 2)) % N).astype(np.int32).reshape(
+        -1, 1, BATCH)
+    step = [0]
+
+    def one_step():
+        state[0], _ = trainer.train_steps(state[0], anchors[step[0]], gen)
+        step[0] += 1
+    return one_step
+
+
+def sampled_inference(g):
+    """``run_inference`` over every node of the flagship graph."""
+    from gigl_tpu_torch.inference.inferencer import (
+        InferenceConfig, run_inference)
+
+    trainer = nalp_trainer(g)
+    trainer.init_params(0)
+
+    def one_pass():
+        run_inference(trainer, N, _Rows(), InferenceConfig(batch_size=BATCH),
+                      device=g.dev)
+    return one_pass
+
+
 def build(path, g, count):
     """``path``'s call and what a call is."""
     if path.startswith("full_graph_"):
@@ -217,6 +292,10 @@ def build(path, g, count):
         return full_batch(g, path[len("full_batch_"):], coo=False), "step"
     if path.startswith("coo_"):
         return full_batch(g, path[len("coo_"):], coo=True), "step"
+    if path == "nalp_step":
+        return nalp_step(g, count), "step"
+    if path == "sampled_inference":
+        return sampled_inference(g), "pass"
     return partitioned_ring(g, count), "step"
 
 

@@ -92,7 +92,17 @@ and int8 features) within rtol 1e-5. K17 ring_retrieval folds a shard's
 P blocks in one launch and differentiates them in another, bit-equal to
 one-block launches in turn and within rtol 1e-5 of its twins (Cl up to
 1,100, where a lane recomputes its values); the loss's [P, Ql, Cl] scores
-are each block's product's bits.
+are each block's product's bits. K4 masked_reduce at K 1, 15, 16, 17, 40 and
+70 (its slots taken 16 at a time, its mask read 56 slots at a time), M not
+a multiple of a block's rows, grids past what the card holds at once,
+one-piece rows and a mask off an 8-byte boundary: bit-equal to the twin
+where the values sit on a coarse grid (every fp32 sum exact, then one
+division and one rounding on both sides). K5's forward is one launch:
+C under and not a multiple of a 16-byte word, C past a warp's 1,024
+columns, Q not a multiple of a block's rows, every mask on and off, terms
+off a 16-byte boundary (the scalar form); three repeat calls give the
+same bits and leave the ticket counter at 0, and a CUDA graph of forward
+and backward replays the eager calls' bits.
 """
 
 import dataclasses
@@ -165,6 +175,7 @@ from gigl_tpu_torch.ops.retrieval import (
     RetrievalMasks,
     _retrieval_bwd_plain,
     _retrieval_fwd_plain,
+    forward_ticket,
     retrieval_bwd,
     retrieval_fwd,
 )
@@ -301,22 +312,46 @@ def test_gather_rows_modes_bit_equal(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("op", ["mean", "sum", "max"])
-@pytest.mark.parametrize("shape", [(40, 15, 256), (9, 3, 8), (64, 40, 32)])
-def test_masked_reduce_matches_plain(dev, dtype, op, shape):
+@pytest.mark.parametrize("shape", [
+    (40, 15, 256), (9, 3, 8), (64, 40, 32), (33, 1, 64), (7, 16, 128),
+    (5, 17, 32), (13, 15, "piece"), (512, 15, 256), (9, 70, 16),
+    (8192, 10, 128), (6000, 17, 128)])
+@pytest.mark.parametrize("data", ["random", "grid", "grid_mask_at_3"])
+def test_masked_reduce_matches_plain(dev, dtype, op, shape, data):
+    """Random values within the tolerances; values on a coarse grid (ties
+    for max, every fp32 sum exact) bit-equal to the twin, also with the
+    mask's first byte off an 8-byte boundary. ``piece``: a row of one
+    16-byte piece (bf16 D 8, fp32 D 4). The two large grids take the
+    form with one slot row in flight on an H100."""
     m, k, d = shape
+    if d == "piece":
+        d = 128 // torch.finfo(dtype).bits
     g = torch.Generator(device=dev).manual_seed(2)
-    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    x = torch.randn((m, k, d), generator=g, device=dev)
+    if data != "random":
+        x = (x * 4).round() / 2
+    x = x.to(dtype)
     mask = torch.rand((m, k), generator=g, device=dev) < 0.6
     mask[:2] = False
+    if data == "grid_mask_at_3":
+        mask = torch.cat([torch.zeros(3, dtype=torch.bool, device=dev),
+                          mask.reshape(-1)])[3:].view(m, k)
+        assert mask.data_ptr() % 8 == 3
+    before = _build.launches["masked_reduce"]
     got = masked_reduce(x, mask, op)
+    torch.cuda.synchronize()
+    assert _build.launches["masked_reduce"] == before + 1
     want = _masked_reduce_plain(x, mask, op)
     assert got.dtype == dtype and got.shape == (m, d)
     assert torch.equal(got[:2], torch.zeros_like(got[:2]))
-    if dtype == torch.float32:
+    if data != "random":
+        assert torch.equal(got, want)
+    elif dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
     else:
         scale = float(want.float().abs().max())
         assert float((got.float() - want.float()).abs().max()) <= 2e-2 * scale
+    assert torch.equal(masked_reduce(x, mask, op), got)
 
 
 @pytest.mark.parametrize("count,n,step", [
@@ -376,15 +411,44 @@ def _retrieval_inputs(dev, q, c, dtype, seed=0):
         remove_accidental_hits=True, query_mask=qmask, candidate_mask=cmask)
 
 
+def _offset_masks(masks):
+    """The same masks, each optional [N] term a view that starts one
+    element past its storage's start (off a 16-byte boundary)."""
+    def shifted(t):
+        if t is None:
+            return None
+        return torch.cat([t[:1], t])[1:]
+    return dataclasses.replace(
+        masks, query_ids=shifted(masks.query_ids),
+        candidate_ids=shifted(masks.candidate_ids),
+        query_mask=shifted(masks.query_mask),
+        candidate_mask=shifted(masks.candidate_mask),
+        candidate_sampling_probability=shifted(
+            masks.candidate_sampling_probability))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("q,c,case", [
     (1, 1, "ids"), (1, 40, "ids"), (64, 64, "ids"), (50, 77, "ids"),
     (512, 1024, "ids"), (33, 70, "none"), (40, 20, "none"),
-    (16, 48, "all_masked_row")])
+    (16, 48, "all_masked_row"), (5, 7, "ids"), (3, 6, "none"),
+    (6, 12, "ids"), (9, 1500, "ids"), (7, 2056, "ids"), (37, 96, "cmask"),
+    (30, 64, "qids"), (50, 77, "offset"), (512, 1024, "offset")])
 def test_retrieval_loss_matches_plain(dev, dtype, q, c, case):
+    """``cmask``: the masks without ids; ``qids``: query ids without the
+    accidental hits; ``offset``: every term off a 16-byte boundary."""
     scores, masks = _retrieval_inputs(dev, q, c, dtype)
     if case == "none":
         masks = RetrievalMasks(temperature=0.5)
+    elif case == "cmask":
+        masks = RetrievalMasks(temperature=0.07,
+                               query_mask=masks.query_mask,
+                               candidate_mask=masks.candidate_mask)
+    elif case == "qids":
+        masks = RetrievalMasks(temperature=0.07, query_ids=masks.query_ids)
+    elif case == "offset":
+        masks = _offset_masks(masks)
+        assert masks.candidate_ids.data_ptr() % 16 != 0
     elif case == "all_masked_row":
         # Row 0's candidates are all duplicates or masked; the row is a
         # padded query, as the trainer makes it.
@@ -415,8 +479,59 @@ def test_retrieval_loss_matches_plain(dev, dtype, q, c, case):
     tol = (1e-5 * scale if dtype == torch.float32 or scale == 0
            else 2.0 ** (np.floor(np.log2(scale)) - 7))
     assert float((ds.float() - wds.float()).abs().max()) <= tol
-    again = retrieval_fwd(scores, masks)
-    assert torch.equal(again[0], loss)   # fixed-order sum: bit-equal
+    # Three repeat calls: the same bits (fixed-order sums), and each leaves
+    # the forward's ticket counter at 0.
+    assert forward_ticket(dev) == 0
+    for _ in range(3):
+        again = retrieval_fwd(scores, masks)
+        assert forward_ticket(dev) == 0
+        for a, b in zip(again, (loss, count, lse, ce)):
+            assert torch.equal(a, b)
+        assert torch.equal(retrieval_bwd(scores, masks, again[2], gscale), ds)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("logq", [False, True])
+@pytest.mark.parametrize("q,c", [(512, 1024), (50, 77)])
+def test_retrieval_loss_graph_replay_matches_eager(dev, dtype, logq, q, c):
+    """K5's forward and backward captured in a CUDA graph (three of each,
+    back to back), replayed twice: every replay's outputs are the eager
+    calls' bits, and the ticket counter is 0 after each replay."""
+    scores, masks = _retrieval_inputs(dev, q, c, dtype, seed=5)
+    if logq:
+        g = torch.Generator(device=dev).manual_seed(6)
+        masks = dataclasses.replace(
+            masks, candidate_sampling_probability=torch.rand(
+                c, generator=g, device=dev) / 50)
+    gscale = torch.tensor(0.37, device=dev)
+
+    def step():
+        outs = []
+        for _ in range(3):
+            loss, count, lse, ce = retrieval_fwd(scores, masks)
+            outs.append((loss, count, lse, ce,
+                         retrieval_bwd(scores, masks, lse, gscale)))
+        return outs
+
+    eager = step()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = step()
+    for _ in range(2):
+        for outs in captured:
+            for t in outs:
+                t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert forward_ticket(dev) == 0
+        for got, want in zip(captured, eager):
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
 
 
 def test_wrappers_raise_on_what_kernels_do_not_take(dev):
@@ -2022,7 +2137,8 @@ def test_neighbor_cache_int8_matches_plain(dev, agg, fanout, dim):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("q,c", [(1, 40), (50, 77), (512, 1024)])
+@pytest.mark.parametrize("q,c", [(1, 40), (50, 77), (512, 1024), (5, 7),
+                                 (9, 1500)])
 def test_retrieval_loss_logq_matches_plain(dev, dtype, q, c):
     """K5 with the logQ term (a template flag): p = 0 columns (clamped to
     1e-10), masked columns; the same tolerances as without it."""
