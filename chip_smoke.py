@@ -4211,14 +4211,18 @@ def main():
     d_ids, d_mask, d_slots = _sample_uniform_plain(csr.indptr, csr.indices,
                                                    ids_all, k2, 0, 2)
     valid2 = int(d_mask.sum())
+    k2_ms = cuda_ms(k2_kernel)
     # bytes: indptr, the drawn CSR slots and the drawn feature rows each read
     # once (a row drawn by several nodes counts once), the table written.
+    # gathered_bytes: the rows the gather reads, one a valid slot.
     record("build_neighbor_cache", "gigl_tpu_torch/csrc/neighbor_cache.cu",
            "gigl_tpu/ops/hopcache.py:52", err2,
-           cuda_ms(k2_kernel), cuda_ms(k2_plain, reps=5),
+           k2_ms, cuda_ms(k2_plain, reps=5),
            nbytes=(N + 1) * 4 + unique(d_slots[d_mask]) * 4
            + unique(d_ids[d_mask]) * D * 4 + N * D * 4,
-           nops=valid2 * D + N * D, eager_ms=eager_ms(k2_kernel))
+           nops=valid2 * D + N * D, gathered_bytes=valid2 * D * 4,
+           gathered_tb_s=valid2 * D * 4 / (k2_ms * 1e9),
+           eager_ms=eager_ms(k2_kernel))
 
     # -- K3 gather_rows: batch 0's expansion and fused-row hydration --------------
     roots = torch.arange(BATCH, dtype=torch.int32, device=dev)
@@ -4483,13 +4487,26 @@ def main():
         masked_reduce_bwd(g4, m1, "max", x_ties, out_ties),
         _masked_reduce_bwd_plain(g4, m1, "max", x_ties, out_ties),
         "K4b max (ties)"))
+    # The sum mode beside torch.where, the one PyTorch call that computes
+    # it (the same bits).
+    def k4b_sum():
+        return masked_reduce_bwd(g4, m1, "sum")
+
+    def k4b_library():
+        return torch.where(m1[..., None], g4[:, None, :], 0)
+
+    check(torch.equal(k4b_sum(), k4b_library()),
+          "K4b sum differs from torch.where")
     # bytes: grad_out and the mask read once, [M, K, D] written; ops: one
     # divide per output value (mean).
     record("masked_reduce_bwd", "gigl_tpu_torch/csrc/masked_reduce.cu",
            "gigl_tpu/ops/fanout.py:34", err4b, cuda_ms(k4b_kernel),
            cuda_ms(lambda: _masked_reduce_bwd_plain(g4, m1, "mean")),
            nbytes=BATCH * HID * 2 + BATCH * k1 + BATCH * k1 * HID * 2,
-           nops=BATCH * HID, max_ties=n_ties, eager_ms=eager_ms(k4b_kernel))
+           nops=BATCH * HID, library_ms=cuda_ms(k4b_library),
+           library_call="torch.where(mask[..., None], g[:, None, :], 0), "
+           "beside sum_ms", sum_ms=cuda_ms(k4b_sum), max_ties=n_ties,
+           eager_ms=eager_ms(k4b_kernel))
 
     # -- one training step again, through the plain versions only ------------
     chk.model.zero_grad(set_to_none=True)

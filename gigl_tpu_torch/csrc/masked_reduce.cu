@@ -204,16 +204,162 @@ __global__ void __launch_bounds__(kWalkThreads)
 //                     among valid slots, else 0         (max)
 // — the max rule of jax.vjp(jnp.max): the cotangent is shared equally among
 // the valid slots equal to the max; a row with no valid slot gets 0.
-// Bound: bytes — [M, K, D] written once (plus x read once for max). Same
-// layout as the forward: one thread per 16-byte piece of a row, looping over
-// the K slots, so every slot row is written (and read) coalesced.
+// Bound: bytes — [M, K, D] written once (plus x read once for max).
+// Design: the forward's layout, one thread per 16-byte piece of a row, so
+// every slot row is written (and read) coalesced, in small blocks
+// (kBwdBlockRows rows of 32 pieces) that spread the flagship's 16,384
+// pieces over every SM. A thread reads its row's mask once, as the
+// aligned 8-byte words that hold it (mask_bits); the mean's count is the
+// popcount of those bits, the same integer as the first version's byte
+// count, so the same quotient. Its K slot stores then issue back to back, each the row's g
+// word or zero, with no load between them. Max holds the valid slots' x
+// words of a chunk of kSlotChunk slots as loaded, counts the ties from them
+// and writes from them: x is read once where K <= kSlotChunk (twice past
+// it: a counting pass, then a writing pass). Every output is the first
+// version's bits. Past what the card holds at once in small blocks, the
+// first version's slot walk (a mask byte, then the slot's row and store)
+// in blocks of kWalkThreads takes over, which measured faster there.
+constexpr int kBwdBlockRows = 2;  // a small block's rows of 32 pieces
+
+// The x words of the valid slots (bits) of one chunk of slots, each at
+// its slot's index in held; an invalid slot's row is never loaded.
+__device__ __forceinline__ void load_valid(const uint4* __restrict__ xs,
+                                           int dv, uint32_t bits,
+                                           uint4 (&held)[kSlotChunk]) {
+#pragma unroll
+  for (int s = 0; s < kSlotChunk; ++s)
+    if ((bits >> s) & 1u) held[s] = __ldg(xs + static_cast<int64_t>(s) * dv);
+}
+
+template <typename T>
+__device__ __forceinline__ void count_ties(const uint4 (&held)[kSlotChunk],
+                                           uint32_t bits, const float* o,
+                                           float* ties) {
+  constexpr int N = Vec<T>::N;
+#pragma unroll
+  for (int s = 0; s < kSlotChunk; ++s) {
+    if (!((bits >> s) & 1u)) continue;
+    float v[N];
+    Vec<T>::load(held[s], v);
+#pragma unroll
+    for (int e = 0; e < N; ++e) ties[e] += v[e] == o[e] ? 1.f : 0.f;
+  }
+}
+
+// The n <= kSlotChunk slot stores of one chunk, back to back: a valid
+// slot's share where its value equals the max, else 0.
+template <typename T>
+__device__ __forceinline__ void write_ties(const uint4 (&held)[kSlotChunk],
+                                           uint32_t bits, int n,
+                                           const float* o, const float* share,
+                                           uint4* __restrict__ dst, int dv) {
+  constexpr int N = Vec<T>::N;
+#pragma unroll
+  for (int s = 0; s < kSlotChunk; ++s) {
+    if (s >= n) break;
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    if ((bits >> s) & 1u) {
+      float v[N];
+      Vec<T>::load(held[s], v);
+#pragma unroll
+      for (int e = 0; e < N; ++e) v[e] = v[e] == o[e] ? share[e] : 0.f;
+      w = Vec<T>::store(v);
+    }
+    dst[static_cast<int64_t>(s) * dv] = w;
+  }
+}
+
 template <typename T, int OP>
-__global__ void masked_reduce_bwd_kernel(const uint4* __restrict__ grad_out,
-                                         const uint8_t* __restrict__ mask,
-                                         const uint4* __restrict__ x,
-                                         const uint4* __restrict__ out,
-                                         uint4* __restrict__ grad_x, int64_t m,
-                                         int k, int dv) {
+__global__ void __launch_bounds__(kBwdBlockRows * 32)
+    masked_reduce_bwd_kernel(const uint4* __restrict__ grad_out,
+                             const uint8_t* __restrict__ mask,
+                             const uint4* __restrict__ x,
+                             const uint4* __restrict__ out,
+                             uint4* __restrict__ grad_x, int64_t m, int k,
+                             int dv) {
+  constexpr int N = Vec<T>::N;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= m * dv) return;
+  const int64_t r = i / dv;
+  const int c = static_cast<int>(i - r * dv);
+  const uint8_t* mrow = mask + r * k;
+  uint4* dst = grad_x + r * k * dv + c;
+  // the first kMaskGroup slots' bits (all of them for K <= 56)
+  const uint64_t bits0 = mask_bits(mrow, k < kMaskGroup ? k : kMaskGroup);
+  float g[N];
+  Vec<T>::load(__ldg(grad_out + i), g);
+  if (OP == kMax) {
+    const uint4* xs = x + r * k * dv + c;
+    float o[N], ties[N], share[N];
+    Vec<T>::load(__ldg(out + i), o);
+#pragma unroll
+    for (int e = 0; e < N; ++e) ties[e] = 0.f;
+    uint4 held[kSlotChunk];
+    if (k <= kSlotChunk) {  // x read once: count and write from held
+      const uint32_t bits = static_cast<uint32_t>(bits0);
+      load_valid(xs, dv, bits, held);
+      count_ties<T>(held, bits, o, ties);
+#pragma unroll
+      for (int e = 0; e < N; ++e) share[e] = g[e] / ties[e];
+      write_ties<T>(held, bits, k, o, share, dst, dv);
+      return;
+    }
+    for (int g0 = 0; g0 < k; g0 += kMaskGroup) {
+      const int gn = k - g0 < kMaskGroup ? k - g0 : kMaskGroup;
+      const uint64_t valid = g0 == 0 ? bits0 : mask_bits(mrow + g0, gn);
+      for (int j0 = 0; j0 < gn; j0 += kSlotChunk) {
+        const uint32_t bits = static_cast<uint32_t>(
+            (valid >> j0) & ((1ull << kSlotChunk) - 1ull));
+        load_valid(xs + static_cast<int64_t>(g0 + j0) * dv, dv, bits, held);
+        count_ties<T>(held, bits, o, ties);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < N; ++e) share[e] = g[e] / ties[e];
+    for (int g0 = 0; g0 < k; g0 += kMaskGroup) {
+      const int gn = k - g0 < kMaskGroup ? k - g0 : kMaskGroup;
+      const uint64_t valid = g0 == 0 ? bits0 : mask_bits(mrow + g0, gn);
+      for (int j0 = 0; j0 < gn; j0 += kSlotChunk) {
+        const uint32_t bits = static_cast<uint32_t>(
+            (valid >> j0) & ((1ull << kSlotChunk) - 1ull));
+        const int64_t at = static_cast<int64_t>(g0 + j0) * dv;
+        load_valid(xs + at, dv, bits, held);
+        write_ties<T>(held, bits, gn - j0, o, share, dst + at, dv);
+      }
+    }
+    return;
+  }
+  if (OP == kMean) {
+    int cnt = __popcll(bits0);
+    for (int g0 = kMaskGroup; g0 < k; g0 += kMaskGroup)
+      cnt += __popcll(mask_bits(
+          mrow + g0, k - g0 < kMaskGroup ? k - g0 : kMaskGroup));
+    const float n = static_cast<float>(cnt > 1 ? cnt : 1);
+#pragma unroll
+    for (int e = 0; e < N; ++e) g[e] /= n;
+  }
+  const uint4 g_v = Vec<T>::store(g);
+  const uint4 zero_v = make_uint4(0u, 0u, 0u, 0u);
+  for (int g0 = 0; g0 < k; g0 += kMaskGroup) {
+    const int gn = k - g0 < kMaskGroup ? k - g0 : kMaskGroup;
+    const uint64_t valid = g0 == 0 ? bits0 : mask_bits(mrow + g0, gn);
+    uint4* p = dst + static_cast<int64_t>(g0) * dv;
+#pragma unroll 8
+    for (int j = 0; j < gn; ++j)
+      p[static_cast<int64_t>(j) * dv] = (valid >> j) & 1ull ? g_v : zero_v;
+  }
+}
+
+// Past one wave: the first version's slot walk, a slot's mask byte, then
+// its row (max) and its store, at full occupancy.
+template <typename T, int OP>
+__global__ void __launch_bounds__(kWalkThreads)
+    masked_reduce_bwd_walk_kernel(const uint4* __restrict__ grad_out,
+                                  const uint8_t* __restrict__ mask,
+                                  const uint4* __restrict__ x,
+                                  const uint4* __restrict__ out,
+                                  uint4* __restrict__ grad_x, int64_t m,
+                                  int k, int dv) {
   constexpr int N = Vec<T>::N;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= m * dv) return;
@@ -222,10 +368,7 @@ __global__ void masked_reduce_bwd_kernel(const uint4* __restrict__ grad_out,
   const uint8_t* mrow = mask + r * k;
   float g[N];
   Vec<T>::load(__ldg(grad_out + i), g);
-  float zero[N];
-#pragma unroll
-  for (int e = 0; e < N; ++e) zero[e] = 0.f;
-  const uint4 zero_v = Vec<T>::store(zero);
+  const uint4 zero_v = make_uint4(0u, 0u, 0u, 0u);
   if (OP == kMax) {
     float o[N];
     Vec<T>::load(__ldg(out + i), o);
@@ -265,37 +408,6 @@ __global__ void masked_reduce_bwd_kernel(const uint4* __restrict__ grad_out,
     grad_x[(r * k + j) * dv + c] = __ldg(mrow + j) ? g_v : zero_v;
 }
 
-template <typename T>
-int launch_bwd(const void* grad_out, const void* mask, const void* x,
-               const void* out, void* grad_x, long long m, int k, int d, int op,
-               cudaStream_t stream) {
-  const int dv = d / Vec<T>::N;
-  const long long total = m * dv;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
-  const uint4* gv = static_cast<const uint4*>(grad_out);
-  const uint8_t* mv = static_cast<const uint8_t*>(mask);
-  const uint4* xv = static_cast<const uint4*>(x);
-  const uint4* ov = static_cast<const uint4*>(out);
-  uint4* gx = static_cast<uint4*>(grad_x);
-  if (op == kMean) {
-    masked_reduce_bwd_kernel<T, kMean><<<blocks, threads, 0, stream>>>(
-        gv, mv, xv, ov, gx, m, k, dv);
-  } else if (op == kSum) {
-    masked_reduce_bwd_kernel<T, kSum><<<blocks, threads, 0, stream>>>(
-        gv, mv, xv, ov, gx, m, k, dv);
-  } else if (op == kMax) {
-    if (x == nullptr || out == nullptr)
-      return static_cast<int>(cudaErrorInvalidValue);
-    masked_reduce_bwd_kernel<T, kMax><<<blocks, threads, 0, stream>>>(
-        gv, mv, xv, ov, gx, m, k, dv);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return 0;
-}
-
 // The blocks of `threads` threads of `kernel` that the card holds at once.
 template <typename K>
 long long resident_blocks(K kernel, int threads) {
@@ -329,6 +441,56 @@ void launch_op(const uint4* x, const uint8_t* mask, uint4* out, long long m,
         <<<static_cast<unsigned>((total + kWalkThreads - 1) / kWalkThreads),
            kWalkThreads, 0, stream>>>(x, mask, out, m, k, dv);
   }
+}
+
+// K4b: small blocks where the grid's small blocks fit on the card at once
+// (the flagship's [512, 15, 256] bf16: 256 blocks of 64); past that
+// ([8192, 10, 128]: 4,096 or 2,048 blocks of 64) the slot walk. The card's
+// capacity is read once (the first card's).
+template <typename T, int OP>
+void launch_bwd_op(const uint4* grad_out, const uint8_t* mask, const uint4* x,
+                   const uint4* out, uint4* grad_x, long long m, int k, int dv,
+                   cudaStream_t stream) {
+  const long long total = m * dv;
+  constexpr int small = kBwdBlockRows * 32;
+  static const long long held =
+      resident_blocks(masked_reduce_bwd_kernel<T, OP>, small);
+  const long long blocks = (total + small - 1) / small;
+  if (blocks <= held) {
+    masked_reduce_bwd_kernel<T, OP>
+        <<<static_cast<unsigned>(blocks), small, 0, stream>>>(
+            grad_out, mask, x, out, grad_x, m, k, dv);
+  } else {
+    masked_reduce_bwd_walk_kernel<T, OP>
+        <<<static_cast<unsigned>((total + kWalkThreads - 1) / kWalkThreads),
+           kWalkThreads, 0, stream>>>(grad_out, mask, x, out, grad_x, m, k,
+                                      dv);
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* grad_out, const void* mask, const void* x,
+               const void* out, void* grad_x, long long m, int k, int d, int op,
+               cudaStream_t stream) {
+  const int dv = d / Vec<T>::N;
+  if (m * dv == 0) return 0;
+  const uint4* gv = static_cast<const uint4*>(grad_out);
+  const uint8_t* mv = static_cast<const uint8_t*>(mask);
+  const uint4* xv = static_cast<const uint4*>(x);
+  const uint4* ov = static_cast<const uint4*>(out);
+  uint4* gx = static_cast<uint4*>(grad_x);
+  if (op == kMean) {
+    launch_bwd_op<T, kMean>(gv, mv, xv, ov, gx, m, k, dv, stream);
+  } else if (op == kSum) {
+    launch_bwd_op<T, kSum>(gv, mv, xv, ov, gx, m, k, dv, stream);
+  } else if (op == kMax) {
+    if (x == nullptr || out == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    launch_bwd_op<T, kMax>(gv, mv, xv, ov, gx, m, k, dv, stream);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
 }
 
 template <typename T>

@@ -10,8 +10,10 @@ live sampler, so for a given (seed, hop_key) it equals what the on-the-fly
 path computes.
 
 Kernel K2 ``build_neighbor_cache`` (``csrc/neighbor_cache.cu``) fuses the
-draw, the k-row gather and the reduce, one warp per node, and writes each
-row through a row stride — straight into the right half of the fused
+draw, the k-row gather and the reduce, a group of lanes per node (each
+lane a 16-byte piece of a row: a warp for fp32 D 128, 8 lanes for int8 D
+128), the node's slots drawn once and every drawn row's load in flight
+before the adds, and writes each row through a row stride — straight into the right half of the fused
 ``[N, D + D]`` table when ``out`` is that half (an in-place write into a
 buffer the caller allocated). Over a quantized feature table
 (``ops/quantized.py``, the reference's ``features[nbr]`` through
@@ -20,7 +22,7 @@ neighbor's int8 row and scale and dequantizes as K12 does before the same
 fp32 accumulation. With ``method="weighted"`` / ``"top_k"`` (a CSR with
 edge weights) K2 runs in its weighted mode: each node's draw is K19's
 (``sample_neighbors``' weighted / top-k draw over the first 128 CSR slots)
-by the same warp device code. :func:`_neighbor_cache_plain` is its plain
+by the same warp device code, a warp per node. :func:`_neighbor_cache_plain` is its plain
 twin, used for CPU tensors only.
 """
 

@@ -92,6 +92,34 @@ the C signature of its earlier version:
   version's slot walk).
   ``first``: the K4 that loaded a slot's mask byte, then its row, one
   slot at a time; every output is held bit for bit against its output.
+- ``masked_bwd``: K4b masked_reduce_bwd at the flagship NALP step's layer
+  2 ([512, 15, 256] bf16 and fp32: mean, sum and max, x on a coarse grid
+  so that the max has ties) and at [8192, 10, 128] fp32 and bf16 (mean;
+  bf16 max),
+  the masks those of ``masked``; the sum also as ``torch.where(mask,
+  g, 0)`` (``library``), the one PyTorch call that computes it. Knobs
+  ``rows`` (kBwdBlockRows, a small block's rows of 32 pieces), ``chunk``
+  (kSlotChunk, the x rows a thread holds for max; K4's too); past what the
+  card holds at once in small blocks, every mode takes the first version's
+  slot walk. ``first``: the K4b that read a
+  mask byte before each slot's store in blocks of 256; every output is
+  held bit for bit against its output.
+- ``cache``: K2 build_neighbor_cache over the flagship graph's CSR (every
+  node, fanout 10, hop 2, seed 0): fp32 D 128 mean, sum and gcn, int8 D
+  128 mean, the weighted and top-k draws (fp32 D 128 mean, uniform random
+  edge weights), fp32 D 256 (two column chunks of a warp) and fanout 40
+  (two draws of 32 slots, the partial sum between them kept in the
+  output row).
+  Also int8 D 128 with the weighted draw (the warp form over 4-byte
+  pieces). Knobs ``chunk`` (kSlotChunk, the group form's rows in flight a
+  lane), ``warp_unroll`` (kWarpUnroll, the warp form's slot loop
+  unrolled), ``warp_min_blocks`` and ``weighted_min_blocks``
+  (kWarpMinBlocks, kWeightedMinBlocks: the warp form's launch bound under
+  the uniform and the weighted draw) and ``threads`` (kCacheThreads, a
+  block).
+  ``first``: the K2 that drew a warp's slots anew for every 32 pieces of
+  a row and added one slot's row at a time, int8 in 4-byte pieces; every
+  output is held bit for bit against its output.
 - ``retrieval``: K5 retrieval_loss's forward and backward at the flagship
   step's [512, 1024] bf16 scores (query ids, accidental hits, query and
   candidate masks, T 0.07) without and with the logQ term, fp32 at the
@@ -150,8 +178,8 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 N, E, HEADS = 100_000, 2_000_000, 4
 TYPED_SRC, TYPED_E = 150_000, 1_400_000   # the gather sweep's typed relation
-_P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                        ctypes.c_float)
+_P, _I64, _I32, _U32, _F32 = (ctypes.c_void_p, ctypes.c_longlong,
+                              ctypes.c_int, ctypes.c_uint32, ctypes.c_float)
 K6B_OPS = {"mean": 0, "sum": 1, "max": 2, "gcn": 3, "weighted": 4,
            "gatv2": 5, "gine": 6}
 
@@ -749,9 +777,7 @@ def masked_cases(dev, _build, first):
 
     def case(label, m, k, d, dtype, op):
         x = torch.randn((m, k, d), generator=gen, device=dev).to(dtype)
-        deg = rng.poisson(E / N, m)
-        mask = torch.as_tensor(np.arange(k)[None, :] < deg[:, None],
-                               device=dev)
+        mask = poisson_prefix_mask(rng, m, k, dev)
 
         def run_first():
             out = torch.empty((m, d), dtype=dtype, device=dev)
@@ -770,6 +796,118 @@ def masked_cases(dev, _build, first):
         case(f"k4_fp32_512x15x256_{op}", 512, 15, 256, torch.float32, op)
     case("k4_fp32_8192x10x128_mean", 8192, 10, 128, torch.float32, "mean")
     case("k4_bf16_8192x10x128_mean", 8192, 10, 128, torch.bfloat16, "mean")
+    return cases
+
+
+def poisson_prefix_mask(rng, m, k, dev):
+    """[m, k] masks whose row of degree d has its first min(d, k) slots
+    valid, d ~ Poisson(E / N): a uniform draw over the flagship's degrees."""
+    deg = rng.poisson(E / N, m)
+    return torch.as_tensor(np.arange(k)[None, :] < deg[:, None], device=dev)
+
+
+def masked_bwd_cases(dev, _build, first):
+    from gigl_tpu_torch.ops.fanout import (
+        _masked_reduce_bwd_plain, _masked_reduce_fwd, masked_reduce_bwd)
+
+    rng = np.random.default_rng(24)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    dtypes = {torch.float32: 0, torch.bfloat16: 1}
+    ops = {"mean": 0, "sum": 1, "max": 2}
+    cases = {}
+
+    def case(label, m, k, d, dtype, op):
+        # a coarse grid, so the max has ties to share its gradient among
+        x = (torch.randn((m, k, d), generator=gen, device=dev) * 2).round()
+        x = x.to(dtype)
+        mask = poisson_prefix_mask(rng, m, k, dev)
+        g = torch.randn((m, d), generator=gen, device=dev).to(dtype)
+        out = _masked_reduce_fwd(x, mask, op) if op == "max" else None
+        saved = (x, out) if op == "max" else ()
+
+        def run_first():
+            grad = torch.empty((m, k, d), dtype=dtype, device=dev)
+            first("gigl_masked_reduce_bwd", g.data_ptr(), mask.data_ptr(),
+                  *(_build.ptr(t) for t in saved or (None, None)),
+                  grad.data_ptr(), m, k, d, dtypes[dtype], ops[op])
+            return grad
+
+        fns = {"kept": lambda: masked_reduce_bwd(g, mask, op, *saved)}
+        if first is not None:
+            fns["first"] = run_first
+        if op == "sum":   # the one PyTorch call that computes it
+            fns["library"] = lambda: torch.where(mask[..., None],
+                                                 g[:, None, :], 0)
+        cases[label] = (fns, lambda: _masked_reduce_bwd_plain(g, mask, op,
+                                                              *saved),
+                        1e-6 if dtype == torch.float32 else 2.0 ** -7)
+
+    for op in ("mean", "sum", "max"):
+        case(f"k4b_bf16_512x15x256_{op}", 512, 15, 256, torch.bfloat16, op)
+        case(f"k4b_fp32_512x15x256_{op}", 512, 15, 256, torch.float32, op)
+    case("k4b_fp32_8192x10x128_mean", 8192, 10, 128, torch.float32, "mean")
+    case("k4b_bf16_8192x10x128_mean", 8192, 10, 128, torch.bfloat16, "mean")
+    case("k4b_bf16_8192x10x128_max", 8192, 10, 128, torch.bfloat16, "max")
+    return cases
+
+
+def cache_cases(dev, _build, first):
+    from gigl_tpu_torch.graph.csr import build_csr
+    from gigl_tpu_torch.ops.hopcache import (
+        _neighbor_cache_plain, build_neighbor_cache)
+    from gigl_tpu_torch.ops.quantized import QuantizedTable
+    from gigl_tpu_torch.sampling.neighbor_sampler import (
+        WEIGHTED_METHODS, DeviceCSR)
+
+    rng, src, dst = flagship()
+    host = build_csr(src, dst, num_anchor_nodes=N, num_neighbor_nodes=N)
+    csr = DeviceCSR.from_csr(host, dev, edge_weights=rng.random(
+        host.indices.shape[0]).astype(np.float32))
+    deg = torch.diff(csr.indptr).float()
+    feats = {d: rng.normal(size=(N, d)).astype(np.float32) for d in (128, 256)}
+    tables = {"fp32": {d: torch.from_numpy(x).to(dev)
+                       for d, x in feats.items()},
+              "int8": {128: QuantizedTable.quantize(feats[128], device=dev)}}
+    aggs = {"mean": 0, "sum": 1, "gcn": 2}
+    cases = {}
+
+    def case(label, kind, d, fanout, agg, method="uniform"):
+        table = tables[kind][d]
+        q8 = kind == "int8"
+        weights = csr.edge_weights if method != "uniform" else None
+
+        def run_first():
+            out = torch.empty((N, d), dtype=torch.float32, device=dev)
+            first("gigl_build_neighbor_cache", csr.indptr.data_ptr(),
+                  csr.indices.data_ptr(), csr.indices.shape[0], N,
+                  (table.q if q8 else table).data_ptr(),
+                  table.scale.data_ptr() if q8 else None, d,
+                  deg.data_ptr() if agg == "gcn" else None,
+                  _build.ptr(weights),
+                  0 if weights is None else weights.shape[0],
+                  WEIGHTED_METHODS.get(method, 0), fanout, 0, 2, aggs[agg],
+                  out.data_ptr(), d)
+            return out
+
+        fns = {"kept": lambda: build_neighbor_cache(
+            csr, table, fanout=fanout, seed=0, hop_key=2, agg=agg,
+            degrees=deg, method=method)}
+        if first is not None:
+            fns["first"] = run_first
+        plain = torch.empty((N, d), dtype=torch.float32, device=dev)
+        cases[label] = (fns, lambda: _neighbor_cache_plain(
+            csr, table, fanout, 0, 2, agg, deg, plain, method=method))
+
+    for agg in aggs:
+        case(f"k2_fp32_d128_f10_{agg}", "fp32", 128, 10, agg)
+    case("k2_int8_d128_f10_mean", "int8", 128, 10, "mean")
+    case("k2_weighted_fp32_d128_f10_mean", "fp32", 128, 10, "mean",
+         "weighted")
+    case("k2_top_k_fp32_d128_f10_mean", "fp32", 128, 10, "mean", "top_k")
+    case("k2_weighted_int8_d128_f10_mean", "int8", 128, 10, "mean",
+         "weighted")
+    case("k2_fp32_d256_f10_mean", "fp32", 256, 10, "mean")
+    case("k2_fp32_d128_f40_mean", "fp32", 128, 40, "mean")
     return cases
 
 
@@ -1191,6 +1329,44 @@ SWEEPS = {
         # x, mask, out, M, K, D, dtype, op, stream
         "first": {"gigl_masked_reduce": [_P] * 3 + [_I64] + [_I32] * 4
                   + [_P]},
+        "bit_equal_first": True},
+    "masked_bwd": {
+        "sources": ["masked_reduce.cu"],
+        "entries": ["gigl_masked_reduce_bwd"],
+        "knobs": {name: [("masked_reduce.cu",
+                          rf"constexpr int {const} = (\d+);")]
+                  for name, const in (("rows", "kBwdBlockRows"),
+                                      ("chunk", "kSlotChunk"))},
+        "bounds": [],
+        "cases": masked_bwd_cases,
+        # grad_out, mask, x, out, grad_x, M, K, D, dtype, op, stream
+        "first": {"gigl_masked_reduce_bwd": [_P] * 5 + [_I64] + [_I32] * 4
+                  + [_P]},
+        "bit_equal_first": True},
+    "cache": {
+        "sources": ["neighbor_cache.cu"],
+        "entries": ["gigl_build_neighbor_cache"],
+        "knobs": {"chunk": [("neighbor_cache.cu",
+                             r"constexpr int kSlotChunk = (\d+);")],
+                  "threads": [("neighbor_cache.cu",
+                               r"constexpr int kCacheThreads = (\d+);")],
+                  "warp_unroll": [("neighbor_cache.cu",
+                                   r"constexpr int kWarpUnroll = (\d+);")],
+                  "warp_min_blocks": [("neighbor_cache.cu",
+                                       r"constexpr int kWarpMinBlocks = "
+                                       r"(\d+);")],
+                  "weighted_min_blocks": [("neighbor_cache.cu",
+                                           r"constexpr int kWeightedMinBlocks"
+                                           r" = (\d+);")]},
+        "bounds": [("neighbor_cache.cu", r"__launch_bounds__\(kCacheThreads\)",
+                    "__launch_bounds__(kCacheThreads, {b})")],
+        "cases": cache_cases,
+        # indptr, indices, E, N, features, scale, dim, degrees, weights,
+        # n_weights, method, fanout, seed, hop, agg, out, out_stride, stream
+        "first": {"gigl_build_neighbor_cache": [_P, _P, _I64, _I64, _P, _P,
+                                                _I32, _P, _P, _I64, _I32,
+                                                _I32, _U32, _U32, _I32, _P,
+                                                _I64, _P]},
         "bit_equal_first": True},
     "retrieval": {
         "sources": ["retrieval_loss.cu"],

@@ -97,7 +97,12 @@ are each block's product's bits. K4 masked_reduce at K 1, 15, 16, 17, 40 and
 a multiple of a block's rows, grids past what the card holds at once,
 one-piece rows and a mask off an 8-byte boundary: bit-equal to the twin
 where the values sit on a coarse grid (every fp32 sum exact, then one
-division and one rounding on both sides). K5's forward is one launch:
+division and one rounding on both sides). K4b masked_reduce_bwd at K4's
+shapes and data, bit-equal to the twin. K2 build_neighbor_cache over fp32
+rows of D 4-256 (a group of 4-32 lanes a node; one or two column chunks,
+one to three slot chunks), bit-equal to the twin on a coarse grid, and
+over int8 rows in 16- and 4-byte pieces; nodes of degree 0 get 0, a hub
+past the fanout draws with replacement. K5's forward is one launch:
 C under and not a multiple of a 16-byte word, C past a warp's 1,024
 columns, Q not a multiple of a block's rows, every mask on and off, terms
 off a 16-byte boundary (the scalar form); three repeat calls give the
@@ -269,7 +274,8 @@ def test_sample_uniform_bit_equal(dev, fanout, seed, hop):
 
 
 @pytest.mark.parametrize("agg", ["mean", "sum", "gcn"])
-@pytest.mark.parametrize("fanout,dim", [(3, 16), (10, 128), (40, 160)])
+@pytest.mark.parametrize("fanout,dim", [(3, 16), (10, 128), (40, 160),
+                                        (10, 256), (40, 256)])
 def test_neighbor_cache_matches_plain(dev, agg, fanout, dim):
     csr = _csr(dev, 1)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -284,6 +290,32 @@ def test_neighbor_cache_matches_plain(dev, agg, fanout, dim):
     torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
     assert torch.equal(fused[:, :dim], x)         # left half untouched
     assert torch.equal(out[[5, 6, 699]], torch.zeros_like(out[:3]))
+
+
+@pytest.mark.parametrize("agg", ["mean", "sum"])
+@pytest.mark.parametrize("fanout,dim", [(1, 4), (10, 128), (10, 256),
+                                        (40, 128), (33, 256), (17, 132)])
+def test_neighbor_cache_coarse_grid_bit_equal(dev, agg, fanout, dim):
+    """Features on a coarse grid, so every fp32 sum is exact: K2 gives the
+    twin's bits, with one column chunk or more (D 256: two of a warp; D
+    132: a lane of the second) and one slot chunk or more (fanout 17, 33,
+    40; a column chunk's partial sum kept in the output between them). Nodes
+    of degree 0 (5, 6, 699) get 0; the hub (node 11, degree > 200) draws
+    ``fanout`` slots with replacement."""
+    csr = _csr(dev, 3)
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = (torch.randn((N, dim), generator=g, device=dev) * 4).round() / 2
+    before = _build.launches["build_neighbor_cache"]
+    out = build_neighbor_cache(csr, x, fanout=fanout, seed=9, hop_key=1,
+                               agg=agg)
+    torch.cuda.synchronize()
+    assert _build.launches["build_neighbor_cache"] == before + 1
+    want = torch.empty((N, dim), device=dev)
+    _neighbor_cache_plain(csr, x, fanout, 9, 1, agg, None, want)
+    assert torch.equal(out, want)
+    assert torch.equal(out[[5, 6, 699]], torch.zeros_like(out[:3]))
+    assert int(csr.indptr[12] - csr.indptr[11]) > fanout
+    assert bool(out[11].abs().sum() > 0)
 
 
 def test_gather_rows_modes_bit_equal(dev):
@@ -368,14 +400,33 @@ def test_uniform_ids_bit_equal(dev, count, n, step):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("op", ["mean", "sum", "max"])
-@pytest.mark.parametrize("shape", [(40, 15, 256), (9, 3, 8), (64, 40, 32)])
-def test_masked_reduce_bwd_matches_plain(dev, dtype, op, shape):
+@pytest.mark.parametrize("shape", [
+    (40, 15, 256), (9, 3, 8), (64, 40, 32), (33, 1, 64), (7, 16, 128),
+    (5, 17, 32), (13, 15, "piece"), (512, 15, 256), (9, 70, 16),
+    (8192, 10, 128), (6000, 17, 128)])
+@pytest.mark.parametrize("data", ["random", "grid", "grid_mask_at_3"])
+def test_masked_reduce_bwd_matches_plain(dev, dtype, op, shape, data):
+    """K4's shapes: K 1, 16, 17 and 70 (two mask words; x read twice for
+    max past 16 slots), one-piece rows (``piece``: bf16 D 8, fp32 D 4),
+    the flagship block, grids past what the card holds at once in small
+    blocks, and the mask's first byte off an 8-byte boundary. Values on a
+    coarse grid (ties for max) give the twin's bits; so do random ones
+    (one division and one rounding on both sides), held within the
+    tolerances."""
     m, k, d = shape
+    if d == "piece":
+        d = 128 // torch.finfo(dtype).bits
     g = torch.Generator(device=dev).manual_seed(3)
-    # A coarse grid, so the max has ties to share its gradient among.
-    x = (torch.randn(shape, generator=g, device=dev) * 2).round().to(dtype)
+    x = torch.randn((m, k, d), generator=g, device=dev)
+    if data != "random":   # a coarse grid: the max has ties to share
+        x = (x * 2).round()
+    x = x.to(dtype)
     mask = torch.rand((m, k), generator=g, device=dev) < 0.6
     mask[:2] = False
+    if data == "grid_mask_at_3":
+        mask = torch.cat([torch.zeros(3, dtype=torch.bool, device=dev),
+                          mask.reshape(-1)])[3:].view(m, k)
+        assert mask.data_ptr() % 8 == 3
     out = masked_reduce(x, mask, op)
     grad_out = torch.randn((m, d), generator=g, device=dev).to(dtype)
     before = _build.launches["masked_reduce_bwd"]
@@ -385,7 +436,9 @@ def test_masked_reduce_bwd_matches_plain(dev, dtype, op, shape):
     want = _masked_reduce_bwd_plain(grad_out, mask, op, x, out)
     assert got.dtype == dtype and got.shape == (m, k, d)
     assert torch.equal(got[~mask], torch.zeros_like(got[~mask]))
-    if dtype == torch.float32:
+    if data != "random":
+        assert torch.equal(got, want)
+    elif dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
     else:
         ulp = 2.0 ** (np.floor(np.log2(float(want.float().abs().max()))) - 7)
@@ -2120,8 +2173,13 @@ def test_cms_kernels_bit_equal(dev, depth, width):
 
 
 @pytest.mark.parametrize("agg", ["mean", "sum", "gcn"])
-@pytest.mark.parametrize("fanout,dim", [(3, 16), (10, 128), (40, 132)])
+@pytest.mark.parametrize("fanout,dim", [(3, 16), (10, 128), (40, 132),
+                                        (10, 132), (40, 128), (3, 48)])
 def test_neighbor_cache_int8_matches_plain(dev, agg, fanout, dim):
+    """16-byte pieces where the int8 row is a multiple of 16 bytes (D 16:
+    one piece, 3 of a group of 4 lanes idle; D 48: three; D 128: 8 lanes
+    a node), 4-byte pieces otherwise (D 132: 33 pieces, a warp and one
+    lane of a second column chunk); nodes of degree 0 get 0."""
     csr = _csr(dev, 2)
     rng = np.random.default_rng(dim)
     t = QuantizedTable.quantize(rng.normal(size=(N, dim)), device=dev)
@@ -2134,6 +2192,7 @@ def test_neighbor_cache_int8_matches_plain(dev, agg, fanout, dim):
     want = torch.empty((N, dim), device=dev)
     _neighbor_cache_plain(csr, t, fanout, 7, 2, agg, deg, want)
     torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
+    assert torch.equal(out[[5, 6, 699]], torch.zeros_like(out[:3]))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -82,10 +82,13 @@ def test_fanout_aggregate_matches(reduce):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("op", ["mean", "sum", "max"])
-def test_masked_reduce_backward_matches_vjp(op, dtype):
-    x, mask = _inputs(seed=4)
+@pytest.mark.parametrize("m,k", [(64, 5), (12, 70)])
+def test_masked_reduce_backward_matches_vjp(op, dtype, m, k):
+    """K 70: two of K4b's 56-slot mask words and five of its 16-slot max
+    chunks; rows 0-3 have no valid slot."""
+    x, mask = _inputs(m=m, k=k, seed=4)
     x = np.round(x * 2) / 2   # a coarse grid: ties of the max are common
-    g = np.random.default_rng(5).normal(size=(64, 16)).astype(np.float32)
+    g = np.random.default_rng(5).normal(size=(m, 16)).astype(np.float32)
     jx = jnp.asarray(x).astype(JAX_DTYPES[dtype])
     _, vjp = jax.vjp(lambda a: getattr(ref, f"masked_{op}")(
         a, jnp.asarray(mask)), jx)
@@ -95,7 +98,7 @@ def test_masked_reduce_backward_matches_vjp(op, dtype):
     out = getattr(port, f"masked_{op}")(tx, torch.from_numpy(mask))
     (got,) = torch.autograd.grad(out, tx,
                                  torch.from_numpy(g).to(TORCH_DTYPES[dtype]))
-    assert got.dtype == tx.dtype and got.shape == (64, 5, 16)
+    assert got.dtype == tx.dtype and got.shape == (m, k, 16)
     got = got.float().numpy()
     np.testing.assert_array_equal(got[~mask], 0.0)
     if op == "max":   # the input does have ties for the rule to split

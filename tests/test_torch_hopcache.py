@@ -27,13 +27,13 @@ torch.set_num_threads(1)
 N, E, D = 500, 4000, 16
 
 
-def _graphs(seed=0, isolated=(7, 13)):
+def _graphs(seed=0, isolated=(7, 13), dim=D):
     rng = np.random.default_rng(seed)
     src = rng.integers(0, N, E)
     dst = rng.integers(0, N, E)
     keep = ~(np.isin(src, isolated) | np.isin(dst, isolated))
     src, dst = src[keep], dst[keep]
-    x = rng.normal(size=(N, D)).astype(np.float32)
+    x = rng.normal(size=(N, dim)).astype(np.float32)
     jg = JaxDeviceGraph.from_hetero(JaxHeteroGraph.homogeneous(
         src=src, dst=dst, num_nodes=N, node_features=x))
     pg = DeviceGraph.from_hetero(HeteroGraph.homogeneous(
@@ -54,9 +54,12 @@ def test_build_sample_table_bit_equal(fanout, seed, hop_key):
 
 
 @pytest.mark.parametrize("agg", ["mean", "sum", "gcn"])
-@pytest.mark.parametrize("fanout,hop_key", [(3, 2), (10, 2), (40, 1)])
-def test_build_neighbor_cache_matches(agg, fanout, hop_key):
-    jg, pg = _graphs()
+@pytest.mark.parametrize("fanout,hop_key,dim", [(3, 2, D), (10, 2, D),
+                                                (40, 1, D), (40, 1, 160)])
+def test_build_neighbor_cache_matches(agg, fanout, hop_key, dim):
+    """D 160 at fanout 40: on the card, two column chunks of a warp and
+    three slot chunks (a column chunk's partial sum kept in the output)."""
+    jg, pg = _graphs(dim=dim)
     want = np.asarray(ref.build_neighbor_cache(
         jg.message_csr, jg.node_features, fanout=fanout, seed=5,
         hop_key=hop_key, agg=agg, degrees=jg.degrees))
