@@ -142,9 +142,13 @@
    DeviceGraph.from_hetero(quantize_features=True) (int8 features, 4x
    smaller), then holds K12 gather_rows_q8 (the step's 512 x 15 first-hop
    rows with their degrees, and the whole table; beside K3 over the fp32
-   rows), K13 cms_add and K14 cms_estimate (the 1,024 candidate ids of a
-   real first step, on a fresh sketch and on one that has counted 20
-   steps; yardstick scatter_add_; K13 also into a 5 x 16384 sketch), K2
+   rows; its segmented launch at a quantized inference batch's four
+   gathers and a live tree's three levels, one launch each by the
+   wrapper's count and by torch.profiler's, beside the same kernel
+   launched once a gather), K13 cms_add and K14 cms_estimate (the 1,024
+   candidate ids of a real first step, on a fresh sketch and on one that
+   has counted 20 steps; yardstick scatter_add_; K13 also into a 5 x
+   16384 sketch), K2
    in its int8 mode over the whole graph and K5 with the logQ term at
    [512, 1024] bf16 against their plain versions (bit-equal where
    integer or one rounding); one step of
@@ -153,11 +157,12 @@
    after a step against a plain recount of its candidates; then the path
    (5 + 200 steps, 20 profiled; the refresh timed: K2 int8 and the host
    quantize) with the launch counts reset just before and read just
-   after, the sketch's total checked (205 x 1024), the step's host cost
+   after, the sketch's total checked (205 x 1024) and K12's launches (3
+   a step: one an encode chain), the step's host cost
    in turns (phase 6's fp32 fused-table step, the int8 tables without the
    sketch, with it: 50 steps a turn, A B C C B A), and run_inference over
-   every node of the quantized graph (batch 0 recomputed through the plain
-   versions);
+   every node of the quantized graph (one K12 launch a batch checked;
+   batch 0 recomputed through the plain versions);
 14. partitioned NALP training: the flagship graph range-partitioned over
    make_mesh(4), four shards sharing the one card (the collectives are
    copies within its memory: no NVLink traffic is measured), live
@@ -426,14 +431,21 @@ def eager_ms(fn, reps=50):
     return start.elapsed_time(end) / reps
 
 
-def device_launches(fn, name):
+def device_launches(fn, name, lead=256):
     """The device kernels whose name holds ``name`` that one call of
-    ``fn`` launches, counted by torch.profiler."""
+    ``fn`` launches, counted by torch.profiler. ``lead`` small kernels run
+    first in the profiler's recording: late in this process a recording
+    drops its first few device records (about 6 in phase 13, where a lone
+    call recorded none; PERF.md §6), so they fall on those."""
     from torch.autograd import DeviceType
 
+    pad = torch.zeros(1, device=torch.device("cuda", 0))
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(lead):
+            pad.add_(1.0)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
@@ -695,6 +707,8 @@ def plain_kernels():
         (losses, "retrieval_bwd", retrieval._retrieval_bwd_plain),
         (dataset, "expand_table", gather._expand_table_plain),
         (quantized, "gather_rows_q8", quantized._gather_rows_q8_plain),
+        (quantized, "gather_rows_q8_many",
+         quantized._gather_rows_q8_many_plain),
         (trainer, "cms_add", count_min_sketch._cms_add_plain),
         (trainer, "cms_sampling_probability",
          count_min_sketch._cms_probability_plain),
@@ -2488,7 +2502,8 @@ def quantized_phases(dev, card, graph, edges, record, add_mode, unique,
     from gigl_tpu_torch.ops.hopcache import (
         _neighbor_cache_plain, build_neighbor_cache)
     from gigl_tpu_torch.ops.quantized import (
-        _gather_rows_q8_plain, gather_rows_q8)
+        _gather_rows_q8_many_plain, _gather_rows_q8_plain, gather_rows_q8,
+        gather_rows_q8_many)
     from gigl_tpu_torch.ops.retrieval import (
         _retrieval_bwd_plain, _retrieval_fwd_plain, retrieval_bwd,
         retrieval_fwd)
@@ -2546,15 +2561,85 @@ def quantized_phases(dev, card, graph, edges, record, add_mode, unique,
                 "bound_ms": bound_ms(nbytes, nops)[0], "nbytes": nbytes,
                 "nops": nops, "rows": m, "distinct_rows": u}
 
+    # -- K12's segmented launch: a quantized inference batch's four gathers
+    # (roots 0-511 and their 7,680 first-hop rows, from the features with
+    # the degrees and from the int8 cache) and a live (15, 10) tree's three
+    # feature levels, each one launch, bit-equal to the gathers one by one
+    # through the twin; beside it the same kernel launched once a gather
+    # (four launches a batch, as the paths launched K12 before one launch
+    # took a batch; the first version's own kernel is timed in turns by
+    # scripts/kernel_sweep.py q8). bytes: the ids (shared by the two
+    # tables) read once, each table's distinct rows (with scale and degree)
+    # read once, every output written once; ops: one multiply a value.
+    cq = chk.graph.nbr_cache
+
+    def k12_segs(levels, both):
+        segs = [(xq.q, xq.scale, ids, torch.float32, deg) for ids in levels]
+        if both:
+            segs += [(cq.q, cq.scale, ids, cq.out_dtype, None)
+                     for ids in levels]
+        return levels, both, segs
+
+    cuda_counts = {}
+
+    def k12_checked(label, case):
+        _, _, segs = case
+        before = _build.launches["gather_rows_q8"]
+        got = gather_rows_q8_many(segs)
+        want = _gather_rows_q8_many_plain(segs)
+        check(_build.launches["gather_rows_q8"] == before + 1,
+              f"K12 ({label}): not one launch")
+        cuda_n = device_launches(lambda: gather_rows_q8_many(segs),
+                                 "gather_rows_q8")
+        check(cuda_n == 1, f"K12 ({label}): {cuda_n} CUDA launches, not 1")
+        cuda_counts[label] = cuda_n
+        check(all(torch.equal(g_[0], w_[0]) and (
+            g_[1] is None if w_[1] is None else torch.equal(g_[1], w_[1]))
+            for g_, w_ in zip(got, want)),
+            f"K12's segmented launch ({label}) is not bit-equal to its twin")
+
+    def k12_many(case):
+        levels, both, segs = case
+        m = sum(ids.numel() for ids in levels)
+        u = unique(torch.cat([ids.reshape(-1) for ids in levels]))
+        nbytes = m * 4 + u * (D + 8) + m * (D * 4 + 4)
+        nops = m * D
+        if both:
+            cd = cq.q.shape[1]
+            nbytes += u * (cd + 4) + m * cd * cq.out_dtype.itemsize
+            nops += m * cd
+        return {"segments": len(segs), "rows": m, "distinct_rows": u,
+                "ms": cuda_ms(lambda: gather_rows_q8_many(segs)),
+                "kept_kernel_a_launch_a_gather_ms": cuda_ms(
+                    lambda: [gather_rows_q8_many([s_]) for s_ in segs]),
+                "plain_ms": cuda_ms(lambda: _gather_rows_q8_many_plain(segs)),
+                "eager_ms": eager_ms(lambda: gather_rows_q8_many(segs)),
+                "bound_ms": bound_ms(nbytes, nops)[0]}
+
+    k12_cases = {
+        "quantized inference batch": k12_segs(
+            chk.graph.sample_hop_blocks_tabularized(torch.arange(
+                BATCH, dtype=torch.int32, device=dev), (k1,)).node_ids,
+            True),
+        "live tree": k12_segs(chk.graph.sample_hop_blocks(
+            a0, FANOUTS).node_ids, False)}
+    for k_, v_ in k12_cases.items():
+        k12_checked(k_, v_)
     hyd, whole = k12_case(lvl), k12_case(ids_whole)
+    batch, live_tree = (k12_many(v_) for v_ in k12_cases.values())
     record("gather_rows_q8", "gigl_tpu_torch/csrc/gather_rows_q8.cu",
            "gigl_tpu/ops/quantized.py:98", 0.0, hyd["ms"], hyd["plain_ms"],
            nbytes=hyd["nbytes"], nops=hyd["nops"], rows=hyd["rows"],
            distinct_rows=hyd["distinct_rows"], width=D,
            k3_fp32_same_rows_ms=hyd["k3_fp32_same_rows_ms"],
-           eager_ms=hyd["eager_ms"],
+           eager_ms=hyd["eager_ms"], batch_ms=batch["ms"],
+           batch_bound_ms=batch["bound_ms"],
+           batch_kept_kernel_a_launch_a_gather_ms=batch[
+               "kept_kernel_a_launch_a_gather_ms"],
            whole_table={k_: v_ for k_, v_ in whole.items()
-                        if k_ not in ("nbytes", "nops")})
+                        if k_ not in ("nbytes", "nops")},
+           modes={"inference_batch": batch, "live_tree": live_tree},
+           cuda_launches=cuda_counts)
 
     # -- K13 / K14 on the candidate ids of a real first step (C = 1024:
     # the positives, then the random negatives)
@@ -2751,6 +2836,10 @@ def quantized_phases(dev, card, graph, edges, record, add_mode, unique,
           "init_s": init_s, "steps": WARMUP + STEPS})
     for k in QUANT_TRAIN_KERNELS:
         check(counts[path][0][k] > 0, f"{k} was not launched on {path}")
+    # one K12 launch an encode chain (anchors, positives, random negatives)
+    check(counts[path][0]["gather_rows_q8"] == 3 * (WARMUP + STEPS),
+          f"{path}: {counts[path][0]['gather_rows_q8']} K12 launches, not 3 "
+          f"a step")
     total = int(state.cms.total)
     check(total == (WARMUP + STEPS) * (BATCH + R),
           f"the sketch counted {total}, not {WARMUP + STEPS} x 1024")
@@ -2825,6 +2914,10 @@ def quantized_phases(dev, card, graph, edges, record, add_mode, unique,
           "seconds": inf_s})
     for k in QUANT_INFERENCE_KERNELS:
         check(counts[path_i][0][k] > 0, f"{k} was not launched on {path_i}")
+    n_batches = -(-N // BATCH)
+    check(counts[path_i][0]["gather_rows_q8"] == n_batches,
+          f"{path_i}: {counts[path_i][0]['gather_rows_q8']} K12 launches, "
+          f"not one a batch ({n_batches})")
     embs = sink.table(N, OUT, path_i)
     with torch.inference_mode(), plain_kernels():
         ref0 = trainer.encode_batch(np.arange(BATCH)).float().cpu().numpy()
@@ -2833,7 +2926,6 @@ def quantized_phases(dev, card, graph, edges, record, add_mode, unique,
     # bf16, as batch 0 of the sampled-inference path (phase 4)
     check(err0 <= 3e-2 * scale0, f"{path_i}: batch 0 differs from the plain "
           f"recomputation: {err0} vs {scale0}")
-    n_batches = -(-N // BATCH)
     emit({"phase": "quantized_inference_throughput", "nodes": N,
           "nodes_per_s": N / inf_s, "ms_per_batch": inf_s / n_batches * 1e3,
           "batch0_max_abs_err": err0, "scale": scale0, "card": card})

@@ -1,7 +1,7 @@
 // Device helpers shared by the port's kernels: the counter-based RNG draw
 // of gigl_tpu/sampling/neighbor_sampler.py (_mix32, counter_rng_uniform,
 // uniform_offsets, and the CSR slot clamp of sample_neighbors), bit-equal
-// to it for every (seed, node, hop, slot), and the warp-level weighted /
+// to it for every (seed, node, hop, slot), and the lane-group weighted /
 // top-k draw over a node's window (weighted_offsets, :96-134), shared by
 // K19 sample_weighted and K2's weighted mode.
 #pragma once
@@ -75,96 +75,101 @@ __device__ __forceinline__ float weighted_score(float w, bool valid,
   return logw - logf(-logf(u));
 }
 
-// Order-preserving 64-bit key of window slot j's score: the float's
-// order-preserving uint32 in the high half (-0.0 as +0.0, so equal scores
-// tie) and window - 1 - j in the low half, so the lower slot wins a tie.
-// A NaN score (a NaN weight) ranks below every other slot, invalid ones
+// The order-preserving 32-bit word of a window slot's score: the float's
+// bits with the sign folded (-0.0 as +0.0, so equal scores tie). A NaN
+// score (a NaN weight) is 1, below every other slot, invalid ones
 // included: lax.top_k orders by the floats' total order and the
-// reference's CPU log turns any NaN into a negative NaN. Key 0 is below
-// every score (-inf maps to 0x007FFFFF..., NaN to 0x00000001...): it marks
-// a slot outside the window and a slot already taken.
-__device__ __forceinline__ uint64_t score_key(float s, int j, int window) {
-  uint32_t b;
-  if (s != s) {
-    b = 1u;
-  } else {
-    const uint32_t f = __float_as_uint(s + 0.0f);  // -0.0 + 0.0 = +0.0
-    b = (f & 0x80000000u) ? ~f : (f | 0x80000000u);
-  }
-  return (static_cast<uint64_t>(b) << 32) |
-         static_cast<uint32_t>(window - 1 - j);
+// reference's CPU log turns any NaN into a negative NaN. Word 0 is below
+// every score (-inf maps to 0x007FFFFF): it marks a slot outside the
+// window and a slot already taken.
+__device__ __forceinline__ uint32_t score_word(float s) {
+  if (s != s) return 1u;
+  const uint32_t f = __float_as_uint(s + 0.0f);  // -0.0 + 0.0 = +0.0
+  return (f & 0x80000000u) ? ~f : (f | 0x80000000u);
 }
 
-__device__ __forceinline__ uint64_t warp_max_u64(uint64_t k) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const uint64_t other = __shfl_xor_sync(0xffffffffu, k, o);
-    k = other > k ? other : k;
-  }
-  return k;
-}
+// score_word(-FLT_MAX): the word of every invalid window slot (j >= deg).
+constexpr uint32_t kInvalidWord = 0x00800000u;
 
-// A node's weighted / top-k window held by one warp: slot j = lane + 32 c
-// of the first `window` (<= 32 C) CSR slots, C keys a lane in registers.
-// Every lane of the warp must call load() and pick() together.
-template <int C>
-struct WarpWindow {
-  uint64_t key[C];
+// A node's weighted / top-k window held by one warp: slot j = 32 c + lane
+// in key register c < L, one score word each. L (a power of two) covers
+// every valid slot of the node: L >= ceil(min(deg, window) / 32). The
+// window's slots past 32 L are all invalid and tie at kInvalidWord, so the
+// lowest of them not yet taken, `dead`, stands for all of them. A round is
+// the warp's best word (one REDUX), then the lowest slot that holds it
+// (another), exactly what a max over (word, window - 1 - j) keys takes:
+// keys are distinct and the lower slot wins a tie. Every lane of the warp
+// calls load() and next() together.
+template <int L>
+struct WarpTopK {
+  uint32_t word[L];
+  int dead;    // the lowest window slot past 32 L not yet taken
   int window;
 
   // Score the window of a node whose CSR row starts at `start` with `deg`
-  // neighbors; the draw is keyed by `node` (its global id). Slot j reads
-  // weight clip(start + min(j, deg - 1), 0, n_weights - 1), coalesced
-  // across the warp.
-  __device__ __forceinline__ void load(const float* __restrict__ weights,
+  // neighbors; the draw is keyed by `node` (its global id). Slot j < deg
+  // reads weight clip(start + j, 0, n_weights - 1), coalesced across the
+  // warp. Returns whether a valid slot of this lane scored NaN.
+  __device__ __forceinline__ bool load(const float* __restrict__ weights,
                                        int64_t n_weights, int32_t start,
                                        int32_t deg, uint32_t node,
                                        uint32_t seed, uint32_t hop, int win,
                                        bool gumbel) {
     window = win;
+    dead = 32 * L;
     const int lane = threadIdx.x & 31;
+    bool nan = false;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
+    for (int c = 0; c < L; ++c) {
       const int j = lane + 32 * c;
-      key[c] = 0;
-      if (j < win) {
-        const bool valid = j < deg;
-        float w = 0.f;
-        if (valid) {
-          int64_t at = static_cast<int64_t>(start) + j;
-          at = at < 0 ? 0 : (at > n_weights - 1 ? n_weights - 1 : at);
-          w = __ldg(weights + at);
-        }
+      word[c] = j < win ? kInvalidWord : 0u;
+      if (j < win && j < deg) {
+        int64_t at = static_cast<int64_t>(start) + j;
+        at = at < 0 ? 0 : (at > n_weights - 1 ? n_weights - 1 : at);
         const uint32_t bits =
-            gumbel && valid
-                ? counter_bits(node, seed, hop, static_cast<uint32_t>(j))
-                : 0u;
-        key[c] = score_key(weighted_score(w, valid, bits, gumbel), j, win);
+            gumbel ? counter_bits(node, seed, hop, static_cast<uint32_t>(j))
+                   : 0u;
+        word[c] = score_word(
+            weighted_score(__ldg(weights + at), true, bits, gumbel));
+        nan |= word[c] == 1u;
       }
     }
+    return nan;
   }
 
-  // One round of the top-k: the window slot of the best remaining score
-  // (warp-uniform), which is then taken out of the window.
+  // One round of the top-k: the window slot of the best remaining score,
+  // the lowest such slot on a tie (warp-uniform), taken out of the window.
   __device__ __forceinline__ int next() {
-    uint64_t best = key[0];
+    const int lane = threadIdx.x & 31;
+    uint32_t best = word[0];
 #pragma unroll
-    for (int c = 1; c < C; ++c) best = key[c] > best ? key[c] : best;
-    best = warp_max_u64(best);
+    for (int c = 1; c < L; ++c) best = word[c] > best ? word[c] : best;
+    best = __reduce_max_sync(0xffffffffu, best);
+    int mine = 0x7fffffff;  // this lane's lowest slot holding `best`
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      if (key[c] == best) key[c] = 0;  // keys are distinct: the owner only
+    for (int c = L - 1; c >= 0; --c) {
+      if (word[c] == best) mine = lane + 32 * c;
     }
-    return window - 1 - static_cast<int>(static_cast<uint32_t>(best));
+    const int low = __reduce_min_sync(0xffffffffu, mine);
+    // the slots past 32 L are invalid: they rank below a valid slot and a
+    // held invalid one (a lower slot), above a NaN and a taken slot
+    const bool past = best < kInvalidWord && dead < window;
+    const int j = past ? dead : low;
+    dead += past;
+#pragma unroll
+    for (int c = 0; c < L; ++c) {
+      if (lane + 32 * c == j) word[c] = 0u;  // keys are distinct: the owner
+    }
+    return j;
   }
 
-  // Rounds s0 .. min(s0 + 32, fanout) - 1 of the top-k (call with s0 = 0,
-  // 32, 64, ... in order): lane l gets the window slot of round s0 + l
-  // (0 past the last round).
-  __device__ __forceinline__ int pick(int s0, int fanout) {
+  // Rounds s0 .. min(s0 + 32, rounds) - 1 of the top-k (call with s0 = 0,
+  // 32, 64, ... in order; `rounds` warp-uniform): lane l gets the window
+  // slot of round s0 + l, `rest` past the last round.
+  __device__ __forceinline__ int pick(int s0, int rounds, int rest = 0) {
     const int lane = threadIdx.x & 31;
-    const int nb = min(32, fanout - s0);
-    int mine = 0;
+    const int nb = min(32, rounds - s0);
+    int mine = rest;
     for (int r = 0; r < nb; ++r) {
       const int j = next();
       if (lane == r) mine = j;

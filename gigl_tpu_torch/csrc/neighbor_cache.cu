@@ -19,8 +19,9 @@
 //   broadcast by a shuffle, added in slot order in fp32. The weighted draw
 //   is K19's, weighted_offsets' Gumbel top-k (or plain top-k) over the
 //   node's first 128 CSR slots (the reference's default weight_window), by
-//   the same warp arg-max device code (gigl_common.cuh WarpWindow, 4 keys a
-//   lane); its rounds stop at the node's valid slots.
+//   the same device code (gigl_common.cuh WarpTopK: the key registers
+//   that hold a valid slot, 32-bit words, two warp reduces a round); its
+//   rounds stop at the node's valid slots.
 // - The group form (int8 rows, uniform draw): a group of lanes a node,
 //   sized so that each lane loads a 16-byte piece of a row (8 lanes for
 //   int8 D 128: 4 nodes a warp; 4-byte pieces where the row is not a
@@ -178,21 +179,16 @@ __device__ __forceinline__ void add_row(float* acc, const float* x, float w) {
     acc[e] = AGG == kGcn ? __fmaf_rn(x[e], w, acc[e]) : acc[e] + x[e];
 }
 
-// The warp form: a warp a node; PIECE kF32 or kQ4 (4 values a lane).
-template <int AGG, int PIECE, bool W>
-__global__ void __launch_bounds__(kCacheThreads,
-                                  W ? kWeightedMinBlocks : kWarpMinBlocks)
-    neighbor_cache_warp_kernel(const Params p) {
+// The warp form's node v (warp-uniform): a warp a node; PIECE kF32 or
+// kQ4 (4 values a lane). W: the weighted draw, its window in L key
+// registers a lane (WarpTopK, L covering min(deg, 128) slots).
+template <int AGG, int PIECE, bool W, int L>
+__device__ __forceinline__ void warp_node(const Params& p, int64_t v,
+                                          int32_t start, int32_t deg) {
   using P = Piece<PIECE>;
   constexpr int V = P::V;
   constexpr bool Q8 = PIECE != kF32;
   const int lane = threadIdx.x & 31;
-  // One warp per node; blockDim is a multiple of 32, so v is warp-uniform.
-  const int64_t v =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  if (v >= p.n_nodes) return;
-  const int32_t start = __ldg(p.indptr + v);
-  const int32_t deg = __ldg(p.indptr + v + 1) - start;
   const int cnt = deg <= p.fanout ? deg : p.fanout;  // valid slots: [0, cnt)
   float* dst = p.out + v * p.out_stride;
   const int pieces = p.pieces;
@@ -203,7 +199,7 @@ __global__ void __launch_bounds__(kCacheThreads,
     for (int c = lane; c < pieces; c += 32) store_piece<V>(dst, c, acc);
     return;
   }
-  gigl::WarpWindow<kCacheWindow / 32> win;
+  gigl::WarpTopK<L> win;
   if (W) {
     win.load(p.weights, p.n_weights, start, deg, static_cast<uint32_t>(v),
              p.seed, p.hop, kCacheWindow, p.gumbel);
@@ -255,6 +251,34 @@ __global__ void __launch_bounds__(kCacheThreads,
         }
         store_piece<V>(dst, c, acc);
       }
+    }
+  }
+}
+
+// The warp form: a warp a node. The weighted draw's body is chosen by the
+// node's live key registers, ceil(min(deg, 128) / 32) rounded up to 1, 2
+// or 4 (warp-uniform).
+template <int AGG, int PIECE, bool W>
+__global__ void __launch_bounds__(kCacheThreads,
+                                  W ? kWeightedMinBlocks : kWarpMinBlocks)
+    neighbor_cache_warp_kernel(const Params p) {
+  // One warp per node; blockDim is a multiple of 32, so v is warp-uniform.
+  const int64_t v =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  if (v >= p.n_nodes) return;
+  const int32_t start = __ldg(p.indptr + v);
+  const int32_t deg = __ldg(p.indptr + v + 1) - start;
+  constexpr int kKeys = kCacheWindow / 32;
+  if constexpr (!W) {
+    warp_node<AGG, PIECE, W, 1>(p, v, start, deg);
+  } else {
+    const int valid = deg < 0 ? 0 : (deg < kCacheWindow ? deg : kCacheWindow);
+    if (valid <= 32) {
+      warp_node<AGG, PIECE, W, 1>(p, v, start, deg);
+    } else if (valid <= 64) {
+      warp_node<AGG, PIECE, W, 2>(p, v, start, deg);
+    } else {
+      warp_node<AGG, PIECE, W, kKeys>(p, v, start, deg);
     }
   }
 }

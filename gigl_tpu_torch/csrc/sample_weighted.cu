@@ -14,12 +14,21 @@
 // Bound: bytes. Per node it reads two indptr words, min(deg, window)
 // weights and `fanout` random CSR indices, and writes 9 bytes a slot; the
 // hash and two logf per valid slot are ~60 operations. Design: one warp
-// per node; lane l holds window slots l, l + 32, ... (C = window / 32 keys
-// in registers, the weights read coalesced); each of the `fanout` rounds is
-// a warp arg-max over packed 64-bit keys (order-preserving float bits high,
-// window - 1 - j low) by __shfl_xor_sync, and the winner's owner clears
-// it. After every 32 rounds each lane writes one output slot, so the
-// three outputs are written coalesced. The rows need not be sorted.
+// per node; lane l holds window slots l, l + 32, ... as 32-bit
+// order-preserving score words, the weights read coalesced. Only the key
+// registers that hold a valid slot are scored and searched: L = the least
+// power of two >= ceil(min(deg, window) / 32), one kernel body per L (a
+// flagship node of ~20 neighbors takes one register where the 128-slot
+// window has four). Each of the `fanout` rounds (gigl_common.cuh
+// WarpTopK) is a __reduce_max_sync of the lanes' best words and a
+// __reduce_min_sync of the lanes' lowest slots holding it, and the owner
+// clears its word: no 64-bit shuffle butterfly. Where the window holds no
+// NaN, the rounds past the node's valid slots are written in closed form
+// (they take invalid slots, all of which give offset deg - 1, mask 0).
+// After every 32 rounds each lane writes one output slot, so the three
+// outputs are written coalesced. The rows need not be sorted. (Lane groups
+// of 16 or 8 a node, several nodes a warp, measured slower at every shape
+// but a hub at window 1024: PERF.md §6.)
 //
 // Row-offset mode (a template flag, as K1's): the frontier holds GLOBAL
 // ids, the CSR and weights are one shard's row block, node v reads local
@@ -28,58 +37,99 @@
 
 namespace {
 
-template <int C, bool kOffset>
-__global__ void sample_weighted_kernel(
-    const int32_t* __restrict__ indptr, const int32_t* __restrict__ indices,
-    int64_t n_edges, const float* __restrict__ weights, int64_t n_weights,
-    const int32_t* __restrict__ frontier, int64_t m, int fanout, int window,
-    bool gumbel, uint32_t seed, uint32_t hop, int32_t row_offset,
-    int64_t n_rows, int32_t* __restrict__ ids, uint8_t* __restrict__ mask,
-    int32_t* __restrict__ slots) {
+constexpr int kThreads = 256;  // 8 nodes a block
+
+struct Params {
+  const int32_t* __restrict__ indptr;
+  const int32_t* __restrict__ indices;
+  int64_t n_edges;
+  const float* __restrict__ weights;
+  int64_t n_weights;
+  const int32_t* __restrict__ frontier;
+  int64_t m;
+  int fanout, window;
+  bool gumbel;
+  uint32_t seed, hop;
+  int32_t row_offset;
+  int64_t n_rows;
+  int32_t* __restrict__ ids;
+  uint8_t* __restrict__ mask;
+  int32_t* __restrict__ slots;
+};
+
+// The draw of node `row` with L key registers.
+template <int L>
+__device__ __forceinline__ void draw_node(const Params& p, int64_t row,
+                                          int32_t v, int32_t start,
+                                          int32_t deg, int valid) {
+  gigl::WarpTopK<L> win;
+  const bool nan = win.load(p.weights, p.n_weights, start, deg,
+                            static_cast<uint32_t>(v), p.seed, p.hop,
+                            p.window, p.gumbel);
+  // Rounds past the node's valid slots take invalid slots (or NaN ones,
+  // which rank below them): offset deg - 1, mask 0 where the window holds
+  // no NaN, so those are written without their rounds (slot `valid` >=
+  // deg gives them).
+  const int rounds =
+      __any_sync(0xffffffffu, nan) ? p.fanout : min(p.fanout, valid);
   const int lane = threadIdx.x & 31;
-  // One warp per node; blockDim is a multiple of 32, so row is warp-uniform.
-  const int64_t row =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  if (row >= m) return;
-  const int32_t v = frontier[row];
-  int64_t r = v;
-  if constexpr (kOffset) {
-    r = static_cast<int64_t>(v) - row_offset;
-    r = r < 0 ? 0 : (r > n_rows - 1 ? n_rows - 1 : r);
-  }
-  const int32_t start = __ldg(indptr + r);
-  const int32_t deg = __ldg(indptr + r + 1) - start;
-  gigl::WarpWindow<C> win;
-  win.load(weights, n_weights, start, deg, static_cast<uint32_t>(v), seed,
-           hop, window, gumbel);
-  for (int s0 = 0; s0 < fanout; s0 += 32) {
-    const int j = win.pick(s0, fanout);
+  for (int s0 = 0; s0 < p.fanout; s0 += 32) {
+    const int j = win.pick(s0, rounds, valid);
     const int s = s0 + lane;
-    if (s < fanout) {
+    if (s < p.fanout) {
       const gigl::UniformDraw d =
-          gigl::weighted_draw(start, deg, j, s, fanout, n_edges);
-      const int64_t o = row * fanout + s;
-      ids[o] = d.valid ? __ldg(indices + d.edge_slot) : 0;
-      mask[o] = d.valid ? 1 : 0;
-      slots[o] = d.edge_slot;
+          gigl::weighted_draw(start, deg, j, s, p.fanout, p.n_edges);
+      const int64_t o = row * p.fanout + s;
+      p.ids[o] = d.valid ? __ldg(p.indices + d.edge_slot) : 0;
+      p.mask[o] = d.valid ? 1 : 0;
+      p.slots[o] = d.edge_slot;
     }
   }
 }
 
+// draw_node with the least L in L0, 2 L0, ... C that is >= live
+// (warp-uniform).
+template <int L0, int C>
+__device__ __forceinline__ void draw_live(int live, const Params& p,
+                                          int64_t row, int32_t v,
+                                          int32_t start, int32_t deg,
+                                          int valid) {
+  if constexpr (L0 < C) {
+    if (live > L0) {
+      draw_live<2 * L0, C>(live, p, row, v, start, deg, valid);
+      return;
+    }
+  }
+  draw_node<L0>(p, row, v, start, deg, valid);
+}
+
+// A warp a node; C = window / 32 key registers at most.
+template <int C, bool kOffset>
+__global__ void __launch_bounds__(kThreads)
+    sample_weighted_kernel(const Params p) {
+  // One warp per node; blockDim is a multiple of 32, so row is warp-uniform.
+  const int64_t row =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  if (row >= p.m) return;
+  const int32_t v = p.frontier[row];
+  int64_t r = v;
+  if constexpr (kOffset) {
+    r = static_cast<int64_t>(v) - p.row_offset;
+    r = r < 0 ? 0 : (r > p.n_rows - 1 ? p.n_rows - 1 : r);
+  }
+  const int32_t start = __ldg(p.indptr + r);
+  const int32_t deg = __ldg(p.indptr + r + 1) - start;
+  const int valid = deg < 0 ? 0 : (deg < p.window ? deg : p.window);
+  draw_live<1, C>((valid + 31) / 32, p, row, v, start, deg, valid);
+}
+
 template <int C>
-void launch_weighted(bool has_offset, unsigned blocks, int threads,
-                     cudaStream_t stream, const int32_t* indptr,
-                     const int32_t* indices, long long n_edges,
-                     const float* weights, long long n_weights,
-                     const int32_t* frontier, long long m, int fanout,
-                     int window, bool gumbel, uint32_t seed, uint32_t hop,
-                     int row_offset, long long n_rows, int32_t* ids,
-                     uint8_t* mask, int32_t* slots) {
+void launch_weighted(const Params& p, bool has_offset, cudaStream_t stream) {
+  const unsigned blocks =
+      static_cast<unsigned>((p.m * 32 + kThreads - 1) / kThreads);
   auto kernel = has_offset ? sample_weighted_kernel<C, true>
                            : sample_weighted_kernel<C, false>;
-  kernel<<<blocks, threads, 0, stream>>>(
-      indptr, indices, n_edges, weights, n_weights, frontier, m, fanout,
-      window, gumbel, seed, hop, row_offset, n_rows, ids, mask, slots);
+  kernel<<<blocks, kThreads, 0, stream>>>(p);
 }
 
 }  // namespace
@@ -97,37 +147,39 @@ extern "C" int gigl_sample_weighted(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (m > 0) {
-    const int threads = 256;  // 8 nodes per block
-    const unsigned blocks =
-        static_cast<unsigned>((m * 32 + threads - 1) / threads);
+    Params p{};
+    p.indptr = static_cast<const int32_t*>(indptr);
+    p.indices = static_cast<const int32_t*>(indices);
+    p.n_edges = n_edges;
+    p.weights = static_cast<const float*>(weights);
+    p.n_weights = n_weights;
+    p.frontier = static_cast<const int32_t*>(frontier);
+    p.m = m;
+    p.fanout = fanout;
+    p.window = window;
+    p.gumbel = method == 1;
+    p.seed = seed;
+    p.hop = hop;
+    p.row_offset = row_offset;
+    p.n_rows = n_rows;
+    p.ids = static_cast<int32_t*>(ids);
+    p.mask = static_cast<uint8_t*>(mask);
+    p.slots = static_cast<int32_t*>(slots);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const bool offset = has_offset != 0;
-    const bool gumbel = method == 1;
-    const auto* ip = static_cast<const int32_t*>(indptr);
-    const auto* ix = static_cast<const int32_t*>(indices);
-    const auto* w = static_cast<const float*>(weights);
-    const auto* f = static_cast<const int32_t*>(frontier);
-    auto* o_ids = static_cast<int32_t*>(ids);
-    auto* o_mask = static_cast<uint8_t*>(mask);
-    auto* o_slots = static_cast<int32_t*>(slots);
-#define GIGL_WEIGHTED(CC)                                                   \
-  launch_weighted<CC>(offset, blocks, threads, s, ip, ix, n_edges, w,       \
-                      n_weights, f, m, fanout, window, gumbel, seed, hop,   \
-                      row_offset, n_rows, o_ids, o_mask, o_slots)
     if (window <= 32) {
-      GIGL_WEIGHTED(1);
+      launch_weighted<1>(p, offset, s);
     } else if (window <= 64) {
-      GIGL_WEIGHTED(2);
+      launch_weighted<2>(p, offset, s);
     } else if (window <= 128) {
-      GIGL_WEIGHTED(4);
+      launch_weighted<4>(p, offset, s);
     } else if (window <= 256) {
-      GIGL_WEIGHTED(8);
+      launch_weighted<8>(p, offset, s);
     } else if (window <= 512) {
-      GIGL_WEIGHTED(16);
+      launch_weighted<16>(p, offset, s);
     } else {
-      GIGL_WEIGHTED(32);
+      launch_weighted<32>(p, offset, s);
     }
-#undef GIGL_WEIGHTED
   }
   return static_cast<int>(cudaGetLastError());
 }

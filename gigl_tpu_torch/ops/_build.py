@@ -41,7 +41,8 @@ COMPILE_FLAGS = ARCH_FLAGS + [
 # retrieval_loss and ring_retrieval count their forward and their backward
 # entry point, ring_spmm its forward and its transposed launches;
 # segment_reduce_bwd its max mode's tie pass, sddmm_bwd both of its stages;
-# route_requests counts one a call, however many request vectors it takes.
+# route_requests counts one a call, however many request vectors it takes;
+# gather_rows_q8 one a launch, however many gathers (segments) it takes.
 KERNEL_NAMES = ("sample_uniform", "uniform_ids", "build_neighbor_cache",
                 "gather_rows", "masked_reduce", "masked_reduce_bwd",
                 "retrieval_loss", "ell_aggregate", "fanout_attention",
@@ -103,8 +104,7 @@ _SIGNATURES = {
     "gigl_sddmm_bwd_coef": [_P] * 5 + [_I64] + [_I32] * 3 + [_P],
     "gigl_sddmm_bwd_scale": [_P, _P, _I32, _I32, _P],
     "gigl_ell_edge_grad": [_P] * 12 + [_I64] + [_I32] * 6 + [_P],
-    "gigl_gather_rows_q8": [_P, _P, _I64, _I32, _P, _I64, _I32, _P, _P, _P,
-                            _P],
+    "gigl_gather_rows_q8_many": [_P, _I32, _P],
     "gigl_cms_add": [_P, _I32, _I32, _P, _I64, _P, _P, _P, _P],
     "gigl_cms_estimate": [_P, _I32, _I32, _P, _I64, _P, _P, _P, _P],
     "gigl_route_requests": [_P, _I64, _I64, _I32, _I32, _I32] + [_P] * 6,

@@ -14,15 +14,18 @@ a reference table (``quantized_table_from_jax``).
 Kernel K12 ``gather_rows_q8`` (``csrc/gather_rows_q8.cu``) is the
 dequantizing gather of ``__getitem__``: rows ``q[ids]`` times their scales,
 rounded once to ``out_dtype``, optionally with a per-row scalar (the degree)
-gathered alongside. :func:`_gather_rows_q8_plain` is its plain twin, used
-for CPU tensors only. The neighbor cache (K2) reads a quantized feature table
+gathered alongside. One launch takes up to :data:`MAX_SEGMENTS` such
+gathers (:func:`gather_rows_q8_many`, ``QuantizedTable.gather_many``): a
+sampled batch hydrates every tree level of both int8 tables in one.
+:func:`_gather_rows_q8_plain` is its plain twin (per segment), used for
+CPU tensors only. The neighbor cache (K2) reads a quantized feature table
 in place (``ops/hopcache.py``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +46,95 @@ def _gather_rows_q8_plain(q, scale, ids, out_dtype, row_vals=None):
     return rows, (None if row_vals is None else row_vals[idx])
 
 
+# Gathers one K12 launch takes: csrc/gather_rows_q8.cu kMaxSegments.
+MAX_SEGMENTS = 8
+
+# A K12 gather: (q [N, D] int8, scale [N, 1] or [N] fp32, ids [...] int32,
+# out_dtype, row_vals [N] fp32 or None).
+Segment = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.dtype,
+                Optional[torch.Tensor]]
+
+
+def _gather_rows_q8_many_plain(segments: Sequence[Segment]):
+    """The twin of :func:`gather_rows_q8_many`: each segment's plain
+    gather."""
+    return [_gather_rows_q8_plain(*seg) for seg in segments]
+
+
+def _aligned(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def gather_rows_q8_many(
+    segments: Sequence[Segment],
+) -> List[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
+    """K12 over several gathers in one launch (one per
+    :data:`MAX_SEGMENTS`): for each ``(q, scale, ids, out_dtype,
+    row_vals)``, ``(rows [..., D] out_dtype, row_vals[ids] [...] fp32 or
+    None)`` as :func:`gather_rows_q8` returns them. The outputs share one
+    allocation, each at a 16-byte-aligned offset. CPU ids take the plain
+    twin."""
+    segments = list(segments)
+    if not segments:
+        return []
+    if segments[0][2].device.type == "cpu":
+        return _gather_rows_q8_many_plain(segments)
+    device = None
+    flats, sizes, total = [], [], 0
+    for q, scale, ids, out_dtype, row_vals in segments:
+        flat = ids.reshape(-1).contiguous()
+        dev = _build.require_cuda("gather_rows_q8", flat, q, scale)
+        if device is not None and dev != device:
+            raise ValueError(f"gather_rows_q8: tensors on {device} and {dev}")
+        device = dev
+        if q.dtype != torch.int8 or q.dim() != 2:
+            raise ValueError("gather_rows_q8: q must be a 2-D int8 table")
+        n, d = q.shape
+        if scale.dtype != torch.float32 or scale.numel() != n:
+            raise ValueError("gather_rows_q8: scale must be f32 with one "
+                             "value per row")
+        if flat.dtype != torch.int32:
+            raise ValueError("gather_rows_q8: ids must be int32")
+        if out_dtype not in _DTYPES:
+            raise ValueError(f"gather_rows_q8: out_dtype {out_dtype} not "
+                             "supported (float32, bfloat16)")
+        if n == 0 or d == 0:
+            raise ValueError("gather_rows_q8: empty table")
+        if row_vals is not None:
+            _build.require_cuda("gather_rows_q8", flat, row_vals)
+            if row_vals.dtype != torch.float32 or row_vals.shape != (n,):
+                raise ValueError("gather_rows_q8: row_vals must be f32 [N]")
+        m = flat.shape[0]
+        rows_b = m * d * out_dtype.itemsize
+        vals_b = 0 if row_vals is None else m * 4
+        flats.append(flat)
+        sizes.append((total, rows_b, vals_b))
+        total += _aligned(rows_b) + _aligned(vals_b)
+    buf = torch.empty((total,), dtype=torch.uint8, device=device)
+    table = np.zeros((len(segments), 10), dtype=np.int64)
+    outs = []
+    for k, ((q, scale, ids, out_dtype, row_vals), flat,
+            (at, rows_b, vals_b)) in enumerate(zip(segments, flats, sizes)):
+        n, d = q.shape
+        m = flat.shape[0]
+        out = buf[at:at + rows_b].view(out_dtype).view(m, d)
+        vals = None
+        if row_vals is not None:
+            v_at = at + _aligned(rows_b)
+            vals = buf[v_at:v_at + vals_b].view(torch.float32)
+        table[k] = (q.data_ptr(), scale.data_ptr(), n, d, flat.data_ptr(), m,
+                    _DTYPES[out_dtype], out.data_ptr(),
+                    _build.ptr(row_vals) or 0, _build.ptr(vals) or 0)
+        shape = tuple(ids.shape)
+        outs.append((out.reshape(shape + (d,)),
+                     None if vals is None else vals.reshape(shape)))
+    for k in range(0, len(segments), MAX_SEGMENTS):
+        chunk = np.ascontiguousarray(table[k:k + MAX_SEGMENTS])
+        _build.launch("gather_rows_q8", "gigl_gather_rows_q8_many", device,
+                      chunk.ctypes.data, chunk.shape[0])
+    return outs
+
+
 def gather_rows_q8(
     q: torch.Tensor, scale: torch.Tensor, ids: torch.Tensor,
     out_dtype: torch.dtype = torch.float32,
@@ -50,39 +142,11 @@ def gather_rows_q8(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K12: q [N, D] int8, scale [N, 1] (or [N]) fp32, ids [...] int32 ->
     (rows [..., D] ``out_dtype`` (fp32 or bf16), row_vals[ids] [...] fp32
-    or None). CPU tensors take the plain twin."""
+    or None): one segment of :func:`gather_rows_q8_many`. CPU tensors take
+    the plain twin."""
     if ids.device.type == "cpu":
         return _gather_rows_q8_plain(q, scale, ids, out_dtype, row_vals)
-    flat = ids.reshape(-1).contiguous()
-    device = _build.require_cuda("gather_rows_q8", flat, q, scale)
-    if q.dtype != torch.int8 or q.dim() != 2:
-        raise ValueError("gather_rows_q8: q must be a 2-D int8 table")
-    n, d = q.shape
-    if scale.dtype != torch.float32 or scale.numel() != n:
-        raise ValueError("gather_rows_q8: scale must be f32 with one value "
-                         "per row")
-    if flat.dtype != torch.int32:
-        raise ValueError("gather_rows_q8: ids must be int32")
-    if out_dtype not in _DTYPES:
-        raise ValueError(f"gather_rows_q8: out_dtype {out_dtype} not "
-                         "supported (float32, bfloat16)")
-    if n == 0 or d == 0:
-        raise ValueError("gather_rows_q8: empty table")
-    if row_vals is not None:
-        _build.require_cuda("gather_rows_q8", flat, row_vals)
-        if row_vals.dtype != torch.float32 or row_vals.shape != (n,):
-            raise ValueError("gather_rows_q8: row_vals must be f32 [N]")
-    m = flat.shape[0]
-    out = torch.empty((m, d), dtype=out_dtype, device=device)
-    vals = (None if row_vals is None
-            else torch.empty((m,), dtype=torch.float32, device=device))
-    _build.launch("gather_rows_q8", "gigl_gather_rows_q8", device,
-                  q.data_ptr(), scale.data_ptr(), n, d, flat.data_ptr(), m,
-                  _DTYPES[out_dtype], out.data_ptr(), _build.ptr(row_vals),
-                  _build.ptr(vals))
-    shape = tuple(ids.shape)
-    return (out.reshape(shape + (d,)),
-            None if vals is None else vals.reshape(shape))
+    return gather_rows_q8_many([(q, scale, ids, out_dtype, row_vals)])[0]
 
 
 @dataclass
@@ -140,6 +204,17 @@ class QuantizedTable:
         int32 ``ids`` of any shape (K12)."""
         return gather_rows_q8(self.q, self.scale, ids, self.out_dtype,
                               row_vals)
+
+    @staticmethod
+    def gather_many(
+        parts: Sequence[Tuple["QuantizedTable", torch.Tensor,
+                              Optional[torch.Tensor]]],
+    ) -> List[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
+        """``table.gather(ids, row_vals)`` for each ``(table, ids,
+        row_vals)``, all in one K12 launch (one per
+        :data:`MAX_SEGMENTS`)."""
+        return gather_rows_q8_many([(t.q, t.scale, ids, t.out_dtype, rv)
+                                    for t, ids, rv in parts])
 
     def __getitem__(self, idx) -> torch.Tensor:
         """Dequantizing gather; any integer index shape -> [..., D]."""

@@ -27,9 +27,10 @@ The node features (``from_hetero(quantize_features=True)``) and the
 neighbor cache (``with_neighbor_cache(quantize=True)``) may be int8
 ``QuantizedTable`` objects (``ops/quantized.py``), 4x smaller on the
 device: ``hydrate`` and ``hydrate_cached`` then gather through K12, which
-dequantizes on the fly, and K2 reads the quantized features in its int8
-mode. The quantized cache is K2's fp32 table quantized on the host, as the
-reference does it.
+dequantizes on the fly, one launch for a tree's every level
+(``hydrate_with_cache``: for both tables' levels where both are int8), and
+K2 reads the quantized features in its int8 mode. The quantized cache is
+K2's fp32 table quantized on the host, as the reference does it.
 """
 
 from __future__ import annotations
@@ -67,13 +68,15 @@ from gigl_tpu_torch.types.graph import EdgeType
 Table = Union[torch.Tensor, QuantizedTable]
 
 
-def _table_rows(table: Table, ids: torch.Tensor,
+def _level_rows(table: Table, levels: Sequence[torch.Tensor],
                 row_vals: Optional[torch.Tensor] = None):
-    """(``table[ids]``, ``row_vals[ids]`` or None): K12 for a quantized
-    table, K3 otherwise."""
+    """[(``table[ids]``, ``row_vals[ids]`` or None)] for each tree level's
+    ``ids``: one K12 launch for every level of a quantized table, a K3
+    launch a level otherwise."""
     if isinstance(table, QuantizedTable):
-        return table.gather(ids, row_vals)
-    return gather_rows(table, ids, row_vals)
+        return QuantizedTable.gather_many([(table, ids, row_vals)
+                                           for ids in levels])
+    return [gather_rows(table, ids, row_vals) for ids in levels]
 
 
 class NodeClassificationBatch(NamedTuple):
@@ -354,11 +357,27 @@ class DeviceGraph:
 
     def hydrate(self, blocks: SampledBlocks):
         """Gather hop features (+ per-hop degrees) for encoder input."""
-        rows = [_table_rows(self.node_features, ids, self.degrees)
-                for ids in blocks.node_ids]
+        rows = _level_rows(self.node_features, blocks.node_ids, self.degrees)
         feats = [r for r, _ in rows]
         degs = None if self.degrees is None else [d for _, d in rows]
         return feats, blocks.masks, degs
+
+    def hydrate_with_cache(self, blocks: SampledBlocks):
+        """(feats, masks, degrees, cached): :meth:`hydrate` and
+        :meth:`hydrate_cached` of one tree. Where both tables are int8,
+        every level of both is gathered in one K12 launch."""
+        if not (isinstance(self.node_features, QuantizedTable)
+                and isinstance(self.nbr_cache, QuantizedTable)):
+            feats, masks, degs = self.hydrate(blocks)
+            return feats, masks, degs, self.hydrate_cached(blocks)
+        levels = blocks.node_ids
+        rows = QuantizedTable.gather_many(
+            [(self.node_features, ids, self.degrees) for ids in levels]
+            + [(self.nbr_cache, ids, None) for ids in levels])
+        feat_rows, cached = rows[:len(levels)], rows[len(levels):]
+        degs = None if self.degrees is None else [d for _, d in feat_rows]
+        return ([r for r, _ in feat_rows], blocks.masks, degs,
+                [r for r, _ in cached])
 
     # -- tabularized tables -------------------------------------------------------
     def with_neighbor_cache(
@@ -457,8 +476,7 @@ class DeviceGraph:
         """Gather the hopcache rows for every tree node."""
         if self.nbr_cache is None:
             raise ValueError("no neighbor cache; call with_neighbor_cache()")
-        return [_table_rows(self.nbr_cache, ids)[0]
-                for ids in blocks.node_ids]
+        return [r for r, _ in _level_rows(self.nbr_cache, blocks.node_ids)]
 
     def hydrate_edges(self, blocks: SampledBlocks):
         """Per-hop edge features aligned to the block slots (K3 by the

@@ -31,7 +31,8 @@ included, as the reference counts them), estimates their sampling
 probability from the new sketch (K14) and subtracts its log from the
 logits inside K5 (the logQ correction). With ``quantize_cache`` (and a graph
 from ``from_hetero(quantize_features=True)``) the cache (and the features)
-are int8 tables, hydrated through K12.
+are int8 tables, hydrated through K12: one launch an encode chain for
+every tree level of both tables.
 
 Not ported: checkpointing in ``fit``.
 """
@@ -357,8 +358,7 @@ class NALPTrainer(BaseInferencer):
             if graph.fused_table is not None:
                 feats, masks, degs, cached = graph.hydrate_fused(blocks)
             else:
-                feats, masks, degs = graph.hydrate(blocks)
-                cached = graph.hydrate_cached(blocks)
+                feats, masks, degs, cached = graph.hydrate_with_cache(blocks)
             emb = self.model(feats, masks, None, train=train,
                              hop_degrees=degs, cached_agg=cached,
                              generator=generator)

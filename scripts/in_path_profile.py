@@ -38,7 +38,14 @@ nodes, E=2M uniform random edges (numpy seed 0), 128 fp32 features and
   anchors ``arange % N`` as bench.py:617 draws them);
 - ``sampled_inference``: ``run_inference`` over every node of the
   flagship graph with that trainer's model (batch 512: 196 batches a
-  pass, the rows kept in host memory).
+  pass, the rows kept in host memory);
+- ``quantized_inference``: the same pass over int8 tables (features from
+  ``from_hetero(quantize_features=True)``, the cached hop's table with
+  ``quantize_cache``), as chip_smoke.py's phase 13 runs it;
+- ``weighted_live_step``: a NALP training step over chip_smoke.py's
+  weighted graph (column 0 of an [E, 8] uniform edge table, numpy seed
+  16) with ``sampling_method="weighted"`` and live sampling (no cached
+  hop): six K19 draws a step.
 
 Per path, two warm calls (a pass or a step), then ``--count`` more under
 torch.profiler: one JSON line with the device ms a call (every device
@@ -67,7 +74,8 @@ HID, OUT, C, EDGE_DE, GINE_HID, HEADS = 256, 128, 16, 8, 128, 4
 BATCH, R, SHARDS = 512, 512, 4   # the ring step: anchors, negatives
 PATHS = ("full_graph_graphsage", "full_graph_gine", "full_batch_graphsage",
          "full_batch_gine", "coo_gat", "coo_transformer", "partitioned_ring",
-         "nalp_step", "sampled_inference")
+         "nalp_step", "sampled_inference", "quantized_inference",
+         "weighted_live_step")
 
 
 def profiled(fn, count, kernels):
@@ -233,8 +241,12 @@ class _Rows:
         pass
 
 
-def nalp_trainer(g):
-    """The flagship NALP trainer (chip_smoke.py's main paths)."""
+def nalp_trainer(g, kind="fused"):
+    """The flagship NALP trainer (chip_smoke.py's main paths): ``fused``,
+    the cached hop in the fused fp32 table; ``int8``, int8 features and
+    cache; ``weighted``, live weighted draws over the [E, 8] edge table's
+    column 0."""
+    from gigl_tpu_torch.graph.csr import HeteroGraph
     from gigl_tpu_torch.models.encoders import GNNEncoder
     from gigl_tpu_torch.models.link_prediction import (
         LinkPredictionDecoder, LinkPredictionGNN)
@@ -242,22 +254,36 @@ def nalp_trainer(g):
     from gigl_tpu_torch.training.trainer import (
         NALPTrainer, NALPTrainerConfig)
 
+    graph, extra = g.graph, {}
+    cfg = NALPTrainerConfig(fanouts=(15, 10), num_random_negs=R,
+                            loss_type="retrieval", num_positives=1,
+                            cached_hop=True, fused_cache=True)
+    if kind == "int8":
+        extra = {"quantize_features": True}
+        cfg = dataclasses.replace(cfg, fused_cache=False,
+                                  quantize_cache=True)
+    elif kind == "weighted":
+        graph = HeteroGraph.homogeneous(
+            src=g.src, dst=g.dst, num_nodes=N, node_features=g.x_np,
+            edge_features=np.random.default_rng(16).random(
+                (E, EDGE_DE), dtype=np.float32))
+        extra = {"sampling_weight_index": 0}
+        cfg = dataclasses.replace(cfg, cached_hop=False, fused_cache=False,
+                                  sampling_method="weighted")
     dg = DeviceGraph.from_hetero(
-        g.graph, supervision_edges=np.stack([g.src, g.dst]), device=g.dev)
+        graph, supervision_edges=np.stack([g.src, g.dst]), device=g.dev,
+        **extra)
     torch.manual_seed(0)
     return NALPTrainer(
         LinkPredictionGNN(GNNEncoder(D, HID, OUT, num_layers=2,
                                      conv="graphsage", dtype=torch.bfloat16),
                           LinkPredictionDecoder()),
-        dg, NALPTrainerConfig(fanouts=(15, 10), num_random_negs=R,
-                              loss_type="retrieval", num_positives=1,
-                              cached_hop=True, fused_cache=True),
-        optimizer_args={"learning_rate": "1e-3"}, device=g.dev)
+        dg, cfg, optimizer_args={"learning_rate": "1e-3"}, device=g.dev)
 
 
-def nalp_step(g, count):
+def nalp_step(g, count, kind="fused"):
     """A flagship NALP training step."""
-    trainer = nalp_trainer(g)
+    trainer = nalp_trainer(g, kind)
     state = [trainer.init_state(0, batch_size=BATCH)]
     gen = torch.Generator(device=g.dev).manual_seed(1)
     anchors = (np.arange(BATCH * (count + 2)) % N).astype(np.int32).reshape(
@@ -270,12 +296,12 @@ def nalp_step(g, count):
     return one_step
 
 
-def sampled_inference(g):
+def sampled_inference(g, kind="fused"):
     """``run_inference`` over every node of the flagship graph."""
     from gigl_tpu_torch.inference.inferencer import (
         InferenceConfig, run_inference)
 
-    trainer = nalp_trainer(g)
+    trainer = nalp_trainer(g, kind)
     trainer.init_params(0)
 
     def one_pass():
@@ -296,6 +322,10 @@ def build(path, g, count):
         return nalp_step(g, count), "step"
     if path == "sampled_inference":
         return sampled_inference(g), "pass"
+    if path == "quantized_inference":
+        return sampled_inference(g, "int8"), "pass"
+    if path == "weighted_live_step":
+        return nalp_step(g, count, "weighted"), "step"
     return partitioned_ring(g, count), "step"
 
 

@@ -139,6 +139,30 @@ the C signature of its earlier version:
   block). ``first``: the K15
   that ran one block a vector, called once a vector; every output is held
   bit for bit against its output.
+- ``q8``: K12 gather_rows_q8 over the flagship graph's int8 tables (the
+  features with their degrees, and the int8 neighbor cache, fp32 out) at a
+  quantized inference batch's four gathers (roots 0-511 and their 7,680
+  first-hop rows from the tabularized tree, from each table), at a NALP
+  encode chain's four (512 random anchors), that chain's 7,680 first-hop
+  feature rows alone, at a live (15, 10) tree's three feature levels, and
+  over the whole feature table; and mixed
+  (fp32 D 128, bf16 D 130, bf16 D 12 with degrees). Modes ``kept`` (one
+  segmented launch), ``per_segment`` (a launch a gather, the kept
+  kernel). No knob. Every mode writes the gathers'
+  outputs into one preallocated buffer (the wrapper's layout). ``first``:
+  the K12 that took one gather a launch, launched once a gather; every
+  output is held bit for bit against its output.
+- ``weighted``: K19 sample_weighted over chip_smoke.py's weighted graph
+  (column 0 of an [E, 8] uniform edge table, numpy seed 16, each CSR row
+  sorted by descending weight): every node at fanout 15 (weighted, top_k),
+  the live step's two hops (1,536 nodes at fanout 15; their 23,040 drawn
+  ids at fanout 10, hop 2), a 1,000 x 1,000 hub CSR (integer weights
+  0-3; weighted, top_k), the row-offset mode (shard 1 of 4's rows asked
+  for the hop-2 ids it owns), and every node at windows 32 and 1024.
+  No knob (``--min-blocks`` caps its registers). Every mode writes into a
+  preallocated buffer. ``first``: the K19 whose rounds were a 64-bit warp
+  arg-max over every key register; every output is held bit for bit
+  against its output.
 
 The flagship graph is chip_smoke.py's: N=100k nodes, E=2M uniform random
 edges in their random order, numpy seed 0. Variants: ``kept`` (the port's
@@ -911,6 +935,214 @@ def cache_cases(dev, _build, first):
     return cases
 
 
+def q8_cases(dev, _build, first):
+    from gigl_tpu_torch.graph.csr import HeteroGraph
+    from gigl_tpu_torch.ops.quantized import (
+        QuantizedTable, _gather_rows_q8_many_plain)
+    from gigl_tpu_torch.training.dataset import DeviceGraph
+
+    rng, src, dst = flagship()
+    x = rng.normal(size=(N, 128)).astype(np.float32)
+    graph = HeteroGraph.homogeneous(src=src, dst=dst, num_nodes=N,
+                                    node_features=x)
+    dg = DeviceGraph.from_hetero(graph, quantize_features=True,
+                                 device=dev).with_neighbor_cache(
+        fanout=10, hop_key=2, table_fanouts=(15,), quantize=True)
+    feats, cache, deg = dg.node_features, dg.nbr_cache, dg.degrees
+
+    def tree(roots):
+        return dg.sample_hop_blocks_tabularized(roots, (15,)).node_ids
+
+    def case(label, parts):
+        """Each mode writes the gathers' outputs at 16-byte-aligned offsets
+        of its own byte buffer, as the wrapper lays them out (no copy
+        timed), zeroed at its first call under each variant's library; the
+        buffers are compared."""
+        segs, at, total = [], [], 0
+        for t_, ids, rv in parts:
+            ids = ids.reshape(-1).contiguous()
+            rows_b = ids.numel() * t_.dim * t_.out_dtype.itemsize
+            vals_b = 0 if rv is None else ids.numel() * 4
+            segs.append((t_.q, t_.scale, ids, t_.out_dtype, rv))
+            at.append((total, rows_b, total + -(-rows_b // 16) * 16, vals_b))
+            total += -(-rows_b // 16) * 16 + -(-vals_b // 16) * 16
+
+        def launcher(mode):
+            buf = torch.zeros(total, dtype=torch.uint8, device=dev)
+            table = np.zeros((len(segs), 10), np.int64)
+            for k, ((q, scale, ids, dtype, rv), (r0, _, v0, vb)) in (
+                    enumerate(zip(segs, at))):
+                table[k] = (q.data_ptr(), scale.data_ptr(), q.shape[0],
+                            q.shape[1], ids.data_ptr(), ids.numel(),
+                            0 if dtype == torch.float32 else 1,
+                            buf.data_ptr() + r0, _build.ptr(rv) or 0,
+                            buf.data_ptr() + v0 if vb else 0)
+            rows = [np.ascontiguousarray(table[k:k + 1])
+                    for k in range(len(segs))]
+            lib = [None]
+
+            def run():
+                if mode != "first" and lib[0] is not _build._lib:
+                    buf.zero_()
+                    lib[0] = _build._lib
+                if mode == "kept":
+                    _build.launch("gather_rows_q8",
+                                  "gigl_gather_rows_q8_many", dev,
+                                  table.ctypes.data, len(segs))
+                elif mode == "per_segment":
+                    for row in rows:
+                        _build.launch("gather_rows_q8",
+                                      "gigl_gather_rows_q8_many", dev,
+                                      row.ctypes.data, 1)
+                else:
+                    for r_ in table:
+                        first("gigl_gather_rows_q8",
+                              *(int(v) for v in r_[:8]), int(r_[8]) or None,
+                              int(r_[9]) or None)
+                return buf
+            return run
+
+        def plain():
+            want = torch.zeros(total, dtype=torch.uint8, device=dev)
+            for (rows, vals), (r0, rb, v0, vb) in zip(
+                    _gather_rows_q8_many_plain(segs), at):
+                want[r0:r0 + rb] = rows.reshape(-1).view(torch.uint8)
+                if vals is not None:
+                    want[v0:v0 + vb] = vals.view(torch.uint8)
+            return want
+
+        modes = ["kept", "per_segment"] + ([] if first is None else ["first"])
+        cases[label] = ({m: launcher(m) for m in modes}, plain, 0.0)
+
+    cases = {}
+    for label, roots in (
+            ("inference_batch", torch.arange(512, dtype=torch.int32,
+                                             device=dev)),
+            ("nalp_chain", torch.as_tensor(rng.integers(0, N, 512).astype(
+                np.int32), device=dev))):
+        levels = tree(roots)
+        case(label, [(feats, ids, deg) for ids in levels]
+             + [(cache, ids, None) for ids in levels])
+    case("first_hop", [(feats, levels[1], deg)])
+    live = dg.sample_hop_blocks(torch.arange(512, dtype=torch.int32,
+                                             device=dev), (15, 10)).node_ids
+    case("live_tree", [(feats, ids, deg) for ids in live])
+    case("whole_table", [(feats, torch.arange(N, dtype=torch.int32,
+                                              device=dev), deg)])
+    x130 = rng.normal(size=(N, 130)).astype(np.float32)
+    mixed = [QuantizedTable.quantize(x, device=dev),
+             QuantizedTable.quantize(x130, out_dtype=torch.bfloat16,
+                                     device=dev),
+             QuantizedTable.quantize(x[:, :12], out_dtype=torch.bfloat16,
+                                     device=dev)]
+    ids = torch.as_tensor(rng.integers(0, N, 7680).astype(np.int32),
+                          device=dev)
+    case("mixed", [(mixed[0], ids, None), (mixed[1], ids, None),
+                   (mixed[2], ids, deg)])
+    return cases
+
+
+def weighted_cases(dev, _build, first):
+    from gigl_tpu_torch.graph.csr import HeteroGraph
+    from gigl_tpu_torch.sampling.neighbor_sampler import (
+        WEIGHTED_METHODS, DeviceCSR, _sample_weighted_plain)
+    from gigl_tpu_torch.training.dataset import DeviceGraph
+    from gigl_tpu_torch.training.dist_sampled import _shard_csr
+
+    _, src, dst = flagship()
+    ef = np.random.default_rng(16).random((E, 8), dtype=np.float32)
+    graph = HeteroGraph.homogeneous(
+        src=src, dst=dst, num_nodes=N,
+        node_features=np.zeros((N, 4), np.float32), edge_features=ef)
+    csr = DeviceGraph.from_hetero(graph, sampling_weight_index=0,
+                                  device=dev).message_csr
+    hrng = np.random.default_rng(17)
+    hub = DeviceCSR(
+        torch.as_tensor((np.arange(1001) * 1000).astype(np.int32),
+                        device=dev),
+        torch.as_tensor(hrng.integers(0, N, 10**6).astype(np.int32),
+                        device=dev),
+        torch.as_tensor(hrng.integers(0, 4, 10**6).astype(np.float32),
+                        device=dev))
+    rows = -(-N // 4)
+    ip_s, ix_s, w_s = _shard_csr(csr.indptr.cpu().numpy(),
+                                 csr.indices.cpu().numpy(), 4, rows,
+                                 weights=csr.edge_weights.cpu().numpy())
+    shard1 = DeviceCSR(*(torch.as_tensor(a[1], device=dev)
+                         for a in (ip_s, ix_s, w_s)))
+    ids_all = torch.arange(N, dtype=torch.int32, device=dev)
+    hop1 = torch.arange(3 * 512, dtype=torch.int32, device=dev) % N
+    ids1, mask1, _ = _sample_weighted_plain(
+        csr.indptr, csr.indices, csr.edge_weights, hop1, 15, 128,
+        "weighted", 0, 1)
+    hop2 = torch.where(mask1, ids1, 0).reshape(-1).contiguous()
+    owned = hop2[(hop2 >= rows) & (hop2 < 2 * rows)].contiguous()
+
+    def case(label, c_, frontier, fanout, method, hop, window=128,
+             row_offset=None):
+        """Each mode writes ids, mask and slots into its own byte buffer
+        (no copy timed), zeroed at its first call under each variant's
+        library; the buffers are compared."""
+        args = (c_.indptr, c_.indices, c_.edge_weights, frontier, fanout,
+                window, method, 0, hop, row_offset)
+        mf = frontier.numel() * fanout
+        mask_at, slots_at = 4 * mf, 4 * mf + -(-mf // 16) * 16
+
+        def launcher(mode):
+            buf = torch.zeros(slots_at + 4 * mf, dtype=torch.uint8,
+                              device=dev)
+            call = (c_.indptr.data_ptr(), c_.indices.data_ptr(),
+                    c_.indices.shape[0], c_.edge_weights.data_ptr(),
+                    c_.edge_weights.shape[0], frontier.data_ptr(),
+                    frontier.numel(), fanout, window,
+                    WEIGHTED_METHODS[method], 0, hop,
+                    int(row_offset is not None), row_offset or 0,
+                    c_.indptr.shape[0] - 1, buf.data_ptr(),
+                    buf.data_ptr() + mask_at, buf.data_ptr() + slots_at)
+            lib = [None]
+
+            def run():
+                if mode == "first":
+                    first("gigl_sample_weighted", *call)
+                    return buf
+                if lib[0] is not _build._lib:
+                    buf.zero_()
+                    lib[0] = _build._lib
+                _build.launch("sample_weighted", "gigl_sample_weighted",
+                              dev, *call)
+                return buf
+            return run
+
+        def plain():
+            want = torch.zeros(slots_at + 4 * mf, dtype=torch.uint8,
+                               device=dev)
+            ids, mask, slots = _sample_weighted_plain(*args)
+            want[:4 * mf] = ids.reshape(-1).view(torch.uint8)
+            want[mask_at:mask_at + mf] = mask.reshape(-1).view(torch.uint8)
+            want[slots_at:] = slots.reshape(-1).view(torch.uint8)
+            return want
+
+        modes = ["kept"] + ([] if first is None else ["first"])
+        cases[label] = ({m: launcher(m) for m in modes}, plain, 0.0)
+
+    cases = {}
+    for method in ("weighted", "top_k"):
+        case(f"all_nodes_{method}", csr, ids_all, 15, method, 1)
+    case("live_hop1", csr, hop1, 15, "weighted", 1)
+    case("live_hop2", csr, hop2, 10, "weighted", 2)
+    for method in ("weighted", "top_k"):
+        case(f"hub_{method}", hub, torch.arange(1000, dtype=torch.int32,
+                                                device=dev), 15, method, 1)
+    case("row_offset", shard1, owned, 10, "weighted", 2, row_offset=rows)
+    for window in (32, 1024):
+        case(f"all_nodes_window{window}", csr, ids_all, 15, "weighted", 1,
+             window)
+    case("hub_window1024", hub, torch.arange(1000, dtype=torch.int32,
+                                             device=dev), 15, "weighted", 1,
+         1024)
+    return cases
+
+
 def retrieval_cases(dev, _build, first):
     from gigl_tpu_torch.ops import retrieval as rl
 
@@ -1367,6 +1599,31 @@ SWEEPS = {
                                                 _I32, _P, _P, _I64, _I32,
                                                 _I32, _U32, _U32, _I32, _P,
                                                 _I64, _P]},
+        "bit_equal_first": True},
+    "q8": {
+        "sources": ["gather_rows_q8.cu"],
+        "entries": ["gigl_gather_rows_q8_many"],
+        "knobs": {},
+        "bounds": [],
+        "cases": q8_cases,
+        # q, scale, N, D, ids, M, out_dtype, out, row_vals, out_vals, stream
+        "first": {"gigl_gather_rows_q8": [_P, _P, _I64, _I32, _P, _I64, _I32,
+                                          _P, _P, _P, _P]},
+        "bit_equal_first": True},
+    "weighted": {
+        "sources": ["sample_weighted.cu"],
+        "entries": ["gigl_sample_weighted"],
+        "knobs": {},
+        "bounds": [("sample_weighted.cu", r"__launch_bounds__\(kThreads\)",
+                    "__launch_bounds__(kThreads, {b})")],
+        "cases": weighted_cases,
+        # indptr, indices, E, weights, n_weights, frontier, M, fanout,
+        # window, method, seed, hop, has_offset, row_offset, n_rows, ids,
+        # mask, slots, stream
+        "first": {"gigl_sample_weighted": [_P, _P, _I64, _P, _I64, _P, _I64,
+                                           _I32, _I32, _I32, _U32, _U32,
+                                           _I32, _I32, _I64, _P, _P, _P,
+                                           _P]},
         "bit_equal_first": True},
     "retrieval": {
         "sources": ["retrieval_loss.cu"],

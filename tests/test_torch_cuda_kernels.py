@@ -87,8 +87,12 @@ on the card against the CPU (losses and weights within 1e-4 relative).
 The weighted and top-k draw: K19 sample_weighted bit-equal to its twin
 (windows 8, 32, 128, 200 and 1024, fanout = window, all-invalid rows, a
 hub beyond every window, tied weights, +inf and NaN weights, the
-row-offset mode), its wrapper's refusals, and K2's weighted mode (fp32
-and int8 features) within rtol 1e-5. K17 ring_retrieval folds a shard's
+row-offset mode; degrees 0, 1, 31-33, 64, 65 and 127-129, where its live
+key registers change, at fanouts 1 to 1024), its wrapper's refusals, and
+K2's weighted mode (fp32 and int8 features) within rtol 1e-5, and bit for
+bit against K19's draw summed in slot order (mean, sum). K12's segmented
+launch (1 to 9 gathers, one empty; fp32 and bf16) bit-equal to its twin,
+also replayed from a CUDA graph over new ids. K17 ring_retrieval folds a shard's
 P blocks in one launch and differentiates them in another, bit-equal to
 one-block launches in turn and within rtol 1e-5 of its twins (Cl up to
 1,100, where a lane recomputes its values); the loss's [P, Ql, Cl] scores
@@ -173,8 +177,10 @@ from gigl_tpu_torch.parallel.partition import shard_features_rowwise
 from gigl_tpu_torch.parallel.mesh import Mesh
 from gigl_tpu_torch.ops.quantized import (
     QuantizedTable,
+    _gather_rows_q8_many_plain,
     _gather_rows_q8_plain,
     gather_rows_q8,
+    gather_rows_q8_many,
 )
 from gigl_tpu_torch.ops.retrieval import (
     RetrievalMasks,
@@ -2130,6 +2136,77 @@ def test_gather_rows_q8_bit_equal(dev, dtype, dim):
     assert gather_rows_q8(t.q, t.scale, ids[1], dtype)[1] is None
 
 
+def _q8_segments(dev, count, dtype, seed=0):
+    """``count`` K12 gathers over their own int8 tables: widths 4, 12, 128,
+    130 and 6 in turn, the degrees on every other one, gather 1 empty
+    (where there is one), ids of shape [7, m] with both ends of the
+    table."""
+    rng = np.random.default_rng(seed)
+    deg = torch.from_numpy(rng.random(N).astype(np.float32)).to(dev)
+    segs = []
+    for k in range(count):
+        d = (4, 12, 128, 130, 6)[k % 5]
+        x = rng.normal(size=(N, d)).astype(np.float32) * rng.uniform(
+            0.01, 30.0, (N, 1)).astype(np.float32)
+        t = QuantizedTable.quantize(x, out_dtype=dtype, device=dev)
+        shape = (0,) if k == 1 else (7, int(rng.integers(1, 60)))
+        ids = torch.from_numpy(rng.integers(0, N, shape).astype(
+            np.int32)).to(dev)
+        if k != 1:
+            ids[0, 0], ids[-1, -1] = 0, N - 1
+        segs.append((t.q, t.scale, ids, dtype, deg if k % 2 == 0 else None))
+    return segs
+
+
+def _q8_equal(got, want):
+    for (rows, vals), (w_rows, w_vals) in zip(got, want, strict=True):
+        assert rows.dtype == w_rows.dtype and torch.equal(rows, w_rows)
+        assert (vals is None) == (w_vals is None)
+        if vals is not None:
+            assert torch.equal(vals, w_vals)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("count", [1, 2, 4, 8, 9])
+def test_gather_rows_q8_many_bit_equal(dev, count, dtype):
+    """K12's segmented launch: every gather of one launch (one per eight)
+    bit-equal to its twin, each output at a 16-byte-aligned offset."""
+    segs = _q8_segments(dev, count, dtype, seed=count)
+    before = _build.launches["gather_rows_q8"]
+    got = gather_rows_q8_many(segs)
+    torch.cuda.synchronize()
+    assert _build.launches["gather_rows_q8"] == before + -(-count // 8)
+    _q8_equal(got, _gather_rows_q8_many_plain(segs))
+    for rows, vals in got:
+        assert rows.data_ptr() % 16 == 0
+        assert vals is None or vals.data_ptr() % 16 == 0
+    # one gather of the same launch gives the one-gather call's bits
+    _q8_equal(got[:1], [gather_rows_q8(*segs[0])])
+
+
+def test_gather_rows_q8_many_graph_replay(dev):
+    """The segmented launch captured in a CUDA graph (its gathers by value
+    in the kernel's parameters) and replayed over new ids equals the
+    eager call over them."""
+    segs = _q8_segments(dev, 5, torch.float32, seed=3)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gather_rows_q8_many(segs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = gather_rows_q8_many(segs)
+    rng = np.random.default_rng(4)
+    for _, _, ids, _, _ in segs:
+        ids.copy_(torch.from_numpy(rng.integers(0, N, ids.shape).astype(
+            np.int32)))
+    graph.replay()
+    torch.cuda.synchronize()
+    _q8_equal(captured, gather_rows_q8_many(segs))
+    _q8_equal(captured, _gather_rows_q8_many_plain(segs))
+
+
 @pytest.mark.parametrize("depth,width", [
     (5, 2048), (3, 2047), (1, 7), (4, 4099), (1, 1), (8, 1), (8, 7),
     (1, 2048), (8, 2049), (1, 65536), (8, 65536)])
@@ -2776,6 +2853,87 @@ def test_sample_weighted_raises_on_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="f32"):
         sample_weighted(csr.indptr, csr.indices, csr.edge_weights.double(),
                         ids, 3, 8, "top_k", 0, 1)
+
+
+# degrees at K19's key-register boundaries, and a hub past every window
+K19_DEGREES = (0, 1, 31, 32, 33, 64, 65, 127, 128, 129, 1500)
+
+
+def _boundary_csr(dev, kind):
+    """Each degree of K19_DEGREES five times, in shuffled rows, with
+    continuous, equal, or NaN / +inf / -inf-sprinkled weights."""
+    rng = np.random.default_rng(len(kind))
+    deg = rng.permutation(np.repeat(np.array(K19_DEGREES), 5))
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    e = int(indptr[-1])
+    w = (np.ones(e) if kind == "equal" else rng.random(e)).astype(np.float32)
+    if kind == "special":
+        for value, count in ((np.nan, 80), (np.inf, 40), (-np.inf, 40)):
+            w[rng.integers(0, e, count)] = value
+    return DeviceCSR(torch.from_numpy(indptr).to(dev),
+                     torch.from_numpy(rng.integers(0, N, e).astype(
+                         np.int32)).to(dev),
+                     torch.from_numpy(w).to(dev))
+
+
+@pytest.mark.parametrize("window,fanout", [
+    (32, 1), (32, 15), (32, 32), (128, 1), (128, 15), (128, 32), (128, 33),
+    (128, 128), (1024, 15), (1024, 33), (1024, 128), (1024, 1024)])
+@pytest.mark.parametrize("kind", ["continuous", "equal", "special"])
+@pytest.mark.parametrize("method", ["weighted", "top_k"])
+def test_sample_weighted_register_boundaries(dev, method, kind, window,
+                                             fanout):
+    """K19 bit-equal to its twin at the degrees where its live key
+    registers change (0, 1, 31-33, 64, 65, 127-129, and a hub of 1,500),
+    at windows 32, 128 and 1024, fanouts 1, 15, 32, 33, 128 and the
+    window, with ties, NaN and +-inf weights; and in the row-offset
+    mode."""
+    csr = _boundary_csr(dev, kind)
+    n = csr.indptr.shape[0] - 1
+    frontier = torch.arange(n, dtype=torch.int32, device=dev)
+    args = (csr.indptr, csr.indices, csr.edge_weights, frontier, fanout,
+            window, method, 5, 3)
+    for g, w in zip(sample_weighted(*args), _sample_weighted_plain(*args),
+                    strict=True):
+        assert torch.equal(g, w)
+    ip = csr.indptr.cpu().numpy()
+    lo, hi = 10, 40
+    local = (torch.from_numpy(ip[lo: hi + 1] - ip[lo]).to(dev),
+             csr.indices[ip[lo]: ip[hi]].contiguous(),
+             csr.edge_weights[ip[lo]: ip[hi]].contiguous())
+    args = local + (frontier, fanout, window, method, 5, 3, lo)
+    for g, w in zip(sample_weighted(*args), _sample_weighted_plain(*args),
+                    strict=True):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("agg", ["mean", "sum"])
+@pytest.mark.parametrize("method,fanout", [
+    ("weighted", 10), ("top_k", 10), ("weighted", 40), ("top_k", 128)])
+def test_neighbor_cache_weighted_bit_equal_in_slot_order(dev, method, fanout,
+                                                         agg, quantized):
+    """K2's weighted and top-k modes give the bits of K19's draw over the
+    first 128 slots followed by an fp32 sum of the drawn rows in slot
+    order (then one division for the mean), as K2 adds them."""
+    csr = _weighted_csr(dev, "special", 3)
+    rng = np.random.default_rng(fanout)
+    x = rng.normal(size=(N, 64)).astype(np.float32)
+    feats = (QuantizedTable.quantize(x, device=dev) if quantized
+             else torch.from_numpy(x).to(dev))
+    out = build_neighbor_cache(csr, feats, fanout=fanout, seed=7, hop_key=2,
+                               agg=agg, method=method)
+    frontier = torch.arange(N, dtype=torch.int32, device=dev)
+    ids, mask, _ = sample_weighted(csr.indptr, csr.indices, csr.edge_weights,
+                                   frontier, fanout, 128, method, 7, 2)
+    rows = (feats.q[ids.long()].float() * feats.scale.reshape(-1)[
+        ids.long()][..., None] if quantized else feats[ids.long()])
+    acc = torch.zeros((N, 64), device=dev)
+    for s in range(fanout):
+        acc = torch.where(mask[:, s, None], acc + rows[:, s], acc)
+    if agg == "mean":
+        acc = acc / mask.sum(1).clamp(min=1).float()[:, None]
+    assert torch.equal(out, acc)
 
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])

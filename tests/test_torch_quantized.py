@@ -44,8 +44,12 @@ from gigl_tpu_torch.convert import params_from_flax, quantized_table_from_jax
 from gigl_tpu_torch.graph.csr import HeteroGraph
 from gigl_tpu_torch.inference.inferencer import InferenceConfig, run_inference
 from gigl_tpu_torch.models.encoders import GNNEncoder
-from gigl_tpu_torch.ops import hopcache
-from gigl_tpu_torch.ops.quantized import QuantizedTable, gather_rows_q8
+from gigl_tpu_torch.ops import hopcache, quantized
+from gigl_tpu_torch.ops.quantized import (
+    QuantizedTable,
+    gather_rows_q8,
+    gather_rows_q8_many,
+)
 from gigl_tpu_torch.training.dataset import DeviceGraph
 from gigl_tpu_torch.training.trainer import (
     NodeClassificationTrainer,
@@ -111,6 +115,92 @@ def test_gather_rows_q8_with_row_values():
     rows, vals = gather_rows_q8(t.q, t.scale, ids, torch.float32, deg)
     assert torch.equal(rows, t[ids]) and torch.equal(vals, deg[ids.long()])
     assert gather_rows_q8(t.q, t.scale, ids)[1] is None
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("count", [1, 2, 5, 8])
+def test_gather_rows_q8_many_bit_equal(count, dtype):
+    """K12's segmented call (its twin on the CPU) gives each gather's rows
+    and row values as the one-gather call and the reference's
+    ``__getitem__`` give them: widths 4, 12, 128 and 130 in turn, the row
+    values on every other gather, gather 1 empty (where there is one)."""
+    rng = np.random.default_rng(count)
+    parts, refs = [], []
+    deg = torch.from_numpy(rng.random(40).astype(np.float32))
+    for k in range(count):
+        d = (4, 12, 128, 130)[k % 4]
+        x = _x(40, d, seed=k)
+        refs.append(ref_q.QuantizedTable.quantize(
+            x, out_dtype=JAX_DTYPES[dtype]))
+        t = QuantizedTable.quantize(x, out_dtype=TORCH_DTYPES[dtype],
+                                    device="cpu")
+        shape = (0,) if k == 1 else (3, int(rng.integers(1, 9)))
+        ids = torch.from_numpy(rng.integers(0, 40, shape).astype(np.int32))
+        parts.append((t, ids, deg if k % 2 == 0 else None))
+    got = QuantizedTable.gather_many(parts)
+    assert len(got) == count
+    for (t, ids, rv), ref, (rows, vals) in zip(parts, refs, got):
+        want_rows, want_vals = gather_rows_q8(t.q, t.scale, ids,
+                                              t.out_dtype, rv)
+        assert rows.dtype == t.out_dtype
+        assert rows.shape == tuple(ids.shape) + (t.dim,)
+        assert torch.equal(rows, want_rows)
+        assert (vals is None) == (rv is None)
+        if rv is not None:
+            assert torch.equal(vals, want_vals)
+            assert torch.equal(vals, rv[ids.long()])
+        want = np.asarray(ref[jnp.asarray(ids.numpy())].astype(jnp.float32))
+        np.testing.assert_array_equal(rows.float().numpy(), want)
+
+
+def _cached_graph():
+    """The port's graph over int8 features with its own int8 cache and a
+    sample table for the first hop."""
+    _, pg = _graphs()
+    return pg.with_neighbor_cache(fanout=3, hop_key=2, table_fanouts=(4,),
+                                  quantize=True)
+
+
+@pytest.mark.parametrize("tabularized", [True, False])
+def test_hydrate_with_cache_equals_hydrate_and_hydrate_cached(tabularized):
+    """The one-call hydrate of both int8 tables gives what ``hydrate`` and
+    ``hydrate_cached`` give, bit for bit, at every level."""
+    g = _cached_graph()
+    roots = torch.arange(0, 90, 3, dtype=torch.int32)
+    blocks = (g.sample_hop_blocks_tabularized(roots, (4,)) if tabularized
+              else g.sample_hop_blocks(roots, (4, 3), seed=5))
+    feats, masks, degs, cached = g.hydrate_with_cache(blocks)
+    want_f, want_m, want_d = g.hydrate(blocks)
+    want_c = g.hydrate_cached(blocks)
+    assert len(feats) == len(cached) == len(blocks.node_ids)
+    assert masks is blocks.masks and want_m is blocks.masks
+    for a, b in zip(feats + degs + cached, want_f + want_d + want_c):
+        assert torch.equal(a, b)
+    assert torch.equal(cached[1], g.nbr_cache[blocks.node_ids[1]])
+
+
+def test_one_k12_call_per_encode_chain(monkeypatch):
+    """Over int8 features and an int8 cache, an encode chain hydrates
+    every level of both tables through one segmented K12 call (one
+    launch on the card): one call an ``encode_batch``, one per encode
+    chain of a training step (anchors, positives, random negatives), and
+    no one-gather call."""
+    calls = []
+    many = quantized.gather_rows_q8_many
+
+    def spy(segments):
+        calls.append(len(segments))
+        return many(segments)
+
+    monkeypatch.setattr(quantized, "gather_rows_q8_many", spy)
+    monkeypatch.setattr(quantized, "gather_rows_q8", None)
+    _, _, pt, ps = cms_pair(quantize_features=True, quantize_cache=True)
+    levels = len(pt.cfg.fanouts)     # the cached hop's tree: L - 1 hops
+    pt.encode_batch(np.arange(7, dtype=np.int32))
+    assert calls == [2 * levels]
+    calls.clear()
+    pt.train_step(ps, np.arange(B, dtype=np.int32))
+    assert calls == [2 * levels] * 3
 
 
 def _graphs(quantize_features=True):

@@ -123,6 +123,54 @@ def test_weighted_offsets_bit_equal(method, kind, window, fanout):
     assert not m[list(ISOLATED)].any()
 
 
+# degrees at K19's key-register boundaries (32 slots a register)
+EDGE_DEGREES = (0, 1, 31, 32, 33, 64, 65, 127, 128, 129)
+
+
+@pytest.mark.parametrize("window,fanout", [(128, 15), (128, 33), (128, 128),
+                                           (32, 32), (32, 1)])
+@pytest.mark.parametrize("kind", ["special", "equal", "tied"])
+@pytest.mark.parametrize("method", ["weighted", "top_k"])
+def test_weighted_offsets_at_register_boundaries(method, kind, window,
+                                                 fanout):
+    """The twin against the reference at degrees 0, 1, 31-33, 64, 65,
+    127-129 (each three times, so each under three Gumbel keys): weights
+    with NaN, +inf and -inf entries (``special``), all equal, or tied
+    integers with negatives; K19 takes its key registers and its closed
+    form for the rounds past a node's valid slots from these degrees."""
+    deg = np.repeat(np.array(EDGE_DEGREES), 3)
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    e = int(indptr[-1])
+    rng = np.random.default_rng(window + fanout)
+    if kind == "equal":
+        w = np.ones(e, np.float32)
+    elif kind == "tied":
+        w = rng.integers(-1, 3, e).astype(np.float32)
+    else:
+        w = rng.random(e).astype(np.float32)
+        for value, count in ((np.nan, 25), (np.inf, 12), (-np.inf, 12)):
+            w[rng.integers(0, e, count)] = value
+    nodes = np.arange(len(deg), dtype=np.int32) * 7 + 3
+    seed, hop = 11, 2
+    fn = jax.jit(lambda w_, s_, d_, n_: ref.weighted_offsets(
+        w_, s_, d_, n_, seed, hop, fanout, method, window=window))
+    want_off, want_mask = fn(jnp.asarray(w), jnp.asarray(indptr[:-1]),
+                             jnp.asarray(deg.astype(np.int32)),
+                             jnp.asarray(nodes))
+    got_off, got_mask = port.weighted_offsets(
+        torch.from_numpy(w), torch.from_numpy(indptr[:-1]),
+        torch.from_numpy(deg), torch.from_numpy(nodes), seed, hop, fanout,
+        method, window)
+    np.testing.assert_array_equal(got_mask.numpy(), np.asarray(want_mask))
+    _assert_draws_match(got_off.numpy(), want_off, _twin_scores(
+        w, indptr[:-1], deg, nodes, seed, hop, method, window))
+    # past a node's valid slots: offset deg - 1 (0 without neighbors)
+    off = got_off.numpy()
+    for r, d in enumerate(deg):
+        if d < fanout and not np.isnan(w[indptr[r]:indptr[r + 1]]).any():
+            np.testing.assert_array_equal(off[r, d:], max(d - 1, 0))
+
+
 @pytest.mark.parametrize("method", ["weighted", "top_k"])
 @pytest.mark.parametrize("window", [128, 8])
 def test_sample_neighbors_bit_equal(method, window):
