@@ -11,7 +11,7 @@
    out 128, bf16; R=512 random negatives), and times both (device time from
    CUDA-graph replay, plus the wrapper's eager time; warm L2). The training
    kernels are checked on a real first training step: K1b on its random
-   negatives, K5 on its [512, 1024] bf16 score matrix, K4b on layer 2's
+   negatives (yardstick torch.randint: the same distribution, other bits), K5 on its [512, 1024] bf16 score matrix, K4b on layer 2's
    [512, 15, 256] bf16 block;
 4. runs the port's sampled-inference path — NALPTrainer(cached_hop,
    fused_cache) -> run_inference over all nodes — with every kernel's launch
@@ -69,7 +69,11 @@
    fp32 cotangent in its composed mode (the segment ids the source index
    was built from) and its chained mode (a copy: chained_ms), bit-equal,
    K9b segment_softmax_bwd at [2M, 4] (fp32 and bf16: modes coo_fp32 /
-   coo_bf16 on its row, with gathered_bytes) and the sddmm
+   coo_bf16 on its row, with gathered_bytes), K10b at [2M, 4] in the
+   COO Transformer step's mode (the coefficients alone, fp32 g and bf16 g;
+   yardstick torch.mul) and with the scale's cotangent (fp32, within 1e-6
+   of sum |g raw| of an fp64 sum; yardstick torch.linalg.vecdot), each one
+   CUDA launch by torch.profiler's count, and the whole sddmm
    backward (K10b's coefficients and the scale's cotangent, with K8 for dq
    and K8b for dk; 4 heads of 64) against autograd through the plain
    twins, with bounds and yardsticks (K8b: sparse.mm of the source-sorted
@@ -148,7 +152,8 @@
    launched once a gather), K13 cms_add and K14 cms_estimate (the 1,024
    candidate ids of a real first step, on a fresh sketch and on one that
    has counted 20 steps; yardstick scatter_add_; K13 also into a 5 x
-   16384 sketch), K2
+   16384 sketch; K14 alone and the K13 -> K14 pair from one CUDA graph,
+   there and at 65,536 ids over a 5 x 16384 sketch), K2
    in its int8 mode over the whole graph and K5 with the logQ term at
    [512, 1024] bf16 against their plain versions (bit-equal where
    integer or one rounding); one step of
@@ -1728,22 +1733,70 @@ def coo_phases(dev, card, graph, record, rel_err, unique,
            edges=E, heads=GAT_HEADS, eager_ms=main9["eager_ms"],
            gathered_bytes=main9["gathered_bytes"], modes=k9b)
 
-    # K10b at the Transformer's layer 2 (4 heads of 64): the coefficient
-    # pass with the scale's cotangent, and the whole sddmm backward (K10
-    # unscaled, K10b, K8 for dq, K8b for dk) against autograd through
-    # K10's plain twin. bytes: g and raw read, coef written; ops: a
-    # multiply for coef and a multiply-add for dscale per (edge, head).
+    # K10b at the COO Transformer step's [2M, 4]: the path's mode (the
+    # coefficients alone: the step's scale is a constant) in fp32 and with
+    # a bf16 g, and the mode with the scale's cotangent (raw: the unscaled
+    # scores of layer 2's 4 heads of 64), each one CUDA launch; then the
+    # whole sddmm backward (K10 unscaled, K10b, K8 for dq, K8b for dk)
+    # against autograd through K10's plain twin. bytes: g (and raw) read,
+    # coef written; ops: a multiply per (edge, head), and a multiply-add
+    # more for the cotangent. Yardsticks: torch.mul(g, scale) and
+    # torch.linalg.vecdot(g, raw, dim=0).
     q10, k10 = (torch.randn((N, GAT_HEADS, HID // GAT_HEADS), generator=gen,
                             device=dev) for _ in range(2))
     sc10 = torch.full((GAT_HEADS,), (HID // GAT_HEADS) ** -0.5, device=dev)
     g10 = torch.randn((E, GAT_HEADS), generator=gen, device=dev)
     raw10 = sddmm(src, dst, q10, k10, index=idx)
+    k10b_modes = {}
+    for mode, g_, raw_ in (("coef_fp32", g10, None),
+                           ("coef_bf16", g10.bfloat16(), None),
+                           ("dscale_fp32", g10, raw10)):
+        def k10b_kernel(g_=g_, raw_=raw_):
+            return sddmm_bwd_coef(g_, sc10, raw_)
 
-    def k10b_kernel():
-        return sddmm_bwd_coef(g10, sc10, raw10)
+        def k10b_plain(g_=g_, raw_=raw_):
+            return _sddmm_bwd_coef_plain(g_, sc10, raw_)
 
-    def k10b_plain():
-        return _sddmm_bwd_coef_plain(g10, sc10, raw10)
+        (coef_, ds_), (want_c, want_d) = k10b_kernel(), k10b_plain()
+        check(torch.equal(coef_, want_c),
+              f"K10b {mode}: coef is not the twin's single multiply")
+        again = k10b_kernel()
+        check(torch.equal(coef_, again[0]) and (ds_ is None or torch.equal(
+            ds_, again[1])), f"K10b {mode}: a repeat run differs")
+        val_bytes = E * GAT_HEADS * g_.element_size()
+        nbytes = val_bytes + E * GAT_HEADS * 4 + GAT_HEADS * 4
+        nops = E * GAT_HEADS
+        entry = {"bit_equal_coef": True, "dtype": str(g_.dtype).split(".")[-1]}
+        def library(g_=g_, raw_=raw_):
+            return (torch.mul(g_, sc10) if raw_ is None
+                    else torch.linalg.vecdot(g_, raw_, dim=0))
+
+        if raw_ is not None:
+            # within 1e-6 of sum_e |g raw| per head of an fp64 sum: the sum
+            # of 2M signed terms nearly cancels, so an error relative to
+            # the result itself would mean nothing
+            prod = g_.double() * raw_.double()
+            abs_sum = prod.abs().sum(0)
+            rel = float(((ds_.double() - prod.sum(0)).abs() / abs_sum).max())
+            check(rel <= 1e-6, f"K10b dscale {rel} of sum |g raw| from an "
+                  "fp64 sum (limit 1e-6)")
+            entry.update(dscale_err_rel_to_abs_sum=rel,
+                         twin_dscale_err_rel_to_abs_sum=float((
+                             (want_d.double() - prod.sum(0)).abs()
+                             / abs_sum).max()))
+            del prod, abs_sum
+            nbytes += val_bytes
+            nops += E * GAT_HEADS
+        b_, _ = bound_ms(nbytes, nops)
+        entry.update(ms=cuda_ms(k10b_kernel), plain_ms=cuda_ms(k10b_plain,
+                                                               reps=3),
+                     bound_ms=b_, library_ms=cuda_ms(library),
+                     eager_ms=eager_ms(k10b_kernel),
+                     cuda_launches=device_launches(k10b_kernel, "sddmm_bwd"))
+        check(entry["cuda_launches"] == 1,
+              f"K10b {mode}: {entry['cuda_launches']} CUDA launches, not 1")
+        k10b_modes[mode] = entry
+        del coef_, ds_, want_c, want_d, again
 
     def full_bwd(fn):
         leaves = [t.clone().requires_grad_() for t in (q10, k10, sc10)]
@@ -1756,18 +1809,26 @@ def coo_phases(dev, card, graph, record, rel_err, unique,
 
     got10, want10 = kernel_bwd(), full_bwd(
         lambda q_, k_, s_: _sddmm_plain(src, dst, q_, k_, s_))
-    err10 = max(rel_err(a, b, f"sddmm backward {n_}", tol=1e-5)
-                for n_, a, b in zip(("dq", "dk", "dscale"), got10, want10))
+    # max_abs_err below is coef's, bit-equal to the twin (0.0); this is
+    # the whole backward's largest absolute error (dq, dk, dscale), each
+    # held within 1e-5 of its scale
+    whole_err = max(rel_err(a, b, f"sddmm backward {n_}", tol=1e-5)
+                    for n_, a, b in zip(("dq", "dk", "dscale"), got10,
+                                        want10))
     check(all(torch.equal(a, b) for a, b in zip(got10, kernel_bwd())),
           "the sddmm backward: a repeat run differs")
+    main10 = k10b_modes["coef_fp32"]
     record("sddmm_bwd", "gigl_tpu_torch/csrc/sddmm_bwd.cu",
-           "gigl_tpu/ops/segment.py:90", err10, cuda_ms(k10b_kernel),
-           cuda_ms(k10b_plain, reps=3),
-           nbytes=E * GAT_HEADS * 4 * 3 + GAT_HEADS * 4,
-           nops=E * GAT_HEADS * 3, library_ms=None,
-           library_call="none: no single PyTorch call computes the "
-                        "coefficients and the scale's cotangent",
-           edges=E, heads=GAT_HEADS, eager_ms=eager_ms(k10b_kernel),
+           "gigl_tpu/ops/segment.py:90", 0.0, main10["ms"],
+           main10["plain_ms"],
+           nbytes=E * GAT_HEADS * 4 * 2 + GAT_HEADS * 4,
+           nops=E * GAT_HEADS, library_ms=main10["library_ms"],
+           library_call="torch.mul(g, scale) (the coefficients); the "
+                        "scale's cotangent mode: torch.linalg.vecdot(g, "
+                        "raw, dim=0)",
+           edges=E, heads=GAT_HEADS, eager_ms=main10["eager_ms"],
+           cuda_launches=main10["cuda_launches"], modes=k10b_modes,
+           whole_backward_err=whole_err,
            whole_backward_eager_ms=eager_ms(kernel_bwd, reps=10),
            whole_backward_plain_eager_ms=eager_ms(lambda: full_bwd(
                lambda q_, k_, s_: _sddmm_plain(src, dst, q_, k_, s_)),
@@ -2713,8 +2774,49 @@ def quantized_phases(dev, card, graph, edges, record, add_mode, unique,
            nops=cids.numel() * depth * 13, ids=cids.numel(),
            table_cells_read=cells, sketch_total=int(got.total),
            distinct_estimates=unique(est),
+           ms_of="K14 after K14: launches replayed from one CUDA graph, "
+                 "each starting while the one before finishes, which no "
+                 "path does; the yardstick is the K13 -> K14 pair, "
+                 "modes[...]['pair_ms']",
            est_ms=cuda_ms(lambda: cms_estimate(got, cids)),
            eager_ms=eager_ms(lambda: cms_sampling_probability(got, cids)))
+    # K14 behind K13, as the step runs them (K14 a dependent launch that
+    # may start while K13 finishes): the pair replayed from one CUDA graph,
+    # beside K13 alone; and both at 65,536 ids over a 5 x 16384 sketch.
+    # The pair's time is K14's yardstick: its own duration now includes
+    # its wait for K13.
+    rng14 = np.random.default_rng(14)
+    ids_w = torch.from_numpy(rng14.integers(0, N, 65_536).astype(
+        np.int32)).to(dev)
+    sk_w = cms_add(cms_add(cms_init(5, 16384, device=dev), ids_w), cids)
+    for label, sk_, ids_ in (("pair_1024_5x2048", mid, cids),
+                             ("wide_65536_5x16384", sk_w, ids_w)):
+        def k14(sk_=sk_, ids_=ids_):
+            return cms_sampling_probability(sk_, ids_)
+
+        def pair(sk_=sk_, ids_=ids_):
+            return k14(cms_add(sk_, ids_), ids_)
+
+        nxt_p = _cms_add_plain(sk_, ids_)
+        check(torch.equal(k14(), _cms_probability_plain(sk_, ids_))
+              and torch.equal(pair(), _cms_probability_plain(nxt_p, ids_))
+              and torch.equal(cms_estimate(sk_, ids_),
+                              _cms_estimate_plain(sk_, ids_)),
+              f"K14 {label} is not bit-equal")
+        cells_ = sum(unique(_cms_hash_plain(ids_, sk_.depth, sk_.width)[r_])
+                     for r_ in range(sk_.depth))
+        add_mode("cms_estimate", label, {
+            "bit_equal": True, "ids": ids_.numel(), "depth": sk_.depth,
+            "width": sk_.width, "ms": cuda_ms(k14),
+            "plain_ms": cuda_ms(lambda sk_=sk_, ids_=ids_:
+                                _cms_probability_plain(sk_, ids_)),
+            "bound_ms": bound_ms(ids_.numel() * 8 + cells_ * 4 + 4,
+                                 ids_.numel() * sk_.depth * 13)[0],
+            "pair_ms": cuda_ms(pair),
+            "k13_alone_ms": cuda_ms(lambda sk_=sk_, ids_=ids_:
+                                    cms_add(sk_, ids_)),
+            "eager_pair_ms": eager_ms(pair)})
+    del sk_w, ids_w
 
     # -- K2 in its int8 mode over the whole graph (mean of 10 rows), beside
     # the fp32 mode in the same call. bytes: indptr, the drawn slots, each
@@ -4481,7 +4583,11 @@ def main():
            "gigl_tpu/training/dataset.py:291", 0.0, cuda_ms(k1b_kernel),
            cuda_ms(lambda: _uniform_ids_plain(R, cfg.seed, 3_000_017, N,
                                               dev)),
-           nbytes=R * 4, nops=R * 24, eager_ms=eager_ms(k1b_kernel))
+           nbytes=R * 4, nops=R * 24, eager_ms=eager_ms(k1b_kernel),
+           library_ms=cuda_ms(lambda: torch.randint(
+               0, N, (R,), device=dev, dtype=torch.int32)),
+           library_call="torch.randint(0, N, (R,)): the same distribution, "
+                        "other bits")
 
     # K5 on the step's real [512, 1024] bf16 score matrix
     with torch.no_grad():

@@ -33,7 +33,18 @@
 // ceil(width / 8192) tiles, each hashing every id: at 8 x 65536 and n =
 // 65536 that is 4.2M hashes over 64 blocks. total is read and written on
 // the device, so a training step needs no host synchronisation and can be
-// captured in a CUDA graph. K14: one thread per id, walking the rows.
+// captured in a CUDA graph.
+// K14 always runs right behind K13 (or behind the op that makes its
+// candidate ids) and moves ~50 KB at the flagship: its whole time is a
+// launch's ramp and one chain of dependent round trips. It is launched as
+// a programmatic dependent launch (cudaLaunchKernelEx with
+// cudaLaunchAttributeProgrammaticStreamSerialization): its blocks may start
+// while the kernel before it on the stream finishes, and wait at
+// griddepcontrol.wait, before their first read, for that kernel's writes
+// (K13 writes the table and total, the op before writes the ids). After
+// the wait, one thread an id loads the id and total together, hashes, and
+// issues every row's load before the min (unrolled for depth <= 8, a loop
+// beyond).
 #include <climits>
 #include <cstdint>
 
@@ -43,7 +54,8 @@ namespace {
 
 constexpr int kAddThreads = 256;   // K13: a block's threads
 constexpr int kMaxPieces = 8;      // K13: T = kAddThreads * 4 * pieces
-constexpr int kThreads = 256;      // K14
+constexpr int kEstThreads = 128;   // K14: a block's threads
+constexpr int kMaxUnrolled = 8;    // K14: depths unrolled by template
 
 __device__ __forceinline__ uint32_t bucket(int32_t id, uint32_t row,
                                            uint32_t width) {
@@ -144,25 +156,63 @@ void launch_add(bool vec, dim3 grid, cudaStream_t s, const int32_t* t,
         t, width, id, n, tot, o, ot);
 }
 
-__global__ void cms_estimate_kernel(const int32_t* __restrict__ table,
-                                    int depth, int width,
-                                    const int32_t* __restrict__ ids,
-                                    long long n,
-                                    const int32_t* __restrict__ total,
-                                    int32_t* __restrict__ est,
-                                    float* __restrict__ prob) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+// DEPTH rows unrolled (1 to kMaxUnrolled), or 0: a loop over `depth`
+// rows, unrolled by 8.
+template <int DEPTH>
+__global__ void __launch_bounds__(kEstThreads)
+cms_estimate_kernel(const int32_t* __restrict__ table, int depth, int width,
+                    const int32_t* __restrict__ ids, long long n,
+                    const int32_t* __restrict__ total,
+                    int32_t* __restrict__ est, float* __restrict__ prob) {
+  // every read below may be of what the kernel before this one wrote
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const long long i = static_cast<long long>(blockIdx.x) * kEstThreads +
                       threadIdx.x;
   if (i >= n) return;
   const int32_t id = ids[i];
-  int32_t m = INT_MAX;
-  for (int r = 0; r < depth; ++r)
-    m = min(m, __ldg(table + static_cast<long long>(r) * width +
-                     bucket(id, r, width)));
+  const int32_t tot = prob != nullptr ? *total : 0;
+  const uint32_t w = static_cast<uint32_t>(width);
+  int32_t m;
+  if constexpr (DEPTH > 0) {
+    int32_t v[DEPTH];
+#pragma unroll
+    for (int r = 0; r < DEPTH; ++r)
+      v[r] = __ldg(table + static_cast<long long>(r) * width +
+                   bucket(id, r, w));
+    m = v[0];
+#pragma unroll
+    for (int r = 1; r < DEPTH; ++r) m = min(m, v[r]);
+  } else {
+    m = INT_MAX;
+#pragma unroll 8
+    for (int r = 0; r < depth; ++r)
+      m = min(m, __ldg(table + static_cast<long long>(r) * width +
+                       bucket(id, r, w)));
+  }
   if (est != nullptr) est[i] = m;
   if (prob != nullptr)
     prob[i] = __fdiv_rn(static_cast<float>(m),
-                        fmaxf(static_cast<float>(*total), 1.f));
+                        fmaxf(static_cast<float>(tot), 1.f));
+}
+
+// K14 as a programmatic dependent launch on `s`.
+template <int DEPTH>
+cudaError_t launch_estimate(unsigned blocks, cudaStream_t s,
+                            const int32_t* table, int depth, int width,
+                            const int32_t* ids, long long n,
+                            const int32_t* total, int32_t* est, float* prob) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kEstThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, cms_estimate_kernel<DEPTH>, table, depth,
+                            width, ids, n, total, est, prob);
 }
 
 unsigned blocks_for(long long work, int threads) {
@@ -211,12 +261,27 @@ extern "C" int gigl_cms_estimate(const void* table, int depth, int width,
   if (depth <= 0 || width <= 0 || n < 0 || (prob != nullptr && !total))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
-    cms_estimate_kernel<<<blocks_for(n, kThreads), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(table), depth, width,
-        static_cast<const int32_t*>(ids), n,
-        static_cast<const int32_t*>(total), static_cast<int32_t*>(est),
-        static_cast<float*>(prob));
+    const unsigned blocks = blocks_for(n, kEstThreads);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const auto* t = static_cast<const int32_t*>(table);
+    const auto* id = static_cast<const int32_t*>(ids);
+    const auto* tot = static_cast<const int32_t*>(total);
+    auto* e = static_cast<int32_t*>(est);
+    auto* p = static_cast<float*>(prob);
+    cudaError_t rc;
+    switch (depth <= kMaxUnrolled ? depth : 0) {
+#define GIGL_CMS_DEPTH(D)                                                   \
+  case D:                                                                   \
+    rc = launch_estimate<D>(blocks, s, t, depth, width, id, n, tot, e, p); \
+    break;
+      GIGL_CMS_DEPTH(1) GIGL_CMS_DEPTH(2) GIGL_CMS_DEPTH(3)
+      GIGL_CMS_DEPTH(4) GIGL_CMS_DEPTH(5) GIGL_CMS_DEPTH(6)
+      GIGL_CMS_DEPTH(7) GIGL_CMS_DEPTH(8)
+#undef GIGL_CMS_DEPTH
+      default:  // 0
+        rc = launch_estimate<0>(blocks, s, t, depth, width, id, n, tot, e, p);
+    }
+    if (rc != cudaSuccess) return static_cast<int>(rc);
   }
   return static_cast<int>(cudaGetLastError());
 }

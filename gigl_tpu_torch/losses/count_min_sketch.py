@@ -13,7 +13,10 @@ is: it returns a new sketch and never writes its input.
 Kernels (``csrc/cms.cu``): K13 ``cms_add`` (one count per row for every id,
 masked candidates included, and ``total + n``) and K14 ``cms_estimate`` (the
 minimum over the rows, with ``est / max(total, 1)`` for
-:func:`cms_sampling_probability`). :func:`_cms_hash_plain`,
+:func:`cms_sampling_probability`; a programmatic dependent launch, whose
+blocks may start while the kernel before it on the stream — K13, or the
+op that makes the ids — finishes, and wait for its writes before their
+first read). :func:`_cms_hash_plain`,
 :func:`_cms_add_plain`, :func:`_cms_estimate_plain` and
 :func:`_cms_probability_plain` are their plain twins, used for CPU tensors
 only; the twins hash in int64 masked to 32 bits, each multiply split into

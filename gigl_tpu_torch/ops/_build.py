@@ -40,7 +40,7 @@ COMPILE_FLAGS = ARCH_FLAGS + [
 # Kernel name -> number of launches since the last reset_launches().
 # retrieval_loss and ring_retrieval count their forward and their backward
 # entry point, ring_spmm its forward and its transposed launches;
-# segment_reduce_bwd its max mode's tie pass, sddmm_bwd both of its stages;
+# segment_reduce_bwd its max mode's tie pass;
 # route_requests counts one a call, however many request vectors it takes;
 # gather_rows_q8 one a launch, however many gathers (segments) it takes.
 KERNEL_NAMES = ("sample_uniform", "uniform_ids", "build_neighbor_cache",
@@ -101,8 +101,8 @@ _SIGNATURES = {
     "gigl_segment_reduce_bwd": [_P] * 11 + [_I64] + [_I32] * 6 + [_P],
     "gigl_segment_max_ties": [_P] * 8 + [_I64] + [_I32] * 5 + [_P],
     "gigl_segment_softmax_bwd": [_P] * 5 + [_I64] + [_I32] * 4 + [_P],
-    "gigl_sddmm_bwd_coef": [_P] * 5 + [_I64] + [_I32] * 3 + [_P],
-    "gigl_sddmm_bwd_scale": [_P, _P, _I32, _I32, _P],
+    "gigl_sddmm_bwd": [_P] * 6 + [_I64] + [_I32] * 3 + [_P],
+    "gigl_sddmm_bwd_ticket": [_P, _P],
     "gigl_ell_edge_grad": [_P] * 12 + [_I64] + [_I32] * 6 + [_P],
     "gigl_gather_rows_q8_many": [_P, _I32, _P],
     "gigl_cms_add": [_P, _I32, _I32, _P, _I64, _P, _P, _P, _P],

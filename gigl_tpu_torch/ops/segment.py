@@ -26,8 +26,8 @@ their backward (jax's autodiff of the same functions):
 - K9b ``segment_softmax_bwd`` (``csrc/segment_softmax_bwd.cu``):
   ``alpha * (g - sum_seg(alpha * g))``;
 - K10b ``sddmm_bwd`` (``csrc/sddmm_bwd.cu``): the per-edge coefficients
-  ``g * scale`` and the scale's cotangent; ``dq`` is K8 and ``dk`` K8b over
-  the two indexes.
+  ``g * scale`` and the scale's cotangent in one launch; ``dq`` is K8 and
+  ``dk`` K8b over the two indexes.
 
 The kernels walk a :class:`SegmentIndex`: the edge ids sorted by segment (a
 stable sort, so each segment keeps its edges' original order) and the
@@ -772,9 +772,9 @@ def _sddmm_fwd(src, dst, q, k, scale=None, index=None):
 
 
 # -- K10b sddmm_bwd -------------------------------------------------------------
-def _sddmm_bwd_blocks(e: int) -> int:
-    """K10b's grid (and rows of its partial sums): a function of E alone."""
-    return min(max(-(-e // 256), 1), 1024)
+# Rows of K10b's buffer of the blocks' partial sums: its grid's largest
+# size, at least what the SMs of an H100 hold at once (132 x 4 blocks).
+_SDDMM_BWD_PARTIAL_ROWS = 1024
 
 
 def _sddmm_bwd_coef_plain(g, scale=None, raw=None):
@@ -789,8 +789,13 @@ def sddmm_bwd_coef(g: torch.Tensor, scale: Optional[torch.Tensor] = None,
     """K10b: from the scores' cotangent ``g`` [E, H], the per-edge
     coefficients ``g * scale`` (fp32 [E, H]) that weigh dq's and dk's
     gathers, and, given the unscaled scores ``raw`` [E, H], the scale's
-    cotangent ``sum_e g * raw`` (fp32 [H]; else None), summed in two
-    deterministic stages."""
+    cotangent ``sum_e g * raw`` (fp32 [H]; else None). One CUDA launch in
+    every mode: the block that finishes last sums the blocks' partials of
+    the scale's cotangent (in a buffer of this call's) in a fixed order (a
+    repeat run is bit-equal), found by a per-device ticket counter that is
+    0 between calls (:func:`sddmm_bwd_ticket` reads it). K10b's calls on
+    one device must be ordered on one stream: two in flight at once on
+    two streams would share the counter."""
     if g.dim() != 2 or (raw is not None and raw.shape != g.shape):
         raise ValueError("sddmm_bwd_coef: g (and raw) must be [E, H]")
     e, heads = g.shape
@@ -800,7 +805,11 @@ def sddmm_bwd_coef(g: torch.Tensor, scale: Optional[torch.Tensor] = None,
         return _sddmm_bwd_coef_plain(g, scale, raw)
     gc = g.contiguous()
     sc = None if scale is None else scale.detach().float().contiguous()
-    rc = None if raw is None else raw.contiguous().to(gc.dtype)
+    rc = None if raw is None else raw.contiguous()
+    if rc is not None and rc.dtype != gc.dtype:
+        # the kernel reads both in one type: fp32, as the twin sums them
+        # (g's values, and so coef, are the same)
+        gc, rc = gc.float(), rc.float()
     device = _build.require_cuda(
         "sddmm_bwd", gc, *(t for t in (sc, rc) if t is not None))
     if gc.dtype not in _DTYPES:
@@ -808,23 +817,30 @@ def sddmm_bwd_coef(g: torch.Tensor, scale: Optional[torch.Tensor] = None,
     if heads > 16:
         raise ValueError(f"sddmm_bwd_coef: {heads} heads (at most 16)")
     coef = torch.empty((e, heads), dtype=torch.float32, device=device)
-    blocks = _sddmm_bwd_blocks(e)
-    partial = (None if rc is None else
-               torch.empty((blocks, heads), dtype=torch.float32,
-                           device=device))
-    if e:
-        _build.launch("sddmm_bwd", "gigl_sddmm_bwd_coef", device,
-                      gc.data_ptr(), _build.ptr(sc), _build.ptr(rc),
-                      coef.data_ptr(), _build.ptr(partial), e, heads, blocks,
-                      _DTYPES[gc.dtype])
-    dscale = None
+    dscale = partial = None
     if rc is not None:
-        dscale = torch.zeros(heads, dtype=torch.float32, device=device)
-        if e:
-            _build.launch("sddmm_bwd", "gigl_sddmm_bwd_scale", device,
-                          partial.data_ptr(), dscale.data_ptr(), blocks,
-                          heads)
+        dscale = torch.empty(heads, dtype=torch.float32, device=device)
+        partial = torch.empty((_SDDMM_BWD_PARTIAL_ROWS, heads),
+                              dtype=torch.float32, device=device)
+    if e or dscale is not None:
+        _build.launch("sddmm_bwd", "gigl_sddmm_bwd", device, gc.data_ptr(),
+                      _build.ptr(sc), _build.ptr(rc), coef.data_ptr(),
+                      _build.ptr(dscale), _build.ptr(partial), e, heads,
+                      _SDDMM_BWD_PARTIAL_ROWS, _DTYPES[gc.dtype])
     return coef, dscale
+
+
+def sddmm_bwd_ticket(device: torch.device) -> int:
+    """K10b's ticket counter on ``device`` (0 whenever no launch with the
+    scale's cotangent is in flight there), read after the work queued on
+    the current stream."""
+    out = torch.empty((), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        rc = _build.library().gigl_sddmm_bwd_ticket(
+            out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"gigl_sddmm_bwd_ticket: cudaError {rc}")
+    return int(out)
 
 
 class SDDMM(torch.autograd.Function):

@@ -164,6 +164,26 @@ the C signature of its earlier version:
   arg-max over every key register; every output is held bit for bit
   against its output.
 
+- ``k10b``: K10b sddmm_bwd at the COO Transformer step's [2M, 4]: the
+  coefficients alone (the step's mode) with fp32 and bf16 g, at 16 heads,
+  and with g a view 4 bytes off a 16-byte boundary (the one-value form);
+  with the scale's cotangent (fp32, bf16; [8M, 1] fp32). Mode
+  ``library``: ``torch.mul(g, scale)`` for the coefficients. Knobs
+  ``pieces`` (kPiecesInFlight, a thread's pieces loaded at once) and
+  ``threads`` (kThreads, a block). ``first``: the K10b that took a thread
+  an edge and summed the scale's cotangent in a second launch after a
+  fill; the coefficients are held bit for bit against its output; the cotangent
+  (another order) within 1e-6 of sum |g raw| of an fp64 sum.
+- ``cms``: K14 cms_estimate (the probabilities) alone and behind K13
+  cms_add (``pair_``: one CUDA graph replays both) at the flagship's 1,024
+  candidate ids over a 5 x 2048 sketch and 65,536 ids over 5 x 16384,
+  each sketch after 20 batches of counts. Knobs ``threads`` (kEstThreads,
+  K14's block) and ``unrolled`` (kMaxUnrolled: the depths K14 unrolls by
+  template; 0 takes the loop for every depth). ``first``: the K14
+  launched without a dependent launch, a thread an id walking the rows;
+  every output is held bit for bit
+  against its output.
+
 The flagship graph is chip_smoke.py's: N=100k nodes, E=2M uniform random
 edges in their random order, numpy seed 0. Variants: ``kept`` (the port's
 own library), one per combination of the knob values given and launch
@@ -1217,6 +1237,107 @@ def retrieval_cases(dev, _build, first):
     return cases
 
 
+def k10b_cases(dev, _build, first):
+    from gigl_tpu_torch.ops import segment as seg
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    cases = {}
+    for label, e, heads, dtype, offset, dscale in (
+            ("coef_fp32", E, HEADS, torch.float32, 0, False),
+            ("coef_bf16", E, HEADS, torch.bfloat16, 0, False),
+            ("coef_fp32_h16", E, 16, torch.float32, 0, False),
+            ("coef_fp32_offset", E, HEADS, torch.float32, 1, False),
+            ("dscale_fp32", E, HEADS, torch.float32, 0, True),
+            ("dscale_bf16", E, HEADS, torch.bfloat16, 0, True),
+            ("dscale_fp32_h1", E * HEADS, 1, torch.float32, 0, True)):
+        g, raw = ((torch.randn(e * heads + offset, generator=gen, device=dev)
+                   * s_).to(dtype)[offset:].view(e, heads)
+                  for s_ in (1.0, 8.0))
+        scale = torch.rand(heads, generator=gen, device=dev) + 0.5
+        rw = raw if dscale else None
+        blocks = min(max(-(-e // 256), 1), 1024)
+
+        def first_fn(g=g, rw=rw, scale=scale, e=e, heads=heads,
+                     blocks=blocks):
+            coef = torch.empty((e, heads), device=dev)
+            part = (None if rw is None else
+                    torch.empty((blocks, heads), device=dev))
+            first("gigl_sddmm_bwd_coef", g.data_ptr(), scale.data_ptr(),
+                  _build.ptr(rw), coef.data_ptr(), _build.ptr(part), e,
+                  heads, blocks, 0 if g.dtype == torch.float32 else 1)
+            if rw is None:
+                return coef
+            out = torch.zeros(heads, device=dev)
+            first("gigl_sddmm_bwd_scale", part.data_ptr(), out.data_ptr(),
+                  blocks, heads)
+            return out
+
+        which = 1 if dscale else 0
+        fns = {"kept": lambda g=g, rw=rw, scale=scale, which=which:
+               seg.sddmm_bwd_coef(g, scale, rw)[which]}
+        if first is not None:
+            fns["first"] = first_fn
+        if not dscale:
+            fns["library"] = lambda g=g, scale=scale: torch.mul(g, scale)
+            cases[label] = (fns, lambda g=g, scale=scale:
+                            seg._sddmm_bwd_coef_plain(g, scale)[0], 0.0)
+        else:
+            # against an fp64 sum, within 1e-6 of sum |g raw| per head (the
+            # sum nearly cancels: no bound relative to it would mean
+            # anything), as a fraction of the largest |dscale|; the first
+            # version sums in another order
+            prod = g.double() * raw.double()
+            want = prod.sum(0)
+            tol = float(1e-6 * prod.abs().sum(0).max() / want.abs().max())
+            del prod
+            cases[label] = (fns, lambda want=want: want, tol, False)
+    return cases
+
+
+def cms_cases(dev, _build, first):
+    from gigl_tpu_torch.losses import count_min_sketch as cms
+
+    rng = np.random.default_rng(14)
+    cases = {}
+    for label, n, width in (("1024_5x2048", 1024, 2048),
+                            ("65536_5x16384", 65_536, 16384)):
+        ids = torch.from_numpy(rng.integers(0, N, n).astype(np.int32)).to(dev)
+        sk = cms.cms_init(5, width, device=dev)
+        for _ in range(20):
+            sk = cms.cms_add(sk, torch.from_numpy(rng.integers(
+                0, N, n).astype(np.int32)).to(dev))
+
+        def first_k14(sk=sk, ids=ids):
+            prob = torch.empty(ids.shape, device=dev)
+            first("gigl_cms_estimate", sk.table.data_ptr(), sk.depth,
+                  sk.width, ids.data_ptr(), ids.numel(), sk.total.data_ptr(),
+                  None, prob.data_ptr())
+            return prob
+
+        def first_pair(sk=sk, ids=ids):
+            table = torch.empty_like(sk.table)
+            total = torch.empty_like(sk.total)
+            first("gigl_cms_add", sk.table.data_ptr(), sk.depth, sk.width,
+                  ids.data_ptr(), ids.numel(), sk.total.data_ptr(),
+                  table.data_ptr(), total.data_ptr())
+            return first_k14(cms.CountMinSketch(table, total), ids)
+
+        for kind, kept, plain, first_fn in (
+                ("k14", lambda sk=sk, ids=ids:
+                 cms.cms_sampling_probability(sk, ids),
+                 lambda sk=sk, ids=ids: cms._cms_probability_plain(sk, ids),
+                 first_k14),
+                ("pair", lambda sk=sk, ids=ids: cms.cms_sampling_probability(
+                    cms.cms_add(sk, ids), ids),
+                 lambda sk=sk, ids=ids: cms._cms_probability_plain(
+                     cms._cms_add_plain(sk, ids), ids), first_pair)):
+            fns = {"kept": kept}
+            if first is not None:
+                fns["first"] = first_fn
+            cases[f"{kind}_{label}"] = (fns, plain, 0.0)
+    return cases
+
+
 class _AccessPolicyWindow(ctypes.Structure):
     _fields_ = [("base_ptr", ctypes.c_void_p), ("num_bytes", ctypes.c_size_t),
                 ("hit_ratio", ctypes.c_float), ("hit_prop", ctypes.c_int),
@@ -1643,6 +1764,35 @@ SWEEPS = {
                   + [_P] * 5 + [_F32, _F32, _I32, _I32] + [_P] * 5,
                   "gigl_retrieval_loss_bwd": [_P, _I64, _I64, _I32]
                   + [_P] * 5 + [_F32, _F32, _I32, _I32] + [_P] * 4},
+        "bit_equal_first": True},
+    "k10b": {
+        "sources": ["sddmm_bwd.cu"],
+        "entries": ["gigl_sddmm_bwd", "gigl_sddmm_bwd_ticket"],
+        "knobs": {name: [("sddmm_bwd.cu",
+                          rf"constexpr int {const} = (\d+);")]
+                  for name, const in (("pieces", "kPiecesInFlight"),
+                                      ("threads", "kThreads"))},
+        "bounds": [],
+        "cases": k10b_cases,
+        # g, scale, raw, coef, partial, E, heads, blocks, dtype, stream;
+        # partial, dscale, blocks, heads, stream
+        "first": {"gigl_sddmm_bwd_coef": [_P] * 5 + [_I64] + [_I32] * 3
+                  + [_P],
+                  "gigl_sddmm_bwd_scale": [_P, _P, _I32, _I32, _P]},
+        "bit_equal_first": True},
+    "cms": {
+        "sources": ["cms.cu"],
+        "entries": ["gigl_cms_add", "gigl_cms_estimate"],
+        "knobs": {name: [("cms.cu", rf"constexpr int {const} = (\d+);")]
+                  for name, const in (("threads", "kEstThreads"),
+                                      ("unrolled", "kMaxUnrolled"))},
+        "bounds": [],
+        "cases": cms_cases,
+        # table, depth, width, ids, n, total, est / out, prob / out_total,
+        # stream
+        "first": {"gigl_cms_add": [_P, _I32, _I32, _P, _I64, _P, _P, _P, _P],
+                  "gigl_cms_estimate": [_P, _I32, _I32, _P, _I64, _P, _P, _P,
+                                        _P]},
         "bit_equal_first": True},
     "route": {
         "sources": ["route.cu"],

@@ -192,12 +192,15 @@ from gigl_tpu_torch.ops.retrieval import (
 )
 from gigl_tpu_torch.ops.segment import (
     SegmentIndex,
+    _sddmm_bwd_coef_plain,
     _sddmm_plain,
     _segment_reduce_bwd_plain,
     _segment_reduce_plain,
     _segment_softmax_bwd_plain,
     _segment_softmax_plain,
     sddmm,
+    sddmm_bwd_coef,
+    sddmm_bwd_ticket,
     segment_reduce,
     segment_reduce_bwd,
     segment_softmax,
@@ -1535,8 +1538,9 @@ def test_sddmm_bwd_matches_plain(dev, dtype, heads, dk, scale_grad):
     _build.reset_launches()
     got = run(lambda q_, k_, s_: sddmm(src, ids, q_, k_, scale=s_,
                                        index=index, src_index=src_index))
-    # unscaled, the coefficients are the cotangent itself: no K10b
-    assert _build.launches["sddmm_bwd"] == {None: 0, False: 1, True: 2}[
+    # unscaled, the coefficients are the cotangent itself: no K10b; with
+    # the scale's cotangent still one launch
+    assert _build.launches["sddmm_bwd"] == {None: 0, False: 1, True: 1}[
         scale_grad]
     assert _build.launches["segment_reduce"] == 1            # dq
     assert _build.launches["segment_reduce_bwd"] == 1        # dk
@@ -1550,6 +1554,122 @@ def test_sddmm_bwd_matches_plain(dev, dtype, heads, dk, scale_grad):
                                          index=index, src_index=src_index))
     for a, b in zip(got, again):
         assert (a is None and b is None) or torch.equal(a, b)
+
+
+def _k10b_inputs(dev, e, heads, dtype, offset, seed):
+    """g and raw [E, H] of ``dtype`` (raw ~8x g's scale, as unscaled
+    scores of 64-value heads are), as views ``offset`` values into their
+    storage, and a scale [H] in [0.5, 1.5)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g, raw = ((torch.randn(e * heads + offset, generator=gen, device=dev)
+               * s_).to(dtype)[offset:].view(e, heads) for s_ in (1.0, 8.0))
+    scale = torch.rand(heads, generator=gen, device=dev) + 0.5
+    return g, raw, scale
+
+
+def _dscale_within(got, g, raw):
+    """The scale's cotangent against an fp64 sum: within 1e-6 of
+    sum_e |g * raw| per head. The sum of E signed terms can nearly cancel,
+    so a bound relative to the result itself would mean nothing; fp32
+    partials summed in a fixed tree over the grid stay ~1e-7 of the
+    absolute sum (the CPU emulation of the source: 1.1e-7 at worst)."""
+    prod = g.double() * raw.double()
+    err = (got.double() - prod.sum(0)).abs()
+    assert bool((err <= 1e-6 * prod.abs().sum(0)).all()), (err, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [1, 2, 4, 8, 16, 3])
+@pytest.mark.parametrize("e", [0, 1, 3, 1_100_001])
+def test_sddmm_bwd_coef_forms_match_plain(dev, dtype, heads, e):
+    """K10b in every mode (scale or not, the scale's cotangent or not) and
+    form (16-byte pieces; g and raw views at an odd offset, a value at a
+    time; 3 heads, a thread an edge), E of none, one, three and an odd
+    count past one wave of 16-byte pieces at H = 1: one launch a call,
+    coef bit-equal to the twin's single multiply, dscale within 1e-6 of
+    sum |g * raw| of an fp64 sum and bit-equal on a repeat run, the ticket
+    back at 0."""
+    for offset in (0, 1):
+        g, raw, scale = _k10b_inputs(dev, e, heads, dtype, offset, seed=e)
+        assert e == 0 or (g.data_ptr() % 16 == 0) == (offset == 0)
+        for sc, rw in ((scale, None), (scale, raw), (None, raw), (None, None)):
+            _build.reset_launches()
+            coef, dscale = sddmm_bwd_coef(g, sc, rw)
+            torch.cuda.synchronize()
+            assert _build.launches["sddmm_bwd"] == (1 if e or rw is not None
+                                                    else 0)
+            want, _ = _sddmm_bwd_coef_plain(g, sc, rw)
+            assert coef.shape == (e, heads) and coef.dtype == torch.float32
+            assert torch.equal(coef, want)
+            if rw is None:
+                assert dscale is None
+                continue
+            assert dscale.shape == (heads,)
+            _dscale_within(dscale, g, rw)
+            coef2, dscale2 = sddmm_bwd_coef(g, sc, rw)
+            assert torch.equal(dscale, dscale2) and torch.equal(coef, coef2)
+            assert sddmm_bwd_ticket(dev) == 0
+
+
+def test_sddmm_bwd_mixed_dtypes_match_plain(dev):
+    """A bf16 g with fp32 unscaled scores: both read in fp32, as the twin
+    reads them (raw is not rounded to g's type); coef bit-equal."""
+    g, _, scale = _k10b_inputs(dev, 30_001, 4, torch.bfloat16, 0, seed=7)
+    _, raw, _ = _k10b_inputs(dev, 30_001, 4, torch.float32, 0, seed=8)
+    coef, dscale = sddmm_bwd_coef(g, scale, raw)
+    want, _ = _sddmm_bwd_coef_plain(g, scale, raw)
+    assert torch.equal(coef, want)
+    _dscale_within(dscale, g, raw)
+
+
+def test_sddmm_bwd_one_cuda_launch_by_the_profiler(dev):
+    """The dscale mode is one device kernel (the first version ran two
+    and a fill), counted by torch.profiler in a fresh recording."""
+    from torch.autograd import DeviceType
+
+    g, raw, scale = _k10b_inputs(dev, 100_003, 4, torch.float32, 0, seed=3)
+    sddmm_bwd_coef(g, scale, raw)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        sddmm_bwd_coef(g, scale, raw)
+        torch.cuda.synchronize()
+    kernels = [e_.name for e_ in prof.events()
+               if e_.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "sddmm_bwd" in kernels[0], kernels
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sddmm_bwd_graph_replay_matches_eager(dev, dtype):
+    """K10b's dscale mode (and its coefficients) captured in a CUDA graph,
+    three calls back to back as two layers' backward and a repeat make
+    them, replayed twice: every replay's outputs are the eager calls'
+    bits, and the ticket counter is 0 after each replay."""
+    inputs = [_k10b_inputs(dev, e, 4, dtype, 0, seed=e)
+              for e in (2_000_003, 65_537, 2_000_003)]
+
+    def step():
+        return [sddmm_bwd_coef(g, scale, raw) for g, raw, scale in inputs]
+
+    eager = step()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = step()
+    for _ in range(2):
+        for outs in captured:
+            for t in outs:
+                t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert sddmm_bwd_ticket(dev) == 0
+        for got, want in zip(captured, eager):
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
 
 
 def test_encode_coo_gradients_on_card_match_cpu(dev):
@@ -2247,6 +2367,102 @@ def test_cms_kernels_bit_equal(dev, depth, width):
         assert torch.equal(cms_ops.cms_sampling_probability(got, query),
                            cms_ops._cms_probability_plain(want, query))
     assert int(got.total) < 0                    # wrapped past 2**31 - 1
+
+
+@pytest.mark.parametrize("depth", list(range(1, 11)))
+@pytest.mark.parametrize("n", [0, 1, 1024, 65_536])
+def test_cms_estimate_depths_bit_equal(dev, depth, n):
+    """K14 (its rows unrolled for depth 1-8, a loop at 9 and 10) over
+    every id batch size the paths give it and none, right behind the K13
+    launch that wrote its table and total: estimates and probabilities
+    bit-equal to the twins, one launch a call."""
+    rng = np.random.default_rng(depth * 100_000 + n)
+    width = 2048 if n <= 1024 else 16384
+    sk = cms_ops.cms_init(depth, width, device=dev)
+    for _ in range(3):
+        sk = cms_ops.cms_add(sk, torch.from_numpy(rng.integers(
+            0, 5000, 4096).astype(np.int32)).to(dev))
+    ids = torch.from_numpy(np.concatenate([
+        rng.integers(0, 5000, n - n // 2),
+        rng.integers(-2**31, 2**31, n // 2)]).astype(np.int32)).to(dev)
+    for fn, plain in ((cms_ops.cms_estimate, cms_ops._cms_estimate_plain),
+                      (cms_ops.cms_sampling_probability,
+                       cms_ops._cms_probability_plain)):
+        fresh = cms_ops.cms_add(sk, ids)        # K13 just before K14
+        launches = _build.launches["cms_estimate"]
+        got = fn(fresh, ids)
+        torch.cuda.synchronize()
+        assert _build.launches["cms_estimate"] == launches + 1
+        assert got.shape == ids.shape
+        assert torch.equal(got, plain(fresh, ids))
+
+
+def test_cms_estimate_waits_for_the_op_that_writes_its_ids(dev):
+    """K14 launched right after a long PyTorch kernel whose last elements
+    are K14's ids (and after a K13 whose output it reads): a read before
+    the dependent launch's wait would see the stale ids, -1, or the
+    previous table."""
+    sk = cms_ops.cms_init(5, 2048, device=dev)
+    rng = np.random.default_rng(9)
+    src = torch.from_numpy(rng.integers(0, 10**6, 1 << 26).astype(
+        np.int32)).to(dev)
+    buf = torch.full_like(src, -1)
+    ids = buf[-1024:]
+    want_ids = src[-1024:].clone()
+    sk = cms_ops.cms_add(sk, want_ids)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        buf.fill_(-1)
+        torch.cuda.synchronize()
+        torch.add(src, 0, out=buf)              # writes ids last
+        got = cms_ops.cms_estimate(sk, ids)
+        torch.cuda.synchronize()
+        assert torch.equal(got, cms_ops._cms_estimate_plain(sk, want_ids))
+        buf.fill_(-1)
+        torch.cuda.synchronize()
+        torch.add(src, 0, out=buf)
+        nxt = cms_ops.cms_add(sk, ids)          # K13 writes the table
+        prob = cms_ops.cms_sampling_probability(nxt, ids)
+        torch.cuda.synchronize()
+        assert torch.equal(prob, cms_ops._cms_probability_plain(
+            cms_ops._cms_add_plain(sk, want_ids), want_ids))
+
+
+def test_cms_pair_graph_replay_matches_eager(dev):
+    """K13 then K14 (the dependent launch) captured in one CUDA graph, as
+    a captured step holds them, replayed with new ids copied into the
+    captured buffer: every replay's table, total and probabilities are
+    the eager calls' bits."""
+    rng = np.random.default_rng(11)
+    sk = cms_ops.cms_add(cms_ops.cms_init(5, 2048, device=dev),
+                         torch.from_numpy(rng.integers(0, 3000, 8192).astype(
+                             np.int32)).to(dev))
+    ids = torch.empty(1024, dtype=torch.int32, device=dev)
+
+    def pair():
+        nxt = cms_ops.cms_add(sk, ids)
+        return nxt.table, nxt.total, cms_ops.cms_sampling_probability(nxt,
+                                                                      ids)
+
+    ids.copy_(torch.from_numpy(rng.integers(0, 3000, 1024).astype(np.int32)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pair()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = pair()
+    for _ in range(3):
+        ids.copy_(torch.from_numpy(rng.integers(0, 3000, 1024).astype(
+            np.int32)))
+        for t in captured:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = pair()
+        for a, b in zip(captured, eager):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("agg", ["mean", "sum", "gcn"])
