@@ -11,8 +11,10 @@
    out 128, bf16; R=512 random negatives), and times both (device time from
    CUDA-graph replay, plus the wrapper's eager time; warm L2). The training
    kernels are checked on a real first training step: K1b on its random
-   negatives (yardstick torch.randint: the same distribution, other bits), K5 on its [512, 1024] bf16 score matrix, K4b on layer 2's
-   [512, 15, 256] bf16 block;
+   negatives (yardstick torch.randint: the same distribution, other bits;
+   also behind K1's draw of the positives, the pair replayed from one CUDA
+   graph as the step runs them, and at 65,536 ids), K5 on its [512, 1024]
+   bf16 score matrix, K4b on layer 2's [512, 15, 256] bf16 block;
 4. runs the port's sampled-inference path — NALPTrainer(cached_hop,
    fused_cache) -> run_inference over all nodes — with every kernel's launch
    count reset just before and read just after, checks the export, and
@@ -4575,9 +4577,30 @@ def main():
     check(torch.equal(batch0.random_neg, rand_p),
           "K1b random negatives of step 0 are not bit-equal")
 
-    def k1b_kernel():
-        return uniform_ids(R, cfg.seed, 3_000_017, N, dev)
+    def k1b_kernel(count=R):
+        return uniform_ids(count, cfg.seed, 3_000_017, N, dev)
 
+    # K1b behind K1's draw of the positives, as the step runs them (K1b a
+    # dependent launch that hashes while K1 runs): the pair replayed from
+    # one CUDA graph, beside K1 alone, both outputs held to the twins. The
+    # pair's time is K1b's yardstick: its own duration includes its wait.
+    def k1_positives():
+        return sample_uniform(sup.indptr, sup.indices, a0, 1, cfg.seed,
+                              1_000_003)
+
+    def k1_k1b_pair():
+        return k1_positives() + (k1b_kernel(),)
+
+    got_pair = k1_k1b_pair()
+    check(all(torch.equal(g_, w_) for g_, w_ in zip(
+        got_pair, (pos_p, pmask_p,
+                   _sample_uniform_plain(sup.indptr, sup.indices, a0, 1,
+                                         cfg.seed, 1_000_003)[2], rand_p))),
+          "the K1 -> K1b pair is not bit-equal to the twins")
+    wide = 65_536
+    check(torch.equal(k1b_kernel(wide), _uniform_ids_plain(
+        wide, cfg.seed, 3_000_017, N, dev)),
+          f"K1b at {wide} ids is not bit-equal")
     # bytes: R int32 ids written; ops: ~24 integer ops per id.
     record("uniform_ids", "gigl_tpu_torch/csrc/sample_uniform.cu",
            "gigl_tpu/training/dataset.py:291", 0.0, cuda_ms(k1b_kernel),
@@ -4587,7 +4610,26 @@ def main():
            library_ms=cuda_ms(lambda: torch.randint(
                0, N, (R,), device=dev, dtype=torch.int32)),
            library_call="torch.randint(0, N, (R,)): the same distribution, "
-                        "other bits")
+                        "other bits",
+           ms_of="K1b after K1b: launches replayed from one CUDA graph, "
+                 "each starting while the one before finishes, which no "
+                 "path does; the yardstick is the K1 -> K1b pair, "
+                 "modes['pair_512']['pair_ms']",
+           modes={
+               "pair_512": {
+                   "bit_equal": True, "anchors": BATCH, "positives": 1,
+                   "pair_ms": cuda_ms(k1_k1b_pair),
+                   "k1_alone_ms": cuda_ms(k1_positives),
+                   "eager_pair_ms": eager_ms(k1_k1b_pair)},
+               f"wide_{wide}": {
+                   "bit_equal": True, "ids": wide,
+                   "ms": cuda_ms(lambda: k1b_kernel(wide)),
+                   "plain_ms": cuda_ms(lambda: _uniform_ids_plain(
+                       wide, cfg.seed, 3_000_017, N, dev)),
+                   "bound_ms": bound_ms(wide * 4, wide * 24)[0],
+                   "library_ms": cuda_ms(lambda: torch.randint(
+                       0, N, (wide,), device=dev, dtype=torch.int32)),
+                   "eager_ms": eager_ms(lambda: k1b_kernel(wide))}})
 
     # K5 on the step's real [512, 1024] bf16 score matrix
     with torch.no_grad():

@@ -165,7 +165,7 @@ cms_estimate_kernel(const int32_t* __restrict__ table, int depth, int width,
                     const int32_t* __restrict__ total,
                     int32_t* __restrict__ est, float* __restrict__ prob) {
   // every read below may be of what the kernel before this one wrote
-  asm volatile("griddepcontrol.wait;" ::: "memory");
+  gigl::wait_for_prior_grid();
   const long long i = static_cast<long long>(blockIdx.x) * kEstThreads +
                       threadIdx.x;
   if (i >= n) return;
@@ -201,18 +201,9 @@ cudaError_t launch_estimate(unsigned blocks, cudaStream_t s,
                             const int32_t* table, int depth, int width,
                             const int32_t* ids, long long n,
                             const int32_t* total, int32_t* est, float* prob) {
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(kEstThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = s;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, cms_estimate_kernel<DEPTH>, table, depth,
-                            width, ids, n, total, est, prob);
+  return gigl::launch_dependent(cms_estimate_kernel<DEPTH>, dim3(blocks),
+                                dim3(kEstThreads), s, table, depth, width,
+                                ids, n, total, est, prob);
 }
 
 unsigned blocks_for(long long work, int threads) {

@@ -1,9 +1,10 @@
 // Device helpers shared by the port's kernels: the counter-based RNG draw
 // of gigl_tpu/sampling/neighbor_sampler.py (_mix32, counter_rng_uniform,
 // uniform_offsets, and the CSR slot clamp of sample_neighbors), bit-equal
-// to it for every (seed, node, hop, slot), and the lane-group weighted /
+// to it for every (seed, node, hop, slot), the lane-group weighted /
 // top-k draw over a node's window (weighted_offsets, :96-134), shared by
-// K19 sample_weighted and K2's weighted mode.
+// K19 sample_weighted and K2's weighted mode, and the programmatic
+// dependent launch of K14 cms_estimate and K1b uniform_ids.
 #pragma once
 
 #include <cfloat>
@@ -11,6 +12,45 @@
 #include <cuda_runtime.h>
 
 namespace gigl {
+
+// A programmatic dependent launch (cudaLaunchKernelEx with
+// cudaLaunchAttributeProgrammaticStreamSerialization): the kernel's blocks
+// may start before the kernel ahead of it on the stream has finished, once
+// every block of that kernel has exited or called
+// allow_dependents_to_start(). The kernel must call wait_for_prior_grid()
+// before it reads what the kernel ahead writes and before it writes
+// memory that kernel may still read or write, and every thread must reach
+// that wait before it returns, so that the grid never ends ahead of the
+// kernel before it.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid,
+                                   dim3 block, cudaStream_t stream,
+                                   Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// Waits until the kernel ahead on the stream has finished and its writes
+// are visible (a no-op in a kernel launched without the attribute).
+__device__ __forceinline__ void wait_for_prior_grid() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// Lets a dependent launch behind this kernel start its blocks now, before
+// this grid ends (a no-op when the next launch is a plain one). It orders
+// no memory: the dependent still waits for this whole grid.
+__device__ __forceinline__ void allow_dependents_to_start() {
+  asm volatile("griddepcontrol.launch_dependents;");
+}
 
 // lowbias32-style integer finalizer on uint32 (neighbor_sampler._mix32).
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {

@@ -18,20 +18,58 @@
 //
 // K1b uniform_ids — replaces the batch-shared random-negative draw of
 // gigl_tpu/training/dataset.py sample_nalp_batch (:291-298):
-// out[i] = counter_rng_uniform(i, seed, hop, slot 0) % n, i in [0, count).
-// Bound: bytes (4 written per id, ~20 integer ops each); at 512 ids it is
-// launch-bound. One thread per id, the same hash as K1.
+// out[i] = counter_rng_uniform(i, seed, hop, slot 0) % n, i in [0, count),
+// as int32 (n above 2**31 wraps to negative ids, as the reference's
+// astype(int32) does).
+// Bound: bytes (4 written per id, ~24 integer ops each); at the step's 512
+// ids it is all fixed cost: a launch, a block's start, one store. Design:
+// it reads no memory, so none of its work depends on the kernel ahead of
+// it on the stream, which in the NALP step is K1's draw of the positives.
+// It is a programmatic dependent launch (gigl_common.cuh launch_dependent):
+// its blocks may start while that kernel runs, and each thread hashes its
+// kIdsPerThread ids, the modulo included, into registers before
+// griddepcontrol.wait. Only the stores come after the wait: the caching
+// allocator may hand K1b memory the kernel ahead still reads or writes.
+// Every thread reaches the wait, those past count too, so the grid never
+// ends ahead of the kernel before it. Blocks of kIdsThreads, one 16-byte
+// store a thread (4 ids); an output off 16 bytes and the ragged tail take
+// one store a value in the same kernel. K1 calls
+// griddepcontrol.launch_dependents first thing, so K1b's launch and block
+// start can overlap the whole of K1, not only its tail.
 #include "gigl_common.cuh"
 
 namespace {
 
-__global__ void uniform_ids_kernel(int64_t count, uint32_t seed, uint32_t hop,
-                                   uint32_t n, int32_t* __restrict__ out) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  const uint32_t bits =
-      gigl::counter_bits(static_cast<uint32_t>(i), seed, hop, 0u);
-  out[i] = static_cast<int32_t>(bits % n);
+constexpr int kIdsThreads = 128;   // K1b: a block's threads
+constexpr int kIdsPerThread = 4;   // K1b: ids a thread
+
+__global__ void __launch_bounds__(kIdsThreads)
+uniform_ids_kernel(int64_t count, uint32_t seed, uint32_t hop, uint32_t n,
+                   int32_t* __restrict__ out) {
+  const int64_t i0 =
+      (static_cast<int64_t>(blockIdx.x) * kIdsThreads + threadIdx.x) *
+      kIdsPerThread;
+  int32_t v[kIdsPerThread];
+#pragma unroll
+  for (int k = 0; k < kIdsPerThread; ++k)
+    v[k] = static_cast<int32_t>(
+        gigl::counter_bits(static_cast<uint32_t>(i0 + k), seed, hop, 0u) % n);
+  // out may still be read or written by the kernel ahead
+  gigl::wait_for_prior_grid();
+  if constexpr (kIdsPerThread % 4 == 0) {
+    if (i0 + kIdsPerThread <= count &&
+        reinterpret_cast<uintptr_t>(out) % 16 == 0) {
+#pragma unroll
+      for (int k = 0; k < kIdsPerThread; k += 4)
+        *reinterpret_cast<int4*>(out + i0 + k) =
+            make_int4(v[k], v[k + 1], v[k + 2], v[k + 3]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kIdsPerThread; ++k) {
+    if (i0 + k < count) out[i0 + k] = v[k];
+  }
 }
 
 template <bool kOffset>
@@ -41,6 +79,8 @@ __global__ void sample_uniform_kernel(
     int fanout, uint32_t seed, uint32_t hop, int32_t row_offset,
     int64_t n_rows, int32_t* __restrict__ ids, uint8_t* __restrict__ mask,
     int32_t* __restrict__ slots) {
+  // a dependent launch behind this one (K1b) may start its blocks now
+  gigl::allow_dependents_to_start();
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= m * fanout) return;
   const int64_t row = i / fanout;
@@ -90,11 +130,13 @@ extern "C" int gigl_uniform_ids(long long count, uint32_t seed, uint32_t hop,
                                 uint32_t n, void* out, void* stream) {
   if (n == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (count > 0) {
-    const int threads = 256;
-    const long long blocks = (count + threads - 1) / threads;
-    uniform_ids_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        count, seed, hop, n, static_cast<int32_t*>(out));
+    constexpr long long kIdsPerBlock = kIdsThreads * kIdsPerThread;
+    const cudaError_t rc = gigl::launch_dependent(
+        uniform_ids_kernel,
+        dim3(static_cast<unsigned>((count + kIdsPerBlock - 1) / kIdsPerBlock)),
+        dim3(kIdsThreads), static_cast<cudaStream_t>(stream), count, seed,
+        hop, n, static_cast<int32_t*>(out));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -323,7 +323,8 @@ def uniform_ids(count: int, seed: int, hop: int, num_nodes: int,
     """K1b: ``count`` uniform node ids in [0, num_nodes), int32, one per
     counter i = 0..count-1 (hash(i, seed, hop, slot 0) % num_nodes). On
     the CPU the plain version runs; on a CUDA device the kernel launches
-    (or raises)."""
+    (or raises), as a dependent launch that hashes while the kernel ahead
+    of it on the stream finishes; a count of 0 launches nothing."""
     device = torch.device(device)
     if device.type == "cpu":
         return _uniform_ids_plain(count, seed, hop, num_nodes, device)
@@ -332,6 +333,8 @@ def uniform_ids(count: int, seed: int, hop: int, num_nodes: int,
     if not 0 < int(num_nodes) <= _M32:
         raise ValueError(f"uniform_ids: num_nodes {num_nodes} out of range")
     out = torch.empty((int(count),), dtype=torch.int32, device=device)
+    if out.numel() == 0:
+        return out
     _build.launch("uniform_ids", "gigl_uniform_ids", out.device, int(count),
                   int(seed) & _M32, int(hop) & _M32, int(num_nodes),
                   out.data_ptr())

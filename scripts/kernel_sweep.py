@@ -183,6 +183,22 @@ the C signature of its earlier version:
   launched without a dependent launch, a thread an id walking the rows;
   every output is held bit for bit
   against its output.
+- ``k1b``: K1b uniform_ids alone at the NALP step's 512 ids over N =
+  100k and at 65,536 ids; K1 sample_uniform alone at the step's
+  positives (512 anchors, 1 positive, hop 1,000,003, over the flagship's
+  supervision CSR) and at the table draw (every node, fanout 15); K1b's
+  host cost (``k1b_512_host``: eager calls of the C entry made alike for
+  kept and first, ``kept_eager`` / ``first_eager``, and through the
+  wrapper, ``wrapper_eager``); the pair (``pair_``: K1's positives then
+  K1b, one CUDA graph replays both, as the step runs them); and the
+  launch floor: an empty kernel of the sweep's own source, one block of
+  128 threads, as a plain launch (``plain_launch``) and as a dependent
+  launch that only waits (``dependent_launch``). Knobs ``ids``
+  (kIdsPerThread, K1b's ids a thread) and ``trigger`` (0 takes K1's
+  ``griddepcontrol.launch_dependents`` out, 2 leaves it to thread 0 of a
+  block). ``first``: the K1b launched without a dependent launch, a
+  thread an id, and the K1 without the trigger; every output is held
+  bit for bit against its output.
 
 The flagship graph is chip_smoke.py's: N=100k nodes, E=2M uniform random
 edges in their random order, numpy seed 0. Variants: ``kept`` (the port's
@@ -373,8 +389,9 @@ def cuda_ms(fn, reps=20) -> float:
 # bit-equal to first]])} ---------------------------------------------------
 # Each case builder takes the device, the port's _build module and
 # ``first(entry, *args)``, which launches the earlier version's C entry on
-# the current stream (None without --first); a mode named ``first`` runs
-# only in the turns of the variant ``first``, the others in every other's.
+# the current stream (None without --first); a mode named ``first`` (or
+# ``first_eager``) runs only in the turns of the variant ``first``, the
+# others in every other's.
 # The tolerance against the twin is 1e-5 of its scale unless the case gives
 # another; a case is held bit for bit against first's output as its sweep's
 # ``bit_equal_first`` says unless it says itself.
@@ -1338,6 +1355,119 @@ def cms_cases(dev, _build, first):
     return cases
 
 
+FLOOR_SOURCE = r"""// The launch floor: empty kernels, a block of 128 threads.
+#include "gigl_common.cuh"
+
+namespace {
+__global__ void empty_kernel() {}
+__global__ void empty_dependent_kernel() { gigl::wait_for_prior_grid(); }
+}  // namespace
+
+extern "C" int floor_plain(void* stream) {
+  empty_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int floor_dependent(void* stream) {
+  return static_cast<int>(gigl::launch_dependent(
+      empty_dependent_kernel, dim3(1), dim3(128),
+      static_cast<cudaStream_t>(stream)));
+}
+"""
+
+
+def k1b_cases(dev, _build, first):
+    from gigl_tpu_torch.graph.csr import build_csr
+    from gigl_tpu_torch.sampling import neighbor_sampler as ns
+
+    out = REPO / "build" / "sweep" / "k1b_floor"
+    if out.exists():
+        shutil.rmtree(out)
+    out.mkdir(parents=True)
+    (out / "floor.cu").write_text(FLOOR_SOURCE)
+    shutil.copy(_build.CSRC / "gigl_common.cuh", out)
+    floor = load(finish_build(*start_build(out, ["floor.cu"], _build),
+                              _build), {"floor_plain": [_P],
+                                        "floor_dependent": [_P]})
+
+    def launch_floor(fn):
+        rc = fn(torch.cuda.current_stream(dev).cuda_stream)
+        if rc:
+            raise RuntimeError(f"floor: cudaError {rc}")
+
+    _, src, dst = flagship()
+    sup = ns.DeviceCSR.from_csr(build_csr(src, dst, num_anchor_nodes=N,
+                                          num_neighbor_nodes=N), dev)
+    anchors = torch.arange(512, dtype=torch.int32, device=dev)
+    every = torch.arange(N, dtype=torch.int32, device=dev)
+
+    def k1(frontier, fanout, hop):
+        return ns.sample_uniform(sup.indptr, sup.indices, frontier, fanout,
+                                 0, hop)[0]
+
+    def k1_first(frontier, fanout, hop):
+        ids, slots = (torch.empty((frontier.numel(), fanout),
+                                  dtype=torch.int32, device=dev)
+                      for _ in range(2))
+        mask = torch.empty(ids.shape, dtype=torch.bool, device=dev)
+        first("gigl_sample_uniform", sup.indptr.data_ptr(),
+              sup.indices.data_ptr(), sup.indices.numel(),
+              frontier.data_ptr(), frontier.numel(), fanout, 0, hop, 0, 0,
+              N, ids.data_ptr(), mask.data_ptr(), slots.data_ptr())
+        return ids
+
+    def k1b(count):
+        return ns.uniform_ids(count, 0, 3_000_017, N, dev)
+
+    def k1b_first(count):
+        ids = torch.empty(count, dtype=torch.int32, device=dev)
+        first("gigl_uniform_ids", count, 0, 3_000_017, N, ids.data_ptr())
+        return ids
+
+    cases = {}
+    for label, kept, first_fn, plain in (
+            ("k1b_512", lambda: k1b(512), lambda: k1b_first(512),
+             lambda: ns._uniform_ids_plain(512, 0, 3_000_017, N, dev)),
+            ("k1b_65536", lambda: k1b(65_536), lambda: k1b_first(65_536),
+             lambda: ns._uniform_ids_plain(65_536, 0, 3_000_017, N, dev)),
+            ("k1_512x1", lambda: k1(anchors, 1, 1_000_003),
+             lambda: k1_first(anchors, 1, 1_000_003),
+             lambda: ns._sample_uniform_plain(sup.indptr, sup.indices,
+                                              anchors, 1, 0, 1_000_003)[0]),
+            ("k1_table", lambda: k1(every, 15, 1),
+             lambda: k1_first(every, 15, 1),
+             lambda: ns._sample_uniform_plain(sup.indptr, sup.indices,
+                                              every, 15, 0, 1)[0]),
+            ("pair_512", lambda: (k1(anchors, 1, 1_000_003), k1b(512))[1],
+             lambda: (k1_first(anchors, 1, 1_000_003), k1b_first(512))[1],
+             lambda: ns._uniform_ids_plain(512, 0, 3_000_017, N, dev))):
+        fns = {"kept": kept}
+        if first is not None:
+            fns["first"] = first_fn
+        cases[label] = (fns, plain, 0.0)
+    def k1b_direct(count):
+        """The kept C entry called as ``first`` calls the earlier one, so
+        that the two eager times differ by the launch alone."""
+        ids = torch.empty(count, dtype=torch.int32, device=dev)
+        rc = _build._lib.gigl_uniform_ids(
+            count, 0, 3_000_017, N, ids.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if rc:
+            raise RuntimeError(f"gigl_uniform_ids: cudaError {rc}")
+        return ids
+
+    fns = {"kept_eager": lambda: k1b_direct(512),
+           "wrapper_eager": lambda: k1b(512)}
+    if first is not None:
+        fns["first_eager"] = lambda: k1b_first(512)
+    cases["k1b_512_host"] = (fns, lambda: ns._uniform_ids_plain(
+        512, 0, 3_000_017, N, dev), 0.0)
+    cases["floor"] = ({"plain_launch": lambda: launch_floor(
+        floor.floor_plain), "dependent_launch": lambda: launch_floor(
+            floor.floor_dependent)}, None)
+    return cases
+
+
 class _AccessPolicyWindow(ctypes.Structure):
     _fields_ = [("base_ptr", ctypes.c_void_p), ("num_bytes", ctypes.c_size_t),
                 ("hit_ratio", ctypes.c_float), ("hit_prop", ctypes.c_int),
@@ -1794,6 +1924,28 @@ SWEEPS = {
                   "gigl_cms_estimate": [_P, _I32, _I32, _P, _I64, _P, _P, _P,
                                         _P]},
         "bit_equal_first": True},
+    "k1b": {
+        "sources": ["sample_uniform.cu"],
+        "entries": ["gigl_sample_uniform", "gigl_uniform_ids"],
+        "knobs": {"ids": [("sample_uniform.cu",
+                           r"constexpr int kIdsPerThread = (\d+);")],
+                  "trigger": [("sample_uniform.cu",
+                               r"  // a dependent launch behind this one "
+                               r"\(K1b\) may start its blocks now\n"
+                               r"  gigl::allow_dependents_to_start\(\);\n",
+                               {0: "", 1: None,
+                                2: "  if (threadIdx.x == 0) "
+                                   "gigl::allow_dependents_to_start();\n"})]},
+        "bounds": [],
+        "cases": k1b_cases,
+        # indptr, indices, E, frontier, M, fanout, seed, hop, has_offset,
+        # row_offset, n_rows, ids, mask, slots, stream; count, seed, hop,
+        # n, out, stream
+        "first": {"gigl_sample_uniform": [_P, _P, _I64, _P, _I64, _I32, _U32,
+                                          _U32, _I32, _I32, _I64, _P, _P, _P,
+                                          _P],
+                  "gigl_uniform_ids": [_I64, _U32, _U32, _U32, _P, _P]},
+        "bit_equal_first": True},
     "route": {
         "sources": ["route.cu"],
         "entries": ["gigl_route_requests", "gigl_route_tiles"],
@@ -1811,7 +1963,12 @@ def variant_edits(sweep, knobs, min_blocks):
     bounds added when min_blocks > 0."""
     edits = {}
     for name, value in knobs.items():
-        for file, pattern in sweep["knobs"][name]:
+        for file, pattern, *pick in sweep["knobs"][name]:
+            if pick:        # {value: the pattern's replacement, or None}
+                if pick[0][value] is not None:
+                    edits.setdefault(file, []).append((pattern,
+                                                       pick[0][value]))
+                continue
             prefix, suffix = pattern.split(r"(\d+)")
             edits.setdefault(file, []).append(
                 (pattern, prefix.replace("\\", "") + str(value)
@@ -1901,7 +2058,7 @@ def main():
         for variant, lib in libs.items():
             _build._lib = lib
             for mode, fn in fns.items():
-                if mode == "first" and variant != "kept":
+                if mode.startswith("first") and variant != "kept":
                     continue
                 got = fn()
                 if want is not None:
@@ -1911,7 +2068,8 @@ def main():
                     if not err <= tol:
                         raise RuntimeError(f"{variant} {mode} {label}: "
                                            f"{err} from the twin")
-                if ref is not None and mode not in ("first", "library"):
+                if (ref is not None and not mode.startswith("first")
+                        and mode != "library"):
                     diff = float((got.float() - ref.float()).abs().max()
                                  / ref.float().abs().max())
                     first_diffs[label] = max(first_diffs.get(label, 0.0),
@@ -1932,7 +2090,7 @@ def main():
                 _build._lib = libs[variant]
             for label, (fns, *_) in cases.items():
                 for mode, fn in fns.items():
-                    if (mode == "first") != (variant == "first"):
+                    if mode.startswith("first") != (variant == "first"):
                         continue
                     print(json.dumps({
                         "phase": f"{args.sweep}_sweep", "variant": variant,

@@ -395,16 +395,116 @@ def test_masked_reduce_matches_plain(dev, dtype, op, shape, data):
     assert torch.equal(masked_reduce(x, mask, op), got)
 
 
-@pytest.mark.parametrize("count,n,step", [
-    (1, 7, 0), (512, 100_000, 3_000_017), (513, 1, 5),
-    (4096, 2**31 + 11, 2**32 - 1)])
-def test_uniform_ids_bit_equal(dev, count, n, step):
+_K1B_CASES = [(1, 7, 0), (512, 100_000, 3_000_017), (513, 1, 5),
+              (4096, 2**31 + 11, 2**32 - 1)] + [
+    (count, n, 2**32 - 1) for count in (0, 1, 3, 4, 5, 511, 512, 513, 65_537)
+    for n in (1, 7, 100_000, 2**31 + 11, 2**32 - 1)]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("count,n,step", _K1B_CASES)
+def test_uniform_ids_bit_equal(dev, count, n, step, offset):
+    """Counts around a thread's 4 ids and a block's 512 (the ragged tail
+    stored a value at a time), n up to 2**32 - 1 (ids past 2**31 wrap to
+    negative int32), the hop at the wrap; ``offset`` 1: the C entry given
+    an output view 4 bytes off a 16-byte boundary (one store a value),
+    the words around it untouched. A count of 0 launches nothing."""
     before = _build.launches["uniform_ids"]
-    got = uniform_ids(count, 3, step, n, dev)
-    torch.cuda.synchronize()
-    assert _build.launches["uniform_ids"] == before + 1
+    if offset:
+        buf = torch.full((count + 2,), -7, dtype=torch.int32, device=dev)
+        got = buf[offset:offset + count]
+        ptr = buf.data_ptr() + 4 * offset   # an empty view's is 0
+        assert ptr % 16 == 4
+        _build.launch("uniform_ids", "gigl_uniform_ids", dev, count, 3,
+                      step, n, ptr)
+        torch.cuda.synchronize()
+        assert int(buf[0]) == -7 and int(buf[-1]) == -7
+    else:
+        got = uniform_ids(count, 3, step, n, dev)
+        torch.cuda.synchronize()
+        assert _build.launches["uniform_ids"] == before + (count > 0)
     want = _uniform_ids_plain(count, 3, step, n, dev)
-    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert got.dtype == torch.int32 and got.shape == (count,)
+    assert torch.equal(got, want)
+
+
+def test_uniform_ids_waits_before_its_stores_into_a_reused_buffer(dev):
+    """K1b's blocks start before the kernel ahead of them ends (a
+    dependent launch); its output takes the memory of a buffer that a long
+    PyTorch kernel is still writing when it was freed (the same pointer,
+    from the caching allocator). A store before the wait would be
+    overwritten by that kernel's later stores."""
+    for count in ((1 << 24) + 5, 1 << 22, 512):
+        src = torch.full((count,), -1, dtype=torch.int32, device=dev)
+        want = _uniform_ids_plain(count, 9, 3_000_017, 100_000, dev)
+        torch.cuda.synchronize()
+        for _ in range(3):
+            buf = torch.empty(count, dtype=torch.int32, device=dev)
+            ptr = buf.data_ptr()
+            torch.add(src, 0, out=buf)           # still writing buf
+            del buf
+            got = uniform_ids(count, 9, 3_000_017, 100_000, dev)
+            assert got.data_ptr() == ptr
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+            del got
+
+
+def test_uniform_ids_keeps_stream_order_behind_k1(dev):
+    """K1 (which lets a dependent launch start early) over a large
+    frontier, K1b right behind it, then a PyTorch kernel that reads K1's
+    draw: the draw it reads is complete, bit-equal to the twin's, and so
+    are K1b's ids."""
+    csr = _csr(dev)
+    frontier = torch.arange(1 << 20, dtype=torch.int32, device=dev) % N
+    want = _sample_uniform_plain(csr.indptr, csr.indices, frontier, 15, 4, 1)
+    want_ids = _uniform_ids_plain(512, 4, 3_000_017, N, dev)
+    for _ in range(3):
+        ids, mask, slots = sample_uniform(csr.indptr, csr.indices, frontier,
+                                          15, 4, 1)
+        rand = uniform_ids(512, 4, 3_000_017, N, dev)
+        read = (ids.clone(), mask.clone(), slots.clone())
+        torch.cuda.synchronize()
+        for g, w in zip(read, want):
+            assert torch.equal(g, w)
+        assert torch.equal(rand, want_ids)
+
+
+def test_k1_k1b_pair_graph_replay_matches_eager(dev):
+    """K1's draw of the positives then K1b (the dependent launch), as a
+    NALP step runs them, captured in one CUDA graph and replayed with new
+    anchors copied into the captured buffer: every replay's draw and ids
+    are the eager calls' bits."""
+    csr = _csr(dev)
+    rng = np.random.default_rng(23)
+    anchors = torch.empty(512, dtype=torch.int32, device=dev)
+
+    def pair():
+        ids, mask, slots = sample_uniform(csr.indptr, csr.indices, anchors,
+                                          1, 0, 1_000_003)
+        return ids, mask, slots, uniform_ids(512, 0, 3_000_017, N, dev)
+
+    anchors.copy_(torch.from_numpy(rng.integers(0, N, 512).astype(np.int32)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pair()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = pair()
+    for _ in range(2):
+        anchors.copy_(torch.from_numpy(rng.integers(0, N, 512).astype(
+            np.int32)))
+        for t in captured:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = pair()
+        for a, b in zip(captured, eager):
+            assert torch.equal(a, b)
+        assert torch.equal(captured[3], _uniform_ids_plain(
+            512, 0, 3_000_017, N, dev))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
