@@ -227,7 +227,31 @@
    (batch 0 against the plain versions) and PartitionedNALPTrainer over
    make_mesh(4) (a fp32 step against the plain step, 3 + 10 steps, zero
    overflow); prints ms/step beside phase 6's uniform ms/step;
-17. prints the SegmentIndex host builds counted inside every timed window
+17. the COO per-edge terms over phase 11's edge-featured graph (the same
+   flagship graph, 8 fp32 features per edge, numpy seed 8): times
+   full_batch_data_from_graph(build_ell=False) and the walk-ordered
+   relabelling (coo_walk) on the host; holds each new kernel mode against
+   its plain twin on the card, bit-equal on a repeat run, with its bound
+   and a library yardstick where one call computes the same function: K8
+   gine at [2M, 128] (index_add_ of the gated rows), K8 add at EdgeAttrGAT
+   layer 1's [2M, 4 x 64] fp32 weighted per head (index_add_ of the
+   weighted rows), K8b gine (index_add_ of the gated cotangent rows), K10
+   with the key addend and in its GATv2 mode at [2M, 4 x 64], K8b's GATv2
+   source walk and K8's GATv2 destination walk (d att within 1e-6 of sum
+   |terms| of an fp64 sum), K11's COO form in its three modes at [2M, 256]
+   fp32 (index_select of the cotangent by dst); times K8 add over the edge
+   rows in walk order, in the graph's own order and as K3-gathered blocks
+   (all bit-equal); then per model (GINE hidden 128, EdgeAttrGAT and the
+   Transformer with lin_edge at 4 heads and hidden 256, GATv2 at 4 heads
+   and hidden 256; fp32, 2 layers, Adam 1e-2) FullBatchTrainer(
+   build_ell=False) — one step against the same step through the plain
+   twins (the raw edge table's gradient held too, rows moved by a gate on
+   the two sides of 0 accounted for), then 3 + 20 steps with the launch
+   counts reset just before and read just after (each new mode launched),
+   5 profiled, and encode_coo against encode_ell with the trained weights
+   (1e-4 of the scale); prints ms/step, edges/s, device ms, busy share, top
+   ops and peak memory;
+18. prints the SegmentIndex host builds counted inside every timed window
    of a path (SegmentIndex.from_ids wrapped from the build on; each must
    read 0: a segment op on the card given no index builds one on the
    host), K8's gathering launches there by mode (none may be chained:
@@ -385,6 +409,29 @@ W_HUB_ROWS, W_HUB_DEG = 1000, 1000
 W_TRAIN_KERNELS = ("sample_weighted", "uniform_ids", "build_neighbor_cache",
                    "gather_rows", "masked_reduce", "masked_reduce_bwd",
                    "retrieval_loss")
+# the COO per-edge terms (phase 17): phase 11's edge-featured graph over
+# the COO segment ops, FullBatchTrainer(build_ell=False), fp32, 2 layers
+CE_STEPS, CE_WARMUP, CE_PROFILED = 20, 3, 5
+COO_EDGE_MODELS = {   # model: (conv, hidden, conv_kwargs, edge rows, kernels)
+    "gine": ("gine", EDGE_GINE_HID, None, True,
+             ("gather_rows", "segment_reduce", "segment_reduce_bwd",
+              "ell_edge_grad", "segment_reduce_gine",
+              "segment_reduce_bwd_gine", "ell_edge_grad_coo")),
+    "edge_attr_gat": ("edge_attr_gat", HID, {"heads": 4}, True,
+                      ("gather_rows", "segment_reduce", "segment_softmax",
+                       "sddmm", "segment_reduce_bwd", "segment_softmax_bwd",
+                       "ell_edge_grad", "segment_reduce_add", "sddmm_addend",
+                       "ell_edge_grad_coo")),
+    "transformer": ("transformer", HID, {"heads": 4, "use_edge_attr": True},
+                    True, ("gather_rows", "sddmm", "segment_softmax",
+                           "segment_reduce", "segment_reduce_bwd",
+                           "segment_softmax_bwd", "sddmm_bwd",
+                           "ell_edge_grad", "segment_reduce_add",
+                           "sddmm_addend", "ell_edge_grad_coo")),
+    "gatv2": ("gatv2", HID, {"heads": 4}, False,
+              ("sddmm", "segment_softmax", "segment_reduce",
+               "segment_reduce_bwd", "segment_softmax_bwd", "sddmm_gatv2",
+               "segment_reduce_gatv2", "segment_reduce_bwd_gatv2"))}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 # ReLU gates the plain step may see on the other side of 0 (fp32 rounding)
@@ -625,7 +672,8 @@ def profile_summary(prof, steps, window_us, host_ms_per_step):
 @contextlib.contextmanager
 def plain_kernels():
     """Every kernel wrapper of the training, full-graph, typed, quantized,
-    partitioned and sharded paths replaced by its plain PyTorch twin, on
+    partitioned, sharded and COO edge paths replaced by its plain PyTorch
+    twin, on
     whatever device the tensors are: the same step or pass computed
     without a kernel, on the card. The
     segment ops become their forward twins, differentiated by PyTorch's
@@ -687,6 +735,53 @@ def plain_kernels():
         return ell._ell_edge_grad_plain(g, ell_, mode, x, ea, alpha, coef,
                                         vec, xd, heads)
 
+    # the COO per-edge terms (phase 17): forward twins, PyTorch's autograd
+    def coo(src, dst, x, n, *, edge_weight=None, reduce="sum", index=None,
+            src_index=None, edge_rows=None, edge_mode="add"):
+        if edge_rows is not None and edge_mode == "gine":
+            coo_gate_record(x, edge_rows)
+        return segment._segment_reduce_plain(
+            x, dst, n, reduce, src, edge_weight, edge_rows,
+            None if edge_rows is None else edge_mode)
+
+    def gatv2(src, dst, hs, hd, att, *, negative_slope=0.2, index=None,
+              src_index=None):
+        if GATV2_GATES is None:
+            return segment._sddmm_plain(src, dst, hd, hs, att=att,
+                                        negative_slope=negative_slope)
+        # the kernel step's leaky gates, replayed (see gatv2_gate_replay)
+        z = hs.float()[src.long()] + hd.float()[dst.long()]
+        m = GATV2_GATES["masks"][GATV2_GATES["i"]]
+        GATV2_GATES["i"] += 1
+        flip = (z >= 0) != m
+        GATV2_GATES["flips"] += int(flip.sum())
+        GATV2_GATES["gates"] += m.numel()
+        if bool(flip.any()):
+            GATV2_GATES["near"] = max(GATV2_GATES["near"], float(
+                z[flip].abs().max() / z.abs().max()))
+        return (torch.where(m, z, negative_slope * z)
+                * att.float()).sum(-1).to(hd.dtype)
+
+    def gat_edges(src, dst, n, hs, he, pre, att_src, *, negative_slope=0.2,
+                  index=None, src_index=None):
+        e, (_, h, dh) = src.shape[0], hs.shape
+        he3 = he.reshape(e, h, dh)
+        z = pre + (he3 * att_src.to(he.dtype)).sum(-1)
+        coo_gate_record(z)
+        alpha = segment._segment_softmax_plain(
+            torch.where(z >= 0, z, negative_slope * z), dst, n)
+        return segment._segment_reduce_plain(hs, dst, n, "sum", src, alpha,
+                                             he3, "add").reshape(n, h * dh)
+
+    def transformer_edges(src, dst, q, k, v, he, scale, *, index=None,
+                          src_index=None):
+        e, (n, h, dh) = src.shape[0], q.shape
+        he3 = he.reshape(e, h, dh)
+        alpha = segment._segment_softmax_plain(
+            segment._sddmm_plain(src, dst, q, k, scale, edge=he3), dst, n)
+        return segment._segment_reduce_plain(v, dst, n, "sum", src, alpha,
+                                             he3, "add").reshape(n, h * dh)
+
     patches = [
         (ell_aggregate, "_ell_aggregate_fwd", agg_fwd),
         (ell_aggregate, "ell_transpose_aggregate", transpose),
@@ -706,7 +801,9 @@ def plain_kernels():
         (hetero_convs, "segment_softmax", seg_softmax),
         (hetero_convs, "sddmm", dot), (hetero_convs, "gather_edges", edge_rows),
         (convs, "segment_softmax", seg_softmax), (convs, "sddmm", dot),
-        (convs, "gather_edges", edge_rows),
+        (convs, "gather_edges", edge_rows), (convs, "coo_spmm", coo),
+        (convs, "gatv2_scores", gatv2), (convs, "coo_gat_edges", gat_edges),
+        (convs, "coo_transformer_edges", transformer_edges),
         (hetero_dataset, "gather_rows", rows),
         (hetero_dataset, "expand_table", gather._expand_table_plain),
         (dataset, "uniform_ids", neighbor_sampler._uniform_ids_plain),
@@ -1984,6 +2081,147 @@ def edge_gate_flips(ell, mode, slope=0.2):
     finally:
         holder.ell_edge_grad = orig_k
         ell_mod._ell_edge_grad_plain = orig_p
+
+
+# What the COO edge convs' gates see, layer by layer, while a
+# coo_edge_gate_flips context is open: GINE's (x, edge rows), EdgeAttrGAT's
+# logit pre-activations; None otherwise.
+COO_GATES = None
+
+
+def coo_gate_record(*tensors):
+    if COO_GATES is not None:
+        COO_GATES.append(tuple(t.detach().clone() for t in tensors))
+
+
+@contextlib.contextmanager
+def coo_edge_gate_flips(walk, mode, slope=0.2):
+    """``edge_gate_flips`` for the COO path (phase 17): records each edge
+    conv's gate inputs in the kernel step (a wrapper of the conv's op) and
+    in the plain one (the plain versions of ``plain_kernels``), and yields
+    an ``explain`` for ``step_vs_plain`` over the raw edge table (COO
+    order; the layers ran over ``walk``'s graph). A gate on the two sides
+    of 0 in the two steps — GINE's relu of ``x[src] + e``, EdgeAttrGAT's
+    leaky_relu of the logit's pre-activation — changes that edge's row by
+    a whole term, and, in the layer below, the rows of the edges into the
+    nodes whose cotangent it moved (the source; for attention the
+    destination too). ``explain`` marks those edges, checks that the
+    flipped gates are few (at most FLIPS_MAX or one per million) and each
+    within FLIP_NEAR_ZERO of its layer's scale from 0."""
+    global COO_GATES
+    from gigl_tpu_torch.models import convs
+
+    name = "coo_spmm" if mode == "gine" else "coo_gat_edges"
+    orig = getattr(convs, name)
+
+    def rec_coo(src, dst, x, n, **kw):
+        if kw.get("edge_rows") is not None and kw.get("edge_mode") == "gine":
+            coo_gate_record(x, kw["edge_rows"])
+        return orig(src, dst, x, n, **kw)
+
+    def rec_gat(src, dst, n, hs, he, pre, att_src, **kw):
+        e, (_, h, dh) = src.shape[0], hs.shape
+        coo_gate_record(pre + (he.reshape(e, h, dh)
+                               * att_src.to(he.dtype)).sum(-1))
+        return orig(src, dst, n, hs, he, pre, att_src, **kw)
+
+    ws, wd = walk.src.long(), walk.dst.long()
+    rank = walk.rank.long()
+
+    def explain(what, gk, gp, scale):
+        half = len(COO_GATES) // 2
+        check(len(COO_GATES) == 2 * half > 0, f"{what}: the edge convs "
+              f"recorded {len(COO_GATES)} gate inputs, not one a layer in "
+              "each step")
+        flipped = torch.zeros(ws.shape[0], dtype=torch.bool,
+                              device=gk.device)          # walk slots
+        moved = torch.zeros(int(max(ws.max(), wd.max())) + 1,
+                            dtype=torch.bool, device=gk.device)
+        n_flip, n_gates, near = 0, 0, 0.0
+        for rk, rp in reversed(list(zip(COO_GATES[:half],
+                                        COO_GATES[half:]))):
+            if mode == "gine":
+                zk, zp = rk[0][ws] + rk[1], rp[0][ws] + rp[1]
+                fl = (zk > 0) != (zp > 0)
+            else:
+                zk, zp = rk[0], rp[0]
+                fl = (zk >= 0) != (zp >= 0)
+            if bool(fl.any()):
+                near = max(near, float(zk[fl].abs().max() / zk.abs().max()))
+            here = moved[wd] | fl.reshape(fl.shape[0], -1).any(1)
+            flipped |= here
+            moved[ws[here]] = True
+            if mode != "gine":      # the query's cotangent moves too
+                moved[wd[here]] = True
+            n_flip += int(fl.sum())
+            n_gates += fl.numel()
+        rows = (gk - gp).abs().amax(1) > 1e-4 * scale
+        flipped = flipped[rank]                          # COO order
+        check(n_flip <= max(FLIPS_MAX, n_gates // 10**6),
+              f"{what}: {n_flip} of {n_gates} gates flipped")
+        check(near <= FLIP_NEAR_ZERO, f"{what}: a flipped gate's input is "
+              f"{near} of its layer's scale from 0")
+        return rows & flipped, {
+            "rows_over_1e-4": int(rows.sum()),
+            "rows_with_a_flipped_gate": int(flipped.sum()),
+            "unexplained_rows": int((rows & ~flipped).sum()),
+            "gates": n_gates, "gates_flipped": n_flip,
+            "flipped_gate_input_rel_to_scale": near}
+
+    COO_GATES = []
+    setattr(convs, name, rec_coo if mode == "gine" else rec_gat)
+    try:
+        yield explain
+    finally:
+        setattr(convs, name, orig)
+        COO_GATES = None
+
+
+# GATv2's leaky gates of the kernel step, replayed by the plain step while
+# a gatv2_gate_replay context is open; None otherwise.
+GATV2_GATES = None
+
+
+@contextlib.contextmanager
+def gatv2_gate_replay():
+    """The ReLU replay of ``step_vs_plain`` for GATv2's leaky_relu of
+    ``hs[src] + hd[dst]`` (phase 17): the kernel step's gates (recorded from
+    the same fp32 sum K10 takes) are the plain step's, so that a
+    pre-activation on the two sides of 0 in the two forwards does not move
+    a whole term of d hs, d hd and d att (their sums cancel over each
+    destination's softmax, so one term is large beside them). Yields a
+    report; the flipped gates must be few (at most FLIPS_MAX or one per
+    million) and each within FLIP_NEAR_ZERO of its layer's scale from 0."""
+    global GATV2_GATES
+    from gigl_tpu_torch.models import convs
+
+    orig = convs.gatv2_scores
+
+    def rec(src, dst, hs, hd, att, **kw):
+        with torch.no_grad():
+            GATV2_GATES["masks"].append(
+                hs.float()[src.long()] + hd.float()[dst.long()] >= 0)
+        return orig(src, dst, hs, hd, att, **kw)
+
+    def report():
+        st = {k: GATV2_GATES[k] for k in ("flips", "gates", "near")}
+        check(GATV2_GATES["i"] == len(GATV2_GATES["masks"]) > 0,
+              "GATv2's plain step replayed no gates")
+        check(st["flips"] <= max(FLIPS_MAX, st["gates"] // 10**6),
+              f"GATv2: {st['flips']} of {st['gates']} leaky gates flipped")
+        check(st["near"] <= FLIP_NEAR_ZERO, f"GATv2: a flipped leaky gate's "
+              f"pre-activation is {st['near']} of its layer's scale from 0")
+        return {"leaky_gates": st["gates"],
+                "leaky_gates_flipped_in_plain_forward": st["flips"],
+                "flipped_leaky_preactivation_rel_to_scale": st["near"]}
+
+    GATV2_GATES = {"masks": [], "i": 0, "flips": 0, "gates": 0, "near": 0.0}
+    convs.gatv2_scores = rec
+    try:
+        yield report
+    finally:
+        convs.gatv2_scores = orig
+        GATV2_GATES = None
 
 
 def simple_hgn_bias_timing(loss_fn, add_mode, rel_err, gen):
@@ -4271,6 +4509,407 @@ def weighted_phases(dev, card, arrays, record, add_mode, unique, make_model,
     return counts
 
 
+def coo_edge_phases(dev, card, graph, ea_np, fell, record, add_mode,
+                    rel_err, unique, run_path):
+    """Phase 17 (see the module docstring): the COO per-edge terms. The
+    flagship graph's COO data (full_batch_data_from_graph(build_ell=False))
+    and its walk-ordered relabelling (coo_walk, host build timed); each new
+    kernel mode against its plain twin at the paths' shapes, timed beside
+    its bound and a library call where one computes the same function; the
+    edge-row order measured (walk order, random order, K3-gathered
+    blocks); then per model a FullBatchTrainer(build_ell=False) step
+    against its plain recomputation, the path itself and encode_coo against
+    encode_ell. Returns {path: (launch counts, steps)} and {kernel: {mode:
+    entry}}."""
+    from gigl_tpu_torch.models.encoders import GNNEncoder
+    from gigl_tpu_torch.ops import _build
+    from gigl_tpu_torch.ops import ell as ell_ops
+    from gigl_tpu_torch.ops import segment as seg
+    from gigl_tpu_torch.ops.gather import gather_rows
+    from gigl_tpu_torch.training.full_batch import (
+        FullBatchTrainer, full_batch_data_from_graph)
+
+    t0 = time.perf_counter()
+    fb = full_batch_data_from_graph(graph, build_ell=False, device=dev)
+    torch.cuda.synchronize()
+    fb_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    walk = seg.coo_walk(fb.index, fb.src)
+    torch.cuda.synchronize()
+    walk_s = time.perf_counter() - t0
+    ea = torch.as_tensor(ea_np, device=dev)
+    src, dst, idx, sidx = fb.src, fb.dst, fb.index, fb.src_index
+    ws, wd, widx, wsidx = walk.src, walk.dst, walk.index, walk.src_index
+    ws_l, wd_l, src_l, dst_l = (t.long() for t in (ws, wd, src, dst))
+    perm_l = walk.perm.long()
+    check(torch.equal(ws_l, src_l[perm_l]) and torch.equal(wd_l, dst_l[perm_l])
+          and torch.equal(widx.ptr, idx.ptr), "the walk-ordered graph is "
+          "not the graph's edges by destination")
+    emit({"phase": "coo_edge_graph", "full_batch_data_s": fb_s,
+          "walk_build_s": walk_s, "edges": E,
+          "edge_features": [E, EDGE_DE]})
+    gen = torch.Generator(device=dev).manual_seed(17)
+    h_, dh_ = GAT_HEADS, HID // GAT_HEADS
+    u_src, u_dst = unique(src), unique(dst)
+    ids_bytes = E * 8 + (N + 1) * 4      # order and gathered, the pointers
+    modes = {}
+
+    def time_mode(kname, mode, err, kernel, plain, nbytes, nops,
+                  library=None, library_call=None, **extra):
+        b_, by_ = bound_ms(nbytes, nops)
+        entry = {"err": err, "ms": cuda_ms(kernel),
+                 "plain_ms": cuda_ms(plain, reps=1),
+                 "eager_ms": eager_ms(kernel, reps=10), "bound_ms": b_,
+                 "bound_by": by_, "nbytes": nbytes,
+                 "library_ms": None if library is None else cuda_ms(library),
+                 "library_call": library_call, **extra}
+        modes.setdefault(kname, {})[mode] = entry
+        emit({"phase": "coo_edge_kernel", "name": kname, "mode": mode,
+              **entry})
+        return entry
+
+    def repeat_equal(fn, what):
+        a, b = fn(), fn()
+        for u, v in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            check(torch.equal(u, v), f"{what}: a repeat run differs")
+        return a
+
+    # -- K8 gine at GINE's [2M, 128] fp32 (the walk-ordered graph: edge rows
+    # read in sequence). bytes: each distinct source row, the edge rows, the
+    # ids and pointers, [N, 128] out; ops: an add, a relu and a sum a value.
+    # Yardstick: index_add_ of the gated rows (made beforehand).
+    cg = EDGE_GINE_HID
+    x8 = torch.randn((N, cg), generator=gen, device=dev)
+    e8 = torch.randn((E, cg), generator=gen, device=dev)
+
+    def k8g():
+        return seg._segment_reduce_fwd(x8, wd, N, "sum", ws, None, widx, e8,
+                                       "gine")
+
+    def k8g_plain():
+        return seg._segment_reduce_plain(x8, wd, N, "sum", ws, None, e8,
+                                         "gine")
+
+    got = repeat_equal(k8g, "K8 gine")
+    err = rel_err(got, k8g_plain(), "K8 gine", tol=1e-5)
+    gated = torch.relu(x8[ws_l] + e8)
+
+    def k8g_lib():
+        return torch.zeros((N, cg), device=dev).index_add_(0, wd_l, gated)
+
+    rel_err(k8g_lib(), got, "index_add_ yardstick vs K8 gine", tol=1e-5)
+    time_mode("segment_reduce", "coo_edge_gine", err, k8g, k8g_plain,
+              u_src * cg * 4 + E * cg * 4 + ids_bytes + N * cg * 4,
+              E * cg * 3, k8g_lib, "torch.Tensor.index_add_ of the gated "
+              "rows relu(x[src] + e) by dst (made beforehand, not timed)",
+              width=cg, edges=E)
+    del gated
+
+    # -- K8 add at EdgeAttrGAT layer 1's [2M, 4 x 64] fp32, weighted per head
+    # (alpha), and the edge rows' order: walk order (kept: read in sequence),
+    # the graph's own order (ea[order[j]], a random read of each row) and
+    # K3-gathered blocks (the table gathered into walk order first, each
+    # layer). All three give the same bits. bytes: as gine with the weights.
+    xa = torch.randn((N, h_, dh_), generator=gen, device=dev)
+    eaw = torch.randn((E, h_, dh_), generator=gen, device=dev)
+    wa = torch.rand((E, h_), generator=gen, device=dev)
+    eac, wac = torch.empty_like(eaw), torch.empty_like(wa)
+    eac[perm_l], wac[perm_l] = eaw, wa          # the same edges, COO order
+
+    def k8a(table=eaw):
+        return seg._segment_reduce_fwd(xa, wd, N, "sum", ws, wa, widx, table,
+                                       "add")
+
+    def k8a_random():
+        return seg._segment_reduce_fwd(xa, dst, N, "sum", src, wac, idx, eac,
+                                       "add")
+
+    def k8a_blocks():
+        return k8a(gather_rows(eac.reshape(E, HID), walk.perm)[0].reshape(
+            E, h_, dh_))
+
+    def k3_blocks():
+        return gather_rows(eac.reshape(E, HID), walk.perm)[0]
+
+    def k8a_plain():
+        return seg._segment_reduce_plain(xa, wd, N, "sum", ws, wa, eaw, "add")
+
+    got = repeat_equal(k8a, "K8 add")
+    check(torch.equal(got, k8a_random()) and torch.equal(got, k8a_blocks()),
+          "K8 add: the three edge-row orders differ")
+    err = rel_err(got, k8a_plain(), "K8 add", tol=1e-5)
+    weighted = (xa[ws_l] + eaw) * wa[..., None]
+
+    def k8a_lib():
+        return torch.zeros((N, h_, dh_), device=dev).index_add_(0, wd_l,
+                                                               weighted)
+
+    rel_err(k8a_lib(), got, "index_add_ yardstick vs K8 add", tol=1e-5)
+    order = {"walk_ms": cuda_ms(k8a), "random_ms": cuda_ms(k8a_random),
+             "k3_blocks_ms": cuda_ms(k8a_blocks),
+             "k3_gather_alone_ms": cuda_ms(k3_blocks)}
+    order["kept"] = "walk"
+    order["fastest"] = min(("walk", "random", "k3_blocks"),
+                           key=lambda k_: order[f"{k_}_ms"])
+    emit({"phase": "coo_edge_order", "table": [E, HID], "dtype": "float32",
+          "card": card, **order})
+    time_mode("segment_reduce", "coo_edge_add", err, k8a, k8a_plain,
+              u_src * HID * 4 + E * HID * 4 + E * h_ * 4 + ids_bytes
+              + N * HID * 4, E * HID * 3, k8a_lib,
+              "torch.Tensor.index_add_ of the weighted rows alpha * (x[src] "
+              "+ e) by dst (made beforehand, not timed)", width=HID,
+              heads=h_, edges=E, order=order)
+    del weighted, eac, wac
+
+    # -- K8b gine over the source walk at [N, 128] fp32. bytes: each distinct
+    # destination's cotangent row, x once, the edge rows, the ids and
+    # pointers, [N, 128] out. Yardstick: index_add_ of the gated cotangent
+    # rows by src (made beforehand).
+    g8 = torch.randn((N, cg), generator=gen, device=dev)
+
+    def k8bg():
+        return seg.gine_bwd(g8, ws, wd, x8, e8, src_index=wsidx)
+
+    def k8bg_plain():
+        return seg._edge_bwd_plain(g8, wd, N, "gine", ws, None, x8, e8, None,
+                                   0.2)
+
+    got = repeat_equal(k8bg, "K8b gine")
+    err = rel_err(got, k8bg_plain(), "K8b gine", tol=1e-5)
+    gated = torch.where(x8[ws_l] + e8 > 0, g8[wd_l], 0.0)
+
+    def k8bg_lib():
+        return torch.zeros((N, cg), device=dev).index_add_(0, ws_l, gated)
+
+    rel_err(k8bg_lib(), got, "index_add_ yardstick vs K8b gine", tol=1e-5)
+    time_mode("segment_reduce_bwd", "coo_edge_gine", err, k8bg, k8bg_plain,
+              u_dst * cg * 4 + N * cg * 4 + E * cg * 4 + ids_bytes
+              + N * cg * 4, E * cg * 2, k8bg_lib,
+              "torch.Tensor.index_add_ of the gated cotangent rows "
+              "1[x[src] + e > 0] * g[dst] by src (made beforehand, not "
+              "timed)", width=cg, edges=E)
+    del gated, x8, e8, g8
+
+    # -- K10 with the key addend at [2M, 4 x 64] fp32 (the walk-ordered
+    # graph), scaled. bytes: each destination's q row once, each distinct
+    # source's k row, the edge rows, the ids, [E, 4] out; ops: an add and a
+    # multiply-add a value. No single library call adds the edge term.
+    q10 = torch.randn((N, h_, dh_), generator=gen, device=dev)
+    k10 = torch.randn((N, h_, dh_), generator=gen, device=dev)
+    sc10 = torch.full((h_,), dh_ ** -0.5, device=dev)
+
+    def k10a():
+        return seg._sddmm_fwd(ws, wd, q10, k10, sc10, widx, edge=eaw)
+
+    def k10a_plain():
+        return seg._sddmm_plain(ws, wd, q10, k10, sc10, edge=eaw)
+
+    got = repeat_equal(k10a, "K10 addend")
+    err = rel_err(got, k10a_plain(), "K10 addend", tol=1e-5)
+    time_mode("sddmm", "coo_edge_addend", err, k10a, k10a_plain,
+              N * HID * 4 + u_src * HID * 4 + E * HID * 4 + ids_bytes
+              + E * h_ * 4, E * HID * 3, heads=h_, head_dim=dh_, edges=E)
+
+    # -- GATv2 at [2M, 4 x 64] fp32 over the graph's own order (the GATv2
+    # path reads no edge rows): K10's scores, K8b's source walk (d hs) and
+    # K8's destination walk (d hd and d att, the partials summed in a fixed
+    # order). bytes: the two tables' rows once each (hs: distinct sources),
+    # att, the ids, out ([E, 4]; d hs, d hd [N, 256]; gl [E, 4] read);
+    # ops: an add, the leaky and a multiply-add a value (backward: + the
+    # derivative's select and a multiply).
+    hs10, hd10 = k10, q10
+    att10 = torch.randn((h_, dh_), generator=gen, device=dev)
+    gl10 = torch.randn((E, h_), generator=gen, device=dev)
+
+    def k10v():
+        return seg._sddmm_fwd(src, dst, hd10, hs10, index=idx, att=att10)
+
+    def k10v_plain():
+        return seg._sddmm_plain(src, dst, hd10, hs10, att=att10)
+
+    got = repeat_equal(k10v, "K10 gatv2")
+    err = rel_err(got, k10v_plain(), "K10 gatv2", tol=1e-5)
+    time_mode("sddmm", "coo_gatv2", err, k10v, k10v_plain,
+              N * HID * 4 + u_src * HID * 4 + HID * 4 + ids_bytes
+              + E * h_ * 4, E * HID * 4, heads=h_, head_dim=dh_, edges=E)
+
+    def k8bv():
+        return seg.gatv2_src_bwd(gl10, src, dst, hs10, hd10, att10,
+                                 src_index=sidx)
+
+    def k8bv_plain():
+        return seg._edge_bwd_plain(hd10.reshape(N, HID), dst, N, "gatv2",
+                                   src, gl10, hs10.reshape(N, HID), None,
+                                   att10, 0.2)
+
+    got = repeat_equal(k8bv, "K8b gatv2")
+    err = rel_err(got, k8bv_plain(), "K8b gatv2", tol=1e-5)
+    time_mode("segment_reduce_bwd", "coo_gatv2", err, k8bv, k8bv_plain,
+              N * HID * 4 + u_dst * HID * 4 + HID * 4 + E * h_ * 4
+              + ids_bytes + N * HID * 4, E * HID * 4, heads=h_,
+              head_dim=dh_, edges=E)
+
+    def k8v():
+        return seg.gatv2_dst_bwd(gl10, src, dst, hs10, hd10, att10,
+                                 index=idx)
+
+    def k8v_plain():
+        return seg._gatv2_dst_plain(gl10, src, dst, hs10, hd10, att10, 0.2)
+
+    got = repeat_equal(k8v, "K8 gatv2")
+    want = k8v_plain()
+    err = rel_err(got[0], want[0], "K8 gatv2 d hd", tol=1e-5)
+    # d att against an fp64 sum, over sum |terms| (as K10b's dscale)
+    z = (hs10.reshape(N, HID).double()[src_l]
+         + hd10.reshape(N, HID).double()[dst_l])
+    terms = torch.where(z >= 0, z, 0.2 * z) * gl10.double(
+        ).repeat_interleave(dh_, 1)
+    del z
+    datt_rel = float(((got[1].double() - terms.sum(0)).abs()
+                      / terms.abs().sum(0)).max())
+    del terms
+    check(datt_rel <= 1e-6, f"K8 gatv2 d att {datt_rel} of sum |terms| "
+          "from an fp64 sum (limit 1e-6)")
+    time_mode("segment_reduce", "coo_gatv2_dst", err, k8v,
+              lambda: k8v_plain()[0],
+              u_src * HID * 4 + N * HID * 4 + HID * 4 + E * h_ * 4
+              + ids_bytes + N * HID * 4, E * HID * 6, heads=h_,
+              head_dim=dh_, edges=E, datt_err_rel_to_abs_sum=datt_rel)
+    del q10, k10, hs10, hd10, gl10, got, want
+
+    # -- K11's COO form at [2M, 256] fp32 (the walk-ordered graph), three
+    # modes. bytes: the pointers and order, each destination's g row (and
+    # xd row) once, alpha and coef [E, 4], [E, 256] written (gine: + the
+    # gathered ids, each distinct source's x row and the edge rows); ops: 3
+    # a value. Yardstick: index_select of g by dst, the [E, 256] block of
+    # each edge's destination cotangent (the per-edge terms not applied).
+    g11, xd11, x11 = (torch.randn((N, HID), generator=gen, device=dev)
+                      for _ in range(3))
+    e11 = eaw.reshape(E, HID)
+    al11 = torch.rand((E, h_), generator=gen, device=dev)
+    cf11 = torch.randn((E, h_), generator=gen, device=dev)
+    vec11 = torch.randn(HID, generator=gen, device=dev)
+
+    def k11_lib():
+        return torch.index_select(g11, 0, wd_l)
+
+    for mode in ("gat", "transformer", "gine"):
+        kw = {"gat": dict(alpha=al11, coef=cf11, vec=vec11, heads=h_),
+              "transformer": dict(alpha=al11, coef=cf11, xd=xd11, heads=h_),
+              "gine": dict(x=x11, ea=e11)}[mode]
+
+        def k11(mode=mode, kw=kw):
+            return ell_ops.coo_edge_grad(g11, ws, wd, widx, mode, **kw)
+
+        def k11_plain(mode=mode, kw=kw):
+            return ell_ops._coo_edge_grad_plain(g11, ws, wd, mode, **kw)
+
+        got = repeat_equal(k11, f"K11 COO {mode}")
+        want = k11_plain()
+        if mode == "gine":
+            check(torch.equal(got, want), "K11 COO gine is not bit-equal")
+            err = 0.0
+        else:
+            err = rel_err(got, want, f"K11 COO {mode}", tol=1e-6)
+        del got, want
+        nbytes = (E * 4 + (N + 1) * 4 + u_dst * HID * 4 + E * HID * 4
+                  + {"gat": E * h_ * 8 + HID * 4,
+                     "transformer": E * h_ * 8 + u_dst * HID * 4,
+                     "gine": E * 4 + u_src * HID * 4 + E * HID * 4}[mode])
+        time_mode("ell_edge_grad", f"coo_{mode}", err, k11, k11_plain,
+                  nbytes, E * HID * 3, k11_lib,
+                  "torch.index_select of the [N, 256] cotangent by dst "
+                  "(each edge's destination row; the per-edge terms not "
+                  "applied)", edges=E, width=HID)
+    del g11, xd11, x11, e11, al11, cf11, eaw, xa, wa
+    torch.cuda.empty_cache()
+
+    # -- per model: a step against the plain twins, the path, and
+    # encode_coo against encode_ell on the card ----------------------------
+    counts = {}
+    for model_name, (conv, hid, kw, edged, kernels) in COO_EDGE_MODELS.items():
+        path = f"coo_edge_full_batch_{model_name}"
+        ea_leaf = torch.nn.Parameter(ea.clone()) if edged else None
+        fbt = FullBatchTrainer(
+            GNNEncoder(D, hid, C, num_layers=2, conv=conv, conv_kwargs=kw,
+                       edge_dim=EDGE_DE if edged else None),
+            dataclasses.replace(fb, edge_attr=ea_leaf),
+            optimizer_args={"learning_rate": "1e-2"}, device=dev)
+        state = fbt.init_state(0)
+        gates = (coo_edge_gate_flips(walk, "gine" if conv == "gine"
+                                     else "gat")
+                 if conv in ("gine", "edge_attr_gat")
+                 else gatv2_gate_replay() if conv == "gatv2"
+                 else contextlib.nullcontext())
+        with gates as explain:
+            # the Transformer's key bias shifts all of a destination's
+            # logits alike, so the softmax leaves it no gradient
+            vs = step_vs_plain(
+                fbt.encoder, fbt.loss, _build.launches,
+                symmetric=tuple(f"convs.{i}.lin_k.bias" for i in range(2)
+                                if conv == "transformer"),
+                extra=None if ea_leaf is None else {"edge_attr": ea_leaf},
+                explain=None if conv == "gatv2" else explain)
+            if conv == "gatv2":
+                vs.update(explain())
+        emit({"phase": "coo_edge_full_batch_step_vs_plain",
+              "model": model_name, **vs})
+        check(vs["loss_rel_err"] <= 1e-5,
+              f"{path}: loss differs from the plain step: {vs}")
+        check(vs["max_grad_err_rel_to_scale"] <= 1e-4,
+              f"{path}: a gradient differs from the plain step: {vs}")
+        # the trainer's own data: edge features are inputs, not weights
+        fbt.data = dataclasses.replace(fb, edge_attr=ea if edged else None)
+        cnt_, nsteps, row = run_path(path, fbt, state, CE_STEPS, CE_WARMUP,
+                                     CE_PROFILED, kernels)
+        counts[path] = (cnt_, nsteps)
+        with torch.no_grad():
+            via_coo = fbt.encoder.encode_coo(
+                fb.x, fb.src, fb.dst, N, ea if edged else None,
+                index=fb.index, src_index=fb.src_index)
+            via_ell = fbt.encoder.encode_ell(fb.x, fell,
+                                             ea if edged else None)
+        coo_vs_ell = rel_err(via_coo, via_ell, f"{path}: encode_coo against "
+                             "encode_ell", tol=1e-4)
+        step_s = row["ms_per_step"] / 1e3
+        emit({"phase": "coo_edge_full_batch_train_throughput",
+              "model": model_name, "edges_per_step": 2 * E,
+              "edges_per_s": 2 * E / step_s, "nodes_per_s": N / step_s,
+              "encode_coo_vs_ell_max_abs_err": coo_vs_ell,
+              "encode_coo_vs_ell_scale": float(via_ell.abs().max()), **row})
+        del fbt, state, ea_leaf, via_coo, via_ell
+    torch.cuda.empty_cache()
+    # each mode's launches on the paths (its counter, per step)
+    counter = {("segment_reduce", "coo_edge_gine"): "segment_reduce_gine",
+               ("segment_reduce", "coo_edge_add"): "segment_reduce_add",
+               ("segment_reduce", "coo_gatv2_dst"): "segment_reduce_gatv2",
+               ("segment_reduce_bwd", "coo_edge_gine"):
+                   "segment_reduce_bwd_gine",
+               ("segment_reduce_bwd", "coo_gatv2"):
+                   "segment_reduce_bwd_gatv2",
+               ("sddmm", "coo_edge_addend"): "sddmm_addend",
+               ("sddmm", "coo_gatv2"): "sddmm_gatv2",
+               ("ell_edge_grad", "coo_gine"): "ell_edge_grad_coo",
+               ("ell_edge_grad", "coo_gat"): "ell_edge_grad_coo",
+               ("ell_edge_grad", "coo_transformer"): "ell_edge_grad_coo"}
+    owner = {"coo_gine": "gine", "coo_gat": "edge_attr_gat",
+             "coo_transformer": "transformer"}
+    for kname, by_mode in modes.items():
+        for mode, entry in by_mode.items():
+            key = counter[(kname, mode)]
+            per = {p_: c_[key] / n_ for p_, (c_, n_) in counts.items()
+                   if kname != "ell_edge_grad"
+                   or p_.endswith(owner[mode])}
+            entry["launches"] = int(sum(per[p_] * counts[p_][1]
+                                        for p_ in per))
+            entry["launches_per_step"] = per
+            check(entry["launches"] > 0, f"{kname} {mode} was not launched "
+                  "on its path")
+            del entry["nbytes"]
+    return counts, modes
+
+
 def main():
     if not (REPO / "gigl_tpu_torch" / "csrc").is_dir():
         sys.exit("chip_smoke: run from a checkout of the repository "
@@ -5484,6 +6123,13 @@ def main():
         dev, card, (src, dst, np.asarray(graph.node_features[
             graph.metadata.node_types[0]])), record, add_mode, unique,
         make_model, opt_args, cfg, ms_step, typed_ctx, rel_err)
+    coo_edge, coo_edge_modes = coo_edge_phases(
+        dev, card, graph, np.random.default_rng(8).normal(
+            size=(E, EDGE_DE)).astype(np.float32), fb_data.ell, record,
+        add_mode, rel_err, unique, run_path)
+    for kname, by_mode in coo_edge_modes.items():
+        for mode, entry in by_mode.items():
+            add_mode(kname, mode, entry)
 
     # launches on every kernel row: the training path's (K6 / K7: the
     # full-graph passes'; K6b / K7b: the node-classification paths'; K8-K10:
@@ -5546,6 +6192,8 @@ def main():
             p_: c_[k] / n_ for p_, (c_, n_) in sharded.items()}
         row["launches_per_weighted_path_step"] = {
             p_: c_[k] / n_ for p_, (c_, n_) in weighted.items()}
+        row["launches_per_coo_edge_step"] = {
+            p_: c_[k] / n_ for p_, (c_, n_) in coo_edge.items()}
     check(len(results) == len(_build.KERNEL_NAMES) == 26,
           "the kernels line does not list all twenty-six kernels")
     emit({"phase": "host_index_builds",
@@ -5553,14 +6201,15 @@ def main():
           "calls_in_run": HOST_INDEX_BUILDS["calls"],
           "k8_gather_launches_in_timed_windows": K8_GATHER_IN_WINDOWS,
           "k8b_walk_launches_in_timed_windows": K8B_WALK_IN_WINDOWS})
-    segment_paths = list(coo) + [f"typed_full_{m_}"
-                                 for m_ in TYPED_FULL_KERNELS]
+    segment_paths = list(coo) + list(coo_edge) + [
+        f"typed_full_{m_}" for m_ in TYPED_FULL_KERNELS]
     check(all(p_ in INDEX_BUILDS_IN_WINDOWS for p_ in segment_paths),
           "a segment path's timed window was not watched for host builds")
     check(all(K8_GATHER_IN_WINDOWS[p_]["composed"] > 0
               for p_ in segment_paths),
           "a segment path's timed window ran no composed K8 launch")
-    check(all(K8B_WALK_IN_WINDOWS[p_]["composed"] > 0 for p_ in coo),
+    check(all(K8B_WALK_IN_WINDOWS[p_]["composed"] > 0
+              for p_ in list(coo) + list(coo_edge)),
           "a COO step's timed window ran no composed K8b launch")
     results.sort(key=lambda r: _build.KERNEL_NAMES.index(r["name"]))
 

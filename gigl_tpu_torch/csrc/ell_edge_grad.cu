@@ -39,6 +39,17 @@
 // chain: 24% slower on the H100 at the flagship). Rows
 // that are not 16-byte multiples (or unaligned tables) take the same loop
 // one element per thread.
+//
+// The COO form (the coo forms of GINEConv, EdgeAttrGAT and TransformerConv
+// in gigl_tpu/models/convs.py: the same three terms for an [E, d] edge
+// table beside COO edges) walks the destination SegmentIndex instead of
+// the ELL rows: a thread per (destination i, 16-byte piece), g[i] (and
+// xd[i]) loaded once, then each slot j of the segment, its edge e =
+// order[j] and source row gathered[j] (the index's src[order]), writing
+// d_ea[e] once (in sequence when the edges are in walk order, as
+// encode_coo puts them). alpha and coef are [E, heads] by edge id; in the
+// gat mode coef may be NULL (the edge rows feed the values alone: alpha *
+// g). No padding, no mask.
 #include "gigl_pieces.cuh"
 
 namespace {
@@ -106,6 +117,93 @@ __global__ void __launch_bounds__(kThreads) ell_edge_grad_kernel(
     }
     store_piece<T, P>(out + e * d + c, res);
   }
+}
+
+template <typename T, int P, int MODE>
+__global__ void __launch_bounds__(kThreads) coo_edge_grad_kernel(
+    const T* __restrict__ g, const int32_t* __restrict__ ptr,
+    const int32_t* __restrict__ order, const int32_t* __restrict__ gathered,
+    const T* __restrict__ x, const T* __restrict__ ea,
+    const float* __restrict__ alpha, const float* __restrict__ coef,
+    const float* __restrict__ vec, const T* __restrict__ xd,
+    T* __restrict__ out, int64_t segments, int d, int heads, int dh) {
+  const int pieces = d / P;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= segments * pieces) return;
+  const int64_t i = t / pieces;
+  const int c = static_cast<int>(t - i * pieces) * P;
+  float gv[P], other[P];
+  load_piece<T, P>(g + i * d + c, gv);
+  int hd[P];
+  if constexpr (MODE != kGine) {
+#pragma unroll
+    for (int u = 0; u < P; ++u) hd[u] = (c + u) / dh;
+  }
+  if constexpr (MODE == kGat) {
+#pragma unroll
+    for (int u = 0; u < P; ++u) other[u] = coef != nullptr ? __ldg(vec + c + u)
+                                                           : 0.f;
+  }
+  if constexpr (MODE == kTransformer) load_piece<T, P>(xd + i * d + c, other);
+  const int32_t lo = __ldg(ptr + i);
+  const int32_t hi = __ldg(ptr + i + 1);
+  for (int32_t j = lo; j < hi; ++j) {
+    const int64_t e = __ldg(order + j);
+    float res[P];
+    if constexpr (MODE == kGine) {
+      float xv[P], ev[P];
+      load_piece<T, P>(x + static_cast<int64_t>(__ldg(gathered + j)) * d + c,
+                       xv);
+      load_piece<T, P>(ea + e * d + c, ev);
+#pragma unroll
+      for (int u = 0; u < P; ++u) res[u] = xv[u] + ev[u] > 0.f ? gv[u] : 0.f;
+    } else {
+      const float* al = alpha + e * heads;
+#pragma unroll
+      for (int u = 0; u < P; ++u) {
+        const float cf = coef != nullptr ? __ldg(coef + e * heads + hd[u])
+                                         : 0.f;
+        res[u] = __ldg(al + hd[u]) * gv[u] + cf * other[u];
+      }
+    }
+    store_piece<T, P>(out + e * d + c, res);
+  }
+}
+
+template <typename T, int P>
+int launch_coo(const void* g, const void* ptr, const void* order,
+               const void* gathered, const void* x, const void* ea,
+               const void* alpha, const void* coef, const void* vec,
+               const void* xd, void* out, long long segments, int d,
+               int heads, int dh, int mode, cudaStream_t stream) {
+  if (order == nullptr || (mode != kGine && (alpha == nullptr || heads < 1 ||
+                                             dh < 1 || heads * dh != d)) ||
+      (mode == kGine && (gathered == nullptr || x == nullptr ||
+                         ea == nullptr)) ||
+      (mode == kGat && coef != nullptr && vec == nullptr) ||
+      (mode == kTransformer && (coef == nullptr || xd == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = segments * (d / P);
+  if (total == 0) return 0;
+  const unsigned blocks =
+      static_cast<unsigned>((total + kThreads - 1) / kThreads);
+  auto run = [&](auto kernel) {
+    kernel<<<blocks, kThreads, 0, stream>>>(
+        static_cast<const T*>(g), static_cast<const int32_t*>(ptr),
+        static_cast<const int32_t*>(order),
+        static_cast<const int32_t*>(gathered), static_cast<const T*>(x),
+        static_cast<const T*>(ea), static_cast<const float*>(alpha),
+        static_cast<const float*>(coef), static_cast<const float*>(vec),
+        static_cast<const T*>(xd), static_cast<T*>(out), segments, d, heads,
+        dh);
+  };
+  switch (mode) {
+    case kGine: run(coo_edge_grad_kernel<T, P, kGine>); break;
+    case kGat: run(coo_edge_grad_kernel<T, P, kGat>); break;
+    case kTransformer: run(coo_edge_grad_kernel<T, P, kTransformer>); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
 }
 
 template <typename T, int P>
@@ -176,6 +274,11 @@ int launch(const void* g, const void* ent_mask, const void* ent_row,
 // bf16; mode: 0 gine, 1 gat, 2 transformer. vec_path: 1 when d * sizeof(T)
 // is a multiple of 16 and every row table is 16-byte aligned. An edgeless
 // graph's entries are all padding: the kernel runs and writes nothing.
+// The COO form, when ptr [segments + 1] is given (the destination
+// SegmentIndex's pointers): ent_edge is its order [E] (each slot's edge
+// id), ent_src its gathered [E] (each slot's source row; gine), g and xd
+// [segments, d], alpha and coef [E, heads] by edge id (gat: coef NULL for
+// alpha * g alone), out [E, d] by edge id; ent_mask and ent_row unread.
 extern "C" int gigl_ell_edge_grad(const void* g, const void* ent_mask,
                                   const void* ent_row, const void* ent_src,
                                   const void* ent_edge, const void* x,
@@ -184,9 +287,31 @@ extern "C" int gigl_ell_edge_grad(const void* g, const void* ent_mask,
                                   const void* xd, void* out,
                                   long long num_entries, int d, int heads,
                                   int dh, int dtype, int mode, int vec_path,
+                                  const void* ptr, long long segments,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
+  if (ptr != nullptr) {
+    using B = __nv_bfloat16;
+    if (dtype == 0)
+      rc = vec_path ? launch_coo<float, 4>(g, ptr, ent_edge, ent_src, x, ea,
+                                           alpha, coef, vec, xd, out,
+                                           segments, d, heads, dh, mode, s)
+                    : launch_coo<float, 1>(g, ptr, ent_edge, ent_src, x, ea,
+                                           alpha, coef, vec, xd, out,
+                                           segments, d, heads, dh, mode, s);
+    else if (dtype == 1)
+      rc = vec_path ? launch_coo<B, 8>(g, ptr, ent_edge, ent_src, x, ea,
+                                       alpha, coef, vec, xd, out, segments,
+                                       d, heads, dh, mode, s)
+                    : launch_coo<B, 1>(g, ptr, ent_edge, ent_src, x, ea,
+                                       alpha, coef, vec, xd, out, segments,
+                                       d, heads, dh, mode, s);
+    else
+      rc = static_cast<int>(cudaErrorInvalidValue);
+    if (rc != 0) return rc;
+    return static_cast<int>(cudaGetLastError());
+  }
   if (dtype == 0) {
     rc = vec_path
              ? launch<float, 4>(g, ent_mask, ent_row, ent_src, ent_edge, x,

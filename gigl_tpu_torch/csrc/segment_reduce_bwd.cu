@@ -51,6 +51,18 @@
 // value by the count 1 (x / 1 is x, but the compiler kept the division,
 // PERF.md §6); the mean keeps its division, the rounding both the first
 // version and the reference take.
+//
+// Two modes for the COO per-edge terms (sum, over a source walk):
+//   gine   dx[r, j] = sum_e w * 1[x[r, j] + ea[e, j] > 0] * g[dst[e], j]
+//          (GINEConv.coo's relu(x[src] + ea) gate, strict: jax.nn.relu's
+//          derivative is 0 at 0); x is the forward's [R, C] rows, ea the
+//          [E, C] edge rows read at each slot's edge id e = order[j]
+//          (a random read: the source walk visits the edges out of order);
+//   gatv2  dhs[r, j] = sum_e leaky'(hs[r, j] + hd[dst[e], j]) * w(e, j) *
+//          att[j] (the backward of GATv2's logits att . leaky(hs[src] +
+//          hd[dst]) into the source table: x = hs, g = hd, w = the logits'
+//          cotangent [E, heads], leaky'(z) = 1 at z >= 0, else the slope).
+// Both read the source row x[r] once, before the walk.
 #include <type_traits>
 
 #include "gigl_pieces.cuh"
@@ -60,6 +72,10 @@ namespace {
 constexpr int kSum = 0;
 constexpr int kMean = 1;
 constexpr int kMax = 2;
+// modes beside the reduces' (the COO per-edge terms)
+constexpr int kModeReduce = 0;
+constexpr int kModeGine = 1;
+constexpr int kModeGatv2 = 2;
 // Slots a thread of the composed mode keeps in flight.
 constexpr int kSlotsInFlight = 4;
 
@@ -146,6 +162,91 @@ __global__ void segment_reduce_bwd_kernel(
   for (; j + K <= hi; j += K) slots(j, std::integral_constant<int, K>{});
   for (; j < hi; ++j) slots(j, std::integral_constant<int, 1>{});
   gigl::store_piece<T, P>(out + r * c + col, acc);
+}
+
+// The gine and gatv2 modes (see the note above): a source walk, the row's
+// x piece read once, one slot at a time.
+template <typename T, int P, int MODE, bool COMPOSED>
+__global__ void segment_edge_bwd_kernel(
+    const T* __restrict__ g, const T* __restrict__ x,
+    const int32_t* __restrict__ dst, const int32_t* __restrict__ order,
+    const int32_t* __restrict__ gathered, const int32_t* __restrict__ ptr,
+    const float* __restrict__ w, const T* __restrict__ ea,
+    const float* __restrict__ att, float slope, T* __restrict__ out,
+    int64_t rows, int c, int wc, int w_cols) {
+  const int pieces = c / P;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= rows * pieces) return;
+  const int64_t r = i / pieces;
+  const int col = static_cast<int>(i - r * pieces) * P;
+  const int wcol = col / wc;
+  float xr[P], at[P], acc[P];
+  gigl::load_piece<T, P>(x + r * c + col, xr);
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    acc[k] = 0.f;
+    at[k] = MODE == kModeGatv2 ? __ldg(att + col + k) : 1.f;
+  }
+  const int32_t lo = __ldg(ptr + r);
+  const int32_t hi = __ldg(ptr + r + 1);
+  for (int32_t j = lo; j < hi; ++j) {
+    const int64_t e = __ldg(order + j);
+    const int64_t d = COMPOSED ? __ldg(gathered + j) : __ldg(dst + e);
+    float v[P];
+    gigl::load_piece<T, P>(g + d * c + col, v);
+    const float wt = w != nullptr ? __ldg(w + e * w_cols + wcol) : 1.f;
+    if constexpr (MODE == kModeGine) {
+      float ev[P];
+      gigl::load_piece<T, P>(ea + e * c + col, ev);
+#pragma unroll
+      for (int k = 0; k < P; ++k)
+        if (xr[k] + ev[k] > 0.f) acc[k] += v[k] * wt;
+    } else {
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        const float dz = wt * at[k];
+        acc[k] += xr[k] + v[k] >= 0.f ? dz : slope * dz;
+      }
+    }
+  }
+  gigl::store_piece<T, P>(out + r * c + col, acc);
+}
+
+template <typename T, int P>
+int launch_edge_bwd(const void* g, const void* x, const void* dst,
+                    const void* order, const void* gathered, const void* ptr,
+                    const void* w, const void* ea, const void* att,
+                    float slope, void* out, long long rows, int c, int wc,
+                    int w_cols, int mode, cudaStream_t stream) {
+  if (x == nullptr || order == nullptr || ptr == nullptr ||
+      (gathered == nullptr && dst == nullptr) ||
+      (mode == kModeGine && ea == nullptr) ||
+      (mode == kModeGatv2 && (att == nullptr || w == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = rows * (c / P);
+  if (total == 0) return 0;
+  const int threads = 256;
+  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
+  auto run = [&](auto kernel) {
+    kernel<<<blocks, threads, 0, stream>>>(
+        static_cast<const T*>(g), static_cast<const T*>(x),
+        static_cast<const int32_t*>(dst), static_cast<const int32_t*>(order),
+        static_cast<const int32_t*>(gathered),
+        static_cast<const int32_t*>(ptr), static_cast<const float*>(w),
+        static_cast<const T*>(ea), static_cast<const float*>(att), slope,
+        static_cast<T*>(out), rows, c, wc, w_cols);
+  };
+  const bool composed = gathered != nullptr;
+  if (mode == kModeGine) {
+    if (composed) run(segment_edge_bwd_kernel<T, P, kModeGine, true>);
+    else run(segment_edge_bwd_kernel<T, P, kModeGine, false>);
+  } else if (mode == kModeGatv2) {
+    if (composed) run(segment_edge_bwd_kernel<T, P, kModeGatv2, true>);
+    else run(segment_edge_bwd_kernel<T, P, kModeGatv2, false>);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
 }
 
 // Per (segment, value): the maximum of w * row over the segment's edges
@@ -284,7 +385,11 @@ int launch_ties(const void* g, const void* x, const void* gather,
 // dst[order]: the composed mode, dst unread) or NULL, dst_ptr [S + 1] (mean
 // only: the destination index's pointers), w fp32 [E, w_cols] or NULL, out
 // [R, C]. op: 0 = sum, 1 = mean, 2 = max; vec: 1 when C * sizeof(T) and wc
-// * sizeof(T) are multiples of 16 and g, x and out are 16-byte aligned.
+// * sizeof(T) are multiples of 16 and g, x and out are 16-byte aligned
+// (and ea). mode: 0 the reduces; 1 gine (op sum, x [R, C] the forward's
+// rows, ea [E, C] of g's type); 2 gatv2 (op sum, x = hs [R, C], g = hd
+// [S, C], w = the logits' cotangent [E, heads] with wc = dh, att fp32
+// [C], slope). Modes 1 and 2 need the source walk.
 extern "C" int gigl_segment_reduce_bwd(const void* g, const void* gs,
                                        const void* mref, const void* x,
                                        const void* dst, const void* order,
@@ -292,13 +397,37 @@ extern "C" int gigl_segment_reduce_bwd(const void* g, const void* gs,
                                        const void* dst_ptr, const void* w,
                                        void* out, long long rows, int c,
                                        int wc, int w_cols, int dtype, int op,
-                                       int vec, void* stream) {
+                                       int vec, int mode, const void* ea,
+                                       const void* att, float slope,
+                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wc <= 0 || c % wc != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (gathered != nullptr && order == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (mode != kModeReduce && op != kSum)
+    return static_cast<int>(cudaErrorInvalidValue);
   int rc;
-  if (dtype == 0) {
+  if (mode != kModeReduce) {
+    if (dtype == 0) {
+      rc = vec ? launch_edge_bwd<float, 4>(g, x, dst, order, gathered, ptr, w,
+                                           ea, att, slope, out, rows, c, wc,
+                                           w_cols, mode, st)
+               : launch_edge_bwd<float, 1>(g, x, dst, order, gathered, ptr, w,
+                                           ea, att, slope, out, rows, c, wc,
+                                           w_cols, mode, st);
+    } else if (dtype == 1) {
+      rc = vec ? launch_edge_bwd<__nv_bfloat16, 8>(g, x, dst, order, gathered,
+                                                   ptr, w, ea, att, slope,
+                                                   out, rows, c, wc, w_cols,
+                                                   mode, st)
+               : launch_edge_bwd<__nv_bfloat16, 1>(g, x, dst, order, gathered,
+                                                   ptr, w, ea, att, slope,
+                                                   out, rows, c, wc, w_cols,
+                                                   mode, st);
+    } else {
+      rc = static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else if (dtype == 0) {
     rc = vec ? launch_bwd<float, 4>(g, gs, mref, x, dst, order, gathered,
                                     ptr, dst_ptr, w, out, rows, c, wc,
                                     w_cols, op, st)

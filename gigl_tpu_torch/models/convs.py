@@ -22,10 +22,14 @@ Ported: ``SAGEConv``, ``GCNConv``, ``GINConv``, ``GINEConv``, ``GATConv``
   graph): SAGE, GCN and GIN on K8 (backward K8b); GAT v1 on per-node
   attention terms gathered per edge, K9 and a per-head weighted K8 over the
   source table (backward K8 for the gathers, K9b, K8b and K10 for the
-  weights); Transformer on K10, K9 and K8 (backward adds K10b). GATv2's
-  ``coo`` raises (ROADMAP A9, GATv2 coo): no B7 kernel computes its
-  per-edge LeakyReLU of a sum of rows. Edge features in the ``coo`` forms
-  raise too (ROADMAP slice 10: a per-edge term inside K8-K10).
+  weights); GATv2 on K10's gatv2 mode, K9 and the weighted K8 (backward
+  K8b's and K8's gatv2 modes); Transformer on K10, K9 and K8 (backward adds
+  K10b). With edge rows ``edge_attr [E, De]`` beside the edges (by edge
+  id): GINE on K8's gine mode (backward K8b's gine gate, K11's COO form);
+  EdgeAttrGAT and the Transformer on ``ops/coo_edges.py`` (K8's add mode,
+  K10's key addend; backward K11's COO form for the edge rows). GATv2 with
+  edge rows raises (ROADMAP B6b, its COO twin: no reference configuration
+  builds it).
 
 The convs without edge features (SAGE, GCN, GIN, GAT without
 ``use_edge_attr``) ignore ``edge_attr`` in their block and ELL forms, as
@@ -57,7 +61,12 @@ from gigl_tpu_torch.ops.attention import (
     fanout_attention_block,
     fanout_attention_ell,
 )
-from gigl_tpu_torch.ops.ell import COO_EDGE_FEATURES_NOT_PORTED
+from gigl_tpu_torch.models.layers import leaky_relu
+from gigl_tpu_torch.ops.coo_edges import (
+    coo_gat_edges,
+    coo_transformer_edges,
+    gatv2_scores,
+)
 from gigl_tpu_torch.ops.ell_aggregate import ell_aggregate_graph
 from gigl_tpu_torch.ops.fanout import masked_max, masked_mean, masked_sum
 from gigl_tpu_torch.ops.segment import (
@@ -68,10 +77,10 @@ from gigl_tpu_torch.ops.segment import (
     segment_softmax,
 )
 
-GATV2_COO_NOT_PORTED = (
-    "GATv2's coo form computes a LeakyReLU of a sum of gathered rows per "
-    "edge, which no B7 kernel computes: not ported yet (ROADMAP A9, GATv2 "
-    "coo, slice 10); use encode_ell")
+GATV2_COO_EDGES_NOT_PORTED = (
+    "GATv2's coo form with edge rows needs the edge row inside K10's and "
+    "K8b's GATv2 modes, which is not ported yet (ROADMAP B6b, its COO twin; "
+    "no reference configuration builds it)")
 
 
 def linear(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -124,19 +133,14 @@ class SAGEConv(nn.Module):
 
     def coo(self, x, src, dst, num_nodes, edge_attr=None, *, index=None,
             src_index=None):
-        """COO form (K8, backward K8b)."""
-        _no_edge_attr(edge_attr)
+        """COO form (K8, backward K8b); edge features are ignored, as the
+        reference's are."""
         return self._combine(x, coo_spmm(src, dst, x, num_nodes,
                                          reduce=self.aggr, index=index,
                                          src_index=src_index))
 
     def forward(self, x_dst, nbr, mask, edge_attr=None, degrees=None):
         return self.block(x_dst, nbr, mask, edge_attr, degrees)
-
-
-def _no_edge_attr(edge_attr):
-    if edge_attr is not None:
-        raise NotImplementedError(COO_EDGE_FEATURES_NOT_PORTED)
 
 
 def _indexes(src, dst, num_nodes, index, src_index):
@@ -209,7 +213,6 @@ class GCNConv(nn.Module):
         for the self loop and counted in x's type, from the two indexes'
         pointers (ROADMAP C2: ``encode_ell`` uses the in-degree at both
         ends); K8 sums the weighted rows (backward K8b)."""
-        _no_edge_attr(edge_attr)
         index, src_index = _indexes(src, dst, num_nodes, index, src_index)
         deg = (index.ptr[1:] - index.ptr[:-1]).to(x.dtype) + 1.0
         deg_src = (src_index.ptr[1:] - src_index.ptr[:-1]).to(x.dtype) + 1.0
@@ -267,7 +270,6 @@ class GINConv(_GINBase):
     def coo(self, x, src, dst, num_nodes, edge_attr=None, *, index=None,
             src_index=None):
         """COO form (K8, backward K8b)."""
-        _no_edge_attr(edge_attr)
         return self._mlp((1.0 + self.eps) * x + coo_spmm(
             src, dst, x, num_nodes, index=index, src_index=src_index))
 
@@ -302,13 +304,20 @@ class GINEConv(_GINBase):
 
     def coo(self, x, src, dst, num_nodes, edge_attr=None, *, index=None,
             src_index=None):
-        """COO form without edge features: ``relu(x)[src]`` summed per
-        destination (K8, backward K8b); with them it raises (module
-        docstring)."""
-        _no_edge_attr(edge_attr)
-        return self._mlp((1.0 + self.eps) * x + coo_spmm(
-            src, dst, torch.relu(x), num_nodes, index=index,
-            src_index=src_index))
+        """COO form (``convs.py:222-228``): ``relu(x[src] + edge_attr)``
+        summed per destination by K8's gine mode, the edge rows [E, D] by
+        edge id (backward: K8b's gine gate for x, K11's COO form for the
+        edge rows); without edge features ``relu(x)[src]`` (K8, backward
+        K8b)."""
+        ea = self._edges(edge_attr, x.shape[-1])
+        if ea is None:
+            agg = coo_spmm(src, dst, torch.relu(x), num_nodes, index=index,
+                           src_index=src_index)
+        else:
+            agg = coo_spmm(src, dst, x, num_nodes, index=index,
+                           src_index=src_index, edge_rows=ea.to(x.dtype),
+                           edge_mode="gine")
+        return self._mlp((1.0 + self.eps) * x + agg)
 
 
 def _edge_linear(conv, edge_attr):
@@ -410,25 +419,40 @@ class GATConv(nn.Module):
 
     def coo(self, x, src, dst, num_nodes, edge_attr=None, *, index=None,
             src_index=None):
-        """COO form of GAT v1 (``convs.py:312-328``): the attention terms
+        """COO form (``convs.py:312-328``). GAT v1: the attention terms
         ``a_src = <W_src x, att_src>`` and ``a_dst`` once per node ([N, H]
         tables), the logits LeakyReLU(a_src[src] + a_dst[dst]) by per-edge
         gathers (backward: K8 over each index), K9 per destination, and the
         message sum as K8 weighted per head over the [N, H*Dh] source table
         — no [E, H, Dh] block (backward: K8b for the table, K10 for the
-        weights, K9b for the logits). GATv2 raises (module docstring)."""
-        _no_edge_attr(edge_attr)
-        if self.v2:
-            raise NotImplementedError(GATV2_COO_NOT_PORTED)
+        weights, K9b for the logits). EdgeAttrGAT (``use_edge_attr``):
+        ``lin_edge(edge_attr)`` [E, H*Dh] by edge id joins the logits and
+        the values (``ops/coo_edges.py`` :func:`coo_gat_edges`). GATv2: the
+        logits by K10's gatv2 mode (backward K8b's and K8's gatv2 modes),
+        then K9 and the weighted K8 as v1."""
         index, src_index = _indexes(src, dst, num_nodes, index, src_index)
         h, dh = self.heads, self.head_dim
         hs = linear(self.lin_src, x, self.dtype).reshape(-1, h, dh)
         hd = linear(self.lin_dst, x, self.dtype).reshape(-1, h, dh)
-        a_src = (hs * self.att_src.to(self.dtype)).sum(-1)        # [N, H]
-        a_dst = (hd * self.att_dst.to(self.dtype)).sum(-1)
-        logits = F.leaky_relu(
-            gather_edges(a_src, src, index=src_index)
-            + gather_edges(a_dst, dst, index=index), self.negative_slope)
+        he = _edge_linear(self, edge_attr)
+        if self.v2:
+            if he is not None:
+                raise NotImplementedError(GATV2_COO_EDGES_NOT_PORTED)
+            logits = gatv2_scores(src, dst, hs, hd, self.att.to(self.dtype),
+                                  negative_slope=self.negative_slope,
+                                  index=index, src_index=src_index)
+        else:
+            a_src = (hs * self.att_src.to(self.dtype)).sum(-1)    # [N, H]
+            a_dst = (hd * self.att_dst.to(self.dtype)).sum(-1)
+            pre = (gather_edges(a_src, src, index=src_index)
+                   + gather_edges(a_dst, dst, index=index))
+            if he is not None:
+                return self._finish(coo_gat_edges(
+                    src, dst, num_nodes, hs, he, pre,
+                    self.att_src.to(self.dtype),
+                    negative_slope=self.negative_slope, index=index,
+                    src_index=src_index))
+            logits = leaky_relu(pre, self.negative_slope)
         alpha = segment_softmax(logits, dst, num_nodes, index=index)
         out = coo_spmm(src, dst, hs, num_nodes, edge_weight=alpha,
                        index=index, src_index=src_index)
@@ -495,8 +519,11 @@ class TransformerConv(nn.Module):
         head, plus ``lin_skip(x)`` (backward: K8b and K10 for the sum, K9b,
         then K10b's coefficients with K8 for q and K8b for k). Rounding: the
         reference divides the bf16 dot by sqrt(Dh) in bf16 (two roundings);
-        K10 multiplies the fp32 dot by an fp32 1/sqrt(Dh) and rounds once."""
-        _no_edge_attr(edge_attr)
+        K10 multiplies the fp32 dot by an fp32 1/sqrt(Dh) and rounds once.
+        With ``use_edge_attr``, ``lin_edge(edge_attr)`` [E, H*Dh] by edge id
+        joins the keys and the values (``ops/coo_edges.py``
+        :func:`coo_transformer_edges`: K10's key addend and K8's add mode;
+        backward K11's COO form for the edge rows)."""
         index, src_index = _indexes(src, dst, num_nodes, index, src_index)
         h, dh = self.heads, self.head_dim
         q = linear(self.lin_q, x, self.dtype).reshape(-1, h, dh)
@@ -504,6 +531,11 @@ class TransformerConv(nn.Module):
         v = linear(self.lin_v, x, self.dtype).reshape(-1, h, dh)
         scale = torch.full((h,), dh ** -0.5, dtype=torch.float32,
                            device=x.device)
+        he = _edge_linear(self, edge_attr)
+        if he is not None:
+            out = coo_transformer_edges(src, dst, q, k, v, he, scale,
+                                        index=index, src_index=src_index)
+            return out + linear(self.lin_skip, x, self.dtype)
         logits = sddmm(src, dst, q, k, scale=scale, index=index,
                        src_index=src_index)
         alpha = segment_softmax(logits, dst, num_nodes, index=index)

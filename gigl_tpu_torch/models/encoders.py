@@ -16,11 +16,16 @@ inverse gather out (K3). It trains: the gathers' backward is K3 through
 the inverse permutation, the layers' K6b (after K7b for the attention
 convs), the edge tables' K11.
 
-``encode_coo(x, src, dst, num_nodes)`` is the same exact full-graph
-encode over COO edges: each conv's ``coo`` form on the segment kernels
-(K8-K10, backward K8b-K10b), in original node order, walking the two
-``SegmentIndex``es of the graph (given, or built once per call); edge
-features raise there (ROADMAP slice 10).
+``encode_coo(x, src, dst, num_nodes, edge_attr=None)`` is the same exact
+full-graph encode over COO edges: each conv's ``coo`` form on the segment
+kernels (K8-K10, backward K8b-K10b), in original node order, walking the
+two ``SegmentIndex``es of the graph (given, or built once per call). With
+edge features (``edge_attr`` [E, De] in COO edge order) and an edge conv,
+the layers run over the graph relabelled in its destination walk order
+(``ops/segment.py`` :func:`coo_walk`, built once and kept on the index):
+the edge table is permuted once (K3, trainable through its inverse) and
+projected row by row, so the destination walks read its rows in
+sequence.
 
 Edge features: with ``edge_dim`` and an edge conv (GINE, EdgeAttrGAT,
 Transformer) the raw edge rows are projected once to ``hid_dim`` by
@@ -31,8 +36,8 @@ its layer 1 needs ``in_dim == hid_dim``). The other convs ignore edge
 features, as the reference's do.
 
 Ported so far: the GraphSAGE, GCN, GIN, GINE, GAT, GATv2, EdgeAttrGAT and
-Transformer convs (GATv2 has no ``coo`` form yet), edge features on the
-block and ELL paths, activation placement, output L2 normalization, and
+Transformer convs, edge features on the block, ELL and COO paths,
+activation placement, output L2 normalization, and
 eval and train modes. Train-mode dropout draws its keep mask from an
 explicit ``torch.Generator`` (its bits differ from flax's); rate 0 is the
 identity, as in flax. Batch norm, jumping knowledge, the final linear
@@ -57,13 +62,9 @@ from gigl_tpu_torch.models.convs import (
     linear,
 )
 from gigl_tpu_torch.models.layers import dropout, l2_normalize
-from gigl_tpu_torch.ops.ell import (
-    COO_EDGE_FEATURES_NOT_PORTED,
-    EllGraph,
-    ell_layer,
-)
+from gigl_tpu_torch.ops.ell import EllGraph, ell_layer
 from gigl_tpu_torch.ops.gather import permute_rows
-from gigl_tpu_torch.ops.segment import SegmentIndex
+from gigl_tpu_torch.ops.segment import SegmentIndex, coo_walk
 
 CONV_TYPES = (
     "graphsage", "gcn", "gin", "gine", "gat", "gatv2", "edge_attr_gat",
@@ -190,6 +191,13 @@ class GNNEncoder(nn.Module):
             x = l2_normalize(x)
         return x
 
+    def reads_edges(self) -> bool:
+        """Whether the convs read edge features (GINE; EdgeAttrGAT and the
+        Transformer with ``use_edge_attr``): the others ignore them."""
+        conv = self.convs[0]
+        return isinstance(conv, GINEConv) or getattr(conv, "use_edge_attr",
+                                                     False)
+
     def _edge_in(self, edge_attr):
         """The edge rows the convs read: ``edge_in_proj(edge_attr)`` in the
         compute type where the encoder has it, else as given."""
@@ -306,17 +314,28 @@ class GNNEncoder(nn.Module):
         flowing src -> dst -> [N, out_dim]. ``index`` / ``src_index``: the
         SegmentIndexes of ``dst`` and ``src`` over the N nodes, built here
         on the host when not given (a trainer builds them once per graph).
-        ``train`` turns dropout on, drawn from ``generator``."""
-        if edge_attr is not None:
-            raise NotImplementedError(COO_EDGE_FEATURES_NOT_PORTED)
+        ``edge_attr`` [E, De] in COO edge order: projected by
+        ``edge_in_proj`` as the reference does and read by the edge convs,
+        over the graph in its destination walk order (module docstring);
+        its gradient reaches the caller in COO order. ``train`` turns
+        dropout on, drawn from ``generator``."""
         if index is None:
             index = SegmentIndex.from_ids(dst, num_nodes, gather=src)
         if src_index is None:
             src_index = SegmentIndex.from_ids(src, num_nodes, gather=dst)
+        if edge_attr is not None and not self.reads_edges():
+            edge_attr = None
+        if edge_attr is not None:
+            walk = coo_walk(index, src)
+            src, dst = walk.src, walk.dst
+            index, src_index = walk.index, walk.src_index
+            # fp32 rows are whole 4-byte words, which K3 moves
+            edge_attr = self._edge_in(permute_rows(
+                edge_attr.float(), walk.perm, walk.rank).to(self.dtype))
         x = x.to(self.dtype)
         for i, conv in enumerate(self.convs):
             is_last = i == self.num_layers - 1
-            x = conv.coo(x, src, dst, num_nodes, index=index,
+            x = conv.coo(x, src, dst, num_nodes, edge_attr, index=index,
                          src_index=src_index)
             x = self._epilogue(x, is_last, train, generator)
         return self._post(x)

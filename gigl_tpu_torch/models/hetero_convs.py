@@ -48,6 +48,7 @@ from torch import nn
 
 from gigl_tpu_torch.device import DeviceLike
 from gigl_tpu_torch.models.convs import linear
+from gigl_tpu_torch.models.layers import leaky_relu
 from gigl_tpu_torch.ops.attention import fanout_attention_block
 from gigl_tpu_torch.ops.fanout import masked_mean
 from gigl_tpu_torch.ops.segment import (
@@ -398,7 +399,7 @@ class SimpleHGNConv(_TypedConv):
                 a = gather_edges(a_src[s_nt], src, index=r_src_index) \
                     + gather_edges(a_dst[nt], dst, index=r_index) \
                     + self._rel_term(et)
-                logits.append(F.leaky_relu(a, self.negative_slope))
+                logits.append(leaky_relu(a, self.negative_slope))
                 vals.append(w[s_nt])
             att = segment_softmax(torch.cat(logits), seg.dst_ids[nt],
                                   num_nodes[nt], index=seg.index[nt])

@@ -1,5 +1,6 @@
-"""Normalization and dropout helpers (port of ``l2_normalize`` in
-``gigl_tpu/models/layers.py``; flax ``nn.Dropout``)."""
+"""Normalization, activation and dropout helpers (port of ``l2_normalize``
+in ``gigl_tpu/models/layers.py``; ``jax.nn.leaky_relu``; flax
+``nn.Dropout``)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,13 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12):
     """x / sqrt(max(sum(x^2), eps)) along ``dim``."""
     return x * torch.rsqrt(
         torch.clamp((x * x).sum(dim=dim, keepdim=True), min=eps))
+
+
+def leaky_relu(z: torch.Tensor, negative_slope: float) -> torch.Tensor:
+    """``jax.nn.leaky_relu``: ``where(z >= 0, z, slope * z)``. Its
+    derivative at exactly 0 is 1, as JAX's (``F.leaky_relu``'s is the
+    slope there), the convention the port's attention kernels share."""
+    return torch.where(z >= 0, z, negative_slope * z)
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,

@@ -56,9 +56,16 @@ KERNEL_NAMES = ("sample_uniform", "uniform_ids", "build_neighbor_cache",
 # count, by ops/segment.py's gather_mode: K8's launches with a gather
 # (composed: the destination index's gathered rows; chained: its order,
 # then src) and K8b's over a source walk (composed: the source index's
-# gathered destinations; chained: its order, then the segment ids).
+# gathered destinations; chained: its order, then the segment ids); and
+# the COO per-edge terms' modes: K8 with edge rows (add, gine) and its
+# GATv2 destination walk, K8b's gine gate and GATv2 source walk, K10 with
+# the key addend and its GATv2 scores, K11's COO form.
 MODE_NAMES = ("segment_reduce_composed", "segment_reduce_chained",
-              "segment_reduce_bwd_composed", "segment_reduce_bwd_chained")
+              "segment_reduce_bwd_composed", "segment_reduce_bwd_chained",
+              "segment_reduce_add", "segment_reduce_gine",
+              "segment_reduce_gatv2", "segment_reduce_bwd_gine",
+              "segment_reduce_bwd_gatv2", "sddmm_addend", "sddmm_gatv2",
+              "ell_edge_grad_coo")
 launches: Dict[str, int] = dict.fromkeys(KERNEL_NAMES + MODE_NAMES, 0)
 
 _P = ctypes.c_void_p
@@ -95,15 +102,18 @@ _SIGNATURES = {
     "gigl_ell_tie_count": [_P] * 5 + [_I64] + [_I32] * 4 + [_P],
     "gigl_fanout_attention_bwd": [_P] * 20 + [_I64] + [_I32] * 5
     + [_F32, _F32, _I32, _P],
-    "gigl_segment_reduce": [_P] * 7 + [_I64] + [_I32] * 6 + [_P],
+    "gigl_segment_reduce": [_P] * 7 + [_I64] + [_I32] * 6
+    + [_P, _I32, _P, _P, _F32, _P, _P, _I64, _P],
     "gigl_segment_softmax": [_P] * 4 + [_I64] + [_I32] * 4 + [_P],
-    "gigl_sddmm": [_P] * 8 + [_I64, _I64] + [_I32] * 3 + [_P],
-    "gigl_segment_reduce_bwd": [_P] * 11 + [_I64] + [_I32] * 6 + [_P],
+    "gigl_sddmm": [_P] * 8 + [_I64, _I64] + [_I32] * 4 + [_P] * 3
+    + [_F32, _I32, _P],
+    "gigl_segment_reduce_bwd": [_P] * 11 + [_I64] + [_I32] * 7 + [_P] * 2
+    + [_F32, _P],
     "gigl_segment_max_ties": [_P] * 8 + [_I64] + [_I32] * 5 + [_P],
     "gigl_segment_softmax_bwd": [_P] * 5 + [_I64] + [_I32] * 4 + [_P],
     "gigl_sddmm_bwd": [_P] * 6 + [_I64] + [_I32] * 3 + [_P],
     "gigl_sddmm_bwd_ticket": [_P, _P],
-    "gigl_ell_edge_grad": [_P] * 12 + [_I64] + [_I32] * 6 + [_P],
+    "gigl_ell_edge_grad": [_P] * 12 + [_I64] + [_I32] * 6 + [_P, _I64, _P],
     "gigl_gather_rows_q8_many": [_P, _I32, _P],
     "gigl_cms_add": [_P, _I32, _I32, _P, _I64, _P, _P, _P, _P],
     "gigl_cms_estimate": [_P, _I32, _I32, _P, _I64, _P, _P, _P, _P],

@@ -34,7 +34,10 @@ fills one ``[N, D_out]`` output (K6: one launch over every bucket; K7:
 one launch per bucket) and whose backward walks the transpose tables once
 (K6b, after K7b for attention) — the scatter-free custom VJP of :237-286 —
 and writes the edge table's gradient once per edge (K11
-:func:`ell_edge_grad`, the permutation VJP of :303-313). Masked slots
+:func:`ell_edge_grad`, the permutation VJP of :303-313). K11's COO form,
+:func:`coo_edge_grad`, writes the same terms for an edge table beside COO
+edges, walking a destination ``SegmentIndex`` (the ``coo`` forms of the
+edge convs). Masked slots
 point at row 0 (``rank[v] * m``, ``eid * m``); the kernels honour the
 mask (K6 as each row's count: the mask is its left-packed prefix), never
 the index.
@@ -50,11 +53,8 @@ import torch
 
 from gigl_tpu_torch.device import DeviceLike, resolve_device
 from gigl_tpu_torch.ops import _build
+from gigl_tpu_torch.ops.segment import gather_mode
 
-COO_EDGE_FEATURES_NOT_PORTED = (
-    "edge features on the COO path need a per-edge term inside the segment "
-    "kernels K8-K10, which is not ported yet (ROADMAP slice 10, COO per-edge "
-    "terms); use encode_ell")
 EDGE_GRAD_MODES = {"gine": 0, "gat": 1, "transformer": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -361,9 +361,104 @@ def ell_edge_grad(g: torch.Tensor, ell: EllGraph, mode: str, *,
                   _build.ptr(alpha), _build.ptr(coef), _build.ptr(vec),
                   _build.ptr(xd), out.data_ptr(), p_total, d, heads,
                   d // heads, _DTYPES[g.dtype], EDGE_GRAD_MODES[mode],
-                  vec_path)
+                  vec_path, None, 0)
     return out
 
+
+
+def _coo_edge_grad_plain(g, src, dst, mode, x=None, ea=None, alpha=None,
+                         coef=None, vec=None, xd=None, heads=1):
+    """Plain twin of K11's COO form: per edge e, its term from its
+    destination's row of ``g``, fp32 arithmetic, one rounding."""
+    d = g.shape[1]
+    gf = g.float()[dst.long()]                             # [E, D]
+    if mode == "gine":
+        z = x.float()[src.long()] + ea.float()
+        return torch.where(z > 0, gf, 0.0).to(g.dtype)
+    dh = d // heads
+    out = alpha.float().repeat_interleave(dh, dim=1) * gf
+    if coef is not None:
+        other = (vec.float()[None, :] if mode == "gat"
+                 else xd.float()[dst.long()])
+        out = out + coef.float().repeat_interleave(dh, dim=1) * other
+    return out.to(g.dtype)
+
+
+def coo_edge_grad(g: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                  index, mode: str, *, x: Optional[torch.Tensor] = None,
+                  ea: Optional[torch.Tensor] = None,
+                  alpha: Optional[torch.Tensor] = None,
+                  coef: Optional[torch.Tensor] = None,
+                  vec: Optional[torch.Tensor] = None,
+                  xd: Optional[torch.Tensor] = None,
+                  heads: int = 1) -> torch.Tensor:
+    """K11's COO form: the gradient [E, D] of an edge table read beside
+    COO edges ``src`` -> ``dst`` (each edge's row by its id), walking
+    ``index`` (the destination ``SegmentIndex``: its order and pointers;
+    with gine also its ``gathered`` source rows when ``src`` is the tensor
+    it was built from). ``mode`` ``gine``: ``g[dst] * 1[x[src] + ea > 0]``;
+    ``gat``: ``alpha[e, h] * g[dst] + coef[e, h] * vec`` (coef None: the
+    first term alone); ``transformer``: ``alpha * g[dst] + coef * xd[dst]``.
+    alpha and coef are fp32 [E, H]."""
+    if mode not in EDGE_GRAD_MODES:
+        raise ValueError(f"coo_edge_grad: unknown mode {mode!r}")
+    need = {"gine": (x, ea), "gat": (alpha,) + (
+        () if coef is None else (vec,)), "transformer": (alpha, coef, xd)}[mode]
+    if any(t is None for t in need):
+        raise ValueError(f"coo_edge_grad: mode {mode!r} is missing an "
+                         "operand")
+    d = g.shape[1]
+    if d % heads:
+        raise ValueError(f"coo_edge_grad: {d} not divisible by {heads} "
+                         "heads")
+    if g.device.type == "cpu":
+        return _coo_edge_grad_plain(g, src, dst, mode, x, ea, alpha, coef,
+                                    vec, xd, heads)
+    e = src.shape[0]
+    if index is None or index.num_edges != e \
+            or index.num_segments != g.shape[0]:
+        raise ValueError("coo_edge_grad: needs the destination SegmentIndex "
+                         "of these edges")
+    rows = None
+    if mode == "gine":
+        rows = (index.gathered if gather_mode(src, index) == "composed"
+                else src.long()[index.order.long()].to(torch.int32))
+    coef_c = None if coef is None else coef.contiguous()
+    alpha_c = None if alpha is None else alpha.contiguous()
+    tabs = [t for t in (x, ea, alpha_c, coef_c, vec, xd, rows)
+            if t is not None]
+    device = _build.require_cuda("ell_edge_grad", g, index.order, index.ptr,
+                                 *tabs)
+    if g.dim() != 2 or g.dtype not in _DTYPES:
+        raise ValueError("coo_edge_grad: g must be [S, D], fp32 or bf16")
+    shapes = {"x": (x, None), "ea": (ea, (e, d)), "xd": (xd, tuple(g.shape))}
+    for name, (t, shape) in shapes.items():
+        if t is not None and ((shape is not None and t.shape != shape)
+                              or t.dtype != g.dtype or t.shape[-1] != d):
+            raise ValueError(f"coo_edge_grad: {name} must be [.., {d}] of "
+                             "g's type")
+    for t in (alpha_c, coef_c):
+        if t is not None and (t.dtype != torch.float32
+                              or t.shape != (e, heads)):
+            raise ValueError("coo_edge_grad: alpha / coef must be fp32 "
+                             f"[E={e}, {heads}]")
+    if vec is not None and (vec.dtype != torch.float32 or vec.shape != (d,)):
+        raise ValueError(f"coo_edge_grad: vec must be fp32 [{d}]")
+    out = torch.empty((e, d), dtype=g.dtype, device=device)
+    vec_path = int((d * g.element_size()) % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (g, x, ea, xd, out)
+        if t is not None))
+    if e:
+        _build.launch("ell_edge_grad", "gigl_ell_edge_grad", device,
+                      g.data_ptr(), None, None, _build.ptr(rows),
+                      index.order.data_ptr(), _build.ptr(x), _build.ptr(ea),
+                      _build.ptr(alpha_c), _build.ptr(coef_c),
+                      _build.ptr(vec), _build.ptr(xd), out.data_ptr(), e, d,
+                      heads, d // heads, _DTYPES[g.dtype],
+                      EDGE_GRAD_MODES[mode], vec_path, index.ptr.data_ptr(),
+                      g.shape[0])
+        _build.launches["ell_edge_grad_coo"] += 1
+    return out
 
 def ell_layer(conv, x_p: torch.Tensor, ell: EllGraph,
               edge_attr: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -64,13 +64,24 @@ The port's functions take the reference's arguments and keyword
 ``index``; ``coo_spmm`` also takes ``[E, H]`` weights for a table of ``H``
 heads (``[N, H, dk]`` or ``[N, H * dk]``), and ``sddmm`` a per-head
 ``scale`` (differentiable: HGT's ``prior`` trains through it).
+
+The COO per-edge terms (the ``coo`` forms of GINE, EdgeAttrGAT, the
+Transformer with edge rows and GATv2) are modes of the same kernels, each
+with its twin here: K8 adds an edge row (by edge id) to each gathered row
+(``coo_spmm(edge_rows=, edge_mode="add")``) or takes the relu of the sum
+(``"gine"``), and walks GATv2's destinations (:func:`gatv2_dst_bwd`); K8b
+gates the source walk by GINE's relu (:func:`gine_bwd`) or walks GATv2's
+sources (:func:`gatv2_src_bwd`); K10 adds the edge row to the key or
+scores GATv2's ``att . leaky(hs[src] + hd[dst])``. :func:`coo_walk`
+relabels a graph's edges in its destination walk order, where the
+destination walks read an edge table in sequence.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -104,6 +115,8 @@ class SegmentIndex:
     gather: Optional[torch.Tensor] = None    # [E], the ids it was built for
     gathered: Optional[torch.Tensor] = None  # [E] int32, gather[order]
     gather_version: Optional[int] = None      # gather._version at the build
+    walk: Optional["CooWalk"] = field(default=None, repr=False,
+                                      compare=False)  # coo_walk's cache
 
     @property
     def num_edges(self) -> int:
@@ -231,12 +244,17 @@ def gather_mode(ids, index) -> Optional[str]:
 
 
 def _segment_reduce_plain(x, segment_ids, num_segments, op="sum", src=None,
-                          weight=None):
+                          weight=None, edge=None, edge_mode=None):
     """Plain twin of K8 (the reference's gather and segment reduce): fp32
     arithmetic, one rounding to x's type. The rows are widened before the
     gather, so that autograd of this twin sums a gathered row's cotangent
-    in fp32 too, as K8b does."""
+    in fp32 too, as K8b does. ``edge`` [E, ...]: each edge's row added to
+    its gathered row (``edge_mode`` add), then relu'd (gine)."""
     rows = x.float() if src is None else x.float()[src.long()]
+    if edge is not None:
+        rows = rows + edge.float().reshape(rows.shape)
+        if edge_mode == "gine":
+            rows = torch.relu(rows)
     e, trailing = rows.shape[0], tuple(rows.shape[1:])
     c = math.prod(trailing)
     acc = _per_column(rows.reshape(e, c), None if weight is None
@@ -257,16 +275,26 @@ def _segment_reduce_plain(x, segment_ids, num_segments, op="sum", src=None,
     return out.to(x.dtype).reshape((num_segments,) + trailing)
 
 
+_EDGE_MODES = {None: 0, "add": 1, "gine": 2}
+
+
 def _segment_reduce_fwd(x, segment_ids, num_segments, op="sum", src=None,
-                        weight=None, index=None):
-    """K8 launch (plain twin for CPU tensors): see :func:`segment_reduce`."""
+                        weight=None, index=None, edge=None, edge_mode=None):
+    """K8 launch (plain twin for CPU tensors): see :func:`segment_reduce`
+    and, for ``edge`` [E, C] with ``edge_mode`` add | gine, :func:`coo_spmm`."""
     if x.device.type == "cpu":
         return _segment_reduce_plain(x, segment_ids, num_segments, op, src,
-                                     weight)
+                                     weight, edge, edge_mode)
     e = segment_ids.shape[0]
     index = _index(segment_ids, num_segments, index, e, src)
     c = math.prod(x.shape[1:])
     xf = x.contiguous().reshape(x.shape[0], c)
+    ea = None
+    if edge is not None:
+        ea = edge.contiguous().reshape(e, c)
+        if ea.dtype != xf.dtype or op != "sum":
+            raise ValueError("segment_reduce: the edge rows join a sum, in "
+                             "x's type")
     mode = gather_mode(src, index)
     composed = mode == "composed"
     gathered = index.gathered if composed else None
@@ -274,7 +302,7 @@ def _segment_reduce_fwd(x, segment_ids, num_segments, op="sum", src=None,
               else src.to(torch.int32).contiguous())
     w = (None if weight is None
          else weight.float().reshape(e, _cols(weight)).contiguous())
-    extra = tuple(t for t in (gather, gathered, w) if t is not None)
+    extra = tuple(t for t in (gather, gathered, w, ea) if t is not None)
     device = _build.require_cuda("segment_reduce", xf, index.order,
                                  index.ptr, *extra)
     if xf.dtype not in _DTYPES:
@@ -286,17 +314,20 @@ def _segment_reduce_fwd(x, segment_ids, num_segments, op="sum", src=None,
     wc = c // w_cols
     out = torch.empty((num_segments, c), dtype=x.dtype, device=device)
     esize = xf.element_size()
-    vec = int((c * esize) % 16 == 0 and (wc * esize) % 16 == 0
-              and xf.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    vec = int((c * esize) % 16 == 0 and (wc * esize) % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (xf, out, ea) if t is not None))
     if num_segments * c:
         _build.launch("segment_reduce", "gigl_segment_reduce", device,
                       xf.data_ptr(), _build.ptr(gather),
                       index.order.data_ptr(), _build.ptr(gathered),
                       index.ptr.data_ptr(), _build.ptr(w), out.data_ptr(),
                       num_segments, c, wc, w_cols, _DTYPES[x.dtype],
-                      _OPS[op], vec)
+                      _OPS[op], vec, _build.ptr(ea), _EDGE_MODES[edge_mode],
+                      None, None, 0.0, None, None, 0)
         if mode is not None:
             _build.launches[f"segment_reduce_{mode}"] += 1
+        if edge_mode is not None:
+            _build.launches[f"segment_reduce_{edge_mode}"] += 1
     return out.reshape((num_segments,) + tuple(x.shape[1:]))
 
 
@@ -425,11 +456,191 @@ def segment_reduce_bwd(g: torch.Tensor, segment_ids: torch.Tensor,
                       _build.ptr(None if walk is None else walk[1]),
                       _build.ptr(index.ptr if op == "mean" else None),
                       _build.ptr(w), out.data_ptr(), num_rows, c, wc, w_cols,
-                      dtype, _OPS[op], vec)
+                      dtype, _OPS[op], vec, 0, None, None, 0.0)
         if mode is not None:
             _build.launches[f"segment_reduce_bwd_{mode}"] += 1
     return out
 
+
+
+def _edge_bwd_plain(g, segment_ids, num_rows, mode, src, weight, x, edge,
+                    att, negative_slope):
+    """Plain twin of K8b's gine and gatv2 modes (:func:`gine_bwd`,
+    :func:`gatv2_src_bwd`): per edge, the gated or GATv2 term, summed into
+    its source row; fp32 arithmetic, one rounding."""
+    e = segment_ids.shape[0]
+    c = math.prod(g.shape[1:])
+    gd = g.float().reshape(g.shape[0], c)[segment_ids.long()]     # [E, C]
+    xs = x.float().reshape(x.shape[0], c)[src.long()]
+    w = None if weight is None else weight.float().reshape(e, _cols(weight))
+    if mode == "gine":
+        z = xs + edge.float().reshape(e, c)
+        contrib = _per_column(torch.where(z > 0, gd, 0.0), w)
+    else:
+        z = xs + gd
+        dz = _per_column(att.float().reshape(1, c).expand(e, c), w)
+        contrib = torch.where(z >= 0, dz, negative_slope * dz)
+    return torch.zeros((num_rows, c), device=g.device).index_add(
+        0, src.long(), contrib).to(g.dtype)
+
+
+def _segment_edge_bwd(g, segment_ids, num_rows, mode, src, weight, x, *,
+                      edge=None, att=None, negative_slope=0.2,
+                      src_index=None):
+    """K8b's gine and gatv2 modes over the source walk (the module's
+    wrappers below say what each computes)."""
+    e = segment_ids.shape[0]
+    if g.device.type == "cpu":
+        return _edge_bwd_plain(g, segment_ids, num_rows, mode, src, weight,
+                               x, edge, att, negative_slope)
+    c = math.prod(g.shape[1:])
+    gf = g.contiguous().reshape(g.shape[0], c)
+    if src_index is None:   # built with the ids: they run composed
+        src_index = _index(src, num_rows, None, e, segment_ids)
+        segment_ids = src_index.gather
+    else:
+        src_index = _index(src, num_rows, src_index, e)
+    mode_name = gather_mode(segment_ids, src_index)
+    gathered = src_index.gathered if mode_name == "composed" else None
+    dst32 = segment_ids.to(torch.int32).contiguous()
+    w = (None if weight is None
+         else weight.float().reshape(e, _cols(weight)).contiguous())
+    xf = x.contiguous().reshape(x.shape[0], c)
+    ea = None if edge is None else edge.contiguous().reshape(e, c)
+    at = None if att is None else att.detach().float().contiguous().reshape(c)
+    device = _build.require_cuda("segment_reduce_bwd", gf, dst32, xf,
+                                 src_index.order, src_index.ptr, *(
+                                     t for t in (w, ea, at, gathered)
+                                     if t is not None))
+    if gf.dtype not in _DTYPES or xf.dtype != gf.dtype or (
+            ea is not None and ea.dtype != gf.dtype):
+        raise ValueError(f"segment_reduce_bwd: dtype {g.dtype} not supported "
+                         "(fp32 or bf16; x and the edge rows of g's type)")
+    if xf.shape[0] != num_rows:
+        raise ValueError("segment_reduce_bwd: x must have num_rows rows")
+    w_cols = 1 if w is None else w.shape[1]
+    if c % w_cols:
+        raise ValueError(f"segment_reduce_bwd: {c} values per row do not "
+                         f"split into {w_cols} weight columns")
+    wc = c // w_cols
+    out = torch.empty((num_rows, c), dtype=g.dtype, device=device)
+    esize = gf.element_size()
+    vec = int((c * esize) % 16 == 0 and (wc * esize) % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (gf, out, xf, ea) if t is not None))
+    if num_rows * c:
+        _build.launch("segment_reduce_bwd", "gigl_segment_reduce_bwd", device,
+                      gf.data_ptr(), None, None, xf.data_ptr(),
+                      dst32.data_ptr(), src_index.order.data_ptr(),
+                      _build.ptr(gathered), src_index.ptr.data_ptr(), None,
+                      _build.ptr(w), out.data_ptr(), num_rows, c, wc, w_cols,
+                      _DTYPES[g.dtype], _OPS["sum"], vec,
+                      {"gine": 1, "gatv2": 2}[mode], _build.ptr(ea),
+                      _build.ptr(at), float(negative_slope))
+        _build.launches[f"segment_reduce_bwd_{mode_name}"] += 1
+        _build.launches[f"segment_reduce_bwd_{mode}"] += 1
+    return out
+
+
+def gine_bwd(g: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+             x: torch.Tensor, edge: torch.Tensor, *,
+             src_index: Optional[SegmentIndex] = None) -> torch.Tensor:
+    """K8b's gine mode: the cotangent [N, C] of x in ``out[d] = sum_{e:
+    dst e = d} relu(x[src e] + edge[e])`` (GINEConv.coo), ``dx[r] =
+    sum_{e: src e = r} 1[x[r] + edge[e] > 0] * g[dst e]`` (strict:
+    ``jax.nn.relu``'s derivative at 0 is 0), walking ``src_index`` (the
+    SegmentIndex of ``src`` over x's rows); each slot's edge row read by
+    its edge id."""
+    return _segment_edge_bwd(g, dst, x.shape[0], "gine", src, None, x,
+                             edge=edge, src_index=src_index)
+
+
+def gatv2_src_bwd(gl: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                  hs: torch.Tensor, hd: torch.Tensor, att: torch.Tensor, *,
+                  negative_slope: float = 0.2,
+                  src_index: Optional[SegmentIndex] = None) -> torch.Tensor:
+    """K8b's gatv2 mode: the cotangent [N, H * D] of the source table ``hs``
+    [N, H, D] in GATv2's logits ``z[e, h] = sum_d att[h, d] * leaky(hs[src
+    e] + hd[dst e])[h, d]`` from theirs ``gl`` [E, H]: ``sum_{e: src e = r}
+    leaky'(hs[r] + hd[dst e]) * gl[e, h] * att[h]`` (leaky' 1 at >= 0, as
+    JAX's), walking ``src_index``."""
+    n = hs.shape[0]
+    return _segment_edge_bwd(hd.reshape(hd.shape[0], -1), dst, n, "gatv2",
+                             src, gl, hs.reshape(n, -1), att=att,
+                             negative_slope=negative_slope,
+                             src_index=src_index)
+
+
+# Rows of K8's gatv2 destination walk (its grid's threads over a row's
+# pieces, each keeping its d att partial), at most: the partials' buffer.
+_GATV2_PARTIAL_ROWS = 4096
+
+
+def _gatv2_dst_plain(gl, src, dst, hs, hd, att, negative_slope):
+    """Plain twin of K8's gatv2 destination walk: (dhd, d att), fp32."""
+    e = src.shape[0]
+    n, c = hd.shape[0], math.prod(hd.shape[1:])
+    z = (hs.float().reshape(hs.shape[0], c)[src.long()]
+         + hd.float().reshape(n, c)[dst.long()])
+    g = gl.float().reshape(e, _cols(gl))
+    dz = _per_column(att.float().reshape(1, c).expand(e, c), g)
+    dhd = torch.zeros((n, c), device=hd.device).index_add(
+        0, dst.long(), torch.where(z >= 0, dz, negative_slope * dz))
+    leaky = torch.where(z >= 0, z, negative_slope * z)
+    datt = _per_column(leaky, g).sum(0)
+    return dhd.to(hd.dtype), datt
+
+
+def gatv2_dst_bwd(gl: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                  hs: torch.Tensor, hd: torch.Tensor, att: torch.Tensor, *,
+                  negative_slope: float = 0.2,
+                  index: Optional[SegmentIndex] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8's gatv2 mode, one walk of the destination ``index``: the
+    cotangents of ``hd`` ([N, H * D], ``sum_{e: dst e = i} leaky'(z) * gl *
+    att``) and of ``att`` (fp32 [H * D], ``sum_e gl[e, h] * leaky(z)``) in
+    GATv2's logits (:func:`gatv2_src_bwd`). The d att partials are summed
+    in a fixed order: the same bits on every run."""
+    e = src.shape[0]
+    if hd.device.type == "cpu":
+        return _gatv2_dst_plain(gl, src, dst, hs, hd, att, negative_slope)
+    n, c = hd.shape[0], math.prod(hd.shape[1:])
+    index = _index(dst, n, index, e, src)
+    composed = gather_mode(src, index) == "composed"
+    gathered = index.gathered if composed else None
+    s32 = None if composed else src.to(torch.int32).contiguous()
+    hsf = hs.contiguous().reshape(hs.shape[0], c)
+    hdf = hd.contiguous().reshape(n, c)
+    g = gl.float().reshape(e, _cols(gl)).contiguous()
+    at = att.detach().float().contiguous().reshape(c)
+    device = _build.require_cuda("segment_reduce", hsf, hdf, g, at,
+                                 index.order, index.ptr, *(
+                                     t for t in (s32, gathered)
+                                     if t is not None))
+    if hsf.dtype not in _DTYPES or hdf.dtype != hsf.dtype:
+        raise ValueError("gatv2_dst_bwd: hs and hd must share one dtype, "
+                         "fp32 or bf16")
+    heads = g.shape[1]
+    if c % heads:
+        raise ValueError(f"gatv2_dst_bwd: {c} values for {heads} heads")
+    dh = c // heads
+    dhd = torch.empty((n, c), dtype=hd.dtype, device=device)
+    datt = torch.empty(c, dtype=torch.float32, device=device)
+    partial = torch.empty((min(n, _GATV2_PARTIAL_ROWS), c),
+                          dtype=torch.float32, device=device)
+    esize = hsf.element_size()
+    vec = int((c * esize) % 16 == 0 and (dh * esize) % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (hsf, hdf, dhd)))
+    _build.launch("segment_reduce", "gigl_segment_reduce", device,
+                  hsf.data_ptr(), _build.ptr(s32), index.order.data_ptr(),
+                  _build.ptr(gathered), index.ptr.data_ptr(), g.data_ptr(),
+                  dhd.data_ptr(), n, c, dh, heads, _DTYPES[hsf.dtype],
+                  _OPS["sum"], vec, None, 3, hdf.data_ptr(), at.data_ptr(),
+                  float(negative_slope), datt.data_ptr(), partial.data_ptr(),
+                  _GATV2_PARTIAL_ROWS)
+    _build.launches["segment_reduce_" + ("composed" if composed
+                                         else "chained")] += 1
+    _build.launches["segment_reduce_gatv2"] += 1
+    return dhd, datt
 
 def _weight_grad(g, x, segment_ids, op, src, weight, index):
     """The weights' cotangent: per edge and weight column, the dot of the
@@ -542,16 +753,162 @@ def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
 def coo_spmm(src: torch.Tensor, dst: torch.Tensor, x: torch.Tensor,
              num_dst: int, *, edge_weight: Optional[torch.Tensor] = None,
              reduce: str = "sum", index: Optional[SegmentIndex] = None,
-             src_index: Optional[SegmentIndex] = None) -> torch.Tensor:
+             src_index: Optional[SegmentIndex] = None,
+             edge_rows: Optional[torch.Tensor] = None,
+             edge_mode: str = "add") -> torch.Tensor:
     """Sparse A @ X over COO edges: ``out[d] = reduce_{(s, d) in E} w *
     x[s]`` (K8 in gather mode); ``edge_weight`` [E], or [E, H] for x
     [N, H, dk] / [N, H * dk]. ``index`` is the SegmentIndex of ``dst``,
-    ``src_index`` that of ``src`` over x's rows (the backward's walk)."""
+    ``src_index`` that of ``src`` over x's rows (the backward's walk).
+
+    ``edge_rows`` [E, ...] (one row of x's trailing shape and type per
+    edge, by edge id): the COO per-edge terms, sum only. ``edge_mode``
+    ``add``: ``w * (x[s] + edge_rows[e])`` (EdgeAttrGAT's and the
+    Transformer's values; backward K8b for x, K10 with the addend for the
+    weights, K11's COO form for the edge rows); ``gine``: ``relu(x[s] +
+    edge_rows[e])``, no weights (GINEConv; backward K8b's gine gate and
+    K11 gine). K8 reads each edge's row by its id, in sequence when the
+    edges are in walk order (:func:`coo_walk`)."""
     if reduce not in _OPS:
         raise ValueError(f"Unknown reduce {reduce!r}")
-    return segment_reduce(x, dst, num_dst, op=reduce, src=src,
-                          weight=edge_weight, index=index,
-                          src_index=src_index)
+    if edge_rows is None:
+        return segment_reduce(x, dst, num_dst, op=reduce, src=src,
+                              weight=edge_weight, index=index,
+                              src_index=src_index)
+    if edge_mode not in ("add", "gine") or reduce != "sum":
+        raise ValueError(f"coo_spmm: edge rows join a sum, in mode add or "
+                         f"gine (got {reduce!r}, {edge_mode!r})")
+    e = src.shape[0]
+    if dst.shape != (e,) or edge_rows.shape[0] != e \
+            or math.prod(edge_rows.shape[1:]) != math.prod(x.shape[1:]):
+        raise ValueError("coo_spmm: edge_rows must be [E, ...] with x's "
+                         "trailing size")
+    if edge_mode == "gine" and edge_weight is not None:
+        raise ValueError("coo_spmm: the gine mode takes no weights")
+    if x.device.type != "cpu":
+        index, src_index = _pair(src, dst, x.shape[0], num_dst, index,
+                                 src_index)
+    if not _grad_on(x, edge_weight, edge_rows):
+        return _segment_reduce_fwd(x, dst, num_dst, "sum", src, edge_weight,
+                                   index, edge_rows, edge_mode)
+    return CooEdgeSpmm.apply(x, edge_weight, edge_rows, src, dst, num_dst,
+                             edge_mode, index, src_index)
+
+
+def _pair(src, dst, num_src, num_dst, index, src_index):
+    """The destination and source indexes of a call on the card, built
+    here (each composing the other side's ids) where not given."""
+    e = src.shape[0]
+    index = _index(dst, num_dst, index, e, src)
+    src_index = _index(src, num_src, src_index, e, dst)
+    return index, src_index
+
+
+class CooEdgeSpmm(torch.autograd.Function):
+    """K8 with edge rows (:func:`coo_spmm`); the backward is K8b (weighted,
+    or its gine gate) for x, K10 with the addend for the weights and K11's
+    COO form for the edge rows."""
+
+    @staticmethod
+    def forward(ctx, x, weight, edge, src, dst, num_dst, mode, index,
+                src_index):
+        out = _segment_reduce_fwd(x, dst, num_dst, "sum", src, weight, index,
+                                  edge, mode)
+        ctx.save_for_backward(x, weight, edge, src, dst)
+        ctx.cfg = (mode, index, src_index)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from gigl_tpu_torch.ops.ell import coo_edge_grad
+        x, weight, edge, src, dst = ctx.saved_tensors
+        mode, index, src_index = ctx.cfg
+        e, n = src.shape[0], x.shape[0]
+        c = math.prod(x.shape[1:])
+        g = g.contiguous().reshape(g.shape[0], c)
+        dx = dw = de = None
+        if mode == "gine":
+            if ctx.needs_input_grad[0]:
+                dx = gine_bwd(g, src, dst, x.reshape(n, c),
+                              edge.reshape(e, c), src_index=src_index)
+            if ctx.needs_input_grad[2]:
+                de = coo_edge_grad(g, src, dst, index, "gine",
+                                   x=x.reshape(n, c), ea=edge.reshape(e, c))
+        else:
+            w_cols = 1 if weight is None else _cols(weight)
+            if ctx.needs_input_grad[0]:
+                dx = segment_reduce_bwd(g, dst, n, src=src, weight=weight,
+                                        index=index, src_index=src_index)
+            if ctx.needs_input_grad[1]:
+                dw = _sddmm_fwd(src, dst, g.reshape(-1, w_cols, c // w_cols),
+                                x.reshape(n, w_cols, c // w_cols),
+                                index=index,
+                                edge=edge.reshape(e, w_cols, c // w_cols))
+                dw = dw.reshape(weight.shape).to(weight.dtype)
+            if ctx.needs_input_grad[2]:
+                alpha = (torch.ones((e, 1), device=g.device)
+                         if weight is None
+                         else weight.float().reshape(e, w_cols))
+                de = coo_edge_grad(g, src, dst, index, "gat", alpha=alpha,
+                                   heads=alpha.shape[1])
+        return (None if dx is None else dx.reshape(x.shape), dw,
+                None if de is None else de.reshape(edge.shape),
+                None, None, None, None, None, None)
+
+
+@dataclass
+class CooWalk:
+    """A COO graph's edges relabelled in its destination walk order: walk
+    slot j holds edge ``perm[j]`` (the destination index's ``order``), so
+    ``src``, ``dst`` and any per-edge table permuted by ``perm`` list the
+    same graph with every segment's edges contiguous and in their original
+    order, and ``index`` / ``src_index`` are its SegmentIndexes (the
+    destination one's order the identity). The segment kernels read an
+    edge table of this graph by edge id, which is then its walk slot: in
+    sequence in the destination walk (K8, K10, K11), at the composed
+    position ``src_index.order`` (each source slot's destination-walk
+    rank) in the source walk (K8b). Node outputs are unchanged: every
+    segment sums the same edges in the same order."""
+
+    src: torch.Tensor    # [E] int32, walk order
+    dst: torch.Tensor    # [E] int32, sorted
+    index: SegmentIndex
+    src_index: SegmentIndex
+    perm: torch.Tensor   # [E] int32: original edge id of walk slot j
+    rank: torch.Tensor   # [E] int32: walk slot of original edge e
+
+
+def coo_walk(index: SegmentIndex, src: torch.Tensor,
+             num_src: Optional[int] = None) -> CooWalk:
+    """The walk-ordered graph of the edges ``src`` -> the destinations of
+    ``index`` (``num_src`` source rows, the destination count by default),
+    built on the host. When ``src`` is the tensor the index was built from
+    (:func:`gather_mode` composed) the walk is built once and kept on the
+    index; for any other ``src`` it is built anew."""
+    kept = gather_mode(src, index) == "composed"
+    if kept and index.walk is not None:
+        return index.walk
+    if src.shape != (index.num_edges,):
+        raise ValueError(f"coo_walk: {tuple(src.shape)} source ids for "
+                         f"{index.num_edges} edges")
+    device = index.device
+    n = index.num_segments
+    order = index.order.cpu().numpy()
+    ptr = index.ptr.cpu().numpy()
+    src_w = (index.gathered if kept else src.long()[index.order.long()]
+             ).cpu().numpy().astype(np.int32)
+    dst_w = np.repeat(np.arange(n, dtype=np.int32), np.diff(ptr))
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order), dtype=np.int32)
+    w_index = SegmentIndex.from_ids(dst_w, n, device, gather=src_w)
+    w_src_index = SegmentIndex.from_ids(src_w, n if num_src is None
+                                        else num_src, device, gather=dst_w)
+    walk = CooWalk(src=w_index.gather, dst=w_src_index.gather,
+                   index=w_index, src_index=w_src_index, perm=index.order,
+                   rank=torch.from_numpy(rank).to(device))
+    if kept:
+        index.walk = walk
+    return walk
 
 
 def gather_edges(table: torch.Tensor, ids: torch.Tensor, *,
@@ -731,22 +1088,38 @@ def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
 _SDDMM_WALK_ROW_BYTES = 512
 
 
-def _sddmm_plain(src, dst, q, k, scale=None):
+def _sddmm_plain(src, dst, q, k, scale=None, edge=None, att=None,
+                 negative_slope=0.2):
     """Plain twin of K10: fp32 products summed over the last axis, one
-    rounding to q's type."""
-    out = (q.float()[dst.long()] * k.float()[src.long()]).sum(-1)
+    rounding to q's type; with ``edge`` the key rows plus each edge's row;
+    with ``att`` GATv2's ``sum att * leaky(k[src] + q[dst])``."""
+    kv = k.float()[src.long()]
+    if edge is not None:
+        kv = kv + edge.float().reshape(kv.shape)
+    if att is not None:
+        z = kv + q.float()[dst.long()]
+        z = torch.where(z >= 0, z, negative_slope * z)
+        out = (z * att.float().reshape(q.shape[1:])).sum(-1)
+    else:
+        out = (q.float()[dst.long()] * kv).sum(-1)
     if scale is not None:
         out = out * scale.float()
     return out.to(q.dtype)
 
 
-def _sddmm_fwd(src, dst, q, k, scale=None, index=None):
+def _sddmm_fwd(src, dst, q, k, scale=None, index=None, edge=None, att=None,
+               negative_slope=0.2):
     """K10 launch (plain twin for CPU tensors): see :func:`sddmm`; the
     kernel walks ``index``, the SegmentIndex of ``dst`` over q's rows, at
     rows of _SDDMM_WALK_ROW_BYTES and more (built here when not given), and
-    reads no index below."""
+    reads no index below. With ``edge`` [E, ...] (the key addend) or
+    ``att`` [H, D] (GATv2's scores of ``leaky(k[src] + q[dst])``) it walks
+    the index at every width (:func:`gatv2_scores`)."""
     if q.device.type == "cpu":
-        return _sddmm_plain(src, dst, q, k, scale)
+        return _sddmm_plain(src, dst, q, k, scale, edge, att, negative_slope)
+    if edge is not None or att is not None:
+        return _sddmm_edge_fwd(src, dst, q, k, scale, index, edge, att,
+                               negative_slope)
     e = src.shape[0]
     heads = q.shape[1] if q.dim() == 3 else 1
     c = math.prod(q.shape[1:])
@@ -767,7 +1140,47 @@ def _sddmm_fwd(src, dst, q, k, scale=None, index=None):
                       kf.data_ptr(), s32.data_ptr(), d32.data_ptr(),
                       _build.ptr(order), _build.ptr(ptr), _build.ptr(sc),
                       out.data_ptr(), e, q.shape[0], c, heads,
-                      _DTYPES[q.dtype])
+                      _DTYPES[q.dtype], 0, None, None, None, 0.0, 0)
+    return out if q.dim() == 3 else out.reshape(e)
+
+
+def _sddmm_edge_fwd(src, dst, q, k, scale, index, edge, att, negative_slope):
+    """K10's addend and gatv2 modes over ``index``: its walk for rows of
+    _SDDMM_WALK_ROW_BYTES and more (a lane map's shapes), else a thread per
+    (destination, head), which reads each slot's row from the index's
+    composed ``gathered`` when ``src`` is its gather (:func:`gather_mode`)."""
+    e = src.shape[0]
+    heads = q.shape[1] if q.dim() == 3 else 1
+    c = math.prod(q.shape[1:])
+    index = _index(dst, q.shape[0], index, e, src)
+    qf = q.contiguous().reshape(q.shape[0], c)
+    kf = k.contiguous().reshape(k.shape[0], c)
+    ea = None if edge is None else edge.contiguous().reshape(e, c)
+    at = None if att is None else att.detach().float().contiguous().reshape(c)
+    composed = gather_mode(src, index) == "composed"
+    gathered = index.gathered if composed else None
+    s32 = src.to(torch.int32).contiguous()
+    sc = None if scale is None else scale.detach().float().contiguous()
+    device = _build.require_cuda("sddmm", *(
+        t for t in (qf, kf, s32, index.order, index.ptr, gathered, sc, ea, at)
+        if t is not None))
+    if qf.dtype not in _DTYPES or kf.dtype != qf.dtype or (
+            ea is not None and ea.dtype != qf.dtype):
+        raise ValueError("sddmm: q, k and the edge rows must share one "
+                         "dtype, fp32 or bf16")
+    out = torch.empty((e, heads), dtype=q.dtype, device=device)
+    dk_bytes = (c // heads) * qf.element_size()
+    vec = int(dk_bytes % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (qf, kf, ea) if t is not None))
+    if e:
+        _build.launch("sddmm", "gigl_sddmm", device, qf.data_ptr(),
+                      kf.data_ptr(), _build.ptr(s32), None,
+                      index.order.data_ptr(), index.ptr.data_ptr(),
+                      _build.ptr(sc), out.data_ptr(), e, q.shape[0], c, heads,
+                      _DTYPES[q.dtype], 1 if att is None else 2,
+                      _build.ptr(gathered), _build.ptr(ea), _build.ptr(at),
+                      float(negative_slope), vec)
+        _build.launches["sddmm_addend" if att is None else "sddmm_gatv2"] += 1
     return out if q.dim() == 3 else out.reshape(e)
 
 

@@ -16,9 +16,11 @@ once; a step does no host synchronisation. Split masks come from the hash
 split of ``graph/splitters.py``, bit-equal to the reference's.
 
 Edge features (``FullBatchData.edge_attr`` [E, De] in COO edge order, set
-by the caller as in the reference) feed the ELL path: the edge convs read
-them through the ELL tables' edge slots (K6 / K7) and train them through
-K11. The COO path raises with them (ROADMAP slice 10, COO per-edge terms).
+by the caller as in the reference) feed both paths: the edge convs read
+them through the ELL tables' edge slots (K6 / K7), or over the COO graph
+relabelled in its destination walk order (``encode_coo``; the trainer
+builds that walk once, on the host, beside the indexes), and train them
+through K11.
 """
 
 from __future__ import annotations
@@ -37,8 +39,8 @@ from gigl_tpu_torch.graph.splitters import HashedNodeAnchorLinkSplitter
 from gigl_tpu_torch.losses.losses import cross_entropy_loss
 from gigl_tpu_torch.losses.metrics import accuracy
 from gigl_tpu_torch.models.init import init_params
-from gigl_tpu_torch.ops.ell import COO_EDGE_FEATURES_NOT_PORTED, EllGraph
-from gigl_tpu_torch.ops.segment import SegmentIndex
+from gigl_tpu_torch.ops.ell import EllGraph
+from gigl_tpu_torch.ops.segment import SegmentIndex, coo_walk
 from gigl_tpu_torch.training.early_stop import EarlyStopper
 from gigl_tpu_torch.training.trainer import (
     TrainState,
@@ -148,9 +150,11 @@ class FullBatchTrainer:
         if data.device != self.device:
             raise ValueError(f"data lives on {data.device}, trainer asked "
                              f"for {self.device}")
-        if data.edge_attr is not None and data.ell is None:
-            raise NotImplementedError(COO_EDGE_FEATURES_NOT_PORTED)
         self.encoder = encoder.to(self.device)
+        if (data.edge_attr is not None and data.ell is None
+                and data.index is not None
+                and getattr(encoder, "reads_edges", lambda: False)()):
+            coo_walk(data.index, data.src)   # built once, kept on the index
         self.data = data
         self.cfg = config or FullBatchTrainerConfig()
         self.optimizer_args = dict(optimizer_args or {})
@@ -180,8 +184,9 @@ class FullBatchTrainer:
             return self.encoder.encode_ell(d.x, d.ell, d.edge_attr,
                                            train=train, generator=generator)
         return self.encoder.encode_coo(d.x, d.src, d.dst, d.num_nodes,
-                                       train=train, generator=generator,
-                                       index=d.index, src_index=d.src_index)
+                                       d.edge_attr, train=train,
+                                       generator=generator, index=d.index,
+                                       src_index=d.src_index)
 
     def loss(self, generator: Optional[torch.Generator] = None
              ) -> torch.Tensor:

@@ -326,9 +326,24 @@ def test_link_prediction_encode_coo_and_what_raises():
                              src_index=sidx)
         b = enc.encode_coo(torch.from_numpy(x), ts, td, N)
     assert torch.equal(a, b) and a.shape == (N, C)
-    v2 = GNNEncoder(DIN, HID, C, conv="gatv2", conv_kwargs={"heads": 2})
-    with pytest.raises(NotImplementedError, match="A9, GATv2 coo"):
-        v2.encode_coo(torch.from_numpy(x), ts, td, N)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        enc.encode_coo(torch.from_numpy(x), ts, td, N,
-                       edge_attr=torch.zeros(len(src), 2))
+    # GATv2's coo form and a GAT given edge rows it does not read, against
+    # the reference's encode_coo (tests/test_torch_coo_edges.py has the
+    # edge convs)
+    ea = np.random.default_rng(1).normal(size=(len(src), 2)).astype(
+        np.float32)
+    args = (jnp.asarray(src, jnp.int32), jnp.asarray(dst, jnp.int32), N)
+    for conv, edges in (("gatv2", None), ("gat", ea)):
+        ref = RefGNNEncoder(hid_dim=HID, out_dim=C, conv=conv,
+                            conv_kwargs={"heads": 2})
+        jea = None if edges is None else jnp.asarray(edges)
+        params = ref.init(jax.random.PRNGKey(4), jnp.asarray(x), *args, jea,
+                          method="encode_coo")
+        want = ref.apply(params, jnp.asarray(x), *args, jea,
+                         method="encode_coo")
+        mine = GNNEncoder(DIN, HID, C, conv=conv, conv_kwargs={"heads": 2})
+        mine.load_state_dict(params_from_flax(_np(params)))
+        with torch.no_grad():
+            got = mine.encode_coo(torch.from_numpy(x), ts, td, N,
+                                  None if edges is None
+                                  else torch.from_numpy(edges))
+        _close(got, want, 1e-5)

@@ -111,7 +111,17 @@ C under and not a multiple of a 16-byte word, C past a warp's 1,024
 columns, Q not a multiple of a block's rows, every mask on and off, terms
 off a 16-byte boundary (the scalar form); three repeat calls give the
 same bits and leave the ticket counter at 0, and a CUDA graph of forward
-and backward replays the eager calls' bits.
+and backward replays the eager calls' bits. The COO per-edge terms: K8's
+add and gine modes and GATv2 destination walk, K8b's gine gate and GATv2
+source walk, K10's key addend and GATv2 scores, K11's COO form (gine,
+gat with and without its logit term, transformer) against their twins
+(heads 4 x 64, 1 x 128, 4 x 3, 2 x 8 and 4 x 32 off a 16-byte boundary,
+3 x 5: K10's modes in its walk and in its thread-per-head form;
+empty segments, 1,000-edge hubs on both sides; the edges in their own and
+in walk order; fp32 and bf16), bit-equal on a repeat run and between the
+composed and chained modes; each new autograd.Function and encode_coo
+with edge features (GINE, EdgeAttrGAT, Transformer, and GATv2) on the
+card against the CPU within 1e-4 of the scale.
 """
 
 import dataclasses
@@ -136,6 +146,7 @@ from gigl_tpu_torch.models.link_prediction import (
     LinkPredictionGNN,
 )
 from gigl_tpu_torch.ops import _build
+from gigl_tpu_torch.ops import coo_edges
 from gigl_tpu_torch.ops import ell as edge_ops
 from gigl_tpu_torch.ops import segment as segment_ops
 from gigl_tpu_torch.ops.attention import (
@@ -3761,3 +3772,329 @@ def test_ell_transpose_over_t_row_matches_plain(dev, dtype, op, d, heads):
     assert got.dtype == dtype and got.shape == (n, d)
     assert not got[ell.rank[:3].long()].any()
     _within(got, want, dtype)
+
+
+# -- the COO per-edge terms ---------------------------------------------------------
+def _coo_edge_graph(dev, walk, n=3000, e=20000, hub_deg=1000, seed=7):
+    """COO edges on the card over ``n`` nodes: 100 destinations and 100
+    sources without edges, a destination hub (5) and a source hub (9) of
+    ``hub_deg`` edges each, shuffled; the destination and source indexes
+    built with each other's ids, or (``walk``) the graph relabelled in its
+    destination walk order (``coo_walk``)."""
+    rng = np.random.default_rng(seed)
+    src = np.concatenate([rng.integers(0, n - 100, e), rng.integers(0, n, hub_deg),
+                          np.full(hub_deg, 9)])
+    dst = np.concatenate([rng.integers(100, n, e), np.full(hub_deg, 5),
+                          rng.integers(100, n, hub_deg)])
+    perm = rng.permutation(len(src))
+    src, dst = (torch.as_tensor(a[perm].astype(np.int32), device=dev)
+                for a in (src, dst))
+    index = SegmentIndex.from_ids(dst, n, gather=src)
+    src_index = SegmentIndex.from_ids(src, n, gather=dst)
+    if walk:
+        w = segment_ops.coo_walk(index, src)
+        return w.src, w.dst, w.index, w.src_index
+    return src, dst, index, src_index
+
+
+def _off16(t):
+    """A copy of ``t`` whose data starts 4 bytes past a 16-byte boundary
+    (the kernels' one-value pieces)."""
+    flat = torch.empty(t.numel() + 16 // t.element_size(), dtype=t.dtype,
+                       device=t.device)
+    skip = (16 - flat.data_ptr() % 16) % 16 // t.element_size() \
+        + 4 // t.element_size()
+    out = flat[skip: skip + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+COO_EDGE_CASES = [  # (heads, head dim, 4 bytes off 16)
+    (4, 64, False), (1, 128, False), (4, 3, False), (2, 8, True),
+    (3, 5, False), (4, 32, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,dh,off", COO_EDGE_CASES)
+@pytest.mark.parametrize("walk", [False, True])
+def test_coo_edge_modes_match_plain(dev, dtype, heads, dh, off, walk):
+    """K8 add (weighted per head) and gine, K10 with the key addend and
+    GATv2's scores, K8b's gine gate and GATv2 source walk, K8's GATv2
+    destination walk (d hd and d att), K11's COO form in its three modes:
+    each against its plain twin on the card, empty segments and 1,000-edge
+    hubs on both sides, the edges in their own order or in walk order;
+    fp32 within 1e-5 of the scale, bf16 within 2e-2; K11 gine and every
+    output on a repeat run bit-equal."""
+    src, dst, index, src_index = _coo_edge_graph(dev, walk)
+    n, e, c = index.num_segments, index.num_edges, heads * dh
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def rand(*shape, scale=1.0):
+        t = (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+        return _off16(t) if off else t
+
+    x, hd, gout = rand(n, c), rand(n, c), rand(n, c)
+    ea = rand(e, c)
+    w = torch.rand((e, heads), generator=g, device=dev)
+    gl = torch.randn((e, heads), generator=g, device=dev)
+    att = torch.randn((heads, dh), generator=g, device=dev)
+    scale = torch.rand(heads, generator=g, device=dev) + 0.5
+    x3, hd3, ea3 = (t.view(-1, heads, dh) for t in (x, hd, ea))
+    _build.reset_launches()
+    calls = {
+        "k8_add": (lambda: segment_ops._segment_reduce_fwd(
+            x3, dst, n, "sum", src, w, index, ea3, "add"),
+            lambda: _segment_reduce_plain(x3, dst, n, "sum", src, w, ea3,
+                                          "add")),
+        "k8_gine": (lambda: segment_ops._segment_reduce_fwd(
+            x, dst, n, "sum", src, None, index, ea, "gine"),
+            lambda: _segment_reduce_plain(x, dst, n, "sum", src, None, ea,
+                                          "gine")),
+        "k10_addend": (lambda: segment_ops._sddmm_fwd(
+            src, dst, hd3, x3, scale, index, edge=ea3),
+            lambda: _sddmm_plain(src, dst, hd3, x3, scale, edge=ea3)),
+        "k10_gatv2": (lambda: segment_ops._sddmm_fwd(
+            src, dst, hd3, x3, index=index, att=att, negative_slope=0.2),
+            lambda: _sddmm_plain(src, dst, hd3, x3, att=att)),
+        "k8b_gine": (lambda: segment_ops.gine_bwd(
+            gout, src, dst, x, ea, src_index=src_index),
+            lambda: segment_ops._edge_bwd_plain(
+                gout, dst, n, "gine", src, None, x, ea, None, 0.2)),
+        "k8b_gatv2": (lambda: segment_ops.gatv2_src_bwd(
+            gl, src, dst, x3, hd3, att, src_index=src_index),
+            lambda: segment_ops._edge_bwd_plain(
+                hd, dst, n, "gatv2", src, gl, x, None, att, 0.2)),
+        "k8_gatv2": (lambda: segment_ops.gatv2_dst_bwd(
+            gl, src, dst, x3, hd3, att, index=index),
+            lambda: segment_ops._gatv2_dst_plain(gl, src, dst, x3, hd3, att,
+                                                 0.2)),
+        "k11_gine": (lambda: edge_ops.coo_edge_grad(
+            gout, src, dst, index, "gine", x=x, ea=ea),
+            lambda: edge_ops._coo_edge_grad_plain(gout, src, dst, "gine",
+                                                  x=x, ea=ea)),
+        "k11_gat": (lambda: edge_ops.coo_edge_grad(
+            gout, src, dst, index, "gat", alpha=w, coef=gl,
+            vec=att.reshape(-1), heads=heads),
+            lambda: edge_ops._coo_edge_grad_plain(
+                gout, src, dst, "gat", alpha=w, coef=gl, vec=att.reshape(-1),
+                heads=heads)),
+        "k11_gat_values": (lambda: edge_ops.coo_edge_grad(
+            gout, src, dst, index, "gat", alpha=w, heads=heads),
+            lambda: edge_ops._coo_edge_grad_plain(
+                gout, src, dst, "gat", alpha=w, heads=heads)),
+        "k11_transformer": (lambda: edge_ops.coo_edge_grad(
+            gout, src, dst, index, "transformer", alpha=w, coef=gl, xd=hd,
+            heads=heads),
+            lambda: edge_ops._coo_edge_grad_plain(
+                gout, src, dst, "transformer", alpha=w, coef=gl, xd=hd,
+                heads=heads)),
+    }
+    for name, (kernel, plain) in calls.items():
+        got, want = kernel(), plain()
+        again = kernel()
+        got, want, again = (t if isinstance(t, tuple) else (t,)
+                            for t in (got, want, again))
+        for a, b, r in zip(got, want, again):
+            assert a.shape == b.reshape(a.shape).shape, name
+            assert torch.equal(a, r), name          # no atomics: same bits
+            if name == "k11_gine":
+                assert torch.equal(a, b), name       # a gated copy
+            elif a.dtype == torch.float32 and b.dtype != dtype:
+                _within(a, b, torch.float32)         # d att: fp32 sums
+            else:
+                _within(a, b.reshape(a.shape), dtype)
+    for mode in ("segment_reduce_add", "segment_reduce_gine",
+                 "segment_reduce_gatv2", "segment_reduce_bwd_gine",
+                 "segment_reduce_bwd_gatv2", "sddmm_addend", "sddmm_gatv2",
+                 "ell_edge_grad_coo"):
+        assert _build.launches[mode] > 0, mode
+    assert _build.launches["segment_reduce_bwd_composed"] > 0
+
+
+def test_coo_edge_modes_take_the_chained_ids(dev):
+    """The edge modes given ids other than their indexes' own tensors (a
+    copy) read them through the order (the chained modes), with the same
+    results as the composed modes, bit for bit."""
+    src, dst, index, src_index = _coo_edge_graph(dev, False)
+    n, e, c = index.num_segments, index.num_edges, 64
+    g = torch.Generator(device=dev).manual_seed(12)
+    x, hd, gout = (torch.randn((n, c), generator=g, device=dev)
+                   for _ in range(3))
+    ea = torch.randn((e, c), generator=g, device=dev)
+    gl = torch.randn((e, 4), generator=g, device=dev)
+    att = torch.randn((4, 16), generator=g, device=dev)
+    for s_, d_ in ((src, dst), (src.clone(), dst.clone())):
+        assert (segment_ops.gather_mode(s_, index) == "composed") == (
+            s_ is src)
+    outs = []
+    for s_, d_ in ((src, dst), (src.clone(), dst.clone())):
+        outs.append((
+            segment_ops._segment_reduce_fwd(x, d_, n, "sum", s_, None, index,
+                                            ea, "gine"),
+            segment_ops.gine_bwd(gout, s_, d_, x, ea, src_index=src_index),
+            segment_ops._sddmm_fwd(s_, d_, hd.view(n, 4, 16),
+                                   x.view(n, 4, 16), index=index, att=att),
+            segment_ops.gatv2_dst_bwd(gl, s_, d_, x.view(n, 4, 16),
+                                      hd.view(n, 4, 16), att, index=index),
+            edge_ops.coo_edge_grad(gout, s_, d_, index, "gine", x=x, ea=ea)))
+    for a, b in zip(*outs):
+        for u, v in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(u, v)
+
+
+def _edge_fn_inputs(dev, device, dtype=torch.float32, seed=13):
+    """The same COO graph (walk order) and inputs on ``dev`` or the CPU."""
+    src, dst, index, src_index = _coo_edge_graph(dev, True, n=1500, e=12000,
+                                                 hub_deg=1000, seed=seed)
+    n, e = index.num_segments, index.num_edges
+    g = torch.Generator().manual_seed(seed)
+    h, dh = 4, 16
+    t = {k: torch.randn(shape, generator=g).to(dtype) for k, shape in (
+        ("hs", (n, h, dh)), ("hd", (n, h, dh)), ("v", (n, h, dh)),
+        ("he", (e, h * dh)), ("pre", (e, h)))}
+    t["att"] = torch.randn((h, dh), generator=g)
+    t["w"] = torch.rand((e, h), generator=g)
+    if device.type == "cpu":
+        src, dst = src.cpu(), dst.cpu()
+        index = SegmentIndex.from_ids(dst, n, gather=src)
+        src_index = SegmentIndex.from_ids(src, n, gather=dst)
+    return src, dst, index, src_index, {
+        k: v.to(device).requires_grad_() for k, v in t.items()}
+
+
+@pytest.mark.parametrize("fn", ["add", "gine", "gatv2", "gat_edges",
+                                "transformer_edges"])
+def test_coo_edge_functions_gradients_on_card_match_cpu(dev, fn):
+    """Each new autograd.Function (ROADMAP C3's lesson): coo_spmm with edge
+    rows (add with per-head weights, gine), gatv2_scores, coo_gat_edges
+    and coo_transformer_edges on the card against the CPU's twins, the
+    output and the gradient of every input (the edge table's included),
+    fp32 within 1e-4 of the scale (softmax and sums in another order)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    for device in (dev, torch.device("cpu")):
+        src, dst, idx, sidx, t = _edge_fn_inputs(dev, device)
+        n = idx.num_segments
+        if fn == "add":
+            used = ("v", "w", "he")
+            out = segment_ops.coo_spmm(
+                src, dst, t["v"], n, edge_weight=t["w"], index=idx,
+                src_index=sidx, edge_rows=t["he"], edge_mode="add")
+        elif fn == "gine":
+            used = ("v", "he")
+            out = segment_ops.coo_spmm(
+                src, dst, t["v"], n, index=idx, src_index=sidx,
+                edge_rows=t["he"], edge_mode="gine")
+        elif fn == "gatv2":
+            used = ("hs", "hd", "att")
+            out = coo_edges.gatv2_scores(src, dst, t["hs"], t["hd"],
+                                         t["att"], index=idx, src_index=sidx)
+        elif fn == "gat_edges":
+            used = ("hs", "he", "pre", "att")
+            out = coo_edges.coo_gat_edges(src, dst, n, t["hs"], t["he"],
+                                          t["pre"], t["att"], index=idx,
+                                          src_index=sidx)
+        else:
+            used = ("hd", "hs", "v", "he")
+            scale = torch.full((4,), 0.25, device=device)
+            out = coo_edges.coo_transformer_edges(
+                src, dst, t["hd"], t["hs"], t["v"], t["he"], scale,
+                index=idx, src_index=sidx)
+        cot = torch.linspace(-1, 1, out.numel()).reshape(out.shape)
+        out.backward(cot.to(device))
+        res[device.type] = [out.detach().cpu()] + [t[k].grad.cpu()
+                                                   for k in used]
+    for a, b in zip(res["cuda"], res["cpu"]):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("conv", ["gine", "edge_attr_gat", "transformer",
+                                  "gatv2"])
+def test_encode_coo_with_edges_gradients_on_card_match_cpu(dev, conv):
+    """encode_coo with edge features on the card (the walk-ordered graph,
+    K8's edge modes, K10's addend or GATv2 scores, their backward): the
+    output and every parameter's, the node rows' and the raw edge rows'
+    gradients of the CPU's computation (fp32, within 1e-4 of the scale),
+    with the new modes launched."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    src, dst, x, _ = _small_graph()
+    ea = np.random.default_rng(3).normal(size=(len(src), 8)).astype(
+        np.float32)
+    kw = ({} if conv == "gine" else {"heads": 4}) | (
+        {"use_edge_attr": True} if conv == "transformer" else {})
+    modes = {"gine": ("segment_reduce_gine", "segment_reduce_bwd_gine",
+                      "ell_edge_grad_coo"),
+             "edge_attr_gat": ("segment_reduce_add", "sddmm_addend",
+                               "ell_edge_grad_coo"),
+             "transformer": ("segment_reduce_add", "sddmm_addend",
+                             "ell_edge_grad_coo", "sddmm_bwd"),
+             "gatv2": ("sddmm_gatv2", "segment_reduce_gatv2",
+                       "segment_reduce_bwd_gatv2")}[conv]
+    din = 32 if conv == "gine" else 16
+    xs = np.concatenate([x, x], 1) if conv == "gine" else x
+    res = {}
+    for device in (dev, torch.device("cpu")):
+        enc = GNNEncoder(din, 32, 8, conv=conv, conv_kwargs=kw, edge_dim=8)
+        init_params(enc, 3)
+        enc = enc.to(device)
+        ts, td = (torch.as_tensor(a.astype(np.int32), device=device)
+                  for a in (src, dst))
+        tx = torch.as_tensor(xs, device=device).requires_grad_()
+        tea = torch.as_tensor(ea, device=device).requires_grad_()
+        _build.reset_launches()
+        out = enc.encode_coo(tx, ts, td, N, None if conv == "gatv2" else tea)
+        (out * torch.linspace(-1, 1, out.numel(), device=device)
+         .reshape(out.shape)).sum().backward()
+        if device.type == "cuda":
+            for k in modes:
+                assert _build.launches[k] > 0, (conv, k)
+        res[device.type] = {"out": out.detach().cpu(), "x": tx.grad.cpu(),
+                            **{n: p.grad.cpu()
+                               for n, p in enc.named_parameters()
+                               if p.grad is not None}}
+        if conv != "gatv2":
+            res[device.type]["ea"] = tea.grad.cpu()
+    floor = 1e-2 * max(float(v.abs().max()) for v in res["cpu"].values())
+    assert set(res["cuda"]) == set(res["cpu"])
+    for k, v in res["cpu"].items():
+        err = float((res["cuda"][k] - v).abs().max())
+        assert err <= 1e-4 * max(float(v.abs().max()), floor), (conv, k)
+
+
+@pytest.mark.parametrize("conv", ["gine", "edge_attr_gat", "transformer",
+                                  "gatv2"])
+def test_encode_coo_with_edges_bf16_on_card_matches_cpu(dev, conv):
+    """The same encoders in bf16 (every kernel mode in its bf16 form, the
+    edge rows rounded to bf16 after the fp32 permute): the embeddings on
+    the card against the CPU's within 2e-2 of their scale (one rounding
+    against another), and a finite node-row gradient through the bf16
+    backward kernels (its size is not compared: a relu gate within a bf16
+    ulp of 0 may fall on either side in the two runs and move a whole
+    term)."""
+    src, dst, x, _ = _small_graph()
+    ea = np.random.default_rng(4).normal(size=(len(src), 8)).astype(
+        np.float32)
+    kw = ({} if conv == "gine" else {"heads": 4}) | (
+        {"use_edge_attr": True} if conv == "transformer" else {})
+    din = 32 if conv == "gine" else 16
+    xs = np.concatenate([x, x], 1) if conv == "gine" else x
+    res = {}
+    for device in (dev, torch.device("cpu")):
+        enc = GNNEncoder(din, 32, 8, conv=conv, conv_kwargs=kw, edge_dim=8,
+                         dtype=torch.bfloat16)
+        init_params(enc, 5)
+        enc = enc.to(device)
+        ts, td = (torch.as_tensor(a.astype(np.int32), device=device)
+                  for a in (src, dst))
+        tx = torch.as_tensor(xs, device=device).requires_grad_()
+        out = enc.encode_coo(tx, ts, td, N, None if conv == "gatv2"
+                             else torch.as_tensor(ea, device=device))
+        assert out.dtype == torch.bfloat16
+        out.float().square().sum().backward()
+        assert bool(torch.isfinite(tx.grad).all()) and bool(tx.grad.any())
+        res[device.type] = out.detach().float().cpu()
+    a, b = res["cuda"], res["cpu"]
+    assert float((a - b).abs().max()) <= 2e-2 * float(b.abs().max())

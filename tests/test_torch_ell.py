@@ -399,11 +399,12 @@ def test_run_full_graph_inference_guards():
 
 
 def test_edge_features_raise():
-    """Edge features run on the ELL path (tests/test_torch_edge_features.py);
-    the convs without edge features ignore them, as the reference's blocks
-    do. What still raises: a table of the wrong length, an edge conv built
-    without ``edge_dim`` given edge rows, GATv2 with edge rows on the ELL
-    path (ROADMAP A9, edges) and edge features on the COO path (slice 10)."""
+    """Edge features run on the ELL path (tests/test_torch_edge_features.py)
+    and the COO path (tests/test_torch_coo_edges.py); the convs without
+    edge features ignore them on both, as the reference's do. What still
+    raises: a table of the wrong length, an edge conv built without
+    ``edge_dim`` given edge rows, and GATv2 with edge rows on the ELL path
+    (ROADMAP A9, edges)."""
     src, dst, x = _graph()
     tell = ell.EllGraph.from_csr(build_csr(src, dst, num_anchor_nodes=N),
                                  device="cpu")
@@ -425,8 +426,11 @@ def test_edge_features_raise():
     with pytest.raises(NotImplementedError, match="A9, edges"):
         v2.encode_ell(torch.from_numpy(x), tell, ea)
     ts, td = (torch.as_tensor(a.astype(np.int32)) for a in (src, dst))
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        enc.encode_coo(torch.from_numpy(x), ts, td, N, ea)
+    with torch.inference_mode():   # the COO path ignores them as ELL does
+        got = enc.encode_coo(torch.from_numpy(x), ts, td, N, ea)
+        want = enc.encode_ell(torch.from_numpy(x), tell).numpy()
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
 
 
 def _ref_layer_agg(jell, op):

@@ -268,20 +268,30 @@ def test_fit_with_dropout_trains():
 
 def test_what_is_not_ported_raises():
     """Without the ELL tables the trainer runs the COO path
-    (tests/test_torch_coo.py); edge features there (slice 10) and GATv2's
-    coo form are not ported. ELL data with edge features trains
-    (tests/test_torch_edge_features.py)."""
-    _, pg = _graphs()
+    (tests/test_torch_coo.py, tests/test_torch_coo_edges.py): GATv2's coo
+    form matches the reference's logits, and edge features reach the COO
+    path (a GraphSAGE encoder ignores them, as the reference's does). ELL
+    data with edge features trains (tests/test_torch_edge_features.py)."""
+    jg, pg = _graphs()
     data = fb.full_batch_data_from_graph(pg, build_ell=False, device="cpu")
     assert data.ell is None and data.index is not None
-    t = fb.FullBatchTrainer(GNNEncoder(DIN, HID, C, conv="gatv2"), data,
+    jdata = ref_fb.full_batch_data_from_graph(jg, build_ell=False)
+    jenc = RefGNNEncoder(hid_dim=HID, out_dim=C, num_layers=2, conv="gatv2",
+                         conv_kwargs={"heads": HEADS})
+    jt = ref_fb.FullBatchTrainer(jenc, jdata)
+    js = jt.init_state(jax.random.PRNGKey(0))
+    t = fb.FullBatchTrainer(GNNEncoder(DIN, HID, C, conv="gatv2",
+                                       conv_kwargs={"heads": HEADS}), data,
                             device="cpu")
-    t.init_state(0)
-    with pytest.raises(NotImplementedError, match="A9, GATv2 coo"):
-        t.logits()
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        fb.FullBatchTrainer(GNNEncoder(DIN, HID, C), dataclasses.replace(
-            data, edge_attr=torch.zeros(1)), device="cpu")
+    t.init_state(params=params_from_flax(_np(js.params)))
+    want = np.asarray(jt._forward(jdata, js.params, False))
+    np.testing.assert_allclose(t.logits().detach().numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    sage = fb.FullBatchTrainer(GNNEncoder(DIN, HID, C), data, device="cpu")
+    sage.init_state(0)
+    with_edges = fb.FullBatchTrainer(sage.encoder, dataclasses.replace(
+        data, edge_attr=torch.zeros(data.src.shape[0], 3)), device="cpu")
+    assert torch.equal(with_edges.logits(), sage.logits())
     ell_data = fb.full_batch_data_from_graph(pg, device="cpu")
     ea = torch.from_numpy(np.random.default_rng(0).normal(
         size=(ell_data.src.shape[0], 3)).astype(np.float32))
