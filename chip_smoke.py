@@ -251,7 +251,34 @@
    5 profiled, and encode_coo against encode_ell with the trained weights
    (1e-4 of the scale); prints ms/step, edges/s, device ms, busy share, top
    ops and peak memory;
-18. prints the SegmentIndex host builds counted inside every timed window
+18. the partitioned tier's int8 rows, tabularized layout and
+   node-classification trainer on the flagship graph over make_mesh(4)
+   (capacity factor 4): times PartitionedGraph.build with fp32 [25k, 129]
+   and bit-packed int8 [25k, 136] rows and with_tabularized over each
+   (the cache fused in: [25k, 257] fp32, [25k, 268] int8; the frozen
+   [25k, 15] tables) and prints the bytes a shard; holds the sharded
+   tables bit-equal to the replicated builder's and the caches to its K2
+   cache (fp32 within 1e-5 of the scale; int8, against K2's int8 mode over
+   the same int8 features, within half a quantization step); one cached NALP step (fp32 and int8 rows) and one NC step (live
+   over fp32 rows, cached over int8 rows) against the same steps through
+   the plain versions, the int8 step's union gather decoded by K16's int8
+   mode once a shard and no int8 row routed through K16's copy form; K16's
+   int8 mode at that step's union lookup and at the live step's [4,
+   63,744] union shape, and K12's packed-row mode over the P = 1 layout,
+   bit-equal to their twins, with bounds, K16's 4-byte form over the same
+   bytes and K3 over the same packed rows, and K3's byte mode over 21-byte
+   rows (yardstick index_select); then the cached NALP paths (bf16, the
+   sketch on; fp32 and int8 rows) and the NC paths (GraphSAGE hidden 256,
+   16 classes, bf16; live over fp32, cached over int8 rows), 3 + 20 steps
+   and 5 profiled each, with the launch counts reset just before the
+   trainer (its tables) is built and read just after (launches a step
+   counted past the build; one K16 int8 decode a shard a step checked),
+   zero overflow, refresh_cache ms; run_partitioned_inference through the
+   cached NC trainer over every node (batch 0 against the plain versions);
+   and the one-shard int8 cached path (one K12 packed-row gather a step, no
+   routing); prints ms/step, device ms, busy share, launches and
+   all_to_all bytes a step, edges/s or seeds/s, nodes/s;
+19. prints the SegmentIndex host builds counted inside every timed window
    of a path (SegmentIndex.from_ids wrapped from the build on; each must
    read 0: a segment op on the card given no index builds one on the
    host), K8's gathering launches there by mode (none may be chained:
@@ -819,6 +846,10 @@ def plain_kernels():
         (feature_lookup, "route_requests",
          feature_lookup._route_requests_plain),
         (feature_lookup, "unroute_rows", feature_lookup._unroute_plain),
+        (feature_lookup, "unroute_rows_q8", feature_lookup._unroute_q8_plain),
+        (feature_lookup, "gather_packed_rows_q8",
+         quantized._gather_packed_rows_q8_plain),
+        (dist_sampled, "expand_table", gather._expand_table_plain),
         (feature_lookup, "sample_uniform",
          neighbor_sampler._sample_uniform_plain),
         (feature_lookup, "sample_weighted",
@@ -4910,6 +4941,436 @@ def coo_edge_phases(dev, card, graph, ea_np, fell, record, add_mode,
     return counts, modes
 
 
+def partitioned_tabularized_phases(dev, card, dg, record, add_mode, unique,
+                                   make_model, opt_args):
+    """Phase 18 (see the module docstring): the partitioned tier's int8
+    rows, tabularized layout and node-classification trainer over
+    PART_SHARDS shards on the card. Returns {path: (launch counts, steps
+    or passes)}; K16's int8 mode, K12's packed-row mode and K3's byte mode
+    land on their kernels' rows as modes."""
+    from gigl_tpu_torch.inference.inferencer import (
+        InferenceConfig, run_partitioned_inference)
+    from gigl_tpu_torch.models.encoders import GNNEncoder
+    from gigl_tpu_torch.models.link_prediction import (
+        LinkPredictionDecoder, LinkPredictionGNN)
+    from gigl_tpu_torch.ops import _build
+    from gigl_tpu_torch.ops import quantized as q8
+    from gigl_tpu_torch.ops.gather import _gather_rows_plain, gather_rows
+    from gigl_tpu_torch.parallel import feature_lookup as fl
+    from gigl_tpu_torch.parallel.mesh import make_mesh
+    from gigl_tpu_torch.training.dist_sampled import (
+        PartitionedGraph, PartitionedNALPTrainer,
+        PartitionedNodeClassificationTrainer)
+    from gigl_tpu_torch.training.trainer import (
+        NALPTrainerConfig, NodeClassificationTrainerConfig)
+
+    k1, k2 = FANOUTS
+    shards = PART_SHARDS
+    counts = {}
+    mesh = make_mesh(shards)
+    graphs, build_s = {}, {}
+    for kind, quantize in (("fp32", False), ("int8", True)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graphs[kind] = PartitionedGraph.build(dg, mesh,
+                                              quantize_features=quantize)
+        torch.cuda.synchronize()
+        build_s[kind] = time.perf_counter() - t0
+    tabs, tab_s = {}, {}
+    for kind, pg in graphs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tabs[kind] = pg.with_tabularized(mesh, fanouts=FANOUTS, agg="mean",
+                                         capacity_factor=PART_CAPACITY)
+        torch.cuda.synchronize()
+        tab_s[kind] = time.perf_counter() - t0
+    emit({"phase": "partitioned_q8_graph", "shards": shards,
+          "rows_per_shard": graphs["fp32"].rows_per_shard,
+          "build_s": build_s, "with_tabularized_s": tab_s,
+          "row_bytes": {k_: g_.feat_deg[0].shape[1]
+                        * g_.feat_deg[0].element_size()
+                        for k_, g_ in graphs.items()},
+          "feat_deg_bytes_per_shard": {k_: g_.feat_deg[0].nbytes
+                                       for k_, g_ in graphs.items()},
+          "tabularized_bytes_per_shard": {
+              k_: t_.feat_deg[0].nbytes + sum(x_[0].nbytes for x_ in
+                                              t_.sample_tables)
+              for k_, t_ in tabs.items()},
+          "labels_bytes_per_shard": graphs["fp32"].labels[0].nbytes,
+          "card": card})
+
+    # -- the sharded tables on the card against the replicated builder's
+    # (bit-equal), the fp32 cache against its K2 cache (K4's sums and K2's
+    # in another order: 1e-5 of the scale), the int8 cache's dequantized
+    # values within one step of their row's scale
+    rep = dg.with_neighbor_cache(fanout=k2, seed=0, hop_key=len(FANOUTS),
+                                 agg="mean", table_fanouts=(k1,))
+    for kind, t_ in tabs.items():
+        check(t_.table_fanouts == (k1,) and torch.equal(
+            torch.cat(t_.sample_tables[0])[:N], rep.sample_tables[k1]),
+              f"the {kind} sharded sample tables differ from the "
+              "replicated builder's")
+    c32 = torch.cat(tabs["fp32"].feat_deg)[:N, D + 1:]
+    scale32 = float(rep.nbr_cache.abs().max())
+    err32 = float((c32 - rep.nbr_cache).abs().max())
+    check(err32 <= 1e-5 * scale32, f"the sharded fp32 cache differs from "
+          f"the replicated K2 cache: {err32} (scale {scale32})")
+    # the int8 graph's cache aggregates the dequantized features: held to
+    # K2's int8 mode over the same int8 features (QuantizedTable's host
+    # recipe is the partitioned build's)
+    qtab = q8.QuantizedTable.quantize(dg.node_features, device=dev)
+    rep8 = dataclasses.replace(dg, node_features=qtab).with_neighbor_cache(
+        fanout=k2, seed=0, hop_key=len(FANOUTS), agg="mean")
+    f8, _, c8 = q8.decode_packed_rows(torch.cat(tabs["int8"].feat_deg)[:N],
+                                      D, D)
+    check(torch.equal(f8, qtab.q.float() * qtab.scale),
+          "the int8 rows' features are not the quantized table's")
+    step8 = c8.abs().amax(1, keepdim=True) / 127.0
+    err8 = float(((c8 - rep8.nbr_cache).abs() / step8.clamp(min=1e-30))
+                 .max())
+    check(err8 <= 0.5 + 1e-3, f"the int8 cache is {err8} quantization "
+          "steps from K2's cache of the same int8 features")
+    emit({"phase": "partitioned_tabularized_checks", "tables_bit_equal":
+          True, "fp32_cache_max_abs_err": err32, "fp32_cache_scale": scale32,
+          "int8_cache_max_err_in_quantization_steps": err8})
+    del rep, rep8, qtab, c32, f8, c8, step8
+
+    base = dict(fanouts=FANOUTS, num_random_negs=R, loss_type="retrieval",
+                num_positives=1, cached_hop=True)
+
+    def fp32_model():
+        return LinkPredictionGNN(GNNEncoder(D, HID, OUT, num_layers=2,
+                                            conv="graphsage"),
+                                 LinkPredictionDecoder())
+
+    def nalp(model, kind, **kw):
+        return PartitionedNALPTrainer(
+            model, graphs[kind], mesh, NALPTrainerConfig(**base, **kw),
+            optimizer_args=opt_args, capacity_factor=PART_CAPACITY,
+            overflow_policy="raise")
+
+    def nc_model(dtype=torch.float32):
+        return GNNEncoder(D, HID, C, num_layers=2, conv="graphsage",
+                          dtype=dtype)
+
+    def nc(model, kind, cached):
+        return PartitionedNodeClassificationTrainer(
+            model, graphs[kind], mesh, NodeClassificationTrainerConfig(
+                fanouts=FANOUTS, cached_hop=cached),
+            optimizer_args={"learning_rate": "1e-2"},
+            capacity_factor=PART_CAPACITY, overflow_policy="raise")
+
+    n_anchor = PART_WARMUP + PART_STEPS + PART_PROFILED
+    anchors = (np.arange(BATCH * n_anchor) % N).astype(np.int32).reshape(
+        n_anchor, BATCH)
+    a0 = torch.as_tensor(anchors[0], device=dev)
+
+    # -- each cached NALP step (fp32 weights, the sketch on) and each NC
+    # step against the plain twins; the int8 step's routed calls recorded
+    for kind in ("fp32", "int8"):
+        t_ = nalp(fp32_model(), kind, use_cms_correction=True)
+        st = t_.init_state(0)
+        vs = step_vs_plain(t_.model.encoder, lambda: t_.loss_and_sketch(
+            a0, 0, st.cms)[0], _build.launches)
+        emit({"phase": "partitioned_cached_step_vs_plain", "rows": kind,
+              **vs})
+        check(vs["loss_rel_err"] <= 1e-5 and
+              vs["max_grad_err_rel_to_scale"] <= 1e-4,
+              f"partitioned cached {kind} step differs from the plain "
+              f"step: {vs}")
+    with spy(fl, "unroute_rows_q8", lambda a, k: tuple(
+            x_.clone() if torch.is_tensor(x_) else x_ for x_ in a)) as q8s, \
+            spy(fl, "unroute_rows", lambda a, k: a[0].dtype) as plain_types:
+        t_.loss_and_sketch(a0, 0, st.cms)[0].backward()
+    torch.cuda.synchronize()
+    check(len(q8s) == shards and torch.int8 not in plain_types,
+          f"the int8 step decoded {len(q8s)} unroutes with K16's int8 mode "
+          f"and routed {plain_types.count(torch.int8)} int8 rows through "
+          "K16's copy form, not one decoded union gather a shard")
+    del t_, st
+    for cached, kind in ((False, "fp32"), (True, "int8")):
+        t_ = nc(nc_model(), kind, cached)
+        t_.init_state(0)
+        vs = step_vs_plain(t_.model, lambda: t_.loss_and_overflow(a0)[0],
+                           _build.launches)
+        emit({"phase": "partitioned_nc_step_vs_plain", "cached": cached,
+              "rows": kind, **vs})
+        check(vs["loss_rel_err"] <= 1e-5 and
+              vs["max_grad_err_rel_to_scale"] <= 1e-4,
+              f"partitioned NC ({kind}, cached {cached}) step differs from "
+              f"the plain step: {vs}")
+        del t_
+
+    # -- K16's int8 mode at the cached int8 step's union lookup ([P, G]
+    # requests of [D + Dc + 12]-byte rows), and at the live step's union
+    # shape over the uncached [D + 8] rows (phase 14's [4, 63,744]):
+    # bit-equal to the twin, beside K16's 4-byte form over the same bytes.
+    # bytes: owner / pos / ok read, each answered row's W bytes read once,
+    # 4 (D + Dc) + 4 bytes written a request.
+    live_g = (2 * BATCH + R) // shards * (1 + k1 + k1 * k2)
+    union_g = (2 * BATCH + R) // shards * (1 + k1)
+
+    def k16_q8(back, owner, pos, ok, d_, dc_):
+        got_ = fl.unroute_rows_q8(back, owner, pos, ok, d_, dc_)
+        want_ = fl._unroute_q8_plain(back, owner, pos, ok, d_, dc_)
+        check(all((g_ is None and w_ is None) or torch.equal(g_, w_)
+                  for g_, w_ in zip(got_, want_)),
+              "K16's int8 mode is not bit-equal to its twin")
+        g_ = owner.numel()
+        words = back.view(torch.int32)
+        return {"err": 0.0, "answers": list(back.shape), "requests": g_,
+                "row_bytes": back.shape[2], "feat_dim": d_,
+                "cache_dim": dc_,
+                "ms": cuda_ms(lambda: fl.unroute_rows_q8(
+                    back, owner, pos, ok, d_, dc_)),
+                "plain_ms": cuda_ms(lambda: fl._unroute_q8_plain(
+                    back, owner, pos, ok, d_, dc_)),
+                "word4_copy_ms": cuda_ms(lambda: fl.unroute_rows(
+                    words, owner, pos, ok)),
+                "bound_ms": bound_ms(g_ * 9 + int(ok.sum()) * back.shape[2]
+                                     + g_ * (4 * (d_ + dc_) + 4), 0)[0],
+                "bound_by": "bytes", "library_ms": None,
+                "eager_ms": eager_ms(lambda: fl.unroute_rows_q8(
+                    back, owner, pos, ok, d_, dc_))}
+
+    k16_step = k16_q8(*q8s[0][:6])
+    ids_live = torch.randint(0, N, (shards, live_g), dtype=torch.int32,
+                             device=dev, generator=torch.Generator(
+                                 device=dev).manual_seed(18))
+    cap = fl.request_capacity(live_g, shards, PART_CAPACITY)
+    req, owner_l, pos_l, ok_l = fl.route_requests(
+        ids_live, graphs["int8"].rows_per_shard, shards, cap)
+    back_l = mesh.all_to_all([fl.answer_gather(
+        q_, graphs["int8"].feat_deg[q_], req[q_]) for q_ in range(shards)])
+    k16_live = k16_q8(back_l[0], owner_l[0], pos_l[0], ok_l[0], D, 0)
+    add_mode("unroute_rows", "int8_decode", {
+        **k16_step, "of": "the cached int8 step's union lookup, shard 0",
+        "live_union": k16_live})
+    del back_l, req, q8s
+
+    # -- K12's packed-row mode (one shard's closed form) over the P = 1
+    # layout of the cached int8 rows ([N, D + Dc + 12]: the four shards'
+    # blocks in order) at the cached step's union ids and at the live
+    # union's, bit-equal to the twin, beside K3 over the same packed rows
+    # (the gather without the decode). bytes: the ids, each distinct
+    # gathered row's W bytes, the decoded rows written.
+    packed = torch.cat(tabs["int8"].feat_deg)
+
+    def k12_packed(ids_):
+        got_ = q8.gather_packed_rows_q8(packed, ids_, D, D)
+        want_ = q8._gather_packed_rows_q8_plain(packed, ids_, D, D)
+        check(all(torch.equal(g_, w_) for g_, w_ in zip(got_, want_)),
+              "K12's packed-row mode is not bit-equal to its twin")
+        m_ = ids_.numel()
+        return {"err": 0.0, "ids": m_, "row_bytes": packed.shape[1],
+                "ms": cuda_ms(lambda: q8.gather_packed_rows_q8(
+                    packed, ids_, D, D)),
+                "plain_ms": cuda_ms(lambda: q8._gather_packed_rows_q8_plain(
+                    packed, ids_, D, D)),
+                "k3_rows_ms": cuda_ms(lambda: gather_rows(packed, ids_)),
+                "bound_ms": bound_ms(m_ * 4 + unique(ids_) * packed.shape[1]
+                                     + m_ * (8 * D + 4), 0)[0],
+                "bound_by": "bytes", "library_ms": None}
+
+    add_mode("gather_rows_q8", "packed_rows", {
+        **k12_packed(ids_live[:, :union_g].reshape(-1)),
+        "of": "the cached step's union size, every shard's, over the "
+              "P = 1 layout [N, D + D + 12]",
+        "live_union": k12_packed(ids_live.reshape(-1))})
+    # K3's byte mode: rows whose width is not a multiple of 4 bytes (the
+    # [N, D + 8] rows of a 13-wide graph's layout: 21 bytes)
+    odd = packed[:, :21]
+    ids_b = ids_live[0]
+    got_b = gather_rows(odd, ids_b)[0]
+    check(torch.equal(got_b, _gather_rows_plain(odd, ids_b)[0]),
+          "K3's byte mode is not bit-equal")
+    add_mode("gather_rows", "bytes_21", {
+        "err": 0.0, "rows": ids_b.numel(), "row_bytes": 21,
+        "ms": cuda_ms(lambda: gather_rows(odd, ids_b)),
+        "plain_ms": cuda_ms(lambda: _gather_rows_plain(odd, ids_b)),
+        "bound_ms": bound_ms(ids_b.numel() * (4 + 21)
+                             + unique(ids_b) * 21, 0)[0],
+        "bound_by": "bytes", "library_ms": cuda_ms(
+            lambda: torch.index_select(odd, 0, ids_b.long()))})
+    del packed, odd, ids_live, got_b
+
+    def run(path, trainer, steps_args, kernels):
+        """Warm-up and timed steps (the launch counts were reset before
+        the trainer and its tables were built; read just after), then
+        profiled steps: (ms/step, losses, launches a step past the build,
+        all_to_all bytes, profile, state)."""
+        state = trainer.init_state(0)
+        gens = [torch.Generator(device=dev).manual_seed(s_)
+                for s_ in range(shards)]
+        built = dict(_build.launches)
+        state, warm = trainer.train_steps(state, steps_args[:PART_WARMUP],
+                                          gens)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, losses = trainer.train_steps(
+            state, steps_args[PART_WARMUP: PART_WARMUP + PART_STEPS], gens)
+        torch.cuda.synchronize()
+        ms_step = (time.perf_counter() - t1) / PART_STEPS * 1e3
+        nsteps = PART_WARMUP + PART_STEPS
+        counts[path] = (dict(_build.launches), nsteps)
+        emit({"phase": "main_path", "path": path,
+              "launches": counts[path][0], "steps": nsteps})
+        for k in kernels:
+            check(counts[path][0][k] > 0, f"{k} was not launched on {path}")
+        check(trainer.overflow_total == 0,
+              f"{path}: {trainer.overflow_total} routed requests dropped")
+        losses = losses.float().cpu().numpy()
+        check(np.isfinite(losses).all() and np.isfinite(
+            warm.float().cpu().numpy()).all(), f"{path}: loss not finite")
+        per_step = {k_: (v_ - built[k_]) / nsteps for k_, v_ in
+                    counts[path][0].items() if v_ - built[k_]}
+        a2a = mesh.a2a_bytes
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            state, _ = trainer.train_steps(
+                state, steps_args[PART_WARMUP + PART_STEPS:], gens)
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t1) * 1e6
+        return ms_step, losses, per_step, a2a, profile_summary(
+            prof, PART_PROFILED, window_us, ms_step), state
+
+    # -- the cached NALP paths (bf16, the sketch on), fp32 and int8 rows
+    cached_kernels = PART_TRAIN_KERNELS + ("retrieval_loss",)
+    # counted as bench.py:631-638 counts the cached flagship step's
+    edges_per_step = (2 * k1 + k1 * k2) * (BATCH + BATCH + R)
+    for path, kind in (("partitioned_cached_train", "fp32"),
+                       ("partitioned_cached_q8_train", "int8")):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        trainer = nalp(make_model(), kind, use_cms_correction=True)
+        torch.cuda.synchronize()
+        construct_s = time.perf_counter() - t0
+        mesh.reset_counts()
+        ms_step, losses, per_step, a2a, prof, state = run(
+            path, trainer, anchors,
+            cached_kernels + (("unroute_rows_q8",) if kind == "int8"
+                              else ()))
+        nsteps = PART_WARMUP + PART_STEPS
+        if kind == "int8":
+            check(per_step.get("unroute_rows_q8") == shards
+                  and per_step.get("gather_rows_q8_packed", 0) == 0,
+                  f"{path}: {per_step} — not one K16 int8 decode a shard a "
+                  "step")
+        total = int(state.cms.total)
+        check(total == (nsteps + PART_PROFILED) * (BATCH + R),
+              f"{path}: the sketch counted {total}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.refresh_cache(1)
+        torch.cuda.synchronize()
+        refresh_ms = (time.perf_counter() - t0) * 1e3
+        emit({"phase": "partitioned_cached_train_throughput", "rows": kind,
+              "shards": shards, "steps": PART_STEPS, "ms_per_step": ms_step,
+              "edges_per_step": edges_per_step,
+              "edges_per_s": edges_per_step / (ms_step / 1e3),
+              "seeds_per_s": BATCH / (ms_step / 1e3),
+              "launches_per_step": per_step,
+              "a2a_bytes_per_step": a2a / nsteps,
+              "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+              "sketch_total": total, "overflow_total": trainer.overflow_total,
+              "trainer_build_s": construct_s, "refresh_ms": refresh_ms,
+              "peak_mem_gb": (torch.cuda.max_memory_allocated() - base_mem)
+              / 2**30, "profile": prof, "card": card})
+        del trainer, state
+
+    # -- the NC paths (bf16, 16 classes): live over fp32 rows, cached over
+    # int8 rows; then run_partitioned_inference through the cached one
+    nodes = anchors
+    for path, kind, cached in (("partitioned_nc_live", "fp32", False),
+                               ("partitioned_nc_cached_q8", "int8", True)):
+        _build.reset_launches()
+        trainer = nc(nc_model(torch.bfloat16), kind, cached)
+        mesh.reset_counts()
+        nc_kernels = ("sample_uniform", "gather_rows", "masked_reduce",
+                      "masked_reduce_bwd", "route_requests", "unroute_rows")
+        ms_step, losses, per_step, a2a, prof, state = run(
+            path, trainer, nodes,
+            nc_kernels + (("unroute_rows_q8",) if cached else ()))
+        nsteps = PART_WARMUP + PART_STEPS
+        acc = trainer.evaluate([np.arange(0, N, 7)])
+        emit({"phase": "partitioned_nc_train_throughput", "rows": kind,
+              "cached": cached, "shards": shards, "steps": PART_STEPS,
+              "ms_per_step": ms_step,
+              "seeds_per_s": BATCH / (ms_step / 1e3),
+              "launches_per_step": per_step,
+              "a2a_bytes_per_step": a2a / nsteps,
+              "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+              "accuracy_every_7th_node": acc, "profile": prof, "card": card})
+        del state
+    path = "partitioned_nc_inference"
+    sink = Sink()
+    mesh.reset_counts()
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    total = run_partitioned_inference(trainer, N, sink,
+                                      InferenceConfig(batch_size=BATCH))
+    torch.cuda.synchronize()
+    inf_s = time.perf_counter() - t0
+    n_batches = -(-N // BATCH)
+    counts[path] = (dict(_build.launches), n_batches)
+    emit({"phase": "main_path", "path": path, "launches": counts[path][0],
+          "batches": n_batches, "seconds": inf_s})
+    for k in ("gather_rows", "masked_reduce", "route_requests",
+              "unroute_rows", "unroute_rows_q8"):
+        check(counts[path][0][k] > 0, f"{k} was not launched on {path}")
+    logits = sink.table(N, C, path)
+    check(total == N, f"{path}: {total} rows exported")
+    with torch.inference_mode(), plain_kernels():
+        ref0 = trainer.predict_batch(np.arange(BATCH, dtype=np.int32))
+    err0 = float(np.abs(logits[:BATCH] - ref0.float().cpu().numpy()).max())
+    scale0 = float(ref0.float().abs().max())
+    # bf16 logits: one rounding of K4's fp32 sum against its twin's (a
+    # bf16 ulp is 2**-8 of the value)
+    check(err0 <= 1e-2 * scale0, f"{path}: batch 0 differs from the plain "
+          f"recomputation: {err0} (scale {scale0})")
+    emit({"phase": "partitioned_nc_inference_throughput", "nodes": N,
+          "nodes_per_s": N / inf_s, "ms_per_batch": inf_s / n_batches * 1e3,
+          "launches_per_batch": {k_: v_ / n_batches for k_, v_ in
+                                 counts[path][0].items() if v_},
+          "a2a_bytes_per_batch": mesh.a2a_bytes / n_batches,
+          "batch0_max_abs_err": err0, "scale": scale0, "card": card})
+    del trainer, graphs, tabs, mesh
+
+    # -- one shard: the int8 cached NALP path's closed forms (K3's expand
+    # mode through the tables, K12's packed-row mode for every union)
+    path = "partitioned_cached_q8_one_shard"
+    one = make_mesh(1)
+    pg1 = PartitionedGraph.build(dg, one, quantize_features=True)
+    _build.reset_launches()
+    trainer = PartitionedNALPTrainer(
+        make_model(), pg1, one, NALPTrainerConfig(**base),
+        optimizer_args=opt_args, capacity_factor=PART_CAPACITY,
+        overflow_policy="raise")
+    state = trainer.init_state(0)
+    built = dict(_build.launches)
+    state, losses = trainer.train_steps(state, anchors[:PART_WARMUP + 5])
+    torch.cuda.synchronize()
+    counts[path] = (dict(_build.launches), PART_WARMUP + 5)
+    per_step = {k_: (v_ - built[k_]) / (PART_WARMUP + 5)
+                for k_, v_ in counts[path][0].items() if v_ - built[k_]}
+    emit({"phase": "main_path", "path": path, "launches": counts[path][0],
+          "steps": PART_WARMUP + 5, "launches_per_step": per_step})
+    check(per_step.get("gather_rows_q8_packed") == 1
+          and per_step.get("route_requests", 0) == 0
+          and counts[path][0]["gather_rows"] > 0,
+          f"{path}: not one K12 packed-row gather a step: {per_step}")
+    check(np.isfinite(losses.float().cpu().numpy()).all(),
+          f"{path}: loss not finite")
+    del trainer, state, pg1
+    return counts
+
+
 def main():
     if not (REPO / "gigl_tpu_torch" / "csrc").is_dir():
         sys.exit("chip_smoke: run from a checkout of the repository "
@@ -6130,6 +6591,9 @@ def main():
     for kname, by_mode in coo_edge_modes.items():
         for mode, entry in by_mode.items():
             add_mode(kname, mode, entry)
+    part_tab = partitioned_tabularized_phases(dev, card, dg, record,
+                                              add_mode, unique, make_model,
+                                              opt_args)
 
     # launches on every kernel row: the training path's (K6 / K7: the
     # full-graph passes'; K6b / K7b: the node-classification paths'; K8-K10:
@@ -6194,6 +6658,17 @@ def main():
             p_: c_[k] / n_ for p_, (c_, n_) in weighted.items()}
         row["launches_per_coo_edge_step"] = {
             p_: c_[k] / n_ for p_, (c_, n_) in coo_edge.items()}
+        row["launches_per_partitioned_tabularized_path_step"] = {
+            p_: c_[k] / n_ for p_, (c_, n_) in part_tab.items()}
+    for kname, mode in (("unroute_rows", "int8_decode"),
+                        ("gather_rows_q8", "packed_rows"),
+                        ("gather_rows", "bytes_21")):
+        counter = {"int8_decode": "unroute_rows_q8",
+                   "packed_rows": "gather_rows_q8_packed",
+                   "bytes_21": "gather_rows_bytes"}[mode]
+        next(r_ for r_ in results if r_["name"] == kname)["modes"][mode][
+            "launches_per_path"] = {p_: c_[counter] for p_, (c_, _)
+                                    in part_tab.items()}
     check(len(results) == len(_build.KERNEL_NAMES) == 26,
           "the kernels line does not list all twenty-six kernels")
     emit({"phase": "host_index_builds",

@@ -16,6 +16,12 @@
 // row width or stride is not a multiple of 16 bytes), consecutive threads
 // on consecutive pieces, so each row is one or more fully coalesced
 // 128-byte transactions and the random access is per row, not per element.
+//
+// Byte mode (gigl_gather_rows_bytes): rows of any byte width and stride —
+// the owner side of a routed gather over a quantized partitioned graph's
+// bit-packed int8 rows (dist_sampled.py :206-218), whose width D + 8 or D +
+// Dc + 12 need not be a multiple of 4 — a thread a byte, consecutive
+// threads on consecutive bytes of a row.
 #include "gigl_common.cuh"
 
 namespace {
@@ -69,7 +75,40 @@ void launch(const void* table, long long n_rows, long long stride_words,
           static_cast<float*>(out_vals));
 }
 
+__global__ void gather_row_bytes_kernel(const uint8_t* __restrict__ table,
+                                        int64_t n_rows, int64_t stride,
+                                        int row_bytes,
+                                        const int32_t* __restrict__ ids,
+                                        int64_t m,
+                                        uint8_t* __restrict__ out) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= m * row_bytes) return;
+  const int64_t r = i / row_bytes;
+  int64_t src = ids[r];
+  src = src < 0 ? 0 : (src > n_rows - 1 ? n_rows - 1 : src);
+  out[i] = __ldg(table + src * stride + (i - r * row_bytes));
+}
+
 }  // namespace
+
+// Byte mode: table [n_rows] rows of row_bytes bytes, stride bytes apart;
+// ids [m] int32; out [m, row_bytes].
+extern "C" int gigl_gather_rows_bytes(const void* table, long long n_rows,
+                                      long long stride, int row_bytes,
+                                      const void* ids, long long m, void* out,
+                                      void* stream) {
+  if (n_rows < 1 || row_bytes < 1 || stride < row_bytes || m < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = m * row_bytes;
+  if (total == 0) return static_cast<int>(cudaGetLastError());
+  const int threads = 256;
+  gather_row_bytes_kernel<<<static_cast<unsigned>((total + threads - 1) /
+                                                  threads),
+                            threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(table), n_rows, stride, row_bytes,
+      static_cast<const int32_t*>(ids), m, static_cast<uint8_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int gigl_gather_rows(const void* table, long long n_rows,
                                 long long stride_words, int row_words,

@@ -32,11 +32,24 @@
 // each segment's form measured 6.5% slower on an H100, PERF.md §6); a
 // lone gather is one segment of the same kernel.
 // Ids are clamped into [0, N - 1] as XLA's gather clamps them.
+//
+// Packed-row mode — replaces gigl_tpu/training/dist_sampled.py
+// PartitionedGraph.split_rows (:285-317) over one shard's closed form of
+// the routed gather (feat_deg_l[ids], :791-812): rows of a quantized
+// partitioned graph's bit-packed [N, D + 8] / [N, D + Dc + 12] int8 table
+// gathered by id and decoded in the same pass (gigl_q8.cuh, a warp a row)
+// into fp32 features, cache and degrees. Its own launch, not a segment: a
+// packed row carries its scales in its own tail and decodes into three
+// outputs, so it shares no piece form with the plain segments, and its
+// path gathers one id vector (a batch's union) a call. Bound: bytes (each
+// distinct gathered row's W bytes read once, 4 (D + Dc) + 4 bytes written
+// a row).
 #include <cuda_bf16.h>
 
 #include <cstdint>
 
 #include "gigl_common.cuh"
+#include "gigl_q8.cuh"
 
 namespace {
 
@@ -180,6 +193,22 @@ int form_values(int form) {
   return form == kBf16x8 ? 8 : (form == kF32x4 || form == kBf16x4) ? 4 : 1;
 }
 
+__global__ void gather_packed_q8_kernel(const int8_t* __restrict__ table,
+                                        int64_t n_rows, int row_bytes, int d,
+                                        int dc,
+                                        const int32_t* __restrict__ ids,
+                                        int64_t m, float* __restrict__ feat,
+                                        float* __restrict__ cache,
+                                        float* __restrict__ deg) {
+  const int64_t r =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  if (r >= m) return;
+  int64_t src = ids[r];
+  src = src < 0 ? 0 : (src > n_rows - 1 ? n_rows - 1 : src);
+  gigl::decode_packed_row(table + src * row_bytes, d, dc, threadIdx.x & 31,
+                          r, feat, cache, deg);
+}
+
 }  // namespace
 
 // segs: count (1 to kMaxSegments) segments, ten int64 each: q ([n_rows,
@@ -243,5 +272,29 @@ extern "C" int gigl_gather_rows_q8_many(const void* segs, int count,
       gather_rows_q8_kernel<kAnyForm><<<blocks, kThreads, 0, st>>>(s);
       break;
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Packed-row mode: table [n_rows, row_bytes] int8 (row_bytes = d + 8, or
+// d + dc + 12 with the cache), ids [m] int32; feat [m, d], cache [m, dc]
+// (nullptr when dc == 0) and deg [m] fp32 written.
+extern "C" int gigl_gather_packed_q8(const void* table, long long n_rows,
+                                     int row_bytes, int d, int dc,
+                                     const void* ids, long long m,
+                                     void* feat, void* cache, void* deg,
+                                     void* stream) {
+  if (n_rows < 1 || d < 1 || dc < 0 || m < 0 ||
+      row_bytes != d + dc + (dc > 0 ? 12 : 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // an empty output's pointer may be null
+  if (m == 0) return static_cast<int>(cudaGetLastError());
+  if ((dc > 0) != (cache != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (m * 32 + kThreads - 1) / kThreads;
+  gather_packed_q8_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(table), n_rows, row_bytes, d, dc,
+      static_cast<const int32_t*>(ids), m, static_cast<float*>(feat),
+      static_cast<float*>(cache), static_cast<float*>(deg));
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,8 +36,19 @@
 // words when the row is a multiple of 16 bytes (and the bases aligned),
 // 4-byte words when it is a multiple of 4 (the flagship's [D + 1] = 129
 // fp32 rows), 2-byte words otherwise (odd bf16 widths); the wrapper picks.
+//
+// K16's int8 mode — replaces dist_sampled.py PartitionedGraph.split_rows
+// (:285-317) after the routed gather of a quantized partitioned graph's
+// bit-packed [D + 8] / [D + Dc + 12] int8 rows: each request's answer row
+// back[owner, min(pos, C - 1)] decoded in the same pass (gigl_q8.cuh: a
+// warp a row) into features [G, D], the cache [G, Dc] and degrees [G], all
+// fp32; zeros where the request overflowed. The packed [G, W] rows are
+// never written. Bound: bytes (each answered row's W bytes read once, 4 (D
+// + Dc) + 4 bytes written a row).
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "gigl_q8.cuh"
 
 namespace {
 
@@ -226,6 +237,27 @@ __global__ void unroute_rows_kernel(const Word* __restrict__ back,
   for (int c = lane; c < row_words; c += 32) dst[c] = __ldg(src + c);
 }
 
+__global__ void unroute_rows_q8_kernel(const int8_t* __restrict__ back,
+                                       int32_t cap, int row_bytes, int d,
+                                       int dc,
+                                       const int32_t* __restrict__ owner,
+                                       const int32_t* __restrict__ pos,
+                                       const uint8_t* __restrict__ ok,
+                                       int64_t g, float* __restrict__ feat,
+                                       float* __restrict__ cache,
+                                       float* __restrict__ deg) {
+  const int64_t r = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                     threadIdx.x) >> 5;
+  if (r >= g) return;
+  const int8_t* row = nullptr;
+  if (ok[r]) {
+    const int64_t src_row =
+        static_cast<int64_t>(owner[r]) * cap + min(pos[r], cap - 1);
+    row = back + src_row * row_bytes;
+  }
+  gigl::decode_packed_row(row, d, dc, threadIdx.x & 31, r, feat, cache, deg);
+}
+
 }  // namespace
 
 // The tiles of a vector of g ids (at least one: an empty vector's req is
@@ -288,5 +320,31 @@ extern "C" int gigl_unroute_rows(const void* back, int cap, int row_bytes,
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K16's int8 mode: back [P, cap, row_bytes] int8 packed rows (row_bytes = d
+// + 8, or d + dc + 12 with the cache); feat [g, d], cache [g, dc] (nullptr
+// when dc == 0) and deg [g] fp32 written.
+extern "C" int gigl_unroute_rows_q8(const void* back, int cap, int row_bytes,
+                                    int d, int dc, const void* owner,
+                                    const void* pos, const void* ok,
+                                    long long g, void* feat, void* cache,
+                                    void* deg, void* stream) {
+  if (d < 1 || dc < 0 || cap < 1 ||
+      row_bytes != d + dc + (dc > 0 ? 12 : 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // an empty output's pointer may be null
+  if (g == 0) return static_cast<int>(cudaGetLastError());
+  if ((dc > 0) != (cache != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 256;
+  const long long blocks = (g * 32 + threads - 1) / threads;
+  unroute_rows_q8_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(back), cap, row_bytes, d, dc,
+      static_cast<const int32_t*>(owner), static_cast<const int32_t*>(pos),
+      static_cast<const uint8_t*>(ok), g, static_cast<float*>(feat),
+      static_cast<float*>(cache), static_cast<float*>(deg));
   return static_cast<int>(cudaGetLastError());
 }

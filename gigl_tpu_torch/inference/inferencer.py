@@ -248,8 +248,9 @@ def run_partitioned_inference(
 ) -> int:
     """Full-graph inference over a PARTITIONED backend: every node of this
     worker's range, in ``node_batches``, through the trainer's sharded
-    ``encode_batch`` (a ``PartitionedNALPTrainer``, whose mesh lives on
-    ``device``: CUDA unless given) into the exporter. The trainer holds its
+    ``encode_batch`` (a ``PartitionedNALPTrainer`` or a
+    ``PartitionedNodeClassificationTrainer``, whose logits it exports; the
+    mesh lives on ``device``: CUDA unless given) into the exporter. The trainer holds its
     parameters, so there is no ``params`` argument. Returns the row
     count."""
     if node_type is not None:

@@ -65,7 +65,8 @@ MODE_NAMES = ("segment_reduce_composed", "segment_reduce_chained",
               "segment_reduce_add", "segment_reduce_gine",
               "segment_reduce_gatv2", "segment_reduce_bwd_gine",
               "segment_reduce_bwd_gatv2", "sddmm_addend", "sddmm_gatv2",
-              "ell_edge_grad_coo")
+              "ell_edge_grad_coo", "gather_rows_bytes", "unroute_rows_q8",
+              "gather_rows_q8_packed")
 launches: Dict[str, int] = dict.fromkeys(KERNEL_NAMES + MODE_NAMES, 0)
 
 _P = ctypes.c_void_p
@@ -86,6 +87,7 @@ _SIGNATURES = {
                                   _I64, _P],
     "gigl_gather_rows": [_P, _I64, _I64, _I32, _P, _I64, _P, _P, _P, _P,
                          _P, _P],
+    "gigl_gather_rows_bytes": [_P, _I64, _I64, _I32, _P, _I64, _P, _P],
     "gigl_masked_reduce": [_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P],
     "gigl_masked_reduce_bwd": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
                                _I32, _P],
@@ -115,11 +117,15 @@ _SIGNATURES = {
     "gigl_sddmm_bwd_ticket": [_P, _P],
     "gigl_ell_edge_grad": [_P] * 12 + [_I64] + [_I32] * 6 + [_P, _I64, _P],
     "gigl_gather_rows_q8_many": [_P, _I32, _P],
+    "gigl_gather_packed_q8": [_P, _I64, _I32, _I32, _I32, _P, _I64, _P, _P,
+                              _P, _P],
     "gigl_cms_add": [_P, _I32, _I32, _P, _I64, _P, _P, _P, _P],
     "gigl_cms_estimate": [_P, _I32, _I32, _P, _I64, _P, _P, _P, _P],
     "gigl_route_requests": [_P, _I64, _I64, _I32, _I32, _I32] + [_P] * 6,
     "gigl_route_tiles": [_I64],
     "gigl_unroute_rows": [_P, _I32, _I32, _I32, _P, _P, _P, _I64, _P, _P],
+    "gigl_unroute_rows_q8": [_P, _I32, _I32, _I32, _I32, _P, _P, _P, _I64,
+                             _P, _P, _P, _P],
     "gigl_ring_fold": [_P, _I32, _I32, _I32] + [_P] * 7 + [_F32, _F32]
     + [_P] * 4,
     "gigl_ring_block_bwd": [_P, _I32, _I32, _I32] + [_P] * 7 + [_F32, _F32]

@@ -9,7 +9,9 @@ of ``gigl_tpu/training/dataset.py`` ``sample_hop_blocks_tabularized``
   (-1 = no neighbor) and propagate the mask ``row >= 0 & parent``;
 - :func:`gather_rows`: gather rows of a 2-D table (the fused ``[x | agg]``
   rows, plain features or the cache, through the table's row stride) and,
-  optionally, a per-row scalar such as the degree.
+  optionally, a per-row scalar such as the degree. Rows whose width, stride
+  or base is not a multiple of 4 bytes (a quantized partitioned graph's
+  bit-packed int8 rows at an odd feature width) take its byte mode.
 
 Both are bit-equal to the plain gathers (:func:`_expand_table_plain`,
 :func:`_gather_rows_plain`), which run for CPU tensors only.
@@ -71,9 +73,10 @@ def gather_rows(
     table: torch.Tensor, ids: torch.Tensor,
     row_vals: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """K3 rows mode: table [N, W] (rows contiguous, any row stride, row
-    width a multiple of 4 bytes), ids [...] int32 -> (rows [..., W],
-    row_vals[ids] [...] f32 or None)."""
+    """K3 rows mode: table [N, W] (rows contiguous, any row stride), ids
+    [...] int32 -> (rows [..., W], row_vals[ids] [...] f32 or None). Rows
+    of 32-bit words go a 16- or 4-byte piece a thread; any other width,
+    stride or base a byte a thread (its byte mode, without row_vals)."""
     if ids.device.type == "cpu":
         return _gather_rows_plain(table, ids, row_vals)
     flat = ids.reshape(-1).contiguous()
@@ -85,15 +88,23 @@ def gather_rows(
         raise ValueError("gather_rows: ids must be int32")
     n, w = table.shape
     esize = table.element_size()
+    m = flat.shape[0]
+    shape = tuple(ids.shape)
     if (w * esize) % 4 or (table.stride(0) * esize) % 4 \
             or table.data_ptr() % 4:
-        raise ValueError("gather_rows: row width, row stride and base must "
-                         "be multiples of 4 bytes")
+        if row_vals is not None:
+            raise ValueError("gather_rows: row_vals need rows of 32-bit "
+                             "words")
+        out = torch.empty((m, w), dtype=table.dtype, device=flat.device)
+        _build.launch("gather_rows", "gigl_gather_rows_bytes", device,
+                      table.data_ptr(), n, table.stride(0) * esize,
+                      w * esize, flat.data_ptr(), m, out.data_ptr())
+        _build.launches["gather_rows_bytes"] += 1
+        return out.reshape(shape + (w,)), None
     if row_vals is not None:
         _build.require_cuda("gather_rows", flat, row_vals)
         if row_vals.dtype != torch.float32 or row_vals.shape != (n,):
             raise ValueError("gather_rows: row_vals must be f32 [N]")
-    m = flat.shape[0]
     out = torch.empty((m, w), dtype=table.dtype, device=flat.device)
     vals = (None if row_vals is None
             else torch.empty((m,), dtype=torch.float32, device=flat.device))
@@ -101,7 +112,6 @@ def gather_rows(
                   table.data_ptr(), n, table.stride(0) * esize // 4,
                   w * esize // 4, flat.data_ptr(), m, None, out.data_ptr(),
                   None, _build.ptr(row_vals), _build.ptr(vals))
-    shape = tuple(ids.shape)
     return (out.reshape(shape + (w,)),
             None if vals is None else vals.reshape(shape))
 

@@ -20,6 +20,16 @@ sampled batch hydrates every tree level of both int8 tables in one.
 :func:`_gather_rows_q8_plain` is its plain twin (per segment), used for
 CPU tensors only. The neighbor cache (K2) reads a quantized feature table
 in place (``ops/hopcache.py``).
+
+A quantized PARTITIONED graph (``training/dist_sampled.py``) keeps the
+reference's bit-packed rows instead: ``[q D | scale_f | deg]`` int8, ``D +
+8`` bytes, or ``[q D | qc Dc | scale_f | scale_c | deg]``, ``D + Dc + 12``,
+once the deepest-hop cache is fused in, the tail's fp32 words
+little-endian. :func:`decode_packed_rows` is the reference's
+``decode_rows`` / ``split_rows`` on such rows; K12's packed-row mode
+(:func:`gather_packed_rows_q8`) gathers and decodes them in one pass (one
+shard's closed form of the routed gather; K16's int8 mode decodes them
+after the all_to_all at P > 1, ``parallel/feature_lookup.py``).
 """
 
 from __future__ import annotations
@@ -147,6 +157,75 @@ def gather_rows_q8(
     if ids.device.type == "cpu":
         return _gather_rows_q8_plain(q, scale, ids, out_dtype, row_vals)
     return gather_rows_q8_many([(q, scale, ids, out_dtype, row_vals)])[0]
+
+
+def packed_row_bytes(feat_dim: int, cache_dim: int = 0) -> int:
+    """Bytes of a bit-packed int8 partitioned row."""
+    return feat_dim + cache_dim + (12 if cache_dim else 8)
+
+
+def decode_packed_rows(rows: torch.Tensor, feat_dim: int, cache_dim: int = 0
+                       ) -> Tuple[torch.Tensor, torch.Tensor,
+                                  Optional[torch.Tensor]]:
+    """Bit-packed int8 rows [G, W] -> (features [G, D] fp32, degrees [G]
+    fp32, cache [G, Dc] fp32 or None): ``float(q) * scale`` (one multiply,
+    as the reference's ``q.astype(f32) * tail``), the tail's words bit-cast
+    from their little-endian bytes."""
+    d, dc = feat_dim, cache_dim
+    if rows.shape[-1] != packed_row_bytes(d, dc):
+        raise ValueError(f"packed rows of {rows.shape[-1]} bytes, not "
+                         f"{packed_row_bytes(d, dc)} (D {d}, Dc {dc})")
+    tail = rows[:, d + dc:].contiguous().view(torch.float32)  # [G, 2 or 3]
+    feats = rows[:, :d].to(torch.float32) * tail[:, 0:1]
+    if dc == 0:
+        return feats, tail[:, 1], None
+    return (feats, tail[:, 2],
+            rows[:, d:d + dc].to(torch.float32) * tail[:, 1:2])
+
+
+def _gather_packed_rows_q8_plain(table, ids, feat_dim, cache_dim=0):
+    """Plain twin of K12's packed-row mode: the clamped gather, then
+    :func:`decode_packed_rows`."""
+    idx = ids.reshape(-1).to(torch.int64).clamp(0, table.shape[0] - 1)
+    f, deg, c = decode_packed_rows(table[idx], feat_dim, cache_dim)
+    shape = tuple(ids.shape)
+    return (f.reshape(shape + (feat_dim,)), deg.reshape(shape),
+            None if c is None else c.reshape(shape + (cache_dim,)))
+
+
+def gather_packed_rows_q8(table: torch.Tensor, ids: torch.Tensor,
+                          feat_dim: int, cache_dim: int = 0
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     Optional[torch.Tensor]]:
+    """K12's packed-row mode: bit-packed int8 rows ``table`` [N, W] by
+    ``ids`` [...] int32 (clamped into [0, N - 1]) -> (features [..., D],
+    degrees [...], cache [..., Dc] or None), fp32, decoded in the gather.
+    CPU tensors take the plain twin."""
+    if ids.device.type == "cpu":
+        return _gather_packed_rows_q8_plain(table, ids, feat_dim, cache_dim)
+    flat = ids.reshape(-1).contiguous()
+    device = _build.require_cuda("gather_rows_q8", flat, table)
+    d, dc = int(feat_dim), int(cache_dim)
+    if table.dtype != torch.int8 or table.dim() != 2 \
+            or table.shape[1] != packed_row_bytes(d, dc) or d < 1:
+        raise ValueError(f"gather_packed_rows_q8: table must be int8 [N, "
+                         f"{packed_row_bytes(d, dc)}] packed rows")
+    if flat.dtype != torch.int32 or table.shape[0] == 0:
+        raise ValueError("gather_packed_rows_q8: int32 ids into a non-empty "
+                         "table")
+    m = flat.shape[0]
+    feats = torch.empty((m, d), dtype=torch.float32, device=device)
+    degs = torch.empty((m,), dtype=torch.float32, device=device)
+    cache = (torch.empty((m, dc), dtype=torch.float32, device=device)
+             if dc else None)
+    _build.launch("gather_rows_q8", "gigl_gather_packed_q8", device,
+                  table.data_ptr(), table.shape[0], table.shape[1], d, dc,
+                  flat.data_ptr(), m, feats.data_ptr(), _build.ptr(cache),
+                  degs.data_ptr())
+    _build.launches["gather_rows_q8_packed"] += 1
+    shape = tuple(ids.shape)
+    return (feats.reshape(shape + (d,)), degs.reshape(shape),
+            None if cache is None else cache.reshape(shape + (dc,)))
 
 
 @dataclass

@@ -24,7 +24,12 @@ analog of an RPC timeout that the trainers count as overflow.
 Kernels (``csrc/route.cu``): K15 ``route_requests`` (the counting-sort
 bucketing, bit-equal to :func:`_route_requests_plain`) and K16
 ``unroute_rows`` (bit-equal to :func:`_unroute_plain`); the twins run for
-CPU tensors only. The functions take the mesh and every shard's tensors
+CPU tensors only. A quantized partitioned graph's bit-packed int8 rows
+(``ops/quantized.py``) route with ``routed_gather(decode=(D, Dc))``: the
+owner side gathers the packed rows (K3, its byte mode at widths that are
+not a multiple of 4), and K16's int8 mode (:func:`unroute_rows_q8`)
+decodes each answer into fp32 features, cache and degree in the unroute
+pass; one shard gathers and decodes with K12's packed-row mode. The functions take the mesh and every shard's tensors
 as per-shard lists (entry p is shard p's), since a routed lookup needs
 every shard's requests at once; the answering side takes its ``shard``
 index explicitly.
@@ -39,6 +44,11 @@ import torch
 
 from gigl_tpu_torch.ops import _build
 from gigl_tpu_torch.ops.gather import gather_rows
+from gigl_tpu_torch.ops.quantized import (
+    decode_packed_rows,
+    gather_packed_rows_q8,
+    packed_row_bytes,
+)
 from gigl_tpu_torch.parallel.mesh import Mesh
 from gigl_tpu_torch.sampling.neighbor_sampler import (
     sample_uniform,
@@ -160,6 +170,51 @@ def unroute_rows(back: torch.Tensor, owner: torch.Tensor, pos: torch.Tensor,
     return out
 
 
+def _unroute_q8_plain(back: torch.Tensor, owner: torch.Tensor,
+                      pos: torch.Tensor, ok: torch.Tensor, feat_dim: int,
+                      cache_dim: int = 0):
+    """Plain twin of K16's int8 mode: :func:`_unroute_plain`, then
+    ``decode_packed_rows`` (a dropped request's zero row decodes to 0)."""
+    return decode_packed_rows(_unroute_plain(back, owner, pos, ok), feat_dim,
+                              cache_dim)
+
+
+def unroute_rows_q8(back: torch.Tensor, owner: torch.Tensor,
+                    pos: torch.Tensor, ok: torch.Tensor, feat_dim: int,
+                    cache_dim: int = 0
+                    ) -> Tuple[torch.Tensor, torch.Tensor,
+                               Optional[torch.Tensor]]:
+    """K16's int8 mode: each request's bit-packed int8 answer row
+    ``back[owner, min(pos, C - 1)]`` ([P, C, W], W = D + 8 or D + Dc + 12)
+    decoded in the same pass -> (features [G, D], degrees [G], cache [G,
+    Dc] or None), fp32, zero where the request overflowed; the packed [G,
+    W] rows are never written. CPU tensors take the plain twin."""
+    if back.device.type == "cpu":
+        return _unroute_q8_plain(back, owner, pos, ok, feat_dim, cache_dim)
+    back = back.contiguous()
+    device = _build.require_cuda("unroute_rows", back, owner, pos, ok)
+    d, dc = int(feat_dim), int(cache_dim)
+    g = owner.shape[0]
+    if (back.dtype != torch.int8 or back.dim() != 3
+            or back.shape[2] != packed_row_bytes(d, dc) or d < 1
+            or owner.dtype != torch.int32 or pos.dtype != torch.int32
+            or ok.dtype != torch.bool or pos.shape != (g,)
+            or ok.shape != (g,)):
+        raise ValueError(f"unroute_rows_q8: back int8 [P, C, "
+                         f"{packed_row_bytes(d, dc)}]; owner, pos int32 and "
+                         "ok bool, all [G]")
+    feats = torch.empty((g, d), dtype=torch.float32, device=device)
+    degs = torch.empty((g,), dtype=torch.float32, device=device)
+    cache = (torch.empty((g, dc), dtype=torch.float32, device=device)
+             if dc else None)
+    _build.launch("unroute_rows", "gigl_unroute_rows_q8", device,
+                  back.data_ptr(), back.shape[1], back.shape[2], d, dc,
+                  owner.data_ptr(), pos.data_ptr(), ok.data_ptr(), g,
+                  feats.data_ptr(), _build.ptr(cache), degs.data_ptr())
+    _build.launches["unroute_rows_q8"] += 1
+    return feats, degs, cache
+
+
 def _capacity(g: int, num_shards: int, capacity: Optional[int],
               factor: float) -> int:
     if capacity is None:
@@ -189,7 +244,8 @@ def _route_all(mesh: Mesh, global_ids: Sequence[torch.Tensor], rows: int,
 def answer_gather(shard: int, local_table: torch.Tensor,
                   recv: torch.Tensor) -> torch.Tensor:
     """Shard ``shard``'s answers to its requests ``recv`` [P, C] global
-    ids: its own rows (K3 over the [P * C] rows), [P, C, W]."""
+    ids: its own rows (K3 over the [P * C] rows; rows of any byte width,
+    such as bit-packed int8 rows), [P, C, W]."""
     rows = local_table.shape[0]
     local = (recv - shard * rows).clamp(0, rows - 1).to(torch.int32)
     vals, _ = gather_rows(local_table, local.reshape(-1))
@@ -203,26 +259,36 @@ def routed_gather(
     *,
     capacity: Optional[int] = None,
     capacity_factor: float = 2.0,
-) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    decode: Optional[Tuple[int, int]] = None,
+) -> Tuple[list, List[torch.Tensor]]:
     """Rows of a range-sharded table by GLOBAL row id, for every shard.
 
     ``local_tables[p]`` is shard p's [rows, W] block; ``global_ids[p]`` its
     [G] int32 request vector (each shard requests its own set; every shard
     the same G). Returns per shard (values [G, W], ok [G] bool); ``ok`` is
     False only for requests dropped by bucket overflow (rows zero-filled).
+    With ``decode=(D, Dc)`` the tables hold bit-packed int8 rows and each
+    shard's value is (features [G, D], degrees [G], cache [G, Dc] or None),
+    fp32, decoded in the unroute pass (K16's int8 mode): the reference's
+    ``split_rows`` of the gathered rows.
 
     One shard takes the reference's closed form: one K3 gather of the
-    clipped ids."""
+    clipped ids (K12's packed-row mode with ``decode``)."""
     p = mesh.num_shards
     rows = local_tables[0].shape[0]
     if p == 1:
         ids = global_ids[0].to(torch.int32).clamp(0, rows - 1)
-        return [gather_rows(local_tables[0], ids)[0]], [
-            torch.ones(ids.shape, dtype=torch.bool, device=ids.device)]
+        ok = [torch.ones(ids.shape, dtype=torch.bool, device=ids.device)]
+        if decode is not None:
+            return [gather_packed_rows_q8(local_tables[0], ids, *decode)], ok
+        return [gather_rows(local_tables[0], ids)[0]], ok
     recv, coords = _route_all(mesh, global_ids, rows, capacity,
                               capacity_factor)
     answers = [answer_gather(q, local_tables[q], recv[q]) for q in range(p)]
     back = mesh.all_to_all(answers)
+    if decode is not None:
+        return ([unroute_rows_q8(back[s], *coords[s], *decode)
+                 for s in range(p)], [c[2] for c in coords])
     return ([unroute_rows(back[s], *coords[s]) for s in range(p)],
             [c[2] for c in coords])
 

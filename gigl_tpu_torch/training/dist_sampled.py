@@ -1,7 +1,8 @@
-"""Sampled NALP training over a graph PARTITIONED across a mesh of shards
-(port of the homogeneous part of ``gigl_tpu/training/dist_sampled.py``:
-``_shard_csr``, ``apply_overflow_policy``, ``PartitionedGraph`` and
-``PartitionedNALPTrainer``, live sampling).
+"""Sampled training over a graph PARTITIONED across a mesh of shards (port
+of the homogeneous part of ``gigl_tpu/training/dist_sampled.py``:
+``_shard_csr``, ``apply_overflow_policy``, ``PartitionedGraph`` with its
+int8 rows and its tabularized layout, ``PartitionedNALPTrainer``, live and
+``cached_hop``, and ``PartitionedNodeClassificationTrainer``).
 
 Every shard holds only its 1/P range of the graph — the feature rows with
 the in-degree fused as the last column, and its blocks of the message,
@@ -25,16 +26,31 @@ is its own tensors):
   - the loss is the mean over shards (``pmean``); with one parameter set
     on one controller its gradient is the reference's pmean of gradients.
 
+``PartitionedGraph.build(quantize_features=True)`` stores the reference's
+bit-packed int8 rows ``[q D | scale_f | deg]`` (``D + 8`` bytes, the tail
+fp32 little-endian): the owner side gathers them (K3, its byte mode at
+widths that are not a multiple of 4) and K16's int8 mode decodes them after
+the all_to_all (K12's packed-row mode on one shard). ``with_tabularized``
+builds, per shard, the deepest-hop aggregate cache (each shard draws its
+own rows' ``fanouts[-1]`` slots with K1's / K19's row-offset mode, keyed by
+global id; the neighbor rows come by the routed gather and K4 reduces
+them; an int8 graph quantizes each chunk's aggregates on the device) fused
+into the rows, and the frozen sample tables; the ``cached_hop`` trainers
+expand the tree through those tables (K3's expand mode on one shard, one
+routed gather a hop for every group at P > 1) and feed the cache to layer 1.
+``PartitionedNodeClassificationTrainer`` takes the mean of the per-shard
+cross entropies, its labels routed from the row-sharded label column (a
+dropped request masked out of the loss and the accuracy).
+
 With capacity sized so no request overflows, a P-shard step computes the
 same sample trees as P independent replicated steps on the per-shard
 anchor slices with shared random negatives (the draws are keyed by global
 id). One shard takes the closed forms of the routed lookups (plain K1 /
-K3 calls, no collective), so its union gather is one K3 call.
+K3 calls, no collective), so its union gather is one K3 call (one K12
+packed-row gather over int8 rows).
 
-Not ported (ROADMAP A15, rest): the node-classification trainer, the
-tabularized partitioned layout (``cached_hop``), int8 rows, node labels
-and label-edge features on the partitioned graph, and the ring's
-own-block edge bias.
+Not ported (ROADMAP A15, rest): label-edge features on the partitioned
+graph, and the ring's own-block edge bias.
 """
 
 from __future__ import annotations
@@ -53,24 +69,38 @@ from gigl_tpu_torch.losses.count_min_sketch import (
     cms_init,
     cms_sampling_probability,
 )
-from gigl_tpu_torch.losses.metrics import hits_at_k, mean_reciprocal_rank
+from gigl_tpu_torch.losses.losses import cross_entropy_loss
+from gigl_tpu_torch.losses.metrics import (
+    accuracy,
+    hits_at_k,
+    mean_reciprocal_rank,
+)
 from gigl_tpu_torch.losses.sharded_retrieval import (
     ring_blocks,
     ring_candidate_pool,
     ring_retrieval_loss,
 )
+from gigl_tpu_torch.models.encoders import cached_agg_kind
 from gigl_tpu_torch.models.init import init_params
 from gigl_tpu_torch.models.link_prediction import DecoderType, _unit
+from gigl_tpu_torch.ops.fanout import masked_reduce
+from gigl_tpu_torch.ops.gather import expand_table
+from gigl_tpu_torch.ops.hopcache import CACHEABLE_AGGS
+from gigl_tpu_torch.ops.quantized import decode_packed_rows
 from gigl_tpu_torch.parallel.feature_lookup import (
+    answer_draw,
+    owner_draw,
     routed_gather,
     routed_sample_neighbors,
 )
 from gigl_tpu_torch.parallel.mesh import Mesh
 from gigl_tpu_torch.training.dataset import (
+    AnchorBatchIterator,
     DeviceGraph,
     NALPBatch,
     draw_random_negatives,
 )
+from gigl_tpu_torch.training.early_stop import EarlyStopper
 from gigl_tpu_torch.training.trainer import (
     NALPTrainerConfig,
     TrainState,
@@ -157,11 +187,20 @@ class PartitionedGraph:
 
     feat_deg[p]: [rows, D + 1] fp32 — shard p's feature rows with the
     node's message in-degree fused as the LAST column, so hydration and
-    the degree lookup are one routed gather. msg_* / sup_* / hard_*: the
-    per-shard CSR blocks of :func:`_shard_csr` (supervision and hard
-    negatives None when the graph has none). msg_weights[p]: [E_pad] fp32,
-    shard p's message-edge sampling weights in slot order (None when the
-    graph has none)."""
+    the degree lookup are one routed gather. With ``quantized``: [rows, D +
+    8] int8 — per-row symmetric int8 features with the fp32 scale and the
+    fp32 degree bit-packed little-endian into the last 8 bytes (the
+    reference's layout, 4x fewer bytes per shard and per all_to_all).
+    With the deepest-hop cache fused in (``cache_dim`` Dc > 0,
+    :meth:`with_tabularized`): fp32 ``[feat D | deg | cache Dc]``, int8
+    ``[qfeat D | qcache Dc | scale_f | scale_c | deg]``. msg_* / sup_* /
+    hard_*: the per-shard CSR blocks of :func:`_shard_csr` (supervision and
+    hard negatives None when the graph has none). msg_weights[p]: [E_pad]
+    fp32, shard p's message-edge sampling weights in slot order (None when
+    the graph has none). labels[p]: [rows, 1] int32 node labels (None
+    without). sample_tables: one per-shard list of [rows, k] int32 frozen
+    sample tables (-1 in invalid slots) per distinct in-tree fanout, in
+    the ascending order of ``table_fanouts``."""
 
     feat_deg: List[torch.Tensor]
     msg_indptr: List[torch.Tensor]
@@ -174,6 +213,11 @@ class PartitionedGraph:
     rows_per_shard: int
     feat_dim: int
     msg_weights: Optional[List[torch.Tensor]] = None
+    quantized: bool = False
+    labels: Optional[List[torch.Tensor]] = None
+    cache_dim: int = 0
+    sample_tables: Optional[Tuple[List[torch.Tensor], ...]] = None
+    table_fanouts: Optional[Tuple[int, ...]] = None
 
     @property
     def num_shards(self) -> int:
@@ -187,16 +231,14 @@ class PartitionedGraph:
     def build(cls, device_graph: DeviceGraph, mesh: Mesh,
               quantize_features: bool = False) -> "PartitionedGraph":
         """Partition a DeviceGraph across ``mesh``'s shards, onto the
-        mesh's device (CUDA unless the mesh was made for the CPU)."""
+        mesh's device (CUDA unless the mesh was made for the CPU); with
+        ``quantize_features`` the rows are the reference's bit-packed int8
+        rows, quantized on the host with its numpy recipe."""
         dg = device_graph
-        if quantize_features or not isinstance(dg.node_features,
-                                               torch.Tensor):
-            raise NotImplementedError(
-                f"int8 partitioned feature rows {A15_REST}")
-        if dg.node_labels is not None:
-            raise NotImplementedError(
-                f"node labels on a PartitionedGraph (the partitioned "
-                f"node-classification trainer) {A15_REST}")
+        if not isinstance(dg.node_features, torch.Tensor):
+            raise ValueError(
+                "PartitionedGraph.build takes a DeviceGraph with fp32 node "
+                "features; quantize_features=True stores int8 rows")
         if (dg.sup_edge_features is not None
                 or dg.hard_neg_edge_features is not None):
             raise NotImplementedError(
@@ -208,9 +250,27 @@ class PartitionedGraph:
         d = feats.shape[1]
         deg = (dg.degrees.cpu().numpy().astype(np.float32)
                if dg.degrees is not None else np.zeros((n,), np.float32))
-        fd = np.zeros((p * rows, d + 1), np.float32)
-        fd[:n, :d] = feats
-        fd[:n, d] = deg
+        if quantize_features:
+            absmax = np.maximum(np.abs(feats).max(axis=1, keepdims=True),
+                                1e-12)
+            scale = (absmax / 127.0).astype(np.float32)          # [n, 1]
+            q = np.clip(np.rint(feats / scale), -127, 127).astype(np.int8)
+            tail = np.concatenate(
+                [scale.view(np.uint8).reshape(n, 4),
+                 deg.astype(np.float32).reshape(n, 1).view(
+                     np.uint8).reshape(n, 4)], axis=1).view(np.int8)
+            fd = np.zeros((p * rows, d + 8), np.int8)
+            fd[:n, :d] = q
+            fd[:n, d:] = tail
+        else:
+            fd = np.zeros((p * rows, d + 1), np.float32)
+            fd[:n, :d] = feats
+            fd[:n, d] = deg
+        labels = None
+        if dg.node_labels is not None:
+            lab = np.zeros((p * rows, 1), np.int32)
+            lab[:n, 0] = dg.node_labels.cpu().numpy().astype(np.int32)
+            labels = _per_shard(lab.reshape(p, rows, 1), mesh.device)
 
         def blocks(csr):
             """The CSR's per-shard blocks (indptr, indices and, when it has
@@ -227,24 +287,162 @@ class PartitionedGraph:
         msg_ip, msg_ix, msg_w = blocks(dg.message_csr)
         sup_ip, sup_ix, _ = blocks(dg.supervision_csr)
         hard_ip, hard_ix, _ = blocks(dg.hard_neg_csr)
-        return cls(feat_deg=_per_shard(fd.reshape(p, rows, d + 1),
-                                       mesh.device),
+        return cls(feat_deg=_per_shard(fd.reshape(p, rows, -1), mesh.device),
                    msg_indptr=msg_ip, msg_indices=msg_ix,
                    sup_indptr=sup_ip, sup_indices=sup_ix,
                    hard_indptr=hard_ip, hard_indices=hard_ix,
                    num_nodes=n, rows_per_shard=rows, feat_dim=d,
-                   msg_weights=msg_w)
+                   msg_weights=msg_w, quantized=bool(quantize_features),
+                   labels=labels)
 
     def decode_rows(self, rows: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Gathered table rows -> (features [G, D], degrees [G])."""
+        """Gathered table rows of the uncached layout -> (features [G, D]
+        fp32, degrees [G]); int8 rows dequantize by their packed scale."""
         d = self.feat_dim
-        return rows[:, :d], rows[:, d]
+        if not self.quantized:
+            return rows[:, :d], rows[:, d]
+        return decode_packed_rows(rows, d)[:2]
 
-    def with_tabularized(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"PartitionedGraph.with_tabularized (the partitioned cached_hop "
-            f"layout) {A15_REST}")
+    def split_rows(self, rows: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                              Optional[torch.Tensor]]:
+        """Gathered table rows -> (features [G, D], degrees [G], cache [G,
+        Dc] or None) for either layout (see ``cache_dim``)."""
+        d, dc = self.feat_dim, self.cache_dim
+        if self.quantized:
+            return decode_packed_rows(rows, d, dc)
+        if dc == 0:
+            return rows[:, :d], rows[:, d], None
+        return rows[:, :d], rows[:, d], rows[:, d + 1:]
+
+    def gather_split(self, mesh: Mesh, ids: Sequence[torch.Tensor],
+                     capacity_factor: float):
+        """Every shard's ``ids`` rows split as :meth:`split_rows` does, by
+        one routed gather (int8 rows decoded in its unroute pass, K16's int8
+        mode, or K12's packed-row mode on one shard): (per shard (features,
+        degrees, cache or None), per shard ok)."""
+        if self.quantized:
+            return routed_gather(mesh, self.feat_deg, ids,
+                                 capacity_factor=capacity_factor,
+                                 decode=(self.feat_dim, self.cache_dim))
+        rows, ok = routed_gather(mesh, self.feat_deg, ids,
+                                 capacity_factor=capacity_factor)
+        return [self.split_rows(r) for r in rows], ok
+
+    def with_tabularized(
+        self,
+        mesh: Mesh,
+        *,
+        fanouts: Sequence[int],
+        agg: str = "mean",
+        seed: int = 0,
+        capacity_factor: float = 4.0,
+        chunk: int = 4096,
+        method: str = "uniform",
+    ) -> "PartitionedGraph":
+        """A copy with the tabularized tables built SHARDED over the mesh
+        (the partitioned analog of ``DeviceGraph.with_neighbor_cache``).
+
+        Per shard: the deepest-hop aggregate cache — the shard draws
+        ``fanouts[-1]`` neighbors for each of its own rows (K1's or, with
+        ``method`` weighted / top_k, K19's row-offset mode at hop
+        ``len(fanouts)``, keyed by the global id, so the draws are the
+        replicated builder's), hydrates them by the routed gather and
+        reduces them with K4 (mean | sum; gcn: the rows scaled by
+        rsqrt(deg + 1), then summed), ``chunk`` rows a round as the
+        reference does — fused into the feature rows; on an int8 graph each
+        chunk's aggregates are quantized on the device (``torch.round``,
+        half to even as ``jnp.round``), so the fp32 cache never exists
+        whole. And one frozen [rows, k] sample table per distinct fanout in
+        ``fanouts[:-1]`` (hop 1, -1 in invalid slots). Raises if the
+        cache's routed gather dropped a request."""
+        if method != "uniform" and self.msg_weights is None:
+            raise ValueError(f"method={method!r} needs a PartitionedGraph "
+                             f"built from a DeviceGraph with edge weights")
+        if self.cache_dim:
+            raise ValueError(
+                "already tabularized; rebuild (refresh) from the base "
+                "PartitionedGraph — the trainer keeps it as pg_base")
+        if agg not in CACHEABLE_AGGS:
+            raise ValueError(f"agg={agg!r} not in {CACHEABLE_AGGS}")
+        if len(fanouts) < 2:
+            raise ValueError("tabularized mode needs >= 2 hops (the deepest"
+                             " hop is cached, earlier hops use tables)")
+        if mesh.num_shards != self.num_shards or mesh.device != self.device:
+            raise ValueError("the graph is not partitioned over this mesh")
+        p, rows, d = self.num_shards, self.rows_per_shard, self.feat_dim
+        k_last = int(fanouts[-1])
+        hop_key = len(fanouts)
+        tab_ks = tuple(sorted({int(k) for k in fanouts[:-1]}))
+        chunk = min(chunk, rows)
+        n_chunks = -(-rows // chunk)
+        dev = self.device
+        w = self.msg_weights if method != "uniform" else [None] * p
+        local = torch.arange(n_chunks * chunk, dtype=torch.int32,
+                             device=dev).clamp(max=rows - 1)
+        parts: List[list] = [[] for _ in range(p)]
+        ovf = torch.zeros((), dtype=torch.int64, device=dev)
+        with torch.no_grad():
+            for c in range(n_chunks):
+                lid = local[c * chunk:(c + 1) * chunk]
+                drawn = [owner_draw(self.msg_indptr[s], self.msg_indices[s],
+                                    lid + s * rows, k_last, s * rows, seed,
+                                    hop_key, method, w[s])[:2]
+                         for s in range(p)]
+                vals, oks = self.gather_split(
+                    mesh, [nbr.reshape(-1) for nbr, _ in drawn],
+                    capacity_factor)
+                for s in range(p):
+                    x, deg_n, _ = vals[s]
+                    # fp32 rows split into views: K4 reads contiguous rows
+                    x = x.contiguous().reshape(chunk, k_last, d)
+                    m = drawn[s][1] & oks[s].reshape(chunk, k_last)
+                    ovf = ovf + (~oks[s]).sum()
+                    if agg == "gcn":
+                        x = x * torch.rsqrt(
+                            deg_n.reshape(chunk, k_last) + 1.0)[..., None]
+                    if d % 4:
+                        # K4 reduces rows of 16-byte multiples: zero
+                        # columns pad an odd width and are cut off again
+                        x = torch.nn.functional.pad(x, (0, -d % 4))
+                    out = masked_reduce(x, m, "mean" if agg == "mean"
+                                        else "sum")[:, :d]
+                    if self.quantized:
+                        absmax = torch.clamp(
+                            out.abs().amax(dim=1, keepdim=True), min=1e-12)
+                        scale_c = absmax / 127.0
+                        out = (torch.clamp(torch.round(out / scale_c), -127,
+                                           127).to(torch.int8), scale_c)
+                    parts[s].append(out)
+            n_drop = int(ovf)
+            if n_drop:
+                raise RuntimeError(
+                    f"tabularized cache build dropped {n_drop} neighbor "
+                    f"feature requests (bucket capacity overflow); raise "
+                    f"capacity_factor above {capacity_factor}")
+            fused = []
+            for s in range(p):
+                fd = self.feat_deg[s]
+                if not self.quantized:
+                    fused.append(torch.cat(
+                        [fd, torch.cat(parts[s])[:rows]], dim=1))
+                    continue
+                qc = torch.cat([q_ for q_, _ in parts[s]])[:rows]
+                scale_c = torch.cat([s_ for _, s_ in parts[s]])[:rows, 0]
+                tail = fd[:, d:].contiguous().view(torch.float32)  # [rows, 2]
+                new_tail = torch.stack([tail[:, 0], scale_c, tail[:, 1]],
+                                       dim=1).contiguous().view(torch.int8)
+                fused.append(torch.cat([fd[:, :d], qc, new_tail], dim=1))
+            gids = [torch.arange(rows, dtype=torch.int32, device=dev) + s * rows
+                    for s in range(p)]
+            tables = tuple(
+                [answer_draw(self.msg_indptr[s], self.msg_indices[s],
+                             gids[s], k, s * rows, seed, 1, method, w[s])
+                 for s in range(p)] for k in tab_ks)
+        return dataclasses.replace(self, feat_deg=fused, cache_dim=d,
+                                   sample_tables=tables,
+                                   table_fanouts=tab_ks)
 
 
 Groups = List[List[Tuple[torch.Tensor, int]]]   # per shard: (roots, offset)
@@ -254,7 +452,9 @@ class PartitionedNALPTrainer:
     """NALP trainer whose graph and features live partitioned across the
     shards of a :class:`Mesh`; the model's one parameter set drives every
     shard. Anchors arrive as global [B] batches split over the shards
-    (B % P == 0)."""
+    (B % P == 0). With ``cached_hop`` the trainer keeps the given graph as
+    ``pg_base`` and trains over its :meth:`PartitionedGraph.with_tabularized`
+    copy (or over the given graph, when it is tabularized already)."""
 
     def __init__(self, model, pgraph: PartitionedGraph, mesh: Mesh,
                  config: NALPTrainerConfig,
@@ -262,18 +462,16 @@ class PartitionedNALPTrainer:
                  capacity_factor: float = 4.0,
                  overflow_policy: str = "warn"):
         p = mesh.num_shards
-        if config.num_random_negs % p:
+        if getattr(config, "num_random_negs", 0) % p:
             raise ValueError("num_random_negs must divide the mesh axis size")
-        if config.global_candidate_pool and config.loss_type != "retrieval":
+        if (getattr(config, "global_candidate_pool", False)
+                and getattr(config, "loss_type", "retrieval") != "retrieval"):
             raise ValueError("global_candidate_pool is a retrieval-loss "
                              "contract (ring sampled softmax); margin/"
                              "softmax losses use the per-shard pool")
         if overflow_policy not in OVERFLOW_POLICIES:
             raise ValueError(
                 "overflow_policy must be warn | raise | silent | grow")
-        if config.cached_hop:
-            raise NotImplementedError(
-                f"PartitionedNALPTrainer(cached_hop=True) {A15_REST}")
         if config.sampling_method != "uniform" and pgraph.msg_weights is None:
             raise ValueError(
                 f"method={config.sampling_method!r} needs a PartitionedGraph "
@@ -284,7 +482,6 @@ class PartitionedNALPTrainer:
         self.device = mesh.device
         self.num_shards = p
         self.model = model.to(self.device).eval()
-        self.pg = pgraph
         self.cfg = config
         self.optimizer_args = dict(optimizer_args or {})
         self.grad_clip_norm = 0.0
@@ -293,6 +490,16 @@ class PartitionedNALPTrainer:
         # Routed-lookup requests dropped by bucket overflow (the RPC-timeout
         # analog), over every train and eval chunk.
         self.overflow_total = 0
+        self.pg_base = pgraph
+        self._cached = bool(config.cached_hop)
+        if self._cached:
+            # a link-prediction model wraps its encoder; an NC model is one
+            enc = getattr(model, "encoder", model)
+            self._cache_agg = cached_agg_kind(enc.conv, enc.conv_kwargs)
+            self.pg = pgraph if pgraph.cache_dim else \
+                self._tabularized(config.seed)
+        else:
+            self.pg = pgraph
         rows = pgraph.rows_per_shard
         zeros = [torch.zeros((rows + 1,), dtype=torch.int32,
                              device=self.device) for _ in range(p)]
@@ -304,6 +511,20 @@ class PartitionedNALPTrainer:
                       pgraph.hard_indices or [torch.zeros(
                           (1,), dtype=torch.int32, device=self.device)
                           for _ in range(p)])
+
+    def _tabularized(self, seed: int) -> PartitionedGraph:
+        return self.pg_base.with_tabularized(
+            self.mesh, fanouts=self.cfg.fanouts, agg=self._cache_agg,
+            seed=seed, capacity_factor=self.capacity_factor,
+            method=self.cfg.sampling_method)
+
+    def refresh_cache(self, epoch: int = 0) -> None:
+        """Redraw the frozen tabularized tables and cache with the seed of
+        ``epoch`` (``cfg.seed + 1_299_709 * epoch``), the analog of
+        re-running the reference's Subgraph Sampler; a no-op unless
+        ``cached_hop``."""
+        if self._cached:
+            self.pg = self._tabularized(self.cfg.seed + 1_299_709 * epoch)
 
     # -- state -----------------------------------------------------------------
     def init_state(self, seed: int = 0, batch_size: Optional[int] = None,
@@ -319,8 +540,8 @@ class PartitionedNALPTrainer:
             self.model.load_state_dict(params)
         opt, self.grad_clip_norm = make_optimizer(self.optimizer_args,
                                                   self.model.parameters())
-        cms = cms_init(device=self.device) if self.cfg.use_cms_correction \
-            else None
+        cms = (cms_init(device=self.device)
+               if getattr(self.cfg, "use_cms_correction", False) else None)
         return TrainState(step=0, optimizer=opt, cms=cms)
 
     def _ids(self, node_ids) -> torch.Tensor:
@@ -340,13 +561,23 @@ class PartitionedNALPTrainer:
 
     # -- sampling and encoding -------------------------------------------------
     def _sample_tree(self, roots: Sequence[torch.Tensor], seed_offset: int):
-        """Every shard's live fanout tree from its ``roots`` (owner-routed
-        draws, hop index from 1): (node ids per shard per level, masks,
-        dropped requests)."""
+        """Every shard's fanout tree from its ``roots``: (node ids per shard
+        per level, masks, dropped requests). Live: owner-routed draws, hop
+        index from 1. Tabularized (one shard; see
+        :meth:`_sample_trees_joint`): one K3 expand a hop through the frozen
+        tables, a hop shallower (layer 1 reads the cache)."""
         ids = [[r.reshape(-1).to(torch.int32)] for r in roots]
         masks = [[torch.ones(i[0].shape, dtype=torch.bool,
                              device=self.device)] for i in ids]
         ovf = self._zero()
+        if self._cached:
+            for k in self.cfg.fanouts[:-1]:
+                table = self.pg.sample_tables[
+                    self.pg.table_fanouts.index(int(k))][0]
+                nbr, m = expand_table(table, ids[0][-1], masks[0][-1])
+                ids[0].append(nbr)
+                masks[0].append(m)
+            return ids, masks, ovf
         for hop, k in enumerate(self.cfg.fanouts, start=1):
             nbr, m, ok = routed_sample_neighbors(
                 self.mesh, self.pg.msg_indptr, self.pg.msg_indices,
@@ -363,18 +594,71 @@ class PartitionedNALPTrainer:
                 masks[s].append(m_s)
         return ids, masks, ovf
 
-    def _encode(self, rows: torch.Tensor, levels, masks, roots_shape,
-                train: bool, generator):
-        """Encode one group of one shard from its gathered level rows."""
+    def _sample_trees_joint(self, groups: "Groups"):
+        """Tabularized expansion at P > 1 for ALL groups: each shard's group
+        roots concatenated into one frontier, one routed gather of the
+        frozen table a hop (one round trip a hop for every group), then the
+        levels split back into each group's tree. Returns (trees, one
+        (ids, masks) per group with ids[shard][level], dropped requests)."""
+        p = self.num_shards
+        n_groups = len(groups[0])
+        roots = [[groups[s][g][0].reshape(-1).to(torch.int32)
+                  for g in range(n_groups)] for s in range(p)]
+        frontier = [torch.cat(r) for r in roots]
+        pmask = [torch.ones(f.shape, dtype=torch.bool, device=self.device)
+                 for f in frontier]
+        levels = [(frontier, pmask)]
+        ovf = self._zero()
+        for k in self.cfg.fanouts[:-1]:
+            table = self.pg.sample_tables[self.pg.table_fanouts.index(int(k))]
+            rows, ok = routed_gather(self.mesh, table, frontier,
+                                     capacity_factor=self.capacity_factor)
+            nxt, nmask = [], []
+            for s in range(p):
+                ovf = ovf + (~ok[s]).sum(dtype=torch.int32)
+                m = (rows[s] >= 0) & pmask[s][:, None] & ok[s][:, None]
+                nxt.append(torch.where(m, rows[s], 0).reshape(-1))
+                nmask.append(m.reshape(-1))
+            frontier, pmask = nxt, nmask
+            levels.append((frontier, pmask))
+        trees = []
+        offs = [0] * len(levels)
+        for g in range(n_groups):
+            ids = [[] for _ in range(p)]
+            masks = [[] for _ in range(p)]
+            shape = tuple(roots[0][g].shape)
+            for li, (flat, fmask) in enumerate(levels):
+                n_elem = int(np.prod(shape))
+                for s in range(p):
+                    ids[s].append(flat[s][offs[li]:offs[li] + n_elem]
+                                  .reshape(shape))
+                    masks[s].append(fmask[s][offs[li]:offs[li] + n_elem]
+                                    .reshape(shape))
+                offs[li] += n_elem
+                if li < len(levels) - 1:
+                    shape = shape + (int(self.cfg.fanouts[li]),)
+            trees.append((ids, masks))
+        return trees, ovf
+
+    def _encode(self, vals, levels, masks, roots_shape, train: bool,
+                generator):
+        """Encode one group of one shard from its hydrated rows ``vals``
+        (features, degrees, cache or None)."""
+        feat_rows, deg_rows, cache_rows = vals
         d = self.pg.feat_dim
-        feats, degs = [], []
+        feats, degs, cached = [], [], []
         offset = 0
         for lvl in levels:
-            f, deg = self.pg.decode_rows(rows[offset: offset + lvl.numel()])
+            sl = slice(offset, offset + lvl.numel())
             offset += lvl.numel()
-            feats.append(f.contiguous().reshape(tuple(lvl.shape) + (d,)))
-            degs.append(deg.reshape(lvl.shape))
+            shape = tuple(lvl.shape)
+            feats.append(feat_rows[sl].contiguous().reshape(shape + (d,)))
+            degs.append(deg_rows[sl].reshape(shape))
+            if cache_rows is not None:
+                cached.append(cache_rows[sl].contiguous().reshape(
+                    shape + (self.pg.cache_dim,)))
         emb = self.model(feats, masks, None, train=train, hop_degrees=degs,
+                         cached_agg=cached if self._cached else None,
                          generator=generator)
         return emb.reshape(tuple(roots_shape) + (emb.shape[-1],))
 
@@ -387,25 +671,28 @@ class PartitionedNALPTrainer:
         gens = list(generators) if generators is not None else [None] * p
         n_groups = len(groups[0])
         outs: List[List[torch.Tensor]] = [[] for _ in range(p)]
-        ovf = self._zero()
-        trees = []
-        for g in range(n_groups):
-            ids, masks, o = self._sample_tree(
-                [groups[s][g][0] for s in range(p)], groups[0][g][1])
-            trees.append((ids, masks))
-            ovf = ovf + o
+        if self._cached and p > 1:
+            trees, ovf = self._sample_trees_joint(groups)
+        else:
+            trees, ovf = [], self._zero()
+            for g in range(n_groups):
+                ids, masks, o = self._sample_tree(
+                    [groups[s][g][0] for s in range(p)], groups[0][g][1])
+                trees.append((ids, masks))
+                ovf = ovf + o
         union = [torch.cat([lvl.reshape(-1) for ids, _ in trees
                             for lvl in ids[s]]) for s in range(p)]
-        rows, ok = routed_gather(self.mesh, self.pg.feat_deg, union,
-                                 capacity_factor=self.capacity_factor)
+        vals, ok = self.pg.gather_split(self.mesh, union,
+                                        self.capacity_factor)
         for s in range(p):
             ovf = ovf + (~ok[s]).sum(dtype=torch.int32)
             offset = 0
             for g, (ids, masks) in enumerate(trees):
                 n = sum(lvl.numel() for lvl in ids[s])
+                sl = slice(offset, offset + n)
                 outs[s].append(self._encode(
-                    rows[s][offset: offset + n], ids[s], masks[s],
-                    groups[s][g][0].shape, train, gens[s]))
+                    tuple(None if v is None else v[sl] for v in vals[s]),
+                    ids[s], masks[s], groups[s][g][0].shape, train, gens[s]))
                 offset += n
         return outs, ovf
 
@@ -689,3 +976,127 @@ class PartitionedNALPTrainer:
             early_stop_patience=early_stop_patience, log_every=log_every,
             scalar_logger=scalar_logger, checkpoint_dir=checkpoint_dir,
             num_shards=self.num_shards)
+
+
+class PartitionedNodeClassificationTrainer(PartitionedNALPTrainer):
+    """Supervised node classification over the PARTITIONED graph (the
+    reference's v2 loader serves node classification through the same
+    routed sampling and hydration as link prediction). Each shard encodes
+    its slice of the anchors, its labels come by a routed gather of the
+    row-sharded label column (a dropped request is masked out of the cross
+    entropy and the accuracy), and the loss is the mean of the per-shard
+    mean cross entropies. The model is an encoder whose output width is
+    the number of classes; ``config`` a ``NodeClassificationTrainerConfig``
+    (fanouts, seed, ``cached_hop``, ``sampling_method``). The draws are keyed
+    as the replicated ``NodeClassificationTrainer``'s (the config's seed on
+    every step)."""
+
+    def __init__(self, model, pgraph: PartitionedGraph, mesh: Mesh, config,
+                 optimizer_args: Optional[Dict[str, Any]] = None,
+                 capacity_factor: float = 4.0,
+                 overflow_policy: str = "warn"):
+        if pgraph.labels is None:
+            raise ValueError("PartitionedGraph has no labels; build from a "
+                             "DeviceGraph with node_labels")
+        super().__init__(model, pgraph, mesh, config,
+                         optimizer_args=optimizer_args,
+                         capacity_factor=capacity_factor,
+                         overflow_policy=overflow_policy)
+
+    def _logits(self, nodes, train: bool, generators=None):
+        """Every shard's (logits, labels, ok) for its slice of the global
+        ``nodes``, and the routed requests dropped."""
+        parts = self._split(self._ids(nodes).reshape(-1))
+        embs, ovf = self._encode_groups([[(part, 0)] for part in parts],
+                                        train, generators)
+        labels, ok = routed_gather(self.mesh, self.pg.labels, parts,
+                                   capacity_factor=self.capacity_factor)
+        ovf = ovf + sum((~o).sum(dtype=torch.int32) for o in ok)
+        return [(e[0], lab[:, 0], o) for e, lab, o in zip(embs, labels, ok)], \
+            ovf
+
+    def loss_and_overflow(self, nodes, generators=None):
+        """(train-mode loss of the global ``nodes``: the mean over shards of
+        each shard's mean cross entropy over its labeled requests,
+        differentiable in the model's weights; the requests dropped)."""
+        out, ovf = self._logits(nodes, True, generators)
+        losses = []
+        for logits, labels, ok in out:
+            s, c = cross_entropy_loss(logits, labels, mask=ok)
+            losses.append(s / torch.clamp(c.to(torch.float32), min=1.0))
+        return self.mesh.pmean(losses)[0], ovf
+
+    def _step(self, state: TrainState, nodes: torch.Tensor, generators):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, ovf = self.loss_and_overflow(nodes, generators)
+        loss.backward()
+        if self.grad_clip_norm > 0:
+            clip_by_global_norm_(self.model.parameters(), self.grad_clip_norm)
+        state.optimizer.step()
+        return state._replace(step=state.step + 1), loss.detach(), ovf
+
+    def evaluate(self, node_batches) -> float:
+        """Global accuracy over ``node_batches`` (each cut to a multiple of
+        the shard count); one host sync at the end."""
+        parts = []
+        with torch.inference_mode():
+            for b in node_batches:
+                b = np.asarray(b)
+                b = b[: len(b) // self.num_shards * self.num_shards]
+                if not len(b):
+                    continue
+                out, ovf = self._logits(b, False)
+                scores = [accuracy(lg, lab, mask=ok) for lg, lab, ok in out]
+                parts.append((self.mesh.psum([c for c, _ in scores])[0],
+                              self.mesh.psum([n for _, n in scores])[0], ovf))
+            if parts:
+                correct, total, ovf = (torch.stack(x).sum().cpu()
+                                       for x in zip(*parts))
+        if not parts:
+            return 0.0
+        apply_overflow_policy(self, int(ovf))
+        return float(correct) / max(float(total), 1.0)
+
+    def predict_batch(self, node_ids) -> torch.Tensor:
+        """Logits of ``node_ids`` over the partitioned graph (the inference
+        path: ``encode_batch``)."""
+        return self.encode_batch(node_ids)
+
+    def fit(self, state: TrainState, train_nodes, val_nodes, *,
+            batch_size: int, num_epochs: int = 10,
+            early_stop_patience: int = 5, log_every: int = 50
+            ) -> Tuple[TrainState, Dict[str, float]]:
+        """Epochs of shuffled train batches (``AnchorBatchIterator``), a val
+        accuracy after each (the val nodes wrapped up to a multiple of the
+        shard count, as the reference pads them), early stopping on it; the
+        best weights are loaded back. Returns the best val accuracy."""
+        p = self.num_shards
+        if batch_size % p:
+            raise ValueError(f"batch_size {batch_size} must divide the "
+                             f"{p}-shard mesh axis")
+        val = np.asarray(val_nodes)
+        if len(val) == 0:
+            raise ValueError("val_nodes is empty")
+        val = np.resize(val, -(-len(val) // p) * p)
+        it = AnchorBatchIterator(np.asarray(train_nodes), batch_size,
+                                 seed=self.cfg.seed)
+        stopper = EarlyStopper(patience=early_stop_patience)
+        generator = torch.Generator(device=self.device).manual_seed(
+            self.cfg.seed)
+        step = 0
+        for epoch in range(num_epochs):
+            batches = np.stack(list(it.epoch(epoch)))
+            state, losses = self.train_steps(state, batches, generator)
+            step += len(batches)
+            if log_every:
+                logger.info("epoch %d step %d loss %.4f", epoch, step,
+                            float(losses[-1]))
+            acc = self.evaluate([val])
+            logger.info("epoch %d val acc %.4f", epoch, acc)
+            snap = {k: v.detach().clone()
+                    for k, v in self.model.state_dict().items()}
+            if stopper.update(acc, snap):
+                break
+        if stopper.best_state is not None:
+            self.model.load_state_dict(stopper.best_state)
+        return state, {"accuracy": stopper.best_value or 0.0}

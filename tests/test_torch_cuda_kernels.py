@@ -188,8 +188,10 @@ from gigl_tpu_torch.parallel.partition import shard_features_rowwise
 from gigl_tpu_torch.parallel.mesh import Mesh
 from gigl_tpu_torch.ops.quantized import (
     QuantizedTable,
+    _gather_packed_rows_q8_plain,
     _gather_rows_q8_many_plain,
     _gather_rows_q8_plain,
+    gather_packed_rows_q8,
     gather_rows_q8,
     gather_rows_q8_many,
 )
@@ -4098,3 +4100,244 @@ def test_encode_coo_with_edges_bf16_on_card_matches_cpu(dev, conv):
         res[device.type] = out.detach().float().cpu()
     a, b = res["cuda"], res["cpu"]
     assert float((a - b).abs().max()) <= 2e-2 * float(b.abs().max())
+
+
+
+# -- the quantized partitioned graph's bit-packed int8 rows --------------------
+
+def _packed_rows(n, d, dc, seed=0):
+    """[n, D + 8] (or [n, D + Dc + 12]) bit-packed int8 rows: random int8
+    values, positive fp32 scales and integer degrees in the tail, each
+    word little-endian (the reference's layout)."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(-127, 128, (n, d + dc)).astype(np.int8)
+    words = [rng.random((n, 1)).astype(np.float32) / 50]
+    if dc:
+        words.append(rng.random((n, 1)).astype(np.float32) / 20)
+    words.append(rng.integers(0, 300, (n, 1)).astype(np.float32))
+    tail = np.concatenate(words, axis=1).view(np.int8)
+    return torch.from_numpy(np.ascontiguousarray(
+        np.concatenate([q, tail], axis=1)))
+
+
+def _equal3(got, want):
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert g.dtype == torch.float32 and torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.parametrize("d,dc", [(13, 0), (13, 13), (16, 0), (16, 16),
+                                  (128, 0), (128, 128), (5, 3)])
+@pytest.mark.parametrize("num_shards,cap", [(1, 300), (4, 40)])
+def test_unroute_rows_q8_bit_equal(dev, d, dc, num_shards, cap):
+    """K16's int8 mode against its twin at odd and flagship widths, with
+    and without the cache: the decoded features, degrees and cache
+    bit-equal; zeros for dropped requests (cap 40 overflows); the packed
+    rows read at any byte alignment (D 13: 21- and 38-byte rows)."""
+    ids = _route_ids(300, num_shards * 100, seed=d + dc)
+    _, owner, pos, ok = fl._route_requests_plain(ids, 100, num_shards, cap)
+    back = _packed_rows(num_shards * cap, d, dc, seed=d).reshape(
+        num_shards, cap, -1)
+    want = fl._unroute_q8_plain(back, owner, pos, ok, d, dc)
+    before = _build.launches["unroute_rows_q8"]
+    got = fl.unroute_rows_q8(back.to(dev), owner.to(dev), pos.to(dev),
+                             ok.to(dev), d, dc)
+    assert _build.launches["unroute_rows_q8"] == before + 1
+    _equal3(got, want)
+    if cap == 40:
+        assert not bool(ok.all())
+        assert float(got[0][~ok.to(dev)].abs().sum()) == 0.0
+    empty = fl.unroute_rows_q8(back.to(dev), *(t[:0].to(dev)
+                                               for t in (owner, pos, ok)),
+                               d, dc)
+    assert empty[0].shape == (0, d) and empty[1].shape == (0,)
+
+
+@pytest.mark.parametrize("d,dc", [(13, 0), (13, 13), (16, 16), (128, 0),
+                                  (128, 128)])
+def test_gather_packed_rows_q8_bit_equal(dev, d, dc):
+    """K12's packed-row mode against its twin: ids out of range clamped
+    into [0, N - 1] (as XLA's gather clamps), a 2-D id shape."""
+    table = _packed_rows(N, d, dc, seed=d + 1)
+    ids = _route_ids(600, N, seed=d).reshape(20, 30)
+    want = _gather_packed_rows_q8_plain(table, ids, d, dc)
+    before = _build.launches["gather_rows_q8_packed"]
+    got = gather_packed_rows_q8(table.to(dev), ids.to(dev), d, dc)
+    assert _build.launches["gather_rows_q8_packed"] == before + 1
+    assert got[0].shape == (20, 30, d) and got[1].shape == (20, 30)
+    _equal3(got, want)
+
+
+def test_packed_q8_modes_graph_replay(dev):
+    """K16's int8 mode and K12's packed-row mode captured in one CUDA graph
+    and replayed over new ids equal the eager calls and the twins."""
+    d, dc, p, cap = 13, 13, 4, 64
+    back = _packed_rows(p * cap, d, dc, seed=5).reshape(p, cap, -1).to(dev)
+    table = _packed_rows(N, d, dc, seed=6).to(dev)
+    ids = _route_ids(200, p * 100, seed=7).to(dev)
+    _, owner, pos, ok = fl.route_requests(ids, 100, p, cap)
+    gids = _route_ids(300, N, seed=8).to(dev)
+
+    def both():
+        return (fl.unroute_rows_q8(back, owner, pos, ok, d, dc),
+                gather_packed_rows_q8(table, gids, d, dc))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = both()
+    ids.copy_(_route_ids(200, p * 100, seed=9).to(dev))
+    _, o2, p2, k2 = fl.route_requests(ids, 100, p, cap)
+    owner.copy_(o2)
+    pos.copy_(p2)
+    ok.copy_(k2)
+    gids.copy_(_route_ids(300, N, seed=10).to(dev))
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = both()
+    for c, e in zip(captured, eager):
+        _equal3(c, e)
+    _equal3(captured[0], fl._unroute_q8_plain(
+        back.cpu(), owner.cpu(), pos.cpu(), ok.cpu(), d, dc))
+    _equal3(captured[1], _gather_packed_rows_q8_plain(table.cpu(),
+                                                      gids.cpu(), d, dc))
+
+
+@pytest.mark.parametrize("width,stride", [(21, 21), (38, 38), (13, 40),
+                                          (7, 7), (136, 136)])
+def test_gather_rows_byte_widths_bit_equal(dev, width, stride):
+    """K3 over int8 rows of any byte width and stride (its byte mode where
+    the width, stride or base is not a multiple of 4 bytes; 136 the word
+    form) against the plain gather."""
+    base = torch.from_numpy(np.random.default_rng(width).integers(
+        -128, 128, (N, stride)).astype(np.int8))
+    table = base[:, :width]
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, N, 900).astype(np.int32))
+    before = _build.launches["gather_rows_bytes"]
+    got, vals = gather_rows(base.to(dev)[:, :width], ids.to(dev))
+    assert vals is None
+    assert torch.equal(got.cpu(), table[ids.long()])
+    word = width % 4 == 0 and stride % 4 == 0
+    assert _build.launches["gather_rows_bytes"] == before + (not word)
+
+
+def _labeled_graph(device, d=13, seed=14):
+    rng = np.random.default_rng(seed)
+    src, dst = rng.integers(0, N, E), rng.integers(0, N, E)
+    x = rng.normal(size=(N, d)).astype(np.float32)
+    return DeviceGraph.from_hetero(
+        HeteroGraph.homogeneous(src=src, dst=dst, num_nodes=N,
+                                node_features=x,
+                                node_labels=rng.integers(0, 4, N)),
+        supervision_edges=np.stack([src, dst]), device=device)
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("num_shards", [1, 4])
+@pytest.mark.parametrize("d", [13, 16])
+def test_partitioned_tabularized_on_card_match_cpu(dev, quantize,
+                                                   num_shards, d):
+    """with_tabularized on the card against the CPU (D 13 and 16): the sample
+    tables bit-equal, the fp32 cache within 1e-5 of its scale (K4 sums in
+    another order), int8 cache values within 1 and scales within 1e-6
+    relative, the features and degrees bit-equal; then one cached NALP step
+    and one cached node-classification step on the card against the CPU
+    (losses and weights within 1e-4 relative); the int8 step at 4 shards
+    decodes every row through K16's int8 mode, at one shard through K12's
+    packed-row mode."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    anchors = np.random.default_rng(3).integers(0, N, (1, 64))
+    out = {}
+    for device in (torch.device("cpu"), dev):
+        g = _labeled_graph(device, d)
+        mesh = Mesh(num_shards, device)
+        pg = dist_sampled.PartitionedGraph.build(g, mesh,
+                                                 quantize_features=quantize)
+        tab = pg.with_tabularized(mesh, fanouts=(4, 3), capacity_factor=8.0)
+        res = {"fd": torch.cat(tab.feat_deg).cpu(),
+               "tables": torch.cat(tab.sample_tables[0]).cpu()}
+        model = LinkPredictionGNN(GNNEncoder(d, 32, 16),
+                                  LinkPredictionDecoder())
+        t = dist_sampled.PartitionedNALPTrainer(
+            model, tab, mesh, NALPTrainerConfig(
+                fanouts=(4, 3), num_random_negs=64, cached_hop=True),
+            optimizer_args={"learning_rate": "0.01"}, capacity_factor=8.0)
+        state = t.init_state(0)
+        _build.reset_launches()
+        _, losses = t.train_steps(state, anchors)
+        launches = dict(_build.launches)
+        nc = dist_sampled.PartitionedNodeClassificationTrainer(
+            GNNEncoder(d, 32, 4), tab, mesh, NodeClassificationTrainerConfig(
+                fanouts=(4, 3), cached_hop=True),
+            optimizer_args={"learning_rate": "0.01"}, capacity_factor=8.0)
+        _, nc_losses = nc.train_steps(nc.init_state(1), anchors)
+        res.update(loss=losses.cpu(), nc_loss=nc_losses.cpu(),
+                   w={k: v.cpu() for k, v in t.model.state_dict().items()})
+        out[device.type] = res
+        if device.type == "cuda":
+            assert t.overflow_total == 0 == nc.overflow_total
+            if quantize:
+                mode = ("unroute_rows_q8" if num_shards > 1
+                        else "gather_rows_q8_packed")
+                assert launches[mode] > 0, mode
+            if num_shards > 1:
+                assert launches["unroute_rows"] > 0
+            else:
+                assert launches["gather_rows"] > 0
+    a, b = out["cuda"], out["cpu"]
+    assert torch.equal(a["tables"], b["tables"])
+    if quantize:
+        assert torch.equal(a["fd"][:, :d], b["fd"][:, :d])
+        qa, qb = (x[:, d:2 * d].to(torch.int32) for x in (a["fd"], b["fd"]))
+        assert int((qa - qb).abs().max()) <= 1
+        ta, tb = (x[:, 2 * d:].contiguous().view(torch.float32)
+                  for x in (a["fd"], b["fd"]))
+        assert torch.equal(ta[:, [0, 2]], tb[:, [0, 2]])
+        torch.testing.assert_close(ta[:, 1], tb[:, 1], rtol=1e-6, atol=0)
+    else:
+        assert torch.equal(a["fd"][:, :d + 1], b["fd"][:, :d + 1])
+        scale = float(b["fd"][:, d + 1:].abs().max())
+        assert float((a["fd"] - b["fd"]).abs().max()) <= 1e-5 * scale
+    for key in ("loss", "nc_loss"):
+        torch.testing.assert_close(a[key], b[key], rtol=1e-4, atol=0)
+    for k, v in b["w"].items():
+        torch.testing.assert_close(a["w"][k], v, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("cached", [False, True], ids=["live", "cached"])
+def test_partitioned_nc_steps_on_card_match_cpu(dev, cached):
+    """Three node-classification steps at 4 shards over int8 rows on the
+    card against the CPU (losses within 1e-4 relative), then evaluate and
+    predict_batch (logits within 1e-4 of their scale)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nodes = np.random.default_rng(5).integers(0, N, (3, 64))
+    out = {}
+    for device in (torch.device("cpu"), dev):
+        g = _labeled_graph(device, 16, seed=15)
+        mesh = Mesh(4, device)
+        t = dist_sampled.PartitionedNodeClassificationTrainer(
+            GNNEncoder(16, 32, 4),
+            dist_sampled.PartitionedGraph.build(g, mesh,
+                                                quantize_features=True),
+            mesh, NodeClassificationTrainerConfig(fanouts=(4, 3),
+                                                  cached_hop=cached),
+            optimizer_args={"learning_rate": "0.01"}, capacity_factor=8.0)
+        state = t.init_state(0)
+        _build.reset_launches()
+        state, losses = t.train_steps(state, nodes)
+        if device.type == "cuda":
+            for k in ("route_requests", "unroute_rows", "unroute_rows_q8",
+                      "gather_rows", "masked_reduce", "masked_reduce_bwd"):
+                assert _build.launches[k] > 0, k
+        out[device.type] = (losses.cpu(), t.evaluate([np.arange(100)]),
+                            t.predict_batch(np.arange(50)).float().cpu())
+    (la, acc_a, pa), (lb, acc_b, pb) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(la, lb, rtol=1e-4, atol=0)
+    assert abs(acc_a - acc_b) <= 0.02
+    assert float((pa - pb).abs().max()) <= 1e-4 * float(pb.abs().max())

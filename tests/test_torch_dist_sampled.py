@@ -349,42 +349,31 @@ def test_fit_runs_on_four_shards():
         pt.fit(state, np.arange(N), np.arange(8), batch_size=30)
 
 
-@pytest.mark.parametrize("case", [
-    "cached_hop", "weighted", "quantize", "labels", "tabularized",
-    "label_edges"])
+@pytest.mark.parametrize("case", ["weighted", "label_edges"])
 def test_unported_options_raise(case):
+    """Label-edge features on the partitioned graph are not ported; the
+    weighted draws are, and need a graph with edge weights. (cached_hop,
+    int8 rows, labels and with_tabularized are ported: their parity tests
+    are in tests/test_torch_dist_tabularized.py, test_torch_dist_quantized.py
+    and test_torch_dist_nc.py.)"""
     src, dst, x, _ = _arrays()
     mesh = Mesh(4, "cpu")
     model = LinkPredictionGNN(GNNEncoder(D, HID, OUT),
                               LinkPredictionDecoder())
-    if case in ("labels", "label_edges", "quantize"):
-        kw = {"labels": dict(node_labels=np.zeros(N, np.int64))}.get(case,
-                                                                      {})
-        extra = ({"supervision_edge_features": np.zeros((len(src), 2),
-                                                        np.float32)}
-                 if case == "label_edges" else {})
+    if case == "label_edges":
         dg = DeviceGraph.from_hetero(
             HeteroGraph.homogeneous(src=src, dst=dst, num_nodes=N,
-                                    node_features=x, **kw),
+                                    node_features=x),
             supervision_edges=np.stack([src, dst]), device="cpu",
-            quantize_features=case == "quantize", **extra)
+            supervision_edge_features=np.zeros((len(src), 2), np.float32))
         with pytest.raises(NotImplementedError, match="A15"):
             PartitionedGraph.build(dg, mesh)
         return
+    # weighted draws are ported (tests/test_torch_weighted_sampling.py):
+    # a graph without edge weights raises the reference's ValueError
     pg = PartitionedGraph.build(_graphs()[1], mesh)
-    if case == "tabularized":
-        with pytest.raises(NotImplementedError, match="A15"):
-            pg.with_tabularized(fanouts=FANOUTS)
-        return
-    if case == "weighted":
-        # weighted draws are ported (tests/test_torch_weighted_sampling.py):
-        # a graph without edge weights raises the reference's ValueError
-        cfg = NALPTrainerConfig(fanouts=FANOUTS, sampling_method="weighted")
-        with pytest.raises(ValueError, match="with edge weights"):
-            PartitionedNALPTrainer(model, pg, mesh, cfg)
-        return
-    cfg = NALPTrainerConfig(fanouts=FANOUTS, cached_hop=True)
-    with pytest.raises(NotImplementedError, match="A15"):
+    cfg = NALPTrainerConfig(fanouts=FANOUTS, sampling_method="weighted")
+    with pytest.raises(ValueError, match="with edge weights"):
         PartitionedNALPTrainer(model, pg, mesh, cfg)
 
 
