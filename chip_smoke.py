@@ -278,7 +278,35 @@
    and the one-shard int8 cached path (one K12 packed-row gather a step, no
    routing); prints ms/step, device ms, busy share, launches and
    all_to_all bytes a step, edges/s or seeds/s, nodes/s;
-19. prints the SegmentIndex host builds counted inside every timed window
+19. the partitioned tier's label edges and typed trainer over
+   make_mesh(4) (capacity factor 4). (a) The flagship graph with EDGE_DE
+   fp32 features on its E supervision edges and on 500k hard-negative
+   edges (numpy seed 8), PartitionedGraph.build timed; the routed
+   positives, hard negatives and their edge rows at steps 0 and 15
+   bit-equal to the replicated DeviceGraph's batch (zero at padded
+   slots); the flagship GraphSAGE with an EdgeFeatureScorer(8, 32), one
+   hard negative: one fp32 step of each pool (per shard, ring) against the
+   plain step (the scorer's gradients held too); K16 over the ring step's
+   [4, C, 1, 8] edge rows (bit-equal; yardstick index_select + where) and
+   K17's own-block bias mode (fold and backward with d e_pos and d e_hard,
+   against the twins; timed beside the dense add + K17's plain mode, the
+   plain mode alone over the biased scores, and torch.logsumexp over the
+   biased masked scores) as modes on their rows;
+   then each pool's path in bf16 (3 + 10 steps with the launch counts
+   reset just before and read just after, zero overflow, a bias-mode fold
+   and backward a shard a step on the ring; 3 profiled). (b) The typed
+   partitioned trainer (PartitionedHeteroNALPTrainer) over phase 10's
+   typed graph (papers anchored on author-writes-paper, authors as
+   candidates, 1 positive, R = 512): HGT live, HGT tabularized
+   (with_sample_tables) and RGCN with the ring pool and 8 label-edge
+   features a supervision edge with the scorer (fp32): the routed trees of
+   both node types bit-equal to the replicated draws, one step against the
+   plain step, 3 + 10 steps with a kernel list of their own checked, 3
+   profiled; then run_partitioned_inference(node_type=) through the
+   tabularized HGT trainer for both types into an in-memory exporter,
+   each row against encode_batch's; prints ms/step, device ms, busy share,
+   all_to_all bytes a step, edges/s, nodes/s;
+20. prints the SegmentIndex host builds counted inside every timed window
    of a path (SegmentIndex.from_ids wrapped from the build on; each must
    read 0: a segment op on the card given no index builds one on the
    host), K8's gathering launches there by mode (none may be chained:
@@ -424,6 +452,9 @@ PART_TRAIN_KERNELS = ("sample_uniform", "uniform_ids", "gather_rows",
                       "cms_estimate", "route_requests", "unroute_rows")
 PART_ENCODE_KERNELS = ("sample_uniform", "gather_rows", "masked_reduce",
                        "route_requests", "unroute_rows")
+# the partitioned tier's label edges and typed trainer (phase 19): steps
+# timed and profiled a path
+LE_STEPS, LE_PROFILED = 10, 3
 # weighted and top-k draws (phase 16): the flagship graph with an
 # [E, W_DE] fp32 edge table (ogbn-proteins' width) whose column 0 holds
 # uniform [0, 1) sampling weights (numpy seed W_SEED)
@@ -5371,6 +5402,509 @@ def partitioned_tabularized_phases(dev, card, dg, record, add_mode, unique,
     return counts
 
 
+def partitioned_label_edge_phases(dev, card, graph, edges, typed_ctx,
+                                  add_mode, unique, opt_args):
+    """Phase 19 (see the module docstring): (a) the label-edge features
+    on the partitioned flagship graph, both pools, K16 carrying the edge
+    rows and K17's own-block bias mode; (b) the typed partitioned trainer
+    (PartitionedHeteroNALPTrainer) on phase 10's typed graph and the typed
+    run_partitioned_inference. Returns {path: (launch counts, steps or
+    passes)}; K16's edge rows and K17's bias mode land on their kernels'
+    rows as modes."""
+    from gigl_tpu_torch.inference.inferencer import (
+        InferenceConfig, node_batches, run_partitioned_inference)
+    from gigl_tpu_torch.losses import sharded_retrieval as sr
+    from gigl_tpu_torch.models.encoders import GNNEncoder
+    from gigl_tpu_torch.models.link_prediction import (
+        EdgeFeatureScorer, HeteroLinkPredictionGNN, LinkPredictionDecoder,
+        LinkPredictionGNN)
+    from gigl_tpu_torch.ops import _build
+    from gigl_tpu_torch.parallel import feature_lookup as fl
+    from gigl_tpu_torch.parallel.mesh import make_mesh
+    from gigl_tpu_torch.training.dataset import DeviceGraph
+    from gigl_tpu_torch.training.dist_hetero import (
+        PartitionedHeteroGraph, PartitionedHeteroNALPTrainer)
+    from gigl_tpu_torch.training.dist_sampled import (
+        PartitionedGraph, PartitionedNALPTrainer)
+    from gigl_tpu_torch.training.hetero_dataset import HeteroDeviceGraph
+    from gigl_tpu_torch.training.hetero_trainer import HeteroNALPTrainerConfig
+    from gigl_tpu_torch.training.trainer import NALPTrainerConfig
+    from gigl_tpu_torch.types.graph import EdgeType
+
+    k1, k2 = FANOUTS
+    shards = PART_SHARDS
+    counts = {}
+    mesh = make_mesh(shards)
+
+    def run(path, trainer, anchors, kernels, steps):
+        """PART_WARMUP + ``steps`` steps with the launch counts reset just
+        before and read just after (zero overflow checked), then
+        LE_PROFILED profiled steps: (ms/step, losses, launches a step,
+        all_to_all bytes a step, profile)."""
+        state = trainer.init_state(0)
+        gens = [torch.Generator(device=dev).manual_seed(s_)
+                for s_ in range(shards)]
+        mesh.reset_counts()
+        _build.reset_launches()
+        state, warm = trainer.train_steps(state, anchors[:PART_WARMUP], gens)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, losses = trainer.train_steps(
+            state, anchors[PART_WARMUP: PART_WARMUP + steps], gens)
+        torch.cuda.synchronize()
+        ms_step = (time.perf_counter() - t1) / steps * 1e3
+        nsteps = PART_WARMUP + steps
+        counts[path] = (dict(_build.launches), nsteps)
+        emit({"phase": "main_path", "path": path,
+              "launches": counts[path][0], "steps": nsteps})
+        for k in kernels:
+            check(counts[path][0][k] > 0, f"{k} was not launched on {path}")
+        check(trainer.overflow_total == 0,
+              f"{path}: {trainer.overflow_total} routed requests dropped")
+        losses = losses.float().cpu().numpy()
+        check(np.isfinite(losses).all() and np.isfinite(
+            warm.float().cpu().numpy()).all(), f"{path}: loss not finite")
+        a2a = mesh.a2a_bytes / nsteps
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            trainer.train_steps(state, anchors[nsteps: nsteps + LE_PROFILED],
+                                gens)
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t1) * 1e6
+        per_step = {k_: v_ / nsteps for k_, v_ in counts[path][0].items()
+                    if v_}
+        return ms_step, losses, per_step, a2a, profile_summary(
+            prof, LE_PROFILED, window_us, ms_step)
+
+    # -- (a) the flagship graph with label-edge features (numpy seed 8):
+    # EDGE_DE fp32 features on each of the E supervision edges and on
+    # EDGE_HARD hard-negative edges
+    erng = np.random.default_rng(8)
+    src_np, dst_np = edges
+    hard_np = np.stack([erng.integers(0, N, EDGE_HARD),
+                        erng.integers(0, N, EDGE_HARD)])
+    t0 = time.perf_counter()
+    dg_le = DeviceGraph.from_hetero(
+        graph, supervision_edges=np.stack([src_np, dst_np]),
+        hard_neg_edges=hard_np,
+        supervision_edge_features=erng.normal(size=(E, EDGE_DE)).astype(
+            np.float32),
+        hard_neg_edge_features=erng.normal(size=(EDGE_HARD, EDGE_DE)).astype(
+            np.float32), device=dev)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pg = PartitionedGraph.build(dg_le, mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    emit({"phase": "label_edge_partitioned_graph", "graph_s": graph_s,
+          "build_s": build_s, "shards": shards,
+          "sup_edge_feats_bytes_per_shard": pg.sup_edge_feats[0].nbytes,
+          "hard_edge_feats_bytes_per_shard": pg.hard_edge_feats[0].nbytes,
+          "edge_features": [E, EDGE_DE], "hard_negative_edges": EDGE_HARD,
+          "card": card})
+    base = dict(fanouts=FANOUTS, num_positives=1, num_hard_negs=1,
+                num_random_negs=R, loss_type="retrieval")
+
+    def le_model(dtype):
+        return LinkPredictionGNN(
+            GNNEncoder(D, HID, OUT, num_layers=2, conv="graphsage",
+                       dtype=dtype), LinkPredictionDecoder(),
+            EdgeFeatureScorer(EDGE_DE, 32))
+
+    def le_trainer(model, **kw):
+        return PartitionedNALPTrainer(
+            model, pg, mesh, NALPTrainerConfig(**base, **kw),
+            optimizer_args=opt_args, capacity_factor=PART_CAPACITY,
+            overflow_policy="raise")
+
+    n_anchor = PART_WARMUP + LE_STEPS + LE_PROFILED
+    anchors = (np.arange(BATCH * n_anchor) % N).astype(np.int32).reshape(
+        n_anchor, BATCH)
+    a0 = torch.as_tensor(anchors[0], device=dev)
+
+    # the routed positives, hard negatives and their edge rows against the
+    # replicated DeviceGraph's batch at the same step: ids and masks
+    # bit-equal, the rows bit-equal at valid slots and zero at padded ones
+    # (the replicated draw reads the anchor's first slot there)
+    chk = le_trainer(le_model(torch.float32))
+    for step in (0, n_anchor - 1):
+        a_ = torch.as_tensor(anchors[step], device=dev)
+        batches, ovf = chk._make_batches(chk._split(a_), step)
+        rep = dg_le.sample_nalp_batch(a_, num_positives=1, num_hard_negs=1,
+                                      num_random_negs=R, seed=0, step=step)
+        check(int(ovf) == 0, f"label-edge batch {step}: {int(ovf)} dropped")
+        for what, r_ids, r_mask, r_rows in (
+                ("pos", rep.pos, rep.pos_mask, rep.pos_edge_feats),
+                ("hard_neg", rep.hard_neg, rep.hard_neg_mask,
+                 rep.hard_neg_edge_feats)):
+            ids_ = torch.cat([getattr(b_, what) for b_ in batches])
+            mask_ = torch.cat([getattr(b_, what + "_mask") for b_ in
+                               batches])
+            rows_ = torch.cat([b_.pos_edge_feats if what == "pos" else
+                               b_.hard_neg_edge_feats for b_ in batches])
+            check(torch.equal(ids_, r_ids) and torch.equal(mask_, r_mask)
+                  and torch.equal(rows_[mask_], r_rows[r_mask])
+                  and not bool(rows_[~mask_].any()),
+                  f"label-edge batch {step}: the routed {what} rows differ "
+                  "from the replicated batch's")
+    emit({"phase": "label_edge_batch_checks", "steps": [0, n_anchor - 1],
+          "bit_equal": True,
+          "masked_positive_slots": int((~rep.pos_mask).sum())})
+    del chk, batches, rep
+
+    # one step of each pool (fp32, the scorer's gradients held too) against
+    # the same step through the plain versions
+    for pool in ("per_shard", "ring"):
+        t_ = le_trainer(le_model(torch.float32),
+                        global_candidate_pool=pool == "ring")
+        t_.init_state(0)
+        scorer = {f"edge_scorer.{n_}": p_ for n_, p_ in
+                  t_.model.edge_scorer.named_parameters()}
+        vs = step_vs_plain(t_.model.encoder, lambda: t_.loss_and_sketch(
+            a0, 0)[0], _build.launches, extra=scorer)
+        emit({"phase": "label_edge_partitioned_step_vs_plain", "pool": pool,
+              **vs})
+        check(vs["loss_rel_err"] <= 1e-5 and
+              vs["max_grad_err_rel_to_scale"] <= 1e-4,
+              f"partitioned {pool} step with label edges differs from the "
+              f"plain step: {vs}")
+    # K16's edge rows and K17's bias mode, recorded from the ring step
+    with spy(fl, "unroute_rows",
+             lambda a, k: tuple(x_.clone() for x_ in a)) as unroutes, \
+            spy(sr, "ring_fold", lambda a, k: a) as folds, \
+            spy(sr, "ring_block_bwd", lambda a, k: a) as bwds:
+        t_.loss_and_sketch(a0, 0)[0].backward()
+    torch.cuda.synchronize()
+    del t_
+
+    # -- K16 over the routed [P, C, 1, EDGE_DE] edge rows (shard 0's
+    # positives), bit-equal to its twin. bytes: owner / pos / ok read, each
+    # answered row read once, a row written a request. Yardstick:
+    # index_select of the flat answers and where
+    rows16 = [u_ for u_ in unroutes if u_[0].dim() == 4]
+    check(len(rows16) == 2 * shards, f"K16: {len(rows16)} edge-row "
+          f"unroutes in the ring step, not 2 a shard")
+    back, owner, pos, ok = rows16[0]
+    got16 = fl.unroute_rows(back, owner, pos, ok)
+    check(torch.equal(got16, fl._unroute_plain(back, owner, pos, ok)),
+          "K16 over the edge rows is not bit-equal to its twin")
+    g16, cap16 = owner.numel(), back.shape[1]
+    row_b = back.shape[2] * back.shape[3] * back.element_size()
+    flat16 = back.reshape(shards * cap16, -1)
+    at16 = (owner.long() * cap16 + pos.clamp(max=cap16 - 1).long())
+    add_mode("unroute_rows", "edge_rows", {
+        "err": 0.0, "answers": list(back.shape), "requests": g16,
+        "row_bytes": row_b,
+        "ms": cuda_ms(lambda: fl.unroute_rows(back, owner, pos, ok)),
+        "plain_ms": cuda_ms(lambda: fl._unroute_plain(back, owner, pos, ok)),
+        "bound_ms": bound_ms(g16 * 9 + int(ok.sum()) * row_b + g16 * row_b,
+                             0)[0],
+        "bound_by": "bytes",
+        "library_ms": cuda_ms(lambda: torch.where(
+            ok[:, None], flat16.index_select(0, at16), 0.0)),
+        "library_call": "index_select of the flat answers, then where",
+        "eager_ms": eager_ms(lambda: fl.unroute_rows(back, owner, pos, ok)),
+        "of": "shard 0's positive edge rows in the ring step"})
+    del unroutes, rows16
+
+    # -- K17's own-block bias mode: shard 0's fold and backward (bias
+    # terms e_pos [Ql], e_hard [B h]) against the twins (the dense bias
+    # added to block 0, the terms' cotangents by autograd through it),
+    # timed beside the dense add + K17's plain mode (no library) and
+    # torch.logsumexp over the biased masked scores
+    check(len(folds) == shards and len(bwds) == shards,
+          f"K17: {len(folds)} folds and {len(bwds)} backward calls")
+    sc, rws, cls, own, _, _, _, bias = folds[0]
+    bsc, brw, bcl, bown, lse, gr, bbias = bwds[0]
+    check(bias is not None and bias.e_pos is not None
+          and bias.e_hard is not None, "K17: the ring step ran no bias mode")
+    p17, ql, cl = sc.shape
+    nh = bias.e_hard.shape[0]
+    fresh = (torch.full((ql,), sr.FMIN, device=dev),
+             torch.zeros(ql, device=dev), torch.zeros(ql, device=dev))
+    got_state = [x_.clone() for x_ in fresh]
+    want_state = [x_.clone() for x_ in fresh]
+    sr.ring_fold(sc, rws, cls, own, *got_state, bias=bias)
+    sr._ring_fold_plain(sc, rws, cls, own, *want_state, bias=bias)
+    for g_, w_ in zip(got_state, want_state):
+        torch.testing.assert_close(g_, w_, rtol=1e-5, atol=0)
+    fold_err = max(float((g_ - w_).abs().max())
+                   for g_, w_ in zip(got_state, want_state))
+    k_out = sr.ring_block_bwd(bsc, brw, bcl, bown, lse, gr, bbias)
+    p_out = sr._ring_block_bwd_plain(bsc, brw, bcl, bown, lse, gr, bbias)
+    errs17 = {}
+    for what, k_, p_ in zip(("ds", "de_pos", "de_hard"), k_out, p_out):
+        scale_ = float(p_.abs().max())
+        errs17[what] = float((k_ - p_).abs().max())
+        check(errs17[what] <= 1e-5 * scale_, f"K17 bias mode {what} error "
+              f"{errs17[what]} > 1e-5 * {scale_}")
+    check(torch.equal(k_out[0], sr.ring_block_bwd(bsc, brw, bcl, bown, lse,
+                                                  gr, bbias)[0]),
+          "K17's bias-mode backward is not the same bits on a repeat run")
+    work = [x_.clone() for x_ in fresh]
+    b_ = sr.OwnBlockBias(bias.e_pos, bias.e_hard, bias.num_pos,
+                         bias.num_hard)
+
+    def dense_fold():
+        sr.ring_fold(sr._with_bias(sc, b_), rws, cls, own, *work)
+
+    def dense_bwd():
+        ds_ = sr.ring_block_bwd(sr._with_bias(bsc, b_), brw, bcl, bown, lse,
+                                gr)
+        blk = ds_[0][:, ql:ql + nh].reshape(ql // b_.num_pos, b_.num_pos,
+                                            ql // b_.num_pos, b_.num_hard)
+        return torch.diagonal(ds_[0]), torch.diagonal(
+            blk.sum(1), dim1=0, dim2=1).T.reshape(-1)
+
+    v_all = torch.cat([sr._masked_block_plain(
+        sr._with_bias(bsc, b_)[t_] if t_ == 0 else bsc[t_], brw,
+        sr._block_cols(bcl, t_), bown and t_ == 0)[0]
+        for t_ in range(p17)], 1)
+    v_lib = v_all.detach().clone().requires_grad_()
+    fold_ms = cuda_ms(lambda: sr.ring_fold(sc, rws, cls, own, *work,
+                                           bias=bias))
+    bwd_ms = cuda_ms(lambda: sr.ring_block_bwd(bsc, brw, bcl, bown, lse, gr,
+                                               bbias))
+    plain_fold_ms = cuda_ms(lambda: sr._ring_fold_plain(
+        sc, rws, cls, own, *work, bias=bias))
+    plain_bwd_ms = cuda_ms(lambda: sr._ring_block_bwd_plain(
+        bsc, brw, bcl, bown, lse, gr, bbias))
+    dense_fold_ms, dense_bwd_ms = cuda_ms(dense_fold), cuda_ms(dense_bwd)
+    # K17's plain mode at the same shape over scores with the bias added
+    # beforehand: what the bias mode costs over it
+    biased, bbiased = sr._with_bias(sc, b_), sr._with_bias(bsc, b_)
+    same = [x_.clone() for x_ in fresh]
+    sr.ring_fold(biased, rws, cls, own, *same)
+    same_bits = all(torch.equal(g_, w_) for g_, w_ in zip(got_state, same))
+    plain_mode_fold_ms = cuda_ms(lambda: sr.ring_fold(biased, rws, cls, own,
+                                                      *work))
+    plain_mode_bwd_ms = cuda_ms(lambda: sr.ring_block_bwd(
+        bbiased, brw, bcl, bown, lse, gr))
+    cols_b = p17 * cl * 13
+    rows_b = ql * 12
+    bias_b = (ql + nh) * 4
+    nbytes17 = (p17 * ql * cl * 4 + cols_b + rows_b + ql * 24 + bias_b) + (
+        p17 * ql * cl * 8 + cols_b + rows_b + ql * 8 + 2 * bias_b)
+    b17, by17 = bound_ms(nbytes17, p17 * ql * cl * 22)
+    add_mode("ring_retrieval", "own_block_bias", {
+        "err": max(fold_err, *errs17.values()), "fold_err": fold_err,
+        **{f"{k_}_err": v_ for k_, v_ in errs17.items()},
+        "blocks": [p17, ql, cl], "hard_columns": nh,
+        "ms": fold_ms + bwd_ms, "fold_ms": fold_ms, "bwd_ms": bwd_ms,
+        "plain_ms": plain_fold_ms + plain_bwd_ms,
+        "plain_fold_ms": plain_fold_ms, "plain_bwd_ms": plain_bwd_ms,
+        "plain_mode_fold_ms": plain_mode_fold_ms,
+        "plain_mode_bwd_ms": plain_mode_bwd_ms,
+        "fold_bit_equal_to_plain_mode_over_the_dense_add": same_bits,
+        "dense_add_ms": dense_fold_ms + dense_bwd_ms,
+        "dense_add_fold_ms": dense_fold_ms, "dense_add_bwd_ms": dense_bwd_ms,
+        "bound_ms": b17, "bound_by": by17,
+        "fold_bound_ms": bound_ms(p17 * ql * cl * 4 + cols_b + rows_b
+                                  + ql * 24 + bias_b,
+                                  p17 * ql * cl * 11)[0],
+        "library_ms": cuda_ms(lambda: torch.autograd.grad(
+            torch.logsumexp(v_lib, 1).sum(), v_lib)),
+        "library_fold_ms": cuda_ms(lambda: torch.logsumexp(v_all, 1)),
+        "library_call": "torch.logsumexp over the P biased masked blocks "
+                        "side by side and its gradient (autograd.grad)",
+        "eager_ms": eager_ms(lambda: sr.ring_fold(sc, rws, cls, own, *work,
+                                                  bias=bias))})
+    del folds, bwds, v_all, v_lib, work, k_out, p_out, biased, bbiased
+
+    # -- the label-edge paths, both pools (bf16, the scorer's terms in the
+    # loss, K17's bias mode on the ring)
+    le_kernels = ("sample_uniform", "uniform_ids", "gather_rows",
+                  "masked_reduce", "masked_reduce_bwd", "route_requests",
+                  "unroute_rows")
+    for path, pool in (("label_edge_partitioned_train", "per_shard"),
+                       ("label_edge_partitioned_ring_train", "ring")):
+        trainer = le_trainer(le_model(torch.bfloat16),
+                             global_candidate_pool=pool == "ring")
+        ms_step, losses, per_step, a2a, prof = run(
+            path, trainer, anchors, le_kernels + (
+                ("ring_retrieval", "ring_retrieval_bias") if pool == "ring"
+                else ("retrieval_loss",)), LE_STEPS)
+        if pool == "ring":
+            check(per_step.get("ring_retrieval_bias") == 2 * shards
+                  and per_step.get("ring_retrieval") == 2 * shards,
+                  f"{path}: {per_step} — not a bias-mode fold and backward "
+                  "launch a shard a step")
+        emit({"phase": "label_edge_partitioned_train_throughput",
+              "pool": pool, "shards": shards, "steps": LE_STEPS,
+              "ms_per_step": ms_step, "seeds_per_s": BATCH / (ms_step / 1e3),
+              "launches_per_step": per_step, "a2a_bytes_per_step": a2a,
+              "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+              "profile": prof, "card": card})
+        del trainer
+    del pg, dg_le
+
+    # -- (b) the typed partitioned trainer on phase 10's typed graph
+    tgraph, tpaths, make_encoder, anchors_t = (
+        typed_ctx["graph"], typed_ctx["paths"], typed_ctx["make_encoder"],
+        typed_ctx["anchors"])
+    writes = EdgeType.from_str(WRITES)
+    n_writes = int(tgraph.edges[writes].shape[1])
+    sup = dict(supervision_edge_type=writes,
+               supervision_edges=tgraph.edges[writes],
+               supervision_anchor="dst", device=dev)
+    hdg = HeteroDeviceGraph.from_hetero(tgraph, tpaths, **sup)
+    hdg_le = HeteroDeviceGraph.from_hetero(
+        tgraph, tpaths, supervision_edge_features=erng.normal(
+            size=(n_writes, EDGE_DE)).astype(np.float32), **sup)
+    build = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tpg = PartitionedHeteroGraph.build(hdg, tpaths, mesh,
+                                       anchor_node_type="paper")
+    torch.cuda.synchronize()
+    build["build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tpg_tab = tpg.with_sample_tables(hdg, tpaths, mesh, seed=0)
+    torch.cuda.synchronize()
+    build["with_sample_tables_s"] = time.perf_counter() - t0
+    tpg_le = PartitionedHeteroGraph.build(hdg_le, tpaths, mesh,
+                                          anchor_node_type="paper")
+    emit({"phase": "typed_partitioned_graph", **build, "shards": shards,
+          "rows": tpg.rows, "csrs": sorted(tpg.csr_ip),
+          "feature_bytes_per_shard": {nt: f_[0].nbytes
+                                      for nt, f_ in tpg.feats.items()},
+          "table_bytes_per_shard": sum(t_[0].nbytes for t_ in
+                                       tpg_tab.sample_tables.values()),
+          "card": card})
+    tcfg = dict(anchor_node_type="paper", candidate_node_type="author",
+                num_positives=1, num_hard_negs=0, num_random_negs=R,
+                loss_type="retrieval", temperature=0.07)
+    rep_tab = hdg.with_sample_tables(tpaths, seed=0)
+    per_root = {}
+    for nt, spec in tpaths.items():          # as phase 10 counts them
+        slots = []
+        for op in spec:
+            slots.append(op.fanout * (1 if op.parent < 0
+                                      else slots[op.parent]))
+        per_root[nt] = sum(k_ * max(0, 3 - op.depth)
+                           for k_, op in zip(slots, spec))
+    edges_step = per_root["paper"] * BATCH + per_root["author"] * (BATCH + R)
+    symmetric = {"hgt": ("encoder.convs.1.a_author.bias",), "rgcn": ()}
+    typed_paths = {
+        "typed_partitioned_hgt_live": ("hgt", tpg, hdg, {}),
+        "typed_partitioned_hgt_tabularized": (
+            "hgt", tpg_tab, rep_tab, {"tabularized": True}),
+        "typed_partitioned_rgcn_ring_label_edges": (
+            "rgcn", tpg_le, hdg_le, {"global_candidate_pool": True})}
+    t_anchor = PART_WARMUP + LE_STEPS + LE_PROFILED
+    a0_t = torch.as_tensor(anchors_t[0], device=dev)
+    inf_trainer = None
+    for path, (conv, pgx, repx, extra) in typed_paths.items():
+        scorer = "label_edges" in path
+
+        def typed_trainer(conv=conv, pgx=pgx, extra=extra, scorer=scorer):
+            return PartitionedHeteroNALPTrainer(
+                HeteroLinkPredictionGNN(
+                    make_encoder(conv), LinkPredictionDecoder(),
+                    EdgeFeatureScorer(EDGE_DE, 32) if scorer else None),
+                pgx, tpaths, HeteroNALPTrainerConfig(**tcfg, **extra), mesh,
+                optimizer_args={"learning_rate": "1e-3"},
+                capacity_factor=PART_CAPACITY, overflow_policy="raise")
+
+        tr = typed_trainer()
+        tr.init_state(0)
+        # the routed trees of both node types against the replicated draws
+        # (HeteroNALPTrainer's: graph.sample keyed by cfg.seed + offset, or
+        # the replicated frozen tables)
+        for nt, n_ in (("paper", HET_PAPERS), ("author", HET_AUTHORS)):
+            roots = torch.as_tensor(anchors_t[1] % n_, device=dev)
+            trees, ovf = tr._sample_tree(list(roots.reshape(shards, -1)), nt,
+                                         1)
+            want = (repx.sample_tabularized(roots, nt, tpaths[nt])
+                    if "tabularized" in extra else
+                    repx.sample(roots, nt, tpaths[nt], seed=1))
+            check(int(ovf) == 0 and all(
+                torch.equal(torch.cat([t_.node_ids[l_] for t_ in trees]),
+                            want.node_ids[l_])
+                and torch.equal(torch.cat([t_.masks[l_] for t_ in trees]),
+                                want.masks[l_])
+                for l_ in range(len(tpaths[nt]) + 1)),
+                f"{path}: the routed {nt} tree differs from the replicated "
+                "draw")
+        vs = step_vs_plain(tr.model, lambda: tr.loss_and_overflow(
+            a0_t, 0)[0], _build.launches, gated=False,
+            symmetric=symmetric[conv])
+        emit({"phase": "typed_partitioned_step_vs_plain", "path": path,
+              **vs})
+        check(vs["loss_rel_err"] <= 1e-5 and
+              vs["max_grad_err_rel_to_scale"] <= 1e-4,
+              f"{path}: the step differs from the plain step: {vs}")
+        del tr
+        kernels = ("sample_uniform", "uniform_ids", "gather_rows",
+                   "route_requests", "unroute_rows") + (
+            ("fanout_attention", "fanout_attention_bwd") if conv == "hgt"
+            else ("masked_reduce", "masked_reduce_bwd")) + (
+            ("ring_retrieval", "ring_retrieval_bias")
+            if extra.get("global_candidate_pool") else ("retrieval_loss",))
+        trainer = typed_trainer()
+        ms_step, losses, per_step, a2a, prof = run(
+            path, trainer, anchors_t[:t_anchor], kernels, LE_STEPS)
+        emit({"phase": "typed_partitioned_train_throughput", "path": path,
+              "model": conv, "shards": shards, "steps": LE_STEPS,
+              "ms_per_step": ms_step, "edges_per_step": edges_step,
+              "edges_per_s": edges_step / (ms_step / 1e3),
+              "launches_per_step": per_step, "a2a_bytes_per_step": a2a,
+              "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+              "profile": prof, "card": card})
+        if "tabularized" in extra:
+            inf_trainer = trainer
+        else:
+            del trainer
+
+    # -- run_partitioned_inference(node_type=) through the tabularized HGT
+    # trainer, both node types; each exported row against encode_batch's
+    # for the same batch of ids
+    for nt, n_ in (("paper", HET_PAPERS), ("author", HET_AUTHORS)):
+        path = f"typed_partitioned_inference_{nt}"
+        sink = Sink()
+        cfg_i = InferenceConfig(batch_size=BATCH)
+        mesh.reset_counts()
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        total = run_partitioned_inference(inf_trainer, n_, sink, cfg_i,
+                                          node_type=nt)
+        torch.cuda.synchronize()
+        inf_s = time.perf_counter() - t0
+        n_batches = -(-n_ // BATCH)
+        counts[path] = (dict(_build.launches), n_batches)
+        emit({"phase": "main_path", "path": path,
+              "launches": counts[path][0], "batches": n_batches,
+              "seconds": inf_s})
+        for k in ("gather_rows", "route_requests", "unroute_rows",
+                  "fanout_attention"):
+            check(counts[path][0][k] > 0, f"{k} was not launched on {path}")
+        check(total == n_, f"{path}: {total} rows exported")
+        embs = sink.table(n_, HET_OUT, path)
+        err, scale_ = 0.0, 0.0
+        with torch.inference_mode():
+            for ids_, valid in node_batches(n_, cfg_i):
+                ref = inf_trainer.encode_batch(ids_, nt)[:valid].float()
+                ref = ref.cpu().numpy()
+                err = max(err, float(np.abs(embs[ids_[:valid]] - ref).max()))
+                scale_ = max(scale_, float(np.abs(ref).max()))
+        check(err <= 1e-6 * scale_, f"{path}: the exported rows differ "
+              f"from encode_batch's: {err} (scale {scale_})")
+        emit({"phase": "typed_partitioned_inference_throughput",
+              "node_type": nt, "nodes": n_, "nodes_per_s": n_ / inf_s,
+              "ms_per_batch": inf_s / n_batches * 1e3,
+              "launches_per_batch": {k_: v_ / n_batches for k_, v_ in
+                                     counts[path][0].items() if v_},
+              "a2a_bytes_per_batch": mesh.a2a_bytes / n_batches,
+              "max_abs_err_vs_encode_batch": err, "scale": scale_,
+              "card": card})
+    del inf_trainer, tpg, tpg_tab, tpg_le, hdg, hdg_le, rep_tab, mesh
+    return counts
+
+
 def main():
     if not (REPO / "gigl_tpu_torch" / "csrc").is_dir():
         sys.exit("chip_smoke: run from a checkout of the repository "
@@ -6594,6 +7128,8 @@ def main():
     part_tab = partitioned_tabularized_phases(dev, card, dg, record,
                                               add_mode, unique, make_model,
                                               opt_args)
+    label_edge = partitioned_label_edge_phases(
+        dev, card, graph, (src, dst), typed_ctx, add_mode, unique, opt_args)
 
     # launches on every kernel row: the training path's (K6 / K7: the
     # full-graph passes'; K6b / K7b: the node-classification paths'; K8-K10:
@@ -6660,6 +7196,8 @@ def main():
             p_: c_[k] / n_ for p_, (c_, n_) in coo_edge.items()}
         row["launches_per_partitioned_tabularized_path_step"] = {
             p_: c_[k] / n_ for p_, (c_, n_) in part_tab.items()}
+        row["launches_per_label_edge_and_typed_partitioned_step"] = {
+            p_: c_[k] / n_ for p_, (c_, n_) in label_edge.items()}
     for kname, mode in (("unroute_rows", "int8_decode"),
                         ("gather_rows_q8", "packed_rows"),
                         ("gather_rows", "bytes_21")):
@@ -6669,6 +7207,13 @@ def main():
         next(r_ for r_ in results if r_["name"] == kname)["modes"][mode][
             "launches_per_path"] = {p_: c_[counter] for p_, (c_, _)
                                     in part_tab.items()}
+    for kname, mode, counter in (("ring_retrieval", "own_block_bias",
+                                  "ring_retrieval_bias"),
+                                 ("unroute_rows", "edge_rows",
+                                  "unroute_rows")):
+        next(r_ for r_ in results if r_["name"] == kname)["modes"][mode][
+            "launches_per_path"] = {p_: c_[counter] for p_, (c_, _)
+                                    in label_edge.items() if c_[counter]}
     check(len(results) == len(_build.KERNEL_NAMES) == 26,
           "the kernels line does not list all twenty-six kernels")
     emit({"phase": "host_index_builds",

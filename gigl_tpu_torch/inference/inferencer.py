@@ -248,15 +248,12 @@ def run_partitioned_inference(
 ) -> int:
     """Full-graph inference over a PARTITIONED backend: every node of this
     worker's range, in ``node_batches``, through the trainer's sharded
-    ``encode_batch`` (a ``PartitionedNALPTrainer`` or a
-    ``PartitionedNodeClassificationTrainer``, whose logits it exports; the
-    mesh lives on ``device``: CUDA unless given) into the exporter. The trainer holds its
-    parameters, so there is no ``params`` argument. Returns the row
-    count."""
-    if node_type is not None:
-        raise NotImplementedError(
-            "run_partitioned_inference(node_type=...): the typed partitioned "
-            "trainer is not ported yet (ROADMAP A15, rest)")
+    ``encode_batch`` (a ``PartitionedNALPTrainer``, a
+    ``PartitionedNodeClassificationTrainer``, whose logits it exports, or,
+    with ``node_type``, a ``PartitionedHeteroNALPTrainer`` over that node
+    type's ids; the mesh lives on ``device``: CUDA unless given) into the
+    exporter. The trainer holds its parameters, so there is no ``params``
+    argument. Returns the row count."""
     cfg = cfg or InferenceConfig()
     device = resolve_device(device)
     if trainer.device != device:
@@ -266,7 +263,9 @@ def run_partitioned_inference(
     t0 = time.time()
     for batch_idx, (ids, valid) in enumerate(node_batches(num_nodes, cfg)):
         ids_t = torch.as_tensor(ids, dtype=torch.int32, device=device)
-        emb = trainer.encode_batch(ids_t)[:valid].float().cpu().numpy()
+        emb = (trainer.encode_batch(ids_t) if node_type is None else
+               trainer.encode_batch(ids_t, node_type=node_type))
+        emb = emb[:valid].float().cpu().numpy()
         exporter.add_embeddings(ids[:valid], emb)
         total += valid
         if (batch_idx + 1) % cfg.log_every_n_batches == 0:

@@ -1,6 +1,6 @@
 """The retrieval loss with the candidate pool SHARDED across a mesh (port of
-``gigl_tpu/losses/sharded_retrieval.py``: ``ring_retrieval_loss`` and
-``ring_candidate_pool``).
+``gigl_tpu/losses/sharded_retrieval.py``: ``ring_retrieval_loss``,
+``ring_candidate_pool`` and ``ring_own_block_edge_bias``).
 
 Each shard holds its own candidate block (its positives, hard negatives
 and its 1/P slice of the shared random negatives); the softmax over the
@@ -66,6 +66,77 @@ class RingRows:
     label_cols: torch.Tensor
     query_ids: Optional[torch.Tensor] = None
     own_pos_ids: Optional[torch.Tensor] = None
+
+
+@dataclass(frozen=True)
+class OwnBlockBias:
+    """The label edges' raw-score terms on a shard's own candidate block,
+    whose query rows are B anchors x ``num_pos`` positives (Ql = B * p):
+    ``e_pos`` [Ql] fp32 adds to row r's own positive, column r; ``e_hard``
+    [B * h] fp32 (``num_hard`` = h hard negatives an anchor) adds to
+    column Ql + c of every row r with r // p == c // h. Either may be
+    None."""
+
+    e_pos: Optional[torch.Tensor]
+    e_hard: Optional[torch.Tensor]
+    num_pos: int
+    num_hard: int
+
+    def dense(self, num_rows: int, num_cols: int) -> torch.Tensor:
+        """The reference's [Ql, Cl] fp32 bias matrix (differentiable in
+        ``e_pos`` and ``e_hard``)."""
+        ql, p, h = num_rows, self.num_pos, self.num_hard
+        ref = self.e_pos if self.e_pos is not None else self.e_hard
+        dev = ref.device
+        parts = [torch.diag(self.e_pos) if self.e_pos is not None else
+                 torch.zeros((ql, ql), dtype=torch.float32, device=dev)]
+        used = ql
+        if self.e_hard is not None and h > 0:
+            row_b = torch.arange(ql, device=dev) // p
+            col_b = torch.arange(self.e_hard.shape[0], device=dev) // h
+            parts.append(torch.where(row_b[:, None] == col_b[None, :],
+                                     self.e_hard[None, :], 0.0))
+            used += self.e_hard.shape[0]
+        parts.append(torch.zeros((ql, num_cols - used), dtype=torch.float32,
+                                 device=dev))
+        return torch.cat(parts, dim=1)
+
+    def detached(self) -> "OwnBlockBias":
+        return OwnBlockBias(*(None if e is None else
+                              e.detach().to(torch.float32).contiguous()
+                              for e in (self.e_pos, self.e_hard)),
+                            self.num_pos, self.num_hard)
+
+
+def ring_own_block_edge_bias(edge_score_fn, batch
+                             ) -> Optional[OwnBlockBias]:
+    """The label edges' score terms of ``batch`` for the own block (the
+    reference's ``ring_own_block_edge_bias``, without its dense matrix):
+    ``edge_score_fn`` (the model's ``edge_score``) of each positive's edge
+    row for that row's own column, of each hard negative's for its
+    anchor's rows; None when the batch carries no label-edge features."""
+    if batch.pos_edge_feats is None and batch.hard_neg_edge_feats is None:
+        return None
+    b, p_ = batch.pos.shape
+    h = batch.hard_neg.shape[1]
+    e_pos = e_hard = None
+    if batch.pos_edge_feats is not None:
+        e_pos = edge_score_fn(batch.pos_edge_feats.reshape(b * p_, -1)).to(
+            torch.float32)
+    if h > 0 and batch.hard_neg_edge_feats is not None:
+        e_hard = edge_score_fn(batch.hard_neg_edge_feats.reshape(
+            b * h, -1)).to(torch.float32)
+    if e_pos is None and e_hard is None:
+        return None
+    return OwnBlockBias(e_pos, e_hard, p_, h)
+
+
+def _with_bias(scores: torch.Tensor, bias: OwnBlockBias) -> torch.Tensor:
+    """scores ([P, Ql, Cl] or [Ql, Cl]) with the dense bias added to the
+    own block, block 0 (a new tensor)."""
+    s3 = scores if scores.dim() == 3 else scores[None]
+    own = s3[0] + bias.dense(s3.shape[1], s3.shape[2])
+    return torch.cat([own[None], s3[1:]]).reshape(scores.shape)
 
 
 def _divide(x: torch.Tensor, t: float) -> torch.Tensor:
@@ -136,10 +207,13 @@ def _masked_block_plain(scores: torch.Tensor, rows: RingRows,
 
 
 def _ring_fold_plain(scores, rows: RingRows, cols: RingColumns, own: bool,
-                     m_run, s_run, pos_score) -> None:
+                     m_run, s_run, pos_score,
+                     bias: Optional[OwnBlockBias] = None) -> None:
     """Plain twin of K17's fold: the blocks of scores [P, Ql, Cl] (or one
     [Ql, Cl]) folded one after another into m_run, s_run, pos_score [Ql]
-    in place; ``own``: block 0 is the shard's own."""
+    in place; ``own``: block 0 is the shard's own (its ``bias`` added)."""
+    if bias is not None:
+        scores = _with_bias(scores, bias.detached())
     scores, cols = _blocks(scores, cols)
     for t in range(scores.shape[0]):
         v, labels = _masked_block_plain(scores[t], rows, _block_cols(cols, t),
@@ -154,9 +228,25 @@ def _ring_fold_plain(scores, rows: RingRows, cols: RingColumns, own: bool,
 
 
 def _ring_block_bwd_plain(scores, rows: RingRows, cols: RingColumns,
-                          own: bool, lse, g) -> torch.Tensor:
+                          own: bool, lse, g,
+                          bias: Optional[OwnBlockBias] = None):
     """Plain twin of K17's backward: dS fp32 shaped as scores ([P, Ql, Cl]
-    or [Ql, Cl]) for row cotangents ``g`` [Ql] and the final ``lse``."""
+    or [Ql, Cl]) for row cotangents ``g`` [Ql] and the final ``lse``; with
+    ``bias``, (dS, d e_pos, d e_hard), the bias's cotangents by autograd
+    through its dense matrix."""
+    if bias is not None:
+        ds = _ring_block_bwd_plain(_with_bias(scores, bias.detached()), rows,
+                                   cols, own, lse, g)
+        ds3 = ds if ds.dim() == 3 else ds[None]
+        leaves = [None if e is None else
+                  e.detach().to(torch.float32).requires_grad_()
+                  for e in (bias.e_pos, bias.e_hard)]
+        with torch.enable_grad():
+            dense = OwnBlockBias(*leaves, bias.num_pos, bias.num_hard).dense(
+                ds3.shape[1], ds3.shape[2])
+            grads = iter(torch.autograd.grad(
+                dense, [e for e in leaves if e is not None], ds3[0]))
+        return (ds, *(None if e is None else next(grads) for e in leaves))
     s3, cols3 = _blocks(scores, cols)
     t_ = rows.temperature if rows.temperature is not None else 1.0
     out = []
@@ -212,40 +302,94 @@ def _check_rows(name: str, ql: int, scores, *per_row) -> None:
             raise ValueError(f"{name}: per-row tensors must be fp32 [{ql}]")
 
 
+def _check_bias(bias: OwnBlockBias, ql: int, cl: int) -> int:
+    """Raise unless ``bias`` fits Ql query rows (anchors x p positives)
+    and a block of Cl columns; returns the hard columns' count B * h."""
+    p, h = int(bias.num_pos), int(bias.num_hard)
+    if p < 1 or ql % p:
+        raise ValueError(f"ring_retrieval: {ql} query rows are not anchors "
+                         f"x {p} positives")
+    n_hard = (ql // p) * h if bias.e_hard is not None else 0
+    for what, e, n in (("e_pos", bias.e_pos, ql),
+                       ("e_hard", bias.e_hard, n_hard)):
+        if e is not None and tuple(e.shape) != (n,):
+            raise ValueError(f"ring_retrieval: {what} must be [{n}], got "
+                             f"{tuple(e.shape)}")
+    if ql + n_hard > cl:
+        raise ValueError(f"ring_retrieval: {ql} + {n_hard} biased columns "
+                         f"past the block's {cl}")
+    return n_hard
+
+
+def _bias_args(bias: OwnBlockBias, own: bool, ql: int, cl: int, device):
+    """K17's bias-mode arguments (e_pos, e_hard, p, h, B * h), checked."""
+    if not own:
+        raise ValueError("ring_retrieval: the bias applies to the own block")
+    n_hard = _check_bias(bias, ql, cl)
+    for e in (bias.e_pos, bias.e_hard):
+        if e is not None and (e.dtype != torch.float32 or e.device != device):
+            raise ValueError(f"ring_retrieval: bias terms must be fp32 on "
+                             f"{device}, got {e.dtype} on {e.device}")
+    return (_build.ptr(bias.e_pos), _build.ptr(bias.e_hard),
+            int(bias.num_pos), max(int(bias.num_hard), 1), n_hard)
+
+
 def ring_fold(scores: torch.Tensor, rows: RingRows, cols: RingColumns,
               own: bool, m_run: torch.Tensor, s_run: torch.Tensor,
-              pos_score: torch.Tensor) -> None:
+              pos_score: torch.Tensor,
+              bias: Optional[OwnBlockBias] = None) -> None:
     """K17 fold: a shard's fp32 scores [P, Ql, Cl] (P blocks in ring
     order, columns stacked [P, Cl]; or one block [Ql, Cl] with [Cl]
     columns) masked and folded, block after block, into the running max,
     exp-sum and positive score ([Ql] fp32, in place) in one launch.
-    ``own``: block 0 is the shard's own (its label columns apply). CPU
-    tensors take the plain twin."""
+    ``own``: block 0 is the shard's own (its label columns apply, and
+    ``bias``: K17's bias mode). CPU tensors take the plain twin."""
     if scores.device.type == "cpu":
         return _ring_fold_plain(scores, rows, cols, own, m_run, s_run,
-                                pos_score)
+                                pos_score, bias)
     device, args = _kernel_args("ring_retrieval", scores, rows, cols, own)
     _check_rows("ring_retrieval", args[2], scores, m_run, s_run, pos_score)
-    _build.launch("ring_retrieval", "gigl_ring_fold", device, *args,
+    if bias is None:
+        _build.launch("ring_retrieval", "gigl_ring_fold", device, *args,
+                      m_run.data_ptr(), s_run.data_ptr(),
+                      pos_score.data_ptr())
+        return None
+    bias = bias.detached()
+    _build.launch("ring_retrieval", "gigl_ring_fold_bias", device, *args,
+                  *_bias_args(bias, own, args[2], args[3], device),
                   m_run.data_ptr(), s_run.data_ptr(), pos_score.data_ptr())
+    _build.launches["ring_retrieval_bias"] += 1
+    return None
 
 
 def ring_block_bwd(scores: torch.Tensor, rows: RingRows, cols: RingColumns,
-                   own: bool, lse: torch.Tensor, g: torch.Tensor
-                   ) -> torch.Tensor:
+                   own: bool, lse: torch.Tensor, g: torch.Tensor,
+                   bias: Optional[OwnBlockBias] = None):
     """K17 backward: dS fp32 shaped as ``scores`` ([P, Ql, Cl] or one
     block [Ql, Cl], as :func:`ring_fold` takes them) for the row
     cotangents ``g`` [Ql] (query mask folded in) and the final logsumexp
-    ``lse``, in one launch. CPU tensors take the plain twin."""
+    ``lse``, in one launch; with ``bias`` (dS, d e_pos, d e_hard), the
+    bias's cotangents (None for an absent one) from the same launch. CPU
+    tensors take the plain twin."""
     if scores.device.type == "cpu":
-        return _ring_block_bwd_plain(scores, rows, cols, own, lse, g)
+        return _ring_block_bwd_plain(scores, rows, cols, own, lse, g, bias)
     device, args = _kernel_args("ring_retrieval", scores, rows, cols, own)
     lse, g = lse.contiguous(), g.to(torch.float32).contiguous()
     _check_rows("ring_retrieval", args[2], scores, lse, g)
     ds = torch.empty_like(scores)
-    _build.launch("ring_retrieval", "gigl_ring_block_bwd", device, *args,
-                  lse.data_ptr(), g.data_ptr(), ds.data_ptr())
-    return ds
+    if bias is None:
+        _build.launch("ring_retrieval", "gigl_ring_block_bwd", device, *args,
+                      lse.data_ptr(), g.data_ptr(), ds.data_ptr())
+        return ds
+    bias = bias.detached()
+    extra = _bias_args(bias, own, args[2], args[3], device)
+    de_pos, de_hard = (None if e is None else torch.empty_like(e)
+                       for e in (bias.e_pos, bias.e_hard))
+    _build.launch("ring_retrieval", "gigl_ring_block_bwd_bias", device,
+                  *args, *extra, lse.data_ptr(), g.data_ptr(),
+                  ds.data_ptr(), _build.ptr(de_pos), _build.ptr(de_hard))
+    _build.launches["ring_retrieval_bias"] += 1
+    return ds, de_pos, de_hard
 
 
 def _block_scores(q: torch.Tensor, cands: Sequence[torch.Tensor]
@@ -265,19 +409,23 @@ def _block_scores(q: torch.Tensor, cands: Sequence[torch.Tensor]
 
 class RingRetrievalLoss(torch.autograd.Function):
     """One shard's (ce_sum, count) over the P candidate blocks in ring
-    order (its own first), differentiable in the query rows and in every
-    block: one K17 fold and one K17 backward launch."""
+    order (its own first), differentiable in the query rows, in every
+    block and in the own block's bias terms (``e_pos``, ``e_hard``, each
+    None without): one K17 fold and one K17 backward launch."""
 
     @staticmethod
     def forward(ctx, rows: RingRows, cols: Sequence[RingColumns],
-                query_mask: Optional[torch.Tensor], q, *cands):
+                query_mask: Optional[torch.Tensor], bias_shape, q, e_pos,
+                e_hard, *cands):
         ql = q.shape[0]
         m_run = torch.full((ql,), FMIN, dtype=torch.float32, device=q.device)
         s_run = torch.zeros((ql,), dtype=torch.float32, device=q.device)
         pos_score = torch.zeros((ql,), dtype=torch.float32, device=q.device)
         stacked = stack_columns(cols)
         scores = _block_scores(q, cands)
-        ring_fold(scores, rows, stacked, True, m_run, s_run, pos_score)
+        bias = None if bias_shape is None else OwnBlockBias(
+            e_pos, e_hard, *bias_shape).detached()
+        ring_fold(scores, rows, stacked, True, m_run, s_run, pos_score, bias)
         lse = torch.log(torch.clamp(s_run, min=1e-30)) + m_run
         ce = lse - pos_score
         if query_mask is not None:
@@ -286,6 +434,7 @@ class RingRetrievalLoss(torch.autograd.Function):
         else:
             count = torch.tensor(ql, dtype=torch.int32, device=q.device)
         ctx.rows, ctx.cols, ctx.query_mask = rows, stacked, query_mask
+        ctx.bias = bias
         ctx.save_for_backward(q, lse, scores, *cands)
         ctx.mark_non_differentiable(count)
         return ce.sum(), count
@@ -296,14 +445,19 @@ class RingRetrievalLoss(torch.autograd.Function):
         g = g_sum.float().expand(q.shape[0])
         if ctx.query_mask is not None:
             g = torch.where(ctx.query_mask, g, 0.0)
-        ds = ring_block_bwd(scores, ctx.rows, ctx.cols, True, lse, g).to(
-            q.dtype)
+        de = (None, None)
+        if ctx.bias is None:
+            ds = ring_block_bwd(scores, ctx.rows, ctx.cols, True, lse, g)
+        else:   # the terms' cotangents (autograd casts them to their type)
+            ds, *de = ring_block_bwd(scores, ctx.rows, ctx.cols, True, lse,
+                                     g, ctx.bias)
+        ds = ds.to(q.dtype)
         dq = torch.zeros_like(q)
         dcands = []
         for t, c in enumerate(cands):
             dq = dq + ds[t] @ c
             dcands.append(ds[t].T @ q)
-        return (None, None, None, dq, *dcands)
+        return (None, None, None, None, dq, *de, *dcands)
 
 
 def ring_retrieval_loss(
@@ -317,19 +471,25 @@ def ring_retrieval_loss(
     own_pos_ids: Optional[torch.Tensor] = None,
     query_mask: Optional[torch.Tensor] = None,
     remove_accidental_hits: bool = True,
-    own_block_bias: Optional[torch.Tensor] = None,
+    own_block_bias: Optional[OwnBlockBias] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ce_sum, count) of one shard's query rows ``q_local`` [Ql, D]
     against the GLOBAL candidate pool, given as the P blocks [Cl, D] in
     ring order (this shard's own first) with each block's columns.
     ``label_local_cols[r]`` (default r) is row r's positive column in the
-    own block. Combine across shards as psum(sum) / psum(count). Scores
+    own block; ``own_block_bias`` (:func:`ring_own_block_edge_bias`) the
+    label edges' raw-score terms on the own block, added before the
+    temperature. Combine across shards as psum(sum) / psum(count). Scores
     are inner products (a cosine decoder normalises its rows first)."""
-    if own_block_bias is not None:
-        raise NotImplementedError(
-            "ring_retrieval_loss(own_block_bias=...): the label-edge "
-            "scorer's own-block bias is not ported yet (ROADMAP A15, rest)")
+    if own_block_bias is not None and not isinstance(own_block_bias,
+                                                     OwnBlockBias):
+        raise TypeError(
+            "ring_retrieval_loss(own_block_bias=...) takes an OwnBlockBias "
+            "(ring_own_block_edge_bias), not the reference's dense [Ql, Cl] "
+            f"matrix; got {type(own_block_bias).__name__}")
     ql = q_local.shape[0]
+    if own_block_bias is not None:
+        _check_bias(own_block_bias, ql, cand_blocks[0].shape[0])
     if label_local_cols is None:
         label_local_cols = torch.arange(ql, dtype=torch.int32,
                                         device=q_local.device)
@@ -337,8 +497,12 @@ def ring_retrieval_loss(
                     query_ids=query_ids,
                     own_pos_ids=own_pos_ids if remove_accidental_hits
                     else None)
-    return RingRetrievalLoss.apply(rows, list(block_cols), query_mask,
-                                   q_local, *cand_blocks)
+    b = own_block_bias
+    return RingRetrievalLoss.apply(
+        rows, list(block_cols), query_mask,
+        None if b is None else (b.num_pos, b.num_hard), q_local,
+        None if b is None else b.e_pos, None if b is None else b.e_hard,
+        *cand_blocks)
 
 
 def ring_candidate_pool(batch, pos, hard, rand_emb_l, rand_ids_local

@@ -59,14 +59,15 @@ KERNEL_NAMES = ("sample_uniform", "uniform_ids", "build_neighbor_cache",
 # gathered destinations; chained: its order, then the segment ids); and
 # the COO per-edge terms' modes: K8 with edge rows (add, gine) and its
 # GATv2 destination walk, K8b's gine gate and GATv2 source walk, K10 with
-# the key addend and its GATv2 scores, K11's COO form.
+# the key addend and its GATv2 scores, K11's COO form; K17's own-block
+# bias mode (fold and backward).
 MODE_NAMES = ("segment_reduce_composed", "segment_reduce_chained",
               "segment_reduce_bwd_composed", "segment_reduce_bwd_chained",
               "segment_reduce_add", "segment_reduce_gine",
               "segment_reduce_gatv2", "segment_reduce_bwd_gine",
               "segment_reduce_bwd_gatv2", "sddmm_addend", "sddmm_gatv2",
               "ell_edge_grad_coo", "gather_rows_bytes", "unroute_rows_q8",
-              "gather_rows_q8_packed")
+              "gather_rows_q8_packed", "ring_retrieval_bias")
 launches: Dict[str, int] = dict.fromkeys(KERNEL_NAMES + MODE_NAMES, 0)
 
 _P = ctypes.c_void_p
@@ -130,6 +131,10 @@ _SIGNATURES = {
     + [_P] * 4,
     "gigl_ring_block_bwd": [_P, _I32, _I32, _I32] + [_P] * 7 + [_F32, _F32]
     + [_P] * 4,
+    "gigl_ring_fold_bias": [_P, _I32, _I32, _I32] + [_P] * 7 + [_F32, _F32]
+    + [_P, _P, _I32, _I32, _I32] + [_P] * 4,
+    "gigl_ring_block_bwd_bias": [_P, _I32, _I32, _I32] + [_P] * 7
+    + [_F32, _F32] + [_P, _P, _I32, _I32, _I32] + [_P] * 6,
     "gigl_ring_spmm": [_P] * 5 + [_I32] * 3 + [_P],
 }
 

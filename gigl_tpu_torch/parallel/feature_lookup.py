@@ -1,7 +1,8 @@
 """Routed per-id lookups across a range-sharded table or graph (port of
 ``gigl_tpu/parallel/feature_lookup.py``: ``request_capacity``,
 ``_route_requests``, ``_unroute``, ``routed_gather`` and
-``routed_sample_neighbors``, uniform, weighted and top-k).
+``routed_sample_neighbors``, uniform, weighted and top-k, with the drawn
+edges' label-edge rows).
 
 The table (feature rows, or per-node CSR adjacency) is range-partitioned
 over the shards of a :class:`~gigl_tpu_torch.parallel.mesh.Mesh`: global
@@ -15,7 +16,9 @@ global ids is one all_to_all round trip:
      (K1, or K19 for weighted / top-k draws over the shard's edge weights,
      in their row-offset mode, keyed by the global id),
   4. ``all_to_all`` the answers back and read each request's row at its
-     bucket coordinates (K16).
+     bucket coordinates (K16). A draw with ``local_edge_feats`` also
+     answers each drawn edge's feature row (K3 over the draw's CSR slots)
+     and sends the [P, C, fanout, De] rows back the same way.
 
 Shapes are static: each shard sends at most ``capacity`` requests to each
 peer; requests beyond it are dropped (``ok`` False, rows zero-filled), the
@@ -324,6 +327,16 @@ def answer_draw(local_indptr: torch.Tensor, local_indices: torch.Tensor,
     return torch.where(mask, nbr, -1)
 
 
+def answer_edge_rows(local_edge_feats: torch.Tensor, slots: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """A shard's drawn edges' rows: ``local_edge_feats`` [E_pad, De] at the
+    draw's CSR ``slots`` [..., fanout] (K3), zero where ``mask`` is False,
+    [..., fanout, De]."""
+    rows, _ = gather_rows(local_edge_feats, slots.reshape(-1))
+    rows = rows.reshape(tuple(slots.shape) + (local_edge_feats.shape[1],))
+    return torch.where(mask[..., None], rows, 0.0)
+
+
 def routed_sample_neighbors(
     mesh: Mesh,
     local_indptr: Sequence[torch.Tensor],
@@ -338,8 +351,8 @@ def routed_sample_neighbors(
     method: str = "uniform",
     local_weights: Optional[Sequence[torch.Tensor]] = None,
     weight_window: int = 128,
-    local_edge_feats=None,
-) -> Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]:
+    local_edge_feats: Optional[Sequence[torch.Tensor]] = None,
+) -> Tuple[List[torch.Tensor], ...]:
     """``fanout`` neighbor draws per frontier node over a row-sharded CSR,
     for every shard.
 
@@ -352,33 +365,45 @@ def routed_sample_neighbors(
     and the drawn ids route back.
 
     Returns per shard (neighbor ids [G, fanout] int32, mask [G, fanout]
-    bool, ok [G] bool); a dropped request's mask row is all False."""
+    bool, ok [G] bool); a dropped request's mask row is all False. With
+    ``local_edge_feats`` (shard p's [E_pad, De] fp32 edge rows in CSR slot
+    order, the label edges' features) the owner also gathers each drawn
+    edge's row (K3, zero where the slot is masked), the rows ride a second
+    all_to_all and K16 puts them back in request order: a 4-tuple with the
+    rows [G, fanout, De] per shard (zero for a dropped request)."""
     if method != "uniform" and local_weights is None:
         raise ValueError(f"method={method!r} requires local_weights")
     if method == "uniform":
         local_weights = None
-    if local_edge_feats is not None:
-        raise NotImplementedError(
-            "routed_sample_neighbors(local_edge_feats=...): the partitioned "
-            "label-edge features are not ported yet (ROADMAP A15, rest)")
     p = mesh.num_shards
     rows = local_indptr[0].shape[0] - 1
+    with_rows = local_edge_feats is not None
+
     def weights(q):
         return None if local_weights is None else local_weights[q]
 
     if p == 1:
         # the closed form: the owner-side draw on the raw request vector
         ids = global_ids[0].to(torch.int32)
-        nbr, mask, _ = owner_draw(local_indptr[0], local_indices[0], ids,
-                                  fanout, 0, seed, hop, method, weights(0),
-                                  weight_window)
-        return [nbr], [mask], [torch.ones(ids.shape, dtype=torch.bool,
-                                          device=ids.device)]
+        nbr, mask, slots = owner_draw(local_indptr[0], local_indices[0], ids,
+                                      fanout, 0, seed, hop, method,
+                                      weights(0), weight_window)
+        out = ([nbr], [mask], [torch.ones(ids.shape, dtype=torch.bool,
+                                          device=ids.device)])
+        if with_rows:
+            out += ([answer_edge_rows(local_edge_feats[0], slots, mask)],)
+        return out
     recv, coords = _route_all(mesh, global_ids, rows, capacity,
                               capacity_factor)
-    packed = [answer_draw(local_indptr[q], local_indices[q], recv[q], fanout,
-                          q * rows, seed, hop, method, weights(q),
-                          weight_window) for q in range(p)]
+    packed, edge_rows = [], []
+    for q in range(p):
+        nbr, mask, slots = owner_draw(local_indptr[q], local_indices[q],
+                                      recv[q], fanout, q * rows, seed, hop,
+                                      method, weights(q), weight_window)
+        packed.append(torch.where(mask, nbr, -1))
+        if with_rows:
+            edge_rows.append(answer_edge_rows(local_edge_feats[q], slots,
+                                              mask))
     back = mesh.all_to_all(packed)
     nbrs, masks, oks = [], [], []
     for s in range(p):
@@ -388,4 +413,9 @@ def routed_sample_neighbors(
         nbrs.append(torch.where(m, out, 0))
         masks.append(m)
         oks.append(ok)
-    return nbrs, masks, oks
+    if not with_rows:
+        return nbrs, masks, oks
+    # a masked slot's row is zero on the owner, a dropped request's in K16
+    back_rows = mesh.all_to_all(edge_rows)
+    return nbrs, masks, oks, [unroute_rows(back_rows[s], *coords[s])
+                              for s in range(p)]

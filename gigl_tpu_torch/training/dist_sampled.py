@@ -1,8 +1,9 @@
 """Sampled training over a graph PARTITIONED across a mesh of shards (port
 of the homogeneous part of ``gigl_tpu/training/dist_sampled.py``:
 ``_shard_csr``, ``apply_overflow_policy``, ``PartitionedGraph`` with its
-int8 rows and its tabularized layout, ``PartitionedNALPTrainer``, live and
-``cached_hop``, and ``PartitionedNodeClassificationTrainer``).
+int8 rows, its tabularized layout and its label-edge features,
+``PartitionedNALPTrainer``, live and ``cached_hop``, and
+``PartitionedNodeClassificationTrainer``).
 
 Every shard holds only its 1/P range of the graph — the feature rows with
 the in-degree fused as the last column, and its blocks of the message,
@@ -49,8 +50,14 @@ id). One shard takes the closed forms of the routed lookups (plain K1 /
 K3 calls, no collective), so its union gather is one K3 call (one K12
 packed-row gather over int8 rows).
 
-Not ported (ROADMAP A15, rest): label-edge features on the partitioned
-graph, and the ring's own-block edge bias.
+The label edges' features (``DeviceGraph.sup_edge_features`` /
+``hard_neg_edge_features``) shard with their CSRs in slot order
+(``sup_edge_feats`` / ``hard_edge_feats``); a batch's positives and hard
+negatives carry their edges' rows, gathered on the owner (K3) and routed
+back with the draw (K16), and the model's edge scorer adds their terms to
+the pair scores: in the per-shard pool's loss as the replicated trainer
+does, and in the ring as the own block's bias (K17's bias mode). The typed
+partitioned trainer is ``training/dist_hetero.py``.
 """
 
 from __future__ import annotations
@@ -78,6 +85,7 @@ from gigl_tpu_torch.losses.metrics import (
 from gigl_tpu_torch.losses.sharded_retrieval import (
     ring_blocks,
     ring_candidate_pool,
+    ring_own_block_edge_bias,
     ring_retrieval_loss,
 )
 from gigl_tpu_torch.models.encoders import cached_agg_kind
@@ -111,7 +119,6 @@ from gigl_tpu_torch.training.trainer import (
 
 logger = logging.getLogger(__name__)
 
-A15_REST = "is not ported yet (ROADMAP A15, rest)"
 OVERFLOW_POLICIES = ("warn", "raise", "silent", "grow")
 
 
@@ -121,7 +128,8 @@ def _shard_csr(indptr: np.ndarray, indices: np.ndarray, num_shards: int,
     [P, rows + 1] int32 rebased per shard, local indices [P, E_pad] int32
     global neighbor ids, zero-padded to the largest shard's edge count),
     plus the per-shard edge weights [P, E_pad] fp32 (zero-padded) when
-    ``weights`` (CSR slot order) is given. Global row r lives on shard r
+    ``weights`` [E] (CSR slot order) is given — or the per-shard edge rows
+    [P, E_pad, De] for weights [E, De] (label-edge features). Global row r lives on shard r
     // rows; when N does not divide P the last shards' trailing rows are
     empty."""
     n = indptr.shape[0] - 1
@@ -145,7 +153,7 @@ def _shard_csr(indptr: np.ndarray, indices: np.ndarray, num_shards: int,
         ix_arr[p, : len(b)] = b
     if weights is None:
         return np.stack(blocks_ip), ix_arr
-    w_arr = np.zeros((num_shards, e_pad), np.float32)
+    w_arr = np.zeros((num_shards, e_pad) + weights.shape[1:], np.float32)
     for p, b in enumerate(blocks_w):
         w_arr[p, : len(b)] = b
     return np.stack(blocks_ip), ix_arr, w_arr
@@ -200,7 +208,10 @@ class PartitionedGraph:
     the graph has none). labels[p]: [rows, 1] int32 node labels (None
     without). sample_tables: one per-shard list of [rows, k] int32 frozen
     sample tables (-1 in invalid slots) per distinct in-tree fanout, in
-    the ascending order of ``table_fanouts``."""
+    the ascending order of ``table_fanouts``. sup_edge_feats[p] /
+    hard_edge_feats[p]: [E_pad, De] fp32, the label edges' features of
+    shard p's supervision / hard-negative blocks in slot order (None
+    without), drawn with the positives and hard negatives."""
 
     feat_deg: List[torch.Tensor]
     msg_indptr: List[torch.Tensor]
@@ -218,6 +229,8 @@ class PartitionedGraph:
     cache_dim: int = 0
     sample_tables: Optional[Tuple[List[torch.Tensor], ...]] = None
     table_fanouts: Optional[Tuple[int, ...]] = None
+    sup_edge_feats: Optional[List[torch.Tensor]] = None
+    hard_edge_feats: Optional[List[torch.Tensor]] = None
 
     @property
     def num_shards(self) -> int:
@@ -239,10 +252,6 @@ class PartitionedGraph:
             raise ValueError(
                 "PartitionedGraph.build takes a DeviceGraph with fp32 node "
                 "features; quantize_features=True stores int8 rows")
-        if (dg.sup_edge_features is not None
-                or dg.hard_neg_edge_features is not None):
-            raise NotImplementedError(
-                f"label-edge features on a PartitionedGraph {A15_REST}")
         p = mesh.num_shards
         n = dg.num_nodes
         rows = -(-n // p)
@@ -272,28 +281,32 @@ class PartitionedGraph:
             lab[:n, 0] = dg.node_labels.cpu().numpy().astype(np.int32)
             labels = _per_shard(lab.reshape(p, rows, 1), mesh.device)
 
-        def blocks(csr):
-            """The CSR's per-shard blocks (indptr, indices and, when it has
-            edge weights, the weights), or Nones."""
+        def blocks(csr, w):
+            """The CSR's per-shard blocks (indptr, indices and, given its
+            slot-aligned edge weights [E] or label-edge rows [E, De], those
+            too), or Nones."""
             if csr is None:
                 return None, None, None
-            w = csr.edge_weights
             out = _shard_csr(csr.indptr.cpu().numpy(),
                              csr.indices.cpu().numpy(), p, rows,
                              weights=None if w is None else w.cpu().numpy())
             return tuple(_per_shard(a, mesh.device) for a in out) + (
                 None,) * (3 - len(out))
 
-        msg_ip, msg_ix, msg_w = blocks(dg.message_csr)
-        sup_ip, sup_ix, _ = blocks(dg.supervision_csr)
-        hard_ip, hard_ix, _ = blocks(dg.hard_neg_csr)
+        msg_ip, msg_ix, msg_w = blocks(dg.message_csr,
+                                       dg.message_csr.edge_weights)
+        sup_ip, sup_ix, sup_ef = blocks(dg.supervision_csr,
+                                        dg.sup_edge_features)
+        hard_ip, hard_ix, hard_ef = blocks(dg.hard_neg_csr,
+                                           dg.hard_neg_edge_features)
         return cls(feat_deg=_per_shard(fd.reshape(p, rows, -1), mesh.device),
                    msg_indptr=msg_ip, msg_indices=msg_ix,
                    sup_indptr=sup_ip, sup_indices=sup_ix,
                    hard_indptr=hard_ip, hard_indices=hard_ix,
                    num_nodes=n, rows_per_shard=rows, feat_dim=d,
                    msg_weights=msg_w, quantized=bool(quantize_features),
-                   labels=labels)
+                   labels=labels, sup_edge_feats=sup_ef,
+                   hard_edge_feats=hard_ef)
 
     def decode_rows(self, rows: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -511,6 +524,9 @@ class PartitionedNALPTrainer:
                       pgraph.hard_indices or [torch.zeros(
                           (1,), dtype=torch.int32, device=self.device)
                           for _ in range(p)])
+        # the label edges' rows, drawn with the positives / hard negatives
+        self._sup_ef = pgraph.sup_edge_feats
+        self._hard_ef = pgraph.hard_edge_feats
 
     def _tabularized(self, seed: int) -> PartitionedGraph:
         return self.pg_base.with_tabularized(
@@ -699,23 +715,30 @@ class PartitionedNALPTrainer:
     # -- batches and losses ----------------------------------------------------
     def _make_batches(self, anchors: Sequence[torch.Tensor], step: int):
         """Every shard's NALP batch: routed positive (hop 1_000_003 + step)
-        and hard-negative (2_000_003 + step) draws, and the random
-        negatives, the same global draw on every shard (K1b at 3_000_017 +
-        step). Returns (batches, dropped requests)."""
+        and hard-negative (2_000_003 + step) draws, with the drawn label
+        edges' rows when the graph has them (the same round trip: K3 on the
+        owner, K16), and the random negatives, the same global draw on
+        every shard (K1b at 3_000_017 + step). Returns (batches, dropped
+        requests)."""
         cfg = self.cfg
-        pos, pos_mask, ok_p = routed_sample_neighbors(
+        pos, pos_mask, ok_p, *pos_ef = routed_sample_neighbors(
             self.mesh, *self._sup, list(anchors), cfg.num_positives,
             seed=cfg.seed, hop=1_000_003 + step,
-            capacity_factor=self.capacity_factor)
+            capacity_factor=self.capacity_factor,
+            local_edge_feats=self._sup_ef)
+        pos_ef = pos_ef[0] if pos_ef else [None] * len(anchors)
         ovf = sum((~o).sum(dtype=torch.int32) for o in ok_p)
         rand = draw_random_negatives(cfg.num_random_negs, self.pg.num_nodes,
                                      seed=cfg.seed, step=step,
                                      device=self.device)
         h = cfg.num_hard_negs
+        hard_ef = [None] * len(anchors)
         if h > 0:
-            hard, hard_mask, ok_h = routed_sample_neighbors(
+            hard, hard_mask, ok_h, *ef = routed_sample_neighbors(
                 self.mesh, *self._hard, list(anchors), h, seed=cfg.seed,
-                hop=2_000_003 + step, capacity_factor=self.capacity_factor)
+                hop=2_000_003 + step, capacity_factor=self.capacity_factor,
+                local_edge_feats=self._hard_ef)
+            hard_ef = ef[0] if ef else hard_ef
             ovf = ovf + sum((~o).sum(dtype=torch.int32) for o in ok_h)
         else:
             hard = [torch.zeros(a.shape + (0,), dtype=torch.int32,
@@ -724,7 +747,9 @@ class PartitionedNALPTrainer:
                                      device=self.device) for a in anchors]
         batches = [NALPBatch(anchors=a.to(torch.int32), pos=pos[s],
                              pos_mask=pos_mask[s], hard_neg=hard[s],
-                             hard_neg_mask=hard_mask[s], random_neg=rand)
+                             hard_neg_mask=hard_mask[s], random_neg=rand,
+                             pos_edge_feats=pos_ef[s],
+                             hard_neg_edge_feats=hard_ef[s])
                    for s, a in enumerate(anchors)]
         return batches, ovf
 
@@ -795,7 +820,8 @@ class PartitionedNALPTrainer:
         """The global-candidate-pool retrieval loss: every shard's query
         rows against every shard's candidate block, folded round the ring
         (K17); the global mean psum(ce) / psum(count) as the pmean of
-        ce_sum * P / psum(count)."""
+        ce_sum * P / psum(count). With the model's edge scorer, the label
+        edges' score terms ride on the own block (K17's bias mode)."""
         cfg, p = self.cfg, self.num_shards
         cands, cols = [], []
         for s, b in enumerate(batches):
@@ -821,6 +847,9 @@ class PartitionedNALPTrainer:
             q_rows = embs[s][0].repeat_interleave(n_pos, dim=0)
             if self.model.decoder.decoder_type == DecoderType.COSINE:
                 q_rows = _unit(q_rows)
+            bias = None
+            if getattr(self.model, "edge_scorer", None) is not None:
+                bias = ring_own_block_edge_bias(self.model.edge_score, b)
             ce_sum, count = ring_retrieval_loss(
                 q_rows, cand_views[s], col_views[s],
                 temperature=cfg.temperature,
@@ -829,7 +858,8 @@ class PartitionedNALPTrainer:
                 query_ids=b.anchors.repeat_interleave(n_pos),
                 own_pos_ids=b.pos.reshape(-1),
                 query_mask=b.pos_mask.reshape(-1),
-                remove_accidental_hits=cfg.remove_accidental_hits)
+                remove_accidental_hits=cfg.remove_accidental_hits,
+                own_block_bias=bias)
             sums.append(ce_sum)
             counts.append(count)
         total = self.mesh.psum(counts)[0].to(torch.float32)

@@ -22,7 +22,9 @@ reference. The label edges' features (``supervision_edge_features`` /
 draws, gathered through K3 by the drawn slots, with the rows of padded
 draws zeroed (``hetero_dataset.py:301-330``).
 
-Not ported yet: host-resident feature tables (the partitioned tier, A15).
+Not ported yet: host-resident feature tables (``features_on_device=False``,
+the beyond-HBM regime, ROADMAP A17). The partitioned typed graph is
+``training/dist_hetero.py``.
 """
 
 from __future__ import annotations
@@ -104,7 +106,7 @@ class HeteroDeviceGraph:
         if not features_on_device:
             raise NotImplementedError(
                 "host-resident feature tables are not ported yet (the "
-                "partitioned tier, ROADMAP A15)")
+                "beyond-HBM regime, ROADMAP A17)")
         if supervision_edge_features is not None and supervision_edges is None:
             raise ValueError("supervision_edge_features needs "
                              "supervision_edges")

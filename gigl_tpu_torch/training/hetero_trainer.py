@@ -69,7 +69,8 @@ class HeteroNALPTrainerConfig:
     # Frozen per-(CSR, fanout) sample tables: one table-row gather per op;
     # refresh_tables(epoch) re-runs the sampler with a new seed.
     tabularized: bool = False
-    # Partitioned trainers only (not ported).
+    # Partitioned trainers only (training/dist_hetero.py): the ring loss
+    # over every shard's candidates.
     global_candidate_pool: bool = False
 
 

@@ -121,7 +121,17 @@ empty segments, 1,000-edge hubs on both sides; the edges in their own and
 in walk order; fp32 and bf16), bit-equal on a repeat run and between the
 composed and chained modes; each new autograd.Function and encode_coo
 with edge features (GINE, EdgeAttrGAT, Transformer, and GATv2) on the
-card against the CPU within 1e-4 of the scale.
+card against the CPU within 1e-4 of the scale. The partitioned tier's
+label edges: K17's own-block bias mode (fold and backward with the terms'
+cotangents; Ql 39 with 3 positives and 2 hard negatives an anchor, no
+hard negatives, one block, 512 and 1 rows; fp32 and bf16 embeddings)
+against its twin (the state rtol 1e-5, dS and the cotangents within 1e-5
+of their scale), bit-equal on a repeat run and replayed from a CUDA graph;
+K16 carrying [fanout, De] edge rows (De 8 and 3) bit-equal; routed draws
+with edge rows, three partitioned label-edge steps (per-shard pool and
+ring) and three typed partitioned steps (HGT live and tabularized, RGCN)
+on the card against the CPU (1e-4 relative; encode_batch 1e-5 of the
+scale).
 """
 
 import dataclasses
@@ -4341,3 +4351,285 @@ def test_partitioned_nc_steps_on_card_match_cpu(dev, cached):
     torch.testing.assert_close(la, lb, rtol=1e-4, atol=0)
     assert abs(acc_a - acc_b) <= 0.02
     assert float((pa - pb).abs().max()) <= 1e-4 * float(pb.abs().max())
+
+
+# -- the partitioned tier's label edges and K17's own-block bias mode -------------
+def _bias_case(dev, b, p_, h, num_blocks, dtype, seed):
+    """A shard's [P, Ql, Cl] ring scores from ``dtype`` embeddings (Ql = b
+    anchors x p positives; Cl = Ql + b h hard + 37 random columns) with
+    their rows and columns, and the own-block bias terms."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(seed)
+    ql, nh = b * p_, b * h
+    cl = ql + nh + 37
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((ql, 32), generator=g, device=dev).to(dtype)
+    cands = [torch.randn((cl, 32), generator=g, device=dev).to(dtype)
+             for _ in range(num_blocks)]
+    scores = sharded_retrieval._block_scores(q, cands)
+    aid = rng.integers(0, 40, b).astype(np.int32)
+    qids = np.repeat(aid, p_)
+    rows = sharded_retrieval.RingRows(
+        temperature=0.07, label_cols=t(np.arange(ql, dtype=np.int32)),
+        query_ids=t(qids), own_pos_ids=t(rng.integers(0, 60, ql).astype(
+            np.int32)))
+    blocks = []
+    for k in range(num_blocks):
+        pos_qids = np.full(cl, -1, np.int32)
+        pos_qids[:ql] = qids if k == 0 else rng.integers(0, 40, ql)
+        blocks.append(sharded_retrieval.RingColumns(
+            ids=t(rng.integers(0, 60, cl).astype(np.int32)),
+            pos_qids=t(pos_qids), mask=t(rng.random(cl) < 0.85)))
+    e_pos = t((rng.normal(size=ql) * 2).astype(np.float32))
+    e_hard = t((rng.normal(size=nh) * 2).astype(np.float32)) if h else None
+    bias = sharded_retrieval.OwnBlockBias(e_pos, e_hard, p_, h)
+    return scores, rows, sharded_retrieval.stack_columns(blocks), bias
+
+
+@pytest.mark.parametrize("b,p_,h,num_blocks", [
+    (13, 3, 2, 4), (128, 1, 1, 4), (64, 2, 0, 4), (9, 1, 3, 1),
+    (512, 1, 1, 4), (1, 1, 1, 1)],
+    ids=["ql39_p3_h2", "flagship_shard", "h0", "one_block", "wide",
+         "one_row"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_bias_mode_matches_plain(dev, b, p_, h, num_blocks, dtype):
+    """K17's own-block bias mode (fold and backward with d e_pos, d
+    e_hard) against its twin (the dense bias added to block 0, the terms'
+    cotangents by autograd through it): the fold's state rtol 1e-5, dS and
+    the cotangents within 1e-5 of their scale; the same bits on a repeat
+    run; one launch each, counted as the bias mode."""
+    scores, rows, cols, bias = _bias_case(dev, b, p_, h, num_blocks, dtype,
+                                          seed=b * 10 + p_ + h)
+    ql = scores.shape[1]
+    fresh = lambda: [torch.full((ql,), sharded_retrieval.FMIN,  # noqa: E731
+                                device=dev),
+                     torch.zeros(ql, device=dev), torch.zeros(ql, device=dev)]
+    _build.reset_launches()
+    got, again, want = fresh(), fresh(), fresh()
+    sharded_retrieval.ring_fold(scores, rows, cols, True, *got, bias=bias)
+    assert _build.launches["ring_retrieval"] == 1
+    assert _build.launches["ring_retrieval_bias"] == 1
+    sharded_retrieval.ring_fold(scores, rows, cols, True, *again, bias=bias)
+    sharded_retrieval._ring_fold_plain(scores, rows, cols, True, *want,
+                                       bias=bias)
+    for k, a, w in zip(got, again, want):
+        assert torch.equal(k, a)
+        torch.testing.assert_close(k, w, rtol=1e-5, atol=0)
+    lse = torch.log(torch.clamp(want[1], min=1e-30)) + want[0]
+    gr = torch.rand((ql,), device=dev)
+    k_out = sharded_retrieval.ring_block_bwd(scores, rows, cols, True, lse,
+                                             gr, bias)
+    k_again = sharded_retrieval.ring_block_bwd(scores, rows, cols, True, lse,
+                                               gr, bias)
+    w_out = sharded_retrieval._ring_block_bwd_plain(scores, rows, cols, True,
+                                                    lse, gr, bias)
+    assert _build.launches["ring_retrieval_bias"] == 4
+    assert (k_out[2] is None) == (h == 0) == (w_out[2] is None)
+    for k, a, w in zip(k_out, k_again, w_out):
+        if w is None:
+            continue
+        assert torch.equal(k, a)
+        scale = max(float(w.abs().max()), 1e-30)
+        assert float((k - w).abs().max()) <= 1e-5 * scale
+    assert torch.equal(k_out[1], torch.diagonal(k_out[0][0]))
+    if h:   # each hard column's p cells summed in row order
+        ds0 = k_out[0][0][:, ql:ql + b * h].reshape(b, p_, b * h)
+        want_h = sum(ds0[:, r, :] for r in range(p_))
+        want_h = want_h.reshape(b, b, h)[torch.arange(b), torch.arange(b)]
+        torch.testing.assert_close(k_out[2], want_h.reshape(-1), rtol=1e-6,
+                                   atol=1e-7)
+
+
+def test_ring_bias_mode_replays_in_a_cuda_graph(dev):
+    """K17's bias-mode fold and backward captured in a CUDA graph give the
+    eager calls' bits on replay, also over new scores and terms copied in
+    place."""
+    scores, rows, cols, bias = _bias_case(dev, 128, 1, 1, 4, torch.float32,
+                                          seed=3)
+    ql = scores.shape[1]
+    state = torch.stack([torch.full((ql,), sharded_retrieval.FMIN,
+                                    device=dev), torch.zeros(ql, device=dev),
+                         torch.zeros(ql, device=dev)])
+    work = state.clone()
+    gr = torch.rand((ql,), device=dev)
+
+    def step():
+        work.copy_(state)
+        sharded_retrieval.ring_fold(scores, rows, cols, True, *work,
+                                    bias=bias)
+        lse = torch.log(torch.clamp(work[1], min=1e-30)) + work[0]
+        return (work.clone(),) + tuple(sharded_retrieval.ring_block_bwd(
+            scores, rows, cols, True, lse, gr, bias))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()                                          # warm up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = step()
+    for k in range(2):
+        if k:
+            scores.mul_(1.5)
+            bias.e_pos.add_(0.25)
+            bias.e_hard.mul_(-1.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = step()
+        for c, e in zip(captured, eager):
+            assert torch.equal(c, e)
+
+
+@pytest.mark.parametrize("de", [8, 3])
+@pytest.mark.parametrize("fanout", [1, 10, 15])
+def test_unroute_carries_edge_rows(dev, de, fanout):
+    """K16 over [P, C, fanout, De] fp32 edge rows (16-byte pieces for De 8,
+    4-byte words for an odd De) bit-equal to its twin, zero rows for
+    dropped requests."""
+    ids = _route_ids(300, 4 * 100, seed=de + fanout)
+    _, owner, pos, ok = fl._route_requests_plain(ids, 100, 4, 40)
+    back = torch.randn((4, 40, fanout, de),
+                       generator=torch.Generator().manual_seed(de))
+    want = fl._unroute_plain(back, owner, pos, ok)
+    _build.reset_launches()
+    got = fl.unroute_rows(back.to(dev), owner.to(dev), pos.to(dev),
+                          ok.to(dev))
+    assert _build.launches["unroute_rows"] == 1
+    assert got.shape == (300, fanout, de) and torch.equal(got.cpu(), want)
+    assert not ok.all() and not want[~ok].any()
+
+
+@pytest.mark.parametrize("num_shards", [4, 1])
+def test_routed_edge_rows_on_card_match_cpu(dev, num_shards):
+    """routed_sample_neighbors(local_edge_feats=) on the card (K15, K1's
+    row-offset mode, K3 over the drawn slots, K16 for ids and rows)
+    bit-equal to the CPU's."""
+    csr = _csr(dev)
+    rows = -(-N // num_shards)
+    feats = np.random.default_rng(5).normal(
+        size=(csr.indices.shape[0], 8)).astype(np.float32)
+    ip, ix, ef = dist_sampled._shard_csr(
+        csr.indptr.cpu().numpy(), csr.indices.cpu().numpy(), num_shards,
+        rows, weights=feats)
+    frontier = np.random.default_rng(6).integers(0, N, (num_shards, 256))
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        _build.reset_launches()
+        out[device.type] = fl.routed_sample_neighbors(
+            Mesh(num_shards, device),
+            [torch.from_numpy(a).to(device) for a in ip],
+            [torch.from_numpy(a).to(device) for a in ix],
+            [torch.from_numpy(f.astype(np.int32)).to(device)
+             for f in frontier], 10, seed=3, hop=1_000_003,
+            capacity_factor=4.0,
+            local_edge_feats=[torch.from_numpy(a).to(device) for a in ef])
+        if device.type == "cuda":
+            assert _build.launches["gather_rows"] == num_shards
+            if num_shards > 1:
+                assert _build.launches["unroute_rows"] == 2 * num_shards
+    for k, w in zip(out["cuda"], out["cpu"]):
+        for a, b in zip(k, w):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("ring", [False, True], ids=["per_shard", "ring"])
+def test_partitioned_label_edge_steps_on_card_match_cpu(dev, ring):
+    """Three partitioned NALP steps with label-edge features and the
+    scorer (2 positives, 1 hard negative) at 4 shards on the card against
+    the CPU: losses and weights within 1e-4 relative, K17's bias mode
+    launched on the ring."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(14)
+    src, dst = rng.integers(0, N, E), rng.integers(0, N, E)
+    hard = np.stack([rng.integers(0, N, 3000), rng.integers(0, N, 3000)])
+    x = rng.normal(size=(N, 16)).astype(np.float32)
+    sup_ef = rng.normal(size=(E, 8)).astype(np.float32)
+    hard_ef = rng.normal(size=(3000, 8)).astype(np.float32)
+    anchors = rng.integers(0, N, (3, 64))
+    out = {}
+    for device in (torch.device("cpu"), dev):
+        g = DeviceGraph.from_hetero(
+            HeteroGraph.homogeneous(src=src, dst=dst, num_nodes=N,
+                                    node_features=x),
+            supervision_edges=np.stack([src, dst]), hard_neg_edges=hard,
+            supervision_edge_features=sup_ef,
+            hard_neg_edge_features=hard_ef, device=device)
+        mesh = Mesh(4, device)
+        model = LinkPredictionGNN(GNNEncoder(16, 32, 16),
+                                  LinkPredictionDecoder(),
+                                  EdgeFeatureScorer(8, 32))
+        t = dist_sampled.PartitionedNALPTrainer(
+            model, dist_sampled.PartitionedGraph.build(g, mesh), mesh,
+            NALPTrainerConfig(fanouts=(4, 3), num_positives=2,
+                              num_hard_negs=1, num_random_negs=64,
+                              global_candidate_pool=ring),
+            optimizer_args={"learning_rate": "0.01"}, capacity_factor=8.0)
+        state = t.init_state(0)
+        _build.reset_launches()
+        state, losses = t.train_steps(state, anchors)
+        out[device.type] = (losses.cpu(), {k: v.cpu() for k, v in
+                                           t.model.state_dict().items()})
+        if device.type == "cuda":
+            assert _build.launches["unroute_rows"] > 0
+            assert (_build.launches["ring_retrieval_bias"] == 3 * 8) == ring
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=0)
+    for k, v in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][k], v, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("conv,tabularized", [("hgt", False), ("hgt", True),
+                                              ("rgcn", False)])
+def test_typed_partitioned_steps_on_card_match_cpu(dev, conv, tabularized):
+    """Three typed partitioned steps (the DBLP paths over 4 shards; HGT
+    with 4 heads or RGCN with 2 bases, live or tabularized) on the card
+    against the CPU: losses within 1e-4 relative, the routed kernels
+    launched; encode_batch of both types from the initial weights within
+    1e-5 of the scale."""
+    from gigl_tpu_torch.training.dist_hetero import (
+        PartitionedHeteroGraph,
+        PartitionedHeteroNALPTrainer,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    graph, paths, types = _typed_graph()
+    dims = {"author": 12, "paper": 20}
+    writes = EdgeType.from_str(types[0])
+    anchors = np.random.default_rng(2).integers(0, 500, (3, 64))
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        hdg = HeteroDeviceGraph.from_hetero(
+            graph, paths, supervision_edge_type=writes,
+            supervision_edges=graph.edges[writes], device=device)
+        mesh = Mesh(4, device)
+        pg = PartitionedHeteroGraph.build(hdg, paths, mesh,
+                                          anchor_node_type="paper")
+        if tabularized:
+            pg = pg.with_sample_tables(hdg, paths, mesh)
+        model = HeteroLinkPredictionGNN(HeteroGNNEncoder(
+            32, 16, ("author", "paper"), types, dims, conv=conv, heads=4,
+            num_bases=2), LinkPredictionDecoder())
+        tr = PartitionedHeteroNALPTrainer(
+            model, pg, paths, HeteroNALPTrainerConfig(
+                "paper", "author", num_random_negs=64,
+                tabularized=tabularized), mesh, capacity_factor=8.0)
+        st = tr.init_state(0)
+        # from the initial weights: HGT's last author bias has a gradient
+        # that is zero by symmetry, so Adam moves it by its rounding noise
+        embs = [tr.encode_batch(np.arange(0, n, 3), nt).cpu()
+                for nt, n in (("paper", 500), ("author", 300))]
+        _build.reset_launches()
+        st, got = tr.train_steps(st, anchors)
+        if device.type == "cuda":
+            for k in ("route_requests", "unroute_rows", "gather_rows",
+                      "uniform_ids", "retrieval_loss"):
+                assert _build.launches[k] > 0, k
+        out[device.type] = (got.cpu().numpy(), embs)
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    for k, w in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((k - w).abs().max()) <= 1e-5 * float(w.abs().max())

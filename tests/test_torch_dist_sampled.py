@@ -351,11 +351,12 @@ def test_fit_runs_on_four_shards():
 
 @pytest.mark.parametrize("case", ["weighted", "label_edges"])
 def test_unported_options_raise(case):
-    """Label-edge features on the partitioned graph are not ported; the
-    weighted draws are, and need a graph with edge weights. (cached_hop,
-    int8 rows, labels and with_tabularized are ported: their parity tests
-    are in tests/test_torch_dist_tabularized.py, test_torch_dist_quantized.py
-    and test_torch_dist_nc.py.)"""
+    """Every option is ported now: label-edge features on the partitioned
+    graph shard with their CSRs (their parity tests are in
+    tests/test_torch_dist_label_edges.py), and the weighted draws need a
+    graph with edge weights. (cached_hop, int8 rows, labels and
+    with_tabularized: tests/test_torch_dist_tabularized.py,
+    test_torch_dist_quantized.py and test_torch_dist_nc.py.)"""
     src, dst, x, _ = _arrays()
     mesh = Mesh(4, "cpu")
     model = LinkPredictionGNN(GNNEncoder(D, HID, OUT),
@@ -365,9 +366,13 @@ def test_unported_options_raise(case):
             HeteroGraph.homogeneous(src=src, dst=dst, num_nodes=N,
                                     node_features=x),
             supervision_edges=np.stack([src, dst]), device="cpu",
-            supervision_edge_features=np.zeros((len(src), 2), np.float32))
-        with pytest.raises(NotImplementedError, match="A15"):
-            PartitionedGraph.build(dg, mesh)
+            supervision_edge_features=np.arange(
+                2 * len(src), dtype=np.float32).reshape(-1, 2))
+        pg = PartitionedGraph.build(dg, mesh)
+        assert pg.hard_edge_feats is None
+        got = torch.cat([f[:int(ip[-1])] for f, ip in
+                         zip(pg.sup_edge_feats, pg.sup_indptr)])
+        assert torch.equal(got, dg.sup_edge_features)
         return
     # weighted draws are ported (tests/test_torch_weighted_sampling.py):
     # a graph without edge weights raises the reference's ValueError
@@ -441,9 +446,8 @@ def test_run_partitioned_inference_matches_jax(fresh_pair, batch_size):
 
 
 def test_run_partitioned_inference_options_raise(fresh_pair):
+    """node_type= is ported (the typed trainer's encode_batch:
+    tests/test_torch_dist_hetero.py); a mesh on another device raises."""
     pt = fresh_pair[2]
-    with pytest.raises(NotImplementedError, match="A15, rest"):
-        run_partitioned_inference(pt, N, _Sink(), node_type="user",
-                                  device="cpu")
     with pytest.raises(ValueError, match="mesh lives on"):
         run_partitioned_inference(pt, N, _Sink(), device="meta")

@@ -311,17 +311,32 @@ def test_make_mesh_defaults_to_cuda():
 @pytest.mark.parametrize("kw,match", [
     ({"method": "weighted"}, "A2"), ({"local_edge_feats": object()}, "A15")])
 def test_routed_sample_unported_options_raise(kw, match):
-    """Label-edge features still raise (A15); the weighted owner-side draw
-    (A2) is ported (tests/test_torch_weighted_sampling.py) and without
-    local weights raises the reference's own ValueError."""
+    """Both options are ported now: the weighted owner-side draw (A2,
+    tests/test_torch_weighted_sampling.py) without local weights raises the
+    reference's own ValueError; label-edge rows (A15,
+    tests/test_torch_dist_label_edges.py) make the draw a 4-tuple whose
+    rows are the drawn edges' rows, zero where a slot is masked."""
     mesh = Mesh(2, "cpu")
-    ip = [torch.zeros(3, dtype=torch.int32)] * 2
-    ix = [torch.zeros(1, dtype=torch.int32)] * 2
-    err, match = ((ValueError, "requires local_weights") if "method" in kw
-                  else (NotImplementedError, match))
-    with pytest.raises(err, match=match):
-        fl.routed_sample_neighbors(mesh, ip, ix, [torch.zeros(
-            2, dtype=torch.int32)] * 2, 2, **kw)
+    ip = [torch.tensor([0, 2, 3], dtype=torch.int32)] * 2
+    ix = [torch.tensor([1, 3, 0], dtype=torch.int32)] * 2
+    ids = [torch.tensor([0, 3], dtype=torch.int32)] * 2
+    if "method" in kw:
+        with pytest.raises(ValueError, match="requires local_weights"):
+            fl.routed_sample_neighbors(mesh, ip, ix, ids, 2, **kw)
+        return
+    rows = [torch.arange(9, dtype=torch.float32).reshape(3, 3) + 10 * q
+            for q in range(2)]
+    nbr, mask, ok, ef = fl.routed_sample_neighbors(
+        mesh, ip, ix, ids, 2, local_edge_feats=rows)
+    for s in range(2):
+        assert ef[s].shape == (2, 2, 3) and ok[s].all()
+        assert not ef[s][~mask[s]].any()
+        # node 0 (shard 0) has slots 0, 1; node 3 (shard 1, local row 1)
+        # has slot 2 of shard 1's block
+        assert mask[s][0].all() and mask[s][1].tolist() == [True, False]
+        assert torch.equal(ef[s][1, 0], rows[1][2])
+        assert {tuple(r.tolist()) for r in ef[s][0]} == {
+            tuple(rows[0][0].tolist()), tuple(rows[0][1].tolist())}
 
 
 def test_route_requests_shard_limit_on_cuda_only():

@@ -328,12 +328,21 @@ def test_ring_candidate_pool_layout():
 
 
 def test_own_block_bias_raises():
+    """The own-block bias is ported (tests/test_torch_dist_label_edges.py)
+    as an OwnBlockBias of the two score vectors: the reference's dense
+    [Ql, Cl] matrix raises, and so do terms that do not fit the block."""
     q = torch.zeros((2, D))
     cols = sr.RingColumns(ids=None, pos_qids=torch.full((2,), -1,
                                                         dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(TypeError, match="OwnBlockBias"):
         sr.ring_retrieval_loss(q, [q], [cols],
                                own_block_bias=torch.zeros((2, 2)))
+    bias = sr.OwnBlockBias(torch.zeros(2), torch.zeros(2), 1, 1)
+    with pytest.raises(ValueError, match="past the block"):  # Cl is 2
+        sr.ring_retrieval_loss(q, [q], [cols], own_block_bias=bias)
+    with pytest.raises(ValueError, match="anchors x 3 positives"):
+        sr.ring_retrieval_loss(q, [q], [cols], own_block_bias=sr.OwnBlockBias(
+            torch.zeros(2), None, 3, 0))
 
 
 def test_ring_blocks_order_follows_ppermute():
