@@ -140,7 +140,15 @@
    run_inference over it; typed NALP training of HGT with label-edge
    features on the author-writes-paper edges and the scorer; and SimpleHGN
    (4 heads, hidden 128, out 64) on K7 with its relation bias:
-   encode_batch and training;
+   encode_batch and training. GATv2 with edge rows (ROADMAP B6b; 4 heads,
+   hidden 256, lin_edge over the raw 8-wide rows): K7 and K7b in their
+   GATv2 mode with the edge addend at the largest bucket, K11's gatv2 mode
+   at [2M, 256] fp32 and K6b's sum of an [E, 256] table over
+   EllGraph.t_edge (yardstick index_add_; beside it the gate-read design
+   it replaced, K6b's GATv2 mode) against their plain versions;
+   run_full_graph_inference with edge_attr (bf16) and the ELL
+   FullBatchTrainer (fp32, the plain step replaying the kernel step's
+   leaky gates), each mode's launches on its path;
 12. times K7 and K7b in their GAT mode with SimpleHGN's relation bias
    alone, at the largest dense block of a SimpleHGN training step (its own
    inputs, recorded from the step), against their plain versions;
@@ -243,7 +251,12 @@
    rows in walk order, in the graph's own order and as K3-gathered blocks
    (all bit-equal); then per model (GINE hidden 128, EdgeAttrGAT and the
    Transformer with lin_edge at 4 heads and hidden 256, GATv2 at 4 heads
-   and hidden 256; fp32, 2 layers, Adam 1e-2) FullBatchTrainer(
+   and hidden 256, without and with edge rows; fp32, 2 layers, Adam 1e-2;
+   GATv2 with edge rows adds K10's gatv2 mode with the edge row, K8's
+   destination walk with it, K11's COO gatv2 mode and K8b's sum of a
+   per-edge table along the source walk, each against its twin at
+   [2M, 4 x 64] fp32, K8b beside the value and gate walks it replaced)
+   FullBatchTrainer(
    build_ell=False) — one step against the same step through the plain
    twins (the raw edge table's gradient held too, rows moved by a gate on
    the two sides of 0 accounted for), then 3 + 20 steps with the launch
@@ -306,7 +319,22 @@
    tabularized HGT trainer for both types into an in-memory exporter,
    each row against encode_batch's; prints ms/step, device ms, busy share,
    all_to_all bytes a step, edges/s, nodes/s;
-20. prints the SegmentIndex host builds counted inside every timed window
+20. out-of-core training (ROADMAP A14): the flagship graph's features
+   written to an np.memmap on local disk (build/streaming/), a
+   HostGraphStore over it (the host engine built with g++, the store's
+   build timed); its frozen sample table bit-equal to the device-resident
+   tabularized NALPTrainer's and its hop-cache aggregate against K2's;
+   three fp32 streamed steps against the device-resident trainer's from
+   the same weights (1e-4 relative); then the flagship GraphSAGE (bf16,
+   hidden 256, out 128, cached hop, B 512, P 1, R 512) through
+   StreamingNALPTrainer.run_steps (a ring of 3 pinned slots, the copies on
+   a side stream) with fp32 and bf16 streams in turns (A B B A, 5 + 50
+   steps each), launches reset just before and read just after (K4, K4b
+   and K5 launched; no draw and no row gather on the card), 5 profiled;
+   prints host ms/step, the engine's fill ms, the streamed bytes a step,
+   the copy's ms (CUDA events on the copy stream) and GB/s, device ms,
+   busy share and the profiler's copy ms a step;
+21. prints the SegmentIndex host builds counted inside every timed window
    of a path (SegmentIndex.from_ids wrapped from the build on; each must
    read 0: a segment op on the card given no index builds one on the
    host), K8's gathering launches there by mode (none may be chained:
@@ -417,7 +445,12 @@ EDGE_FULL_GRAPH = {       # model: (conv, hidden, conv_kwargs, kernels)
     "edge_attr_gat": ("edge_attr_gat", HID, {"heads": 4},
                       ("gather_rows", "fanout_attention")),
     "transformer": ("transformer", HID, {"heads": 4, "use_edge_attr": True},
+                    ("gather_rows", "fanout_attention")),
+    "gatv2_edges": ("gatv2", HID, {"heads": 4, "use_edge_attr": True},
                     ("gather_rows", "fanout_attention"))}
+# GATv2 with edge rows (ROADMAP B6b): the edge table's gradient (K11's
+# gatv2 mode) and its sum into the key table (K6b over EllGraph.t_edge)
+GATV2_EDGE_ELL_MODES = ("ell_edge_grad_gatv2", "ell_transpose_edge_rows")
 EDGE_FULL_BATCH = {
     "gine": ("gine", EDGE_GINE_HID, None,
              ("gather_rows", "ell_aggregate", "ell_transpose_aggregate",
@@ -425,7 +458,11 @@ EDGE_FULL_BATCH = {
     "edge_attr_gat": ("edge_attr_gat", HID, {"heads": 4},
                       ("gather_rows", "fanout_attention",
                        "fanout_attention_bwd", "ell_transpose_aggregate",
-                       "ell_edge_grad"))}
+                       "ell_edge_grad")),
+    "gatv2_edges": ("gatv2", HID, {"heads": 4, "use_edge_attr": True},
+                    ("gather_rows", "fanout_attention",
+                     "fanout_attention_bwd", "ell_transpose_aggregate",
+                     "ell_edge_grad") + GATV2_EDGE_ELL_MODES)}
 EDGE_NALP_KERNELS = ("sample_uniform", "uniform_ids", "gather_rows",
                      "fanout_attention", "fanout_attention_bwd",
                      "retrieval_loss")
@@ -489,7 +526,24 @@ COO_EDGE_MODELS = {   # model: (conv, hidden, conv_kwargs, edge rows, kernels)
     "gatv2": ("gatv2", HID, {"heads": 4}, False,
               ("sddmm", "segment_softmax", "segment_reduce",
                "segment_reduce_bwd", "segment_softmax_bwd", "sddmm_gatv2",
-               "segment_reduce_gatv2", "segment_reduce_bwd_gatv2"))}
+               "segment_reduce_gatv2", "segment_reduce_bwd_gatv2")),
+    "gatv2_edges": ("gatv2", HID, {"heads": 4, "use_edge_attr": True}, True,
+                    ("gather_rows", "sddmm", "segment_softmax",
+                     "segment_reduce", "segment_reduce_bwd",
+                     "segment_softmax_bwd", "ell_edge_grad",
+                     "sddmm_gatv2_edge", "segment_reduce_add",
+                     "sddmm_addend", "segment_reduce_gatv2_edge",
+                     "ell_edge_grad_gatv2", "segment_reduce_bwd_edge_rows"))}
+# out-of-core training (phase 20): the flagship NALP path with its features
+# in an np.memmap on local disk, streamed to the card per batch through a
+# ring of STREAM_PREFETCH + 1 pinned slots
+STREAM_STEPS, STREAM_WARMUP, STREAM_PROFILED = 50, 5, 5
+STREAM_PARITY_STEPS, STREAM_PREFETCH = 3, 2
+STREAM_KERNELS = ("masked_reduce", "masked_reduce_bwd", "retrieval_loss")
+# what the streamed step must not launch: no draw and no row gather on the
+# card (the host engine drew and gathered every row)
+STREAM_ABSENT = ("sample_uniform", "uniform_ids", "build_neighbor_cache",
+                 "gather_rows", "gather_rows_q8")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 # ReLU gates the plain step may see on the other side of 0 (fp32 rounding)
@@ -741,8 +795,8 @@ def plain_kernels():
         count_min_sketch, losses, sharded_retrieval)
     from gigl_tpu_torch.models import convs, hetero_convs
     from gigl_tpu_torch.ops import (
-        attention, ell, ell_aggregate, fanout, gather, quantized, retrieval,
-        segment)
+        attention, coo_edges, ell, ell_aggregate, fanout, gather, quantized,
+        retrieval, segment)
     from gigl_tpu_torch.parallel import feature_lookup, halo
     from gigl_tpu_torch.sampling import neighbor_sampler
     from gigl_tpu_torch.training import (
@@ -789,9 +843,40 @@ def plain_kernels():
         return table[ids.long()]
 
     def edge_grad(g, ell_, mode, *, x=None, ea=None, alpha=None, coef=None,
-                  vec=None, xd=None, heads=1):
+                  vec=None, xd=None, heads=1, negative_slope=0.2):
         return ell._ell_edge_grad_plain(g, ell_, mode, x, ea, alpha, coef,
-                                        vec, xd, heads)
+                                        vec, xd, heads, negative_slope)
+
+    def edge_rows_sum(rows, ell_):
+        return ell_aggregate._ell_edge_rows_sum_plain(rows, ell_)
+
+    def by_source(rows, src, n, *, src_index=None):
+        return segment._edge_rows_by_source_plain(rows, src, n)
+
+    # GATv2 with edge rows (B6b): its plain forward over the valid entries
+    # (ELL) or the edges (COO), differentiated by PyTorch, the kernel
+    # step's leaky gates replayed under gatv2_gate_replay
+    orig_att_ell = convs.fanout_attention_ell
+
+    def att_ell(xd, ks, vs, ell_, mode, heads, att=None, att2=None,
+                negative_slope=0.2, he=None):
+        if mode != "gatv2" or he is None:
+            return orig_att_ell(xd, ks, vs, ell_, mode, heads, att=att,
+                                att2=att2, negative_slope=negative_slope,
+                                he=he)
+        src_, dst_, eid = ell_entries(ell_)
+        h_, dh_ = heads, xd.shape[1] // heads
+        return gatv2_edges_plain(
+            src_, dst_, xd.shape[0], ks.reshape(-1, h_, dh_),
+            xd.reshape(-1, h_, dh_), he[eid].reshape(-1, h_, dh_), att,
+            negative_slope).reshape(xd.shape[0], -1)
+
+    def coo_v2_edges(src, dst, hs, hd, he, att, *, negative_slope=0.2,
+                     index=None, src_index=None):
+        return gatv2_edges_plain(src, dst, hd.shape[0], hs, hd,
+                                 he.reshape(src.shape[0], *hs.shape[1:]),
+                                 att, negative_slope).reshape(hd.shape[0],
+                                                              -1)
 
     # the COO per-edge terms (phase 17): forward twins, PyTorch's autograd
     def coo(src, dst, x, n, *, edge_weight=None, reduce="sum", index=None,
@@ -862,6 +947,10 @@ def plain_kernels():
         (convs, "gather_edges", edge_rows), (convs, "coo_spmm", coo),
         (convs, "gatv2_scores", gatv2), (convs, "coo_gat_edges", gat_edges),
         (convs, "coo_transformer_edges", transformer_edges),
+        (convs, "coo_gatv2_edges", coo_v2_edges),
+        (convs, "fanout_attention_ell", att_ell),
+        (attention, "ell_edge_rows_sum", edge_rows_sum),
+        (coo_edges, "edge_rows_by_source", by_source),
         (hetero_dataset, "gather_rows", rows),
         (hetero_dataset, "expand_table", gather._expand_table_plain),
         (dataset, "uniform_ids", neighbor_sampler._uniform_ids_plain),
@@ -2247,8 +2336,10 @@ GATV2_GATES = None
 @contextlib.contextmanager
 def gatv2_gate_replay():
     """The ReLU replay of ``step_vs_plain`` for GATv2's leaky_relu of
-    ``hs[src] + hd[dst]`` (phase 17): the kernel step's gates (recorded from
-    the same fp32 sum K10 takes) are the plain step's, so that a
+    ``hs[src] + hd[dst]`` (phase 17; with edge rows ``(hs[src] + he) +
+    hd[dst]``, phases 11 and 17, over the COO edges or the ELL graph's
+    valid entries): the kernel step's gates (recorded from the same fp32
+    sum K10 and K7 take) are the plain step's, so that a
     pre-activation on the two sides of 0 in the two forwards does not move
     a whole term of d hs, d hd and d att (their sums cancel over each
     destination's softmax, so one term is large beside them). Yields a
@@ -2258,12 +2349,33 @@ def gatv2_gate_replay():
     from gigl_tpu_torch.models import convs
 
     orig = convs.gatv2_scores
+    orig_edges, orig_ell = convs.coo_gatv2_edges, convs.fanout_attention_ell
 
     def rec(src, dst, hs, hd, att, **kw):
         with torch.no_grad():
             GATV2_GATES["masks"].append(
                 hs.float()[src.long()] + hd.float()[dst.long()] >= 0)
         return orig(src, dst, hs, hd, att, **kw)
+
+    # GATv2 with edge rows: the gate of (hs[src] + he) + hd[dst], the fp32
+    # sum K10 and K7 take, per edge (COO) or per valid entry (ELL)
+    def rec_edges(src, dst, hs, hd, he, att, **kw):
+        with torch.no_grad():
+            GATV2_GATES["masks"].append(gatv2_edge_z(
+                src, dst, hs, hd, he.reshape(src.shape[0], *hs.shape[1:]))
+                >= 0)
+        return orig_edges(src, dst, hs, hd, he, att, **kw)
+
+    def rec_ell(xd, ks, vs, ell_, mode, heads, *args, he=None, **kw):
+        if mode == "gatv2" and he is not None:
+            src_, dst_, eid = ell_entries(ell_)
+            dh_ = xd.shape[1] // heads
+            with torch.no_grad():
+                GATV2_GATES["masks"].append(gatv2_edge_z(
+                    src_, dst_, ks.reshape(-1, heads, dh_),
+                    xd.reshape(-1, heads, dh_),
+                    he[eid].reshape(-1, heads, dh_)) >= 0)
+        return orig_ell(xd, ks, vs, ell_, mode, heads, *args, he=he, **kw)
 
     def report():
         st = {k: GATV2_GATES[k] for k in ("flips", "gates", "near")}
@@ -2279,11 +2391,56 @@ def gatv2_gate_replay():
 
     GATV2_GATES = {"masks": [], "i": 0, "flips": 0, "gates": 0, "near": 0.0}
     convs.gatv2_scores = rec
+    convs.coo_gatv2_edges, convs.fanout_attention_ell = rec_edges, rec_ell
     try:
         yield report
     finally:
         convs.gatv2_scores = orig
+        convs.coo_gatv2_edges, convs.fanout_attention_ell = (orig_edges,
+                                                             orig_ell)
         GATV2_GATES = None
+
+
+def ell_entries(ell):
+    """The valid entries of an EllGraph as COO edges: (source row,
+    destination row, edge id), int64, in flat entry order."""
+    valid = ell.ent_mask
+    return (ell.ent_src[valid].long(), ell.ent_row[valid].long(),
+            ell.ent_edge[valid].long())
+
+
+def gatv2_edge_z(src, dst, hs, hd, he3):
+    """GATv2's pre-activation with edge rows, (hs[src] + he) + hd[dst]
+    in fp32 [E, H, Dh]: the sum the kernels take."""
+    return (hs.float()[src.long()] + he3.float()) + hd.float()[dst.long()]
+
+
+def gatv2_edges_plain(src, dst, n, hs, hd, he3, att, slope):
+    """GATv2 with edge rows over edges, in PyTorch: softmax over each
+    destination of att . leaky((hs[src] + he) + hd[dst]), the sum of alpha
+    * (hs[src] + he) -> [n, H, Dh] in hd's type. Under gatv2_gate_replay
+    the leaky's gates are the kernel step's."""
+    from gigl_tpu_torch.ops import segment
+
+    k = hs.float()[src.long()] + he3.float()
+    z = k + hd.float()[dst.long()]
+    if GATV2_GATES is None:
+        m = z >= 0
+    else:
+        m = GATV2_GATES["masks"][GATV2_GATES["i"]]
+        GATV2_GATES["i"] += 1
+        flip = (z >= 0) != m
+        GATV2_GATES["flips"] += int(flip.sum())
+        GATV2_GATES["gates"] += m.numel()
+        if bool(flip.any()):
+            GATV2_GATES["near"] = max(GATV2_GATES["near"], float(
+                z[flip].abs().max() / z.abs().max()))
+    logits = (torch.where(m, z, slope * z) * att.float().reshape(
+        z.shape[1:])).sum(-1)
+    alpha = segment._segment_softmax_plain(logits, dst, n)
+    out = torch.zeros((n,) + tuple(k.shape[1:]), device=k.device).index_add(
+        0, dst.long(), alpha[..., None] * k)
+    return out.to(hd.dtype)
 
 
 def simple_hgn_bias_timing(loss_fn, add_mode, rel_err, gen):
@@ -2394,7 +2551,8 @@ def edge_phases(dev, card, arrays, fb_data, typed, record, add_mode,
         _fanout_attention_plain, fanout_attention_bwd)
     from gigl_tpu_torch.ops.ell import _ell_edge_grad_plain, ell_edge_grad
     from gigl_tpu_torch.ops.ell_aggregate import (
-        _ell_aggregate_fwd, _ell_aggregate_graph_plain, _ell_transpose_plain,
+        _ell_aggregate_fwd, _ell_aggregate_graph_plain,
+        _ell_edge_rows_sum_plain, _ell_transpose_plain, ell_edge_rows_sum,
         ell_transpose_aggregate)
     from gigl_tpu_torch.training.dataset import DeviceGraph
     from gigl_tpu_torch.training.full_batch import FullBatchTrainer
@@ -2547,7 +2705,58 @@ def edge_phases(dev, card, arrays, fb_data, typed, record, add_mode,
         "plain_ms": cuda_ms(k7be_plain, reps=1),
         "eager_ms": eager_ms(k7be_kernel),
         "bound_ms": bound_ms(nbytes, valid_b * hd7 * 7)[0]})
-    del xd7, ks7, he7, xdb, ksb, gb, outb, got_, want_
+
+    # -- GATv2 with edge rows (ROADMAP B6b): K7 with the edge addend inside
+    # its gate (bf16, beside its GATv2 mode without the addend in the same
+    # call) and K7b (ELL layout, fp32) at the largest bucket. bytes as the
+    # GAT rows above; ops: + the add of the edge row and the leaky per
+    # valid slot and value.
+    def k7v_kernel(edges=True):
+        return _fanout_attention_fwd(
+            xd7, ks7, ks7, nb_b, mk_b, "gatv2", GAT_HEADS, att7, None, 0.2,
+            he=he7 if edges else None, eidx=es_b if edges else None)
+
+    def k7v_plain():
+        return _fanout_attention_plain(xd7, ks7, ks7, nb_b, mk_b, "gatv2",
+                                       GAT_HEADS, att7, None, 0.2, he=he7,
+                                       eidx=es_b)
+
+    err = rel_err(k7v_kernel(), k7v_plain(), "K7 gatv2 + edge rows")
+    nbytes = base7 + valid_b * hd7 * 2 + n_b * w_b * 4
+    v2_modes = {("fanout_attention", "gatv2_edge_addend"): {
+        "err": err, "ms": cuda_ms(k7v_kernel),
+        "ms_without_addend_same_call": cuda_ms(lambda: k7v_kernel(False)),
+        "plain_ms": cuda_ms(k7v_plain, reps=3),
+        "eager_ms": eager_ms(k7v_kernel),
+        "bound_ms": bound_ms(nbytes, valid_b * hd7 * 8)[0]}}
+    stv = torch.empty((n_b, GAT_HEADS, 2), device=dev)
+    outv = _fanout_attention_fwd(xdb, ksb, ksb, nb_b, mk_b, "gatv2",
+                                 GAT_HEADS, att7, None, 0.2, stats=stv,
+                                 he=heb, eidx=es_b)
+
+    def k7bv_kernel():
+        return fanout_attention_bwd(gb, xdb, ksb, ksb, nb_b, mk_b, outv, stv,
+                                    "gatv2", GAT_HEADS, att7, None, 0.2,
+                                    he=heb, eidx=es_b)
+
+    def k7bv_plain():
+        return _fanout_attention_bwd_plain(gb, xdb, ksb, ksb, nb_b, mk_b,
+                                           outv, "gatv2", GAT_HEADS, att7,
+                                           None, 0.2, he=heb, eidx=es_b)
+
+    got_, want_ = k7bv_kernel(), k7bv_plain()
+    err = max(rel_err(getattr(got_, f_), getattr(want_, f_),
+                      f"K7b gatv2 edge rows {f_}", tol=1e-4)
+              for f_ in ("d_xd", "alpha", "coef", "d_att"))
+    nbytes = (3 * n_b * hd7 * 4 + uniq_b * hd7 * 4 + valid_b * hd7 * 4
+              + n_b * w_b * 9 + n_b * GAT_HEADS * 8
+              + n_b * w_b * GAT_HEADS * 8 + n_b * hd7 * 4 + hd7 * 4)
+    v2_modes[("fanout_attention_bwd", "gatv2_edge_addend")] = {
+        "err": err, "ms": cuda_ms(k7bv_kernel),
+        "plain_ms": cuda_ms(k7bv_plain, reps=1),
+        "eager_ms": eager_ms(k7bv_kernel),
+        "bound_ms": bound_ms(nbytes, valid_b * hd7 * 10)[0]}
+    del xd7, ks7, he7, xdb, ksb, gb, outb, outv, stv, got_, want_
 
     # -- K11 at EdgeAttrGAT layer 1 (E = 2M, [E, 256] fp32 out, gat mode),
     # with gine and transformer beside it. The walk in destination order
@@ -2562,12 +2771,14 @@ def edge_phases(dev, card, arrays, fb_data, typed, record, add_mode,
     al11 = torch.rand((p_total, GAT_HEADS), generator=gen, device=dev)
     cf11 = torch.randn((p_total, GAT_HEADS), generator=gen, device=dev)
     k11 = {}
-    for mode in ("gat", "transformer", "gine"):
+    for mode in ("gat", "transformer", "gine", "gatv2"):
         kw = {"gat": dict(alpha=al11, coef=cf11, vec=att7,
                           heads=GAT_HEADS),
               "transformer": dict(alpha=al11, coef=cf11, xd=xd11,
                                   heads=GAT_HEADS),
-              "gine": dict(x=x11, ea=ea11)}[mode]
+              "gine": dict(x=x11, ea=ea11),
+              "gatv2": dict(x=x11, ea=ea11, alpha=al11, coef=cf11,
+                            vec=att7, xd=xd11, heads=GAT_HEADS)}[mode]
 
         def k11_kernel(mode=mode, kw=kw):
             return ell_edge_grad(g11, fell, mode, **kw)
@@ -2579,7 +2790,9 @@ def edge_phases(dev, card, arrays, fb_data, typed, record, add_mode,
         nbytes = (p_total + E * 8 + N * HID * 4 + E * HID * 4
                   + {"gat": E * GAT_HEADS * 8 + HID * 4,
                      "transformer": E * GAT_HEADS * 8 + N * HID * 4,
-                     "gine": E * 4 + N * HID * 4 + E * HID * 4}[mode])
+                     "gine": E * 4 + N * HID * 4 + E * HID * 4,
+                     "gatv2": E * GAT_HEADS * 8 + HID * 4 + E * 4
+                     + 2 * N * HID * 4 + E * HID * 4}[mode])
         k11[mode] = {"err": err, "ms": cuda_ms(k11_kernel),
                      "plain_ms": cuda_ms(k11_plain, reps=1),
                      "eager_ms": eager_ms(k11_kernel),
@@ -2606,7 +2819,47 @@ def edge_phases(dev, card, arrays, fb_data, typed, record, add_mode,
            eager_ms=k11["gat"]["eager_ms"],
            modes={m_: {k_: v_ for k_, v_ in v.items() if k_ != "nbytes"}
                   for m_, v in k11.items()})
-    del g11, xd11, x11, ea11, al11, cf11, flat11
+    v2_modes[("ell_edge_grad", "gatv2")] = k11["gatv2"]
+
+    # -- K6b's sum of an [E, 256] fp32 table over EllGraph.t_edge (GATv2
+    # with edge rows: the key table's cotangent is K11's gatv2 table summed
+    # by source). bytes: each edge's row once, t_edge, t_perm, [N, 256]
+    # written; ops: an add a value. Yardstick: index_add_ of the rows by
+    # their entries' source (the gathered rows made beforehand). Beside
+    # it, the design it replaced: the gate read again in the source walk,
+    # K6b's GATv2 mode (each slot's cotangent and query rows, alpha and
+    # coef, the key row; the edge row not even added) at the same widths.
+    def k6be_kernel():
+        return ell_edge_rows_sum(ea11, fell)
+
+    def k6be_plain():
+        return _ell_edge_rows_sum_plain(ea11, fell)
+
+    err = rel_err(k6be_kernel(), k6be_plain(), "K6b edge rows", tol=1e-5)
+    v_ = fell.ent_mask
+    src_e = fell.ent_src[v_].long()
+    rows_e = ea11[fell.ent_edge[v_].long()]
+
+    def k6be_lib():
+        return torch.zeros((N, HID), device=dev).index_add_(0, src_e, rows_e)
+
+    rel_err(k6be_lib(), k6be_kernel(), "index_add_ vs K6b edge rows",
+            tol=1e-5)
+    t_slots = sum(int(r_.numel()) for r_ in fell.t_edge)
+    v2_modes[("ell_transpose_aggregate", "edge_rows")] = {
+        "err": err, "ms": cuda_ms(k6be_kernel),
+        "plain_ms": cuda_ms(k6be_plain, reps=1),
+        "eager_ms": eager_ms(k6be_kernel),
+        "bound_ms": bound_ms(E * HID * 4 + t_slots * 4 + N * 4
+                             + N * HID * 4, E * HID)[0],
+        "library_ms": cuda_ms(k6be_lib),
+        "library_call": "torch.Tensor.index_add_ of the [E, 256] rows by "
+                        "their entries' source row (gathered beforehand, "
+                        "not timed)",
+        "gate_read_alternative_ms": cuda_ms(lambda: ell_transpose_aggregate(
+            g11, fell, "gatv2", al11, cf11, att7, GAT_HEADS, rows2=xd11,
+            table=x11))}
+    del g11, xd11, x11, ea11, al11, cf11, flat11, rows_e, src_e
 
     # -- edge_full_graph: run_full_graph_inference(edge_attr=) -----------------
     graph_e = HeteroGraph.homogeneous(
@@ -2687,10 +2940,17 @@ def edge_phases(dev, card, arrays, fb_data, typed, record, add_mode,
                        edge_dim=EDGE_DE), data,
             optimizer_args={"learning_rate": "1e-2"}, device=dev)
         state = fbt.init_state(0)
-        with edge_gate_flips(fell, "gine" if conv == "gine" else "gat"
-                             ) as explain:
-            vs = step_vs_plain(fbt.encoder, fbt.loss, _build.launches,
-                               extra={"edge_attr": ea_leaf}, explain=explain)
+        if conv == "gatv2":
+            with gatv2_gate_replay() as report:
+                vs = step_vs_plain(fbt.encoder, fbt.loss, _build.launches,
+                                   extra={"edge_attr": ea_leaf})
+                vs.update(report())
+        else:
+            with edge_gate_flips(fell, "gine" if conv == "gine" else "gat"
+                                 ) as explain:
+                vs = step_vs_plain(fbt.encoder, fbt.loss, _build.launches,
+                                   extra={"edge_attr": ea_leaf},
+                                   explain=explain)
         emit({"phase": "edge_full_batch_step_vs_plain", "model": model_name,
               **vs})
         check(vs["loss_rel_err"] <= 1e-5,
@@ -2712,6 +2972,23 @@ def edge_phases(dev, card, arrays, fb_data, typed, record, add_mode,
               "edges_per_s": 2 * E / step_s, "nodes_per_s": N / step_s,
               **row})
         del fbt, state, data, ea_leaf
+    # GATv2 with edge rows: each mode's launches on its paths (K7 on the
+    # full-graph pass, the backward modes on the full-batch steps)
+    fg_v2, fb_v2 = (counts[f"edge_{k_}_gatv2_edges"] for k_ in
+                    ("full_graph", "full_batch"))
+    for (kname, mode), entry in v2_modes.items():
+        on_fg = kname == "fanout_attention"
+        key = {"fanout_attention_bwd": "fanout_attention_bwd",
+               "ell_edge_grad": "ell_edge_grad_gatv2",
+               "ell_transpose_aggregate": "ell_transpose_edge_rows"}.get(
+                   kname, kname)
+        c_, n_ = fg_v2 if on_fg else fb_v2
+        entry["launches"] = int(c_[key])
+        entry["launches_per_" + ("pass" if on_fg else "step")] = c_[key] / n_
+        check(entry["launches"] > 0, f"{kname} {mode} was not launched on "
+              "its GATv2-with-edge-rows path")
+        entry.pop("nbytes", None)
+        add_mode(kname, mode, entry)
 
     # -- edge_nalp_train: the live NALPTrainer over an edge-featured graph,
     # label-edge features on the supervision and hard-negative edges and
@@ -4884,6 +5161,105 @@ def coo_edge_phases(dev, card, graph, ea_np, fell, record, add_mode,
                   "torch.index_select of the [N, 256] cotangent by dst "
                   "(each edge's destination row; the per-edge terms not "
                   "applied)", edges=E, width=HID)
+
+    # -- GATv2 with edge rows (ROADMAP B6b) at [2M, 4 x 64] fp32 over the
+    # walk-ordered graph (edge rows read in sequence): K10's gatv2 mode with
+    # the edge row (beside its mode without, same call), K8's destination
+    # walk with it (d hd; d att within 1e-6 of sum |terms| of an fp64 sum),
+    # K11's gatv2 mode (the edge table's cotangent) and K8b's sum of that
+    # [E, 256] table along the source walk (the source table's cotangent;
+    # yardstick index_add_ by src). Beside K8b, the design it replaced:
+    # the value walk (K8b weighted by alpha) and the gate walk (K8b's GATv2
+    # mode, without even the edge row) over the same source index.
+    hs_v, hd_v = (torch.randn((N, h_, dh_), generator=gen, device=dev)
+                  for _ in range(2))
+    att_v = torch.randn((h_, dh_), generator=gen, device=dev)
+    gl_v = torch.randn((E, h_), generator=gen, device=dev)
+
+    def k10ve(edges=True):
+        return seg._sddmm_fwd(ws, wd, hd_v, hs_v, index=widx,
+                              edge=eaw if edges else None, att=att_v)
+
+    def k10ve_plain():
+        return seg._sddmm_plain(ws, wd, hd_v, hs_v, edge=eaw, att=att_v)
+
+    got = repeat_equal(k10ve, "K10 gatv2 edge")
+    err = rel_err(got, k10ve_plain(), "K10 gatv2 edge", tol=1e-5)
+    time_mode("sddmm", "coo_gatv2_edge", err, k10ve, k10ve_plain,
+              N * HID * 4 + u_src * HID * 4 + E * HID * 4 + HID * 4
+              + ids_bytes + E * h_ * 4, E * HID * 5, heads=h_,
+              head_dim=dh_, edges=E,
+              ms_without_edge_rows_same_call=cuda_ms(lambda: k10ve(False)))
+
+    def k8ve():
+        return seg.gatv2_dst_bwd(gl_v, ws, wd, hs_v, hd_v, att_v, index=widx,
+                                 edge=eaw)
+
+    def k8ve_plain():
+        return seg._gatv2_dst_plain(gl_v, ws, wd, hs_v, hd_v, att_v, 0.2,
+                                    eaw)
+
+    got = repeat_equal(k8ve, "K8 gatv2 edge")
+    err = rel_err(got[0], k8ve_plain()[0], "K8 gatv2 edge d hd", tol=1e-5)
+    z = ((hs_v.reshape(N, HID).double()[ws_l] + eaw.reshape(E, HID).double())
+         + hd_v.reshape(N, HID).double()[wd_l])
+    terms = torch.where(z >= 0, z, 0.2 * z) * gl_v.double(
+        ).repeat_interleave(dh_, 1)
+    del z
+    datt_rel = float(((got[1].double() - terms.sum(0)).abs()
+                      / terms.abs().sum(0)).max())
+    del terms
+    check(datt_rel <= 1e-6, f"K8 gatv2 edge d att {datt_rel} of sum |terms| "
+          "from an fp64 sum (limit 1e-6)")
+    time_mode("segment_reduce", "coo_gatv2_dst_edge", err, k8ve,
+              lambda: k8ve_plain()[0],
+              u_src * HID * 4 + E * HID * 4 + N * HID * 4 + HID * 4
+              + E * h_ * 4 + ids_bytes + N * HID * 4, E * HID * 7,
+              heads=h_, head_dim=dh_, edges=E,
+              datt_err_rel_to_abs_sum=datt_rel)
+    kw_v = dict(x=x11, ea=e11, alpha=al11, coef=cf11, vec=vec11, xd=xd11,
+                heads=h_)
+
+    def k11v():
+        return ell_ops.coo_edge_grad(g11, ws, wd, widx, "gatv2", **kw_v)
+
+    def k11v_plain():
+        return ell_ops._coo_edge_grad_plain(g11, ws, wd, "gatv2", **kw_v)
+
+    got = repeat_equal(k11v, "K11 COO gatv2")
+    err = rel_err(got, k11v_plain(), "K11 COO gatv2", tol=1e-6)
+    time_mode("ell_edge_grad", "coo_gatv2", err, k11v, k11v_plain,
+              E * 8 + (N + 1) * 4 + 2 * u_dst * HID * 4 + u_src * HID * 4
+              + 2 * E * HID * 4 + E * h_ * 8 + HID * 4, E * HID * 6,
+              k11_lib, "torch.index_select of the [N, 256] cotangent by dst "
+              "(each edge's destination row; the per-edge terms not "
+              "applied)", edges=E, width=HID)
+
+    def k8be():
+        return seg.edge_rows_by_source(got, ws, N, src_index=wsidx)
+
+    def k8be_plain():
+        return seg._edge_rows_by_source_plain(got, ws, N)
+
+    summed = repeat_equal(k8be, "K8b edge rows")
+    err = rel_err(summed, k8be_plain(), "K8b edge rows", tol=1e-5)
+
+    def k8be_lib():
+        return torch.zeros((N, HID), device=dev).index_add_(0, ws_l, got)
+
+    rel_err(k8be_lib(), summed, "index_add_ vs K8b edge rows", tol=1e-5)
+    gate_walk_ms = cuda_ms(lambda: seg.gatv2_src_bwd(
+        gl_v, ws, wd, hs_v, hd_v, att_v, src_index=wsidx))
+    value_walk_ms = cuda_ms(lambda: seg.segment_reduce_bwd(
+        g11, wd, N, src=ws, weight=al11, index=widx, src_index=wsidx))
+    time_mode("segment_reduce_bwd", "coo_edge_rows", err, k8be, k8be_plain,
+              E * HID * 4 + E * 4 + (N + 1) * 4 + N * HID * 4, E * HID,
+              k8be_lib, "torch.Tensor.index_add_ of the [E, 256] rows by src",
+              edges=E, width=HID,
+              gate_read_alternative_ms={"value_walk": value_walk_ms,
+                                        "gate_walk": gate_walk_ms,
+                                        "sum": value_walk_ms + gate_walk_ms})
+    del hs_v, hd_v, att_v, gl_v, got, summed, kw_v
     del g11, xd11, x11, e11, al11, cf11, eaw, xa, wa
     torch.cuda.empty_cache()
 
@@ -4903,7 +5279,7 @@ def coo_edge_phases(dev, card, graph, ea_np, fell, record, add_mode,
                                      else "gat")
                  if conv in ("gine", "edge_attr_gat")
                  else gatv2_gate_replay() if conv == "gatv2"
-                 else contextlib.nullcontext())
+                 else contextlib.nullcontext())   # GATv2 with edge rows too
         with gates as explain:
             # the Transformer's key bias shifts all of a destination's
             # logits alike, so the softmax leaves it no gradient
@@ -4954,9 +5330,15 @@ def coo_edge_phases(dev, card, graph, ea_np, fell, record, add_mode,
                ("sddmm", "coo_gatv2"): "sddmm_gatv2",
                ("ell_edge_grad", "coo_gine"): "ell_edge_grad_coo",
                ("ell_edge_grad", "coo_gat"): "ell_edge_grad_coo",
-               ("ell_edge_grad", "coo_transformer"): "ell_edge_grad_coo"}
+               ("ell_edge_grad", "coo_transformer"): "ell_edge_grad_coo",
+               ("sddmm", "coo_gatv2_edge"): "sddmm_gatv2_edge",
+               ("segment_reduce", "coo_gatv2_dst_edge"):
+                   "segment_reduce_gatv2_edge",
+               ("ell_edge_grad", "coo_gatv2"): "ell_edge_grad_gatv2",
+               ("segment_reduce_bwd", "coo_edge_rows"):
+                   "segment_reduce_bwd_edge_rows"}
     owner = {"coo_gine": "gine", "coo_gat": "edge_attr_gat",
-             "coo_transformer": "transformer"}
+             "coo_transformer": "transformer", "coo_gatv2": "gatv2_edges"}
     for kname, by_mode in modes.items():
         for mode, entry in by_mode.items():
             key = counter[(kname, mode)]
@@ -5902,6 +6284,163 @@ def partitioned_label_edge_phases(dev, card, graph, edges, typed_ctx,
               "max_abs_err_vs_encode_batch": err, "scale": scale_,
               "card": card})
     del inf_trainer, tpg, tpg_tab, tpg_le, hdg, hdg_le, rep_tab, mesh
+    return counts
+
+
+def streaming_phases(dev, card, arrays, dg):
+    """Phase 20 (see the module docstring): out-of-core NALP training over
+    a HostGraphStore whose features lie in an np.memmap on local disk.
+    Returns {path: (launch counts, steps)}."""
+    from gigl_tpu_torch import native
+    from gigl_tpu_torch.models.encoders import GNNEncoder
+    from gigl_tpu_torch.models.link_prediction import (
+        LinkPredictionDecoder, LinkPredictionGNN)
+    from gigl_tpu_torch.ops import _build
+    from gigl_tpu_torch.training.streaming import (
+        HostGraphStore, StreamingNALPTrainer)
+    from gigl_tpu_torch.training.trainer import (
+        NALPTrainer, NALPTrainerConfig)
+
+    src_np, dst_np, x_np = arrays
+    t0 = time.perf_counter()
+    native.build()
+    engine_s = time.perf_counter() - t0
+    path = REPO / "build" / "streaming" / "features.f32"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    np.ascontiguousarray(x_np, np.float32).tofile(path)
+    mm = np.memmap(path, dtype=np.float32, mode="r", shape=(N, D))
+    write_s = time.perf_counter() - t0
+    cfg = NALPTrainerConfig(fanouts=FANOUTS, num_random_negs=R,
+                            loss_type="retrieval", num_positives=1,
+                            cached_hop=True)
+    opt = {"learning_rate": "1e-3"}
+    edges = np.stack([src_np, dst_np])
+    t0 = time.perf_counter()
+    store = HostGraphStore.build(message_edges=edges,
+                                 supervision_edges=edges, features=mm,
+                                 num_nodes=N, fanouts=FANOUTS, seed=cfg.seed)
+    store_s = time.perf_counter() - t0
+    check(isinstance(store.features.array, np.memmap)
+          or isinstance(store.features.array.base, np.memmap),
+          "the streamed features were copied off the memmap")
+
+    def model(dtype):
+        return LinkPredictionGNN(
+            GNNEncoder(D, HID, OUT, num_layers=2, conv="graphsage",
+                       dtype=dtype), LinkPredictionDecoder())
+
+    # the host tables against the device-resident tabularized ones (K1's
+    # frozen draws bit-equal; the aggregate against K2's, fp32 sums of the
+    # same rows in another order), then three fp32 steps against the
+    # device-resident trainer's from the same weights
+    dres = NALPTrainer(model(torch.float32), dg, cfg, optimizer_args=opt,
+                       device=dev)
+    packed = dres.graph.sample_tables[FANOUTS[0]].cpu().numpy()
+    ids_t, mask_t = store.sample_tables[FANOUTS[0]]
+    check(np.array_equal(packed >= 0, mask_t) and np.array_equal(
+        np.where(packed >= 0, packed, 0), np.where(mask_t, ids_t, 0)),
+        "the host sample table is not the device-resident one")
+    cache = dres.graph.nbr_cache.cpu().numpy()
+    agg_err = float(np.abs(store.agg.array - cache).max())
+    check(agg_err <= 1e-5 * float(np.abs(cache).max()),
+          f"the host hop-cache aggregate is {agg_err} from K2's")
+    ds = dres.init_state(0)
+    params = {k: v.clone() for k, v in dres.model.state_dict().items()}
+    n_anchor = STREAM_WARMUP + STREAM_STEPS + STREAM_PROFILED
+    anchors = (np.arange(BATCH * n_anchor) % N).astype(np.int32).reshape(
+        n_anchor, BATCH)
+    s32 = StreamingNALPTrainer(model(torch.float32), store, cfg,
+                               optimizer_args=opt, device=dev)
+    _, ld = dres.train_steps(ds, anchors[:STREAM_PARITY_STEPS])
+    _, ls = s32.run_steps(s32.init_state(params=params),
+                          anchors[:STREAM_PARITY_STEPS])
+    ld = ld.cpu().numpy()
+    loss_err = float((np.abs(ls - ld) / np.abs(ld)).max())
+    check(loss_err <= 1e-4, f"streamed losses {ls} differ from the "
+          f"device-resident trainer's {ld}")
+    emit({"phase": "streaming_store", "memmap_write_s": write_s,
+          "engine_build_s": engine_s, "store_build_s": store_s,
+          "feature_bytes": N * D * 4, "agg_max_abs_err_vs_k2": agg_err,
+          "losses_streamed": ls.tolist(), "losses_device_resident":
+              ld.tolist(), "loss_rel_err": loss_err})
+    del dres, ds, s32, cache
+
+    # the flagship path (bf16 model), fp32 and bf16 streams in turns
+    # (A B B A): launches, host and device ms, the copy
+    counts, turns = {}, []
+    for turn, sd in enumerate(("float32", "bfloat16", "bfloat16",
+                               "float32")):
+        tr = StreamingNALPTrainer(model(torch.bfloat16), store, cfg,
+                                  optimizer_args=opt, stream_dtype=sd,
+                                  device=dev)
+        st = tr.init_state(0)
+        st, _ = tr.run_steps(st, anchors[:STREAM_WARMUP],
+                             prefetch=STREAM_PREFETCH)
+        torch.cuda.synchronize()
+        lo = STREAM_WARMUP
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        st, losses = tr.run_steps(st, anchors[lo: lo + STREAM_STEPS],
+                                  start_step=lo, prefetch=STREAM_PREFETCH,
+                                  timing=True)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / STREAM_STEPS * 1e3
+        run = dict(tr.last_run)
+        check(np.isfinite(losses).all(), f"streaming {sd}: loss not finite")
+        row = {"stream_dtype": sd, "turn": turn, "ms_per_step": host_ms,
+               "fill_ms_median": float(np.median(run["fill_s"])) * 1e3,
+               "streamed_bytes_per_step": run["bytes_per_step"],
+               "copy_ms": run["copy_ms"],
+               "copy_gb_per_s": run["bytes_per_step"] / float(
+                   np.median(run["copy_ms"])) / 1e6,
+               "loss_first": float(losses[0]),
+               "loss_last": float(losses[-1]), "losses": losses}
+        if turn < 2:
+            path_ = f"streaming_train_{sd}"
+            counts[path_] = (dict(_build.launches), STREAM_STEPS)
+            emit({"phase": "main_path", "path": path_,
+                  "launches": counts[path_][0], "steps": STREAM_STEPS})
+            for k in STREAM_KERNELS:
+                check(counts[path_][0][k] > 0,
+                      f"{k} was not launched on {path_}")
+            for k in STREAM_ABSENT:
+                check(counts[path_][0][k] == 0, f"{path_} launched {k}: "
+                      "a row was drawn or gathered on the card")
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                hi = STREAM_WARMUP + STREAM_STEPS
+                tr.run_steps(st, anchors[hi: hi + STREAM_PROFILED],
+                             start_step=hi, prefetch=STREAM_PREFETCH)
+                torch.cuda.synchronize()
+                window_us = (time.perf_counter() - t0) * 1e6
+            row["profile"] = profile_summary(prof, STREAM_PROFILED,
+                                             window_us, host_ms)
+            copies = [e for e in prof.events() if "Memcpy HtoD" in e.name]
+            row["profile"]["copy_ms_per_step"] = sum(
+                e.time_range.elapsed_us() for e in copies) / (
+                    STREAM_PROFILED * 1e3)
+        turns.append(row)
+        emit({"phase": "streaming_train_throughput", "card": card,
+              **{k: v for k, v in row.items() if k != "losses"}})
+        del tr, st
+    by = {sd: [r_["ms_per_step"] for r_ in turns
+               if r_["stream_dtype"] == sd] for sd in ("float32",
+                                                       "bfloat16")}
+    emit({"phase": "streaming_fp32_vs_bf16", "ms_per_step": by,
+          "streamed_bytes_per_step": {
+              r_["stream_dtype"]: r_["streamed_bytes_per_step"]
+              for r_ in turns},
+          "copy_gb_per_s": {r_["stream_dtype"]: r_["copy_gb_per_s"]
+                            for r_ in turns[:2]},
+          # the same 50 steps from the same weights: bf16 rows against fp32
+          "bf16_vs_fp32_loss_max_rel_diff": float(np.max(
+              np.abs(turns[1]["losses"] - turns[0]["losses"])
+              / np.abs(turns[0]["losses"]))), "card": card})
+    mm._mmap.close()
+    path.unlink()
     return counts
 
 
@@ -7130,6 +7669,9 @@ def main():
                                               opt_args)
     label_edge = partitioned_label_edge_phases(
         dev, card, graph, (src, dst), typed_ctx, add_mode, unique, opt_args)
+    stream = streaming_phases(
+        dev, card, (src, dst, np.asarray(graph.node_features[
+            graph.metadata.node_types[0]])), dg)
 
     # launches on every kernel row: the training path's (K6 / K7: the
     # full-graph passes'; K6b / K7b: the node-classification paths'; K8-K10:
@@ -7198,6 +7740,8 @@ def main():
             p_: c_[k] / n_ for p_, (c_, n_) in part_tab.items()}
         row["launches_per_label_edge_and_typed_partitioned_step"] = {
             p_: c_[k] / n_ for p_, (c_, n_) in label_edge.items()}
+        row["launches_per_streaming_step"] = {
+            p_: c_[k] / n_ for p_, (c_, n_) in stream.items()}
     for kname, mode in (("unroute_rows", "int8_decode"),
                         ("gather_rows_q8", "packed_rows"),
                         ("gather_rows", "bytes_21")):

@@ -16,7 +16,18 @@
 //                logit: K7b's alpha and pre-activation cotangent);
 //   transformer  alpha[p, h] * g[i, c] + coef[p, h] * xd[i, c]
 //                (the edge row added to the key and the value: K7b's alpha
-//                and its logit cotangent, already divided by sqrt(Dh)).
+//                and its logit cotangent, already divided by sqrt(Dh));
+//   gatv2        alpha[p, h] * g[i, c] + coef[p, h] * vec[c] *
+//                leaky'((x[ent_src[p], c] + ea[e, c]) + xd[i, c])
+//                (GATv2 with edge rows, gigl_tpu/models/convs.py:292-328:
+//                the edge row joins the source row, which is the value and
+//                sits inside the gate att . leaky(hs + he + hd); vec = att,
+//                x the source (key) table, xd the destination rows, coef
+//                the logit cotangent, leaky'(z) = 1 at z >= 0, else the
+//                slope, as JAX's). The source table's gradient is this
+//                table summed along the source walk (K6b's sum over
+//                EllGraph.t_edge, K8b's over the source index's order):
+//                ks[src] and he[e] enter the layer identically.
 // fp32 arithmetic, one rounding to the output type.
 //
 // Bound: bytes — [E, D] written once, each destination's row of g (and xd)
@@ -59,6 +70,7 @@ using namespace gigl;  // to_float, from_float, load_piece, ...
 constexpr int kGine = 0;
 constexpr int kGat = 1;
 constexpr int kTransformer = 2;
+constexpr int kGatV2 = 3;
 constexpr int kChunk = 32;    // entries per thread
 constexpr int kThreads = 256;
 
@@ -70,7 +82,7 @@ __global__ void __launch_bounds__(kThreads) ell_edge_grad_kernel(
     const T* __restrict__ ea, const float* __restrict__ alpha,
     const float* __restrict__ coef, const float* __restrict__ vec,
     const T* __restrict__ xd, T* __restrict__ out, int64_t num_entries,
-    int d, int heads, int dh) {
+    int d, int heads, int dh, float slope) {
   const int pieces = d / P;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int64_t q = t / pieces;
@@ -80,12 +92,12 @@ __global__ void __launch_bounds__(kThreads) ell_edge_grad_kernel(
   const int64_t p1 =
       p0 + kChunk < num_entries ? p0 + kChunk : num_entries;
   int hd[P];
-  float other[P], gv[P];
+  float other[P], gv[P], qd[P];
   if constexpr (MODE != kGine) {
 #pragma unroll
     for (int u = 0; u < P; ++u) hd[u] = (c + u) / dh;
   }
-  if constexpr (MODE == kGat) {
+  if constexpr (MODE == kGat || MODE == kGatV2) {
 #pragma unroll
     for (int u = 0; u < P; ++u) other[u] = __ldg(vec + c + u);
   }
@@ -99,6 +111,7 @@ __global__ void __launch_bounds__(kThreads) ell_edge_grad_kernel(
       load_piece<T, P>(g + i * d + c, gv);
       if constexpr (MODE == kTransformer)
         load_piece<T, P>(xd + i * d + c, other);
+      if constexpr (MODE == kGatV2) load_piece<T, P>(xd + i * d + c, qd);
     }
     float res[P];
     if constexpr (MODE == kGine) {
@@ -108,6 +121,19 @@ __global__ void __launch_bounds__(kThreads) ell_edge_grad_kernel(
       load_piece<T, P>(ea + e * d + c, ev);
 #pragma unroll
       for (int u = 0; u < P; ++u) res[u] = xv[u] + ev[u] > 0.f ? gv[u] : 0.f;
+    } else if constexpr (MODE == kGatV2) {
+      float xv[P], ev[P];
+      load_piece<T, P>(x + static_cast<int64_t>(__ldg(ent_src + p)) * d + c,
+                       xv);
+      load_piece<T, P>(ea + e * d + c, ev);
+      const float* al = alpha + p * heads;
+      const float* cf = coef + p * heads;
+#pragma unroll
+      for (int u = 0; u < P; ++u) {
+        const float z = (xv[u] + ev[u]) + qd[u];
+        res[u] = __ldg(al + hd[u]) * gv[u] +
+                 __ldg(cf + hd[u]) * other[u] * (z >= 0.f ? 1.f : slope);
+      }
     } else {
       const float* al = alpha + p * heads;
       const float* cf = coef + p * heads;
@@ -126,13 +152,14 @@ __global__ void __launch_bounds__(kThreads) coo_edge_grad_kernel(
     const T* __restrict__ x, const T* __restrict__ ea,
     const float* __restrict__ alpha, const float* __restrict__ coef,
     const float* __restrict__ vec, const T* __restrict__ xd,
-    T* __restrict__ out, int64_t segments, int d, int heads, int dh) {
+    T* __restrict__ out, int64_t segments, int d, int heads, int dh,
+    float slope) {
   const int pieces = d / P;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= segments * pieces) return;
   const int64_t i = t / pieces;
   const int c = static_cast<int>(t - i * pieces) * P;
-  float gv[P], other[P];
+  float gv[P], other[P], qd[P];
   load_piece<T, P>(g + i * d + c, gv);
   int hd[P];
   if constexpr (MODE != kGine) {
@@ -145,6 +172,11 @@ __global__ void __launch_bounds__(kThreads) coo_edge_grad_kernel(
                                                            : 0.f;
   }
   if constexpr (MODE == kTransformer) load_piece<T, P>(xd + i * d + c, other);
+  if constexpr (MODE == kGatV2) {
+#pragma unroll
+    for (int u = 0; u < P; ++u) other[u] = __ldg(vec + c + u);
+    load_piece<T, P>(xd + i * d + c, qd);
+  }
   const int32_t lo = __ldg(ptr + i);
   const int32_t hi = __ldg(ptr + i + 1);
   for (int32_t j = lo; j < hi; ++j) {
@@ -157,6 +189,19 @@ __global__ void __launch_bounds__(kThreads) coo_edge_grad_kernel(
       load_piece<T, P>(ea + e * d + c, ev);
 #pragma unroll
       for (int u = 0; u < P; ++u) res[u] = xv[u] + ev[u] > 0.f ? gv[u] : 0.f;
+    } else if constexpr (MODE == kGatV2) {
+      float xv[P], ev[P];
+      load_piece<T, P>(x + static_cast<int64_t>(__ldg(gathered + j)) * d + c,
+                       xv);
+      load_piece<T, P>(ea + e * d + c, ev);
+      const float* al = alpha + e * heads;
+      const float* cf = coef + e * heads;
+#pragma unroll
+      for (int u = 0; u < P; ++u) {
+        const float z = (xv[u] + ev[u]) + qd[u];
+        res[u] = __ldg(al + hd[u]) * gv[u] +
+                 __ldg(cf + hd[u]) * other[u] * (z >= 0.f ? 1.f : slope);
+      }
     } else {
       const float* al = alpha + e * heads;
 #pragma unroll
@@ -175,11 +220,14 @@ int launch_coo(const void* g, const void* ptr, const void* order,
                const void* gathered, const void* x, const void* ea,
                const void* alpha, const void* coef, const void* vec,
                const void* xd, void* out, long long segments, int d,
-               int heads, int dh, int mode, cudaStream_t stream) {
+               int heads, int dh, int mode, float slope,
+               cudaStream_t stream) {
   if (order == nullptr || (mode != kGine && (alpha == nullptr || heads < 1 ||
                                              dh < 1 || heads * dh != d)) ||
-      (mode == kGine && (gathered == nullptr || x == nullptr ||
-                         ea == nullptr)) ||
+      ((mode == kGine || mode == kGatV2) &&
+       (gathered == nullptr || x == nullptr || ea == nullptr)) ||
+      (mode == kGatV2 && (coef == nullptr || vec == nullptr ||
+                          xd == nullptr)) ||
       (mode == kGat && coef != nullptr && vec == nullptr) ||
       (mode == kTransformer && (coef == nullptr || xd == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -195,12 +243,13 @@ int launch_coo(const void* g, const void* ptr, const void* order,
         static_cast<const T*>(ea), static_cast<const float*>(alpha),
         static_cast<const float*>(coef), static_cast<const float*>(vec),
         static_cast<const T*>(xd), static_cast<T*>(out), segments, d, heads,
-        dh);
+        dh, slope);
   };
   switch (mode) {
     case kGine: run(coo_edge_grad_kernel<T, P, kGine>); break;
     case kGat: run(coo_edge_grad_kernel<T, P, kGat>); break;
     case kTransformer: run(coo_edge_grad_kernel<T, P, kTransformer>); break;
+    case kGatV2: run(coo_edge_grad_kernel<T, P, kGatV2>); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return 0;
@@ -211,7 +260,8 @@ int launch(const void* g, const void* ent_mask, const void* ent_row,
            const void* ent_src, const void* ent_edge, const void* x,
            const void* ea, const void* alpha, const void* coef,
            const void* vec, const void* xd, void* out, long long num_entries,
-           int d, int heads, int dh, int mode, cudaStream_t stream) {
+           int d, int heads, int dh, int mode, float slope,
+           cudaStream_t stream) {
   const long long pieces = d / P;
   const long long total = (num_entries + kChunk - 1) / kChunk * pieces;
   if (total == 0) return 0;
@@ -238,7 +288,7 @@ int launch(const void* g, const void* ent_mask, const void* ent_row,
         return static_cast<int>(cudaErrorInvalidValue);
       ell_edge_grad_kernel<T, P, kGine><<<blocks, kThreads, 0, stream>>>(
           gv, vl, er, es, ee, xv, ev, al, cf, vc, qv, ov, num_entries, d,
-          heads, dh);
+          heads, dh, slope);
       break;
     case kGat:
       if (al == nullptr || cf == nullptr || vc == nullptr || heads < 1 ||
@@ -246,7 +296,7 @@ int launch(const void* g, const void* ent_mask, const void* ent_row,
         return static_cast<int>(cudaErrorInvalidValue);
       ell_edge_grad_kernel<T, P, kGat><<<blocks, kThreads, 0, stream>>>(
           gv, vl, er, es, ee, xv, ev, al, cf, vc, qv, ov, num_entries, d,
-          heads, dh);
+          heads, dh, slope);
       break;
     case kTransformer:
       if (al == nullptr || cf == nullptr || qv == nullptr || heads < 1 ||
@@ -255,7 +305,16 @@ int launch(const void* g, const void* ent_mask, const void* ent_row,
       ell_edge_grad_kernel<T, P, kTransformer><<<blocks, kThreads, 0,
                                                  stream>>>(
           gv, vl, er, es, ee, xv, ev, al, cf, vc, qv, ov, num_entries, d,
-          heads, dh);
+          heads, dh, slope);
+      break;
+    case kGatV2:
+      if (es == nullptr || xv == nullptr || ev == nullptr || al == nullptr ||
+          cf == nullptr || vc == nullptr || qv == nullptr || heads < 1 ||
+          dh < 1 || heads * dh != d)
+        return static_cast<int>(cudaErrorInvalidValue);
+      ell_edge_grad_kernel<T, P, kGatV2><<<blocks, kThreads, 0, stream>>>(
+          gv, vl, er, es, ee, xv, ev, al, cf, vc, qv, ov, num_entries, d,
+          heads, dh, slope);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -269,16 +328,19 @@ int launch(const void* g, const void* ent_mask, const void* ent_row,
 // order); ent_mask [P] bool, ent_row, ent_src, ent_edge [P] int32; gine:
 // x [N, d] (the layer's input) and ea [E, d] of g's type; gat: alpha, coef
 // [P, heads] fp32 and vec [d] fp32 (att_src); transformer: alpha, coef and
-// xd [N, d] of g's type (the query rows). out [E, d] of g's type: every
-// row is written when every edge has its valid entry. dtype: 0 = fp32, 1 =
-// bf16; mode: 0 gine, 1 gat, 2 transformer. vec_path: 1 when d * sizeof(T)
-// is a multiple of 16 and every row table is 16-byte aligned. An edgeless
+// xd [N, d] of g's type (the query rows); gatv2: x [N, d] (the key table),
+// ea [E, d], alpha, coef, vec (att) and xd, leaky's slope. out [E, d] of
+// g's type: every row is written when every edge has its valid entry.
+// dtype: 0 = fp32, 1 = bf16; mode: 0 gine, 1 gat, 2 transformer, 3 gatv2.
+// vec_path: 1 when d * sizeof(T) is a multiple of 16 and every row table
+// is 16-byte aligned. An edgeless
 // graph's entries are all padding: the kernel runs and writes nothing.
 // The COO form, when ptr [segments + 1] is given (the destination
 // SegmentIndex's pointers): ent_edge is its order [E] (each slot's edge
 // id), ent_src its gathered [E] (each slot's source row; gine), g and xd
 // [segments, d], alpha and coef [E, heads] by edge id (gat: coef NULL for
-// alpha * g alone), out [E, d] by edge id; ent_mask and ent_row unread.
+// alpha * g alone), out [E, d] by edge id; ent_mask and ent_row unread;
+// gine and gatv2 read x at gathered (ent_src) rows.
 extern "C" int gigl_ell_edge_grad(const void* g, const void* ent_mask,
                                   const void* ent_row, const void* ent_src,
                                   const void* ent_edge, const void* x,
@@ -288,7 +350,7 @@ extern "C" int gigl_ell_edge_grad(const void* g, const void* ent_mask,
                                   long long num_entries, int d, int heads,
                                   int dh, int dtype, int mode, int vec_path,
                                   const void* ptr, long long segments,
-                                  void* stream) {
+                                  float slope, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (ptr != nullptr) {
@@ -296,17 +358,19 @@ extern "C" int gigl_ell_edge_grad(const void* g, const void* ent_mask,
     if (dtype == 0)
       rc = vec_path ? launch_coo<float, 4>(g, ptr, ent_edge, ent_src, x, ea,
                                            alpha, coef, vec, xd, out,
-                                           segments, d, heads, dh, mode, s)
+                                           segments, d, heads, dh, mode,
+                                           slope, s)
                     : launch_coo<float, 1>(g, ptr, ent_edge, ent_src, x, ea,
                                            alpha, coef, vec, xd, out,
-                                           segments, d, heads, dh, mode, s);
+                                           segments, d, heads, dh, mode,
+                                           slope, s);
     else if (dtype == 1)
       rc = vec_path ? launch_coo<B, 8>(g, ptr, ent_edge, ent_src, x, ea,
                                        alpha, coef, vec, xd, out, segments,
-                                       d, heads, dh, mode, s)
+                                       d, heads, dh, mode, slope, s)
                     : launch_coo<B, 1>(g, ptr, ent_edge, ent_src, x, ea,
                                        alpha, coef, vec, xd, out, segments,
-                                       d, heads, dh, mode, s);
+                                       d, heads, dh, mode, slope, s);
     else
       rc = static_cast<int>(cudaErrorInvalidValue);
     if (rc != 0) return rc;
@@ -316,20 +380,20 @@ extern "C" int gigl_ell_edge_grad(const void* g, const void* ent_mask,
     rc = vec_path
              ? launch<float, 4>(g, ent_mask, ent_row, ent_src, ent_edge, x,
                                 ea, alpha, coef, vec, xd, out, num_entries, d,
-                                heads, dh, mode, s)
+                                heads, dh, mode, slope, s)
              : launch<float, 1>(g, ent_mask, ent_row, ent_src, ent_edge, x,
                                 ea, alpha, coef, vec, xd, out, num_entries, d,
-                                heads, dh, mode, s);
+                                heads, dh, mode, slope, s);
   } else if (dtype == 1) {
     rc = vec_path
              ? launch<__nv_bfloat16, 8>(g, ent_mask, ent_row, ent_src,
                                         ent_edge, x, ea, alpha, coef, vec,
                                         xd, out, num_entries, d, heads, dh,
-                                        mode, s)
+                                        mode, slope, s)
              : launch<__nv_bfloat16, 1>(g, ent_mask, ent_row, ent_src,
                                         ent_edge, x, ea, alpha, coef, vec,
                                         xd, out, num_entries, d, heads, dh,
-                                        mode, s);
+                                        mode, slope, s);
   } else {
     rc = static_cast<int>(cudaErrorInvalidValue);
   }

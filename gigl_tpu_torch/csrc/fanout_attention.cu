@@ -266,9 +266,13 @@ void launch_pw(const Args<T>& a, long long n, int w, const LaneMap& m,
                                            stream);
       return;
     }
-    if (mode == kGatV2 && a.ks == a.vs && !extra) {
-      launch_warp<T, PW, K, kGatV2, false>(a, n, w, m, mode, slope, sqrt_dh,
-                                           stream);
+    if (mode == kGatV2 && a.ks == a.vs && a.bias == nullptr) {
+      if (extra)
+        launch_warp<T, PW, K, kGatV2, true>(a, n, w, m, mode, slope, sqrt_dh,
+                                            stream);
+      else
+        launch_warp<T, PW, K, kGatV2, false>(a, n, w, m, mode, slope,
+                                             sqrt_dh, stream);
       return;
     }
     if (mode == kTransformer) {

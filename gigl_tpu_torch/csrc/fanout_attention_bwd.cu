@@ -344,9 +344,11 @@ int launch_pw(const Args<T>& a, long long n, int w, const LaneMap& m,
                          a, n, w, m, mode, slope, sqrt_dh, grid, stream)
                    : launch_warp<T, PW, K, kGat, false>(
                          a, n, w, m, mode, slope, sqrt_dh, grid, stream);
-    if (mode == kGatV2 && a.ks == a.vs && !extra)
-      return launch_warp<T, PW, K, kGatV2, false>(a, n, w, m, mode, slope,
-                                                  sqrt_dh, grid, stream);
+    if (mode == kGatV2 && a.ks == a.vs && a.bias == nullptr)
+      return extra ? launch_warp<T, PW, K, kGatV2, true>(
+                         a, n, w, m, mode, slope, sqrt_dh, grid, stream)
+                   : launch_warp<T, PW, K, kGatV2, false>(
+                         a, n, w, m, mode, slope, sqrt_dh, grid, stream);
     if (mode == kTransformer)
       return extra ? launch_warp<T, PW, K, kTransformer, true>(
                          a, n, w, m, mode, slope, sqrt_dh, grid, stream)

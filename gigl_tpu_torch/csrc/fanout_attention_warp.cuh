@@ -271,11 +271,11 @@ void launch_warp(const Args<T>& a, long long n, int w, const LaneMap& m,
 }
 
 // The forms with the mode fixed: 16-byte pieces at K 1 and 2 and 8-byte
-// pieces at K 1, each mode with and without the optional operands (GATv2
-// has none on the port's paths).
+// pieces at K 1, each mode with and without the optional operands (GATv2's
+// are its edge rows).
 #define GIGL_K7_FAST_PW_K(X, T, PW, K) \
   X(T, PW, K, 0, false) X(T, PW, K, 0, true) X(T, PW, K, 1, false) \
-  X(T, PW, K, 2, false) X(T, PW, K, 2, true)
+  X(T, PW, K, 1, true) X(T, PW, K, 2, false) X(T, PW, K, 2, true)
 #define GIGL_K7_FAST(X, T) \
   GIGL_K7_FAST_PW_K(X, T, 16, 1) GIGL_K7_FAST_PW_K(X, T, 16, 2) \
   GIGL_K7_FAST_PW_K(X, T, 8, 1)

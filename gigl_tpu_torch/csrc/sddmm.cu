@@ -38,7 +38,11 @@
 //           are in walk order, as encode_coo puts them);
 //   gatv2   out[e, h] = sum_d att[h, d] * leaky(k[src e, h, d] + q[s, h, d])
 //           (GATv2's logits: q = hd, k = hs, att fp32 [C], the slope;
-//           leaky(z) = z at z >= 0, else slope * z).
+//           leaky(z) = z at z >= 0, else slope * z);
+//   gatv2 with edge rows: the same with leaky((k[src e, h, d] + ea[e, h,
+//           d]) + q[s, h, d]) (GATv2 with use_edge_attr, convs.py:312-328:
+//           the edge row joins the source row before the gate), ea read
+//           as the addend's.
 // Rows of kWalkRowBytes and more with a lane map take the walk above: q[s]
 // in registers once a segment (and att's pieces once a lane, gatv2), the
 // edge rows of a batch of D edges loaded before its arithmetic (addend).
@@ -60,6 +64,7 @@ constexpr int kWalkRowBytes = 512;
 constexpr int kScores = 0;
 constexpr int kAddend = 1;
 constexpr int kGatv2 = 2;
+constexpr int kGatv2Edge = 3;
 
 // The walk's per-segment work: q[s] into registers at begin, each edge's
 // per-head dot products with its k row (plus its edge row; GATv2: att's
@@ -75,7 +80,9 @@ struct ScoreBody {
   float slope;
   float sc[K];
   float qv[K][V];
-  float av[MODE == kGatv2 ? K : 1][V];
+  static constexpr bool kAtt = MODE == kGatv2 || MODE == kGatv2Edge;
+  static constexpr bool kEdge = MODE == kAddend || MODE == kGatv2Edge;
+  float av[kAtt ? K : 1][V];
 
   __device__ __forceinline__ ScoreBody(const T* q_, const float* scale,
                                        const T* ea_, const float* att,
@@ -87,7 +94,7 @@ struct ScoreBody {
     for (int kk = 0; kk < K; ++kk)
       sc[kk] = scale != nullptr && lp.live[kk] ? __ldg(scale + lp.h[kk])
                                                : 1.f;
-    if constexpr (MODE == kGatv2) {
+    if constexpr (kAtt) {
 #pragma unroll
       for (int kk = 0; kk < K; ++kk)
 #pragma unroll
@@ -113,8 +120,8 @@ struct ScoreBody {
   __device__ __forceinline__ void edges(const EdgeBatch<D, K, PW / 4>& b) {
     // the addend: the batch's edge rows, every load issued before the
     // first product
-    uint32_t er[MODE == kAddend ? D : 1][K][PW / 4];
-    if constexpr (MODE == kAddend) {
+    uint32_t er[kEdge ? D : 1][K][PW / 4];
+    if constexpr (kEdge) {
 #pragma unroll
       for (int d = 0; d < D; ++d)
 #pragma unroll
@@ -145,6 +152,14 @@ struct ScoreBody {
 #pragma unroll
           for (int u = 0; u < V; ++u) {
             const float z = kv[u] + qv[kk][u];
+            a[kk] = fmaf(av[kk][u], z >= 0.f ? z : slope * z, a[kk]);
+          }
+        } else if constexpr (MODE == kGatv2Edge) {
+          float ev[V];
+          unpack<T, PW>(er[d][kk], ev);
+#pragma unroll
+          for (int u = 0; u < V; ++u) {
+            const float z = (kv[u] + ev[u]) + qv[kk][u];
             a[kk] = fmaf(av[kk][u], z >= 0.f ? z : slope * z, a[kk]);
           }
         } else {
@@ -275,11 +290,19 @@ __global__ void sddmm_seg_kernel(const T* __restrict__ q,
       float qv[P], kv[P];
       gigl::load_piece<T, P>(q + s * c + c0 + t, qv);
       gigl::load_piece<T, P>(k + r * c + c0 + t, kv);
-      if constexpr (MODE == 1) {
+      if constexpr (MODE == kAddend) {
         float ev[P];
         gigl::load_piece<T, P>(ea + e * c + c0 + t, ev);
 #pragma unroll
         for (int u = 0; u < P; ++u) acc = fmaf(qv[u], kv[u] + ev[u], acc);
+      } else if constexpr (MODE == kGatv2Edge) {
+        float ev[P];
+        gigl::load_piece<T, P>(ea + e * c + c0 + t, ev);
+#pragma unroll
+        for (int u = 0; u < P; ++u) {
+          const float z = (kv[u] + ev[u]) + qv[u];
+          acc = fmaf(__ldg(att + c0 + t + u), z >= 0.f ? z : slope * z, acc);
+        }
       } else {
 #pragma unroll
         for (int u = 0; u < P; ++u) {
@@ -299,7 +322,7 @@ struct Args {
   const float* scale;
   T* out;
   long long e, segments;
-  int mode;       // kScores, kAddend or kGatv2 (the walk's modes)
+  int mode;       // kScores, kAddend, kGatv2 or kGatv2Edge
   const T* ea;
   const float* att;
   float slope;
@@ -321,6 +344,8 @@ void launch_form(const Args<T>& a, const LaneMap& m, bool walk,
       launch_walk<T, PW, K, kAddend>(a, m, stream);
     else if (a.mode == kGatv2)
       launch_walk<T, PW, K, kGatv2>(a, m, stream);
+    else if (a.mode == kGatv2Edge)
+      launch_walk<T, PW, K, kGatv2Edge>(a, m, stream);
     else
       launch_walk<T, PW, K, kScores>(a, m, stream);
   } else {
@@ -403,7 +428,8 @@ int launch(const Args<T>& a, int c, int heads, cudaStream_t stream) {
 // row width takes no walk (C * the element size below kWalkRowBytes),
 // scale fp32 [heads] or NULL, out [E, heads]; C = heads * dk. dtype: 0 =
 // fp32, 1 = bf16. mode: 0 the scores above; 1 addend (ea [E, C] of q's
-// type) and 2 gatv2 (att fp32 [C], slope; no scale) need order and ptr at
+// type), 2 gatv2 (att fp32 [C], slope; no scale) and 3 gatv2 with edge
+// rows (ea, att, slope) need order and ptr at
 // every width: the walk (src read through order) where it holds the rows,
 // else a thread per (segment, head) reading each slot's row from gathered
 // [E] (the index's src[order]) where given, else src; vec: 1 when dk *
@@ -421,8 +447,10 @@ extern "C" int gigl_sddmm(const void* q, const void* k, const void* src,
     return static_cast<int>(cudaErrorInvalidValue);
   if (e == 0) return 0;
   if (mode != 0) {
-    if (order == nullptr || ptr == nullptr || (mode == 1 && ea == nullptr) ||
-        (mode == 2 && att == nullptr) || (mode != 1 && mode != 2) ||
+    if (order == nullptr || ptr == nullptr ||
+        ((mode == 1 || mode == 3) && ea == nullptr) ||
+        ((mode == 2 || mode == 3) && att == nullptr) || mode < 1 ||
+        mode > 3 ||
         (gathered == nullptr && src == nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
     const long long total = segments * heads;
@@ -466,15 +494,21 @@ extern "C" int gigl_sddmm(const void* q, const void* k, const void* src,
     if (dtype == 0 && mode == 1)
       vec ? run(sddmm_seg_kernel<float, 4, 1>, 0.f)
           : run(sddmm_seg_kernel<float, 1, 1>, 0.f);
-    else if (dtype == 0)
+    else if (dtype == 0 && mode == 2)
       vec ? run(sddmm_seg_kernel<float, 4, 2>, 0.f)
           : run(sddmm_seg_kernel<float, 1, 2>, 0.f);
+    else if (dtype == 0)
+      vec ? run(sddmm_seg_kernel<float, 4, 3>, 0.f)
+          : run(sddmm_seg_kernel<float, 1, 3>, 0.f);
     else if (dtype == 1 && mode == 1)
       vec ? run(sddmm_seg_kernel<B, 8, 1>, B())
           : run(sddmm_seg_kernel<B, 1, 1>, B());
-    else if (dtype == 1)
+    else if (dtype == 1 && mode == 2)
       vec ? run(sddmm_seg_kernel<B, 8, 2>, B())
           : run(sddmm_seg_kernel<B, 1, 2>, B());
+    else if (dtype == 1)
+      vec ? run(sddmm_seg_kernel<B, 8, 3>, B())
+          : run(sddmm_seg_kernel<B, 1, 3>, B());
     else
       return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(cudaGetLastError());

@@ -59,7 +59,9 @@
 // grid of `rows` x pieces threads, rows = min(S, partial_rows)) and sums
 // its d att partial in its own order; a second launch adds the rows'
 // partials column by column in row order, so the bits are the same on
-// every run (no atomics).
+// every run (no atomics). With edge rows ea [E, C] (GATv2 with
+// use_edge_attr) every z above is (hs[src e, c] + ea[e, c]) + hd[s, c],
+// the edge row read at e = order[j], as the add mode reads it.
 #include "gigl_pieces.cuh"
 
 namespace {
@@ -222,7 +224,7 @@ int launch_mode(const void* x, const void* gather, const void* order,
 
 // The GATv2 destination walk (see the note above): thread t holds column
 // piece t % pieces of destinations t / pieces, t / pieces + rows, ...
-template <typename T, int P, bool COMPOSED>
+template <typename T, int P, bool COMPOSED, bool EDGE>
 __global__ void gatv2_dst_kernel(const T* __restrict__ hs,
                                  const int32_t* __restrict__ gather,
                                  const int32_t* __restrict__ order,
@@ -230,6 +232,7 @@ __global__ void gatv2_dst_kernel(const T* __restrict__ hs,
                                  const int32_t* __restrict__ ptr,
                                  const float* __restrict__ gl,
                                  const T* __restrict__ hd,
+                                 const T* __restrict__ ea,
                                  const float* __restrict__ att, float slope,
                                  T* __restrict__ out,
                                  float* __restrict__ partial, int64_t s,
@@ -258,6 +261,12 @@ __global__ void gatv2_dst_kernel(const T* __restrict__ hs,
       const int64_t r = COMPOSED ? __ldg(gathered + j) : __ldg(gather + e);
       float v[P];
       gigl::load_piece<T, P>(hs + r * c + col, v);
+      if constexpr (EDGE) {
+        float ev[P];
+        gigl::load_piece<T, P>(ea + e * c + col, ev);
+#pragma unroll
+        for (int k = 0; k < P; ++k) v[k] += ev[k];
+      }
       const float gv = __ldg(gl + e * heads + h);
 #pragma unroll
       for (int k = 0; k < P; ++k) {
@@ -287,8 +296,9 @@ __global__ void gatv2_att_sum_kernel(const float* __restrict__ partial,
 template <typename T, int P>
 int launch_gatv2_dst(const void* hs, const void* gather, const void* order,
                      const void* gathered, const void* ptr, const void* gl,
-                     const void* hd, const void* att, float slope, void* out,
-                     void* datt, void* partial, long long s,
+                     const void* hd, const void* ea, const void* att,
+                     float slope, void* out, void* datt, void* partial,
+                     long long s,
                      long long partial_rows, int c, int wc, int w_cols,
                      cudaStream_t stream) {
   if (gl == nullptr || hd == nullptr || att == nullptr || datt == nullptr ||
@@ -307,14 +317,19 @@ int launch_gatv2_dst(const void* hs, const void* gather, const void* order,
           static_cast<const int32_t*>(order),
           static_cast<const int32_t*>(gathered),
           static_cast<const int32_t*>(ptr), static_cast<const float*>(gl),
-          static_cast<const T*>(hd), static_cast<const float*>(att), slope,
+          static_cast<const T*>(hd), static_cast<const T*>(ea),
+          static_cast<const float*>(att), slope,
           static_cast<T*>(out), static_cast<float*>(partial), s, rows, c, wc,
           w_cols);
     };
-    if (gathered != nullptr)
-      args(gatv2_dst_kernel<T, P, true>);
+    if (gathered != nullptr && ea != nullptr)
+      args(gatv2_dst_kernel<T, P, true, true>);
+    else if (gathered != nullptr)
+      args(gatv2_dst_kernel<T, P, true, false>);
+    else if (ea != nullptr)
+      args(gatv2_dst_kernel<T, P, false, true>);
     else
-      args(gatv2_dst_kernel<T, P, false>);
+      args(gatv2_dst_kernel<T, P, false, false>);
   }
   gatv2_att_sum_kernel<<<(c + threads - 1) / threads, threads, 0, stream>>>(
       static_cast<const float*>(partial), static_cast<float*>(datt), rows, c);
@@ -361,7 +376,7 @@ int launch(const void* x, const void* gather, const void* order,
                                       stream);
     case kEmGatv2Dst:
       return launch_gatv2_dst<T, P>(x, gather, order, gathered, ptr, w, ex.xd,
-                                    ex.att, ex.slope, out, ex.datt,
+                                    ex.ea, ex.att, ex.slope, out, ex.datt,
                                     ex.partial, s, ex.partial_rows, c, wc,
                                     w_cols, stream);
     default:
@@ -381,7 +396,9 @@ int launch(const void* x, const void* gather, const void* order,
 // em (edge-row mode): 0 none; 1 add, 2 gine: ea [E, C] of x's type (op
 // sum); 3 the GATv2 destination walk: x = hs [M, C], w = gl fp32 [E,
 // heads] (wc = dh), xd = hd [S, C] of x's type, att fp32 [C], slope, out =
-// dhd [S, C], datt fp32 [C], partial fp32 [partial_rows, C] (scratch).
+// dhd [S, C], datt fp32 [C], partial fp32 [partial_rows, C] (scratch);
+// ea [E, C] of x's type or NULL: the edge rows added to hs's (GATv2 with
+// edge rows).
 extern "C" int gigl_segment_reduce(const void* x, const void* gather,
                                    const void* order, const void* gathered,
                                    const void* ptr, const void* w, void* out,

@@ -27,9 +27,10 @@ Ported: ``SAGEConv``, ``GCNConv``, ``GINConv``, ``GINEConv``, ``GATConv``
   K10b). With edge rows ``edge_attr [E, De]`` beside the edges (by edge
   id): GINE on K8's gine mode (backward K8b's gine gate, K11's COO form);
   EdgeAttrGAT and the Transformer on ``ops/coo_edges.py`` (K8's add mode,
-  K10's key addend; backward K11's COO form for the edge rows). GATv2 with
-  edge rows raises (ROADMAP B6b, its COO twin: no reference configuration
-  builds it).
+  K10's key addend; backward K11's COO form for the edge rows); GATv2 with
+  edge rows on K10's gatv2 mode with the edge row, K9 and K8's add mode
+  (``coo_gatv2_edges``; backward K11's gatv2 mode, K8b's sum of its table
+  by source, K8's gatv2 walk with the edge rows).
 
 The convs without edge features (SAGE, GCN, GIN, GAT without
 ``use_edge_attr``) ignore ``edge_attr`` in their block and ELL forms, as
@@ -42,7 +43,7 @@ once (and the edge block with ``lin_edge``, added elementwise as the
 reference adds it) and runs K7 over it (``fanout_attention_block``,
 trainable through K7b). The ELL forms train through K6b (SAGE, GCN, GIN,
 GINE) and K7b + K6b (GAT, GATv2, Transformer), the edge tables through K11
-(GINE, EdgeAttrGAT, Transformer); the ``coo`` forms as listed above.
+(GINE, EdgeAttrGAT, Transformer, GATv2); the ``coo`` forms as listed above.
 ``block_cached`` (SAGE, GCN, GIN) serves the cached-hop path. Parameters
 are fp32; the layer computes in ``dtype`` the way flax's ``Dense(dtype=
 bf16, param_dtype=fp32)`` does: input, weight and bias are cast to the
@@ -64,6 +65,7 @@ from gigl_tpu_torch.ops.attention import (
 from gigl_tpu_torch.models.layers import leaky_relu
 from gigl_tpu_torch.ops.coo_edges import (
     coo_gat_edges,
+    coo_gatv2_edges,
     coo_transformer_edges,
     gatv2_scores,
 )
@@ -76,12 +78,6 @@ from gigl_tpu_torch.ops.segment import (
     sddmm,
     segment_softmax,
 )
-
-GATV2_COO_EDGES_NOT_PORTED = (
-    "GATv2's coo form with edge rows needs the edge row inside K10's and "
-    "K8b's GATv2 modes, which is not ported yet (ROADMAP B6b, its COO twin; "
-    "no reference configuration builds it)")
-
 
 def linear(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``lin(x)`` computed in ``dtype`` from fp32 parameters."""
@@ -429,7 +425,8 @@ class GATConv(nn.Module):
         ``lin_edge(edge_attr)`` [E, H*Dh] by edge id joins the logits and
         the values (``ops/coo_edges.py`` :func:`coo_gat_edges`). GATv2: the
         logits by K10's gatv2 mode (backward K8b's and K8's gatv2 modes),
-        then K9 and the weighted K8 as v1."""
+        then K9 and the weighted K8 as v1; with edge rows, ``lin_edge(
+        edge_attr)`` joins the gate and the values (:func:`coo_gatv2_edges`)."""
         index, src_index = _indexes(src, dst, num_nodes, index, src_index)
         h, dh = self.heads, self.head_dim
         hs = linear(self.lin_src, x, self.dtype).reshape(-1, h, dh)
@@ -437,7 +434,10 @@ class GATConv(nn.Module):
         he = _edge_linear(self, edge_attr)
         if self.v2:
             if he is not None:
-                raise NotImplementedError(GATV2_COO_EDGES_NOT_PORTED)
+                return self._finish(coo_gatv2_edges(
+                    src, dst, hs, hd, he, self.att.to(self.dtype),
+                    negative_slope=self.negative_slope, index=index,
+                    src_index=src_index))
             logits = gatv2_scores(src, dst, hs, hd, self.att.to(self.dtype),
                                   negative_slope=self.negative_slope,
                                   index=index, src_index=src_index)

@@ -60,14 +60,20 @@ KERNEL_NAMES = ("sample_uniform", "uniform_ids", "build_neighbor_cache",
 # the COO per-edge terms' modes: K8 with edge rows (add, gine) and its
 # GATv2 destination walk, K8b's gine gate and GATv2 source walk, K10 with
 # the key addend and its GATv2 scores, K11's COO form; K17's own-block
-# bias mode (fold and backward).
+# bias mode (fold and backward); GATv2 with edge rows: K10's gatv2 mode
+# with the edge row, K8's destination walk with it, K11's gatv2 mode (ELL
+# and COO), and the per-edge table summed into the source rows (K8b over
+# the source walk, K6b over EllGraph.t_edge).
 MODE_NAMES = ("segment_reduce_composed", "segment_reduce_chained",
               "segment_reduce_bwd_composed", "segment_reduce_bwd_chained",
               "segment_reduce_add", "segment_reduce_gine",
               "segment_reduce_gatv2", "segment_reduce_bwd_gine",
               "segment_reduce_bwd_gatv2", "sddmm_addend", "sddmm_gatv2",
               "ell_edge_grad_coo", "gather_rows_bytes", "unroute_rows_q8",
-              "gather_rows_q8_packed", "ring_retrieval_bias")
+              "gather_rows_q8_packed", "ring_retrieval_bias",
+              "sddmm_gatv2_edge", "segment_reduce_gatv2_edge",
+              "ell_edge_grad_gatv2", "segment_reduce_bwd_edge_rows",
+              "ell_transpose_edge_rows")
 launches: Dict[str, int] = dict.fromkeys(KERNEL_NAMES + MODE_NAMES, 0)
 
 _P = ctypes.c_void_p
@@ -116,7 +122,8 @@ _SIGNATURES = {
     "gigl_segment_softmax_bwd": [_P] * 5 + [_I64] + [_I32] * 4 + [_P],
     "gigl_sddmm_bwd": [_P] * 6 + [_I64] + [_I32] * 3 + [_P],
     "gigl_sddmm_bwd_ticket": [_P, _P],
-    "gigl_ell_edge_grad": [_P] * 12 + [_I64] + [_I32] * 6 + [_P, _I64, _P],
+    "gigl_ell_edge_grad": [_P] * 12 + [_I64] + [_I32] * 6
+    + [_P, _I64, _F32, _P],
     "gigl_gather_rows_q8_many": [_P, _I32, _P],
     "gigl_gather_packed_q8": [_P, _I64, _I32, _I32, _I32, _P, _I64, _P, _P,
                               _P, _P],

@@ -45,7 +45,11 @@ Two entry points, both trainable:
 - :func:`fanout_attention_ell` over an ELL graph, with an optional edge
   table ``he`` in COO edge order: K7 per bucket, backward K7b per bucket
   then K6b (``ops/ell_aggregate.py``) for the source tables and K11
-  (``ops/ell.py`` ``ell_edge_grad``) for ``he``.
+  (``ops/ell.py`` ``ell_edge_grad``) for ``he``. GATv2 with edge rows
+  (``att . leaky((ks[src] + he) + xd)``) takes K11's gatv2 mode for ``he``
+  and sums that table into the key table along the source walk (K6b's sum
+  over ``EllGraph.t_edge``): the key row and the edge row enter the layer
+  identically, so their cotangents are one table.
 """
 
 from __future__ import annotations
@@ -58,7 +62,10 @@ import torch.nn.functional as F
 
 from gigl_tpu_torch.ops import _build
 from gigl_tpu_torch.ops.ell import _edge_rows, ell_edge_grad
-from gigl_tpu_torch.ops.ell_aggregate import ell_transpose_aggregate
+from gigl_tpu_torch.ops.ell_aggregate import (
+    ell_edge_rows_sum,
+    ell_transpose_aggregate,
+)
 from gigl_tpu_torch.ops.fanout import masked_softmax
 
 MODES = {"gat": 0, "gatv2": 1, "transformer": 2}
@@ -427,7 +434,8 @@ class FanoutAttentionEll(torch.autograd.Function):
     """K7 per ELL bucket into one [N, H*Dh] output; the backward is K7b per
     bucket (per-entry alpha and coefficients at the flat entry positions),
     then K6b in weighted mode over the transpose tables for the source
-    tables."""
+    tables (GATv2 with edge rows: K11's gatv2 mode, then K6b's sum of its
+    table over ``t_edge``)."""
 
     @staticmethod
     def forward(ctx, xd, ks, vs, att, att2, he, ell, mode, heads,
@@ -475,7 +483,19 @@ class FanoutAttentionEll(torch.autograd.Function):
             if r.d_att is not None:
                 d_att = r.d_att if d_att is None else d_att + r.d_att
         needs = ctx.needs_input_grad
-        d_ks = d_vs = None
+        d_ks = d_vs = d_he = None
+        if mode == "gatv2" and he is not None:
+            # the edge row joins the key row inside the gate and the value:
+            # one cotangent per entry (K11), summed by source for the keys
+            if needs[1] or needs[5]:
+                d_he = ell_edge_grad(g, ell, "gatv2", x=ks, ea=he,
+                                     alpha=alpha, coef=coef, vec=att, xd=xd,
+                                     heads=heads, negative_slope=slope)
+            if needs[1]:
+                d_ks = ell_edge_rows_sum(d_he, ell)
+            return (d_xd if needs[0] else None, d_ks, None,
+                    *_att_grads(d_att, needs[3:5]),
+                    d_he if needs[5] else None, None, None, None, None)
         if mode == "gat":
             # one table: values through alpha, keys through att_src * the
             # summed pre-activation cotangents
@@ -497,7 +517,6 @@ class FanoutAttentionEll(torch.autograd.Function):
             if needs[2]:
                 d_vs = ell_transpose_aggregate(g, ell, "weighted", alpha,
                                                heads=heads)
-        d_he = None
         if needs[5]:
             # each edge's row is added to one entry's key and value: its
             # gradient is that entry's (K11, once per edge)
@@ -517,19 +536,14 @@ def fanout_attention_ell(xd: torch.Tensor, ks: torch.Tensor,
                          he: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention of every row of an ELL graph over its whole in-neighborhood:
     xd [N, H*Dh], ks (and vs, or None for one shared table) [N, H*Dh], all
-    in permuted order -> [N, H*Dh]. ``he`` [E, H*Dh] (GAT v1, Transformer):
-    edge rows in COO edge order, added to each entry's key and value rows.
-    Trainable (K7b, K6b; K11 for ``he``)."""
+    in permuted order -> [N, H*Dh]. ``he`` [E, H*Dh]: edge rows in COO edge
+    order, added to each entry's key and value rows (GATv2: inside its gate
+    too). Trainable (K7b, K6b; K11 for ``he``)."""
     if mode not in MODES:
         raise ValueError(f"Unknown attention mode {mode!r}")
     if mode != "transformer" and vs is not None:
         raise ValueError("fanout_attention_ell: GAT reads one table for "
                          "keys and values (vs=None)")
-    if he is not None and mode == "gatv2":
-        raise NotImplementedError(
-            "fanout_attention_ell: GATv2 with edge rows needs the edge row "
-            "inside K6b's GATv2 gate, which is not ported yet (ROADMAP A9, "
-            "edges); the dense block form runs it")
     return FanoutAttentionEll.apply(
         xd.contiguous(), ks.contiguous(),
         None if vs is None else vs.contiguous(), _flat(att), _flat(att2),

@@ -15,6 +15,15 @@ over the segment kernels of ``ops/segment.py`` and K11's COO form
   + he)`` by K8's add mode; backward K8b (weighted) for ``hs``, K10 with the
   addend for alpha's cotangent, K9b, and K11 gat for ``he``: ``alpha * g +
   dpre * att_src`` in one pass.
+- :func:`coo_gatv2_edges` (GATv2 with edge rows): the logit ``att .
+  leaky((hs[src] + he) + hd[dst])`` by K10's gatv2 mode with the edge row,
+  K9, and the messages ``alpha * (hs[src] + he)`` by K8's add mode;
+  backward K10 with the addend for alpha's cotangent, K9b, K11 gatv2 for
+  ``he`` (``alpha * g + dlog * att * leaky'(z)``, each edge once), K8b's
+  sum of that table along the source walk for ``hs`` (``hs[src]`` and
+  ``he`` enter the layer identically, so their cotangents are one table),
+  and K8's gatv2 destination walk with the edge rows for ``hd`` and
+  ``att``.
 - :func:`coo_transformer_edges`: K10 with the key addend ``<q[dst], k[src]
   + he> * scale``, K9, K8 add over ``v`` and ``he``; backward K8b for v,
   K10 with the addend, K9b, K10b's coefficients, K8 add for dq, K8b for dk,
@@ -41,6 +50,7 @@ from gigl_tpu_torch.ops.segment import (
     _sddmm_fwd,
     _segment_reduce_fwd,
     _segment_softmax_fwd,
+    edge_rows_by_source,
     gatv2_dst_bwd,
     gatv2_src_bwd,
     sddmm_bwd_coef,
@@ -158,6 +168,75 @@ def coo_gat_edges(src: torch.Tensor, dst: torch.Tensor, num_dst: int,
                                  src_index)
     return CooGatEdges.apply(hs, he, pre, att_src, src, dst, num_dst,
                              negative_slope, index, src_index)
+
+
+class CooGatv2Edges(torch.autograd.Function):
+    """GATv2's logits and messages with edge rows (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, hs, hd, he, att, src, dst, slope, index, src_index):
+        e, (n, h, dh) = src.shape[0], hs.shape
+        he3 = he.reshape(e, h, dh)
+        logits = _sddmm_fwd(src, dst, hd, hs, index=index, edge=he3, att=att,
+                            negative_slope=slope)
+        alpha = _segment_softmax_fwd(logits, dst, hd.shape[0], index)
+        out = _segment_reduce_fwd(hs, dst, hd.shape[0], "sum", src, alpha,
+                                  index, he3, "add")
+        ctx.save_for_backward(hs, hd, he, att, alpha, src, dst)
+        ctx.cfg = (slope, index, src_index)
+        return out.reshape(hd.shape[0], h * dh)
+
+    @staticmethod
+    def backward(ctx, g):
+        hs, hd, he, att, alpha, src, dst = ctx.saved_tensors
+        slope, index, src_index = ctx.cfg
+        e, (n, h, dh) = src.shape[0], hs.shape
+        num_dst = hd.shape[0]
+        he3 = he.reshape(e, h, dh)
+        g = g.contiguous()
+        dalpha = _sddmm_fwd(src, dst, g.reshape(num_dst, h, dh), hs,
+                            index=index, edge=he3)
+        dlog = segment_softmax_bwd(alpha, dalpha, dst, num_dst, index=index)
+        dhe = coo_edge_grad(g, src, dst, index, "gatv2", x=hs.reshape(n, -1),
+                            ea=he, alpha=alpha.float(), coef=dlog.float(),
+                            vec=att.detach().float().reshape(-1),
+                            xd=hd.reshape(num_dst, -1), heads=h,
+                            negative_slope=slope)
+        dhs = dhd = datt = None
+        if ctx.needs_input_grad[0]:
+            dhs = edge_rows_by_source(dhe, src, n, src_index=src_index
+                                      ).reshape(hs.shape)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[3]:
+            dhd, datt = gatv2_dst_bwd(dlog, src, dst, hs, hd, att,
+                                      negative_slope=slope, index=index,
+                                      edge=he3)
+            dhd = dhd.reshape(hd.shape)
+            datt = datt.reshape(att.shape).to(att.dtype)
+        return (dhs, dhd, dhe if ctx.needs_input_grad[2] else None, datt,
+                None, None, None, None, None)
+
+
+def coo_gatv2_edges(src: torch.Tensor, dst: torch.Tensor, hs: torch.Tensor,
+                    hd: torch.Tensor, he: torch.Tensor, att: torch.Tensor, *,
+                    negative_slope: float = 0.2,
+                    index: Optional[SegmentIndex] = None,
+                    src_index: Optional[SegmentIndex] = None
+                    ) -> torch.Tensor:
+    """GATv2 with edge rows over COO edges -> [N_dst, H * D]: ``alpha =
+    softmax(att . leaky((hs[src] + he) + hd[dst]))`` per destination and
+    ``sum alpha * (hs[src] + he)``. hs [N, H, D], hd [N_dst, H, D], he
+    [E, H * D] by edge id, att [H, D]."""
+    e = src.shape[0]
+    if hs.dim() != 3 or hd.shape[1:] != hs.shape[1:] \
+            or he.shape != (e, hs.shape[1] * hs.shape[2]) \
+            or att.shape != hs.shape[1:]:
+        raise ValueError("coo_gatv2_edges: hs, hd [N, H, D], he [E, H * D], "
+                         "att [H, D]")
+    if hs.device.type != "cpu":
+        index, src_index = _pair(src, dst, hs.shape[0], hd.shape[0], index,
+                                 src_index)
+    return CooGatv2Edges.apply(hs, hd, he, att, src, dst, negative_slope,
+                               index, src_index)
 
 
 class CooTransformerEdges(torch.autograd.Function):

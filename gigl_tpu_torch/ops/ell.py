@@ -19,7 +19,11 @@ source row ``ent_src`` (the concatenated ``nbr``) and its COO edge
 the last two, and ``ent_mask`` says which entries are real. Per transpose
 bucket, ``t_row = ent_row[t_nbr]`` where ``t_mask`` holds and -1 elsewhere:
 each transpose slot's destination row, composed in walk order, which K6b
-reads in place of the mask, the entry position and ``ent_row``.
+reads in place of the mask, the entry position and ``ent_row``; and
+``t_edge = ent_edge[t_nbr]`` the same way, each transpose slot's COO edge,
+which K6b's sum reads to add a per-edge table into the source rows
+(GATv2 with edge rows: the key table's gradient is the edge table's
+summed along the source walk).
 
 :func:`ell_layer` is one conv layer over every bucket: ``conv.ell(x_p,
 ell)``, or ``conv.ell(x_p, ell, edge_attr)`` with edge features in
@@ -55,7 +59,7 @@ from gigl_tpu_torch.device import DeviceLike, resolve_device
 from gigl_tpu_torch.ops import _build
 from gigl_tpu_torch.ops.segment import gather_mode
 
-EDGE_GRAD_MODES = {"gine": 0, "gat": 1, "transformer": 2}
+EDGE_GRAD_MODES = {"gine": 0, "gat": 1, "transformer": 2, "gatv2": 3}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -139,8 +143,9 @@ class EllGraph:
     rows, mask[b] validity, edge_slots[b] original COO edge row per entry;
     its dst rows are boundaries[b]:boundaries[b+1]. The transpose tables
     (t_rank, t_nbr, t_mask, t_boundaries, t_widths) serve the backward
-    (K6b), with the derived t_perm (inverse of t_rank), t_row (per
-    transpose bucket, each slot's dst row, -1 where masked), ent_row /
+    (K6b), with the derived t_perm (inverse of t_rank), t_row and t_edge
+    (per transpose bucket, each slot's dst row and COO edge, -1 where
+    masked), ent_row /
     ent_src / ent_edge / ent_mask (flat entry -> dst row, source row, COO
     edge, validity: the masks flattened once) and ent_off (bucket b's
     first entry); edge_pos (COO edge -> flat entry) serves the edge
@@ -169,6 +174,7 @@ class EllGraph:
     ent_edge: torch.Tensor             # [P] int32, flat entry -> COO edge
     ent_mask: torch.Tensor             # [P] bool, flat entry validity
     t_row: Tuple[torch.Tensor, ...]    # per t-bucket [m, Wt] int32, dst row
+    t_edge: Tuple[torch.Tensor, ...]   # per t-bucket [m, Wt] int32, edge
 
     @property
     def num_edges(self) -> int:
@@ -244,9 +250,11 @@ class EllGraph:
         def bools(a):
             return torch.as_tensor(a, device=device)
 
-        def t_row_of(t_nbr, t_mask):
+        ent_edge = flat(slots_l)
+
+        def composed(t_nbr, t_mask, table):
             rows = np.full(t_nbr.shape, -1, np.int64)
-            rows[t_mask] = ent_row[t_nbr[t_mask]]
+            rows[t_mask] = table[t_nbr[t_mask]]
             return rows
 
         return cls(
@@ -262,10 +270,12 @@ class EllGraph:
             t_boundaries=tuple(int(b) for b in t_boundaries),
             t_widths=tuple(t_ws), t_perm=i32(t_perm), ent_row=i32(ent_row),
             ent_off=tuple(int(o) for o in offs), ent_src=i32(flat(nbrs)),
-            ent_edge=i32(flat(slots_l)),
+            ent_edge=i32(ent_edge),
             ent_mask=bools(flat(masks).astype(bool)),
-            t_row=tuple(i32(t_row_of(v, m))
-                        for v, m in zip(t_padded, t_masks)))
+            t_row=tuple(i32(composed(v, m, ent_row))
+                        for v, m in zip(t_padded, t_masks)),
+            t_edge=tuple(i32(composed(v, m, ent_edge))
+                         for v, m in zip(t_padded, t_masks)))
 
 
 def _edge_rows(ea, slots):
@@ -277,8 +287,14 @@ def _edge_rows(ea, slots):
     return ea[slots.long()].float()
 
 
+def _leaky_grad(z, negative_slope):
+    """LeakyReLU's derivative, 1 at z >= 0 as JAX's."""
+    return torch.where(z >= 0, 1.0, negative_slope)
+
+
 def _ell_edge_grad_plain(g, ell, mode, x=None, ea=None, alpha=None,
-                         coef=None, vec=None, xd=None, heads=1):
+                         coef=None, vec=None, xd=None, heads=1,
+                         negative_slope=0.2):
     """Plain twin of K11, as the reference's ``_ell_ge_bwd``: the flat
     ``[P, D]`` cotangent of the gathered edge rows (each entry's term from
     its destination row of ``g``), masked, then gathered by ``edge_pos``.
@@ -291,6 +307,13 @@ def _ell_edge_grad_plain(g, ell, mode, x=None, ea=None, alpha=None,
     if mode == "gine":
         z = x.float()[ell.ent_src.long()] + _edge_rows(ea, ell.ent_edge)
         flat = torch.where(z > 0, gf, 0.0)
+    elif mode == "gatv2":
+        dh = d // heads
+        z = (x.float()[ell.ent_src.long()] + _edge_rows(ea, ell.ent_edge)
+             + xd.float()[r])
+        flat = (alpha.repeat_interleave(dh, dim=1) * gf
+                + coef.repeat_interleave(dh, dim=1) * vec.float()[None, :]
+                * _leaky_grad(z, negative_slope))
     else:
         dh = d // heads
         other = (vec.float()[None, :] if mode == "gat"
@@ -308,7 +331,8 @@ def ell_edge_grad(g: torch.Tensor, ell: EllGraph, mode: str, *,
                   coef: Optional[torch.Tensor] = None,
                   vec: Optional[torch.Tensor] = None,
                   xd: Optional[torch.Tensor] = None,
-                  heads: int = 1) -> torch.Tensor:
+                  heads: int = 1,
+                  negative_slope: float = 0.2) -> torch.Tensor:
     """K11: the gradient of an ELL layer's edge table, [E, D] in COO edge
     order, each row written once from edge e's entry ``edge_pos[e]`` (the
     kernel walks the valid entries in destination order). ``g``
@@ -317,11 +341,15 @@ def ell_edge_grad(g: torch.Tensor, ell: EllGraph, mode: str, *,
     input, ea [E, D] its edge table); ``gat``: ``alpha[p, h] * g[row] +
     coef[p, h] * vec`` (alpha, coef [P, H] fp32 from K7b, vec [D] fp32
     att_src); ``transformer``: ``alpha * g[row] + coef * xd[row]`` (xd
-    [N, D] the query rows; K7b's coef is divided by sqrt(Dh) already)."""
+    [N, D] the query rows; K7b's coef is divided by sqrt(Dh) already);
+    ``gatv2``: ``alpha * g[row] + coef * vec * leaky'((x[src] + ea[e]) +
+    xd[row])`` (x the key table, xd the destination rows, vec att, coef
+    the logit cotangent; leaky' 1 at >= 0, else ``negative_slope``)."""
     if mode not in EDGE_GRAD_MODES:
         raise ValueError(f"ell_edge_grad: unknown mode {mode!r}")
     need = {"gine": (x, ea), "gat": (alpha, coef, vec),
-            "transformer": (alpha, coef, xd)}[mode]
+            "transformer": (alpha, coef, xd),
+            "gatv2": (x, ea, alpha, coef, vec, xd)}[mode]
     if any(t is None for t in need):
         raise ValueError(f"ell_edge_grad: mode {mode!r} is missing an "
                          "operand")
@@ -331,7 +359,7 @@ def ell_edge_grad(g: torch.Tensor, ell: EllGraph, mode: str, *,
                          "heads")
     if g.device.type == "cpu":
         return _ell_edge_grad_plain(g, ell, mode, x, ea, alpha, coef, vec,
-                                    xd, heads)
+                                    xd, heads, negative_slope)
     device = _build.require_cuda("ell_edge_grad", g, ell.ent_mask,
                                  ell.ent_row, ell.ent_src, ell.ent_edge,
                                  *need)
@@ -361,13 +389,16 @@ def ell_edge_grad(g: torch.Tensor, ell: EllGraph, mode: str, *,
                   _build.ptr(alpha), _build.ptr(coef), _build.ptr(vec),
                   _build.ptr(xd), out.data_ptr(), p_total, d, heads,
                   d // heads, _DTYPES[g.dtype], EDGE_GRAD_MODES[mode],
-                  vec_path, None, 0)
+                  vec_path, None, 0, float(negative_slope))
+    if mode == "gatv2":
+        _build.launches["ell_edge_grad_gatv2"] += 1
     return out
 
 
 
 def _coo_edge_grad_plain(g, src, dst, mode, x=None, ea=None, alpha=None,
-                         coef=None, vec=None, xd=None, heads=1):
+                         coef=None, vec=None, xd=None, heads=1,
+                         negative_slope=0.2):
     """Plain twin of K11's COO form: per edge e, its term from its
     destination's row of ``g``, fp32 arithmetic, one rounding."""
     d = g.shape[1]
@@ -377,6 +408,11 @@ def _coo_edge_grad_plain(g, src, dst, mode, x=None, ea=None, alpha=None,
         return torch.where(z > 0, gf, 0.0).to(g.dtype)
     dh = d // heads
     out = alpha.float().repeat_interleave(dh, dim=1) * gf
+    if mode == "gatv2":
+        z = x.float()[src.long()] + ea.float() + xd.float()[dst.long()]
+        return (out + coef.float().repeat_interleave(dh, dim=1)
+                * vec.float()[None, :]
+                * _leaky_grad(z, negative_slope)).to(g.dtype)
     if coef is not None:
         other = (vec.float()[None, :] if mode == "gat"
                  else xd.float()[dst.long()])
@@ -391,19 +427,23 @@ def coo_edge_grad(g: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                   coef: Optional[torch.Tensor] = None,
                   vec: Optional[torch.Tensor] = None,
                   xd: Optional[torch.Tensor] = None,
-                  heads: int = 1) -> torch.Tensor:
+                  heads: int = 1,
+                  negative_slope: float = 0.2) -> torch.Tensor:
     """K11's COO form: the gradient [E, D] of an edge table read beside
     COO edges ``src`` -> ``dst`` (each edge's row by its id), walking
     ``index`` (the destination ``SegmentIndex``: its order and pointers;
     with gine also its ``gathered`` source rows when ``src`` is the tensor
     it was built from). ``mode`` ``gine``: ``g[dst] * 1[x[src] + ea > 0]``;
     ``gat``: ``alpha[e, h] * g[dst] + coef[e, h] * vec`` (coef None: the
-    first term alone); ``transformer``: ``alpha * g[dst] + coef * xd[dst]``.
-    alpha and coef are fp32 [E, H]."""
+    first term alone); ``transformer``: ``alpha * g[dst] + coef * xd[dst]``;
+    ``gatv2``: ``alpha * g[dst] + coef * vec * leaky'((x[src] + ea) +
+    xd[dst])`` (leaky' 1 at >= 0, else ``negative_slope``). alpha and coef
+    are fp32 [E, H]."""
     if mode not in EDGE_GRAD_MODES:
         raise ValueError(f"coo_edge_grad: unknown mode {mode!r}")
     need = {"gine": (x, ea), "gat": (alpha,) + (
-        () if coef is None else (vec,)), "transformer": (alpha, coef, xd)}[mode]
+        () if coef is None else (vec,)), "transformer": (alpha, coef, xd),
+        "gatv2": (x, ea, alpha, coef, vec, xd)}[mode]
     if any(t is None for t in need):
         raise ValueError(f"coo_edge_grad: mode {mode!r} is missing an "
                          "operand")
@@ -413,14 +453,14 @@ def coo_edge_grad(g: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                          "heads")
     if g.device.type == "cpu":
         return _coo_edge_grad_plain(g, src, dst, mode, x, ea, alpha, coef,
-                                    vec, xd, heads)
+                                    vec, xd, heads, negative_slope)
     e = src.shape[0]
     if index is None or index.num_edges != e \
             or index.num_segments != g.shape[0]:
         raise ValueError("coo_edge_grad: needs the destination SegmentIndex "
                          "of these edges")
     rows = None
-    if mode == "gine":
+    if mode in ("gine", "gatv2"):
         rows = (index.gathered if gather_mode(src, index) == "composed"
                 else src.long()[index.order.long()].to(torch.int32))
     coef_c = None if coef is None else coef.contiguous()
@@ -431,7 +471,8 @@ def coo_edge_grad(g: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                                  *tabs)
     if g.dim() != 2 or g.dtype not in _DTYPES:
         raise ValueError("coo_edge_grad: g must be [S, D], fp32 or bf16")
-    shapes = {"x": (x, None), "ea": (ea, (e, d)), "xd": (xd, tuple(g.shape))}
+    shapes = {"x": (x, None), "ea": (ea, (e, d)),
+              "xd": (xd, tuple(g.shape))}
     for name, (t, shape) in shapes.items():
         if t is not None and ((shape is not None and t.shape != shape)
                               or t.dtype != g.dtype or t.shape[-1] != d):
@@ -456,8 +497,10 @@ def coo_edge_grad(g: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                       _build.ptr(vec), _build.ptr(xd), out.data_ptr(), e, d,
                       heads, d // heads, _DTYPES[g.dtype],
                       EDGE_GRAD_MODES[mode], vec_path, index.ptr.data_ptr(),
-                      g.shape[0])
+                      g.shape[0], float(negative_slope))
         _build.launches["ell_edge_grad_coo"] += 1
+        if mode == "gatv2":
+            _build.launches["ell_edge_grad_gatv2"] += 1
     return out
 
 def ell_layer(conv, x_p: torch.Tensor, ell: EllGraph,

@@ -238,6 +238,13 @@ def _ell_transpose_plain(rows, ell, op, wt=None, wt2=None, vec=None,
             flat = flat * mul
         if add is not None:
             flat = flat + add
+    return _transpose_sum(flat, ell, rows.dtype)
+
+
+def _transpose_sum(flat, ell, dtype):
+    """The flat [P, D] entry rows summed per source: ``flat[t_nbr] *
+    t_mask`` per transpose bucket, gathered back to x_p order by
+    ``t_rank``, rounded once to ``dtype``."""
     parts = []
     for tb in range(len(ell.t_widths)):
         if ell.t_nbr[tb].shape[0] == 0:
@@ -245,10 +252,56 @@ def _ell_transpose_plain(rows, ell, op, wt=None, wt2=None, vec=None,
         g = flat[ell.t_nbr[tb].long()]                   # [m, Wt, D]
         parts.append((g * ell.t_mask[tb][..., None]).sum(dim=1))
     if not parts:
-        return torch.zeros((ell.num_nodes, d), dtype=rows.dtype,
-                           device=rows.device)
+        return torch.zeros((ell.num_nodes, flat.shape[1]), dtype=dtype,
+                           device=flat.device)
     dx_t = torch.cat(parts, dim=0)                        # t-row order
-    return dx_t[ell.t_rank.long()].to(rows.dtype)
+    return dx_t[ell.t_rank.long()].to(dtype)
+
+
+def _ell_edge_rows_sum_plain(rows, ell):
+    """Plain twin of K6b's sum over t_edge: the flat entry rows
+    ``rows[ent_edge]`` (masked) summed per transpose bucket as the
+    reference's ``_ell_gather_bwd`` does."""
+    d = rows.shape[1]
+    flat = (rows.float()[ell.ent_edge.long()] if ell.num_edges
+            else torch.zeros((ell.ent_edge.shape[0], d), device=rows.device))
+    return _transpose_sum(flat * ell.ent_mask[:, None], ell, rows.dtype)
+
+
+def ell_edge_rows_sum(rows: torch.Tensor, ell) -> torch.Tensor:
+    """K6b's sum over ``EllGraph.t_edge``: for every x_p row v, the sum
+    of ``rows[e]`` over the COO edges e whose entries read v -> [N, D] in
+    x_p order. ``rows`` [E, D] is a per-edge table in COO edge order (GATv2
+    with edge rows: the edge table's gradient, which is also each entry's
+    key-row cotangent). The kernel is K6b's sum mode given ``t_edge`` in
+    place of ``t_row``: each slot's row read through the edge id composed
+    at build, fp32 sums in slot order, one rounding
+    (:func:`_ell_edge_rows_sum_plain` is its twin)."""
+    n, e = ell.num_nodes, ell.num_edges
+    if rows.dim() != 2 or rows.shape[0] != e or rows.dtype not in _DTYPES:
+        raise ValueError(f"ell_edge_rows_sum: rows must be [E={e}, D], "
+                         "fp32 or bf16")
+    d = rows.shape[1]
+    if rows.device.type == "cpu":
+        return _ell_edge_rows_sum_plain(rows, ell)
+    device = _build.require_cuda("ell_transpose_aggregate", rows, ell.t_perm,
+                                 *ell.t_edge)
+    out = torch.empty((n, d), dtype=rows.dtype, device=device)
+    vec_path = int((d * rows.element_size()) % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (rows, out)))
+    for tb, tw in enumerate(ell.t_widths):
+        lo, hi = ell.t_boundaries[tb], ell.t_boundaries[tb + 1]
+        if hi == lo:
+            continue
+        _build.launch("ell_transpose_aggregate",
+                      "gigl_ell_transpose_aggregate", device,
+                      rows.data_ptr(), None, ell.t_edge[tb].data_ptr(),
+                      ell.t_perm[lo:hi].data_ptr(), None, None, None, None,
+                      None, None, None, None, None, out.data_ptr(), hi - lo,
+                      tw, d, 1, d, _DTYPES[rows.dtype], T_OPS["sum"],
+                      vec_path, 0.0)
+        _build.launches["ell_transpose_edge_rows"] += 1
+    return out
 
 
 def ell_transpose_aggregate(rows: torch.Tensor, ell, op: str,

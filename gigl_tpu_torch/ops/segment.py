@@ -69,10 +69,12 @@ The COO per-edge terms (the ``coo`` forms of GINE, EdgeAttrGAT, the
 Transformer with edge rows and GATv2) are modes of the same kernels, each
 with its twin here: K8 adds an edge row (by edge id) to each gathered row
 (``coo_spmm(edge_rows=, edge_mode="add")``) or takes the relu of the sum
-(``"gine"``), and walks GATv2's destinations (:func:`gatv2_dst_bwd`); K8b
-gates the source walk by GINE's relu (:func:`gine_bwd`) or walks GATv2's
-sources (:func:`gatv2_src_bwd`); K10 adds the edge row to the key or
-scores GATv2's ``att . leaky(hs[src] + hd[dst])``. :func:`coo_walk`
+(``"gine"``), and walks GATv2's destinations (:func:`gatv2_dst_bwd`, with
+or without edge rows); K8b gates the source walk by GINE's relu
+(:func:`gine_bwd`), walks GATv2's sources (:func:`gatv2_src_bwd`) or sums
+a per-edge table into the source rows (:func:`edge_rows_by_source`); K10
+adds the edge row to the key or scores GATv2's ``att . leaky(hs[src] +
+hd[dst])``, with or without an edge row added to ``hs[src]``. :func:`coo_walk`
 relabels a graph's edges in its destination walk order, where the
 destination walks read an edge table in sequence.
 """
@@ -570,17 +572,66 @@ def gatv2_src_bwd(gl: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                              src_index=src_index)
 
 
+def _edge_rows_by_source_plain(rows, src, num_rows):
+    """Plain twin of :func:`edge_rows_by_source`: index_add in fp32, one
+    rounding."""
+    e = src.shape[0]
+    c = math.prod(rows.shape[1:])
+    return torch.zeros((num_rows, c), device=rows.device).index_add(
+        0, src.long(), rows.float().reshape(e, c)).to(rows.dtype)
+
+
+def edge_rows_by_source(rows: torch.Tensor, src: torch.Tensor,
+                        num_rows: int, *,
+                        src_index: Optional[SegmentIndex] = None
+                        ) -> torch.Tensor:
+    """K8b's sum over the source walk of a per-edge table: ``out[r] =
+    sum_{e: src e = r} rows[e]`` -> [num_rows, C] (GATv2 with edge rows:
+    the source table's cotangent is the edge table's, summed by source).
+    The kernel is K8b's composed sum with the source index's ``order`` as
+    each slot's row: slot j reads ``rows[order[j]]``, fp32 sums in walk
+    order, one rounding."""
+    e = src.shape[0]
+    c = math.prod(rows.shape[1:])
+    if rows.shape[0] != e:
+        raise ValueError(f"edge_rows_by_source: {rows.shape[0]} rows for "
+                         f"{e} edges")
+    if rows.device.type == "cpu":
+        return _edge_rows_by_source_plain(rows, src, num_rows)
+    src_index = _index(src, num_rows, src_index, e)
+    rf = rows.contiguous().reshape(e, c)
+    device = _build.require_cuda("segment_reduce_bwd", rf, src_index.order,
+                                 src_index.ptr)
+    if rf.dtype not in _DTYPES:
+        raise ValueError("edge_rows_by_source: rows must be fp32 or bf16")
+    out = torch.empty((num_rows, c), dtype=rows.dtype, device=device)
+    vec = int((c * rf.element_size()) % 16 == 0
+              and all(t.data_ptr() % 16 == 0 for t in (rf, out)))
+    if num_rows * c:
+        _build.launch("segment_reduce_bwd", "gigl_segment_reduce_bwd", device,
+                      rf.data_ptr(), None, None, None, None,
+                      src_index.order.data_ptr(), src_index.order.data_ptr(),
+                      src_index.ptr.data_ptr(), None, None, out.data_ptr(),
+                      num_rows, c, c, 1, _DTYPES[rf.dtype], _OPS["sum"], vec,
+                      0, None, None, 0.0)
+        _build.launches["segment_reduce_bwd_composed"] += 1
+        _build.launches["segment_reduce_bwd_edge_rows"] += 1
+    return out
+
+
 # Rows of K8's gatv2 destination walk (its grid's threads over a row's
 # pieces, each keeping its d att partial), at most: the partials' buffer.
 _GATV2_PARTIAL_ROWS = 4096
 
 
-def _gatv2_dst_plain(gl, src, dst, hs, hd, att, negative_slope):
+def _gatv2_dst_plain(gl, src, dst, hs, hd, att, negative_slope, edge=None):
     """Plain twin of K8's gatv2 destination walk: (dhd, d att), fp32."""
     e = src.shape[0]
     n, c = hd.shape[0], math.prod(hd.shape[1:])
-    z = (hs.float().reshape(hs.shape[0], c)[src.long()]
-         + hd.float().reshape(n, c)[dst.long()])
+    ks = hs.float().reshape(hs.shape[0], c)[src.long()]
+    if edge is not None:
+        ks = ks + edge.float().reshape(e, c)
+    z = ks + hd.float().reshape(n, c)[dst.long()]
     g = gl.float().reshape(e, _cols(gl))
     dz = _per_column(att.float().reshape(1, c).expand(e, c), g)
     dhd = torch.zeros((n, c), device=hd.device).index_add(
@@ -593,16 +644,19 @@ def _gatv2_dst_plain(gl, src, dst, hs, hd, att, negative_slope):
 def gatv2_dst_bwd(gl: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                   hs: torch.Tensor, hd: torch.Tensor, att: torch.Tensor, *,
                   negative_slope: float = 0.2,
-                  index: Optional[SegmentIndex] = None
+                  index: Optional[SegmentIndex] = None,
+                  edge: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K8's gatv2 mode, one walk of the destination ``index``: the
     cotangents of ``hd`` ([N, H * D], ``sum_{e: dst e = i} leaky'(z) * gl *
     att``) and of ``att`` (fp32 [H * D], ``sum_e gl[e, h] * leaky(z)``) in
-    GATv2's logits (:func:`gatv2_src_bwd`). The d att partials are summed
-    in a fixed order: the same bits on every run."""
+    GATv2's logits (:func:`gatv2_src_bwd`); with ``edge`` [E, ...] (GATv2
+    with edge rows) ``z = (hs[src] + edge) + hd[dst]``. The d att partials
+    are summed in a fixed order: the same bits on every run."""
     e = src.shape[0]
     if hd.device.type == "cpu":
-        return _gatv2_dst_plain(gl, src, dst, hs, hd, att, negative_slope)
+        return _gatv2_dst_plain(gl, src, dst, hs, hd, att, negative_slope,
+                                edge)
     n, c = hd.shape[0], math.prod(hd.shape[1:])
     index = _index(dst, n, index, e, src)
     composed = gather_mode(src, index) == "composed"
@@ -612,13 +666,15 @@ def gatv2_dst_bwd(gl: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     hdf = hd.contiguous().reshape(n, c)
     g = gl.float().reshape(e, _cols(gl)).contiguous()
     at = att.detach().float().contiguous().reshape(c)
+    ea = None if edge is None else edge.contiguous().reshape(e, c)
     device = _build.require_cuda("segment_reduce", hsf, hdf, g, at,
                                  index.order, index.ptr, *(
-                                     t for t in (s32, gathered)
+                                     t for t in (s32, gathered, ea)
                                      if t is not None))
-    if hsf.dtype not in _DTYPES or hdf.dtype != hsf.dtype:
-        raise ValueError("gatv2_dst_bwd: hs and hd must share one dtype, "
-                         "fp32 or bf16")
+    if hsf.dtype not in _DTYPES or hdf.dtype != hsf.dtype or (
+            ea is not None and ea.dtype != hsf.dtype):
+        raise ValueError("gatv2_dst_bwd: hs, hd and the edge rows must "
+                         "share one dtype, fp32 or bf16")
     heads = g.shape[1]
     if c % heads:
         raise ValueError(f"gatv2_dst_bwd: {c} values for {heads} heads")
@@ -629,17 +685,21 @@ def gatv2_dst_bwd(gl: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                           dtype=torch.float32, device=device)
     esize = hsf.element_size()
     vec = int((c * esize) % 16 == 0 and (dh * esize) % 16 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (hsf, hdf, dhd)))
+        t.data_ptr() % 16 == 0 for t in (hsf, hdf, dhd, ea)
+        if t is not None))
     _build.launch("segment_reduce", "gigl_segment_reduce", device,
                   hsf.data_ptr(), _build.ptr(s32), index.order.data_ptr(),
                   _build.ptr(gathered), index.ptr.data_ptr(), g.data_ptr(),
                   dhd.data_ptr(), n, c, dh, heads, _DTYPES[hsf.dtype],
-                  _OPS["sum"], vec, None, 3, hdf.data_ptr(), at.data_ptr(),
+                  _OPS["sum"], vec, _build.ptr(ea), 3, hdf.data_ptr(),
+                  at.data_ptr(),
                   float(negative_slope), datt.data_ptr(), partial.data_ptr(),
                   _GATV2_PARTIAL_ROWS)
     _build.launches["segment_reduce_" + ("composed" if composed
                                          else "chained")] += 1
     _build.launches["segment_reduce_gatv2"] += 1
+    if ea is not None:
+        _build.launches["segment_reduce_gatv2_edge"] += 1
     return dhd, datt
 
 def _weight_grad(g, x, segment_ids, op, src, weight, index):
@@ -1113,8 +1173,9 @@ def _sddmm_fwd(src, dst, q, k, scale=None, index=None, edge=None, att=None,
     kernel walks ``index``, the SegmentIndex of ``dst`` over q's rows, at
     rows of _SDDMM_WALK_ROW_BYTES and more (built here when not given), and
     reads no index below. With ``edge`` [E, ...] (the key addend) or
-    ``att`` [H, D] (GATv2's scores of ``leaky(k[src] + q[dst])``) it walks
-    the index at every width (:func:`gatv2_scores`)."""
+    ``att`` [H, D] (GATv2's scores of ``leaky(k[src] + q[dst])``; with both,
+    ``leaky((k[src] + edge) + q[dst])``) it walks the index at every width
+    (:func:`gatv2_scores`)."""
     if q.device.type == "cpu":
         return _sddmm_plain(src, dst, q, k, scale, edge, att, negative_slope)
     if edge is not None or att is not None:
@@ -1145,7 +1206,8 @@ def _sddmm_fwd(src, dst, q, k, scale=None, index=None, edge=None, att=None,
 
 
 def _sddmm_edge_fwd(src, dst, q, k, scale, index, edge, att, negative_slope):
-    """K10's addend and gatv2 modes over ``index``: its walk for rows of
+    """K10's addend and gatv2 modes (and gatv2 with the edge row added to
+    the key, given both) over ``index``: its walk for rows of
     _SDDMM_WALK_ROW_BYTES and more (a lane map's shapes), else a thread per
     (destination, head), which reads each slot's row from the index's
     composed ``gathered`` when ``src`` is its gather (:func:`gather_mode`)."""
@@ -1169,6 +1231,7 @@ def _sddmm_edge_fwd(src, dst, q, k, scale, index, edge, att, negative_slope):
         raise ValueError("sddmm: q, k and the edge rows must share one "
                          "dtype, fp32 or bf16")
     out = torch.empty((e, heads), dtype=q.dtype, device=device)
+    mode = 1 if at is None else (2 if ea is None else 3)
     dk_bytes = (c // heads) * qf.element_size()
     vec = int(dk_bytes % 16 == 0 and all(
         t.data_ptr() % 16 == 0 for t in (qf, kf, ea) if t is not None))
@@ -1177,10 +1240,11 @@ def _sddmm_edge_fwd(src, dst, q, k, scale, index, edge, att, negative_slope):
                       kf.data_ptr(), _build.ptr(s32), None,
                       index.order.data_ptr(), index.ptr.data_ptr(),
                       _build.ptr(sc), out.data_ptr(), e, q.shape[0], c, heads,
-                      _DTYPES[q.dtype], 1 if att is None else 2,
-                      _build.ptr(gathered), _build.ptr(ea), _build.ptr(at),
-                      float(negative_slope), vec)
-        _build.launches["sddmm_addend" if att is None else "sddmm_gatv2"] += 1
+                      _DTYPES[q.dtype], mode, _build.ptr(gathered),
+                      _build.ptr(ea), _build.ptr(at), float(negative_slope),
+                      vec)
+        _build.launches[("sddmm_addend", "sddmm_gatv2",
+                         "sddmm_gatv2_edge")[mode - 1]] += 1
     return out if q.dim() == 3 else out.reshape(e)
 
 

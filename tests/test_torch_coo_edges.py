@@ -298,15 +298,27 @@ def test_gatv2_coo_over_zero_feature_rows_matches_jax():
 
 
 def test_gatv2_coo_with_edge_rows_raises():
-    """GATv2 with edge rows (ROADMAP B6b) is built by no reference
-    configuration; its coo form raises, as its ELL form does, while a
+    """GATv2 with edge rows (ROADMAP B6b) raised here until its coo form
+    had the edge row inside K10's, K8's and K11's GATv2 modes; it now runs
+    and matches the reference's coo form (its output, within 1e-5 of the
+    scale; tests/test_torch_gatv2_edges.py holds the gradients), while a
     GATv2 that reads no edge rows ignores them."""
     src, dst, x, _, ea = _edges()
     args = (torch.from_numpy(x), _t32(src), _t32(dst), N,
             torch.from_numpy(ea))
-    with pytest.raises(NotImplementedError, match="B6b"):
-        convs.GATConv(DIN, OUT, heads=HEADS, v2=True, use_edge_attr=True,
-                      edge_dim=DE).coo(*args)
+    jconv = ref_convs.GATConv(out_dim=OUT, heads=HEADS, v2=True,
+                              use_edge_attr=True)
+    jargs = (jnp.asarray(src, jnp.int32), jnp.asarray(dst, jnp.int32), N,
+             jnp.asarray(ea))
+    params = jconv.init(jax.random.PRNGKey(2), jnp.asarray(x), *jargs,
+                        method="coo")
+    v2 = convs.GATConv(DIN, OUT, heads=HEADS, v2=True, use_edge_attr=True,
+                       edge_dim=DE)
+    v2.load_state_dict({k[len("convs.0."):]: v for k, v in params_from_flax(
+        {"conv_0": _np(params["params"])}).items()})
+    with torch.no_grad():
+        _close(v2.coo(*args), jconv.apply(params, jnp.asarray(x), *jargs,
+                                          method="coo"), what="forward")
     plain = convs.GATConv(DIN, OUT, heads=HEADS, v2=True)
     with torch.no_grad():
         assert torch.equal(plain.coo(*args), plain.coo(*args[:4]))

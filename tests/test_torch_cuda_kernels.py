@@ -146,6 +146,7 @@ from gigl_tpu_torch.inference.inferencer import (
     run_full_graph_inference_hetero,
     run_inference,
 )
+from gigl_tpu_torch.models import convs
 from gigl_tpu_torch.models.encoders import GNNEncoder
 from gigl_tpu_torch.models.hetero_encoders import HeteroGNNEncoder
 from gigl_tpu_torch.models.init import init_params
@@ -172,6 +173,7 @@ from gigl_tpu_torch.ops.ell_aggregate import (
     _ell_aggregate_graph_plain,
     _ell_transpose_plain,
     ell_aggregate_graph,
+    ell_edge_rows_sum,
     ell_transpose_aggregate,
 )
 from gigl_tpu_torch.ops.fanout import (
@@ -4633,3 +4635,224 @@ def test_typed_partitioned_steps_on_card_match_cpu(dev, conv, tabularized):
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
     for k, w in zip(out["cuda"][1], out["cpu"][1]):
         assert float((k - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+# -- GATv2 with edge rows (ROADMAP B6b) ----------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,dh,off", COO_EDGE_CASES)
+@pytest.mark.parametrize("walk", [False, True])
+def test_gatv2_edge_coo_modes_match_plain(dev, dtype, heads, dh, off, walk):
+    """The COO modes of GATv2 with edge rows: K10's gatv2 mode with the edge
+    row, K8's gatv2 destination walk with it (d hd, d att), K11's gatv2
+    mode and K8b's sum of a per-edge table along the source walk, each
+    against its plain twin on the card (empty segments, 1,000-edge hubs on
+    both sides, the edges in their own order or in walk order): fp32
+    within 1e-5 of the scale, bf16 within 2e-2; a repeat run bit-equal."""
+    src, dst, index, src_index = _coo_edge_graph(dev, walk)
+    n, e, c = index.num_segments, index.num_edges, heads * dh
+    g = torch.Generator(device=dev).manual_seed(31)
+
+    def rand(*shape):
+        t = torch.randn(shape, generator=g, device=dev).to(dtype)
+        return _off16(t) if off else t
+
+    x, hd, gout, ea = rand(n, c), rand(n, c), rand(n, c), rand(e, c)
+    alpha = torch.rand((e, heads), generator=g, device=dev)
+    gl = torch.randn((e, heads), generator=g, device=dev)
+    att = torch.randn((heads, dh), generator=g, device=dev)
+    x3, hd3, ea3 = (t.view(-1, heads, dh) for t in (x, hd, ea))
+    _build.reset_launches()
+    calls = {
+        "k10_gatv2_edge": (lambda: segment_ops._sddmm_fwd(
+            src, dst, hd3, x3, index=index, edge=ea3, att=att,
+            negative_slope=0.2),
+            lambda: _sddmm_plain(src, dst, hd3, x3, edge=ea3, att=att)),
+        "k8_gatv2_edge": (lambda: segment_ops.gatv2_dst_bwd(
+            gl, src, dst, x3, hd3, att, index=index, edge=ea3),
+            lambda: segment_ops._gatv2_dst_plain(gl, src, dst, x3, hd3, att,
+                                                 0.2, ea3)),
+        "k11_gatv2": (lambda: edge_ops.coo_edge_grad(
+            gout, src, dst, index, "gatv2", x=x, ea=ea, alpha=alpha,
+            coef=gl, vec=att.reshape(-1), xd=hd, heads=heads),
+            lambda: edge_ops._coo_edge_grad_plain(
+                gout, src, dst, "gatv2", x=x, ea=ea, alpha=alpha, coef=gl,
+                vec=att.reshape(-1), xd=hd, heads=heads)),
+        "k8b_edge_rows": (lambda: segment_ops.edge_rows_by_source(
+            ea, src, n, src_index=src_index),
+            lambda: torch.zeros((n, c), device=dev).index_add(
+                0, src.long(), ea.float()).to(dtype)),
+    }
+    for name, (kernel, plain) in calls.items():
+        got, want, again = kernel(), plain(), kernel()
+        got, want, again = (t if isinstance(t, tuple) else (t,)
+                            for t in (got, want, again))
+        for a, b, r in zip(got, want, again):
+            assert a.shape == b.reshape(a.shape).shape, name
+            assert torch.equal(a, r), name          # no atomics: same bits
+            if a.dtype == torch.float32 and b.dtype != dtype:
+                _within(a, b, torch.float32)         # d att: fp32 sums
+            else:
+                _within(a, b.reshape(a.shape), dtype)
+    for mode in ("sddmm_gatv2_edge", "segment_reduce_gatv2_edge",
+                 "ell_edge_grad_gatv2", "segment_reduce_bwd_edge_rows"):
+        assert _build.launches[mode] > 0, mode
+    assert _build.launches["segment_reduce_bwd_chained"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,heads", [(256, 4), (128, 4), (12, 3)])
+def test_gatv2_edge_ell_modes_match_plain(dev, dtype, d, heads):
+    """The ELL modes of GATv2 with edge rows over transpose buckets of every
+    width up to a 5,000-slot hub: K11's gatv2 mode (an [E, D] table, every
+    edge's row written once) and K6b's sum of an [E, D] table over
+    EllGraph.t_edge (one launch per non-empty transpose bucket, 0 for
+    sources without out-edges), each against its twin: fp32 within 1e-5
+    of the scale, bf16 within 2e-2; a repeat run bit-equal; t_edge the
+    composed edge of every transpose slot."""
+    ell, e = _every_width_ell(dev)
+    for t_edge, t_nbr, t_mask in zip(ell.t_edge, ell.t_nbr, ell.t_mask):
+        assert torch.equal(t_edge.long(), torch.where(
+            t_mask, ell.ent_edge.long()[t_nbr.long()], -1))
+    n, p = ell.num_nodes, ell.ent_row.shape[0]
+    g = torch.Generator(device=dev).manual_seed(32)
+    x, xd, gout = (torch.randn((n, d), generator=g, device=dev).to(dtype)
+                   for _ in range(3))
+    ea = torch.randn((e, d), generator=g, device=dev).to(dtype)
+    alpha, coef = (torch.randn((p, heads), generator=g, device=dev)
+                   for _ in range(2))
+    att = torch.randn(d, generator=g, device=dev)
+    kw = dict(x=x, ea=ea, alpha=alpha, coef=coef, vec=att, xd=xd,
+              heads=heads)
+    _build.reset_launches()
+    got = edge_ops.ell_edge_grad(gout, ell, "gatv2", **kw)
+    assert torch.equal(got, edge_ops.ell_edge_grad(gout, ell, "gatv2", **kw))
+    _within(got, edge_ops._ell_edge_grad_plain(gout, ell, "gatv2", **kw),
+            dtype)
+    assert _build.launches["ell_edge_grad_gatv2"] == 2
+    nonempty = sum(hi > lo for lo, hi in zip(ell.t_boundaries,
+                                             ell.t_boundaries[1:]))
+    before = _build.launches["ell_transpose_aggregate"]
+    summed = ell_edge_rows_sum(ea, ell)
+    torch.cuda.synchronize()
+    assert _build.launches["ell_transpose_aggregate"] == before + nonempty
+    assert torch.equal(summed, ell_edge_rows_sum(ea, ell))
+    want = torch.zeros((n, d), device=dev)
+    ent = torch.nonzero(ell.ent_mask).reshape(-1)
+    want.index_add_(0, ell.ent_src.long()[ent],
+                    ea.float()[ell.ent_edge.long()[ent]])
+    assert summed.dtype == dtype
+    _within(summed, want.to(dtype), dtype)
+    assert not summed[ell.rank[:3].long()].any()
+
+
+@pytest.mark.parametrize("form", ["block", "ell", "coo"])
+def test_gatv2_edges_gradients_on_card_match_cpu(dev, form):
+    """GATConv(v2=True, use_edge_attr=True) in each form on the card
+    against the CPU's twins (ROADMAP C3's lesson: the new autograd paths
+    on the card): the output and the gradients of every parameter, the
+    node rows and the edge rows, fp32 within 1e-4 of the scale (softmax and
+    sums in another order), with the new modes launched."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    src, dst, x, _ = _small_graph()
+    rng = np.random.default_rng(8)
+    ea = rng.normal(size=(len(src), 8)).astype(np.float32)
+    modes = {"block": ("fanout_attention", "fanout_attention_bwd"),
+             "ell": ("fanout_attention", "fanout_attention_bwd",
+                     "ell_edge_grad_gatv2", "ell_transpose_edge_rows"),
+             "coo": ("sddmm_gatv2_edge", "segment_reduce_gatv2_edge",
+                     "ell_edge_grad_gatv2", "segment_reduce_bwd_edge_rows",
+                     "segment_reduce_add")}[form]
+    blk = (rng.normal(size=(64, 16)).astype(np.float32),
+           rng.normal(size=(64, 10, 16)).astype(np.float32),
+           rng.random((64, 10)) < 0.7,
+           rng.normal(size=(64, 10, 8)).astype(np.float32))
+    res = {}
+    for device in (dev, torch.device("cpu")):
+        conv = convs.GATConv(16, 32, heads=4, v2=True, use_edge_attr=True,
+                             edge_dim=8)
+        for prm in conv.parameters():
+            prm.data = torch.randn(prm.shape, generator=torch.Generator(
+            ).manual_seed(prm.numel())) * 0.3
+        conv = conv.to(device)
+        _build.reset_launches()
+        if form == "block":
+            ins = [torch.as_tensor(blk[i], device=device).requires_grad_()
+                   for i in (0, 1, 3)]
+            out = conv.block(ins[0], ins[1], torch.as_tensor(
+                blk[2], device=device), ins[2])
+        else:
+            ins = [torch.as_tensor(a, device=device).requires_grad_()
+                   for a in (x, ea)]
+            if form == "ell":
+                ell = EllGraph.from_csr(build_csr(src, dst,
+                                                  num_anchor_nodes=N),
+                                        device=device)
+                out = conv.ell(ins[0], ell, ins[1])
+            else:
+                ts, td = (torch.as_tensor(a.astype(np.int32), device=device)
+                          for a in (src, dst))
+                out = conv.coo(ins[0], ts, td, N, ins[1])
+        (out * torch.linspace(-1, 1, out.numel(), device=device)
+         .reshape(out.shape)).sum().backward()
+        if device.type == "cuda":
+            for k in modes:
+                assert _build.launches[k] > 0, (form, k)
+        res[device.type] = [out.detach().cpu()] + [
+            t.grad.cpu() for t in ins] + [p.grad.cpu()
+                                          for p in conv.parameters()]
+    for a, b in zip(res["cuda"], res["cpu"]):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+
+
+# -- out-of-core training (ROADMAP A14) ----------------------------------------------
+@pytest.mark.parametrize("stream_dtype", ["float32", "bfloat16"])
+def test_streaming_ring_on_card_matches_cpu(dev, stream_dtype):
+    """StreamingNALPTrainer.run_steps on the card (pinned ring slots, the
+    copies on a side stream, prefetch 2 and 0) against the same steps on
+    the CPU, from the same weights: six fp32-model losses within 1e-4
+    relative (K4 / K5 sums in another order); the streamed bytes a step
+    are the slot's pinned buffers; no row is drawn or gathered on the
+    card."""
+    from gigl_tpu_torch.training.streaming import (
+        HostGraphStore, StreamingNALPTrainer)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(21)
+    n, e = 700, 9000
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    feats = rng.normal(size=(n, 16)).astype(np.float32)
+    edges = np.stack([src, dst])
+    store = HostGraphStore.build(message_edges=edges,
+                                 supervision_edges=edges, features=feats,
+                                 num_nodes=n, fanouts=(5, 4))
+    cfg = NALPTrainerConfig(fanouts=(5, 4), num_random_negs=64,
+                            cached_hop=True)
+    anchors = (np.arange(32 * 6).reshape(6, 32) % n).astype(np.int32)
+    losses = {}
+    for device, prefetch in ((dev, 2), (dev, 0), (torch.device("cpu"), 2)):
+        model = LinkPredictionGNN(GNNEncoder(16, 32, 8), LinkPredictionDecoder())
+        init_params(model, 4)
+        tr = StreamingNALPTrainer(model, store, cfg,
+                                  optimizer_args={"learning_rate": "1e-2"},
+                                  stream_dtype=stream_dtype, device=device)
+        _build.reset_launches()
+        _, got = tr.run_steps(tr.init_state(params=model.state_dict()),
+                              anchors, prefetch=prefetch, timing=True)
+        assert np.isfinite(got).all()
+        if device.type == "cuda":
+            for k in ("masked_reduce", "masked_reduce_bwd", "retrieval_loss"):
+                assert _build.launches[k] > 0, k
+            for k in ("sample_uniform", "uniform_ids", "gather_rows",
+                      "build_neighbor_cache"):
+                assert _build.launches[k] == 0, k
+            want_bytes = sum(
+                np.prod(s) * (2 if kind == "rows" and stream_dtype
+                              == "bfloat16" else 4 if kind != "bool" else 1)
+                for _, s, kind, on in tr._layout(32) if on)
+            assert tr.last_run["bytes_per_step"] == want_bytes
+            assert all(ms > 0 for ms in tr.last_run["copy_ms"])
+        losses[(device.type, prefetch)] = got
+    want = losses[("cpu", 2)]
+    for key, got in losses.items():
+        np.testing.assert_allclose(got, want, rtol=1e-4, err_msg=str(key))

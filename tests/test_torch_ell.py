@@ -403,8 +403,10 @@ def test_edge_features_raise():
     and the COO path (tests/test_torch_coo_edges.py); the convs without
     edge features ignore them on both, as the reference's do. What still
     raises: a table of the wrong length, an edge conv built without
-    ``edge_dim`` given edge rows, and GATv2 with edge rows on the ELL path
-    (ROADMAP A9, edges)."""
+    ``edge_dim`` given edge rows. GATv2 with edge rows (ROADMAP B6b), which
+    raised here until the ELL path had its gate's edge row, now runs and
+    matches the reference's encode_ell (1e-4 of the output's scale, as
+    every two-layer encode_ell here)."""
     src, dst, x = _graph()
     tell = ell.EllGraph.from_csr(build_csr(src, dst, num_anchor_nodes=N),
                                  device="cpu")
@@ -423,8 +425,25 @@ def test_edge_features_raise():
             torch.from_numpy(x), tell, ea)
     v2 = GNNEncoder(DIN, HID, OUT, conv="gatv2", edge_dim=4,
                     conv_kwargs={"use_edge_attr": True})
-    with pytest.raises(NotImplementedError, match="A9, edges"):
-        v2.encode_ell(torch.from_numpy(x), tell, ea)
+    jv2 = RefGNNEncoder(hid_dim=HID, out_dim=OUT, num_layers=2, conv="gatv2",
+                        conv_kwargs={"use_edge_attr": True}, edge_dim=4)
+    jell = ref_ell.EllGraph.from_csr(ref_build_csr(
+        src, dst, num_anchor_nodes=N, num_neighbor_nodes=N))
+    eav = np.random.default_rng(4).normal(size=(len(src), 4)).astype(
+        np.float32)
+    params = jax.jit(lambda k, x_, e, a: jv2.init(
+        k, x_, e, a, method="encode_ell"))(
+            jax.random.PRNGKey(0), jnp.asarray(x), jell, jnp.asarray(eav))
+    v2.load_state_dict(params_from_flax(jax.tree_util.tree_map(
+        np.asarray, params)))
+    want = np.asarray(jax.jit(lambda p, x_, e, a: jv2.apply(
+        p, x_, e, a, method="encode_ell"))(params, jnp.asarray(x), jell,
+                                           jnp.asarray(eav)))
+    with torch.inference_mode():
+        got = v2.encode_ell(torch.from_numpy(x), tell,
+                            torch.from_numpy(eav)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())
     ts, td = (torch.as_tensor(a.astype(np.int32)) for a in (src, dst))
     with torch.inference_mode():   # the COO path ignores them as ELL does
         got = enc.encode_coo(torch.from_numpy(x), ts, td, N, ea)
