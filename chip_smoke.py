@@ -334,7 +334,33 @@
    prints host ms/step, the engine's fill ms, the streamed bytes a step,
    the copy's ms (CUDA events on the copy stream) and GB/s, device ms,
    busy share and the profiler's copy ms a step;
-21. prints the SegmentIndex host builds counted inside every timed window
+21. the streamed-partitioned tier (ROADMAP A17): the flagship graph's
+   HostGraphStore (features in RAM) and its fused [feat | deg | agg] rows
+   in a ShardedHostStore over PART_SHARDS shards (both builds timed);
+   StreamingPartitionedNALPTrainer's frozen tables, step-0 draws and plan
+   recv ids bit-equal to the device-resident PartitionedNALPTrainer(
+   cached_hop=True)'s (its union routed at the streamed capacity), three
+   fp32 steps of both schedules (sequential and pipelined, bit-equal)
+   against it from the same weights (1e-5 relative); then the flagship
+   GraphSAGE (bf16, hidden 256, out 128, cached hop, B 512, R 512, capacity
+   factor 4) through run_steps, pipelined and sequential, with fp32 and
+   bf16 answers in turns (A B B A, each turn both schedules, 5 + 30 steps
+   each, the schedules' losses bit-equal; the first run's first two steps
+   under set_sync_debug_mode("warn"), the implicit syncs printed),
+   launches reset just before and read just after (K15, K16, K3 on the
+   tables, K4, K4b and K5 launched; every K3 gather an int32 table: no
+   feature row gathered on the card), 5 more profiled; prints host ms/step,
+   device ms/step, busy share, the host gather's ms, the answer bytes and
+   the copy's ms (CUDA events on the copy stream) and GB/s, the
+   all_to_all bytes, the answer slot's padding share and edges/s. Then
+   the typed trainer over phase 10's typed graph with host-resident
+   features (HGT live and tabularized, RGCN with the ring pool) and the
+   NC trainer (labels routed in the plan), each one step against its
+   device-resident trainer (1e-5 relative) and 3 + 10 timed steps, 3
+   more profiled; K16 over shard 0's streamed answers (1,028- and 514-byte
+   rows: 4- and 2-byte words) against its twin, timed as a mode on its
+   row;
+22. prints the SegmentIndex host builds counted inside every timed window
    of a path (SegmentIndex.from_ids wrapped from the build on; each must
    read 0: a segment op on the card given no index builds one on the
    host), K8's gathering launches there by mode (none may be chained:
@@ -540,6 +566,12 @@ COO_EDGE_MODELS = {   # model: (conv, hidden, conv_kwargs, edge rows, kernels)
 STREAM_STEPS, STREAM_WARMUP, STREAM_PROFILED = 50, 5, 5
 STREAM_PARITY_STEPS, STREAM_PREFETCH = 3, 2
 STREAM_KERNELS = ("masked_reduce", "masked_reduce_bwd", "retrieval_loss")
+# the streamed-partitioned tier (phase 21): the flagship over PART_SHARDS
+# shards with every feature row on the host; the typed and NC trainers
+SP_PARITY, SP_WARMUP, SP_STEPS, SP_PROFILED = 3, 5, 30, 5
+SP_TYPED_WARMUP, SP_TYPED_STEPS, SP_TYPED_PROFILED = 3, 10, 3
+SP_KERNELS = ("route_requests", "unroute_rows", "gather_rows",
+              "masked_reduce", "masked_reduce_bwd", "retrieval_loss")
 # what the streamed step must not launch: no draw and no row gather on the
 # card (the host engine drew and gathered every row)
 STREAM_ABSENT = ("sample_uniform", "uniform_ids", "build_neighbor_cache",
@@ -6444,6 +6476,398 @@ def streaming_phases(dev, card, arrays, dg):
     return counts
 
 
+def streamed_partitioned_phases(dev, card, arrays, dg, typed_ctx, add_mode):
+    """Phase 21 (see the module docstring): the streamed-partitioned tier
+    on one card over PART_SHARDS shards, every feature row on the host.
+    Returns {path: (launch counts, steps)}; K16 over the streamed answers
+    lands on its kernel's row as a mode."""
+    import warnings
+
+    from gigl_tpu_torch import native
+    from gigl_tpu_torch.models.encoders import GNNEncoder
+    from gigl_tpu_torch.models.link_prediction import (
+        HeteroLinkPredictionGNN, LinkPredictionDecoder, LinkPredictionGNN)
+    from gigl_tpu_torch.ops import _build
+    from gigl_tpu_torch.parallel import feature_lookup as fl
+    from gigl_tpu_torch.parallel.mesh import make_mesh
+    from gigl_tpu_torch.training.dist_hetero import (
+        PartitionedHeteroGraph, PartitionedHeteroNALPTrainer)
+    from gigl_tpu_torch.training.dist_sampled import (
+        PartitionedGraph, PartitionedNALPTrainer,
+        PartitionedNodeClassificationTrainer)
+    from gigl_tpu_torch.training.hetero_dataset import HeteroDeviceGraph
+    from gigl_tpu_torch.training.hetero_trainer import HeteroNALPTrainerConfig
+    from gigl_tpu_torch.training.streaming import HostGraphStore
+    from gigl_tpu_torch.training.streaming_partitioned import (
+        ShardedHostStore, StreamingPartitionedHeteroNALPTrainer,
+        StreamingPartitionedNALPTrainer,
+        StreamingPartitionedNodeClassificationTrainer)
+    from gigl_tpu_torch.training.trainer import (
+        NALPTrainerConfig, NodeClassificationTrainerConfig)
+    from gigl_tpu_torch.types.graph import EdgeType
+
+    src_np, dst_np, x_np, labels_np = arrays
+    shards, k1, k2 = PART_SHARDS, *FANOUTS
+    mesh = make_mesh(shards)
+    counts = {}
+    native.build()
+    cfg = NALPTrainerConfig(fanouts=FANOUTS, num_random_negs=R,
+                            loss_type="retrieval", num_positives=1,
+                            cached_hop=True)
+    opt = {"learning_rate": "1e-3"}
+    edges = np.stack([src_np, dst_np])
+    t0 = time.perf_counter()
+    store = HostGraphStore.build(message_edges=edges,
+                                 supervision_edges=edges, features=x_np,
+                                 num_nodes=N, fanouts=FANOUTS, seed=cfg.seed,
+                                 node_labels=labels_np)
+    store_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = ShardedHostStore.from_host_store(store, num_shards=shards)
+    host_s = time.perf_counter() - t0
+
+    def model(dtype):
+        return LinkPredictionGNN(
+            GNNEncoder(D, HID, OUT, num_layers=2, conv="graphsage",
+                       dtype=dtype), LinkPredictionDecoder())
+
+    def streamed(m, answer_dtype="float32"):
+        return StreamingPartitionedNALPTrainer(
+            m, store, mesh, cfg, batch_size=BATCH, optimizer_args=opt,
+            capacity_factor=PART_CAPACITY, overflow_policy="raise",
+            host_store=host, answer_dtype=answer_dtype)
+
+    def no_float_rows(gathered, path):
+        """The card's K3 gathers on the path read integer tables only (the
+        frozen sample tables): no feature row was gathered there."""
+        check(all(dt_ == torch.int32 for dt_, _ in gathered),
+              f"{path}: a float row was gathered on the card: "
+              f"{sorted(set(gathered))}")
+
+    def timed(path, tr, state, batches, warmup, steps, kernels,
+              profiled=0, gens=None, pipeline=True):
+        """``warmup`` then ``steps`` steps of the pipelined (or sequential)
+        schedule with the launch counts, all_to_all bytes and K3 gathers
+        recorded over the latter (timing on), then ``profiled`` profiled
+        steps: (state, row)."""
+        state, _ = tr.run_steps(state, list(batches[:warmup]), gens,
+                                pipeline=pipeline)
+        torch.cuda.synchronize()
+        mesh.reset_counts()
+        _build.reset_launches()
+        with spy(fl, "gather_rows", lambda a, k: (
+                a[0].dtype, tuple(a[0].shape[1:]))) as gathered:
+            t1 = time.perf_counter()
+            state, losses = tr.run_steps(
+                state, list(batches[warmup: warmup + steps]), gens,
+                timing=True, pipeline=pipeline)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t1) / steps * 1e3
+        counts[path] = (dict(_build.launches), steps)
+        emit({"phase": "main_path", "path": path,
+              "launches": counts[path][0], "steps": steps})
+        for k in kernels:
+            check(counts[path][0][k] > 0, f"{k} was not launched on {path}")
+        no_float_rows(gathered, path)
+        check(tr.overflow_total == 0,
+              f"{path}: {tr.overflow_total} routed requests dropped")
+        check(np.isfinite(losses).all(), f"{path}: loss not finite")
+        run = tr.last_run
+        requested, slot_rows = tr.answer_slot_rows()
+        copy_ms = float(np.median(run["copy_ms"]))
+        row = {"path": path, "steps": steps, "ms_per_step": host_ms,
+               "host_gather_ms_median": float(
+                   np.median(run["gather_s"])) * 1e3,
+               "recv_wait_ms_median": float(np.median(run["wait_s"])) * 1e3,
+               "answer_bytes_per_step": run["answer_bytes"][0],
+               "copy_ms_median": copy_ms,
+               "copy_gb_per_s": run["answer_bytes"][0] / copy_ms / 1e6,
+               "a2a_bytes_per_step": mesh.a2a_bytes / steps,
+               "rows_requested_per_step": requested,
+               "answer_slot_rows_per_step": slot_rows,
+               "answer_slot_padding_share": 1 - requested / slot_rows,
+               "launches_per_step": {k_: v_ / steps for k_, v_
+                                     in counts[path][0].items() if v_},
+               "loss_first": float(losses[0]),
+               "loss_last": float(losses[-1]), "losses": losses}
+        if profiled:
+            lo = warmup + steps
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                tr.run_steps(state, list(batches[lo: lo + profiled]), gens,
+                             pipeline=pipeline)
+                torch.cuda.synchronize()
+                window_us = (time.perf_counter() - t1) * 1e6
+            row["profile"] = profile_summary(prof, profiled, window_us,
+                                             host_ms)
+            row["device_ms_per_step"] = row["profile"].get(
+                "device_ms_per_step")
+            row["busy_share"] = row["profile"].get(
+                "busy_share_of_unprofiled_step")
+        return state, row
+
+    # -- (a) fp32: the tables, draws and recv ids, and three steps against
+    # the device-resident cached trainer from the same weights; the
+    # sequential and the pipelined schedules bit for bit
+    n_anchor = SP_PARITY + SP_WARMUP + SP_STEPS + SP_PROFILED
+    anchors = (np.arange(BATCH * n_anchor) % N).astype(np.int32).reshape(
+        n_anchor, BATCH)
+    dres = PartitionedNALPTrainer(model(torch.float32),
+                                  PartitionedGraph.build(dg, mesh), mesh,
+                                  cfg, optimizer_args=opt,
+                                  capacity_factor=PART_CAPACITY,
+                                  overflow_policy="raise")
+    ds = dres.init_state(0)
+    params = {k: v.clone() for k, v in dres.model.state_dict().items()}
+    seq = streamed(model(torch.float32))
+    ss = seq.init_state(params=params)
+    check(all(torch.equal(torch.cat(a_), torch.cat(b_)) for a_, b_ in zip(
+        seq.pg.sample_tables, dres.pg.sample_tables)),
+        "the host store's frozen tables are not the device-resident ones")
+    plan = seq._plan(anchors[0], 0)
+    batches, _ = dres._make_batches(dres._split(dres._ids(anchors[0])), 0)
+    trees, _ = dres._draw_trees(dres._groups(batches, False))
+    cap = seq._capacity(seq._union_sizes(False)[0])
+    recv, _ = fl.send_requests(
+        mesh, [dres._union_ids(trees, s) for s in range(shards)],
+        seq.pg.rows_per_shard, cap)
+    check(all(torch.equal(a_.pos, b_.pos) and torch.equal(
+        a_.random_neg, b_.random_neg) for a_, b_ in zip(plan.ctx[0],
+                                                        batches)),
+          "the streamed draws differ from the device-resident trainer's")
+    check(torch.equal(torch.stack(recv), plan.recvs[0]),
+          "the streamed plan's recv ids differ from the device-resident "
+          "trainer's union routed at the same capacity")
+    # K16 over shard 0's streamed answers of this plan, fp32 and bf16: the
+    # fused row is 2D + 1 values (1,028 or 514 bytes), so K16 moves 4- or
+    # 2-byte words. bytes: each request's owner, pos and ok, each kept
+    # request's answer row read, every output row written
+    answers = seq._host(plan)
+    back = mesh.all_to_all(list(answers[0]))[0]
+    owner, pos, ok = plan.coords[0][0]
+    at = owner.long() * back.shape[1] + pos.long().clamp(
+        max=back.shape[1] - 1)
+    k16 = {"of": "shard 0's answers of the streamed plan at step 0"}
+    for kind, b_ in (("fp32", back), ("bf16", back.to(torch.bfloat16))):
+        flat = b_.reshape(-1, b_.shape[-1])
+        row_b = b_.shape[-1] * b_.element_size()
+        check(torch.equal(fl.unroute_rows(b_, owner, pos, ok),
+                          fl._unroute_plain(b_, owner, pos, ok)),
+              f"K16 over the streamed {kind} answers differs from its twin")
+        k16[kind] = {
+            "err": 0.0, "answers": list(b_.shape), "requests": ok.numel(),
+            "row_bytes": row_b, "word_bytes": 4 if row_b % 4 == 0 else 2,
+            "ms": cuda_ms(lambda b_=b_: fl.unroute_rows(b_, owner, pos, ok)),
+            "plain_ms": cuda_ms(
+                lambda b_=b_: fl._unroute_plain(b_, owner, pos, ok)),
+            "bound_ms": bound_ms(ok.numel() * 9 + int(ok.sum()) * row_b
+                                 + ok.numel() * row_b, 0)[0],
+            "bound_by": "bytes",
+            "library_ms": cuda_ms(lambda flat=flat: torch.where(
+                ok[:, None], flat.index_select(0, at), 0)),
+            "library_call": "index_select of the flat answers, then where"}
+    add_mode("unroute_rows", "streamed_answers", k16)
+    seq._unroute(plan, answers)
+    del plan, batches, trees, recv, answers, back
+    ds, ld = dres.train_steps(ds, anchors[:SP_PARITY])
+    ld = ld.cpu().numpy()
+    ls = []
+    for a_ in anchors[:SP_PARITY]:
+        ss, l_ = seq.train_step(ss, a_)
+        ls.append(float(l_))
+    ls = np.asarray(ls, np.float32)
+    pipe = streamed(model(torch.float32))
+    _, lp = pipe.run_steps(pipe.init_state(params=params),
+                           list(anchors[:SP_PARITY]))
+    loss_err = float(np.max(np.abs(ls - ld) / np.abs(ld)))
+    check(np.array_equal(ls, lp), f"the pipelined losses {lp} are not the "
+          f"sequential schedule's {ls}")
+    check(loss_err <= 1e-5, f"streamed losses {ls} differ from the "
+          f"device-resident trainer's {ld}")
+    emit({"phase": "streamed_partitioned_parity", "shards": shards,
+          "store_build_s": store_s, "sharded_host_store_s": host_s,
+          "host_store_bytes": host.table.nbytes, "row_bytes_fp32":
+              host.width * 4, "answer_capacity": cap,
+          "losses_sequential": ls.tolist(), "losses_pipelined": lp.tolist(),
+          "losses_device_resident": ld.tolist(), "loss_rel_err": loss_err,
+          "card": card})
+    del dres, ds, seq, ss, pipe
+
+    # -- (b) the flagship (bf16 model): fp32 and bf16 answers in turns
+    # (A B B A), each turn both schedules (the order alternating); the first
+    # run's first two steps under sync debug mode "warn"
+    edges_step = (2 * k1 + k1 * k2) * (BATCH + BATCH + R)
+    tr = streamed(model(torch.bfloat16))
+    tr.sync_debug_mode = "warn"
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        tr.run_steps(tr.init_state(0), list(anchors[:2]))
+    syncs = sorted({str(w_.message)[:160] for w_ in caught
+                    if "synchroniz" in str(w_.message)})
+    del tr
+    runs = []
+    for turn, ad in enumerate(("float32", "bfloat16", "bfloat16",
+                               "float32")):
+        for sched in (("pipelined", "sequential") if turn % 2 == 0
+                      else ("sequential", "pipelined")):
+            tr = streamed(model(torch.bfloat16), ad)
+            st = tr.init_state(0)
+            path = f"streamed_partitioned_{ad}_{sched}" + (
+                "_repeat" if turn >= 2 else "")
+            st, row = timed(path, tr, st, anchors[SP_PARITY:], SP_WARMUP,
+                            SP_STEPS, SP_KERNELS, profiled=SP_PROFILED,
+                            pipeline=sched == "pipelined")
+            row.update({"answer_dtype": ad, "schedule": sched, "turn": turn,
+                        "shards": shards, "edges_per_step": edges_step,
+                        "edges_per_s": edges_step / (row["ms_per_step"]
+                                                     / 1e3)})
+            if not runs:
+                row["implicit_syncs_in_plan_and_apply"] = syncs
+            if turn >= 2:
+                counts.pop(path)   # launch counts: each pair's first turn
+            runs.append(row)
+            emit({"phase": "streamed_partitioned_train_throughput",
+                  "card": card,
+                  **{k: v for k, v in row.items() if k != "losses"}})
+            del tr, st
+    first = {(r_["answer_dtype"], r_["schedule"]): r_ for r_ in runs
+             if r_["turn"] < 2}
+    emit({"phase": "streamed_partitioned_schedules_and_dtypes",
+          "card": card,
+          "ms_per_step": {f"{ad}_{sc}": [r_["ms_per_step"] for r_ in runs
+                                         if (r_["answer_dtype"],
+                                             r_["schedule"]) == (ad, sc)]
+                          for ad, sc in first},
+          "answer_bytes_per_step": {ad: first[(ad, "pipelined")][
+              "answer_bytes_per_step"] for ad in ("float32", "bfloat16")},
+          # the same steps from the same weights: the schedules bit for bit,
+          # bf16 answers against fp32
+          "repeat_equal": {f"{ad}_{sc}": bool(np.array_equal(*[
+              r_["losses"] for r_ in runs
+              if (r_["answer_dtype"], r_["schedule"]) == (ad, sc)]))
+              for ad, sc in first},
+          "schedules_equal": {ad: bool(np.array_equal(
+              first[(ad, "pipelined")]["losses"],
+              first[(ad, "sequential")]["losses"]))
+              for ad in ("float32", "bfloat16")},
+          "bf16_vs_fp32_loss_max_rel_diff": float(np.max(
+              np.abs(first[("bfloat16", "pipelined")]["losses"]
+                     - first[("float32", "pipelined")]["losses"])
+              / np.abs(first[("float32", "pipelined")]["losses"])))})
+    for ad in ("float32", "bfloat16"):
+        check(np.array_equal(first[(ad, "pipelined")]["losses"],
+                             first[(ad, "sequential")]["losses"]),
+              f"{ad} answers: the pipelined and the sequential schedules' "
+              "losses differ")
+
+    # -- (c) the typed trainer on phase 10's typed graph, every node type's
+    # features on the host: one step against the device-resident typed
+    # trainer from the same weights, then timed steps
+    tgraph, tpaths, make_encoder, anchors_t = (
+        typed_ctx["graph"], typed_ctx["paths"], typed_ctx["make_encoder"],
+        typed_ctx["anchors"])
+    writes = EdgeType.from_str(WRITES)
+    sup = dict(supervision_edge_type=writes,
+               supervision_edges=tgraph.edges[writes],
+               supervision_anchor="dst", device=dev)
+    hdg = HeteroDeviceGraph.from_hetero(tgraph, tpaths, **sup)
+    hdg_host = HeteroDeviceGraph.from_hetero(tgraph, tpaths,
+                                             features_on_device=False, **sup)
+    dpg = PartitionedHeteroGraph.build(hdg, tpaths, mesh,
+                                       anchor_node_type="paper")
+    hpg = PartitionedHeteroGraph.build(hdg_host, tpaths, mesh,
+                                       anchor_node_type="paper",
+                                       features_on_device=False)
+    t_stores = {nt: ShardedHostStore.from_array(f, num_shards=shards)
+                for nt, f in hdg_host.node_features.items()}
+    tcfg = dict(anchor_node_type="paper", candidate_node_type="author",
+                num_positives=1, num_hard_negs=0, num_random_negs=R,
+                loss_type="retrieval", temperature=0.07)
+    typed_paths = {"streamed_partitioned_typed_hgt_live": ("hgt", {}),
+                   "streamed_partitioned_typed_hgt_tabularized": (
+                       "hgt", {"tabularized": True}),
+                   "streamed_partitioned_typed_rgcn_ring": (
+                       "rgcn", {"global_candidate_pool": True})}
+    for path, (conv, extra) in typed_paths.items():
+        dpg_x, hpg_x = dpg, hpg
+        if extra.get("tabularized"):
+            dpg_x = dpg.with_sample_tables(hdg, tpaths, mesh, seed=0)
+            hpg_x = hpg.with_sample_tables(hdg_host, tpaths, mesh, seed=0)
+        tc = HeteroNALPTrainerConfig(**tcfg, **extra)
+        dt = PartitionedHeteroNALPTrainer(
+            HeteroLinkPredictionGNN(make_encoder(conv),
+                                    LinkPredictionDecoder()),
+            dpg_x, tpaths, tc, mesh, optimizer_args=opt,
+            capacity_factor=PART_CAPACITY, overflow_policy="raise")
+        ds = dt.init_state(0)
+        params = {k: v.clone() for k, v in dt.model.state_dict().items()}
+        tr = StreamingPartitionedHeteroNALPTrainer(
+            HeteroLinkPredictionGNN(make_encoder(conv),
+                                    LinkPredictionDecoder()),
+            hpg_x, tpaths, tc, mesh, batch_size=BATCH, host_stores=t_stores,
+            optimizer_args=opt, capacity_factor=PART_CAPACITY,
+            overflow_policy="raise")
+        st = tr.init_state(params=params)
+        _, l_dev = dt.train_step(ds, anchors_t[0])
+        st, l_st = tr.train_step(st, anchors_t[0])
+        err = abs(float(l_st) - float(l_dev)) / abs(float(l_dev))
+        check(err <= 1e-5, f"{path}: the streamed step's loss {float(l_st)}"
+              f" differs from the device-resident one's {float(l_dev)}")
+        del dt, ds
+        kernels = ("route_requests", "unroute_rows") + (
+            ("gather_rows",) if extra.get("tabularized")
+            else ("sample_uniform",)) + (
+            ("fanout_attention", "fanout_attention_bwd") if conv == "hgt"
+            else ("masked_reduce", "masked_reduce_bwd")) + (
+            ("ring_retrieval",) if extra.get("global_candidate_pool")
+            else ("retrieval_loss",))
+        st, row = timed(path, tr, st, anchors_t[1:], SP_TYPED_WARMUP,
+                        SP_TYPED_STEPS, kernels, profiled=SP_TYPED_PROFILED)
+        emit({"phase": "streamed_partitioned_typed_train_throughput",
+              "model": conv, "card": card, "loss_rel_err_vs_device_resident":
+                  err, **{k: v for k, v in row.items() if k != "losses"}})
+        del tr, st
+    del hdg, hdg_host, dpg, hpg, t_stores
+
+    # -- (d) node classification: the labels routed inside the plan; one
+    # step against the device-resident NC trainer, then timed steps
+    nc_cfg = NodeClassificationTrainerConfig(fanouts=FANOUTS, cached_hop=True)
+    dnc = PartitionedNodeClassificationTrainer(
+        GNNEncoder(D, HID, C, num_layers=2, conv="graphsage"),
+        PartitionedGraph.build(dg, mesh), mesh, nc_cfg, optimizer_args=opt,
+        capacity_factor=PART_CAPACITY, overflow_policy="raise")
+    ds = dnc.init_state(0)
+    params = {k: v.clone() for k, v in dnc.model.state_dict().items()}
+    tr = StreamingPartitionedNodeClassificationTrainer(
+        GNNEncoder(D, HID, C, num_layers=2, conv="graphsage"), store, mesh,
+        nc_cfg, batch_size=BATCH, optimizer_args=opt,
+        capacity_factor=PART_CAPACITY, overflow_policy="raise",
+        host_store=host)
+    st = tr.init_state(params=params)
+    _, l_dev = dnc.train_step(ds, anchors[0])
+    st, l_st = tr.train_step(st, anchors[0])
+    err = abs(float(l_st) - float(l_dev)) / abs(float(l_dev))
+    check(err <= 1e-5, f"streamed NC loss {float(l_st)} differs from the "
+          f"device-resident one's {float(l_dev)}")
+    del dnc, ds
+    path = "streamed_partitioned_nc"
+    st, row = timed(path, tr, st, anchors[1:], SP_TYPED_WARMUP,
+                    SP_TYPED_STEPS, ("route_requests", "unroute_rows",
+                                     "gather_rows", "masked_reduce",
+                                     "masked_reduce_bwd"),
+                    profiled=SP_TYPED_PROFILED)
+    acc = tr.evaluate([anchors[-1]])
+    check(0.0 <= acc <= 1.0, f"{path}: accuracy {acc}")
+    emit({"phase": "streamed_partitioned_nc_train_throughput", "card": card,
+          "loss_rel_err_vs_device_resident": err, "accuracy": acc,
+          "seeds_per_s": BATCH / (row["ms_per_step"] / 1e3),
+          **{k: v for k, v in row.items() if k != "losses"}})
+    del tr, st, host, store, mesh
+    return counts
+
+
 def main():
     if not (REPO / "gigl_tpu_torch" / "csrc").is_dir():
         sys.exit("chip_smoke: run from a checkout of the repository "
@@ -7672,6 +8096,10 @@ def main():
     stream = streaming_phases(
         dev, card, (src, dst, np.asarray(graph.node_features[
             graph.metadata.node_types[0]])), dg)
+    stream_part = streamed_partitioned_phases(
+        dev, card, (src, dst, np.asarray(graph.node_features[
+            graph.metadata.node_types[0]]), np.asarray(graph.node_labels[
+                graph.metadata.node_types[0]])), dg, typed_ctx, add_mode)
 
     # launches on every kernel row: the training path's (K6 / K7: the
     # full-graph passes'; K6b / K7b: the node-classification paths'; K8-K10:
@@ -7742,6 +8170,8 @@ def main():
             p_: c_[k] / n_ for p_, (c_, n_) in label_edge.items()}
         row["launches_per_streaming_step"] = {
             p_: c_[k] / n_ for p_, (c_, n_) in stream.items()}
+        row["launches_per_streamed_partitioned_step"] = {
+            p_: c_[k] / n_ for p_, (c_, n_) in stream_part.items()}
     for kname, mode in (("unroute_rows", "int8_decode"),
                         ("gather_rows_q8", "packed_rows"),
                         ("gather_rows", "bytes_21")):

@@ -1,5 +1,6 @@
 """ctypes binding of the port's host engine (``src/gigl_native.cpp``): the
-threaded feature gather, the host fanout sampler and the fused tree-level
+threaded feature gather (fp32 rows, or their bf16 bits written in the same
+pass), the host fanout sampler and the fused tree-level
 expansion with its gather (a copy of the needed part of
 ``gigl_tpu/native/__init__.py``).
 
@@ -65,7 +66,8 @@ def load(path) -> ctypes.CDLL:
     i64, i32, u32, vp = (ctypes.c_int64, ctypes.c_int32, ctypes.c_uint32,
                          ctypes.c_void_p)
     for name, args in (
-            ("gigl_gather_f32", [vp, i64, i64, vp, i64, vp, ctypes.c_int]),
+            ("gigl_gather_f32", [vp, i64, i64, vp, i64, vp, ctypes.c_int,
+                                 ctypes.c_int]),
             ("gigl_sample_fanout", [vp, vp, i64, i64, vp, i64, i32, u32,
                                     u32, vp, vp, vp, ctypes.c_int]),
             ("gigl_expand_gather", [vp, vp, i64, vp, vp, i64, i64, vp, i64,
@@ -108,15 +110,21 @@ def _out(out: Optional[np.ndarray], shape, dtype) -> np.ndarray:
     return out
 
 
-def gather_f32(table: np.ndarray, idx: np.ndarray) -> np.ndarray:
+def gather_f32(table: np.ndarray, idx: np.ndarray,
+               out: Optional[np.ndarray] = None,
+               bf16: bool = False) -> np.ndarray:
     """``table[idx]`` for an [N, D] float32 table (RAM or np.memmap) ->
-    idx.shape + (D,); raises IndexError for an index out of range."""
+    idx.shape + (D,); raises IndexError for an index out of range.
+    ``out``: a C-contiguous buffer of that shape to write instead (e.g. a
+    numpy view of a pinned host tensor). ``bf16``: the rows written as
+    bfloat16 bits (``uint16``, round to nearest even: ``utils/cast.py``
+    ``to_bfloat16``'s bits) in the gather's own pass."""
     table = _rows_f32(table)
     idx = np.ascontiguousarray(idx, np.int64)
     n, d = table.shape
-    res = np.empty(idx.shape + (d,), np.float32)
+    res = _out(out, idx.shape + (d,), np.uint16 if bf16 else np.float32)
     rc = library().gigl_gather_f32(_ptr(table), n, d, _ptr(idx), idx.size,
-                                   _ptr(res), THREADS)
+                                   _ptr(res), int(bf16), THREADS)
     if rc != 0:
         raise IndexError(f"gather index out of range at flat position "
                          f"{-rc - 1}")

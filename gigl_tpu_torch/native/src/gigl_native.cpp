@@ -77,11 +77,13 @@ static inline uint32_t counter_rng(uint32_t node, uint32_t seed, uint32_t hop,
   return mix32(base ^ mix32(slot + 0x27220A95u));
 }
 
-// out[i] = table[idx[i]] for [N, D] float32 rows. Returns 0, or -(i + 1)
-// for an index out of range (its output row is left unwritten).
+// out[i] = table[idx[i]] for [N, D] float32 rows; out_bf16: the rows are
+// written as bfloat16 bits (uint16, to_bf16) in the same pass, the cast of
+// a bf16 answer slot. Returns 0, or -(i + 1) for an index out of range (its
+// output row is left unwritten).
 int64_t gigl_gather_f32(const float* table, int64_t N, int64_t D,
-                        const int64_t* idx, int64_t M, float* out,
-                        int num_threads) {
+                        const int64_t* idx, int64_t M, void* out,
+                        int out_bf16, int num_threads) {
   std::atomic<int64_t> bad{0};
   parallel_for(M, num_threads, [&](int64_t lo, int64_t hi) {
     for (int64_t i = lo; i < hi; ++i) {
@@ -90,7 +92,13 @@ int64_t gigl_gather_f32(const float* table, int64_t N, int64_t D,
         bad.store(i + 1);
         continue;
       }
-      std::memcpy(out + i * D, table + r * D, sizeof(float) * D);
+      const float* row = table + r * D;
+      if (out_bf16) {
+        uint16_t* dst = static_cast<uint16_t*>(out) + i * D;
+        for (int64_t c = 0; c < D; ++c) dst[c] = to_bf16(row[c]);
+      } else {
+        std::memcpy(static_cast<float*>(out) + i * D, row, sizeof(float) * D);
+      }
     }
   });
   return bad.load() ? -bad.load() : 0;

@@ -20,6 +20,10 @@ global ids is one all_to_all round trip:
      answers each drawn edge's feature row (K3 over the draw's CSR slots)
      and sends the [P, C, fanout, De] rows back the same way.
 
+Steps 1–2 are :func:`send_requests` and step 4 :func:`receive_answers`, so
+that a caller can answer step 3 off the card (the streamed-partitioned
+tier's host gather).
+
 Shapes are static: each shard sends at most ``capacity`` requests to each
 peer; requests beyond it are dropped (``ok`` False, rows zero-filled), the
 analog of an RPC timeout that the trainers count as overflow.
@@ -225,23 +229,44 @@ def _capacity(g: int, num_shards: int, capacity: Optional[int],
     return min(capacity, g) if g > 0 else capacity
 
 
+def send_requests(mesh: Mesh, global_ids: Sequence[torch.Tensor],
+                  rows: int, capacity: int):
+    """The front half of a routed lookup: every shard's [G] requests
+    bucketed by owner (K15, one call for the [P, G] stack of them, ``capacity``
+    slots a bucket as given) and exchanged by the request all_to_all.
+    Returns (recv [P, C] per shard — the ids each shard owns and was asked
+    for, zero in unused slots —, and each shard's (owner, pos, ok))."""
+    req, owner, pos, ok = route_requests(
+        torch.stack([ids.to(torch.int32) for ids in global_ids]), rows,
+        mesh.num_shards, capacity)
+    recv = mesh.all_to_all(list(req))
+    return recv, list(zip(owner, pos, ok))
+
+
+def receive_answers(mesh: Mesh, answers: Sequence[torch.Tensor], coords,
+                    decode: Optional[Tuple[int, int]] = None) -> list:
+    """The back half of a routed lookup: each owner's answers [P, C, ...]
+    to its ``recv`` sent back by the answer all_to_all, and every shard's
+    answer rows put in request order by K16 (zero where a request
+    overflowed; K16's int8 mode decodes bit-packed rows with ``decode=(D,
+    Dc)``). ``coords``: :func:`send_requests`' per-shard (owner, pos, ok)."""
+    back = mesh.all_to_all(answers)
+    if decode is not None:
+        return [unroute_rows_q8(b, *c, *decode) for b, c in zip(back, coords)]
+    return [unroute_rows(b, *c) for b, c in zip(back, coords)]
+
+
 def _route_all(mesh: Mesh, global_ids: Sequence[torch.Tensor], rows: int,
                capacity: Optional[int], factor: float):
-    """Every shard's requests bucketed (K15, one call for the [P, G]
-    stack of them) and exchanged: (recv [P, C] per shard — the ids each
-    shard owns and was asked for —, and each shard's (owner, pos, ok))."""
-    p = mesh.num_shards
+    """:func:`send_requests` at the capacity of ``factor`` (or the one
+    given), at most G."""
     g = global_ids[0].shape[0]
     if any(ids.shape != (g,) for ids in global_ids):
         raise ValueError("routed lookups: every shard's request vector must "
                          f"be [G] with one G, got "
                          f"{[tuple(ids.shape) for ids in global_ids]}")
-    cap = _capacity(g, p, capacity, factor)
-    req, owner, pos, ok = route_requests(
-        torch.stack([ids.to(torch.int32) for ids in global_ids]), rows, p,
-        cap)
-    recv = mesh.all_to_all(list(req))
-    return recv, list(zip(owner, pos, ok))
+    return send_requests(mesh, global_ids, rows,
+                         _capacity(g, mesh.num_shards, capacity, factor))
 
 
 def answer_gather(shard: int, local_table: torch.Tensor,
@@ -288,11 +313,7 @@ def routed_gather(
     recv, coords = _route_all(mesh, global_ids, rows, capacity,
                               capacity_factor)
     answers = [answer_gather(q, local_tables[q], recv[q]) for q in range(p)]
-    back = mesh.all_to_all(answers)
-    if decode is not None:
-        return ([unroute_rows_q8(back[s], *coords[s], *decode)
-                 for s in range(p)], [c[2] for c in coords])
-    return ([unroute_rows(back[s], *coords[s]) for s in range(p)],
+    return (receive_answers(mesh, answers, coords, decode),
             [c[2] for c in coords])
 
 
@@ -416,6 +437,4 @@ def routed_sample_neighbors(
     if not with_rows:
         return nbrs, masks, oks
     # a masked slot's row is zero on the owner, a dropped request's in K16
-    back_rows = mesh.all_to_all(edge_rows)
-    return nbrs, masks, oks, [unroute_rows(back_rows[s], *coords[s])
-                              for s in range(p)]
+    return nbrs, masks, oks, receive_answers(mesh, edge_rows, coords)

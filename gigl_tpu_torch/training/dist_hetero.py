@@ -36,8 +36,11 @@ The anchor and the candidate node types may differ (bipartite link
 prediction). Typed models encode through the block form: HGT (K7 / K7b),
 RGCN (K4 / K4b), SimpleHGN (K7 with its relation bias).
 
-Not ported (ROADMAP A17): host-resident typed features
-(``build(features_on_device=False)``), the beyond-HBM regime.
+``build(features_on_device=False)`` uploads no feature table (the dims are
+still recorded): the beyond-HBM typed regime, where every node type's rows
+live in host stores and the device holds only the adjacency
+(``training/streaming_partitioned.py``); the device-resident trainer
+refuses such a graph.
 """
 
 from __future__ import annotations
@@ -97,18 +100,20 @@ class PartitionedHeteroGraph:
     """Per-node-type feature shards and per-(edge type, anchor) CSR shards:
     entry p of each list is shard p's, on the mesh's device.
 
-    feats[nt][p]: [rows[nt], D_nt] fp32. csr_ip / csr_ix[key][p]: [rows +
-    1] / [E_pad] int32 blocks of the CSR keyed as ``HeteroDeviceGraph.
-    csrs`` ("{edge_type}|{anchor}"), partitioned by the range of the node
-    type its ops draw from; csr_w[key][p]: [E_pad] fp32 slot-aligned edge
-    weights of a CSR that an op samples weighted / top-k. sup_* / hard_*:
+    feats[nt][p]: [rows[nt], D_nt] fp32 (None when built with
+    ``features_on_device=False``: the rows are on the host). csr_ip /
+    csr_ix[key][p]: [rows + 1] / [E_pad] int32 blocks of the CSR keyed as
+    ``HeteroDeviceGraph.csrs`` ("{edge_type}|{anchor}"), partitioned by the
+    range of the node type its ops draw from; csr_w[key][p]: [E_pad] fp32
+    slot-aligned edge weights of a CSR that an op samples weighted /
+    top-k. sup_* / hard_*:
     the supervision / hard-negative CSR blocks partitioned by the anchor
     node type's range (their ids are of the candidate type), sup_ef /
     hard_ef[p] their label edges' rows [E_pad, De] in slot order (None
     without). sample_tables[table_key][p]: [rows, k] int32 frozen sample
     tables (-1 in invalid slots), row-sharded by the op's frontier type."""
 
-    feats: Dict[str, Shards]
+    feats: Optional[Dict[str, Shards]]
     csr_ip: Dict[str, Shards]
     csr_ix: Dict[str, Shards]
     sup_ip: Optional[Shards]
@@ -124,13 +129,30 @@ class PartitionedHeteroGraph:
     sup_ef: Optional[Shards] = None
     hard_ef: Optional[Shards] = None
 
+    def _some_shards(self) -> Shards:
+        """A CSR's blocks (a node type's features when no op samples)."""
+        return next(iter(self.csr_ip.values() if self.csr_ip
+                         else self.feats.values()))
+
     @property
     def num_shards(self) -> int:
-        return len(next(iter(self.feats.values())))
+        return len(self._some_shards())
 
     @property
     def device(self) -> torch.device:
-        return next(iter(self.feats.values()))[0].device
+        return self._some_shards()[0].device
+
+    def device_feats(self, node_type: str) -> Shards:
+        """``node_type``'s feature shards; raises for a graph built without
+        device features."""
+        if self.feats is None:
+            raise ValueError(
+                "this PartitionedHeteroGraph was built with "
+                "features_on_device=False: its feature rows are on the host, "
+                "so a device-resident trainer cannot gather them; train it "
+                "with StreamingPartitionedHeteroNALPTrainer "
+                "(training/streaming_partitioned.py)")
+        return self.feats[str(node_type)]
 
     @classmethod
     def build(cls, hdg: HeteroDeviceGraph,
@@ -141,18 +163,17 @@ class PartitionedHeteroGraph:
         device: every node type's features, every CSR an op of ``paths``
         uses (by its frontier type's range, with its edge weights when it
         has them), and the label CSRs with their edges' rows (by the
-        anchor type's range)."""
-        if not features_on_device:
-            raise NotImplementedError(
-                "PartitionedHeteroGraph.build(features_on_device=False): "
-                "host-resident typed features are the beyond-HBM regime, "
-                "not ported yet (ROADMAP A17)")
+        anchor type's range). ``features_on_device=False``: no feature
+        upload (``feats`` None, ``feat_dims`` still recorded)."""
         p, dev = mesh.num_shards, mesh.device
         rows = {nt: -(-int(n) // p) for nt, n in hdg.num_nodes.items()}
-        feats, dims = {}, {}
+        feats, dims = ({} if features_on_device else None), {}
         for nt, f in hdg.node_features.items():
-            f = f.detach().cpu().numpy().astype(np.float32)
-            dims[nt] = f.shape[1]
+            dims[nt] = int(f.shape[1])
+            if not features_on_device:
+                continue
+            f = (f.detach().cpu().numpy() if isinstance(f, torch.Tensor)
+                 else np.asarray(f)).astype(np.float32)
             pad = np.zeros((p * rows[nt], f.shape[1]), np.float32)
             pad[: f.shape[0]] = f
             feats[nt] = _per_shard(pad.reshape(p, rows[nt], -1), dev)
@@ -380,21 +401,23 @@ class PartitionedHeteroNALPTrainer:
                             edge_slots=[None] * (len(spec) + 1))
                 for s in range(p)], ovf
 
-    def _encode_groups(self, groups: Sequence[Sequence[Group]], train: bool,
-                       generators: Optional[Sequence] = None):
+    def _draw_trees(self, groups: Sequence[Sequence[Group]]):
         """groups[shard]: [(node ids, node type, seed offset)], the same
-        types and shapes on every shard. Draws every group's trees, then
-        hydrates with ONE routed gather per node type over the union of
-        that type's tree levels, and encodes: (embeddings per shard per
-        group, dropped requests)."""
-        p = self.num_shards
-        gens = list(generators) if generators is not None else [None] * p
+        types and shapes on every shard. Every group's trees (one
+        TypedBlocks per shard) and the dropped requests."""
         trees, ovf = [], self._zero()
         for g, (_, nt, off) in enumerate(groups[0]):
-            t, o = self._sample_tree([groups[s][g][0] for s in range(p)],
-                                     str(nt), self.cfg.seed + off)
+            t, o = self._sample_tree(
+                [groups[s][g][0] for s in range(self.num_shards)], str(nt),
+                self.cfg.seed + off)
             trees.append(t)
             ovf = ovf + o
+        return trees, ovf
+
+    @staticmethod
+    def _levels_by_type(trees) -> List[Tuple[str, List[Tuple[int, int]]]]:
+        """(node type, its (group, level) entries) in node-type order: the
+        order of the hydration gathers and of the union of each."""
         by_type: Dict[str, List[Tuple[int, int]]] = {}
         for g, per_shard in enumerate(trees):
             blocks = per_shard[0]
@@ -402,20 +425,30 @@ class PartitionedHeteroNALPTrainer:
                                                for op in blocks.spec]
             for lvl, nt in enumerate(types):
                 by_type.setdefault(str(nt), []).append((g, lvl))
+        return sorted(by_type.items())
+
+    @staticmethod
+    def _type_union(trees, levels, shard: int) -> torch.Tensor:
+        return torch.cat([trees[g][shard].node_ids[lvl].reshape(-1)
+                          for g, lvl in levels])
+
+    def _encode_trees(self, trees, groups, rows_by_type, train: bool,
+                      generators=None) -> List[List[torch.Tensor]]:
+        """Encode every shard's groups from each node type's hydrated rows
+        (``rows_by_type[nt][shard]``: [G_nt, D_nt] in :meth:`_type_union`'s
+        order): embeddings per shard per group."""
+        p = self.num_shards
+        gens = list(generators) if generators is not None else [None] * p
         gathered: Dict[Tuple[int, int], List[torch.Tensor]] = {}
-        for nt, levels in sorted(by_type.items()):
-            flat = [torch.cat([trees[g][s].node_ids[lvl].reshape(-1)
-                               for g, lvl in levels]) for s in range(p)]
-            rows, ok = routed_gather(self.mesh, self.pg.feats[nt], flat,
-                                     capacity_factor=self.capacity_factor)
-            ovf = ovf + self._dropped(ok)
+        for nt, levels in self._levels_by_type(trees):
             d = self.pg.feat_dims[nt]
             off = 0
             for g, lvl in levels:
                 shape = tuple(trees[g][0].node_ids[lvl].shape)
                 n = int(np.prod(shape))
-                gathered[(g, lvl)] = [rows[s][off:off + n].reshape(
-                    shape + (d,)) for s in range(p)]
+                gathered[(g, lvl)] = [rows_by_type[nt][s][off:off + n]
+                                      .reshape(shape + (d,))
+                                      for s in range(p)]
                 off += n
         outs: List[List[torch.Tensor]] = [[] for _ in range(p)]
         for g, per_shard in enumerate(trees):
@@ -427,7 +460,25 @@ class PartitionedHeteroNALPTrainer:
                                  generator=gens[s])
                 outs[s].append(emb.reshape(tuple(groups[s][g][0].shape)
                                            + (emb.shape[-1],)))
-        return outs, ovf
+        return outs
+
+    def _encode_groups(self, groups: Sequence[Sequence[Group]], train: bool,
+                       generators: Optional[Sequence] = None):
+        """Draws every group's trees, then hydrates with ONE routed gather
+        per node type over the union of that type's tree levels, and
+        encodes: (embeddings per shard per group, dropped requests)."""
+        trees, ovf = self._draw_trees(groups)
+        rows_by_type = {}
+        for nt, levels in self._levels_by_type(trees):
+            rows, ok = routed_gather(
+                self.mesh, self.pg.device_feats(nt),
+                [self._type_union(trees, levels, s)
+                 for s in range(self.num_shards)],
+                capacity_factor=self.capacity_factor)
+            ovf = ovf + self._dropped(ok)
+            rows_by_type[nt] = rows
+        return self._encode_trees(trees, groups, rows_by_type, train,
+                                  generators), ovf
 
     # -- batches and losses ----------------------------------------------------
     def _make_batches(self, anchors: Sequence[torch.Tensor], step: int):
@@ -488,14 +539,19 @@ class PartitionedHeteroNALPTrainer:
         """(train-mode global mean loss of ``step`` for the global [B]
         ``anchors``, differentiable in the model's weights; the routed
         requests dropped, a device scalar)."""
-        cfg = self.cfg
         batches, ovf = self._make_batches(self._split(self._ids(anchors)),
                                           step)
         embs, ovf2 = self._encode_groups(
-            self._groups(batches, cfg.num_hard_negs > 0), True, generators)
-        ovf = ovf + ovf2
+            self._groups(batches, self.cfg.num_hard_negs > 0), True,
+            generators)
+        return self._loss_from_embeddings(batches, embs), ovf + ovf2
+
+    def _loss_from_embeddings(self, batches: Sequence[NALPBatch], embs):
+        """The global mean loss of every shard's batch from its groups'
+        embeddings: the ring or the per-shard pool."""
+        cfg = self.cfg
         if cfg.global_candidate_pool:
-            return self._ring_loss(batches, embs), ovf
+            return self._ring_loss(batches, embs)
         rand = self.mesh.all_gather([e[2] for e in embs])
         losses = []
         for s, b in enumerate(batches):
@@ -504,7 +560,7 @@ class PartitionedHeteroNALPTrainer:
             loss, _ = nalp_loss_from_embeddings(self.model, cfg, b, q, pos,
                                                 hard, rand[s])
             losses.append(loss)
-        return self.mesh.pmean(losses)[0], ovf
+        return self.mesh.pmean(losses)[0]
 
     def _ring_loss(self, batches: Sequence[NALPBatch], embs):
         """The typed global-candidate-pool retrieval loss (as
@@ -597,11 +653,16 @@ class PartitionedHeteroNALPTrainer:
         sum, hits sums, count, dropped requests), summed over shards."""
         batches, ovf = self._make_batches(self._split(anchors), step)
         embs, ovf2 = self._encode_groups(self._groups(batches, False), False)
+        return (*self._eval_from_embeddings(batches, embs), ovf + ovf2)
+
+    def _eval_from_embeddings(self, batches: Sequence[NALPBatch], embs):
+        """(rr sum, hits sums, count) of every shard's batch from its
+        groups' embeddings, summed over shards."""
         rand = self.mesh.all_gather([e[2] for e in embs])
         scorer = getattr(self.model, "edge_scorer", None) is not None
         rr_t, hits_t, cnt_t = [], [], []
         for s, b in enumerate(batches):
-            q, pos, _ = embs[s]
+            q, pos = embs[s][:2]
             n_pos = pos.shape[1]
             ef = b.pos_edge_feats if scorer else None
             pos_flat = self.model.decode(q[:, None, :], pos, ef).reshape(-1)
@@ -619,7 +680,7 @@ class PartitionedHeteroNALPTrainer:
                                        for k in self.cfg.eval_ks]))
             cnt_t.append(cnt)
         psum = self.mesh.psum
-        return psum(rr_t)[0], psum(hits_t)[0], psum(cnt_t)[0], ovf + ovf2
+        return psum(rr_t)[0], psum(hits_t)[0], psum(cnt_t)[0]
 
     def evaluate(self, anchor_batches, step: int = 0) -> Dict[str, float]:
         """MRR and hits@k over ``anchor_batches`` (batch i keyed by step +

@@ -678,30 +678,36 @@ class PartitionedNALPTrainer:
                          generator=generator)
         return emb.reshape(tuple(roots_shape) + (emb.shape[-1],))
 
-    def _encode_groups(self, groups: Groups, train: bool,
-                       generators: Optional[Sequence] = None):
-        """Sample every shard's trees for its (roots, seed offset) groups,
-        hydrate the UNION of each shard's tree ids with one routed gather,
-        and encode: (embeddings per shard per group, dropped requests)."""
+    def _draw_trees(self, groups: Groups):
+        """Every shard's trees for its (roots, seed offset) groups: (one
+        (ids, masks) per group with ids[shard][level], dropped requests)."""
+        if self._cached and self.num_shards > 1:
+            return self._sample_trees_joint(groups)
+        trees, ovf = [], self._zero()
+        for g in range(len(groups[0])):
+            ids, masks, o = self._sample_tree(
+                [groups[s][g][0] for s in range(self.num_shards)],
+                groups[0][g][1])
+            trees.append((ids, masks))
+            ovf = ovf + o
+        return trees, ovf
+
+    @staticmethod
+    def _union_ids(trees, shard: int) -> torch.Tensor:
+        """A shard's tree ids, per group all its levels in turn: the order
+        of the one hydration gather."""
+        return torch.cat([lvl.reshape(-1) for ids, _ in trees
+                          for lvl in ids[shard]])
+
+    def _encode_trees(self, trees, groups: Groups, vals, train: bool,
+                      generators=None) -> List[List[torch.Tensor]]:
+        """Encode every shard's groups from the hydrated rows of its union
+        (``vals[shard]``: features, degrees, cache or None, in the order
+        of :meth:`_union_ids`): embeddings per shard per group."""
         p = self.num_shards
         gens = list(generators) if generators is not None else [None] * p
-        n_groups = len(groups[0])
         outs: List[List[torch.Tensor]] = [[] for _ in range(p)]
-        if self._cached and p > 1:
-            trees, ovf = self._sample_trees_joint(groups)
-        else:
-            trees, ovf = [], self._zero()
-            for g in range(n_groups):
-                ids, masks, o = self._sample_tree(
-                    [groups[s][g][0] for s in range(p)], groups[0][g][1])
-                trees.append((ids, masks))
-                ovf = ovf + o
-        union = [torch.cat([lvl.reshape(-1) for ids, _ in trees
-                            for lvl in ids[s]]) for s in range(p)]
-        vals, ok = self.pg.gather_split(self.mesh, union,
-                                        self.capacity_factor)
         for s in range(p):
-            ovf = ovf + (~ok[s]).sum(dtype=torch.int32)
             offset = 0
             for g, (ids, masks) in enumerate(trees):
                 n = sum(lvl.numel() for lvl in ids[s])
@@ -710,7 +716,20 @@ class PartitionedNALPTrainer:
                     tuple(None if v is None else v[sl] for v in vals[s]),
                     ids[s], masks[s], groups[s][g][0].shape, train, gens[s]))
                 offset += n
-        return outs, ovf
+        return outs
+
+    def _encode_groups(self, groups: Groups, train: bool,
+                       generators: Optional[Sequence] = None):
+        """Sample every shard's trees for its (roots, seed offset) groups,
+        hydrate the UNION of each shard's tree ids with one routed gather,
+        and encode: (embeddings per shard per group, dropped requests)."""
+        trees, ovf = self._draw_trees(groups)
+        vals, ok = self.pg.gather_split(
+            self.mesh,
+            [self._union_ids(trees, s) for s in range(self.num_shards)],
+            self.capacity_factor)
+        ovf = ovf + sum((~o).sum(dtype=torch.int32) for o in ok)
+        return self._encode_trees(trees, groups, vals, train, generators), ovf
 
     # -- batches and losses ----------------------------------------------------
     def _make_batches(self, anchors: Sequence[torch.Tensor], step: int):
@@ -772,6 +791,18 @@ class PartitionedNALPTrainer:
         return self._plus(cms, self.mesh.psum([d.table for d in deltas])[0],
                           self.mesh.psum([d.total for d in deltas])[0])
 
+    def _groups(self, batches: Sequence[NALPBatch], hard: bool) -> Groups:
+        """Every shard's encode groups: anchors, positives, its slice of the
+        random negatives and, with ``hard``, the hard negatives."""
+        groups = []
+        for s, b in enumerate(batches):
+            g = [(b.anchors, 0), (b.pos, 1),
+                 (self._rand_local(b.random_neg, s), 2)]
+            if hard:
+                g.append((b.hard_neg, 3))
+            groups.append(g)
+        return groups
+
     def loss_and_sketch(self, anchors, step: int,
                         cms: Optional[CountMinSketch] = None,
                         generators=None):
@@ -779,21 +810,22 @@ class PartitionedNALPTrainer:
         ``anchors``, differentiable in the model's weights; the sketch with
         the step's candidates added, or None; the routed requests dropped,
         a device scalar)."""
-        cfg = self.cfg
         batches, ovf = self._make_batches(self._split(self._ids(anchors)),
                                           step)
-        groups = []
-        for s, b in enumerate(batches):
-            g = [(b.anchors, 0), (b.pos, 1),
-                 (self._rand_local(b.random_neg, s), 2)]
-            if cfg.num_hard_negs > 0:
-                g.append((b.hard_neg, 3))
-            groups.append(g)
-        embs, ovf2 = self._encode_groups(groups, True, generators)
-        ovf = ovf + ovf2
+        embs, ovf2 = self._encode_groups(
+            self._groups(batches, self.cfg.num_hard_negs > 0), True,
+            generators)
+        loss, cms = self._loss_from_embeddings(batches, embs, cms)
+        return loss, cms, ovf + ovf2
+
+    def _loss_from_embeddings(self, batches: Sequence[NALPBatch], embs,
+                              cms: Optional[CountMinSketch]):
+        """(the global mean loss of every shard's batch from its groups'
+        embeddings: the ring or the per-shard pool; the sketch with the
+        step's candidates added, or None)."""
+        cfg = self.cfg
         if cfg.global_candidate_pool:
-            loss, cms = self._ring_loss(batches, embs, cms)
-            return loss, cms, ovf
+            return self._ring_loss(batches, embs, cms)
         rand = self.mesh.all_gather([e[2] for e in embs])
         if cms is not None and cfg.loss_type == "retrieval":
             # own candidates (positives, hard negatives) psum-reduced; the
@@ -813,7 +845,7 @@ class PartitionedNALPTrainer:
                 self.model, cfg, b, q, pos, hard, rand[s], cms,
                 counted=True)
             losses.append(loss)
-        return self.mesh.pmean(losses)[0], cms, ovf
+        return self.mesh.pmean(losses)[0], cms
 
     def _ring_loss(self, batches: Sequence[NALPBatch], embs,
                    cms: Optional[CountMinSketch]):
@@ -913,16 +945,17 @@ class PartitionedNALPTrainer:
     def _eval_step(self, anchors: torch.Tensor, step: int):
         """Positives ranked against the shared random negatives: (rr sum,
         hits sums, count, dropped requests), summed over shards."""
-        parts = self._split(anchors)
-        batches, ovf = self._make_batches(parts, step)
-        groups = [[(b.anchors, 0), (b.pos, 1),
-                   (self._rand_local(b.random_neg, s), 2)]
-                  for s, b in enumerate(batches)]
-        embs, ovf2 = self._encode_groups(groups, False)
+        batches, ovf = self._make_batches(self._split(anchors), step)
+        embs, ovf2 = self._encode_groups(self._groups(batches, False), False)
+        return (*self._eval_from_embeddings(batches, embs), ovf + ovf2)
+
+    def _eval_from_embeddings(self, batches: Sequence[NALPBatch], embs):
+        """(rr sum, hits sums, count) of every shard's batch from its
+        groups' embeddings, summed over shards."""
         rand = self.mesh.all_gather([e[2] for e in embs])
         rr_t, hits_t, cnt_t = [], [], []
         for s, b in enumerate(batches):
-            q, pos, _ = embs[s]
+            q, pos = embs[s][:2]
             n_pos = pos.shape[1]
             pos_flat = self.model.decode(q[:, None, :], pos).reshape(-1)
             neg_rep = self.model.decode_all_pairs(q, rand[s]) \
@@ -939,7 +972,7 @@ class PartitionedNALPTrainer:
                                        for k in self.cfg.eval_ks]))
             cnt_t.append(cnt)
         psum = self.mesh.psum
-        return psum(rr_t)[0], psum(hits_t)[0], psum(cnt_t)[0], ovf + ovf2
+        return psum(rr_t)[0], psum(hits_t)[0], psum(cnt_t)[0]
 
     def evaluate(self, anchor_batches, step: int = 0) -> Dict[str, float]:
         """MRR and hits@k over ``anchor_batches`` (batch i keyed by step +
@@ -1050,11 +1083,22 @@ class PartitionedNodeClassificationTrainer(PartitionedNALPTrainer):
         each shard's mean cross entropy over its labeled requests,
         differentiable in the model's weights; the requests dropped)."""
         out, ovf = self._logits(nodes, True, generators)
+        return self._loss_from_logits(out), ovf
+
+    def _loss_from_logits(self, out) -> torch.Tensor:
+        """The mean over shards of each shard's mean cross entropy over its
+        labeled requests (``out``: per shard (logits, labels, ok))."""
         losses = []
         for logits, labels, ok in out:
             s, c = cross_entropy_loss(logits, labels, mask=ok)
             losses.append(s / torch.clamp(c.to(torch.float32), min=1.0))
-        return self.mesh.pmean(losses)[0], ovf
+        return self.mesh.pmean(losses)[0]
+
+    def _accuracy_sums(self, out):
+        """(correct, counted) over every shard's labeled requests."""
+        scores = [accuracy(lg, lab, mask=ok) for lg, lab, ok in out]
+        return (self.mesh.psum([c for c, _ in scores])[0],
+                self.mesh.psum([n for _, n in scores])[0])
 
     def _step(self, state: TrainState, nodes: torch.Tensor, generators):
         state.optimizer.zero_grad(set_to_none=True)
@@ -1076,9 +1120,7 @@ class PartitionedNodeClassificationTrainer(PartitionedNALPTrainer):
                 if not len(b):
                     continue
                 out, ovf = self._logits(b, False)
-                scores = [accuracy(lg, lab, mask=ok) for lg, lab, ok in out]
-                parts.append((self.mesh.psum([c for c, _ in scores])[0],
-                              self.mesh.psum([n for _, n in scores])[0], ovf))
+                parts.append((*self._accuracy_sums(out), ovf))
             if parts:
                 correct, total, ovf = (torch.stack(x).sum().cpu()
                                        for x in zip(*parts))

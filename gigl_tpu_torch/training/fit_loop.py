@@ -12,8 +12,10 @@ stopping on val MRR keeps a clone of the best weights, loaded back into
 the model at the end. ``refresh(epoch)``, when given, re-freezes the
 tabularized tables each epoch after the first. ``num_shards`` > 1 (the
 partitioned trainer) needs a batch size that the shards divide and pads
-the val pool by wrapping to a multiple of the shard count. Checkpointing
-is not ported.
+the val pool by wrapping to a multiple of the shard count;
+``fixed_val_batch_size`` (a trainer whose steps take one batch size, the
+streamed-partitioned tier) wrap-pads the train pool to a full batch and
+pins the val batches to that size. Checkpointing is not ported.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ def nalp_fit_loop(
     refresh: Optional[Callable[[int], None]] = None,
     global_cadence: bool = False,
     num_shards: int = 1,
+    fixed_val_batch_size: Optional[int] = None,
 ) -> Tuple[object, Dict[str, float]]:
     """Train ``trainer`` from ``state``; returns (state, final val
     metrics) with the best weights (by val MRR) in the model."""
@@ -66,9 +69,15 @@ def nalp_fit_loop(
             "checkpoint_dir: training/checkpoint.py is not ported yet "
             "(ROADMAP A11)")
     cfg = trainer.cfg
-    it = AnchorBatchIterator(train_anchors, batch_size, seed=cfg.seed)
     val_pool = np.asarray(val_anchors)
-    if num_shards > 1:
+    if fixed_val_batch_size is not None:
+        train_anchors = np.resize(np.asarray(train_anchors),
+                                  max(len(train_anchors), batch_size))
+    it = AnchorBatchIterator(train_anchors, batch_size, seed=cfg.seed)
+    if fixed_val_batch_size is not None:
+        val_bs = int(fixed_val_batch_size)
+        val_pool = np.resize(val_pool, max(len(val_pool), val_bs))
+    elif num_shards > 1:
         val_bs = max(num_shards, min(batch_size, len(val_pool))
                      // num_shards * num_shards)
         val_pool = np.resize(val_pool, max(len(val_pool), val_bs))

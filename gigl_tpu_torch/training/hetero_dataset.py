@@ -22,8 +22,12 @@ reference. The label edges' features (``supervision_edge_features`` /
 draws, gathered through K3 by the drawn slots, with the rows of padded
 draws zeroed (``hetero_dataset.py:301-330``).
 
-Not ported yet: host-resident feature tables (``features_on_device=False``,
-the beyond-HBM regime, ROADMAP A17). The partitioned typed graph is
+``from_hetero(features_on_device=False)`` keeps every node type's table
+on the host as a numpy array (dims intact, nothing uploaded): a graph for
+builders that need only the topology and the dims, such as the typed
+beyond-HBM tier (``PartitionedHeteroGraph.build(features_on_device=False)``
+and per-type ``ShardedHostStore``s, ``training/streaming_partitioned.py``);
+``hydrate`` refuses such a graph. The partitioned typed graph is
 ``training/dist_hetero.py``.
 """
 
@@ -31,7 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -67,7 +71,9 @@ class HeteroDeviceGraph:
     ([N_anchor, fanout] int32, -1 = no neighbor)."""
 
     csrs: Dict[str, DeviceCSR]
-    node_features: Dict[str, torch.Tensor]     # node type -> [N_t, D_t] f32
+    # node type -> [N_t, D_t] f32 on the device, or a host numpy array when
+    # built with features_on_device=False
+    node_features: Dict[str, Union[torch.Tensor, np.ndarray]]
     num_nodes: Dict[str, int]
     supervision_csr: Optional[DeviceCSR] = None
     hard_neg_csr: Optional[DeviceCSR] = None
@@ -78,7 +84,27 @@ class HeteroDeviceGraph:
 
     @property
     def device(self) -> torch.device:
+        if self.csrs:
+            return next(iter(self.csrs.values())).indptr.device
         return next(iter(self.node_features.values())).device
+
+    @property
+    def features_on_device(self) -> bool:
+        return all(isinstance(f, torch.Tensor)
+                   for f in self.node_features.values())
+
+    def device_features(self, node_type: str) -> torch.Tensor:
+        """``node_type``'s feature table on the device; raises for a graph
+        whose features stay on the host."""
+        f = self.node_features[str(node_type)]
+        if not isinstance(f, torch.Tensor):
+            raise ValueError(
+                f"node type {node_type!r}'s features are host-resident "
+                "(HeteroDeviceGraph.from_hetero(features_on_device=False)): "
+                "there is no device table to gather; use the streamed-"
+                "partitioned tier (training/streaming_partitioned.py) or "
+                "build with features_on_device=True")
+        return f
 
     @classmethod
     def from_hetero(
@@ -97,16 +123,13 @@ class HeteroDeviceGraph:
     ) -> "HeteroDeviceGraph":
         """Move the CSRs the ``paths`` sample and every node type's features
         (zeros [N, 1] for a type without features) to ``device`` (CUDA
-        unless given). A CSR that a weighted / top-k op samples carries
-        column 0 of its edge type's features as edge weights (its rows are
-        not sorted). Supervision edges (and hard negatives) are anchored
-        on ``supervision_anchor``'s side of ``supervision_edge_type``; their
-        features (rows aligned to the edges' columns) are reordered into
-        the CSRs' slot order."""
-        if not features_on_device:
-            raise NotImplementedError(
-                "host-resident feature tables are not ported yet (the "
-                "beyond-HBM regime, ROADMAP A17)")
+        unless given); with ``features_on_device=False`` the features stay
+        host numpy arrays, dims intact. A CSR that a weighted / top-k op
+        samples carries column 0 of its edge type's features as edge
+        weights (its rows are not sorted). Supervision edges (and hard
+        negatives) are anchored on ``supervision_anchor``'s side of
+        ``supervision_edge_type``; their features (rows aligned to the
+        edges' columns) are reordered into the CSRs' slot order."""
         if supervision_edge_features is not None and supervision_edges is None:
             raise ValueError("supervision_edge_features needs "
                              "supervision_edges")
@@ -135,8 +158,9 @@ class HeteroDeviceGraph:
         for nt in graph.metadata.node_types:
             f = (graph.node_features[nt] if nt in graph.node_features
                  else np.zeros((graph.num_nodes[nt], 1), np.float32))
-            feats[str(nt)] = torch.as_tensor(np.asarray(f, np.float32)).to(
-                device)
+            f = np.asarray(f, np.float32)
+            feats[str(nt)] = (torch.as_tensor(f).to(device)
+                              if features_on_device else f)
         if supervision_anchor not in ("src", "dst"):
             raise ValueError(f"bad supervision_anchor {supervision_anchor!r}")
 
@@ -224,7 +248,7 @@ class HeteroDeviceGraph:
         entry i + 1 of ``spec[i]``'s neighbor type. Returns (feats, masks)."""
         types = [blocks.root_node_type] + [op.neighbor_node_type
                                            for op in blocks.spec]
-        feats = [gather_rows(self.node_features[nt], ids)[0]
+        feats = [gather_rows(self.device_features(nt), ids)[0]
                  for nt, ids in zip(types, blocks.node_ids)]
         return feats, blocks.masks
 

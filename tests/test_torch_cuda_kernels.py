@@ -4856,3 +4856,70 @@ def test_streaming_ring_on_card_matches_cpu(dev, stream_dtype):
     want = losses[("cpu", 2)]
     for key, got in losses.items():
         np.testing.assert_allclose(got, want, rtol=1e-4, err_msg=str(key))
+
+
+# -- the streamed-partitioned tier (ROADMAP A17) ------------------------------------
+def test_streamed_partitioned_schedules_bit_equal_on_card(dev):
+    """StreamingPartitionedNALPTrainer on the card over 4 shards: ten
+    pipelined steps (run_steps, every plan and apply dispatched under
+    set_sync_debug_mode("error"): the host's only wait is on the plan's
+    recv event) equal ten sequential steps (train_step) bit for bit, and
+    the CPU's within 1e-4 relative (K4 / K5 sums in another order); the
+    two answer slots ring (each reused after its copy's event); no float
+    row gathered on the card."""
+    from gigl_tpu_torch.training.streaming import HostGraphStore
+    from gigl_tpu_torch.training.streaming_partitioned import (
+        StreamingPartitionedNALPTrainer)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(23)
+    n, e = 700, 9000
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    edges = np.stack([src, dst])
+    store = HostGraphStore.build(
+        message_edges=edges, supervision_edges=edges,
+        features=rng.normal(size=(n, 16)).astype(np.float32), num_nodes=n,
+        fanouts=(5, 4))
+    cfg = NALPTrainerConfig(fanouts=(5, 4), num_random_negs=64,
+                            cached_hop=True)
+    anchors = (np.arange(32 * 10).reshape(10, 32) * 7 % n).astype(np.int32)
+    model = LinkPredictionGNN(GNNEncoder(16, 32, 8), LinkPredictionDecoder())
+    init_params(model, 4)
+    params = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def trainer(device):
+        m = LinkPredictionGNN(GNNEncoder(16, 32, 8), LinkPredictionDecoder())
+        tr = StreamingPartitionedNALPTrainer(
+            m, store, Mesh(4, device), cfg, batch_size=32,
+            optimizer_args={"learning_rate": "1e-2"}, capacity_factor=8.0,
+            overflow_policy="raise")
+        return tr, tr.init_state(params=params)
+
+    seq, ss = trainer(dev)
+    got_seq = []
+    for a in anchors:
+        ss, loss = seq.train_step(ss, a)
+        got_seq.append(float(loss))
+    pipe, ps = trainer(dev)
+    pipe.sync_debug_mode = "error"
+    _build.reset_launches()
+    gathered = []
+    orig = fl.gather_rows
+    fl.gather_rows = lambda t, *a, **k: (gathered.append(t.dtype),
+                                         orig(t, *a, **k))[1]
+    try:
+        ps, got_pipe = pipe.run_steps(ps, list(anchors), timing=True)
+    finally:
+        fl.gather_rows = orig
+    np.testing.assert_array_equal(np.asarray(got_seq, np.float32), got_pipe)
+    for k in ("route_requests", "unroute_rows", "gather_rows",
+              "masked_reduce", "masked_reduce_bwd", "retrieval_loss"):
+        assert _build.launches[k] > 0, k
+    assert gathered and all(dt == torch.int32 for dt in gathered)
+    (key, ring), = pipe._rings.items()
+    assert len(ring) == 2 and pipe._turn[key] == 10
+    assert len(pipe.last_run["copy_ms"]) == 10
+    assert all(ms > 0 for ms in pipe.last_run["copy_ms"])
+    cpu, cs = trainer(torch.device("cpu"))
+    _, want = cpu.run_steps(cs, list(anchors))
+    np.testing.assert_allclose(got_pipe, want, rtol=1e-4)

@@ -238,15 +238,83 @@ def test_sample_tables_bit_equal_and_refresh(kind):
                                       np.asarray(rt.pg.sample_tables[key]))
 
 
-def test_features_on_device_false_raises_a17():
-    rdg, dg, _, paths = _graphs("plain")
-    with pytest.raises(NotImplementedError, match="A17"):
-        PartitionedHeteroGraph.build(dg, paths, Mesh(4, "cpu"),
-                                     anchor_node_type="paper",
-                                     features_on_device=False)
-    with pytest.raises(NotImplementedError, match="A17"):
-        HeteroDeviceGraph.from_hetero(_dblp_graphs()[0], paths,
-                                      features_on_device=False, device="cpu")
+@pytest.mark.parametrize("num_shards", [4, 1])
+def test_features_on_device_false_builds_the_topology(num_shards):
+    """Both typed graphs built with host-resident features: the
+    HeteroDeviceGraph keeps each type's table as the host array (dims
+    intact), and the partitioned graph uploads none; their CSRs, label
+    CSRs, sample tables and feat_dims bit-equal to the device-feature
+    build's (and to the reference's host-feature build)."""
+    rdg, dg, ref_paths, paths = _graphs("plain")
+    _, _, edges, hard = _dblp_graphs()
+    port_g = _dblp_graphs()[0]
+    hdg = HeteroDeviceGraph.from_hetero(
+        port_g, paths, supervision_edge_type=EdgeType.from_str(WRITES),
+        supervision_edges=edges[WRITES], hard_neg_edges=hard,
+        supervision_anchor="dst", features_on_device=False, device="cpu")
+    assert not hdg.features_on_device and dg.features_on_device
+    assert hdg.device == dg.device
+    for nt, f in dg.node_features.items():
+        assert isinstance(hdg.node_features[nt], np.ndarray)
+        np.testing.assert_array_equal(hdg.node_features[nt], f.numpy())
+    for key, csr in dg.csrs.items():
+        assert torch.equal(hdg.csrs[key].indptr, csr.indptr)
+        assert torch.equal(hdg.csrs[key].indices, csr.indices)
+    mesh, jm = Mesh(num_shards, "cpu"), jax_make_mesh(num_shards)
+    want = PartitionedHeteroGraph.build(dg, paths, mesh,
+                                        anchor_node_type="paper"
+                                        ).with_sample_tables(dg, paths, mesh)
+    ref = RefPartitionedHeteroGraph.build(rdg, ref_paths, jm,
+                                          anchor_node_type="paper",
+                                          features_on_device=False)
+    for src in (dg, hdg):
+        got = PartitionedHeteroGraph.build(
+            src, paths, mesh, anchor_node_type="paper",
+            features_on_device=False).with_sample_tables(hdg, paths, mesh)
+        assert got.feats is None and ref.feats == {}
+        assert got.feat_dims == want.feat_dims == ref.feat_dims
+        assert got.rows == want.rows and got.num_shards == num_shards
+        assert got.device == want.device
+        for name in ("csr_ip", "csr_ix", "sample_tables"):
+            mine, theirs = getattr(got, name), getattr(want, name)
+            assert sorted(mine) == sorted(theirs), name
+            for key in mine:
+                assert all(torch.equal(a, b) for a, b in zip(
+                    mine[key], theirs[key])), (name, key)
+        for name in ("sup_ip", "sup_ix", "hard_ip", "hard_ix"):
+            assert all(torch.equal(a, b) for a, b in zip(
+                getattr(got, name), getattr(want, name))), name
+            np.testing.assert_array_equal(
+                torch.stack(getattr(got, name)).numpy(),
+                np.asarray(getattr(ref, name)), err_msg=name)
+
+
+def test_host_feature_graphs_refuse_device_reads():
+    """Reading the device features of a graph built without them raises
+    with a clear message, never reads the host arrays."""
+    _, _, _, paths = _graphs("plain")
+    hdg = HeteroDeviceGraph.from_hetero(_dblp_graphs()[0], paths,
+                                        features_on_device=False,
+                                        device="cpu")
+    with pytest.raises(ValueError, match="features_on_device=False"):
+        hdg.device_features("paper")
+    blocks = hdg.sample(torch.arange(4, dtype=torch.int32), "paper",
+                        paths["paper"], seed=1)
+    with pytest.raises(ValueError, match="host-resident"):
+        hdg.hydrate(blocks)
+    mesh = Mesh(4, "cpu")
+    pg = PartitionedHeteroGraph.build(hdg, paths, mesh,
+                                      anchor_node_type="paper",
+                                      features_on_device=False)
+    with pytest.raises(ValueError, match="features_on_device=False"):
+        pg.device_feats("paper")
+    pt = PartitionedHeteroNALPTrainer(
+        HeteroLinkPredictionGNN(HeteroGNNEncoder(
+            16, 8, NODE_TYPES, EDGE_TYPES, DIMS, heads=2),
+            LinkPredictionDecoder()), pg, paths,
+        HeteroNALPTrainerConfig(**DBLP_CFG), mesh)
+    with pytest.raises(ValueError, match="StreamingPartitionedHetero"):
+        pt.encode_batch(np.arange(8))
 
 
 # -- the routed typed trees ----------------------------------------------------------------
