@@ -360,7 +360,43 @@
    more profiled; K16 over shard 0's streamed answers (1,028- and 514-byte
    rows: 4- and 2-byte words) against its twin, timed as a mode on its
    row;
-22. prints the SegmentIndex host builds counted inside every timed window
+22. the encoder and decoder options (ROADMAP A5) at the flagship's width:
+   (a) the cached NALP step (cached_hop, fused_cache) with jk_mode="cat",
+   linear_layer and the hadamard_mlp decoder (hidden 128), (b) the live
+   step with two DCN cross layers, jk_mode="lstm" and the mlp decoder
+   (its all_pairs a [512, 1024, 256] concat): each step 1 (loss and every
+   gradient, the decoder's too) in fp32 against the plain twins on the card
+   (the MLP's last bias, which the retrieval softmax takes out, held as
+   zero by symmetry), then the bf16 path with the launch counts reset just
+   before the trainer is built (K2's tables counted) and read after 3 + 20
+   (a) or 3 + 10 (b) steps, 5 profiled; (c) a batch-norm encoder
+   (batchnorm, jk_mode="cat", fp32): three train-mode passes on the module
+   through the cached encode, each (loss, every gradient, the running
+   statistics it leaves) against the plain twins, the convs' biases held
+   as zero by symmetry (batch norm's mean takes them out); a train step
+   refused, as the reference's raises; then its weights and statistics in
+   a bf16 model through run_inference over all 100k nodes in eval mode,
+   launches reset before and read after, batch 0 against the plain twins
+   (3e-2 of the scale), 5 batches profiled;
+23. LinkClassificationTrainer at the flagship (GraphSAGE bf16, the
+   hadamard head, hidden 64, 2 classes; 100k labelled edges of the graph,
+   numpy-seeded labels): step 1 against the plain twins in fp32 and bf16
+   (the head's gradients too), then 3 + 20 steps of batch 512 with the
+   launch counts reset just before and read just after, 5 profiled,
+   evaluate over 10 batches and predict_batch;
+24. SSLTrainer, each of the seven tasks in turn (GRACE, GBT, whitening,
+   feature reconstruction, BGRL, TBGRL, DirectAU) on the flagship encoder
+   at batch 512: step 1 in fp32 against the plain twins from one view draw
+   (the head's gradients too; GBT's last conv bias and the whitening
+   projector's last bias held as zero by symmetry), BGRL's and TBGRL's
+   target after a step against ema_update of the online encoder (bit-equal),
+   then 3 + 10 bf16 steps with the launch counts reset just before and read
+   just after (DirectAU's batch adds K1b), 5 profiled. Phases 22-24 print
+   host ms/step (ended by a synchronise), edges/s (counted as
+   bench.py:631-638 counts them: both endpoints' trees for the link task,
+   every view's tree for SSL), the profiler's device ms, busy share and top
+   five ops, first and last loss, and peak memory;
+25. prints the SegmentIndex host builds counted inside every timed window
    of a path (SegmentIndex.from_ids wrapped from the build on; each must
    read 0: a segment op on the card given no index builds one on the
    host), K8's gathering launches there by mode (none may be chained:
@@ -382,6 +418,7 @@ It imports neither JAX nor the JAX package.
 """
 
 import contextlib
+import copy
 import dataclasses
 import json
 import re
@@ -576,6 +613,31 @@ SP_KERNELS = ("route_requests", "unroute_rows", "gather_rows",
 # card (the host engine drew and gathered every row)
 STREAM_ABSENT = ("sample_uniform", "uniform_ids", "build_neighbor_cache",
                  "gather_rows", "gather_rows_q8")
+# the encoder and decoder options (phase 22): the cached flagship step
+# with JK cat, the final linear and the hadamard_mlp decoder; the live step
+# with DCN, JK lstm and the mlp decoder; a batch-norm encoder's train-mode
+# passes and inference
+OPT_STEPS, OPT_LIVE_STEPS, OPT_WARMUP, OPT_PROFILED = 20, 10, 3, 5
+OPT_DECODER_HIDDEN, BN_PASSES = 128, 3
+OPT_KERNELS = ("sample_uniform", "uniform_ids", "gather_rows",
+               "masked_reduce", "masked_reduce_bwd", "retrieval_loss")
+# the link task (phase 23): 100k labelled edges of the flagship graph,
+# numpy-seeded labels, the hadamard head
+LINK_EDGES, LINK_CLASSES, LINK_HIDDEN, LINK_SEED = 100_000, 2, 64, 23
+LINK_STEPS, LINK_WARMUP, LINK_EVAL_BATCHES = 20, 3, 10
+LINK_KERNELS = ("sample_uniform", "gather_rows", "masked_reduce",
+                "masked_reduce_bwd")
+# SSL (phase 24): each task on the flagship encoder at batch 512; the
+# views each step encodes (each a fanout tree's edges)
+SSL_STEPS, SSL_WARMUP = 10, 3
+SSL_KERNELS = ("sample_uniform", "gather_rows", "masked_reduce",
+               "masked_reduce_bwd")
+# biases whose gradient the loss's standardisation takes out (GBT: the
+# encoder's last; the whitening: the projector's last)
+SSL_SYMMETRIC = {"gbt": ("convs.1.lin_self.bias",),
+                 "whitening": ("head.proj.fc2.bias",)}
+SSL_VIEWS = {"grace": 2, "gbt": 2, "whitening": 2, "feature_recon": 1,
+             "bgrl": 4, "tbgrl": 5, "directau": 2}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 # ReLU gates the plain step may see on the other side of 0 (fp32 rounding)
@@ -6868,6 +6930,341 @@ def streamed_partitioned_phases(dev, card, arrays, dg, typed_ctx, add_mode):
     return counts
 
 
+def _module_params(module, prefix):
+    """``{prefix.name: parameter}`` of a module beside the encoder, whose
+    gradients step_vs_plain holds too."""
+    return {f"{prefix}.{n_}": p_ for n_, p_ in module.named_parameters()}
+
+
+def _vs_checked(what, vs, fp32):
+    """The tolerances of a step against its plain twin: fp32 1e-5 / 1e-4
+    (sums in another order); bf16 1e-2 / 5e-2 (K4's and K5's sums rounded
+    in another order, a bf16 ulp here and there)."""
+    loss_tol, grad_tol = (1e-5, 1e-4) if fp32 else (1e-2, 5e-2)
+    emit({"phase": f"{what}_vs_plain", "dtype": "float32" if fp32
+          else "bfloat16", **vs})
+    check(vs["loss_rel_err"] <= loss_tol,
+          f"{what}: loss differs from the plain step: {vs}")
+    check(vs["max_grad_err_rel_to_scale"] <= grad_tol,
+          f"{what}: a gradient differs from the plain step: {vs}")
+
+
+def option_phases(dev, card, dg, run_path, opt_args, cfg, anchors):
+    """Phase 22: the encoder and decoder options on the flagship NALP step
+    and in inference (module docstring). Returns {path: (launch counts,
+    steps)}."""
+    from gigl_tpu_torch.inference.inferencer import (
+        InferenceConfig, run_inference)
+    from gigl_tpu_torch.models.encoders import GNNEncoder
+    from gigl_tpu_torch.models.link_prediction import (
+        LinkPredictionDecoder, LinkPredictionGNN)
+    from gigl_tpu_torch.ops import _build
+    from gigl_tpu_torch.training.trainer import NALPTrainer
+
+    k1, k2 = FANOUTS
+    edges_per_step = (2 * k1 + k1 * k2) * (BATCH + BATCH + R)
+    out = {}
+    a0 = torch.as_tensor(anchors[0], device=dev)
+    live = dataclasses.replace(cfg, cached_hop=False, fused_cache=False)
+    variants = {   # path: (encoder options, decoder, config, steps)
+        "options_cached_train": (
+            {"jk_mode": "cat", "linear_layer": True}, "hadamard_mlp", cfg,
+            OPT_STEPS, OPT_KERNELS + ("build_neighbor_cache",)),
+        "options_live_train": (
+            {"feature_interaction_layers": 2, "jk_mode": "lstm"}, "mlp",
+            live, OPT_LIVE_STEPS, OPT_KERNELS)}
+    for path, (opts, dec, cfg_, steps, kernels) in variants.items():
+        def make(dtype):
+            return LinkPredictionGNN(
+                GNNEncoder(D, HID, OUT, dtype=dtype, **opts),
+                LinkPredictionDecoder(dec, hidden_dim=OPT_DECODER_HIDDEN,
+                                      dtype=dtype, in_dim=OUT))
+
+        # step 1 through the kernels and through the plain twins, fp32 (a
+        # separate trainer: these launches are not the path's). The MLP's
+        # last bias adds one constant to a query's scores, which the
+        # retrieval softmax takes out: no gradient, rounding noise only
+        # (in bf16 near 1e-3 of the largest gradient, so the check is made
+        # in fp32; the bf16 kernels' modes are held in phases 3 and 5)
+        chk = NALPTrainer(make(torch.float32), dg, cfg_,
+                          optimizer_args=opt_args, device=dev)
+        chk.init_state(0)
+        batch0 = chk.sample_batch(a0, 0)
+        vs = step_vs_plain(chk.model.encoder, lambda: chk.loss(batch0),
+                           _build.launches, symmetric=("decoder.mlp1.bias",),
+                           extra=_module_params(chk.model.decoder, "decoder"))
+        _vs_checked(path, vs, True)
+        del chk, batch0
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr = NALPTrainer(make(torch.bfloat16), dg, cfg_,
+                         optimizer_args=opt_args, device=dev)
+        state = tr.init_state(0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        counts, n_, row = run_path(path, tr, state, steps, OPT_WARMUP,
+                                   OPT_PROFILED, kernels, nodes=anchors,
+                                   reset=False)
+        out[path] = (counts, n_)
+        emit({"phase": "options_train_throughput", "path": path,
+              "encoder_options": opts, "decoder": dec,
+              "decoder_hidden": OPT_DECODER_HIDDEN,
+              "cached_hop": cfg_.cached_hop, "init_s": init_s,
+              "edges_per_step": edges_per_step,
+              "edges_per_s": edges_per_step / (row["ms_per_step"] / 1e3),
+              **row})
+        del tr, state
+
+    # (c) a batch-norm encoder: train-mode passes on the module (fp32, each
+    # against the plain twins, the running statistics too), a train step
+    # refused, then run_inference in bf16 from the statistics it carries
+    path = "options_bn_inference"
+    tr32 = NALPTrainer(LinkPredictionGNN(
+        GNNEncoder(D, HID, OUT, batchnorm=True, jk_mode="cat"),
+        LinkPredictionDecoder()), dg, cfg, optimizer_args=opt_args,
+        device=dev)
+    state32 = tr32.init_state(0)
+    enc32 = tr32.model.encoder
+    w = torch.randn((BATCH, OUT), generator=torch.Generator(
+        device=dev).manual_seed(22), device=dev)
+    passes = []
+    for p_ in range(BN_PASSES):
+        ids = torch.as_tensor(anchors[p_], device=dev)
+        start = {n_: b_.clone() for n_, b_ in enc32.named_buffers()}
+        after = []
+
+        def loss_fn():
+            with torch.no_grad():
+                for n_, b_ in enc32.named_buffers():
+                    b_.copy_(start[n_])
+            emb = tr32._encode_impl(tr32.graph, ids, 0, True)
+            after.append({n_: b_.clone() for n_, b_ in
+                          enc32.named_buffers()})
+            return (emb.float() * w).sum() / BATCH
+
+        # the convs' biases feed batch norm, whose batch mean takes them
+        # out: no gradient
+        vs = step_vs_plain(enc32, loss_fn, _build.launches, symmetric=(
+            "convs.0.lin_self.bias", "convs.1.lin_self.bias"))
+        stat_err = max(float((after[0][n_] - after[1][n_]).abs().max())
+                       / float(after[1][n_].abs().max()) for n_ in start)
+        moved = max(float((after[0][n_] - start[n_]).abs().max())
+                    for n_ in start)
+        with torch.no_grad():
+            for n_, b_ in enc32.named_buffers():
+                b_.copy_(after[0][n_])
+        passes.append({"pass": p_, "stats_rel_err": stat_err,
+                       "stats_moved": moved, **vs})
+        _vs_checked(f"{path}_train_pass", vs, True)
+        check(stat_err <= 1e-5, f"{path}: pass {p_}'s running statistics "
+              f"differ from the plain pass's by {stat_err}")
+        check(moved > 0, f"{path}: pass {p_} left the statistics as they "
+              "were")
+    try:
+        tr32.train_step(state32, anchors[0])
+        refused = False
+    except ValueError as err:
+        refused = "batch-norm encoder" in str(err)
+    check(refused, f"{path}: a train step over batch norm was not refused")
+    model16 = LinkPredictionGNN(
+        GNNEncoder(D, HID, OUT, batchnorm=True, jk_mode="cat",
+                   dtype=torch.bfloat16), LinkPredictionDecoder())
+    model16.load_state_dict(tr32.model.state_dict())
+    del tr32, state32
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    tr16 = NALPTrainer(model16, dg, cfg, device=dev)
+    sink = Sink()
+    with timed_window(path):
+        total = run_inference(tr16, N, sink,
+                              InferenceConfig(batch_size=BATCH), device=dev)
+        torch.cuda.synchronize()
+    inf_s = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    emit({"phase": "main_path", "path": path, "launches": counts})
+    for kname in INFERENCE_KERNELS:
+        check(counts[kname] > 0, f"{kname} was not launched on the {path} "
+              "path")
+    check(total == N, f"{path}: {total} rows exported")
+    embs = sink.table(N, OUT, path)
+    ids0 = torch.arange(BATCH, dtype=torch.int32, device=dev)
+    before = dict(_build.launches)
+    with plain_kernels(), torch.inference_mode():
+        ref0 = tr16._encode_impl(tr16.graph, ids0, 0, False).float().cpu()
+    check(dict(_build.launches) == before, f"{path}: the plain batch "
+          "launched a kernel")
+    scale0 = float(ref0.abs().max())
+    err0 = float(np.abs(embs[:BATCH] - ref0.numpy()).max())
+    check(err0 <= 3e-2 * scale0, f"{path}: batch 0 differs from the plain "
+          f"recomputation: {err0} vs {scale0}")
+    n_batches = -(-N // BATCH)
+    with torch.inference_mode(), timed_window(path), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for b_ in range(OPT_PROFILED):
+            tr16._encode_impl(tr16.graph, ids0 + b_ * BATCH, 0, False)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t1) * 1e6
+    ms_batch = inf_s / n_batches * 1e3
+    emit({"phase": "options_bn_inference_throughput", "nodes": N,
+          "batches": n_batches, "inference_s": inf_s,
+          "ms_per_batch": ms_batch, "nodes_per_s": N / inf_s,
+          "edges_per_batch": (2 * k1 + k1 * k2) * BATCH,
+          "edges_per_s": (2 * k1 + k1 * k2) * N / inf_s,
+          "batch0_max_abs_err": err0, "batch0_scale": scale0,
+          "train_passes": passes, "train_step_refused": refused,
+          "peak_mem_gb": (torch.cuda.max_memory_allocated() - base_mem)
+          / 2**30,
+          "profile": profile_summary(prof, OPT_PROFILED, window_us,
+                                     ms_batch), "card": card})
+    out[path] = (counts, n_batches)
+    del tr16, model16, sink
+    return out
+
+
+def link_task_phase(dev, card, dg, arrays, run_path, opt_args):
+    """Phase 23: LinkClassificationTrainer at the flagship (module
+    docstring). Returns {path: (launch counts, steps)}."""
+    from gigl_tpu_torch.models.encoders import GNNEncoder
+    from gigl_tpu_torch.ops import _build
+    from gigl_tpu_torch.training.link_task import (
+        EdgeClassifierHead, LinkClassificationModel,
+        LinkClassificationTrainer, LinkClassificationTrainerConfig)
+
+    src, dst = arrays
+    rng = np.random.default_rng(LINK_SEED)
+    pick = rng.choice(E, LINK_EDGES, replace=False)
+    edges = np.stack([src[pick], dst[pick]])
+    labels = rng.integers(0, LINK_CLASSES, LINK_EDGES)
+    n_batches = LINK_WARMUP + LINK_STEPS + OPT_PROFILED
+    batches = (np.arange(BATCH * n_batches) % LINK_EDGES).reshape(
+        n_batches, BATCH)
+    lcfg = LinkClassificationTrainerConfig(fanouts=FANOUTS)
+
+    def make(dtype):
+        return LinkClassificationModel(
+            GNNEncoder(D, HID, OUT, dtype=dtype),
+            EdgeClassifierHead(OUT, LINK_CLASSES, hidden_dim=LINK_HIDDEN,
+                               combine="hadamard", dtype=dtype))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        chk = LinkClassificationTrainer(make(dtype), dg, edges, labels, lcfg,
+                                        optimizer_args=opt_args, device=dev)
+        chk.init_state(0)
+        vs = step_vs_plain(chk.model.encoder, lambda: chk.loss(batches[0]),
+                           _build.launches,
+                           extra=_module_params(chk.model.head, "head"))
+        _vs_checked("link_task_step", vs, dtype == torch.float32)
+        del chk
+    path = "link_task_train"
+    tr = LinkClassificationTrainer(make(torch.bfloat16), dg, edges, labels,
+                                   lcfg, optimizer_args=opt_args,
+                                   device=dev)
+    state = tr.init_state(0)
+    counts, n_, row = run_path(path, tr, state, LINK_STEPS, LINK_WARMUP,
+                               OPT_PROFILED, LINK_KERNELS, nodes=batches,
+                               must_fall=False)
+    k1, k2 = FANOUTS
+    edges_per_step = (2 * k1 + k1 * k2) * 2 * BATCH
+    eval_idx = np.arange(LINK_EVAL_BATCHES * BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with timed_window(path):
+        acc = tr.evaluate(eval_idx, batch_size=BATCH)
+    eval_s = time.perf_counter() - t0
+    check(0.0 <= acc <= 1.0, f"{path}: accuracy {acc}")
+    t0 = time.perf_counter()
+    with timed_window(path):
+        logits = tr.predict_batch(edges[0, :BATCH], edges[1, :BATCH])
+        torch.cuda.synchronize()
+    predict_ms = (time.perf_counter() - t0) * 1e3
+    check(logits.shape == (BATCH, LINK_CLASSES)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"{path}: predict_batch is not finite [{BATCH}, {LINK_CLASSES}]")
+    emit({"phase": "link_task_train_throughput", "labelled_edges":
+          LINK_EDGES, "classes": LINK_CLASSES, "head_hidden": LINK_HIDDEN,
+          "combine": "hadamard", "edges_per_step": edges_per_step,
+          "edges_per_s": edges_per_step / (row["ms_per_step"] / 1e3),
+          "eval_edges": int(eval_idx.size), "eval_accuracy": acc,
+          "eval_ms_per_batch": eval_s / LINK_EVAL_BATCHES * 1e3,
+          "predict_batch_ms": predict_ms, **row})
+    del tr, state
+    return {path: (counts, n_)}
+
+
+class _SSLSteps:
+    """An SSLTrainer's train_step with its generator bound, as run_path
+    calls a trainer."""
+
+    def __init__(self, trainer, generator):
+        self.trainer, self.generator = trainer, generator
+
+    def train_step(self, state, nodes):
+        return self.trainer.train_step(state, nodes, self.generator)
+
+
+def ssl_phases(dev, card, dg, run_path, opt_args, anchors):
+    """Phase 24: SSLTrainer, each of the seven tasks in turn (module
+    docstring). Returns {path: (launch counts, steps)}."""
+    from gigl_tpu_torch.models.encoders import GNNEncoder
+    from gigl_tpu_torch.models.ssl_tasks import ema_update
+    from gigl_tpu_torch.ops import _build
+    from gigl_tpu_torch.training.ssl_trainer import (
+        SSL_TASKS, SSLTrainer, SSLTrainerConfig)
+
+    k1, k2 = FANOUTS
+    out = {}
+    for task in SSL_TASKS:
+        scfg = SSLTrainerConfig(task=task, fanouts=FANOUTS)
+        # step 1 against the plain twins (fp32), the views drawn once
+        chk = SSLTrainer(GNNEncoder(D, HID, OUT), dg, scfg,
+                         optimizer_args=opt_args, device=dev)
+        st = chk.init_state(0)
+        gen = torch.Generator(device=dev).manual_seed(24)
+        views = chk.draw_views(BATCH, gen)
+        vs = step_vs_plain(chk.model.encoder, lambda: chk.loss(
+            anchors[0], views, 0, st.target), _build.launches,
+            symmetric=SSL_SYMMETRIC.get(task, ()),
+            extra=_module_params(chk.model.head, "head"))
+        _vs_checked(f"ssl_{task}_step", vs, True)
+        ema = None
+        if st.target is not None:
+            # the target after a step: ema_update of the online encoder
+            old = copy.deepcopy(st.target)
+            st, _ = chk.train_step(st, anchors[0], views=views)
+            ema_update(old, chk.encoder, scfg.ema_decay)
+            ema = max(float((a_ - b_).abs().max()) for a_, b_ in zip(
+                old.state_dict().values(), st.target.state_dict().values()))
+            check(ema == 0.0, f"ssl {task}: the target is not ema_update of "
+                  f"the online encoder ({ema})")
+        del chk, st, views
+        path = f"ssl_{task}_train"
+        tr = SSLTrainer(GNNEncoder(D, HID, OUT, dtype=torch.bfloat16), dg,
+                        scfg, optimizer_args=opt_args, device=dev)
+        state = tr.init_state(0)
+        steps = _SSLSteps(tr, torch.Generator(device=dev).manual_seed(1))
+        kernels = SSL_KERNELS + (("uniform_ids",) if task == "directau"
+                                 else ())
+        counts, n_, row = run_path(path, steps, state, SSL_STEPS,
+                                   SSL_WARMUP, OPT_PROFILED, kernels,
+                                   nodes=anchors, must_fall=False)
+        out[path] = (counts, n_)
+        views_a_step = SSL_VIEWS[task]
+        edges_per_step = (2 * k1 + k1 * k2) * views_a_step * BATCH
+        emit({"phase": "ssl_train_throughput", "task": task,
+              "views_encoded_per_step": views_a_step,
+              "edges_per_step": edges_per_step,
+              "edges_per_s": edges_per_step / (row["ms_per_step"] / 1e3),
+              "target_ema_max_abs_err": ema, **row})
+        del tr, state, steps
+    return out
+
+
 def main():
     if not (REPO / "gigl_tpu_torch" / "csrc").is_dir():
         sys.exit("chip_smoke: run from a checkout of the repository "
@@ -7926,10 +8323,13 @@ def main():
                   for m_, v in k7b.items()})
 
     def run_path(path, trainer, state, steps, warmup, profiled, kernels,
-                 nodes=None):
+                 nodes=None, reset=True, must_fall=True):
         """``warmup`` + ``steps`` steps with the launch counts reset just
-        before and read just after, then ``profiled`` more under
-        torch.profiler."""
+        before (unless the caller reset them before building the trainer:
+        ``reset=False``) and read just after, then ``profiled`` more under
+        torch.profiler. ``must_fall``: the last five losses' mean below the
+        first five's (not for an objective that need not fall in a few
+        steps: random labels, self-supervised views)."""
         def step(st, k):
             if nodes is None:
                 return trainer.train_step(st)
@@ -7938,7 +8338,8 @@ def main():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base_mem = torch.cuda.memory_allocated()
-        _build.reset_launches()
+        if reset:
+            _build.reset_launches()
         for k in range(warmup):
             state, _ = step(state, k)
         torch.cuda.synchronize()
@@ -7960,7 +8361,8 @@ def main():
         losses = torch.stack(losses).float().cpu().numpy()
         check(np.isfinite(losses).all(), f"{path}: loss not finite")
         first, last = float(losses[:5].mean()), float(losses[-5:].mean())
-        check(last < first, f"{path}: loss did not fall: {first} -> {last}")
+        check(last < first or not must_fall,
+              f"{path}: loss did not fall: {first} -> {last}")
         with timed_window(path), torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -8100,6 +8502,9 @@ def main():
         dev, card, (src, dst, np.asarray(graph.node_features[
             graph.metadata.node_types[0]]), np.asarray(graph.node_labels[
                 graph.metadata.node_types[0]])), dg, typed_ctx, add_mode)
+    options = option_phases(dev, card, dg, run_path, opt_args, cfg, anchors)
+    link = link_task_phase(dev, card, dg, (src, dst), run_path, opt_args)
+    ssl = ssl_phases(dev, card, dg, run_path, opt_args, anchors)
 
     # launches on every kernel row: the training path's (K6 / K7: the
     # full-graph passes'; K6b / K7b: the node-classification paths'; K8-K10:
@@ -8172,6 +8577,9 @@ def main():
             p_: c_[k] / n_ for p_, (c_, n_) in stream.items()}
         row["launches_per_streamed_partitioned_step"] = {
             p_: c_[k] / n_ for p_, (c_, n_) in stream_part.items()}
+        row["launches_per_option_link_ssl_step"] = {
+            p_: c_[k] / n_ for p_, (c_, n_) in {**options, **link,
+                                                **ssl}.items()}
     for kname, mode in (("unroute_rows", "int8_decode"),
                         ("gather_rows_q8", "packed_rows"),
                         ("gather_rows", "bytes_21")):

@@ -13,6 +13,19 @@ of the matching port module. Per conv: ``Dense`` subtrees ``lin_self``,
 ``edge_in_proj`` and the model's ``edge_scorer`` (``e0``, ``e1``) are
 ``Dense`` layers of the same names. A flax ``Dense`` kernel is ``[in,
 out]``; an ``nn.Linear.weight`` is ``[out, in]``.
+
+The encoder's options: ``bn_{i}`` (``scale``, ``bias``; with the tree's
+``batch_stats`` collection, ``mean`` and ``var``, into the port's
+buffers) -> ``bns.{i}``; ``jk/proj``, ``jk/att`` and the LSTM cells
+``jk/OptimizedLSTMCell_0`` (the forward one, built first) and ``_1`` ->
+``jk.lstm_fwd`` / ``jk.lstm_bwd`` (gates ``ii`` ... ``ho`` as they are);
+``final_linear``; ``dcn/cross_{i}``; ``feature_embedding/embed_col{c}/
+embedding``. Beside the encoder: the MLP decoders' ``decoder/mlp0``,
+``mlp1``; a head subtree ``head`` (the link task's ``Dense_0``,
+``Dense_1``; the SSL heads' ``proj/fc{1,2}``, ``predictor/fc{1,2}``,
+``dec1``, ``dec2``), or such a head tree alone. A subtree that is itself
+a variables dict (``{"params": ..., "batch_stats": ...}``, as the SSL
+trainer's ``{"encoder": ..., "head": ...}`` holds them) is unwrapped.
 ``adam_state_from_optax`` maps an optax Adam state
 (``ScaleByAdamState(count, mu, nu)``, whose moments are trees of the
 params' structure) to the per-parameter state of a ``torch.optim.Adam``
@@ -56,6 +69,12 @@ from gigl_tpu_torch.losses.count_min_sketch import CountMinSketch
 from gigl_tpu_torch.ops.quantized import QuantizedTable
 
 _CONV = re.compile(r"conv_(\d+)$")
+_BN = re.compile(r"bn_(\d+)$")
+_LSTM = {"OptimizedLSTMCell_0": "lstm_fwd", "OptimizedLSTMCell_1": "lstm_bwd"}
+_LSTM_GATES = ("ii", "if", "ig", "io", "hi", "hf", "hg", "ho")
+# head subtrees: the link task's classifier, the SSL heads' layers
+_HEADS = ("Dense_0", "Dense_1", "proj", "predictor", "dec1", "dec2")
+_HEAD_LAYERS = ("fc1", "fc2")
 _LINEARS = ("lin_self", "lin_nbr", "lin", "lin_src", "lin_dst", "lin_q",
             "lin_k", "lin_v", "lin_skip", "lin_edge")
 _ARRAYS = ("att", "att_src", "att_dst", "bias", "eps")
@@ -74,11 +93,86 @@ def _dense(leaves: Mapping[str, Any], key: str, where: str,
             raise ValueError(f"unsupported leaf {where}/{leaf}")
 
 
-def _convs(tree: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+def _array(value) -> torch.Tensor:
+    return torch.tensor(np.asarray(value, np.float32))
+
+
+def _leaves(sub: Mapping[str, Any], names, key: str, where: str,
+            out: Dict[str, torch.Tensor]) -> None:
+    for leaf, value in sub.items():
+        if leaf not in names:
+            raise ValueError(f"unsupported leaf {where}/{leaf}")
+        out[f"{key}.{leaf}"] = _array(value)
+
+
+def _options(name: str, sub: Mapping[str, Any], stats: Mapping[str, Any],
+             prefix: str, out: Dict[str, torch.Tensor]) -> bool:
+    """One of the encoder's option subtrees (module docstring) into
+    ``out``; False when ``name`` is none of them."""
+    m = _BN.match(name)
+    if m is not None:
+        key = f"{prefix}bns.{m.group(1)}"
+        _leaves(sub, ("scale", "bias"), key, name, out)
+        _leaves(stats.get(name, {}), ("mean", "var"), key, name, out)
+    elif name in ("final_linear",):
+        _dense(sub, f"{prefix}{name}", name, out)
+    elif name == "dcn":
+        for layer, lv in sub.items():
+            if not re.match(r"cross_\d+$", layer):
+                raise ValueError(f"unsupported dcn parameter {layer!r}")
+            _dense(lv, f"{prefix}dcn.{layer}", f"dcn/{layer}", out)
+    elif name == "feature_embedding":
+        for table, lv in sub.items():
+            if not re.match(r"embed_col\d+$", table):
+                raise ValueError(f"unsupported feature_embedding parameter "
+                                 f"{table!r}")
+            _leaves(lv, ("embedding",), f"{prefix}feature_embedding.{table}",
+                    f"feature_embedding/{table}", out)
+    elif name == "jk":
+        for part, lv in sub.items():
+            if part in ("proj", "att"):
+                _dense(lv, f"{prefix}jk.{part}", f"jk/{part}", out)
+            elif part in _LSTM:
+                for gate, gv in lv.items():
+                    if gate not in _LSTM_GATES:
+                        raise ValueError(
+                            f"unsupported LSTM parameter jk/{part}/{gate}")
+                    _dense(gv, f"{prefix}jk.{_LSTM[part]}.{gate}",
+                           f"jk/{part}/{gate}", out)
+            else:
+                raise ValueError(f"unsupported jk parameter {part!r}")
+    else:
+        return False
+    return True
+
+
+def _head(tree: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    """A head subtree: ``Dense_{0,1}``, ``dec{1,2}`` or a projector
+    ``proj`` / ``predictor`` of ``fc1``, ``fc2``."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, sub in tree.items():
+        if name not in _HEADS:
+            raise ValueError(f"unsupported head parameter {name!r}")
+        if name in ("proj", "predictor"):
+            for layer, lv in sub.items():
+                if layer not in _HEAD_LAYERS:
+                    raise ValueError(
+                        f"unsupported head parameter {name}/{layer}")
+                _dense(lv, f"{prefix}{name}.{layer}", f"{name}/{layer}", out)
+        else:
+            _dense(sub, f"{prefix}{name}", name, out)
+    return out
+
+
+def _convs(tree: Mapping[str, Any], prefix: str,
+           stats: Optional[Mapping[str, Any]] = None
+           ) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for name, sub in tree.items():
         if name == "edge_in_proj":
             _dense(sub, f"{prefix}edge_in_proj", name, out)
+            continue
+        if _options(name, sub, stats or {}, prefix, out):
             continue
         m = _CONV.match(name)
         if m is None:
@@ -118,28 +212,47 @@ def _typed(tree: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _encoder(tree: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+def _encoder(tree: Mapping[str, Any], prefix: str,
+             stats: Optional[Mapping[str, Any]] = None
+             ) -> Dict[str, torch.Tensor]:
     if any(k.startswith("in_") for k in tree):
         return _typed(tree, prefix)
-    return _convs(tree, prefix)
+    return _convs(tree, prefix, stats)
+
+
+def _unwrap(tree: Mapping[str, Any]):
+    """(params, batch_stats) of a variables dict, or (tree, {})."""
+    if "params" in tree:
+        return tree["params"], tree.get("batch_stats", {})
+    return tree, {}
 
 
 def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """State dict for a ``LinkPredictionGNN`` or ``HeteroLinkPredictionGNN``
-    (tree with an ``encoder`` subtree), a ``GNNEncoder`` (tree of
-    ``conv_{i}`` subtrees) or a ``HeteroGNNEncoder``."""
-    if "params" in tree:
-        tree = tree["params"]
+    (tree with an ``encoder`` subtree; with ``head`` instead of
+    ``decoder``: a ``LinkClassificationModel`` or the SSL trainer's
+    model), a ``GNNEncoder`` (tree of ``conv_{i}`` subtrees), a
+    ``HeteroGNNEncoder`` or a head alone (module docstring)."""
+    tree, stats = _unwrap(tree)
     if "encoder" in tree:
-        extra = set(tree) - {"encoder", "decoder", "edge_scorer"}
-        if extra or tree.get("decoder"):
+        extra = set(tree) - {"encoder", "decoder", "edge_scorer", "head"}
+        if extra:
             raise ValueError(f"unsupported model parameters {sorted(extra)}")
-        out = _encoder(tree["encoder"], "encoder.")
-        for layer, leaves in tree.get("edge_scorer", {}).items():
-            _dense(leaves, f"edge_scorer.{layer}", f"edge_scorer/{layer}",
-                   out)
+        enc, enc_stats = _unwrap(tree["encoder"])
+        out = _encoder(enc, "encoder.", {**stats.get("encoder", {}),
+                                         **enc_stats})
+        for name in ("decoder", "edge_scorer"):
+            for layer, leaves in tree.get(name, {}).items():
+                if name == "decoder" and layer not in ("mlp0", "mlp1"):
+                    raise ValueError(
+                        f"unsupported decoder parameter {layer!r}")
+                _dense(leaves, f"{name}.{layer}", f"{name}/{layer}", out)
+        if "head" in tree:
+            out.update(_head(_unwrap(tree["head"])[0], "head."))
         return out
-    return _encoder(tree, "")
+    if tree and set(tree) <= set(_HEADS):
+        return _head(tree, "")
+    return _encoder(tree, "", stats)
 
 
 def _find_adam_state(state: Any) -> Optional[Any]:

@@ -62,7 +62,7 @@ from gigl_tpu_torch.ops.attention import (
     fanout_attention_block,
     fanout_attention_ell,
 )
-from gigl_tpu_torch.models.layers import leaky_relu
+from gigl_tpu_torch.models.layers import leaky_relu, linear
 from gigl_tpu_torch.ops.coo_edges import (
     coo_gat_edges,
     coo_gatv2_edges,
@@ -78,12 +78,6 @@ from gigl_tpu_torch.ops.segment import (
     sddmm,
     segment_softmax,
 )
-
-def linear(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``lin(x)`` computed in ``dtype`` from fp32 parameters."""
-    bias = None if lin.bias is None else lin.bias.to(dtype)
-    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
-
 
 class SAGEConv(nn.Module):
     """GraphSAGE conv: W_self x + b + W_nbr agg(neighbors)."""

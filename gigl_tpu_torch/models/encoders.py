@@ -35,13 +35,22 @@ them per layer with ``lin_edge``, GINE adds them to the neighbor rows (so
 its layer 1 needs ``in_dim == hid_dim``). The other convs ignore edge
 features, as the reference's do.
 
-Ported so far: the GraphSAGE, GCN, GIN, GINE, GAT, GATv2, EdgeAttrGAT and
-Transformer convs, edge features on the block, ELL and COO paths,
-activation placement, output L2 normalization, and
-eval and train modes. Train-mode dropout draws its keep mask from an
-explicit ``torch.Generator`` (its bits differ from flax's); rate 0 is the
-identity, as in flax. Batch norm, jumping knowledge, the final linear
-layer and feature embeddings / DCN raise ``NotImplementedError``.
+The options of the reference's ``BasicHomogeneousGNN`` run on all three
+paths: a feature embedding and DCN cross layers on the input (``_pre``:
+after the cast to the compute type, so a bf16 id is rounded before its
+truncation), batch norm before or after the activation (``bn_{i}``: one
+a layer with jumping knowledge, else one a layer but the last), jumping
+knowledge over every layer's output (``cat`` / ``max`` / ``lstm``; the
+last layer then takes activation, batch norm and dropout too, and its
+conv is ``hid_dim`` wide), and the final linear layer after the output
+L2 normalisation (``_post``). On the sampled block path batch norm runs
+on each depth's flattened ``[rows, hid]`` block, padding slots
+included, once a depth, so in train mode its running statistics move
+once a call, in order. The cached path refuses a feature embedding and
+DCN, as the reference does (the cache aggregates raw features). Train-mode
+dropout draws its keep mask from an explicit ``torch.Generator`` (its bits
+differ from flax's); rate 0 is the identity, as in flax. ``train`` sets
+batch norm's mode too.
 """
 
 from __future__ import annotations
@@ -61,7 +70,14 @@ from gigl_tpu_torch.models.convs import (
     TransformerConv,
     linear,
 )
-from gigl_tpu_torch.models.layers import dropout, l2_normalize
+from gigl_tpu_torch.models.layers import (
+    BatchNorm,
+    DCNCross,
+    FeatureEmbeddingLayer,
+    JumpingKnowledge,
+    dropout,
+    l2_normalize,
+)
 from gigl_tpu_torch.ops.ell import EllGraph, ell_layer
 from gigl_tpu_torch.ops.gather import permute_rows
 from gigl_tpu_torch.ops.segment import SegmentIndex, coo_walk
@@ -122,13 +138,10 @@ def _make_conv(conv: str, in_dim: int, out_dim: int, dtype,
     raise ValueError(f"Unknown conv type {conv!r}; known: {CONV_TYPES}")
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (gigl_tpu.models.encoders.GNNEncoder)")
-
-
 class GNNEncoder(nn.Module):
-    """Stacked message-passing encoder (see module docstring)."""
+    """Stacked message-passing encoder (see module docstring). ``in_dim``
+    is the raw feature width; with ``feature_embedding`` the convs read
+    ``feature_embedding.out_dim(in_dim)`` columns."""
 
     def __init__(
         self,
@@ -147,28 +160,31 @@ class GNNEncoder(nn.Module):
         l2_normalize_output: bool = False,
         jk_mode: Optional[str] = None,
         edge_dim: Optional[int] = None,
+        feature_embedding: Optional[FeatureEmbeddingLayer] = None,
         feature_interaction_layers: int = 0,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if conv not in CONV_TYPES:
             raise ValueError(f"Unknown conv type {conv!r}; known: {CONV_TYPES}")
-        for flag, what in ((batchnorm, "batchnorm"),
-                           (linear_layer, "linear_layer"),
-                           (jk_mode, "jk_mode"),
-                           (feature_interaction_layers,
-                            "feature_interaction_layers")):
-            if flag:
-                raise _not_ported(what)
         self.conv = conv
         self.conv_kwargs = conv_kwargs
         self.num_layers = num_layers
+        self.out_dim = out_dim
         self.activation = activation
+        self.activation_before_norm = activation_before_norm
         self.activation_after_last_conv = activation_after_last_conv
         self.dropout = dropout
         self.l2_normalize_output = l2_normalize_output
+        self.jk_mode = jk_mode or None
         self.dtype = dtype
-        dims = [in_dim] + [hid_dim] * (num_layers - 1) + [out_dim]
+        self.feature_embedding = feature_embedding
+        if feature_embedding is not None:
+            in_dim = feature_embedding.out_dim(in_dim)
+        self.dcn = (DCNCross(in_dim, feature_interaction_layers, dtype)
+                    if feature_interaction_layers else None)
+        last_dim = hid_dim if (linear_layer or self.jk_mode) else out_dim
+        dims = [in_dim] + [hid_dim] * (num_layers - 1) + [last_dim]
         # raw edge rows projected once to hid_dim (encoders.py:138-141)
         self.edge_in_proj = (nn.Linear(edge_dim, hid_dim, bias=False)
                              if edge_dim is not None
@@ -178,17 +194,43 @@ class GNNEncoder(nn.Module):
             _make_conv(conv, dims[i], dims[i + 1], dtype, conv_kwargs or {},
                        edge_in)
             for i in range(num_layers))
+        n_bn = (num_layers if self.jk_mode else num_layers - 1) \
+            if batchnorm else 0
+        self.bns = nn.ModuleList(BatchNorm(hid_dim, dtype=dtype)
+                                 for _ in range(n_bn))
+        self.jk = (JumpingKnowledge(
+            self.jk_mode, hid_dim, num_layers,
+            out_dim=hid_dim if linear_layer else out_dim, dtype=dtype)
+            if self.jk_mode else None)
+        self.final_linear = (nn.Linear(hid_dim, out_dim) if linear_layer
+                             else None)
 
-    def _epilogue(self, x, is_last, train, generator):
-        if is_last and not self.activation_after_last_conv:
+    def _epilogue(self, x, layer_idx, is_last, train, generator):
+        """Activation, batch norm and dropout after conv ``layer_idx``
+        (``homogeneous.py:131-147``'s order); the last conv's output goes
+        on untouched unless JK or ``activation_after_last_conv`` asks."""
+        if is_last and not self.jk_mode and not self.activation_after_last_conv:
             return x
-        # No batch norm is ported, so activation placement relative to it
-        # does not matter.
-        return dropout(self.activation(x), self.dropout, train, generator)
+        if self.activation_before_norm:
+            x = self.activation(x)
+        if layer_idx < len(self.bns):
+            x = self.bns[layer_idx](x, train)
+        if not self.activation_before_norm:
+            x = self.activation(x)
+        return dropout(x, self.dropout, train, generator)
+
+    def _pre(self, x):
+        if self.feature_embedding is not None:
+            x = self.feature_embedding(x)
+        if self.dcn is not None:
+            x = self.dcn(x)
+        return x
 
     def _post(self, x):
         if self.l2_normalize_output:
             x = l2_normalize(x)
+        if self.final_linear is not None:
+            x = linear(self.final_linear, x, self.dtype)
         return x
 
     def reads_edges(self) -> bool:
@@ -220,7 +262,8 @@ class GNNEncoder(nn.Module):
         the edges into level d's slots (None for the roots). With
         cached_agg (cached_agg[d] [B, K1..Kd, Din]) the tree has num_layers
         levels, otherwise num_layers + 1. Returns [B, out_dim]. ``train``
-        turns dropout on, drawn from ``generator``."""
+        turns dropout on, drawn from ``generator``, and batch norm's batch
+        statistics."""
         L = self.num_layers
         if cached_agg is not None:
             if self.conv not in CACHEABLE_CONVS:
@@ -232,10 +275,17 @@ class GNNEncoder(nn.Module):
         elif len(hop_feats) != L + 1:
             raise ValueError(
                 f"need {L + 1} hop levels for {L} layers, got {len(hop_feats)}")
-        h = [f.to(self.dtype) for f in hop_feats]
+        if cached_agg is not None and (self.feature_embedding is not None
+                                       or self.dcn is not None):
+            # The cache aggregates RAW features; a nonlinear per-node input
+            # transform would make agg(transform(x)) != transform(agg(x)).
+            raise ValueError(
+                "hop cache is incompatible with feature_embedding / DCN")
+        h = [self._pre(f.to(self.dtype)) for f in hop_feats]
         if edge_feats is not None:
             edge_feats = [None if e is None else self._edge_in(e)
                           for e in edge_feats]
+        jk_xs = []
         for i, conv in enumerate(self.convs):
             is_last = i == L - 1
             new_h = []
@@ -248,9 +298,10 @@ class GNNEncoder(nn.Module):
                     out = conv.block_cached(dst.reshape(-1, dim),
                                             cached_agg[d].reshape(-1, dim),
                                             deg)
-                    out = self._epilogue(out, is_last, train, generator)
+                    out = self._epilogue(out, i, is_last, train, generator)
                     new_h.append(out.reshape(lead + (out.shape[-1],)))
                 h = new_h
+                jk_xs.append(h[0])
                 continue
             for d in range(L - i):
                 dst, nbr = h[d], h[d + 1]
@@ -267,10 +318,11 @@ class GNNEncoder(nn.Module):
                 out = conv.block(dst.reshape(-1, dst.shape[-1]),
                                  nbr.reshape(-1, k, nbr.shape[-1]),
                                  masks[d + 1].reshape(-1, k), ea, degs)
-                out = self._epilogue(out, is_last, train, generator)
+                out = self._epilogue(out, i, is_last, train, generator)
                 new_h.append(out.reshape(lead + (out.shape[-1],)))
             h = new_h
-        return self._post(h[0])
+            jk_xs.append(h[0])
+        return self._post(self.jk(jk_xs) if self.jk is not None else h[0])
 
     def encode_ell(
         self,
@@ -287,13 +339,18 @@ class GNNEncoder(nn.Module):
         layer's aggregation through K6 or K7, their backward through K6b
         and K7b. ``edge_attr`` [E, De] in original COO edge order (the
         layers reach it through ``ell.edge_slots``; its gradient is K11's).
-        ``train`` turns dropout on, drawn from ``generator``."""
-        x_p = permute_rows(x.to(self.dtype), ell.perm, ell.rank)
+        ``train`` turns dropout on, drawn from ``generator``, and batch
+        norm's batch statistics (over the N rows)."""
+        x_p = permute_rows(self._pre(x.to(self.dtype)), ell.perm, ell.rank)
         edge_attr = self._edge_in(edge_attr)
+        jk_xs = []
         for i, conv in enumerate(self.convs):
             is_last = i == self.num_layers - 1
             x_p = ell_layer(conv, x_p, ell, edge_attr)
-            x_p = self._epilogue(x_p, is_last, train, generator)
+            x_p = self._epilogue(x_p, i, is_last, train, generator)
+            jk_xs.append(x_p)
+        if self.jk is not None:
+            x_p = self.jk(jk_xs)
         return permute_rows(self._post(x_p), ell.rank, ell.perm)
 
     def encode_coo(
@@ -318,7 +375,8 @@ class GNNEncoder(nn.Module):
         ``edge_in_proj`` as the reference does and read by the edge convs,
         over the graph in its destination walk order (module docstring);
         its gradient reaches the caller in COO order. ``train`` turns
-        dropout on, drawn from ``generator``."""
+        dropout on, drawn from ``generator``, and batch norm's batch
+        statistics."""
         if index is None:
             index = SegmentIndex.from_ids(dst, num_nodes, gather=src)
         if src_index is None:
@@ -332,10 +390,54 @@ class GNNEncoder(nn.Module):
             # fp32 rows are whole 4-byte words, which K3 moves
             edge_attr = self._edge_in(permute_rows(
                 edge_attr.float(), walk.perm, walk.rank).to(self.dtype))
-        x = x.to(self.dtype)
+        x = self._pre(x.to(self.dtype))
+        jk_xs = []
         for i, conv in enumerate(self.convs):
             is_last = i == self.num_layers - 1
             x = conv.coo(x, src, dst, num_nodes, edge_attr, index=index,
                          src_index=src_index)
-            x = self._epilogue(x, is_last, train, generator)
+            x = self._epilogue(x, i, is_last, train, generator)
+            jk_xs.append(x)
+        if self.jk is not None:
+            x = self.jk(jk_xs)
         return self._post(x)
+
+
+def encoder_from_config(args: Dict[str, Any], **overrides) -> GNNEncoder:
+    """A GNNEncoder from a flat string-map config (the reference's
+    trainerArgs: ``hid_dim``, ``out_dim``, ``num_layers``, ``conv``,
+    ``num_heads``, ``dropout``, ``batchnorm``, ``linear_layer``,
+    ``should_l2_normalize_embedding_layer_output``, ``jk_mode``,
+    ``use_bf16``; the reference's keys and defaults). ``overrides`` go to
+    the constructor as they are; the raw feature width ``in_dim``, which
+    flax infers, comes among them."""
+    def geti(k, d):
+        return int(args.get(k, d))
+
+    def getf(k, d):
+        return float(args.get(k, d))
+
+    def getb(k, d):
+        v = args.get(k, d)
+        return v if isinstance(v, bool) else str(v).lower() in ("1", "true",
+                                                                "yes")
+
+    conv_kwargs: Dict[str, Any] = {}
+    if "num_heads" in args:
+        conv_kwargs["heads"] = int(args["num_heads"])
+    cfg = dict(
+        hid_dim=geti("hid_dim", 128),
+        out_dim=geti("out_dim", 128),
+        num_layers=geti("num_layers", 2),
+        conv=str(args.get("conv", "graphsage")),
+        conv_kwargs=conv_kwargs,
+        dropout=getf("dropout", 0.0),
+        batchnorm=getb("batchnorm", False),
+        linear_layer=getb("linear_layer", False),
+        l2_normalize_output=getb("should_l2_normalize_embedding_layer_output",
+                                 False),
+        jk_mode=args.get("jk_mode") or None,
+        dtype=torch.bfloat16 if getb("use_bf16", False) else torch.float32,
+    )
+    cfg.update(overrides)
+    return GNNEncoder(**cfg)

@@ -1,7 +1,8 @@
 """Link-prediction model wrappers and decoders (port of
-``gigl_tpu/models/link_prediction.py``: inner-product and cosine decoders,
-``EdgeFeatureScorer``, ``LinkPredictionGNN`` and
-``HeteroLinkPredictionGNN``, each with an optional label-edge scorer)."""
+``gigl_tpu/models/link_prediction.py``: the inner-product, cosine, ``mlp``
+and ``hadamard_mlp`` decoders, ``EdgeFeatureScorer``,
+``LinkPredictionGNN`` and ``HeteroLinkPredictionGNN``, each with an
+optional label-edge scorer)."""
 
 from __future__ import annotations
 
@@ -29,24 +30,49 @@ def _unit(x: torch.Tensor) -> torch.Tensor:
 class LinkPredictionDecoder(nn.Module):
     """Scores (query, candidate) embedding pairs: ``forward(q, c)``
     broadcasts q [..., D] against c [..., D]; ``all_pairs(q, c)`` gives the
-    [Nq, Nc] score matrix."""
+    [Nq, Nc] score matrix. The MLP decoders (``mlp``: ``[q || c]``,
+    ``hadamard_mlp``: ``q * c``, then ``mlp1(relu(mlp0(.)))``, computed in
+    ``dtype`` from fp32 parameters) need the embedding width ``in_dim``,
+    which flax infers; their ``all_pairs`` broadcasts ``q[:, None]``
+    against ``c[None]``, a [Nq, Nc, hidden_dim] intermediate, as the
+    reference's does."""
 
-    def __init__(self, decoder_type=DecoderType.INNER_PRODUCT):
+    def __init__(self, decoder_type=DecoderType.INNER_PRODUCT,
+                 hidden_dim: int = 128, dtype: torch.dtype = torch.float32,
+                 in_dim: Optional[int] = None):
         super().__init__()
         self.decoder_type = DecoderType(decoder_type)
-        if self.decoder_type not in (DecoderType.INNER_PRODUCT,
-                                     DecoderType.COSINE):
-            raise NotImplementedError(
-                f"decoder {self.decoder_type.value!r} is not ported yet "
-                "(gigl_tpu.models.link_prediction.LinkPredictionDecoder)")
+        self.dtype = dtype
+        if self.is_mlp:
+            if in_dim is None:
+                raise ValueError(f"decoder {self.decoder_type.value!r} "
+                                 "needs the embedding width in_dim")
+            width = 2 * in_dim if self.decoder_type == DecoderType.MLP \
+                else in_dim
+            self.mlp0 = nn.Linear(width, hidden_dim)
+            self.mlp1 = nn.Linear(hidden_dim, 1)
+
+    @property
+    def is_mlp(self) -> bool:
+        return self.decoder_type in (DecoderType.MLP,
+                                     DecoderType.HADAMARD_MLP)
 
     def forward(self, q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-        if self.decoder_type == DecoderType.COSINE:
-            q, c = _unit(q), _unit(c)
-        return (q * c).sum(-1)
+        if self.decoder_type == DecoderType.HADAMARD_MLP:
+            h = q * c
+        elif self.decoder_type == DecoderType.MLP:
+            h = torch.cat(torch.broadcast_tensors(q, c), dim=-1)
+        else:
+            if self.decoder_type == DecoderType.COSINE:
+                q, c = _unit(q), _unit(c)
+            return (q * c).sum(-1)
+        h = torch.relu(linear(self.mlp0, h, self.dtype))
+        return linear(self.mlp1, h, self.dtype)[..., 0]
 
     def all_pairs(self, q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         """q: [Nq, D], c: [Nc, D] -> [Nq, Nc]."""
+        if self.is_mlp:
+            return self(q[:, None, :], c[None, :, :])
         if self.decoder_type == DecoderType.COSINE:
             q, c = _unit(q), _unit(c)
         return q @ c.T

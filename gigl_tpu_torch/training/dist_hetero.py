@@ -568,6 +568,10 @@ class PartitionedHeteroNALPTrainer:
         shard's query rows against every shard's candidate block folded
         round the ring (K17), the label edges' scorer terms on the own
         block (K17's bias mode)."""
+        if self.model.decoder.is_mlp:
+            raise NotImplementedError(
+                "the global candidate pool folds inner-product scores (K17); "
+                "an MLP decoder's ring is not ported")
         cfg, p = self.cfg, self.num_shards
         cosine = self.model.decoder.decoder_type == DecoderType.COSINE
         cands, cols = [], []

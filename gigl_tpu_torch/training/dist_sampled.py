@@ -108,6 +108,7 @@ from gigl_tpu_torch.training.dataset import (
     NALPBatch,
     draw_random_negatives,
 )
+from gigl_tpu_torch.training.base import refuse_batch_norm_training
 from gigl_tpu_torch.training.early_stop import EarlyStopper
 from gigl_tpu_torch.training.trainer import (
     NALPTrainerConfig,
@@ -810,6 +811,7 @@ class PartitionedNALPTrainer:
         ``anchors``, differentiable in the model's weights; the sketch with
         the step's candidates added, or None; the routed requests dropped,
         a device scalar)."""
+        refuse_batch_norm_training(self.model)
         batches, ovf = self._make_batches(self._split(self._ids(anchors)),
                                           step)
         embs, ovf2 = self._encode_groups(
@@ -854,6 +856,10 @@ class PartitionedNALPTrainer:
         (K17); the global mean psum(ce) / psum(count) as the pmean of
         ce_sum * P / psum(count). With the model's edge scorer, the label
         edges' score terms ride on the own block (K17's bias mode)."""
+        if self.model.decoder.is_mlp:
+            raise NotImplementedError(
+                "the global candidate pool folds inner-product scores (K17); "
+                "an MLP decoder's ring is not ported")
         cfg, p = self.cfg, self.num_shards
         cands, cols = [], []
         for s, b in enumerate(batches):
@@ -1082,6 +1088,7 @@ class PartitionedNodeClassificationTrainer(PartitionedNALPTrainer):
         """(train-mode loss of the global ``nodes``: the mean over shards of
         each shard's mean cross entropy over its labeled requests,
         differentiable in the model's weights; the requests dropped)."""
+        refuse_batch_norm_training(self.model)
         out, ovf = self._logits(nodes, True, generators)
         return self._loss_from_logits(out), ovf
 

@@ -41,6 +41,7 @@ from gigl_tpu_torch.losses.metrics import accuracy
 from gigl_tpu_torch.models.init import init_params
 from gigl_tpu_torch.ops.ell import EllGraph
 from gigl_tpu_torch.ops.segment import SegmentIndex, coo_walk
+from gigl_tpu_torch.training.base import refuse_batch_norm_training
 from gigl_tpu_torch.training.early_stop import EarlyStopper
 from gigl_tpu_torch.training.trainer import (
     TrainState,
@@ -191,6 +192,7 @@ class FullBatchTrainer:
     def loss(self, generator: Optional[torch.Generator] = None
              ) -> torch.Tensor:
         """Train-mode mean cross entropy over the train split."""
+        refuse_batch_norm_training(self.encoder)
         s, c = cross_entropy_loss(self.logits(True, generator),
                                   self.data.labels,
                                   mask=self.data.train_mask)

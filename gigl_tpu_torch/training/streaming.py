@@ -58,6 +58,7 @@ from gigl_tpu_torch.graph.csr import build_csr
 from gigl_tpu_torch.losses.count_min_sketch import cms_init
 from gigl_tpu_torch.losses.metrics import hits_at_k, mean_reciprocal_rank
 from gigl_tpu_torch.models.init import init_params
+from gigl_tpu_torch.training.base import refuse_batch_norm_training
 from gigl_tpu_torch.training.dataset import NALPBatch
 from gigl_tpu_torch.training.trainer import (
     NALPTrainerConfig,
@@ -601,6 +602,7 @@ class StreamingNALPTrainer:
     def _step(self, state: TrainState, arrays: Dict,
               generator: Optional[torch.Generator] = None
               ) -> Tuple[TrainState, torch.Tensor]:
+        refuse_batch_norm_training(self.model)
         ids, trees = self._batch_of(arrays, self._roots(
             arrays["anchors"].shape[0]))
         state.optimizer.zero_grad(set_to_none=True)

@@ -79,6 +79,7 @@ from gigl_tpu_torch.parallel.feature_lookup import (
     send_requests,
 )
 from gigl_tpu_torch.parallel.mesh import Mesh
+from gigl_tpu_torch.training.base import refuse_batch_norm_training
 from gigl_tpu_torch.training.dataset import AnchorBatchIterator
 from gigl_tpu_torch.training.dist_hetero import PartitionedHeteroNALPTrainer
 from gigl_tpu_torch.training.dist_sampled import (
@@ -727,6 +728,7 @@ class StreamingPartitionedNALPTrainer(_StreamedStepDriver,
         return self._encode_trees(trees, groups, vals, train, generators)
 
     def _apply_train(self, state, ctx, rows, dropped, generators):
+        refuse_batch_norm_training(self.model)
         batches, _, _, ovf = ctx
         state.optimizer.zero_grad(set_to_none=True)
         embs = self._embed(ctx, rows, True, generators)
@@ -827,6 +829,7 @@ class StreamingPartitionedNodeClassificationTrainer(
         return [(e[0], lab, ok) for e, (lab, ok) in zip(embs, labels)]
 
     def _apply_train(self, state, ctx, rows, dropped, generators):
+        refuse_batch_norm_training(self.model)
         state.optimizer.zero_grad(set_to_none=True)
         loss = self._loss_from_logits(self._logits_of(ctx, rows, True,
                                                       generators))

@@ -68,7 +68,10 @@ from gigl_tpu_torch.losses.metrics import (
 from gigl_tpu_torch.models.encoders import cached_agg_kind
 from gigl_tpu_torch.models.init import init_params
 from gigl_tpu_torch.models.link_prediction import LinkPredictionGNN
-from gigl_tpu_torch.training.base import BaseInferencer
+from gigl_tpu_torch.training.base import (
+    BaseInferencer,
+    refuse_batch_norm_training,
+)
 from gigl_tpu_torch.training.dataset import (
     AnchorBatchIterator,
     DeviceGraph,
@@ -416,6 +419,7 @@ class NALPTrainer(BaseInferencer):
         """(train-mode mean loss of ``batch``, differentiable in the
         model's weights; the sketch ``cms`` with the batch's candidates
         added, or None without one)."""
+        refuse_batch_norm_training(self.model)
         q, pos, hard, rand = self._scores(self.graph, batch, True, generator)
         return nalp_loss_from_embeddings(self.model, self.cfg, batch, q, pos,
                                          hard, rand, cms)
@@ -604,6 +608,7 @@ class NodeClassificationTrainer:
              ) -> torch.Tensor:
         """Train-mode mean cross entropy of ``nodes`` (differentiable in
         the model's weights)."""
+        refuse_batch_norm_training(self.model)
         nodes = self._ids(nodes)
         labels = self.graph.node_labels[nodes.long()]
         s, c = cross_entropy_loss(

@@ -4923,3 +4923,178 @@ def test_streamed_partitioned_schedules_bit_equal_on_card(dev):
     cpu, cs = trainer(torch.device("cpu"))
     _, want = cpu.run_steps(cs, list(anchors))
     np.testing.assert_allclose(got_pipe, want, rtol=1e-4)
+
+
+# -- the encoder options, the link task and SSL (slice 29) ---------------------
+def _option_tree(rng, b=64, k1=10, k2=5, d=16):
+    """A sampled tree: feats per level, masks with empty rows."""
+    shapes = [(b,), (b, k1), (b, k1, k2)]
+    feats = [rng.normal(size=s + (d,)).astype(np.float32) for s in shapes]
+    masks = [np.ones((b,), bool)] + [rng.random(s) < 0.7 for s in shapes[1:]]
+    masks[1][:3] = False
+    masks[2] &= masks[1][..., None]
+    return feats, masks
+
+
+def _seeded(module, seed=0):
+    for prm in module.parameters():
+        prm.data = torch.randn(prm.shape, generator=torch.Generator(
+        ).manual_seed(seed + prm.numel())) * 0.3
+    return module
+
+
+def test_bn_jk_lstm_encoder_train_mode_on_card_matches_cpu(dev):
+    """A batch-norm + JK-lstm encoder (final linear, DCN) in train mode on
+    the block path: the output, every parameter's gradient and the running
+    statistics after two calls, card against CPU, fp32 within 1e-4 of the
+    scale (K4 / K4b on the card; sums in another order)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    feats, masks = _option_tree(np.random.default_rng(20))
+    res = {}
+    for device in (dev, torch.device("cpu")):
+        enc = _seeded(GNNEncoder(16, 32, 8, batchnorm=True, jk_mode="lstm",
+                                 linear_layer=True,
+                                 feature_interaction_layers=1)).to(device)
+        _build.reset_launches()
+        tf = [torch.as_tensor(f, device=device) for f in feats]
+        tm = [torch.as_tensor(m, device=device) for m in masks]
+        enc(tf, tm, train=True)
+        out = enc(tf, tm, train=True)
+        (out * torch.linspace(-1, 1, out.numel(), device=device).reshape(
+            out.shape)).sum().backward()
+        if device.type == "cuda":
+            for k in ("masked_reduce", "masked_reduce_bwd"):
+                assert _build.launches[k] > 0, k
+        res[device.type] = [out.detach().cpu()] + [
+            p.grad.cpu() for p in enc.parameters()] + [
+            b.cpu() for b in enc.buffers()]
+    for a, b in zip(res["cuda"], res["cpu"]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def _option_graph(seed=21, n=N, d=16):
+    rng = np.random.default_rng(seed)
+    src, dst = rng.integers(0, n, E), rng.integers(0, n, E)
+    return src, dst, rng.normal(size=(n, d)).astype(np.float32)
+
+
+def test_hadamard_mlp_nalp_step_on_card_matches_cpu(dev):
+    """A NALP step (live draws, retrieval loss through K5) with the
+    hadamard_mlp decoder and a JK-cat encoder with the final linear, card
+    against CPU from the same weights: the loss and every weight after the
+    update within 1e-4 relative."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from gigl_tpu_torch.models.init import init_params
+
+    src, dst, x = _option_graph()
+    anchors = np.arange(64)
+    res = {}
+    for device in (dev, torch.device("cpu")):
+        g = DeviceGraph.from_hetero(HeteroGraph.homogeneous(
+            src=src, dst=dst, num_nodes=N, node_features=x),
+            supervision_edges=np.stack([src, dst]), device=device)
+        model = LinkPredictionGNN(
+            GNNEncoder(16, 32, 16, jk_mode="cat", linear_layer=True),
+            LinkPredictionDecoder("hadamard_mlp", hidden_dim=32, in_dim=16))
+        init_params(model, 3)
+        t = NALPTrainer(model, g, NALPTrainerConfig(
+            fanouts=(10, 5), num_random_negs=64), device=device)
+        state = t.init_state(params=model.state_dict())
+        _build.reset_launches()
+        state, loss = t.train_step(state, anchors)
+        if device.type == "cuda":
+            for k in ("sample_uniform", "uniform_ids", "gather_rows",
+                      "masked_reduce", "masked_reduce_bwd", "retrieval_loss"):
+                assert _build.launches[k] > 0, k
+        res[device.type] = [loss.cpu().reshape(1)] + [
+            p.detach().cpu() for p in t.model.parameters()]
+    for a, b in zip(res["cuda"], res["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+def test_link_task_step_on_card_matches_cpu(dev):
+    """One LinkClassificationTrainer step (both endpoints' trees: K1, K3,
+    K4, K4b) card against CPU: the loss, every weight after the update and
+    predict_batch's logits within 1e-4 relative."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from gigl_tpu_torch.models.init import init_params
+    from gigl_tpu_torch.training.link_task import (
+        EdgeClassifierHead, LinkClassificationModel,
+        LinkClassificationTrainer, LinkClassificationTrainerConfig)
+
+    src, dst, x = _option_graph(22)
+    labels = np.random.default_rng(23).integers(0, 2, 400)
+    edges = np.stack([src[:400], dst[:400]])
+    res = {}
+    for device in (dev, torch.device("cpu")):
+        g = DeviceGraph.from_hetero(HeteroGraph.homogeneous(
+            src=src, dst=dst, num_nodes=N, node_features=x), device=device)
+        model = LinkClassificationModel(GNNEncoder(16, 32, 16),
+                                        EdgeClassifierHead(16, 2, 16))
+        init_params(model, 4)
+        t = LinkClassificationTrainer(model, g, edges, labels,
+                                      LinkClassificationTrainerConfig(
+                                          fanouts=(10, 5)), device=device)
+        state = t.init_state(params=model.state_dict())
+        _build.reset_launches()
+        state, loss = t.train_step(state, np.arange(64))
+        if device.type == "cuda":
+            for k in ("sample_uniform", "gather_rows", "masked_reduce",
+                      "masked_reduce_bwd"):
+                assert _build.launches[k] > 0, k
+        res[device.type] = [loss.cpu().reshape(1), t.predict_batch(
+            src[:32], dst[:32]).cpu()] + [p.detach().cpu()
+                                          for p in t.model.parameters()]
+    for a, b in zip(res["cuda"], res["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("task", ["grace", "bgrl"])
+def test_ssl_steps_on_card_match_cpu(dev, task):
+    """Two SSL steps from the same weights and the same view draws (made on
+    the CPU, moved to the card): the losses, every weight and, for BGRL,
+    the EMA target within 1e-4 relative."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from gigl_tpu_torch.models.augmentations import ViewDraw
+    from gigl_tpu_torch.models.init import init_params
+    from gigl_tpu_torch.training.ssl_trainer import (SSLTrainer,
+                                                     SSLTrainerConfig)
+
+    src, dst, x = _option_graph(24)
+    res, views = {}, None
+    for device in (torch.device("cpu"), dev):
+        g = DeviceGraph.from_hetero(HeteroGraph.homogeneous(
+            src=src, dst=dst, num_nodes=N, node_features=x), device=device)
+        t = SSLTrainer(GNNEncoder(16, 32, 16), g, SSLTrainerConfig(
+            task=task, fanouts=(10, 5)), device=device)
+        init_params(t.model, 5)
+        state = t.init_state(params=t.model.state_dict())
+        if views is None:
+            gen = torch.Generator().manual_seed(6)
+            views = [t.draw_views(64, gen) for _ in range(2)]
+
+        def on(draw):
+            def mv(a):
+                return None if a is None else a.to(device)
+            return ViewDraw([mv(k) for k in draw.feature_keeps],
+                            None if draw.edge_keeps is None
+                            else [mv(k) for k in draw.edge_keeps],
+                            mv(draw.perm))
+
+        losses = []
+        _build.reset_launches()
+        for k in range(2):
+            state, loss = t.train_step(state, np.arange(64) + 64 * k,
+                                       views={n: on(v) for n, v in
+                                              views[k].items()})
+            losses.append(loss.cpu().reshape(1))
+        if device.type == "cuda":
+            for kname in ("sample_uniform", "gather_rows", "masked_reduce",
+                          "masked_reduce_bwd"):
+                assert _build.launches[kname] > 0, kname
+        res[device.type] = losses + [p.detach().cpu()
+                                     for p in t.model.parameters()] + (
+            [p.detach().cpu() for p in state.target.parameters()]
+            if state.target is not None else [])
+    for a, b in zip(res["cuda"], res["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)

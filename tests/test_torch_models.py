@@ -150,7 +150,7 @@ def test_l2_normalize_matches():
            ref_layers.l2_normalize(jnp.asarray(x)), "float32")
 
 
-def test_cached_agg_kind_and_unported_options():
+def test_cached_agg_kind_and_encoder_options():
     for conv, kw in (("graphsage", None), ("graphsage", {"aggr": "sum"}),
                      ("gcn", None), ("gin", None)):
         assert encoders.cached_agg_kind(conv, kw) == \
@@ -158,15 +158,47 @@ def test_cached_agg_kind_and_unported_options():
     assert encoders.CACHEABLE_CONVS == ref_enc.CACHEABLE_CONVS
     with pytest.raises(ValueError, match="not hop-cacheable"):
         encoders.cached_agg_kind("gat")
-    # GINE is ported (tests/test_torch_edge_features.py); the encoder
-    # options below are not
+    # GINE is ported (tests/test_torch_edge_features.py)
     assert all(isinstance(c, convs.GINEConv) for c in encoders.GNNEncoder(
         DIN, DIN, OUT, conv="gine").convs)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        encoders.GNNEncoder(DIN, HID, OUT, jk_mode="cat")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        encoders.GNNEncoder(DIN, HID, OUT, batchnorm=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        link_prediction.LinkPredictionDecoder("mlp")
+    # jumping knowledge, batch norm, the mlp decoder and a bn_0 tree, each
+    # against the reference (every path and option:
+    # tests/test_torch_encoder_options.py)
+    feats, masks, _ = _tree()
+    jf, jm = [jnp.asarray(f) for f in feats], [jnp.asarray(m) for m in masks]
+    tf = [torch.from_numpy(f) for f in feats]
+    tm = [torch.from_numpy(m) for m in masks]
+    for opts in ({"jk_mode": "cat"}, {"batchnorm": True}):
+        jenc = ref_enc.GNNEncoder(hid_dim=HID, out_dim=OUT, **opts)
+        variables = _np(jax.jit(jenc.init)(jax.random.PRNGKey(0), jf, jm))
+        enc = encoders.GNNEncoder(DIN, HID, OUT, **opts)
+        enc.load_state_dict(params_from_flax(variables))
+        with torch.no_grad():
+            _close(enc(tf, tm), jenc.apply(variables, jf, jm), "float32")
+    rng = np.random.default_rng(7)
+    q = rng.normal(size=(5, OUT)).astype(np.float32)
+    c = rng.normal(size=(7, OUT)).astype(np.float32)
+    jd = ref_lp.LinkPredictionDecoder(decoder_type="mlp", hidden_dim=16)
+    dv = _np(jd.init(jax.random.PRNGKey(1), jnp.asarray(q)[:, None],
+                     jnp.asarray(c)[None]))
+    dec = link_prediction.LinkPredictionDecoder("mlp", hidden_dim=16,
+                                                in_dim=OUT)
+    dec.load_state_dict({f"{k}.{'weight' if n == 'kernel' else n}":
+                         torch.tensor(a.T if n == "kernel" else a)
+                         for k, lv in dv["params"].items()
+                         for n, a in lv.items()})
+    with torch.no_grad():
+        _close(dec.all_pairs(torch.from_numpy(q), torch.from_numpy(c)),
+               jd.apply(dv, jnp.asarray(q), jnp.asarray(c),
+                        method="all_pairs"), "float32")
+    bn = {"scale": np.full(HID, 2.0, np.float32),
+          "bias": np.full(HID, 0.5, np.float32)}
+    stats = {"mean": np.full(HID, 0.25, np.float32),
+             "var": np.full(HID, 4.0, np.float32)}
+    sd = params_from_flax({"params": {"encoder": {"bn_0": bn}},
+                           "batch_stats": {"encoder": {"bn_0": stats}}})
+    assert {k: float(v[0]) for k, v in sd.items()} == {
+        "encoder.bns.0.scale": 2.0, "encoder.bns.0.bias": 0.5,
+        "encoder.bns.0.mean": 0.25, "encoder.bns.0.var": 4.0}
     with pytest.raises(ValueError, match="unsupported"):
-        params_from_flax({"params": {"encoder": {"bn_0": {}}}})
+        params_from_flax({"params": {"encoder": {"bn_x": {}}}})
