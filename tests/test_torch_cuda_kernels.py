@@ -4943,11 +4943,22 @@ def _seeded(module, seed=0):
     return module
 
 
+def _close_to_cpu(got, want, largest):
+    """Each tensor within 1e-4 of its scale, or of 1e-2 of ``largest``
+    where its own is rounding noise (a gradient zero by symmetry: the
+    convs' biases before batch norm, JK-lstm's att bias, an MLP's last
+    bias under the retrieval softmax)."""
+    for a, b in zip(got, want):
+        scale = max(float(b.abs().max()), 1e-2 * largest)
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+
+
 def test_bn_jk_lstm_encoder_train_mode_on_card_matches_cpu(dev):
     """A batch-norm + JK-lstm encoder (final linear, DCN) in train mode on
     the block path: the output, every parameter's gradient and the running
     statistics after two calls, card against CPU, fp32 within 1e-4 of the
-    scale (K4 / K4b on the card; sums in another order)."""
+    scale (K4 / K4b on the card; sums in another order), a gradient zero by
+    symmetry within 1e-6 of the largest."""
     torch.backends.cuda.matmul.allow_tf32 = False
     feats, masks = _option_tree(np.random.default_rng(20))
     res = {}
@@ -4966,10 +4977,11 @@ def test_bn_jk_lstm_encoder_train_mode_on_card_matches_cpu(dev):
             for k in ("masked_reduce", "masked_reduce_bwd"):
                 assert _build.launches[k] > 0, k
         res[device.type] = [out.detach().cpu()] + [
-            p.grad.cpu() for p in enc.parameters()] + [
-            b.cpu() for b in enc.buffers()]
-    for a, b in zip(res["cuda"], res["cpu"]):
-        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+            b.cpu() for b in enc.buffers()] + [
+            p.grad.cpu() for p in enc.parameters()]
+    grads = res["cpu"][-len(list(enc.parameters())):]
+    _close_to_cpu(res["cuda"], res["cpu"],
+                  max(float(g.abs().max()) for g in grads))
 
 
 def _option_graph(seed=21, n=N, d=16):
@@ -4979,10 +4991,13 @@ def _option_graph(seed=21, n=N, d=16):
 
 
 def test_hadamard_mlp_nalp_step_on_card_matches_cpu(dev):
-    """A NALP step (live draws, retrieval loss through K5) with the
-    hadamard_mlp decoder and a JK-cat encoder with the final linear, card
-    against CPU from the same weights: the loss and every weight after the
-    update within 1e-4 relative."""
+    """A NALP step's loss and gradients (live draws, retrieval loss
+    through K5) with the hadamard_mlp decoder and a JK-cat encoder with
+    the final linear, card against CPU from the same weights: within 1e-4
+    of each scale, the MLP's last bias (zero by symmetry: the retrieval
+    softmax takes a query's constant out) within 1e-6 of the largest
+    gradient. Its gradient is rounding noise, so Adam's first update of it
+    is +-lr by the noise's sign: the weights after a step are not held."""
     torch.backends.cuda.matmul.allow_tf32 = False
     from gigl_tpu_torch.models.init import init_params
 
@@ -4999,17 +5014,18 @@ def test_hadamard_mlp_nalp_step_on_card_matches_cpu(dev):
         init_params(model, 3)
         t = NALPTrainer(model, g, NALPTrainerConfig(
             fanouts=(10, 5), num_random_negs=64), device=device)
-        state = t.init_state(params=model.state_dict())
+        t.init_state(params=model.state_dict())
         _build.reset_launches()
-        state, loss = t.train_step(state, anchors)
+        loss = t.loss(t.sample_batch(anchors, 0))
+        loss.backward()
         if device.type == "cuda":
             for k in ("sample_uniform", "uniform_ids", "gather_rows",
                       "masked_reduce", "masked_reduce_bwd", "retrieval_loss"):
                 assert _build.launches[k] > 0, k
-        res[device.type] = [loss.cpu().reshape(1)] + [
-            p.detach().cpu() for p in t.model.parameters()]
-    for a, b in zip(res["cuda"], res["cpu"]):
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+        res[device.type] = [loss.detach().cpu().reshape(1)] + [
+            p.grad.cpu() for p in t.model.parameters()]
+    _close_to_cpu(res["cuda"], res["cpu"],
+                  max(float(g.abs().max()) for g in res["cpu"][1:]))
 
 
 def test_link_task_step_on_card_matches_cpu(dev):
